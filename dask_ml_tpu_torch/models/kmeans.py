@@ -1,0 +1,496 @@
+"""KMeans functional core of the PyTorch port: Lloyd iterations and the
+k-means|| initialization (counterpart of ``dask_ml_tpu/models/kmeans.py``).
+
+Plain functions on tensors. Every distance-and-reduce step goes through
+the fused family (:mod:`dask_ml_tpu_torch.ops.fused_distance`), and one
+Lloyd iteration over the data is one launch of the single-pass kernel
+``_kernels/csrc/lloyd.cu`` on the card. Loops that the JAX package runs as
+``lax.while_loop`` / ``fori_loop`` on the device are Python loops here;
+the Lloyd loops read ``shift`` back to the host once an iteration for the
+reference's stopping rule ``shift < tol``.
+
+Random numbers come from an explicit ``torch.Generator``. PyTorch's
+generator (Philox) cannot reproduce ``jax.random``'s threefry bits, so
+k-means|| is held to the reference by the quality of its result and by
+determinism under a seed, while the Lloyd loops are held to it bit for
+bit from a shared ``init=`` array.
+
+Rows with weight 0 contribute nothing to sums, counts or inertia.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Optional
+
+import numpy as np
+import torch
+
+from dask_ml_tpu_torch import _kernels
+from dask_ml_tpu_torch.ops.fused_distance import (
+    fused_argmin_min,
+    fused_argmin_weight,
+    fused_rowwise_min,
+)
+from dask_ml_tpu_torch.parallel import telemetry
+
+logger = logging.getLogger(__name__)
+
+_INF = float("inf")
+
+
+# ---------------------------------------------------------------------------
+# Lloyd iterations
+# ---------------------------------------------------------------------------
+
+
+def _assign(X, w, centers, kernel: str = "auto"):
+    """Labels, weighted min-distances and inertia through the fused
+    family."""
+    labels, mind = fused_argmin_min(X, centers, kernel=kernel)
+    return labels, mind, (mind * w).sum()
+
+
+def _new_centers(sums, counts, centers):
+    """THE M-step finalization shared by every Lloyd implementation.
+    Counts are weighted sums and may be in (0, 1); only exact zeros are
+    empty clusters, which keep their old center."""
+    occupied = counts > 0
+    safe = torch.where(occupied, counts, torch.ones_like(counts))
+    return torch.where(occupied[:, None], sums / safe[:, None], centers)
+
+
+def _weighted_sums(X, w, labels, k: int):
+    """Per-cluster weighted (k, d) sums and (k,) counts by a one-hot
+    matmul."""
+    onehot = (torch.nn.functional.one_hot(labels.long(), k).to(X.dtype)
+              * w[:, None])
+    return onehot.T @ X, onehot.sum(dim=0)
+
+
+def _m_step(X, w, labels, centers):
+    """Weighted one-hot-matmul M-step."""
+    sums, counts = _weighted_sums(X, w, labels, centers.shape[0])
+    return _new_centers(sums, counts, centers), counts
+
+
+def lloyd_step(X, w, centers, kernel: str = "auto"):
+    """One Lloyd iteration. Returns (new_centers, labels, inertia, shift)."""
+    labels, _, inertia = _assign(X, w, centers, kernel=kernel)
+    new_centers, _ = _m_step(X, w, labels, centers)
+    shift = ((new_centers - centers) ** 2).sum()
+    return new_centers, labels, inertia, shift
+
+
+def _tol_tensor(tol, device):
+    return torch.as_tensor(tol, dtype=torch.float32, device=device)
+
+
+def lloyd_loop(X, w, centers, tol, max_iter: int, kernel: str = "auto"):
+    """Lloyd over a small problem through :func:`lloyd_step` (the k-means||
+    finishing pass over the candidate buffer). Returns (centers, inertia,
+    n_iter, shift); stops when ``shift < tol`` or after ``max_iter``."""
+    centers = centers.to(torch.float32)
+    tol_t = _tol_tensor(tol, centers.device)
+    inertia = torch.tensor(_INF, device=centers.device)
+    shift = torch.tensor(_INF, device=centers.device)
+    it = 0
+    while it < max_iter and bool(shift >= tol_t):
+        centers, _, inertia, shift = lloyd_step(X, w, centers, kernel=kernel)
+        it += 1
+    return centers, inertia, it, shift
+
+
+def _lloyd_stats_ref(X, w, centers):
+    """Plain version of one single-pass Lloyd iteration: the weighted
+    (k, d) sums, (k,) counts and the inertia of assigning X to
+    ``centers``."""
+    k = centers.shape[0]
+    c2 = (centers * centers).sum(dim=1)
+    scores = c2[:, None] - 2.0 * (centers @ X.T)  # (k, n)
+    best = scores.argmin(dim=0)
+    oh_w = ((torch.arange(k, device=X.device)[:, None] == best[None, :])
+            .to(torch.float32) * w[None, :])
+    sums = oh_w @ X
+    counts = oh_w.sum(dim=1)
+    x2 = (X * X).sum(dim=1)
+    mind = torch.clamp(scores.min(dim=0).values + x2, min=0.0)
+    return sums, counts, (mind * w).sum()
+
+
+def _lloyd_cuda_supported(k: int, d: int) -> bool:
+    """Does the single-pass kernel's shared-memory budget hold (k, d)?"""
+    from dask_ml_tpu_torch._kernels import build
+
+    return bool(build.load("lloyd").dml_lloyd_supported(k, d))
+
+
+def _lloyd_stats_cuda(X, w, centers):
+    """Launch ``csrc/lloyd.cu`` — replaces the TPU kernel
+    ``dask_ml_tpu/models/kmeans.py::_lloyd_iter_pallas``. One pass over X
+    computes the sums, counts and inertia; a second, fixed-order launch
+    reduces the per-block partials (bit-reproducible). See the source for
+    what bounds it on the H100."""
+    from dask_ml_tpu_torch._kernels import build
+
+    n, d = X.shape
+    k = centers.shape[0]
+    if (X.dtype != torch.float32 or w.dtype != torch.float32
+            or not X.is_cuda or w.device != X.device
+            or centers.device != X.device
+            or not X.is_contiguous() or not w.is_contiguous()
+            or w.shape != (n,) or centers.shape != (k, d)):
+        raise ValueError(
+            "the Lloyd kernel takes contiguous float32 X (n, d), w (n,) "
+            f"and centers (k, d) on one CUDA device; got X {X.dtype} "
+            f"{tuple(X.shape)} on {X.device}, w {w.dtype} {tuple(w.shape)} "
+            f"on {w.device}, centers {tuple(centers.shape)} on "
+            f"{centers.device}")
+    if not 0 < n < 2**31:
+        raise ValueError(f"the Lloyd kernel takes 0 < n < 2**31; got {n}")
+    lib = build.load("lloyd")
+    if not lib.dml_lloyd_supported(k, d):
+        raise ValueError(
+            f"kernel='cuda': k={k}, d={d} exceeds the Lloyd kernel's "
+            "shared-memory budget (centers + a (k, d+1) accumulator + a "
+            "128-row tile); use kernel='auto' for the two-pass form")
+    C = centers.to(torch.float32).contiguous()
+    P = k * (d + 1) + 1
+    partial = torch.empty(lib.dml_lloyd_max_partials() * P,
+                          dtype=torch.float32, device=X.device)
+    out = torch.empty(P, dtype=torch.float32, device=X.device)
+    code = lib.dml_lloyd_iter(X.data_ptr(), w.data_ptr(), C.data_ptr(),
+                              n, k, d, partial.data_ptr(), out.data_ptr(),
+                              build.stream_of(X))
+    build.check(code, "Lloyd kernel")
+    _kernels.launches["lloyd_iter"] += 1
+    acc = out[:-1].view(k, d + 1)
+    return acc[:, :d], acc[:, d], out[-1]
+
+
+def _lloyd_stats_two_pass(X, w, centers):
+    """The card's form beyond the single-pass kernel's bound (the
+    counterpart of the JAX ``"xla"`` branch): the assignment runs through
+    the fused argmin kernel, the M-step is a one-hot matmul."""
+    labels, mind = fused_argmin_min(X, centers, kernel="cuda")
+    sums, counts = _weighted_sums(X, w, labels, centers.shape[0])
+    return sums, counts, (mind * w).sum()
+
+
+def _lloyd_stats_fn(X, k: int, d: int, kernel: str):
+    if kernel not in ("auto", "cuda", "torch"):
+        raise ValueError(f"kernel must be auto|cuda|torch, got {kernel!r}")
+    if kernel == "torch":
+        return _lloyd_stats_ref
+    if not X.is_cuda:
+        if kernel == "cuda":
+            raise ValueError(
+                f"kernel='cuda' needs CUDA tensors; X lies on {X.device}")
+        return _lloyd_stats_ref
+    if kernel == "cuda" or _lloyd_cuda_supported(k, d):
+        return _lloyd_stats_cuda
+    return _lloyd_stats_two_pass
+
+
+def lloyd_loop_fused(X, w, centers0, tol, *, max_iter: int,
+                     kernel: str = "auto"):
+    """Lloyd over the full data, one single-pass kernel launch per
+    iteration on the card (``kernel="auto"`` or ``"cuda"``; beyond the
+    kernel's shared-memory bound ``"auto"`` takes the two-pass form, and
+    ``"cuda"`` raises). On the CPU, or with ``kernel="torch"``, each
+    iteration runs the plain version. ``shift`` is read back to the host
+    once an iteration for the stopping rule — one device sync per
+    iteration. Returns (centers, inertia, n_iter, shift)."""
+    k, d = centers0.shape
+    stats = _lloyd_stats_fn(X, k, d, kernel)
+    centers = centers0.to(torch.float32)
+    tol_t = _tol_tensor(tol, centers.device)
+    inertia = torch.tensor(_INF, device=centers.device)
+    shift = torch.tensor(_INF, device=centers.device)
+    it = 0
+    while it < max_iter and bool(shift >= tol_t):
+        sums, counts, inertia = stats(X, w, centers)
+        new_centers = _new_centers(sums, counts, centers)
+        shift = ((new_centers - centers) ** 2).sum()
+        centers = new_centers
+        it += 1
+    return centers, inertia, it, shift
+
+
+def compute_inertia(X, w, centers, kernel: str = "auto"):
+    """Weighted cost of assigning X to ``centers`` (a 0-d tensor)."""
+    return _assign(X, w, centers, kernel=kernel)[2]
+
+
+def predict_labels(X, centers, kernel: str = "auto"):
+    """Nearest-center labels, int32."""
+    return fused_argmin_min(X, centers, kernel=kernel)[0]
+
+
+def scaled_tolerance(X, w, tol):
+    """``tol`` scaled by the mean per-feature variance of the weighted
+    data, as sklearn and the reference do (a 0-d f32 tensor)."""
+    sw = w.sum()
+    mean = (w[:, None] * X).sum(dim=0) / sw
+    var = (w[:, None] * (X - mean) ** 2).sum(dim=0) / sw
+    return tol * var.mean()
+
+
+# ---------------------------------------------------------------------------
+# k-means|| (Bahmani et al. 2012, Algorithm 2)
+# ---------------------------------------------------------------------------
+
+
+def _categorical(p, gen: torch.Generator, num: int):
+    """``num`` indices drawn with replacement ∝ ``p`` (non-negative, not
+    all zero) by inverse-CDF search on an f64 cumulative sum. Unlike
+    ``torch.multinomial`` it takes any number of categories (the seeding
+    draw runs over every row)."""
+    c = torch.cumsum(p.to(torch.float64), dim=0)
+    u = torch.rand(num, generator=gen, device=p.device,
+                   dtype=torch.float64) * c[-1]
+    return torch.searchsorted(c, u, right=True).clamp_(max=p.numel() - 1)
+
+
+def _kmeanspp_on_candidates(cand, cw, n_clusters: int, gen, n_trials: int):
+    """Weighted greedy k-means++ over the small candidate buffer (sklearn's
+    ``_kmeans_plusplus`` with ``n_trials`` local trials). Rows with
+    ``cw == 0`` are drawn only through the 1e-30 floor, i.e. only when
+    every real potential is zero."""
+    i0 = _categorical(torch.clamp(cw, min=1e-30), gen, 1)[0]
+    c0 = cand[i0]
+    centers = torch.zeros((n_clusters, cand.shape[1]), dtype=torch.float32,
+                          device=cand.device)
+    centers[0] = c0
+    zero = torch.zeros_like(cw)
+    mind = torch.where(cw > 0, ((cand - c0[None, :]) ** 2).sum(dim=1), zero)
+    for j in range(1, n_clusters):
+        pot = mind * cw
+        ids = _categorical(torch.clamp(pot, min=1e-30), gen, n_trials)
+        cs = cand[ids]  # (L, d)
+        d2 = ((cand[None, :, :] - cs[:, None, :]) ** 2).sum(dim=-1)
+        newmind = torch.minimum(mind[None, :], d2)  # (L, n_cand)
+        b = (newmind * cw[None, :]).sum(dim=1).argmin()
+        centers[j] = cs[b]
+        mind = torch.where(cw > 0, newmind[b], zero)
+    return centers
+
+
+def _init_seed_phase(X, w, gen, *, max_rounds: int, max_cand: int):
+    """k-means|| phase 1 — first center ∝ w, per-row min-distances, φ₀,
+    and the data-dependent round count (read to the host)."""
+    d = X.shape[1]
+    idx0 = _categorical(torch.clamp(w, min=1e-30), gen, 1)[0]
+    first = X[idx0].to(torch.float32)
+    cand = torch.zeros((max_cand, d), dtype=torch.float32, device=X.device)
+    cand[0] = first
+    mind0 = torch.where(w > 0, ((X - first[None, :]) ** 2).sum(dim=1),
+                        torch.zeros_like(w))
+    phi0 = (mind0 * w).sum()
+    n_rounds = int(torch.clamp(
+        torch.round(torch.log(torch.clamp(phi0, min=1e-30))),
+        1, max_rounds))
+    return cand, mind0, phi0, n_rounds
+
+
+def _pack_hits(mask, cap: int):
+    """Indices of the first ``cap`` True entries of ``mask``, ascending
+    (then zeros) — the same candidates for the same mask, with no host
+    sync. ``torch.topk`` over equal scores would leave their order
+    unspecified on the card."""
+    n = mask.shape[0]
+    pos = torch.cumsum(mask, dim=0) - 1
+    slot = torch.where(mask & (pos < cap), pos, torch.full_like(pos, cap))
+    buf = torch.zeros(cap + 1, dtype=torch.long, device=mask.device)
+    # every slot < cap is written once; slot `cap` collects the rest and
+    # is dropped
+    buf.scatter_(0, slot, torch.arange(n, device=mask.device))
+    return buf[:cap]
+
+
+def _init_rounds_phase(X, w, l, cand, mind0, n_rounds: int, gen, *,
+                       max_cand: int, cap: int, kernel: str = "auto",
+                       prune: bool = True):
+    """k-means|| phase 2 — the sampling rounds. Each round draws rows
+    ∝ l·mind·w/φ, packs up to ``cap`` hits into the candidate buffer, and
+    updates ``mind`` against ONLY the new rows through
+    :func:`fused_rowwise_min`.
+
+    ``prune=True`` skips the distance work of rows whose minimum provably
+    cannot improve: ``d(x, c) ≥ |‖x‖ − ‖c‖|``, so when the squared gap
+    between ‖x‖ and the new rows' norm interval exceeds ``mind`` (less an
+    absolute slack that covers f32 rounding) the row's group may skip via
+    ``row_need``. Skipped rows keep ``mind`` exactly, so pruned and
+    unpruned rounds draw identical candidates. Returns (cand, n_cand,
+    overflow, rows_skipped, rows_considered); the counts are tensors."""
+    n = X.shape[0]
+    dev = X.device
+    cap_iota = torch.arange(cap, device=dev)
+    w_real = w > 0
+    zero = torch.zeros_like(w)
+    if prune:
+        x2 = (X * X).sum(dim=1)
+        xnorm = torch.sqrt(x2)
+    # one trash row past the buffer takes the writes of unfilled slots
+    buf = torch.cat([cand, cand.new_zeros((1, cand.shape[1]))])
+    n_cand = torch.tensor(1, dtype=torch.long, device=dev)
+    overflow = torch.tensor(0, dtype=torch.long, device=dev)
+    skipped = torch.tensor(0, dtype=torch.long, device=dev)
+    considered = torch.tensor(0, dtype=torch.long, device=dev)
+    mind = mind0
+    for _ in range(n_rounds):
+        phi = (mind * w).sum()
+        p = torch.clamp(l * mind * w / torch.clamp(phi, min=1e-30), max=1.0)
+        hits = torch.rand(n, generator=gen, device=dev) < p
+        total = hits.sum()
+        idx = _pack_hits(hits, cap)
+        count = torch.minimum(torch.clamp(total, max=cap), max_cand - n_cand)
+        rows = X[idx].to(torch.float32)  # (cap, d)
+        ok = cap_iota < count
+        slots = torch.where(ok, n_cand + cap_iota,
+                            torch.full_like(cap_iota, max_cand))
+        buf[slots] = rows
+        if prune:
+            rn = torch.sqrt((rows * rows).sum(dim=1))
+            r_lo = torch.where(ok, rn, torch.full_like(rn, _INF)).min()
+            r_hi = torch.where(ok, rn, torch.zeros_like(rn)).max()
+            gap = torch.clamp(torch.maximum(r_lo - xnorm, xnorm - r_hi),
+                              min=0.0)
+            slack = 1e-5 * (x2 + r_hi * r_hi) + 1e-12
+            need = (gap * gap - slack < mind) & w_real
+            skipped = skipped + (w_real & ~need).sum()
+            considered = considered + w_real.sum()
+            dmin_new = fused_rowwise_min(X, rows, mask=ok, kernel=kernel,
+                                         row_need=need)
+        else:
+            dmin_new = fused_rowwise_min(X, rows, mask=ok, kernel=kernel)
+        mind = torch.where(w_real, torch.minimum(mind, dmin_new), zero)
+        overflow = torch.maximum(overflow, total - count)
+        n_cand = n_cand + count
+    return buf[:max_cand], n_cand, overflow, skipped, considered
+
+
+def _init_weights_phase(X, w, cand, n_cand: int, gen, *, n_clusters: int,
+                        max_cand: int, kernel: str = "auto"):
+    """k-means|| phase 3 — top-up to ``n_clusters`` candidates with random
+    distinct real rows when the draw came up short, then the candidate
+    weights (total row weight nearest each candidate) through
+    :func:`fused_argmin_weight`."""
+    need = min(max(n_clusters - n_cand, 0), n_clusters)
+    if need > 0:
+        u = torch.rand(X.shape[0], generator=gen, device=X.device)
+        u = torch.where(w > 0, u, torch.full_like(u, _INF))
+        extra = torch.topk(-u, n_clusters).indices[:need]
+        cand[n_cand:n_cand + need] = X[extra].to(torch.float32)
+        n_cand += need
+    valid = torch.arange(max_cand, device=X.device) < n_cand
+    _, cw = fused_argmin_weight(X, w, cand, mask=valid, kernel=kernel)
+    return cand, n_cand, cw
+
+
+def _init_finish_phase(cand, cw, tol, gen, *, n_clusters: int,
+                       n_trials: int, finish_iters: int,
+                       kernel: str = "auto"):
+    """k-means|| phase 4 — weighted greedy k-means++ over the candidates
+    plus the small finishing Lloyd loop."""
+    centers = _kmeanspp_on_candidates(cand, cw, n_clusters, gen, n_trials)
+    centers, _, _, _ = lloyd_loop(cand, cw, centers, tol,
+                                  max_iter=finish_iters, kernel=kernel)
+    return centers
+
+
+def _init_scalable_config(n_padded: int, n_clusters: int,
+                          oversampling_factor: float,
+                          max_iter: Optional[int]) -> dict:
+    """Buffer and cap sizing — the reference's rule, unchanged."""
+    l = float(oversampling_factor * n_clusters)
+    max_rounds = 20
+    if max_iter is not None:
+        max_rounds = int(min(max(max_iter, 1), max_rounds))
+    return dict(
+        l=l,
+        max_rounds=max_rounds,
+        cap=int(min(max(4 * int(np.ceil(l)) + 16, 64), n_padded)),
+        max_cand=int(1 + np.ceil(l) * max_rounds + n_clusters),
+        n_trials=2 + int(np.log(max(n_clusters, 2))),
+    )
+
+
+def init_scalable(X, w, n_valid: int, n_clusters: int, gen,
+                  oversampling_factor: float = 2.0,
+                  max_iter: Optional[int] = None, kernel: str = "auto"):
+    """k-means|| init: seeding, sampling rounds, candidate weighting and
+    the finishing k-means++ + Lloyd over the candidates."""
+    cfg = _init_scalable_config(X.shape[0], n_clusters, oversampling_factor,
+                                max_iter)
+    tol = scaled_tolerance(X, w, 1e-4)
+    with telemetry.span("kmeans-init-seed"):
+        cand, mind0, phi0, n_rounds = _init_seed_phase(
+            X, w, gen, max_rounds=cfg["max_rounds"],
+            max_cand=cfg["max_cand"])
+    with telemetry.span("kmeans-init-rounds"):
+        cand, n_cand, overflow, r_skip, r_total = _init_rounds_phase(
+            X, w, cfg["l"], cand, mind0, n_rounds, gen,
+            max_cand=cfg["max_cand"], cap=cfg["cap"], kernel=kernel)
+        n_cand = int(n_cand)
+    with telemetry.span("kmeans-init-weights"):
+        cand, n_cand, cw = _init_weights_phase(
+            X, w, cand, n_cand, gen, n_clusters=n_clusters,
+            max_cand=cfg["max_cand"], kernel=kernel)
+    with telemetry.span("kmeans-init-finish"):
+        centers = _init_finish_phase(
+            cand, cw, tol, gen, n_clusters=n_clusters,
+            n_trials=cfg["n_trials"], finish_iters=100, kernel=kernel)
+    logger.info(
+        "k-means|| init: phi0=%.4g, %d rounds, %d candidates, "
+        "round skip ratio %.3f", float(phi0), n_rounds, n_cand,
+        float(r_skip) / max(float(r_total), 1.0))
+    if int(overflow) > 0:
+        logger.warning(
+            "k-means|| round drew %d candidates beyond the per-round cap "
+            "of %d; the overflow was dropped", int(overflow), cfg["cap"])
+    return centers
+
+
+def init_random(X, w, n_valid: int, n_clusters: int, gen):
+    """``n_clusters`` distinct random rows."""
+    perm = torch.randperm(n_valid, generator=gen, device=X.device)
+    return X[torch.sort(perm[:n_clusters]).values].to(torch.float32)
+
+
+def init_pp(X, n_valid: int, n_clusters: int, gen):
+    """k-means++ on the host with scikit-learn's ``kmeans_plusplus``, like
+    the reference (only sensible for modest n; needs scikit-learn, which
+    the rest of the port does not)."""
+    from sklearn.cluster import kmeans_plusplus
+
+    Xh = X[:n_valid].cpu().numpy()
+    seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen,
+                             device=X.device))
+    centers, _ = kmeans_plusplus(Xh, n_clusters, random_state=seed)
+    return torch.as_tensor(centers, dtype=torch.float32, device=X.device)
+
+
+def k_init(X, w, n_valid: int, n_clusters: int, gen,
+           init="k-means||", oversampling_factor: float = 2.0,
+           max_iter: Optional[int] = None, kernel: str = "auto"):
+    """Init dispatch: an array, 'k-means||', 'k-means++' or 'random'."""
+    if isinstance(init, (np.ndarray, torch.Tensor)):
+        centers = torch.as_tensor(init).to(device=X.device,
+                                           dtype=torch.float32)
+        if tuple(centers.shape) != (n_clusters, X.shape[1]):
+            raise ValueError(
+                f"init array must have shape ({n_clusters}, {X.shape[1]}), "
+                f"got {tuple(centers.shape)}")
+        return centers
+    if init == "k-means||":
+        return init_scalable(X, w, n_valid, n_clusters, gen,
+                             oversampling_factor=oversampling_factor,
+                             max_iter=max_iter, kernel=kernel)
+    if init == "k-means++":
+        return init_pp(X, n_valid, n_clusters, gen)
+    if init == "random":
+        return init_random(X, w, n_valid, n_clusters, gen)
+    raise ValueError(
+        f"init must be 'k-means||', 'k-means++', 'random', or an array; "
+        f"got {init!r}")
