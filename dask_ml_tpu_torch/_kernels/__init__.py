@@ -8,12 +8,15 @@ before the path and read them just after.
 
 from __future__ import annotations
 
-#: launches per kernel wrapper (K1: lloyd_iter; K2-K4: fused distance)
+#: launches per kernel wrapper (K1: lloyd_iter; K2-K5: fused distance;
+#: the sketched assignment is K2 with a caller-supplied |x|²)
 launches = {
     "lloyd_iter": 0,
     "fused_argmin_min": 0,
     "fused_rowwise_min": 0,
     "fused_argmin_weight": 0,
+    "fused_argmin_min2": 0,
+    "fused_argmin_min_sketched": 0,
 }
 
 

@@ -36,7 +36,8 @@ SIGNATURES = {
     "fused_distance": {
         "dml_fused_rows_per_block": ([], _I),
         "dml_fused_distance": (
-            [_I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+            [_I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+             _P, _P],
             _I),
     },
     "lloyd": {

@@ -5,7 +5,8 @@ The sklearn-style shell keeps the JAX estimator's constructor signature
 and learned attributes; the compute path is the functional core in
 :mod:`dask_ml_tpu_torch.models.kmeans`, which runs on the configured
 device (``config.device``, default ``"cuda"``) through the hand-written
-kernels. This slice ports ``algorithm="full"`` (alias ``"lloyd"``).
+kernels: ``algorithm="full"`` (alias ``"lloyd"``), ``"bounded"`` (alias
+``"elkan"``), ``"auto"`` and ``"sketched"``.
 """
 
 from __future__ import annotations
@@ -13,11 +14,13 @@ from __future__ import annotations
 import logging
 from timeit import default_timer as tic
 
+import numpy as np
 import torch
 
 from dask_ml_tpu_torch.base import BaseEstimator, TransformerMixin
 from dask_ml_tpu_torch.config import maybe_host, resolve_device
 from dask_ml_tpu_torch.models import kmeans as core
+from dask_ml_tpu_torch.ops import fast_transform as ftm
 from dask_ml_tpu_torch.ops.pairwise import euclidean_distances
 from dask_ml_tpu_torch.parallel import telemetry
 from dask_ml_tpu_torch.parallel.sharding import prepare_data, unpad_rows
@@ -25,14 +28,12 @@ from dask_ml_tpu_torch.utils.validation import check_array, check_random_state
 
 logger = logging.getLogger(__name__)
 
-_LATER = {
-    "bounded": "bounded Lloyd (the argmin_min2 kernel) is the next slice",
-    "elkan": "it aliases 'bounded', bounded Lloyd (the argmin_min2 kernel), "
-             "the next slice",
-    "auto": "it selects bounded Lloyd, the next slice",
-    "sketched": "sketched k-means (the argmin_min kernel's x2d option) "
-                "comes with the remaining estimators",
-}
+_ALGORITHMS = ("full", "lloyd", "bounded", "elkan", "auto", "sketched")
+
+#: the sketched fit's restricted Lloyd rounds run through the bounded loop
+#: (True, as in the JAX package) or the single-pass loop (False); both
+#: give the same trajectory
+_SKETCHED_BOUNDED = True
 
 
 class KMeans(TransformerMixin, BaseEstimator):
@@ -47,10 +48,23 @@ class KMeans(TransformerMixin, BaseEstimator):
     max_iter : int, default 300
     tol : float, default 1e-4 — scaled by mean feature variance.
     random_state : int, numpy RandomState, torch.Generator or None
-    algorithm : {'full', 'lloyd'}, default 'full'
-        'bounded', 'elkan', 'auto' and 'sketched' raise
-        ``NotImplementedError``: they are later slices of the port.
+    algorithm : {'full', 'lloyd', 'bounded', 'elkan', 'auto', 'sketched'},
+        default 'full'
+        'full' (alias 'lloyd') is the single-pass Lloyd loop; 'bounded'
+        (alias 'elkan') carries Elkan/Yinyang center-movement bounds and
+        skips the distance pass group-wise for rows whose bounds prove the
+        label unchanged, with the same centers, labels and ``n_iter_``,
+        and exposes ``lloyd_pruning_``; 'auto' takes 'bounded' when
+        n ≥ 2^16 and k ≥ 4. 'sketched' is the approximate QuicK-means fit:
+        centers are held to a learned fast-transform sketch on
+        ``sketch_cols`` transform columns, and Lloyd runs in that
+        p-column space (attributes ``fast_transform_``, ``sketch_*``).
     init_max_iter : int or None — cap on k-means|| rounds.
+    sketch_cols : int or None, default None ('sketched' only)
+        Columns p of the shared sketch support; None takes
+        ``max(4, n_features // 4)``.
+    sketch_iters : int, default 8 ('sketched' only)
+        palm4MSA sweeps fitting the transform.
     device : str, torch.device or None
         Where fit/predict run; None takes ``config.device`` ("cuda").
     precompute_distances / copy_x / n_jobs are accepted for signature
@@ -64,6 +78,9 @@ class KMeans(TransformerMixin, BaseEstimator):
     n_iter_ : int
     n_features_in_ : int
     fit_phase_seconds_ : {"init": s, "lloyd": s}
+    lloyd_pruning_ : dict, bounded fits only — rows_skipped,
+        rows_considered, distances_avoided, pruned_fraction_per_iter,
+        bound_held_fraction_per_iter (over positive-weight rows)
     """
 
     def __init__(
@@ -79,6 +96,8 @@ class KMeans(TransformerMixin, BaseEstimator):
         n_jobs: int = 1,
         algorithm: str = "full",
         init_max_iter=None,
+        sketch_cols=None,
+        sketch_iters: int = 8,
         device=None,
     ):
         self.n_clusters = n_clusters
@@ -92,6 +111,8 @@ class KMeans(TransformerMixin, BaseEstimator):
         self.n_jobs = n_jobs
         self.algorithm = algorithm
         self.init_max_iter = init_max_iter
+        self.sketch_cols = sketch_cols
+        self.sketch_iters = sketch_iters
         self.device = device
 
     def _check_params(self, n_samples=None):
@@ -103,13 +124,21 @@ class KMeans(TransformerMixin, BaseEstimator):
             raise ValueError(
                 f"n_clusters={self.n_clusters} must be <= "
                 f"n_samples={n_samples}")
-        if self.algorithm in _LATER:
-            raise NotImplementedError(
-                f"algorithm={self.algorithm!r} is not ported to PyTorch yet: "
-                f"{_LATER[self.algorithm]}. Use algorithm='full'.")
-        if self.algorithm not in ("full", "lloyd"):
+        if self.algorithm not in _ALGORITHMS:
             raise ValueError(
-                f"algorithm must be 'full' or 'lloyd'; got {self.algorithm!r}")
+                "algorithm must be 'full'/'lloyd', 'bounded'/'elkan', "
+                f"'auto', or 'sketched'; got {self.algorithm!r}")
+        if self.sketch_cols is not None and int(self.sketch_cols) < 1:
+            raise ValueError("sketch_cols must be >= 1")
+        if int(self.sketch_iters) < 0:
+            raise ValueError("sketch_iters must be >= 0")
+
+    def _use_bounded(self, n: int, d: int) -> bool:
+        if self.algorithm in ("bounded", "elkan"):
+            return True
+        if self.algorithm == "auto":
+            return core._bounded_auto_wins(n, self.n_clusters, d)
+        return False
 
     def fit(self, X, y=None, sample_weight=None):
         t0 = tic()
@@ -128,26 +157,126 @@ class KMeans(TransformerMixin, BaseEstimator):
                     max_iter=self.init_max_iter)
                 _sync(dev)
             t_init = tic()
-            tol = core.scaled_tolerance(data.X, data.weights, self.tol)
-            with telemetry.span("kmeans-lloyd"):
-                centers, _, n_iter, _ = core.lloyd_loop_fused(
-                    data.X, data.weights, centers, tol,
-                    max_iter=self.max_iter)
-            # inertia against the FINAL centers, so inertia_ agrees with
-            # cluster_centers_, labels_ and score(X)
-            with telemetry.span("kmeans.finalize"):
-                inertia = core.compute_inertia(data.X, data.weights, centers)
-                labels = core.predict_labels(data.X, centers)
-                self.cluster_centers_ = centers.cpu().numpy()
-                self.labels_ = unpad_rows(labels, data.n).cpu().numpy()
-                self.inertia_ = float(inertia)
-        self.n_iter_ = int(n_iter)
-        self.n_features_in_ = data.n_features
+            # a refit must not keep the attributes of another algorithm:
+            # predict goes through the sketch when fast_transform_ exists
+            for name in ("fast_transform_", "lloyd_pruning_",
+                         "sketch_pruning_"):
+                self.__dict__.pop(name, None)
+            if self.algorithm == "sketched":
+                self._fit_sketched(data, centers, gen)
+            else:
+                self._fit_lloyd(data, centers)
         logger.info("Lloyd finished in %.2fs: %d iterations, inertia %.4g",
                     tic() - t_init, self.n_iter_, self.inertia_)
         self.fit_phase_seconds_ = {"init": t_init - t0,
                                    "lloyd": tic() - t_init}
         return self
+
+    def _fit_lloyd(self, data, centers):
+        tol = core.scaled_tolerance(data.X, data.weights, self.tol)
+        bounded = self._use_bounded(data.n, data.n_features)
+        with telemetry.span("kmeans-lloyd",
+                            algorithm="bounded" if bounded else "lloyd"):
+            if bounded:
+                centers, _, n_iter, _, _, stats = core.lloyd_loop_bounded(
+                    data.X, data.weights, centers, tol,
+                    max_iter=self.max_iter)
+            else:
+                centers, _, n_iter, _ = core.lloyd_loop_fused(
+                    data.X, data.weights, centers, tol,
+                    max_iter=self.max_iter)
+        # inertia against the FINAL centers, so inertia_ agrees with
+        # cluster_centers_, labels_ and score(X)
+        with telemetry.span("kmeans.finalize"):
+            inertia = core.compute_inertia(data.X, data.weights, centers)
+            labels = core.predict_labels(data.X, centers)
+            self.cluster_centers_ = centers.cpu().numpy()
+            self.labels_ = unpad_rows(labels, data.n).cpu().numpy()
+            self.inertia_ = float(inertia)
+        self.n_iter_ = int(n_iter)
+        self.n_features_in_ = data.n_features
+        if bounded:
+            self.lloyd_pruning_ = _pruning_summary(
+                [(stats, n_iter)], data.weights, self.n_clusters)
+
+    def _fit_sketched(self, data, centers, gen):
+        """The QuicK-means fit: palm4MSA-fit a fast transform and shared
+        support to the (centered) init centers, stage the data once into
+        the p support columns, and run Lloyd there — exact for the
+        sketch-constrained problem, since for an orthogonal transform
+        with a fixed support the restricted M-step is the full-space one
+        followed by re-projection. A second round refits the transform on
+        the converged centers and runs again. ``labels_`` come from the
+        sketched assignment that ``predict`` runs; ``cluster_centers_``
+        and ``inertia_`` are the exact weighted means of that partition
+        and its exact cost."""
+        d = data.n_features
+        p = (int(self.sketch_cols) if self.sketch_cols is not None
+             else max(4, d // 4))
+        w = data.weights
+        with telemetry.span("kmeans.sketch-fit", p=p,
+                            iters=int(self.sketch_iters)):
+            # center first: a shared mean component would spend support
+            # budget on a direction that cancels in every comparison
+            mu = (w @ data.X) / torch.clamp(w.sum(), min=1e-12)
+            ft, support, vals0, fit_loss = ftm.palm4msa_fit(
+                centers - mu[None, :], p, n_iter=int(self.sketch_iters),
+                generator=gen)
+            Zp = _sketch_stage(ft, data.X, mu, support)
+
+        def restricted_lloyd(Zp_, vals0_):
+            tol = core.scaled_tolerance(Zp_, w, self.tol)
+            if _SKETCHED_BOUNDED:
+                vals_, _, n_it, _, _, stats = core.lloyd_loop_bounded(
+                    Zp_, w, vals0_, tol, max_iter=self.max_iter)
+                return vals_, n_it, stats
+            vals_, _, n_it, _ = core.lloyd_loop_fused(
+                Zp_, w, vals0_, tol, max_iter=self.max_iter)
+            return vals_, n_it, None
+
+        with telemetry.span("kmeans-lloyd", algorithm="sketched"):
+            vals, n_iter1, stats1 = restricted_lloyd(Zp, vals0)
+            with telemetry.span("kmeans.sketch-refit", p=p):
+                ft, support, vals0, fit_loss = ftm.palm4msa_fit(
+                    ftm.reconstruct(ft, vals, support), p,
+                    n_iter=int(self.sketch_iters), generator=gen)
+                Zp = _sketch_stage(ft, data.X, mu, support)
+            vals, n_iter2, stats2 = restricted_lloyd(Zp, vals0)
+        with telemetry.span("kmeans.finalize"):
+            centers_sk = ftm.reconstruct(ft, vals, support) + mu[None, :]
+            Wp = ftm.support_matrix(ft, support)
+            off = mu @ Wp
+            labels = core.predict_labels_sketched(data.X, Wp, off, vals,
+                                                  centers_sk)
+            centers_dense = _polish_centers(data.X, w, labels, centers_sk)
+            inertia = _assigned_inertia(data.X, w, labels, centers_dense)
+        self.cluster_centers_ = centers_dense.cpu().numpy()
+        self.fast_transform_ = ftm.FastTransform(
+            ft.angles.cpu().numpy(), ft.d, ft.d_pad, ft.perms.cpu().numpy())
+        self.sketch_mean_ = mu.cpu().numpy()
+        self.sketch_centers_ = centers_sk.cpu().numpy()
+        self.sketch_support_ = support.cpu().numpy()
+        self.sketch_vals_ = vals.cpu().numpy()
+        self.sketch_staging_ = Wp.cpu().numpy()
+        self.sketch_offset_ = off.cpu().numpy()
+        self.sketch_loss_ = float(fit_loss)
+        if stats1 is not None:
+            self.sketch_pruning_ = _pruning_summary(
+                [(stats1, n_iter1), (stats2, n_iter2)], w, self.n_clusters)
+        self.labels_ = unpad_rows(labels, data.n).cpu().numpy()
+        self.inertia_ = float(inertia)
+        self.n_iter_ = int(n_iter1) + int(n_iter2)
+        self.n_features_in_ = data.n_features
+
+    def _sketch_args(self, dev):
+        """(Wp, off, vals, centers) of a sketched fit on ``dev``: the
+        arguments of ``models.kmeans.predict_labels_sketched``. The dense
+        centers are ``sketch_centers_`` (the reconstruction), not the
+        polished ``cluster_centers_``, so both of its branches assign to
+        the model the sketch encodes."""
+        return tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                     for a in (self.sketch_staging_, self.sketch_offset_,
+                               self.sketch_vals_, self.sketch_centers_))
 
     def _check_fitted(self):
         if not hasattr(self, "cluster_centers_"):
@@ -167,10 +296,15 @@ class KMeans(TransformerMixin, BaseEstimator):
         return data, centers
 
     def predict(self, X):
-        """Nearest-center labels (int32)."""
+        """Nearest-center labels (int32); a sketched model assigns through
+        its sketch, as its fit did."""
         data, centers = self._staged(X)
-        return maybe_host(unpad_rows(core.predict_labels(data.X, centers),
-                                     data.n))
+        if getattr(self, "fast_transform_", None) is not None:
+            labels = core.predict_labels_sketched(
+                data.X, *self._sketch_args(data.X.device))
+        else:
+            labels = core.predict_labels(data.X, centers)
+        return maybe_host(unpad_rows(labels, data.n))
 
     def transform(self, X):
         """Distances to each center."""
@@ -192,3 +326,44 @@ class KMeans(TransformerMixin, BaseEstimator):
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _pruning_summary(runs, w, k: int) -> dict:
+    """``lloyd_pruning_`` from the (stats, n_iter) of one or more bounded
+    loops. The loops count positive-weight rows only, so the fractions
+    are over those."""
+    skip = np.concatenate([st["rows_skipped"][:int(ni)].cpu().numpy()
+                           for st, ni in runs])
+    held = np.concatenate([st["bounds_held"][:int(ni)].cpu().numpy()
+                           for st, ni in runs])
+    n_real = int((w > 0).sum())
+    denom = max(n_real, 1)
+    return {
+        "rows_skipped": int(skip.sum()),
+        "rows_considered": len(skip) * n_real,
+        "distances_avoided": int(skip.sum()) * int(k),
+        "pruned_fraction_per_iter": [float(s) / denom for s in skip],
+        "bound_held_fraction_per_iter": [float(h) / denom for h in held],
+    }
+
+
+def _sketch_stage(ft, X, mu, support):
+    """``Z_p = (X − μ) @ Wᵀ[:, support]`` (n, p): the array the sketched
+    Lloyd rounds run on, one matmul through the materialized slice."""
+    return (X - mu[None, :]) @ ftm.support_matrix(ft, support).to(X.device)
+
+
+def _polish_centers(X, w, labels, fallback_centers):
+    """Exact weighted means of a fixed partition (one-hot matmul); empty
+    clusters keep their fallback center."""
+    k = fallback_centers.shape[0]
+    oh = (torch.nn.functional.one_hot(labels.long(), k).to(torch.float32)
+          * w[:, None])
+    cnt = oh.sum(dim=0)
+    means = (oh.T @ X) / torch.clamp(cnt, min=1e-12)[:, None]
+    return torch.where((cnt > 0)[:, None], means, fallback_centers)
+
+
+def _assigned_inertia(X, w, labels, centers):
+    """Weighted squared distance of each row to its ASSIGNED center."""
+    return (w * ((X - centers[labels.long()]) ** 2).sum(dim=1)).sum()

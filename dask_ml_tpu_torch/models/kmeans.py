@@ -1,5 +1,6 @@
-"""KMeans functional core of the PyTorch port: Lloyd iterations and the
-k-means|| initialization (counterpart of ``dask_ml_tpu/models/kmeans.py``).
+"""KMeans functional core of the PyTorch port: Lloyd iterations (plain,
+single-pass and bounded), sketched assignment and the k-means||
+initialization (counterpart of ``dask_ml_tpu/models/kmeans.py``).
 
 Plain functions on tensors. Every distance-and-reduce step goes through
 the fused family (:mod:`dask_ml_tpu_torch.ops.fused_distance`), and one
@@ -28,9 +29,13 @@ import torch
 
 from dask_ml_tpu_torch import _kernels
 from dask_ml_tpu_torch.ops.fused_distance import (
+    _row_blocks,
     fused_argmin_min,
+    fused_argmin_min2,
+    fused_argmin_min_sketched,
     fused_argmin_weight,
     fused_rowwise_min,
+    row_block_evaluated,
 )
 from dask_ml_tpu_torch.parallel import telemetry
 
@@ -234,6 +239,210 @@ def scaled_tolerance(X, w, tol):
     mean = (w[:, None] * X).sum(dim=0) / sw
     var = (w[:, None] * (X - mean) ** 2).sum(dim=0) / sw
     return tol * var.mean()
+
+
+# ---------------------------------------------------------------------------
+# Bound-based Lloyd: skip distance work with Elkan/Yinyang center-movement
+# bounds (arxiv 2105.02936, arxiv 1605.02989)
+# ---------------------------------------------------------------------------
+
+#: relative inflation of every bound-side quantity (seeds and movement
+#: decrements): a row is skipped only when its margin clears the f32
+#: rounding of the sqrt and the movement norms with room to spare
+_BOUND_SLACK = 1e-5
+
+#: absolute slack on the seeded squared distances, scaled by the operands'
+#: magnitudes ``|x|² + max|c|²``: ``|c|² − 2x·c + |x|²`` cancels, so its
+#: f32 error is relative to the norms, not to the distance
+_BOUND_EPS_ABS = 1e-5
+
+
+def _bounded_auto_wins(n: int, k: int, d: int) -> bool:
+    """Does ``algorithm='auto'`` take the bounded loop? The JAX package's
+    cold-start rule (the port has no decisions cache): n ≥ 2^16 and
+    k ≥ 4."""
+    return n >= (1 << 16) and k >= 4
+
+
+def _bounded_groups(k: int, groups):
+    """(G, size) of the Yinyang center grouping: ``'auto'`` takes
+    t = ⌈k/10⌉ groups, an int clips to [1, k]. Centers are grouped by
+    contiguous index (``gid = arange(k) // size``)."""
+    if groups == "auto":
+        G = max(1, -(-k // 10))
+    else:
+        G = max(1, min(int(groups), k))
+    size = -(-k // G)
+    return -(-k // size), size
+
+
+def _bounded_need(ub, lb, w_pos, *, prune: bool):
+    """The Yinyang global filter: a row needs distance work unless its
+    upper bound is strictly below its tightest group lower bound (at
+    equality the true distances may tie, and the tie is the oracle's to
+    break)."""
+    if not prune:
+        return w_pos
+    return w_pos & (ub >= lb.min(dim=1).values)
+
+
+def _bounded_assign(X_pad, x2_pad, centers, labels, ub, lb, w_pos, *,
+                    kernel: str, prune: bool):
+    """One bounded assignment step: evaluate the groups of rows the bounds
+    cannot clear through :func:`fused_argmin_min2`, keep the carried
+    labels and bounds of skipped groups, and reseed the bounds of
+    evaluated rows (upper = best distance, every group lower = the global
+    second-best, each with the magnitude-scaled slack). Returns (labels,
+    ub, lb, rows_skipped, bounds_held); the counts are 0-d tensors."""
+    s = _BOUND_SLACK
+    need = _bounded_need(ub, lb, w_pos, prune=prune)
+    idx, d1, d2 = fused_argmin_min2(X_pad, centers, row_need=need,
+                                    kernel=kernel)
+    ev = row_block_evaluated(need)
+    labels = torch.where(ev, idx, labels)
+    c2max = (centers * centers).sum(dim=1).max()
+    slack_sq = _BOUND_EPS_ABS * (x2_pad + c2max)
+    ub = torch.where(ev, torch.sqrt(d1 + slack_sq) * (1 + s), ub)
+    lb_seed = torch.sqrt(torch.clamp(d2 - slack_sq, min=0.0)) * (1 - s)
+    lb = torch.where(ev[:, None], lb_seed[:, None], lb)
+    skipped = (w_pos & ~ev).sum()
+    held = (w_pos & ~need).sum()
+    return labels, ub, lb, skipped, held
+
+
+def _bounded_move(ub, lb, labels, centers, new_centers, gid, G: int):
+    """Center-movement maintenance: the upper bound grows by the assigned
+    center's movement, each group lower bound shrinks by its group's
+    largest movement (inflated by the slack)."""
+    delta = (torch.sqrt(((new_centers - centers) ** 2).sum(dim=1))
+             * (1 + _BOUND_SLACK))
+    dg = torch.zeros(G, dtype=delta.dtype, device=delta.device)
+    dg = dg.scatter_reduce(0, gid, delta, "amax")
+    return ub + delta[labels.long()], lb - dg[None, :]
+
+
+def _bounded_init_state(centers0, n_pad: int, G: int, max_iter: int):
+    """(centers, labels, ub, lb, skip_hist, held_hist): zero bounds force a
+    full evaluation on the first iteration (``ub >= min(lb)`` holds at
+    0 ≥ 0), which seeds everything."""
+    dev = centers0.device
+    return (centers0.to(torch.float32),
+            torch.zeros(n_pad, dtype=torch.int32, device=dev),
+            torch.zeros(n_pad, dtype=torch.float32, device=dev),
+            torch.zeros((n_pad, G), dtype=torch.float32, device=dev),
+            torch.zeros(max_iter, dtype=torch.int64, device=dev),
+            torch.zeros(max_iter, dtype=torch.int64, device=dev))
+
+
+def _pad_rows_to_blocks(X, w):
+    """Zero rows with weight 0 up to whole ``row_need`` groups, once,
+    before the loop; weight-0 rows are inert everywhere."""
+    n = X.shape[0]
+    _, n_pad = _row_blocks(n)
+    if n_pad == n:
+        return X, w
+    return (torch.cat([X, X.new_zeros((n_pad - n, X.shape[1]))]),
+            torch.cat([w, w.new_zeros(n_pad - n)]))
+
+
+def _bounded_final_assign(X, w, centers, *, kernel: str):
+    """The bounded loop's post-loop full assignment and inertia: the same
+    expression as :func:`predict_labels` and :func:`compute_inertia`."""
+    labels, mind = fused_argmin_min(X, centers, kernel=kernel)
+    return labels, (mind * w).sum()
+
+
+def lloyd_loop_bounded(X, w, centers0, tol, *, max_iter: int,
+                       kernel: str = "auto", groups="auto",
+                       prune: bool = True, bounds_dtype=torch.float32):
+    """Lloyd that skips distance work through Elkan/Yinyang center-movement
+    bounds, bit-identical to the plain loop (:func:`lloyd_loop`) from the
+    same ``centers0``.
+
+    Per iteration: rows whose upper bound is below their tightest group
+    lower bound keep their label, and their ``_FUSED_BLK``-row groups skip
+    the distance pass; everyone else goes through
+    :func:`fused_argmin_min2` (the kernel skips whole groups on the card),
+    whose best and second-best distances reseed the bounds. The M-step is
+    the oracle's own :func:`_m_step` over the unpadded rows, so centers,
+    shifts and the stopping iteration are those of the unpruned loop.
+    Then each center's movement loosens the bounds. A Python loop like
+    :func:`lloyd_loop_fused`, reading ``shift`` once an iteration; the
+    bounds, labels and per-iteration counts stay on the device. Rows are
+    padded to whole groups once, before the loop.
+
+    Returns ``(centers, inertia, n_iter, shift, labels, stats)``: inertia
+    and labels from one full assignment against the returned centers,
+    ``stats`` with ``rows_skipped`` (rows whose distance work was avoided,
+    group granularity) and ``bounds_held`` (rows whose bound held), int64
+    tensors of length ``max_iter``, zero past ``n_iter``. ``bounds_dtype``
+    takes float32 only."""
+    if bounds_dtype != torch.float32:
+        raise ValueError(
+            f"bounds_dtype must be torch.float32 (the port's only bounds "
+            f"type); got {bounds_dtype}")
+    if kernel not in ("auto", "cuda", "torch"):
+        raise ValueError(f"kernel must be auto|cuda|torch, got {kernel!r}")
+    k = centers0.shape[0]
+    n = X.shape[0]
+    G, size = _bounded_groups(k, groups)
+    gid = torch.arange(k, device=X.device) // size
+    X_pad, w_pad = _pad_rows_to_blocks(X, w)
+    w_pos = w_pad > 0
+    x2_pad = (X_pad * X_pad).sum(dim=1)
+    centers, labels, ub, lb, skip_h, held_h = _bounded_init_state(
+        centers0, X_pad.shape[0], G, max_iter)
+    tol_t = _tol_tensor(tol, centers.device)
+    shift = torch.tensor(_INF, device=centers.device)
+    it = 0
+    while it < max_iter and bool(shift >= tol_t):
+        labels, ub, lb, skipped, held = _bounded_assign(
+            X_pad, x2_pad, centers, labels, ub, lb, w_pos, kernel=kernel,
+            prune=prune)
+        skip_h[it], held_h[it] = skipped, held
+        new_centers, _ = _m_step(X, w, labels[:n], centers)
+        shift = ((new_centers - centers) ** 2).sum()
+        ub, lb = _bounded_move(ub, lb, labels, centers, new_centers, gid, G)
+        centers = new_centers
+        it += 1
+    labels_f, inertia = _bounded_final_assign(X, w, centers, kernel=kernel)
+    return (centers, inertia, it, shift, labels_f,
+            {"rows_skipped": skip_h, "bounds_held": held_h})
+
+
+# ---------------------------------------------------------------------------
+# sketched assignment
+# ---------------------------------------------------------------------------
+
+
+def sketched_assign_wins(n: int, k: int, d: int, p: int) -> bool:
+    """Should assignment against a sketch run the sketched contraction
+    (staging matmul + O(n·k·p)) rather than the exact one against the
+    reconstructed centers (O(n·k·d))? The JAX package's cold-start rule:
+    2p ≤ d and k ≥ 8. Both give the same labels; this is a speed choice."""
+    return 2 * p <= d and k >= 8
+
+
+def _predict_sketched_fast(X, Wp, off, vals, kernel: str = "auto"):
+    """Labels through the sketch: ``Zp = X @ Wp − off`` (the centering
+    folded into one affine map) and the sketched argmin with x2 = 0 (the
+    argmin does not depend on the per-row constant)."""
+    Zp = X @ Wp.to(X.dtype) - off[None, :].to(X.dtype)
+    zero = torch.zeros(X.shape[0], dtype=torch.float32, device=X.device)
+    return fused_argmin_min_sketched(Zp, vals, x2=zero, kernel=kernel)[0]
+
+
+def predict_labels_sketched(X, Wp, off, vals, centers, kernel: str = "auto"):
+    """Labels for X under a sketched model — the one assignment of the
+    sketched family, shared by ``KMeans.fit`` and ``KMeans.predict``.
+    ``Wp`` is the (d, p) staging slice, ``off = μ @ Wp`` its centering
+    offset, ``centers`` the dense reconstruction (with the mean added
+    back); :func:`sketched_assign_wins` picks the contraction."""
+    n, d = X.shape
+    k, p = vals.shape
+    if sketched_assign_wins(n, k, d, p):
+        return _predict_sketched_fast(X, Wp, off, vals, kernel=kernel)
+    return predict_labels(X, centers, kernel=kernel)
 
 
 # ---------------------------------------------------------------------------

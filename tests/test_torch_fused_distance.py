@@ -193,3 +193,190 @@ def test_row_groups_one_definition():
     ev = tfd.row_block_evaluated(need)
     assert ev.tolist() == [i // 64 == 1 for i in range(129)]
     assert tfd._group_need(need).tolist() == [False, True, False]
+
+
+# ---------------------------------------------------------------------------
+# argmin_min2 (bounded Lloyd) and the sketched assignment
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("jax_kernel", ["xla", "pallas"])
+@pytest.mark.parametrize("n,m,d", SHAPES)
+def test_min2_bitexact_vs_jax_int_valued(n, m, d, jax_kernel):
+    X, Y, _, mask = _int_data(n, m, d)
+    ga, g1, g2 = tfd.fused_argmin_min2(_t(X), _t(Y), _t(mask))
+    wa, w1, w2 = jfd.fused_argmin_min2(*map(jnp.asarray, (X, Y, mask)),
+                                       kernel=jax_kernel)
+    assert ga.dtype == torch.int32
+    np.testing.assert_array_equal(ga.numpy(), _np(wa))
+    np.testing.assert_array_equal(g1.numpy(), _np(w1))
+    np.testing.assert_array_equal(g2.numpy(), _np(w2))
+    # the shared outputs are argmin_min's, and second >= best
+    aa, mm = tfd.fused_argmin_min(_t(X), _t(Y), _t(mask))
+    assert torch.equal(aa, ga) and torch.equal(mm, g1)
+    assert (g2 >= g1).all()
+
+
+def test_min2_real_valued_parity():
+    rng = np.random.RandomState(21)
+    X = rng.randn(321, 11).astype(np.float32)
+    Y = rng.randn(29, 11).astype(np.float32)
+    ga, g1, g2 = tfd.fused_argmin_min2(_t(X), _t(Y))
+    wa, w1, w2 = jfd.fused_argmin_min2(jnp.asarray(X), jnp.asarray(Y),
+                                       kernel="xla")
+    np.testing.assert_array_equal(ga.numpy(), _np(wa))
+    np.testing.assert_allclose(g1.numpy(), _np(w1), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(g2.numpy(), _np(w2), rtol=1e-5, atol=1e-5)
+
+
+def test_min2_second_best_is_true_runner_up():
+    """The second-best is the min over the non-argmin columns (a dense
+    numpy oracle), and a duplicate of the best target is the runner-up."""
+    rng = np.random.RandomState(22)
+    X = rng.randn(200, 5).astype(np.float32)
+    Y = rng.randn(13, 5).astype(np.float32)
+    D = ((X[:, None, :] - Y[None]) ** 2).sum(-1)
+    idx, _, d2 = tfd.fused_argmin_min2(_t(X), _t(Y))
+    D[np.arange(200), idx.numpy()] = np.inf
+    np.testing.assert_allclose(d2.numpy(), D.min(1), rtol=1e-4, atol=1e-4)
+    Y2 = np.concatenate([Y, Y[:3]])
+    idx, d1, d2 = tfd.fused_argmin_min2(_t(Y[:3]), _t(Y2))
+    np.testing.assert_array_equal(idx.numpy(), np.arange(3))
+    assert torch.equal(d1, d2) and (d2 < 1e-3).all()
+
+
+def test_min2_edge_cases():
+    X, Y, _, _ = _int_data(100, 8, 3)
+    am, mn, mn2 = tfd.fused_argmin_min2(_t(X), _t(Y),
+                                        torch.zeros(8, dtype=torch.bool))
+    assert (am == 0).all() and torch.isinf(mn).all()
+    assert torch.isinf(mn2).all()
+    am, mn, mn2 = tfd.fused_argmin_min2(_t(X), _t(Y[:1]))
+    assert (am == 0).all() and torch.isfinite(mn).all()
+    assert torch.isinf(mn2).all()
+    one = torch.tensor([False, True] + [False] * 6)
+    am, mn, mn2 = tfd.fused_argmin_min2(_t(X), _t(Y), one)
+    assert (am == 1).all() and torch.isinf(mn2).all()
+
+
+@pytest.mark.parametrize("jax_kernel", ["xla", "pallas"])
+def test_min2_row_need_matches_jax(jax_kernel):
+    """Evaluated groups give the full answer, skipped groups zeros — the
+    same rows and bits as the JAX package."""
+    X, Y, _, mask = _int_data(533, 37, 13)
+    rng = np.random.RandomState(23)
+    need = (rng.rand(533) > 0.6) & (np.arange(533) < 200)
+    ev = tfd.row_block_evaluated(_t(need)).numpy()
+    got = tfd.fused_argmin_min2(_t(X), _t(Y), _t(mask), row_need=_t(need))
+    want = jfd.fused_argmin_min2(*map(jnp.asarray, (X, Y, mask)),
+                                 kernel=jax_kernel,
+                                 row_need=jnp.asarray(need))
+    full = tfd.fused_argmin_min2(_t(X), _t(Y), _t(mask))
+    for g, w_, f in zip(got, want, full):
+        np.testing.assert_array_equal(g.numpy(), _np(w_))
+        np.testing.assert_array_equal(g.numpy()[ev], f.numpy()[ev])
+        assert (g.numpy()[~ev] == 0).all()
+    none = tfd.fused_argmin_min2(_t(X), _t(Y), _t(mask),
+                                 row_need=torch.zeros(533, dtype=torch.bool))
+    assert all((t == 0).all() for t in none)
+    alln = tfd.fused_argmin_min2(_t(X), _t(Y), _t(mask),
+                                 row_need=torch.ones(533, dtype=torch.bool))
+    assert all(torch.equal(a, b) for a, b in zip(alln, full))
+
+
+def _sk_problem(n, k, p, seed=0):
+    """Integer-valued restricted data and sketch values, and a full-space
+    x2 that holds off-support energy the restricted block cannot see."""
+    rng = np.random.RandomState(seed)
+    Zp = rng.randint(-8, 8, (n, p)).astype(np.float32)
+    vals = rng.randint(-8, 8, (k, p)).astype(np.float32)
+    x2 = (Zp * Zp).sum(1) + rng.randint(0, 9, n).astype(np.float32)
+    mask = rng.rand(k) > 0.3
+    return Zp, vals, x2, mask
+
+
+@pytest.mark.parametrize("jax_kernel", ["xla", "pallas"])
+@pytest.mark.parametrize("n,k,p", [(533, 37, 13), (129, 7, 3),
+                                   (257, 64, 17)])
+def test_sketched_bitexact_vs_jax_int_valued(n, k, p, jax_kernel):
+    Zp, vals, x2, mask = _sk_problem(n, k, p)
+    ga, gm = tfd.fused_argmin_min_sketched(_t(Zp), _t(vals), x2=_t(x2),
+                                           mask=_t(mask))
+    wa, wm = jfd.fused_argmin_min_sketched(
+        jnp.asarray(Zp), jnp.asarray(vals), x2=jnp.asarray(x2),
+        mask=jnp.asarray(mask), kernel=jax_kernel)
+    assert ga.dtype == torch.int32
+    np.testing.assert_array_equal(ga.numpy(), _np(wa))
+    np.testing.assert_array_equal(gm.numpy(), _np(wm))
+
+
+def test_sketched_value_is_full_space():
+    Zp, vals, x2, _ = _sk_problem(64, 5, 4, seed=1)
+    a, m = tfd.fused_argmin_min_sketched(_t(Zp), _t(vals), x2=_t(x2))
+    d2 = x2[:, None] - 2.0 * Zp @ vals.T + (vals * vals).sum(1)[None, :]
+    np.testing.assert_allclose(m.numpy(), np.maximum(d2.min(1), 0.0),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(a.numpy(), d2.argmin(1))
+
+
+def test_sketched_ties_and_all_masked():
+    Zp = torch.zeros(9, 4)
+    a, _ = tfd.fused_argmin_min_sketched(Zp, torch.ones(6, 4),
+                                         x2=torch.zeros(9))
+    assert (a == 0).all()
+    Zq, vals, x2, _ = _sk_problem(33, 4, 3, seed=2)
+    a, m = tfd.fused_argmin_min_sketched(_t(Zq), _t(vals), x2=_t(x2),
+                                         mask=torch.zeros(4, dtype=torch.bool))
+    assert (a == 0).all() and torch.isinf(m).all()
+
+
+@pytest.mark.parametrize("jax_kernel", ["xla", "pallas"])
+def test_sketched_row_need_matches_jax(jax_kernel):
+    Zp, vals, x2, mask = _sk_problem(200, 9, 5, seed=3)
+    need = np.arange(200) < 70  # groups 0-1 needed, group 3 not
+    ev = tfd.row_block_evaluated(_t(need)).numpy()
+    assert ev.any() and not ev.all()
+    ga, gm = tfd.fused_argmin_min_sketched(_t(Zp), _t(vals), x2=_t(x2),
+                                           mask=_t(mask), row_need=_t(need))
+    wa, wm = jfd.fused_argmin_min_sketched(
+        *map(jnp.asarray, (Zp, vals)), x2=jnp.asarray(x2),
+        mask=jnp.asarray(mask), row_need=jnp.asarray(need),
+        kernel=jax_kernel)
+    np.testing.assert_array_equal(ga.numpy(), _np(wa))
+    np.testing.assert_array_equal(gm.numpy(), _np(wm))
+    assert (ga.numpy()[~ev] == 0).all() and (gm.numpy()[~ev] == 0).all()
+
+
+def test_sketched_support_mode_matches_prerestricted():
+    rng = np.random.RandomState(4)
+    Z = rng.randint(-8, 8, (129, 21)).astype(np.float32)
+    vals = rng.randint(-8, 8, (8, 6)).astype(np.float32)
+    support = np.sort(rng.choice(21, 6, replace=False))
+    a1, m1 = tfd.fused_argmin_min_sketched(_t(Z), _t(vals), _t(support))
+    a2, m2 = tfd.fused_argmin_min_sketched(
+        _t(Z[:, support]), _t(vals), x2=_t((Z * Z).sum(1)))
+    assert torch.equal(a1, a2) and torch.equal(m1, m2)
+    wa, wm = jfd.fused_argmin_min_sketched(
+        jnp.asarray(Z), jnp.asarray(vals), jnp.asarray(support, jnp.int32),
+        kernel="xla")
+    np.testing.assert_array_equal(a1.numpy(), _np(wa))
+    np.testing.assert_array_equal(m1.numpy(), _np(wm))
+
+
+def test_new_ops_dispatch_rules():
+    """'auto' on CPU tensors launches nothing; 'cuda' raises; restricted
+    mode without x2 raises."""
+    X, Y, _, _ = _int_data(64, 5, 3)
+    before = dict(_kernels.launches)
+    for kernel in ("auto", "torch"):
+        tfd.fused_argmin_min2(_t(X), _t(Y), kernel=kernel)
+        tfd.fused_argmin_min_sketched(_t(X), _t(Y), x2=torch.zeros(64),
+                                      kernel=kernel)
+    assert _kernels.launches == before
+    with pytest.raises(ValueError, match="cuda"):
+        tfd.fused_argmin_min2(_t(X), _t(Y), kernel="cuda")
+    with pytest.raises(ValueError, match="cuda"):
+        tfd.fused_argmin_min_sketched(_t(X), _t(Y), x2=torch.zeros(64),
+                                      kernel="cuda")
+    with pytest.raises(ValueError, match="x2"):
+        tfd.fused_argmin_min_sketched(_t(X), _t(Y))

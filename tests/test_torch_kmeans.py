@@ -306,10 +306,39 @@ def test_other_inits(init):
 
 @pytest.mark.parametrize("algorithm",
                          ["bounded", "elkan", "auto", "sketched"])
-def test_later_algorithms_raise(algorithm):
-    X, _ = _blobs(n=50)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        KMeans(n_clusters=3, algorithm=algorithm).fit(X)
+def test_algorithms_fit_and_dispatch_like_jax(algorithm, monkeypatch):
+    """Each value fits and runs the Lloyd loop the JAX estimator runs for
+    it: 'bounded'/'elkan' the bounded loop, 'sketched' two bounded
+    restricted rounds, and 'auto' the bounded loop exactly when
+    n >= 2**16 and k >= 4."""
+    X, y = _blobs(n=600, d=5, k=4, seed=14, std=0.5)
+    called = []
+    for name in ("lloyd_loop_bounded", "lloyd_loop_fused"):
+        orig = getattr(core, name)
+        monkeypatch.setattr(
+            core, name,
+            lambda *a, _o=orig, _n=name, **k: called.append(_n) or _o(*a, **k))
+    km = KMeans(n_clusters=4, random_state=0, algorithm=algorithm).fit(X)
+    want = {"bounded": ["lloyd_loop_bounded"],
+            "elkan": ["lloyd_loop_bounded"],
+            "auto": ["lloyd_loop_fused"],  # n = 600 < 2**16
+            "sketched": ["lloyd_loop_bounded"] * 2}[algorithm]
+    assert called == want
+    assert _ari(y, km.labels_) == 1.0
+    np.testing.assert_array_equal(km.predict(X), km.labels_)
+    assert hasattr(km, "lloyd_pruning_") == (algorithm in ("bounded",
+                                                           "elkan"))
+    assert hasattr(km, "fast_transform_") == (algorithm == "sketched")
+    if algorithm == "auto":
+        for n, k, want_bounded in ((1 << 16, 4, True), ((1 << 16) - 1, 4,
+                                                        False),
+                                   (1 << 20, 3, False)):
+            est = KMeans(n_clusters=k, algorithm="auto")
+            assert est._use_bounded(n, 41) is want_bounded
+        called.clear()
+        monkeypatch.setattr(core, "_bounded_auto_wins", lambda n, k, d: True)
+        KMeans(n_clusters=4, random_state=0, algorithm="auto").fit(X)
+        assert called == ["lloyd_loop_bounded"]
 
 
 def test_bad_params_and_inputs():
