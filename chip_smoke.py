@@ -28,8 +28,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    rtol 1e-6; a ``tol=0`` 20-iteration bounded run must skip rows; and
    the sketched fit must meet the quality gate (inertia ratio ≤ 1.05,
    ARI ≥ 0.9 against the exact fit) at the JAX drill's quality shape;
-6. times each kernel with CUDA events next to its bound and its plain
-   version.
+6. holds the SpMV kernel (K6) and its autograd gradient against their
+   plain versions bit for bit on integer data at edge shapes (n = 1, a
+   ragged n of 1,000,003, k = 1 and k = 101, duplicate columns in a row,
+   value-0 padded slots, one hot column, d = 100,001 and d = 7);
+7. drives the sparse GLM path at the JAX package's flagship sparse
+   problem: ``LogisticRegression(solver="lbfgs", max_iter=3).fit(X, y)``
+   on ``make_sparse_classification(10_000_000, 100_000, 0.001,
+   random_state=42)`` (100 nonzeros a row), then ``score`` on the first
+   262,144 rows: K6 must launch in both, ``n_iter_`` must be 3, the
+   accuracy above 0.55, and the same fit through the plain SpMV on the
+   card must give coefficients within rtol 1e-4 and the same labels
+   apart from counted near-ties;
+8. times each kernel with CUDA events next to its bound and its plain
+   version (K6 also next to cuSPARSE through ``torch.sparse``, the
+   pullback and one L-BFGS iteration, with a device profile of that
+   iteration).
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
@@ -51,6 +65,19 @@ SEED = 0
 KDD_N, KDD_D, KDD_TRUE_K = 4_898_431, 41, 23
 # the JAX sketch drill's quality shape (65,536 × 41, k = 23, p = 36)
 Q_N, Q_K, Q_P, Q_ITERS = 65_536, 23, 36, 16
+# the sparse GLM cell: the JAX bench's flagship sparse problem
+# (bench.py bench_sparse), nothing cut
+GLM_N, GLM_D, GLM_DENSITY, GLM_ITERS = 10_000_000, 100_000, 0.001, 3
+GLM_SCORE_N = 262_144
+# the JAX drill's train-sample accuracy of that fit (SPARSE_r01.json
+# lbfgs_fit): a quality to print beside the port's, not a speed
+JAX_GLM_ACCURACY = 0.8211
+# K6 edge shapes (n, k, d): n = 1, a ragged n, k = 1 and the intercept's
+# odd k = 101, the cell's d = 100,001 and a d = 7 where every column is hot
+SPMV_EDGE_SHAPES = [(1, 1, 7), (1, 101, 100_001), (1_000_003, 101, 100_001),
+                    (1_000_003, 1, 7), (5000, 1, 7), (4097, 3, 7),
+                    (777, 17, 100_001), (2048, 64, 7), (33, 101, 7),
+                    (100_000, 2, 100_001)]
 # H100 SXM data sheet: HBM3 bandwidth and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
@@ -62,6 +89,7 @@ REPLACES = {
     "fused_argmin_weight": "dask_ml_tpu/ops/fused_distance.py:378",
     "fused_argmin_min2": "dask_ml_tpu/ops/fused_distance.py:378",
     "fused_argmin_min_sketched": "dask_ml_tpu/ops/fused_distance.py:378",
+    "spmv": "dask_ml_tpu/ops/sparse.py:512",
 }
 #: the kernels each path must launch
 PATH_KERNELS = {
@@ -72,6 +100,7 @@ PATH_KERNELS = {
     "sketched": ("fused_argmin_min2", "fused_argmin_min_sketched",
                  "fused_argmin_min", "fused_rowwise_min",
                  "fused_argmin_weight"),
+    "glm-sparse": ("spmv",),
 }
 SOURCES = {
     "lloyd_iter": "dask_ml_tpu_torch/_kernels/csrc/lloyd.cu",
@@ -82,6 +111,7 @@ SOURCES = {
     "fused_argmin_min2": "dask_ml_tpu_torch/_kernels/csrc/fused_distance.cu",
     "fused_argmin_min_sketched":
         "dask_ml_tpu_torch/_kernels/csrc/fused_distance.cu",
+    "spmv": "dask_ml_tpu_torch/_kernels/csrc/spmv.cu",
 }
 
 
@@ -422,6 +452,66 @@ def edge_cases(dev):
     return errs
 
 
+def ell_ints(rng, n, k, d, dev, lo=-8, hi=8):
+    """An integer-valued container with every awkward slot: duplicate
+    columns in a row (they sum), one hot column shared by every row, and
+    value-0 padded slots at column 0."""
+    import torch
+
+    from dask_ml_tpu_torch.ops import sparse as sps
+
+    cols = rng.integers(0, d, (n, k)).astype(np.int32)
+    vals = rng.integers(lo, hi, (n, k)).astype(np.float32)
+    if k >= 2:
+        cols[:, 1] = cols[:, 0]
+    if k >= 3:
+        cols[:, 2] = d - 1
+    if k >= 4:
+        cols[:, -1] = 0
+        vals[:, -1] = 0.0
+    return sps.SparseRows(torch.as_tensor(vals, device=dev),
+                          torch.as_tensor(cols, device=dev), d)
+
+
+def spmv_edge_cases(dev):
+    """K6 against its plain version, bit for bit on integer data (every
+    product and partial sum is an exact integer), and run to run; its
+    autograd gradient through the kernel against the plain version's, bit
+    for bit with values in {-1, 0, 1} (so that the pullback's float
+    atomics add exact integers)."""
+    import torch
+
+    from dask_ml_tpu_torch.ops import sparse as sps
+
+    rng = np.random.default_rng(3)
+    for n, k, d in SPMV_EDGE_SHAPES:
+        A = ell_ints(rng, n, k, d, dev)
+        v = torch.as_tensor(rng.integers(-4, 4, d), dtype=torch.float32,
+                            device=dev)
+        got = sps.matvec(A, v, kernel="cuda")
+        expect(torch.equal(got, sps.matvec(A, v, kernel="torch")),
+               f"K6 n{n} k{k} d{d}: not bit-identical to the plain version")
+        expect(torch.equal(got, sps.matvec(A, v, kernel="cuda")),
+               f"K6 n{n} k{k} d{d}: not reproducible")
+    for n, k, d in [(64, 101, 7), (257, 101, 100_001), (1000, 1, 50),
+                    (3001, 5, 100_001)]:
+        A = ell_ints(rng, n, k, d, dev, -1, 2)
+        v0 = torch.as_tensor(rng.integers(-1, 2, d), dtype=torch.float32,
+                             device=dev)
+        grads = []
+        for kernel in ("cuda", "torch"):
+            vals = A.values.clone().requires_grad_(True)
+            v = v0.clone().requires_grad_(True)
+            out = sps.matvec(sps.SparseRows(vals, A.cols, d), v,
+                             kernel=kernel)
+            (out ** 2).sum().backward()
+            grads.append((v.grad, vals.grad))
+        expect(torch.equal(grads[0][0], grads[1][0])
+               and torch.equal(grads[0][1], grads[1][1]),
+               f"K6 gradient n{n} k{k} d{d}: kernel and plain differ")
+    return 0.0
+
+
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
@@ -596,9 +686,10 @@ def kernel_rows(rows, launches, errs):
         "max_abs_err": float(errs.get(r["name"], 0.0)),
         "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": None,
+        "library_ms": r.get("library_ms"),
         **{k: v for k, v in r.items()
-           if k not in ("name", "ms", "plain_ms", "bound_ms", "bound_by")},
+           if k not in ("name", "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")},
     } for r in rows]
 
 
@@ -942,6 +1033,193 @@ def kdd_cell(dev, errs):
 
 
 # ---------------------------------------------------------------------------
+# the sparse GLM cell
+# ---------------------------------------------------------------------------
+
+
+def glm_plain_check(est, X, y, Xs, dev):
+    """The same fit through the plain SpMV on the card (``models.glm.lbfgs``
+    with ``kernel="torch"``, the facade's staging and arguments): the same
+    ``n_iter``, coefficients within rtol 1e-4 and atol 1e-4·max|coef| (the
+    pullback's float atomics and the kernel's summation order move the
+    last bits, and 3 iterations carry them), and the same labels on the
+    score rows apart from near-ties: rows whose score lies within 1e-4 of
+    Σ|a_ij·β_j| of 0. Returns (staged container, its y and w, the plain
+    coefficients, the number of near-ties)."""
+    import torch
+
+    from dask_ml_tpu_torch.linear_model.glm import (add_intercept,
+                                                    labels_from_proba,
+                                                    proba_from_eta)
+    from dask_ml_tpu_torch.models import glm as glm_core
+    from dask_ml_tpu_torch.ops import sparse as sps
+    from dask_ml_tpu_torch.parallel.sharding import prepare_data
+
+    data = prepare_data(X, y=y, device=dev)
+    Xd = add_intercept(data.X)
+    data.X = None
+    d = Xd.d
+    mask = torch.ones(d, device=dev)
+    mask[-1] = 0.0
+    b0 = torch.zeros(d, device=dev)
+    plain, n_plain = glm_core.lbfgs(
+        Xd, data.y, data.weights, b0, mask, lamduh=1.0 / est.C,
+        max_iter=GLM_ITERS, tol=est.tol, kernel="torch")
+    coef_p = plain.cpu().numpy()
+    expect(n_plain == est.n_iter_, f"plain path n_iter {n_plain}")
+    expect(np.allclose(est._coef, coef_p, rtol=1e-4,
+                       atol=1e-4 * float(np.abs(coef_p).max())),
+           f"kernel and plain coefficients differ: max abs "
+           f"{float(np.abs(est._coef - coef_p).max())}")
+    As = add_intercept(Xs.to(dev))
+    eta_p = sps.matvec(As, plain, kernel="torch").cpu().numpy()
+    pred_p = labels_from_proba(proba_from_eta(eta_p, est.multiclass),
+                               est.classes_)
+    pred_k = est.predict(Xs)
+    bad = np.flatnonzero(pred_k != pred_p)
+    if bad.size:
+        coef_k = torch.as_tensor(est._coef, device=dev)
+        eta_k = sps.matvec(As, coef_k, kernel="torch").cpu().numpy()
+        scale = sps.matvec(sps.SparseRows(As.values.abs(), As.cols, d),
+                           coef_k.abs(), kernel="torch").cpu().numpy()
+        expect(bool((np.abs(eta_k[bad]) <= 1e-4 * scale[bad]).all()),
+               f"{bad.size} labels differ beyond near-ties")
+    return Xd, data.y, data.weights, plain, int(bad.size)
+
+
+def glm_cell(dev, errs):
+    """The sparse GLM path at the JAX package's flagship sparse problem,
+    its checks, and K6's timings at its container. Returns (timed rows,
+    launches by kernel for the kernels line, summary)."""
+    import torch
+
+    from dask_ml_tpu_torch._kernels import build
+    from dask_ml_tpu_torch.datasets import make_sparse_classification
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.models import glm as glm_core
+    from dask_ml_tpu_torch.ops import sparse as sps
+
+    t0 = time.perf_counter()
+    X, y = make_sparse_classification(GLM_N, GLM_D, GLM_DENSITY,
+                                      random_state=42)
+    gen_s = time.perf_counter() - t0
+    log(f"sparse data {X.shape}, k = {X.k}, {X.nbytes / 1e9:.2f} GB made in "
+        f"{gen_s:.2f} s")
+    summary = {"n": GLM_N, "d": GLM_D, "nnz_per_row": X.k,
+               "host_generation_s": gen_s}
+
+    # -- the main path of this slice: L-BFGS fit, then score ---------------
+    glm_core.reset_host_reads()
+    est, fit_s, l_fit = drive(lambda: LogisticRegression(
+        solver="lbfgs", max_iter=GLM_ITERS).fit(X, y))
+    reads = glm_core.host_reads["n"]
+    expect_launches("glm-sparse", l_fit)
+    expect(est.n_iter_ == GLM_ITERS, f"n_iter_ {est.n_iter_}")
+    expect(np.isfinite(est.coef_).all() and est.coef_.shape == (GLM_D,),
+           "bad coefficients")
+    Xs, ys = X[:GLM_SCORE_N], y[:GLM_SCORE_N]
+    acc, score_s, l_score = drive(lambda: est.score(Xs, ys))
+    expect_launches("glm-sparse", l_score)
+    log(f"sparse L-BFGS accuracy on the first {GLM_SCORE_N} rows: {acc:.4f} "
+        f"(the JAX drill's record: {JAX_GLM_ACCURACY})")
+    expect(acc > 0.55, f"accuracy {acc} <= 0.55")
+    path_line("glm-sparse-lbfgs", fit_s, est.n_iter_, l_fit,
+              phases={**est.fit_phase_seconds_, "score": score_s},
+              score_launches=l_score, host_reads=reads,
+              host_reads_per_iter=reads / est.n_iter_, accuracy=acc,
+              jax_record_accuracy=JAX_GLM_ACCURACY)
+    summary.update(fit_s=fit_s, phases=est.fit_phase_seconds_,
+                   score_s=score_s, accuracy=acc, n_iter=est.n_iter_,
+                   host_reads=reads)
+
+    # -- the plain path on the card ------------------------------------------
+    Xd, yd, wd, plain, n_ties = glm_plain_check(est, X, y, Xs, dev)
+    log(f"kernel and plain L-BFGS agree (coef rtol 1e-4; {n_ties} near-tie "
+        f"labels of {GLM_SCORE_N})")
+    summary["kernel_vs_plain_near_ties"] = n_ties
+    del X, Xs
+
+    # -- K6 against its plain version at the full container (float data):
+    # each sums 101 f32 products in its own order, so each is within
+    # (k - 1)·2^-24·Σ|a·v| of the exact sum; together k·2^-23·Σ|a·v|
+    vals, cols = Xd.values, Xd.cols
+    n, k = vals.shape
+    d = Xd.d
+    v = plain.contiguous()
+    out_k = sps._spmv_cuda(vals, cols, v)
+    out_p = sps._spmv_ref(vals, cols, v)
+    scale = sps._spmv_ref(vals.abs(), cols, v.abs())
+    err = (out_k - out_p).abs()
+    expect(bool((err <= k * 2.0 ** -23 * scale).all()),
+           f"K6 at full shape: max abs err {float(err.max())}")
+    errs["spmv"] = max(errs.get("spmv", 0.0), float(err.max()))
+    del out_p, scale, err
+
+    # -- timing at the cell's container --------------------------------------
+    lib = build.load("spmv")
+    stream = build.stream_of(vals)
+    out = torch.empty(n, device=dev)
+    ms = cuda_ms(lambda: build.check(lib.dml_spmv(
+        vals.data_ptr(), cols.data_ptr(), v.data_ptr(), n, k, out.data_ptr(),
+        stream), "timing"))
+    plain_ms = cuda_ms(lambda: sps._spmv_ref(vals, cols, v), iters=5,
+                       warmup=1)
+    b, by = bound(4 * (2 * n * k + n + d), 2 * n * k)
+    # the yardstick: cuSPARSE's CSR SpMV on the same slots, through
+    # torch.sparse (the port never calls it)
+    crow = torch.arange(0, n * k + 1, k, dtype=torch.int32, device=dev)
+    csr = torch.sparse_csr_tensor(crow, cols.view(-1), vals.view(-1),
+                                  size=(n, d), check_invariants=False)
+    library_ms = cuda_ms(lambda: torch.mv(csr, v), iters=10, warmup=2)
+    lib_diff = float((torch.mv(csr, v) - out_k).abs().max())
+    del csr, crow
+    # the gather's share: the same slots folded onto 1,024 columns, so that
+    # v (4 KB) stays in each SM's L1; the bytes the kernel streams are
+    # the same
+    cols_l1 = torch.remainder(cols, 1024)
+    v_l1 = v[:1024].contiguous()
+    probe_ms = cuda_ms(lambda: build.check(lib.dml_spmv(
+        vals.data_ptr(), cols_l1.data_ptr(), v_l1.data_ptr(), n, k,
+        out.data_ptr(), stream), "timing"))
+    del cols_l1
+    r = (torch.sigmoid(out_k) - yd) / float(n)
+    pullback_ms = cuda_ms(lambda: sps.pullback(Xd, r), iters=5, warmup=1)
+    pb_bound, pb_by = bound(4 * (2 * n * k + n + d), 2 * n * k)
+    mask = torch.ones(d, device=dev)
+    mask[-1] = 0.0
+    b0 = torch.zeros(d, device=dev)
+    _, _, carry, _ = glm_core.lbfgs(Xd, yd, wd, b0, mask, lamduh=1.0,
+                                    max_iter=GLM_ITERS, return_state=True)
+
+    def one_iter():
+        return glm_core.lbfgs(Xd, yd, wd, b0, mask, lamduh=1.0, max_iter=1,
+                              state=carry)
+
+    one_iter()
+    torch.cuda.synchronize()
+    glm_core.reset_host_reads()
+    t0 = time.perf_counter()
+    one_iter()
+    torch.cuda.synchronize()
+    iter_ms = (time.perf_counter() - t0) * 1e3
+    summary.update(
+        lbfgs_iter_ms=iter_ms, lbfgs_iter_host_reads=glm_core.host_reads["n"],
+        pullback_ms=pullback_ms, pullback_bound_ms=pb_bound,
+        pullback_bound_by=pb_by, library_vs_kernel_max_abs_diff=lib_diff)
+    prof = device_profile(one_iter)
+    summary["profile_lbfgs_iter"] = prof
+    log("PROFILE glm-lbfgs-iter " + json.dumps(prof))
+    log(f"one L-BFGS iteration as the loop runs it: {iter_ms:.3f} ms; "
+        f"pullback {pullback_ms:.4f} ms (bound {pb_bound:.4f} ms)")
+    row = dict(name="spmv", ms=ms, plain_ms=plain_ms, bound_ms=b,
+               bound_by=by, library_ms=library_ms,
+               shape={"n": n, "k": k, "d": d},
+               launches_fit=l_fit["spmv"], launches_score=l_score["spmv"],
+               gather_probe={"d": 1024, "ms": probe_ms})
+    return [row], {"spmv": l_fit["spmv"] + l_score["spmv"]}, summary
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -973,6 +1251,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     errs = edge_cases(dev)
+    errs["spmv"] = spmv_edge_cases(dev)
     torch.cuda.synchronize()
     log(f"edge cases: all kernels match their plain versions "
         f"({time.perf_counter() - t0:.2f} s)")
@@ -1086,6 +1365,17 @@ def main() -> int:
             f"{opt['ms']:.4f} ms  bound {opt['bound_ms']:.4f} ms  plain "
             f"{opt['plain_ms']:.4f} ms")
     log("KDD " + json.dumps(kdd))
+    torch.cuda.empty_cache()
+
+    glm_rows, glm_launches, glm = glm_cell(dev, errs)
+    rows += kernel_rows(glm_rows, glm_launches, errs)
+    r = rows[-1]
+    log(f"  {r['name']:26s} {r['ms']:.4f} ms  bound {r['bound_ms']:.4f}"
+        f" ms ({r['bound_by']})  plain {r['plain_ms']:.4f} ms  library "
+        f"{r['library_ms']:.4f} ms  launches {r['launches']} (fit "
+        f"{r['launches_fit']}, score {r['launches_score']}); the same "
+        f"slots on d = 1024: {r['gather_probe']['ms']:.4f} ms")
+    log("GLM " + json.dumps(glm))
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

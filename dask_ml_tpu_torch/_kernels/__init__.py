@@ -9,7 +9,7 @@ before the path and read them just after.
 from __future__ import annotations
 
 #: launches per kernel wrapper (K1: lloyd_iter; K2-K5: fused distance;
-#: the sketched assignment is K2 with a caller-supplied |x|²)
+#: the sketched assignment is K2 with a caller-supplied |x|²; K6: spmv)
 launches = {
     "lloyd_iter": 0,
     "fused_argmin_min": 0,
@@ -17,9 +17,27 @@ launches = {
     "fused_argmin_weight": 0,
     "fused_argmin_min2": 0,
     "fused_argmin_min_sketched": 0,
+    "spmv": 0,
 }
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def use_cuda(kernel: str, t) -> bool:
+    """The dispatch rule of every kernel wrapper: ``"auto"`` launches the
+    kernel for a CUDA tensor ``t`` and takes the plain version for a CPU
+    one, ``"cuda"`` insists on the kernel, ``"torch"`` takes the plain
+    version wherever ``t`` lies."""
+    if kernel not in ("auto", "cuda", "torch"):
+        raise ValueError(f"kernel must be auto|cuda|torch, got {kernel!r}")
+    if kernel == "torch":
+        return False
+    if t.is_cuda:
+        return True
+    if kernel == "cuda":
+        raise ValueError(
+            f"kernel='cuda' needs CUDA tensors; the input lies on {t.device}")
+    return False

@@ -30,7 +30,7 @@ BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures: name -> {function: (argtypes, restype)}
 SIGNATURES = {
     "fused_distance": {
@@ -44,6 +44,10 @@ SIGNATURES = {
         "dml_lloyd_max_partials": ([], _I),
         "dml_lloyd_supported": ([_I, _I], _I),
         "dml_lloyd_iter": ([_P, _P, _P, _I, _I, _I, _P, _P, _P], _I),
+    },
+    "spmv": {
+        "dml_spmv_lanes": ([_I], _I),
+        "dml_spmv": ([_P, _P, _P, _L, _I, _P, _P], _I),
     },
 }
 

@@ -11,7 +11,14 @@ import numpy as np
 
 from dask_ml_tpu_torch.cluster.k_means import KMeans
 from dask_ml_tpu_torch.config import resolve_device
+from dask_ml_tpu_torch.linear_model import (LinearRegression,
+                                            LogisticRegression,
+                                            PoissonRegression)
 from dask_ml_tpu_torch.ops.fast_transform import FastTransform
+
+#: the port's estimator for each GLM family
+_GLM_CLASSES = {"logistic": LogisticRegression, "normal": LinearRegression,
+                "poisson": PoissonRegression}
 
 #: the arrays a sketched model predicts through
 _SKETCH_ATTRS = ("sketch_staging_", "sketch_offset_", "sketch_vals_",
@@ -82,3 +89,50 @@ def _carry_sketch(est: KMeans, attrs: dict) -> None:
     est.fast_transform_ = FastTransform(
         np.asarray(ft.angles, dtype=np.float32), ft.d, ft.d_pad)
     est.sketch_cols = p
+
+
+def glm_from_numpy(attrs: dict, family: str, multiclass: str = "ovr"):
+    """A fitted port GLM of ``family`` ("logistic", "normal" or "poisson")
+    whose ``decision_function``, ``predict``, ``predict_proba`` and
+    ``score`` compute what the exported model's do. The dict holds
+    ``coef_`` ((n_features,), or (n_classes, n_features) for a multiclass
+    logistic model), ``intercept_`` when the model fitted one, and
+    ``classes_`` for a logistic model; ``multiclass`` is the exported
+    model's constructor setting, which the dict does not carry."""
+    if family not in _GLM_CLASSES:
+        raise ValueError(
+            f"family must be one of {sorted(_GLM_CLASSES)}, got {family!r}")
+    coef = np.array(attrs["coef_"], dtype=np.float32)
+    if coef.ndim not in (1, 2) or not np.isfinite(coef).all():
+        raise ValueError(
+            f"coef_ must be a finite 1-D or 2-D array; got shape "
+            f"{coef.shape}")
+    intercept = attrs.get("intercept_")
+    est = _GLM_CLASSES[family](fit_intercept=intercept is not None,
+                               multiclass=multiclass)
+    est.coef_ = coef
+    est._coef = coef
+    if intercept is not None:
+        intercept = np.array(intercept, dtype=np.float32)
+        if intercept.shape != coef.shape[:-1]:
+            raise ValueError(
+                f"intercept_ of shape {intercept.shape} does not fit coef_ "
+                f"of shape {coef.shape}")
+        est.intercept_ = intercept if intercept.ndim else intercept[()]
+        est._coef = np.concatenate([coef, intercept[..., None]], axis=-1)
+    if family == "logistic":
+        if "classes_" not in attrs:
+            raise ValueError("a logistic model needs classes_")
+        est.classes_ = np.asarray(attrs["classes_"])
+        k = len(est.classes_)
+        if k < 2 or (coef.ndim == 2) != (k > 2) or (
+                coef.ndim == 2 and coef.shape[0] != k):
+            raise ValueError(
+                f"classes_ of {k} labels does not fit coef_ of shape "
+                f"{coef.shape}")
+    elif coef.ndim != 1:
+        raise ValueError(f"a {family} model has a 1-D coef_; got "
+                         f"{coef.shape}")
+    if "n_iter_" in attrs:
+        est.n_iter_ = int(attrs["n_iter_"])
+    return est

@@ -172,19 +172,6 @@ def _blocked_ref(fn, X, row_need, fills, *rowwise):
 # ---------------------------------------------------------------------------
 
 
-def _use_cuda(kernel: str, X) -> bool:
-    if kernel not in ("auto", "cuda", "torch"):
-        raise ValueError(f"kernel must be auto|cuda|torch, got {kernel!r}")
-    if kernel == "torch":
-        return False
-    if X.is_cuda:
-        return True
-    if kernel == "cuda":
-        raise ValueError(
-            f"kernel='cuda' needs CUDA tensors; X lies on {X.device}")
-    return False
-
-
 def _fused_cuda(X, Y, mask, epilogue: str, w=None, row_need=None, x2=None,
                 counter=None):
     """Launch ``csrc/fused_distance.cu`` — replaces the TPU kernel
@@ -275,7 +262,7 @@ def fused_rowwise_min(X, Y, mask=None, *, kernel: str = "auto",
     All-masked returns +inf per row. ``row_need`` (optional (n,) bool)
     skips ``_FUSED_BLK``-row groups with no needed row; their rows return
     +inf."""
-    if _use_cuda(kernel, X):
+    if _kernels.use_cuda(kernel, X):
         return _fused_cuda(X, Y, mask, "min", row_need=row_need)
     if row_need is None:
         return _min_ref(X, Y, mask)
@@ -286,7 +273,7 @@ def fused_rowwise_min(X, Y, mask=None, *, kernel: str = "auto",
 def fused_argmin_min(X, Y, mask=None, *, kernel: str = "auto"):
     """Per-row (argmin index int32, min squared distance f32) over valid Y
     rows. Ties break to the lowest index."""
-    if _use_cuda(kernel, X):
+    if _kernels.use_cuda(kernel, X):
         return _fused_cuda(X, Y, mask, "argmin_min")
     return _argmin_min_ref(X, Y, mask)
 
@@ -301,7 +288,7 @@ def fused_argmin_min2(X, Y, mask=None, *, kernel: str = "auto",
     (0, +inf, +inf). ``row_need`` skips ``_FUSED_BLK``-row groups with no
     needed row; their rows return zeros (overlay carried values through
     :func:`row_block_evaluated`)."""
-    if _use_cuda(kernel, X):
+    if _kernels.use_cuda(kernel, X):
         return _fused_cuda(X, Y, mask, "argmin_min2", row_need=row_need)
     if row_need is None:
         return _argmin_min2_ref(X, Y, mask)
@@ -336,7 +323,7 @@ def fused_argmin_min_sketched(Z, vals, support=None, mask=None, *,
                 "restricted (n, p) block; the full-space |x - mu|^2 must "
                 "then be supplied via x2=")
         Zp = Z
-    if _use_cuda(kernel, Zp):
+    if _kernels.use_cuda(kernel, Zp):
         return _fused_cuda(Zp, vals, mask, "argmin_min", row_need=row_need,
                            x2=x2, counter="fused_argmin_min_sketched")
     if row_need is None:
@@ -350,6 +337,6 @@ def fused_argmin_weight(X, w, Y, mask=None, *, kernel: str = "auto"):
     (f32, (m,)). Masked targets always get ``cw == 0``. On the card the
     cross-block sum runs in a fixed order, so ``cw`` is bit-reproducible
     from run to run."""
-    if _use_cuda(kernel, X):
+    if _kernels.use_cuda(kernel, X):
         return _fused_cuda(X, Y, mask, "argmin_weight", w=w)
     return _argmin_weight_ref(X, w, Y, mask)

@@ -15,32 +15,42 @@ import numpy as np
 import torch
 
 from dask_ml_tpu_torch.config import resolve_device
+from dask_ml_tpu_torch.ops.sparse import SparseRows
 
 
-def check_array(X):
-    """Validate a dense input and return it as float32, ready to stage.
+def check_array(X, accept_sparse: bool = False):
+    """Validate an input and return it as float32, ready to stage.
 
     Host inputs (numpy, lists) are validated in numpy and returned as a
     host ``np.ndarray``; a ``torch.Tensor`` (a ``device_outputs`` pipeline)
     is validated where it lies and returned as a tensor. Integer, bool and
     float64 inputs are converted to float32; NaN or infinity raises.
-    DataFrames and scipy sparse matrices are rejected: the port's kernels
-    take dense row-major float32 only."""
+    DataFrames are rejected.
+
+    Sparse input (a :class:`SparseRows` container or a scipy CSR matrix)
+    is accepted only with ``accept_sparse=True`` — the GLMs take it, the
+    dense-only estimators (KMeans) do not. Its column indices must lie in
+    ``[0, d)``: the SpMV kernel trusts them. Values are checked for
+    finiteness over the stored entries only and cast to float32; CSC and
+    other formats are rejected with the conversion to use."""
     if hasattr(X, "iloc"):
         raise TypeError(
             "DataFrame inputs are not supported here; pass .values")
-    if hasattr(X, "tocsr") or hasattr(X, "indptr"):
-        raise TypeError(
-            "sparse input is not supported by the port's dense kernels; "
-            "densify with .toarray()")
+    if isinstance(X, SparseRows) or hasattr(X, "tocsr"):
+        if not accept_sparse:
+            raise TypeError(
+                "sparse input is not supported by this estimator (dense "
+                "kernels only); densify with .toarray(). The GLMs accept "
+                "SparseRows and scipy CSR")
+        return (_check_rows(X) if isinstance(X, SparseRows)
+                else _check_csr(X))
     is_tensor = isinstance(X, torch.Tensor)
     arr = X if is_tensor else np.asarray(X)
     if arr.ndim != 2:
         raise ValueError(
             f"Expected 2D array, got {arr.ndim}D array of shape "
             f"{tuple(arr.shape)}")
-    if arr.shape[0] < 1:
-        raise ValueError("Found array with 0 samples; at least 1 is needed")
+    _check_samples(arr.shape[0])
     if is_tensor:
         if arr.is_complex():
             raise ValueError(f"Unsupported dtype {arr.dtype}")
@@ -48,13 +58,81 @@ def check_array(X):
         if not bool(torch.isfinite(arr).all()):
             raise ValueError("Input contains NaN or infinity")
         return arr
-    if arr.dtype.kind not in "fiub":
-        raise ValueError(f"Unsupported dtype {arr.dtype}")
-    if arr.dtype != np.float32:
-        arr = arr.astype(np.float32)
+    arr = _float32_host(arr)
     if not bool(np.isfinite(arr).all()):
         raise ValueError("Input contains NaN or infinity")
     return arr
+
+
+def _check_samples(n: int) -> None:
+    if n < 1:
+        raise ValueError("Found array with 0 samples; at least 1 is needed")
+
+
+def _float32_host(arr: np.ndarray) -> np.ndarray:
+    if arr.dtype.kind not in "fiub":
+        raise ValueError(f"Unsupported dtype {arr.dtype}")
+    return arr if arr.dtype == np.float32 else arr.astype(np.float32)
+
+
+def _check_rows(X: SparseRows) -> SparseRows:
+    """A container, host or device: index range, value dtype, finiteness,
+    each in one pass over its leaf."""
+    _check_samples(X.shape[0])
+    if isinstance(X.values, torch.Tensor):
+        if X.values.is_complex():
+            raise ValueError(f"Unsupported dtype {X.values.dtype}")
+        vals = X.values.to(torch.float32)
+        cols = torch.as_tensor(X.cols).to(torch.int32)
+        finite = bool(torch.isfinite(vals).all())
+    else:
+        vals = _float32_host(np.asarray(X.values))
+        cols = np.asarray(X.cols).astype(np.int32, copy=False)
+        finite = bool(np.isfinite(vals).all())
+    if tuple(cols.shape) != tuple(vals.shape) or vals.ndim != 2:
+        raise ValueError(
+            f"SparseRows values and cols must share one (n, k) shape; got "
+            f"{tuple(vals.shape)} and {tuple(cols.shape)}")
+    if vals.shape[1]:
+        lo, hi = int(cols.min()), int(cols.max())
+        if lo < 0 or hi >= X.d:
+            raise ValueError(
+                f"SparseRows column indices must lie in [0, {X.d}); found "
+                f"range [{lo}, {hi}]")
+    if not finite:
+        raise ValueError("Input contains NaN or infinity")
+    if vals is X.values and cols is X.cols:
+        return X
+    return SparseRows(vals, cols, X.d)
+
+
+def _check_csr(X):
+    """A scipy sparse matrix: CSR only, indices in range, the stored values
+    finite and float32. Returns the CSR matrix (``prepare_data`` encodes
+    it)."""
+    import scipy.sparse
+
+    if not scipy.sparse.issparse(X):
+        raise TypeError(f"Unsupported sparse input {type(X).__name__}")
+    if X.format != "csr":
+        raise TypeError(
+            f"sparse input must be CSR (row-major, the layout the blocked-"
+            f"ELL encoding needs); got {X.format.upper()}. Convert with "
+            "X.tocsr()")
+    _check_samples(X.shape[0])
+    if X.indices.size and (int(X.indices.min()) < 0
+                           or int(X.indices.max()) >= X.shape[1]):
+        raise ValueError(
+            f"CSR column indices must lie in [0, {X.shape[1]}); found range "
+            f"[{int(X.indices.min())}, {int(X.indices.max())}]")
+    data = _float32_host(X.data)
+    if not bool(np.isfinite(data).all()):
+        raise ValueError("Input contains NaN or infinity")
+    if data is X.data:
+        return X
+    out = X.copy()
+    out.data = data
+    return out
 
 
 def check_random_state(seed=None, device=None) -> torch.Generator:

@@ -16,8 +16,12 @@ import torch
 
 from dask_ml_tpu_torch import _kernels, config_context
 from dask_ml_tpu_torch.cluster import KMeans
+from dask_ml_tpu_torch.datasets import make_sparse_classification
+from dask_ml_tpu_torch.linear_model import LogisticRegression
+from dask_ml_tpu_torch.models import glm as glm_core
 from dask_ml_tpu_torch.models import kmeans as core
 from dask_ml_tpu_torch.ops import fused_distance as fd
+from dask_ml_tpu_torch.ops import sparse as sps
 
 pytestmark = pytest.mark.gpu
 
@@ -256,3 +260,100 @@ def test_bounded_loop_matches_two_pass_loop_on_card(cuda):
     assert torch.equal(co, cb) and no == nb and float(so) == float(sb)
     assert float(ib) == float(core.compute_inertia(Xt, w, co, kernel="cuda"))
     assert torch.equal(lb, core.predict_labels(Xt, co, kernel="cuda"))
+
+
+# ---------------------------------------------------------------------------
+# K6: the SpMV kernel and its autograd Function
+# ---------------------------------------------------------------------------
+
+
+def _ell_ints(rng, n, k, d, dev, lo=-8, hi=8):
+    """An integer-valued container with every awkward slot: duplicate
+    columns in a row, a hot column shared by every row, and value-0
+    padded slots at column 0."""
+    cols = rng.integers(0, d, (n, k)).astype(np.int32)
+    vals = rng.integers(lo, hi, (n, k)).astype(np.float32)
+    if k >= 2:
+        cols[:, 1] = cols[:, 0]  # duplicates sum
+    if k >= 3:
+        cols[:, 2] = d - 1  # one hot column
+    if k >= 4:
+        cols[:, -1] = 0  # padding
+        vals[:, -1] = 0.0
+    return sps.SparseRows(torch.as_tensor(vals, device=dev),
+                          torch.as_tensor(cols, device=dev), d)
+
+
+@pytest.mark.parametrize("n,k,d", [(1, 1, 7), (1, 101, 100_001),
+                                   (1_000_003, 101, 100_001), (5000, 1, 7),
+                                   (4097, 3, 7), (777, 17, 100_001),
+                                   (2048, 64, 7), (33, 101, 7)])
+def test_spmv_kernel_bitexact_int_valued(cuda, n, k, d):
+    rng = np.random.default_rng(n + k + d)
+    A = _ell_ints(rng, n, k, d, cuda)
+    v = _ints(rng, (d,), cuda, -4, 4)
+    before = _kernels.launches["spmv"]
+    got = sps.matvec(A, v, kernel="cuda")
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    assert torch.equal(got, sps.matvec(A, v, kernel="torch"))
+    assert torch.equal(got, sps.spmv(A, v))  # 'auto' on the card: K6
+    assert _kernels.launches["spmv"] == before + 2
+
+
+@pytest.mark.parametrize("n,k,d", [(64, 101, 7), (257, 101, 100_001),
+                                   (1000, 1, 50)])
+def test_spmv_gradient_through_kernel(cuda, n, k, d):
+    """Values in {-1, 0, 1}: every sum of the gradient stays an exact
+    integer, so the float atomics of the pullback cannot round."""
+    rng = np.random.default_rng(n + k)
+    A = _ell_ints(rng, n, k, d, cuda, -1, 2)
+    v0 = _ints(rng, (d,), cuda, -1, 2)
+    grads = []
+    for kernel in ("cuda", "torch"):
+        vals = A.values.clone().requires_grad_(True)
+        v = v0.clone().requires_grad_(True)
+        out = sps.matvec(sps.SparseRows(vals, A.cols, d), v, kernel=kernel)
+        (out ** 2).sum().backward()
+        grads.append((v.grad, vals.grad))
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][1], grads[1][1])
+
+
+def test_spmv_kernel_refuses_bad_input(cuda):
+    rng = np.random.default_rng(0)
+    A = _ell_ints(rng, 100, 8, 20, cuda)
+    v = torch.zeros(20, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        sps._spmv_cuda(A.values.T.contiguous().T, A.cols, v)
+    with pytest.raises(ValueError, match="int32"):
+        sps._spmv_cuda(A.values, A.cols.long(), v)
+    with pytest.raises(ValueError, match="one device"):
+        sps._spmv_cuda(A.values, A.cols, v.cpu())
+
+
+def test_sparse_lbfgs_fit_on_card(cuda):
+    """A small sparse L-BFGS fit through the facade: the kernel path
+    launches K6, and agrees with the plain path on the card and with the
+    CPU fit (rtol 1e-4: the pullback's atomics and the kernel's summation
+    order move the last bits)."""
+    X, y = make_sparse_classification(20_000, 2_000, 0.01, random_state=1)
+    before = _kernels.launches["spmv"]
+    est = LogisticRegression(solver="lbfgs", max_iter=10).fit(X, y)
+    assert _kernels.launches["spmv"] > before
+    assert est.score(X, y) > 0.6
+    with config_context(device="cpu"):
+        cpu = LogisticRegression(solver="lbfgs", max_iter=10).fit(X, y)
+    assert cpu.n_iter_ == est.n_iter_
+    np.testing.assert_allclose(est.coef_, cpu.coef_, rtol=1e-4,
+                               atol=1e-4 * np.abs(cpu.coef_).max())
+    Xd = sps.add_intercept_ell(X.to(cuda))
+    yd = torch.as_tensor(y, device=cuda)
+    w = torch.ones(20_000, device=cuda)
+    mask = torch.ones(2_001, device=cuda)
+    mask[-1] = 0
+    b0 = torch.zeros(2_001, device=cuda)
+    plain, n_plain = glm_core.lbfgs(Xd, yd, w, b0, mask, lamduh=1.0,
+                                    max_iter=10, kernel="torch")
+    assert n_plain == est.n_iter_
+    np.testing.assert_allclose(est._coef, plain.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4 * np.abs(est._coef).max())

@@ -1,0 +1,413 @@
+"""The PyTorch port's sparse tier held against the JAX package, on the CPU.
+
+The same numpy inputs, made from a seed, go through
+``dask_ml_tpu.ops.sparse`` (the Pallas SpMV in interpret mode where the
+row count tiles, and the XLA reference) and through
+``dask_ml_tpu_torch.ops.sparse`` on the CPU, where ``matvec`` runs the
+plain version ``_spmv_ref`` because the tensors lie on the CPU.
+Tolerances and their reasons:
+
+- integer-valued data: every product and partial sum is an exactly
+  representable integer, so the contractions are bit-identical to each
+  other and to the dense products, whatever the summation order;
+- float data: the same products summed in other orders, rtol 1e-6 and
+  atol 1e-6 (the JAX package's own Pallas-vs-XLA tolerance);
+- the container encoding and the sparse generator are integer and
+  counter-seeded numpy work: equal slot for slot and bit for bit.
+
+The K6 kernel itself is held against ``_spmv_ref`` on the card
+(tests/test_torch_gpu.py and chip_smoke.py).
+"""
+
+import numpy as np
+import pytest
+import scipy.sparse as scipy_sparse
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from dask_ml_tpu import datasets as jdatasets
+from dask_ml_tpu.ops import sparse as jsps
+from dask_ml_tpu.parallel import shapes as jshapes
+from dask_ml_tpu_torch import _kernels, config_context
+from dask_ml_tpu_torch import datasets as tdatasets
+from dask_ml_tpu_torch.ops import sparse as tsps
+from dask_ml_tpu_torch.parallel import shapes as tshapes
+from dask_ml_tpu_torch.parallel.sharding import (is_sparse_input,
+                                                 prepare_data, unpad_rows)
+from dask_ml_tpu_torch.utils.validation import check_array
+
+
+@pytest.fixture(autouse=True)
+def on_cpu():
+    with config_context(device="cpu"):
+        yield
+
+
+def _int_sparse(rng, n, d, density=0.3, lo=-3, hi=4):
+    """Integer-valued sparse matrix with an empty row and an all-zero
+    column (the JAX package's test recipe)."""
+    dense = (rng.randint(lo, hi, (n, d))
+             * (rng.uniform(size=(n, d)) < density)).astype(np.float32)
+    if n > 3:
+        dense[2] = 0.0
+    if d > 5:
+        dense[:, 4] = 0.0
+    return dense, scipy_sparse.csr_matrix(dense)
+
+
+def _pair(A):
+    """The same host container for both packages."""
+    return (jsps.SparseRows(jnp.asarray(A.values), jnp.asarray(A.cols), A.d),
+            tsps.SparseRows(torch.as_tensor(A.values),
+                            torch.as_tensor(A.cols), A.d))
+
+
+def _dup_rows(rng, n, d, k):
+    """A container written slot by slot: duplicate columns in a row, and
+    value-0 padded slots at column 0."""
+    cols = rng.randint(0, d, (n, k)).astype(np.int32)
+    cols[:, 1] = cols[:, 0]  # duplicates sum
+    vals = rng.randint(-3, 4, (n, k)).astype(np.float32)
+    vals[:, -1] = 0.0
+    cols[:, -1] = 0  # padding
+    return tsps.SparseRows(vals, cols, d)
+
+
+# ---------------------------------------------------------------------------
+# K6: the plain version against the JAX package's two paths
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,d,pallas", [(512, 33, True), (37, 17, True),
+                                        (300, 9, False), (1, 6, True)])
+def test_spmv_bit_exact_on_integer_data(n, d, pallas):
+    rng = np.random.RandomState(n + d)
+    dense, csr = _int_sparse(rng, n, d)
+    Aj, At = _pair(jsps.ell_from_csr(csr))
+    v = rng.randint(-3, 4, d).astype(np.float32)
+    got = tsps.matvec(At, torch.as_tensor(v), kernel="torch").numpy()
+    np.testing.assert_array_equal(got, dense @ v)
+    np.testing.assert_array_equal(
+        got, np.asarray(jsps.matvec(Aj, jnp.asarray(v), kernel="xla")))
+    if pallas:  # the Pallas kernel tiles this n (interpret mode here)
+        np.testing.assert_array_equal(
+            got, np.asarray(jsps.matvec(Aj, jnp.asarray(v),
+                                        kernel="pallas")))
+    # 'auto' on CPU tensors is the plain version and launches nothing
+    before = dict(_kernels.launches)
+    np.testing.assert_array_equal(tsps.spmv(At, torch.as_tensor(v)).numpy(),
+                                  got)
+    assert _kernels.launches == before
+
+
+@pytest.mark.parametrize("k", [1, 5, 101])
+def test_spmv_duplicates_padding_and_widths(k):
+    rng = np.random.RandomState(k)
+    A = _dup_rows(rng, 301, 7, max(k, 2)) if k > 1 else tsps.SparseRows(
+        rng.randint(-3, 4, (301, 1)).astype(np.float32),
+        rng.randint(0, 7, (301, 1)).astype(np.int32), 7)
+    Aj, At = _pair(A)
+    v = rng.randint(-3, 4, 7).astype(np.float32)
+    dense = tsps.to_dense(At).numpy()
+    got = tsps.matvec(At, torch.as_tensor(v)).numpy()
+    np.testing.assert_array_equal(got, dense @ v)
+    np.testing.assert_array_equal(
+        got, np.asarray(jsps.matvec(Aj, jnp.asarray(v), kernel="xla")))
+    np.testing.assert_array_equal(dense, np.asarray(jsps.to_dense(Aj)))
+
+
+def test_spmv_float_data_within_rtol():
+    rng = np.random.RandomState(3)
+    _, csr = _int_sparse(rng, 512, 33)
+    csr.data = rng.standard_normal(csr.nnz).astype(np.float32)
+    Aj, At = _pair(jsps.ell_from_csr(csr))
+    v = rng.standard_normal(33).astype(np.float32)
+    got = tsps.matvec(At, torch.as_tensor(v)).numpy()
+    for kernel in ("xla", "pallas"):
+        np.testing.assert_allclose(
+            got, np.asarray(jsps.matvec(Aj, jnp.asarray(v), kernel=kernel)),
+            rtol=1e-6, atol=1e-6)
+
+
+def test_spmv_gradient_matches_jax():
+    """The autograd Function's backward against ``jax.grad`` through the
+    Pallas ``spmv``'s custom VJP: in v (the segment-sum pullback) and in
+    the values (formed only when asked for). Float data, rtol 1e-6."""
+    rng = np.random.RandomState(4)
+    _, csr = _int_sparse(rng, 256, 9)
+    csr.data = rng.standard_normal(csr.nnz).astype(np.float32)
+    Aj, At = _pair(jsps.ell_from_csr(csr))
+    v0 = rng.standard_normal(9).astype(np.float32)
+    gj_v = jax.grad(lambda v: jnp.sum(jsps.spmv(Aj, v) ** 2))(jnp.asarray(v0))
+    gj_vals = jax.grad(lambda x: jnp.sum(jsps.spmv(
+        jsps.SparseRows(x, Aj.cols, Aj.d), jnp.asarray(v0)) ** 2))(Aj.values)
+    vals = At.values.clone().requires_grad_(True)
+    v = torch.tensor(v0, requires_grad=True)
+    out = tsps.spmv(tsps.SparseRows(vals, At.cols, At.d), v)
+    (out ** 2).sum().backward()
+    np.testing.assert_allclose(v.grad.numpy(), np.asarray(gj_v), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(vals.grad.numpy(), np.asarray(gj_vals),
+                               rtol=1e-6, atol=1e-6)
+    # without a values gradient only the pullback runs
+    v2 = torch.tensor(v0, requires_grad=True)
+    (tsps.matvec(At, v2) ** 2).sum().backward()
+    assert torch.equal(v2.grad, v.grad)
+
+
+def test_autodiff_pullback_is_segment_sum():
+    rng = np.random.RandomState(5)
+    _, csr = _int_sparse(rng, 40, 7)
+    Aj, At = _pair(jsps.ell_from_csr(csr))
+    r = rng.randint(-2, 3, 40).astype(np.float32)
+    v = torch.zeros(7, requires_grad=True)
+    torch.dot(tsps.matvec(At, v), torch.as_tensor(r)).backward()
+    want = np.asarray(jsps.pullback(Aj, jnp.asarray(r)))
+    np.testing.assert_array_equal(v.grad.numpy(), want)
+    np.testing.assert_array_equal(
+        tsps.pullback(At, torch.as_tensor(r)).numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# the other contractions, bit for bit on integer data
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,d", [(24, 9), (37, 17), (64, 5)])
+def test_contractions_bit_exact_on_integer_data(n, d):
+    rng = np.random.RandomState(n * d)
+    dense, csr = _int_sparse(rng, n, d)
+    Aj, At = _pair(jsps.ell_from_csr(csr))
+    r = rng.randint(-3, 4, n).astype(np.float32)
+    h = rng.randint(0, 4, n).astype(np.float32)
+    B = rng.randint(-2, 3, (d, 3)).astype(np.float32)
+    R = rng.randint(-2, 3, (n, 3)).astype(np.float32)
+    cases = [
+        (tsps.pullback(At, torch.as_tensor(r)),
+         jsps.pullback(Aj, jnp.asarray(r)), dense.T @ r),
+        (tsps.pullback_mat(At, torch.as_tensor(R)),
+         jsps.pullback_mat(Aj, jnp.asarray(R)), dense.T @ R),
+        (tsps.matmat(At, torch.as_tensor(B)),
+         jsps.matmat(Aj, jnp.asarray(B)), dense @ B),
+        (tsps.weighted_gram(At, torch.as_tensor(h)),
+         jsps.weighted_gram(Aj, jnp.asarray(h)),
+         dense.T @ (h[:, None] * dense)),
+        (tsps.to_dense(At), jsps.to_dense(Aj), dense),
+    ]
+    for got, jax_out, want in cases:
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jax_out))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_weighted_gram_chunks_like_one_pass(monkeypatch):
+    """Row chunks with a ragged last chunk give the one-chunk Gram."""
+    rng = np.random.RandomState(6)
+    dense, csr = _int_sparse(rng, 50, 8)
+    _, At = _pair(jsps.ell_from_csr(csr))
+    h = torch.as_tensor(rng.randint(0, 4, 50).astype(np.float32))
+    whole = tsps.weighted_gram(At, h)
+    monkeypatch.setattr(tsps, "_GRAM_BUDGET", 3 * At.k * At.k)
+    assert torch.equal(tsps.weighted_gram(At, h), whole)
+
+
+# ---------------------------------------------------------------------------
+# container and encoding
+# ---------------------------------------------------------------------------
+
+
+def test_bucket_nnz_matches_jax():
+    for k in list(range(0, 70)) + [100, 128, 129, 1000]:
+        assert tshapes.bucket_nnz(k) == jshapes.bucket_nnz(k, record=False)
+    assert tshapes.bucket_nnz(3, min_slots=16) == 16
+    with pytest.raises(ValueError):
+        tshapes.bucket_nnz(-1)
+
+
+@pytest.mark.parametrize("n,d,k", [(23, 11, None), (16, 8, 8), (5, 300, 8)])
+def test_ell_from_csr_and_intercept_match_slot_for_slot(n, d, k):
+    rng = np.random.RandomState(n + d)
+    dense, csr = _int_sparse(rng, n, d, density=0.3 if d < 100 else 0.004)
+    tA = tsps.ell_from_csr(csr, k=k)
+    jA = jsps.ell_from_csr(csr, k=k)
+    assert tA.shape == jA.shape and tA.k == jA.k
+    np.testing.assert_array_equal(tA.values, jA.values)
+    np.testing.assert_array_equal(tA.cols, jA.cols)
+    assert tA.cols.dtype == np.int32 and tA.values.dtype == np.float32
+    for tB, jB in ((tsps.add_intercept_ell(tA), jsps.add_intercept_ell(jA)),
+                   (tsps.add_intercept_ell(tA.to("cpu")),
+                    jsps.add_intercept_ell(jax.device_put(jA)))):
+        assert tB.d == jB.d == d + 1 and tB.k == jB.k
+        np.testing.assert_array_equal(np.asarray(tB.values),
+                                      np.asarray(jB.values))
+        np.testing.assert_array_equal(np.asarray(tB.cols),
+                                      np.asarray(jB.cols))
+    np.testing.assert_array_equal(tsps.to_dense(tA).numpy(), dense)
+    np.testing.assert_array_equal(
+        tsps.ell_from_dense(dense, k=k).values, tA.values)
+
+
+def test_ell_width_too_small_raises():
+    rng = np.random.RandomState(0)
+    _, csr = _int_sparse(rng, 16, 8, density=0.9)
+    with pytest.raises(ValueError, match="widen k"):
+        tsps.ell_from_csr(csr, k=1)
+    with pytest.raises(TypeError):
+        tsps.ell_from_csr(np.eye(3))
+
+
+def test_container_surface():
+    rng = np.random.RandomState(1)
+    A = _dup_rows(rng, 10, 6, 4)
+    assert A.shape == (10, 6) and A.ndim == 2 and A.k == 4
+    assert A.dtype == np.float32
+    assert A.nbytes == A.values.nbytes + A.cols.nbytes
+    T = A.to("cpu")
+    assert isinstance(T.values, torch.Tensor) and T.cols.dtype == torch.int32
+    assert T.nbytes == A.nbytes and T.dtype == torch.float32
+    sub = T[2:5]
+    assert sub.shape == (3, 6) and torch.equal(sub.cols, T.cols[2:5])
+    assert T[np.array([0, 3])].shape == (2, 6)
+    with pytest.raises(TypeError, match="scalar"):
+        T[3]
+    assert "SparseRows" in repr(T)
+
+
+def test_kernel_wrapper_refuses_what_it_cannot_take():
+    """kernel='cuda' needs CUDA tensors; the wrapper raises rather than
+    running the plain version."""
+    rng = np.random.RandomState(2)
+    _, csr = _int_sparse(rng, 8, 5)
+    _, At = _pair(jsps.ell_from_csr(csr))
+    v = torch.zeros(5)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsps.matvec(At, v, kernel="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tsps._spmv_cuda(At.values, At.cols, v)
+    with pytest.raises(ValueError, match="int32 cols"):
+        tsps._spmv_cuda(At.values, At.cols.long(), v)
+    with pytest.raises(ValueError, match="kernel must be"):
+        tsps.matvec(At, v, kernel="xla")
+
+
+# ---------------------------------------------------------------------------
+# the sparse generator
+# ---------------------------------------------------------------------------
+
+
+def test_make_sparse_classification_bit_for_bit():
+    args = (10_000, 700, 0.01)
+    jX, jy, jcoef = jdatasets.make_sparse_classification(
+        *args, random_state=42, return_coef=True)
+    tX, ty, tcoef = tdatasets.make_sparse_classification(
+        *args, random_state=42, return_coef=True)
+    assert tX.shape == jX.shape and tX.k == jX.k == 7
+    np.testing.assert_array_equal(tX.values, jX.values)
+    np.testing.assert_array_equal(tX.cols, jX.cols)
+    np.testing.assert_array_equal(ty, jy)
+    np.testing.assert_array_equal(tcoef, jcoef)
+    # blocks: any blocking gives the same rows
+    jb = jdatasets.make_sparse_classification(*args, random_state=42,
+                                              n_blocks=3)
+    tb = tdatasets.make_sparse_classification(*args, random_state=42,
+                                              n_blocks=3)
+    for b in range(3):
+        (tXb, tyb, twb), (jXb, jyb, _) = tb(b), jb(b)
+        np.testing.assert_array_equal(tXb.values, jXb.values)
+        np.testing.assert_array_equal(tXb.cols, jXb.cols)
+        np.testing.assert_array_equal(tyb, jyb)
+        assert (twb == 1).all()
+    mX, my, _ = tb.materialize()
+    np.testing.assert_array_equal(mX.values, tX.values)
+    np.testing.assert_array_equal(my, ty)
+    with pytest.raises(IndexError):
+        tb(3)
+    with pytest.raises(TypeError, match="INTEGER"):
+        tdatasets.make_sparse_classification(random_state=None)
+
+
+# ---------------------------------------------------------------------------
+# validation and staging
+# ---------------------------------------------------------------------------
+
+
+def test_check_array_sparse_branch():
+    rng = np.random.RandomState(7)
+    _, csr = _int_sparse(rng, 20, 6)
+    assert check_array(csr, accept_sparse=True) is csr
+    out = check_array(csr.astype(np.float64), accept_sparse=True)
+    assert out.dtype == np.float32 and out.nnz == csr.nnz
+    with pytest.raises(TypeError, match=r"tocsr"):
+        check_array(csr.tocsc(), accept_sparse=True)
+    with pytest.raises(TypeError, match="sparse"):
+        check_array(csr)  # the dense-only default
+    bad = csr.copy()
+    bad.data[0] = np.nan
+    with pytest.raises(ValueError, match="NaN or infinity"):
+        check_array(bad, accept_sparse=True)
+    oob = csr.copy()
+    oob.indices[0] = 6
+    with pytest.raises(ValueError, match=r"\[0, 6\)"):
+        check_array(oob, accept_sparse=True)
+    # containers, host and staged: int values cast, range and NaN checked
+    A_int = tsps.SparseRows(np.array([[1, 2], [3, 0]], np.int32),
+                            np.array([[0, 2], [1, 0]], np.int32), 3)
+    out = check_array(A_int, accept_sparse=True)
+    assert out.values.dtype == np.float32
+    np.testing.assert_array_equal(out.values, A_int.values)
+    A_ok = tsps.SparseRows(np.ones((4, 2), np.float32),
+                           np.zeros((4, 2), np.int32), 2)
+    assert check_array(A_ok, accept_sparse=True) is A_ok
+    staged = A_ok.to("cpu")
+    assert check_array(staged, accept_sparse=True) is staged
+    for A in (tsps.SparseRows(np.array([[np.nan, 1.0]], np.float32),
+                              np.array([[0, 1]], np.int32), 2),
+              tsps.SparseRows(torch.tensor([[np.inf, 1.0]]),
+                              torch.tensor([[0, 1]], dtype=torch.int32), 2)):
+        with pytest.raises(ValueError, match="NaN or infinity"):
+            check_array(A, accept_sparse=True)
+    for cols in (np.array([[0, 2]], np.int32), np.array([[-1, 0]], np.int32),
+                 torch.tensor([[0, 2]], dtype=torch.int32)):
+        vals = np.ones((1, 2), np.float32)
+        A = tsps.SparseRows(torch.as_tensor(vals) if isinstance(
+            cols, torch.Tensor) else vals, cols, 2)
+        with pytest.raises(ValueError, match=r"\[0, 2\)"):
+            check_array(A, accept_sparse=True)
+    with pytest.raises(TypeError, match="sparse"):
+        check_array(A_ok)
+
+
+def test_prepare_data_stages_one_contiguous_container():
+    rng = np.random.RandomState(8)
+    dense, csr = _int_sparse(rng, 30, 8)
+    assert is_sparse_input(csr) and not is_sparse_input(dense)
+    A = tsps.ell_from_csr(csr)
+    assert is_sparse_input(A)
+    for X in (csr, A):
+        data = prepare_data(X, y=np.arange(30))
+        assert isinstance(data.X, tsps.SparseRows)
+        assert data.n == 30 and data.n_features == 8
+        assert data.X.values.shape == (30, A.k)  # no row or slot padding
+        assert data.X.values.dtype == torch.float32
+        assert data.X.cols.dtype == torch.int32
+        assert data.X.values.is_contiguous() and data.X.cols.is_contiguous()
+        assert data.y.dtype == torch.float32 and float(data.y[-1]) == 29.0
+        assert float(data.weights.sum()) == 30.0
+        np.testing.assert_array_equal(tsps.to_dense(data.X).numpy(), dense)
+        sub = unpad_rows(data.X, 10)
+        assert sub.shape == (10, 8)
+    with pytest.raises(ValueError, match="y shape"):
+        prepare_data(csr, y=np.arange(3))
+
+
+def test_kmeans_still_rejects_sparse():
+    from dask_ml_tpu_torch.cluster import KMeans
+
+    rng = np.random.RandomState(9)
+    _, csr = _int_sparse(rng, 30, 8)
+    with pytest.raises(TypeError, match="sparse"):
+        KMeans(n_clusters=2).fit(csr)
+    with pytest.raises(TypeError, match="sparse"):
+        KMeans(n_clusters=2).fit(tsps.ell_from_csr(csr))
