@@ -28,25 +28,37 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    rtol 1e-6; a ``tol=0`` 20-iteration bounded run must skip rows; and
    the sketched fit must meet the quality gate (inertia ratio ≤ 1.05,
    ARI ≥ 0.9 against the exact fit) at the JAX drill's quality shape;
-6. holds the SpMV kernel (K6) and its autograd gradient against their
-   plain versions bit for bit on integer data at edge shapes (n = 1, a
-   ragged n of 1,000,003, k = 1 and k = 101, duplicate columns in a row,
-   value-0 padded slots, one hot column, d = 100,001 and d = 7);
+6. holds the SpMV kernels (K6: ``v`` in a block's or a cluster's shared
+   memory, and ``v`` in L2), the pullback kernels (K6's backward: ``g`` in
+   shared memory, and device atomics) and the autograd gradient against
+   their plain versions bit for bit on integer data: at edge shapes
+   (n = 1, ragged n, k in {1, 3, 32, 101, 128}, duplicate columns,
+   value-0 padded slots, empty rows, one hot column, every row on one
+   column) through every cluster size that fits, and at a d on each side
+   of every boundary of ``ops.sparse.dvector_plan`` (one block, clusters
+   of 2, 4 and 8, and beyond) through the route the plan picks;
 7. drives the sparse GLM path at the JAX package's flagship sparse
    problem: ``LogisticRegression(solver="lbfgs", max_iter=3).fit(X, y)``
    on ``make_sparse_classification(10_000_000, 100_000, 0.001,
    random_state=42)`` (100 nonzeros a row), then ``score`` on the first
-   262,144 rows: K6 must launch in both, ``n_iter_`` must be 3, the
-   accuracy above 0.55; from each carry of the fit, one L-BFGS step
-   through K6 and one through the plain SpMV must give the same
-   coefficients bit for bit, and the whole plain fit must give
-   coefficients within 1e-3 normwise (the pullback's float atomics make
-   every fit differ from a rerun of itself) and the same labels wherever
-   the coefficient gap cannot carry a score across 0;
-8. times each kernel with CUDA events next to its bound and its plain
-   version (K6 also next to cuSPARSE through ``torch.sparse``, the
-   pullback and one L-BFGS iteration, with a device profile of that
-   iteration).
+   262,144 rows: K6 must launch in both and its backward in the fit,
+   ``n_iter_`` must be 3, the accuracy above 0.55; from each carry of the
+   fit, one L-BFGS step through the kernels and one through the plain
+   versions must give the same coefficients bit for bit, and the whole
+   plain fit must give coefficients within 1e-3 normwise (float atomics,
+   the kernel's in shared memory or ``index_add_``'s on device memory,
+   make every fit differ from a rerun of itself: both spreads are
+   printed) and the same labels wherever the coefficient gap cannot
+   carry a score across 0;
+8. holds both forwards and both pullbacks against their plain versions at
+   the full container within their rounding bounds, and times each kernel
+   with CUDA events next to its bound and its plain version (K6 also next
+   to cuSPARSE through ``torch.sparse``, on the same slots folded onto
+   1,024 columns, and on 40,000 columns through one block and clusters
+   of 2, 4 and 8; one L-BFGS iteration, with a device profile of it).
+
+``python3 chip_smoke.py --spmv-only`` runs steps 1, 2, 6 and 8 alone, on a
+container of the sparse cell's shape drawn on the card.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
@@ -55,6 +67,7 @@ result. Without a CUDA card it exits non-zero at once. The last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -80,11 +93,25 @@ GLM_FIT_RTOL = 1e-3
 # lbfgs_fit): a quality to print beside the port's, not a speed
 JAX_GLM_ACCURACY = 0.8211
 # K6 edge shapes (n, k, d): n = 1, a ragged n, k = 1 and the intercept's
-# odd k = 101, the cell's d = 100,001 and a d = 7 where every column is hot
+# odd k = 101, the cell's d = 100,001 and a d = 7 where every column is hot,
+# a k beyond the shared-memory kernels' tile and a d beyond every cluster
 SPMV_EDGE_SHAPES = [(1, 1, 7), (1, 101, 100_001), (1_000_003, 101, 100_001),
                     (1_000_003, 1, 7), (5000, 1, 7), (4097, 3, 7),
                     (777, 17, 100_001), (2048, 64, 7), (33, 101, 7),
-                    (100_000, 2, 100_001)]
+                    (100_000, 2, 100_001), (40_001, 32, 30_011),
+                    (9_999, 128, 250_007), (301, 1030, 5_003),
+                    (1_001, 512, 9_001), (1_001, 513, 9_001),
+                    (70_001, 101, 500_009)]
+# widths of the boundary shapes, and the slots a boundary container holds
+# (enough for dvector_plan to fill shared memory at every cluster size)
+SPMV_BOUNDARY_KS = (1, 3, 32, 101, 128)
+SPMV_BOUNDARY_SLOTS = 8_000_000
+# the one-block against cluster comparison: the cell's slots folded onto
+# this many columns, which fit one block's shared memory
+FOLD_D = 40_000
+# wider models for the K6-only run: d beyond a cluster of 2 and of 4
+# (what the plan's cluster limits rest on)
+SPMV_WIDE_DS = (150_001, 300_001)
 # H100 SXM data sheet: HBM3 bandwidth and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
@@ -97,6 +124,10 @@ REPLACES = {
     "fused_argmin_min2": "dask_ml_tpu/ops/fused_distance.py:378",
     "fused_argmin_min_sketched": "dask_ml_tpu/ops/fused_distance.py:378",
     "spmv": "dask_ml_tpu/ops/sparse.py:512",
+    "spmv_l2": "dask_ml_tpu/ops/sparse.py:512",
+    # the custom VJP's backward, left to XLA's segment_sum there
+    "spmv_pullback": "dask_ml_tpu/ops/sparse.py:560",
+    "spmv_pullback_l2": "dask_ml_tpu/ops/sparse.py:560",
 }
 #: the kernels each path must launch
 PATH_KERNELS = {
@@ -107,7 +138,8 @@ PATH_KERNELS = {
     "sketched": ("fused_argmin_min2", "fused_argmin_min_sketched",
                  "fused_argmin_min", "fused_rowwise_min",
                  "fused_argmin_weight"),
-    "glm-sparse": ("spmv",),
+    "glm-sparse-fit": ("spmv", "spmv_pullback"),
+    "glm-sparse-score": ("spmv",),
 }
 SOURCES = {
     "lloyd_iter": "dask_ml_tpu_torch/_kernels/csrc/lloyd.cu",
@@ -119,6 +151,9 @@ SOURCES = {
     "fused_argmin_min_sketched":
         "dask_ml_tpu_torch/_kernels/csrc/fused_distance.cu",
     "spmv": "dask_ml_tpu_torch/_kernels/csrc/spmv.cu",
+    "spmv_l2": "dask_ml_tpu_torch/_kernels/csrc/spmv.cu",
+    "spmv_pullback": "dask_ml_tpu_torch/_kernels/csrc/spmv.cu",
+    "spmv_pullback_l2": "dask_ml_tpu_torch/_kernels/csrc/spmv.cu",
 }
 
 
@@ -480,31 +515,130 @@ def ell_ints(rng, n, k, d, dev, lo=-8, hi=8):
                           torch.as_tensor(cols, device=dev), d)
 
 
-def spmv_edge_cases(dev):
-    """K6 against its plain version, bit for bit on integer data (every
-    product and partial sum is an exact integer), and run to run; its
-    autograd gradient through the kernel against the plain version's, bit
-    for bit with values in {-1, 0, 1} (so that the pullback's float
-    atomics add exact integers)."""
+def fitting_routes(k, d, pullback):
+    """Every route the wrappers can be told to take for this shape: L2
+    (cluster 0) and each cluster size the direction is built for whose
+    shared memory holds the d-vector."""
+    from dask_ml_tpu_torch.ops import sparse as sps
+
+    return [0] + [c for c in sps._PLAN_CLUSTERS[pullback]
+                  if sps._fits(k, d, c, pullback)]
+
+
+def check_spmv_int(tag, A, v, r, routes_f, routes_b):
+    """Both directions of K6 on an integer-valued container, through the
+    named routes (a cluster size; None: the plan's), bit for
+    bit against the plain versions; the forward twice for its own bits."""
     import torch
 
     from dask_ml_tpu_torch.ops import sparse as sps
 
+    want = sps._spmv_ref(A.values, A.cols, v) if routes_f else None
+    for c in routes_f:
+        got = sps._spmv_cuda(A.values, A.cols, v, cluster=c)
+        expect(torch.equal(got, want),
+               f"K6 {tag} cluster {c}: not bit-identical to the plain "
+               f"version")
+        expect(torch.equal(got, sps._spmv_cuda(A.values, A.cols, v,
+                                               cluster=c)),
+               f"K6 {tag} cluster {c}: not reproducible")
+    want = (sps._pullback_ref(A.values, A.cols, r, A.d) if routes_b
+            else None)
+    for c in routes_b:
+        got = sps._pullback_cuda(A.values, A.cols, r, A.d, cluster=c)
+        expect(torch.equal(got, want),
+               f"K6 pullback {tag} cluster {c}: not bit-identical to the "
+               f"plain version")
+
+
+def spmv_edge_cases(dev):
+    """K6's forward and pullback kernels against their plain versions, bit
+    for bit on integer data (every product and partial sum is an exact
+    integer, so every order of summation gives the same bits), the
+    forward also run to run: the edge shapes through every route that
+    fits, the plan's boundaries through the route the plan picks; then
+    the autograd gradient through the kernels against the plain
+    version's."""
+    import torch
+
+    from dask_ml_tpu_torch import _kernels
+    from dask_ml_tpu_torch.ops import sparse as sps
+
     rng = np.random.default_rng(3)
+
+    def vec(m, lo=-4, hi=4):
+        return torch.as_tensor(rng.integers(lo, hi, m), dtype=torch.float32,
+                               device=dev)
+
     for n, k, d in SPMV_EDGE_SHAPES:
         A = ell_ints(rng, n, k, d, dev)
-        v = torch.as_tensor(rng.integers(-4, 4, d), dtype=torch.float32,
-                            device=dev)
-        got = sps.matvec(A, v, kernel="cuda")
-        expect(torch.equal(got, sps.matvec(A, v, kernel="torch")),
-               f"K6 n{n} k{k} d{d}: not bit-identical to the plain version")
-        expect(torch.equal(got, sps.matvec(A, v, kernel="cuda")),
-               f"K6 n{n} k{k} d{d}: not reproducible")
+        check_spmv_int(f"n{n} k{k} d{d}", A, vec(d), vec(n),
+                       fitting_routes(k, d, False),
+                       fitting_routes(k, d, True))
+    # rows of zeros (value-0 slots on column 0), and every row on one column
+    for n, k, d in [(3001, 5, 777), (2049, 101, 100_001)]:
+        A = ell_ints(rng, n, k, d, dev)
+        A.values[::3] = 0.0
+        A.cols[::3] = 0
+        check_spmv_int(f"empty rows n{n} k{k} d{d}", A, vec(d), vec(n),
+                       fitting_routes(k, d, False),
+                       fitting_routes(k, d, True))
+        A.cols[:] = d // 2
+        check_spmv_int(f"one column n{n} k{k} d{d}", A, vec(d), vec(n),
+                       fitting_routes(k, d, False),
+                       fitting_routes(k, d, True))
+    # a container that starts 4 bytes off a 16-byte boundary: the kernels
+    # read it slot by slot
+    A = ell_ints(rng, 5001, 101, 60_001, dev)
+    off = [torch.empty(A.values.numel() + 1, dtype=t.dtype, device=dev)[1:]
+           .view(A.values.shape).copy_(t) for t in (A.values, A.cols)]
+    expect(off[0].data_ptr() % 16 == 4, "the offset container is aligned")
+    check_spmv_int("unaligned", sps.SparseRows(off[0], off[1], A.d),
+                   vec(A.d), vec(5001), fitting_routes(101, A.d, False),
+                   fitting_routes(101, A.d, True))
+    # a d on each side of every boundary of the plan, drawn on the card
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    n_boundary = 0
+    for k in SPMV_BOUNDARY_KS:
+        n = -(-SPMV_BOUNDARY_SLOTS // k) + 3
+        for pull in (False, True):
+            besides = 0 if pull else 8 * sps._GROUPS * sps._tile_rows(k) * k
+            picks = sps._PLAN_CLUSTERS[pull]
+            for i, c in enumerate(picks):
+                fits = c * ((sps._SMEM_BLOCK_BYTES - besides) // 4)
+                beyond = (picks + (0,))[i + 1]
+                for d, route in ((fits, c), (fits + 1, beyond)):
+                    expect(sps.dvector_plan(n, k, d, pullback=pull) == route,
+                           f"plan(n{n}, k{k}, d{d}, pullback={pull}) is "
+                           f"not {route}")
+                    cols = torch.randint(0, d, (n, k), dtype=torch.int32,
+                                         generator=g, device=dev)
+                    if k > 1:  # a hot column, as the intercept is
+                        cols[:, -1] = d - 1
+                    # |product| <= 8, 2 on average: the hot column's sums
+                    # stay below 2^24 in whatever order they are added
+                    vals = torch.randint(-4, 4, (n, k), generator=g,
+                                         device=dev).float()
+                    A = sps.SparseRows(vals, cols, d)
+                    x = torch.randint(-2, 2, (n if pull else d,),
+                                      generator=g, device=dev).float()
+                    _kernels.reset_launches()
+                    check_spmv_int(f"boundary n{n} k{k} d{d}", A,
+                                   None if pull else x, x if pull else None,
+                                   [] if pull else [None],
+                                   [None] if pull else [])
+                    name = ("spmv_pullback" if pull else "spmv") + (
+                        "" if route else "_l2")
+                    expect(_kernels.launches[name] >= 1,
+                           f"boundary n{n} k{k} d{d}: {name} did not run: "
+                           f"{_kernels.launches}")
+                    n_boundary += 1
+    log(f"K6 boundaries: {n_boundary} shapes, each through the plan's route")
     for n, k, d in [(64, 101, 7), (257, 101, 100_001), (1000, 1, 50),
-                    (3001, 5, 100_001)]:
+                    (3001, 5, 100_001), (200_003, 101, 100_001)]:
         A = ell_ints(rng, n, k, d, dev, -1, 2)
-        v0 = torch.as_tensor(rng.integers(-1, 2, d), dtype=torch.float32,
-                             device=dev)
+        v0 = vec(d, -1, 2)
         grads = []
         for kernel in ("cuda", "torch"):
             vals = A.values.clone().requires_grad_(True)
@@ -1044,9 +1178,33 @@ def kdd_cell(dev, errs):
 # ---------------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def plain_pullback_in_f64():
+    """The plain pullback with its products and its scatter-add in float64
+    (rounded to f32 once, at the end): the plain path without the rounding
+    of its own 1e7-long chains of f32 atomics, for the whole-fit check."""
+    import torch
+
+    from dask_ml_tpu_torch.ops import sparse as sps
+
+    def in_f64(values, cols, r, d):
+        prods = values.double() * r.double()[:, None]
+        out = torch.zeros(d, dtype=torch.float64, device=values.device)
+        return out.index_add_(0, cols.reshape(-1), prods.reshape(-1)).float()
+
+    plain = sps._pullback_ref
+    sps._pullback_ref = in_f64
+    try:
+        yield
+    finally:
+        sps._pullback_ref = plain
+
+
 def glm_plain_check(est, X, y, Xs, dev):
-    """The kernel path against the plain SpMV on the card, with the
-    facade's staging and arguments (``models.glm.lbfgs``), in two parts.
+    """The kernel path against the plain path (plain SpMV, ``index_add_``
+    pullback: ``kernel="torch"`` launches no kernel of the port) on the
+    card, with the facade's staging and arguments (``models.glm.lbfgs``),
+    in two parts.
 
     Step by step, out of the pullback's reach: from each carry of a
     kernel-path run (the first made once, so both share its gradient),
@@ -1058,16 +1216,25 @@ def glm_plain_check(est, X, y, Xs, dev):
     1e-6·|f| covers the two length-n sums' rounding.
 
     The whole fit: the same ``n_iter`` and coefficients within
-    ``GLM_FIT_RTOL``, normwise. The gradients come from ``index_add_``,
-    whose float atomics add in a different order each run, so no fit on
-    the card, kernel or plain, repeats its own last bits, and three
-    iterations carry them into the coefficients; the plain fit is made
-    twice to print that spread beside the gap. Labels on the score rows
-    may differ only where the coefficient gap can carry the plain score
-    across 0. Returns (staged container, its y and w, the plain
-    coefficients, the stats)."""
+    ``GLM_FIT_RTOL``, normwise, of the plain path with its pullback
+    accumulated in float64. The f32 plain path is no yardstick for a
+    whole fit: ``index_add_`` adds the intercept's 1e7 products one by
+    one into one f32 address, each a few ulps of the running sum, so
+    its intercept gradient is about 1e-3 off at this fit's residuals
+    (4.7 % where the residuals are all ±0.5 / n with a 1 : 3 label
+    split and every add rounds the same way), the kernel's (chains of
+    n / 66 adds, then 66 in fixed order) 1e-6 (3e-4). That fit is made
+    too, twice, and its gap and its spread are printed. Float
+    atomics (the kernel's in shared memory, ``index_add_``'s on device
+    memory) add in a different order each run, so no fit on the card
+    repeats its own last bits; the kernel fit is made again to print its
+    spread as well. Labels on the score rows may differ only where the
+    coefficient gap can carry the plain score across 0. Returns (staged
+    container, its y and w, the f64-accumulated plain coefficients, the
+    stats)."""
     import torch
 
+    from dask_ml_tpu_torch import _kernels
     from dask_ml_tpu_torch.linear_model.glm import (add_intercept,
                                                     labels_from_proba,
                                                     proba_from_eta)
@@ -1116,18 +1283,32 @@ def glm_plain_check(est, X, y, Xs, dev):
         state = ck
         del scale, out, cp
     # -- the whole fit, and the plain fit against itself ---------------------
-    plain, n_plain = lbfgs("torch", max_iter=GLM_ITERS)
+    _kernels.reset_launches()
+    with plain_pullback_in_f64():
+        plain, n_plain = lbfgs("torch", max_iter=GLM_ITERS)
+    plain32, n_plain32 = lbfgs("torch", max_iter=GLM_ITERS)
     again, _ = lbfgs("torch", max_iter=GLM_ITERS)
-    expect(n_plain == est.n_iter_, f"plain path n_iter {n_plain}")
+    expect(not any(_kernels.launches.values()),
+           f"the plain path launched a kernel: {_kernels.launches}")
+    expect(n_plain == est.n_iter_ and n_plain32 == est.n_iter_,
+           f"plain path n_iter {n_plain}, {n_plain32}")
     coef_p = plain.cpu().numpy()
+    coef_32 = plain32.cpu().numpy()
     norm_p = float(np.linalg.norm(coef_p))
     gap = float(np.linalg.norm(est._coef - coef_p)) / norm_p
-    spread = float(np.linalg.norm(again.cpu().numpy() - coef_p)) / norm_p
+    gap_32 = float(np.linalg.norm(coef_32 - coef_p)) / norm_p
+    gap_k32 = float(np.linalg.norm(est._coef - coef_32)) / norm_p
+    spread = float(np.linalg.norm(again.cpu().numpy() - coef_32)) / norm_p
+    again, _ = lbfgs("cuda", max_iter=GLM_ITERS)
+    spread_k = float(np.linalg.norm(again.cpu().numpy() - est._coef)) / norm_p
+    spread_k_max = float(np.abs(again.cpu().numpy() - est._coef).max())
     expect(gap <= GLM_FIT_RTOL,
-           f"kernel and plain coefficients differ: {gap} normwise (the "
-           f"plain fit against itself: {spread}), max abs "
-           f"{float(np.abs(est._coef - coef_p).max())}")
-    del absA, again
+           f"kernel and plain (f64-accumulated pullback) coefficients "
+           f"differ: {gap} normwise, max abs "
+           f"{float(np.abs(est._coef - coef_p).max())}; the f32 plain fit "
+           f"is {gap_32} from that reference and {spread} from a rerun of "
+           f"itself")
+    del absA, again, plain32
     As = add_intercept(Xs.to(dev))
     eta_p = sps.matvec(As, plain, kernel="torch")
     pred_p = labels_from_proba(
@@ -1146,10 +1327,235 @@ def glm_plain_check(est, X, y, Xs, dev):
         far = eta_p.abs() > reach
         expect(not bool(far[torch.as_tensor(bad, device=dev)].any()),
                f"{bad.size} labels differ, some beyond the coefficient gap")
-    stats = {"coef_gap_normwise": gap, "plain_self_spread_normwise": spread,
+    stats = {"coef_gap_normwise": gap,
+             "plain_f32_gap_to_f64_plain_normwise": gap_32,
+             "kernel_gap_to_plain_f32_normwise": gap_k32,
+             "plain_self_spread_normwise": spread,
+             "kernel_self_spread_normwise": spread_k,
+             "kernel_self_spread_max_abs": spread_k_max,
              "coef_gap_max_abs": float(np.abs(est._coef - coef_p).max()),
              "step_objective_gaps": f_gaps, "label_flips": int(bad.size)}
     return Xd, data.y, data.weights, plain, stats
+
+
+def pullback_library_ms(vals, cols, r, d, want):
+    """One PyTorch call for ``A.T @ r`` on the same slots: cuSPARSE's SpMV
+    on the transposed CSR view through ``torch.mv``, held to 1e-2 normwise
+    of the plain version (both sum up to 1e7 f32 terms a column in an
+    order of their own)."""
+    import torch
+
+    n, k = vals.shape
+    torch.cuda.empty_cache()
+    crow = torch.arange(0, n * k + 1, k, dtype=torch.int32,
+                        device=vals.device)
+    csr = torch.sparse_csr_tensor(crow, cols.view(-1), vals.view(-1),
+                                  size=(n, d), check_invariants=False)
+    got = torch.mv(csr.t(), r)
+    torch.cuda.synchronize()
+    gap = float((got - want).norm() / want.norm())
+    expect(gap <= 1e-2, f"torch.mv on the transposed CSR view is {gap} "
+           f"normwise from the plain pullback")
+    log(f"pullback library: torch.mv on the transposed CSR view, "
+        f"{gap:.3e} normwise from the plain version")
+    return cuda_ms(lambda: torch.mv(csr.t(), r), iters=3, warmup=0)
+
+
+def pullback_accuracy(vals, cols, d, r, routes):
+    """Each pullback (the plain version, and the kernel through each of
+    ``routes``) against a float64 scatter-add of float64 products: the
+    relative error of the last column (the intercept's, which every row
+    adds to) and the normwise error of the others. The bound between two
+    f32 orders of summation is no gate on that column (1e7 terms: about
+    the column's own size), so these are: every kernel's other columns
+    within 1e-5 normwise of the float64 sums, and the shared-memory
+    kernel's last column within 1e-3 of them and, where the plain version
+    is beyond 1e-5, no further than that (on an H100 it reads 7e-7 to 3e-4
+    where the plain version and the device-atomics kernel read 1e-3 to
+    5e-2; below 1e-5 both are at the rounding of r itself)."""
+    import torch
+
+    from dask_ml_tpu_torch.ops import sparse as sps
+
+    ref = torch.zeros(d, dtype=torch.float64, device=vals.device).index_add_(
+        0, cols.view(-1), (vals.double() * r.double()[:, None]).view(-1))
+    got = {"plain": sps._pullback_ref(vals, cols, r, d)}
+    for name, c in routes:
+        got[name] = sps._pullback_cuda(vals, cols, r, d, cluster=c)
+    out = {}
+    for name, g in got.items():
+        e = g.double() - ref
+        out[name] = {
+            "last_column_rel_err": float(e[-1].abs() / ref[-1].abs()),
+            "other_columns_normwise_err": float(e[:-1].norm()
+                                                / ref[:-1].norm())}
+    for name, c in routes:
+        last = out[name]["last_column_rel_err"]
+        others = out[name]["other_columns_normwise_err"]
+        expect(others <= 1e-5, f"{name}: columns before the last are "
+               f"{others} normwise from their float64 sums")
+        expect(c == 0 or (last <= 1e-3 and last <= max(
+            1e-5, out["plain"]["last_column_rel_err"])),
+               f"{name}: the last column is {last} from its float64 sum "
+               f"(the plain version: "
+               f"{out['plain']['last_column_rel_err']})")
+    return out
+
+
+def spmv_at_container(Xd, v, r, errs, r_first=None):
+    """K6's four kernels at one full container on float data: each against
+    its plain version within its rounding bound, the forwards run to run,
+    the pullbacks also against a float64 reference (at ``r`` and, where
+    given, at ``r_first``, the residual of a fit's first gradient), then
+    their timings, bounds and yardsticks. Returns (rows for the kernels
+    line, summary)."""
+    import torch
+
+    from dask_ml_tpu_torch.ops import sparse as sps
+
+    vals, cols, d = Xd.values, Xd.cols, Xd.d
+    n, k = vals.shape
+    plan_f = sps.dvector_plan(n, k, d)
+    plan_b = sps.dvector_plan(n, k, d, pullback=True)
+    summary = {"plan": {"spmv": plan_f, "spmv_pullback": plan_b}}
+
+    # -- forward, float data: the kernel and the plain version each sum k
+    # f32 products in their own order, so each is within (k - 1)·2^-24·Σ|a·v|
+    # of the exact sum; together k·2^-23·Σ|a·v|
+    out_p = sps._spmv_ref(vals, cols, v)
+    scale = sps._spmv_ref(vals.abs(), cols, v.abs())
+    for name, c in (("spmv", plan_f), ("spmv_l2", 0)):
+        out_k = sps._spmv_cuda(vals, cols, v, cluster=c)
+        err = (out_k - out_p).abs()
+        expect(bool((err <= k * 2.0 ** -23 * scale).all()),
+               f"{name} at the full container: max abs err "
+               f"{float(err.max())}")
+        expect(torch.equal(out_k, sps._spmv_cuda(vals, cols, v, cluster=c)),
+               f"{name} at the full container does not repeat its bits")
+        errs[name] = max(errs.get(name, 0.0), float(err.max()))
+    del out_p, scale, err
+    # -- pullback, float data: a column that count_c slots add to, summed
+    # in any two orders, differs by at most count_c·2^-23·Σ|a·r| (the
+    # scale: a pullback of absolute values; the count: one of ones). That
+    # holds the 100 or so terms of an ordinary column; the intercept's
+    # column is held by pullback_accuracy below
+    g_p = sps._pullback_ref(vals, cols, r, d)
+    g_scale = sps._pullback_ref(vals.abs(), cols, r.abs(), d)
+    count = sps._pullback_ref((vals != 0).float(), cols,
+                              torch.ones_like(r), d)
+    for name, c in (("spmv_pullback", plan_b), ("spmv_pullback_l2", 0)):
+        g_k = sps._pullback_cuda(vals, cols, r, d, cluster=c)
+        err = (g_k - g_p).abs()
+        expect(bool((err <= count * 2.0 ** -23 * g_scale).all()),
+               f"{name} at the full container: max abs err "
+               f"{float(err.max())}")
+        errs[name] = max(errs.get(name, 0.0), float(err.max()))
+        again = sps._pullback_cuda(vals, cols, r, d, cluster=c)
+        summary[f"{name}_rerun_max_abs_diff"] = float(
+            (again - g_k).abs().max())
+    del g_scale, count, err, again
+    torch.cuda.empty_cache()
+    routes = (("spmv_pullback", plan_b), ("spmv_pullback_l2", 0))
+    summary["pullback_vs_f64"] = {"r": pullback_accuracy(vals, cols, d, r,
+                                                         routes)}
+    if r_first is not None:
+        summary["pullback_vs_f64"]["r_first"] = pullback_accuracy(
+            vals, cols, d, r_first, routes)
+    torch.cuda.empty_cache()
+
+    # -- timing ---------------------------------------------------------------
+    def fwd(c, cols_=cols, v_=v):
+        return lambda: sps._spmv_cuda(vals, cols_, v_, cluster=c)
+
+    def pull(c, cols_=cols, d_=d):
+        return lambda: sps._pullback_cuda(vals, cols_, r, d_, cluster=c)
+
+    # what the card's memory gives a plain read of half the container:
+    # one library reduction over the values, nothing gathered
+    read_ms = cuda_ms(lambda: vals.sum(), iters=5, warmup=1)
+
+    ms = cuda_ms(fwd(plan_f))
+    l2_ms = cuda_ms(fwd(0))
+    plain_ms = cuda_ms(lambda: sps._spmv_ref(vals, cols, v), iters=5,
+                       warmup=1)
+    b, by = bound(4 * (2 * n * k + n + d), 2 * n * k)
+    # the yardstick: cuSPARSE's CSR SpMV on the same slots, through
+    # torch.sparse (the port never calls it)
+    crow = torch.arange(0, n * k + 1, k, dtype=torch.int32,
+                        device=vals.device)
+    csr = torch.sparse_csr_tensor(crow, cols.view(-1), vals.view(-1),
+                                  size=(n, d), check_invariants=False)
+    library_ms = cuda_ms(lambda: torch.mv(csr, v), iters=10, warmup=2)
+    summary["library_vs_kernel_max_abs_diff"] = float(
+        (torch.mv(csr, v) - sps._spmv_cuda(vals, cols, v, cluster=plan_f))
+        .abs().max())
+    del csr, crow
+    pb_ms = cuda_ms(pull(plan_b), iters=10)
+    pb_l2_ms = cuda_ms(pull(0), iters=5, warmup=1)
+    pb_plain_ms = cuda_ms(lambda: sps._pullback_ref(vals, cols, r, d),
+                          iters=5, warmup=1)
+    pb_library_ms = pullback_library_ms(vals, cols, r, d, g_p)
+    del g_p
+    torch.cuda.empty_cache()
+    # the gather's share: the same slots folded onto 1,024 columns, so that
+    # v (4 KB) stays in each SM's L1 under the L2 kernel; then onto FOLD_D
+    # columns, which one block's shared memory holds: one block against
+    # the clusters each direction is built for, where every block inspects
+    # every slot of its cluster. The bytes streamed are the same in every
+    # case.
+    cols_f = torch.remainder(cols, 1024)
+    probe_ms = cuda_ms(fwd(0, cols_f, v[:1024].contiguous()))
+    fold_d = min(FOLD_D, d)
+    torch.remainder(cols, fold_d, out=cols_f)
+    v_f = v[:fold_d].contiguous()
+    folded = {"d": fold_d, "spmv_l2_ms": cuda_ms(fwd(0, cols_f, v_f)),
+              "spmv_pullback_l2_ms": cuda_ms(pull(0, cols_f, fold_d),
+                                             iters=5, warmup=1)}
+    for c in sps._PLAN_CLUSTERS[False]:
+        folded[f"spmv_cluster{c}_ms"] = cuda_ms(fwd(c, cols_f, v_f),
+                                                iters=10)
+    for c in sps._PLAN_CLUSTERS[True]:
+        folded[f"spmv_pullback_cluster{c}_ms"] = cuda_ms(
+            pull(c, cols_f, fold_d), iters=5, warmup=1)
+    # the pullback without its hot address: the last slot of every row
+    # (the intercept's column d - 1) sent to random columns instead
+    cols_f.copy_(cols)
+    cols_f[:, -1] = torch.randint(0, d, (n,), dtype=torch.int32,
+                                  device=vals.device)
+    no_hot = {"spmv_pullback_ms": cuda_ms(pull(plan_b, cols_f), iters=10),
+              "spmv_pullback_l2_ms": cuda_ms(pull(0, cols_f), iters=5,
+                                             warmup=1)}
+    del cols_f
+    torch.cuda.empty_cache()
+    shape = {"n": n, "k": k, "d": d}
+    rows = [
+        dict(name="spmv", ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+             library_ms=library_ms, shape=shape, cluster=plan_f,
+             gather_probe={"d": 1024, "spmv_l2_ms": probe_ms},
+             folded=folded, values_sum_ms=read_ms),
+        dict(name="spmv_l2", ms=l2_ms, plain_ms=plain_ms, bound_ms=b,
+             bound_by=by, library_ms=library_ms, shape=shape),
+        dict(name="spmv_pullback", ms=pb_ms, plain_ms=pb_plain_ms,
+             bound_ms=b, bound_by=by, library_ms=pb_library_ms, shape=shape,
+             cluster=plan_b, without_hot_column=no_hot),
+        dict(name="spmv_pullback_l2", ms=pb_l2_ms, plain_ms=pb_plain_ms,
+             bound_ms=b, bound_by=by, library_ms=pb_library_ms,
+             shape=shape),
+    ]
+    return rows, summary
+
+
+def log_spmv_rows(rows):
+    for r in rows:
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        log(f"  {r['name']:26s} {r['ms']:.4f} ms  bound {r['bound_ms']:.4f}"
+            f" ms ({r['bound_by']})  plain {r['plain_ms']:.4f} ms  library "
+            f"{lib}  launches {r.get('launches', 0)}")
+    log("  K6 folded and probed: " + json.dumps(
+        {"values_sum_ms": rows[0]["values_sum_ms"],
+         "gather_probe": rows[0]["gather_probe"], "folded": rows[0]["folded"],
+         "pullback_without_hot_column": rows[2]["without_hot_column"]}))
 
 
 def glm_cell(dev, errs):
@@ -1158,7 +1564,6 @@ def glm_cell(dev, errs):
     launches by kernel for the kernels line, summary)."""
     import torch
 
-    from dask_ml_tpu_torch._kernels import build
     from dask_ml_tpu_torch.datasets import make_sparse_classification
     from dask_ml_tpu_torch.linear_model import LogisticRegression
     from dask_ml_tpu_torch.models import glm as glm_core
@@ -1178,16 +1583,24 @@ def glm_cell(dev, errs):
     est, fit_s, l_fit = drive(lambda: LogisticRegression(
         solver="lbfgs", max_iter=GLM_ITERS).fit(X, y))
     reads = glm_core.host_reads["n"]
-    expect_launches("glm-sparse", l_fit)
+    expect_launches("glm-sparse-fit", l_fit)
     expect(est.n_iter_ == GLM_ITERS, f"n_iter_ {est.n_iter_}")
     expect(np.isfinite(est.coef_).all() and est.coef_.shape == (GLM_D,),
            "bad coefficients")
     Xs, ys = X[:GLM_SCORE_N], y[:GLM_SCORE_N]
     acc, score_s, l_score = drive(lambda: est.score(Xs, ys))
-    expect_launches("glm-sparse", l_score)
+    expect_launches("glm-sparse-score", l_score)
     log(f"sparse L-BFGS accuracy on the first {GLM_SCORE_N} rows: {acc:.4f} "
         f"(the JAX drill's record: {JAX_GLM_ACCURACY})")
     expect(acc > 0.55, f"accuracy {acc} <= 0.55")
+    # the same rows and the same algorithm as the JAX drill: its accuracy
+    expect(abs(acc - JAX_GLM_ACCURACY) <= 1e-3,
+           f"accuracy {acc} is not within 0.001 of {JAX_GLM_ACCURACY}")
+    # value and gradient at the start, then per iteration one trial step
+    # and one value and gradient: 7 forwards and 4 pullbacks; score is one
+    expect(l_fit["spmv"] == 2 * GLM_ITERS + 1 and l_score["spmv"] == 1
+           and l_fit["spmv_pullback"] >= GLM_ITERS + 1,
+           f"launches of the fit {l_fit} and of the score {l_score}")
     path_line("glm-sparse-lbfgs", fit_s, est.n_iter_, l_fit,
               phases={**est.fit_phase_seconds_, "score": score_s},
               score_launches=l_score, host_reads=reads,
@@ -1201,58 +1614,29 @@ def glm_cell(dev, errs):
     Xd, yd, wd, plain, agree = glm_plain_check(est, X, y, Xs, dev)
     log(f"kernel and plain L-BFGS agree: each step bit for bit, objective "
         f"gaps {agree['step_objective_gaps']}; whole fit "
-        f"{agree['coef_gap_normwise']:.3e} normwise (the plain fit against "
-        f"itself {agree['plain_self_spread_normwise']:.3e}); "
+        f"{agree['coef_gap_normwise']:.3e} normwise from the plain path "
+        f"with an f64-accumulated pullback (the f32 plain fit "
+        f"{agree['plain_f32_gap_to_f64_plain_normwise']:.3e} from it and "
+        f"{agree['plain_self_spread_normwise']:.3e} from a rerun of itself, "
+        f"the kernel fit {agree['kernel_self_spread_normwise']:.3e} from a "
+        f"rerun of itself); "
         f"{agree['label_flips']} labels of {GLM_SCORE_N} within the gap")
     summary["kernel_vs_plain"] = agree
     del X, Xs
 
-    # -- K6 against its plain version at the full container (float data):
-    # each sums 101 f32 products in its own order, so each is within
-    # (k - 1)·2^-24·Σ|a·v| of the exact sum; together k·2^-23·Σ|a·v|
-    vals, cols = Xd.values, Xd.cols
-    n, k = vals.shape
-    d = Xd.d
+    # -- the four kernels at the full container, and their timings ---------
     v = plain.contiguous()
-    out_k = sps._spmv_cuda(vals, cols, v)
-    out_p = sps._spmv_ref(vals, cols, v)
-    scale = sps._spmv_ref(vals.abs(), cols, v.abs())
-    err = (out_k - out_p).abs()
-    expect(bool((err <= k * 2.0 ** -23 * scale).all()),
-           f"K6 at full shape: max abs err {float(err.max())}")
-    errs["spmv"] = max(errs.get("spmv", 0.0), float(err.max()))
-    del out_p, scale, err
+    r = (torch.sigmoid(sps._spmv_cuda(Xd.values, Xd.cols, v)) - yd) / float(
+        Xd.values.shape[0])
+    # the fit's first residual: beta = 0, every probability 0.5
+    rows, at_full = spmv_at_container(Xd, v, r, errs,
+                                      r_first=(0.5 - yd) / float(
+                                          Xd.values.shape[0]))
+    summary.update(at_full)
+    del r
 
-    # -- timing at the cell's container --------------------------------------
-    lib = build.load("spmv")
-    stream = build.stream_of(vals)
-    out = torch.empty(n, device=dev)
-    ms = cuda_ms(lambda: build.check(lib.dml_spmv(
-        vals.data_ptr(), cols.data_ptr(), v.data_ptr(), n, k, out.data_ptr(),
-        stream), "timing"))
-    plain_ms = cuda_ms(lambda: sps._spmv_ref(vals, cols, v), iters=5,
-                       warmup=1)
-    b, by = bound(4 * (2 * n * k + n + d), 2 * n * k)
-    # the yardstick: cuSPARSE's CSR SpMV on the same slots, through
-    # torch.sparse (the port never calls it)
-    crow = torch.arange(0, n * k + 1, k, dtype=torch.int32, device=dev)
-    csr = torch.sparse_csr_tensor(crow, cols.view(-1), vals.view(-1),
-                                  size=(n, d), check_invariants=False)
-    library_ms = cuda_ms(lambda: torch.mv(csr, v), iters=10, warmup=2)
-    lib_diff = float((torch.mv(csr, v) - out_k).abs().max())
-    del csr, crow
-    # the gather's share: the same slots folded onto 1,024 columns, so that
-    # v (4 KB) stays in each SM's L1; the bytes the kernel streams are
-    # the same
-    cols_l1 = torch.remainder(cols, 1024)
-    v_l1 = v[:1024].contiguous()
-    probe_ms = cuda_ms(lambda: build.check(lib.dml_spmv(
-        vals.data_ptr(), cols_l1.data_ptr(), v_l1.data_ptr(), n, k,
-        out.data_ptr(), stream), "timing"))
-    del cols_l1
-    r = (torch.sigmoid(out_k) - yd) / float(n)
-    pullback_ms = cuda_ms(lambda: sps.pullback(Xd, r), iters=5, warmup=1)
-    pb_bound, pb_by = bound(4 * (2 * n * k + n + d), 2 * n * k)
+    # -- one L-BFGS iteration as the loop runs it ----------------------------
+    d = Xd.d
     mask = torch.ones(d, device=dev)
     mask[-1] = 0.0
     b0 = torch.zeros(d, device=dev)
@@ -1270,21 +1654,67 @@ def glm_cell(dev, errs):
     one_iter()
     torch.cuda.synchronize()
     iter_ms = (time.perf_counter() - t0) * 1e3
-    summary.update(
-        lbfgs_iter_ms=iter_ms, lbfgs_iter_host_reads=glm_core.host_reads["n"],
-        pullback_ms=pullback_ms, pullback_bound_ms=pb_bound,
-        pullback_bound_by=pb_by, library_vs_kernel_max_abs_diff=lib_diff)
+    summary.update(lbfgs_iter_ms=iter_ms,
+                   lbfgs_iter_host_reads=glm_core.host_reads["n"])
     prof = device_profile(one_iter)
     summary["profile_lbfgs_iter"] = prof
     log("PROFILE glm-lbfgs-iter " + json.dumps(prof))
-    log(f"one L-BFGS iteration as the loop runs it: {iter_ms:.3f} ms; "
-        f"pullback {pullback_ms:.4f} ms (bound {pb_bound:.4f} ms)")
-    row = dict(name="spmv", ms=ms, plain_ms=plain_ms, bound_ms=b,
-               bound_by=by, library_ms=library_ms,
-               shape={"n": n, "k": k, "d": d},
-               launches_fit=l_fit["spmv"], launches_score=l_score["spmv"],
-               gather_probe={"d": 1024, "ms": probe_ms})
-    return [row], {"spmv": l_fit["spmv"] + l_score["spmv"]}, summary
+    expect(prof is not None and not any("indexFunc" in t["kernel"]
+                                        for t in prof["top"]),
+           "an index_add_ kernel ran in the kernel path's L-BFGS iteration")
+    log(f"one L-BFGS iteration as the loop runs it: {iter_ms:.3f} ms")
+    rows[0].update(launches_fit=l_fit["spmv"],
+                   launches_score=l_score["spmv"])
+    launches = {name: l_fit[name] + l_score[name]
+                for name in ("spmv", "spmv_l2", "spmv_pullback",
+                             "spmv_pullback_l2")}
+    return rows, launches, summary
+
+
+def spmv_only(dev, errs):
+    """K6's edge cases and its kernels at a container of the sparse cell's
+    shape drawn on the card (N(0,1) values, uniform columns, the
+    intercept's slot of ones on column d - 1), without the GLM."""
+    import torch
+
+    from dask_ml_tpu_torch.ops import sparse as sps
+
+    spmv_edge_cases(dev)
+    torch.cuda.synchronize()
+    log("K6 edge cases: every kernel matches its plain version")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    n, k, d = GLM_N, int(GLM_D * GLM_DENSITY) + 1, GLM_D + 1
+    vals = torch.randn((n, k), generator=g, device=dev)
+    cols = torch.randint(0, d - 1, (n, k), dtype=torch.int32, generator=g,
+                         device=dev)
+    vals[:, -1] = 1.0
+    cols[:, -1] = d - 1
+    v = torch.randn(d, generator=g, device=dev) * 0.05
+    r = torch.randn(n, generator=g, device=dev) / n
+    y = (torch.rand(n, generator=g, device=dev) < 0.25).float()
+    rows, summary = spmv_at_container(sps.SparseRows(vals, cols, d), v, r,
+                                      errs, r_first=(0.5 - y) / n)
+    # wider models on the same slots: where does the pullback's cluster
+    # of 4 stand against device atomics, and what does the forward's L2
+    # kernel take there?
+    summary["wide"] = {}
+    for d2 in SPMV_WIDE_DS:
+        cols.random_(0, d2 - 1, generator=g)
+        cols[:, -1] = d2 - 1
+        v2 = torch.randn(d2, generator=g, device=dev) * 0.05
+        times = {}
+        for pull in (False, True):
+            for c in fitting_routes(k, d2, pull)[:2]:  # L2, and the smallest cluster that fits
+                fn = ((lambda c=c: sps._pullback_cuda(vals, cols, r, d2,
+                                                      cluster=c)) if pull
+                      else (lambda c=c: sps._spmv_cuda(vals, cols, v2,
+                                                       cluster=c)))
+                name = ("spmv_pullback" if pull else "spmv") + (
+                    f"_cluster{c}" if c else "_l2")
+                times[name + "_ms"] = cuda_ms(fn, iters=5, warmup=1)
+        summary["wide"][str(d2)] = times
+    return kernel_rows(rows, {row["name"]: 0 for row in rows}, errs), summary
 
 
 # ---------------------------------------------------------------------------
@@ -1316,6 +1746,16 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all(verbose=True)
     log(f"build: {time.perf_counter() - t0:.2f} s")
+
+    if "--spmv-only" in sys.argv[1:]:
+        rows, summary = spmv_only(dev, {})
+        log_spmv_rows(rows)
+        log("SPMV " + json.dumps(summary))
+        print(json.dumps({"kernels": rows}), flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+        return 0
 
     t0 = time.perf_counter()
     errs = edge_cases(dev)
@@ -1437,12 +1877,7 @@ def main() -> int:
 
     glm_rows, glm_launches, glm = glm_cell(dev, errs)
     rows += kernel_rows(glm_rows, glm_launches, errs)
-    r = rows[-1]
-    log(f"  {r['name']:26s} {r['ms']:.4f} ms  bound {r['bound_ms']:.4f}"
-        f" ms ({r['bound_by']})  plain {r['plain_ms']:.4f} ms  library "
-        f"{r['library_ms']:.4f} ms  launches {r['launches']} (fit "
-        f"{r['launches_fit']}, score {r['launches_score']}); the same "
-        f"slots on d = 1024: {r['gather_probe']['ms']:.4f} ms")
+    log_spmv_rows(rows[-4:])
     log("GLM " + json.dumps(glm))
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -9,7 +9,9 @@ before the path and read them just after.
 from __future__ import annotations
 
 #: launches per kernel wrapper (K1: lloyd_iter; K2-K5: fused distance;
-#: the sketched assignment is K2 with a caller-supplied |x|²; K6: spmv)
+#: the sketched assignment is K2 with a caller-supplied |x|²; K6: spmv and
+#: spmv_pullback with the d-vector in shared memory, spmv_l2 and
+#: spmv_pullback_l2 with it in L2)
 launches = {
     "lloyd_iter": 0,
     "fused_argmin_min": 0,
@@ -18,6 +20,9 @@ launches = {
     "fused_argmin_min2": 0,
     "fused_argmin_min_sketched": 0,
     "spmv": 0,
+    "spmv_l2": 0,
+    "spmv_pullback": 0,
+    "spmv_pullback_l2": 0,
 }
 
 

@@ -47,7 +47,14 @@ SIGNATURES = {
     },
     "spmv": {
         "dml_spmv_lanes": ([_I], _I),
+        "dml_spmv_tile_rows": ([_I], _I),
         "dml_spmv": ([_P, _P, _P, _L, _I, _P, _P], _I),
+        "dml_spmv_smem": (
+            [_P, _P, _P, _L, _I, _I, _I, _P, _P, _P], _I),
+        "dml_spmv_pullback_clusters": ([_L, _I, _I, _I], _I),
+        "dml_spmv_pullback_smem": (
+            [_P, _P, _P, _L, _I, _I, _I, _P, _I, _P, _P], _I),
+        "dml_spmv_pullback_atomic": ([_P, _P, _P, _L, _I, _I, _P, _P], _I),
     },
 }
 

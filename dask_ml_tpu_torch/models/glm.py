@@ -13,7 +13,7 @@ as they come from ``jax.value_and_grad`` there. The data enters through
 three seams that dispatch by input type: a dense tensor goes to
 ``torch.matmul``; a :class:`~dask_ml_tpu_torch.ops.sparse.SparseRows`
 container to ``ops/sparse`` — its matvec is the K6 kernel on the card,
-and its backward the segment-sum pullback.
+and its backward K6's pullback kernel.
 
 The JAX package runs each solver, and each Armijo backtracking, as an
 on-device ``while_loop``. Here they are Python loops that read one scalar
@@ -154,11 +154,12 @@ def _data_matvec(X, v, kernel: str = "auto"):
     return torch.matmul(X, v.to(X.dtype))
 
 
-def _data_pullback(X, r):
-    """``X.T @ r`` (d,): the gradient pullback, a scatter-add over the
-    stored column indices for a container."""
+def _data_pullback(X, r, kernel: str = "auto"):
+    """``X.T @ r`` (d,): the gradient pullback; for a container K6's
+    backward or the plain scatter-add over the stored column indices
+    (``kernel`` as in :func:`~dask_ml_tpu_torch.ops.sparse.pullback`)."""
     if isinstance(X, sparse_ops.SparseRows):
-        return sparse_ops.pullback(X, r)
+        return sparse_ops.pullback(X, r, kernel=kernel)
     return torch.matmul(X.T, r.to(X.dtype))
 
 

@@ -7,22 +7,31 @@ contractions the GLM solvers route through.
   contraction because the value is 0. Duplicate columns in a row sum.
   The leaves are numpy arrays on the host and tensors once staged.
 - :func:`matvec` / :func:`spmv` — ``A @ v``, the sparse linear predictor,
-  as a ``torch.autograd.Function``. Its forward is the hand-written CUDA
-  kernel ``_kernels/csrc/spmv.cu`` (K6) for CUDA tensors and the plain
+  as a ``torch.autograd.Function``. Its forward is a hand-written CUDA
+  kernel of ``_kernels/csrc/spmv.cu`` (K6) for CUDA tensors and the plain
   gather + row sum :func:`_spmv_ref` for CPU tensors (or ``kernel="torch"``
-  anywhere). Its backward is :func:`pullback` with respect to ``v`` and,
-  only when autograd asks for it, the slot-wise product with respect to
-  ``values``; ``cols`` gets no gradient.
-- :func:`pullback` (``A.T @ r``), :func:`pullback_mat`, :func:`matmat` and
-  :func:`weighted_gram` (``A.T @ diag(h) @ A``) in plain PyTorch, as the
-  JAX package computes them outside any Pallas kernel.
+  anywhere). Its backward is the pullback with respect to ``v`` (a kernel
+  of the same source where the forward ran one) and, only when autograd
+  asks for it, the slot-wise product with respect to ``values``; ``cols``
+  gets no gradient.
+- :func:`pullback` (``A.T @ r``) — the same source's pullback kernel for
+  CUDA tensors, the plain ``index_add_`` scatter :func:`_pullback_ref` for
+  CPU tensors (or ``kernel="torch"`` anywhere).
+- :func:`dvector_plan` — where the kernels keep the ``(d,)`` vector that
+  the forward gathers from and the pullback scatters into: the shared
+  memory of one block, of a thread block cluster of 2 (the pullback: also
+  of 4), or L2. A
+  pure function of ``(n, k, d)`` and the card's constants.
+- :func:`pullback_mat`, :func:`matmat` and :func:`weighted_gram`
+  (``A.T @ diag(h) @ A``) in plain PyTorch, as the JAX package computes
+  them outside any Pallas kernel.
 
 Products form in f32 and every reduction accumulates in f32 (the port
 stages float32 only). On integer-valued data every partial sum is an
 exactly representable integer, so the contractions are bit-identical to
-the dense products they replace whatever their order. The pullback's
-``index_add_`` uses float atomics on CUDA, so on float data it is not
-bit-reproducible from run to run there.
+the dense products they replace whatever their order. On float data the
+forward kernels repeat their own bits from run to run; the pullback, kernel
+or ``index_add_``, adds with float atomics on CUDA and does not.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ __all__ = [
     "pullback_mat",
     "weighted_gram",
     "spmv",
+    "dvector_plan",
 ]
 
 
@@ -194,52 +204,193 @@ def _spmv_ref(values, cols, v):
     return g.view(values.shape).mul_(values).sum(dim=1, dtype=torch.float32)
 
 
-def _spmv_cuda(values, cols, v):
-    """Launch ``csrc/spmv.cu`` — replaces the TPU kernel
+#: the card's constants the plan rests on (H100 SXM) and the tiles of the
+#: shared-memory kernels (``csrc/spmv.cu``: a block's 2 groups of 512
+#: threads each walk tiles of their own, 4 slots a thread)
+_SMEM_BLOCK_BYTES = 232_448
+_SMS = 132
+_GROUPS = 2
+_TILE_SLOTS = 2048
+_MAX_TILE_K = _TILE_SLOTS // 4
+#: cluster sizes the kernels are built for, forward and pullback. Every
+#: block of a cluster inspects every slot of the cluster's tiles, so a
+#: kernel's time grows with the cluster: measured on an H100 at n = 1e7,
+#: k = 101, the forward in a cluster of 4 is slower than the L2 kernel and
+#: the pullback in a cluster of 8 slower than device atomics (PERF.md has
+#: the numbers).
+_PLAN_CLUSTERS = {False: (1, 2), True: (1, 2, 4)}
+
+
+def _tile_rows(k: int) -> int:
+    """Rows of a tile: a multiple of 4 (so that a tile starts on a 16-byte
+    boundary whatever ``k``) with at most ``_TILE_SLOTS`` slots."""
+    return (_TILE_SLOTS // k) & ~3
+
+
+def _fits(k: int, d: int, cluster: int, pullback: bool) -> bool:
+    """Whether a cluster of ``cluster`` blocks holds a ``(d,)`` vector for
+    rows of ``k`` slots: each block ``ceil(d / cluster)`` floats beside
+    what the kernel needs besides (two staging tiles of
+    ``_tile_rows(k) * k`` floats for each of the forward's 2 groups; the
+    pullback needs nothing) in its 232,448 bytes."""
+    if k > _MAX_TILE_K:
+        return False
+    besides = 0 if pullback else 8 * _GROUPS * _tile_rows(k) * k
+    return 4 * -(-d // cluster) + besides <= _SMEM_BLOCK_BYTES
+
+
+def dvector_plan(n: int, k: int, d: int, *, pullback: bool = False) -> int:
+    """Where K6 (or, with ``pullback=True``, its backward) keeps the
+    ``(d,)`` vector for an ``(n, k)`` container: the number of blocks (1
+    or 2 for the forward; 1, 2 or 4 for the pullback) of the cluster whose
+    shared memory holds it, or 0 for L2.
+
+    The smallest cluster that fits (:func:`_fits`) is taken. The vector
+    stays in L2 where ``d`` is beyond the largest cluster that still beats
+    the L2 kernel, where a row is wider than a tile, and where the
+    container's ``n * k`` slots are fewer than the floats a full grid
+    copies into shared memory (every cluster its own ``d``)."""
+    n, k, d = int(n), int(k), int(d)
+    if n < 1 or k < 1:
+        return 0
+    for cluster in _PLAN_CLUSTERS[bool(pullback)]:
+        if _fits(k, d, cluster, pullback):
+            return cluster if n * k >= (_SMS // cluster) * d else 0
+    return 0
+
+
+def _check_kernel_args(what, values, cols, x, xname):
+    """What both K6 wrappers hold their arguments to; returns (n, k)."""
+    if values.dim() != 2 or cols.shape != values.shape:
+        raise ValueError(
+            f"the {what} kernel takes values and cols of one (n, k) shape; "
+            f"got {tuple(values.shape)} and {tuple(cols.shape)}")
+    if (values.dtype != torch.float32 or cols.dtype != torch.int32
+            or x.dtype != torch.float32 or x.dim() != 1):
+        raise ValueError(
+            f"the {what} kernel takes f32 values, int32 cols and a 1-D f32 "
+            f"{xname}; got {values.dtype}, {cols.dtype} and {x.dtype} of "
+            f"shape {tuple(x.shape)}")
+    if not (values.device == cols.device == x.device and values.is_cuda):
+        raise ValueError(
+            f"the {what} kernel takes CUDA tensors on one device; got "
+            f"{values.device}, {cols.device}, {x.device}")
+    if not (values.is_contiguous() and cols.is_contiguous()
+            and x.is_contiguous()):
+        raise ValueError(f"the {what} kernel takes contiguous tensors")
+    n, k = values.shape
+    if k < 1:
+        raise ValueError(f"the {what} kernel takes k >= 1 slots per row")
+    return n, k
+
+
+def _spmv_cuda(values, cols, v, cluster=None):
+    """Launch K6 (``csrc/spmv.cu``) — replaces the TPU kernel
     ``dask_ml_tpu/ops/sparse.py::_spmv_impl``. See the source for what
-    bounds it on the H100 and how the design answers that. The output is
-    allocated here; the kernel runs on PyTorch's current stream and does
+    bounds it on the H100 and how the design answers that. ``cluster`` is
+    :func:`dvector_plan`'s answer unless the caller (a test, a timing)
+    names one: 1 or 2 launch the kernel that keeps ``v`` in shared memory
+    (a cluster launch needs sm_90 and is refused at launch where the shape
+    does not fit), 0 the one that gathers from L2. The output and the ``(cluster, n)`` scratch of partial outputs are
+    allocated here; the kernels run on PyTorch's current stream and do
     not synchronise."""
     from dask_ml_tpu_torch._kernels import build
 
-    if values.dim() != 2 or cols.shape != values.shape:
-        raise ValueError(
-            f"the SpMV kernel takes values and cols of one (n, k) shape; got "
-            f"{tuple(values.shape)} and {tuple(cols.shape)}")
-    if (values.dtype != torch.float32 or cols.dtype != torch.int32
-            or v.dtype != torch.float32 or v.dim() != 1):
-        raise ValueError(
-            f"the SpMV kernel takes f32 values, int32 cols and a 1-D f32 v; "
-            f"got {values.dtype}, {cols.dtype} and {v.dtype} of shape "
-            f"{tuple(v.shape)}")
-    if not (values.device == cols.device == v.device and values.is_cuda):
-        raise ValueError(
-            f"the SpMV kernel takes CUDA tensors on one device; got "
-            f"{values.device}, {cols.device}, {v.device}")
-    if not (values.is_contiguous() and cols.is_contiguous()
-            and v.is_contiguous()):
-        raise ValueError("the SpMV kernel takes contiguous tensors")
-    n, k = values.shape
-    if k < 1:
-        raise ValueError("the SpMV kernel takes k >= 1 slots per row")
+    n, k = _check_kernel_args("SpMV", values, cols, v, "v")
+    d = int(v.numel())
     out = torch.empty(n, dtype=torch.float32, device=values.device)
     if n == 0:
         return out
+    if cluster is None:
+        cluster = dvector_plan(n, k, d)
     lib = build.load("spmv")
-    err = lib.dml_spmv(values.data_ptr(), cols.data_ptr(), v.data_ptr(), n, k,
-                       out.data_ptr(), build.stream_of(values))
-    build.check(err, "SpMV kernel")
-    _kernels.launches["spmv"] += 1
+    stream = build.stream_of(values)
+    if cluster == 0:
+        err = lib.dml_spmv(values.data_ptr(), cols.data_ptr(), v.data_ptr(),
+                           n, k, out.data_ptr(), stream)
+        build.check(err, "SpMV kernel (v in L2)")
+        _kernels.launches["spmv_l2"] += 1
+    else:
+        partial = None
+        if cluster > 1:
+            partial = torch.empty((cluster, n), dtype=torch.float32,
+                                  device=values.device)
+        err = lib.dml_spmv_smem(
+            values.data_ptr(), cols.data_ptr(), v.data_ptr(), n, k, d,
+            cluster, None if partial is None else partial.data_ptr(), out.data_ptr(),
+            stream)
+        build.check(err, f"SpMV kernel (v in a cluster of {cluster})")
+        _kernels.launches["spmv"] += 1
     return out
 
 
+def _pullback_ref(values, cols, r, d):
+    """Plain ``A.T @ r``: a scatter-add of the slot products over the
+    flattened int32 column indices (the counterpart of XLA's
+    ``segment_sum``); padded slots add 0."""
+    prods = (values * r.to(values.dtype)[:, None]).to(torch.float32)
+    out = torch.zeros(d, dtype=torch.float32, device=prods.device)
+    return out.index_add_(0, cols.reshape(-1), prods.reshape(-1))
+
+
+def _pullback_cuda(values, cols, r, d, cluster=None):
+    """Launch K6's backward (``csrc/spmv.cu``) — the kernel that takes the
+    place of the ``segment_sum`` the JAX package's custom VJP
+    (``dask_ml_tpu/ops/sparse.py::_spmv_bwd``) leaves to XLA. One pass
+    over the container, the ``(n, k)`` product never formed. ``cluster``
+    as in :func:`_spmv_cuda`: 1, 2 or 4 keep a copy of
+    ``g`` in every cluster's shared memory and sum the copies in a fixed
+    order (the ``(clusters, d)`` scratch is allocated here), 0 adds with
+    float atomics on device memory. On float data neither repeats its bits from
+    run to run; on integer-valued data both are exact."""
+    from dask_ml_tpu_torch._kernels import build
+
+    n, k = _check_kernel_args("pullback", values, cols, r, "r")
+    d = int(d)
+    if r.numel() != n:
+        raise ValueError(
+            f"the pullback kernel takes one r per row; got {r.numel()} for "
+            f"{n} rows")
+    if d < 1:
+        raise ValueError("the pullback kernel takes d >= 1 columns")
+    if n == 0:
+        return torch.zeros(d, dtype=torch.float32, device=values.device)
+    if cluster is None:
+        cluster = dvector_plan(n, k, d, pullback=True)
+    g = torch.empty(d, dtype=torch.float32, device=values.device)
+    lib = build.load("spmv")
+    stream = build.stream_of(values)
+    if cluster == 0:
+        err = lib.dml_spmv_pullback_atomic(
+            values.data_ptr(), cols.data_ptr(), r.data_ptr(), n, k, d,
+            g.data_ptr(), stream)
+        build.check(err, "pullback kernel (g in L2)")
+        _kernels.launches["spmv_pullback_l2"] += 1
+        return g
+    what = f"pullback kernel (g in a cluster of {cluster})"
+    clusters = lib.dml_spmv_pullback_clusters(n, k, d, cluster)
+    if clusters < 1:
+        build.check(-clusters, what)
+    partial = torch.empty((clusters, d), dtype=torch.float32,
+                          device=values.device)
+    err = lib.dml_spmv_pullback_smem(
+        values.data_ptr(), cols.data_ptr(), r.data_ptr(), n, k, d, cluster,
+        partial.data_ptr(), clusters, g.data_ptr(), stream)
+    build.check(err, what)
+    _kernels.launches["spmv_pullback"] += 1
+    return g
+
+
 class _SpMV(torch.autograd.Function):
-    """``A @ v`` with the JAX package's custom VJP as its backward."""
+    """``A @ v`` with the JAX package's custom VJP as its backward: kernels
+    both ways where ``use_kernel``, the plain versions both ways where
+    not."""
 
     @staticmethod
     def forward(ctx, values, cols, v, d, use_kernel):
         ctx.save_for_backward(values, cols, v)
         ctx.d = d
+        ctx.use_kernel = use_kernel
         if use_kernel:
             return _spmv_cuda(values, cols, v)
         return _spmv_ref(values, cols, v)
@@ -253,7 +404,12 @@ class _SpMV(torch.autograd.Function):
             dvalues = g.to(values.dtype)[:, None] * torch.index_select(
                 v.to(values.dtype), 0, cols.reshape(-1)).view(values.shape)
         if ctx.needs_input_grad[2]:
-            dv = pullback(SparseRows(values, cols, ctx.d), g).to(v.dtype)
+            if ctx.use_kernel:
+                # autograd may hand over an expanded (stride 0) cotangent
+                dv = _pullback_cuda(values, cols, g.contiguous(), ctx.d)
+            else:
+                dv = _pullback_ref(values, cols, g, ctx.d)
+            dv = dv.to(v.dtype)
         return dvalues, None, dv, None, None
 
 
@@ -262,7 +418,8 @@ def spmv(A: SparseRows, v, *, kernel: str = "auto"):
     ``A.values``. ``kernel="auto"`` launches K6 for CUDA tensors and runs
     :func:`_spmv_ref` for CPU tensors; ``"cuda"`` insists on the kernel;
     ``"torch"`` runs the plain version wherever the tensors lie. The
-    backward is the same either way."""
+    backward follows the forward: the pullback kernel where K6 ran, the
+    plain ``index_add_`` where the plain version did."""
     return _SpMV.apply(A.values, A.cols, v, A.d,
                        _kernels.use_cuda(kernel, A.values))
 
@@ -274,7 +431,8 @@ def matvec(A: SparseRows, v, *, kernel: str = "auto"):
 
 
 # ---------------------------------------------------------------------------
-# the other contractions (plain PyTorch on both devices)
+# A.T @ r through K6's backward, and the other contractions (plain PyTorch
+# on both devices)
 # ---------------------------------------------------------------------------
 
 
@@ -288,13 +446,16 @@ def matmat(A: SparseRows, B):
     return g.sum(dim=1, dtype=torch.float32)
 
 
-def pullback(A: SparseRows, r):
-    """``A.T @ r`` (d,) f32 — the gradient pullback, a scatter-add of the
-    slot products over the flattened int32 column indices (the
-    counterpart of XLA's ``segment_sum``); padded slots add 0."""
-    prods = (A.values * r.to(A.values.dtype)[:, None]).to(torch.float32)
-    out = torch.zeros(A.d, dtype=torch.float32, device=prods.device)
-    return out.index_add_(0, A.cols.reshape(-1), prods.reshape(-1))
+def pullback(A: SparseRows, r, *, kernel: str = "auto"):
+    """``A.T @ r`` (d,) f32 — the gradient pullback; padded slots add 0.
+    ``kernel`` as in :func:`spmv`: ``"auto"`` launches K6's backward for
+    CUDA tensors and runs :func:`_pullback_ref` for CPU tensors; ``"cuda"``
+    insists on the kernel; ``"torch"`` runs the plain version wherever the
+    tensors lie."""
+    if _kernels.use_cuda(kernel, A.values):
+        return _pullback_cuda(A.values, A.cols,
+                              r.to(torch.float32).contiguous(), A.d)
+    return _pullback_ref(A.values, A.cols, r, A.d)
 
 
 def pullback_mat(A: SparseRows, R):

@@ -124,6 +124,34 @@ def test_seams_match_jax():
                                        rtol=1e-5, atol=1e-5)
 
 
+def test_data_pullback_passes_its_kernel_on(monkeypatch):
+    """``_data_pullback`` hands its ``kernel`` to the container's
+    pullback, so a solver run with ``kernel="torch"`` launches nothing;
+    the dense seam ignores it."""
+    dense, _ = _problem(2, 30, 6)
+    r = torch.as_tensor(np.random.RandomState(2).standard_normal(30).astype(
+        np.float32))
+    Xt = tsps.ell_from_csr(scipy_sparse.csr_matrix(dense)).to("cpu")
+    seen = []
+    plain = tsps.pullback
+
+    def spy(A, r, *, kernel="auto"):
+        seen.append(kernel)
+        return plain(A, r, kernel=kernel)
+
+    monkeypatch.setattr(tsps, "pullback", spy)
+    want = torch.as_tensor(dense).T @ r
+    for kernel in ("torch", "auto"):
+        got = tcore._data_pullback(Xt, r, kernel=kernel)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    assert seen == ["torch", "auto"]
+    with pytest.raises(ValueError, match="CUDA"):
+        tcore._data_pullback(Xt, r, kernel="cuda")
+    got = tcore._data_pullback(torch.as_tensor(dense), r, kernel="torch")
+    assert torch.equal(got, want) and len(seen) == 3
+
+
 def test_families_and_penalties_match_jax():
     rng = np.random.RandomState(2)
     eta = np.concatenate([rng.standard_normal(50) * 10,

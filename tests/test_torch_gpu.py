@@ -284,62 +284,207 @@ def _ell_ints(rng, n, k, d, dev, lo=-8, hi=8):
                           torch.as_tensor(cols, device=dev), d)
 
 
+def _routes(k, d, pullback):
+    """Every route the wrappers can be told to take: L2 (cluster 0) and
+    each cluster the direction is built for whose shared memory holds the
+    d-vector."""
+    return [0] + [c for c in sps._PLAN_CLUSTERS[pullback]
+                  if sps._fits(k, d, c, pullback)]
+
+
+def _forward_launches():
+    return _kernels.launches["spmv"] + _kernels.launches["spmv_l2"]
+
+
 @pytest.mark.parametrize("n,k,d", [(1, 1, 7), (1, 101, 100_001),
                                    (1_000_003, 101, 100_001), (5000, 1, 7),
                                    (4097, 3, 7), (777, 17, 100_001),
-                                   (2048, 64, 7), (33, 101, 7)])
+                                   (2048, 64, 7), (33, 101, 7),
+                                   (301, 513, 5_003), (1_001, 512, 9_001)])
 def test_spmv_kernel_bitexact_int_valued(cuda, n, k, d):
     rng = np.random.default_rng(n + k + d)
     A = _ell_ints(rng, n, k, d, cuda)
     v = _ints(rng, (d,), cuda, -4, 4)
-    before = _kernels.launches["spmv"]
+    before = _forward_launches()
     got = sps.matvec(A, v, kernel="cuda")
     assert got.dtype == torch.float32 and got.shape == (n,)
     assert torch.equal(got, sps.matvec(A, v, kernel="torch"))
     assert torch.equal(got, sps.spmv(A, v))  # 'auto' on the card: K6
-    assert _kernels.launches["spmv"] == before + 2
+    assert _forward_launches() == before + 2
+    which = "spmv" if sps.dvector_plan(n, k, d) else "spmv_l2"
+    assert _kernels.launches[which] >= 2
+
+
+#: a d on each side of every boundary of the plan at k = 101 (forward:
+#: 2 x 2 staging tiles of 20 rows; pullback: none), n large enough for
+#: the plan to fill shared memory, ragged
+_FWD = 232_448 // 4 - 2 * 2 * 20 * 101
+_BWD = 232_448 // 4
+_BOUNDARY = [(80_003, 101, d, pull) for pull, ds in (
+    (False, (_FWD, _FWD + 1, 2 * _FWD, 2 * _FWD + 1)),
+    (True, (_BWD, _BWD + 1, 2 * _BWD, 2 * _BWD + 1, 4 * _BWD,
+            4 * _BWD + 1))) for d in ds]
+
+
+@pytest.mark.parametrize("n,k,d,pullback", _BOUNDARY + [
+    (40_001, 32, 30_011, False), (40_001, 32, 30_011, True),
+    (9_999, 128, 250_007, False), (9_999, 128, 250_007, True),
+    (3001, 5, 777, True), (2049, 3, 8 * _BWD, True),
+    (2049, 1, 8 * _BWD + 1, True)])
+def test_spmv_kernels_bitexact_on_every_route(cuda, n, k, d, pullback):
+    """Forward or pullback through the plan's route and through every
+    route that fits (L2, each cluster), bit for bit against the plain version on integer data; the
+    forward twice for its own bits. Rows of zeros and a hot column are in
+    the container."""
+    rng = np.random.default_rng(n + k + d)
+    A = _ell_ints(rng, n, k, d, cuda, -4, 4)
+    A.values[::7] = 0.0
+    A.cols[::7] = 0
+    x = _ints(rng, (n if pullback else d,), cuda, -2, 2)
+    for c in [None] + _routes(k, d, pullback):
+        if pullback:
+            got = sps._pullback_cuda(A.values, A.cols, x, d, cluster=c)
+            want = sps._pullback_ref(A.values, A.cols, x, d)
+        else:
+            got = sps._spmv_cuda(A.values, A.cols, x, cluster=c)
+            want = sps._spmv_ref(A.values, A.cols, x)
+            assert torch.equal(got, sps._spmv_cuda(A.values, A.cols, x,
+                                                   cluster=c))
+        assert torch.equal(got, want), c
+
+
+def test_plan_constants_match_the_kernels(cuda):
+    """The Python plan's tile geometry is the C source's."""
+    from dask_ml_tpu_torch._kernels import build
+
+    lib = build.load("spmv")
+    for k in (1, 2, 3, 4, 5, 31, 32, 100, 101, 128, 255, 256, 511, 512):
+        assert lib.dml_spmv_tile_rows(k) == sps._tile_rows(k)
+    assert lib.dml_spmv_tile_rows(sps._MAX_TILE_K + 1) == 0
+    # the cell fits a cluster of 2 both ways, with 124 bytes to spare
+    assert sps._fits(101, 100_001, 2, False)
+    assert not sps._fits(101, 100_001, 1, True)
+
+
+def test_spmv_forward_repeats_its_bits_on_float_data(cuda):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    n, k, d = 300_007, 101, 100_001
+    vals = torch.randn((n, k), generator=g, device=cuda)
+    cols = torch.randint(0, d, (n, k), dtype=torch.int32, generator=g,
+                         device=cuda)
+    v = torch.randn(d, generator=g, device=cuda)
+    assert sps.dvector_plan(n, k, d) == 2
+    for c in (None, 0, 2):
+        first = sps._spmv_cuda(vals, cols, v, cluster=c)
+        assert torch.equal(first, sps._spmv_cuda(vals, cols, v, cluster=c))
+        ref = sps._spmv_ref(vals, cols, v)
+        scale = sps._spmv_ref(vals.abs(), cols, v.abs())
+        assert bool(((first - ref).abs() <= k * 2.0 ** -23 * scale).all())
 
 
 @pytest.mark.parametrize("n,k,d", [(64, 101, 7), (257, 101, 100_001),
-                                   (1000, 1, 50)])
+                                   (1000, 1, 50), (150_001, 101, 100_001)])
 def test_spmv_gradient_through_kernel(cuda, n, k, d):
     """Values in {-1, 0, 1}: every sum of the gradient stays an exact
-    integer, so the float atomics of the pullback cannot round."""
+    integer, so the float atomics of either pullback cannot round. The
+    kernel path runs K6 and its pullback kernel, the plain path neither."""
     rng = np.random.default_rng(n + k)
     A = _ell_ints(rng, n, k, d, cuda, -1, 2)
     v0 = _ints(rng, (d,), cuda, -1, 2)
     grads = []
     for kernel in ("cuda", "torch"):
+        _kernels.reset_launches()
         vals = A.values.clone().requires_grad_(True)
         v = v0.clone().requires_grad_(True)
         out = sps.matvec(sps.SparseRows(vals, A.cols, d), v, kernel=kernel)
         (out ** 2).sum().backward()
         grads.append((v.grad, vals.grad))
+        ran = sum(_kernels.launches.values())
+        assert ran == (2 if kernel == "cuda" else 0)
     assert torch.equal(grads[0][0], grads[1][0])
     assert torch.equal(grads[0][1], grads[1][1])
+    # an expanded cotangent (the backward of a plain sum) reaches the
+    # kernel contiguous
+    v = v0.clone().requires_grad_(True)
+    sps.matvec(A, v).sum().backward()
+    assert torch.equal(v.grad, sps.pullback(
+        A, torch.ones(n, device=cuda), kernel="torch"))
+
+
+def test_spmv_gradcheck_against_plain_path_on_float_data(cuda):
+    """The autograd Function's gradients in v through the kernels against
+    the plain path's on float data: both sum the same f32 products in
+    other orders, rtol 1e-5 against the gradient's scale."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(1)
+    n, k, d = 200_003, 33, 60_001
+    A = sps.SparseRows(
+        torch.randn((n, k), generator=g, device=cuda),
+        torch.randint(0, d, (n, k), dtype=torch.int32, generator=g,
+                      device=cuda), d)
+    v0 = torch.randn(d, generator=g, device=cuda)
+    w = torch.randn(n, generator=g, device=cuda)
+    grads = []
+    for kernel in ("cuda", "torch"):
+        v = v0.clone().requires_grad_(True)
+        (torch.sigmoid(sps.spmv(A, v, kernel=kernel)) * w).sum().backward()
+        grads.append(v.grad)
+    scale = float(grads[1].abs().max())
+    assert float((grads[0] - grads[1]).abs().max()) <= 1e-5 * scale
+    got, want = sps.pullback(A, w), sps.pullback(A, w, kernel="torch")
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 def test_spmv_kernel_refuses_bad_input(cuda):
     rng = np.random.default_rng(0)
     A = _ell_ints(rng, 100, 8, 20, cuda)
     v = torch.zeros(20, device=cuda)
+    r = torch.zeros(100, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         sps._spmv_cuda(A.values.T.contiguous().T, A.cols, v)
     with pytest.raises(ValueError, match="int32"):
         sps._spmv_cuda(A.values, A.cols.long(), v)
     with pytest.raises(ValueError, match="one device"):
         sps._spmv_cuda(A.values, A.cols, v.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        sps._pullback_cuda(A.values, A.cols.T.contiguous().T, r, 20)
+    with pytest.raises(ValueError, match="contiguous"):
+        sps._pullback_cuda(A.values, A.cols, torch.zeros(
+            200, device=cuda)[::2], 20)
+    with pytest.raises(ValueError, match="one device"):
+        sps._pullback_cuda(A.values, A.cols, r.cpu(), 20)
+    with pytest.raises(ValueError, match="one r per row"):
+        sps._pullback_cuda(A.values, A.cols, r[:50].contiguous(), 20)
+    # a shape that does not fit the cluster asked for, and a cluster size
+    # the direction is not built for, are refused at launch
+    big = torch.zeros(500_009, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        sps._spmv_cuda(A.values, A.cols % 20, big, cluster=2)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        sps._spmv_cuda(A.values, A.cols, v, cluster=4)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        sps._pullback_cuda(A.values, A.cols, r, 2_000_003, cluster=4)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        sps._pullback_cuda(A.values, A.cols, r, 20, cluster=8)
+    # the public pullback takes any r the plain version takes
+    r64 = torch.arange(200, dtype=torch.float64, device=cuda)[::2]
+    assert torch.equal(
+        sps.pullback(sps.SparseRows(A.values, A.cols, 20), r64),
+        sps.pullback(sps.SparseRows(A.values, A.cols, 20), r64,
+                     kernel="torch"))
 
 
 def test_sparse_lbfgs_fit_on_card(cuda):
     """A small sparse L-BFGS fit through the facade: the kernel path
-    launches K6, and agrees with the plain path on the card and with the
-    CPU fit (rtol 1e-4: the pullback's atomics and the kernel's summation
-    order move the last bits)."""
+    launches K6 and its pullback kernel, and agrees with the plain path on
+    the card and with the CPU fit (rtol 1e-4: the pullbacks' atomics and
+    the kernel's summation order move the last bits)."""
     X, y = make_sparse_classification(20_000, 2_000, 0.01, random_state=1)
-    before = _kernels.launches["spmv"]
+    _kernels.reset_launches()
     est = LogisticRegression(solver="lbfgs", max_iter=10).fit(X, y)
-    assert _kernels.launches["spmv"] > before
+    assert _kernels.launches["spmv"] > 0  # 21 slots a row: one block
+    assert _kernels.launches["spmv_pullback"] > 0
     assert est.score(X, y) > 0.6
     with config_context(device="cpu"):
         cpu = LogisticRegression(solver="lbfgs", max_iter=10).fit(X, y)

@@ -15,8 +15,10 @@ Tolerances and their reasons:
 - the container encoding and the sparse generator are integer and
   counter-seeded numpy work: equal slot for slot and bit for bit.
 
-The K6 kernel itself is held against ``_spmv_ref`` on the card
-(tests/test_torch_gpu.py and chip_smoke.py).
+The K6 kernels themselves (forward and pullback) are held against
+``_spmv_ref`` and ``_pullback_ref`` on the card (tests/test_torch_gpu.py
+and chip_smoke.py); here the rule that picks where they keep the
+``(d,)`` vector, ``dvector_plan``, is held to its boundaries.
 """
 
 import numpy as np
@@ -170,6 +172,128 @@ def test_autodiff_pullback_is_segment_sum():
         tsps.pullback(At, torch.as_tensor(r)).numpy(), want)
 
 
+@pytest.mark.parametrize("objective", ["sum", "squares", "dot"])
+def test_autograd_grad_through_spmv_matches_jax_grad(objective):
+    """``torch.autograd.grad`` through the port's ``spmv`` (forward and
+    pullback wired through one Function) against ``jax.grad`` through the
+    JAX ``spmv`` (its Pallas kernel in interpret mode, its custom VJP).
+    ``sum`` hands the backward an expanded cotangent. Integer data: bit
+    for bit."""
+    rng = np.random.RandomState(11)
+    dense, csr = _int_sparse(rng, 128, 13)
+    Aj, At = _pair(jsps.ell_from_csr(csr))
+    v0 = rng.randint(-3, 4, 13).astype(np.float32)
+    r = rng.randint(-2, 3, 128).astype(np.float32)
+    fj = {"sum": lambda o: jnp.sum(o), "squares": lambda o: jnp.sum(o ** 2),
+          "dot": lambda o: jnp.dot(o, jnp.asarray(r))}[objective]
+    ft = {"sum": lambda o: o.sum(), "squares": lambda o: (o ** 2).sum(),
+          "dot": lambda o: torch.dot(o, torch.as_tensor(r))}[objective]
+    want = jax.grad(lambda v: fj(jsps.spmv(Aj, v)))(jnp.asarray(v0))
+    v = torch.tensor(v0, requires_grad=True)
+    (got,) = torch.autograd.grad(ft(tsps.spmv(At, v)), v)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    (got_t,) = torch.autograd.grad(ft(tsps.spmv(At, v, kernel="torch")), v)
+    assert torch.equal(got, got_t)
+
+
+@pytest.mark.parametrize("n,d", [(40, 7), (300, 9), (512, 33)])
+def test_pullback_kernel_argument(n, d):
+    """``pullback(kernel=)``: 'auto' and 'torch' on CPU tensors are the
+    plain version and launch nothing, 'cuda' raises; against the JAX
+    package bit for bit on integer data and within rtol 1e-5 on float
+    data (the same products, scatter-added in another order)."""
+    rng = np.random.RandomState(n)
+    dense, csr = _int_sparse(rng, n, d)
+    Aj, At = _pair(jsps.ell_from_csr(csr))
+    r = rng.randint(-2, 3, n).astype(np.float32)
+    want = np.asarray(jsps.pullback(Aj, jnp.asarray(r)))
+    before = dict(_kernels.launches)
+    for kernel in ("auto", "torch"):
+        got = tsps.pullback(At, torch.as_tensor(r), kernel=kernel)
+        assert got.dtype == torch.float32 and got.shape == (d,)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(got.numpy(), dense.T @ r)
+    assert torch.equal(tsps.pullback(At, torch.as_tensor(r)), got)
+    assert _kernels.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tsps.pullback(At, torch.as_tensor(r), kernel="cuda")
+    with pytest.raises(ValueError, match="kernel must be"):
+        tsps.pullback(At, torch.as_tensor(r), kernel="xla")
+    csr.data = rng.standard_normal(csr.nnz).astype(np.float32)
+    Aj, At = _pair(jsps.ell_from_csr(csr))
+    rf = rng.standard_normal(n).astype(np.float32)
+    np.testing.assert_allclose(
+        tsps.pullback(At, torch.as_tensor(rf)).numpy(),
+        np.asarray(jsps.pullback(Aj, jnp.asarray(rf))), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# where the kernels keep the d-vector
+# ---------------------------------------------------------------------------
+
+#: floats of one block's shared memory, and what the forward's staging
+#: takes of them at k = 101 (2 groups x 2 tiles x 20 rows x 101 slots)
+_BLOCK = 232_448 // 4
+_STAGE_101 = 2 * 2 * 20 * 101
+
+
+@pytest.mark.parametrize("n,k,d,pullback,want", [
+    # the sparse GLM cell and its score rows: a cluster of 2, both ways
+    (10_000_000, 101, 100_001, False, 2),
+    (10_000_000, 101, 100_001, True, 2),
+    (262_144, 101, 100_001, False, 2),
+    # forward: one block up to 58,112 less the staging, then a cluster of
+    # 2 up to twice that, then L2 (a cluster of 4 loses to the L2 kernel)
+    (10_000_000, 101, _BLOCK - _STAGE_101, False, 1),
+    (10_000_000, 101, _BLOCK - _STAGE_101 + 1, False, 2),
+    (10_000_000, 101, 2 * (_BLOCK - _STAGE_101), False, 2),
+    (10_000_000, 101, 2 * (_BLOCK - _STAGE_101) + 1, False, 0),
+    # pullback: no staging; one block, 2, 4, then device atomics
+    (10_000_000, 101, _BLOCK, True, 1),
+    (10_000_000, 101, _BLOCK + 1, True, 2),
+    (10_000_000, 101, 2 * _BLOCK, True, 2),
+    (10_000_000, 101, 2 * _BLOCK + 1, True, 4),
+    (10_000_000, 101, 4 * _BLOCK, True, 4),
+    (10_000_000, 101, 4 * _BLOCK + 1, True, 0),
+    # a row wider than a tile stays with the L2 kernels
+    (100_000, 512, 1_000, False, 1),
+    (100_000, 513, 1_000, False, 0),
+    (100_000, 513, 1_000, True, 0),
+    # too few slots to pay for filling shared memory: a full grid copies
+    # 132 / cluster times d floats
+    (1, 1, 7, False, 0),
+    (924, 1, 7, False, 1),
+    (923, 1, 7, False, 0),
+    (65_347, 101, 100_001, False, 0),
+    (65_348, 101, 100_001, False, 2),
+    (0, 101, 100_001, True, 0),
+])
+def test_dvector_plan(n, k, d, pullback, want):
+    assert tsps.dvector_plan(n, k, d, pullback=pullback) == want
+
+
+def test_dvector_plan_fits_the_block():
+    """Whatever the plan picks fits a block's shared memory, tile rows are
+    a multiple of 4 within a tile, and the plan is a pure function."""
+    rng = np.random.RandomState(12)
+    for _ in range(300):
+        n = int(rng.randint(1, 10 ** 7))
+        k = int(rng.randint(1, 600))
+        d = int(rng.randint(1, 600_000))
+        for pull in (False, True):
+            c = tsps.dvector_plan(n, k, d, pullback=pull)
+            assert c == tsps.dvector_plan(n, k, d, pullback=pull)
+            assert c in (0,) + tsps._PLAN_CLUSTERS[pull]
+            if c:
+                R = tsps._tile_rows(k)
+                assert R >= 4 and R % 4 == 0 and R * k <= tsps._TILE_SLOTS
+                besides = 0 if pull else 8 * tsps._GROUPS * R * k
+                assert 4 * -(-d // c) + besides <= tsps._SMEM_BLOCK_BYTES
+                assert n * k >= (tsps._SMS // c) * d
+                assert not any(tsps._fits(k, d, s, pull)
+                               for s in tsps._PLAN_CLUSTERS[pull] if s < c)
+
+
 # ---------------------------------------------------------------------------
 # the other contractions, bit for bit on integer data
 # ---------------------------------------------------------------------------
@@ -290,6 +414,49 @@ def test_kernel_wrapper_refuses_what_it_cannot_take():
         tsps._spmv_cuda(At.values, At.cols.long(), v)
     with pytest.raises(ValueError, match="kernel must be"):
         tsps.matvec(At, v, kernel="xla")
+
+
+def test_pullback_wrapper_refuses_what_it_cannot_take():
+    """The pullback's wrapper holds its arguments as K6's does, before it
+    builds or launches anything."""
+    rng = np.random.RandomState(2)
+    _, csr = _int_sparse(rng, 8, 5)
+    _, At = _pair(jsps.ell_from_csr(csr))
+    r = torch.zeros(8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tsps._pullback_cuda(At.values, At.cols, r, At.d)
+    with pytest.raises(ValueError, match="int32 cols"):
+        tsps._pullback_cuda(At.values, At.cols.long(), r, At.d)
+    with pytest.raises(ValueError, match="1-D f32 r"):
+        tsps._pullback_cuda(At.values, At.cols, r.double(), At.d)
+    with pytest.raises(ValueError, match="1-D f32 r"):
+        tsps._pullback_cuda(At.values, At.cols, r[:, None], At.d)
+    with pytest.raises(ValueError, match=r"one \(n, k\) shape"):
+        tsps._pullback_cuda(At.values, At.cols[:, :1], r, At.d)
+    with pytest.raises(ValueError, match=r"one \(n, k\) shape"):
+        tsps._spmv_cuda(At.values[0], At.cols[0], torch.zeros(5))
+
+
+def test_pullback_hands_the_kernel_a_contiguous_f32_r(monkeypatch):
+    """The public ``pullback`` takes any ``r`` the plain version takes (a
+    strided view, float64): the kernel's wrapper, which refuses both, gets
+    it contiguous in f32."""
+    rng = np.random.RandomState(4)
+    _, csr = _int_sparse(rng, 16, 6)
+    _, At = _pair(jsps.ell_from_csr(csr))
+    r = torch.arange(32, dtype=torch.float64)[::2]
+    seen = {}
+
+    def wrapper(values, cols, r, d):
+        seen.update(dtype=r.dtype, contiguous=r.is_contiguous())
+        return tsps._pullback_ref(values, cols, r, d)
+
+    monkeypatch.setattr(tsps, "_pullback_cuda", wrapper)
+    monkeypatch.setattr(_kernels, "use_cuda", lambda kernel, t: True)
+    got = tsps.pullback(At, r, kernel="cuda")
+    assert seen == {"dtype": torch.float32, "contiguous": True}
+    monkeypatch.undo()
+    assert torch.equal(got, tsps.pullback(At, r))
 
 
 # ---------------------------------------------------------------------------
