@@ -52,10 +52,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    carry a score across 0;
 8. holds both forwards and both pullbacks against their plain versions at
    the full container within their rounding bounds, and times each kernel
-   with CUDA events next to its bound and its plain version (K6 also next
-   to cuSPARSE through ``torch.sparse``, on the same slots folded onto
-   1,024 columns, and on 40,000 columns through one block and clusters
-   of 2, 4 and 8; one L-BFGS iteration, with a device profile of it).
+   with CUDA events next to its bound and its plain version (K3 also at
+   the k-means|| rounds' mask, K3 and K4 also at the KDD cell's shape and
+   next to cuBLAS's product of the score matrix as a yardstick; K6 also
+   next to cuSPARSE through ``torch.sparse``, on the same slots folded
+   onto 1,024 columns, and on 40,000 columns through one block and
+   clusters of 2, 4 and 8; one L-BFGS iteration, with a device profile of
+   it), and prints the k-means|| phase times of both KMeans cells.
 
 ``python3 chip_smoke.py --spmv-only`` runs steps 1, 2, 6 and 8 alone, on a
 container of the sparse cell's shape drawn on the card.
@@ -112,6 +115,10 @@ FOLD_D = 40_000
 # wider models for the K6-only run: d beyond a cluster of 2 and of 4
 # (what the plan's cluster limits rest on)
 SPMV_WIDE_DS = (150_001, 300_001)
+# the k-means|| shapes K3 and K4 run at (k = 8, oversampling 2, so l = 16):
+# the rounds' candidate buffer of cap slots, of which a round usually fills
+# the first l, and the weights' buffer of max_cand slots
+ROUND_CAP, ROUND_COUNT, WEIGHT_CAND = 80, 16, 329
 # H100 SXM data sheet: HBM3 bandwidth and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
@@ -402,6 +409,28 @@ def edge_cases(dev):
     ka, _ = fd.fused_argmin_min(X, Y, kernel="cuda")
     expect(int(ka.max()) < 9, "ties do not go to the lowest index")
     merge(check_fused("ties", X, Y))
+    # the k-means|| rounds' prefix masks over an 80-slot buffer, a lone
+    # valid target in the last tile, and ties that straddle two threads'
+    # targets and a target tile boundary (the lowest index wins)
+    X, w = ints((3001, 50)), ints((3001,), 0, 5)
+    Y = ints((ROUND_CAP, 50))
+    iota = torch.arange(ROUND_CAP, device=dev)
+    for count in (0, 1, 15, 16, 17, 31, 32, 33, 79, 80):
+        merge(check_fused(f"m80 first {count}", X, Y, iota < count, w))
+    Y = ints((WEIGHT_CAND, 50))
+    lone = torch.zeros(WEIGHT_CAND, dtype=torch.bool, device=dev)
+    lone[-1] = True
+    merge(check_fused("m329 lone valid target", X, Y, lone, w))
+    merge(check_min2_sketched("m329 lone valid target", X, Y, lone))
+    Y = ints((ROUND_CAP, 50))
+    Y[[7, 8, 31, 32, 33, 63, 64, 79]] = Y[5].clone()
+    X = torch.cat([Y[5:6].expand(200, 50), ints((801, 50))])
+    merge(check_fused("ties across tiles", X, Y, None, w[:1001]))
+    merge(check_min2_sketched("ties across tiles", X, Y))
+    a2, b2, s2 = fd.fused_argmin_min2(X, Y, iota != 5, kernel="cuda")
+    expect(bool((a2[:200] == 7).all() and torch.equal(b2[:200], s2[:200])),
+           "ties across tiles: not the lowest index, or the tie is not the "
+           "second-best")
     # all masked: argmin 0, min +inf, cw 0
     X, Y, w = ints((300, 3)), ints((8, 3)), ints((300,), 0, 5)
     mask = torch.zeros(8, dtype=torch.bool, device=dev)
@@ -719,9 +748,11 @@ def init_phase_seconds(X, w):
     return out
 
 
-def fused_call(fdl, stream, X, Y, epi, w=None, gneed=None, x2=None):
+def fused_call(fdl, stream, X, Y, epi, w=None, gneed=None, x2=None,
+               mask=None):
     """A closure that launches ``dml_fused_distance`` once on buffers
-    allocated here (the closure keeps them alive)."""
+    allocated here (the closure keeps them alive); every target valid
+    unless ``mask`` says otherwise."""
     import torch
 
     from dask_ml_tpu_torch._kernels import build
@@ -731,7 +762,8 @@ def fused_call(fdl, stream, X, Y, epi, w=None, gneed=None, x2=None):
     n, d = X.shape
     m = Y.shape[0]
     y2 = fd._row_sumsq(Y).contiguous()
-    maskf = torch.ones(m, device=dev)
+    maskf = (torch.ones(m, device=dev) if mask is None
+             else mask.to(torch.float32).contiguous())
     am = torch.empty(n, dtype=torch.int32, device=dev)
     mn = torch.empty(n, dtype=torch.float32, device=dev)
     mn2 = torch.empty(n, dtype=torch.float32, device=dev)
@@ -752,6 +784,54 @@ def fused_call(fdl, stream, X, Y, epi, w=None, gneed=None, x2=None):
     return call
 
 
+def score_kernel_rows(fdl, stream, X, w, pick):
+    """K3 at the k-means|| rounds' shape (every slot of the candidate
+    buffer valid, and the first ``ROUND_COUNT`` valid as a round leaves
+    them) and K4 at the weights' shape, each timed with CUDA events beside
+    its plain version and its bound, and beside cuBLAS's f32 product of
+    the score matrix alone (``gemm_ms``: a yardstick, since no single call
+    computes either function, and the port never calls it)."""
+    import torch
+
+    from dask_ml_tpu_torch.models import kmeans as core
+    from dask_ml_tpu_torch.ops import fused_distance as fd
+
+    n, d = X.shape
+    cfg = core._init_scalable_config(n, K, 2.0, None)
+    expect(cfg["cap"] == ROUND_CAP and cfg["max_cand"] == WEIGHT_CAND,
+           f"the k-means|| buffers are not the timed shapes: {cfg}")
+    rows = []
+    for name, epi, m in (("fused_rowwise_min", 0, ROUND_CAP),
+                         ("fused_argmin_weight", 2, WEIGHT_CAND)):
+        Y = X[pick[:m]].contiguous()
+        if epi == 0:
+            plain = lambda mask: fd._min_ref(X, Y, mask)  # noqa: E731
+            nbytes = 4 * (n * d + m * d + n)
+        else:
+            plain = lambda mask: fd._argmin_weight_ref(  # noqa: E731
+                X, w, Y, mask)
+            nbytes = 4 * (n * d + n + m * d + n + m)
+        b, by = bound(nbytes, 2 * n * m * d)
+        row = dict(name=name,
+                   ms=cuda_ms(fused_call(fdl, stream, X, Y, epi,
+                                         w=w if epi == 2 else None)),
+                   plain_ms=cuda_ms(lambda: plain(None), iters=5, warmup=1),
+                   bound_ms=b, bound_by=by,
+                   gemm_ms=cuda_ms(lambda: torch.mm(X, Y.T), iters=10,
+                                   warmup=2),
+                   shape={"n": n, "m": m, "d": d})
+        if epi == 0:
+            prefix = torch.arange(m, device=X.device) < ROUND_COUNT
+            b, by = bound(nbytes, 2 * n * ROUND_COUNT * d)
+            row["path_mask"] = dict(
+                valid=ROUND_COUNT,
+                ms=cuda_ms(fused_call(fdl, stream, X, Y, 0, mask=prefix)),
+                plain_ms=cuda_ms(lambda: plain(prefix), iters=5, warmup=1),
+                bound_ms=b, bound_by=by)
+        rows.append(row)
+    return rows
+
+
 def time_kernels(X, w):
     """Each kernel's own launch (the C entry point, buffers allocated
     once) timed with CUDA events at the main path's shapes, beside its
@@ -769,33 +849,14 @@ def time_kernels(X, w):
     pick = torch.randperm(n, generator=g, device=dev)
     fdl = build.load("fused_distance")
     stream = build.stream_of(X)
-    rows = []
-
-    def fused_args(epi, m, with_w=False):
-        Y = X[pick[:m]].contiguous()
-        return Y, fused_call(fdl, stream, X, Y, epi,
-                             w=w if with_w else None)
-
-    specs = [
-        # name, epilogue, m, plain, bytes, flops
-        ("fused_argmin_min", 1, K,
-         lambda Y: fd._argmin_min_ref(X, Y, None),
-         lambda m: 4 * (n * d + m * d + 2 * n), lambda m: 2 * n * m * d),
-        ("fused_rowwise_min", 0, 80,
-         lambda Y: fd._min_ref(X, Y, None),
-         lambda m: 4 * (n * d + m * d + n), lambda m: 2 * n * m * d),
-        ("fused_argmin_weight", 2, 329,
-         lambda Y: fd._argmin_weight_ref(X, w, Y, None),
-         lambda m: 4 * (n * d + n + m * d + n + m),
-         lambda m: 2 * n * m * d),
-    ]
-    for name, epi, m, plain, nbytes, flops in specs:
-        Y, call = fused_args(epi, m, with_w=(epi == 2))
-        ms = cuda_ms(call)
-        plain_ms = cuda_ms(lambda: plain(Y), iters=5, warmup=1)
-        b, by = bound(nbytes(m), flops(m))
-        rows.append(dict(name=name, m=m, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b, bound_by=by))
+    # K2 at k = 8
+    Y = X[pick[:K]].contiguous()
+    b, by = bound(4 * (n * d + K * d + 2 * n), 2 * n * K * d)
+    rows = [dict(name="fused_argmin_min", ms=cuda_ms(fused_call(
+        fdl, stream, X, Y, 1)), plain_ms=cuda_ms(
+        lambda: fd._argmin_min_ref(X, Y, None), iters=5, warmup=1),
+        bound_ms=b, bound_by=by, shape={"n": n, "m": K, "d": d})]
+    rows += score_kernel_rows(fdl, stream, X, w, pick)
     # K1: one Lloyd iteration at k = 8
     ll = build.load("lloyd")
     C = X[pick[:K]].contiguous()
@@ -809,10 +870,9 @@ def time_kernels(X, w):
     plain_ms = cuda_ms(lambda: core._lloyd_stats_ref(X, w, C), iters=5,
                        warmup=1)
     b, by = bound(4 * (n * d + n + K * d + P), 2 * n * K * d + 2 * n * d)
-    rows.insert(0, dict(name="lloyd_iter", m=K, ms=ms, plain_ms=plain_ms,
-                        bound_ms=b, bound_by=by))
-    for r in rows:
-        r["shape"] = {"n": n, "m": r.pop("m"), "d": d}
+    rows.insert(0, dict(name="lloyd_iter", ms=ms, plain_ms=plain_ms,
+                        bound_ms=b, bound_by=by,
+                        shape={"n": n, "m": K, "d": d}))
     return rows
 
 
@@ -832,6 +892,20 @@ def kernel_rows(rows, launches, errs):
            if k not in ("name", "ms", "plain_ms", "bound_ms", "bound_by",
                         "library_ms")},
     } for r in rows]
+
+
+def log_score_extras(r, tag: str) -> None:
+    """The K3/K4 timing row's extras: its shape, cuBLAS's product beside
+    it, and K3 at the rounds' mask."""
+    if not r or "gemm_ms" not in r:
+        return
+    log(f"    {tag} {r['shape']}: {r['ms']:.4f} ms  bound {r['bound_ms']:.4f}"
+        f" ms  plain {r['plain_ms']:.4f} ms  gemm {r['gemm_ms']:.4f} ms")
+    pm = r.get("path_mask")
+    if pm:
+        log(f"    {tag} first {pm['valid']} valid: {pm['ms']:.4f} ms  bound "
+            f"{pm['bound_ms']:.4f} ms ({pm['bound_by']})  plain "
+            f"{pm['plain_ms']:.4f} ms")
 
 
 def expect_launches(path: str, launches: dict) -> None:
@@ -1158,6 +1232,15 @@ def kdd_cell(dev, errs):
                      row_need={"evaluated_fraction": ev_n, "ms": k2n,
                                "plain_ms": plain_k2n, "bound_ms": b_n,
                                "bound_by": by_n}))
+    # -- K3 and K4 at the cell's shape, and the k-means|| phases ------------
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 1)
+    pick = torch.randperm(Xd.shape[0], generator=g, device=dev)
+    summary["score_kernels"] = score_kernel_rows(fdl, stream, Xd, wd, pick)
+    del pick
+    phases = init_phase_seconds(Xd, wd)
+    summary["init_phases"] = phases
+    log("INIT_PHASES kdd " + json.dumps(phases))
     # -- where the time goes in a steady tol=0 loop (20 iterations) --------
     for name, fn in (("bounded", lambda: core.lloyd_loop_bounded(
             Xd, wd, c0, 0.0, max_iter=iters)),
@@ -1819,22 +1902,30 @@ def main() -> int:
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 2)
     pick = torch.randperm(N, generator=g, device=dev)
-    for name, m in (("K2/K3/K4 m=8", K), ("K3 m=80", 80),
-                    ("K4 m=329", 329)):
-        Y = Xd[pick[:m]]
-        mask = torch.ones(m, dtype=torch.bool, device=dev)
-        if m != K:  # candidate buffers: the later slots unfilled
-            mask[m // 2:] = False
-        e = check_fused(name, Xd, Y, mask, wd, exact=False)
+    # integer-valued rows of the same shape: bit for bit at the rounds'
+    # and the weights' masks
+    Xi = torch.randint(-8, 8, (N, D), generator=g, device=dev).float()
+    for name, m, valid, X_, exact in (
+            ("K2/K3/K4 m=8", K, K, Xd, False),
+            ("K3 m=80", ROUND_CAP, ROUND_CAP // 2, Xd, False),
+            ("K3 m=80, the rounds' mask", ROUND_CAP, ROUND_COUNT, Xd, False),
+            ("K4 m=329", WEIGHT_CAND, WEIGHT_CAND // 2, Xd, False),
+            ("K3 m=80, the rounds' mask, integers", ROUND_CAP, ROUND_COUNT,
+             Xi, True),
+            ("K4 m=329, 321 valid, integers", WEIGHT_CAND, 321, Xi, True)):
+        Y = X_[pick[:m]]
+        mask = torch.arange(m, device=dev) < valid  # unfilled later slots
+        e = check_fused(name, X_, Y, mask, wd, exact=exact)
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
+    del Xi
     e = check_lloyd("K1 full shape", Xd, wd, c0, exact=False)
     errs["lloyd_iter"] = max(errs.get("lloyd_iter", 0.0), e)
     torch.cuda.synchronize()
     log("full-shape comparisons: all kernels within tolerance")
 
     phases = init_phase_seconds(Xd, wd)
-    log("INIT_PHASES " + json.dumps(phases))
+    log("INIT_PHASES blobs " + json.dumps(phases))
     rows = kernel_rows(time_kernels(Xd, wd), launches, errs)
     # one Lloyd iteration as the loop runs it: the kernel, the M-step
     # finalization and the host read of `shift`; tol 0 runs every iteration
@@ -1848,6 +1939,7 @@ def main() -> int:
         log(f"  {r['name']:22s} {r['ms']:.4f} ms  bound {r['bound_ms']:.4f}"
             f" ms ({r['bound_by']})  plain {r['plain_ms']:.4f} ms  "
             f"launches {r['launches']}")
+        log_score_extras(r, "blobs")
     fit = {"n": N, "d": D, "k": K, "fit_predict_s": fit_predict_s,
            "n_iter": km.n_iter_, "init_s": km.fit_phase_seconds_["init"],
            "lloyd_s": km.fit_phase_seconds_["lloyd"],
@@ -1861,6 +1953,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     kdd_rows, kdd_launches, kdd = kdd_cell(dev, errs)
+    # K3 and K4 at the KDD cell's shape ride on their blobs rows
+    for r in rows:
+        for sr in kdd["score_kernels"]:
+            if sr["name"] == r["name"]:
+                r["kdd_shape"] = {k: v for k, v in sr.items() if k != "name"}
+        log_score_extras(r.get("kdd_shape"), "KDD")
     rows += kernel_rows(kdd_rows, kdd_launches, errs)
     for r in rows[-2:]:
         log(f"  {r['name']:26s} {r['ms']:.4f} ms  bound {r['bound_ms']:.4f}"

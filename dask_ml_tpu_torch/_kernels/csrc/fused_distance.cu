@@ -28,34 +28,56 @@
 // argmins from the same inputs (the bounded Lloyd loop's exactness rests
 // on that).
 //
-// Bound on the H100 (slice shapes n = 1e6, d = 50; KDD cell n = 4.9e6,
-// d = 41): with m = 8 targets the kernel must read all of X and does
-// 2·n·m·d FLOPs, so HBM bandwidth bounds it; with m = 80 or 329 the f32
-// FMA work bounds it. A skipped group is neither read nor computed, so
-// with a need mask the bound scales with the evaluated groups.
-// Design against those bounds, first version (simple and right):
-//   * a block owns 128 rows of X, one per thread; the tile is read with
-//     coalesced loads into shared memory, transposed with a padded stride
-//     so both the stores and the per-thread column reads are free of bank
-//     conflicts; X is read from HBM once when d <= 64 (one feature chunk);
-//   * Y streams through shared memory in tiles of TM targets (8 or 32), so
-//     there is no bound on m or d from shared memory (the TPU version held
-//     all of Y in VMEM and was limited to m <= 1024, d <= 512);
-//   * each thread keeps TM dot products in registers and reads the target
-//     tile with 16-byte broadcast loads: one shared load of x feeds TM FMAs;
+// Bound on the H100 (67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s):
+// with m = 8 targets (K2, K5; n = 1e6, d = 50, and the KDD cell n = 4.9e6,
+// d = 41) the kernel must read all of X and does 2·n·m·d FLOPs, so HBM
+// bandwidth bounds it; with m = 80 (K3) or 329 (K4) the f32 FMA work
+// bounds it, counted over the valid targets. The k-means|| rounds pass a
+// candidate buffer of 80 slots of which only a prefix (about 16) is valid:
+// there the bytes of X bound it again. A skipped group (row need) is
+// neither read nor computed, so the bound scales with evaluated groups.
+// Design against those bounds:
+//   * a block's rows of X are staged into shared memory transposed
+//     (feature-major) with 4-byte cp.async copies: consecutive threads read
+//     consecutive addresses, the (row, feature) position steps without a
+//     division, and all of a block's loads are in flight at once; X is read
+//     from HBM once when d <= 56 (one feature chunk);
+//   * targets stream through shared memory in tiles, each with its |y|^2
+//     (+inf for a masked target); a tile with no valid target is skipped by
+//     the whole block before any of it is loaded (a uniform branch), and a
+//     block whose every tile is skipped never reads X. Masked targets never
+//     win, so outputs do not change. With one feature chunk the next valid
+//     tile is loaded into a second buffer while this one is computed;
+//   * register tiling, SGEMM-style, in full f32 on the FMA pipes, the shape
+//     chosen from m alone (never from the epilogue, so K2 and K5 at one m
+//     run the same code): m <= 8, a row x 8 targets a thread (128 rows a
+//     block); m <= 128, 8 rows x 4 targets a thread and tiles of 16 targets
+//     (m = 80 computes no padding, and a k-means|| round's usual 16 valid
+//     slots are one tile); beyond, 8 rows x 8 targets and tiles of 32 (both
+//     256 rows a block). Per feature a thread makes two 16-byte loads of x
+//     (4 rows each, a warp's load is 32 consecutive rows) and one or two
+//     of y for 32 or 64 FMAs;
+//   * every (row, target) score is one fmaf chain over features 0..d-1 in
+//     order and |x|^2 keeps its own chain, so the scores are the same bits
+//     for every tiling and every epilogue; a thread visits its targets in
+//     increasing index with strict <, and the 4 threads that share a row
+//     merge (value, index) pairs by shuffles, the lower index winning ties;
 //   * no tensor cores: TF32 would break parity with the f32 reference;
 //   * the cross-block sum of the candidate weights is not done with float
 //     atomics: each block writes its partial column (rows summed in order)
 //     and a second kernel reduces the columns in a fixed order, so cw is
 //     bit-reproducible from run to run.
+// What is left between it and the bound (PERF.md): X's staging adds to
+// the FMA time instead of hiding under it; the 4-byte copies and the score
+// loop's shared loads go through one load/store pipe, the likely reason.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
-constexpr int ROWS = 128;       // X rows per block, one per thread
-constexpr int FC = 64;          // features per shared-memory chunk
-constexpr int XS = ROWS + 1;    // padded stride of the transposed X tile
+constexpr int THREADS = 128;    // threads per block
+constexpr int MIN_ROWS = 128;   // X rows of the smallest block tile
+constexpr int FC = 56;          // features per shared-memory chunk
 constexpr int RED = 256;        // threads of the cw reduction
 
 enum {
@@ -79,8 +101,78 @@ __device__ __forceinline__ void write_identity(long row, int* am_out,
   }
 }
 
-template <int EPI, int TM>
-__global__ void __launch_bounds__(ROWS)
+// an asynchronous 4-byte copy from global to shared memory; zero-filled
+// when !full (src is then not read)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// rows [0, nr) x features [f0, f0 + fc) of a row-major matrix with d
+// columns (src points at its first row) into dst[f * stride + r] for r <
+// R, zero-filled from row nr on, asynchronously; consecutive threads read
+// consecutive addresses, and the (row, feature) position steps without a
+// division per element
+template <int R>
+__device__ __forceinline__ void stage_transposed(float* dst, int stride,
+                                                 const float* src, int nr,
+                                                 int d, int f0, int fc) {
+  const int dq = THREADS / fc, dr = THREADS - dq * fc;
+  int rr = threadIdx.x / fc, ff = threadIdx.x - rr * fc;
+  for (int e = threadIdx.x; e < R * fc; e += THREADS) {
+    const bool in = rr < nr;
+    cp_async4(dst + ff * stride + rr, in ? src + (long)rr * d + f0 + ff : src,
+              in);
+    rr += dq;
+    ff += dr;
+    if (ff >= fc) {
+      ff -= fc;
+      ++rr;
+    }
+  }
+}
+
+// fold (ob, os, oi) into (b, s, i): the lower (value, index) pair wins and
+// the second-best is the least value of both but the winner's
+__device__ __forceinline__ void merge_pair(float& b, float& s, int& i,
+                                           float ob, float os, int oi) {
+  if (ob < b || (ob == b && oi < i)) {
+    s = b < os ? b : os;
+    b = ob;
+    i = oi;
+  } else if (ob < s) {
+    s = ob;
+  }
+}
+
+// the block tile of a (TR, TC, TG) thread tile: THREADS threads, TG of
+// them sharing TR rows, cover BR rows x TT targets
+template <int TR, int TC, int TG>
+struct Tile {
+  static constexpr int BR = THREADS / TG * TR;  // rows per block
+  static constexpr int TT = TC * TG;            // targets per tile
+  // stride of the transposed X tile: odd for one row a thread (its scalar
+  // reads and the staging stores are free of bank conflicts), a multiple
+  // of 4 for 4k rows a thread (16-byte reads of 4 rows)
+  static constexpr int XS = TR == 1 ? BR + 1 : BR + 4;
+  static constexpr int YS = TT + 4;  // stride of a target tile
+  // shared memory: the X tile, two target tiles and their |y|^2, and the
+  // labels and weights of EPI_ARGMIN_WEIGHT's partial sums
+  static constexpr int SMEM =
+      4 * (FC * XS + 2 * FC * YS + 2 * TT + 2 * BR);
+};
+
+// TR rows x TC targets of scores a thread; the TG threads of a row are
+// neighbouring lanes
+template <int EPI, int TR, int TC, int TG>
+__global__ void __launch_bounds__(THREADS)
 fused_distance_kernel(const float* __restrict__ X, const float* __restrict__ Y,
                       const float* __restrict__ y2,
                       const float* __restrict__ maskf,
@@ -90,102 +182,277 @@ fused_distance_kernel(const float* __restrict__ X, const float* __restrict__ Y,
                       int* __restrict__ am_out, float* __restrict__ min_out,
                       float* __restrict__ min2_out,
                       float* __restrict__ cw_part) {
-  __shared__ float xs[FC * XS];
-  __shared__ __align__(16) float ys[FC * TM];
-  __shared__ int lab[ROWS];
-  __shared__ float wsm[ROWS];
+  using T = Tile<TR, TC, TG>;
+  constexpr int BR = T::BR, TT = T::TT, XS = T::XS, YS = T::YS;
+  constexpr int G = 32 / TG;  // row groups per warp
+  // features a step of the score loop (measured best for each thread tile)
+  constexpr int UNROLL = TC == 8 ? 4 : 8;
+  static_assert(TC % 4 == 0 && 32 % TG == 0 && (TR == 1 || TR % 4 == 0),
+                "tile shape");
+  extern __shared__ __align__(16) float smem[];
+  float* const xs = smem;
+  // two target tiles (b = 0, 1) and their |y|^2 (+inf for a masked
+  // target): with one feature chunk the next valid tile is loaded while
+  // this one is computed
+  float* const ys = xs + FC * XS;       // tile b at ys + b * FC * YS
+  float* const y2s = ys + 2 * FC * YS;  // tile b at y2s + b * TT
+  int* const lab = reinterpret_cast<int*>(y2s + 2 * TT);
+  float* const wsm = y2s + 2 * TT + BR;
 
   const int tid = threadIdx.x;
-  const long row0 = (long)blockIdx.x * ROWS;
-  const long row = row0 + tid;
-  const bool valid = row < n;
-  const int nrows = (int)min((long)ROWS, (long)n - row0);
+  const int tg = tid % TG, rg = tid / TG;
+  const long row0 = (long)blockIdx.x * BR;
+  const int nrows = (int)min((long)BR, (long)n - row0);
+  // this thread's rows in the block: runs of 4 consecutive rows, so that
+  // each of a warp's 16-byte loads of x reads 32 consecutive rows
+  auto row_of = [&](int i) {
+    return TR == 1 ? rg
+                   : (rg / G) * (G * TR) + (i / 4) * (4 * G) + (rg % G) * 4 +
+                         i % 4;
+  };
+  int r[TR];
+  bool ev[TR];
+  bool any = false;
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    r[i] = row_of(i);
+    ev[i] = r[i] < nrows;
+  }
 
   // row_need: a group of group_rows rows with no needed row is skipped; a
   // block whose rows all lie in skipped groups returns at once
-  bool ev = valid;
   if (EPI != EPI_ARGMIN_WEIGHT && gneed != nullptr) {
-    ev = valid && gneed[row / group_rows] != 0;
-    if (!__syncthreads_or(ev)) {
-      if (valid) write_identity<EPI>(row, am_out, min_out, min2_out);
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      ev[i] = ev[i] && gneed[(row0 + r[i]) / group_rows] != 0;
+      any = any || ev[i];
+    }
+    if (!__syncthreads_or(any)) {
+      if (tg == 0) {
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+          if (r[i] < nrows)
+            write_identity<EPI>(row0 + r[i], am_out, min_out, min2_out);
+      }
       return;
     }
   }
 
   const int nfc = (d + FC - 1) / FC;
-  float best = CUDART_INF_F;
-  float second = CUDART_INF_F;  // EPI_ARGMIN_MIN2 only
-  int bi = 0;
-  float x2 = 0.f;
-  for (int t0 = 0; t0 < m; t0 += TM) {
-    float acc[TM];
+  // |x|^2 of this thread's share of its rows: the TG threads of a row
+  // group sum XR rows each
+  constexpr int XR = TR / TG;
+  int xrow[XR];
 #pragma unroll
-    for (int j = 0; j < TM; ++j) acc[j] = 0.f;
+  for (int k = 0; k < XR; ++k) xrow[k] = row_of(tg * XR + k);
+  float x2[XR];
+  float best[TR], second[TR];  // second: EPI_ARGMIN_MIN2 only
+  int bi[TR];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    best[i] = second[i] = CUDART_INF_F;
+    bi[i] = 0;
+  }
+#pragma unroll
+  for (int k = 0; k < XR; ++k) x2[k] = 0.f;
+  bool first = true;  // no tile evaluated yet (uniform over the block)
+  // the target tile at t0, features f0 .. f0 + fc - 1, into buffer b
+  auto stage_y = [&](int b, int t0, int f0, int fc) {
+    stage_transposed<TT>(ys + b * FC * YS, YS, Y + (long)t0 * d, min(TT, m - t0), d, f0,
+                         fc);
+  };
+  // a tile's validity and |y|^2 are loaded while the tile before it is
+  // computed
+  bool ok = tid < TT && tid < m && maskf[tid] > 0.f;
+  float y2t = tid < TT && tid < m ? y2[tid] : 0.f;
+  int b = 0;            // the buffer of the tile at t0
+  bool staged = false;  // the tile at t0 is loaded (or loading) into b
+  for (int t0 = 0; t0 < m; t0 += TT) {
+    const int tt = t0 + tid;
+    const bool ok_here = ok;
+    const float y2_here = y2t;
+    const bool in_next = tid < TT && tt + TT < m;
+    ok = in_next && maskf[tt + TT] > 0.f;
+    y2t = in_next ? y2[tt + TT] : 0.f;
+    // every thread is past the previous tile here, so its buffers are free
+    if (!staged && !__syncthreads_or(ok_here)) continue;
+    if (tid < TT) y2s[b * TT + tid] = ok_here ? y2_here : CUDART_INF_F;
+    float acc[TR][TC];
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TC; ++j) acc[i][j] = 0.f;
     for (int c = 0; c < nfc; ++c) {
       const int f0 = c * FC;
       const int fc = min(FC, d - f0);
-      __syncthreads();  // the previous chunk has been consumed
-      if (t0 == 0 || nfc > 1) {
-        for (int e = tid; e < ROWS * fc; e += ROWS) {
-          const int r = e / fc, f = e - r * fc;
-          xs[f * XS + r] = r < nrows ? X[(row0 + r) * d + f0 + f] : 0.f;
-        }
+      if (c > 0) __syncthreads();  // the previous chunk has been consumed
+      if (first || nfc > 1) {
+        stage_transposed<BR>(xs, XS, X + row0 * d, nrows, d, f0, fc);
       }
-      for (int e = tid; e < TM * fc; e += ROWS) {
-        const int j = e % TM, f = e / TM;
-        ys[f * TM + j] = t0 + j < m ? Y[(long)(t0 + j) * d + f0 + f] : 0.f;
-      }
-      __syncthreads();
-      for (int f = 0; f < fc; ++f) {
-        const float xv = xs[f * XS + tid];
-        if (t0 == 0) x2 = fmaf(xv, xv, x2);
-        const float4* y4 = reinterpret_cast<const float4*>(ys + f * TM);
+      if (!staged) stage_y(b, t0, f0, fc);
+      cp_async_wait_all();
+      // with one chunk, a block learns here whether the next tile is
+      // evaluated, and starts loading it into the other buffer; that
+      // buffer was last read by the tile before this one
+      const bool next = __syncthreads_or(ok) && nfc == 1;
+      staged = next;
+      if (next) stage_y(b ^ 1, t0 + TT, 0, fc);
+      if (first && x2ext == nullptr) {
+        for (int f = 0; f < fc; ++f)
 #pragma unroll
-        for (int q = 0; q < TM / 4; ++q) {
+          for (int k = 0; k < XR; ++k) {
+            const float xv = xs[f * XS + xrow[k]];
+            x2[k] = fmaf(xv, xv, x2[k]);
+          }
+      }
+      const float* xp = xs + r[0];
+      const float* yp = ys + b * FC * YS + tg * TC;
+#pragma unroll UNROLL
+      for (int f = 0; f < fc; ++f, xp += XS, yp += YS) {
+        float xv[TR];
+        if constexpr (TR == 1) {
+          xv[0] = *xp;
+        } else {
+#pragma unroll
+          for (int k = 0; k < TR / 4; ++k) {
+            const float4 x4 = *reinterpret_cast<const float4*>(xp + 4 * G * k);
+            xv[4 * k + 0] = x4.x;
+            xv[4 * k + 1] = x4.y;
+            xv[4 * k + 2] = x4.z;
+            xv[4 * k + 3] = x4.w;
+          }
+        }
+        const float4* y4 = reinterpret_cast<const float4*>(yp);
+#pragma unroll
+        for (int q = 0; q < TC / 4; ++q) {
           const float4 yv = y4[q];
-          acc[4 * q + 0] = fmaf(xv, yv.x, acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(xv, yv.y, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(xv, yv.z, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(xv, yv.w, acc[4 * q + 3]);
+#pragma unroll
+          for (int i = 0; i < TR; ++i) {
+            acc[i][4 * q + 0] = fmaf(xv[i], yv.x, acc[i][4 * q + 0]);
+            acc[i][4 * q + 1] = fmaf(xv[i], yv.y, acc[i][4 * q + 1]);
+            acc[i][4 * q + 2] = fmaf(xv[i], yv.z, acc[i][4 * q + 2]);
+            acc[i][4 * q + 3] = fmaf(xv[i], yv.w, acc[i][4 * q + 3]);
+          }
         }
       }
     }
+    first = false;
+    // this thread's targets of the tile, in increasing index; a masked
+    // target scores +inf and never passes the strict <
 #pragma unroll
-    for (int j = 0; j < TM; ++j) {
-      const int t = t0 + j;
-      if (t < m && maskf[t] > 0.f) {
-        const float s = y2[t] - 2.0f * acc[j];
-        if (s < best) {
-          if (EPI == EPI_ARGMIN_MIN2) second = best;
-          best = s;
-          bi = t;
-        } else if (EPI == EPI_ARGMIN_MIN2 && s < second) {
-          // a later target that ties the best lands here too
-          second = s;
+    for (int q = 0; q < TC / 4; ++q) {
+      const float4 y4 =
+          reinterpret_cast<const float4*>(y2s + b * TT + tg * TC)[q];
+      const float yy[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * q + jj;
+#pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const float s = yy[jj] - 2.0f * acc[i][j];
+          if (s < best[i]) {
+            if (EPI == EPI_ARGMIN_MIN2) second[i] = best[i];
+            best[i] = s;
+            bi[i] = t0 + tg * TC + j;
+          } else if (EPI == EPI_ARGMIN_MIN2 && s < second[i]) {
+            // a later target that ties the best lands here too
+            second[i] = s;
+          }
         }
       }
+    }
+    if (staged) b ^= 1;
+  }
+  // the TG threads of a row are neighbouring lanes: merge their minima
+#pragma unroll
+  for (int o = 1; o < TG; o <<= 1) {
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const float ob = __shfl_xor_sync(0xffffffffu, best[i], o);
+      const float os = __shfl_xor_sync(0xffffffffu, second[i], o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi[i], o);
+      merge_pair(best[i], second[i], bi[i], ob, os, oi);
     }
   }
-  if (x2ext != nullptr && valid) x2 = x2ext[row];
+
+  // row i's |x|^2 is held by the thread tg = i / XR of its group
+  float x2r[TR];
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+    x2r[i] = TG == 1 ? x2[0]
+                     : __shfl_sync(0xffffffffu, x2[i % XR],
+                                   (tid & 31) - tg + i / XR);
 
   if (EPI == EPI_ARGMIN_WEIGHT) {
-    if (valid) am_out[row] = bi;
-    lab[tid] = bi;
-    wsm[tid] = valid ? w[row] : 0.f;
-    __syncthreads();
-    for (int j = tid; j < m; j += ROWS) {
-      float s = 0.f;
-      for (int r = 0; r < nrows; ++r)
-        if (lab[r] == j) s += wsm[r];
-      cw_part[(long)j * gridDim.x + blockIdx.x] = s;
+    if (tg == 0) {
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        const bool v = r[i] < nrows;
+        if (v) am_out[row0 + r[i]] = bi[i];
+        lab[r[i]] = v ? bi[i] : -1;
+        wsm[r[i]] = v ? w[row0 + r[i]] : 0.f;
+      }
     }
-  } else if (valid) {
-    if (!ev) {
-      write_identity<EPI>(row, am_out, min_out, min2_out);
-    } else {
-      min_out[row] = fmaxf(best + x2, 0.f);
-      if (EPI != EPI_MIN) am_out[row] = bi;
-      if (EPI == EPI_ARGMIN_MIN2) min2_out[row] = fmaxf(second + x2, 0.f);
+    __syncthreads();
+    // each warp sums the weights of every label in its 32-row segments, in
+    // row order, by shuffles; the segments' sums are then added in order.
+    // The per-segment sums go through X's tile, which is no longer needed,
+    // CH targets a pass
+    constexpr int NSEG = BR / 32, SPW = BR / THREADS;  // segments, a warp's
+    constexpr int CH = FC * XS / NSEG;
+    const int lane = tid & 31, warp = tid >> 5;
+    int sl[SPW];
+    float sw[SPW];
+    bool lead[SPW];
+#pragma unroll
+    for (int k = 0; k < SPW; ++k) {
+      const int sg = warp + k * (THREADS / 32);
+      const int l = lab[32 * sg + lane];
+      const float wv = wsm[32 * sg + lane];
+      float acc = 0.f;
+      for (int src = 0; src < 32; ++src) {
+        const int ls = __shfl_sync(0xffffffffu, l, src);
+        const float ws = __shfl_sync(0xffffffffu, wv, src);
+        if (ls == l) acc += ws;
+      }
+      sl[k] = l;
+      sw[k] = acc;
+      lead[k] = lane == __ffs(__match_any_sync(0xffffffffu, l)) - 1;
+    }
+    float* const part = xs;  // [segment][target of the pass]
+    for (int j0 = 0; j0 < m; j0 += CH) {
+      const int cn = min(CH, m - j0);
+      __syncthreads();  // the previous pass's sums have been read
+      for (int e = tid; e < NSEG * cn; e += THREADS) part[e] = 0.f;
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < SPW; ++k) {
+        const int sg = warp + k * (THREADS / 32);
+        if (lead[k] && sl[k] >= j0 && sl[k] < j0 + cn)
+          part[sg * cn + sl[k] - j0] = sw[k];
+      }
+      __syncthreads();
+      for (int jj = tid; jj < cn; jj += THREADS) {
+        // a masked target's column is zeroed by the reduction
+        float s = 0.f;
+        if (maskf[j0 + jj] > 0.f)
+          for (int sg = 0; sg < NSEG; ++sg) s += part[sg * cn + jj];
+        cw_part[(long)(j0 + jj) * gridDim.x + blockIdx.x] = s;
+      }
+    }
+  } else if (tg == 0) {
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      if (r[i] >= nrows) continue;
+      const long row = row0 + r[i];
+      if (!ev[i]) {
+        write_identity<EPI>(row, am_out, min_out, min2_out);
+      } else {
+        const float xx = x2ext != nullptr ? x2ext[row] : x2r[i];
+        min_out[row] = fmaxf(best[i] + xx, 0.f);
+        if (EPI != EPI_MIN) am_out[row] = bi[i];
+        if (EPI == EPI_ARGMIN_MIN2) min2_out[row] = fmaxf(second[i] + xx, 0.f);
+      }
     }
   }
 }
@@ -210,32 +477,64 @@ cw_reduce_kernel(const float* __restrict__ cw_part,
   if (tid == 0) cw[j] = maskf[j] > 0.f ? red[0] : 0.f;
 }
 
+template <int EPI, int TR, int TC, int TG>
+int launch_tile(cudaStream_t s, const float* X, const float* Y,
+                const float* y2, const float* maskf, const unsigned char* gneed,
+                int group_rows, const float* x2ext, const float* w, int n,
+                int m, int d, int* am, float* mn, float* mn2, float* cw_part,
+                int* nb) {
+  using T = Tile<TR, TC, TG>;
+  auto kernel = fused_distance_kernel<EPI, TR, TC, TG>;
+  // above 48 KB a block's shared memory must be granted, once per kernel
+  static bool granted = T::SMEM <= 48 * 1024;
+  if (!granted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    granted = true;
+  }
+  *nb = (n + T::BR - 1) / T::BR;
+  kernel<<<*nb, THREADS, T::SMEM, s>>>(X, Y, y2, maskf, gneed, group_rows,
+                                       x2ext, w, n, m, d, am, mn, mn2,
+                                       cw_part);
+  return 0;
+}
+
+// the tile shape depends on m alone, so every epilogue at one m runs the
+// same score loop: m <= 8, a row a thread and 8 targets a tile, 128 rows a
+// block; m <= 128, 8 rows x 4 targets a thread and 16 targets a tile (a
+// k-means|| round's usual 16 valid candidates are one tile), 256 rows a
+// block; beyond, 8 rows x 8 targets a thread and 32 targets a tile
 template <int EPI>
-void launch(int nb, cudaStream_t s, const float* X, const float* Y,
-            const float* y2, const float* maskf, const unsigned char* gneed,
-            int group_rows, const float* x2ext, const float* w, int n, int m,
-            int d, int* am, float* mn, float* mn2, float* cw_part) {
+int launch(cudaStream_t s, const float* X, const float* Y, const float* y2,
+           const float* maskf, const unsigned char* gneed, int group_rows,
+           const float* x2ext, const float* w, int n, int m, int d, int* am,
+           float* mn, float* mn2, float* cw_part, int* nb) {
   if (m <= 8)
-    fused_distance_kernel<EPI, 8><<<nb, ROWS, 0, s>>>(
-        X, Y, y2, maskf, gneed, group_rows, x2ext, w, n, m, d, am, mn, mn2,
-        cw_part);
-  else
-    fused_distance_kernel<EPI, 32><<<nb, ROWS, 0, s>>>(
-        X, Y, y2, maskf, gneed, group_rows, x2ext, w, n, m, d, am, mn, mn2,
-        cw_part);
+    return launch_tile<EPI, 1, 8, 1>(s, X, Y, y2, maskf, gneed, group_rows,
+                                     x2ext, w, n, m, d, am, mn, mn2, cw_part,
+                                     nb);
+  if (m <= 128)
+    return launch_tile<EPI, 8, 4, 4>(s, X, Y, y2, maskf, gneed, group_rows,
+                                     x2ext, w, n, m, d, am, mn, mn2, cw_part,
+                                     nb);
+  return launch_tile<EPI, 8, 8, 4>(s, X, Y, y2, maskf, gneed, group_rows,
+                                   x2ext, w, n, m, d, am, mn, mn2, cw_part,
+                                   nb);
 }
 
 }  // namespace
 
-extern "C" int dml_fused_rows_per_block() { return ROWS; }
+// the fewest rows a block takes: cw_part sized with it fits every tile
+extern "C" int dml_fused_rows_per_block() { return MIN_ROWS; }
 
 // All pointers are device pointers; X (n, d) and Y (m, d) row-major f32.
 // Outputs: am (n,) int32 for the argmin epilogues, mn (n,) f32 for all but
 // EPI_ARGMIN_WEIGHT, mn2 (n,) f32 for EPI_ARGMIN_MIN2, cw_part
-// (m, ceil(n / ROWS)) scratch and cw (m,) for EPI_ARGMIN_WEIGHT.
-// gneed (ceil(n / group_rows),) uint8 or null and x2ext (n,) f32 or null,
-// both refused by EPI_ARGMIN_WEIGHT. Returns cudaGetLastError() after the
-// launches.
+// (m, ceil(n / dml_fused_rows_per_block())) scratch and cw (m,) for
+// EPI_ARGMIN_WEIGHT. gneed (ceil(n / group_rows),) uint8 or null and x2ext
+// (n,) f32 or null, both refused by EPI_ARGMIN_WEIGHT. Returns
+// cudaGetLastError() after the launches.
 extern "C" int dml_fused_distance(int epilogue, const float* X, const float* Y,
                                   const float* y2, const float* maskf,
                                   const unsigned char* gneed, int group_rows,
@@ -247,27 +546,29 @@ extern "C" int dml_fused_distance(int epilogue, const float* X, const float* Y,
   if (epilogue == EPI_ARGMIN_WEIGHT && (gneed != nullptr || x2ext != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nb = (n + ROWS - 1) / ROWS;
+  int nb = 0, err = 0;
   switch (epilogue) {
     case EPI_MIN:
-      launch<EPI_MIN>(nb, s, X, Y, y2, maskf, gneed, group_rows, x2ext, w, n,
-                      m, d, am, mn, mn2, cw_part);
+      err = launch<EPI_MIN>(s, X, Y, y2, maskf, gneed, group_rows, x2ext, w,
+                            n, m, d, am, mn, mn2, cw_part, &nb);
       break;
     case EPI_ARGMIN_MIN:
-      launch<EPI_ARGMIN_MIN>(nb, s, X, Y, y2, maskf, gneed, group_rows, x2ext,
-                             w, n, m, d, am, mn, mn2, cw_part);
+      err = launch<EPI_ARGMIN_MIN>(s, X, Y, y2, maskf, gneed, group_rows,
+                                   x2ext, w, n, m, d, am, mn, mn2, cw_part,
+                                   &nb);
       break;
     case EPI_ARGMIN_WEIGHT:
-      launch<EPI_ARGMIN_WEIGHT>(nb, s, X, Y, y2, maskf, nullptr, 1, nullptr,
-                                w, n, m, d, am, mn, mn2, cw_part);
-      cw_reduce_kernel<<<m, RED, 0, s>>>(cw_part, maskf, nb, cw);
+      err = launch<EPI_ARGMIN_WEIGHT>(s, X, Y, y2, maskf, nullptr, 1, nullptr,
+                                      w, n, m, d, am, mn, mn2, cw_part, &nb);
+      if (err == 0) cw_reduce_kernel<<<m, RED, 0, s>>>(cw_part, maskf, nb, cw);
       break;
     case EPI_ARGMIN_MIN2:
-      launch<EPI_ARGMIN_MIN2>(nb, s, X, Y, y2, maskf, gneed, group_rows,
-                              x2ext, w, n, m, d, am, mn, mn2, cw_part);
+      err = launch<EPI_ARGMIN_MIN2>(s, X, Y, y2, maskf, gneed, group_rows,
+                                    x2ext, w, n, m, d, am, mn, mn2, cw_part,
+                                    &nb);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return err != 0 ? err : (int)cudaGetLastError();
 }

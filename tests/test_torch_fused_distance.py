@@ -76,6 +76,29 @@ def test_bitexact_vs_jax_int_valued(n, m, d, jax_kernel):
     np.testing.assert_array_equal(gc.numpy(), _np(wc))
 
 
+@pytest.mark.parametrize("op,m,valid", [("min", 80, c) for c in (0, 1, 16, 80)]
+                         + [("argmin_weight", 329, c) for c in (8, 321, 329)])
+def test_kmeans_parallel_prefix_masks_vs_jax(op, m, valid):
+    """The k-means|| rounds' mask (the first ``valid`` of an 80-slot
+    candidate buffer) and the weights' mask (the first ``n_cand`` of 329)
+    on integer data: the plain versions against the JAX package's XLA
+    path, bit for bit."""
+    X, Y, w, _ = _int_data(533, m, 50, seed=valid)
+    mask = np.arange(m) < valid
+    jX, jY, jw, jm = map(jnp.asarray, (X, Y, w, mask))
+    if op == "min":
+        got = tfd.fused_rowwise_min(_t(X), _t(Y), _t(mask))
+        want = jfd.fused_rowwise_min(jX, jY, jm, kernel="xla")
+        np.testing.assert_array_equal(got.numpy(), _np(want))
+        assert np.isinf(got.numpy()).all() == (valid == 0)
+    else:
+        gi, gc = tfd.fused_argmin_weight(_t(X), _t(w), _t(Y), _t(mask))
+        wi, wc = jfd.fused_argmin_weight(jX, jw, jY, jm, kernel="xla")
+        np.testing.assert_array_equal(gi.numpy(), _np(wi))
+        np.testing.assert_array_equal(gc.numpy(), _np(wc))
+        assert int(gi.max()) < valid and (gc.numpy()[valid:] == 0).all()
+
+
 def test_real_valued_parity():
     rng = np.random.RandomState(1)
     n, m, d = 321, 29, 11

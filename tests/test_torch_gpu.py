@@ -94,6 +94,118 @@ def test_all_masked(cuda):
     assert (cw == 0).all()
 
 
+def _all_four_bitexact(X, Y, mask, w):
+    """K2, K3, K4 and K5 through the public entries, kernel against plain
+    version bit for bit; K5's argmin and min are K2's."""
+    assert torch.equal(fd.fused_rowwise_min(X, Y, mask, kernel="cuda"),
+                       fd.fused_rowwise_min(X, Y, mask, kernel="torch"))
+    k2 = fd.fused_argmin_min(X, Y, mask, kernel="cuda")
+    assert all(torch.equal(a, b) for a, b in zip(
+        k2, fd.fused_argmin_min(X, Y, mask, kernel="torch")))
+    k4 = fd.fused_argmin_weight(X, w, Y, mask, kernel="cuda")
+    assert all(torch.equal(a, b) for a, b in zip(
+        k4, fd.fused_argmin_weight(X, w, Y, mask, kernel="torch")))
+    k5 = fd.fused_argmin_min2(X, Y, mask, kernel="cuda")
+    assert all(torch.equal(a, b) for a, b in zip(
+        k5, fd.fused_argmin_min2(X, Y, mask, kernel="torch")))
+    assert torch.equal(k5[0], k2[0]) and torch.equal(k5[1], k2[1])
+    return k5
+
+
+@pytest.mark.parametrize("count", [0, 1, 15, 16, 17, 31, 32, 33, 79, 80])
+def test_prefix_masks_of_the_rounds_bitexact(cuda, count):
+    """The k-means|| rounds' mask: the first ``count`` of 80 slots valid;
+    target tiles (16 slots each at m = 80) with no valid slot are skipped
+    by the kernel. n is not a multiple of a block's rows."""
+    rng = np.random.default_rng(count)
+    X, Y = _ints(rng, (1000, 50), cuda), _ints(rng, (80, 50), cuda)
+    w = _ints(rng, (1000,), cuda, 0, 5)
+    mask = torch.arange(80, device=cuda) < count
+    a, b, s = _all_four_bitexact(X, Y, mask, w)
+    if count == 0:
+        assert (a == 0).all() and torch.isinf(b).all() and torch.isinf(s).all()
+    else:
+        assert int(a.max()) < count
+
+
+@pytest.mark.parametrize("m", [80, 329])
+def test_lone_valid_target_in_the_last_tile(cuda, m):
+    rng = np.random.default_rng(m)
+    X, Y = _ints(rng, (777, 41), cuda), _ints(rng, (m, 41), cuda)
+    w = _ints(rng, (777,), cuda, 0, 5)
+    mask = torch.zeros(m, dtype=torch.bool, device=cuda)
+    mask[-1] = True
+    a, _, s = _all_four_bitexact(X, Y, mask, w)
+    assert (a == m - 1).all() and torch.isinf(s).all()
+    _, cw = fd.fused_argmin_weight(X, w, Y, mask, kernel="cuda")
+    assert float(cw[-1]) == float(w.sum()) and (cw[:-1] == 0).all()
+
+
+def test_ties_across_fragments_and_tiles(cuda):
+    """Duplicates of target 5 at 7 and 8 (two threads' targets), 31 | 32 |
+    33 and 63 | 64 (tile boundaries) and 79: rows that sit on them take the
+    lowest index, and argmin_min2's tie is its second-best."""
+    rng = np.random.default_rng(5)
+    Y = _ints(rng, (80, 50), cuda)
+    Y[[7, 8, 31, 32, 33, 63, 64, 79]] = Y[5].clone()
+    X = torch.cat([Y[5:6].expand(300, 50), _ints(rng, (301, 50), cuda)])
+    w = _ints(rng, (601,), cuda, 0, 5)
+    a, b, s = _all_four_bitexact(X, Y, None, w)
+    assert (a[:300] == 5).all() and torch.equal(b[:300], s[:300])
+    for drop, want in (([5], 7), ([5, 7, 8], 31), ([5, 7, 8, 31], 32),
+                       ([5, 7, 8, 31, 32, 33], 63)):
+        mask = torch.ones(80, dtype=torch.bool, device=cuda)
+        mask[drop] = False
+        a, b, s = _all_four_bitexact(X, Y, mask, w)
+        assert (a[:300] == want).all() and torch.equal(b[:300], s[:300])
+
+
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 329])
+@pytest.mark.parametrize("d", [1, 3, 50, 64, 65, 130])
+def test_every_tile_shape_bitexact(cuda, d, m):
+    """Every tile shape (m <= 8: a row x 8 targets a thread; m <= 128: 8
+    rows x 4 targets; beyond: 8 rows x 8 targets), one feature chunk and
+    several, a ragged n, a random mask."""
+    rng = np.random.default_rng(1000 * d + m)
+    X, Y = _ints(rng, (389, d), cuda), _ints(rng, (m, d), cuda)
+    w = _ints(rng, (389,), cuda, 0, 5)
+    _all_four_bitexact(X, Y, None, w)
+    _all_four_bitexact(X, Y, torch.as_tensor(rng.random(m) > 0.3,
+                                             device=cuda), w)
+
+
+def test_argmin_weight_repeats_its_bits_on_float_data(cuda):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(7)
+    X = torch.randn((200_003, 50), generator=g, device=cuda)
+    Y = X[:329].clone()
+    w = torch.rand(200_003, generator=g, device=cuda)
+    mask = torch.arange(329, device=cuda) < 321
+    first = fd.fused_argmin_weight(X, w, Y, mask, kernel="cuda")
+    for _ in range(3):
+        again = fd.fused_argmin_weight(X, w, Y, mask, kernel="cuda")
+        assert torch.equal(first[0], again[0])
+        assert torch.equal(first[1], again[1])
+
+
+@pytest.mark.parametrize("m", [80, 329])
+def test_one_score_loop_on_float_data(cuda, m):
+    """K2, K3, K5 and K4 share one score loop: on float data their
+    argmins and minima are the same bits."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(m)
+    X = torch.randn((100_001, 41), generator=g, device=cuda)
+    Y = torch.randn((m, 41), generator=g, device=cuda)
+    mask = torch.arange(m, device=cuda) < m - 3
+    k2 = fd.fused_argmin_min(X, Y, mask, kernel="cuda")
+    k5 = fd.fused_argmin_min2(X, Y, mask, kernel="cuda")
+    k3 = fd.fused_rowwise_min(X, Y, mask, kernel="cuda")
+    k4 = fd.fused_argmin_weight(X, torch.ones(100_001, device=cuda), Y, mask,
+                                kernel="cuda")
+    assert torch.equal(k5[0], k2[0]) and torch.equal(k5[1], k2[1])
+    assert torch.equal(k3, k2[1]) and torch.equal(k4[0], k2[0])
+
+
 @pytest.mark.parametrize("n,k,d", [(1, 1, 1), (1000, 8, 50), (70001, 3, 2),
                                    (5000, 13, 7)])
 def test_lloyd_kernel_bitexact_int_valued(cuda, n, k, d):
