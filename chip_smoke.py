@@ -54,7 +54,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    the full container within their rounding bounds, and times each kernel
    with CUDA events next to its bound and its plain version (K3 also at
    the k-means|| rounds' mask, K3 and K4 also at the KDD cell's shape and
-   next to cuBLAS's product of the score matrix as a yardstick; K6 also
+   next to cuBLAS's product of the score matrix as a yardstick; K1 also at
+   the KDD cell's shape, each K1 row beside the two-pass form (K2 and a
+   one-hot matmul), which it must beat, and with its counts held to the
+   bincount of K2's labels from the same centers; K6 also
    next to cuSPARSE through ``torch.sparse``, on the same slots folded
    onto 1,024 columns, and on 40,000 columns through one block and
    clusters of 2, 4 and 8; one L-BFGS iteration, with a device profile of
@@ -354,20 +357,37 @@ def check_min2_sketched(tag, X, Y, mask=None, need=None, exact=True):
 
 
 def check_lloyd(tag, X, w, C, exact: bool):
+    """K1 against its plain version: bit for bit on integer data, else
+    the same counts and sums and inertia within rtol 1e-5; it repeats its
+    own bits, and with unit weights its counts are the bincount of K2's
+    labels from the same centers (the same score loop and |c|²)."""
     import torch
 
     from dask_ml_tpu_torch.models import kmeans as core
+    from dask_ml_tpu_torch.ops import fused_distance as fd
 
     ks, kc, ki = core._lloyd_stats_cuda(X, w, C)
+    labels, _ = fd.fused_argmin_min(X, C, kernel="cuda")
+    if bool((w == 1).all()):
+        expect(torch.equal(kc, torch.bincount(
+            labels.long(), minlength=C.shape[0]).to(kc.dtype)),
+            f"{tag} lloyd counts != the bincount of K2's labels")
     rs, rc, ri = core._lloyd_stats_ref(X, w, C)
     ks2, kc2, ki2 = core._lloyd_stats_cuda(X, w, C)
-    expect(torch.equal(ks, ks2) and torch.equal(ki, ki2),
-           f"{tag} lloyd not reproducible")
+    expect(torch.equal(ks, ks2) and torch.equal(kc, kc2)
+           and torch.equal(ki, ki2), f"{tag} lloyd not reproducible")
     if exact:
         expect(torch.equal(ks, rs) and torch.equal(kc, rc)
                and torch.equal(ki, ri), f"{tag} lloyd: not bit-identical")
         return 0.0
-    expect(torch.equal(kc, rc), f"{tag} lloyd counts differ")
+    # the plain version's scores round otherwise: its labels may differ
+    # from K2's only on near-ties, each moving one weight between counts
+    c2 = (C * C).sum(dim=1)
+    plain_labels = (c2[:, None] - 2.0 * (C @ X.T)).argmin(dim=0)
+    n_ties = near_tie_ok(X, C, None, labels, plain_labels.to(labels.dtype))
+    expect(torch.equal(kc, rc) if n_ties == 0 else float(
+        (kc - rc).abs().sum()) <= 2 * n_ties * float(w.max()),
+        f"{tag} lloyd counts differ")
     err = float((ks - rs).abs().max())
     expect(bool(torch.allclose(ks, rs, rtol=1e-5, atol=1e-5 * float(
         rs.abs().max()))), f"{tag} lloyd sums: max abs err {err}")
@@ -500,15 +520,23 @@ def edge_cases(dev):
                                    row_need=torch.zeros(n, dtype=torch.bool,
                                                         device=dev))
     expect(all(bool((t == 0).all()) for t in nothing), "min2 none-needed")
-    # the Lloyd kernel: ragged n, weights, empty clusters, k beyond 8
+    # the Lloyd kernel: ragged n, weights, empty clusters, k beyond 8;
+    # d % 4 != 0 (the tile copied flat), a padded stride (d % 8 == 0), k = 8
+    # and 9 (the register variant's edge), its widest d and the next, the
+    # largest d PR 1's kernel took at k = 8, and X not 16-byte aligned
     from dask_ml_tpu_torch.models import kmeans as core
 
-    for n, k, d in [(1, 1, 1), (1000, 8, 50), (10_000, 13, 7),
-                    (70_001, 3, 2)]:
-        X = ints((n, d), -4, 4)
+    for n, k, d, off in [(1, 1, 1, 0), (1000, 8, 50, 0), (10_000, 13, 7, 0),
+                         (70_001, 3, 2, 0), (3001, 8, 41, 0),
+                         (20_001, 8, 52, 0), (1000, 8, 64, 0),
+                         (4099, 8, 50, 0), (4099, 9, 50, 0),
+                         (2000, 8, 110, 0), (2000, 8, 111, 0),
+                         (257, 8, 397, 0), (3001, 8, 52, 1)]:
+        X = ints((n * d + off,), -4, 4)[off:].view(n, d)
         w = ints((n,), 0, 3)
         C = ints((k, d), -4, 4)
-        e = check_lloyd(f"lloyd n{n} k{k} d{d}", X, w, C, exact=True)
+        e = check_lloyd(f"lloyd n{n} k{k} d{d} offset {off}", X, w, C,
+                        exact=True)
         errs["lloyd_iter"] = max(errs.get("lloyd_iter", 0.0), e)
     # beyond the single-pass kernel's shared-memory bound 'auto' runs the
     # two-pass form and 'cuda' raises
@@ -839,7 +867,6 @@ def time_kernels(X, w):
     import torch
 
     from dask_ml_tpu_torch._kernels import build
-    from dask_ml_tpu_torch.models import kmeans as core
     from dask_ml_tpu_torch.ops import fused_distance as fd
 
     dev = X.device
@@ -857,23 +884,43 @@ def time_kernels(X, w):
         lambda: fd._argmin_min_ref(X, Y, None), iters=5, warmup=1),
         bound_ms=b, bound_by=by, shape={"n": n, "m": K, "d": d})]
     rows += score_kernel_rows(fdl, stream, X, w, pick)
-    # K1: one Lloyd iteration at k = 8
-    ll = build.load("lloyd")
-    C = X[pick[:K]].contiguous()
-    P = K * (d + 1) + 1
-    part = torch.empty(ll.dml_lloyd_max_partials() * P, device=dev)
-    out = torch.empty(P, device=dev)
-    call = lambda: build.check(ll.dml_lloyd_iter(  # noqa: E731
-        X.data_ptr(), w.data_ptr(), C.data_ptr(), n, K, d, part.data_ptr(),
-        out.data_ptr(), stream), "timing")
-    ms = cuda_ms(call)
-    plain_ms = cuda_ms(lambda: core._lloyd_stats_ref(X, w, C), iters=5,
-                       warmup=1)
-    b, by = bound(4 * (n * d + n + K * d + P), 2 * n * K * d + 2 * n * d)
-    rows.insert(0, dict(name="lloyd_iter", ms=ms, plain_ms=plain_ms,
-                        bound_ms=b, bound_by=by,
-                        shape={"n": n, "m": K, "d": d}))
+    rows.insert(0, lloyd_row(X, w, X[pick[:K]].contiguous()))
     return rows
+
+
+def lloyd_row(X, w, C):
+    """K1, one Lloyd iteration (both launches), timed with CUDA events
+    beside its plain version, its bound and the two-pass form the card
+    takes beyond the kernel's bound (K2 + a one-hot matmul, ``two_pass_ms``:
+    a yardstick, not a library call)."""
+    import torch
+
+    from dask_ml_tpu_torch._kernels import build
+    from dask_ml_tpu_torch.models import kmeans as core
+    from dask_ml_tpu_torch.ops import fused_distance as fd
+
+    n, d = X.shape
+    k = C.shape[0]
+    ll = build.load("lloyd")
+    c2 = fd._row_sumsq(C).contiguous()
+    P = k * (d + 1) + 1
+    part = torch.empty(ll.dml_lloyd_max_partials() * P, device=X.device)
+    out = torch.empty(P, device=X.device)
+    stream = build.stream_of(X)
+    call = lambda: build.check(ll.dml_lloyd_iter(  # noqa: E731
+        X.data_ptr(), w.data_ptr(), C.data_ptr(), c2.data_ptr(), n, k, d,
+        part.data_ptr(), out.data_ptr(), stream), "timing")
+    b, by = bound(4 * (n * d + n + k * d + P), 2 * n * k * d + 2 * n * d)
+    ms = cuda_ms(call)
+    return dict(name="lloyd_iter", ms=ms,
+                plain_ms=cuda_ms(lambda: core._lloyd_stats_ref(X, w, C),
+                                 iters=5, warmup=1),
+                bound_ms=b, bound_by=by,
+                two_pass_ms=cuda_ms(
+                    lambda: core._lloyd_stats_two_pass(X, w, C), iters=10,
+                    warmup=2),
+                blocks_per_sm=ll.dml_lloyd_blocks_per_sm(k, d),
+                shape={"n": n, "m": k, "d": d})
 
 
 def kernel_rows(rows, launches, errs):
@@ -906,6 +953,16 @@ def log_score_extras(r, tag: str) -> None:
         log(f"    {tag} first {pm['valid']} valid: {pm['ms']:.4f} ms  bound "
             f"{pm['bound_ms']:.4f} ms ({pm['bound_by']})  plain "
             f"{pm['plain_ms']:.4f} ms")
+
+
+def log_two_pass(rows, tag: str) -> None:
+    """K1's rows beside the two-pass form; K1 must be no slower."""
+    for r in rows:
+        if "two_pass_ms" in r:
+            log(f"    {tag} lloyd_iter {r['shape']}: {r['ms']:.4f} ms  "
+                f"two-pass {r['two_pass_ms']:.4f} ms")
+            expect(r["ms"] <= r["two_pass_ms"],
+                   f"{tag}: K1 is slower than the two-pass form")
 
 
 def expect_launches(path: str, launches: dict) -> None:
@@ -1182,8 +1239,10 @@ def kdd_cell(dev, errs):
         for key, v in check_min2_sketched(tag, Xk, Yk, None, nk,
                                           exact=False).items():
             errs[key] = max(errs.get(key, 0.0), v)
+    e = check_lloyd("K1 KDD shape", Xd, wd, C, exact=False)
+    errs["lloyd_iter"] = max(errs.get("lloyd_iter", 0.0), e)
     torch.cuda.synchronize()
-    log("KDD-shape comparisons: K5 and K2-x within tolerance")
+    log("KDD-shape comparisons: K5, K2-x and K1 within tolerance")
 
     # -- timing at the cell's shapes ----------------------------------------
     from dask_ml_tpu_torch._kernels import build
@@ -1232,6 +1291,7 @@ def kdd_cell(dev, errs):
                      row_need={"evaluated_fraction": ev_n, "ms": k2n,
                                "plain_ms": plain_k2n, "bound_ms": b_n,
                                "bound_by": by_n}))
+    rows.append(lloyd_row(Xd, wd, C))
     # -- K3 and K4 at the cell's shape, and the k-means|| phases ------------
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 1)
@@ -1249,7 +1309,8 @@ def kdd_cell(dev, errs):
         prof = device_profile(fn)
         summary[f"profile_{name}_tol0_{iters}_iters"] = prof
         log(f"PROFILE {name} " + json.dumps(prof))
-    launches = {"fused_argmin_min2": l_b["fused_argmin_min2"],
+    launches = {"lloyd_iter": l_f["lloyd_iter"],
+                "fused_argmin_min2": l_b["fused_argmin_min2"],
                 "fused_argmin_min_sketched":
                     l_s["fused_argmin_min_sketched"]
                     + l_sp["fused_argmin_min_sketched"]}
@@ -1940,6 +2001,7 @@ def main() -> int:
             f" ms ({r['bound_by']})  plain {r['plain_ms']:.4f} ms  "
             f"launches {r['launches']}")
         log_score_extras(r, "blobs")
+    log_two_pass(rows, "blobs")
     fit = {"n": N, "d": D, "k": K, "fit_predict_s": fit_predict_s,
            "n_iter": km.n_iter_, "init_s": km.fit_phase_seconds_["init"],
            "lloyd_s": km.fit_phase_seconds_["lloyd"],
@@ -1959,13 +2021,18 @@ def main() -> int:
             if sr["name"] == r["name"]:
                 r["kdd_shape"] = {k: v for k, v in sr.items() if k != "name"}
         log_score_extras(r.get("kdd_shape"), "KDD")
-    rows += kernel_rows(kdd_rows, kdd_launches, errs)
-    for r in rows[-2:]:
+    kdd_rows = kernel_rows(kdd_rows, kdd_launches, errs)
+    rows += kdd_rows
+    for r in kdd_rows:
         log(f"  {r['name']:26s} {r['ms']:.4f} ms  bound {r['bound_ms']:.4f}"
             f" ms ({r['bound_by']})  plain {r['plain_ms']:.4f} ms  "
             f"launches {r['launches']}")
-    for name, opt in (("fused_argmin_min2", rows[-2]["late_need"]),
-                      ("fused_argmin_min_sketched", rows[-1]["row_need"])):
+    log_two_pass(kdd_rows, "KDD")
+    by_name = {r["name"]: r for r in kdd_rows}
+    for name, opt in (("fused_argmin_min2",
+                       by_name["fused_argmin_min2"]["late_need"]),
+                      ("fused_argmin_min_sketched",
+                       by_name["fused_argmin_min_sketched"]["row_need"])):
         log(f"  {name} with a late iteration's need "
             f"({opt['evaluated_fraction']:.4f} of groups evaluated): "
             f"{opt['ms']:.4f} ms  bound {opt['bound_ms']:.4f} ms  plain "

@@ -112,6 +112,7 @@ def glm_from_numpy(attrs: dict, family: str, multiclass: str = "ovr"):
                                multiclass=multiclass)
     est.coef_ = coef
     est._coef = coef
+    est.n_features_in_ = int(coef.shape[-1])
     if intercept is not None:
         intercept = np.array(intercept, dtype=np.float32)
         if intercept.shape != coef.shape[:-1]:

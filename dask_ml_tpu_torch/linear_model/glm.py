@@ -178,6 +178,7 @@ class _GLM(BaseEstimator):
             results = [solver(data.X, y_dev, data.weights, beta0, mask,
                               **kwargs)
                        for y_dev in self._solve_targets(data)]
+        self.n_features_in_ = d - 1 if self.fit_intercept else d
         self.n_iter_ = int(max(n for _, n in results))
         self._finalize_coef([b.cpu().numpy() for b, _ in results])
         self.fit_phase_seconds_ = {"stage": t_stage - t0,
@@ -201,7 +202,12 @@ class _GLM(BaseEstimator):
         """Linear predictor on staged rows, returned to the host. ``_coef``
         is 1-D for a single problem and (n_classes, width) for OVR, which
         gives an (n, n_classes) score matrix, like scikit-learn."""
-        data = prepare_data(check_array(X, accept_sparse=True))
+        X = check_array(X, accept_sparse=True)
+        if X.shape[1] != self.n_features_in_:
+            raise ValueError(
+                f"X has {X.shape[1]} features; the model was fitted with "
+                f"{self.n_features_in_}")
+        data = prepare_data(X)
         coef = torch.as_tensor(np.asarray(self._coef, dtype=np.float32),
                                device=data.weights.device)
         eta = eta_program(data.X, coef, intercept=bool(self.fit_intercept))

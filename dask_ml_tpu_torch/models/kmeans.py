@@ -30,6 +30,7 @@ import torch
 from dask_ml_tpu_torch import _kernels
 from dask_ml_tpu_torch.ops.fused_distance import (
     _row_blocks,
+    _row_sumsq,
     fused_argmin_min,
     fused_argmin_min2,
     fused_argmin_min_sketched,
@@ -134,8 +135,10 @@ def _lloyd_stats_cuda(X, w, centers):
     """Launch ``csrc/lloyd.cu`` — replaces the TPU kernel
     ``dask_ml_tpu/models/kmeans.py::_lloyd_iter_pallas``. One pass over X
     computes the sums, counts and inertia; a second, fixed-order launch
-    reduces the per-block partials (bit-reproducible). See the source for
-    what bounds it on the H100."""
+    reduces the per-block partials (bit-reproducible). ``|c|²`` is
+    :func:`_row_sumsq` of the centers, as the fused distance kernels take
+    it, so from the same centers the kernel's argmins are K2's bits. See
+    the source for what bounds it on the H100."""
     from dask_ml_tpu_torch._kernels import build
 
     n, d = X.shape
@@ -160,13 +163,14 @@ def _lloyd_stats_cuda(X, w, centers):
             "shared-memory budget (centers + a (k, d+1) accumulator + a "
             "128-row tile); use kernel='auto' for the two-pass form")
     C = centers.to(torch.float32).contiguous()
+    c2 = _row_sumsq(C).contiguous()
     P = k * (d + 1) + 1
     partial = torch.empty(lib.dml_lloyd_max_partials() * P,
                           dtype=torch.float32, device=X.device)
     out = torch.empty(P, dtype=torch.float32, device=X.device)
     code = lib.dml_lloyd_iter(X.data_ptr(), w.data_ptr(), C.data_ptr(),
-                              n, k, d, partial.data_ptr(), out.data_ptr(),
-                              build.stream_of(X))
+                              c2.data_ptr(), n, k, d, partial.data_ptr(),
+                              out.data_ptr(), build.stream_of(X))
     build.check(code, "Lloyd kernel")
     _kernels.launches["lloyd_iter"] += 1
     acc = out[:-1].view(k, d + 1)

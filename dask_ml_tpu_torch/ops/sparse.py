@@ -419,7 +419,12 @@ def spmv(A: SparseRows, v, *, kernel: str = "auto"):
     :func:`_spmv_ref` for CPU tensors; ``"cuda"`` insists on the kernel;
     ``"torch"`` runs the plain version wherever the tensors lie. The
     backward follows the forward: the pullback kernel where K6 ran, the
-    plain ``index_add_`` where the plain version did."""
+    plain ``index_add_`` where the plain version did. Raises
+    ``ValueError`` unless ``v`` is ``(A.d,)``, before any launch."""
+    if tuple(v.shape) != (A.d,):
+        raise ValueError(
+            f"spmv takes v of shape ({A.d},) for a container of {A.d} "
+            f"columns; got {tuple(v.shape)}")
     return _SpMV.apply(A.values, A.cols, v, A.d,
                        _kernels.use_cuda(kernel, A.values))
 
@@ -439,7 +444,11 @@ def matvec(A: SparseRows, v, *, kernel: str = "auto"):
 def matmat(A: SparseRows, B):
     """``A @ B`` for a dense ``(d, m)`` operand (OVR scoring): gather B's
     rows per slot, reduce over slots in f32. Transient memory is
-    O(n·k·m)."""
+    O(n·k·m). Raises ``ValueError`` unless ``B`` has ``A.d`` rows."""
+    if B.ndim != 2 or int(B.shape[0]) != A.d:
+        raise ValueError(
+            f"matmat takes B of shape ({A.d}, m) for a container of {A.d} "
+            f"columns; got {tuple(B.shape)}")
     n, k = A.values.shape
     g = torch.index_select(B.to(A.values.dtype), 0, A.cols.reshape(-1))
     g = g.view(n, k, -1) * A.values[:, :, None]

@@ -400,3 +400,35 @@ def test_metrics_match_jax():
         accuracy_score(np.array(["1"]), np.array([1]))
     with pytest.raises(ValueError, match="uniform_average"):
         r2_score(a, b, multioutput="raw_values")
+
+
+@pytest.mark.parametrize("fit_intercept", [True, False])
+@pytest.mark.parametrize("width", [6, 14])
+def test_predict_refuses_another_feature_count(width, fit_intercept):
+    """A model fitted on 10 columns refuses CSR and dense rows of any
+    other width at predict time (the JAX package answers silently there,
+    from the wrong columns: a reference caveat, not held here)."""
+    dense, ys = _problem(3, 80, 10)
+    est = tlm.LogisticRegression(solver="lbfgs", max_iter=5,
+                                 fit_intercept=fit_intercept).fit(
+        scipy_sparse.csr_matrix(dense), ys["logistic"])
+    assert est.n_features_in_ == 10
+    rng = np.random.RandomState(width)
+    other = (rng.standard_normal((30, width))
+             * (rng.uniform(size=(30, width)) < 0.4)).astype(np.float32)
+    for X in (scipy_sparse.csr_matrix(other), other):
+        for method in (est.predict, est.predict_proba,
+                       est.decision_function):
+            with pytest.raises(ValueError, match="fitted with 10"):
+                method(X)
+    assert est.predict(dense[:30]).shape == (30,)
+    assert est.predict(scipy_sparse.csr_matrix(dense[:30])).shape == (30,)
+
+
+def test_converted_glm_refuses_another_feature_count():
+    est = glm_from_numpy({"coef_": np.ones(5, np.float32),
+                          "intercept_": np.float32(0.5)}, "normal")
+    assert est.n_features_in_ == 5
+    with pytest.raises(ValueError, match="fitted with 5"):
+        est.predict(np.ones((3, 4), np.float32))
+    assert est.predict(np.ones((3, 5), np.float32)).shape == (3,)

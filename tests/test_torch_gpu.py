@@ -206,18 +206,52 @@ def test_one_score_loop_on_float_data(cuda, m):
     assert torch.equal(k3, k2[1]) and torch.equal(k4[0], k2[0])
 
 
-@pytest.mark.parametrize("n,k,d", [(1, 1, 1), (1000, 8, 50), (70001, 3, 2),
-                                   (5000, 13, 7)])
-def test_lloyd_kernel_bitexact_int_valued(cuda, n, k, d):
+@pytest.mark.parametrize("n,k,d,offset", [
+    (1, 1, 1, 0), (1000, 8, 50, 0), (70001, 3, 2, 0), (5000, 13, 7, 0),
+    # d % 4 != 0 (the tile copied flat) at the KDD cell's width; d % 4 == 0
+    # with a stride of d (d / 4 odd) and a padded one (d % 8 == 0); n not a
+    # multiple of the 256-row tile
+    (3001, 8, 41, 0), (20001, 8, 52, 0), (1000, 8, 64, 0),
+    # k = 8 and k = 9: the register variant's edge
+    (4099, 8, 50, 0), (4099, 9, 50, 0),
+    # the widest d of the register variant, the first beyond it, and the
+    # largest d PR 1's kernel admitted at k = 8
+    (2000, 8, 110, 0), (2000, 8, 111, 0), (257, 8, 397, 0),
+    # X not 16-byte aligned: 4-byte copies although d % 4 == 0
+    (3001, 8, 52, 1)])
+def test_lloyd_kernel_bitexact_int_valued(cuda, n, k, d, offset):
     rng = np.random.default_rng(n + k)
-    X = _ints(rng, (n, d), cuda, -4, 4)
+    X = _ints(rng, (n * d + offset,), cuda, -4, 4)[offset:].view(n, d)
     w = _ints(rng, (n,), cuda, 0, 3)
     C = _ints(rng, (k, d), cuda, -4, 4)
+    assert core._lloyd_cuda_supported(k, d)
     got = core._lloyd_stats_cuda(X, w, C)
     want = core._lloyd_stats_ref(X, w, C)
     again = core._lloyd_stats_cuda(X, w, C)
     for a, b, c in zip(got, want, again):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("k,d", [(8, 41), (8, 50), (9, 50), (8, 64)])
+def test_lloyd_counts_are_the_bincount_of_k2_labels(cuda, k, d):
+    """K1 scores with K2's loop and |c|² from the same _row_sumsq: from the
+    same centers, on float data and unit weights, its counts are the
+    bincount of K2's labels exactly; its sums and inertia are within rtol
+    1e-5 of the plain version (other summation orders)."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(k * 100 + d)
+    X = torch.randn((200_003, d), generator=g, device=cuda)
+    C = X[:k].clone() + 0.1
+    w = torch.ones(200_003, device=cuda)
+    sums, counts, inertia = core._lloyd_stats_cuda(X, w, C)
+    labels, mind = fd.fused_argmin_min(X, C, kernel="cuda")
+    assert torch.equal(counts, torch.bincount(labels.long(),
+                                              minlength=k).float())
+    rs, _, ri = core._lloyd_stats_ref(X, w, C)
+    torch.testing.assert_close(sums, rs, rtol=1e-5,
+                               atol=1e-5 * float(rs.abs().max()))
+    assert float(inertia) == pytest.approx(float(mind.sum()), rel=1e-5)
+    assert float(inertia) == pytest.approx(float(ri), rel=1e-5)
 
 
 def test_lloyd_beyond_bound_takes_two_pass(cuda):
@@ -585,6 +619,28 @@ def test_spmv_kernel_refuses_bad_input(cuda):
         sps.pullback(sps.SparseRows(A.values, A.cols, 20), r64),
         sps.pullback(sps.SparseRows(A.values, A.cols, 20), r64,
                      kernel="torch"))
+
+
+def test_spmv_refuses_a_vector_of_another_length_before_launch(cuda):
+    """K6 trusts the stored columns, so a ``v`` shorter than the container
+    would be read past its end: the wrapper refuses any length but ``A.d``
+    before a launch, and so does predict on rows of another width."""
+    rng = np.random.default_rng(3)
+    A = _ell_ints(rng, 100, 8, 10, cuda)
+    _kernels.reset_launches()
+    for length in (6, 14):
+        v = torch.ones(length, device=cuda)
+        for fn in (sps.spmv, sps.matvec):
+            with pytest.raises(ValueError, match=r"shape \(10,\)"):
+                fn(A, v, kernel="cuda")
+    assert sum(_kernels.launches.values()) == 0
+    X, y = make_sparse_classification(2_000, 10, 0.3, random_state=2)
+    est = LogisticRegression(solver="lbfgs", max_iter=3).fit(X, y)
+    Xw, _ = make_sparse_classification(50, 14, 0.3, random_state=3)
+    _kernels.reset_launches()
+    with pytest.raises(ValueError, match="fitted with 10"):
+        est.predict(Xw)
+    assert sum(_kernels.launches.values()) == 0
 
 
 def test_sparse_lbfgs_fit_on_card(cuda):

@@ -578,3 +578,33 @@ def test_kmeans_still_rejects_sparse():
         KMeans(n_clusters=2).fit(csr)
     with pytest.raises(TypeError, match="sparse"):
         KMeans(n_clusters=2).fit(tsps.ell_from_csr(csr))
+
+
+@pytest.mark.parametrize("kernel", ["auto", "torch"])
+@pytest.mark.parametrize("length", [6, 14])
+def test_spmv_and_matvec_refuse_a_vector_of_another_length(kernel, length):
+    """A ``v`` whose length is not the container's width is refused before
+    anything runs: the plain path would read the wrong columns (or past
+    ``v``), and so would the kernel."""
+    rng = np.random.RandomState(0)
+    _, csr = _int_sparse(rng, 20, 10)
+    A = _pair(tsps.ell_from_csr(csr))[1]
+    v = torch.ones(length)
+    before = dict(_kernels.launches)
+    for fn in (tsps.spmv, tsps.matvec):
+        with pytest.raises(ValueError, match=r"shape \(10,\)"):
+            fn(A, v, kernel=kernel)
+    with pytest.raises(ValueError, match=r"shape \(10,\)"):
+        tsps.spmv(A, torch.ones((10, 1)), kernel=kernel)
+    assert _kernels.launches == before
+    assert tsps.matvec(A, torch.ones(10), kernel=kernel).shape == (20,)
+
+
+@pytest.mark.parametrize("rows", [6, 14])
+def test_matmat_refuses_an_operand_of_another_height(rows):
+    rng = np.random.RandomState(1)
+    _, csr = _int_sparse(rng, 20, 10)
+    A = _pair(tsps.ell_from_csr(csr))[1]
+    with pytest.raises(ValueError, match=r"shape \(10, m\)"):
+        tsps.matmat(A, torch.ones((rows, 3)))
+    assert tsps.matmat(A, torch.ones((10, 3))).shape == (20, 3)
