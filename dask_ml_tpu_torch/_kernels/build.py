@@ -43,7 +43,6 @@ SIGNATURES = {
     "lloyd": {
         "dml_lloyd_max_partials": ([], _I),
         "dml_lloyd_supported": ([_I, _I], _I),
-        "dml_lloyd_blocks_per_sm": ([_I, _I], _I),
         "dml_lloyd_iter": ([_P, _P, _P, _P, _I, _I, _I, _P, _P, _P], _I),
     },
     "spmv": {

@@ -20,11 +20,9 @@
 //     copies are in flight while this one is scored and summed. A tile is
 //     T * d contiguous floats of X: it is copied as such with 16-byte
 //     copies (a 4-byte tail), which keeps four times the bytes in flight of
-//     4-byte copies; with d % 4 == 0 rows are copied one by one into a
-//     stride with stride / 4 odd, so the 16-byte reads of the score loop
-//     are free of bank conflicts (a stride of d, odd or 2 mod 4, is free of
-//     them for 4- and 8-byte reads); 4-byte copies only when X is not
-//     16-byte aligned;
+//     4-byte copies; 4-byte copies only when X is not 16-byte aligned. A
+//     staged row keeps X's stride d, and the score loop reads it 16, 8 or
+//     4 bytes at a time as d allows;
 //   * the score loop is the m <= 8 thread tile of fused_distance.cu: a row x
 //     8 centers a thread, each score one in-order fmaf chain over features
 //     0..d-1, |x|^2 on its own chain, the centers visited in increasing
@@ -50,7 +48,9 @@
 //     parity with the f32 reference.
 // What is left (PERF.md): the copies alone take most of the time, and the
 // score loop and the M-step add to them instead of hiding under them (each
-// phase waits at a block barrier).
+// phase waits at a block barrier). With d % 8 == 0 a warp's 16-byte row
+// reads in the score loop conflict in shared memory; no timed shape has
+// such a d yet.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stddef.h>
@@ -73,8 +73,7 @@ struct Plan {
   int threads;  // = rows a tile
   int groups;   // row groups of the M-step
   int nbuf;     // X tile buffers
-  int mode;     // STAGE_*
-  int stride;   // floats a staged row
+  bool vec16;   // 16-byte copies of the tile (X 16-byte aligned)
   size_t smem;  // bytes
 };
 
@@ -84,35 +83,12 @@ __host__ __device__ inline bool acc_in_ring(bool reg, size_t acc_f,
   return reg && acc_f <= ring_f;
 }
 
-size_t smem_bytes(bool reg, int T, int groups, int nbuf, int stride, int k,
-                  int d) {
+size_t smem_bytes(bool reg, int T, int groups, int nbuf, int k, int d) {
   const size_t kp = reg ? KC : padded_k(k);
-  const size_t ring = (size_t)nbuf * T * stride;
+  const size_t ring = (size_t)nbuf * T * d;
   const size_t acc = (size_t)groups * k * (d + 1);
   return sizeof(float) * (ring + (size_t)d * kp + kp + 2 * (size_t)T +
                           (acc_in_ring(reg, acc, ring) ? 0 : acc));
-}
-
-// how a tile of X reaches shared memory
-enum {
-  STAGE_FLAT4 = 0,   // the tile's contiguous floats, 4-byte copies
-  STAGE_FLAT16 = 1,  // the same with 16-byte copies (a 4-byte tail)
-  STAGE_ROWS16 = 2   // row by row, 16-byte copies, into a padded stride
-};
-
-// the stage mode and the row stride in shared memory. The score loop reads
-// a row 16, 8 or 4 bytes at a time by the stride's alignment: with d % 4 ==
-// 0 the rows are copied into a stride with stride / 4 odd (16-byte reads
-// free of bank conflicts); otherwise the tile stays as contiguous as in X
-// (stride d: odd, or 2 mod 4 with 8-byte reads, is free of conflicts too)
-void stage_layout(int d, bool aligned, int* mode, int* stride) {
-  if (aligned && d % 4 == 0) {
-    *mode = STAGE_ROWS16;
-    *stride = (d / 4) % 2 ? d : d + 4;
-  } else {
-    *mode = aligned ? STAGE_FLAT16 : STAGE_FLAT4;
-    *stride = d;
-  }
 }
 
 // register sums: a thread's CPT columns are q, q + ncq, q + 2 ncq, ...
@@ -121,31 +97,26 @@ __host__ __device__ inline int column_quads(int d) {
 }
 
 // the first layout that fits, from the fastest to the smallest; the last
-// (one group, one buffer, contiguous rows) needs less than PR 1's kernel
-// did, so every (k, d) that kernel took still runs here. X's alignment
-// picks the copies; the last layout is the same for any alignment, so
+// (one group, one buffer) needs less than this kernel's first design (one
+// 128-row tile, a shared (k, d + 1) accumulator), so every (k, d) that
+// design took still runs here. X's alignment picks only the copies, so
 // whether (k, d) runs at all does not depend on it
 bool make_plan(int k, int d, bool aligned, Plan* p) {
   if (k < 1 || d < 1) return false;
-  int mode, S;
-  stage_layout(d, aligned, &mode, &S);
   if (k <= KC && column_quads(d) <= T_REG) {
     const int g = T_REG / column_quads(d);
-    const size_t b = smem_bytes(true, T_REG, g, 2, S, k, d);
+    const size_t b = smem_bytes(true, T_REG, g, 2, k, d);
     if (b <= MAX_DYN_SMEM) {
-      *p = Plan{true, T_REG, g, 2, mode, S, b};
+      *p = Plan{true, T_REG, g, 2, aligned, b};
       return true;
     }
   }
   const int ncol = d + 1 < T_SMEM ? d + 1 : T_SMEM;
-  const int gmax = T_SMEM / ncol;
-  const int flat = aligned ? STAGE_FLAT16 : STAGE_FLAT4;
-  const int tries[4][4] = {
-      {gmax, 2, mode, S}, {1, 2, mode, S}, {1, 1, mode, S}, {1, 1, flat, d}};
+  const int tries[3][2] = {{T_SMEM / ncol, 2}, {1, 2}, {1, 1}};
   for (const auto& t : tries) {
-    const size_t b = smem_bytes(false, T_SMEM, t[0], t[1], t[3], k, d);
+    const size_t b = smem_bytes(false, T_SMEM, t[0], t[1], k, d);
     if (b <= MAX_DYN_SMEM) {
-      *p = Plan{false, T_SMEM, t[0], t[1], t[2], t[3], b};
+      *p = Plan{false, T_SMEM, t[0], t[1], aligned, b};
       return true;
     }
   }
@@ -202,14 +173,14 @@ __global__ void __launch_bounds__(T, REG ? 2 : 1)
 lloyd_partial_kernel(const float* __restrict__ X, const float* __restrict__ w,
                      const float* __restrict__ C,
                      const float* __restrict__ c2, int n, int k, int d,
-                     int groups, int nbuf, int mode, int stride,
+                     int groups, int nbuf, bool vec16,
                      float* __restrict__ partial) {
   extern __shared__ __align__(16) float sm[];
   const int kp = REG ? KC : padded_k(k);
   const int A = k * (d + 1);
-  const size_t tile_f = (size_t)T * stride;
+  const size_t tile_f = (size_t)T * d;
   const size_t ring_f = (size_t)nbuf * tile_f;
-  float* const ring = sm;                   // [nbuf][T][stride]
+  float* const ring = sm;                   // [nbuf][T][d]
   float* const ct = sm + ring_f;            // [d][kp], centers feature-major
   float* const c2s = ct + (size_t)d * kp;   // [kp], +inf past k
   int* const lab = reinterpret_cast<int*>(c2s + kp);  // [T]
@@ -231,34 +202,14 @@ lloyd_partial_kernel(const float* __restrict__ X, const float* __restrict__ w,
   const int ncol = REG ? column_quads(d) : (d + 1 < T ? d + 1 : T);
   const int g = tid / ncol, q = tid - g * ncol;
   const bool owner = g < groups;
-  // STAGE_ROWS16: 16-byte units a row, and this thread's first (row, unit)
-  // position and its step, so no unit needs a division
-  const int rowlen = d / 4 > 0 ? d / 4 : 1;
-  const int dq = T / rowlen, dr = T - dq * rowlen;
-  const int r_first = tid / rowlen, u_first = tid - r_first * rowlen;
   const long ntiles = ((long)n + T - 1) / T;
+  // the tile is nrows * d contiguous floats of X, and of the buffer
   auto stage = [&](long t, float* buf) {
     const float* src = X + t * T * (long)d;
-    const int nrows = (int)min((long)T, (long)n - t * T);
-    if (mode == STAGE_ROWS16) {
-      int r = r_first, u = u_first;
-      for (int e = tid; e < nrows * rowlen; e += T) {
-        cp_async16(buf + r * stride + 4 * u, src + 4 * (long)e);
-        r += dq;
-        u += dr;
-        if (u >= rowlen) {
-          u -= rowlen;
-          ++r;
-        }
-      }
-    } else {
-      // the tile is nrows * d contiguous floats of X, and of the buffer
-      const int total = nrows * d;
-      const int head = mode == STAGE_FLAT16 ? total & ~3 : 0;
-      for (int e = 4 * tid; e < head; e += 4 * T)
-        cp_async16(buf + e, src + e);
-      for (int e = head + tid; e < total; e += T) cp_async4(buf + e, src + e);
-    }
+    const int total = (int)min((long)T, (long)n - t * T) * d;
+    const int head = vec16 ? total & ~3 : 0;
+    for (int e = 4 * tid; e < head; e += 4 * T) cp_async16(buf + e, src + e);
+    for (int e = head + tid; e < total; e += T) cp_async4(buf + e, src + e);
     cp_async_commit();
   };
 
@@ -287,16 +238,16 @@ lloyd_partial_kernel(const float* __restrict__ X, const float* __restrict__ w,
     // E-step: row tid against every center
     if (tid < nrows) {
       const float wv = w[row0 + tid];
-      const float* xr = xs + tid * stride;
+      const float* xr = xs + tid * d;
       float best = CUDART_INF_F, x2 = 0.f;
       int bi = 0;
       for (int q0 = 0; q0 < kp; q0 += KC) {
         float a[KC];
 #pragma unroll
         for (int j = 0; j < KC; ++j) a[j] = 0.f;
-        // x 16 or 8 bytes at a time as the stride allows, then the rest
+        // x 16 or 8 bytes at a time as d allows, then the rest
         int f = 0;
-        if (stride % 4 == 0) {
+        if (d % 4 == 0) {
           for (; f + 4 <= d; f += 4) {
             const float4 x4 = *reinterpret_cast<const float4*>(xr + f);
             const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
@@ -306,7 +257,7 @@ lloyd_partial_kernel(const float* __restrict__ X, const float* __restrict__ w,
               fma8(a, xv[u], ct + (f + u) * kp + q0);
             }
           }
-        } else if (stride % 2 == 0) {
+        } else if (d % 2 == 0) {
 #pragma unroll 2
           for (; f + 2 <= d; f += 2) {
             const float2 x2v = *reinterpret_cast<const float2*>(xr + f);
@@ -360,7 +311,7 @@ lloyd_partial_kernel(const float* __restrict__ X, const float* __restrict__ w,
           float v[CPT];
 #pragma unroll
           for (int cc = 0; cc < CPT; ++cc)
-            v[cc] = in[cc] ? xq[r * stride + cc * ncol] : cv[cc];
+            v[cc] = in[cc] ? xq[r * d + cc * ncol] : cv[cc];
 #pragma unroll
           for (int j = 0; j < KC; ++j) {
             const float wj = l == j ? wv : 0.f;
@@ -375,7 +326,7 @@ lloyd_partial_kernel(const float* __restrict__ X, const float* __restrict__ w,
           float* const al = ag + (size_t)lab[r] * (d + 1);
           const float wv = wsm[r];
           for (int c = q; c <= d; c += ncol) {
-            const float v = c < d ? xs[r * stride + c] : 1.f;
+            const float v = c < d ? xs[r * d + c] : 1.f;
             al[c] = fmaf(wv, v, al[c]);
           }
         }
@@ -440,17 +391,13 @@ int launch(const Plan& p, const float* X, const float* w, const float* C,
            const float* c2, int n, int k, int d, int G, float* partial,
            cudaStream_t s) {
   auto kernel = lloyd_partial_kernel<T, REG>;
-  // above 48 KB a block's shared memory must be granted; grant the
-  // largest asked for so far, once
-  static size_t granted = 48 * 1024;
-  if (p.smem > granted) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
-    if (e != cudaSuccess) return (int)e;
-    granted = p.smem;
-  }
-  kernel<<<G, T, p.smem, s>>>(X, w, C, c2, n, k, d, p.groups, p.nbuf, p.mode,
-                              p.stride, partial);
+  // above 48 KB a block's shared memory must be granted; the grant holds
+  // for the current device only, so it is made on every launch
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<G, T, p.smem, s>>>(X, w, C, c2, n, k, d, p.groups, p.nbuf,
+                              p.vec16, partial);
   return 0;
 }
 
@@ -461,20 +408,6 @@ extern "C" int dml_lloyd_max_partials() { return LGRID; }
 extern "C" int dml_lloyd_supported(int k, int d) {
   Plan p;
   return make_plan(k, d, false, &p) ? 1 : 0;
-}
-
-// blocks an SM holds at once of the variant that (k, d) runs on a 16-byte
-// aligned X (after a launch of that variant has granted its shared memory)
-extern "C" int dml_lloyd_blocks_per_sm(int k, int d) {
-  Plan p;
-  if (!make_plan(k, d, true, &p)) return 0;
-  int nb = 0;
-  const cudaError_t e =
-      p.reg ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                  &nb, lloyd_partial_kernel<T_REG, true>, T_REG, p.smem)
-            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                  &nb, lloyd_partial_kernel<T_SMEM, false>, T_SMEM, p.smem);
-  return e == cudaSuccess ? nb : -(int)e;
 }
 
 // X (n, d) row-major f32, w (n,) f32, C (k, d) f32, c2 (k,) f32 = |c|^2

@@ -160,8 +160,8 @@ def _lloyd_stats_cuda(X, w, centers):
     if not lib.dml_lloyd_supported(k, d):
         raise ValueError(
             f"kernel='cuda': k={k}, d={d} exceeds the Lloyd kernel's "
-            "shared-memory budget (centers + a (k, d+1) accumulator + a "
-            "128-row tile); use kernel='auto' for the two-pass form")
+            "shared-memory budget (centers + a (k, d+1) accumulator + one "
+            "128-row tile of X); use kernel='auto' for the two-pass form")
     C = centers.to(torch.float32).contiguous()
     c2 = _row_sumsq(C).contiguous()
     P = k * (d + 1) + 1

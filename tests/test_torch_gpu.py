@@ -208,14 +208,14 @@ def test_one_score_loop_on_float_data(cuda, m):
 
 @pytest.mark.parametrize("n,k,d,offset", [
     (1, 1, 1, 0), (1000, 8, 50, 0), (70001, 3, 2, 0), (5000, 13, 7, 0),
-    # d % 4 != 0 (the tile copied flat) at the KDD cell's width; d % 4 == 0
-    # with a stride of d (d / 4 odd) and a padded one (d % 8 == 0); n not a
-    # multiple of the 256-row tile
+    # d % 4 != 0 (a 4-byte tail after the 16-byte copies) at the KDD cell's
+    # width; d % 4 == 0 with 16-byte row reads (d / 4 odd, and d % 8 == 0);
+    # n not a multiple of the 256-row tile
     (3001, 8, 41, 0), (20001, 8, 52, 0), (1000, 8, 64, 0),
     # k = 8 and k = 9: the register variant's edge
     (4099, 8, 50, 0), (4099, 9, 50, 0),
     # the widest d of the register variant, the first beyond it, and the
-    # largest d PR 1's kernel admitted at k = 8
+    # largest d the kernel's first design admitted at k = 8
     (2000, 8, 110, 0), (2000, 8, 111, 0), (257, 8, 397, 0),
     # X not 16-byte aligned: 4-byte copies although d % 4 == 0
     (3001, 8, 52, 1)])
