@@ -63,8 +63,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    clusters of 2, 4 and 8; one L-BFGS iteration, with a device profile of
    it), and prints the k-means|| phase times of both KMeans cells.
 
+9. drives the solvers of the GLM facades beyond L-BFGS and the
+   decompositions, each data set drawn with numpy from the seed:
+   consensus ADMM at the JAX GLM bench's shape (10,000,000 × 100 float32,
+   ``make_classification``'s recipe): the core ``admm`` as that bench
+   calls it at S = 1 and 8, then ``LogisticRegression().fit(X, y)`` with
+   every default and ``score`` (accuracy within 0.002 of L-BFGS's), and
+   the same facade under solver settings that converge at this cell
+   (``n_iter_`` below ``max_iter``, objective within 1e-3 of L-BFGS's);
+   softmax fits over the same rows (L-BFGS with K = 10: coefficients
+   correlated ≥ 0.99 with the true ones; ADMM on the first 1,000,000 rows
+   with K = 4: objective within 1e-3 of L-BFGS's); sparse ADMM on
+   ``make_sparse_classification(1e6, 1000, 0.02)`` (K6 and its backward
+   must launch; one outer iteration through the kernels within 1e-5
+   normwise of the plain one); PCA and TruncatedSVD at the JAX PCA bench's
+   shape (500,000 × 1,000, rank 64 plus noise, k = 100), both solvers
+   each: the tsqr path must take CholeskyQR2 and give singular values
+   within rtol 1e-4 of float64 ones, the randomized ones within 1e-3 over
+   the top 64 with components aligned ≥ 0.999, ``transform`` equal to
+   ``fit_transform`` within 1e-4 of its scale; tsqr must fall back to
+   Householder on a cond-1e6 input with ‖QᵀQ − I‖ < 1e-5.
+
 ``python3 chip_smoke.py --spmv-only`` runs steps 1, 2, 6 and 8 alone, on a
-container of the sparse cell's shape drawn on the card.
+container of the sparse cell's shape drawn on the card;
+``--glm-pca-only`` runs steps 1, 2 and 9 alone.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
@@ -98,6 +120,33 @@ GLM_FIT_RTOL = 1e-3
 # the JAX drill's train-sample accuracy of that fit (SPARSE_r01.json
 # lbfgs_fit): a quality to print beside the port's, not a speed
 JAX_GLM_ACCURACY = 0.8211
+# the JAX GLM bench's ADMM problem (bench.py ADMM, bench_admm): 1e7 x 100
+# float32 from make_classification(n_informative=100, scale=2.0), nothing
+# cut; the core admm at S = 1 and 8 for 10 outer iterations
+ADMM_N, ADMM_D, ADMM_OUTER, ADMM_SHARDS = 10_000_000, 100, 10, (1, 8)
+# the solver settings under which the logistic ADMM fit converges at that
+# cell: there the mean loss's curvature along the coefficients is ~1e-3,
+# so at the default rho = 1 a consensus step shrinks the error by only
+# ~1/(1 + 1e-3) and 100 iterations stop far from the optimum
+ADMM_CONVERGING = {"rho": 0.003, "abstol": 1e-6, "reltol": 1e-4}
+# the facade's ADMM fit against L-BFGS at that cell: objective (relative)
+# and training accuracy
+ADMM_OBJ_RTOL, ADMM_ACC_TOL = 1e-3, 0.002
+# softmax labels over the same X: K classes from N(0, MN_SCALE²) true
+# coefficients; multinomial ADMM on the first MN_ADMM_N rows with K = 4
+# (each Newton step's Hessian costs n·d²·K² FMAs: the depth is cut there)
+MN_K, MN_SCALE, MN_CORR = 10, 0.1, 0.99
+MN_ADMM_N, MN_ADMM_K = 1_000_000, 4
+# the sparse ADMM path: make_sparse_classification(1e6, 1000, 0.02, 0)
+# (k = 20, d = 1001 with the intercept) through LogisticRegression(
+# solver="admm"), depth cut to 3 outer iterations (each takes ~13 Newton
+# steps whose Hessian is a scatter of nnz·k products)
+SPADMM_N, SPADMM_D, SPADMM_DENSITY, SPADMM_ITERS = 1_000_000, 1_000, 0.02, 3
+SPADMM_RTOL = 1e-5
+# the JAX PCA bench's problem (bench.py PCA, bench_pca): 500,000 x 1,000
+# float32, a rank-64 signal plus 0.1 noise, k = 100, nothing cut
+PCA_N, PCA_D, PCA_RANK, PCA_K = 500_000, 1_000, 64, 100
+PCA_CHECK_ROWS = 262_144
 # K6 edge shapes (n, k, d): n = 1, a ragged n, k = 1 and the intercept's
 # odd k = 101, the cell's d = 100,001 and a d = 7 where every column is hot,
 # a k beyond the shared-memory kernels' tile and a d beyond every cluster
@@ -150,6 +199,7 @@ PATH_KERNELS = {
                  "fused_argmin_weight"),
     "glm-sparse-fit": ("spmv", "spmv_pullback"),
     "glm-sparse-score": ("spmv",),
+    "glm-sparse-admm": ("spmv", "spmv_pullback"),
 }
 SOURCES = {
     "lloyd_iter": "dask_ml_tpu_torch/_kernels/csrc/lloyd.cu",
@@ -1867,6 +1917,428 @@ def spmv_only(dev, errs):
 
 
 # ---------------------------------------------------------------------------
+# the GLM solvers beyond L-BFGS and the decompositions
+# ---------------------------------------------------------------------------
+
+
+def normal_f32(shape, seed, chunks: int = 64):
+    """N(0, 1) float32 of ``shape`` drawn with numpy in row chunks, each
+    from its own child of ``SeedSequence(seed)``, filled by 8 threads
+    (numpy releases the interpreter lock while it fills): the same numbers
+    whatever the number of threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    out = np.empty(shape, np.float32)
+    rows = out.reshape(shape[0], -1)
+    bounds = np.linspace(0, shape[0], chunks + 1).astype(np.int64)
+    seeds = np.random.SeedSequence(seed).spawn(chunks)
+
+    def fill(i):
+        np.random.default_rng(seeds[i]).standard_normal(
+            out=rows[bounds[i]:bounds[i + 1]], dtype=np.float32)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(fill, range(chunks)))
+    return out
+
+
+def admm_data(seed: int):
+    """The JAX package's ``make_classification(ADMM_N, ADMM_D,
+    n_informative=ADMM_D, scale=2.0)`` recipe drawn with numpy: N(0, 1)
+    features, coefficients uniform on (-2, 0), labels Bernoulli of the
+    sigmoid."""
+    rng = np.random.default_rng([seed, 7])
+    X = normal_f32((ADMM_N, ADMM_D), [seed, 7])
+    beta = (rng.random(ADMM_D, dtype=np.float32) - 1.0) * 2.0
+    z = X @ beta
+    u = rng.random(ADMM_N, dtype=np.float32)
+    y = (u < 1.0 / (1.0 + np.exp(-z))).astype(np.float32)
+    return X, y
+
+
+def softmax_labels(X, B, rng):
+    """Class labels drawn from the softmax of ``X @ B``."""
+    L = X @ B
+    L -= L.max(axis=1, keepdims=True)
+    np.exp(L, out=L)
+    np.cumsum(L, axis=1, out=L)
+    u = rng.random(X.shape[0], dtype=np.float32) * L[:, -1]
+    return np.minimum((L < u[:, None]).sum(axis=1), B.shape[1] - 1)
+
+
+def logistic_objective(Xd, yd, coef, intercept, lamduh=1.0):
+    """The facade's penalized objective (the mean loss plus λ/n·½‖coef‖²,
+    the intercept unpenalized) and the training accuracy of a fitted
+    binary model, on the card, summed in float64."""
+    import torch
+
+    c = torch.as_tensor(coef, device=Xd.device)
+    eta = Xd @ c + float(intercept)
+    loss = torch.logaddexp(eta, torch.zeros_like(eta)) - yd * eta
+    n = Xd.shape[0]
+    f = (loss.double().sum() + lamduh * 0.5 * (c.double() ** 2).sum()) / n
+    acc = ((eta > 0).to(yd.dtype) == yd).double().mean()
+    return float(f), float(acc)
+
+
+def softmax_objective(Xd, yd, coef, intercept, lamduh=1.0):
+    """The multinomial facade's penalized objective, as above."""
+    import torch
+
+    C = torch.as_tensor(coef, device=Xd.device)
+    logits = Xd @ C.T + torch.as_tensor(intercept, device=Xd.device)
+    nll = (torch.logsumexp(logits, dim=1)
+           - logits.gather(1, yd.long()[:, None])[:, 0])
+    n = Xd.shape[0]
+    return float((nll.double().sum()
+                  + lamduh * 0.5 * (C.double() ** 2).sum()) / n)
+
+
+def class_centered_corr(coef, B):
+    """Correlation of fitted (K, d) and true (d, K) coefficients, each
+    centered over the classes (softmax leaves a shift free)."""
+    a = coef - coef.mean(axis=0)
+    b = B.T - B.T.mean(axis=0)
+    return float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+
+
+def dense_admm_cell(dev):
+    """Consensus ADMM at the JAX GLM bench's shape: the core solver as
+    that bench calls it, at S = 1 and 8; ``LogisticRegression()`` with
+    its defaults, then ``score``; the same facade under settings that
+    converge, against L-BFGS; the softmax fits over the same X."""
+    import torch
+
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.models import glm as glm_core
+
+    t0 = time.perf_counter()
+    X, y = admm_data(SEED)
+    gen_s = time.perf_counter() - t0
+    log(f"ADMM data {X.shape} made in {gen_s:.2f} s")
+    out = {"n": ADMM_N, "d": ADMM_D, "host_generation_s": gen_s}
+    Xd = torch.from_numpy(X).to(dev)
+    yd = torch.from_numpy(y).to(dev)
+    w = torch.ones(ADMM_N, device=dev)
+    mask = torch.ones(ADMM_D, device=dev)
+    b0 = torch.zeros(ADMM_D, device=dev)
+
+    def core(S, iters, **kw):
+        return glm_core.admm(Xd, yd, w, b0, mask, n_shards=S, lamduh=1.0,
+                             max_iter=iters, abstol=0.0, reltol=0.0, **kw)
+
+    core(1, 1)  # cuBLAS and cuSOLVER handles, allocator
+    for S in ADMM_SHARDS:
+        glm_core.reset_host_reads()
+        (z, n_iter), sec, l_core = drive(lambda: core(S, ADMM_OUTER))
+        steps = glm_core.host_reads["newton_steps"]
+        expect(n_iter == ADMM_OUTER and bool(torch.isfinite(z).all()),
+               f"core admm S={S}: n_iter {n_iter}")
+        out[f"core_S{S}"] = {"seconds": sec,
+                             "ms_per_outer_iter": sec * 1e3 / n_iter,
+                             "newton_steps": steps,
+                             "ms_per_newton_step": sec * 1e3 / steps,
+                             "host_reads": glm_core.host_reads["n"]}
+        path_line(f"admm-core-S{S}", sec, n_iter, l_core,
+                  **out[f"core_S{S}"])
+    out["profile_outer_iter_S1"] = prof = device_profile(lambda: core(1, 1))
+    log("PROFILE admm-outer-iter " + json.dumps(prof))
+
+    # -- the facade with every default, as a user calls it -----------------
+    def default_fit_score():
+        est = LogisticRegression().fit(X, y)
+        return est, est.score(X, y)
+
+    (est, acc_score), sec, l_def = drive(default_fit_score)
+    expect(est.coef_.shape == (ADMM_D,) and np.isfinite(est.coef_).all(),
+           "default LogisticRegression: bad coefficients")
+    ref = LogisticRegression(solver="lbfgs", max_iter=500,
+                             tol=1e-7).fit(Xd, y)
+    conv = LogisticRegression(solver_kwargs=ADMM_CONVERGING).fit(Xd, y)
+    f_ref, a_ref = logistic_objective(Xd, yd, ref.coef_, ref.intercept_)
+    f_def, a_def = logistic_objective(Xd, yd, est.coef_, est.intercept_)
+    f_conv, a_conv = logistic_objective(Xd, yd, conv.coef_,
+                                        conv.intercept_)
+    fit = {"phases": est.fit_phase_seconds_, "score": acc_score, "accuracy": a_def,
+           "objective_gap": (f_def - f_ref) / f_ref,
+           "lbfgs": {"n_iter": ref.n_iter_, "objective": f_ref,
+                     "accuracy": a_ref, "phases": ref.fit_phase_seconds_},
+           "converging": {"solver_kwargs": ADMM_CONVERGING,
+                          "n_iter": conv.n_iter_,
+                          "objective_gap": (f_conv - f_ref) / f_ref,
+                          "accuracy": a_conv,
+                          "phases": conv.fit_phase_seconds_}}
+    path_line("glm-admm-default", sec, est.n_iter_, l_def, **fit)
+    out["facade"] = dict(fit, n_iter=est.n_iter_)
+    log(f"LogisticRegression() at {ADMM_N} x {ADMM_D}: n_iter_ "
+        f"{est.n_iter_}, objective {fit['objective_gap']:.3e} above "
+        f"L-BFGS's, accuracy {a_def:.5f} (L-BFGS {a_ref:.5f}); with "
+        f"{ADMM_CONVERGING}: n_iter_ {conv.n_iter_}, objective "
+        f"{fit['converging']['objective_gap']:.3e} above L-BFGS's")
+    expect(abs(a_def - a_ref) <= ADMM_ACC_TOL,
+           f"default ADMM accuracy {a_def} against L-BFGS {a_ref}")
+    expect(conv.n_iter_ < conv.max_iter,
+           f"ADMM with {ADMM_CONVERGING} did not converge")
+    expect(abs(f_conv - f_ref) <= ADMM_OBJ_RTOL * f_ref
+           and abs(a_conv - a_ref) <= ADMM_ACC_TOL,
+           f"converged ADMM objective {f_conv} / accuracy {a_conv} against "
+           f"L-BFGS {f_ref} / {a_ref}")
+    del est, ref, conv
+
+    # -- softmax: L-BFGS over every row, ADMM over the first rows ----------
+    rng = np.random.default_rng([SEED, 8])
+    B = (rng.standard_normal((ADMM_D, MN_K)) * MN_SCALE).astype(np.float32)
+    t0 = time.perf_counter()
+    yk = softmax_labels(X, B, rng)
+    log(f"softmax labels (K = {MN_K}) drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
+    mn, sec, l_mn = drive(lambda: LogisticRegression(
+        solver="lbfgs", multiclass="multinomial").fit(Xd, yk))
+    corr = class_centered_corr(mn.coef_, B)
+    path_line("glm-multinomial-lbfgs", sec, mn.n_iter_, l_mn,
+              phases=mn.fit_phase_seconds_, k=MN_K, coef_corr=corr)
+    expect(mn.coef_.shape == (MN_K, ADMM_D) and corr >= MN_CORR,
+           f"multinomial L-BFGS coefficients correlate {corr} < {MN_CORR}")
+    B4 = (rng.standard_normal((ADMM_D, MN_ADMM_K)) * MN_SCALE).astype(
+        np.float32)
+    y4 = softmax_labels(X[:MN_ADMM_N], B4, rng)
+    X1 = Xd[:MN_ADMM_N]
+    ma, sec, l_ma = drive(lambda: LogisticRegression(
+        multiclass="multinomial").fit(X1, y4))
+    ml = LogisticRegression(solver="lbfgs",
+                            multiclass="multinomial").fit(X1, y4)
+    y4d = torch.as_tensor(y4, device=dev)
+    f_a = softmax_objective(X1, y4d, ma.coef_, ma.intercept_)
+    f_l = softmax_objective(X1, y4d, ml.coef_, ml.intercept_)
+    path_line("glm-multinomial-admm", sec, ma.n_iter_, l_ma,
+              phases=ma.fit_phase_seconds_, n=MN_ADMM_N, k=MN_ADMM_K,
+              objective_gap=(f_a - f_l) / f_l, lbfgs_n_iter=ml.n_iter_,
+              coef_corr=class_centered_corr(ma.coef_, B4))
+    expect(abs(f_a - f_l) <= ADMM_OBJ_RTOL * f_l,
+           f"multinomial ADMM objective {f_a} against L-BFGS {f_l}")
+    out["multinomial"] = {"lbfgs_s": sec, "coef_corr": corr,
+                          "admm_objective_gap": (f_a - f_l) / f_l}
+    return out
+
+
+def sparse_admm_cell(dev):
+    """``LogisticRegression(solver="admm")`` on a sparse container: K6
+    and its backward must launch; one outer iteration from a shared state
+    through the kernels and through the plain versions must agree."""
+    import torch
+
+    from dask_ml_tpu_torch.datasets import make_sparse_classification
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.linear_model.glm import add_intercept
+    from dask_ml_tpu_torch.models import glm as glm_core
+    from dask_ml_tpu_torch.parallel.sharding import prepare_data
+
+    X, y = make_sparse_classification(SPADMM_N, SPADMM_D, SPADMM_DENSITY,
+                                      random_state=0)
+
+    def fit_score():
+        est = LogisticRegression(solver="admm",
+                                 max_iter=SPADMM_ITERS).fit(X, y)
+        return est, est.score(X, y)
+
+    glm_core.reset_host_reads()
+    (est, acc), sec, launches = drive(fit_score)
+    expect_launches("glm-sparse-admm", launches)
+    expect(est.n_iter_ == SPADMM_ITERS and np.isfinite(est.coef_).all(),
+           f"sparse ADMM: n_iter_ {est.n_iter_}")
+    summary = {"n": SPADMM_N, "d": SPADMM_D, "k": X.k,
+               "phases": est.fit_phase_seconds_, "accuracy": acc,
+               "newton_steps": glm_core.host_reads["newton_steps"],
+               "host_reads": glm_core.host_reads["n"]}
+    path_line("glm-sparse-admm", sec, est.n_iter_, launches, **summary)
+
+    data = prepare_data(X, y=y)
+    Xs = add_intercept(data.X)
+    mask = torch.ones(Xs.d, device=dev)
+    mask[-1] = 0.0
+    b0 = torch.zeros(Xs.d, device=dev)
+    args = (Xs, data.y, data.weights, b0, mask)
+    _, _, state, _ = glm_core.admm(*args, lamduh=1.0, max_iter=2,
+                                   return_state=True)
+
+    def one(kernel):
+        return glm_core.admm(*args, lamduh=1.0, max_iter=1, state=state,
+                             kernel=kernel)[0]
+
+    zc, zc2, zt, zt2 = one("cuda"), one("cuda"), one("torch"), one("torch")
+
+    def rel(a, b):
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+    agree = {"kernel_vs_plain_normwise": rel(zc, zt),
+             "kernel_self_spread": rel(zc2, zc),
+             "plain_self_spread": rel(zt2, zt)}
+    log(f"sparse ADMM, one outer iteration from a shared state: kernel "
+        f"{agree['kernel_vs_plain_normwise']:.3e} normwise from plain "
+        f"(spreads: kernel {agree['kernel_self_spread']:.3e}, plain "
+        f"{agree['plain_self_spread']:.3e})")
+    expect(agree["kernel_vs_plain_normwise"] <= SPADMM_RTOL,
+           f"sparse ADMM kernel against plain: {agree}")
+    summary.update(agree)
+    return launches, summary
+
+
+def pca_data(seed: int):
+    """The JAX PCA bench's problem drawn with numpy: a rank-PCA_RANK
+    product of N(0, 1) factors plus 0.1·N(0, 1) noise."""
+    A = normal_f32((PCA_N, PCA_RANK), [seed, 9, 0])
+    B = normal_f32((PCA_RANK, PCA_D), [seed, 9, 1])
+    X = A @ B
+    noise = normal_f32((PCA_N, PCA_D), [seed, 9, 2])
+    noise *= 0.1
+    X += noise
+    return X
+
+
+def ill_conditioned(rng, n=4096, d=64, cond=1e6):
+    U, _ = np.linalg.qr(rng.standard_normal((n, d)))
+    V, _ = np.linalg.qr(rng.standard_normal((d, d)))
+    return ((U * np.logspace(0, -np.log10(cond), d)) @ V.T).astype(
+        np.float32)
+
+
+def pca_cell(dev):
+    """PCA and TruncatedSVD at the JAX PCA bench's shape, both solvers
+    each, against float64 singular values on the card; tsqr's fallback on
+    an ill-conditioned input."""
+    import torch
+
+    from dask_ml_tpu_torch.decomposition import PCA, TruncatedSVD
+    from dask_ml_tpu_torch.ops import linalg
+
+    t0 = time.perf_counter()
+    X = pca_data(SEED)
+    out = {"n": PCA_N, "d": PCA_D, "k": PCA_K,
+           "host_generation_s": time.perf_counter() - t0}
+    log(f"PCA data {X.shape} made in {out['host_generation_s']:.2f} s")
+
+    def run(name, fn):
+        linalg.reset_tsqr_counts()
+        res, sec, launches = drive(fn)
+        out[name] = {"seconds": sec, "tsqr": dict(linalg.tsqr_counts)}
+        path_line(name, sec, None, launches, tsqr=out[name]["tsqr"])
+        return res
+
+    rand = run("pca-randomized", lambda: PCA(
+        PCA_K, svd_solver="randomized", iterated_power=2,
+        random_state=0).fit(X))
+    full = PCA(PCA_K, svd_solver="full")
+    Zf = run("pca-full", lambda: full.fit_transform(X))
+    expect(out["pca-full"]["tsqr"] == {"host_reads": 1, "cholqr2": 1,
+                                       "householder": 0},
+           f"the tsqr path did not take CholeskyQR2: {out['pca-full']}")
+    tsvd_t = run("tsvd-tsqr", lambda: TruncatedSVD(
+        PCA_K, algorithm="tsqr").fit(X))
+    tsvd_r = run("tsvd-randomized", lambda: TruncatedSVD(
+        PCA_K, algorithm="randomized", random_state=0).fit(X))
+
+    # float64 singular values of the centered X on the card: the R of its
+    # Householder QR, then the SVD of that (d, d) factor
+    Xt = torch.from_numpy(X).to(dev).double()
+    Xt -= Xt.mean(dim=0)
+    s64 = torch.linalg.svdvals(torch.linalg.qr(Xt, mode="r")[1])
+    s64 = s64[:PCA_K].cpu().numpy()
+    # why tsvd names cuSOLVER's gesvd: the f32 tsqr R of the same X through
+    # torch.linalg.svd's default CUDA driver (gesvdj) and through gesvd
+    Xt = Xt.float()
+    _, R = linalg.tsqr(Xt)
+    del Xt
+    eye = torch.eye(PCA_D, device=dev)
+    drivers = {}
+    for drv in (None, "gesvd"):
+        _, S, Vt = torch.linalg.svd(R, full_matrices=False, driver=drv)
+        S = S[:PCA_K].cpu().numpy()
+        drivers[drv or "default"] = {
+            "sv_rel_err_vs_f64": float(np.max(np.abs(S - s64) / s64)),
+            "vt_orthogonality": float(torch.abs(Vt @ Vt.T - eye).max()),
+            "ms": cuda_ms(lambda: torch.linalg.svd(
+                R, full_matrices=False, driver=drv), iters=2, warmup=1)}
+    out["svd_drivers"] = drivers
+    log("svd of the tsqr R, by cuSOLVER driver: " + json.dumps(drivers))
+    del R
+    torch.cuda.empty_cache()
+    top = PCA_RANK
+    full_rel = float(np.max(np.abs(full.singular_values_ - s64) / s64))
+    rand_rel = float(np.max(np.abs(rand.singular_values_[:top] - s64[:top])
+                            / s64[:top]))
+    align = float(np.abs(np.diag(
+        rand.components_[:top] @ full.components_[:top].T)).min())
+    svd_rel = float(np.max(np.abs(tsvd_r.singular_values_[:top]
+                                  - tsvd_t.singular_values_[:top])
+                           / tsvd_t.singular_values_[:top]))
+    svd_align = float(np.abs(np.diag(
+        tsvd_r.components_[:top] @ tsvd_t.components_[:top].T)).min())
+    Zt = full.transform(X[:PCA_CHECK_ROWS])
+    scale = float(np.abs(Zf).max())
+    tr_err = float(np.abs(Zt - Zf[:PCA_CHECK_ROWS]).max()) / scale
+    rZ = rand.transform(X[:PCA_CHECK_ROWS])
+    out["gates"] = gates = {
+        "full_sv_rel_err_vs_f64": full_rel,
+        "randomized_top64_sv_rel_err": rand_rel,
+        "randomized_top64_min_alignment": align,
+        "tsvd_randomized_vs_tsqr_top64_sv_rel": svd_rel,
+        "tsvd_randomized_vs_tsqr_top64_alignment": svd_align,
+        "full_transform_vs_fit_transform_rel": tr_err,
+        "randomized_transform_vs_exact_rel": float(
+            np.abs(np.abs(rZ[:, :top]) - np.abs(Zt[:, :top])).max())
+        / scale}
+    log("PCA gates " + json.dumps(gates))
+    expect(np.isfinite(Zf).all() and Zf.shape == (PCA_N, PCA_K),
+           "PCA fit_transform: bad output")
+    expect(full_rel <= 1e-4, f"tsqr singular values {full_rel} from f64")
+    expect(rand_rel <= 1e-3 and align >= 0.999,
+           f"randomized PCA: singular values {rand_rel}, alignment {align}")
+    expect(svd_rel <= 1e-3 and svd_align >= 0.999,
+           f"randomized TruncatedSVD: {svd_rel}, alignment {svd_align}")
+    expect(tr_err <= 1e-4, f"transform != fit_transform: {tr_err}")
+
+    Xd = torch.as_tensor(X, device=dev)
+    prof = device_profile(lambda: linalg.tsvd(Xd))
+    del Xd
+    out["profile_tsvd"] = prof
+    log("PROFILE pca-tsvd " + json.dumps(prof))
+
+    # the fallback on the card: cond 1e6 breaks CholeskyQR2's guard
+    Xi = torch.as_tensor(ill_conditioned(np.random.default_rng(SEED)),
+                         device=dev)
+    linalg.reset_tsqr_counts()
+    Q, R = linalg.tsqr(Xi)
+    ortho = float(torch.abs(Q.T @ Q - torch.eye(Q.shape[1],
+                                                device=dev)).max())
+    recon = float(torch.abs(Q @ R - Xi).max())
+    out["fallback"] = {"tsqr": dict(linalg.tsqr_counts),
+                       "orthogonality": ortho, "reconstruction": recon}
+    log(f"tsqr on a cond-1e6 input: {out['fallback']}")
+    expect(linalg.tsqr_counts["householder"] == 1 and ortho < 1e-5
+           and recon < 1e-5,
+           f"tsqr fallback on the card: {out['fallback']}")
+    return out
+
+
+def glm_pca_cells(dev):
+    """The four paths of the GLM-and-decomposition slice. Returns the
+    sparse ADMM path's launches and a summary."""
+    import torch
+
+    t0 = time.perf_counter()
+    dense = dense_admm_cell(dev)
+    torch.cuda.empty_cache()
+    launches, sparse = sparse_admm_cell(dev)
+    torch.cuda.empty_cache()
+    pca = pca_cell(dev)
+    torch.cuda.empty_cache()
+    summary = {"admm": dense, "sparse_admm": sparse, "pca": pca,
+               "seconds": time.perf_counter() - t0}
+    log("GLM_PCA " + json.dumps(summary))
+    return launches, summary
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1895,6 +2367,13 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all(verbose=True)
     log(f"build: {time.perf_counter() - t0:.2f} s")
+
+    if "--glm-pca-only" in sys.argv[1:]:
+        glm_pca_cells(dev)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+        return 0
 
     if "--spmv-only" in sys.argv[1:]:
         rows, summary = spmv_only(dev, {})
@@ -2049,6 +2528,11 @@ def main() -> int:
     rows += kernel_rows(glm_rows, glm_launches, errs)
     log_spmv_rows(rows[-4:])
     log("GLM " + json.dumps(glm))
+    torch.cuda.empty_cache()
+
+    admm_launches, _ = glm_pca_cells(dev)
+    for r in rows[-4:]:
+        r["launches_sparse_admm"] = int(admm_launches[r["name"]])
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

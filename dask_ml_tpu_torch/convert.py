@@ -11,6 +11,7 @@ import numpy as np
 
 from dask_ml_tpu_torch.cluster.k_means import KMeans
 from dask_ml_tpu_torch.config import resolve_device
+from dask_ml_tpu_torch.decomposition import PCA, TruncatedSVD
 from dask_ml_tpu_torch.linear_model import (LinearRegression,
                                             LogisticRegression,
                                             PoissonRegression)
@@ -136,4 +137,59 @@ def glm_from_numpy(attrs: dict, family: str, multiclass: str = "ovr"):
                          f"{coef.shape}")
     if "n_iter_" in attrs:
         est.n_iter_ = int(attrs["n_iter_"])
+    return est
+
+
+def _components(attrs: dict) -> np.ndarray:
+    comps = np.array(attrs["components_"], dtype=np.float32)
+    if comps.ndim != 2 or not np.isfinite(comps).all():
+        raise ValueError(
+            f"components_ must be a finite (n_components, n_features) "
+            f"array; got shape {comps.shape}")
+    return comps
+
+
+def _vector(attrs: dict, name: str, size: int) -> np.ndarray:
+    a = np.array(attrs[name], dtype=np.float32)
+    if a.shape != (size,):
+        raise ValueError(f"{name} of shape {a.shape} does not fit "
+                         f"({size},)")
+    return a
+
+
+def pca_from_numpy(attrs: dict, whiten: bool = False) -> PCA:
+    """A fitted port :class:`PCA` whose ``transform``,
+    ``inverse_transform``, ``score_samples`` and ``score`` compute what the
+    exported model's do. ``whiten`` is the exported model's constructor
+    setting, which the dict does not carry."""
+    comps = _components(attrs)
+    k, d = comps.shape
+    est = PCA(n_components=k, whiten=whiten)
+    est.components_ = comps
+    est.mean_ = _vector(attrs, "mean_", d)
+    for name in ("explained_variance_", "explained_variance_ratio_",
+                 "singular_values_"):
+        setattr(est, name, _vector(attrs, name, k))
+    est.n_components_ = k
+    est.n_features_ = int(attrs.get("n_features_", d))
+    if est.n_features_ != d:
+        raise ValueError(
+            f"n_features_={est.n_features_} disagrees with components_ of "
+            f"width {d}")
+    est.n_samples_ = int(attrs["n_samples_"])
+    est.noise_variance_ = float(attrs["noise_variance_"])
+    return est
+
+
+def truncated_svd_from_numpy(attrs: dict) -> TruncatedSVD:
+    """A fitted port :class:`TruncatedSVD` whose ``transform`` and
+    ``inverse_transform`` compute what the exported model's do."""
+    comps = _components(attrs)
+    k = comps.shape[0]
+    est = TruncatedSVD(n_components=k)
+    est.components_ = comps
+    for name in ("explained_variance_", "explained_variance_ratio_",
+                 "singular_values_"):
+        if name in attrs:
+            setattr(est, name, _vector(attrs, name, k))
     return est

@@ -2,9 +2,8 @@
 ``dask_ml_tpu/linear_model/glm.py``) over the solvers of
 :mod:`dask_ml_tpu_torch.models.glm`.
 
-The same constructor surface and defaults (``solver`` still defaults to
-``"admm"`` for API parity, and ADMM is not ported yet, so such a fit
-raises ``NotImplementedError`` naming ``solver="lbfgs"``), the same
+The same constructor surface and defaults (``solver="admm"``: consensus
+ADMM, here over one row block, as on a one-device mesh), the same
 ``lamduh = 1/C`` mapping and solver-specific pruning, the same
 deviations from the reference: the intercept is not penalized, and
 ``LinearRegression.score`` is R².
@@ -15,8 +14,7 @@ container, whose linear predictor on the card is the K6 SpMV kernel, in
 the fit and in ``decision_function`` / ``predict`` / ``score``. Fits and
 predictions run on the configured device (``config.device``, "cuda" by
 default). Not ported yet: ``fit_blocks``, ``partial_fit``, the
-batched-search hooks, ``checkpoint``, and the multinomial fit with more
-than two classes.
+batched-search hooks and ``checkpoint``.
 """
 
 from __future__ import annotations
@@ -31,7 +29,7 @@ from dask_ml_tpu_torch.metrics import accuracy_score, r2_score
 from dask_ml_tpu_torch.models import glm as core
 from dask_ml_tpu_torch.ops import sparse as sparse_ops
 from dask_ml_tpu_torch.parallel import telemetry
-from dask_ml_tpu_torch.parallel.sharding import prepare_data
+from dask_ml_tpu_torch.parallel.sharding import is_sparse_input, prepare_data
 from dask_ml_tpu_torch.utils.validation import check_array
 
 
@@ -150,15 +148,13 @@ class _GLM(BaseEstimator):
         """Hook for family-specific target validation/encoding."""
         return np.asarray(y)
 
-    def fit(self, X, y=None, sample_weight=None):
+    def _stage(self, X, y, sample_weight):
+        """Stage the validated X, y and weights and append the intercept.
+        Returns (data, the penalty mask, the clock at the end of staging);
+        the mask leaves the intercept column unregularized."""
         if self.checkpoint:
             raise NotImplementedError(
                 "checkpoint= is not ported to the PyTorch package yet")
-        kwargs = self._get_solver_kwargs()
-        solver = core.solver_fn(self.solver)
-        t0 = time.perf_counter()
-        X = check_array(X, accept_sparse=True)
-        y = self._encode_y(y)
         data = prepare_data(X, sample_weight=sample_weight, y=y)
         if self.fit_intercept:
             # the appended container replaces the staged one, which is
@@ -169,16 +165,24 @@ class _GLM(BaseEstimator):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t_stage = time.perf_counter()
-        # penalty mask: the intercept column is not regularized
         mask = torch.ones(d, dtype=torch.float32, device=dev)
         if self.fit_intercept:
             mask[-1] = 0.0
-        beta0 = torch.zeros(d, dtype=torch.float32, device=dev)
+        self.n_features_in_ = d - 1 if self.fit_intercept else d
+        return data, mask, t_stage
+
+    def fit(self, X, y=None, sample_weight=None):
+        kwargs = self._get_solver_kwargs()
+        solver = core.solver_fn(self.solver)
+        t0 = time.perf_counter()
+        X = check_array(X, accept_sparse=True)
+        y = self._encode_y(y)
+        data, mask, t_stage = self._stage(X, y, sample_weight)
+        beta0 = torch.zeros_like(mask)
         with telemetry.span(f"glm-{self.solver}"):
             results = [solver(data.X, y_dev, data.weights, beta0, mask,
                               **kwargs)
                        for y_dev in self._solve_targets(data)]
-        self.n_features_in_ = d - 1 if self.fit_intercept else d
         self.n_iter_ = int(max(n for _, n in results))
         self._finalize_coef([b.cpu().numpy() for b, _ in results])
         self.fit_phase_seconds_ = {"stage": t_stage - t0,
@@ -223,7 +227,10 @@ class LogisticRegression(_GLM):
     one binary problem per class against the same staged data (the
     indicator targets are built on the device) with sigmoid-normalized
     ``predict_proba``; ``multiclass="multinomial"`` with more than two
-    classes is not ported yet and raises ``NotImplementedError``."""
+    classes fits one softmax problem over the (d, K) coefficients —
+    ``multinomial_lbfgs`` for every smooth solver name,
+    ``admm_multinomial`` (dense input only) for ``"admm"`` — with softmax
+    ``predict_proba``. Either way ``coef_`` is (n_classes, n_features)."""
 
     family = "logistic"
 
@@ -238,16 +245,58 @@ class LogisticRegression(_GLM):
             raise ValueError(
                 f"LogisticRegression requires at least 2 classes, got "
                 f"{len(classes)}: {classes!r}")
-        if len(classes) > 2 and self.multiclass == "multinomial":
-            raise NotImplementedError(
-                "multiclass='multinomial' with more than 2 classes is not "
-                "ported to the PyTorch package yet; use multiclass='ovr'")
         self.classes_ = classes
         if len(classes) == 2:
             return (y == classes[1]).astype(np.float32)
         # multiclass: stage class indices once; the per-class {0, 1}
         # targets are derived on the device in _solve_targets
         return np.searchsorted(classes, y).astype(np.float32)
+
+    def fit(self, X, y=None, sample_weight=None):
+        if self.multiclass == "multinomial" and y is not None:
+            idx = self._encode_y(y)  # sets classes_
+            if len(self.classes_) > 2:
+                return self._fit_multinomial(X, idx, sample_weight)
+        return super().fit(X, y, sample_weight=sample_weight)
+
+    def _fit_multinomial(self, X, idx, sample_weight=None):
+        """One softmax problem over all classes: L-BFGS for every smooth
+        solver name, consensus ADMM for ``solver="admm"``. The objective
+        follows the estimator's configuration either way (unregularized
+        solvers keep ``lamduh=0``, ``solver_kwargs`` apply)."""
+        kwargs = self._get_solver_kwargs()
+        t0 = time.perf_counter()
+        X = check_array(X, accept_sparse=True)
+        use_admm = self.solver == "admm"
+        if use_admm and is_sparse_input(X):
+            raise ValueError(core.SPARSE_MULTINOMIAL_ADMM)  # before staging
+        K = len(self.classes_)
+        data, mask, t_stage = self._stage(X, idx, sample_weight)
+        B0 = torch.zeros((int(data.X.shape[1]), K), dtype=torch.float32,
+                         device=mask.device)
+        mn_kwargs = dict(n_classes=K, regularizer=kwargs["regularizer"],
+                         lamduh=kwargs["lamduh"],
+                         max_iter=int(kwargs["max_iter"]))
+        if use_admm:
+            solver, name = core.admm_multinomial, "admm_multinomial"
+            # admm's own knobs (rho, abstol, ...) from solver_kwargs
+            mn_kwargs.update({k: v for k, v in kwargs.items()
+                              if k not in ("max_iter", "family",
+                                           "regularizer", "lamduh")})
+        else:
+            solver, name = core.multinomial_lbfgs, "multinomial_lbfgs"
+            mn_kwargs["tol"] = kwargs.get("tol", self.tol)
+        with telemetry.span(f"glm-{name}"):
+            B, n_iter = solver(data.X, data.y, data.weights, B0, mask,
+                               **mn_kwargs)
+        self._coef = B.T.cpu().numpy()  # (K, width), the OVR layout
+        self.n_iter_ = int(n_iter)
+        self.coef_ = self._coef[:, :-1] if self.fit_intercept else self._coef
+        if self.fit_intercept:
+            self.intercept_ = self._coef[:, -1]
+        self.fit_phase_seconds_ = {"stage": t_stage - t0,
+                                   "solve": time.perf_counter() - t_stage}
+        return self
 
     def _solve_targets(self, data):
         k = len(self.classes_)

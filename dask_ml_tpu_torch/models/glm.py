@@ -1,6 +1,8 @@
 """GLM functional core of the PyTorch port (counterpart of
-``dask_ml_tpu/models/glm.py``): families, regularizers and the four smooth
-solvers (gradient descent, Newton, L-BFGS, proximal gradient).
+``dask_ml_tpu/models/glm.py``): families, regularizers, the four smooth
+solvers (gradient descent, Newton, L-BFGS, proximal gradient), consensus
+ADMM over S row blocks, and the softmax solvers (``multinomial_lbfgs``,
+``admm_multinomial``).
 
 Objective convention, as in the JAX package: with per-row weights ``w``
 and ``SW = Σ w``, every solver minimizes
@@ -24,6 +26,8 @@ Solver state stays float32 and Python float literals never promote it.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -178,12 +182,16 @@ def _weighted_gram(X, h):
 # ---------------------------------------------------------------------------
 
 #: device scalars the solvers have read on the host, one per loop test
-#: (``host_reads["n"]``); set to 0 by :func:`reset_host_reads`
-host_reads = {"n": 0}
+#: (``host_reads["n"]``), and the Newton steps of ADMM's batched local
+#: solves (``host_reads["newton_steps"]``, one per step of the batch
+#: whatever the number of blocks still active); set to 0 by
+#: :func:`reset_host_reads`
+host_reads = {"n": 0, "newton_steps": 0}
 
 
 def reset_host_reads() -> None:
-    host_reads["n"] = 0
+    for k in host_reads:
+        host_reads[k] = 0
 
 
 def _read(flag) -> bool:
@@ -439,9 +447,338 @@ def proximal_grad(X, y, w, beta0, mask, *, family="logistic",
     return beta, it
 
 
+# ---------------------------------------------------------------------------
+# Consensus ADMM over S row blocks
+# ---------------------------------------------------------------------------
+
+
+def _row_blocks(X, n_shards: int):
+    """X cut into ``n_shards`` contiguous row blocks of equal size: a
+    ``(S, n/S, d)`` view of a dense tensor, or a list of S container
+    slices (views of its leaves)."""
+    n = int(X.shape[0])
+    if n_shards < 1 or n % n_shards:
+        raise ValueError(
+            f"ADMM cuts the {n} rows into n_shards={n_shards} blocks of "
+            "equal size; n must be a multiple of n_shards")
+    nb = n // n_shards
+    if isinstance(X, sparse_ops.SparseRows):
+        return [X[s * nb:(s + 1) * nb] for s in range(n_shards)]
+    return X.reshape(n_shards, nb, int(X.shape[1]))
+
+
+def _blocks_matvec(Xb, x, kernel):
+    """Each block times its own coefficients: (S, n/S)."""
+    if isinstance(Xb, list):
+        return torch.stack([_data_matvec(A, x[s], kernel=kernel)
+                            for s, A in enumerate(Xb)])
+    return torch.bmm(Xb, x.to(Xb.dtype)[:, :, None])[:, :, 0]
+
+
+def _blocks_pullback(Xb, r, kernel):
+    """Each block's ``X_s.T @ r_s``: (S, d)."""
+    if isinstance(Xb, list):
+        return torch.stack([_data_pullback(A, r[s], kernel=kernel)
+                            for s, A in enumerate(Xb)])
+    return torch.bmm(Xb.transpose(1, 2), r.to(Xb.dtype)[:, :, None])[:, :, 0]
+
+
+def _blocks_gram(Xb, h):
+    """Each block's ``X_s.T @ diag(h_s) @ X_s``: (S, d, d), one product a
+    block: on the card a batched product of S (d, n/S) × (n/S, d) pairs
+    is slower than S single products, whose long sums cuBLAS splits."""
+    return torch.stack([_weighted_gram(Xs, h[s]) for s, Xs in enumerate(Xb)])
+
+
+def _pointwise_grad(loss_fn, eta, y):
+    """dℓ/deta at every entry: the gradient of the summed loss, which is
+    elementwise (the JAX package takes ``jax.grad`` of the same sum)."""
+    with torch.enable_grad():
+        e = eta.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(torch.sum(loss_fn(e, y)), e)
+    return g
+
+
+def _admm_scalars(sdt, dev, *values):
+    return [torch.tensor(v, dtype=sdt, device=dev) for v in values]
+
+
+def _admm_state(state, start, shape, sdt, dev, what):
+    """``(z, x, u)`` to start from: the given state (x and u checked
+    against ``shape``) or ``start`` broadcast over the blocks and u = 0."""
+    if state is None:
+        start = start.to(sdt)
+        return (start, start.expand(shape).clone(),
+                torch.zeros(shape, dtype=sdt, device=dev))
+    z0, x0, u0 = (torch.as_tensor(s, device=dev).to(sdt) for s in state)
+    if tuple(x0.shape) != shape or tuple(u0.shape) != shape:
+        raise ValueError(
+            f"{what} state has per-shard x/u of shape {tuple(x0.shape)}, but "
+            f"this problem has {shape[0]} data shards (expected {shape}); "
+            "ADMM consensus state cannot move between different shard "
+            "counts")
+    return z0, x0, u0
+
+
+def _admm_loop(local_solve, z, x, u, mask, pen_prox, lam_eff, rho, abstol,
+               reltol, max_iter):
+    """The consensus iterations shared by :func:`admm` and
+    :func:`admm_multinomial`: S local prox solves, the z-consensus under
+    the penalty mask, the dual update and Boyd's stopping rule with its
+    S-dependent scalings. Returns (z, x, u, n_iter, done)."""
+    S = int(x.shape[0])
+    size = x[0].numel()
+    maskb = mask.reshape(mask.shape + (1,) * (z.ndim - 1))
+    t = lam_eff / (rho * S)
+    it, done = 0, None
+    while _keep_going(it, max_iter, done):
+        x = local_solve(x, z, u)
+        zbar = torch.sum(x + u, dim=0) / S
+        z_new = torch.where(maskb > 0, pen_prox(zbar, t), zbar)
+        u = u + x - z_new
+        pri = torch.sqrt(torch.sum((x - z_new) ** 2))
+        dual = rho * math.sqrt(S) * torch.linalg.norm((z_new - z).reshape(-1))
+        eps_pri = (math.sqrt(S * size) * abstol
+                   + reltol * torch.maximum(
+                       torch.sqrt(torch.sum(x * x)),
+                       math.sqrt(S) * torch.linalg.norm(z_new.reshape(-1))))
+        eps_dual = (math.sqrt(S * size) * abstol
+                    + reltol * rho * torch.sqrt(torch.sum(u * u)))
+        done = (pri < eps_pri) & (dual < eps_dual)
+        z = z_new
+        it += 1
+    return z, x, u, it, done
+
+
+def _batched_newton(grad_fn, step_fn, x, inner_tol, inner_max_iter):
+    """S undamped Newton solves run as one batch. A block stops on its
+    own ``max|g_s| <= inner_tol`` (as each shard's loop does in the JAX
+    package) and keeps its x from then on; the loop runs until no block is
+    active or ``inner_max_iter``, one host read per test."""
+    g, aux = grad_fn(x)
+    flat = tuple(range(1, g.ndim))
+
+    def still(gg):
+        return torch.amax(torch.abs(gg), dim=flat) > inner_tol
+
+    active = still(g)
+    it = 0
+    while it < inner_max_iter and _read(torch.any(active)):
+        host_reads["newton_steps"] += 1
+        x_new = x - step_fn(g, aux)
+        g_new, aux_new = grad_fn(x_new)
+        keep = active.reshape((-1,) + (1,) * (x.ndim - 1))
+        x = torch.where(keep, x_new, x)
+        g = torch.where(keep, g_new, g)
+        aux = torch.where(active.reshape((-1,) + (1,) * (aux.ndim - 1)),
+                          aux_new, aux)
+        active = active & still(g)
+        it += 1
+    return x
+
+
+@torch.no_grad()
+def admm(X, y, w, beta0, mask, *, n_shards=1, family="logistic",
+         regularizer="l2", lamduh=0.0, rho=1.0, max_iter=250, abstol=1e-4,
+         reltol=1e-2, inner_max_iter=20, inner_tol=1e-8, state=None,
+         return_state=False, kernel="auto"):
+    """Consensus ADMM (Boyd et al. §7.1.1) over ``n_shards`` contiguous row
+    blocks of equal size, which stand in for the JAX package's data shards:
+    its trajectory depends on S (the z-prox takes t = λ/(ρS) and the
+    stopping residuals scale with S), so ``admm(..., n_shards=S)`` follows
+    the JAX ``admm`` on an S-device mesh.
+
+    Each outer iteration solves the S local prox problems
+    ``argmin_x f_s(x) + (ρ/2)‖x − z + u_s‖²`` (``f_s`` the block's
+    weighted loss over the whole problem's Σw) as one batch of undamped
+    Newton steps: the (S, d, d) Hessian stacked from each block's
+    :func:`_weighted_gram`, one batched ``torch.linalg.solve``. Then the z-consensus under the penalty mask,
+    the dual update and Boyd's primal/dual residual test. Defaults are
+    dask-glm's (ρ = 1, abstol 1e-4, reltol 1e-2, 250 iterations).
+
+    ``state = (z, x, u)`` with x and u stacked ``(S, d)`` resumes a
+    previous ``return_state=True`` call where it stopped; a state of
+    another S raises ``ValueError``. ``n_iter`` counts this call's
+    iterations; ``return_state=True`` returns ``(z, n_iter, state,
+    done)``, else ``(z, n_iter)``. ``kernel`` reaches the container's
+    matvec and pullback (K6 and its backward on the card)."""
+    loss_fn, hess_fn = FAMILIES[family]
+    _, pen_prox = _penalty(regularizer)
+    sdt = _state_dtype(X)
+    dev = w.device
+    d = int(X.shape[1])
+    Xb = _row_blocks(X, n_shards)
+    S = n_shards
+    yb, wb = y.reshape(S, -1), w.reshape(S, -1)
+    sw = torch.clamp(torch.sum(w), min=1.0)
+    lamduh, rho, abstol, reltol, inner_tol = _admm_scalars(
+        sdt, dev, lamduh, rho, abstol, reltol, inner_tol)
+    lam_eff = lamduh / sw
+    eye = torch.eye(d, dtype=sdt, device=dev)
+    z, x, u = _admm_state(state, beta0, (S, d), sdt, dev, "ADMM")
+
+    def local_solve(x, z, u):
+        def grad_eta(xx):
+            # one data pass gives the gradient and the linear predictor
+            # that the Hessian's weights need
+            eta = _blocks_matvec(Xb, xx, kernel)
+            r = wb * _pointwise_grad(loss_fn, eta, yb)
+            g = _blocks_pullback(Xb, r, kernel) / sw + rho * (xx - z + u)
+            return g, eta
+
+        def step(g, eta):
+            H = _blocks_gram(Xb, wb * hess_fn(eta, yb)) / sw + rho * eye
+            return torch.linalg.solve(H, g)
+
+        return _batched_newton(grad_eta, step, x, inner_tol,
+                               int(inner_max_iter))
+
+    z, x, u, n_iter, done = _admm_loop(local_solve, z, x, u, mask, pen_prox,
+                                       lam_eff, rho, abstol, reltol,
+                                       int(max_iter))
+    if return_state:
+        return z, n_iter, (z, x, u), done is not None and bool(done)
+    return z, n_iter
+
+
+#: the refusal of a sparse softmax ADMM fit, in the JAX facade's words
+SPARSE_MULTINOMIAL_ADMM = (
+    "multinomial ADMM does not support sparse inputs: its local Newton "
+    "builds the (dK x dK) Hessian from dense rows. Use solver='lbfgs' (the "
+    "softmax objective routes through the sparse gather-matmat kernels), "
+    "or multiclass='ovr'")
+
+#: rows × K² × d entries of the multinomial Hessian's per-chunk operand
+_MN_HESS_BUDGET = 1 << 26
+
+
+def _multinomial_hessian(Xb, P, wb, sw):
+    """``H_s = Σ_i w_i · x_i x_iᵀ ⊗ (diag p_i − p_i p_iᵀ) / SW`` for every
+    block, (S, dK, dK). Indexed ``[(j, c), (l, k)]``: both axes flatten
+    feature-major, as ``g.reshape(dK)`` does (another order permutes the
+    columns and Newton diverges). Built over row chunks as one batched
+    product ``X_cᵀ @ W_c`` with ``W_c[i, c, l, k] = w_i M_i[c, k] x_il``,
+    so no (n, d, K, K) intermediate exists."""
+    S, nb, d = Xb.shape
+    K = int(P.shape[2])
+    H = torch.zeros((S, d, K * d * K), dtype=P.dtype, device=P.device)
+    eye = torch.eye(K, dtype=P.dtype, device=P.device)
+    rows = max(1, _MN_HESS_BUDGET // (S * K * K * d))
+    for a in range(0, nb, rows):
+        Pc, Xc = P[:, a:a + rows], Xb[:, a:a + rows]
+        M = (Pc[..., :, None] * eye - Pc[..., :, None] * Pc[..., None, :])
+        M = M * wb[:, a:a + rows, None, None]
+        W = M[:, :, :, None, :] * Xc[:, :, None, :, None]  # (S, r, c, l, k)
+        H += torch.bmm(Xc.transpose(1, 2), W.reshape(S, -1, K * d * K))
+    return H.view(S, d * K, d * K) / sw
+
+
+@torch.no_grad()
+def admm_multinomial(X, y_idx, w, B0, mask, *, n_classes, n_shards=1,
+                     regularizer="l2", lamduh=0.0, rho=1.0, max_iter=250,
+                     abstol=1e-4, reltol=1e-2, inner_max_iter=20,
+                     inner_tol=1e-8, state=None, return_state=False):
+    """Consensus ADMM for softmax logistic regression: :func:`admm` with
+    (d, K) coefficient matrices per block (the JAX ``admm_multinomial``).
+    Each local prox solve is a batch of Newton steps on the full
+    ρ-regularized (dK × dK) Hessian (:func:`_multinomial_hessian`). Dense
+    input only. Same state contract as :func:`admm`, with x and u stacked
+    ``(S, d, K)``. Returns ``(B (d, K), n_iter)``."""
+    if isinstance(X, sparse_ops.SparseRows):
+        raise ValueError(SPARSE_MULTINOMIAL_ADMM)
+    _, pen_prox = _penalty(regularizer)
+    sdt = _state_dtype(X)
+    dev = w.device
+    d, K = int(X.shape[1]), int(n_classes)
+    S = n_shards
+    Xb = _row_blocks(X, S)
+    wb = w.reshape(S, -1)
+    Yoh = torch.nn.functional.one_hot(y_idx.to(torch.int64), K).to(sdt)
+    Yoh = Yoh.reshape(S, -1, K)
+    sw = torch.clamp(torch.sum(w), min=1.0)
+    lamduh, rho, abstol, reltol, inner_tol = _admm_scalars(
+        sdt, dev, lamduh, rho, abstol, reltol, inner_tol)
+    lam_eff = lamduh / sw
+    eye = torch.eye(d * K, dtype=sdt, device=dev)
+    z, x, u = _admm_state(state, B0, (S, d, K), sdt, dev,
+                          "multinomial ADMM")
+
+    def local_solve(x, z, u):
+        def grad_probs(B):
+            P = torch.softmax(torch.bmm(Xb, B.to(Xb.dtype)), dim=2)
+            g = torch.bmm(Xb.transpose(1, 2), wb[:, :, None] * (P - Yoh))
+            return g / sw + rho * (B - z + u), P
+
+        def step(g, P):
+            H = _multinomial_hessian(Xb, P, wb, sw) + rho * eye
+            return torch.linalg.solve(H, g.reshape(S, d * K)).view(S, d, K)
+
+        return _batched_newton(grad_probs, step, x, inner_tol,
+                               int(inner_max_iter))
+
+    z, x, u, n_iter, done = _admm_loop(local_solve, z, x, u, mask, pen_prox,
+                                       lam_eff, rho, abstol, reltol,
+                                       int(max_iter))
+    if return_state:
+        return z, n_iter, (z, x, u), done is not None and bool(done)
+    return z, n_iter
+
+
+@torch.no_grad()
+def multinomial_lbfgs(X, y_idx, w, B0, mask, *, n_classes, regularizer="l2",
+                      lamduh=0.0, max_iter=200, tol=1e-4, m=10, state=None,
+                      return_state=False):
+    """Softmax (multinomial) logistic regression by L-BFGS on the flattened
+    (d·K) coefficient vector: :func:`_lbfgs_loop` over the weighted softmax
+    cross-entropy (the JAX ``multinomial_lbfgs``). ``y_idx`` holds float
+    class indices 0..K-1; ``mask`` (d,) is the per-feature penalty mask,
+    broadcast over the classes. A container's logits go through
+    :func:`~dask_ml_tpu_torch.ops.sparse.matmat` (its gradient through
+    autograd's scatter-add). Returns ``(B (d, K), n_iter)``; ``state`` /
+    ``return_state`` as in :func:`lbfgs`, over the flattened carry."""
+    d, K = int(X.shape[1]), int(n_classes)
+    sdt = _state_dtype(X)
+    sw = torch.clamp(torch.sum(w), min=1.0)
+    pen_value, _ = _penalty(regularizer)
+    lam_eff = torch.tensor(lamduh, dtype=sdt, device=w.device)
+    Yoh = torch.nn.functional.one_hot(y_idx.to(torch.int64), K).to(sdt)
+
+    def obj(bflat):
+        B = bflat.reshape(d, K)
+        if isinstance(X, sparse_ops.SparseRows):
+            logits = sparse_ops.matmat(X, B)
+        else:
+            logits = torch.matmul(X, B.to(X.dtype))
+        lse = torch.logsumexp(logits, dim=1)
+        nll = torch.sum(w * (lse - torch.sum(Yoh * logits, dim=1)))
+        pen = pen_value((B * mask[:, None]).reshape(-1))
+        return (nll + lam_eff * pen) / sw
+
+    vg = _value_and_grad(obj)
+    dK = d * K
+    dev = w.device
+    if state is None:
+        b0 = B0.to(sdt).reshape(dK)
+        f0, g0 = vg(b0)
+        carry0 = (b0, g0, f0,
+                  torch.zeros((m, dK), dtype=sdt, device=dev),
+                  torch.zeros((m, dK), dtype=sdt, device=dev),
+                  torch.zeros((m,), dtype=sdt, device=dev),
+                  torch.zeros((), dtype=torch.int32, device=dev),
+                  torch.zeros((), dtype=torch.int32, device=dev))
+    else:
+        carry0 = tuple(torch.as_tensor(s, device=dev) for s in state)
+    carry, n_iter, done = _lbfgs_loop(obj, vg, carry0, max_iter, tol, m)
+    B = carry[0].reshape(d, K)
+    if return_state:
+        return B, n_iter, carry, done is not None and bool(done)
+    return B, n_iter
+
+
 SOLVERS = ("admm", "gradient_descent", "newton", "lbfgs", "proximal_grad")
 
-_SMOOTH = {
+_SOLVERS = {
+    "admm": admm,
     "gradient_descent": gradient_descent,
     "newton": newton,
     "lbfgs": lbfgs,
@@ -450,17 +787,11 @@ _SMOOTH = {
 
 
 def solver_fn(solver):
-    """The solver function named ``solver``; ADMM is not ported yet and
-    raises."""
+    """The solver function named ``solver``."""
     if solver not in SOLVERS:
         raise ValueError(
             f"'solver' must be one of {set(SOLVERS)}. Got {solver!r} instead")
-    if solver == "admm":
-        raise NotImplementedError(
-            "solver='admm' is not ported to the PyTorch package yet; use "
-            "solver='lbfgs' (or 'newton', 'gradient_descent', "
-            "'proximal_grad')")
-    return _SMOOTH[solver]
+    return _SOLVERS[solver]
 
 
 def solve(solver, X, y, w, beta0, mask, **kwargs):

@@ -135,6 +135,24 @@ def _check_csr(X):
     return out
 
 
+def svd_flip(u, v, u_based_decision: bool = False):
+    """Deterministic SVD signs. The default is v-based, as scikit-learn
+    ≥ 1.5's PCA and TruncatedSVD: the largest-|v| entry of each right
+    singular vector is made positive; ``u_based_decision=True`` makes the
+    largest-|u| entry of each left singular vector positive instead. Ties
+    go to the first index; a zero vector is left as it is."""
+    if u_based_decision:
+        rows = torch.argmax(torch.abs(u), dim=0)
+        signs = torch.sign(u[rows, torch.arange(u.shape[1],
+                                                device=u.device)])
+    else:
+        cols = torch.argmax(torch.abs(v), dim=1)
+        signs = torch.sign(v[torch.arange(v.shape[0], device=v.device),
+                             cols])
+    signs = torch.where(signs == 0, 1.0, signs)
+    return u * signs[None, :], v * signs[:, None]
+
+
 def check_random_state(seed=None, device=None) -> torch.Generator:
     """Coerce ``seed`` into a ``torch.Generator`` on the configured device
     (or ``device``): an int seeds it, ``None`` draws a fresh seed, a numpy

@@ -355,11 +355,15 @@ def test_glm_from_numpy_ovr_and_bad_input():
 def test_facade_refusals():
     dense, ys = _problem(11, 60, 4)
     y = ys["logistic"]
-    with pytest.raises(NotImplementedError, match="solver='lbfgs'"):
-        tlm.LogisticRegression().fit(dense, y)  # solver defaults to admm
-    with pytest.raises(NotImplementedError, match="multinomial"):
-        tlm.LogisticRegression(solver="lbfgs", multiclass="multinomial").fit(
-            dense, np.arange(60) % 3)
+    # the default solver (admm) and multinomial fits with more than two
+    # classes fit now (tests/test_torch_admm.py holds them to JAX); a
+    # sparse multinomial ADMM fit is refused
+    assert tlm.LogisticRegression().fit(dense, y).n_iter_ >= 1
+    est = tlm.LogisticRegression(solver="lbfgs", multiclass="multinomial")
+    assert est.fit(dense, np.arange(60) % 3).coef_.shape == (3, 4)
+    with pytest.raises(ValueError, match="multinomial ADMM"):
+        tlm.LogisticRegression(multiclass="multinomial").fit(
+            scipy_sparse.csr_matrix(dense), np.arange(60) % 3)
     with pytest.raises(NotImplementedError, match="checkpoint"):
         tlm.LogisticRegression(solver="lbfgs", checkpoint="x").fit(dense, y)
     with pytest.raises(ValueError, match="'solver' must be"):

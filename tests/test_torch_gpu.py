@@ -670,3 +670,84 @@ def test_sparse_lbfgs_fit_on_card(cuda):
     assert n_plain == est.n_iter_
     np.testing.assert_allclose(est._coef, plain.cpu().numpy(), rtol=1e-4,
                                atol=1e-4 * np.abs(est._coef).max())
+
+
+def test_sparse_admm_outer_step_kernel_against_plain(cuda):
+    """One outer ADMM iteration on a container from a shared state:
+    through K6 and its pullback kernel, and through the plain versions,
+    within 1e-5 normwise (the pullbacks' and the Gram's float atomics
+    move the last bits); the kernel run launches both kernels."""
+    X, y = make_sparse_classification(20_000, 500, 0.02, random_state=4)
+    Xd = sps.add_intercept_ell(X.to(cuda))
+    yd = torch.as_tensor(y, device=cuda)
+    w = torch.ones(20_000, device=cuda)
+    mask = torch.ones(501, device=cuda)
+    mask[-1] = 0
+    b0 = torch.zeros(501, device=cuda)
+    args = (Xd, yd, w, b0, mask)
+    _, _, state, _ = glm_core.admm(*args, n_shards=2, lamduh=1.0,
+                                   max_iter=2, return_state=True)
+    _kernels.reset_launches()
+    zc, _ = glm_core.admm(*args, n_shards=2, lamduh=1.0, max_iter=1,
+                          state=state, kernel="cuda")
+    assert _kernels.launches["spmv"] > 0
+    assert _kernels.launches["spmv_pullback"] > 0
+    zt, _ = glm_core.admm(*args, n_shards=2, lamduh=1.0, max_iter=1,
+                          state=state, kernel="torch")
+    assert float(torch.linalg.norm(zc - zt) / torch.linalg.norm(zt)) < 1e-5
+
+
+def test_tsqr_and_its_fallback_on_card(cuda):
+    from dask_ml_tpu_torch.ops import linalg
+
+    rng = np.random.default_rng(5)
+    X = torch.as_tensor(rng.standard_normal((50_000, 64), dtype=np.float32),
+                        device=cuda)
+    linalg.reset_tsqr_counts()
+    Q, R = linalg.tsqr(X)
+    assert linalg.tsqr_counts["cholqr2"] == 1
+    eye = torch.eye(64, device=cuda)
+    assert float(torch.abs(Q.T @ Q - eye).max()) < 1e-5
+    assert float(torch.abs(Q @ R - X).max()) < 1e-4
+    U, _ = np.linalg.qr(rng.standard_normal((4096, 64)))
+    V, _ = np.linalg.qr(rng.standard_normal((64, 64)))
+    Xi = torch.as_tensor(((U * np.logspace(0, -6, 64)) @ V.T).astype(
+        np.float32), device=cuda)
+    linalg.reset_tsqr_counts()
+    Q, R = linalg.tsqr(Xi)
+    assert linalg.tsqr_counts == {"host_reads": 1, "cholqr2": 0,
+                                  "householder": 1}
+    assert float(torch.abs(Q.T @ Q - eye).max()) < 1e-5
+    assert float(torch.abs(Q @ R - Xi).max()) < 1e-5
+
+
+def test_logistic_regression_and_pca_on_cuda_tensors(cuda):
+    """The default LogisticRegression (ADMM), a multinomial fit and PCA
+    fitted on tensors that lie on the card agree with the same fits on the
+    CPU (rtol 1e-4: cuBLAS and the CPU's BLAS sum in other orders)."""
+    from dask_ml_tpu_torch.decomposition import PCA
+
+    rng = np.random.default_rng(6)
+    X = rng.standard_normal((4_000, 10), dtype=np.float32)
+    y = (X @ rng.standard_normal(10) > 0).astype(np.float32)
+    y3 = np.digitize(X[:, 0], [-0.5, 0.5])
+    Xc = torch.as_tensor(X, device=cuda)
+    for est_kw, target in (({"solver_kwargs": {"rho": 0.1}}, y),
+                           ({"multiclass": "multinomial",
+                             "solver": "lbfgs"}, y3)):
+        card = LogisticRegression(**est_kw).fit(Xc, target)
+        with config_context(device="cpu"):
+            cpu = LogisticRegression(**est_kw).fit(X, target)
+        assert card.n_iter_ == cpu.n_iter_
+        np.testing.assert_allclose(card.coef_, cpu.coef_, rtol=1e-4,
+                                   atol=1e-4 * np.abs(cpu.coef_).max())
+        np.testing.assert_array_equal(card.predict(Xc), cpu.predict(X))
+    card = PCA(4, svd_solver="full").fit(Xc)
+    with config_context(device="cpu"):
+        cpu = PCA(4, svd_solver="full").fit(X)
+    np.testing.assert_allclose(card.singular_values_, cpu.singular_values_,
+                               rtol=1e-4)
+    np.testing.assert_allclose(np.abs(card.components_),
+                               np.abs(cpu.components_), atol=1e-4)
+    Zc = card.transform(Xc)
+    assert Zc.shape == (4_000, 4) and np.isfinite(Zc).all()
