@@ -84,9 +84,35 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``fit_transform`` within 1e-4 of its scale; tsqr must fall back to
    Householder on a cond-1e6 input with ‖QᵀQ − I‖ < 1e-5.
 
+10. drives the streaming and fault tier (``STREAM``), on the host arrays
+   the cells above drew: streamed consensus ADMM at BASELINE config 3's
+   published 1e8 × 100 (40 blocks of 2,500,000 rows made on the card one
+   at a time, 10 outer iterations; cos(z, w_true) ≥ 0.99, held-out
+   accuracy within 0.002 of w_true's, peak memory under three blocks);
+   the dense ADMM cell's arrays streamed from the host in 8 blocks
+   (prefetch 2 and 0 in turns: the same bits, prefetch 2 not slower; the
+   callable mode the same bits; ``admm(n_shards=8)`` within 1e-5; a
+   preemption resumed bit for bit; injected read and copy faults under a
+   ``RetryPolicy`` the same bits and bytes; ``fit_blocks`` preempted and
+   resumed bit for bit; the card's pinned and pageable copy rates and a
+   device profile of one epoch); the sparse ADMM container in 4 blocks
+   (K6 and its backward; ``admm(n_shards=4)`` and the plain step within
+   1e-5; the resume within twice the spread of four uninterrupted runs
+   and within 1e-6);
+   streamed PCA at BASELINE config 2's 1e7 × 1,000 (variances within
+   5e-3 of the scales², the mean within 1e-2); the PCA cell's arrays
+   streamed (moments within 1e-5 of float64, the top 64 components
+   aligned ≥ 0.999 with the in-memory PCA, variances within 1e-4, the
+   resume bit for bit); ``lloyd_bounded_resumable`` at the KDD shape
+   interrupted in its second chunk and resumed (the one-shot loop's
+   tuple bit for bit, rows still skipped after the resume, a bumped
+   carry version refused); a checkpointed L-BFGS facade interrupted
+   after its second save and resumed bit for bit.
+
 ``python3 chip_smoke.py --spmv-only`` runs steps 1, 2, 6 and 8 alone, on a
 container of the sparse cell's shape drawn on the card;
-``--glm-pca-only`` runs steps 1, 2 and 9 alone.
+``--glm-pca-only`` runs steps 1, 2 and 9 alone; ``--stream-only`` steps 1,
+2 and 10, drawing its own host arrays.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
@@ -171,6 +197,23 @@ SPMV_WIDE_DS = (150_001, 300_001)
 # the rounds' candidate buffer of cap slots, of which a round usually fills
 # the first l, and the weights' buffer of max_cand slots
 ROUND_CAP, ROUND_COUNT, WEIGHT_CAND = 80, 16, 329
+# the streaming tier (STREAM): BASELINE configs 3 and 2 at their published
+# sizes, 40 row blocks of 1 GB made on the card one at a time
+# (bench.py bench_admm_blueprint / bench_pca_blueprint), nothing cut
+BP_ADMM_N, BP_ADMM_D, BP_ADMM_BLOCKS, BP_ADMM_OUTER = 100_000_000, 100, 40, 10
+BP_PCA_N, BP_PCA_D, BP_PCA_BLOCKS, BP_PCA_K = 10_000_000, 1_000, 40, 100
+# host-resident streams: the dense ADMM and PCA cells' arrays in 8 blocks
+# (the JAX bench sizes these rows to its link; fixed here), 3 outer
+# iterations; the sparse ADMM cell's container in 4 blocks
+HOST_BLOCKS, HOST_OUTER, SPSTREAM_BLOCKS = 8, 3, 4
+# the resumable bounded loop at the KDD shape: tol 0, 20 iterations in
+# chunks of 7; the checkpointed L-BFGS facade: 6 iterations in chunks of 2
+RESUME_ITERS, RESUME_CHUNK = 20, 7
+CKPT_LBFGS_ITERS, CKPT_LBFGS_EVERY = 6, 2
+# gates: the blueprint fit's direction and held-out accuracy, the streamed
+# PCA's variances and mean, host-streamed moments against float64
+BP_COS, BP_ACC_TOL, BP_EV_RTOL, BP_MEAN_TOL = 0.99, 0.002, 5e-3, 1e-2
+STREAM_RTOL, MOMENT_RTOL, EV_RTOL, ALIGN = 1e-5, 1e-5, 1e-4, 0.999
 # H100 SXM data sheet: HBM3 bandwidth and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
@@ -200,6 +243,8 @@ PATH_KERNELS = {
     "glm-sparse-fit": ("spmv", "spmv_pullback"),
     "glm-sparse-score": ("spmv",),
     "glm-sparse-admm": ("spmv", "spmv_pullback"),
+    "admm-streamed-sparse": ("spmv", "spmv_pullback"),
+    "lloyd-bounded-resumable": ("fused_argmin_min2", "fused_argmin_min"),
 }
 SOURCES = {
     "lloyd_iter": "dask_ml_tpu_torch/_kernels/csrc/lloyd.cu",
@@ -219,6 +264,19 @@ SOURCES = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: host data sets already drawn, by name: the STREAM phase streams the
+#: arrays the earlier cells drew instead of drawing them again
+_DRAWN: dict = {}
+
+
+def drawn(name: str, make):
+    """``make()``'s result, drawn once per run and kept under ``name``
+    (callers read it and never write to it)."""
+    if name not in _DRAWN:
+        _DRAWN[name] = make()
+    return _DRAWN[name]
 
 
 def smi_name_power() -> str:
@@ -1086,8 +1144,8 @@ def bounded_late_need(X, w, c0, iters: int):
     X_pad, w_pad = core._pad_rows_to_blocks(X, w)
     w_pos = w_pad > 0
     x2 = (X_pad * X_pad).sum(dim=1)
-    centers, labels, ub, lb, _, _ = core._bounded_init_state(
-        c0, X_pad.shape[0], G, iters)
+    centers, labels, ub, lb = core._bounded_init_state(
+        c0, X_pad.shape[0], G, iters)[:4]
     skipped = []
     for _ in range(iters):
         need = core._bounded_need(ub, lb, w_pos, prune=True)
@@ -1149,7 +1207,7 @@ def kdd_cell(dev, errs):
     from dask_ml_tpu_torch.utils.validation import check_random_state
 
     t0 = time.perf_counter()
-    X = kdd_data(KDD_N, KDD_D, SEED)
+    X = drawn("kdd", lambda: kdd_data(KDD_N, KDD_D, SEED))
     log(f"KDD-shaped data {X.shape} made in {time.perf_counter() - t0:.2f} s")
     summary = {"n": KDD_N, "d": KDD_D, "k": K}
 
@@ -2013,7 +2071,7 @@ def dense_admm_cell(dev):
     from dask_ml_tpu_torch.models import glm as glm_core
 
     t0 = time.perf_counter()
-    X, y = admm_data(SEED)
+    X, y = drawn("admm", lambda: admm_data(SEED))
     gen_s = time.perf_counter() - t0
     log(f"ADMM data {X.shape} made in {gen_s:.2f} s")
     out = {"n": ADMM_N, "d": ADMM_D, "host_generation_s": gen_s}
@@ -2133,8 +2191,8 @@ def sparse_admm_cell(dev):
     from dask_ml_tpu_torch.models import glm as glm_core
     from dask_ml_tpu_torch.parallel.sharding import prepare_data
 
-    X, y = make_sparse_classification(SPADMM_N, SPADMM_D, SPADMM_DENSITY,
-                                      random_state=0)
+    X, y = drawn("sparse_admm", lambda: make_sparse_classification(
+        SPADMM_N, SPADMM_D, SPADMM_DENSITY, random_state=0))
 
     def fit_score():
         est = LogisticRegression(solver="admm",
@@ -2212,7 +2270,7 @@ def pca_cell(dev):
     from dask_ml_tpu_torch.ops import linalg
 
     t0 = time.perf_counter()
-    X = pca_data(SEED)
+    X = drawn("pca", lambda: pca_data(SEED))
     out = {"n": PCA_N, "d": PCA_D, "k": PCA_K,
            "host_generation_s": time.perf_counter() - t0}
     log(f"PCA data {X.shape} made in {out['host_generation_s']:.2f} s")
@@ -2339,6 +2397,693 @@ def glm_pca_cells(dev):
 
 
 # ---------------------------------------------------------------------------
+# STREAM: the streaming and fault tier
+# ---------------------------------------------------------------------------
+
+
+class Interrupt(Exception):
+    """Raised by a patched function to stand in for a kill mid-run."""
+
+
+@contextlib.contextmanager
+def interrupt_on(module, name: str, at: int, after: bool = False):
+    """Patch ``module.name`` so that its ``at``-th call raises
+    :class:`Interrupt`: before the call runs, or ``after`` it (a save
+    that completes, then the kill)."""
+    orig = getattr(module, name)
+    calls = []
+
+    def patched(*a, **k):
+        calls.append(1)
+        if len(calls) == at and not after:
+            raise Interrupt(name)
+        out = orig(*a, **k)
+        if len(calls) == at:
+            raise Interrupt(name)
+        return out
+
+    setattr(module, name, patched)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def block_seed(seed: int, b: int) -> int:
+    """The ``torch.Generator`` seed of block ``b`` of a run seeded
+    ``seed``."""
+    return int(np.random.SeedSequence([seed, b]).generate_state(1)[0])
+
+
+def rel(a, b) -> float:
+    """‖a − b‖ / ‖b‖ in float64."""
+    import torch
+
+    a, b = a.double().reshape(-1), b.double().reshape(-1)
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def states_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(s, t) for s, t in zip(a, b))
+
+
+def h2d_rates(dev, nbytes: int = 1 << 30) -> dict:
+    """GB/s of one ``copy_`` of ``nbytes`` host→device between CUDA events,
+    from pinned and from pageable memory (each buffer written first, so no
+    page is faulted in during the copy)."""
+    import torch
+
+    n = nbytes // 4
+    out = torch.empty(n, device=dev)
+    rates = {}
+    for name, pin in (("pinned", True), ("pageable", False)):
+        host = torch.ones(n, pin_memory=pin)
+        best = float("inf")
+        for _ in range(2):
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out.copy_(host, non_blocking=pin)
+            e1.record()
+            e1.synchronize()
+            best = min(best, e0.elapsed_time(e1) / 1e3)
+        rates[f"{name}_gbps"] = nbytes / best / 1e9
+        del host
+    return rates
+
+
+def stream_admm_blueprint(dev):
+    """BASELINE config 3 at 1e8 × 100: 40 blocks of 2,500,000 rows made on
+    the card by ``block_fn(b)`` (bench_admm_blueprint's recipe), 10 outer
+    iterations of streamed ADMM, one block resident at a time."""
+    import torch
+
+    from dask_ml_tpu_torch.models import glm as glm_core
+
+    n, d, B = BP_ADMM_N, BP_ADMM_D, BP_ADMM_BLOCKS
+    rows = n // B
+    w_true = torch.as_tensor(
+        np.random.RandomState(3).randn(d).astype(np.float32), device=dev)
+
+    def block_fn(b):
+        g = torch.Generator(device=dev)
+        g.manual_seed(block_seed(SEED, b))
+        X = torch.randn((rows, d), generator=g, device=dev).mul_(2.0)
+        eta = X @ w_true + torch.randn(rows, generator=g, device=dev)
+        return X, (eta > 0).to(torch.float32), torch.ones(rows, device=dev)
+
+    gen_ms = cuda_ms(lambda: block_fn(0), iters=3, warmup=1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    glm_core.reset_host_reads()
+    (z, n_iter), sec, launches = drive(lambda: glm_core.admm_streamed(
+        block_fn, B, d, float(n), family="logistic", regularizer="l2",
+        lamduh=1.0, max_iter=BP_ADMM_OUTER, abstol=0.0, reltol=0.0))
+    peak = torch.cuda.max_memory_allocated() - base
+    steps = glm_core.host_reads["newton_steps"]
+    cos = float(torch.dot(z, w_true) / (torch.linalg.norm(z)
+                                        * torch.linalg.norm(w_true)))
+    Xh, yh, _ = block_fn(B)  # a 41st block, never fitted
+    acc = float(((Xh @ z > 0).float() == yh).float().mean())
+    acc_true = float(((Xh @ w_true > 0).float() == yh).float().mean())
+    del Xh, yh
+    out = {"n": n, "d": d, "blocks": B,
+           "s_per_outer_iter": sec / n_iter,
+           "ms_per_block": sec * 1e3 / (n_iter * B),
+           "newton_steps": steps, "ms_per_newton_step": sec * 1e3 / steps,
+           "block_generation_ms": gen_ms, "peak_memory_bytes": peak,
+           "cos_z_w_true": cos, "heldout_accuracy": acc,
+           "heldout_accuracy_w_true": acc_true,
+           "effective_gbps": n * (d + 2) * 4 * n_iter / sec / 1e9}
+    path_line("admm-streamed-blueprint", sec, n_iter, launches, **out)
+    expect(n_iter == BP_ADMM_OUTER and bool(torch.isfinite(z).all()),
+           f"blueprint ADMM: n_iter {n_iter}")
+    expect(cos >= BP_COS, f"blueprint ADMM: cos(z, w_true) {cos}")
+    expect(abs(acc - acc_true) <= BP_ACC_TOL,
+           f"blueprint ADMM: held-out accuracy {acc} against w_true's "
+           f"{acc_true}")
+    expect(peak < 3 * rows * d * 4,
+           f"blueprint ADMM held {peak} bytes: more than one block")
+    return dict(out, n_iter=n_iter)
+
+
+def stream_admm_host(dev, X, y, tmp):
+    """The dense ADMM cell's arrays streamed from the host in 8 blocks:
+    prefetch 2 against 0, the callable mode, the in-memory admm, a
+    preemption and its resume, injected faults under a RetryPolicy, and
+    the facade's ``fit_blocks`` preempted and resumed."""
+    import torch
+
+    from dask_ml_tpu_torch import checkpoint as ckpt
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.models import glm as glm_core
+    from dask_ml_tpu_torch.parallel.faults import (FaultInjector, Preempted,
+                                                   RetryPolicy)
+    from dask_ml_tpu_torch.parallel.stream import HostBlockSource
+
+    base = torch.cuda.memory_allocated()
+    n, d = X.shape
+    B = HOST_BLOCKS
+    w = np.ones(n, np.float32)
+    kw = dict(family="logistic", regularizer="l2", lamduh=1.0, abstol=0.0,
+              reltol=0.0, max_iter=HOST_OUTER, return_state=True)
+    t0 = time.perf_counter()
+    src2 = HostBlockSource((X, y, w), B, prefetch=2)
+    register_s = time.perf_counter() - t0
+    src0 = HostBlockSource((X, y, w), B, prefetch=0)
+    out = {"n": n, "d": d, "blocks": B, "outer": HOST_OUTER,
+           "register_s": register_s, **h2d_rates(dev)}
+
+    def run(src, **extra):
+        src.reset_stats()
+        return glm_core.admm_streamed(src, B, d, float(n), **dict(kw,
+                                                                  **extra))
+
+    run(src2, max_iter=1)  # handles, allocator, first copies
+    times = {2: [], 0: []}
+    states = {}
+    launches = None
+    for depth in (2, 0, 0, 2):  # in turns, within this call
+        src = src2 if depth == 2 else src0
+        (_, n_iter, st, _), sec, launches = drive(lambda: run(src))
+        times[depth].append(sec)
+        states.setdefault(depth, []).append(st)
+        out[f"bytes_prefetch{depth}"] = src.bytes_streamed
+    t2, t0_ = min(times[2]), min(times[0])
+    nbytes = out["bytes_prefetch2"]
+    out.update(seconds_prefetch2=times[2], seconds_prefetch0=times[0],
+               gbps_prefetch2=nbytes / t2 / 1e9,
+               gbps_prefetch0=nbytes / t0_ / 1e9,
+               overlap_speedup=t0_ / t2)
+    ref = states[2][0]
+    expect(all(states_equal(ref, st) for st in states[2] + states[0]),
+           "host-streamed ADMM: prefetch 2 and prefetch 0 differ")
+    expect(t2 <= t0_, f"prefetch 2 ({t2} s) slower than prefetch 0 "
+           f"({t0_} s)")
+    expect(out["bytes_prefetch0"] == nbytes == HOST_OUTER * (X.nbytes
+                                                             + y.nbytes
+                                                             + w.nbytes),
+           f"bytes streamed {out['bytes_prefetch0']} / {nbytes}")
+    # one block's copy from the registered arrays, alone
+    blk_bytes = nbytes // (HOST_OUTER * B)
+    out["registered_block_copy_gbps"] = blk_bytes / (cuda_ms(
+        lambda: src2.take(3), iters=4, warmup=1) / 1e3) / 1e9
+    out["profile_epoch_prefetch2"] = prof = device_profile(
+        lambda: run(src2, max_iter=1))
+    log("PROFILE admm-streamed-host-epoch " + json.dumps(prof))
+
+    # the callable mode over the same rows resident on the card, and the
+    # in-memory admm over them as 8 row blocks
+    Xd, yd = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+    wd = torch.ones(n, device=dev)
+    rows = n // B
+
+    def block_fn(b):
+        s = slice(b * rows, (b + 1) * rows)
+        return Xd[s].clone(), yd[s].clone(), wd[s].clone()
+
+    _, n_c, st_c, _ = glm_core.admm_streamed(block_fn, B, d, float(n), **kw)
+    _, n_m, st_m, _ = glm_core.admm(Xd, yd, wd, torch.zeros(d, device=dev),
+                                    torch.ones(d, device=dev), n_shards=B,
+                                    **kw)
+    del Xd, yd, wd
+    torch.cuda.empty_cache()
+    out["callable_equal"] = states_equal(ref, st_c)
+    out["in_memory_rel"] = rel(ref[0], st_m[0])
+    expect(out["callable_equal"] and n_c == HOST_OUTER,
+           "host-streamed ADMM: the callable mode differs")
+    expect(out["in_memory_rel"] <= STREAM_RTOL and n_m == HOST_OUTER,
+           f"host-streamed ADMM against admm(n_shards={B}): "
+           f"{out['in_memory_rel']}, n_iter {n_m}")
+
+    # preemption at block 5 of epoch 1, then the resume
+    path = f"{tmp}/admm-host.ckpt"
+    ckpt.reset_io_counts()
+    inj = FaultInjector().preempt_at(5, epoch=1)
+    try:
+        run(HostBlockSource((X, y, w), B, fault_injector=inj),
+            checkpoint_path=path)
+        raise Mismatch("the injected preemption did not stop the fit")
+    except Preempted:
+        pass
+    import os
+
+    expect(os.path.exists(path), "no snapshot after the preemption")
+    _, n_r, st_r, _ = run(src2, checkpoint_path=path)
+    io = dict(ckpt.io_counts)
+    out["snapshot"] = {
+        "saves": io["saves"], "save_s": io["save_seconds"] / io["saves"],
+        "save_bytes": io["save_bytes"] / io["saves"],
+        "load_s": io["load_seconds"] / max(io["loads"], 1),
+        "load_bytes": io["load_bytes"] / max(io["loads"], 1)}
+    expect(states_equal(ref, st_r) and n_r == HOST_OUTER,
+           "host-streamed ADMM: the resumed state differs")
+    expect(not os.path.exists(path), "the snapshot was not deleted")
+
+    # injected read and copy faults under a retry policy
+    pol = RetryPolicy(max_retries=3)
+    inj = FaultInjector().fail_load(2, times=2).fail_transfer(6)
+    src_f = HostBlockSource((X, y, w), B, retry_policy=pol,
+                            fault_injector=inj)
+    _, _, st_f, _ = run(src_f)
+    out["retries"] = pol.stats()
+    expect(states_equal(ref, st_f) and pol.giveups == 0
+           and pol.retries == 3 and src_f.bytes_streamed == nbytes,
+           f"faults under RetryPolicy: {pol.stats()}, bytes "
+           f"{src_f.bytes_streamed}")
+
+    # the facade: fit_blocks preempted, resumed, against an uninterrupted
+    # fit_blocks
+    skw = {"abstol": 0.0, "reltol": 0.0}
+    clean = LogisticRegression(solver="admm", max_iter=HOST_OUTER,
+                               solver_kwargs=skw)
+    (_, sec_f, _) = drive(lambda: clean.fit_blocks(src2, B, n, d))
+    prefix = f"{tmp}/facade"
+    inj = FaultInjector().preempt_at(5, epoch=1)
+    try:
+        LogisticRegression(solver="admm", max_iter=HOST_OUTER,
+                           solver_kwargs=skw, checkpoint=prefix,
+                           checkpoint_every=B).fit_blocks(
+            HostBlockSource((X, y, w), B, fault_injector=inj), B, n, d)
+        raise Mismatch("the injected preemption did not stop fit_blocks")
+    except Preempted:
+        pass
+    resumed = LogisticRegression(solver="admm", max_iter=HOST_OUTER,
+                                 solver_kwargs=skw, checkpoint=prefix,
+                                 checkpoint_every=B).fit_blocks(src2, B, n,
+                                                                d)
+    out["fit_blocks_s"] = sec_f
+    expect(np.array_equal(resumed.coef_, clean.coef_)
+           and resumed.intercept_ == clean.intercept_
+           and resumed.n_iter_ == clean.n_iter_,
+           "fit_blocks: the resumed coefficients differ")
+    src2.close()
+    src0.close()
+    # the whole path's peak above what was resident before it, its
+    # comparison runs included
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - base
+    path_line("admm-streamed-host", t2, HOST_OUTER, launches, **out)
+    log(f"host-streamed ADMM: {out['gbps_prefetch2']:.2f} GB/s at prefetch "
+        f"2, {out['gbps_prefetch0']:.2f} at 0 (overlap "
+        f"{out['overlap_speedup']:.3f}x); H2D one copy_ of 1 GB: pinned "
+        f"{out['pinned_gbps']:.2f}, pageable {out['pageable_gbps']:.2f}, a "
+        f"registered block {out['registered_block_copy_gbps']:.2f} GB/s")
+    return out
+
+
+def stream_admm_sparse(dev, Xs, y, tmp):
+    """The sparse ADMM cell's container streamed in 4 blocks through
+    ``fit_blocks`` with the intercept; against admm(n_shards=4); one outer
+    iteration through the kernels against the plain one; preemption and
+    resume held to the run-to-run spread the pullback's float adds
+    leave."""
+    import torch
+
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.linear_model.glm import (_intercept_block,
+                                                    add_intercept)
+    from dask_ml_tpu_torch.models import glm as glm_core
+    from dask_ml_tpu_torch.parallel.faults import FaultInjector, Preempted
+    from dask_ml_tpu_torch.parallel.sharding import prepare_data
+    from dask_ml_tpu_torch.parallel.stream import HostBlockSource
+
+    base = torch.cuda.memory_allocated()
+    n, d = Xs.shape
+    B, iters = SPSTREAM_BLOCKS, SPADMM_ITERS
+    w = np.ones(n, np.float32)
+    src = HostBlockSource((Xs, y, w), B)
+    skw = {"abstol": 0.0, "reltol": 0.0}
+    glm_core.reset_host_reads()
+    est, sec, launches = drive(lambda: LogisticRegression(
+        solver="admm", max_iter=iters, solver_kwargs=skw).fit_blocks(
+            src, B, n, d))
+    expect_launches("admm-streamed-sparse", launches)
+    data = prepare_data(Xs, y=y)
+    Xi = add_intercept(data.X)
+    mask = torch.ones(d + 1, device=dev)
+    mask[-1] = 0.0
+    kw = dict(lamduh=1.0, abstol=0.0, reltol=0.0, return_state=True)
+    z_m, n_m, st_m, _ = glm_core.admm(Xi, data.y, data.weights,
+                                      torch.zeros(d + 1, device=dev), mask,
+                                      n_shards=B, max_iter=iters, **kw)
+    coef = torch.as_tensor(est._coef, device=dev)
+    out = {"n": n, "d": d, "k": Xs.k, "blocks": B,
+           "newton_steps": glm_core.host_reads["newton_steps"],
+           "in_memory_rel": rel(coef, z_m)}
+    expect(est.n_iter_ == n_m == iters and out["in_memory_rel"]
+           <= STREAM_RTOL, f"sparse streamed ADMM against admm: {out}")
+
+    srci = src.with_transform(_intercept_block)
+
+    def run(max_iter=iters, source=srci, **extra):
+        return glm_core.admm_streamed(source, B, d + 1, float(n), mask,
+                                      max_iter=max_iter, **kw, **extra)
+
+    # one outer iteration from a shared state, kernels against plain
+    _, _, st2, _ = glm_core.admm(Xi, data.y, data.weights,
+                                 torch.zeros(d + 1, device=dev), mask,
+                                 n_shards=B, max_iter=2, **kw)
+    del Xi, data
+    zk = run(1, state=st2, kernel="cuda")[0]
+    zt = run(1, state=st2, kernel="torch")[0]
+    out["kernel_vs_plain_step_rel"] = rel(zk, zt)
+    expect(out["kernel_vs_plain_step_rel"] <= STREAM_RTOL,
+           f"sparse streamed step: kernel vs plain {out}")
+
+    # the run-to-run spread, then a preemption and its resume
+    runs = [run()[2] for _ in range(4)]
+    spread = max(rel(a[0], b[0]) for i, a in enumerate(runs)
+                 for b in runs[i + 1:])
+    path = f"{tmp}/admm-sparse.ckpt"
+    inj = FaultInjector().preempt_at(2, epoch=1)
+    try:
+        run(source=HostBlockSource((Xs, y, w), B, fault_injector=inj)
+            .with_transform(_intercept_block), checkpoint_path=path)
+        raise Mismatch("the injected preemption did not stop the fit")
+    except Preempted:
+        pass
+    res = run(checkpoint_path=path)[2]
+    dist = [rel(res[0], r[0]) for r in runs]
+    out.update(run_to_run_spread=spread, resumed_vs_runs=dist)
+    if spread == 0.0:
+        expect(all(states_equal(res, r) for r in runs),
+               "sparse streamed ADMM: spread 0 but the resume differs")
+    else:
+        # the resumed state is one more draw of the pullback's noise: in
+        # this many dimensions its distance to each run sits near the
+        # runs' own distances, and within twice the largest of them if it
+        # lies in their spread (the triangle inequality through their
+        # centre); a resume from the wrong point lands ≫ 1e-6 away
+        expect(max(dist) <= 2 * spread and max(dist) <= 1e-6,
+               f"sparse streamed ADMM: resumed {dist} outside the spread "
+               f"{spread}")
+    src.close()
+    # the whole path's peak above what was resident before it, its
+    # comparison runs included
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - base
+    path_line("admm-streamed-sparse", sec, est.n_iter_, launches, **out)
+    return launches, out
+
+
+def stream_pca_blueprint(dev):
+    """BASELINE config 2 at 1e7 × 1,000: 40 blocks of 250,000 rows made on
+    the card (bench_pca_blueprint's recipe) through
+    ``pca_fit_blocks(n_components=100)``."""
+    import torch
+
+    from dask_ml_tpu_torch.decomposition.streaming import pca_fit_blocks
+
+    n, d, B = BP_PCA_N, BP_PCA_D, BP_PCA_BLOCKS
+    rows = n // B
+    scale = torch.linspace(3.0, 0.3, d, device=dev)
+
+    def block_fn(b):
+        g = torch.Generator(device=dev)
+        g.manual_seed(block_seed(SEED + 1, b))
+        X = torch.randn((rows, d), generator=g, device=dev).mul_(scale)
+        return X.add_(1.0), torch.ones(rows, device=dev)
+
+    Xb, wb = block_fn(0)
+    gram_ms = cuda_ms(lambda: (Xb * wb[:, None]).T @ Xb, iters=5)
+    cov = torch.cov(Xb[:20_000].T)
+    eigh_ms = cuda_ms(lambda: torch.linalg.eigh(cov), iters=3, warmup=1)
+    del Xb, wb, cov
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    est, sec, launches = drive(lambda: pca_fit_blocks(block_fn, B,
+                                                      BP_PCA_K))
+    peak = torch.cuda.max_memory_allocated() - base
+    want = np.sort((np.linspace(3.0, 0.3, d) ** 2))[::-1][:BP_PCA_K]
+    ev_rel = float(np.max(np.abs(est.explained_variance_ - want) / want))
+    mean_err = float(np.max(np.abs(est.mean_ - 1.0)))
+    gram_bound, _ = bound(rows * (d + 1) * 4 + d * d * 4, 2.0 * rows * d * d)
+    out = {"n": n, "d": d, "blocks": B, "k": BP_PCA_K,
+           "ms_per_block": sec * 1e3 / B, "gram_ms": gram_ms,
+           "eigh_ms": eigh_ms,
+           "gram_bound_ms": gram_bound, "peak_memory_bytes": peak,
+           "explained_variance_rel_err": ev_rel, "mean_max_err": mean_err}
+    path_line("pca-streamed-blueprint", sec, None, launches, **out)
+    expect(ev_rel <= BP_EV_RTOL and mean_err <= BP_MEAN_TOL,
+           f"blueprint PCA: variances {ev_rel}, mean {mean_err}")
+    expect(peak < 3 * rows * d * 4,
+           f"blueprint PCA held {peak} bytes: more than one block")
+    return out
+
+
+def stream_pca_host(dev, X, tmp):
+    """The PCA cell's 500,000 × 1,000 streamed from the host in 8 blocks:
+    moments against float64 ones, the fit against the in-memory PCA, and
+    the moment pass preempted and resumed."""
+    import torch
+
+    from dask_ml_tpu_torch.decomposition import PCA
+    from dask_ml_tpu_torch.decomposition.streaming import (pca_fit_blocks,
+                                                           streamed_moments)
+    from dask_ml_tpu_torch.parallel.faults import FaultInjector, Preempted
+    from dask_ml_tpu_torch.parallel.stream import HostBlockSource
+
+    base = torch.cuda.memory_allocated()
+    n, d = X.shape
+    B = HOST_BLOCKS
+    w = np.ones(n, np.float32)
+    src = HostBlockSource((X, w), B)
+    moments, sec, launches = drive(lambda: streamed_moments(
+        block_fn=src, n_blocks=B))
+    nbytes = src.bytes_streamed
+    Xd = torch.from_numpy(X).to(dev).double()  # the yardstick, not a path
+    want = (torch.tensor(float(n), dtype=torch.float64, device=dev),
+            Xd.sum(0), Xd.T @ Xd)
+    del Xd
+    torch.cuda.empty_cache()
+    m_rel = [rel(a.double(), b) for a, b in zip(moments, want)]
+    est = pca_fit_blocks(src, B, PCA_K)
+    mem = PCA(PCA_K, svd_solver="full").fit(X)
+    top = PCA_RANK
+    align = float(np.abs(np.sum(est.components_[:top]
+                                * mem.components_[:top], axis=1)).min())
+    ev = np.abs(est.explained_variance_ - mem.explained_variance_) \
+        / mem.explained_variance_
+    path = f"{tmp}/moments.ckpt"
+    inj = FaultInjector().preempt_at(3)
+    try:
+        streamed_moments(block_fn=HostBlockSource((X, w), B,
+                                                  fault_injector=inj),
+                         n_blocks=B, checkpoint_path=path,
+                         checkpoint_every=2)
+        raise Mismatch("the injected preemption did not stop the pass")
+    except Preempted:
+        pass
+    resumed = streamed_moments(block_fn=src, n_blocks=B,
+                               checkpoint_path=path)
+    out = {"n": n, "d": d, "blocks": B,
+           "effective_gbps": nbytes / sec / 1e9,
+           "moments_rel_vs_f64": m_rel, "top64_min_alignment": align,
+           "top64_explained_variance_rel": float(ev[:top].max()),
+           "all_explained_variance_rel": float(ev.max()),
+           "resumed_equal": states_equal(moments, resumed)}
+    src.close()
+    # the whole path's peak above what was resident before it, its
+    # comparison runs included
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - base
+    path_line("pca-streamed-host", sec, None, launches, **out)
+    expect(max(m_rel) <= MOMENT_RTOL, f"streamed moments vs float64 {m_rel}")
+    expect(align >= ALIGN and out["top64_explained_variance_rel"] <= EV_RTOL,
+           f"streamed PCA against in-memory PCA: {out}")
+    expect(out["resumed_equal"], "streamed moments: the resume differs")
+    return out
+
+
+def stream_lloyd_resumable(dev, X, tmp):
+    """The KDD-shaped cell through ``lloyd_bounded_resumable`` (tol 0, 20
+    iterations, chunks of 7), interrupted in its second chunk and resumed,
+    against the one-shot ``lloyd_loop_bounded``."""
+    import os
+
+    import torch
+
+    from dask_ml_tpu_torch import checkpoint as ckpt
+    from dask_ml_tpu_torch.models import kmeans as core
+    from dask_ml_tpu_torch.parallel.sharding import prepare_data
+    from dask_ml_tpu_torch.utils.validation import check_random_state
+
+    base = torch.cuda.memory_allocated()
+    data = prepare_data(X, device=dev)
+    Xd, wd = data.X, data.weights
+    c0 = core.k_init(Xd, wd, data.n, K, check_random_state(SEED, device=dev),
+                     init="k-means||", oversampling_factor=2)
+    one, sec_one, _ = drive(lambda: core.lloyd_loop_bounded(
+        Xd, wd, c0, 0.0, max_iter=RESUME_ITERS))
+    path = f"{tmp}/bounded.ckpt"
+
+    def resumable():
+        return core.lloyd_bounded_resumable(
+            Xd, wd, c0, 0.0, max_iter=RESUME_ITERS, path=path,
+            chunk_iters=RESUME_CHUNK)
+
+    try:
+        with interrupt_on(core, "_bounded_chunk", 2):
+            resumable()
+        raise Mismatch("the interrupt did not stop the loop")
+    except Interrupt:
+        pass
+    expect(os.path.exists(path), "no snapshot after the first chunk")
+    chunk_s = []
+    orig = core._bounded_chunk
+
+    def timed_chunk(*a, **k):
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        torch.cuda.current_stream().synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+        return out
+
+    ckpt.reset_io_counts()
+    core._bounded_chunk = timed_chunk
+    try:
+        res, sec, launches = drive(resumable)
+    finally:
+        core._bounded_chunk = orig
+    io = dict(ckpt.io_counts)
+    same = (torch.equal(one[0], res[0]) and float(one[1]) == float(res[1])
+            and one[2] == res[2] and float(one[3]) == float(res[3])
+            and torch.equal(one[4], res[4])
+            and torch.equal(one[5]["rows_skipped"], res[5]["rows_skipped"]))
+    out = {"n": int(Xd.shape[0]), "d": int(Xd.shape[1]), "k": K,
+           "max_iter": RESUME_ITERS, "chunk_iters": RESUME_CHUNK,
+           "one_shot_s": sec_one, "chunk_s": chunk_s,
+           "snapshot_save_s": io["save_seconds"] / max(io["saves"], 1),
+           "snapshot_bytes": io["save_bytes"] / max(io["saves"], 1),
+           "snapshot_load_s": io["load_seconds"] / max(io["loads"], 1),
+           "rows_skipped": int(res[5]["rows_skipped"].sum()),
+           "rows_skipped_after_resume": int(
+               res[5]["rows_skipped"][RESUME_CHUNK:].sum()),
+           "equal_to_one_shot": same}
+    # the whole path's peak above what was resident before it, its
+    # comparison runs included
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - base
+    path_line("lloyd-bounded-resumable", sec, res[2], launches, **out)
+    expect(same, "resumed bounded Lloyd differs from the one-shot loop")
+    expect(out["rows_skipped_after_resume"] > 0,
+           "the resumed loop skipped no rows: its bounds were lost")
+    expect_launches("lloyd-bounded-resumable", launches)
+    expect(launches["fused_argmin_min"] == 1,
+           f"the resumed loop's final assignment: {launches}")
+    expect(not os.path.exists(path), "the snapshot was not deleted")
+    try:
+        with interrupt_on(core, "_bounded_chunk", 2):
+            resumable()
+    except Interrupt:
+        pass
+    core.BOUNDED_CARRY_VERSION += 1
+    try:
+        resumable()
+        raise Mismatch("a snapshot of another carry version was resumed")
+    except ValueError:
+        pass
+    finally:
+        core.BOUNDED_CARRY_VERSION -= 1
+        os.unlink(path)
+    return launches, out
+
+
+def stream_glm_checkpoint(dev, X, y, tmp):
+    """``LogisticRegression(solver="lbfgs", max_iter=6, checkpoint=...,
+    checkpoint_every=2)`` on the dense ADMM cell's 1e7 × 100, interrupted
+    after its second chunk's save and resumed, against the uninterrupted
+    fit."""
+    import torch
+
+    from dask_ml_tpu_torch import checkpoint as ckpt
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+
+    base = torch.cuda.memory_allocated()
+    Xd = torch.from_numpy(X).to(dev)
+    kw = dict(solver="lbfgs", max_iter=CKPT_LBFGS_ITERS, tol=1e-12)
+    plain = LogisticRegression(**kw).fit(Xd, y)
+    ck = dict(kw, checkpoint=f"{tmp}/lbfgs",
+              checkpoint_every=CKPT_LBFGS_EVERY)
+    try:
+        with interrupt_on(ckpt, "save_pytree", 2, after=True):
+            LogisticRegression(**ck).fit(Xd, y)
+        raise Mismatch("the interrupt did not stop the fit")
+    except Interrupt:
+        pass
+    ckpt.reset_io_counts()
+    resumed, sec, launches = drive(lambda: LogisticRegression(**ck).fit(Xd,
+                                                                        y))
+    io = dict(ckpt.io_counts)
+    same = (np.array_equal(resumed.coef_, plain.coef_)
+            and resumed.intercept_ == plain.intercept_
+            and resumed.n_iter_ == plain.n_iter_)
+    out = {"equal_to_uninterrupted": same,
+           "phases": resumed.fit_phase_seconds_, "snapshot": io}
+    # the whole path's peak above what was resident before it, its
+    # comparison runs included
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - base
+    path_line("glm-checkpoint-lbfgs", sec, resumed.n_iter_, launches, **out)
+    expect(same and resumed.n_iter_ == CKPT_LBFGS_ITERS,
+           f"checkpointed L-BFGS: resumed differs ({out})")
+    return out
+
+
+def stream_cells(dev):
+    """The STREAM phase: the seven paths of the streaming and fault tier,
+    on the arrays the earlier cells drew (drawn here under
+    ``--stream-only``). Returns the launches of the paths that run the
+    repo's kernels and a summary."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dask_ml_tpu_torch.datasets import make_sparse_classification
+
+    t0 = time.perf_counter()
+    Xa, ya = drawn("admm", lambda: admm_data(SEED))
+    Xs, ys = drawn("sparse_admm", lambda: make_sparse_classification(
+        SPADMM_N, SPADMM_D, SPADMM_DENSITY, random_state=0))
+    Xp = drawn("pca", lambda: pca_data(SEED))
+    Xk = drawn("kdd", lambda: kdd_data(KDD_N, KDD_D, SEED))
+    log(f"STREAM host data ready in {time.perf_counter() - t0:.2f} s")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    t0 = time.perf_counter()
+
+    def fresh():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    try:
+        fresh()
+        out = {"admm_blueprint": stream_admm_blueprint(dev)}
+        fresh()
+        out["admm_host"] = stream_admm_host(dev, Xa, ya, tmp)
+        fresh()
+        sparse_launches, out["admm_sparse"] = stream_admm_sparse(
+            dev, Xs, ys, tmp)
+        fresh()
+        out["pca_blueprint"] = stream_pca_blueprint(dev)
+        fresh()
+        out["pca_host"] = stream_pca_host(dev, Xp, tmp)
+        fresh()
+        lloyd_launches, out["lloyd_resumable"] = stream_lloyd_resumable(
+            dev, Xk, tmp)
+        fresh()
+        out["glm_checkpoint"] = stream_glm_checkpoint(dev, Xa, ya, tmp)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log("STREAM " + json.dumps(out))
+    return {"admm-streamed-sparse": sparse_launches,
+            "lloyd-bounded-resumable": lloyd_launches}, out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2370,6 +3115,13 @@ def main() -> int:
 
     if "--glm-pca-only" in sys.argv[1:]:
         glm_pca_cells(dev)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+        return 0
+
+    if "--stream-only" in sys.argv[1:]:
+        stream_cells(dev)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": count}}), flush=True)
@@ -2533,6 +3285,13 @@ def main() -> int:
     admm_launches, _ = glm_pca_cells(dev)
     for r in rows[-4:]:
         r["launches_sparse_admm"] = int(admm_launches[r["name"]])
+    torch.cuda.empty_cache()
+
+    stream_launches, _ = stream_cells(dev)
+    for r in rows:
+        r["launches_stream"] = {
+            path: int(l[r["name"]]) for path, l in stream_launches.items()
+            if l.get(r["name"])}
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

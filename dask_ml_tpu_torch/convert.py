@@ -3,11 +3,14 @@
 The input is the ``{name: ndarray}`` dict of learned attributes that
 ``dask_ml_tpu.interop.export_learned_attrs`` returns. This module takes
 numpy only and imports nothing of the JAX package.
+:func:`stream_state_from_numpy` carries a streamed solver's state across
+the same way.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from dask_ml_tpu_torch.cluster.k_means import KMeans
 from dask_ml_tpu_torch.config import resolve_device
@@ -193,3 +196,14 @@ def truncated_svd_from_numpy(attrs: dict) -> TruncatedSVD:
         if name in attrs:
             setattr(est, name, _vector(attrs, name, k))
     return est
+
+
+def stream_state_from_numpy(state, device=None) -> tuple:
+    """A streamed carry of the JAX package as the port's tensors on
+    ``device`` (None: the configured one): the ``(z, x, u)`` state of
+    ``admm_streamed(..., return_state=True)``, which the port's
+    ``admm_streamed(state=...)`` resumes, or a moments carry. Each leaf
+    keeps its dtype and is copied (arrays fetched from JAX are
+    read-only)."""
+    dev = resolve_device(device)
+    return tuple(torch.tensor(np.asarray(a), device=dev) for a in state)

@@ -13,8 +13,15 @@ Dense input stages as a float32 tensor; sparse input (scipy CSR or a
 container, whose linear predictor on the card is the K6 SpMV kernel, in
 the fit and in ``decision_function`` / ``predict`` / ``score``. Fits and
 predictions run on the configured device (``config.device``, "cuda" by
-default). Not ported yet: ``fit_blocks``, ``partial_fit``, the
-batched-search hooks and ``checkpoint``.
+default).
+
+``checkpoint=`` (a path prefix) makes ``fit`` resumable: each fit problem
+runs through :func:`~dask_ml_tpu_torch.checkpoint.solve_checkpointed` in
+chunks of ``checkpoint_every`` iterations, saved to the prefix suffixed
+with the problem's fingerprint. ``fit_blocks`` fits from streamed row
+blocks (:func:`~dask_ml_tpu_torch.models.glm.admm_streamed`), data larger
+than the card's memory. Not ported yet: ``partial_fit`` and the
+batched-search hooks.
 """
 
 from __future__ import annotations
@@ -39,6 +46,29 @@ def add_intercept(X):
     if isinstance(X, sparse_ops.SparseRows):
         return sparse_ops.add_intercept_ell(X)
     return torch.cat([X, X.new_ones((X.shape[0], 1))], dim=1)
+
+
+def _intercept_block(blk):
+    """Block-tuple intercept append of host-streamed fits, applied on the
+    device to each block of a ``HostBlockSource``."""
+    X_b, y_b, w_b = blk
+    return add_intercept(X_b), y_b, w_b
+
+
+def _checkpointed(solver, X, y, w, beta0, mask, kwargs, prefix, every):
+    """``solve_checkpointed`` at ``prefix`` suffixed with the problem's
+    fingerprint (max_iter left out of it, so a larger budget resumes the
+    same snapshot): each distinct problem, each OVR class included, keeps
+    its own snapshot."""
+    from dask_ml_tpu_torch.checkpoint import (problem_fingerprint,
+                                              solve_checkpointed)
+
+    kwargs = dict(kwargs)
+    max_iter = int(kwargs.pop("max_iter"))
+    fp = problem_fingerprint(solver, X, y, w, beta0, mask, **kwargs)
+    return solve_checkpointed(
+        solver, X, y, w, beta0, mask, path=f"{prefix}.{fp[:16]}",
+        chunk_iters=int(every), max_iter=max_iter, fingerprint=fp, **kwargs)
 
 
 def eta_program(Xs, coef, *, intercept: bool):
@@ -152,9 +182,6 @@ class _GLM(BaseEstimator):
         """Stage the validated X, y and weights and append the intercept.
         Returns (data, the penalty mask, the clock at the end of staging);
         the mask leaves the intercept column unregularized."""
-        if self.checkpoint:
-            raise NotImplementedError(
-                "checkpoint= is not ported to the PyTorch package yet")
         data = prepare_data(X, sample_weight=sample_weight, y=y)
         if self.fit_intercept:
             # the appended container replaces the staged one, which is
@@ -179,9 +206,16 @@ class _GLM(BaseEstimator):
         y = self._encode_y(y)
         data, mask, t_stage = self._stage(X, y, sample_weight)
         beta0 = torch.zeros_like(mask)
+
+        def solve_one(y_dev):
+            if self.checkpoint:
+                return _checkpointed(self.solver, data.X, y_dev,
+                                     data.weights, beta0, mask, kwargs,
+                                     self.checkpoint, self.checkpoint_every)
+            return solver(data.X, y_dev, data.weights, beta0, mask, **kwargs)
+
         with telemetry.span(f"glm-{self.solver}"):
-            results = [solver(data.X, y_dev, data.weights, beta0, mask,
-                              **kwargs)
+            results = [solve_one(y_dev)
                        for y_dev in self._solve_targets(data)]
         self.n_iter_ = int(max(n for _, n in results))
         self._finalize_coef([b.cpu().numpy() for b, _ in results])
@@ -201,6 +235,83 @@ class _GLM(BaseEstimator):
             self.intercept_ = self._coef[-1]
         else:
             self.coef_ = self._coef
+
+    def fit_blocks(self, block_fn, n_blocks, n_samples, n_features,
+                   classes=None, sw_total=None, elastic=None):
+        """Fit from streamed row blocks: data larger than the card's memory.
+
+        ``block_fn(b) -> (X_b, y_b, w_b)`` is a callable making block ``b``
+        on the device, or a
+        :class:`~dask_ml_tpu_torch.parallel.stream.HostBlockSource` of host
+        blocks (dense, or a sparse element); either way one block is
+        resident at a time inside
+        :func:`~dask_ml_tpu_torch.models.glm.admm_streamed`, and both take
+        the same trajectory. ``y_b`` is numeric already ({0, 1} for
+        logistic; ``classes`` fixes ``classes_``). Requires
+        ``solver="admm"``. Blocks carry no intercept column: with
+        ``fit_intercept`` it is appended to each block on the device.
+        ``sw_total`` (default ``n_samples``, right for unit weights only)
+        is the total sample weight over all blocks.
+
+        With ``checkpoint=`` (source mode only) the fit is
+        preemption-safe: a snapshot every ``checkpoint_every`` blocks at
+        ``checkpoint + ".stream"``, a graceful drain on SIGTERM/SIGINT
+        (:class:`~dask_ml_tpu_torch.parallel.faults.Preempted` after the
+        save), and a rerun resumes from the last complete block on a
+        bit-identical trajectory. The source's counters include the
+        copies the fit made. ``elastic=`` is not ported and raises."""
+        from dask_ml_tpu_torch.parallel.stream import HostBlockSource
+
+        if self.solver != "admm":
+            raise ValueError(
+                "fit_blocks streams through consensus ADMM; construct the "
+                "estimator with solver='admm'")
+        kwargs = self._get_solver_kwargs()
+        kwargs.pop("family", None)
+        d = int(n_features) + (1 if self.fit_intercept else 0)
+        mask = np.ones(d, dtype=np.float32)
+        if self.fit_intercept:
+            mask[-1] = 0.0
+        host = isinstance(block_fn, HostBlockSource)
+        ck = {}
+        if self.checkpoint:
+            if not host:
+                raise ValueError(
+                    "checkpoint= on fit_blocks requires a HostBlockSource "
+                    "block source (a callable block_fn is chunked through "
+                    "models.glm.admm_streamed's state/return_state carry "
+                    "instead)")
+            ck = dict(checkpoint_path=f"{self.checkpoint}.stream",
+                      checkpoint_every=int(self.checkpoint_every))
+        if not self.fit_intercept:
+            wrapped = block_fn
+        elif host:
+            wrapped = block_fn.with_transform(_intercept_block)
+        else:
+            def wrapped(b):
+                return _intercept_block(block_fn(b))
+        try:
+            with telemetry.span("glm-admm-streamed", blocks=int(n_blocks)):
+                beta, n_iter = core.admm_streamed(
+                    wrapped, int(n_blocks), d,
+                    float(n_samples if sw_total is None else sw_total),
+                    mask, family=self.family, elastic=elastic, **ck,
+                    **kwargs)
+        finally:
+            if host and wrapped is not block_fn:
+                # the intercept copy's counters, on the caller's source
+                block_fn.bytes_streamed += wrapped.bytes_streamed
+                block_fn.logical_bytes_streamed += \
+                    wrapped.logical_bytes_streamed
+                block_fn.blocks_started += wrapped.blocks_started
+        self.n_iter_ = int(n_iter)
+        self.n_features_in_ = int(n_features)
+        self._finalize_coef([beta.cpu().numpy()])
+        if classes is not None:
+            self.classes_ = np.asarray(classes)
+        elif self.family == "logistic":
+            self.classes_ = np.array([0, 1])
+        return self
 
     def _decision_function(self, X):
         """Linear predictor on staged rows, returned to the host. ``_coef``
@@ -287,8 +398,14 @@ class LogisticRegression(_GLM):
             solver, name = core.multinomial_lbfgs, "multinomial_lbfgs"
             mn_kwargs["tol"] = kwargs.get("tol", self.tol)
         with telemetry.span(f"glm-{name}"):
-            B, n_iter = solver(data.X, data.y, data.weights, B0, mask,
-                               **mn_kwargs)
+            if self.checkpoint:
+                B, n_iter = _checkpointed(name, data.X, data.y, data.weights,
+                                          B0, mask, mn_kwargs,
+                                          self.checkpoint,
+                                          self.checkpoint_every)
+            else:
+                B, n_iter = solver(data.X, data.y, data.weights, B0, mask,
+                                   **mn_kwargs)
         self._coef = B.T.cpu().numpy()  # (K, width), the OVR layout
         self.n_iter_ = int(n_iter)
         self.coef_ = self._coef[:, :-1] if self.fit_intercept else self._coef

@@ -32,6 +32,7 @@ import math
 import torch
 
 from dask_ml_tpu_torch.ops import sparse as sparse_ops
+from dask_ml_tpu_torch.parallel import telemetry
 
 # ---------------------------------------------------------------------------
 # Families: pointwise loss ℓ(eta, y) and curvature h(eta, y) = ∂²ℓ/∂eta²
@@ -520,32 +521,38 @@ def _admm_state(state, start, shape, sdt, dev, what):
     return z0, x0, u0
 
 
-def _admm_loop(local_solve, z, x, u, mask, pen_prox, lam_eff, rho, abstol,
-               reltol, max_iter):
-    """The consensus iterations shared by :func:`admm` and
-    :func:`admm_multinomial`: S local prox solves, the z-consensus under
-    the penalty mask, the dual update and Boyd's stopping rule with its
-    S-dependent scalings. Returns (z, x, u, n_iter, done)."""
+def _consensus(z, x, u, mask, pen_prox, lam_eff, rho, abstol, reltol):
+    """One consensus step after the S local solves ``x``: the z-consensus
+    under the penalty mask, the dual update and Boyd's stopping rule with
+    its S-dependent scalings. Returns (z_new, u_new, done)."""
     S = int(x.shape[0])
     size = x[0].numel()
     maskb = mask.reshape(mask.shape + (1,) * (z.ndim - 1))
     t = lam_eff / (rho * S)
+    zbar = torch.sum(x + u, dim=0) / S
+    z_new = torch.where(maskb > 0, pen_prox(zbar, t), zbar)
+    u = u + x - z_new
+    pri = torch.sqrt(torch.sum((x - z_new) ** 2))
+    dual = rho * math.sqrt(S) * torch.linalg.norm((z_new - z).reshape(-1))
+    eps_pri = (math.sqrt(S * size) * abstol
+               + reltol * torch.maximum(
+                   torch.sqrt(torch.sum(x * x)),
+                   math.sqrt(S) * torch.linalg.norm(z_new.reshape(-1))))
+    eps_dual = (math.sqrt(S * size) * abstol
+                + reltol * rho * torch.sqrt(torch.sum(u * u)))
+    return z_new, u, (pri < eps_pri) & (dual < eps_dual)
+
+
+def _admm_loop(local_solve, z, x, u, mask, pen_prox, lam_eff, rho, abstol,
+               reltol, max_iter):
+    """The consensus iterations shared by :func:`admm` and
+    :func:`admm_multinomial`: S local prox solves, then
+    :func:`_consensus`. Returns (z, x, u, n_iter, done)."""
     it, done = 0, None
     while _keep_going(it, max_iter, done):
         x = local_solve(x, z, u)
-        zbar = torch.sum(x + u, dim=0) / S
-        z_new = torch.where(maskb > 0, pen_prox(zbar, t), zbar)
-        u = u + x - z_new
-        pri = torch.sqrt(torch.sum((x - z_new) ** 2))
-        dual = rho * math.sqrt(S) * torch.linalg.norm((z_new - z).reshape(-1))
-        eps_pri = (math.sqrt(S * size) * abstol
-                   + reltol * torch.maximum(
-                       torch.sqrt(torch.sum(x * x)),
-                       math.sqrt(S) * torch.linalg.norm(z_new.reshape(-1))))
-        eps_dual = (math.sqrt(S * size) * abstol
-                    + reltol * rho * torch.sqrt(torch.sum(u * u)))
-        done = (pri < eps_pri) & (dual < eps_dual)
-        z = z_new
+        z, u, done = _consensus(z, x, u, mask, pen_prox, lam_eff, rho,
+                                abstol, reltol)
         it += 1
     return z, x, u, it, done
 
@@ -773,6 +780,234 @@ def multinomial_lbfgs(X, y_idx, w, B0, mask, *, n_classes, regularizer="l2",
     if return_state:
         return B, n_iter, carry, done is not None and bool(done)
     return B, n_iter
+
+
+# ---------------------------------------------------------------------------
+# Larger than the card's memory: streamed consensus ADMM over row blocks
+# ---------------------------------------------------------------------------
+
+
+def _streamed_block_newton(X_b, y_b, w_b, x, z, u, rho, inner_tol, sw_total,
+                           *, family, inner_max_iter, kernel="auto"):
+    """One block's local prox solve, ``argmin_x f_b(x) + (ρ/2)‖x − z +
+    u‖²`` by undamped Newton steps (the step of :func:`admm`'s batch for
+    one block), stopping on ``max|g| <= inner_tol`` or after
+    ``inner_max_iter`` steps, one host read per test. The single
+    implementation of both block-source modes of :func:`admm_streamed`."""
+    loss_fn, hess_fn = FAMILIES[family]
+    eye = torch.eye(int(z.shape[0]), dtype=x.dtype, device=x.device)
+
+    def grad_eta(xx):
+        eta = _data_matvec(X_b, xx, kernel=kernel)
+        r = w_b * _pointwise_grad(loss_fn, eta, y_b)
+        g = (_data_pullback(X_b, r, kernel=kernel) / sw_total
+             + rho * (xx - z + u))
+        return g, eta
+
+    g, eta = grad_eta(x)
+    it = 0
+    while it < inner_max_iter and _read(torch.max(torch.abs(g)) > inner_tol):
+        host_reads["newton_steps"] += 1
+        H = _weighted_gram(X_b, w_b * hess_fn(eta, y_b)) / sw_total + rho * eye
+        x = x - torch.linalg.solve(H, g)
+        g, eta = grad_eta(x)
+        it += 1
+    return x
+
+
+def _block_prox(blk, b, z, x, u, scal, *, family, inner_max_iter,
+                transform, kernel):
+    """Block ``b``'s prox solve from its block tuple: the source's
+    transform (the facade's intercept append), then
+    :func:`_streamed_block_newton` against the block's rows of x and u."""
+    if transform is not None:
+        blk = transform(blk)
+    X_b, y_b, w_b = blk
+    return _streamed_block_newton(
+        X_b, y_b, w_b, x[b], z, u[b], scal["rho"], scal["inner_tol"],
+        scal["sw_total"], family=family, inner_max_iter=inner_max_iter,
+        kernel=kernel)
+
+
+def _streamed_consensus(z, x, u, mask, pen_prox, scal):
+    return _consensus(z, x, u, mask, pen_prox,
+                      scal["lamduh"] / scal["sw_total"], scal["rho"],
+                      scal["abstol"], scal["reltol"])
+
+
+def _admm_streamed_host(source, z, x, u, mask, pen_prox, scal, *, check_done,
+                        family, max_iter, inner_max_iter, kernel,
+                        scan_checkpoint=None):
+    """The host-driven outer loop over a ``HostBlockSource``: block
+    ``b+1``'s copy (across an epoch boundary, block 0 of the next outer
+    iteration) runs while block ``b``'s prox solve does.
+
+    With ``scan_checkpoint`` the loop is preemption-safe: the scan carry
+    is the epoch-start ``(z, x, u)`` and its outs are the per-block
+    solutions, so a snapshot after any block replays the rest of that
+    epoch and the remaining ones bit for bit. A snapshot at the path
+    resumes here; it is deleted on completion."""
+    from dask_ml_tpu_torch.checkpoint import leaf_tensor
+    from dask_ml_tpu_torch.parallel.stream import prefetched_scan
+
+    dev = source.device
+    n_blocks = int(x.shape[0])
+    done = None
+    n_iter = 0
+    start_epoch, start_block, outs0 = 0, 0, None
+    if scan_checkpoint is not None:
+        snap = scan_checkpoint.load()
+        if snap is not None:
+            carry, outs0, start_block, start_epoch = snap
+            z, x, u = (leaf_tensor(t, dev) for t in carry)
+            outs0 = [leaf_tensor(o, dev) for o in outs0]
+            n_iter = start_epoch
+
+    def step(carry, b, blk):
+        z, x, u = carry
+        return carry, _block_prox(
+            blk, b, z, x, u, scal, family=family,
+            inner_max_iter=inner_max_iter, transform=source.transform,
+            kernel=kernel)
+
+    for it in range(start_epoch, max_iter):
+        first = it == start_epoch
+        with telemetry.span("glm.admm.epoch", epoch=it, blocks=n_blocks):
+            _, xs = prefetched_scan(
+                step, (z, x, u), source, wrap=it + 1 < max_iter,
+                checkpoint=scan_checkpoint, epoch=it,
+                start_block=start_block if first else 0,
+                outs=outs0 if first else None)
+            x = torch.stack(xs)
+            z, u, done = _streamed_consensus(z, x, u, mask, pen_prox, scal)
+        n_iter = it + 1
+        if check_done and _read(done):
+            break
+    source.discard_inflight()
+    if scan_checkpoint is not None:
+        scan_checkpoint.delete()
+    return z, n_iter, x, u, done
+
+
+@torch.no_grad()
+def admm_streamed(block_fn, n_blocks, d, sw_total, mask=None, *,
+                  family="logistic", regularizer="l2", lamduh=0.0, rho=1.0,
+                  max_iter=250, abstol=1e-4, reltol=1e-2, inner_max_iter=20,
+                  inner_tol=1e-8, state=None, return_state=False,
+                  dtype=torch.float32, checkpoint_path=None,
+                  checkpoint_every=None, elastic=None, kernel="auto",
+                  device=None):
+    """Consensus ADMM over data larger than the card's memory (the JAX
+    ``admm_streamed``).
+
+    Each outer iteration solves the local prox problem of each of
+    ``n_blocks`` row blocks in turn, one block resident at a time, then
+    takes the consensus step of :func:`admm` with blocks standing in for
+    shards: B streamed blocks follow ``admm(..., n_shards=B)`` on the same
+    rows. ``block_fn`` is either
+
+    - a callable ``block_fn(b) -> (X_b, y_b, w_b)`` making block ``b`` on
+      the device (regenerated from a seed, or sliced from a resident
+      tensor), or
+    - a :class:`~dask_ml_tpu_torch.parallel.stream.HostBlockSource`, whose
+      copies of block ``b+1`` overlap block ``b``'s solve.
+
+    Both modes run one per-block function (:func:`_block_prox`), so the
+    same block contents give the same bits. ``sw_total`` is the total
+    sample weight over all blocks (n for unit weights); it fixes the
+    objective's 1/SW normalization without a pre-pass. ``dtype`` names the
+    block dtype; the state (z, x, u) is at least float32. ``kernel``
+    reaches a container's matvec and pullback. The state and scalars live
+    on the source's device, or on ``device`` (default: the configured
+    one) for a callable.
+
+    Returns ``(z, n_iter)``; with ``return_state=True``
+    ``(z, n_iter, (z, x, u), done)``, x and u stacked ``(n_blocks, d)``,
+    the contract of :func:`admm`; ``state`` resumes such a carry.
+
+    ``checkpoint_path`` (source mode only) makes the fit preemption-safe:
+    every ``checkpoint_every`` blocks (default: once an outer iteration)
+    the scan state is saved, SIGTERM/SIGINT drain (finish the block, save,
+    raise :class:`~dask_ml_tpu_torch.parallel.faults.Preempted`), and a
+    rerun with the same path resumes from the last complete block on a
+    bit-identical trajectory; the snapshot is deleted on completion. Its
+    binding is the JAX package's, so either package resumes the other's
+    snapshot. A callable refuses ``checkpoint_path`` (chunk it through
+    ``state=`` instead). ``elastic=`` (the multi-host tier) is not ported
+    and raises."""
+    from dask_ml_tpu_torch.config import resolve_device
+    from dask_ml_tpu_torch.parallel.faults import scan_checkpoint_scope
+    from dask_ml_tpu_torch.parallel.stream import HostBlockSource
+
+    if elastic is not None:
+        raise NotImplementedError(
+            "elastic= belongs to the elastic multi-host tier, ROADMAP "
+            "Queue A item 10, which the port does not have yet")
+    host = isinstance(block_fn, HostBlockSource)
+    if host and block_fn.n_blocks != int(n_blocks):
+        raise ValueError(
+            f"n_blocks={n_blocks} does not match the HostBlockSource's "
+            f"{block_fn.n_blocks} blocks")
+    if not host and checkpoint_path is not None:
+        raise ValueError(
+            "checkpoint_path= requires a HostBlockSource: a callable "
+            "block_fn is chunked through state=/return_state instead (see "
+            "checkpoint.solve_checkpointed)")
+    _, pen_prox = _penalty(regularizer)
+    dev = block_fn.device if host else resolve_device(device)
+    sdt = torch.promote_types(dtype, torch.float32)
+    shape = (int(n_blocks), int(d))
+    if state is None:
+        z = torch.zeros(int(d), dtype=sdt, device=dev)
+        x = torch.zeros(shape, dtype=sdt, device=dev)
+        u = torch.zeros(shape, dtype=sdt, device=dev)
+    else:
+        z, x, u = (torch.as_tensor(s, device=dev).to(sdt) for s in state)
+        if tuple(x.shape) != shape or tuple(u.shape) != shape:
+            raise ValueError(
+                f"streamed ADMM state has x/u of shapes {tuple(x.shape)}/"
+                f"{tuple(u.shape)}, expected {shape}; consensus state "
+                "cannot move between runs with different block counts")
+    mask = (torch.ones(int(d), dtype=sdt, device=dev) if mask is None
+            else torch.as_tensor(mask, device=dev).to(sdt))
+    scal = dict(zip(("lamduh", "rho", "abstol", "reltol", "inner_tol",
+                     "sw_total"),
+                    _admm_scalars(sdt, dev, lamduh, rho, abstol, reltol,
+                                  inner_tol, sw_total)))
+    kw = dict(family=family, inner_max_iter=int(inner_max_iter),
+              kernel=kernel)
+    with telemetry.span("glm.admm.streamed", blocks=int(n_blocks),
+                        d=int(d), family=family):
+        if host:
+            with scan_checkpoint_scope(
+                    checkpoint_path,
+                    every=(int(n_blocks) if checkpoint_every is None
+                           else int(checkpoint_every)),
+                    bind={"what": "admm_streamed", "n_blocks": int(n_blocks),
+                          "d": int(d), "family": family,
+                          "regularizer": regularizer, "elastic": False,
+                          "params": repr((float(lamduh), float(rho),
+                                          float(abstol), float(reltol),
+                                          float(inner_tol), float(sw_total),
+                                          int(inner_max_iter)))}
+            ) as scan_ckpt:
+                z, n_iter, x, u, done = _admm_streamed_host(
+                    block_fn, z, x, u, mask, pen_prox, scal,
+                    check_done=float(abstol) != 0.0 or float(reltol) != 0.0,
+                    max_iter=int(max_iter), scan_checkpoint=scan_ckpt, **kw)
+        else:
+            n_iter, done = 0, None
+            while _keep_going(n_iter, int(max_iter), done):
+                x = torch.stack([
+                    _block_prox(block_fn(b), b, z, x, u, scal,
+                                transform=None, **kw)
+                    for b in range(int(n_blocks))])
+                z, u, done = _streamed_consensus(z, x, u, mask, pen_prox,
+                                                 scal)
+                n_iter += 1
+    if return_state:
+        return z, n_iter, (z, x, u), done is not None and bool(done)
+    return z, n_iter
 
 
 SOLVERS = ("admm", "gradient_descent", "newton", "lbfgs", "proximal_grad")

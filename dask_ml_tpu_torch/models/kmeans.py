@@ -325,15 +325,24 @@ def _bounded_move(ub, lb, labels, centers, new_centers, gid, G: int):
     return ub + delta[labels.long()], lb - dg[None, :]
 
 
+#: layout version of the bounded loop's carry ``(centers, labels, ub, lb,
+#: it, shift, skip_h, held_h)``: :func:`lloyd_bounded_resumable` binds it
+#: into every snapshot, so a resume against a snapshot of another layout
+#: raises. Bump on any change of the carry.
+BOUNDED_CARRY_VERSION = 1
+
+
 def _bounded_init_state(centers0, n_pad: int, G: int, max_iter: int):
-    """(centers, labels, ub, lb, skip_hist, held_hist): zero bounds force a
-    full evaluation on the first iteration (``ub >= min(lb)`` holds at
-    0 ≥ 0), which seeds everything."""
+    """The carry before the first iteration: zero bounds force a full
+    evaluation (``ub >= min(lb)`` holds at 0 ≥ 0), which seeds everything;
+    ``it`` is a host int and ``shift`` starts at +inf."""
     dev = centers0.device
     return (centers0.to(torch.float32),
             torch.zeros(n_pad, dtype=torch.int32, device=dev),
             torch.zeros(n_pad, dtype=torch.float32, device=dev),
             torch.zeros((n_pad, G), dtype=torch.float32, device=dev),
+            0,
+            torch.tensor(_INF, device=dev),
             torch.zeros(max_iter, dtype=torch.int64, device=dev),
             torch.zeros(max_iter, dtype=torch.int64, device=dev))
 
@@ -356,6 +365,47 @@ def _bounded_final_assign(X, w, centers, *, kernel: str):
     return labels, (mind * w).sum()
 
 
+def _bounded_setup(X, w, k: int, groups, kernel: str, bounds_dtype):
+    """What every chunk of the bounded loop reads and never changes: the
+    rows padded to whole ``row_need`` groups (once, before the loop),
+    their weight-positive mask and ``Σx²``, and the center grouping."""
+    if bounds_dtype != torch.float32:
+        raise ValueError(
+            f"bounds_dtype must be torch.float32 (the port's only bounds "
+            f"type); got {bounds_dtype}")
+    if kernel not in ("auto", "cuda", "torch"):
+        raise ValueError(f"kernel must be auto|cuda|torch, got {kernel!r}")
+    G, size = _bounded_groups(k, groups)
+    X_pad, w_pad = _pad_rows_to_blocks(X, w)
+    return {"X_pad": X_pad, "w_pos": w_pad > 0,
+            "x2_pad": (X_pad * X_pad).sum(dim=1), "G": G,
+            "gid": torch.arange(k, device=X.device) // size}
+
+
+def _bounded_chunk(X, w, state, tol_t, prep, *, max_iter: int, chunk: int,
+                   kernel: str, prune: bool):
+    """Up to ``chunk`` bounded Lloyd iterations from the carry ``state``,
+    stopping as the whole loop does (``it == max_iter`` or
+    ``shift < tol``): the unit :func:`lloyd_bounded_resumable` saves
+    between, and the body of :func:`lloyd_loop_bounded`, so chunked runs
+    compose to the same trajectory. Returns the new carry."""
+    centers, labels, ub, lb, it, shift, skip_h, held_h = state
+    n = X.shape[0]
+    it0 = it
+    while it < max_iter and it - it0 < chunk and bool(shift >= tol_t):
+        labels, ub, lb, skipped, held = _bounded_assign(
+            prep["X_pad"], prep["x2_pad"], centers, labels, ub, lb,
+            prep["w_pos"], kernel=kernel, prune=prune)
+        skip_h[it], held_h[it] = skipped, held
+        new_centers, _ = _m_step(X, w, labels[:n], centers)
+        shift = ((new_centers - centers) ** 2).sum()
+        ub, lb = _bounded_move(ub, lb, labels, centers, new_centers,
+                               prep["gid"], prep["G"])
+        centers = new_centers
+        it += 1
+    return centers, labels, ub, lb, it, shift, skip_h, held_h
+
+
 def lloyd_loop_bounded(X, w, centers0, tol, *, max_iter: int,
                        kernel: str = "auto", groups="auto",
                        prune: bool = True, bounds_dtype=torch.float32):
@@ -372,8 +422,8 @@ def lloyd_loop_bounded(X, w, centers0, tol, *, max_iter: int,
     shifts and the stopping iteration are those of the unpruned loop.
     Then each center's movement loosens the bounds. A Python loop like
     :func:`lloyd_loop_fused`, reading ``shift`` once an iteration; the
-    bounds, labels and per-iteration counts stay on the device. Rows are
-    padded to whole groups once, before the loop.
+    bounds, labels and per-iteration counts stay on the device. The loop
+    is one :func:`_bounded_chunk` over the JAX package's 8-tuple carry.
 
     Returns ``(centers, inertia, n_iter, shift, labels, stats)``: inertia
     and labels from one full assignment against the returned centers,
@@ -381,35 +431,66 @@ def lloyd_loop_bounded(X, w, centers0, tol, *, max_iter: int,
     group granularity) and ``bounds_held`` (rows whose bound held), int64
     tensors of length ``max_iter``, zero past ``n_iter``. ``bounds_dtype``
     takes float32 only."""
-    if bounds_dtype != torch.float32:
-        raise ValueError(
-            f"bounds_dtype must be torch.float32 (the port's only bounds "
-            f"type); got {bounds_dtype}")
-    if kernel not in ("auto", "cuda", "torch"):
-        raise ValueError(f"kernel must be auto|cuda|torch, got {kernel!r}")
-    k = centers0.shape[0]
-    n = X.shape[0]
-    G, size = _bounded_groups(k, groups)
-    gid = torch.arange(k, device=X.device) // size
-    X_pad, w_pad = _pad_rows_to_blocks(X, w)
-    w_pos = w_pad > 0
-    x2_pad = (X_pad * X_pad).sum(dim=1)
-    centers, labels, ub, lb, skip_h, held_h = _bounded_init_state(
-        centers0, X_pad.shape[0], G, max_iter)
-    tol_t = _tol_tensor(tol, centers.device)
-    shift = torch.tensor(_INF, device=centers.device)
-    it = 0
-    while it < max_iter and bool(shift >= tol_t):
-        labels, ub, lb, skipped, held = _bounded_assign(
-            X_pad, x2_pad, centers, labels, ub, lb, w_pos, kernel=kernel,
-            prune=prune)
-        skip_h[it], held_h[it] = skipped, held
-        new_centers, _ = _m_step(X, w, labels[:n], centers)
-        shift = ((new_centers - centers) ** 2).sum()
-        ub, lb = _bounded_move(ub, lb, labels, centers, new_centers, gid, G)
-        centers = new_centers
-        it += 1
+    prep = _bounded_setup(X, w, centers0.shape[0], groups, kernel,
+                          bounds_dtype)
+    state = _bounded_init_state(centers0, prep["X_pad"].shape[0], prep["G"],
+                                max_iter)
+    state = _bounded_chunk(X, w, state, _tol_tensor(tol, centers0.device),
+                           prep, max_iter=max_iter, chunk=max_iter,
+                           kernel=kernel, prune=prune)
+    centers, _, _, _, it, shift, skip_h, held_h = state
     labels_f, inertia = _bounded_final_assign(X, w, centers, kernel=kernel)
+    return (centers, inertia, it, shift, labels_f,
+            {"rows_skipped": skip_h, "bounds_held": held_h})
+
+
+def lloyd_bounded_resumable(X, w, centers0, tol, *, max_iter: int,
+                            path: str, chunk_iters: int = 10,
+                            every: int = 1, kernel: str = "auto",
+                            groups="auto", prune: bool = True,
+                            bounds_dtype=torch.float32):
+    """Preemption-safe bounded Lloyd: chunks of ``chunk_iters`` iterations
+    with the whole carry, bounds included, saved through a
+    :class:`~dask_ml_tpu_torch.parallel.faults.ScanCheckpoint` after
+    every ``every`` chunks, so a killed fit resumes bit-identically from
+    the last snapshot, with its pruning intact.
+
+    The snapshot binds :data:`BOUNDED_CARRY_VERSION` and the problem's
+    shape; a snapshot of another layout or problem raises. Returns the
+    tuple of :func:`lloyd_loop_bounded`, equal to it bit for bit; the
+    snapshot is deleted on completion."""
+    from dask_ml_tpu_torch.checkpoint import leaf_tensor
+    from dask_ml_tpu_torch.parallel.faults import ScanCheckpoint
+
+    class _BoundedLloydCheckpoint(ScanCheckpoint):
+        KIND = "lloyd_bounded"
+
+    k, d = centers0.shape
+    prep = _bounded_setup(X, w, k, groups, kernel, bounds_dtype)
+    dev = centers0.device
+    ckpt = _BoundedLloydCheckpoint(
+        path, every=every,
+        bind={"carry_version": BOUNDED_CARRY_VERSION,
+              "n": int(X.shape[0]), "k": int(k), "d": int(d),
+              "G": int(prep["G"]), "max_iter": int(max_iter)})
+    snap = ckpt.load()
+    if snap is None:
+        state = _bounded_init_state(centers0, prep["X_pad"].shape[0],
+                                    prep["G"], max_iter)
+    else:
+        carry = snap[0]
+        state = tuple(int(leaf) if i == 4
+                      else leaf_tensor(leaf, dev)
+                      for i, leaf in enumerate(carry))
+    tol_t = _tol_tensor(tol, dev)
+    while state[4] < max_iter and bool(state[5] >= tol_t):
+        state = _bounded_chunk(X, w, state, tol_t, prep, max_iter=max_iter,
+                               chunk=int(chunk_iters), kernel=kernel,
+                               prune=prune)
+        ckpt.tick(state, [], state[4], 0)
+    centers, _, _, _, it, shift, skip_h, held_h = state
+    labels_f, inertia = _bounded_final_assign(X, w, centers, kernel=kernel)
+    ckpt.delete()
     return (centers, inertia, it, shift, labels_f,
             {"rows_skipped": skip_h, "bounds_held": held_h})
 

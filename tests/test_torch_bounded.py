@@ -147,7 +147,7 @@ def test_bound_invariants_vs_float64(small_blocks):
     gid = torch.arange(k) // size
     X_pad, w_pad = core._pad_rows_to_blocks(Xt, w)
     x2 = (X_pad * X_pad).sum(dim=1)
-    _, labels, ub, lb, _, _ = core._bounded_init_state(
+    _, labels, ub, lb, _, _, _, _ = core._bounded_init_state(
         centers, X_pad.shape[0], Gn, 12)
     gnp = gid.numpy()
     for _ in range(12):
@@ -189,6 +189,105 @@ def test_bounded_auto_rule_and_arguments():
         core.lloyd_loop_bounded(X, w, c0, 0.0, max_iter=1, kernel="xla")
     with pytest.raises(ValueError, match="cuda"):
         core.lloyd_loop_bounded(X, w, c0, 0.0, max_iter=1, kernel="cuda")
+
+
+class _Stop(Exception):
+    pass
+
+
+def _interrupt_chunk(monkeypatch, at: int):
+    """Make the ``at``-th call of ``_bounded_chunk`` raise before it runs:
+    a kill during that chunk, after the previous chunk's snapshot."""
+    calls = []
+    orig = core._bounded_chunk
+
+    def chunk(*a, **k):
+        calls.append(1)
+        if len(calls) == at:
+            raise _Stop
+        return orig(*a, **k)
+
+    monkeypatch.setattr(core, "_bounded_chunk", chunk)
+    return calls
+
+
+@pytest.mark.parametrize("tol,chunk", [(0.0, 7), (1e-6, 4)],
+                         ids=["tol0-chunk7", "tol1e-6-chunk4"])
+def test_bounded_resumable_interrupted_matches_one_shot(
+        tmp_path, monkeypatch, small_blocks, tol, chunk):
+    """Interrupted in its second chunk and resumed, the resumable loop
+    returns the one-shot loop's tuple bit for bit (centers, inertia,
+    n_iter, shift, labels and the per-iteration counts), and deletes its
+    snapshot."""
+    X = _kdd_shaped(3000, 6, seed=2, kt=6)
+    Xt, w = _t(X), torch.ones(3000)
+    c0 = _t(_init(X, 6, 1))
+    one = core.lloyd_loop_bounded(Xt, w, c0, tol, max_iter=20)
+    path = str(tmp_path / "bounded.ckpt")
+    _interrupt_chunk(monkeypatch, 2)
+    with pytest.raises(_Stop):
+        core.lloyd_bounded_resumable(Xt, w, c0, tol, max_iter=20,
+                                     path=path, chunk_iters=chunk)
+    monkeypatch.undo()
+    import os
+
+    assert os.path.exists(path)
+    res = core.lloyd_bounded_resumable(Xt, w, c0, tol, max_iter=20,
+                                       path=path, chunk_iters=chunk)
+    assert not os.path.exists(path)
+    assert torch.equal(one[0], res[0]) and float(one[1]) == float(res[1])
+    assert one[2] == res[2] and float(one[3]) == float(res[3])
+    assert torch.equal(one[4], res[4])
+    for key in ("rows_skipped", "bounds_held"):
+        assert torch.equal(one[5][key], res[5][key])
+    if tol == 0.0:
+        assert res[2] == 20 and int(res[5]["rows_skipped"].sum()) > 0
+
+
+def test_bounded_resumable_refuses_another_carry_version(
+        tmp_path, monkeypatch, small_blocks):
+    X = _kdd_shaped(2000, 5, seed=3, kt=5)
+    Xt, w = _t(X), torch.ones(2000)
+    c0 = _t(_init(X, 5, 0))
+    path = str(tmp_path / "bounded.ckpt")
+    _interrupt_chunk(monkeypatch, 2)
+    with pytest.raises(_Stop):
+        core.lloyd_bounded_resumable(Xt, w, c0, 0.0, max_iter=10,
+                                     path=path, chunk_iters=3)
+    monkeypatch.undo()
+    monkeypatch.setattr(core, "BOUNDED_CARRY_VERSION",
+                        core.BOUNDED_CARRY_VERSION + 1)
+    with pytest.raises(ValueError, match="carry_version"):
+        core.lloyd_bounded_resumable(Xt, w, c0, 0.0, max_iter=10,
+                                     path=path, chunk_iters=3)
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="max_iter"):
+        core.lloyd_bounded_resumable(Xt, w, c0, 0.0, max_iter=12,
+                                     path=path, chunk_iters=3)
+
+
+def test_bounded_resumable_matches_jax(tmp_path, small_blocks):
+    """The resumable loop against the JAX package's, each run in one go
+    from the same init: the same n_iter, labels and skip counts, centers
+    within rtol 1e-5 (as the one-shot loops are held above)."""
+    n, k = 4000, 6
+    X = _kdd_shaped(n, 7, seed=3, kt=k)
+    w = np.ones(n, np.float32)
+    c0 = _init(X, k, 1)
+    tol = np.float32(1e-6)
+    jc, jin, jn, _, jl, jst = jcore.lloyd_bounded_resumable(
+        *map(jnp.asarray, (X, w, c0)), jnp.asarray(tol), max_iter=30,
+        path=str(tmp_path / "j.ckpt"), chunk_iters=5, kernel="xla")
+    tc, tin, tn, _, tl, tst = core.lloyd_bounded_resumable(
+        _t(X), _t(w), _t(c0), tol, max_iter=30,
+        path=str(tmp_path / "t.ckpt"), chunk_iters=5)
+    assert tn == int(jn) > 5
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(float(tin), float(jin), rtol=1e-5)
+    np.testing.assert_array_equal(tst["rows_skipped"][:tn].numpy(),
+                                  np.asarray(jst["rows_skipped"])[:tn])
 
 
 def test_pad_rows_to_blocks(small_blocks):

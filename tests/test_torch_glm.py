@@ -364,8 +364,18 @@ def test_facade_refusals():
     with pytest.raises(ValueError, match="multinomial ADMM"):
         tlm.LogisticRegression(multiclass="multinomial").fit(
             scipy_sparse.csr_matrix(dense), np.arange(60) % 3)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        tlm.LogisticRegression(solver="lbfgs", checkpoint="x").fit(dense, y)
+    # checkpoint= is ported: the chunked, snapshotted fit is the plain fit
+    # (tests/test_torch_streaming_tier.py holds it to JAX and resumes it)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = tlm.LogisticRegression(solver="lbfgs", checkpoint=f"{tmp}/x",
+                                    checkpoint_every=3).fit(dense, y)
+    plain = tlm.LogisticRegression(solver="lbfgs").fit(dense, y)
+    np.testing.assert_array_equal(ck.coef_, plain.coef_)
+    with pytest.raises(ValueError, match="solver='admm'"):
+        tlm.LogisticRegression(solver="lbfgs").fit_blocks(
+            lambda b: None, 2, 60, 4)
     with pytest.raises(ValueError, match="'solver' must be"):
         tlm.LogisticRegression(solver="sgd").fit(dense, y)
     with pytest.raises(ValueError, match="multiclass"):

@@ -751,3 +751,146 @@ def test_logistic_regression_and_pca_on_cuda_tensors(cuda):
                                np.abs(cpu.components_), atol=1e-4)
     Zc = card.transform(Xc)
     assert Zc.shape == (4_000, 4) and np.isfinite(Zc).all()
+
+
+# ---------------------------------------------------------------------------
+# the streaming tier on the card
+# ---------------------------------------------------------------------------
+
+
+def test_prefetched_block_overlaps_a_busy_compute_stream(cuda):
+    """While a long kernel holds the compute stream, a block's copy on the
+    source's own stream completes (from locked host memory), and the block
+    taken afterwards equals its host block bit for bit."""
+    import time
+
+    from dask_ml_tpu_torch.parallel.stream import HostBlockSource
+
+    rng = np.random.default_rng(7)
+    X = rng.standard_normal((1 << 20, 16), dtype=np.float32)
+    w = rng.random(1 << 20, dtype=np.float32)
+    src = HostBlockSource((X, w), 4, prefetch=2)
+    # one pass first: the caching allocator then holds the blocks' device
+    # memory, and no cudaMalloc (which may wait for the device) is left in
+    # the timed copies
+    for b in range(4):
+        src.take(b)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)  # ~1 s of spinning on the compute stream
+    t0 = time.perf_counter()
+    src.start(0)
+    src.start(1)
+    src._inflight[1][1].synchronize()  # block 1's copy event
+    copy_s = time.perf_counter() - t0
+    busy = not torch.cuda.current_stream().query()
+    blk = src.take(0)
+    torch.cuda.synchronize()
+    assert busy and copy_s < 0.5, (busy, copy_s)
+    assert torch.equal(blk[0].cpu(), torch.from_numpy(X[:1 << 18]))
+    assert torch.equal(blk[1].cpu(), torch.from_numpy(w[:1 << 18]))
+    assert torch.equal(src.take(1)[0].cpu(),
+                       torch.from_numpy(X[1 << 18:2 << 18]))
+    src.close()
+
+
+def test_sticky_cuda_error_is_not_retried(cuda):
+    """A device-side assert leaves the context broken: through a
+    RetryPolicy it propagates on the first attempt, retries == 0. Run in
+    a child process, whose context it breaks."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    code = r"""
+import json, torch
+from dask_ml_tpu_torch.parallel.faults import RetryPolicy
+pol = RetryPolicy(max_retries=3, sleep=lambda s: None)
+calls = []
+def op():
+    calls.append(1)
+    a = torch.zeros(4, device="cuda")
+    a[torch.tensor([10], device="cuda")] = 1.0  # out of range: device assert
+    torch.cuda.synchronize()
+try:
+    pol.run(op, kind="device-put")
+    out = {"raised": None}
+except RuntimeError as e:
+    out = {"raised": type(e).__name__, "message": str(e)[:300]}
+out.update(calls=len(calls), retries=pol.retries, giveups=pol.giveups)
+print(json.dumps(out))
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=root, env=env)
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["raised"] is not None and "CUDA error" in out["message"], out
+    assert out["calls"] == 1 and out["retries"] == 0, out
+
+
+def test_staging_buffers_released_after_discard(cuda):
+    """Loader-mode blocks are staged through pinned buffers; the ones of
+    copies that discard_inflight drops are released once their copies
+    completed, and a closed source unregisters its host arrays."""
+    import gc
+    import weakref
+
+    from dask_ml_tpu_torch.parallel import stream
+    from dask_ml_tpu_torch.parallel.stream import HostBlockSource
+
+    rng = np.random.default_rng(8)
+    X = rng.standard_normal((4096, 32), dtype=np.float32)
+    w = np.ones(4096, np.float32)
+    src = HostBlockSource(loader=lambda b: (X[b * 1024:(b + 1) * 1024],
+                                            w[b * 1024:(b + 1) * 1024]),
+                          n_blocks=4)
+    src.start(0)
+    src.start(1)
+    staged = [weakref.ref(t) for b in (0, 1) for t in src._inflight[b][2]]
+    assert all(r() is not None and r().is_pinned() for r in staged)
+    src.discard_inflight()
+    gc.collect()
+    assert src._inflight == {} and src.blocks_started == 0
+    assert all(r() is None for r in staged)
+
+    arrays = HostBlockSource((X, w), 4)
+    assert X.ctypes.data in stream._registered
+    blk = arrays.take(2)
+    torch.cuda.synchronize()
+    assert torch.equal(blk[0].cpu(), torch.from_numpy(X[2048:3072]))
+    arrays.close()
+    del arrays
+    gc.collect()
+    assert X.ctypes.data not in stream._registered
+
+
+def test_streamed_admm_on_card_prefetch_and_resume(cuda, tmp_path):
+    """Host-streamed ADMM on the card: prefetch 2 and 0 give the same
+    bits, and a preempted fit resumes bit for bit."""
+    from dask_ml_tpu_torch.parallel.faults import FaultInjector, Preempted
+    from dask_ml_tpu_torch.parallel.stream import HostBlockSource
+
+    rng = np.random.default_rng(9)
+    X = rng.standard_normal((40_000, 20), dtype=np.float32)
+    y = (X @ rng.standard_normal(20) > 0).astype(np.float32)
+    w = np.ones(40_000, np.float32)
+    kw = dict(lamduh=1.0, abstol=0.0, reltol=0.0, max_iter=3,
+              return_state=True)
+
+    def fit(prefetch, **extra):
+        return glm_core.admm_streamed(
+            HostBlockSource((X, y, w), 4, prefetch=prefetch,
+                            fault_injector=extra.pop("inj", None)),
+            4, 20, 40_000.0, **kw, **extra)
+
+    a, b = fit(2)[2], fit(0)[2]
+    for s, t in zip(a, b):
+        assert torch.equal(s, t)
+    path = str(tmp_path / "admm.ckpt")
+    with pytest.raises(Preempted):
+        fit(2, inj=FaultInjector().preempt_at(2, epoch=1),
+            checkpoint_path=path)
+    r = fit(2, checkpoint_path=path)[2]
+    for s, t in zip(a, r):
+        assert torch.equal(s, t)
