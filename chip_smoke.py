@@ -36,7 +36,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    value-0 padded slots, empty rows, one hot column, every row on one
    column) through every cluster size that fits, and at a d on each side
    of every boundary of ``ops.sparse.dvector_plan`` (one block, clusters
-   of 2, 4 and 8, and beyond) through the route the plan picks;
+   of 2, 4 and 8, and beyond) through the route the plan picks; on float
+   data each pullback route repeats its bits over 5 calls and gives the
+   bits of every other route;
 7. drives the sparse GLM path at the JAX package's flagship sparse
    problem: ``LogisticRegression(solver="lbfgs", max_iter=3).fit(X, y)``
    on ``make_sparse_classification(10_000_000, 100_000, 0.001,
@@ -45,13 +47,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``n_iter_`` must be 3, the accuracy above 0.55; from each carry of the
    fit, one L-BFGS step through the kernels and one through the plain
    versions must give the same coefficients bit for bit, and the whole
-   plain fit must give coefficients within 1e-3 normwise (float atomics,
-   the kernel's in shared memory or ``index_add_``'s on device memory,
-   make every fit differ from a rerun of itself: both spreads are
-   printed) and the same labels wherever the coefficient gap cannot
-   carry a score across 0;
+   plain fit must give coefficients within 1e-3 normwise (``index_add_``'s
+   float atomics make each plain fit differ from a rerun of itself: the
+   spread is printed) and the same labels wherever the coefficient gap
+   cannot carry a score across 0; a second kernel-path fit must give the
+   same coefficients bit for bit (the pullback adds fixed-point
+   integers);
 8. holds both forwards and both pullbacks against their plain versions at
-   the full container within their rounding bounds, and times each kernel
+   the full container within their rounding bounds (each pullback route
+   repeating its bits over 5 calls, both giving the same bits), and
+   times each kernel (the pullback also its once-per-container pass over
+   the values)
    with CUDA events next to its bound and its plain version (K3 also at
    the k-means|| rounds' mask, K3 and K4 also at the KDD cell's shape and
    next to cuBLAS's product of the score matrix as a yardstick; K1 also at
@@ -97,8 +103,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    resumed bit for bit; the card's pinned and pageable copy rates and a
    device profile of one epoch); the sparse ADMM container in 4 blocks
    (K6 and its backward; ``admm(n_shards=4)`` and the plain step within
-   1e-5; the resume within twice the spread of four uninterrupted runs
-   and within 1e-6);
+   1e-5; four uninterrupted runs and the resume of a preempted one bit
+   for bit);
    streamed PCA at BASELINE config 2's 1e7 × 1,000 (variances within
    5e-3 of the scales², the mean within 1e-2); the PCA cell's arrays
    streamed (moments within 1e-5 of float64, the top 64 components
@@ -108,11 +114,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    tuple bit for bit, rows still skipped after the resume, a bumped
    carry version refused); a checkpointed L-BFGS facade interrupted
    after its second save and resumed bit for bit.
+11. drives the incremental tier (``INCREMENTAL``): BASELINE config 4 at
+   its published size (2,000,000 × 100 by ``make_classification``'s
+   recipe, ``Incremental(LogisticRegression(C=100, solver_kwargs=
+   {"eta0": 0.5}), block_size=100_000).fit``: 20 blocks; equal bit for
+   bit to ``wrappers.fit`` and to a ``partial_fit`` loop, the chain on
+   staged X under the sync debug mode "error", held-out accuracy beside
+   the batch L-BFGS fit's); the flagship sparse container through
+   ``wrappers.fit(LogisticRegression(solver="lbfgs"), X, y,
+   block_size=1_000_000)`` (K6 and the pullback once a block, two runs
+   bit for bit, staging against step seconds a block, the last step
+   within 1e-5 of the plain step with a float64 pullback); softmax
+   ``partial_fit`` with K = 10 over 10 blocks; a batched epoch of 8
+   members (each within 1e-6 of its own chain); and
+   ``ParallelPostFit(...).predict`` rows a second for KMeans (K2) and
+   the sparse GLM (K6), labels equal to the estimator's own.
 
 ``python3 chip_smoke.py --spmv-only`` runs steps 1, 2, 6 and 8 alone, on a
 container of the sparse cell's shape drawn on the card;
 ``--glm-pca-only`` runs steps 1, 2 and 9 alone; ``--stream-only`` steps 1,
-2 and 10, drawing its own host arrays.
+2 and 10, drawing its own host arrays; ``--incremental-only`` steps 1, 2
+and 11.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
@@ -139,9 +161,9 @@ Q_N, Q_K, Q_P, Q_ITERS = 65_536, 23, 36, 16
 # (bench.py bench_sparse), nothing cut
 GLM_N, GLM_D, GLM_DENSITY, GLM_ITERS = 10_000_000, 100_000, 0.001, 3
 GLM_SCORE_N = 262_144
-# kernel fit against plain fit, normwise: the pullback's float atomics make
-# a 3-iteration fit differ from a rerun of itself by up to 1e-4 (the
-# intercept's gradient sums 1e7 products into one address)
+# kernel fit against plain fit, normwise: the plain pullback's float
+# atomics make a 3-iteration fit differ from a rerun of itself by up to 1e-4
+# (the intercept's gradient sums 1e7 products into one address)
 GLM_FIT_RTOL = 1e-3
 # the JAX drill's train-sample accuracy of that fit (SPARSE_r01.json
 # lbfgs_fit): a quality to print beside the port's, not a speed
@@ -214,6 +236,19 @@ CKPT_LBFGS_ITERS, CKPT_LBFGS_EVERY = 6, 2
 # PCA's variances and mean, host-streamed moments against float64
 BP_COS, BP_ACC_TOL, BP_EV_RTOL, BP_MEAN_TOL = 0.99, 0.002, 5e-3, 1e-2
 STREAM_RTOL, MOMENT_RTOL, EV_RTOL, ALIGN = 1e-5, 1e-5, 1e-4, 0.999
+# calls of the pullback on one float input that must give the same bits
+PULLBACK_REPEATS = 5
+# the incremental tier (INCREMENTAL): BASELINE config 4 at its published
+# size (bench.py INC, bench_incremental: 2e6 x 100 in blocks of 100,000,
+# lambda = 0.01, eta0 = 0.5), nothing cut, and INC_HOLDOUT rows of the same
+# model held out; the sparse chain: the flagship container in blocks of
+# 1e6 rows; softmax streaming over the first 1e6 rows with K = 10; a
+# batched epoch of 8 members
+INC_N, INC_D, INC_BLOCK, INC_HOLDOUT = 2_000_000, 100, 100_000, 200_000
+INC_C, INC_ETA0 = 100.0, 0.5
+INC_SPARSE_BLOCK, INC_RTOL = 1_000_000, 1e-5
+INC_MN_N, INC_MN_K = 1_000_000, 10
+INC_MEMBERS, BATCHED_RTOL = 8, 1e-6
 # H100 SXM data sheet: HBM3 bandwidth and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
@@ -245,6 +280,9 @@ PATH_KERNELS = {
     "glm-sparse-admm": ("spmv", "spmv_pullback"),
     "admm-streamed-sparse": ("spmv", "spmv_pullback"),
     "lloyd-bounded-resumable": ("fused_argmin_min2", "fused_argmin_min"),
+    "incremental-sparse": ("spmv", "spmv_pullback"),
+    "parallel-post-fit-kmeans": ("fused_argmin_min",),
+    "parallel-post-fit-glm": ("spmv",),
 }
 SOURCES = {
     "lloyd_iter": "dask_ml_tpu_torch/_kernels/csrc/lloyd.cu",
@@ -317,6 +355,15 @@ class Mismatch(AssertionError):
 def expect(cond, what: str) -> None:
     if not cond:
         raise Mismatch(what)
+
+
+def expect_repeats(what: str, call, first) -> None:
+    """``call()`` gives ``first``'s bits PULLBACK_REPEATS - 1 times more."""
+    import torch
+
+    for i in range(PULLBACK_REPEATS - 1):
+        expect(torch.equal(call(), first),
+               f"{what}: call {i + 2} does not repeat the bits of the first")
 
 
 def near_tie_ok(X, Y, mask, got, want, scale_eps=1e-5):
@@ -720,6 +767,20 @@ def check_spmv_int(tag, A, v, r, routes_f, routes_b):
         expect(torch.equal(got, want),
                f"K6 pullback {tag} cluster {c}: not bit-identical to the "
                f"plain version")
+    if routes_b:
+        # float data: each route repeats its bits, and every route gives
+        # the bits of the first
+        vf = A.values * 0.3 + 0.01 * (A.values != 0)
+        rf = r * 0.7071 + 0.1234
+        first = sps._pullback_cuda(vf, A.cols, rf, A.d, cluster=routes_b[0])
+        for c in routes_b:
+            got = sps._pullback_cuda(vf, A.cols, rf, A.d, cluster=c)
+            expect(torch.equal(got, first),
+                   f"K6 pullback {tag} cluster {c}: float data, not the "
+                   f"bits of cluster {routes_b[0]}")
+            expect_repeats(f"K6 pullback {tag} cluster {c}, float data",
+                           lambda c=c: sps._pullback_cuda(
+                               vf, A.cols, rf, A.d, cluster=c), got)
 
 
 def spmv_edge_cases(dev):
@@ -1481,11 +1542,10 @@ def glm_plain_check(est, X, y, Xs, dev):
     (4.7 % where the residuals are all ±0.5 / n with a 1 : 3 label
     split and every add rounds the same way), the kernel's (chains of
     n / 66 adds, then 66 in fixed order) 1e-6 (3e-4). That fit is made
-    too, twice, and its gap and its spread are printed. Float
-    atomics (the kernel's in shared memory, ``index_add_``'s on device
-    memory) add in a different order each run, so no fit on the card
-    repeats its own last bits; the kernel fit is made again to print its
-    spread as well. Labels on the score rows may differ only where the
+    too, twice, and its gap and its spread are printed (``index_add_``'s
+    float atomics add in a different order each run). The kernel fit is
+    made again and must repeat its bits: its pullback adds fixed-point
+    integers. Labels on the score rows may differ only where the
     coefficient gap can carry the plain score across 0. Returns (staged
     container, its y and w, the f64-accumulated plain coefficients, the
     stats)."""
@@ -1559,6 +1619,9 @@ def glm_plain_check(est, X, y, Xs, dev):
     again, _ = lbfgs("cuda", max_iter=GLM_ITERS)
     spread_k = float(np.linalg.norm(again.cpu().numpy() - est._coef)) / norm_p
     spread_k_max = float(np.abs(again.cpu().numpy() - est._coef).max())
+    expect(np.array_equal(again.cpu().numpy(), est._coef),
+           f"two kernel-path fits differ: {spread_k} normwise, max abs "
+           f"{spread_k_max}")
     expect(gap <= GLM_FIT_RTOL,
            f"kernel and plain (f64-accumulated pullback) coefficients "
            f"differ: {gap} normwise, max abs "
@@ -1625,11 +1688,10 @@ def pullback_accuracy(vals, cols, d, r, routes):
     adds to) and the normwise error of the others. The bound between two
     f32 orders of summation is no gate on that column (1e7 terms: about
     the column's own size), so these are: every kernel's other columns
-    within 1e-5 normwise of the float64 sums, and the shared-memory
-    kernel's last column within 1e-3 of them and, where the plain version
-    is beyond 1e-5, no further than that (on an H100 it reads 7e-7 to 3e-4
-    where the plain version and the device-atomics kernel read 1e-3 to
-    5e-2; below 1e-5 both are at the rounding of r itself)."""
+    within 1e-5 normwise of the float64 sums, and its last column within
+    1e-3 of them and, where the plain version is beyond 1e-5, no further
+    than that (the plain version's float atomics read 1e-3 to 5e-2 on an
+    H100; below 1e-5 both are at the rounding of r itself)."""
     import torch
 
     from dask_ml_tpu_torch.ops import sparse as sps
@@ -1651,8 +1713,8 @@ def pullback_accuracy(vals, cols, d, r, routes):
         others = out[name]["other_columns_normwise_err"]
         expect(others <= 1e-5, f"{name}: columns before the last are "
                f"{others} normwise from their float64 sums")
-        expect(c == 0 or (last <= 1e-3 and last <= max(
-            1e-5, out["plain"]["last_column_rel_err"])),
+        expect(last <= 1e-3 and last <= max(
+            1e-5, out["plain"]["last_column_rel_err"]),
                f"{name}: the last column is {last} from its float64 sum "
                f"(the plain version: "
                f"{out['plain']['last_column_rel_err']})")
@@ -1668,6 +1730,7 @@ def spmv_at_container(Xd, v, r, errs, r_first=None):
     line, summary)."""
     import torch
 
+    from dask_ml_tpu_torch._kernels import build
     from dask_ml_tpu_torch.ops import sparse as sps
 
     vals, cols, d = Xd.values, Xd.cols, Xd.d
@@ -1700,6 +1763,7 @@ def spmv_at_container(Xd, v, r, errs, r_first=None):
     g_scale = sps._pullback_ref(vals.abs(), cols, r.abs(), d)
     count = sps._pullback_ref((vals != 0).float(), cols,
                               torch.ones_like(r), d)
+    first = None
     for name, c in (("spmv_pullback", plan_b), ("spmv_pullback_l2", 0)):
         g_k = sps._pullback_cuda(vals, cols, r, d, cluster=c)
         err = (g_k - g_p).abs()
@@ -1707,10 +1771,14 @@ def spmv_at_container(Xd, v, r, errs, r_first=None):
                f"{name} at the full container: max abs err "
                f"{float(err.max())}")
         errs[name] = max(errs.get(name, 0.0), float(err.max()))
-        again = sps._pullback_cuda(vals, cols, r, d, cluster=c)
-        summary[f"{name}_rerun_max_abs_diff"] = float(
-            (again - g_k).abs().max())
-    del g_scale, count, err, again
+        expect_repeats(name, lambda c=c: sps._pullback_cuda(
+            vals, cols, r, d, cluster=c), g_k)
+        first = g_k if first is None else first
+        expect(torch.equal(g_k, first),
+               f"{name} at the full container: not the bits of the "
+               f"cluster route")
+    summary["pullback_repeats"] = PULLBACK_REPEATS
+    del g_scale, count, err, g_k, first
     torch.cuda.empty_cache()
     routes = (("spmv_pullback", plan_b), ("spmv_pullback_l2", 0))
     summary["pullback_vs_f64"] = {"r": pullback_accuracy(vals, cols, d, r,
@@ -1748,6 +1816,13 @@ def spmv_at_container(Xd, v, r, errs, r_first=None):
         .abs().max())
     del csr, crow
     pb_ms = cuda_ms(pull(plan_b), iters=10)
+    # the first call on a container also reduces max |values| (kept on the
+    # tensor): that pass alone
+    lib = build.load("spmv")
+    bound_word = torch.empty(1, dtype=torch.int32, device=vals.device)
+    values_bound_ms = cuda_ms(lambda: lib.dml_spmv_absmax(
+        vals.data_ptr(), vals.numel(), bound_word.data_ptr(),
+        build.stream_of(vals)), iters=5, warmup=1)
     pb_l2_ms = cuda_ms(pull(0), iters=5, warmup=1)
     pb_plain_ms = cuda_ms(lambda: sps._pullback_ref(vals, cols, r, d),
                           iters=5, warmup=1)
@@ -1794,7 +1869,8 @@ def spmv_at_container(Xd, v, r, errs, r_first=None):
              bound_by=by, library_ms=library_ms, shape=shape),
         dict(name="spmv_pullback", ms=pb_ms, plain_ms=pb_plain_ms,
              bound_ms=b, bound_by=by, library_ms=pb_library_ms, shape=shape,
-             cluster=plan_b, without_hot_column=no_hot),
+             cluster=plan_b, without_hot_column=no_hot,
+             values_bound_ms=values_bound_ms),
         dict(name="spmv_pullback_l2", ms=pb_l2_ms, plain_ms=pb_plain_ms,
              bound_ms=b, bound_by=by, library_ms=pb_library_ms,
              shape=shape),
@@ -1812,7 +1888,16 @@ def log_spmv_rows(rows):
     log("  K6 folded and probed: " + json.dumps(
         {"values_sum_ms": rows[0]["values_sum_ms"],
          "gather_probe": rows[0]["gather_probe"], "folded": rows[0]["folded"],
-         "pullback_without_hot_column": rows[2]["without_hot_column"]}))
+         "pullback_without_hot_column": rows[2]["without_hot_column"],
+         "pullback_values_bound_ms": rows[2]["values_bound_ms"]}))
+
+
+def sparse_glm_data():
+    """The JAX bench's flagship sparse problem, drawn on the host."""
+    from dask_ml_tpu_torch.datasets import make_sparse_classification
+
+    return make_sparse_classification(GLM_N, GLM_D, GLM_DENSITY,
+                                      random_state=42)
 
 
 def glm_cell(dev, errs):
@@ -1821,14 +1906,12 @@ def glm_cell(dev, errs):
     launches by kernel for the kernels line, summary)."""
     import torch
 
-    from dask_ml_tpu_torch.datasets import make_sparse_classification
     from dask_ml_tpu_torch.linear_model import LogisticRegression
     from dask_ml_tpu_torch.models import glm as glm_core
     from dask_ml_tpu_torch.ops import sparse as sps
 
     t0 = time.perf_counter()
-    X, y = make_sparse_classification(GLM_N, GLM_D, GLM_DENSITY,
-                                      random_state=42)
+    X, y = drawn("sparse_glm", sparse_glm_data)
     gen_s = time.perf_counter() - t0
     log(f"sparse data {X.shape}, k = {X.k}, {X.nbytes / 1e9:.2f} GB made in "
         f"{gen_s:.2f} s")
@@ -1970,6 +2053,8 @@ def spmv_only(dev, errs):
                 name = ("spmv_pullback" if pull else "spmv") + (
                     f"_cluster{c}" if c else "_l2")
                 times[name + "_ms"] = cuda_ms(fn, iters=5, warmup=1)
+                if pull:
+                    expect_repeats(f"{name} at d = {d2}", fn, fn())
         summary["wide"][str(d2)] = times
     return kernel_rows(rows, {row["name"]: 0 for row in rows}, errs), summary
 
@@ -2698,9 +2783,8 @@ def stream_admm_host(dev, X, y, tmp):
 def stream_admm_sparse(dev, Xs, y, tmp):
     """The sparse ADMM cell's container streamed in 4 blocks through
     ``fit_blocks`` with the intercept; against admm(n_shards=4); one outer
-    iteration through the kernels against the plain one; preemption and
-    resume held to the run-to-run spread the pullback's float adds
-    leave."""
+    iteration through the kernels against the plain one; four runs equal
+    bit for bit, and a preemption resumed to the same bits."""
     import torch
 
     from dask_ml_tpu_torch.linear_model import LogisticRegression
@@ -2754,7 +2838,8 @@ def stream_admm_sparse(dev, Xs, y, tmp):
     expect(out["kernel_vs_plain_step_rel"] <= STREAM_RTOL,
            f"sparse streamed step: kernel vs plain {out}")
 
-    # the run-to-run spread, then a preemption and its resume
+    # the run-to-run spread (0: the pullback adds fixed-point integers),
+    # then a preemption and its resume, bit for bit
     runs = [run()[2] for _ in range(4)]
     spread = max(rel(a[0], b[0]) for i, a in enumerate(runs)
                  for b in runs[i + 1:])
@@ -2769,18 +2854,11 @@ def stream_admm_sparse(dev, Xs, y, tmp):
     res = run(checkpoint_path=path)[2]
     dist = [rel(res[0], r[0]) for r in runs]
     out.update(run_to_run_spread=spread, resumed_vs_runs=dist)
-    if spread == 0.0:
-        expect(all(states_equal(res, r) for r in runs),
-               "sparse streamed ADMM: spread 0 but the resume differs")
-    else:
-        # the resumed state is one more draw of the pullback's noise: in
-        # this many dimensions its distance to each run sits near the
-        # runs' own distances, and within twice the largest of them if it
-        # lies in their spread (the triangle inequality through their
-        # centre); a resume from the wrong point lands ≫ 1e-6 away
-        expect(max(dist) <= 2 * spread and max(dist) <= 1e-6,
-               f"sparse streamed ADMM: resumed {dist} outside the spread "
-               f"{spread}")
+    expect(spread == 0.0 and all(states_equal(r, runs[0]) for r in runs),
+           f"sparse streamed ADMM: four runs differ (spread {spread})")
+    expect(states_equal(res, runs[0]),
+           f"sparse streamed ADMM: the resumed fit differs from the "
+           f"uninterrupted one ({dist})")
     src.close()
     # the whole path's peak above what was resident before it, its
     # comparison runs included
@@ -3084,6 +3162,315 @@ def stream_cells(dev):
 
 
 # ---------------------------------------------------------------------------
+# INCREMENTAL: streaming SGD, the wrappers and blockwise predict
+# ---------------------------------------------------------------------------
+
+
+def inc_data(seed: int):
+    """BASELINE config 4's data: ``make_classification(INC_N, INC_D,
+    n_informative=INC_D, scale=2.0)``'s recipe (bench.py
+    bench_incremental) drawn with numpy, and INC_HOLDOUT more rows of the
+    same model held out. Returns (X, y, X_held, y_held)."""
+    n = INC_N + INC_HOLDOUT
+    rng = np.random.default_rng([seed, 11])
+    X = normal_f32((n, INC_D), [seed, 11])
+    beta = (rng.random(INC_D, dtype=np.float32) - 1.0) * 2.0
+    u = rng.random(n, dtype=np.float32)
+    y = (u < 1.0 / (1.0 + np.exp(-(X @ beta)))).astype(np.int64)
+    return X[:INC_N], y[:INC_N], X[INC_N:], y[INC_N:]
+
+
+def blobs_data(seed: int):
+    """The first path's blobs: N x D float32 around K uniform centers."""
+    rng = np.random.default_rng(seed)
+    true_centers = rng.uniform(-10, 10, (K, D)).astype(np.float32)
+    y_true = rng.integers(0, K, N)
+    X = true_centers[y_true] + rng.standard_normal((N, D), dtype=np.float32)
+    return X, y_true
+
+
+def coef_equal(a, b) -> bool:
+    return np.array_equal(np.asarray(a._coef), np.asarray(b._coef))
+
+
+def incremental_dense(dev):
+    """``incremental-dense``: BASELINE config 4 at its published size through
+    ``Incremental``, against ``wrappers.fit`` and a hand-written
+    ``partial_fit`` loop (bit for bit), the chain alone on staged X under
+    the sync debug mode "error" (no host read between blocks), and a
+    held-out accuracy beside the batch L-BFGS fit's."""
+    import torch
+
+    from dask_ml_tpu_torch import wrappers
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.models import glm as glm_core
+
+    X, y, Xh, yh = drawn("inc", lambda: inc_data(SEED))
+    kw = dict(C=INC_C, solver_kwargs={"eta0": INC_ETA0})
+    n_blocks = -(-INC_N // INC_BLOCK)
+
+    def incremental():
+        return wrappers.Incremental(LogisticRegression(**kw),
+                                    block_size=INC_BLOCK).fit(X, y)
+
+    glm_core.reset_host_reads()
+    inc, sec, launches = drive(incremental)
+    reads = glm_core.host_reads["n"]
+    expect(inc.n_iter_ == n_blocks, f"n_iter_ {inc.n_iter_} != {n_blocks}")
+    expect(reads == 0, f"the chain made {reads} host reads")
+    expect(np.isfinite(inc.coef_).all() and inc.coef_.shape == (INC_D,),
+           "bad coefficients")
+    _, warm_s, _ = drive(incremental)
+    fitted, fit_s, _ = drive(lambda: wrappers.fit(
+        LogisticRegression(**kw), X, y, block_size=INC_BLOCK))
+    loop = LogisticRegression(**kw)
+    for i in range(0, INC_N, INC_BLOCK):
+        loop.partial_fit(X[i:i + INC_BLOCK], y[i:i + INC_BLOCK])
+    expect(coef_equal(inc.estimator_, fitted)
+           and coef_equal(inc.estimator_, loop),
+           "Incremental, wrappers.fit and the partial_fit loop differ")
+    # the chain alone, X staged first: nothing in it may wait for the card
+    step, state, y_enc = LogisticRegression(**kw)._incremental_begin(X, y)
+    Xd = torch.as_tensor(X, device=dev)
+    yd = torch.as_tensor(y_enc, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        out = wrappers.incremental_scan(step, state, Xd, yd,
+                                        block_size=INC_BLOCK)
+        queued_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    expect(np.array_equal(out[0].cpu().numpy(), inc.estimator_._coef),
+           "the chain on staged X differs from Incremental's")
+    chain_ms = cuda_ms(lambda: wrappers.incremental_scan(
+        step, state, Xd, yd, block_size=INC_BLOCK), iters=5, warmup=1)
+    del Xd, yd, out
+    acc = inc.score(Xh, yh)
+    batch, batch_s, _ = drive(lambda: LogisticRegression(
+        solver="lbfgs", C=INC_C).fit(X, y))
+    acc_batch = batch.score(Xh, yh)
+    out = {"n": INC_N, "d": INC_D, "block": INC_BLOCK, "blocks": n_blocks,
+           "wall_s": sec, "warm_wall_s": warm_s, "rows_per_s": INC_N / sec,
+           "warm_rows_per_s": INC_N / warm_s, "wrappers_fit_s": fit_s,
+           "chain_on_staged_x_s": chain_s, "chain_queued_s": queued_s,
+           "chain_ms": chain_ms, "step_ms": chain_ms / n_blocks,
+           "host_reads": reads, "heldout_accuracy": acc,
+           "batch_lbfgs_heldout_accuracy": acc_batch,
+           "batch_lbfgs_s": batch_s, "batch_lbfgs_n_iter": batch.n_iter_}
+    path_line("incremental-dense", sec, inc.n_iter_, launches, **out)
+    return out
+
+
+def incremental_sparse(dev):
+    """``incremental-sparse``: the flagship container in blocks of
+    INC_SPARSE_BLOCK rows through ``wrappers.fit`` (one ``partial_fit`` a
+    block: K6 and the pullback once each); a second run, each block's
+    staging and step timed apart, to the same bits; the last step through
+    the kernels against the same step with the plain SpMV and a float64
+    pullback, within INC_RTOL normwise. Returns (launches, the fitted
+    estimator, summary)."""
+    import torch
+
+    from dask_ml_tpu_torch import wrappers
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.models import glm as glm_core
+    from dask_ml_tpu_torch.parallel.sharding import prepare_data
+    from dask_ml_tpu_torch.utils.validation import check_array
+
+    Xs, ys = drawn("sparse_glm", sparse_glm_data)
+    n_blocks = -(-GLM_N // INC_SPARSE_BLOCK)
+    est, sec, launches = drive(lambda: wrappers.fit(
+        LogisticRegression(solver="lbfgs"), Xs, ys,
+        block_size=INC_SPARSE_BLOCK))
+    expect_launches("incremental-sparse", launches)
+    expect(launches["spmv"] == n_blocks and launches["spmv_pullback"]
+           == n_blocks, f"not one K6 and one pullback a block: {launches}")
+    expect(est.n_iter_ == n_blocks and np.isfinite(est.coef_).all(),
+           f"sparse chain: n_iter_ {est.n_iter_}")
+    # the same chain, partial_fit's body by hand, staging and step timed
+    again = LogisticRegression(solver="lbfgs")
+    _, apply_one = glm_core.get_stream_step(**again._sgd_config())
+    stage_s, step_s = [], []
+    for i in range(0, GLM_N, INC_SPARSE_BLOCK):
+        t0 = time.perf_counter()
+        Xb = check_array(Xs[i:i + INC_SPARSE_BLOCK], accept_sparse=True)
+        y_enc = again._encode_y_partial(ys[i:i + INC_SPARSE_BLOCK])
+        state = again._pf_state_device(int(Xb.shape[1]))
+        data = prepare_data(Xb, y=y_enc, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        new = apply_one(state, data.X, data.y, data.weights)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        stage_s.append(t1 - t0)
+        again._store_pf_state(new)
+    expect(coef_equal(est, again),
+           "two runs of the sparse chain give other coefficients")
+    # the last step: kernels against the plain SpMV and a float64 pullback
+    cfg = again._sgd_config()
+    cfg.pop("n_classes", None)
+    got = glm_core.make_sgd_step(**cfg, kernel="cuda")(
+        state, (data.X, data.y, data.weights))[0]
+    with plain_pullback_in_f64():
+        want = glm_core.make_sgd_step(**cfg, kernel="torch")(
+            state, (data.X, data.y, data.weights))[0]
+    step_rel = rel(got, want)
+    expect(step_rel <= INC_RTOL, f"sparse step: kernels {step_rel} "
+           f"normwise from the plain float64-pullback step")
+    out = {"n": GLM_N, "d": GLM_D, "k": Xs.k, "block": INC_SPARSE_BLOCK,
+           "blocks": n_blocks, "wall_s": sec, "rows_per_s": GLM_N / sec,
+           "stage_s_per_block": float(np.mean(stage_s)),
+           "step_s_per_block": float(np.mean(step_s)),
+           "stage_s": stage_s, "step_s": step_s,
+           "kernel_vs_plain_f64_step_rel": step_rel}
+    path_line("incremental-sparse", sec, est.n_iter_, launches, **out)
+    return launches, est, out
+
+
+def incremental_multinomial(dev):
+    """``incremental-multinomial``: softmax streaming, K = INC_MN_K classes
+    on the first INC_MN_N rows of config 4's X, ten ``partial_fit`` blocks
+    with ``classes=`` given."""
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+
+    X, _, Xh, _ = drawn("inc", lambda: inc_data(SEED))
+    rng = np.random.default_rng([SEED, 13])
+    B = rng.standard_normal((INC_D, INC_MN_K)).astype(np.float32) * 0.3
+    y = softmax_labels(X[:INC_MN_N], B, rng)
+    yh = softmax_labels(Xh, B, rng)
+    classes = np.arange(INC_MN_K)
+    block = INC_MN_N // 10
+
+    def chain():
+        est = LogisticRegression(multiclass="multinomial",
+                                 solver_kwargs={"eta0": INC_ETA0})
+        for i in range(0, INC_MN_N, block):
+            est.partial_fit(X[i:i + block], y[i:i + block], classes=classes)
+        return est
+
+    est, sec, launches = drive(chain)
+    expect(est.coef_.shape == (INC_MN_K, INC_D)
+           and np.isfinite(est.coef_).all() and np.isfinite(
+               est.intercept_).all(), "bad softmax coefficients")
+    expect(np.array_equal(est.classes_, classes) and est.n_iter_ == 10,
+           f"classes_ {est.classes_}, n_iter_ {est.n_iter_}")
+    out = {"n": INC_MN_N, "k": INC_MN_K, "blocks": 10, "wall_s": sec,
+           "heldout_accuracy": est.score(Xh, yh)}
+    path_line("incremental-multinomial", sec, est.n_iter_, launches, **out)
+    return out
+
+
+def batched_epoch(dev):
+    """``batched-sgd-epoch``: INC_MEMBERS hyperparameter members through
+    one epoch of config 4's blocks in one batched program, each member
+    within BATCHED_RTOL (relative, normwise) of its own single-member
+    epoch."""
+    import torch
+
+    from dask_ml_tpu_torch.models import glm as glm_core
+
+    X, y, _, _ = drawn("inc", lambda: inc_data(SEED))
+    n_blocks = INC_N // INC_BLOCK
+    Xd = torch.as_tensor(X, device=dev)
+    Xb = torch.cat([Xd, Xd.new_ones((INC_N, 1))], 1).view(
+        n_blocks, INC_BLOCK, INC_D + 1)
+    del Xd
+    yb = torch.as_tensor(y, dtype=torch.float32, device=dev).view(
+        n_blocks, INC_BLOCK)
+    wb = torch.ones_like(yb)
+    M = INC_MEMBERS
+    f32 = dict(dtype=torch.float32, device=dev)
+    lam = torch.logspace(-4, 0, M, **f32)
+    eta0 = torch.linspace(0.05, 0.5, M, **f32)
+    power_t = torch.tensor([0.25, 0.5] * (M // 2), **f32)
+    live = torch.ones(M, dtype=torch.bool, device=dev)
+    order = np.random.default_rng([SEED, 17]).permutation(n_blocks)
+    betas0 = torch.zeros((M, INC_D + 1), **f32)
+    ts0 = torch.zeros(M, **f32)
+    epoch = glm_core.get_batched_sgd_epoch("logistic", "l2", True)
+
+    def run():
+        return epoch(betas0, ts0, lam, eta0, power_t, live, Xb, yb, wb,
+                     order)
+
+    (betas, ts), sec, launches = drive(run)
+    expect(bool((ts == n_blocks).all()) and bool(torch.isfinite(
+        betas).all()), "batched epoch: bad state")
+    gaps = []
+    for m in range(M):
+        one = epoch(betas0[m:m + 1], ts0[m:m + 1], lam[m:m + 1],
+                    eta0[m:m + 1], power_t[m:m + 1], live[m:m + 1], Xb, yb,
+                    wb, order)[0][0]
+        gaps.append(rel(betas[m], one))
+    expect(max(gaps) <= BATCHED_RTOL, f"batched members against their own "
+           f"chains: {gaps}")
+    epoch_ms = cuda_ms(run, iters=3, warmup=1)
+    out = {"members": M, "blocks": n_blocks, "block": INC_BLOCK,
+           "epoch_ms": epoch_ms, "member_vs_own_chain_rel": gaps}
+    path_line("batched-sgd-epoch", sec, n_blocks, launches, **out)
+    del Xb, yb, wb
+    return out
+
+
+def parallel_post_fit(dev, sparse_est):
+    """``parallel-post-fit``: ``ParallelPostFit.predict`` of a fitted KMeans
+    on the blobs (K2) and of the sparse chain's GLM on GLM_SCORE_N rows
+    (K6): labels equal to the estimator's own ``predict``, rows a second.
+    Returns launches by path and a summary."""
+    from dask_ml_tpu_torch import wrappers
+    from dask_ml_tpu_torch.cluster import KMeans
+
+    Xb, _ = drawn("blobs", lambda: blobs_data(SEED))
+    km = KMeans(n_clusters=K, init="k-means||", oversampling_factor=2,
+                random_state=SEED).fit(Xb)
+    ppf = wrappers.ParallelPostFit(km)
+    ppf.predict(Xb)  # warm
+    labels, sec_k, l_k = drive(lambda: ppf.predict(Xb))
+    expect_launches("parallel-post-fit-kmeans", l_k)
+    expect(np.array_equal(labels, km.predict(Xb)),
+           "ParallelPostFit(KMeans).predict differs from KMeans.predict")
+    Xs, _ = drawn("sparse_glm", sparse_glm_data)
+    Xq = Xs[:GLM_SCORE_N]
+    ppf = wrappers.ParallelPostFit(sparse_est)
+    ppf.predict(Xq)  # warm
+    labels, sec_g, l_g = drive(lambda: ppf.predict(Xq))
+    expect_launches("parallel-post-fit-glm", l_g)
+    expect(np.array_equal(labels, sparse_est.predict(Xq)),
+           "ParallelPostFit(GLM).predict differs from its predict")
+    out = {"kmeans": {"n": N, "d": D, "s": sec_k, "rows_per_s": N / sec_k},
+           "sparse_glm": {"n": GLM_SCORE_N, "d": GLM_D, "s": sec_g,
+                          "rows_per_s": GLM_SCORE_N / sec_g}}
+    path_line("parallel-post-fit-kmeans", sec_k, None, l_k, **out["kmeans"])
+    path_line("parallel-post-fit-glm", sec_g, None, l_g, **out["sparse_glm"])
+    return {"parallel-post-fit-kmeans": l_k, "parallel-post-fit-glm": l_g}, out
+
+
+def incremental_cells(dev):
+    """The INCREMENTAL phase. Returns the launches of the paths that run
+    the repo's kernels and a summary."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {"dense": incremental_dense(dev)}
+    torch.cuda.empty_cache()
+    sparse_launches, est, out["sparse"] = incremental_sparse(dev)
+    torch.cuda.empty_cache()
+    out["multinomial"] = incremental_multinomial(dev)
+    torch.cuda.empty_cache()
+    out["batched_epoch"] = batched_epoch(dev)
+    torch.cuda.empty_cache()
+    launches, out["parallel_post_fit"] = parallel_post_fit(dev, est)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log("INCREMENTAL " + json.dumps(out))
+    return {"incremental-sparse": sparse_launches, **launches}, out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3127,6 +3514,13 @@ def main() -> int:
             "platform": "gpu", "kind": kind, "count": count}}), flush=True)
         return 0
 
+    if "--incremental-only" in sys.argv[1:]:
+        incremental_cells(dev)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+        return 0
+
     if "--spmv-only" in sys.argv[1:]:
         rows, summary = spmv_only(dev, {})
         log_spmv_rows(rows)
@@ -3144,10 +3538,7 @@ def main() -> int:
     log(f"edge cases: all kernels match their plain versions "
         f"({time.perf_counter() - t0:.2f} s)")
 
-    rng = np.random.default_rng(SEED)
-    true_centers = rng.uniform(-10, 10, (K, D)).astype(np.float32)
-    y_true = rng.integers(0, K, N)
-    X = true_centers[y_true] + rng.standard_normal((N, D), dtype=np.float32)
+    X, y_true = drawn("blobs", lambda: blobs_data(SEED))
 
     # -- the first path (algorithm="full"), through the estimator -------
     def full_fit_predict():
@@ -3292,6 +3683,14 @@ def main() -> int:
         r["launches_stream"] = {
             path: int(l[r["name"]]) for path, l in stream_launches.items()
             if l.get(r["name"])}
+    torch.cuda.empty_cache()
+
+    inc_launches, _ = incremental_cells(dev)
+    for r in rows:
+        if r["name"] in ("spmv", "spmv_pullback", "fused_argmin_min"):
+            r["launches_incremental"] = {
+                path: int(l[r["name"]]) for path, l in inc_launches.items()
+                if l.get(r["name"])}
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,13 @@ Public subpackages so far:
   sparse (blocked-ELL) input
 - :mod:`dask_ml_tpu_torch.decomposition` — PCA and TruncatedSVD over the
   tsqr and randomized SVDs of :mod:`dask_ml_tpu_torch.ops.linalg`
-- :mod:`dask_ml_tpu_torch.metrics` — accuracy, MSE, MAE, R²
+- :mod:`dask_ml_tpu_torch.wrappers` — ``ParallelPostFit``, ``Incremental``
+  and the functional ``fit`` / ``incremental_scan`` (streaming
+  ``partial_fit``); the deprecated ``Partial*`` estimators (host,
+  scikit-learn) in ``linear_model``, ``naive_bayes`` and
+  ``neural_network``
+- :mod:`dask_ml_tpu_torch.metrics` — accuracy, log loss, MSE, MAE, R²
+  and the scorers
 - :mod:`dask_ml_tpu_torch.datasets` — the sparse classification generator
 - :mod:`dask_ml_tpu_torch.convert` — fitted JAX models into port estimators
   (KMeans, the GLMs, PCA, TruncatedSVD)

@@ -52,9 +52,11 @@ SIGNATURES = {
         "dml_spmv_smem": (
             [_P, _P, _P, _L, _I, _I, _I, _P, _P, _P], _I),
         "dml_spmv_pullback_clusters": ([_L, _I, _I, _I], _I),
+        "dml_spmv_absmax": ([_P, _L, _P, _P], _I),
         "dml_spmv_pullback_smem": (
-            [_P, _P, _P, _L, _I, _I, _I, _P, _I, _P, _P], _I),
-        "dml_spmv_pullback_atomic": ([_P, _P, _P, _L, _I, _I, _P, _P], _I),
+            [_P, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P], _I),
+        "dml_spmv_pullback_atomic": (
+            [_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P], _I),
     },
 }
 

@@ -66,25 +66,40 @@
 //     sum each row in a fixed order: a lane's strided slots, then an xor
 //     butterfly. No atomics: the result repeats bit for bit. Two staging
 //     tiles alternate, so a tile costs one barrier;
-//   * pullback: every cluster zeroes a private copy of g in its shared
-//     memory, adds its tiles' products with shared-memory atomics (the
-//     card has no float add there: atomicAdd is its compare-and-swap
-//     loop, ATOMS.CAST.SPIN, and a loop of atomicCAS written by hand ran
-//     8 times slower; a slot whose value is 0 adds nothing and is
-//     skipped, which also keeps the padded slots off column 0), and
-//     writes its copy to a (clusters, d) scratch; a second kernel sums the copies in cluster order. Across
-//     clusters the order is fixed; inside a cluster the atomics add in an
-//     order that changes from run to run, so on float data the result is
-//     NOT promised bit for bit (chains are n / clusters long, not n, so it
-//     is far closer to exact than atomics on one device address); on
-//     integer-valued data every order gives the same bits;
+//   * pullback: every product a * r (an f32 product, as the plain version
+//     forms it) is rounded to a 64-bit fixed-point integer q = a r 2^e, and
+//     the integers are added: integer adds commute exactly, so every order
+//     of the adds, every route and every cluster size give the same bits
+//     from one call to the next (the JAX package's segment_sum repeats its
+//     bits; float atomics in an order that changes from run to run did
+//     not). e is one power of two for the whole call, from the largest
+//     |values| (computed once per container and kept by the Python
+//     wrapper), the largest |r| and the slot count n k: the largest
+//     product takes cap = min(39, 61 - ceil(log2(n k))) bits (31 at the
+//     GLM cell), so that no sum leaves 62 bits, and a column's sum is
+//     within count_c 2^-cap max|a r| of the sum of its f32 products, then
+//     rounded once to f32; on integer-valued data (max|a r| < 2^cap) every
+//     q and every sum is exact. A non-finite bound gives NaN in every
+//     column.
+//     Every cluster zeroes a private copy of the low 32 bits of g in its
+//     shared memory (4 bytes a column, as a float would take, so the plan
+//     is the float kernel's) and adds each q's low word with the card's
+//     native 32-bit shared-memory atomic add; the add returns the old
+//     word, from which the carry out is exact, and the high word plus that
+//     carry, where it is not 0, goes to the cluster's row of a (clusters,
+//     d) high-word scratch with a device-memory atomic (a few in a hundred
+//     adds at the GLM cell). A slot whose value is 0 adds nothing and is
+//     skipped, which also keeps the padded slots off column 0. A second
+//     kernel adds the clusters' (low, high) pairs as 64-bit integers and
+//     turns each column's sum into f32;
 //   * rows >= n are masked inside the kernels: no padding copy.
 //
 // Where d is beyond the cluster's reach, k beyond a tile (512), or n k too
 // small against d to pay for filling shared memory, the d-vector stays in
 // L2: spmv_kernel (a set of L lanes a row, the first version of this
-// port) and pullback_atomic_kernel (the same walk, fused, float atomics
-// on device memory; not reproducible on float data).
+// port) and pullback_atomic_kernel (the same walk, fused, the same
+// fixed-point q added with 64-bit integer atomics on device memory: the
+// bits of every other route).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -128,16 +143,132 @@ spmv_kernel(const float* __restrict__ values, const int* __restrict__ cols,
   if (row < n && lane == 0) out[row] = s;
 }
 
+int lanes_of(int k) {
+  int L = 1;
+  while (L < k && L < 32) L <<= 1;
+  return L;
+}
+
+// ---------------------------------------------------------------------------
+// the pullback's fixed point
+// ---------------------------------------------------------------------------
+
+// The bits of max |x| over x: non-negative floats order as their bits
+// (NaN above inf above every finite value), so an integer max repeats.
+__global__ void __launch_bounds__(THREADS)
+absmax_kernel(const float* __restrict__ x, long long len,
+              unsigned* __restrict__ out) {
+  unsigned m = 0;
+  const long long stride = (long long)gridDim.x * THREADS;
+#pragma unroll 4
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < len;
+       i += stride)
+    m = max(m, __float_as_uint(__ldcs(x + i)) & 0x7fffffffu);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if ((threadIdx.x & 31) == 0 && m != 0) atomicMax(out, m);
+}
+
+int launch_absmax(const float* x, long long len, unsigned* out,
+                  cudaStream_t s) {
+  cudaError_t e = cudaMemsetAsync(out, 0, sizeof(unsigned), s);
+  if (e != cudaSuccess) return (int)e;
+  long long blocks = (len + THREADS - 1) / THREADS;
+  if (blocks > 8 * 132) blocks = 8 * 132;
+  if (blocks < 1) blocks = 1;
+  absmax_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(x, len, out);
+  return (int)cudaGetLastError();
+}
+
+// One call's fixed point: q = rint(p 2^e) for an f32 product p. The
+// largest |p| is at most max|values| max|r| rounded up to a power of two,
+// so |q| <= 2^cap with cap = min(39, 61 - ceil(log2(n k))): a sum of n k
+// of them stays inside 62 bits. (31 at the GLM cell, n k = 1.01e9: the
+// larger q, the more adds carry into the high word.)
+struct Fixed {
+  double scale, unscale;
+  bool finite;
+};
+
+__device__ __forceinline__ Fixed fixed_point(const unsigned* a_bound,
+                                             const unsigned* r_bound,
+                                             long long nk) {
+  const unsigned ab = *a_bound, rb = *r_bound;
+  Fixed f;
+  f.finite = ab < 0x7f800000u && rb < 0x7f800000u;
+  const double m = (double)__uint_as_float(ab) * (double)__uint_as_float(rb);
+  int e = 0;
+  if (f.finite && m > 0.0) {
+    int cap = 61 - (nk > 1 ? 64 - __clzll(nk - 1) : 0);
+    if (cap > 39) cap = 39;
+    e = cap - (ilogb(m) + 1);
+  }
+  f.scale = ldexp(1.0, e);
+  f.unscale = ldexp(1.0, -e);
+  return f;
+}
+
+__device__ __forceinline__ long long to_fixed(float p, const Fixed& f) {
+  return __double2ll_rn((double)p * f.scale);
+}
+
+// *lo += the low word of q, *hi += its high word and the carry out of that
+// add: the pairs gather the exact sum mod 2^64 in any order.
+__device__ __forceinline__ void add_fixed(unsigned* lo, unsigned* hi,
+                                          long long q) {
+  const unsigned l = (unsigned)q;
+  const unsigned old = atomicAdd(lo, l);
+  const unsigned h = (unsigned)(q >> 32) + (old + l < old ? 1u : 0u);
+  if (h != 0u) atomicAdd(hi, h);
+}
+
+// g[i] = the sum of `rows` (low, high) word pairs at lo[j * row + i *
+// step] and hi[j * row + i * step], a 64-bit integer, in f32; NaN where a
+// bound was not finite.
+__global__ void __launch_bounds__(THREADS)
+from_fixed_kernel(const unsigned* __restrict__ lo,
+                  const unsigned* __restrict__ hi, int rows, long long row,
+                  int step, long long len, const unsigned* a_bound,
+                  const unsigned* r_bound, long long nk,
+                  float* __restrict__ g) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= len) return;
+  unsigned long long t = 0;
+  for (int j = 0; j < rows; ++j) {
+    const long long at = j * row + i * step;
+    t += (unsigned long long)lo[at] + ((unsigned long long)hi[at] << 32);
+  }
+  const Fixed f = fixed_point(a_bound, r_bound, nk);
+  g[i] = f.finite ? (float)((double)(long long)t * f.unscale)
+                  : __int_as_float(0x7fffffff);
+}
+
+int launch_from_fixed(const unsigned* lo, const unsigned* hi, int rows,
+                      long long row, int step, long long len,
+                      const unsigned* a_bound, const unsigned* r_bound,
+                      long long nk, float* g, cudaStream_t s) {
+  const long long blocks = (len + THREADS - 1) / THREADS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  from_fixed_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(
+      lo, hi, rows, row, step, len, a_bound, r_bound, nk, g);
+  return (int)cudaGetLastError();
+}
+
+// The pullback with g in L2: the walk of spmv_kernel, each q added to a
+// (d,) 64-bit accumulator with a device-memory atomic.
 template <int L>
 __global__ void __launch_bounds__(THREADS)
 pullback_atomic_kernel(const float* __restrict__ values,
                        const int* __restrict__ cols,
                        const float* __restrict__ r, long long n, int k,
-                       float* __restrict__ g) {
+                       const unsigned* a_bound, const unsigned* r_bound,
+                       unsigned long long* __restrict__ acc) {
   const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
   const long long row = t / L;
   const int lane = (int)(t & (L - 1));
   if (row >= n) return;
+  const Fixed f = fixed_point(a_bound, r_bound, n * k);
   const float rr = __ldg(r + row);
   const float* vr = values + row * k;
   const int* cr = cols + row * k;
@@ -145,41 +276,44 @@ pullback_atomic_kernel(const float* __restrict__ values,
   for (int j = lane; j < k; j += L) {
     const float a = __ldcs(vr + j);
     const int c = __ldcs(cr + j);
-    if (a != 0.f) atomicAdd(g + c, a * rr);
+    if (a != 0.f)
+      atomicAdd(acc + c, (unsigned long long)to_fixed(a * rr, f));
   }
 }
 
+// Both L2 kernels for rows of k slots: L = lanes_of(k) lanes a row.
 template <int L>
-int launch_l2(bool pull, const float* values, const int* cols,
-              const float* x, long long n, int k, float* y, cudaStream_t s) {
+int launch_l2_lanes(bool pull, const float* values, const int* cols,
+                    const float* x, long long n, int k, float* out,
+                    const unsigned* a_bound, const unsigned* r_bound,
+                    unsigned long long* acc, cudaStream_t s) {
   const long long blocks = (n * L + THREADS - 1) / THREADS;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (pull)
     pullback_atomic_kernel<L><<<(unsigned)blocks, THREADS, 0, s>>>(
-        values, cols, x, n, k, y);
+        values, cols, x, n, k, a_bound, r_bound, acc);
   else
     spmv_kernel<L><<<(unsigned)blocks, THREADS, 0, s>>>(values, cols, x, n,
-                                                         k, y);
+                                                         k, out);
   return (int)cudaGetLastError();
 }
 
-int lanes_of(int k) {
-  int L = 1;
-  while (L < k && L < 32) L <<= 1;
-  return L;
-}
-
 int dispatch_l2(bool pull, const float* values, const int* cols,
-                const float* x, long long n, int k, float* y,
-                cudaStream_t s) {
+                const float* x, long long n, int k, float* out,
+                const unsigned* a_bound, const unsigned* r_bound,
+                unsigned long long* acc, cudaStream_t s) {
+#define DML_L2(L)                                                   \
+  return launch_l2_lanes<L>(pull, values, cols, x, n, k, out, a_bound, \
+                            r_bound, acc, s)
   switch (lanes_of(k)) {
-    case 1: return launch_l2<1>(pull, values, cols, x, n, k, y, s);
-    case 2: return launch_l2<2>(pull, values, cols, x, n, k, y, s);
-    case 4: return launch_l2<4>(pull, values, cols, x, n, k, y, s);
-    case 8: return launch_l2<8>(pull, values, cols, x, n, k, y, s);
-    case 16: return launch_l2<16>(pull, values, cols, x, n, k, y, s);
-    default: return launch_l2<32>(pull, values, cols, x, n, k, y, s);
+    case 1: DML_L2(1);
+    case 2: DML_L2(2);
+    case 4: DML_L2(4);
+    case 8: DML_L2(8);
+    case 16: DML_L2(16);
+    default: DML_L2(32);
   }
+#undef DML_L2
 }
 
 // ---------------------------------------------------------------------------
@@ -241,15 +375,17 @@ __device__ __forceinline__ float term(const float* part, unsigned rank,
   return a * part[(unsigned)col >> LOG2C];
 }
 
-// g[col] += x, unless the column is another block's. (The card has no
-// float add on shared memory: atomicAdd is a compare-and-swap loop.)
+// q into this block's part of g (the low words in shared memory, the high
+// words in the cluster's row of the scratch), unless the column is another
+// block's.
 template <int LOG2C>
-__device__ __forceinline__ void scatter_add(float* part, unsigned rank,
-                                            int col, float x) {
+__device__ __forceinline__ void scatter_add(unsigned* part, unsigned* hi,
+                                            unsigned rank, int col,
+                                            long long q) {
   if (LOG2C == 0)
-    atomicAdd(part + col, x);
+    add_fixed(part + col, hi + col, q);
   else if (((unsigned)col & ((1u << LOG2C) - 1u)) == rank)
-    atomicAdd(part + ((unsigned)col >> LOG2C), x);
+    add_fixed(part + ((unsigned)col >> LOG2C), hi + col, q);
 }
 
 template <int LOG2C>
@@ -385,20 +521,23 @@ spmv_smem_kernel(const float* __restrict__ values,
   walk_tiles<LOG2C>(tiles, load, work);
 }
 
-// Shared memory: this block's part of the cluster's copy of g.
+// Shared memory: this block's part of the low words of the cluster's copy
+// of g. lo and hi: (clusters, d) scratch, hi zeroed by the caller.
 template <int LOG2C>
 __global__ void __launch_bounds__(TB, 1)
 pullback_smem_kernel(const float* __restrict__ values,
                      const int* __restrict__ cols,
                      const float* __restrict__ r, long long n, int k, int d,
-                     int R, int aligned, float* __restrict__ partial) {
+                     int R, int aligned, const unsigned* a_bound,
+                     const unsigned* r_bound, unsigned* __restrict__ lo,
+                     unsigned* __restrict__ hi) {
   extern __shared__ float4 smem4[];
   constexpr int C = 1 << LOG2C;
   constexpr bool SPLIT = LOG2C > 0;
-  float* part = reinterpret_cast<float*>(smem4);
+  unsigned* part = reinterpret_cast<unsigned*>(smem4);
   const unsigned rank = block_rank<LOG2C>();
   const int mine = (d - (int)rank + C - 1) >> LOG2C;
-  for (int j = threadIdx.x; j < mine; j += TB) part[j] = 0.f;
+  for (int j = threadIdx.x; j < mine; j += TB) part[j] = 0u;
   sync_all<LOG2C>();
 
   const int S = R * k;
@@ -408,6 +547,8 @@ pullback_smem_kernel(const float* __restrict__ values,
   const bool active = f0 < S;
   const int q0 = f0 / k;
   const int rem0 = f0 - q0 * k;
+  const Fixed fx = fixed_point(a_bound, r_bound, total);
+  unsigned* hi_mine = hi + (long long)(blockIdx.x >> LOG2C) * d;
 
   // a thread's 4 slots lie in one row or, for k >= 4, in two: their r
   // travels with the fragment
@@ -432,11 +573,11 @@ pullback_smem_kernel(const float* __restrict__ values,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       // a slot beyond n k lies in a row >= n
-      if (row < n && a[e] != 0.f)
-        scatter_add<LOG2C>(
-            part, rank, c[e],
-            a[e] * (row == row0 ? f.r0
-                                : (row == row0 + 1 ? f.r1 : __ldg(r + row))));
+      if (row < n && a[e] != 0.f) {
+        const float rr =
+            row == row0 ? f.r0 : (row == row0 + 1 ? f.r1 : __ldg(r + row));
+        scatter_add<LOG2C>(part, hi_mine, rank, c[e], to_fixed(a[e] * rr, fx));
+      }
       if (++rem == k) {
         rem = 0;
         ++row;
@@ -446,12 +587,13 @@ pullback_smem_kernel(const float* __restrict__ values,
   walk_tiles<LOG2C>(tiles, load, work);
   // every add to this part has landed before it is read
   __syncthreads();
-  float* mine_out = partial + (long long)(blockIdx.x >> LOG2C) * d;
+  unsigned* lo_mine = lo + (long long)(blockIdx.x >> LOG2C) * d;
   for (int j = threadIdx.x; j < mine; j += TB)
-    mine_out[rank + ((long long)j << LOG2C)] = part[j];
+    lo_mine[rank + ((long long)j << LOG2C)] = part[j];
 }
 
-// out[i] = partial[0][i] + partial[1][i] + ... in row order.
+// out[i] = partial[0][i] + partial[1][i] + ... in row order (the forward's
+// cluster of 2).
 __global__ void __launch_bounds__(THREADS)
 sum_partials_kernel(const float* __restrict__ partial, int rows,
                     long long len, float* __restrict__ out) {
@@ -584,8 +726,8 @@ extern "C" int dml_spmv_tile_rows(int k) {
 extern "C" int dml_spmv(const float* values, const int* cols, const float* v,
                         long long n, int k, float* out, void* stream) {
   if (n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
-  return dispatch_l2(false, values, cols, v, n, k, out,
-                     static_cast<cudaStream_t>(stream));
+  return dispatch_l2(false, values, cols, v, n, k, out, nullptr, nullptr,
+                     nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // The d-vector (d floats) in the shared memory of clusters of `cluster`
@@ -624,34 +766,65 @@ extern "C" int dml_spmv_pullback_clusters(long long n, int k, int d,
   return err ? -err : p.grid / cluster;
 }
 
-// The pullback with g in shared memory: r (n,) f32, partial (clusters, d)
-// f32 scratch with clusters = dml_spmv_pullback_clusters(...), g (d,) f32
-// out. Two launches; returns cudaGetLastError() after each.
+// The bits of max |x| over len floats into *out (device memory), for the
+// pullback's a_bound. Two launches (a memset, the reduction).
+extern "C" int dml_spmv_absmax(const float* x, long long len, unsigned* out,
+                               void* stream) {
+  if (len <= 0) return (int)cudaErrorInvalidValue;
+  return launch_absmax(x, len, out, static_cast<cudaStream_t>(stream));
+}
+
+// The pullback with g in shared memory: r (n,) f32; a_bound, the bits of
+// max |values| (dml_spmv_absmax); r_bound, one word of scratch that takes
+// max |r|; lo and hi, (clusters, d) 32-bit scratch with clusters =
+// dml_spmv_pullback_clusters(...); g (d,) f32 out. Returns
+// cudaGetLastError() after the last of its launches (|r|'s bound, the
+// zeroing of hi, the walk, the sum of the clusters' words).
 extern "C" int dml_spmv_pullback_smem(const float* values, const int* cols,
                                       const float* r, long long n, int k,
-                                      int d, int cluster, float* partial,
-                                      int clusters, float* g, void* stream) {
+                                      int d, int cluster,
+                                      const unsigned* a_bound,
+                                      unsigned* r_bound, unsigned* lo,
+                                      unsigned* hi, int clusters, float* g,
+                                      void* stream) {
   Plan p;
   int err = make_plan(true, n, k, d, cluster, &p);
   if (err) return err;
   if (p.grid / cluster != clusters) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = launch_absmax(r, n, r_bound, s);
+  if (err) return err;
+  cudaError_t e = cudaMemsetAsync(hi, 0, 4 * (size_t)clusters * d, s);
+  if (e != cudaSuccess) return (int)e;
   int R = tile_rows(k);
   int aligned = aligned16(values, cols) ? 1 : 0;
-  void* args[] = {&values, &cols, &r, &n, &k, &d, &R, &aligned, &partial};
+  void* args[] = {&values, &cols, &r,       &n,       &k,  &d, &R,
+                  &aligned, &a_bound, &r_bound, &lo, &hi};
   err = launch_plan(p, args, s);
   if (err) return err;
-  return launch_sum(partial, clusters, d, g, s);
+  return launch_from_fixed(lo, hi, clusters, d, 1, d, a_bound, r_bound,
+                           n * (long long)k, g, s);
 }
 
-// The pullback with g in L2: zeroes g (d floats) on the stream, then adds
-// every slot's product with a float atomic on device memory.
+// The pullback with g in L2: a_bound and r_bound as above, acc (d,) 64-bit
+// scratch; zeroes acc, adds every slot's q with a device-memory atomic,
+// then turns acc into g (d,) f32.
 extern "C" int dml_spmv_pullback_atomic(const float* values, const int* cols,
                                         const float* r, long long n, int k,
-                                        int d, float* g, void* stream) {
+                                        int d, const unsigned* a_bound,
+                                        unsigned* r_bound,
+                                        unsigned long long* acc, float* g,
+                                        void* stream) {
   if (n <= 0 || k <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(g, 0, 4 * (size_t)d, s);
+  int err = launch_absmax(r, n, r_bound, s);
+  if (err) return err;
+  cudaError_t e = cudaMemsetAsync(acc, 0, 8 * (size_t)d, s);
   if (e != cudaSuccess) return (int)e;
-  return dispatch_l2(true, values, cols, r, n, k, g, s);
+  err = dispatch_l2(true, values, cols, r, n, k, nullptr, a_bound, r_bound,
+                    acc, s);
+  if (err) return err;
+  const unsigned* words = reinterpret_cast<const unsigned*>(acc);
+  return launch_from_fixed(words, words + 1, 1, 0, 2, d, a_bound, r_bound,
+                           n * (long long)k, g, s);
 }

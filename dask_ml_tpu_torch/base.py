@@ -1,15 +1,31 @@
 """Estimator base classes of the PyTorch port.
 
 The parameter protocol of scikit-learn's ``BaseEstimator`` (``get_params``
-/ ``set_params`` over the constructor's arguments, which is what
-``sklearn.base.clone`` and the search tools call) and ``TransformerMixin``,
-kept here so that the port runs where scikit-learn is not installed, as on
-the card's machine.
+/ ``set_params`` over the constructor's arguments, nested
+``estimator__<param>`` names included, which is what ``clone`` and the
+search tools call), ``TransformerMixin`` and :func:`clone`, kept here so
+that the port runs where scikit-learn is not installed, as on the card's
+machine.
 """
 
 from __future__ import annotations
 
+import copy
 import inspect
+
+
+def clone(estimator):
+    """A new unfitted estimator with the same parameters: the class called
+    with ``get_params(deep=False)``, each parameter that is an estimator
+    (or a list, tuple or set of them) cloned in turn, any other parameter
+    deep-copied. Works on scikit-learn estimators too."""
+    if isinstance(estimator, (list, tuple, set, frozenset)):
+        return type(estimator)(clone(e) for e in estimator)
+    if not hasattr(estimator, "get_params") or isinstance(estimator, type):
+        return copy.deepcopy(estimator)
+    params = {k: clone(v)
+              for k, v in estimator.get_params(deep=False).items()}
+    return type(estimator)(**params)
 
 
 class BaseEstimator:
@@ -25,16 +41,35 @@ class BaseEstimator:
                                                    p.VAR_KEYWORD))
 
     def get_params(self, deep: bool = True) -> dict:
-        return {k: getattr(self, k) for k in self._get_param_names()}
+        """The constructor's parameters; with ``deep``, also every
+        parameter of a parameter that is an estimator, as
+        ``<name>__<param>``."""
+        out = {}
+        for k in self._get_param_names():
+            v = getattr(self, k)
+            if deep and hasattr(v, "get_params") and not isinstance(v, type):
+                out.update((f"{k}__{sk}", sv)
+                           for sk, sv in v.get_params(deep=True).items())
+            out[k] = v
+        return out
 
     def set_params(self, **params):
+        """Set parameters by name; ``<name>__<param>`` sets ``param`` on
+        the estimator held as ``name``."""
         valid = self._get_param_names()
+        nested: dict = {}
         for k, v in params.items():
-            if k not in valid:
+            name, sep, sub = k.partition("__")
+            if name not in valid:
                 raise ValueError(
-                    f"Invalid parameter {k!r} for estimator "
+                    f"Invalid parameter {name!r} for estimator "
                     f"{type(self).__name__}; valid: {valid}")
-            setattr(self, k, v)
+            if sep:
+                nested.setdefault(name, {})[sub] = v
+            else:
+                setattr(self, name, v)
+        for name, sub_params in nested.items():
+            getattr(self, name).set_params(**sub_params)
         return self
 
     def __repr__(self) -> str:

@@ -102,7 +102,16 @@ def glm_from_numpy(attrs: dict, family: str, multiclass: str = "ovr"):
     ``coef_`` ((n_features,), or (n_classes, n_features) for a multiclass
     logistic model), ``intercept_`` when the model fitted one, and
     ``classes_`` for a logistic model; ``multiclass`` is the exported
-    model's constructor setting, which the dict does not carry."""
+    model's constructor setting, which the dict does not carry.
+
+    A model trained by ``partial_fit`` continues its chain in the port
+    where the dict also holds its streaming state: ``_pf_state``, the
+    ``(beta, t)`` pair (beta (width,), or (width, K) for softmax), and
+    for a logistic model ``_pf_classes``, its pinned class set; add them
+    to ``export_learned_attrs``' dict, which leaves private attributes
+    out. The chain's settings (``C``, ``penalty``, ``solver_kwargs``' step
+    size) are constructor parameters, which the dict does not carry: set
+    them on the result (``set_params``) before it continues."""
     if family not in _GLM_CLASSES:
         raise ValueError(
             f"family must be one of {sorted(_GLM_CLASSES)}, got {family!r}")
@@ -140,6 +149,16 @@ def glm_from_numpy(attrs: dict, family: str, multiclass: str = "ovr"):
                          f"{coef.shape}")
     if "n_iter_" in attrs:
         est.n_iter_ = int(attrs["n_iter_"])
+    if "_pf_state" in attrs:
+        beta, t = attrs["_pf_state"]
+        beta = np.array(beta, dtype=np.float32)
+        if beta.shape != est._coef.shape[::-1]:
+            raise ValueError(
+                f"_pf_state's coefficients of shape {beta.shape} do not "
+                f"fit coef_ of shape {coef.shape}")
+        est._pf_state = (beta, float(t))
+    if "_pf_classes" in attrs:
+        est._pf_classes = np.asarray(attrs["_pf_classes"])
     return est
 
 

@@ -20,8 +20,11 @@ runs through :func:`~dask_ml_tpu_torch.checkpoint.solve_checkpointed` in
 chunks of ``checkpoint_every`` iterations, saved to the prefix suffixed
 with the problem's fingerprint. ``fit_blocks`` fits from streamed row
 blocks (:func:`~dask_ml_tpu_torch.models.glm.admm_streamed`), data larger
-than the card's memory. Not ported yet: ``partial_fit`` and the
-batched-search hooks.
+than the card's memory. ``partial_fit`` takes one proximal-SGD step per
+block (:func:`~dask_ml_tpu_torch.models.glm.get_stream_step`), and
+``_incremental_begin`` / ``_incremental_finalize`` let
+:class:`~dask_ml_tpu_torch.wrappers.Incremental` run the chain of blocks
+on the device. Not ported yet: the batched-search hooks.
 """
 
 from __future__ import annotations
@@ -32,20 +35,14 @@ import numpy as np
 import torch
 
 from dask_ml_tpu_torch.base import BaseEstimator
+from dask_ml_tpu_torch.config import resolve_device
 from dask_ml_tpu_torch.metrics import accuracy_score, r2_score
 from dask_ml_tpu_torch.models import glm as core
+from dask_ml_tpu_torch.models.glm import add_intercept
 from dask_ml_tpu_torch.ops import sparse as sparse_ops
 from dask_ml_tpu_torch.parallel import telemetry
 from dask_ml_tpu_torch.parallel.sharding import is_sparse_input, prepare_data
 from dask_ml_tpu_torch.utils.validation import check_array
-
-
-def add_intercept(X):
-    """Append a ones column to a dense tensor, or the intercept as one
-    extra slot per row (column ``d``, value 1) to a container."""
-    if isinstance(X, sparse_ops.SparseRows):
-        return sparse_ops.add_intercept_ell(X)
-    return torch.cat([X, X.new_ones((X.shape[0], 1))], dim=1)
 
 
 def _intercept_block(blk):
@@ -313,6 +310,109 @@ class _GLM(BaseEstimator):
             self.classes_ = np.array([0, 1])
         return self
 
+    # -- streaming / incremental training ----------------------------------
+    #
+    # The estimator implements partial_fit itself (one proximal-SGD step
+    # per block) and exposes the hooks through which
+    # wrappers.Incremental runs the whole chain of blocks on the device
+    # (wrappers.incremental_scan).
+
+    def _encode_y_partial(self, y, classes=None):
+        return self._encode_y(y)
+
+    def _sgd_config(self):
+        sk = dict(self.solver_kwargs or {})
+        regularizer, lamduh = self.penalty, 1.0 / self.C
+        if self.solver in self._UNREGULARIZED_SOLVERS:
+            # these solvers fit the unregularized objective; streaming
+            # matches, or fit and partial_fit would solve other problems
+            regularizer, lamduh = "l2", 0.0
+        return dict(
+            family=self.family,
+            regularizer=regularizer,
+            lamduh=lamduh,
+            eta0=float(sk.get("eta0", 0.1)),
+            power_t=float(sk.get("power_t", 0.5)),
+            fit_intercept=bool(self.fit_intercept),
+        )
+
+    def _pf_width(self, n_features: int) -> int:
+        return n_features + 1 if self.fit_intercept else n_features
+
+    def _pf_coef_shape(self, width: int) -> tuple:
+        """The streaming state's coefficient shape: (width,) for one
+        problem; LogisticRegression widens it to (width, K) for softmax."""
+        return (width,)
+
+    def _pf_state_device(self, n_features: int):
+        """The streaming state ``(beta, t)`` on the configured device: the
+        running state, else a warm start from a batch-fitted ``_coef``
+        (the scikit-learn partial_fit contract: continue, don't reset),
+        else zeros."""
+        dev = resolve_device()
+
+        def staged(beta, t):
+            return (torch.as_tensor(np.asarray(beta, dtype=np.float32),
+                                    device=dev),
+                    torch.tensor(float(t), dtype=torch.float32, device=dev))
+
+        shape = self._pf_coef_shape(self._pf_width(n_features))
+        state = getattr(self, "_pf_state", None)
+        if state is None:
+            coef = getattr(self, "_coef", None)
+            if coef is not None:
+                # a multiclass _coef is (K, width): the state holds its
+                # transpose
+                if len(shape) == 1 and coef.shape == shape:
+                    return staged(coef, 0.0)
+                if len(shape) == 2 and coef.shape == shape[::-1]:
+                    return staged(coef.T, 0.0)
+            return staged(np.zeros(shape, np.float32), 0.0)
+        beta, t = state
+        if tuple(beta.shape) != shape:
+            raise ValueError(
+                f"partial_fit block has {n_features} features but the "
+                f"running state was built for coefficient shape "
+                f"{tuple(beta.shape)}")
+        return staged(beta, t)
+
+    def _store_pf_state(self, state):
+        beta = state[0].cpu().numpy()
+        t = float(state[1])
+        self._pf_state = (beta, t)
+        self._coef = beta.T if beta.ndim == 2 else beta
+        if self.fit_intercept:
+            self.coef_ = self._coef[..., :-1]
+            self.intercept_ = self._coef[..., -1]
+        else:
+            self.coef_ = self._coef
+        self.n_features_in_ = int(beta.shape[0]) - (
+            1 if self.fit_intercept else 0)
+        self.n_iter_ = int(t)
+
+    def partial_fit(self, X, y=None, classes=None, sample_weight=None):
+        """One proximal-SGD step on this block (dense, CSR or a
+        container), resumable across calls."""
+        X = check_array(X, accept_sparse=True)
+        y_enc = self._encode_y_partial(y, classes)
+        state = self._pf_state_device(int(X.shape[1]))
+        _, apply_one = core.get_stream_step(**self._sgd_config())
+        data = prepare_data(X, sample_weight=sample_weight, y=y_enc,
+                            device=state[0].device)
+        self._store_pf_state(apply_one(state, data.X, data.y, data.weights))
+        return self
+
+    def _incremental_begin(self, X, y, classes=None):
+        """The hook of :class:`dask_ml_tpu_torch.wrappers.Incremental`:
+        ``(step_fn, init_state, y_encoded)``."""
+        y_enc = self._encode_y_partial(y, classes)
+        step, _ = core.get_stream_step(**self._sgd_config())
+        return step, self._pf_state_device(int(X.shape[1])), y_enc
+
+    def _incremental_finalize(self, state):
+        self._store_pf_state(state)
+        return self
+
     def _decision_function(self, X):
         """Linear predictor on staged rows, returned to the host. ``_coef``
         is 1-D for a single problem and (n_classes, width) for OVR, which
@@ -430,6 +530,59 @@ class LogisticRegression(_GLM):
             self.intercept_ = self._coef[:, -1]
         else:
             self.coef_ = self._coef
+
+    def _encode_y_partial(self, y, classes=None):
+        # blocks may not show every class: the class set is pinned on the
+        # first call, from classes= or from the first block
+        y = np.asarray(y)
+        if classes is not None:
+            classes = np.asarray(classes)
+            prior = getattr(self, "_pf_classes", None)
+            if prior is not None and not np.array_equal(classes, prior):
+                raise ValueError(
+                    f"classes={classes!r} changed between partial_fit calls "
+                    f"(was {prior!r})")
+            self._pf_classes = classes
+        if getattr(self, "_pf_classes", None) is None:
+            # warm-starting a batch-fitted model: its class set carries
+            # over, where one block could miss a class
+            fitted = getattr(self, "classes_", None)
+            self._pf_classes = (np.asarray(fitted) if fitted is not None
+                                else np.unique(y))
+        k = len(self._pf_classes)
+        if k < 2:
+            raise ValueError(
+                f"streaming partial_fit requires at least 2 classes, got "
+                f"{k}: {self._pf_classes!r} (pass classes= on the first "
+                "call when the first block can't show them all)")
+        if k > 2 and self.multiclass != "multinomial":
+            raise ValueError(
+                f"streaming partial_fit with {k} classes trains the "
+                "softmax (multinomial) objective; construct the estimator "
+                "with multiclass='multinomial' (per-class OVR streaming "
+                "is not provided — use batch fit for OVR)")
+        self.classes_ = self._pf_classes
+        if not np.isin(y, self._pf_classes).all():
+            raise ValueError("y contains labels outside `classes`")
+        if k == 2:
+            return (y == self.classes_[1]).astype(np.float32)
+        # class indices, whatever the order of an explicit classes=
+        idx = np.argmax(
+            y[:, None] == np.asarray(self._pf_classes)[None, :], axis=1)
+        return idx.astype(np.float32)
+
+    def _sgd_config(self):
+        cfg = super()._sgd_config()
+        pf = getattr(self, "_pf_classes", None)
+        if pf is not None and len(pf) > 2:
+            cfg["n_classes"] = len(pf)
+        return cfg
+
+    def _pf_coef_shape(self, width: int) -> tuple:
+        pf = getattr(self, "_pf_classes", None)
+        if pf is not None and len(pf) > 2:
+            return (width, len(pf))
+        return (width,)
 
     def decision_function(self, X):
         return self._decision_function(X)

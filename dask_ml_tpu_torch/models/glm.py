@@ -1,8 +1,9 @@
 """GLM functional core of the PyTorch port (counterpart of
 ``dask_ml_tpu/models/glm.py``): families, regularizers, the four smooth
 solvers (gradient descent, Newton, L-BFGS, proximal gradient), consensus
-ADMM over S row blocks, and the softmax solvers (``multinomial_lbfgs``,
-``admm_multinomial``).
+ADMM over S row blocks, the softmax solvers (``multinomial_lbfgs``,
+``admm_multinomial``), streamed ADMM, and the streaming proximal-SGD steps
+(``make_sgd_step``, ``make_batched_sgd_epoch``).
 
 Objective convention, as in the JAX package: with per-row weights ``w``
 and ``SW = Σ w``, every solver minimizes
@@ -1008,6 +1009,166 @@ def admm_streamed(block_fn, n_blocks, d, sw_total, mask=None, *,
     if return_state:
         return z, n_iter, (z, x, u), done is not None and bool(done)
     return z, n_iter
+
+
+# ---------------------------------------------------------------------------
+# Streaming (incremental) training: one proximal-SGD step per row block
+# ---------------------------------------------------------------------------
+
+
+def add_intercept(X):
+    """Append a ones column to a dense tensor, or the intercept as one
+    extra slot per row (column ``d``, value 1) to a container."""
+    if isinstance(X, sparse_ops.SparseRows):
+        return sparse_ops.add_intercept_ell(X)
+    return torch.cat([X, X.new_ones((X.shape[0], 1))], dim=1)
+
+
+def make_sgd_step(family="logistic", regularizer="l2", lamduh=0.0,
+                  eta0=0.1, power_t=0.5, fit_intercept=True,
+                  n_classes=None, kernel: str = "auto"):
+    """The streaming GLM step (the JAX ``make_sgd_step``):
+    ``step(state, (x, y, w)) -> state`` with ``state = (beta, t)``, ``t`` a
+    float32 scalar tensor. One proximal-SGD update per block: the gradient
+    of the weighted-mean family loss on the block (autograd), the step size
+    ``eta0 / (1 + t)**power_t``, then the regularizer's prox on the
+    penalized coordinates (the intercept takes the plain step).
+
+    Blocks arrive without the ones column: with ``fit_intercept`` the step
+    appends it (``beta``'s last coordinate is the intercept). ``w`` is the
+    per-row weight, 0 on the padding of a remainder block. A dense block's
+    predictor is ``torch.matmul``; a container's is
+    :func:`~dask_ml_tpu_torch.ops.sparse.matvec` (``kernel`` as there), so
+    on the card its forward launches K6 and its gradient the pullback
+    kernel. ``n_classes >= 3`` (logistic only) switches to softmax:
+    ``beta`` is (width, K), ``y`` holds float class indices, the intercept
+    row is not penalized."""
+    multinomial = n_classes is not None and n_classes >= 3
+    if multinomial and family != "logistic":
+        raise ValueError("n_classes >= 3 requires family='logistic'")
+    loss_fn, _ = FAMILIES[family]
+    _, pen_prox = _penalty(regularizer)
+
+    def step(state, blk):
+        beta, t = state
+        x, y, w = blk
+        if fit_intercept:
+            x = add_intercept(x)
+        wsum = torch.clamp(torch.sum(w), min=1e-12)
+        if multinomial:
+            yoh = torch.nn.functional.one_hot(y.to(torch.int64),
+                                              n_classes).to(torch.float32)
+
+            def block_loss(B):
+                logits = (sparse_ops.matmat(x, B)
+                          if isinstance(x, sparse_ops.SparseRows)
+                          else torch.matmul(x, B))
+                lse = torch.logsumexp(logits, dim=1)
+                return torch.sum(
+                    w * (lse - torch.sum(yoh * logits, dim=1))) / wsum
+        else:
+            def block_loss(b):
+                return torch.sum(
+                    w * loss_fn(_data_matvec(x, b, kernel=kernel), y)) / wsum
+
+        _, g = _value_and_grad(block_loss)(beta)
+        lr = eta0 / (1.0 + t) ** power_t
+        cand = beta - lr * g
+        prox = pen_prox(cand, lr * lamduh)
+        if fit_intercept:
+            cand = torch.cat([prox[:-1], cand[-1:]])
+        else:
+            cand = prox
+        return cand, t + 1.0
+
+    return step
+
+
+#: one (step, single-block apply) pair per hyperparameter point
+_STREAM_CACHE: dict = {}
+
+
+def get_stream_step(family="logistic", regularizer="l2", lamduh=0.0,
+                    eta0=0.1, power_t=0.5, fit_intercept=True,
+                    n_classes=None):
+    """Cached :func:`make_sgd_step` and ``apply_one(state, x, y, w)``,
+    the step on one block without autograd history (the JAX package's
+    jitted single-block apply)."""
+    key = (family, regularizer, float(lamduh), float(eta0), float(power_t),
+           bool(fit_intercept),
+           None if n_classes is None else int(n_classes))
+    if key not in _STREAM_CACHE:
+        step = make_sgd_step(family=family, regularizer=regularizer,
+                             lamduh=lamduh, eta0=eta0, power_t=power_t,
+                             fit_intercept=fit_intercept,
+                             n_classes=n_classes)
+
+        @torch.no_grad()
+        def apply_one(state, x, y, w, step=step):
+            return step(state, (x, y, w))
+
+        _STREAM_CACHE[key] = (step, apply_one)
+    return _STREAM_CACHE[key]
+
+
+def make_batched_sgd_epoch(family="logistic", regularizer="l2",
+                           fit_intercept=True):
+    """M hyperparameter members through one data epoch (the JAX
+    ``make_batched_sgd_epoch``):
+    ``epoch(betas, ts, lam, eta0, power_t, live, Xb, yb, wb, order)``.
+
+    ``betas`` (M, width) and ``ts``, ``lam``, ``eta0``, ``power_t``,
+    ``live`` (M,) tensors; ``Xb`` (B, bs, width) dense blocks with the
+    intercept column already appended, ``yb`` and ``wb`` (B, bs); the
+    blocks are visited in ``order`` (a sequence of block indices; a tensor
+    of them is read to the host once). Each block is one batched product
+    ``x @ betas.T`` for every member, then each member's proximal-SGD
+    update; members with ``live`` False keep their state. Returns
+    ``(betas, ts)``."""
+    loss_fn, _ = FAMILIES[family]
+    _, pen_prox = _penalty(regularizer)
+
+    @torch.no_grad()
+    def epoch(betas, ts, lam, eta0, power_t, live, Xb, yb, wb, order):
+        if isinstance(order, torch.Tensor):
+            order = order.cpu()
+        keep = live[:, None]
+        for b in [int(i) for i in order]:
+            x, y, w = Xb[b], yb[b], wb[b]
+            wsum = torch.clamp(torch.sum(w), min=1e-12)
+
+            def block_loss(B):
+                eta = torch.matmul(x, B.T)  # (bs, M): every member at once
+                return torch.sum(w[:, None] * loss_fn(eta, y[:, None])) / wsum
+
+            _, g = _value_and_grad(block_loss)(betas)
+            lr = (eta0 / (1.0 + ts) ** power_t)[:, None]
+            cand = betas - lr * g
+            prox = pen_prox(cand, lr * lam[:, None])
+            if fit_intercept:
+                cand = torch.cat([prox[:, :-1], cand[:, -1:]], dim=1)
+            else:
+                cand = prox
+            betas = torch.where(keep, cand, betas)
+            ts = torch.where(live, ts + 1.0, ts)
+        return betas, ts
+
+    return epoch
+
+
+#: one batched epoch per (family, regularizer, fit_intercept)
+_BATCHED_STREAM_CACHE: dict = {}
+
+
+def get_batched_sgd_epoch(family="logistic", regularizer="l2",
+                          fit_intercept=True):
+    """Cached :func:`make_batched_sgd_epoch`."""
+    key = (family, regularizer, bool(fit_intercept))
+    if key not in _BATCHED_STREAM_CACHE:
+        _BATCHED_STREAM_CACHE[key] = make_batched_sgd_epoch(
+            family=family, regularizer=regularizer,
+            fit_intercept=fit_intercept)
+    return _BATCHED_STREAM_CACHE[key]
 
 
 SOLVERS = ("admm", "gradient_descent", "newton", "lbfgs", "proximal_grad")

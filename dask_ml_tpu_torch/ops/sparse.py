@@ -23,15 +23,17 @@ contractions the GLM solvers route through.
   of 4), or L2. A
   pure function of ``(n, k, d)`` and the card's constants.
 - :func:`pullback_mat`, :func:`matmat` and :func:`weighted_gram`
-  (``A.T @ diag(h) @ A``) in plain PyTorch, as the JAX package computes
-  them outside any Pallas kernel.
+  (``A.T @ diag(h) @ A``, its products added in fixed point so that it
+  repeats its bits) in plain PyTorch, as the JAX package computes them
+  outside any Pallas kernel.
 
 Products form in f32 and every reduction accumulates in f32 (the port
 stages float32 only). On integer-valued data every partial sum is an
 exactly representable integer, so the contractions are bit-identical to
 the dense products they replace whatever their order. On float data the
-forward kernels repeat their own bits from run to run; the pullback, kernel
-or ``index_add_``, adds with float atomics on CUDA and does not.
+kernels repeat their own bits from run to run: the forward sums each row in
+a fixed order, the pullback adds its products as fixed-point integers. The
+plain ``index_add_`` adds with float atomics on CUDA and does not.
 """
 
 from __future__ import annotations
@@ -333,16 +335,37 @@ def _pullback_ref(values, cols, r, d):
     return out.index_add_(0, cols.reshape(-1), prods.reshape(-1))
 
 
+def _values_bound(values, lib, stream):
+    """The bits of ``max |values|`` as a one-word int32 tensor on the card,
+    the pullback's fixed-point scale needs it: reduced once (a pass over
+    the values, ``dml_spmv_absmax``) and kept on the tensor until it is
+    written to."""
+    from dask_ml_tpu_torch._kernels import build
+
+    held = getattr(values, "_dml_absmax", None)
+    if held is not None and held[0] == values._version:
+        return held[1]
+    bound = torch.empty(1, dtype=torch.int32, device=values.device)
+    err = lib.dml_spmv_absmax(values.data_ptr(), values.numel(),
+                              bound.data_ptr(), stream)
+    build.check(err, "pullback kernel (max |values|)")
+    values._dml_absmax = (values._version, bound)
+    return bound
+
+
 def _pullback_cuda(values, cols, r, d, cluster=None):
     """Launch K6's backward (``csrc/spmv.cu``) — the kernel that takes the
     place of the ``segment_sum`` the JAX package's custom VJP
     (``dask_ml_tpu/ops/sparse.py::_spmv_bwd``) leaves to XLA. One pass
-    over the container, the ``(n, k)`` product never formed. ``cluster``
-    as in :func:`_spmv_cuda`: 1, 2 or 4 keep a copy of
-    ``g`` in every cluster's shared memory and sum the copies in a fixed
-    order (the ``(clusters, d)`` scratch is allocated here), 0 adds with
-    float atomics on device memory. On float data neither repeats its bits from
-    run to run; on integer-valued data both are exact."""
+    over the container, the ``(n, k)`` product never formed. Each product
+    is rounded to a 64-bit fixed-point integer (one scale a call, from
+    ``max |values|``, ``max |r|`` and ``n k``) and the integers are added,
+    so every route repeats its bits and gives the bits of every other
+    route; on integer-valued data every sum is exact. ``cluster`` as in
+    :func:`_spmv_cuda`: 1, 2 or 4 keep the low words of ``g`` in every
+    cluster's shared memory (the ``(clusters, d)`` scratch of low and high
+    words is allocated here), 0 adds with 64-bit atomics on device
+    memory."""
     from dask_ml_tpu_torch._kernels import build
 
     n, k = _check_kernel_args("pullback", values, cols, r, "r")
@@ -360,9 +383,13 @@ def _pullback_cuda(values, cols, r, d, cluster=None):
     g = torch.empty(d, dtype=torch.float32, device=values.device)
     lib = build.load("spmv")
     stream = build.stream_of(values)
+    a_bound = _values_bound(values, lib, stream)
+    r_bound = torch.empty(1, dtype=torch.int32, device=values.device)
     if cluster == 0:
+        acc = torch.empty(d, dtype=torch.int64, device=values.device)
         err = lib.dml_spmv_pullback_atomic(
             values.data_ptr(), cols.data_ptr(), r.data_ptr(), n, k, d,
+            a_bound.data_ptr(), r_bound.data_ptr(), acc.data_ptr(),
             g.data_ptr(), stream)
         build.check(err, "pullback kernel (g in L2)")
         _kernels.launches["spmv_pullback_l2"] += 1
@@ -371,11 +398,12 @@ def _pullback_cuda(values, cols, r, d, cluster=None):
     clusters = lib.dml_spmv_pullback_clusters(n, k, d, cluster)
     if clusters < 1:
         build.check(-clusters, what)
-    partial = torch.empty((clusters, d), dtype=torch.float32,
-                          device=values.device)
+    words = torch.empty((2, clusters, d), dtype=torch.int32,
+                        device=values.device)
     err = lib.dml_spmv_pullback_smem(
         values.data_ptr(), cols.data_ptr(), r.data_ptr(), n, k, d, cluster,
-        partial.data_ptr(), clusters, g.data_ptr(), stream)
+        a_bound.data_ptr(), r_bound.data_ptr(), words[0].data_ptr(),
+        words[1].data_ptr(), clusters, g.data_ptr(), stream)
     build.check(err, what)
     _kernels.launches["spmv_pullback"] += 1
     return g
@@ -486,16 +514,36 @@ def weighted_gram(A: SparseRows, h):
     needs, as a scatter-add of each row's per-slot outer products
     (O(nnz·k) work), in row chunks that bound the transient
     ``(chunk, k, k)`` buffer to ``_GRAM_BUDGET`` entries. Only sensible
-    where a dense (d, d) Hessian is."""
+    where a dense (d, d) Hessian is.
+
+    The products are added in fixed point, as the pullback kernel adds
+    its own: each is rounded to a multiple of ``2^-e`` (one ``e`` a call,
+    from the largest product bound ``max|h·a|·max|a|`` and the count
+    ``n·k²``, so that the largest product takes at most 39 bits and no sum
+    leaves 62) and the int64 sums are exact in any order, so the Gram
+    repeats its bits on the card, where a float ``index_add_`` adds in an
+    order that changes from run to run. The scale stays on the device: no
+    host read. A non-finite bound gives NaN everywhere."""
     n, k = A.values.shape
     d = A.d
+    dev = A.values.device
     vals = A.values.to(torch.float32)
     w = vals * h.to(torch.float32)[:, None]
-    H = torch.zeros(d * d, dtype=torch.float32, device=vals.device)
+    bound = (torch.amax(torch.abs(w)) * torch.amax(torch.abs(vals))).double()
+    cap = min(39, 61 - max(n * k * k - 1, 1).bit_length())
+    _, ex = torch.frexp(bound)  # bound < 2^ex
+    e = cap - ex
+    # 2^e as two f32 factors, each inside f32's range: an f32 product times
+    # them is exact, and so is its rounding to an integer
+    e1 = torch.div(e, 2, rounding_mode="floor")
+    s1, s2 = torch.exp2(e1.float()), torch.exp2((e - e1).float())
+    H = torch.zeros(d * d, dtype=torch.int64, device=dev)
     c = max(1, _GRAM_BUDGET // max(k * k, 1))
     for s in range(0, n, c):
         ci = A.cols[s:s + c].to(torch.int64)
         contrib = w[s:s + c, :, None] * vals[s:s + c, None, :]
+        q = contrib.mul_(s1).mul_(s2).round_().to(torch.int64)
         H.index_add_(0, (ci[:, :, None] * d + ci[:, None, :]).reshape(-1),
-                     contrib.reshape(-1))
-    return H.view(d, d)
+                     q.reshape(-1))
+    out = (H.double() * torch.exp2(-e.double())).float().view(d, d)
+    return torch.where(torch.isfinite(bound), out, torch.nan)

@@ -529,11 +529,58 @@ def test_spmv_forward_repeats_its_bits_on_float_data(cuda):
         assert bool(((first - ref).abs() <= k * 2.0 ** -23 * scale).all())
 
 
+@pytest.mark.parametrize("n,k,d", [(300_007, 101, 100_001),
+                                   (200_003, 101, 30_011),
+                                   (150_001, 33, 4 * _BWD + 1),
+                                   (5_001, 3, 7), (1, 101, 100_001)])
+def test_pullback_repeats_its_bits_on_float_data(cuda, n, k, d):
+    """Five calls on the same float input give the same bits, on every
+    route that fits (the cluster route, and beyond it device memory), and
+    every route gives the bits of every other: the products are added as
+    fixed-point integers. The bits also stay close to the plain version's
+    float sums."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(n + k)
+    vals = torch.randn((n, k), generator=g, device=cuda)
+    cols = torch.randint(0, d, (n, k), dtype=torch.int32, generator=g,
+                         device=cuda)
+    cols[:, -1] = d - 1  # a hot column, as the intercept is
+    r = torch.randn(n, generator=g, device=cuda) / n
+    first = sps._pullback_cuda(vals, cols, r, d)
+    for c in _routes(k, d, True):
+        for _ in range(5):
+            assert torch.equal(sps._pullback_cuda(vals, cols, r, d,
+                                                  cluster=c), first), c
+    want = sps._pullback_ref(vals.double(), cols, r.double(), d)
+    scale = sps._pullback_ref(vals.abs().double(), cols, r.abs().double(), d)
+    count = sps._pullback_ref((vals != 0).double(), cols,
+                              torch.ones_like(r, dtype=torch.float64), d)
+    # within the f32 rounding of the sum of each column's products
+    assert bool(((first.double() - want).abs()
+                 <= count * 2.0 ** -23 * scale + 1e-30).all())
+
+
+def test_pullback_bound_follows_the_values(cuda):
+    """The bound on |values| kept on the tensor is dropped when the tensor
+    is written to: after a first call, a value of 2^40 (whose fixed point
+    under the first call's scale would overflow 64 bits) sums to the plain
+    version's 2^40; a NaN in r makes every column NaN."""
+    vals = torch.ones((1000, 4), device=cuda)
+    cols = torch.zeros((1000, 4), dtype=torch.int32, device=cuda)
+    r = torch.ones(1000, device=cuda)
+    assert float(sps._pullback_cuda(vals, cols, r, 3)[0]) == 4000.0
+    vals[0, 0] = 2.0 ** 40
+    got = sps._pullback_cuda(vals, cols, r, 3)
+    assert torch.equal(got, sps._pullback_ref(vals, cols, r, 3))
+    r[0] = float("nan")
+    assert bool(torch.isnan(sps._pullback_cuda(vals, cols, r, 3)).all())
+
+
 @pytest.mark.parametrize("n,k,d", [(64, 101, 7), (257, 101, 100_001),
                                    (1000, 1, 50), (150_001, 101, 100_001)])
 def test_spmv_gradient_through_kernel(cuda, n, k, d):
     """Values in {-1, 0, 1}: every sum of the gradient stays an exact
-    integer, so the float atomics of either pullback cannot round. The
+    integer, so neither pullback can round. The
     kernel path runs K6 and its pullback kernel, the plain path neither."""
     rng = np.random.default_rng(n + k)
     A = _ell_ints(rng, n, k, d, cuda, -1, 2)
@@ -894,3 +941,56 @@ def test_streamed_admm_on_card_prefetch_and_resume(cuda, tmp_path):
     r = fit(2, checkpoint_path=path)[2]
     for s, t in zip(a, r):
         assert torch.equal(s, t)
+
+
+def test_sparse_partial_fit_step_through_the_kernels(cuda):
+    """One streaming SGD step on a CSR block, staged as a container: through
+    K6 and its pullback kernel (each launched once) against the same step
+    with the plain versions, within 1e-5 normwise; two runs of the kernel
+    step give the same bits."""
+    X, y = make_sparse_classification(50_000, 3_000, 0.01, random_state=6)
+    est = LogisticRegression(solver="lbfgs", solver_kwargs={"eta0": 0.5})
+    est.partial_fit(X[:25_000], y[:25_000])
+    A = X[25_000:].to(cuda)
+    yd = torch.as_tensor(y[25_000:], dtype=torch.float32, device=cuda)
+    w = torch.ones(25_000, device=cuda)
+    state = est._pf_state_device(3_000)
+    got = []
+    for kernel in ("cuda", "cuda", "torch"):
+        step = glm_core.make_sgd_step(lamduh=1.0, eta0=0.5, kernel=kernel)
+        _kernels.reset_launches()
+        with torch.no_grad():
+            got.append(step(state, (A, yd, w))[0])
+        assert _kernels.launches["spmv"] == (kernel == "cuda")
+        assert _kernels.launches["spmv_pullback"] == (kernel == "cuda")
+    assert torch.equal(got[0], got[1])
+    assert float(torch.linalg.norm(got[0] - got[2])
+                 / torch.linalg.norm(got[2])) < 1e-5
+
+
+def test_incremental_scan_reads_nothing_back(cuda):
+    """The device chain of a staged X makes no host read between blocks:
+    under the sync debug mode "error" any synchronizing call would raise;
+    the GLM host-read counter stays 0; and it equals the partial_fit
+    loop bit for bit (whole blocks: a padded remainder block sums more
+    rows than the loop's short one, in another order)."""
+    from dask_ml_tpu_torch import wrappers
+
+    rng = np.random.default_rng(7)
+    X = rng.standard_normal((10_000, 20)).astype(np.float32)
+    y = (X[:, 0] > 0).astype(int)
+    est = LogisticRegression(C=100, solver_kwargs={"eta0": 0.5})
+    step, state, y_enc = est._incremental_begin(X, y)
+    Xd = torch.as_tensor(X, device=cuda)
+    yd = torch.as_tensor(y_enc, device=cuda)
+    torch.cuda.synchronize()
+    glm_core.reset_host_reads()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = wrappers.incremental_scan(step, state, Xd, yd, block_size=1000)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert glm_core.host_reads["n"] == 0
+    loop = LogisticRegression(C=100, solver_kwargs={"eta0": 0.5})
+    wrappers.fit(loop, X, y, block_size=1000)
+    assert np.array_equal(out[0].cpu().numpy(), loop._coef)
