@@ -128,13 +128,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``partial_fit`` with K = 10 over 10 blocks; a batched epoch of 8
    members (each within 1e-6 of its own chain); and
    ``ParallelPostFit(...).predict`` rows a second for KMeans (K2) and
-   the sparse GLM (K6), labels equal to the estimator's own.
+   the sparse GLM (K6), labels equal to the estimator's own. The softmax
+   chain runs twice, to the same bits.
+12. drives the search tier (``SEARCH``): ``metrics.
+   pairwise_distances_argmin_min`` through K2 against its plain version;
+   BASELINE config 5 at its published size (20,000 × 100, the 500-point
+   ``GridSearchCV`` over the port's ``Pipeline`` of ``StandardScaler``,
+   ``PCA`` and ``KMeans(init="random", max_iter=10)``, cv 2, 8 jobs:
+   every cell through the batched path, K1 on every trajectory step, the
+   groups' scores fetched in one copy, six members equal to per-cell
+   fits, n_iter exactly and scores within 1e-6, each one's group replayed
+   under the sync debug mode "error"; cold and warm seconds, host syncs a
+   sweep, a device profile); the JAX package's sparse search (3 C × cv 2
+   over 500,000 rows of the sparse cell's container: K6 and its backward,
+   coefficients equal to per-cell fits bit for bit, two searches bit for
+   bit); and a sparse softmax fit twice, bit for bit.
 
 ``python3 chip_smoke.py --spmv-only`` runs steps 1, 2, 6 and 8 alone, on a
 container of the sparse cell's shape drawn on the card;
 ``--glm-pca-only`` runs steps 1, 2 and 9 alone; ``--stream-only`` steps 1,
 2 and 10, drawing its own host arrays; ``--incremental-only`` steps 1, 2
-and 11.
+and 11; ``--search-only`` steps 1, 2 and 12.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
@@ -249,6 +263,22 @@ INC_C, INC_ETA0 = 100.0, 0.5
 INC_SPARSE_BLOCK, INC_RTOL = 1_000_000, 1e-5
 INC_MN_N, INC_MN_K = 1_000_000, 10
 INC_MEMBERS, BATCHED_RTOL = 8, 1e-6
+# the search tier (SEARCH): BASELINE config 5 at its published size
+# (bench.py GRID :146, bench_gridsearch :801), nothing cut: 20,000 x 100,
+# X = randn @ diag(linspace(2, 0.5, 100)) from RandomState(0), the
+# StandardScaler -> PCA -> KMeans(init="random", max_iter=10) grid of
+# 5 x 10 x 10 points, cv 2, n_jobs 8; SEARCH_SAMPLED members held to
+# per-cell fits of the pipeline; the JAX bench's sparse search
+# (bench.py :5466-5478) over the first SEARCH_SPARSE_N rows of the sparse
+# GLM cell's container; a sparse softmax fit on SOFTMAX_N of its rows with
+# SOFTMAX_K classes, twice
+SEARCH_N, SEARCH_D, SEARCH_CV, SEARCH_JOBS = 20_000, 100, 2, 8
+SEARCH_GRID = {"pca__n_components": [5, 10, 15, 20, 25],
+               "km__n_clusters": list(range(2, 12)),
+               "km__tol": list(np.logspace(-6, -2, 10))}
+SEARCH_MAX_ITER, SEARCH_SAMPLED, SEARCH_RTOL = 10, 6, 1e-6
+SEARCH_SPARSE_N, SEARCH_CS = 500_000, [0.1, 1.0, 10.0]
+SOFTMAX_N, SOFTMAX_K = 500_000, 4
 # H100 SXM data sheet: HBM3 bandwidth and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
@@ -3334,7 +3364,7 @@ def incremental_sparse(dev):
 def incremental_multinomial(dev):
     """``incremental-multinomial``: softmax streaming, K = INC_MN_K classes
     on the first INC_MN_N rows of config 4's X, ten ``partial_fit`` blocks
-    with ``classes=`` given."""
+    with ``classes=`` given; a second chain gives the same bits."""
     from dask_ml_tpu_torch.linear_model import LogisticRegression
 
     X, _, Xh, _ = drawn("inc", lambda: inc_data(SEED))
@@ -3353,6 +3383,8 @@ def incremental_multinomial(dev):
         return est
 
     est, sec, launches = drive(chain)
+    expect(coef_equal(est, chain()),
+           "two softmax partial_fit chains give other coefficients")
     expect(est.coef_.shape == (INC_MN_K, INC_D)
            and np.isfinite(est.coef_).all() and np.isfinite(
                est.intercept_).all(), "bad softmax coefficients")
@@ -3471,6 +3503,393 @@ def incremental_cells(dev):
 
 
 # ---------------------------------------------------------------------------
+# the search tier (SEARCH)
+# ---------------------------------------------------------------------------
+
+
+def search_data(seed: int):
+    """BASELINE config 5's data, as bench.py draws it."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(SEARCH_N, SEARCH_D)
+            @ np.diag(np.linspace(2, 0.5, SEARCH_D))).astype(np.float32)
+
+
+def make_search_pipe():
+    from dask_ml_tpu_torch.cluster import KMeans
+    from dask_ml_tpu_torch.decomposition import PCA
+    from dask_ml_tpu_torch.pipeline import Pipeline
+    from dask_ml_tpu_torch.preprocessing import StandardScaler
+
+    return Pipeline([
+        ("scale", StandardScaler()),
+        ("pca", PCA(random_state=SEED)),
+        ("km", KMeans(init="random", max_iter=SEARCH_MAX_ITER,
+                      random_state=SEED)),
+    ])
+
+
+def host_syncs(fn):
+    """``fn()`` under the sync debug mode "warn": returns (its result, the
+    number of synchronizing CUDA calls it made, from every thread)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    n = sum("synchronizing" in str(w.message) for w in caught)
+    return out, n
+
+
+def group_without_syncs(est, Xt, Xe, members):
+    """One batched group's fit+score (``est._batched_fit_score``) on
+    trusted device inputs under the sync debug mode "error": any host
+    read inside the group raises."""
+    import torch
+
+    from dask_ml_tpu_torch.parallel.sharding import staging_memo
+
+    with staging_memo() as memo:
+        memo.trust(Xt)
+        memo.trust(Xe)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = est._batched_fit_score(Xt, None, members, [(Xe, None)])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out
+
+
+def search_plain_checks(dev, X, splits, errs):
+    """K1 and K2 held to their plain versions at the shapes config 5 gives
+    them. For each PCA width, split 0's train and test sets are staged
+    through the pipeline's prefix (10,000 × d), and the init rows are the
+    group's own draw. Every step of every trajectory (k = 2..11) is held
+    to the plain Lloyd step from the same centers (``check_lloyd``), and
+    the scoring at each trajectory's last centers to its plain version
+    (``check_fused``). Then the whole group through K1 and K2 and through
+    its plain version give every member the same n_iter. The eval
+    inertias of the two groups are recorded, not gated: a near-tie label
+    flip at one step moves the later centers of that trajectory. Updates
+    ``errs``; returns a summary."""
+    import torch
+
+    from dask_ml_tpu_torch import config_context
+    from dask_ml_tpu_torch.models import kmeans as core
+    from dask_ml_tpu_torch.parallel.sharding import prepare_data
+    from dask_ml_tpu_torch.utils.validation import check_random_state
+
+    tr, te = splits[0]
+    Xd = torch.as_tensor(X, device=dev)
+    ks = SEARCH_GRID["km__n_clusters"]
+    pairs = [(k, t) for k in ks for t in SEARCH_GRID["km__tol"]]
+    out = {"steps_checked": 0, "eval_max_rel_gap": 0.0, "widths": []}
+    for width in SEARCH_GRID["pca__n_components"]:
+        with config_context(device_outputs=True):
+            prefix = make_search_pipe()[:2].set_params(
+                pca__n_components=width)
+            Xt = prefix.fit_transform(Xd[torch.as_tensor(tr, device=dev)])
+            Xe = prefix.transform(Xd[torch.as_tensor(te, device=dev)])
+        data = prepare_data(Xt, device=dev)
+        ev = prepare_data(Xe, device=dev)
+        gen = check_random_state(SEED, device=dev)
+        idx0 = torch.randperm(data.n, generator=gen, device=dev)[:max(ks)]
+        for k in ks:
+            C = torch.index_select(data.X, 0, torch.sort(idx0[:k]).values)
+            for t in range(SEARCH_MAX_ITER):
+                e = check_lloyd(f"search d={width} k={k} step {t}", data.X,
+                                data.weights, C, exact=False)
+                errs["lloyd_iter"] = max(errs.get("lloyd_iter", 0.0), e)
+                sums, counts, _ = core._lloyd_stats_cuda(data.X,
+                                                         data.weights, C)
+                C = core._new_centers(sums, counts, C)
+                out["steps_checked"] += 1
+            for name, e in check_fused(f"search eval d={width} k={k}", ev.X,
+                                       C, w=ev.weights, exact=False).items():
+                errs[name] = max(errs.get(name, 0.0), e)
+        n_k, _, (ev_k,) = core.batched_lloyd_cells(
+            data, pairs, [ev], max_iter=SEARCH_MAX_ITER, idx0=idx0,
+            kernel="cuda")
+        n_p, _, (ev_p,) = core.batched_lloyd_cells(
+            data, pairs, [ev], max_iter=SEARCH_MAX_ITER, idx0=idx0,
+            kernel="torch")
+        expect(torch.equal(n_k, n_p), f"search d={width}: the group's n_iter "
+               f"through K1/K2 {n_k.tolist()} and through the plain version "
+               f"{n_p.tolist()}")
+        gap = float(((ev_k - ev_p).abs() / ev_p.abs()).max())
+        out["eval_max_rel_gap"] = max(out["eval_max_rel_gap"], gap)
+        out["widths"].append({"d": width, "n_train": data.n, "n_eval": ev.n,
+                              "eval_max_rel_gap": gap})
+    return out
+
+
+def search_pipeline(dev, errs):
+    """``search-pipeline``: BASELINE config 5 through the port's
+    ``GridSearchCV`` over its own ``Pipeline``. Gates: every cell took the
+    batched path; K1 ran every trajectory step; one bulk fetch of the
+    groups' scores and no other read of them; sampled members equal
+    per-cell fits (n_iter exactly, score within SEARCH_RTOL); one group
+    replayed under the sync debug mode "error" with the search's scores;
+    K1 and K2 held to their plain versions at the path's own shapes
+    (:func:`search_plain_checks`, which updates ``errs``). Returns
+    (launches, summary)."""
+    import torch
+
+    from dask_ml_tpu_torch import config_context
+    from dask_ml_tpu_torch.model_selection import GridSearchCV, KFold
+    from dask_ml_tpu_torch.model_selection import _search
+
+    X = drawn("search", lambda: search_data(SEED))
+
+    def run():
+        return GridSearchCV(make_search_pipe(), SEARCH_GRID, cv=SEARCH_CV,
+                            refit=False, iid=False, return_train_score=False,
+                            n_jobs=SEARCH_JOBS).fit(X)
+
+    _search.reset_fetch_counts()
+    gs, cold_s, launches = drive(run)
+    fetches = dict(_search.fetch_counts)
+    n_points = len(gs.cv_results_["params"])
+    widths = len(SEARCH_GRID["pca__n_components"])
+    uks = len(SEARCH_GRID["km__n_clusters"])
+    expect(n_points == 500 and gs.n_batched_cells_ == n_points * SEARCH_CV,
+           f"n_batched_cells_ {gs.n_batched_cells_} of {n_points} points")
+    want_k1 = widths * SEARCH_CV * uks * SEARCH_MAX_ITER
+    expect(launches["lloyd_iter"] == want_k1,
+           f"K1 ran {launches['lloyd_iter']} trajectory steps, not {want_k1}")
+    expect(launches["fused_argmin_min"] >= n_points * SEARCH_CV,
+           f"K2 scored {launches['fused_argmin_min']} members")
+    expect(fetches == {"bulk": 1, "cell": 0},
+           f"group outputs fetched as {fetches}, not in one bulk copy")
+    scores = np.asarray(gs.cv_results_["mean_test_score"])
+    expect(np.isfinite(scores).all() and (scores < 0).all(),
+           "config 5: bad scores")
+    warm = []
+    for _ in range(2):
+        _, sec, _ = drive(run)
+        warm.append(sec)
+    _, syncs = host_syncs(run)
+    prof = device_profile(run)
+
+    # sampled members, spread over the groups, against per-cell fits
+    splits = list(KFold(SEARCH_CV).split(X))
+    params = gs.cv_results_["params"]
+    picks = np.linspace(0, n_points - 1, SEARCH_SAMPLED).astype(int)
+    sampled = []
+    for j, ci in enumerate(picks):
+        si = j % SEARCH_CV
+        tr, te = splits[si]
+        pipe = make_search_pipe().set_params(**params[ci])
+        pipe.fit(X[tr])
+        sampled.append({"candidate": int(ci), "split": si,
+                        "n_iter": int(pipe.named_steps["km"].n_iter_),
+                        "score": float(pipe.score(X[te])),
+                        "search_score": float(gs.cv_results_[
+                            f"split{si}_test_score"][ci])})
+    # each sampled member's group replayed: the prefix on the device, then
+    # the group under the sync debug mode "error"
+    Xd = torch.as_tensor(X, device=dev)
+    for row in sampled:
+        p = params[row["candidate"]]
+        tr, te = splits[row["split"]]
+        with config_context(device_outputs=True):
+            prefix = make_search_pipe()[:2].set_params(
+                pca__n_components=p["pca__n_components"])
+            Xt = prefix.fit_transform(Xd[torch.as_tensor(tr, device=dev)])
+            Xe = prefix.transform(Xd[torch.as_tensor(te, device=dev)])
+        members = [{"n_clusters": q["km__n_clusters"], "tol": q["km__tol"]}
+                   for q in params
+                   if q["pca__n_components"] == p["pca__n_components"]]
+        mi = members.index({"n_clusters": p["km__n_clusters"],
+                            "tol": p["km__tol"]})
+        out = group_without_syncs(make_search_pipe().named_steps["km"], Xt,
+                                  Xe, members)
+        row["group_n_iter"] = int(out["n_iter"][mi])
+        row["group_score"] = float(out["scores"][0][mi])
+        expect(row["group_n_iter"] == row["n_iter"],
+               f"member {row['candidate']}: n_iter {row['group_n_iter']} "
+               f"in its group, {row['n_iter']} per cell")
+        for key in ("search_score", "group_score"):
+            gap = abs(row[key] - row["score"]) / abs(row["score"])
+            expect(gap <= SEARCH_RTOL, f"member {row['candidate']}: {key} "
+                   f"{row[key]} against the per-cell {row['score']}")
+    del Xd
+    plain = search_plain_checks(dev, X, splits, errs)
+    out = {"n": SEARCH_N, "d": SEARCH_D, "points": n_points,
+           "cv": SEARCH_CV, "n_jobs": SEARCH_JOBS, "cold_s": cold_s,
+           "warm_s": min(warm), "warm_runs_s": warm,
+           "n_batched_cells": int(gs.n_batched_cells_),
+           "n_shared_fits": int(gs.n_shared_fits_),
+           "n_device_stagings": int(gs.n_device_stagings_),
+           "k1_launches": int(launches["lloyd_iter"]),
+           "host_syncs_per_sweep": syncs, "fetches": fetches,
+           "device_profile": prof, "sampled": sampled,
+           "plain_checks": plain,
+           "best_mean_test_score": float(scores.max())}
+    path_line("search-pipeline", cold_s, None, launches, **out)
+    return launches, out
+
+
+def sparse_rows_csr(Xs, n: int):
+    """The first ``n`` rows of a host container as scipy CSR."""
+    import scipy.sparse as scipy_sparse
+
+    vals, cols = Xs.values[:n], Xs.cols[:n]
+    rows = np.repeat(np.arange(n, dtype=np.int64), Xs.k)
+    csr = scipy_sparse.coo_matrix(
+        (vals.ravel(), (rows, cols.ravel().astype(np.int64))),
+        shape=(n, Xs.d)).tocsr()
+    csr.sum_duplicates()
+    return csr
+
+
+def search_sparse_glm(dev):
+    """``search-sparse-glm``: the JAX package's sparse search, 3 C values
+    × cv 2 over the first SEARCH_SPARSE_N rows of the sparse GLM cell's
+    container as CSR. Gates: every cell batched; K6 and its backward ran;
+    each member's coefficients equal a per-cell fit's bit for bit and its
+    scores the search's; two searches give the same cv_results_ bit for
+    bit. Returns (launches, summary)."""
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.model_selection import GridSearchCV, KFold
+
+    Xs, ys = drawn("sparse_glm", sparse_glm_data)
+    csr = sparse_rows_csr(Xs, SEARCH_SPARSE_N)
+    y = ys[:SEARCH_SPARSE_N]
+
+    def run():
+        return GridSearchCV(
+            LogisticRegression(solver="lbfgs", max_iter=GLM_ITERS),
+            {"C": SEARCH_CS}, cv=2, refit=False, iid=False,
+            return_train_score=False).fit(csr, y)
+
+    gs, sec, launches = drive(run)
+    expect(gs.n_batched_cells_ == 2 * len(SEARCH_CS),
+           f"n_batched_cells_ {gs.n_batched_cells_}")
+    expect(launches["spmv"] > 0 and launches["spmv_pullback"] > 0,
+           f"the sparse search ran no K6 / pullback: {launches}")
+    again, sec2, _ = drive(run)
+    for key, v in gs.cv_results_.items():
+        if "time" in key or key == "params":
+            continue
+        a, b = np.asarray(v), np.asarray(again.cv_results_[key])
+        expect(np.array_equal(a, b), f"two sparse searches differ at {key}")
+    members = [{"C": c} for c in SEARCH_CS]
+    coef_equal_all, gaps = True, []
+    for si, (tr, te) in enumerate(KFold(2).split(csr)):
+        Xtr, Xte = csr[tr], csr[te]
+        group = LogisticRegression(
+            solver="lbfgs", max_iter=GLM_ITERS)._batched_fit_score(
+                Xtr, y[tr], members, [(Xte, y[te])])
+        coefs = group["coef"].cpu().numpy()
+        gscores = group["scores"][0].cpu().numpy()
+        for mi, c in enumerate(SEARCH_CS):
+            one = LogisticRegression(solver="lbfgs", max_iter=GLM_ITERS,
+                                     C=c).fit(Xtr, y[tr])
+            coef_equal_all &= bool(np.array_equal(coefs[mi], one._coef))
+            search_score = gs.cv_results_[f"split{si}_test_score"][mi]
+            expect(float(gscores[mi]) == float(search_score),
+                   f"C={c}, split {si}: the group's score {gscores[mi]} is "
+                   f"not the search's {search_score}")
+            gaps.append(abs(float(one.score(Xte, y[te])) - search_score))
+    expect(coef_equal_all, "a member's coefficients differ from a per-cell "
+           "fit's")
+    expect(max(gaps) <= SEARCH_RTOL, f"per-cell scores {gaps} from the "
+           "search's")
+    out = {"n": SEARCH_SPARSE_N, "d": int(Xs.d), "k": int(Xs.k),
+           "points": len(SEARCH_CS), "cv": 2, "cold_s": sec, "again_s": sec2,
+           "n_batched_cells": int(gs.n_batched_cells_),
+           "n_device_stagings": int(gs.n_device_stagings_),
+           "mean_test_score": [float(v) for v in
+                               gs.cv_results_["mean_test_score"]],
+           "per_cell_score_gaps": gaps}
+    path_line("search-sparse-glm", sec, None, launches, **out)
+    return launches, out
+
+
+def sparse_softmax_bits(dev):
+    """``glm-sparse-softmax``: ``multinomial_lbfgs`` on SOFTMAX_N rows of
+    the sparse GLM cell's container with SOFTMAX_K classes, twice: the
+    softmax gradient (``pullback_mat``, fixed point) repeats its bits, so
+    the two fits are equal bit for bit."""
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.ops.sparse import SparseRows
+
+    Xs, _ = drawn("sparse_glm", sparse_glm_data)
+    A = SparseRows(Xs.values[:SOFTMAX_N], Xs.cols[:SOFTMAX_N], Xs.d)
+    y = np.random.default_rng([SEED, 19]).integers(0, SOFTMAX_K, SOFTMAX_N)
+
+    def fit():
+        return LogisticRegression(multiclass="multinomial", solver="lbfgs",
+                                  max_iter=GLM_ITERS).fit(A, y)
+
+    first, sec, launches = drive(fit)
+    second = fit()
+    expect(first._coef.shape == (SOFTMAX_K, Xs.d + 1)
+           and np.isfinite(first._coef).all(), "bad softmax coefficients")
+    expect(coef_equal(first, second),
+           "two sparse softmax fits give other coefficients")
+    out = {"n": SOFTMAX_N, "k_classes": SOFTMAX_K, "d": int(Xs.d),
+           "seconds": sec, "bit_for_bit_twice": True}
+    path_line("glm-sparse-softmax", sec, first.n_iter_, launches, **out)
+    return out
+
+
+def pairwise_argmin_min(dev):
+    """``pairwise-argmin-min``: ``metrics.pairwise_distances_argmin_min``
+    (K2 and a sqrt) on config 5's X against 11 of its rows, held to the
+    plain version: the same indices away from near ties, squared
+    distances within ``close_values``' bound."""
+    import torch
+
+    from dask_ml_tpu_torch.metrics import pairwise_distances_argmin_min
+
+    X = drawn("search", lambda: search_data(SEED))
+    Xd = torch.as_tensor(X, device=dev)
+    Y = Xd[:: SEARCH_N // 11][:11]
+    (idx, dist), sec, launches = drive(
+        lambda: pairwise_distances_argmin_min(Xd, Y))
+    expect(launches["fused_argmin_min"] == 1, f"K2 launches {launches}")
+    pidx, pdist = pairwise_distances_argmin_min(Xd, Y, kernel="torch")
+    ties = near_tie_ok(Xd, Y, None, idx, pidx)
+    err = close_values(dist * dist, pdist * pdist, Xd, Y, False,
+                       "pairwise_distances_argmin_min (squared)")
+    out = {"n": SEARCH_N, "m": 11, "d": SEARCH_D, "seconds": sec,
+           "near_tie_mismatches": ties, "max_abs_err_sq": err}
+    path_line("pairwise-argmin-min", sec, None, launches, **out)
+    return launches, out
+
+
+def search_cells(dev, errs):
+    """The SEARCH phase. Returns the launches of its paths and a summary;
+    its comparisons with the plain versions update ``errs``."""
+    import torch
+
+    t0 = time.perf_counter()
+    launches, out = {}, {}
+    launches["pairwise-argmin-min"], out["pairwise"] = pairwise_argmin_min(
+        dev)
+    launches["search-pipeline"], out["pipeline"] = search_pipeline(dev,
+                                                                   errs)
+    torch.cuda.empty_cache()
+    launches["search-sparse-glm"], out["sparse_glm"] = search_sparse_glm(
+        dev)
+    torch.cuda.empty_cache()
+    out["sparse_softmax"] = sparse_softmax_bits(dev)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log("SEARCH " + json.dumps(out))
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3516,6 +3935,15 @@ def main() -> int:
 
     if "--incremental-only" in sys.argv[1:]:
         incremental_cells(dev)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+        return 0
+
+    if "--search-only" in sys.argv[1:]:
+        search_errs = {}
+        search_cells(dev, search_errs)
+        log("SEARCH max_abs_err " + json.dumps(search_errs))
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": count}}), flush=True)
@@ -3691,6 +4119,18 @@ def main() -> int:
             r["launches_incremental"] = {
                 path: int(l[r["name"]]) for path, l in inc_launches.items()
                 if l.get(r["name"])}
+    torch.cuda.empty_cache()
+
+    search_errs = {}
+    search_launches, _ = search_cells(dev, search_errs)
+    for r in rows:
+        if r["name"] in ("lloyd_iter", "fused_argmin_min",
+                         "fused_rowwise_min", "spmv", "spmv_pullback"):
+            r["launches_search"] = {
+                path: int(l[r["name"]]) for path, l in search_launches.items()}
+        if r["name"] in search_errs:
+            r["max_abs_err_search"] = search_errs[r["name"]]
+            r["max_abs_err"] = max(r["max_abs_err"], search_errs[r["name"]])
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

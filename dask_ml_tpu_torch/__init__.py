@@ -20,8 +20,15 @@ Public subpackages so far:
   ``partial_fit``); the deprecated ``Partial*`` estimators (host,
   scikit-learn) in ``linear_model``, ``naive_bayes`` and
   ``neural_network``
-- :mod:`dask_ml_tpu_torch.metrics` — accuracy, log loss, MSE, MAE, R²
-  and the scorers
+- :mod:`dask_ml_tpu_torch.metrics` — the pairwise distances and kernels
+  (``pairwise_distances_argmin_min`` on the fused argmin kernel),
+  accuracy, log loss, MSE, MAE, R² and the scorers
+- :mod:`dask_ml_tpu_torch.model_selection` — ``GridSearchCV`` and
+  ``RandomizedSearchCV`` (shared pipeline prefixes, batched candidates),
+  the CV splitters and ``train_test_split``
+- :mod:`dask_ml_tpu_torch.preprocessing` — ``StandardScaler``
+- :mod:`dask_ml_tpu_torch.pipeline` — ``Pipeline``, ``FeatureUnion``,
+  ``make_pipeline``
 - :mod:`dask_ml_tpu_torch.datasets` — the sparse classification generator
 - :mod:`dask_ml_tpu_torch.convert` — fitted JAX models into port estimators
   (KMeans, the GLMs, PCA, TruncatedSVD)

@@ -1,12 +1,16 @@
 """Hand-written CUDA kernels of the port and their launch counters.
 
-Each wrapper adds one to its entry of :data:`launches` where it launches
-its kernel, and nowhere else, so a run can show that a path really went
-through the kernels: set the counts to 0 with :func:`reset_launches` just
-before the path and read them just after.
+Each wrapper adds one to its entry of :data:`launches` (through
+:func:`count`, under a lock: the search driver launches from several
+threads) where it launches its kernel, and nowhere else, so a run can
+show that a path really went through the kernels: set the counts to 0
+with :func:`reset_launches` just before the path and read them just
+after.
 """
 
 from __future__ import annotations
+
+import threading
 
 #: launches per kernel wrapper (K1: lloyd_iter; K2-K5: fused distance;
 #: the sketched assignment is K2 with a caller-supplied |x|²; K6: spmv and
@@ -26,9 +30,19 @@ launches = {
 }
 
 
+_launches_lock = threading.Lock()
+
+
+def count(name: str) -> None:
+    """Add one launch of ``name``."""
+    with _launches_lock:
+        launches[name] += 1
+
+
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _launches_lock:
+        for k in launches:
+            launches[k] = 0
 
 
 def use_cuda(kernel: str, t) -> bool:

@@ -10,7 +10,12 @@ every module of the port on machines without ``nvcc``.
 
 Every pointer argument and the stream are declared ``c_void_p``, every
 C entry point returns ``cudaGetLastError()``, and :func:`check` turns a
-non-zero code into an exception.
+non-zero code into an exception. A library's entry points run one at a
+time (a lock per library): a launch first sets its kernel's
+dynamic-shared-memory attribute to what this launch needs, and that
+attribute belongs to the kernel, not to the calling thread, so another
+thread's launch of the same kernel between the two would fail with an
+invalid-value error (the search driver launches from several threads).
 """
 
 from __future__ import annotations
@@ -118,7 +123,30 @@ def build_all(names=None, verbose: bool = False) -> float:
     return time.perf_counter() - t0
 
 
-def load(name: str) -> ctypes.CDLL:
+class Library:
+    """A loaded library: each entry point of ``SIGNATURES[name]`` as an
+    attribute, called under the library's lock; ``cdll`` is the
+    ``ctypes`` handle."""
+
+    def __init__(self, name: str, cdll: ctypes.CDLL):
+        self.cdll = cdll
+        lock = threading.Lock()
+        for fn, (argtypes, restype) in SIGNATURES[name].items():
+            f = getattr(cdll, fn)
+            f.argtypes = argtypes
+            f.restype = restype
+            setattr(self, fn, self._serialized(f, lock))
+
+    @staticmethod
+    def _serialized(f, lock):
+        def call(*args):
+            with lock:
+                return f(*args)
+
+        return call
+
+
+def load(name: str) -> Library:
     """The loaded library ``name`` (built first if needed), with
     ``argtypes``/``restype`` set for every entry point."""
     lib = _libs.get(name)
@@ -130,11 +158,7 @@ def load(name: str) -> ctypes.CDLL:
             path = _target(name)
             if not path.exists():
                 build_all([name])
-            lib = ctypes.CDLL(str(path))
-            for fn, (argtypes, restype) in SIGNATURES[name].items():
-                f = getattr(lib, fn)
-                f.argtypes = argtypes
-                f.restype = restype
+            lib = Library(name, ctypes.CDLL(str(path)))
             _libs[name] = lib
     return lib
 

@@ -3,9 +3,9 @@
 The parameter protocol of scikit-learn's ``BaseEstimator`` (``get_params``
 / ``set_params`` over the constructor's arguments, nested
 ``estimator__<param>`` names included, which is what ``clone`` and the
-search tools call), ``TransformerMixin`` and :func:`clone`, kept here so
-that the port runs where scikit-learn is not installed, as on the card's
-machine.
+search tools call), ``TransformerMixin``, :func:`clone` and
+:func:`is_classifier`, kept here so that the port runs where scikit-learn
+is not installed, as on the card's machine.
 """
 
 from __future__ import annotations
@@ -87,3 +87,17 @@ class BaseEstimator:
 class TransformerMixin:
     def fit_transform(self, X, y=None, **fit_params):
         return self.fit(X, y, **fit_params).transform(X)
+
+
+def is_classifier(estimator) -> bool:
+    """scikit-learn's test: the estimator's tags (or its
+    ``_estimator_type``) say "classifier"; a pipeline is a classifier
+    when its last step is. The port's estimators, like the JAX
+    package's, declare no type, so they are not classifiers here."""
+    steps = getattr(estimator, "steps", None)
+    if isinstance(steps, list) and steps:
+        return is_classifier(steps[-1][1])
+    try:
+        return estimator.__sklearn_tags__().estimator_type == "classifier"
+    except Exception:
+        return getattr(estimator, "_estimator_type", None) == "classifier"

@@ -14,6 +14,8 @@
   reductions per array on the device, read in one host transfer. Its
   float32 sums differ from the JAX package's, so these snapshots are bound
   to the package that wrote them (a ``ScanCheckpoint`` snapshot is not).
+- :class:`CellJournal` — the search driver's append-only journal of
+  finished cells, read back on a resume.
 
 :data:`io_counts` counts snapshot saves and loads with their bytes and
 wall seconds, for the smoke run's report.
@@ -26,6 +28,7 @@ import logging
 import os
 import pickle
 import tempfile
+import threading
 import time
 from typing import Any, Optional
 
@@ -313,3 +316,70 @@ def solve_checkpointed(solver: str, X, y, w, beta0, mask, *, path: str,
         # resume with a larger budget does not redo it
         snapshot(False)
     return beta, iters_done
+
+
+# ---------------------------------------------------------------------------
+# search-cell journal
+# ---------------------------------------------------------------------------
+
+
+class CellJournal:
+    """Append-only journal of completed (candidate, split) search cells
+    (the JAX package's ``CellJournal``).
+
+    Records are pickle frames ``(key, result)`` appended under a lock and
+    fsynced; the reader consumes frames until EOF and drops a torn final
+    frame (the one a kill can leave), so a resume never trips on a partial
+    write. Keys are content-addressed by the search driver (estimator
+    config, candidate params, the split's indices, the data's content and
+    the scoring), which makes the journal self-invalidating: change any of
+    them and the old records no longer match. ``n_appended`` and
+    ``n_restored`` count the records written and read through this handle
+    (mirrored to the ``checkpoint.cells_journaled`` /
+    ``checkpoint.cells_restored`` telemetry counters).
+    """
+
+    def __init__(self, path: str):
+        self.path = path
+        self._lock = threading.Lock()
+        self.n_appended = 0
+        self.n_restored = 0
+        d = os.path.dirname(os.path.abspath(path)) or "."
+        os.makedirs(d, exist_ok=True)
+
+    def load(self) -> dict:
+        done: dict = {}
+        if not os.path.exists(self.path):
+            return done
+        with open(self.path, "rb") as f:
+            while True:
+                try:
+                    key, result = pickle.load(f)
+                except EOFError:
+                    break
+                except (pickle.UnpicklingError, AttributeError, ValueError,
+                        IndexError):
+                    logger.warning("search checkpoint %s: dropping torn "
+                                   "trailing record", self.path)
+                    break
+                done[key] = result
+        if done:
+            logger.info("search checkpoint %s: restored %d completed cells",
+                        self.path, len(done))
+            self.n_restored += len(done)
+            from dask_ml_tpu_torch.parallel import telemetry
+
+            telemetry.counter("checkpoint.cells_restored").inc(len(done))
+        return done
+
+    def append(self, key: str, result) -> None:
+        with self._lock:
+            with open(self.path, "ab") as f:
+                pickle.dump((key, result), f,
+                            protocol=pickle.HIGHEST_PROTOCOL)
+                f.flush()
+                os.fsync(f.fileno())
+            self.n_appended += 1
+        from dask_ml_tpu_torch.parallel import telemetry
+
+        telemetry.counter("checkpoint.cells_journaled").inc()

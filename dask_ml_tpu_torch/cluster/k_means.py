@@ -317,10 +317,71 @@ class KMeans(TransformerMixin, BaseEstimator):
         data, centers = self._staged(X)
         return -float(core.compute_inertia(data.X, data.weights, centers))
 
+    # -- batched-candidate protocol (the search driver's fast path) -------
+    #
+    # The search driver buckets homogeneous candidates (same estimator
+    # class, same static params, same upstream data) and fits and scores
+    # each bucket as one group. KMeans batches over (n_clusters, tol): tol
+    # variants share one Lloyd trajectory, each k runs its own (see
+    # models/kmeans.py batched_lloyd_cells).
+
+    _batchable_params = frozenset({"n_clusters", "tol"})
+
+    #: the trajectory history a group may keep on the card, and the
+    #: longest trajectory it runs (a group runs every step of max_iter,
+    #: where a per-cell fit stops at convergence)
+    _BATCH_HISTORY_BYTES = 512 * 1024 * 1024
+    _BATCH_MAX_ITER = 4096
+
+    def _supports_batched(self, static_params) -> bool:
+        """Batchable only with ``init='random'``: the k-means|| and
+        k-means++ inits are host-driven loops that would serialize the
+        group, and per-candidate inits would defeat trajectory
+        sharing."""
+        return static_params.get("init", self.init) == "random"
+
+    def _batchable_member_ok(self, member_params, n_train_min) -> bool:
+        """A member whose n_clusters can't fit the smallest train split
+        runs per-cell, so that ITS failure follows error_score semantics
+        instead of failing the whole group."""
+        k = int(member_params.get("n_clusters", self.n_clusters))
+        return k >= 1 and (n_train_min is None or k <= n_train_min)
+
     def _batched_fit_score(self, X, y, members, eval_sets):
-        raise NotImplementedError(
-            "the batched-candidate search protocol is not ported to PyTorch "
-            "yet; it comes with model selection, a later slice")
+        """Fit every member (a dict of batchable-param overrides) and
+        score it (negative inertia) against each eval set — ``eval_sets``
+        is a list of ``(X_eval, y_eval)`` pairs (y unused). Returns
+        ``{"n_iter": (M,), "scores": [per eval set (M,)]}`` as device
+        tensors: nothing is read back from the card (trusted device
+        inputs skip ``check_array``'s scan); the search driver copies
+        every group's scores to the host at once.
+
+        Returns ``NotImplemented`` — and the driver runs the group per
+        cell, where each fit stops at convergence — when the history the
+        group keeps on the card (Σ over unique k of max_iter × k × d f32
+        centers; the port keeps each k at its own width) exceeds 512 MB,
+        or when ``max_iter`` exceeds 4096 steps."""
+        ks = {int(m.get("n_clusters", self.n_clusters)) for m in members}
+        T = int(self.max_iter)
+        hist_bytes = sum(T * k * int(X.shape[1]) * 4 for k in ks)
+        if hist_bytes > self._BATCH_HISTORY_BYTES or \
+                T > self._BATCH_MAX_ITER:
+            return NotImplemented
+        dev = resolve_device(self.device)
+        data = prepare_data(check_array(X), device=dev)
+        evals = [prepare_data(check_array(E), device=dev)
+                 for E, _y in eval_sets]
+        pairs = [(int(m.get("n_clusters", self.n_clusters)),
+                  float(m.get("tol", self.tol))) for m in members]
+        for k, _ in pairs:
+            if k < 1 or k > data.n:
+                raise ValueError(
+                    f"n_clusters={k} must be in [1, n_samples={data.n}]")
+        gen = check_random_state(self.random_state, device=dev)
+        n_iters, _train_inertia, eval_inertias = core.batched_lloyd_cells(
+            data, pairs, evals, max_iter=T, generator=gen)
+        return {"n_iter": n_iters,
+                "scores": [-inert for inert in eval_inertias]}
 
 
 def _sync(dev: torch.device) -> None:

@@ -103,9 +103,20 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def maybe_host(x: torch.Tensor):
+def maybe_host(x: torch.Tensor, trusted: bool = True):
     """Return ``x`` as host numpy unless ``device_outputs`` is enabled, in
-    which case the device tensor passes through untouched."""
+    which case the device tensor passes through untouched. A tensor that
+    passes through is marked trusted in the active staging scope (it
+    derives from input its producer validated), so the next pipeline
+    stage's ``check_array`` skips its NaN/inf scan, a host read;
+    ``trusted=False`` is for producers that can make non-finite values
+    from finite input (a division by a variance that may be 0)."""
     if get_config()["device_outputs"]:
+        if trusted:
+            from dask_ml_tpu_torch.parallel.sharding import _current_memo
+
+            memo = _current_memo()
+            if memo is not None:
+                memo.trust(x)
         return x
     return x.detach().cpu().numpy()

@@ -164,7 +164,10 @@ class PCA(BaseEstimator, TransformerMixin):
         k = self.n_components_
         Uk = U[:, :k]
         if self.whiten:
-            return maybe_host(Uk * float(np.sqrt(self.n_samples_ - 1)))
+            # a whitened output can be non-finite where a variance is 0:
+            # the next stage scans it
+            return maybe_host(Uk * float(np.sqrt(self.n_samples_ - 1)),
+                              trusted=False)
         return maybe_host(Uk * S[:k])
 
     # -- inference ---------------------------------------------------------
@@ -182,7 +185,7 @@ class PCA(BaseEstimator, TransformerMixin):
         out = (Xs - _on(self.mean_, Xs)) @ _on(self.components_, Xs).T
         if self.whiten:
             out = out / torch.sqrt(_on(self.explained_variance_, Xs))
-        return maybe_host(out)
+        return maybe_host(out, trusted=not self.whiten)
 
     def inverse_transform(self, X):
         Xs = prepare_data(check_array(X)).X

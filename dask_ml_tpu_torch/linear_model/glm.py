@@ -24,7 +24,8 @@ than the card's memory. ``partial_fit`` takes one proximal-SGD step per
 block (:func:`~dask_ml_tpu_torch.models.glm.get_stream_step`), and
 ``_incremental_begin`` / ``_incremental_finalize`` let
 :class:`~dask_ml_tpu_torch.wrappers.Incremental` run the chain of blocks
-on the device. Not ported yet: the batched-search hooks.
+on the device. ``_batched_fit_score`` and its hooks are the search
+driver's batched-candidate protocol over ``C``.
 """
 
 from __future__ import annotations
@@ -427,6 +428,97 @@ class _GLM(BaseEstimator):
                                device=data.weights.device)
         eta = eta_program(data.X, coef, intercept=bool(self.fit_intercept))
         return eta.cpu().numpy()
+
+    # -- batched-candidate protocol (the search driver's fast path) -------
+    #
+    # A C grid over one GLM is the same problem at other regularization
+    # strengths: the driver's batched path stages the data once, solves
+    # every member (models/glm.py batched_glm_path) and scores all members
+    # in one product, with the scores left on the card for the driver's
+    # one copy to the host.
+
+    _batchable_params = frozenset({"C"})
+
+    def _supports_batched(self, static_params) -> bool:
+        """The four smooth solvers only (ADMM keeps per-block state), and
+        no estimator-level solver_kwargs or checkpoint plumbing, whose
+        per-member interactions the batched path does not model."""
+        solver = static_params.get("solver", self.solver)
+        if solver not in core._PATH_SOLVERS:
+            return False
+        if static_params.get("solver_kwargs", self.solver_kwargs):
+            return False
+        if static_params.get("checkpoint", self.checkpoint):
+            return False
+        return self.family in ("logistic", "normal")
+
+    def _member_lamduh(self, member):
+        if self.solver in self._UNREGULARIZED_SOLVERS:
+            return 0.0  # C never reaches these solvers
+        return 1.0 / float(member.get("C", self.C))
+
+    def _batchable_member_ok(self, member_params, n_train_min) -> bool:
+        """C = 0 or a non-finite C can't form a lamduh: such members run
+        per cell, so that only THEY fail under error_score. The solver is
+        read from the merged params (a grid can override it)."""
+        if member_params.get(
+                "solver", self.solver) in self._UNREGULARIZED_SOLVERS:
+            return True
+        try:
+            c = float(member_params.get("C", self.C))
+        except (TypeError, ValueError):
+            return False
+        return bool(np.isfinite(c)) and c != 0.0
+
+    def _encode_eval_y(self, y):
+        if self.family == "logistic":
+            # a label outside the training fold's classes encodes to -1:
+            # no {0, 1} prediction matches it, as the per-cell accuracy on
+            # raw labels counts it wrong
+            ye = np.asarray(y)
+            return np.where(
+                ye == self.classes_[1], np.float32(1.0),
+                np.where(ye == self.classes_[0], np.float32(0.0),
+                         np.float32(-1.0))).astype(np.float32)
+        return np.asarray(y, dtype=np.float32)
+
+    def _batched_fit_score(self, X, y, members, eval_sets):
+        """Solve every member's ``C`` on the data staged once, then score
+        each member on each eval set (accuracy / R², as ``score``).
+        Returns ``{"n_iter": (M,), "scores": [per eval set (M,)], "coef":
+        (M, width)}`` as device tensors (``coef`` with the intercept as
+        its last column, as ``_coef``). Declines (``NotImplemented``) on
+        multiclass targets: those run per cell, with the same results."""
+        y_enc = self._encode_y(y)
+        if len(getattr(self, "classes_", ())) > 2:
+            return NotImplemented
+
+        def prep(Xa, ya):
+            Xin = Xa if isinstance(Xa, torch.Tensor) else check_array(
+                Xa, accept_sparse=True)
+            data = prepare_data(Xin, y=ya)
+            if self.fit_intercept:
+                data.X = add_intercept(data.X)
+            return data
+
+        data = prep(X, y_enc)
+        d = int(data.X.shape[1])
+        mask = torch.ones(d, dtype=torch.float32, device=data.y.device)
+        if self.fit_intercept:
+            mask[-1] = 0.0
+        kwargs = self._get_solver_kwargs()
+        betas, n_iters = core.batched_glm_path(
+            data.X, data.y, data.weights, torch.zeros_like(mask), mask,
+            [self._member_lamduh(m) for m in members], solver=self.solver,
+            family=kwargs["family"], regularizer=kwargs["regularizer"],
+            max_iter=int(kwargs["max_iter"]), tol=kwargs["tol"])
+        self.n_features_in_ = d - 1 if self.fit_intercept else d
+        scores = []
+        for E, y_e in eval_sets:
+            ed = prep(E, self._encode_eval_y(y_e))
+            scores.append(core.batched_eval_scores(
+                ed.X, ed.y, ed.weights, betas, family=self.family))
+        return {"n_iter": n_iters, "scores": scores, "coef": betas}
 
 
 class LogisticRegression(_GLM):

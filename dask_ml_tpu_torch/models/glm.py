@@ -2,8 +2,9 @@
 ``dask_ml_tpu/models/glm.py``): families, regularizers, the four smooth
 solvers (gradient descent, Newton, L-BFGS, proximal gradient), consensus
 ADMM over S row blocks, the softmax solvers (``multinomial_lbfgs``,
-``admm_multinomial``), streamed ADMM, and the streaming proximal-SGD steps
-(``make_sgd_step``, ``make_batched_sgd_epoch``).
+``admm_multinomial``), streamed ADMM, the streaming proximal-SGD steps
+(``make_sgd_step``, ``make_batched_sgd_epoch``), and the search driver's
+regularization path (``batched_glm_path``, ``batched_eval_scores``).
 
 Objective convention, as in the JAX package: with per-row weights ``w``
 and ``SW = Σ w``, every solver minimizes
@@ -781,6 +782,64 @@ def multinomial_lbfgs(X, y_idx, w, B0, mask, *, n_classes, regularizer="l2",
     if return_state:
         return B, n_iter, carry, done is not None and bool(done)
     return B, n_iter
+
+
+# ---------------------------------------------------------------------------
+# Batched regularization-path solves (the search driver's fast path)
+# ---------------------------------------------------------------------------
+
+_PATH_SOLVERS = ("gradient_descent", "newton", "lbfgs", "proximal_grad")
+
+
+def batched_glm_path(X, y, w, beta0, mask, lamduh_arr, *, solver, family,
+                     regularizer, max_iter, tol):
+    """Solve the same GLM problem for a vector of regularization strengths
+    (the JAX ``batched_glm_path``): the members are solved one after
+    another through the same solver function with ``lamduh`` the
+    member's value, so each member's result is the single fit's result
+    bit for bit — the JAX program's ``vmap`` lanes stop contributing once
+    they converge, which gives each lane the single fit's result too. The
+    port's solvers are Python loops with a host read a loop test, so they
+    cannot share one batched loop yet (a batched ``(M, d)`` solve is a
+    ROADMAP speed item). The data is staged once for all members. ADMM is
+    excluded, as in the JAX package. Returns ``(betas (M, d), n_iters
+    (M,) int32)`` on the device."""
+    if solver not in _PATH_SOLVERS:
+        raise ValueError(
+            f"batched_glm_path takes a solver of {_PATH_SOLVERS}; got "
+            f"{solver!r}")
+    fn = _SOLVERS[solver]
+    betas, n_iters = [], []
+    for lam in lamduh_arr:
+        beta, n_iter = fn(X, y, w, beta0, mask, family=family,
+                          regularizer=regularizer, lamduh=float(lam),
+                          max_iter=max_iter, tol=tol)
+        betas.append(beta)
+        n_iters.append(int(n_iter))
+    return (torch.stack(betas),
+            torch.tensor(n_iters, dtype=torch.int32, device=beta0.device))
+
+
+def batched_eval_scores(E, y, w, betas, *, family):
+    """Default scores of a coefficient batch on one eval set, weighted:
+    accuracy for logistic (``eta > 0`` against the {0, 1} targets; a
+    target of −1, a label the training fold never saw, never matches),
+    R² for normal. One ``(nE, M)`` product: the gather-matmat for a
+    container, ``torch.matmul`` for dense data. ``betas`` is (M, d);
+    returns (M,) on the device, with no host read."""
+    if isinstance(E, sparse_ops.SparseRows):
+        eta = sparse_ops.matmat(E, betas.T)
+    else:
+        eta = torch.matmul(E, betas.T.to(E.dtype))
+    sw = torch.clamp(torch.sum(w), min=1e-12)
+    if family == "logistic":
+        hit = ((eta > 0).to(torch.float32) == y[:, None]).to(torch.float32)
+        return torch.sum(hit * w[:, None], dim=0) / sw
+    resid = y[:, None] - eta
+    ss_res = torch.sum(resid * resid * w[:, None], dim=0)
+    ybar = torch.sum(y * w) / sw
+    ss_tot = torch.clamp(torch.sum((y - ybar) ** 2 * w), min=1e-30)
+    return 1.0 - ss_res / ss_tot
 
 
 # ---------------------------------------------------------------------------

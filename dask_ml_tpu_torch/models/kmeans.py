@@ -172,7 +172,7 @@ def _lloyd_stats_cuda(X, w, centers):
                               c2.data_ptr(), n, k, d, partial.data_ptr(),
                               out.data_ptr(), build.stream_of(X))
     build.check(code, "Lloyd kernel")
-    _kernels.launches["lloyd_iter"] += 1
+    _kernels.count("lloyd_iter")
     acc = out[:-1].view(k, d + 1)
     return acc[:, :d], acc[:, d], out[-1]
 
@@ -236,13 +236,122 @@ def predict_labels(X, centers, kernel: str = "auto"):
     return fused_argmin_min(X, centers, kernel=kernel)[0]
 
 
-def scaled_tolerance(X, w, tol):
-    """``tol`` scaled by the mean per-feature variance of the weighted
-    data, as sklearn and the reference do (a 0-d f32 tensor)."""
+def _mean_feature_variance(X, w):
     sw = w.sum()
     mean = (w[:, None] * X).sum(dim=0) / sw
     var = (w[:, None] * (X - mean) ** 2).sum(dim=0) / sw
-    return tol * var.mean()
+    return var.mean()
+
+
+def scaled_tolerance(X, w, tol):
+    """``tol`` scaled by the mean per-feature variance of the weighted
+    data, as sklearn and the reference do (a 0-d f32 tensor)."""
+    return tol * _mean_feature_variance(X, w)
+
+
+# ---------------------------------------------------------------------------
+# Batched candidate cells (the search driver's fast path)
+# ---------------------------------------------------------------------------
+
+
+def _device_vector(values, dtype, device):
+    """A short host list as a tensor on ``device``, copied without waiting
+    on the card."""
+    host = torch.tensor(values, dtype=dtype)
+    if device.type == "cuda":
+        host = host.pin_memory()
+    return host.to(device, non_blocking=True)
+
+
+def batched_lloyd_cells(data, members, eval_sets, *, max_iter: int,
+                        generator=None, idx0=None, kernel: str = "auto"):
+    """Every ``(n_clusters, tol)`` KMeans candidate over one training set,
+    fit and scored with no host read (the JAX ``batched_lloyd_cells``).
+
+    - **One trajectory a unique ``n_clusters``.** Candidates differing
+      only in ``tol`` follow the same Lloyd trajectory and differ only in
+      where they stop, so each unique k runs ``max_iter`` iterations from
+      its init, recording the centers, ``shift`` and inertia of every
+      step; each iteration is one :func:`_lloyd_stats_fn` call on the
+      trajectory's own ``(k, d)`` centers — on the card the single-pass
+      Lloyd kernel (``csrc/lloyd.cu``). Nothing pads k to a common width:
+      eager PyTorch compiles nothing per shape.
+    - **Stops selected on the device.** Member m stops at the first t
+      with ``shift_t < tol_m`` (else at ``max_iter − 1``), the single-fit
+      loop's rule; ``tol`` is scaled on the device by the mean feature
+      variance. The JAX program freezes a trajectory once every member
+      has stopped; here every trajectory runs all ``max_iter`` steps,
+      since skipping one would need a host read, and the steps after the
+      last stop are never selected.
+    - **Scores on the device.** Each member's final centers are gathered
+      at its stop, and each eval set is scored through the fused
+      argmin/min family (K2 on the card), as ``KMeans.score`` scores.
+
+    The init: ``idx0`` (the first ``max(k)`` entries of a permutation of
+    the rows) if given — the tests hand in the JAX package's draw — else
+    ``torch.randperm(n, generator=generator)``, the draw of
+    :func:`init_random`. Trajectory k starts from the rows
+    ``sort(idx0[:k])``, which is :func:`init_random`'s choice, so a member
+    follows a standalone ``KMeans(init="random", random_state=s)`` fit.
+
+    ``data`` is the staged training :class:`DeviceData`, ``members`` a
+    list of ``(n_clusters, tol)``, ``eval_sets`` staged DeviceData.
+    Returns ``(n_iters (M,), train_inertia (M,), [eval inertias (M,)])``
+    as device tensors; the train inertia is that of the centers before
+    the last update, as the single-pass kernel reports it.
+    """
+    if not members:
+        raise ValueError("batched_lloyd_cells takes at least one member")
+    X, w = data.X, data.weights
+    dev = X.device
+    d = int(X.shape[1])
+    ks = [int(k) for k, _ in members]
+    uks = sorted(set(ks))
+    max_k = max(uks)
+    T = int(max_iter)
+    if idx0 is None:
+        idx0 = torch.randperm(data.n, generator=generator, device=dev)
+    elif not isinstance(idx0, torch.Tensor):
+        idx0 = _device_vector(np.asarray(idx0).tolist(), torch.int64, dev)
+    idx0 = idx0[:max_k].to(device=dev, dtype=torch.int64)
+    tol_arr = (_device_vector([float(t) for _, t in members], torch.float32,
+                              dev) * _mean_feature_variance(X, w))
+    member_u = _device_vector([uks.index(k) for k in ks], torch.int64, dev)
+
+    hists, shifts, inertias = [], [], []
+    for k in uks:
+        stats = _lloyd_stats_fn(X, k, d, kernel)
+        rows = torch.sort(idx0[:k]).values
+        centers = torch.index_select(X, 0, rows).to(torch.float32)
+        hist, sh, inert = [], [], []
+        with telemetry.span("kmeans-batched-trajectory", k=k, steps=T):
+            for _ in range(T):
+                sums, counts, inertia = stats(X, w, centers)
+                new_centers = _new_centers(sums, counts, centers)
+                sh.append(((new_centers - centers) ** 2).sum())
+                inert.append(inertia)
+                hist.append(new_centers)
+                centers = new_centers
+        hists.append(torch.stack(hist))  # (T, k, d)
+        shifts.append(torch.stack(sh))
+        inertias.append(torch.stack(inert))
+    shifts = torch.stack(shifts)  # (U, T)
+    inertias = torch.stack(inertias)  # (U, T)
+
+    below = shifts[member_u] < tol_arr[:, None]  # (M, T)
+    first = torch.argmax(below.to(torch.int32), dim=1)
+    stop = torch.where(below.any(dim=1), first,
+                       torch.full_like(first, T - 1))
+    n_iters = stop + 1
+    train_inertia = inertias[member_u, stop]
+    centers_m = [torch.index_select(hists[uks.index(k)], 0, stop[m:m + 1])[0]
+                 for m, k in enumerate(ks)]
+    evals = []
+    for e in eval_sets:
+        evals.append(torch.stack([compute_inertia(e.X, e.weights, c,
+                                                  kernel=kernel)
+                                  for c in centers_m]))
+    return n_iters, train_inertia, evals
 
 
 # ---------------------------------------------------------------------------

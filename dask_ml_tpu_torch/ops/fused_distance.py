@@ -247,7 +247,7 @@ def _fused_cuda(X, Y, mask, epilogue: str, w=None, row_need=None, x2=None,
         ptr(x2f), ptr(wf), n, m, d, ptr(am), ptr(mn), ptr(mn2),
         ptr(cw_part), ptr(cw), build.stream_of(X))
     build.check(err, f"fused distance kernel ({epilogue})")
-    _kernels.launches[counter or default_counter] += 1
+    _kernels.count(counter or default_counter)
     return outs if len(outs) > 1 else outs[0]
 
 

@@ -22,18 +22,22 @@ contractions the GLM solvers route through.
   memory of one block, of a thread block cluster of 2 (the pullback: also
   of 4), or L2. A
   pure function of ``(n, k, d)`` and the card's constants.
-- :func:`pullback_mat`, :func:`matmat` and :func:`weighted_gram`
-  (``A.T @ diag(h) @ A``, its products added in fixed point so that it
-  repeats its bits) in plain PyTorch, as the JAX package computes them
-  outside any Pallas kernel.
+- :func:`matmat` (an autograd function whose backward for ``B`` is
+  :func:`pullback_mat`), :func:`pullback_mat` and :func:`weighted_gram`
+  (``A.T @ diag(h) @ A``) in plain PyTorch, as the JAX package computes
+  them outside any Pallas kernel; the last two add their products in
+  fixed point, so that they repeat their bits.
 
 Products form in f32 and every reduction accumulates in f32 (the port
 stages float32 only). On integer-valued data every partial sum is an
 exactly representable integer, so the contractions are bit-identical to
 the dense products they replace whatever their order. On float data the
 kernels repeat their own bits from run to run: the forward sums each row in
-a fixed order, the pullback adds its products as fixed-point integers. The
-plain ``index_add_`` adds with float atomics on CUDA and does not.
+a fixed order, the pullback adds its products as fixed-point integers, and
+so do ``pullback_mat`` and ``weighted_gram`` (int64 ``index_add_``): no
+gradient of a container adds floats with atomics. The plain pullback
+``_pullback_ref`` (a float ``index_add_``, the reference the kernel is
+held against) adds with float atomics on CUDA and does not.
 """
 
 from __future__ import annotations
@@ -311,7 +315,7 @@ def _spmv_cuda(values, cols, v, cluster=None):
         err = lib.dml_spmv(values.data_ptr(), cols.data_ptr(), v.data_ptr(),
                            n, k, out.data_ptr(), stream)
         build.check(err, "SpMV kernel (v in L2)")
-        _kernels.launches["spmv_l2"] += 1
+        _kernels.count("spmv_l2")
     else:
         partial = None
         if cluster > 1:
@@ -322,7 +326,7 @@ def _spmv_cuda(values, cols, v, cluster=None):
             cluster, None if partial is None else partial.data_ptr(), out.data_ptr(),
             stream)
         build.check(err, f"SpMV kernel (v in a cluster of {cluster})")
-        _kernels.launches["spmv"] += 1
+        _kernels.count("spmv")
     return out
 
 
@@ -335,20 +339,28 @@ def _pullback_ref(values, cols, r, d):
     return out.index_add_(0, cols.reshape(-1), prods.reshape(-1))
 
 
-def _values_bound(values, lib, stream):
-    """The bits of ``max |values|`` as a one-word int32 tensor on the card,
-    the pullback's fixed-point scale needs it: reduced once (a pass over
-    the values, ``dml_spmv_absmax``) and kept on the tensor until it is
-    written to."""
-    from dask_ml_tpu_torch._kernels import build
-
+def _values_bound(values):
+    """The bits of ``max |values|`` as a one-word int32 tensor on the
+    values' device, no host read — the fixed-point scale of the pullback
+    kernel and of :func:`pullback_mat` needs it. Reduced once (on the card
+    by the pullback source's ``dml_spmv_absmax``, elsewhere by
+    ``torch.amax``) and kept on the tensor as ``_dml_absmax`` until its
+    ``_version`` changes. A NaN or inf value gives a non-finite bound."""
     held = getattr(values, "_dml_absmax", None)
     if held is not None and held[0] == values._version:
         return held[1]
-    bound = torch.empty(1, dtype=torch.int32, device=values.device)
-    err = lib.dml_spmv_absmax(values.data_ptr(), values.numel(),
-                              bound.data_ptr(), stream)
-    build.check(err, "pullback kernel (max |values|)")
+    if values.is_cuda and values.dtype == torch.float32 \
+            and values.is_contiguous():
+        from dask_ml_tpu_torch._kernels import build
+
+        bound = torch.empty(1, dtype=torch.int32, device=values.device)
+        err = build.load("spmv").dml_spmv_absmax(
+            values.data_ptr(), values.numel(), bound.data_ptr(),
+            build.stream_of(values))
+        build.check(err, "pullback kernel (max |values|)")
+    else:
+        bound = torch.amax(torch.abs(values.to(torch.float32))).reshape(
+            1).view(torch.int32)
     values._dml_absmax = (values._version, bound)
     return bound
 
@@ -383,7 +395,7 @@ def _pullback_cuda(values, cols, r, d, cluster=None):
     g = torch.empty(d, dtype=torch.float32, device=values.device)
     lib = build.load("spmv")
     stream = build.stream_of(values)
-    a_bound = _values_bound(values, lib, stream)
+    a_bound = _values_bound(values)
     r_bound = torch.empty(1, dtype=torch.int32, device=values.device)
     if cluster == 0:
         acc = torch.empty(d, dtype=torch.int64, device=values.device)
@@ -392,7 +404,7 @@ def _pullback_cuda(values, cols, r, d, cluster=None):
             a_bound.data_ptr(), r_bound.data_ptr(), acc.data_ptr(),
             g.data_ptr(), stream)
         build.check(err, "pullback kernel (g in L2)")
-        _kernels.launches["spmv_pullback_l2"] += 1
+        _kernels.count("spmv_pullback_l2")
         return g
     what = f"pullback kernel (g in a cluster of {cluster})"
     clusters = lib.dml_spmv_pullback_clusters(n, k, d, cluster)
@@ -405,7 +417,7 @@ def _pullback_cuda(values, cols, r, d, cluster=None):
         a_bound.data_ptr(), r_bound.data_ptr(), words[0].data_ptr(),
         words[1].data_ptr(), clusters, g.data_ptr(), stream)
     build.check(err, what)
-    _kernels.launches["spmv_pullback"] += 1
+    _kernels.count("spmv_pullback")
     return g
 
 
@@ -469,18 +481,51 @@ def matvec(A: SparseRows, v, *, kernel: str = "auto"):
 # ---------------------------------------------------------------------------
 
 
+def _matmat_ref(values, cols, B):
+    """``A @ B``: gather B's rows per slot, reduce over slots in f32."""
+    n, k = values.shape
+    g = torch.index_select(B.to(values.dtype), 0, cols.reshape(-1))
+    g = g.view(n, k, -1) * values[:, :, None]
+    return g.sum(dim=1, dtype=torch.float32)
+
+
+class _MatMat(torch.autograd.Function):
+    """``A @ B`` whose backward for ``B`` is :func:`pullback_mat` (64-bit
+    fixed-point adds, so the softmax gradient repeats its bits on the
+    card) and, only when autograd asks for it, the slot-wise product for
+    ``values``."""
+
+    @staticmethod
+    def forward(ctx, values, cols, B, d):
+        ctx.save_for_backward(values, cols, B)
+        ctx.d = d
+        return _matmat_ref(values, cols, B)
+
+    @staticmethod
+    def backward(ctx, G):
+        values, cols, B = ctx.saved_tensors
+        dvalues = dB = None
+        if ctx.needs_input_grad[0]:
+            n, k = values.shape
+            gathered = torch.index_select(B.to(values.dtype), 0,
+                                          cols.reshape(-1)).view(n, k, -1)
+            dvalues = (gathered * G.to(values.dtype)[:, None, :]).sum(dim=2)
+        if ctx.needs_input_grad[2]:
+            dB = pullback_mat(SparseRows(values, cols, ctx.d), G).to(B.dtype)
+        return dvalues, None, dB, None
+
+
 def matmat(A: SparseRows, B):
-    """``A @ B`` for a dense ``(d, m)`` operand (OVR scoring): gather B's
-    rows per slot, reduce over slots in f32. Transient memory is
-    O(n·k·m). Raises ``ValueError`` unless ``B`` has ``A.d`` rows."""
+    """``A @ B`` for a dense ``(d, m)`` operand (OVR scoring, softmax
+    logits): gather B's rows per slot, reduce over slots in f32. Transient
+    memory is O(n·k·m). Differentiable in ``B`` through
+    :func:`pullback_mat` and in ``A.values``. Raises ``ValueError`` unless
+    ``B`` has ``A.d`` rows."""
     if B.ndim != 2 or int(B.shape[0]) != A.d:
         raise ValueError(
             f"matmat takes B of shape ({A.d}, m) for a container of {A.d} "
             f"columns; got {tuple(B.shape)}")
-    n, k = A.values.shape
-    g = torch.index_select(B.to(A.values.dtype), 0, A.cols.reshape(-1))
-    g = g.view(n, k, -1) * A.values[:, :, None]
-    return g.sum(dim=1, dtype=torch.float32)
+    return _MatMat.apply(A.values, A.cols, B, A.d)
 
 
 def pullback(A: SparseRows, r, *, kernel: str = "auto"):
@@ -495,14 +540,59 @@ def pullback(A: SparseRows, r, *, kernel: str = "auto"):
     return _pullback_ref(A.values, A.cols, r, A.d)
 
 
+#: bound on the (chunk, k, m) product buffer of pullback_mat
+_PULLBACK_MAT_BUDGET = 1 << 24
+
+
+def _fixed_scale(bound, count: int):
+    """The exponent ``e`` of one call's fixed point, as the pullback
+    kernel takes it: each product ``p`` of magnitude at most ``bound``
+    becomes ``rint(p·2^e)`` with at most ``cap = min(39, 61 −
+    ceil(log2(count)))`` bits, so that a sum of ``count`` of them stays
+    inside 62 bits. A 0-d int tensor on the bound's device; 0 for a zero
+    or non-finite bound."""
+    cap = min(39, 61 - (max(count - 1, 0).bit_length() if count > 1 else 0))
+    _, ex = torch.frexp(bound)  # bound < 2^ex
+    ok = torch.isfinite(bound) & (bound > 0)
+    return torch.where(ok, cap - ex, torch.zeros_like(ex))
+
+
 def pullback_mat(A: SparseRows, R):
-    """``A.T @ R`` (d, m) f32 for a dense ``(n, m)`` cotangent."""
+    """``A.T @ R`` (d, m) f32 for a dense ``(n, m)`` cotangent — the
+    backward of :func:`matmat` (the softmax gradient).
+
+    The products are added in fixed point, as the pullback kernel adds
+    its own: each f32 product ``a·r`` is rounded to an integer at one
+    power-of-two scale a call (from ``max|values|``, ``max|R|`` and the
+    count ``n·k``, so that no sum leaves 62 bits) and the int64 sums,
+    made with an integer ``index_add_`` into a ``(d·m,)`` buffer, are
+    exact in any order: the result repeats its bits on the card, where a
+    float ``index_add_`` adds in an order that changes from run to run.
+    ``max|values|`` is the bound cached on the values tensor, which the
+    pullback kernel shares (:func:`_values_bound`). The scale stays on
+    the device: no host read. A non-finite bound gives NaN everywhere.
+    Row chunks bound the transient ``(chunk, k, m)`` buffers to
+    ``_PULLBACK_MAT_BUDGET`` entries."""
     n, k = A.values.shape
+    d = A.d
     m = int(R.shape[1])
-    prods = (A.values[:, :, None] * R.to(A.values.dtype)[:, None, :]).to(
-        torch.float32)
-    out = torch.zeros((A.d, m), dtype=torch.float32, device=prods.device)
-    return out.index_add_(0, A.cols.reshape(-1), prods.reshape(n * k, m))
+    vals = A.values.to(torch.float32)
+    Rf = R.to(torch.float32)
+    bound = (_values_bound(A.values).view(torch.float32)[0].double()
+             * torch.amax(torch.abs(Rf)).double()) if n * k * m else (
+        torch.zeros((), dtype=torch.float64, device=vals.device))
+    e = _fixed_scale(bound, n * k)
+    scale = torch.exp2(e.double())
+    acc = torch.zeros(d * m, dtype=torch.int64, device=vals.device)
+    cols = torch.arange(m, device=vals.device)
+    c = max(1, _PULLBACK_MAT_BUDGET // max(k * m, 1))
+    for s in range(0, n, c):
+        p = vals[s:s + c, :, None] * Rf[s:s + c, None, :]  # f32 products
+        q = (p.double() * scale).round_().to(torch.int64)
+        idx = A.cols[s:s + c].to(torch.int64)[:, :, None] * m + cols
+        acc.index_add_(0, idx.reshape(-1), q.reshape(-1))
+    out = (acc.double() * torch.exp2(-e.double())).float().view(d, m)
+    return torch.where(torch.isfinite(bound), out, torch.nan)
 
 
 #: bound on the (chunk, k, k) outer-product buffer of weighted_gram

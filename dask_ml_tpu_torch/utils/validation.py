@@ -32,7 +32,22 @@ def check_array(X, accept_sparse: bool = False):
     dense-only estimators (KMeans) do not. Its column indices must lie in
     ``[0, d)``: the SpMV kernel trusts them. Values are checked for
     finiteness over the stored entries only and cast to float32; CSC and
-    other formats are rejected with the conversion to use."""
+    other formats are rejected with the conversion to use.
+
+    Inside a staging scope (the search driver's ``staging_memo``) the
+    result for one source object is computed once, and a device tensor
+    marked trusted there skips the scan, a host read."""
+    from dask_ml_tpu_torch.parallel.sharding import _current_memo
+
+    memo = _current_memo()
+    if memo is not None:
+        return memo.get_or_stage(("check", id(X), bool(accept_sparse)),
+                                 (X,), lambda: _check_array_impl(
+                                     X, accept_sparse, memo))
+    return _check_array_impl(X, accept_sparse, None)
+
+
+def _check_array_impl(X, accept_sparse: bool, memo):
     if hasattr(X, "iloc"):
         raise TypeError(
             "DataFrame inputs are not supported here; pass .values")
@@ -54,8 +69,9 @@ def check_array(X, accept_sparse: bool = False):
     if is_tensor:
         if arr.is_complex():
             raise ValueError(f"Unsupported dtype {arr.dtype}")
+        trusted = memo is not None and memo.is_trusted(X)
         arr = arr.to(torch.float32)
-        if not bool(torch.isfinite(arr).all()):
+        if not trusted and not bool(torch.isfinite(arr).all()):
             raise ValueError("Input contains NaN or infinity")
         return arr
     arr = _float32_host(arr)

@@ -994,3 +994,161 @@ def test_incremental_scan_reads_nothing_back(cuda):
     loop = LogisticRegression(C=100, solver_kwargs={"eta0": 0.5})
     wrappers.fit(loop, X, y, block_size=1000)
     assert np.array_equal(out[0].cpu().numpy(), loop._coef)
+
+
+# ---------------------------------------------------------------------------
+# the softmax gradient in fixed point, and the search tier
+# ---------------------------------------------------------------------------
+
+
+def _float_rows(rng, n, k, d, dev):
+    cols = torch.as_tensor(rng.integers(0, d, (n, k)), dtype=torch.int32,
+                           device=dev)
+    vals = torch.as_tensor(rng.standard_normal((n, k)), dtype=torch.float32,
+                           device=dev)
+    return sps.SparseRows(vals, cols, d)
+
+
+def test_pullback_mat_and_matmat_backward_repeat_their_bits(cuda):
+    """Float data, columns shared by many rows (where float atomics add in
+    an order that changes from run to run): five calls of pullback_mat,
+    and of matmat's backward, give one set of bits, within 1e-6 of a
+    float64 scatter."""
+    rng = np.random.default_rng(21)
+    A = _float_rows(rng, 200_000, 11, 503, cuda)
+    R = torch.as_tensor(rng.standard_normal((200_000, 6)),
+                        dtype=torch.float32, device=cuda)
+    first = sps.pullback_mat(A, R)
+    for _ in range(4):
+        assert torch.equal(sps.pullback_mat(A, R), first)
+    B = torch.zeros((503, 6), device=cuda, requires_grad=True)
+    grads = [torch.autograd.grad(sps.matmat(A, B), B, R)[0]
+             for _ in range(5)]
+    for g in grads:
+        assert torch.equal(g, first)
+    want = torch.zeros((503, 6), dtype=torch.float64, device=cuda)
+    want.index_add_(0, A.cols.reshape(-1).long(),
+                    (A.values.double()[:, :, None]
+                     * R.double()[:, None, :]).reshape(-1, 6))
+    err = float((first.double() - want).abs().max())
+    assert err <= 1e-6 * float(want.abs().max())
+
+
+def test_two_sparse_softmax_fits_are_bit_for_bit(cuda):
+    """multinomial_lbfgs on a container twice: the same coefficients bit
+    for bit (its gradient is pullback_mat's fixed point)."""
+    X, _ = make_sparse_classification(60_000, 2_000, 0.01, random_state=8)
+    y = np.random.default_rng(9).integers(0, 4, 60_000)
+    fits = [LogisticRegression(multiclass="multinomial", solver="lbfgs",
+                               max_iter=5).fit(X, y) for _ in range(2)]
+    assert fits[0]._coef.shape == (4, 2_001)
+    assert np.array_equal(fits[0]._coef, fits[1]._coef)
+
+
+def _blob_data(rng, n, d, k):
+    centers = rng.uniform(-6, 6, (k, d))
+    X = centers[rng.integers(0, k, n)] + rng.standard_normal((n, d))
+    return X.astype(np.float32)
+
+
+def test_batched_lloyd_cells_against_plain_on_card(cuda):
+    """batched_lloyd_cells through K1 and K2 against its plain version from
+    the same init rows: n_iter equal, scores within 1e-5; K1 runs every
+    step of every trajectory, K2 scores every member."""
+    from dask_ml_tpu_torch.parallel.sharding import prepare_data
+
+    rng = np.random.default_rng(10)
+    X = _blob_data(rng, 20_000, 24, 6)
+    data = prepare_data(X[:10_000], device=cuda)
+    ev = prepare_data(X[10_000:], device=cuda)
+    members = [(k, t) for k in (2, 3, 5, 8) for t in (1e-6, 1e-3, 1e-1)]
+    idx0 = rng.permutation(10_000)[:8]
+    _kernels.reset_launches()
+    got = core.batched_lloyd_cells(data, members, [ev], max_iter=10,
+                                   idx0=idx0)
+    assert _kernels.launches["lloyd_iter"] == 4 * 10
+    assert _kernels.launches["fused_argmin_min"] == len(members)
+    want = core.batched_lloyd_cells(data, members, [ev], max_iter=10,
+                                    idx0=idx0, kernel="torch")
+    assert torch.equal(got[0].cpu(), want[0].cpu())
+    np.testing.assert_allclose(got[2][0].cpu().numpy(),
+                               want[2][0].cpu().numpy(), rtol=1e-5)
+
+
+def test_pairwise_argmin_min_through_k2(cuda):
+    """pairwise_distances_argmin_min launches K2 once and agrees with its
+    plain version bit for bit on integer-valued data."""
+    from dask_ml_tpu_torch.metrics import pairwise_distances_argmin_min
+
+    rng = np.random.default_rng(11)
+    X = _ints(rng, (5_001, 13), cuda)
+    Y = _ints(rng, (37, 13), cuda)
+    _kernels.reset_launches()
+    idx, dist = pairwise_distances_argmin_min(X, Y)
+    assert _kernels.launches["fused_argmin_min"] == 1
+    pidx, pdist = pairwise_distances_argmin_min(X, Y, kernel="torch")
+    assert idx.dtype == torch.int32
+    assert torch.equal(idx, pidx) and torch.equal(dist, pdist)
+
+
+def test_group_dispatch_reads_nothing_back(cuda):
+    """KMeans's batched group on trusted device inputs under the sync debug
+    mode "error": no host read; and a search over the same members takes
+    the batched path for every cell with one bulk fetch."""
+    from dask_ml_tpu_torch.model_selection import GridSearchCV, _search
+    from dask_ml_tpu_torch.parallel.sharding import staging_memo
+
+    rng = np.random.default_rng(12)
+    X = _blob_data(rng, 8_000, 16, 5)
+    Xt = torch.as_tensor(X[:4_000], device=cuda)
+    Xe = torch.as_tensor(X[4_000:], device=cuda)
+    members = [{"n_clusters": k, "tol": t} for k in (2, 4, 6)
+               for t in (1e-4, 1e-2)]
+    km = KMeans(init="random", max_iter=8, random_state=0)
+    with staging_memo() as memo:
+        memo.trust(Xt)
+        memo.trust(Xe)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = km._batched_fit_score(Xt, None, members, [(Xe, None)])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert out["scores"][0].is_cuda and out["scores"][0].shape == (6,)
+    _search.reset_fetch_counts()
+    gs = GridSearchCV(km, {"n_clusters": [2, 4, 6], "tol": [1e-4, 1e-2]},
+                      cv=[(np.arange(4_000), np.arange(4_000, 8_000))],
+                      refit=False, return_train_score=False).fit(X)
+    assert gs.n_batched_cells_ == 6
+    assert _search.fetch_counts == {"bulk": 1, "cell": 0}
+    np.testing.assert_array_equal(gs.cv_results_["split0_test_score"],
+                                  out["scores"][0].cpu().numpy())
+
+
+def test_kernel_launches_from_many_threads(cuda):
+    """K1 from 8 threads at once with another (k, d) in each thread (its
+    launch sets the kernel's shared-memory attribute to that shape's
+    need, then launches: the library's lock keeps the pair together) —
+    every launch succeeds and gives the single-threaded bits."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.default_rng(13)
+    X = torch.as_tensor(rng.standard_normal((20_000, 25)),
+                        dtype=torch.float32, device=cuda)
+    w = torch.ones(20_000, device=cuda)
+    shapes = [(k, d) for k in (2, 5, 11) for d in (5, 15, 25)]
+    inputs = [(X[:, :d].contiguous(), X[:k, :d].contiguous())
+              for k, d in shapes]
+    want = [core._lloyd_stats_cuda(Xd, w, C) for Xd, C in inputs]
+
+    def run(i):
+        Xd, C = inputs[i % len(inputs)]
+        return i % len(inputs), core._lloyd_stats_cuda(Xd, w, C)
+
+    with ThreadPoolExecutor(8) as pool:
+        got = list(pool.map(run, range(40 * len(inputs))))
+    torch.cuda.synchronize()
+    for j, (sums, counts, inertia) in got:
+        assert torch.equal(sums, want[j][0])
+        assert torch.equal(counts, want[j][1])
+        assert torch.equal(inertia, want[j][2])

@@ -364,8 +364,12 @@ def test_bad_params_and_inputs():
     km = KMeans(n_clusters=3, random_state=0).fit(X)
     with pytest.raises(ValueError, match="features"):
         km.predict(X[:, :2])
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # the batched-candidate protocol is ported: it refuses an empty group
+    # and scores a real one
+    with pytest.raises(ValueError, match="at least one member"):
         km._batched_fit_score(X, None, [], [])
+    out = km._batched_fit_score(X, None, [{"n_clusters": 2}], [(X, None)])
+    assert out["scores"][0].shape == (1,)
 
 
 def test_params_protocol_without_sklearn_base():
@@ -448,12 +452,39 @@ def test_check_array_and_random_state():
 
 def test_port_never_imports_jax():
     """Every module of the port, and chip_smoke.py, imports without
-    pulling in jax or any module of the JAX package."""
+    pulling in jax or any module of the JAX package; and again with
+    scikit-learn made unimportable (``sys.modules["sklearn"] = None``),
+    as on the card's machine, which has none: ``model_selection`` and
+    ``pipeline`` included, no module needs it at import time but the
+    scikit-learn subclasses (the ``Partial*`` estimators), which are
+    loaded only on access and must fail there with an ImportError."""
+    for block_sklearn in (False, True):
+        _import_walk(block_sklearn)
+
+
+#: modules that only subclass scikit-learn estimators
+_SKLEARN_SUBCLASSES = (
+    "dask_ml_tpu_torch.naive_bayes", "dask_ml_tpu_torch.neural_network",
+    "dask_ml_tpu_torch.linear_model.stochastic_gradient",
+    "dask_ml_tpu_torch.linear_model.perceptron",
+    "dask_ml_tpu_torch.linear_model.passive_aggressive")
+
+
+def _import_walk(block_sklearn: bool):
     code = (
         "import importlib, pkgutil, sys\n"
+        + ("sys.modules['sklearn'] = None\n" if block_sklearn else "")
+        + f"skip = {_SKLEARN_SUBCLASSES if block_sklearn else ()!r}\n"
         "import dask_ml_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    if m.name in skip:\n"
+        "        try:\n"
+        "            importlib.import_module(m.name)\n"
+        "        except ImportError:\n"
+        "            continue\n"
+        "        raise AssertionError(m.name + ' imported without sklearn')\n"
         "    importlib.import_module(m.name)\n"
+        "import dask_ml_tpu_torch.model_selection, dask_ml_tpu_torch.pipeline\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dask_ml_tpu' or m.startswith('dask_ml_tpu.')]\n"

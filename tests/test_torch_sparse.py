@@ -337,6 +337,84 @@ def test_weighted_gram_chunks_like_one_pass(monkeypatch):
     assert torch.equal(tsps.weighted_gram(At, h), whole)
 
 
+def _float_container(rng, n, d, k):
+    cols = rng.randint(0, d, (n, k)).astype(np.int32)
+    vals = rng.standard_normal((n, k)).astype(np.float32)
+    vals[:, -1] = 0.0  # a padded slot
+    cols[:, -1] = 0
+    return tsps.SparseRows(torch.as_tensor(vals), torch.as_tensor(cols), d)
+
+
+def _pullback_mat_f64(A, R):
+    out = np.zeros((A.d, R.shape[1]))
+    np.add.at(out, A.cols.numpy().reshape(-1),
+              (A.values.numpy().astype(np.float64)[:, :, None]
+               * R.astype(np.float64)[:, None, :]).reshape(-1, R.shape[1]))
+    return out
+
+
+@pytest.mark.parametrize("n,d,k,m", [(200, 31, 7, 4), (1000, 300, 11, 10),
+                                     (1, 5, 3, 2)])
+def test_pullback_mat_fixed_point_within_1e6_of_float64(n, d, k, m):
+    """Float data: the fixed-point sums within rtol 1e-6 of a float64
+    scatter of the same f32 products, and the same bits in row chunks."""
+    rng = np.random.RandomState(n + d)
+    A = _float_container(rng, n, d, k)
+    R = rng.standard_normal((n, m)).astype(np.float32)
+    got = tsps.pullback_mat(A, torch.as_tensor(R))
+    want = _pullback_mat_f64(A, R)
+    assert got.dtype == torch.float32 and got.shape == (d, m)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                               atol=1e-6 * np.abs(want).max())
+
+
+def test_pullback_mat_chunks_and_bound_cache(monkeypatch):
+    """Row chunks give the one-chunk bits; the bound is cached on the values
+    tensor and dropped when the tensor is written to; a non-finite bound
+    gives NaN everywhere."""
+    rng = np.random.RandomState(3)
+    A = _float_container(rng, 101, 17, 5)
+    R = torch.as_tensor(rng.standard_normal((101, 3)).astype(np.float32))
+    whole = tsps.pullback_mat(A, R)
+    version, word = A.values._dml_absmax
+    assert version == A.values._version
+    assert word.view(torch.float32)[0] == A.values.abs().max()
+    monkeypatch.setattr(tsps, "_PULLBACK_MAT_BUDGET", 4 * A.k * 3)
+    assert torch.equal(tsps.pullback_mat(A, R), whole)
+    A.values.mul_(2.0)  # a write bumps _version: the bound is taken again
+    np.testing.assert_allclose(tsps.pullback_mat(A, R).numpy(),
+                               2 * whole.numpy(), rtol=1e-6, atol=1e-6)
+    assert A.values._dml_absmax[0] == A.values._version
+    R[5, 1] = float("inf")
+    assert torch.isnan(tsps.pullback_mat(A, R)).all()
+
+
+@pytest.mark.parametrize("n,d,k,m", [(300, 40, 9, 5), (64, 7, 3, 3)])
+def test_matmat_gradient_is_pullback_mat(n, d, k, m):
+    """The softmax-shaped gradient through matmat: its backward for B is
+    pullback_mat (within rtol 1e-6 of float64), for the values the
+    slot-wise product of autograd's own gather."""
+    rng = np.random.RandomState(n * m)
+    A = _float_container(rng, n, d, k)
+    B = torch.as_tensor(rng.standard_normal((d, m)).astype(np.float32))
+    G = rng.standard_normal((n, m)).astype(np.float32)
+    B.requires_grad_(True)
+    vals = A.values.clone().requires_grad_(True)
+    out = tsps.matmat(tsps.SparseRows(vals, A.cols, d), B)
+    np.testing.assert_allclose(
+        out.detach().numpy(),
+        tsps.to_dense(A).numpy().astype(np.float64) @ B.detach().numpy(),
+        rtol=1e-5, atol=1e-5)
+    gB, gv = torch.autograd.grad(out, (B, vals), torch.as_tensor(G))
+    want = _pullback_mat_f64(A, G)
+    np.testing.assert_allclose(gB.numpy(), want, rtol=1e-6,
+                               atol=1e-6 * np.abs(want).max())
+    assert torch.equal(gB, tsps.pullback_mat(A, torch.as_tensor(G)))
+    Bg = B.detach().numpy().astype(np.float64)[A.cols.numpy()]  # (n, k, m)
+    np.testing.assert_allclose(gv.numpy(), (Bg * G[:, None, :]).sum(2),
+                               rtol=1e-5, atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # container and encoding
 # ---------------------------------------------------------------------------
