@@ -67,7 +67,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    next to cuSPARSE through ``torch.sparse``, on the same slots folded
    onto 1,024 columns, and on 40,000 columns through one block and
    clusters of 2, 4 and 8; one L-BFGS iteration, with a device profile of
-   it), and prints the k-means|| phase times of both KMeans cells.
+   it), and prints the k-means|| phase times of both KMeans cells
+   (``models.kmeans.measure_init_phases``).
 
 9. drives the solvers of the GLM facades beyond L-BFGS and the
    decompositions, each data set drawn with numpy from the seed:
@@ -143,12 +144,39 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    over 500,000 rows of the sparse cell's container: K6 and its backward,
    coefficients equal to per-cell fits bit for bit, two searches bit for
    bit); and a sparse softmax fit twice, bit for bit.
+13. drives the successive-halving tier (``ASHA``): the JAX package's
+   successive-halving drill at its own size (200,000 × 20 from
+   RandomState(99), the 16-point grid of ``C`` × ``eta0``,
+   aggressiveness 4, 16 epochs, 8 blocks,
+   ``LogisticRegression(solver="gradient_descent")``): the synchronous
+   reference's winner at ≤ 1/5 of its budget, the batched rungs equal to
+   one ``partial_fit`` a block a candidate (scores atol 1e-6, the
+   winner's coefficients rtol 1e-5), no kernel build after rung 0, no
+   host read inside a rung (sync debug mode "error"), a journal cut
+   mid-bracket resumed bit for bit; ``HyperbandSearchCV(MiniBatchKMeans(
+   n_clusters=8))`` over init and its seed on the blobs (K2 in every
+   rung, the winner's ARI ≥ 0.99, two searches bit for bit);
+   ``MiniBatchKMeans(n_clusters=8).fit(X).predict(X)`` on the blobs (ARI
+   ≥ 0.99, labels equal to the plain version's from the fitted centers,
+   two fits bit for bit, K2 at a mini-batch's shape and one Sculley
+   update through it against their plain versions, steps a second and
+   the busy share of the step loop);
+   ``HyperbandSearchCV(LogisticRegression())`` over BASELINE config 4's
+   data through the GLM's batched ``partial_fit`` rungs, max_epochs 27 (no
+   kernel of the repo runs there: cuBLAS and PyTorch's own kernels; no
+   host read inside a rung, host syncs a search); ``cluster.k_means(X,
+   8)`` equal to the ``KMeans`` fit bit for bit, ``compute_inertia`` and
+   ``evaluate_cost`` within rtol 1e-5 of its inertia, ``init_scalable``
+   on K3 and K4, the k-means|| phases; ``GaussianNB`` on config 4's data
+   against a float64 fit; ``make_blobs`` and ``make_classification`` at
+   1,000,000 × 50 on the card, one seed twice to the same bits.
 
 ``python3 chip_smoke.py --spmv-only`` runs steps 1, 2, 6 and 8 alone, on a
 container of the sparse cell's shape drawn on the card;
 ``--glm-pca-only`` runs steps 1, 2 and 9 alone; ``--stream-only`` steps 1,
 2 and 10, drawing its own host arrays; ``--incremental-only`` steps 1, 2
-and 11; ``--search-only`` steps 1, 2 and 12.
+and 11; ``--search-only`` steps 1, 2 and 12; ``--asha-only`` steps 1, 2
+and 13.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
@@ -279,6 +307,39 @@ SEARCH_GRID = {"pca__n_components": [5, 10, 15, 20, 25],
 SEARCH_MAX_ITER, SEARCH_SAMPLED, SEARCH_RTOL = 10, 6, 1e-6
 SEARCH_SPARSE_N, SEARCH_CS = 500_000, [0.1, 1.0, 10.0]
 SOFTMAX_N, SOFTMAX_K = 500_000, 4
+# the successive-halving tier (ASHA): the JAX package's drill at its own
+# size (bench.py _ASHA, _asha_problem, _asha_search :1565-1611), nothing
+# cut: 200,000 x 20 from RandomState(99)'s KDD-character recipe, the
+# 16-point grid, aggressiveness 4, 16 epochs, 8 blocks; its journal cut
+# after ASHA_RESUME_AT of its 21 records (mid rung 1) and resumed
+ASHA_N, ASHA_D, ASHA_BLOCKS, ASHA_EPOCHS, ASHA_ETA = 200_000, 20, 8, 16, 4
+ASHA_GRID = {"C": [1e-3, 1e-2, 1e-1, 1.0],
+             "solver_kwargs": [{"eta0": 0.05}, {"eta0": 0.2},
+                               {"eta0": 0.5}, {"eta0": 1.0}]}
+ASHA_SCORE_ATOL, ASHA_COEF_RTOL, ASHA_RESUME_AT = 1e-6, 1e-5, 18
+# Hyperband over MiniBatchKMeans(n_clusters=8) on the blobs (init and the
+# init's seed searched: settings partial_fit reads, 10 distinct candidates;
+# batch_size is not one, since a partial_fit takes its whole block as the
+# batch; 8 blocks of 100,000 rows, max_epochs 9, aggressiveness 3);
+# Hyperband over BASELINE config 4's data (the INCREMENTAL cell's 2e6 x 100)
+# through the GLM's batched partial_fit rungs, max_epochs 27, 16 blocks of
+# 100,000 rows (config 4's block size)
+HB_MB_GRID = {"init": ["k-means||", "random"],
+              "random_state": [SEED + i for i in range(5)]}
+HB_MB_EPOCHS, HB_MB_ETA, HB_MB_BLOCKS = 9, 3, 8
+HB_GLM_GRID = {"C": [1e-3, 1e-2, 0.1, 1.0, 10.0, 100.0],
+               "solver_kwargs": [{"eta0": e}
+                                 for e in (0.05, 0.1, 0.2, 0.5, 1.0)]}
+HB_GLM_EPOCHS, HB_GLM_ETA, HB_GLM_BLOCKS = 27, 3, 16
+# MiniBatchKMeans' own fit: the steps profiled for the busy share
+MB_PROFILED_STEPS = 2_000
+# GaussianNB on config 4's data against a float64 fit: moments within
+# NB_RTOL (plus NB_RTOL of each feature's standard deviation), labels
+# equal wherever the float64 log-likelihoods of the two classes differ by
+# more than NB_MARGIN
+NB_RTOL, NB_MARGIN = 1e-4, 1e-3
+# the dense generators at the blobs' size
+GEN_N, GEN_D = 1_000_000, 50
 # H100 SXM data sheet: HBM3 bandwidth and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
@@ -313,6 +374,13 @@ PATH_KERNELS = {
     "incremental-sparse": ("spmv", "spmv_pullback"),
     "parallel-post-fit-kmeans": ("fused_argmin_min",),
     "parallel-post-fit-glm": ("spmv",),
+    "minibatch": ("fused_argmin_min", "fused_rowwise_min",
+                  "fused_argmin_weight"),
+    "minibatch-hyperband": ("fused_argmin_min", "fused_rowwise_min",
+                            "fused_argmin_weight"),
+    "k-means-fn": ("lloyd_iter", "fused_argmin_min", "fused_rowwise_min",
+                   "fused_argmin_weight"),
+    "init-scalable": ("fused_rowwise_min", "fused_argmin_weight"),
 }
 SOURCES = {
     "lloyd_iter": "dask_ml_tpu_torch/_kernels/csrc/lloyd.cu",
@@ -943,42 +1011,16 @@ def bound(nbytes: float, flops: float):
 
 
 def init_phase_seconds(X, w):
-    """Wall seconds of each k-means|| phase at the main path's shape, run
-    one by one with a device sync after each (the fit runs them back to
+    """The k-means|| phases at the main path's shape through
+    ``models.kmeans.measure_init_phases``: each phase alone, warmed once
+    and timed with a device sync after it (the fit runs them back to
     back)."""
-    import torch
-
     from dask_ml_tpu_torch.models import kmeans as core
     from dask_ml_tpu_torch.utils.validation import check_random_state
 
-    cfg = core._init_scalable_config(X.shape[0], K, 2.0, None)
-    gen = check_random_state(SEED, device=X.device)
-    out = {}
-
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        out[name] = time.perf_counter() - t0
-        return res
-
-    tol = timed("tol", lambda: core.scaled_tolerance(X, w, 1e-4))
-    cand, mind0, _, n_rounds = timed("seed", lambda: core._init_seed_phase(
-        X, w, gen, max_rounds=cfg["max_rounds"], max_cand=cfg["max_cand"]))
-    cand, n_cand, _, skip, total = timed(
-        "rounds", lambda: core._init_rounds_phase(
-            X, w, cfg["l"], cand, mind0, n_rounds, gen,
-            max_cand=cfg["max_cand"], cap=cfg["cap"]))
-    n_cand = int(n_cand)
-    cand, n_cand, cw = timed("weights", lambda: core._init_weights_phase(
-        X, w, cand, n_cand, gen, n_clusters=K, max_cand=cfg["max_cand"]))
-    timed("finish", lambda: core._init_finish_phase(
-        cand, cw, tol, gen, n_clusters=K, n_trials=cfg["n_trials"],
-        finish_iters=100))
-    out.update(n_rounds=n_rounds, n_cand=n_cand,
-               round_skip_ratio=float(skip) / max(float(total), 1.0))
-    return out
+    return core.measure_init_phases(
+        X, w, K, check_random_state(SEED, device=X.device),
+        oversampling_factor=2.0)
 
 
 def fused_call(fdl, stream, X, Y, epi, w=None, gneed=None, x2=None,
@@ -3890,6 +3932,456 @@ def search_cells(dev, errs):
 
 
 # ---------------------------------------------------------------------------
+# the successive-halving tier (ASHA)
+# ---------------------------------------------------------------------------
+
+
+def asha_problem():
+    """The JAX drill's problem (bench.py ``_asha_problem``): 23 imbalanced
+    clusters with a per-feature scale spread, labelled dominant cluster
+    against the rest, from RandomState(99)."""
+    rng = np.random.RandomState(99)
+    n_clusters = 23
+    centers = rng.randn(n_clusters, ASHA_D) * np.exp(rng.randn(1, ASHA_D))
+    logits = -0.45 * np.arange(n_clusters)
+    p = np.exp(logits) / np.exp(logits).sum()
+    ids = rng.choice(n_clusters, size=ASHA_N, p=p)
+    X = (centers[ids] + 0.3 * rng.randn(ASHA_N, ASHA_D)).astype(np.float32)
+    return X, (ids == 0).astype(np.int64)
+
+
+@contextlib.contextmanager
+def rungs_without_host_reads(calls: list):
+    """Every batched rung (``_incremental.batched_rung``) run under the
+    sync debug mode "error": a host read inside a rung raises. Each rung
+    appends to ``calls``."""
+    import torch
+
+    from dask_ml_tpu_torch.model_selection import _incremental as inc
+
+    orig = inc.batched_rung
+
+    def guarded(*a, **k):
+        calls.append(1)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    inc.batched_rung = guarded
+    try:
+        yield
+    finally:
+        inc.batched_rung = orig
+
+
+def asha_drill(dev):
+    """``asha-drill``: the JAX package's successive-halving drill at its own
+    size. Gates: the synchronous reference's winner at ≤ 1/5 of its
+    budget; the batched rungs equal to one ``partial_fit`` a block a
+    candidate (scores atol 1e-6, the winner's coefficients rtol 1e-5); no
+    kernel build after rung 0; no host read inside a rung; a journal cut
+    mid-bracket resumes to the same scores and winner bit for bit."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    from dask_ml_tpu_torch.checkpoint import CellJournal
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.model_selection import SuccessiveHalvingSearchCV
+
+    X, y = drawn("asha", asha_problem)
+
+    def search(sync=False, **kw):
+        return SuccessiveHalvingSearchCV(
+            LogisticRegression(solver="gradient_descent"), ASHA_GRID,
+            n_initial_parameters="grid",
+            n_initial_epochs=ASHA_EPOCHS if sync else 1,
+            aggressiveness=ASHA_ETA, max_epochs=ASHA_EPOCHS,
+            n_blocks=ASHA_BLOCKS, random_state=0, shuffle_seed=0, **kw)
+
+    rung_calls: list = []
+    with rungs_without_host_reads(rung_calls):
+        sh, cold_s, launches = drive(lambda: search().fit(X, y))
+        _, warm_s, _ = drive(lambda: search().fit(X, y))
+        ref, ref_s, _ = drive(lambda: search(sync=True).fit(X, y))
+    expect(len(rung_calls) == 2 * len(sh.rung_table_) + 1,
+           f"{len(rung_calls)} batched rungs for {len(sh.rung_table_)} "
+           "rungs a search: a rung left the batched path")
+    expect(sh.best_params_ == ref.best_params_,
+           f"ASHA's winner {sh.best_params_} is not the synchronous "
+           f"grid's {ref.best_params_}")
+    expect(5 * sh.budget_spent_ <= ref.budget_spent_,
+           f"budget {sh.budget_spent_} > 1/5 of {ref.budget_spent_}")
+    late = [r for r in sh.rung_compile_stats_ if r["rung"] > 0]
+    expect(all(r["n_builds"] == 0 for r in late),
+           f"kernel builds after rung 0: {sh.rung_compile_stats_}")
+    gen, gen_s, _ = drive(lambda: search(batched_rungs=False).fit(X, y))
+    score_gap = float(np.abs(sh.cv_results_["test_score"]
+                             - gen.cv_results_["test_score"]).max())
+    coef_gap = float(np.abs(sh.best_estimator_.coef_
+                            - gen.best_estimator_.coef_).max()
+                     / np.abs(gen.best_estimator_.coef_).max())
+    expect(score_gap <= ASHA_SCORE_ATOL,
+           f"batched and generic rung scores differ by {score_gap}")
+    expect(sh.best_params_ == gen.best_params_
+           and coef_gap <= ASHA_COEF_RTOL,
+           f"batched winner {sh.best_params_} against generic "
+           f"{gen.best_params_}, coefficients {coef_gap} apart")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_asha_")
+    try:
+        ck = os.path.join(tmp, "asha.journal")
+        full = search(checkpoint=ck).fit(X, y)
+        records = list(CellJournal(ck).load().items())
+        ck2 = os.path.join(tmp, "cut.journal")
+        cut = CellJournal(ck2)
+        for key, rec in records[:ASHA_RESUME_AT]:
+            cut.append(key, rec)
+        resumed, resume_s, _ = drive(
+            lambda: search(checkpoint=ck2).fit(X, y))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    expect(resumed.n_resumed_rungs_ == ASHA_RESUME_AT,
+           f"resumed {resumed.n_resumed_rungs_} of {ASHA_RESUME_AT}")
+    expect(np.array_equal(full.cv_results_["test_score"],
+                          resumed.cv_results_["test_score"])
+           and np.array_equal(full.cv_results_["test_score"],
+                              sh.cv_results_["test_score"])
+           and full.best_params_ == resumed.best_params_
+           and pickle.dumps(full.best_estimator_._pf_state)
+           == pickle.dumps(resumed.best_estimator_._pf_state),
+           "the resumed search differs from the uninterrupted one")
+    out = {"n": ASHA_N, "d": ASHA_D, "candidates": len(sh.cv_results_[
+        "params"]), "rung_table": sh.rung_table_, "cold_s": cold_s,
+           "warm_s": warm_s, "sync_reference_s": ref_s,
+           "generic_s": gen_s, "resume_s": resume_s,
+           "budget_spent": sh.budget_spent_,
+           "budget_sync_reference": ref.budget_spent_,
+           "best_params": sh.best_params_, "best_score": sh.best_score_,
+           "sync_best_score": ref.best_score_,
+           "batched_vs_generic_score_gap": score_gap,
+           "batched_vs_generic_coef_rel": coef_gap,
+           "journal_records": len(records),
+           "resumed_rungs": resumed.n_resumed_rungs_,
+           "rung_builds": [r["n_builds"] for r in sh.rung_compile_stats_],
+           "host_reads_in_rungs": 0}
+    path_line("asha-drill", cold_s, len(sh.rung_table_), launches, **out)
+    return out
+
+
+def minibatch_hyperband(dev):
+    """``minibatch-hyperband``: ``HyperbandSearchCV(MiniBatchKMeans(
+    n_clusters=8))`` over init and its seed on the blobs, scoring the
+    estimator's own ``score``. Gates: K2 in every rung; the winner's ARI
+    against the true labels ≥ 0.99; a second search from the same seeds
+    gives the same ``cv_results_`` bit for bit."""
+    from dask_ml_tpu_torch.cluster import MiniBatchKMeans
+    from dask_ml_tpu_torch.model_selection import HyperbandSearchCV
+
+    X, y_true = drawn("blobs", lambda: blobs_data(SEED))
+
+    def run():
+        return HyperbandSearchCV(
+            MiniBatchKMeans(n_clusters=K), HB_MB_GRID,
+            max_epochs=HB_MB_EPOCHS, aggressiveness=HB_MB_ETA,
+            n_blocks=HB_MB_BLOCKS, random_state=SEED).fit(X)
+
+    hb, sec, launches = drive(run)
+    expect_launches("minibatch-hyperband", launches)
+    no_k2 = [(r["bracket"], r["rung"]) for r in hb.rung_compile_stats_
+             if not r["launches"].get("fused_argmin_min")]
+    expect(not no_k2, f"rungs without a K2 launch: {no_k2}")
+    win_ari = ari(y_true, hb.best_estimator_.predict(X))
+    expect(win_ari >= 0.99, f"the winner's ARI {win_ari} < 0.99")
+    again, sec2, _ = drive(run)
+    expect(all(np.array_equal(hb.cv_results_[k], again.cv_results_[k])
+               for k in ("test_score", "rung_", "n_epochs_",
+                         "partial_fit_calls"))
+           and [h["score"] for h in hb.history_]
+           == [h["score"] for h in again.history_],
+           "two Hyperband searches from the same seeds differ")
+    out = {"n": N, "d": D, "k": K, "blocks": HB_MB_BLOCKS,
+           "brackets": [(b["bracket"], b["n_models"], b["r0"])
+                        for b in hb.metadata_["brackets"]],
+           "rungs": len(hb.rung_table_), "s": sec, "again_s": sec2,
+           "best_params": hb.best_params_, "best_score": hb.best_score_,
+           "winner_ari": win_ari, "budget_spent": hb.budget_spent_,
+           "k2_per_rung": [r["launches"].get("fused_argmin_min", 0)
+                           for r in hb.rung_compile_stats_]}
+    path_line("minibatch-hyperband", sec, len(hb.rung_table_), launches,
+              **out)
+    return launches, out
+
+
+def minibatch_fit_predict(dev, errs):
+    """``minibatch``: ``MiniBatchKMeans(n_clusters=8).fit(X).predict(X)`` on
+    the blobs. Gates: ARI ≥ 0.99; labels equal to the plain version's from
+    the fitted centers; two fits bit for bit; K2 at a mini-batch's shape,
+    and one Sculley update through it, against their plain versions.
+    Prints steps a second and the device's busy share over the step
+    loop."""
+    import torch
+
+    from dask_ml_tpu_torch.cluster import MiniBatchKMeans
+    from dask_ml_tpu_torch.cluster import minibatch as mb_mod
+    from dask_ml_tpu_torch.models import kmeans as core
+    from dask_ml_tpu_torch.parallel.sharding import prepare_data
+
+    X, y_true = drawn("blobs", lambda: blobs_data(SEED))
+
+    def fit_predict():
+        mb = MiniBatchKMeans(n_clusters=K, random_state=SEED).fit(X)
+        return mb, mb.predict(X)
+
+    (mb, pred), sec, launches = drive(fit_predict)
+    expect_launches("minibatch", launches)
+    expect(launches["fused_argmin_min"] >= mb.n_iter_,
+           f"K2 launched {launches['fused_argmin_min']} times for "
+           f"{mb.n_iter_} steps")
+    score = ari(y_true, pred)
+    expect(score >= 0.99, f"MiniBatchKMeans ARI {score} < 0.99")
+    (mb2, pred2), sec2, _ = drive(fit_predict)
+    expect(np.array_equal(mb.cluster_centers_, mb2.cluster_centers_)
+           and np.array_equal(mb.counts_, mb2.counts_)
+           and np.array_equal(pred, pred2),
+           "two MiniBatchKMeans fits from one seed differ")
+    data = prepare_data(X, device=dev)
+    Xd, wd = data.X, data.weights
+    C = torch.as_tensor(mb.cluster_centers_, device=dev)
+    plain = core.predict_labels(Xd, C, kernel="torch").cpu().numpy()
+    expect(np.array_equal(pred, plain),
+           "kernel path and plain path label the data differently")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 3)
+    bs = 1024
+    idx = torch.randint(0, N, (mb.n_iter_, bs), generator=g, device=dev)
+    e = check_fused("K2 a mini-batch", Xd[idx[0]], C, exact=False)
+    errs["fused_argmin_min"] = max(errs.get("fused_argmin_min", 0.0),
+                                   e["fused_argmin_min"])
+    c0 = C.clone()
+    v0 = torch.zeros(K, device=dev)
+    got, want = (mb_mod._minibatch_update(Xd[idx[0]], wd[idx[0]], c0, v0,
+                                          kernel=kn)
+                 for kn in ("cuda", "torch"))
+    expect(torch.equal(got[2], want[2]) and torch.equal(got[1], want[1])
+           and torch.allclose(got[0], want[0], rtol=1e-6, atol=1e-6),
+           "a Sculley update through K2 differs from the plain update")
+    mb_mod._minibatch_steps(Xd, wd, c0, v0, idx[:100])  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mb_mod._minibatch_steps(Xd, wd, c0, v0, idx)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    prof = device_profile(lambda: mb_mod._minibatch_steps(
+        Xd, wd, c0, v0, idx[:MB_PROFILED_STEPS]))
+    step_ms = cuda_ms(lambda: mb_mod._minibatch_update(
+        Xd[idx[0]], wd[idx[0]], c0, v0), iters=200, warmup=10)
+    del data, Xd, wd, idx
+    out = {"n": N, "d": D, "k": K, "batch": bs, "steps": mb.n_iter_,
+           "fit_predict_s": sec, "again_s": sec2, "ari": score,
+           "inertia": mb.inertia_, "step_loop_s": loop_s,
+           "steps_per_s": mb.n_iter_ / loop_s,
+           "update_ms_cuda_events": step_ms,
+           "busy_share": None if prof is None else prof["busy_share"],
+           "device_profile": prof}
+    path_line("minibatch", sec, mb.n_iter_, launches, **out)
+    return launches, out
+
+
+def hyperband_config4(dev):
+    """``hyperband-config4``: ``HyperbandSearchCV(LogisticRegression())``
+    over BASELINE config 4's data through the GLM's batched partial_fit
+    rungs, max_epochs 27. Gates: every rung batched with no host read
+    inside it; no kernel of the repo launched (the path is cuBLAS and
+    PyTorch's own kernels). Prints brackets, rungs, seconds and the host
+    syncs of a whole search (sync debug mode "warn")."""
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.model_selection import HyperbandSearchCV
+
+    X, y, _, _ = drawn("inc", lambda: inc_data(SEED))
+
+    def run():
+        return HyperbandSearchCV(
+            LogisticRegression(), HB_GLM_GRID, max_epochs=HB_GLM_EPOCHS,
+            aggressiveness=HB_GLM_ETA, n_blocks=HB_GLM_BLOCKS,
+            random_state=SEED).fit(X, y)
+
+    calls: list = []
+    with rungs_without_host_reads(calls):
+        hb, sec, launches = drive(run)
+    expect(len(calls) == len(hb.rung_table_),
+           f"{len(calls)} batched rungs of {len(hb.rung_table_)}")
+    expect(not any(launches.values()),
+           f"config 4's Hyperband launched a kernel of the repo: {launches}")
+    t0 = time.perf_counter()
+    hb2, syncs = host_syncs(run)
+    sec2 = time.perf_counter() - t0
+    expect(np.array_equal(hb.cv_results_["test_score"],
+                          hb2.cv_results_["test_score"]),
+           "two config 4 Hyperband searches differ")
+    out = {"n": INC_N, "d": INC_D, "blocks": HB_GLM_BLOCKS,
+           "max_epochs": HB_GLM_EPOCHS,
+           "brackets": [(b["bracket"], b["n_models"], b["r0"])
+                        for b in hb.metadata_["brackets"]],
+           "rungs": len(hb.rung_table_),
+           "candidates": hb.metadata_["n_models"], "s": sec,
+           "again_under_warn_s": sec2, "host_syncs_per_search": syncs,
+           "host_reads_in_rungs": 0, "budget_spent": hb.budget_spent_,
+           "budget_synchronous": hb.budget_synchronous_,
+           "best_params": hb.best_params_, "best_score": hb.best_score_,
+           "kernels_of_the_repo": "none expected: cuBLAS and PyTorch"}
+    path_line("hyperband-config4", sec, len(hb.rung_table_), launches,
+              **out)
+    return out
+
+
+def k_means_fn(dev):
+    """``k-means-fn``: ``cluster.k_means(X, 8)`` on the blobs. Gates: the
+    ``KMeans`` fit's centers, labels and inertia bit for bit;
+    ``compute_inertia`` and ``evaluate_cost`` within rtol 1e-5 of
+    ``inertia_``; ``init_scalable`` launches K3 and K4. Prints the
+    k-means|| phases from ``measure_init_phases``."""
+    from dask_ml_tpu_torch import cluster
+    from dask_ml_tpu_torch.parallel.sharding import prepare_data
+
+    X, _ = drawn("blobs", lambda: blobs_data(SEED))
+    res, sec, launches = drive(lambda: cluster.k_means(
+        X, K, random_state=SEED, return_n_iter=True))
+    expect_launches("k-means-fn", launches)
+    km = cluster.KMeans(n_clusters=K, random_state=SEED).fit(X)
+    expect(np.array_equal(res[0], km.cluster_centers_)
+           and np.array_equal(res[1], km.labels_)
+           and res[2] == km.inertia_ and res[3] == km.n_iter_,
+           "k_means differs from KMeans(random_state=same).fit(X)")
+    ci = cluster.compute_inertia(X, km.labels_, km.cluster_centers_)
+    ec = cluster.evaluate_cost(X, km.cluster_centers_)
+    for name, v in (("compute_inertia", ci), ("evaluate_cost", ec)):
+        expect(abs(v - km.inertia_) <= 1e-5 * abs(km.inertia_),
+               f"{name} {v} against inertia_ {km.inertia_}")
+    c, init_s, l_init = drive(lambda: cluster.init_scalable(
+        X, K, random_state=SEED))
+    expect_launches("init-scalable", l_init)
+    expect(c.shape == (K, D) and np.isfinite(c).all(), "init_scalable")
+    data = prepare_data(X, device=dev)
+    phases = init_phase_seconds(data.X, data.weights)
+    del data
+    log("INIT_PHASES k-means-fn " + json.dumps(phases))
+    out = {"n": N, "d": D, "k": K, "s": sec, "inertia": float(res[2]), "compute_inertia": ci,
+           "evaluate_cost": ec, "init_scalable_s": init_s,
+           "init_scalable_launches": l_init, "init_phases": phases}
+    path_line("k-means-fn", sec, int(res[3]), launches, **out)
+    return {"k-means-fn": launches, "init-scalable": l_init}, out
+
+
+def gaussian_nb_cell(dev):
+    """``gaussian-nb``: ``GaussianNB().fit(X, y).predict(X)`` on config 4's
+    data. Gates: ``theta_`` and ``var_`` within NB_RTOL of a float64 fit
+    on the host (plus NB_RTOL of each feature's standard deviation: f32
+    moments over 2e6 rows); labels equal to the float64 fit's wherever its
+    two classes' log-likelihoods differ by more than NB_MARGIN."""
+    from dask_ml_tpu_torch.naive_bayes import GaussianNB
+
+    X, y, _, _ = drawn("inc", lambda: inc_data(SEED))
+
+    def fit_predict():
+        nb = GaussianNB().fit(X, y)
+        return nb, nb.predict(X)
+
+    (nb, pred), sec, launches = drive(fit_predict)
+    classes = np.unique(y)
+    theta = np.stack([X[y == c].mean(0, dtype=np.float64) for c in classes])
+    var = np.stack([X[y == c].var(0, dtype=np.float64) for c in classes])
+    eps = 1e-9 * X.var(0, dtype=np.float64).max()
+    var = var + eps
+    prior = np.array([(y == c).mean() for c in classes])
+    std = np.sqrt(var)
+    th_err = float((np.abs(nb.theta_ - theta) / (np.abs(theta) + std)).max())
+    var_err = float((np.abs(nb.var_ - var) / var).max())
+    expect(th_err <= NB_RTOL and var_err <= NB_RTOL,
+           f"GaussianNB moments off the float64 fit: theta {th_err}, "
+           f"var {var_err}")
+    jll = np.empty((len(X), len(classes)))
+    for j in range(len(classes)):
+        for lo in range(0, len(X), 250_000):
+            xb = X[lo:lo + 250_000].astype(np.float64)
+            jll[lo:lo + 250_000, j] = (
+                np.log(prior[j]) - 0.5 * np.sum(np.log(2 * np.pi * var[j]))
+                - 0.5 * np.sum((xb - theta[j]) ** 2 / var[j], axis=1))
+    want = classes[np.argmax(jll, axis=1)]
+    top2 = np.sort(jll, axis=1)
+    clear = (top2[:, -1] - top2[:, -2]) > NB_MARGIN
+    differ = int((pred[clear] != want[clear]).sum())
+    expect(differ == 0, f"{differ} clear-margin labels differ from the "
+           "float64 fit")
+    out = {"n": INC_N, "d": INC_D, "fit_predict_s": sec,
+           "theta_err": th_err, "var_err": var_err,
+           "labels_within_margin": int((~clear).sum()),
+           "labels_differ_within_margin": int(
+               (pred[~clear] != want[~clear]).sum()),
+           "accuracy": float((pred == y).mean())}
+    path_line("gaussian-nb", sec, None, launches, **out)
+    return out
+
+
+def generators_cell(dev):
+    """``generators``: ``make_blobs`` and ``make_classification`` at
+    1,000,000 × 50 on the card, the same seed twice to the same bits."""
+    import torch
+
+    from dask_ml_tpu_torch import datasets
+
+    out = {}
+    for name, make in (
+            ("make_blobs", lambda: datasets.make_blobs(
+                GEN_N, GEN_D, centers=K, random_state=SEED)),
+            ("make_classification", lambda: datasets.make_classification(
+                GEN_N, GEN_D, n_informative=GEN_D, random_state=SEED))):
+        a, sec, _ = drive(make)
+        b, sec2, _ = drive(make)
+        expect(a[0].is_cuda and tuple(a[0].shape) == (GEN_N, GEN_D),
+               f"{name}: not a ({GEN_N}, {GEN_D}) tensor on the card")
+        expect(all(torch.equal(ta, tb) for ta, tb in zip(a, b)),
+               f"{name}: one seed gave two results")
+        out[name] = {"s": sec, "again_s": sec2}
+        del a, b
+    path_line("generators", sum(v["s"] for v in out.values()), None,
+              {}, **out)
+    return out
+
+
+def asha_cells(dev, errs):
+    """The ASHA phase (step 13). Returns the launches of its paths that
+    run the repo's kernels and a summary; the mini-batch shape's K2 check
+    updates ``errs``."""
+    import torch
+
+    t0 = time.perf_counter()
+    launches, out = {}, {}
+    out["drill"] = asha_drill(dev)
+    torch.cuda.empty_cache()
+    launches["minibatch-hyperband"], out["minibatch_hyperband"] = \
+        minibatch_hyperband(dev)
+    torch.cuda.empty_cache()
+    launches["minibatch"], out["minibatch"] = minibatch_fit_predict(dev,
+                                                                   errs)
+    torch.cuda.empty_cache()
+    out["hyperband_config4"] = hyperband_config4(dev)
+    torch.cuda.empty_cache()
+    fn_launches, out["k_means_fn"] = k_means_fn(dev)
+    launches.update(fn_launches)
+    torch.cuda.empty_cache()
+    out["gaussian_nb"] = gaussian_nb_cell(dev)
+    out["generators"] = generators_cell(dev)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log("ASHA " + json.dumps(out))
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3944,6 +4436,15 @@ def main() -> int:
         search_errs = {}
         search_cells(dev, search_errs)
         log("SEARCH max_abs_err " + json.dumps(search_errs))
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+        return 0
+
+    if "--asha-only" in sys.argv[1:]:
+        asha_errs = {}
+        asha_cells(dev, asha_errs)
+        log("ASHA max_abs_err " + json.dumps(asha_errs))
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": count}}), flush=True)
@@ -4131,6 +4632,18 @@ def main() -> int:
         if r["name"] in search_errs:
             r["max_abs_err_search"] = search_errs[r["name"]]
             r["max_abs_err"] = max(r["max_abs_err"], search_errs[r["name"]])
+    torch.cuda.empty_cache()
+
+    asha_errs = {}
+    asha_launches, _ = asha_cells(dev, asha_errs)
+    for r in rows:
+        if r["name"] in ("lloyd_iter", "fused_argmin_min",
+                         "fused_rowwise_min", "fused_argmin_weight"):
+            r["launches_asha"] = {
+                path: int(l[r["name"]]) for path, l in asha_launches.items()}
+        if r["name"] in asha_errs:
+            r["max_abs_err_asha"] = asha_errs[r["name"]]
+            r["max_abs_err"] = max(r["max_abs_err"], asha_errs[r["name"]])
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -68,6 +68,11 @@ SIGNATURES = {
 _libs: dict = {}
 _lock = threading.Lock()
 
+#: nvcc compilations this process started: a search reads it around each
+#: rung to show that no kernel is built after a bracket's first rung
+builds = {"nvcc": 0}
+_builds_lock = threading.Lock()
+
 
 def _nvcc() -> str:
     found = shutil.which("nvcc")
@@ -99,6 +104,8 @@ def build_all(names=None, verbose: bool = False) -> float:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
         procs = []
+        with _builds_lock:
+            builds["nvcc"] += len(todo)
         for name, out in todo:
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS]

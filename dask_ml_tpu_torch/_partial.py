@@ -79,6 +79,27 @@ def _copy_partial_doc(cls):
     return cls
 
 
+_LAZY: dict = {}
+
+
+def lazy_partial(module: str, name: str, base: str, **attrs):
+    """The ``Partial*`` class ``name`` of ``module``: scikit-learn's class
+    ``base`` ("package.module.Class") subclassed with
+    :class:`_BigPartialFitMixin` and the class attributes ``attrs``. Made
+    on first access and cached, so the module that exports it (through
+    its ``__getattr__``) imports where scikit-learn is not installed."""
+    key = (module, name)
+    if key not in _LAZY:
+        import importlib
+
+        base_module, _, base_name = base.rpartition(".")
+        base_cls = getattr(importlib.import_module(base_module), base_name)
+        cls = type(name, (_BigPartialFitMixin, base_cls),
+                   {"__module__": module, "__qualname__": name, **attrs})
+        _LAZY[key] = _copy_partial_doc(cls)
+    return _LAZY[key]
+
+
 def predict(model, x, block_size: int = DEFAULT_BLOCK_SIZE):
     """``model.predict`` over row blocks of ``x``, concatenated (the host
     loop; :class:`~dask_ml_tpu_torch.wrappers.ParallelPostFit` is the

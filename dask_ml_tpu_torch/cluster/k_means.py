@@ -1,4 +1,6 @@
-"""KMeans estimator of the PyTorch port (counterpart of
+"""KMeans estimator of the PyTorch port and the module functions
+``k_means``, ``compute_inertia``, ``evaluate_cost``, ``k_init``,
+``init_scalable``, ``init_random`` and ``init_pp`` (counterpart of
 ``dask_ml_tpu/cluster/k_means.py``).
 
 The sklearn-style shell keeps the JAX estimator's constructor signature
@@ -428,3 +430,94 @@ def _polish_centers(X, w, labels, fallback_centers):
 def _assigned_inertia(X, w, labels, centers):
     """Weighted squared distance of each row to its ASSIGNED center."""
     return (w * ((X - centers[labels.long()]) ** 2).sum(dim=1)).sum()
+
+
+# ---------------------------------------------------------------------------
+# module functions (thin facades over models/kmeans.py)
+# ---------------------------------------------------------------------------
+
+
+def k_means(X, n_clusters, init="k-means||", precompute_distances="auto",
+            n_init=1, max_iter=300, verbose=False, tol=1e-4,
+            random_state=None, copy_x=True, n_jobs=-1, algorithm="full",
+            return_n_iter=False, oversampling_factor=2, init_max_iter=None):
+    """Functional k-means: a :class:`KMeans` fit. ``n_init`` is 1 in
+    effect (k-means|| makes restarts unnecessary); the other scikit-learn
+    settings are accepted for signature parity. Returns
+    ``(centroids, labels, inertia[, n_iter])``."""
+    est = KMeans(
+        n_clusters=n_clusters, init=init,
+        oversampling_factor=oversampling_factor, max_iter=max_iter, tol=tol,
+        precompute_distances=precompute_distances, random_state=random_state,
+        copy_x=copy_x, n_jobs=n_jobs, algorithm=algorithm,
+        init_max_iter=init_max_iter,
+    ).fit(X)
+    if return_n_iter:
+        return est.cluster_centers_, est.labels_, est.inertia_, est.n_iter_
+    return est.cluster_centers_, est.labels_, est.inertia_
+
+
+def _staged_for_init(X, random_state=None):
+    data = prepare_data(check_array(X))
+    return data, check_random_state(random_state, device=data.X.device)
+
+
+def compute_inertia(X, labels, centers):
+    """Sum of squared distances of the rows to their ASSIGNED centers.
+    Deliberate deviation, as in the JAX package: the reference's code sums
+    raw differences (no square, so it can go negative); this is the
+    squared quantity, which scikit-learn and ``inertia_`` report."""
+    data, _ = _staged_for_init(X)
+    dev = data.X.device
+    labels = torch.as_tensor(np.asarray(labels), device=dev)
+    centers = torch.as_tensor(np.asarray(centers, np.float32), device=dev)
+    return float(_assigned_inertia(data.X, data.weights, labels, centers))
+
+
+def evaluate_cost(X, centers):
+    """Σ of each row's squared distance to its nearest center (the
+    k-means|| sampling cost), through the fused argmin (K2 on the
+    card)."""
+    data, _ = _staged_for_init(X)
+    centers = torch.as_tensor(np.asarray(centers, np.float32),
+                              device=data.X.device)
+    return float(core.compute_inertia(data.X, data.weights, centers))
+
+
+def k_init(X, n_clusters, init="k-means||", random_state=None, max_iter=None,
+           oversampling_factor=2):
+    """Initial centers by ``init`` (``models.kmeans.k_init``), as a host
+    ``(n_clusters, n_features)`` array."""
+    data, gen = _staged_for_init(X, random_state)
+    return core.k_init(
+        data.X, data.weights, data.n, int(n_clusters), gen, init=init,
+        oversampling_factor=oversampling_factor,
+        max_iter=max_iter).cpu().numpy()
+
+
+def init_scalable(X, n_clusters, random_state=None, max_iter=None,
+                  oversampling_factor=2):
+    """k-means|| init: the rounds on K3, the candidate weighting on K4,
+    then k-means++ and a small Lloyd loop over the weighted candidates,
+    whose assignment is K2 and whose update a plain one-hot product (on
+    the card; K1 does not run here)."""
+    data, gen = _staged_for_init(X, random_state)
+    return core.init_scalable(
+        data.X, data.weights, data.n, int(n_clusters), gen,
+        oversampling_factor=oversampling_factor,
+        max_iter=max_iter).cpu().numpy()
+
+
+def init_random(X, n_clusters, random_state=None):
+    """``n_clusters`` distinct random rows."""
+    data, gen = _staged_for_init(X, random_state)
+    return core.init_random(data.X, data.weights, data.n, int(n_clusters),
+                            gen).cpu().numpy()
+
+
+def init_pp(X, n_clusters, random_state=None):
+    """k-means++ on the host with scikit-learn's ``kmeans_plusplus`` (for
+    modest n, as in the reference); raises ``ImportError`` where
+    scikit-learn is not installed."""
+    data, gen = _staged_for_init(X, random_state)
+    return core.init_pp(data.X, data.n, int(n_clusters), gen).cpu().numpy()

@@ -1,8 +1,17 @@
-"""Synthetic datasets of the PyTorch port (counterpart of the sparse part of
-``dask_ml_tpu/datasets.py``), in numpy.
+"""Synthetic datasets of the PyTorch port (counterpart of
+``dask_ml_tpu/datasets.py``).
 
-:func:`make_sparse_classification` is the JAX package's generator, copied:
-each row draws its content from a counter-seeded chunk
+The dense generators (:func:`make_blobs`, :func:`make_regression`,
+:func:`make_classification`, :func:`make_counts`) draw on the configured
+device (``config.device``, "cuda" by default) from one
+``torch.Generator`` seeded by ``random_state`` and return tensors there:
+the same seed gives the same bits, but not the JAX package's numbers
+(Philox is not threefry), so they are held to the JAX tests' properties.
+``mesh=`` (a multi-device layout) raises: it comes with ROADMAP Queue A
+item 10.
+
+:func:`make_sparse_classification` is the JAX package's generator, copied,
+in numpy: each row draws its content from a counter-seeded chunk
 (``np.random.default_rng([seed, 1, chunk_id])``), so the port rebuilds
 bit for bit the rows the JAX package makes from the same seed, whatever
 the blocking.
@@ -10,11 +19,164 @@ the blocking.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
+import torch
 
+from dask_ml_tpu_torch.config import resolve_device
 from dask_ml_tpu_torch.ops.sparse import SparseRows
+from dask_ml_tpu_torch.utils.validation import check_random_state
+
+
+def _generator(random_state, mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= lays the rows out over several devices, which comes "
+            "with the multi-device port, ROADMAP Queue A item 10, which "
+            "the port does not have yet")
+    dev = resolve_device()
+    return check_random_state(random_state, device=dev), dev
+
+
+def _informative_beta(gen, dev, n_features: int, n_informative: int,
+                      scale: float):
+    """A coefficient vector: ``(U[0, 1) − 1) · scale`` on ``n_informative``
+    random features, 0 elsewhere."""
+    informative = torch.randperm(n_features, generator=gen,
+                                 device=dev)[:n_informative]
+    full = (torch.rand(n_features, generator=gen, device=dev) - 1.0) * scale
+    beta = torch.zeros(n_features, dtype=torch.float32, device=dev)
+    beta[informative] = full[informative]
+    return beta
+
+
+def make_blobs(
+    n_samples: int = 100,
+    n_features: int = 2,
+    centers: Union[int, np.ndarray, None] = None,
+    cluster_std: float = 1.0,
+    center_box: tuple = (-10.0, 10.0),
+    shuffle: bool = True,
+    random_state=None,
+    mesh=None,
+    return_centers: bool = False,
+):
+    """Isotropic Gaussian blobs for clustering. Each row's cluster is
+    drawn independently, so the rows need no shuffle (``shuffle`` is
+    accepted for parity). Returns ``(X, y[, centers])``: float32 rows and
+    int32 labels on the device."""
+    gen, dev = _generator(random_state, mesh)
+    if centers is None:
+        centers = 3
+    if isinstance(centers, (int, np.integer)):
+        lo, hi = center_box
+        centers_t = (torch.rand((int(centers), n_features), generator=gen,
+                                device=dev) * (hi - lo) + lo)
+    else:
+        centers_t = torch.as_tensor(np.asarray(centers, np.float32),
+                                    device=dev)
+    labels = torch.randint(0, centers_t.shape[0], (n_samples,),
+                           generator=gen, device=dev)
+    noise = torch.randn((n_samples, n_features), generator=gen, device=dev)
+    X = centers_t[labels] + cluster_std * noise
+    y = labels.to(torch.int32)
+    if return_centers:
+        return X, y, centers_t
+    return X, y
+
+
+def make_regression(
+    n_samples: int = 100,
+    n_features: int = 100,
+    n_informative: int = 10,
+    n_targets: int = 1,
+    bias: float = 0.0,
+    effective_rank: Optional[int] = None,
+    tail_strength: float = 0.5,
+    noise: float = 0.0,
+    shuffle: bool = True,
+    coef: bool = False,
+    random_state=None,
+    mesh=None,
+):
+    """A random linear regression problem: ``y = X @ coef + bias`` (+
+    Gaussian noise), ``coef`` 100·U[0, 1) on ``n_informative`` random
+    features. With ``effective_rank`` the design is scikit-learn's
+    ``make_low_rank_matrix``: ``X = (Q · s) @ Vᵀ``, Q an orthonormal
+    (n, r) basis from the port's :func:`~dask_ml_tpu_torch.ops.linalg.
+    tsqr` of a Gaussian draw, V another from a QR of a (d, r) one, and s
+    the bell-curve and tail singular profile. Returns ``(X, y[, coef])``
+    on the device."""
+    gen, dev = _generator(random_state, mesh)
+    tshape = (n_features,) if n_targets == 1 else (n_features, n_targets)
+    informative = torch.randperm(n_features, generator=gen,
+                                 device=dev)[:n_informative]
+    cvals = 100.0 * torch.rand((n_informative,) + tshape[1:],
+                               generator=gen, device=dev)
+    ground_truth = torch.zeros(tshape, dtype=torch.float32, device=dev)
+    ground_truth[informative] = cvals
+    if effective_rank is None:
+        X = torch.randn((n_samples, n_features), generator=gen, device=dev)
+    else:
+        from dask_ml_tpu_torch.ops.linalg import tsqr
+
+        r = min(n_samples, n_features)
+        Q, _ = tsqr(torch.randn((n_samples, r), generator=gen, device=dev))
+        V, _ = torch.linalg.qr(torch.randn((n_features, r), generator=gen,
+                                           device=dev))
+        sind = torch.arange(r, dtype=torch.float32,
+                            device=dev) / effective_rank
+        s = ((1.0 - tail_strength) * torch.exp(-(sind ** 2))
+             + tail_strength * torch.exp(-0.1 * sind))
+        X = (Q * s) @ V.T
+    y = X @ ground_truth + bias
+    if noise > 0.0:
+        y = y + noise * torch.randn(y.shape, generator=gen, device=dev)
+    if coef:
+        return X, y, ground_truth
+    return X, y
+
+
+def make_classification(
+    n_samples: int = 100,
+    n_features: int = 20,
+    n_informative: int = 2,
+    scale: float = 1.0,
+    random_state=None,
+    mesh=None,
+    return_coef: bool = False,
+):
+    """Binary classification through a logistic link: Gaussian rows,
+    ``y ~ Bernoulli(sigmoid(X @ beta))`` with ``beta`` on
+    ``n_informative`` random features. Returns ``(X, y[, beta])`` on the
+    device, ``y`` int32."""
+    gen, dev = _generator(random_state, mesh)
+    beta = _informative_beta(gen, dev, n_features, n_informative, scale)
+    X = torch.randn((n_samples, n_features), generator=gen, device=dev)
+    u = torch.rand(n_samples, generator=gen, device=dev)
+    y = (u < torch.sigmoid(X @ beta)).to(torch.int32)
+    if return_coef:
+        return X, y, beta
+    return X, y
+
+
+def make_counts(
+    n_samples: int = 1000,
+    n_features: int = 100,
+    n_informative: int = 2,
+    scale: float = 1.0,
+    random_state=None,
+    mesh=None,
+):
+    """Poisson counts for GLMs: ``y ~ Poisson(exp(X @ beta))`` with
+    ``beta`` on ``n_informative`` random features. Returns ``(X, y)`` on
+    the device, ``y`` int32."""
+    gen, dev = _generator(random_state, mesh)
+    beta = _informative_beta(gen, dev, n_features, n_informative, scale)
+    X = torch.randn((n_samples, n_features), generator=gen, device=dev)
+    y = torch.poisson(torch.exp(X @ beta), generator=gen).to(torch.int32)
+    return X, y
 
 
 class SparseClassificationBlocks:

@@ -1,9 +1,12 @@
 """Classification metrics (counterpart of
-``dask_ml_tpu/metrics/classification.py``), in numpy."""
+``dask_ml_tpu/metrics/classification.py``), in numpy. All-zero
+``sample_weight`` gives NaN, as the JAX expressions do under IEEE rules."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from dask_ml_tpu_torch.metrics.regression import _average, _divide
 
 
 def accuracy_score(y_true, y_pred, normalize: bool = True,
@@ -25,8 +28,8 @@ def accuracy_score(y_true, y_pred, normalize: bool = True,
         match = match.all(axis=1)
     w = (np.ones(match.shape[0]) if sample_weight is None
          else np.asarray(sample_weight, dtype=np.float64))
-    total = float(np.dot(match.astype(np.float64), w))
-    return total / float(w.sum()) if normalize else total
+    total = np.dot(match.astype(np.float64), w)
+    return float(_divide(total, w.sum()) if normalize else total)
 
 
 def log_loss(y_true, y_pred, sample_weight=None, labels=None) -> float:
@@ -65,4 +68,4 @@ def log_loss(y_true, y_pred, sample_weight=None, labels=None) -> float:
         ll = -np.log(p[np.arange(len(codes)), codes])
     w = (np.ones(len(codes), np.float32) if sample_weight is None
          else np.asarray(sample_weight, dtype=np.float32))
-    return float(np.average(ll, weights=w))
+    return float(_average(ll, w))

@@ -1,5 +1,9 @@
 """Regression metrics (counterpart of ``dask_ml_tpu/metrics/regression.py``),
-in numpy, ``multioutput="uniform_average"`` only as there."""
+in numpy, ``multioutput="uniform_average"`` only as there.
+
+A zero denominator follows IEEE rules, as the JAX expressions do: 0/0 is
+NaN and x/0 is ±inf (all-zero ``sample_weight``; ``r2_score`` of a
+constant ``y_true``: NaN where ``y_pred`` equals it, −inf otherwise)."""
 
 from __future__ import annotations
 
@@ -24,16 +28,29 @@ def _rowwise(err):
     return err.mean(axis=1) if err.ndim > 1 else err
 
 
+def _divide(num, den):
+    """``num / den`` as numpy scalars, NaN for 0/0 and ±inf for x/0."""
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.divide(num, den)
+
+
+def _average(a, w):
+    """``np.average(a, weights=w)`` with the same bits, but NaN where the
+    weights sum to 0 (``np.average`` raises there)."""
+    dt = np.result_type(a.dtype, w.dtype)
+    return _divide(np.multiply(a, w, dtype=dt).sum(), w.sum(dtype=dt))
+
+
 def mean_squared_error(y_true, y_pred, sample_weight=None,
                        multioutput="uniform_average") -> float:
     y_true, y_pred, w = _prep(y_true, y_pred, sample_weight, multioutput)
-    return float(np.average(_rowwise((y_true - y_pred) ** 2), weights=w))
+    return float(_average(_rowwise((y_true - y_pred) ** 2), w))
 
 
 def mean_absolute_error(y_true, y_pred, sample_weight=None,
                         multioutput="uniform_average") -> float:
     y_true, y_pred, w = _prep(y_true, y_pred, sample_weight, multioutput)
-    return float(np.average(_rowwise(np.abs(y_true - y_pred)), weights=w))
+    return float(_average(_rowwise(np.abs(y_true - y_pred)), w))
 
 
 def r2_score(y_true, y_pred, sample_weight=None,
@@ -41,7 +58,7 @@ def r2_score(y_true, y_pred, sample_weight=None,
     y_true, y_pred, w = _prep(y_true, y_pred, sample_weight, multioutput)
     if y_true.ndim > 1:
         raise ValueError("r2_score supports 1-D targets only")
-    num = float(np.sum(w * (y_true - y_pred) ** 2))
-    mean = np.average(y_true, weights=w)
-    den = float(np.sum(w * (y_true - mean) ** 2))
-    return 1.0 - num / den
+    num = np.sum(w * (y_true - y_pred) ** 2)
+    mean = _average(y_true, w)
+    den = np.sum(w * (y_true - mean) ** 2)
+    return float(1.0 - _divide(num, den))

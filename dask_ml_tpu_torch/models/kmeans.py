@@ -865,7 +865,13 @@ def init_pp(X, n_valid: int, n_clusters: int, gen):
     """k-means++ on the host with scikit-learn's ``kmeans_plusplus``, like
     the reference (only sensible for modest n; needs scikit-learn, which
     the rest of the port does not)."""
-    from sklearn.cluster import kmeans_plusplus
+    try:
+        from sklearn.cluster import kmeans_plusplus
+    except ImportError as e:
+        raise ImportError(
+            "init='k-means++' (init_pp) runs scikit-learn's "
+            "kmeans_plusplus on the host and needs scikit-learn, which is "
+            "not installed; use init='k-means||' or 'random'") from e
 
     Xh = X[:n_valid].cpu().numpy()
     seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen,
@@ -897,3 +903,95 @@ def k_init(X, w, n_valid: int, n_clusters: int, gen,
     raise ValueError(
         f"init must be 'k-means||', 'k-means++', 'random', or an array; "
         f"got {init!r}")
+
+
+def _init_phase_traffic(n: int, d: int, itemsize: int, *, n_rounds: int,
+                        max_cand: int, n_clusters: int, n_trials: int,
+                        finish_iters: int) -> dict:
+    """Logical bytes each k-means|| phase must move (the JAX package's
+    dominant terms, with the fused kernels): ``seed`` one pass over X and
+    the (n,) min-distance write; ``rounds`` a pass over X and three (n,)
+    vectors a round; ``weights`` a pass over X, the (n,) weights and the
+    nearest-candidate write; ``finish`` the candidate-buffer passes of the
+    k-means++ trials and the small Lloyd loop."""
+    row = n * d * itemsize
+    return dict(
+        seed=row + 4 * n,
+        rounds=max(int(n_rounds), 0) * (row + 3 * 4 * n),
+        weights=row + 2 * 4 * n,
+        finish=(n_clusters * n_trials + 2 * finish_iters) * max_cand * d * 4)
+
+
+def measure_init_phases(X, w, n_clusters: int, gen,
+                        oversampling_factor: float = 2.0,
+                        max_iter: Optional[int] = None) -> dict:
+    """Wall seconds of each k-means|| phase (seeding, the sampling rounds,
+    the candidate weighting, the finishing k-means++ and Lloyd loop), run
+    one at a time with a device sync after each, where the fit runs them
+    back to back (the JAX package's ``measure_init_phases``). Each phase
+    runs once to warm up and again, from the same generator state, to be
+    timed. Returns::
+
+        {"seconds": {phase: s}, "bytes_moved": {phase: bytes},
+         "effective_gbps": {phase: bytes / s / 1e9},
+         "fused": {"rounds": bool, "weights": bool},
+         "round_skip_ratio": share of (row, round) distance work the
+                             rounds' norm bound skipped,
+         "n_rounds": int, "n_cand": int}
+
+    ``fused`` says whether the rounds and the weighting ran the kernels
+    (K3, K4): on a CUDA tensor. A measurement harness, not a production
+    path."""
+    import time
+
+    n, d = int(X.shape[0]), int(X.shape[1])
+    cfg = _init_scalable_config(n, n_clusters, oversampling_factor,
+                                max_iter)
+    tol = scaled_tolerance(X, w, 1e-4)
+
+    def sync():
+        if X.is_cuda:
+            torch.cuda.synchronize(X.device)
+
+    phases = {}
+
+    def timed(name, fn):
+        state = gen.get_state()
+        fn()  # warm: a first launch may build and load the kernels
+        gen.set_state(state)
+        sync()
+        t0 = time.perf_counter()
+        with telemetry.span(f"kmeans-init/{name}"):
+            out = fn()
+            sync()
+        phases[name] = time.perf_counter() - t0
+        return out
+
+    cand, mind0, _, n_rounds = timed("seed", lambda: _init_seed_phase(
+        X, w, gen, max_rounds=cfg["max_rounds"], max_cand=cfg["max_cand"]))
+    cand, n_cand, _, skip, total = timed(
+        "rounds", lambda: _init_rounds_phase(
+            X, w, cfg["l"], cand.clone(), mind0, n_rounds, gen,
+            max_cand=cfg["max_cand"], cap=cfg["cap"]))
+    n_cand = int(n_cand)
+    cand, n_cand, cw = timed("weights", lambda: _init_weights_phase(
+        X, w, cand.clone(), n_cand, gen, n_clusters=n_clusters,
+        max_cand=cfg["max_cand"]))
+    timed("finish", lambda: _init_finish_phase(
+        cand, cw, tol, gen, n_clusters=n_clusters,
+        n_trials=cfg["n_trials"], finish_iters=100))
+    fused = X.is_cuda
+    traffic = _init_phase_traffic(
+        n, d, X.element_size(), n_rounds=n_rounds,
+        max_cand=cfg["max_cand"], n_clusters=n_clusters,
+        n_trials=cfg["n_trials"], finish_iters=100)
+    return {
+        "seconds": phases,
+        "bytes_moved": traffic,
+        "effective_gbps": {p: traffic[p] / max(phases[p], 1e-9) / 1e9
+                           for p in phases},
+        "fused": {"rounds": fused, "weights": fused},
+        "round_skip_ratio": float(skip) / max(float(total), 1.0),
+        "n_rounds": int(n_rounds),
+        "n_cand": n_cand,
+    }

@@ -1152,3 +1152,132 @@ def test_kernel_launches_from_many_threads(cuda):
         assert torch.equal(sums, want[j][0])
         assert torch.equal(counts, want[j][1])
         assert torch.equal(inertia, want[j][2])
+
+
+def _sync_free(fn):
+    """``fn()`` under the sync debug mode "error": a host read raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_minibatch_kmeans_on_card(cuda):
+    """K2 assigns every step; two fits from one seed give the same bits;
+    the steps read nothing back; one update through the kernel equals the
+    plain update."""
+    from dask_ml_tpu_torch.cluster import MiniBatchKMeans
+    from dask_ml_tpu_torch.cluster import minibatch as mb_mod
+
+    rng = np.random.default_rng(21)
+    centers = rng.uniform(-10, 10, (5, 12)).astype(np.float32)
+    X = centers[rng.integers(0, 5, 30_000)] + rng.standard_normal(
+        (30_000, 12), dtype=np.float32)
+    _kernels.reset_launches()
+    a = MiniBatchKMeans(n_clusters=5, batch_size=512, max_iter=3,
+                        random_state=4).fit(X)
+    assert _kernels.launches["fused_argmin_min"] >= a.n_iter_
+    b = MiniBatchKMeans(n_clusters=5, batch_size=512, max_iter=3,
+                        random_state=4).fit(X)
+    np.testing.assert_array_equal(a.cluster_centers_, b.cluster_centers_)
+    np.testing.assert_array_equal(a.labels_, b.labels_)
+    Xd = torch.as_tensor(X, device=cuda)
+    w = torch.ones(len(X), device=cuda)
+    c0 = torch.as_tensor(a.cluster_centers_, device=cuda)
+    idx = torch.randint(0, len(X), (4, 512), device=cuda)
+    _sync_free(lambda: mb_mod._minibatch_steps(
+        Xd, w, c0, torch.zeros(5, device=cuda), idx))
+    got = mb_mod._minibatch_update(Xd[:512], w[:512], c0,
+                                   torch.zeros(5, device=cuda))
+    want = mb_mod._minibatch_update(Xd[:512], w[:512], c0,
+                                    torch.zeros(5, device=cuda),
+                                    kernel="torch")
+    assert torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-6)
+
+
+def test_batched_rung_reads_nothing_back(cuda):
+    """A batched successive-halving rung through ``batched_rung`` under
+    the sync debug mode "error", and a search whose records unpickle on
+    the host."""
+    import pickle
+
+    from dask_ml_tpu_torch.model_selection import SuccessiveHalvingSearchCV
+    from dask_ml_tpu_torch.model_selection import _incremental as inc
+
+    rng = np.random.default_rng(22)
+    X = rng.standard_normal((4_000, 6), dtype=np.float32)
+    y = (X @ rng.standard_normal(6) > 0).astype(np.int64)
+    orig = inc.batched_rung
+    calls = []
+
+    def guarded(*a, **k):
+        calls.append(1)
+        return _sync_free(lambda: orig(*a, **k))
+
+    inc.batched_rung = guarded
+    try:
+        sh = SuccessiveHalvingSearchCV(
+            LogisticRegression(solver="gradient_descent"),
+            {"C": [0.1, 1.0, 10.0, 100.0]}, n_initial_parameters="grid",
+            aggressiveness=2, max_epochs=4, n_blocks=4,
+            random_state=0).fit(X, y)
+    finally:
+        inc.batched_rung = orig
+    assert len(calls) == len(sh.rung_table_) == 3
+    assert all(r["n_builds"] == 0 for r in sh.rung_compile_stats_[1:])
+    assert isinstance(pickle.loads(pickle.dumps(sh.best_estimator_))._coef,
+                      np.ndarray)
+
+
+def test_gaussian_nb_on_card_matches_cpu(cuda):
+    from dask_ml_tpu_torch.naive_bayes import GaussianNB
+
+    rng = np.random.default_rng(23)
+    X = rng.standard_normal((20_000, 7), dtype=np.float32) + 100.0
+    y = rng.integers(0, 3, 20_000)
+    a = GaussianNB().fit(X, y)
+    with config_context(device="cpu"):
+        b = GaussianNB().fit(X, y)
+        pb = b.predict_proba(X)
+    np.testing.assert_allclose(a.theta_, b.theta_, rtol=1e-6)
+    np.testing.assert_allclose(a.var_, b.var_, rtol=1e-4)
+    np.testing.assert_allclose(a.predict_proba(X), pb, rtol=1e-4,
+                               atol=1e-6)
+
+
+def test_generators_on_card_repeat_their_bits(cuda):
+    from dask_ml_tpu_torch import datasets
+
+    for make in (datasets.make_blobs, datasets.make_classification,
+                 datasets.make_regression, datasets.make_counts):
+        a, b = make(random_state=5), make(random_state=5)
+        assert a[0].is_cuda
+        for ta, tb in zip(a, b):
+            assert torch.equal(ta, tb)
+    X, _ = datasets.make_regression(n_samples=5_000, n_features=40,
+                                    effective_rank=5, random_state=1)
+    assert X.is_cuda and torch.isfinite(X).all()
+
+
+def test_k_means_functions_launch_their_kernels(cuda):
+    from dask_ml_tpu_torch import cluster
+
+    rng = np.random.default_rng(24)
+    centers = rng.uniform(-10, 10, (4, 9)).astype(np.float32)
+    X = centers[rng.integers(0, 4, 20_000)] + rng.standard_normal(
+        (20_000, 9), dtype=np.float32)
+    _kernels.reset_launches()
+    c = cluster.init_scalable(X, 4, random_state=0)
+    assert _kernels.launches["fused_rowwise_min"] > 0
+    assert _kernels.launches["fused_argmin_weight"] > 0
+    _kernels.reset_launches()
+    centers_, labels, inertia = cluster.k_means(X, 4, random_state=0)
+    assert _kernels.launches["lloyd_iter"] > 0
+    np.testing.assert_allclose(cluster.evaluate_cost(X, centers_), inertia,
+                               rtol=1e-5)
+    np.testing.assert_allclose(
+        cluster.compute_inertia(X, labels, centers_), inertia, rtol=1e-5)
+    assert c.shape == (4, 9)

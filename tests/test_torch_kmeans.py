@@ -457,14 +457,17 @@ def test_port_never_imports_jax():
     as on the card's machine, which has none: ``model_selection`` and
     ``pipeline`` included, no module needs it at import time but the
     scikit-learn subclasses (the ``Partial*`` estimators), which are
-    loaded only on access and must fail there with an ImportError."""
+    loaded only on access and must fail there with an ImportError:
+    ``naive_bayes`` (``GaussianNB``) and ``cluster.minibatch``
+    (``MiniBatchKMeans``) import, and their ``Partial*`` classes fail on
+    access."""
     for block_sklearn in (False, True):
         _import_walk(block_sklearn)
 
 
 #: modules that only subclass scikit-learn estimators
 _SKLEARN_SUBCLASSES = (
-    "dask_ml_tpu_torch.naive_bayes", "dask_ml_tpu_torch.neural_network",
+    "dask_ml_tpu_torch.neural_network",
     "dask_ml_tpu_torch.linear_model.stochastic_gradient",
     "dask_ml_tpu_torch.linear_model.perceptron",
     "dask_ml_tpu_torch.linear_model.passive_aggressive")
@@ -485,6 +488,18 @@ def _import_walk(block_sklearn: bool):
         "        raise AssertionError(m.name + ' imported without sklearn')\n"
         "    importlib.import_module(m.name)\n"
         "import dask_ml_tpu_torch.model_selection, dask_ml_tpu_torch.pipeline\n"
+        "from dask_ml_tpu_torch import naive_bayes, cluster\n"
+        "from dask_ml_tpu_torch.cluster import minibatch\n"
+        "for mod, name in ((minibatch, 'PartialMiniBatchKMeans'),\n"
+        "                  (cluster, 'PartialMiniBatchKMeans'),\n"
+        "                  (naive_bayes, 'PartialMultinomialNB'),\n"
+        "                  (naive_bayes, 'PartialBernoulliNB')):\n"
+        "    try:\n"
+        "        getattr(mod, name)\n"
+        "    except ImportError:\n"
+        f"        assert {block_sklearn!r}, name + ' failed with sklearn'\n"
+        "    else:\n"
+        f"        assert not {block_sklearn!r}, name + ' without sklearn'\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dask_ml_tpu' or m.startswith('dask_ml_tpu.')]\n"

@@ -14,6 +14,8 @@ JAX package, on the CPU.
   the port (``convert.kmeans_from_numpy``).
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -27,10 +29,12 @@ from dask_ml_tpu.models import kmeans as jcore
 from dask_ml_tpu.ops import fast_transform as jft
 from dask_ml_tpu_torch import config_context
 from dask_ml_tpu_torch.cluster import KMeans
-from dask_ml_tpu_torch.cluster import k_means as tkm
 from dask_ml_tpu_torch.convert import kmeans_from_numpy
 from dask_ml_tpu_torch.models import kmeans as core
 from dask_ml_tpu_torch.ops import fast_transform as ftm
+
+# the module: the package exports the function k_means under the same name
+tkm = importlib.import_module("dask_ml_tpu_torch.cluster.k_means")
 
 
 @pytest.fixture(autouse=True)
