@@ -170,13 +170,39 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    on K3 and K4, the k-means|| phases; ``GaussianNB`` on config 4's data
    against a float64 fit; ``make_blobs`` and ``make_classification`` at
    1,000,000 × 50 on the card, one seed twice to the same bits.
+14. drives the precision tier (``PRECISION``): the bf16 kernels at edge
+   shapes (K1–K5 and K6 / K6-b bit for bit against their plain versions
+   on integer X with targets, centers and vectors that bf16 rounds; K1–K5
+   bit for bit against the f32 kernels on X widened, on integer and on
+   float data; ties, an all-masked Y, the near-duplicate-centers pin);
+   ``precision-blobs``: the blobs through ``KMeans(init="k-means||")
+   .fit(X).predict(X)`` under ``precision="bf16"`` (K3 and K4 in the
+   init, K1 in the loop, K2 in predict, all on bf16 X; ARI ≥ 0.99, the
+   fit's centers within 1e-2 of the f32 fit's inertia on the f32 data,
+   ``inertia_`` the rounded rows' SSE plus the score convention's term);
+   ``precision-kdd``: the KDD cell through ``"bounded"`` and ``"full"``
+   in bf16 (the bounded loop equal to the two-pass loop bit for bit,
+   bounds f32); ``precision-sparse-glm``: the sparse cell's host
+   container staged with bf16 values, ``LogisticRegression(solver=
+   "lbfgs", max_iter=3)`` (K6 and K6-b in bf16; accuracy above 0.55,
+   coefficients within 5e-2 of the f32 fit, a second fit the same bits,
+   each step through the kernels equal to the plain step);
+   ``precision-dense-glm``: ``LogisticRegression(solver="lbfgs")`` on a
+   dense 1e7 × 100 X drawn on the card, f32 and bf16 in turns (no kernel
+   of the repo: bf16-in / f32-out GEMMs; coefficients within 5e-2 of
+   the f32 fit, each contraction timed beside f32); and
+   ``precision-stream``: the host-streamed ADMM and PCA of step 10 on
+   the bf16 wire (wire ≤ logical / 1.8, coefficients within 5e-2 and the
+   top explained variances within 2e-2 of the f32 runs, preemption and
+   resume bit for bit, GB/s of wire and logical bytes); then the bf16
+   rows of the kernels line.
 
 ``python3 chip_smoke.py --spmv-only`` runs steps 1, 2, 6 and 8 alone, on a
 container of the sparse cell's shape drawn on the card;
 ``--glm-pca-only`` runs steps 1, 2 and 9 alone; ``--stream-only`` steps 1,
 2 and 10, drawing its own host arrays; ``--incremental-only`` steps 1, 2
 and 11; ``--search-only`` steps 1, 2 and 12; ``--asha-only`` steps 1, 2
-and 13.
+and 13; ``--precision-only`` steps 1, 2 and 14.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
@@ -340,9 +366,12 @@ MB_PROFILED_STEPS = 2_000
 NB_RTOL, NB_MARGIN = 1e-4, 1e-3
 # the dense generators at the blobs' size
 GEN_N, GEN_D = 1_000_000, 50
-# H100 SXM data sheet: HBM3 bandwidth and f32 rate outside the tensor cores
+# H100 SXM data sheet: HBM3 bandwidth, the f32 rate outside the tensor
+# cores, and the dense bf16 tensor-core rate (products of two bf16
+# operands accumulated in f32, without sparsity)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 # where the TPU kernel each CUDA kernel replaces is defined
 REPLACES = {
     "lloyd_iter": "dask_ml_tpu/models/kmeans.py:186",
@@ -381,6 +410,16 @@ PATH_KERNELS = {
     "k-means-fn": ("lloyd_iter", "fused_argmin_min", "fused_rowwise_min",
                    "fused_argmin_weight"),
     "init-scalable": ("fused_rowwise_min", "fused_argmin_weight"),
+    "precision-blobs": ("lloyd_iter_bf16", "fused_argmin_min_bf16",
+                        "fused_rowwise_min_bf16", "fused_argmin_weight_bf16"),
+    "precision-kdd-bounded": ("fused_argmin_min2_bf16",
+                              "fused_argmin_min_bf16",
+                              "fused_rowwise_min_bf16",
+                              "fused_argmin_weight_bf16"),
+    "precision-kdd-full": ("lloyd_iter_bf16", "fused_argmin_min_bf16",
+                           "fused_rowwise_min_bf16",
+                           "fused_argmin_weight_bf16"),
+    "precision-sparse-glm": ("spmv_bf16", "spmv_pullback_bf16"),
 }
 SOURCES = {
     "lloyd_iter": "dask_ml_tpu_torch/_kernels/csrc/lloyd.cu",
@@ -639,7 +678,9 @@ def check_lloyd(tag, X, w, C, exact: bool):
         # round otherwise, so its labels may differ from K2's only on
         # near-ties, each moving one unit between two counts
         c2 = (C * C).sum(dim=1)
-        plain_labels = (c2[:, None] - 2.0 * (C @ X.T)).argmin(dim=0)
+        Cc = C.to(X.dtype).to(torch.float32)
+        plain_labels = (c2[:, None] - 2.0 * (Cc @ X.to(torch.float32).T)
+                        ).argmin(dim=0)
         n_ties = near_tie_ok(X, C, None, labels,
                              plain_labels.to(labels.dtype))
         same = float((kc - rc).abs().sum()) <= 2 * n_ties
@@ -1004,9 +1045,14 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, operand=None):
+    """The least time in ms for ``nbytes`` of traffic and ``flops``
+    operations on ``operand``-typed inputs: products of bf16 operands at
+    the bf16 tensor-core rate, anything else at the f32 rate."""
+    peak = (PEAK_BF16_FLOP_PER_S if str(operand) == "torch.bfloat16"
+            else PEAK_F32_FLOP_PER_S)
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    tf = flops / PEAK_F32_FLOP_PER_S * 1e3
+    tf = flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -1037,6 +1083,9 @@ def fused_call(fdl, stream, X, Y, epi, w=None, gneed=None, x2=None,
     n, d = X.shape
     m = Y.shape[0]
     y2 = fd._row_sumsq(Y).contiguous()
+    # a bf16 X takes the targets rounded to bf16 (held in f32), |y|² from
+    # the originals, as the wrapper hands them over
+    Y = Y.to(X.dtype).to(torch.float32).contiguous()
     maskf = (torch.ones(m, device=dev) if mask is None
              else mask.to(torch.float32).contiguous())
     am = torch.empty(n, dtype=torch.int32, device=dev)
@@ -1051,7 +1100,8 @@ def fused_call(fdl, stream, X, Y, epi, w=None, gneed=None, x2=None,
 
     def call():
         build.check(fdl.dml_fused_distance(
-            epi, X.data_ptr(), Y.data_ptr(), y2.data_ptr(), maskf.data_ptr(),
+            epi, X.data_ptr(), int(X.dtype == torch.bfloat16), Y.data_ptr(),
+            y2.data_ptr(), maskf.data_ptr(),
             ptr(gneed), fd._FUSED_BLK, ptr(x2), ptr(w), n, m, d,
             am.data_ptr(), mn.data_ptr(), mn2.data_ptr(), part.data_ptr(),
             cw.data_ptr(), stream), "timing")
@@ -1072,6 +1122,7 @@ def score_kernel_rows(fdl, stream, X, w, pick):
     from dask_ml_tpu_torch.ops import fused_distance as fd
 
     n, d = X.shape
+    xb = X.element_size()
     cfg = core._init_scalable_config(n, K, 2.0, None)
     expect(cfg["cap"] == ROUND_CAP and cfg["max_cand"] == WEIGHT_CAND,
            f"the k-means|| buffers are not the timed shapes: {cfg}")
@@ -1081,23 +1132,23 @@ def score_kernel_rows(fdl, stream, X, w, pick):
         Y = X[pick[:m]].contiguous()
         if epi == 0:
             plain = lambda mask: fd._min_ref(X, Y, mask)  # noqa: E731
-            nbytes = 4 * (n * d + m * d + n)
+            nbytes = xb * n * d + 4 * (m * d + n)
         else:
             plain = lambda mask: fd._argmin_weight_ref(  # noqa: E731
                 X, w, Y, mask)
-            nbytes = 4 * (n * d + n + m * d + n + m)
-        b, by = bound(nbytes, 2 * n * m * d)
+            nbytes = xb * n * d + 4 * (n + m * d + n + m)
+        b, by = bound(nbytes, 2 * n * m * d, X.dtype)
         row = dict(name=name,
                    ms=cuda_ms(fused_call(fdl, stream, X, Y, epi,
                                          w=w if epi == 2 else None)),
                    plain_ms=cuda_ms(lambda: plain(None), iters=5, warmup=1),
                    bound_ms=b, bound_by=by,
-                   gemm_ms=cuda_ms(lambda: torch.mm(X, Y.T), iters=10,
-                                   warmup=2),
+                   gemm_ms=cuda_ms(lambda: torch.mm(X, Y.to(X.dtype).T),
+                                   iters=10, warmup=2),
                    shape={"n": n, "m": m, "d": d})
         if epi == 0:
             prefix = torch.arange(m, device=X.device) < ROUND_COUNT
-            b, by = bound(nbytes, 2 * n * ROUND_COUNT * d)
+            b, by = bound(nbytes, 2 * n * ROUND_COUNT * d, X.dtype)
             row["path_mask"] = dict(
                 valid=ROUND_COUNT,
                 ms=cuda_ms(fused_call(fdl, stream, X, Y, 0, mask=prefix)),
@@ -1124,14 +1175,15 @@ def time_kernels(X, w):
     fdl = build.load("fused_distance")
     stream = build.stream_of(X)
     # K2 at k = 8
-    Y = X[pick[:K]].contiguous()
-    b, by = bound(4 * (n * d + K * d + 2 * n), 2 * n * K * d)
+    Y = X[pick[:K]].float().contiguous()
+    b, by = bound(X.element_size() * n * d + 4 * (K * d + 2 * n),
+                  2 * n * K * d, X.dtype)
     rows = [dict(name="fused_argmin_min", ms=cuda_ms(fused_call(
         fdl, stream, X, Y, 1)), plain_ms=cuda_ms(
         lambda: fd._argmin_min_ref(X, Y, None), iters=5, warmup=1),
         bound_ms=b, bound_by=by, shape={"n": n, "m": K, "d": d})]
     rows += score_kernel_rows(fdl, stream, X, w, pick)
-    rows.insert(0, lloyd_row(X, w, X[pick[:K]].contiguous()))
+    rows.insert(0, lloyd_row(X, w, X[pick[:K]].float().contiguous()))
     return rows
 
 
@@ -1150,14 +1202,18 @@ def lloyd_row(X, w, C):
     k = C.shape[0]
     ll = build.load("lloyd")
     c2 = fd._row_sumsq(C).contiguous()
+    # a bf16 X takes the centers rounded to bf16 (held in f32)
+    Ck = C.to(X.dtype).to(torch.float32).contiguous()
     P = k * (d + 1) + 1
     part = torch.empty(ll.dml_lloyd_max_partials() * P, device=X.device)
     out = torch.empty(P, device=X.device)
     stream = build.stream_of(X)
     call = lambda: build.check(ll.dml_lloyd_iter(  # noqa: E731
-        X.data_ptr(), w.data_ptr(), C.data_ptr(), c2.data_ptr(), n, k, d,
-        part.data_ptr(), out.data_ptr(), stream), "timing")
-    b, by = bound(4 * (n * d + n + k * d + P), 2 * n * k * d + 2 * n * d)
+        X.data_ptr(), int(X.dtype == torch.bfloat16), w.data_ptr(),
+        Ck.data_ptr(), c2.data_ptr(), n, k, d, part.data_ptr(),
+        out.data_ptr(), stream), "timing")
+    b, by = bound(X.element_size() * n * d + 4 * (n + k * d + P),
+                  2 * n * k * d + 2 * n * d, X.dtype)
     ms = cuda_ms(call)
     return dict(name="lloyd_iter", ms=ms,
                 plain_ms=cuda_ms(lambda: core._lloyd_stats_ref(X, w, C),
@@ -1893,7 +1949,7 @@ def spmv_at_container(Xd, v, r, errs, r_first=None):
     lib = build.load("spmv")
     bound_word = torch.empty(1, dtype=torch.int32, device=vals.device)
     values_bound_ms = cuda_ms(lambda: lib.dml_spmv_absmax(
-        vals.data_ptr(), vals.numel(), bound_word.data_ptr(),
+        vals.data_ptr(), 0, vals.numel(), bound_word.data_ptr(),
         build.stream_of(vals)), iters=5, warmup=1)
     pb_l2_ms = cuda_ms(pull(0), iters=5, warmup=1)
     pb_plain_ms = cuda_ms(lambda: sps._pullback_ref(vals, cols, r, d),
@@ -4384,6 +4440,990 @@ def asha_cells(dev, errs):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# PRECISION: the bf16 cases of K1-K6 under the mixed-precision policy
+# ---------------------------------------------------------------------------
+
+#: the bf16 rows of the kernels line: row name -> (its launch counter, the
+#: f32 kernel whose source and TPU kernel it shares)
+BF16_ROWS = {
+    "K1-bf16": ("lloyd_iter_bf16", "lloyd_iter"),
+    "K1-kdd-bf16": ("lloyd_iter_bf16", "lloyd_iter"),
+    "K2-bf16": ("fused_argmin_min_bf16", "fused_argmin_min"),
+    "K3-bf16": ("fused_rowwise_min_bf16", "fused_rowwise_min"),
+    "K3-p-bf16": ("fused_rowwise_min_bf16", "fused_rowwise_min"),
+    "K4-bf16": ("fused_argmin_weight_bf16", "fused_argmin_weight"),
+    "K5-bf16": ("fused_argmin_min2_bf16", "fused_argmin_min2"),
+    "K6-bf16": ("spmv_bf16", "spmv"),
+    "K6-b-bf16": ("spmv_pullback_bf16", "spmv_pullback"),
+}
+# the JAX package's precision gates against the f32 run (bench.py
+# --precision, docs/precision.md): coefficients, explained variance and
+# inertia; the streamed wire must be at least 1.8x narrower than logical
+P_COEF_RTOL, P_VAR_RTOL, P_INERTIA_RTOL, P_WIRE = 5e-2, 2e-2, 1e-2, 1.8
+# precision-dense-glm: L-BFGS iterations of each fit
+DG_ITERS = 10
+# bf16 kernel shapes (n, m, d) of the edge checks: n = 1, m = 1, ragged n,
+# every tile of K2-K5 (m <= 8, <= 128, beyond) and the cells' d
+FUSED_BF16_SHAPES = [(1, 1, 1), (533, 37, 13), (129, 7, 3), (2000, 329, 50),
+                     (300, 40, 130), (4097, 8, 41), (3001, 80, 50)]
+# K1: (n, k, d, offset in elements): the register and shared-memory
+# variants, rows of 100 and 82 bytes, X only 2-byte aligned
+LLOYD_BF16_SHAPES = [(1, 1, 1, 0), (533, 4, 7, 0), (4099, 8, 41, 0),
+                     (4099, 9, 50, 0), (2000, 8, 110, 0), (257, 8, 397, 0),
+                     (3001, 8, 50, 3)]
+# K6 and K6-b: (n, k, d, pullback) through every route that fits
+SPMV_BF16_SHAPES = [(1, 1, 7, False), (1, 101, 100_001, True),
+                    (5000, 1, 7, False), (4097, 3, 7, True),
+                    (777, 17, 100_001, False), (80_003, 101, 100_001, False),
+                    (80_003, 101, 100_001, True), (40_001, 32, 30_011, True),
+                    (9_999, 128, 250_007, False), (301, 513, 5_003, True)]
+
+
+def f32_fused_direct(X, Yr, y2, mask, epi, need=None, x2=None, w=None):
+    """The f32 fused kernel through its C entry on X (f32), the targets as
+    given (already rounded) and the |y|² given (of the original targets):
+    the function the bf16 kernel must equal on ``X.float()``."""
+    import torch
+
+    from dask_ml_tpu_torch._kernels import build
+    from dask_ml_tpu_torch.ops import fused_distance as fd
+
+    lib = build.load("fused_distance")
+    n, d = X.shape
+    m = Yr.shape[0]
+    dev = X.device
+    maskf = (torch.ones(m, device=dev) if mask is None
+             else mask.to(torch.float32).contiguous())
+    am = torch.empty(n, dtype=torch.int32, device=dev)
+    mn = torch.empty(n, device=dev)
+    mn2 = torch.empty(n, device=dev)
+    part = torch.empty((m, -(-n // lib.dml_fused_rows_per_block())),
+                       device=dev)
+    cw = torch.empty(m, device=dev)
+    gneed = (None if need is None
+             else fd._group_need(need).to(torch.uint8).contiguous())
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    build.check(lib.dml_fused_distance(
+        fd._EPILOGUES[epi][0], X.data_ptr(), 0, Yr.data_ptr(), y2.data_ptr(),
+        maskf.data_ptr(), ptr(gneed), fd._FUSED_BLK, ptr(x2), ptr(w), n, m,
+        d, am.data_ptr(), mn.data_ptr(), mn2.data_ptr(), part.data_ptr(),
+        cw.data_ptr(), build.stream_of(X)), "f32 fused kernel")
+    return {"min": (mn,), "argmin_min": (am, mn), "argmin_weight": (am, cw),
+            "argmin_min2": (am, mn, mn2)}[epi]
+
+
+def f32_lloyd_direct(Xw, w, C):
+    """The f32 K1 through its C entry on X widened, the centers rounded to
+    bf16 and |c|² of the f32 centers."""
+    import torch
+
+    from dask_ml_tpu_torch._kernels import build
+    from dask_ml_tpu_torch.ops import fused_distance as fd
+
+    lib = build.load("lloyd")
+    n, d = Xw.shape
+    k = C.shape[0]
+    Cr = C.to(torch.bfloat16).to(torch.float32).contiguous()
+    c2 = fd._row_sumsq(C).contiguous()
+    P = k * (d + 1) + 1
+    part = torch.empty(lib.dml_lloyd_max_partials() * P, device=Xw.device)
+    out = torch.empty(P, device=Xw.device)
+    build.check(lib.dml_lloyd_iter(
+        Xw.data_ptr(), 0, w.data_ptr(), Cr.data_ptr(), c2.data_ptr(), n, k,
+        d, part.data_ptr(), out.data_ptr(), build.stream_of(Xw)), "f32 K1")
+    acc = out[:-1].view(k, d + 1)
+    return acc[:, :d], acc[:, d], out[-1]
+
+
+def bf16_fused_against(tag, X16, Y, mask, w, need, x2, exact):
+    """Every epilogue of the bf16 fused kernel (the sketched K2 with an
+    external |x|² too) against the f32 kernel on X widened, bit for bit;
+    with ``exact`` (integer X) also against the plain version, bit for
+    bit."""
+    import torch
+
+    from dask_ml_tpu_torch.ops import fused_distance as fd
+
+    Yr = Y.to(torch.bfloat16).to(torch.float32).contiguous()
+    y2 = fd._row_sumsq(Y).contiguous()
+    Xw = X16.float().contiguous()
+    calls = {
+        "min": lambda k: (fd.fused_rowwise_min(X16, Y, mask, kernel=k,
+                                               row_need=need),),
+        "argmin_min": lambda k: fd.fused_argmin_min(X16, Y, mask, kernel=k),
+        "argmin_weight": lambda k: fd.fused_argmin_weight(X16, w, Y, mask,
+                                                          kernel=k),
+        "argmin_min2": lambda k: fd.fused_argmin_min2(X16, Y, mask, kernel=k,
+                                                      row_need=need),
+        "sketched": lambda k: fd.fused_argmin_min_sketched(
+            X16, Y, mask=mask, x2=x2, kernel=k, row_need=need)}
+    for epi, call in calls.items():
+        got = call("cuda")
+        direct = f32_fused_direct(
+            Xw, Yr, y2, mask, "argmin_min" if epi == "sketched" else epi,
+            need=need if epi in ("min", "argmin_min2", "sketched") else None,
+            x2=x2 if epi == "sketched" else None,
+            w=w if epi == "argmin_weight" else None)
+        for a, c in zip(got, direct):
+            expect(torch.equal(a, c), f"bf16 {epi} {tag}: not the f32 "
+                   f"kernel's bits on X widened")
+        if exact:
+            for a, b in zip(got, call("torch")):
+                expect(torch.equal(a, b),
+                       f"bf16 {epi} {tag}: not bit-identical to the plain "
+                       f"version")
+
+
+def precision_kernel_checks(dev):
+    """The bf16 kernels at edge shapes: K2-K5 and K1 bit for bit against
+    their plain versions on integer X with targets and centers on a 1/256
+    grid that bf16 rounds (every product and sum exact), and against the
+    f32 kernel on X widened on integer and float data; ties and an
+    all-masked Y; K6 and K6-b bit for bit through every route that fits,
+    the pullback's routes also on float data; the near-duplicate-centers
+    pin (tests/test_precision.py) through K2."""
+    import torch
+
+    from dask_ml_tpu_torch.models import kmeans as core
+    from dask_ml_tpu_torch.ops import fused_distance as fd
+    from dask_ml_tpu_torch.ops import sparse as sps
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 12)
+
+    def ints(shape, lo=-8, hi=8):
+        return torch.randint(lo, hi, shape, generator=g, device=dev).float()
+
+    def grid(shape):
+        return torch.randint(-512, 512, shape, generator=g,
+                             device=dev).float() / 256.0
+
+    for n, m, d in FUSED_BF16_SHAPES:
+        X16 = ints((n, d)).to(torch.bfloat16)
+        mask = torch.rand(m, generator=g, device=dev) > 0.3
+        mask[0] = True
+        need = torch.rand(n, generator=g, device=dev) > 0.7
+        bf16_fused_against(f"{(n, m, d)}", X16, grid((m, d)), mask,
+                           ints((n,), 0, 5), need, ints((n,), 0, 9),
+                           exact=True)
+        # float data: the f32 kernel's bits on X widened
+        Xf = torch.randn((n, d), generator=g, device=dev)
+        bf16_fused_against(f"{(n, m, d)} float", Xf.to(torch.bfloat16),
+                           torch.randn((m, d), generator=g, device=dev),
+                           mask, torch.rand(n, generator=g, device=dev),
+                           need, (Xf * Xf).sum(1), exact=False)
+    # ties: every target twice, every row on a duplicate; all masked
+    Yb = grid((9, 5))
+    Y = torch.cat([Yb, Yb])
+    X16 = torch.cat([Yb, Yb, Yb]).to(torch.bfloat16)
+    ka, _ = fd.fused_argmin_min(X16, Y, kernel="cuda")
+    ra, _ = fd.fused_argmin_min(X16, Y, kernel="torch")
+    expect(torch.equal(ka, ra) and int(ka.max()) < 9,
+           "bf16 ties do not break to the lowest index")
+    none = torch.zeros(18, dtype=torch.bool, device=dev)
+    am, mn = fd.fused_argmin_min(X16, Y, none, kernel="cuda")
+    expect(bool((am == 0).all() and torch.isinf(mn).all()),
+           "bf16 all-masked: not (0, inf)")
+    # the near-duplicate pin: |y|² from the original Y breaks the tie
+    base = torch.zeros(8, device=dev)
+    base[0] = 8.0
+    plus = base.clone()
+    plus[0] = 8.01
+    idx, mind = fd.fused_argmin_min(base.repeat(16, 1).to(torch.bfloat16),
+                                    torch.stack([plus, base]), kernel="cuda")
+    expect(idx.tolist() == [1] * 16 and float(mind.max()) <= 1e-2,
+           f"bf16 near-duplicate centers: argmin {idx.tolist()}")
+    # K1
+    for n, k, d, off in LLOYD_BF16_SHAPES:
+        X16 = ints((n * d + off,), -4, 4).to(torch.bfloat16)[off:].view(n, d)
+        w = ints((n,), 0, 3)
+        C = grid((k, d))
+        expect(core._lloyd_cuda_supported(k, d, torch.bfloat16),
+               f"bf16 K1 refuses {(k, d)}")
+        got = core._lloyd_stats_cuda(X16, w, C)
+        want = core._lloyd_stats_ref(X16, w, C)
+        direct = f32_lloyd_direct(X16.float().contiguous(), w, C)
+        tag = f"bf16 K1 {(n, k, d, off)}"
+        expect(all(torch.equal(a, b) for a, b in zip(got, direct)),
+               f"{tag}: not the f32 kernel's bits on X widened")
+        expect(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+               f"{tag}: sums or counts not bit-identical to the plain "
+               f"version")
+        # |c|² of 1/256-grid centers is fractional at large d: the row
+        # minima are, and the two sum them in other orders
+        expect(abs(float(got[2]) - float(want[2]))
+               <= 1e-6 * abs(float(want[2])), f"{tag}: inertia")
+        Xf = torch.randn((n, d), generator=g, device=dev).to(torch.bfloat16)
+        wf = torch.rand(n, generator=g, device=dev)
+        Cf = torch.randn((k, d), generator=g, device=dev)
+        expect(all(torch.equal(a, b) for a, b in zip(
+            core._lloyd_stats_cuda(Xf, wf, Cf),
+            f32_lloyd_direct(Xf.float().contiguous(), wf, Cf))),
+            f"{tag} float: not the f32 kernel's bits on X widened")
+    # K6 and K6-b
+    rng = np.random.default_rng(SEED + 12)
+    for n, k, d, pullback in SPMV_BF16_SHAPES:
+        A = ell_ints(rng, n, k, d, dev, -4, 4)
+        vals = A.values.to(torch.bfloat16)
+        x = grid((n if pullback else d,))
+        for c in [None] + fitting_routes(k, d, pullback):
+            if pullback:
+                got = sps._pullback_cuda(vals, A.cols, x, d, cluster=c)
+                want = sps._pullback_ref(vals, A.cols, x, d)
+            else:
+                got = sps._spmv_cuda(vals, A.cols, x, cluster=c)
+                want = sps._spmv_ref(vals, A.cols, x)
+            expect(torch.equal(got, want),
+                   f"bf16 K6{'-b' if pullback else ''} {(n, k, d)} route "
+                   f"{c}: not bit-identical to the plain version")
+        if pullback:
+            vf = (A.values * 0.3 + 0.01 * (A.values != 0)).to(torch.bfloat16)
+            rf = x * 0.7071 + 0.1234
+            routes = fitting_routes(k, d, True)
+            first = sps._pullback_cuda(vf, A.cols, rf, d, cluster=routes[0])
+            for c in routes:
+                got = sps._pullback_cuda(vf, A.cols, rf, d, cluster=c)
+                expect(torch.equal(got, first),
+                       f"bf16 K6-b {(n, k, d)} route {c}: float data, not "
+                       f"the bits of route {routes[0]}")
+                expect_repeats(f"bf16 K6-b {(n, k, d)} route {c}",
+                               lambda c=c: sps._pullback_cuda(
+                                   vf, A.cols, rf, d, cluster=c), got)
+    torch.cuda.synchronize()
+
+
+def with_launches(rows, launches):
+    """Each row's launches on its own path (the counter of its bf16
+    kernel in ``launches``, the path's counts)."""
+    for r in rows:
+        r["path_launches"] = int(launches[BF16_ROWS[r["name"]][0]])
+    return rows
+
+
+def bf16_rows(rows, errs):
+    """The kernels line's bf16 entries: each timed row under its row name,
+    with the source and TPU kernel of its f32 kernel, its launches on its
+    PRECISION path and its largest error against the plain version."""
+    out = []
+    for r in rows:
+        counter, f32 = BF16_ROWS[r["name"]]
+        out.append({
+            "name": r["name"], "route": "cuda", "source": SOURCES[f32],
+            "replaces": REPLACES[f32], "launches": r.pop("path_launches"),
+            "counter": counter,
+            "max_abs_err": float(errs.get(r["name"], 0.0)),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms"),
+            **{k: v for k, v in r.items()
+               if k not in ("name", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")}})
+    return out
+
+
+def rename_rows(rows, names):
+    """Timed rows of the f32 helpers under their bf16 row names (K3's
+    rounds' mask becomes a row of its own)."""
+    out = []
+    for r in rows:
+        pm = r.pop("path_mask", None)
+        r["name"] = names[r["name"]]
+        out.append(r)
+        if pm is not None:
+            out.append(dict(name="K3-p-bf16", ms=pm["ms"],
+                            plain_ms=pm["plain_ms"], bound_ms=pm["bound_ms"],
+                            bound_by=pm["bound_by"], valid=pm["valid"],
+                            shape=r["shape"]))
+    return out
+
+
+def inertia_split(X, C, labels):
+    """(exact SSE of the rows rounded to bf16 against the fitted centers
+    rounded to bf16, the score convention's term Σ (|c|² − |ĉ|²) over each
+    row's center), float64 on the card: a bf16 fit's ``inertia_`` is their
+    sum, as the kernels' scores take |c|² from the f32 centers."""
+    import torch
+
+    Cd = torch.as_tensor(C, device=X.device)
+    Cr = Cd.to(torch.bfloat16).double()
+    lab = torch.as_tensor(labels, device=X.device).long()
+    term = ((Cd.double() ** 2).sum(1) - (Cr ** 2).sum(1))[lab].sum()
+    sse = torch.zeros((), dtype=torch.float64, device=X.device)
+    for s in range(0, X.shape[0], 1 << 18):
+        xs = X[s:s + (1 << 18)].to(torch.bfloat16).double()
+        sse += ((xs - Cr[lab[s:s + (1 << 18)]]) ** 2).sum()
+    return float(sse), float(term)
+
+
+def precision_blobs(dev, errs, f32_inertia=None):
+    """``precision-blobs``: ``KMeans(init="k-means||").fit(X).predict(X)``
+    on the blobs under ``precision="bf16"`` (K3 and K4 in the init, K1 in
+    the Lloyd loop, K2 in predict, all on bf16 X). Gates: ARI ≥ 0.99
+    against the truth; the bf16 fit's centers scored on the f32 data
+    within 1e-2 of the f32 fit's inertia; its ``inertia_`` the exact SSE
+    of the rounded rows plus the score convention's term (within 1e-5);
+    the kernel's labels from the fitted centers the plain version's, but
+    for near-ties. Then the kernels at the full shape on float data
+    against the plain versions (tolerances of the f32 checks) and against
+    the f32 kernels on X widened (bit for bit), and their timings."""
+    import torch
+
+    from dask_ml_tpu_torch import config_context
+    from dask_ml_tpu_torch.cluster import KMeans
+    from dask_ml_tpu_torch.models import kmeans as core
+    from dask_ml_tpu_torch.ops import fused_distance as fd
+    from dask_ml_tpu_torch.parallel.sharding import prepare_data
+
+    X, y_true = drawn("blobs", lambda: blobs_data(SEED))
+    kw = dict(n_clusters=K, init="k-means||", oversampling_factor=2,
+              random_state=SEED)
+    if f32_inertia is None:
+        f32_inertia = KMeans(**kw).fit(X).inertia_
+
+    def fit_predict():
+        km = KMeans(**kw).fit(X)
+        return km, km.predict(X)
+
+    with config_context(precision="bf16"):
+        (km, pred), sec, launches = drive(fit_predict)
+        data = prepare_data(X, device=dev)
+    X16, w = data.X, data.weights
+    expect(X16.dtype == torch.bfloat16, f"staged {X16.dtype}, not bf16")
+    expect_launches("precision-blobs", launches)
+    expect(np.array_equal(pred, km.labels_), "bf16 predict(X) != labels_")
+    score = ari(y_true, pred)
+    Xd = torch.from_numpy(X).to(dev)
+    C = torch.as_tensor(km.cluster_centers_, device=dev)
+    _, mind = fd.fused_argmin_min(Xd, C, kernel="cuda")
+    quality = float(mind.double().sum())  # the fit's centers, f32 data
+    sse, term = inertia_split(Xd, km.cluster_centers_, km.labels_)
+    del Xd
+    lk = core.predict_labels(X16, C, kernel="cuda")
+    lp = core.predict_labels(X16, C, kernel="torch")
+    ties = near_tie_ok(X16, C, None, lk, lp)
+    out = {"n": N, "d": D, "k": K, "seconds": sec, "ari": score,
+           "inertia_bf16": km.inertia_,
+           "inertia_f32": f32_inertia,
+           "inertia_rel_delta": (km.inertia_ - f32_inertia) / f32_inertia,
+           "centers_inertia_on_f32_data": quality,
+           "centers_rel_delta": (quality - f32_inertia) / f32_inertia,
+           "sse_of_rounded_rows": sse, "score_convention_term": term,
+           "kernel_vs_plain_label_near_ties": ties,
+           "phases": km.fit_phase_seconds_}
+    path_line("precision-blobs", sec, km.n_iter_, launches, **out)
+    out["n_iter"] = km.n_iter_
+    expect(score >= 0.99, f"bf16 blobs ARI {score} < 0.99")
+    expect(abs(out["centers_rel_delta"]) <= P_INERTIA_RTOL,
+           f"bf16 blobs: the fit's centers cost {quality} on the data, "
+           f"the f32 fit's {f32_inertia}")
+    # rtol 1e-5: each row's minimum is |c|² − 2x·c + |x|² in f32, terms
+    # ≈ 35 times the distance at this cell, and 1e6 of them are summed
+    expect(abs(km.inertia_ - (sse + term)) <= 1e-5 * f32_inertia,
+           f"bf16 blobs inertia_ {km.inertia_} is not the rounded rows' SSE "
+           f"{sse} plus the convention's term {term}")
+    # the kernels at the full shape, float data
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 13)
+    pick = torch.randperm(N, generator=g, device=dev)
+    for name, m, valid in (("K2/K3/K4 m=8", K, K),
+                           ("K3 m=80, the rounds' mask", ROUND_CAP,
+                            ROUND_COUNT),
+                           ("K4 m=329", WEIGHT_CAND, WEIGHT_CAND // 2)):
+        Y = X16[pick[:m]].float()
+        mask = torch.arange(m, device=dev) < valid
+        for k, v in check_fused("bf16 " + name, X16, Y, mask, w,
+                                exact=False).items():
+            row = {"fused_argmin_min": "K2-bf16",
+                   "fused_rowwise_min": "K3-bf16",
+                   "fused_argmin_weight": "K4-bf16"}[k]
+            errs[row] = max(errs.get(row, 0.0), v)
+        need = torch.rand(N, generator=g, device=dev) > 0.5
+        bf16_fused_against("blobs " + name, X16, Y, mask, w, need,
+                           torch.rand(N, generator=g, device=dev),
+                           exact=False)
+    errs["K1-bf16"] = check_lloyd("bf16 K1 blobs", X16, w, C, exact=False)
+    expect(all(torch.equal(a, b) for a, b in zip(
+        core._lloyd_stats_cuda(X16, w, C),
+        f32_lloyd_direct(X16.float().contiguous(), w, C))),
+        "bf16 K1 at the blobs: not the f32 kernel's bits on X widened")
+    rows = rename_rows(time_kernels(X16, w), {
+        "lloyd_iter": "K1-bf16", "fused_argmin_min": "K2-bf16",
+        "fused_rowwise_min": "K3-bf16", "fused_argmin_weight": "K4-bf16"})
+    return with_launches(rows, launches), out
+
+
+def precision_kdd(dev, errs):
+    """``precision-kdd``: the KDD-shaped cell through ``algorithm=
+    "bounded"`` (K5) and ``"full"`` (K1) under ``precision="bf16"``, the
+    bounds f32 (``lloyd_bounds_dtype``); the bounded loop against the
+    two-pass loop from the same init on bf16 X, bit for bit; K5 and K1 at
+    the cell's shape against their plain versions and the f32 kernels on
+    X widened; their timings."""
+    import torch
+
+    from dask_ml_tpu_torch import config_context
+    from dask_ml_tpu_torch._kernels import build
+    from dask_ml_tpu_torch.cluster import KMeans
+    from dask_ml_tpu_torch.models import kmeans as core
+    from dask_ml_tpu_torch.ops import fused_distance as fd
+    from dask_ml_tpu_torch.parallel.precision import lloyd_bounds_dtype
+    from dask_ml_tpu_torch.parallel.sharding import prepare_data
+    from dask_ml_tpu_torch.utils.validation import check_random_state
+
+    X = drawn("kdd", lambda: kdd_data(KDD_N, KDD_D, SEED))
+
+    def fit_predict(algorithm):
+        km = KMeans(n_clusters=K, init="k-means||", oversampling_factor=2,
+                    algorithm=algorithm, random_state=SEED).fit(X)
+        return km, km.predict(X)
+
+    out = {"n": KDD_N, "d": KDD_D, "k": K}
+    with config_context(precision="bf16"):
+        (kmb, pb), sec_b, l_b = drive(lambda: fit_predict("bounded"))
+        (kmf, pf), sec_f, l_f = drive(lambda: fit_predict("full"))
+        data = prepare_data(X, device=dev)
+        bdt = lloyd_bounds_dtype(data.X.dtype)
+    expect(bdt == torch.float32, f"bf16 bounds dtype {bdt}")
+    Xd, wd = data.X, data.weights
+    expect(Xd.dtype == torch.bfloat16, "the KDD data did not stage bf16")
+    expect_launches("precision-kdd-bounded", l_b)
+    expect_launches("precision-kdd-full", l_f)
+    expect(l_b["lloyd_iter_bf16"] == 0, "the bounded path ran K1")
+    expect(np.array_equal(pb, kmb.labels_) and np.array_equal(pf, kmf.labels_),
+           "bf16 KDD predict != labels_")
+    for name, km, sec, ll in (("precision-kdd-bounded", kmb, sec_b, l_b),
+                              ("precision-kdd-full", kmf, sec_f, l_f)):
+        path_line(name, sec, km.n_iter_, ll, inertia=km.inertia_,
+                  phases=km.fit_phase_seconds_)
+    out.update(bounded_s=sec_b, full_s=sec_f, bounded_n_iter=kmb.n_iter_,
+               full_n_iter=kmf.n_iter_,
+               bounded_vs_full_label_diff=int((kmb.labels_
+                                               != kmf.labels_).sum()),
+               bounded_vs_full_center_max_abs_diff=float(np.abs(
+                   kmb.cluster_centers_ - kmf.cluster_centers_).max()),
+               rows_skipped=kmb.lloyd_pruning_["rows_skipped"])
+    # the loop against its oracle on bf16 X, bounds f32
+    c0 = core.k_init(Xd, wd, data.n, K, check_random_state(SEED, device=dev),
+                     init="k-means||", oversampling_factor=2)
+    tol = core.scaled_tolerance(Xd, wd, 1e-4)
+    co, _, no, so = core.lloyd_loop(Xd, wd, c0, tol, max_iter=300,
+                                    kernel="cuda")
+    cb, ib, nb, sb, lb, st = core.lloyd_loop_bounded(
+        Xd, wd, c0, tol, max_iter=300, kernel="cuda", bounds_dtype=bdt)
+    expect(torch.equal(co, cb) and no == nb and float(so) == float(sb),
+           "bf16: bounded loop != two-pass loop from the same init")
+    expect(torch.equal(lb, core.predict_labels(Xd, co, kernel="cuda")),
+           "bf16: bounded labels != predict_labels of the oracle's centers")
+    out.update(oracle_n_iter=nb,
+               oracle_rows_skipped=int(st["rows_skipped"].sum()))
+    log(f"bf16 KDD: bounded loop == two-pass loop bit for bit ({nb} "
+        f"iterations, bounds {bdt})")
+    # K5 and K1 at the cell's shape
+    C = torch.as_tensor(kmb.cluster_centers_, device=dev)
+    X_pad, w_pad = core._pad_rows_to_blocks(Xd, wd)
+    e = check_min2_sketched("bf16 KDD K5", X_pad, C, None, None, exact=False)
+    errs["K5-bf16"] = e["fused_argmin_min2"]
+    need = torch.rand(X_pad.shape[0], device=dev) > 0.5
+    bf16_fused_against("KDD", X_pad, C, None, w_pad, need,
+                       torch.rand(X_pad.shape[0], device=dev), exact=False)
+    errs["K1-kdd-bf16"] = check_lloyd("bf16 K1 KDD", Xd, wd, C, exact=False)
+    expect(all(torch.equal(a, b) for a, b in zip(
+        core._lloyd_stats_cuda(Xd, wd, C),
+        f32_lloyd_direct(Xd.float().contiguous(), wd, C))),
+        "bf16 K1 at the KDD shape: not the f32 kernel's bits on X widened")
+    fdl = build.load("fused_distance")
+    stream = build.stream_of(Xd)
+    npad, d = X_pad.shape
+    gall = torch.ones(-(-npad // fd._FUSED_BLK), dtype=torch.uint8,
+                      device=dev)
+    all_need = torch.ones(npad, dtype=torch.bool, device=dev)
+    b, by = bound(2 * npad * d + 4 * (K * d + 3 * npad), 2 * npad * K * d,
+                  X_pad.dtype)
+    rows = [dict(name="K5-bf16",
+                 ms=cuda_ms(fused_call(fdl, stream, X_pad, C, 3, gneed=gall)),
+                 plain_ms=cuda_ms(lambda: fd.fused_argmin_min2(
+                     X_pad, C, kernel="torch", row_need=all_need), iters=5,
+                     warmup=1),
+                 bound_ms=b, bound_by=by, shape={"n": npad, "m": K, "d": d})]
+    r1 = lloyd_row(Xd, wd, C)
+    r1["name"] = "K1-kdd-bf16"
+    return with_launches([r1], l_f) + with_launches(rows, l_b), out
+
+
+def precision_sparse_glm(dev, errs):
+    """``precision-sparse-glm``: the sparse cell's host container (drawn
+    once) staged with bf16 values under ``precision="bf16"``, then
+    ``LogisticRegression(solver="lbfgs", max_iter=3)`` and ``score``: K6
+    and K6-b in bf16. Gates: accuracy above 0.55; coefficients within
+    5e-2 of the f32 fit; a second fit the same bits; one L-BFGS step
+    through the kernels and through the plain versions from a shared
+    carry, the same coefficients bit for bit. Then K6 and K6-b at the
+    full container against their plain versions, and their timings."""
+    import torch
+
+    from dask_ml_tpu_torch import config_context
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.linear_model.glm import add_intercept
+    from dask_ml_tpu_torch.models import glm as glm_core
+    from dask_ml_tpu_torch.ops import sparse as sps
+    from dask_ml_tpu_torch.parallel.sharding import prepare_data
+
+    X, y = drawn("sparse_glm", sparse_glm_data)
+    f32 = LogisticRegression(solver="lbfgs", max_iter=GLM_ITERS).fit(X, y)
+    Xs, ys = X[:GLM_SCORE_N], y[:GLM_SCORE_N]
+    with config_context(precision="bf16"):
+        est, sec, l_fit = drive(lambda: LogisticRegression(
+            solver="lbfgs", max_iter=GLM_ITERS).fit(X, y))
+        acc, score_s, l_score = drive(lambda: est.score(Xs, ys))
+        again = LogisticRegression(solver="lbfgs",
+                                   max_iter=GLM_ITERS).fit(X, y)
+        data = prepare_data(X, y=y, device=dev)
+    expect_launches("precision-sparse-glm", l_fit)
+    expect(l_score["spmv_bf16"] + l_score["spmv_l2_bf16"] == 1,
+           f"bf16 score launches {l_score}")
+    coef_rel = float(np.linalg.norm(est._coef - f32._coef)
+                     / np.linalg.norm(f32._coef))
+    out = {"n": GLM_N, "d": GLM_D, "seconds": sec, "score_s": score_s,
+           "accuracy": acc,
+           "accuracy_f32": f32.score(Xs, ys), "coef_rel_vs_f32": coef_rel,
+           "second_fit_equal": bool(np.array_equal(again._coef, est._coef)),
+           "phases": est.fit_phase_seconds_}
+    expect(acc > 0.55, f"bf16 sparse accuracy {acc}")
+    expect(coef_rel <= P_COEF_RTOL, f"bf16 sparse coefficients {coef_rel} "
+           f"from the f32 fit's")
+    expect(out["second_fit_equal"], "two bf16 sparse fits differ")
+    Xd = add_intercept(data.X)
+    data.X = None
+    expect(Xd.values.dtype == torch.bfloat16 and Xd.cols.dtype == torch.int32,
+           f"staged {Xd.values.dtype} values, {Xd.cols.dtype} cols")
+    d = Xd.d
+    mask = torch.ones(d, device=dev)
+    mask[-1] = 0.0
+    b0 = torch.zeros(d, device=dev)
+
+    def lbfgs(kernel, **kw):
+        return glm_core.lbfgs(Xd, data.y, data.weights, b0, mask,
+                              lamduh=1.0 / est.C, tol=est.tol, kernel=kernel,
+                              **kw)
+
+    _, _, state, _ = lbfgs("cuda", max_iter=0, return_state=True)
+    for it in range(GLM_ITERS):
+        steps = [lbfgs(kn, max_iter=1, state=state, return_state=True)[2]
+                 for kn in ("cuda", "torch")]
+        expect(torch.equal(steps[0][0], steps[1][0]),
+               f"bf16 sparse step {it}: kernel and plain steps differ")
+        state = steps[0]
+    out["steps_equal"] = GLM_ITERS
+    path_line("precision-sparse-glm", sec, est.n_iter_, l_fit,
+              score_launches=l_score, **out)
+    out["n_iter"] = est.n_iter_
+    # the two kernels at the full container
+    n, k = Xd.values.shape
+    v = torch.as_tensor(est._coef, device=dev)
+    r = (torch.sigmoid(sps._spmv_cuda(Xd.values, Xd.cols, v)) - data.y) / n
+    fk = sps._spmv_cuda(Xd.values, Xd.cols, v)
+    fp = sps._spmv_ref(Xd.values, Xd.cols, v)
+    errs["K6-bf16"] = float((fk - fp).abs().max())
+    scale = sps.matvec(sps.SparseRows(Xd.values.abs(), Xd.cols, d),
+                       v.to(torch.bfloat16).float().abs(), kernel="torch")
+    expect(bool(((fk - fp).abs() <= k * 2.0 ** -23 * scale + 1e-30).all()),
+           "bf16 K6 at the container: beyond its rounding bound")
+    gk = sps._pullback_cuda(Xd.values, Xd.cols, r, d)
+    gp = sps._pullback_ref(Xd.values, Xd.cols, r, d)
+    errs["K6-b-bf16"] = float((gk - gp).abs().max())
+    # the function summed in float64: the bf16 values times the f32 r
+    g64 = torch.zeros(d, dtype=torch.float64, device=dev)
+    for s in range(0, n, 1 << 20):
+        prods = (Xd.values[s:s + (1 << 20)].double()
+                 * r[s:s + (1 << 20), None].double())
+        g64.index_add_(0, Xd.cols[s:s + (1 << 20)].reshape(-1),
+                       prods.reshape(-1))
+    # the gates of the f32 pullback (pullback_accuracy): the columns before
+    # the intercept's within 1e-5 normwise, the intercept's within 1e-3
+    acc_k = {"other_columns_normwise_err": rel(gk[:-1], g64[:-1]),
+             "last_column_rel_err": float((gk[-1].double() - g64[-1]).abs()
+                                          / g64[-1].abs())}
+    acc_p = {"other_columns_normwise_err": rel(gp[:-1], g64[:-1]),
+             "last_column_rel_err": float((gp[-1].double() - g64[-1]).abs()
+                                          / g64[-1].abs())}
+    out.update(pullback_vs_f64=acc_k, plain_pullback_vs_f64=acc_p)
+    expect(acc_k["other_columns_normwise_err"] <= 1e-5
+           and acc_k["last_column_rel_err"] <= 1e-3,
+           f"bf16 K6-b at the container against the float64 sum of its "
+           f"rounded products: {acc_k}")
+    expect_repeats("bf16 K6-b at the container",
+                   lambda: sps._pullback_cuda(Xd.values, Xd.cols, r, d), gk)
+    nbytes = n * k * (2 + 4) + 4 * (d + n)
+    b, by = bound(nbytes, 2 * n * k, Xd.values.dtype)
+    rows = [dict(name="K6-bf16",
+                 ms=cuda_ms(lambda: sps._spmv_cuda(Xd.values, Xd.cols, v),
+                            iters=10, warmup=2),
+                 plain_ms=cuda_ms(lambda: sps._spmv_ref(Xd.values, Xd.cols,
+                                                        v), iters=3, warmup=1),
+                 bound_ms=b, bound_by=by,
+                 cluster=sps.dvector_plan(n, k, d),
+                 shape={"n": n, "k": k, "d": d}),
+            dict(name="K6-b-bf16",
+                 ms=cuda_ms(lambda: sps._pullback_cuda(Xd.values, Xd.cols, r,
+                                                       d), iters=10,
+                            warmup=2),
+                 plain_ms=cuda_ms(lambda: sps._pullback_ref(
+                     Xd.values, Xd.cols, r, d), iters=3, warmup=1),
+                 bound_ms=b, bound_by=by,
+                 cluster=sps.dvector_plan(n, k, d, pullback=True),
+                 shape={"n": n, "k": k, "d": d})]
+    log("    K6 bf16 library: none (cuSPARSE's bf16 SpMV through torch.mv "
+        "returns bf16, not the f32 sums of the kernel)")
+    del Xd, data, r, fk, fp, gk, gp, g64, scale
+    launches = {key: l_fit[key] + l_score[key] for key in l_fit}
+    return (with_launches(rows[:1], launches)
+            + with_launches(rows[1:], l_fit)), out
+
+
+def precision_dense_glm(dev):
+    """``precision-dense-glm``: ``LogisticRegression(solver="lbfgs",
+    max_iter=DG_ITERS)`` on a dense X at the dense GLM bench's shape,
+    drawn on the card, in f32 and in bf16 (X staged in bf16 once, as
+    ``prepare_data`` stages it), fitted in turns (f32, bf16, bf16, f32).
+    No kernel of the repo runs: every contraction is ``pmatmul`` (one
+    bf16-in / f32-out GEMM) or ``pullback_matmul`` (the f32 cotangent
+    split into three bf16 columns). Gates: bf16 coefficients finite and
+    within 5e-2 of the f32 fit's. The two contractions are timed alone
+    with CUDA events beside the f32 product and the widened form (the
+    bf16 X copied to f32, then the f32 product)."""
+    import torch
+
+    from dask_ml_tpu_torch import config_context
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.parallel import precision as px
+
+    n, d = ADMM_N, ADMM_D
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 12)
+    X = torch.randn(n, d, generator=g, device=dev)
+    beta = torch.randn(d, generator=g, device=dev) / d ** 0.5
+    yd = (torch.rand(n, generator=g, device=dev)
+          < torch.sigmoid(X @ beta)).to(torch.float32)
+    y = yd.cpu().numpy()  # the facade encodes labels on the host
+    X16 = X.to(torch.bfloat16)
+    kw = dict(solver="lbfgs", max_iter=DG_ITERS)
+
+    def fit(prec, Xs):
+        with config_context(precision=prec):
+            return LogisticRegression(**kw).fit(Xs, y)
+
+    fit("f32", X)
+    fit("bf16", X16)
+    runs = {"f32": [], "bf16": []}
+    fits = {}
+    for prec, Xs in (("f32", X), ("bf16", X16), ("bf16", X16),
+                     ("f32", X)):
+        fits[prec], sec, _ = drive(lambda: fit(prec, Xs))
+        runs[prec].append(sec)
+    c32 = np.r_[fits["f32"].coef_, fits["f32"].intercept_]
+    c16 = np.r_[fits["bf16"].coef_, fits["bf16"].intercept_]
+    rel = float(np.linalg.norm(c16 - c32) / np.linalg.norm(c32))
+    expect(np.isfinite(c16).all() and rel <= P_COEF_RTOL,
+           f"dense bf16 L-BFGS coefficients {rel} from the f32 fit's")
+    v = beta.contiguous()
+    r = (torch.sigmoid(X @ beta) - yd).contiguous()
+    r2 = r[:, None]
+    contractions = {
+        "matvec": {"f32_ms": cuda_ms(lambda: X @ v),
+                   "bf16_ms": cuda_ms(lambda: px.pmatmul(X16, v)),
+                   "widened_ms": cuda_ms(lambda: X16.float() @ v.to(
+                       torch.bfloat16).float())},
+        "pullback": {"f32_ms": cuda_ms(lambda: X.T @ r),
+                     "bf16_ms": cuda_ms(lambda: px.pullback_matmul(X16.T,
+                                                                   r2)),
+                     "widened_ms": cuda_ms(lambda: X16.float().T @ r)}}
+    out = {"n": n, "d": d, "max_iter": DG_ITERS,
+           "f32_seconds": runs["f32"], "bf16_seconds": runs["bf16"],
+           "f32_n_iter": int(fits["f32"].n_iter_),
+           "coef_rel_to_f32": rel, "contractions": contractions}
+    path_line("precision-dense-glm", sum(runs["bf16"]) / 2,
+              int(fits["bf16"].n_iter_), {}, **out)
+    del X, X16, yd, r, r2
+    return [], out
+
+
+def wire_block_breakdown(blk, dev, reps: int = 3):
+    """Host-clock ms (the least of ``reps``) of the steps one bf16 wire
+    block takes in ``cast_wire(pin=True)`` and its copy, on one X block:
+    the whole cast, its parts (a pinned buffer's allocation, the cast
+    into it, the cast into pageable memory alone), the bf16 block's copy
+    to the card, and the f32 block's copy from page-locked memory."""
+    import torch
+
+    from dask_ml_tpu_torch.parallel import precision as px
+
+    t = torch.from_numpy(blk)
+    pinned = torch.empty(t.shape, dtype=torch.bfloat16, pin_memory=True)
+    f32_pinned = t.pin_memory()
+
+    def best(fn):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+
+    out = {"block_bytes_f32": t.numel() * 4,
+           "cast_wire_pinned": best(lambda: px.cast_wire(
+               (blk,), torch.bfloat16, pin=True)),
+           "pinned_alloc": best(lambda: torch.empty(
+               t.shape, dtype=torch.bfloat16, pin_memory=True)),
+           "cast_into_pinned": best(lambda: pinned.copy_(t)),
+           "cast_pageable": best(lambda: t.to(torch.bfloat16)),
+           "h2d_bf16_pinned": best(lambda: pinned.to(dev,
+                                                     non_blocking=True)),
+           "h2d_f32_pinned": best(lambda: f32_pinned.to(
+               dev, non_blocking=True))}
+    del pinned, f32_pinned
+    return out
+
+
+def wire_host_profile(run, top: int = 8):
+    """One run of ``run`` under ``torch.profiler`` with the telemetry
+    spans on: its wall ms, the host ms inside the ``stream.transfer``
+    spans (the wire cast and the copies' issue), the ATen operators' self
+    host ms and calls in all, the device's busy ms (kernels and copies),
+    and the ``top`` ATen operators by self host time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dask_ml_tpu_torch import config_context
+
+    with config_context(telemetry=True), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = prof.key_averages()
+    spans = [e for e in ev if e.key.startswith("stream.transfer")]
+    aten = [e for e in ev if e.key.startswith("aten::")]
+    ops = sorted(aten, key=lambda e: e.self_cpu_time_total,
+                 reverse=True)[:top]
+    busy = sum((getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
+               for e in ev if e.device_type == DeviceType.CUDA) / 1e3
+    return {"wall_ms": wall, "transfer_spans": sum(e.count for e in spans),
+            "transfer_host_ms": sum(e.cpu_time_total for e in spans) / 1e3,
+            "aten_self_host_ms": sum(e.self_cpu_time_total
+                                     for e in aten) / 1e3,
+            "aten_calls": sum(e.count for e in aten),
+            "device_busy_ms": busy,
+            "top_self_host_ms": {e.key: e.self_cpu_time_total / 1e3
+                                 for e in ops}}
+
+
+def precision_stream(dev, tmp):
+    """``precision-stream``: step 10's host-streamed ADMM (the dense ADMM
+    cell's arrays in 8 blocks) and streamed PCA (the PCA cell's arrays)
+    under the bf16 wire, each beside its f32 run. Gates: wire bytes ≤
+    logical / 1.8; ADMM coefficients within 5e-2 and the top explained
+    variances within 2e-2 of the f32 runs; the moments of the bf16 blocks
+    within 1e-5 of their float64 moments (compensated sums); a bf16 ADMM
+    run preempted and resumed, and a bf16 moment pass preempted and
+    resumed, bit for bit. GB/s as both wire and logical bytes, and the
+    host-side steps of one ADMM wire block (:func:`wire_block_breakdown`)
+    and a profile of one f32 and one bf16 ADMM run
+    (:func:`wire_host_profile`)."""
+    import os
+
+    import torch
+
+    from dask_ml_tpu_torch import config_context
+    from dask_ml_tpu_torch.decomposition.streaming import (pca_fit_blocks,
+                                                           streamed_moments)
+    from dask_ml_tpu_torch.models import glm as glm_core
+    from dask_ml_tpu_torch.parallel.faults import FaultInjector, Preempted
+    from dask_ml_tpu_torch.parallel.stream import HostBlockSource
+
+    Xa, ya = drawn("admm", lambda: admm_data(SEED))
+    Xp = drawn("pca", lambda: pca_data(SEED))
+    B = HOST_BLOCKS
+    out = {}
+    # -- ADMM --------------------------------------------------------------
+    n, d = Xa.shape
+    w = np.ones(n, np.float32)
+    kw = dict(family="logistic", regularizer="l2", lamduh=1.0, abstol=0.0,
+              reltol=0.0, max_iter=HOST_OUTER, return_state=True)
+    src32 = HostBlockSource((Xa, ya, w), B, storage_dtype=None)
+    with config_context(precision="bf16"):
+        src16 = HostBlockSource((Xa, ya, w), B)
+    expect(src16.storage_dtype == torch.bfloat16, "the wire is not bf16")
+    runs = {}
+    steps = {}
+    for name, src in (("f32", src32), ("bf16", src16), ("bf16", src16),
+                      ("f32", src32)):
+        src.reset_stats()
+        glm_core.reset_host_reads()
+        (_, it, st, _), sec, _ = drive(lambda: glm_core.admm_streamed(
+            src, B, d, float(n), **kw))
+        steps[name] = glm_core.host_reads["newton_steps"]
+        runs.setdefault(name, []).append(
+            (sec, st, src.bytes_streamed, src.logical_bytes_streamed))
+    (s32, st32, w32, _), (s16, st16, w16, l16) = (
+        min(runs["f32"], key=lambda t: t[0]),
+        min(runs["bf16"], key=lambda t: t[0]))
+    expect(all(states_equal(st16, t[1]) for t in runs["bf16"]),
+           "two bf16 streamed ADMM runs differ")
+    for a in st16:
+        expect(a.dtype == torch.float32, f"bf16 ADMM state {a.dtype}")
+    admm = {"n": n, "d": d, "blocks": B, "outer": HOST_OUTER,
+            "seconds_f32": s32, "seconds_bf16": s16,
+            "wire_bytes_f32": w32, "wire_bytes_bf16": w16,
+            "logical_bytes_bf16": l16, "wire_reduction": l16 / w16,
+            "wire_gbps_f32": w32 / s32 / 1e9,
+            "wire_gbps_bf16": w16 / s16 / 1e9,
+            "logical_gbps_bf16": l16 / s16 / 1e9,
+            "coef_rel_vs_f32": rel(st16[0], st32[0]),
+            "newton_steps_f32": steps["f32"],
+            "newton_steps_bf16": steps["bf16"]}
+    admm["wire_block_ms"] = wire_block_breakdown(Xa[:n // B], dev)
+    for name, src in (("f32", src32), ("bf16", src16)):
+        admm[f"profile_{name}"] = wire_host_profile(
+            lambda: glm_core.admm_streamed(src, B, d, float(n), **kw))
+    expect(l16 / w16 >= P_WIRE, f"bf16 ADMM wire reduction {l16 / w16}")
+    expect(admm["coef_rel_vs_f32"] <= P_COEF_RTOL,
+           f"bf16 ADMM coefficients {admm['coef_rel_vs_f32']} from f32")
+    path = f"{tmp}/admm-bf16.ckpt"
+    inj = FaultInjector().preempt_at(5, epoch=1)
+    with config_context(precision="bf16"):
+        try:
+            glm_core.admm_streamed(HostBlockSource((Xa, ya, w), B,
+                                                   fault_injector=inj),
+                                   B, d, float(n), checkpoint_path=path,
+                                   **kw)
+            raise Mismatch("the injected preemption did not stop the fit")
+        except Preempted:
+            pass
+    expect(os.path.exists(path), "no bf16 snapshot after the preemption")
+    _, _, st_r, _ = glm_core.admm_streamed(src16, B, d, float(n),
+                                           checkpoint_path=path, **kw)
+    admm["resumed_equal"] = states_equal(st16, st_r)
+    expect(admm["resumed_equal"], "bf16 streamed ADMM: the resume differs")
+    path_line("precision-stream-admm", s16, HOST_OUTER, {}, **admm)
+    out["admm"] = admm
+    src32.close()
+    src16.close()
+    torch.cuda.empty_cache()
+    # -- PCA ---------------------------------------------------------------
+    n, d = Xp.shape
+    w = np.ones(n, np.float32)
+    src32 = HostBlockSource((Xp, w), B, storage_dtype=None)
+    with config_context(precision="bf16"):
+        src16 = HostBlockSource((Xp, w), B)
+    m32, s32, _ = drive(lambda: streamed_moments(block_fn=src32,
+                                                 n_blocks=B))
+    w32 = src32.bytes_streamed
+    src16.reset_stats()
+    m16, s16, _ = drive(lambda: streamed_moments(block_fn=src16,
+                                                 n_blocks=B))
+    w16, l16 = src16.bytes_streamed, src16.logical_bytes_streamed
+    Xr = torch.from_numpy(Xp).to(dev).to(torch.bfloat16).double()
+    want = (torch.tensor(float(n), dtype=torch.float64, device=dev),
+            Xr.sum(0), Xr.T @ Xr)
+    del Xr
+    torch.cuda.empty_cache()
+    m_rel = [rel(a.double(), b) for a, b in zip(m16, want)]
+    e32 = pca_fit_blocks(src32, B, PCA_K)
+    e16 = pca_fit_blocks(src16, B, PCA_K)
+    ev = (np.abs(e16.explained_variance_ - e32.explained_variance_)
+          / e32.explained_variance_)
+    pth = f"{tmp}/moments-bf16.ckpt"
+    inj = FaultInjector().preempt_at(3)
+    with config_context(precision="bf16"):
+        try:
+            streamed_moments(block_fn=HostBlockSource(
+                (Xp, w), B, fault_injector=inj), n_blocks=B,
+                checkpoint_path=pth, checkpoint_every=2)
+            raise Mismatch("the injected preemption did not stop the pass")
+        except Preempted:
+            pass
+    resumed = streamed_moments(block_fn=src16, n_blocks=B,
+                               checkpoint_path=pth)
+    pca = {"n": n, "d": d, "blocks": B, "seconds_f32": s32,
+           "seconds_bf16": s16, "wire_bytes_f32": w32,
+           "wire_bytes_bf16": w16, "logical_bytes_bf16": l16,
+           "wire_reduction": l16 / w16, "wire_gbps_f32": w32 / s32 / 1e9,
+           "wire_gbps_bf16": w16 / s16 / 1e9,
+           "logical_gbps_bf16": l16 / s16 / 1e9,
+           "moments_rel_vs_f64_of_rounded": m_rel,
+           "top64_explained_variance_rel": float(ev[:PCA_RANK].max()),
+           "all_explained_variance_rel": float(ev.max()),
+           "resumed_equal": states_equal(m16, resumed)}
+    path_line("precision-stream-pca", s16, None, {}, **pca)
+    expect(l16 / w16 >= P_WIRE, f"bf16 PCA wire reduction {l16 / w16}")
+    expect(max(m_rel) <= MOMENT_RTOL, f"bf16 streamed moments {m_rel}")
+    expect(pca["top64_explained_variance_rel"] <= P_VAR_RTOL,
+           "bf16 streamed PCA variances "
+           f"{pca['top64_explained_variance_rel']}")
+    expect(pca["resumed_equal"], "bf16 streamed moments: the resume differs")
+    out["pca"] = pca
+    src32.close()
+    src16.close()
+    return out
+
+
+def precision_cells(dev, f32_inertia=None):
+    """The PRECISION phase: the bf16 kernel checks, then the four cells
+    (``precision-blobs``, ``precision-kdd``, ``precision-sparse-glm``,
+    ``precision-stream``), each path's launches reset just before it and
+    read just after. Returns (the kernels line's bf16 rows, summary)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    precision_kernel_checks(dev)
+    log(f"PRECISION kernel checks: bf16 K1-K6 match their plain versions "
+        f"and K1-K5 the f32 kernels on X widened "
+        f"({time.perf_counter() - t0:.2f} s)")
+    errs = {}
+    summary = {}
+    rows = []
+    for name, cell in (("blobs", lambda: precision_blobs(dev, errs,
+                                                         f32_inertia)),
+                       ("kdd", lambda: precision_kdd(dev, errs)),
+                       ("sparse_glm", lambda: precision_sparse_glm(dev,
+                                                                   errs)),
+                       ("dense_glm", lambda: precision_dense_glm(dev))):
+        torch.cuda.empty_cache()
+        r, summary[name] = cell()
+        rows += r
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_precision_")
+    try:
+        torch.cuda.empty_cache()
+        summary["stream"] = precision_stream(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows = bf16_rows(rows, errs)
+    missing = [r["name"] for r in rows if r["launches"] == 0]
+    expect(not missing, f"bf16 rows never launched on their paths: "
+           f"{missing}")
+    for r in rows:
+        log(f"  {r['name']:12s} {r['ms']:.4f} ms  bound {r['bound_ms']:.4f}"
+            f" ms ({r['bound_by']})  plain {r['plain_ms']:.4f} ms  "
+            f"launches {r['launches']}  max_abs_err {r['max_abs_err']:.3e}")
+    summary["seconds"] = time.perf_counter() - t0
+    log("PRECISION " + json.dumps(summary))
+    return rows, summary
+
+
 def main() -> int:
     import torch
 
@@ -4445,6 +5485,14 @@ def main() -> int:
         asha_errs = {}
         asha_cells(dev, asha_errs)
         log("ASHA max_abs_err " + json.dumps(asha_errs))
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+        return 0
+
+    if "--precision-only" in sys.argv[1:]:
+        rows, _ = precision_cells(dev)
+        print(json.dumps({"kernels": rows}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": count}}), flush=True)
@@ -4567,6 +5615,7 @@ def main() -> int:
            "lloyd_loop_ms_per_iter": loop_ms, "ari": score,
            "inertia": km.inertia_, "launches": launches}
     log("FIT " + json.dumps(fit))
+    blobs_inertia = km.inertia_
     del data, Xd, wd, X
     torch.cuda.empty_cache()
 
@@ -4644,6 +5693,10 @@ def main() -> int:
         if r["name"] in asha_errs:
             r["max_abs_err_asha"] = asha_errs[r["name"]]
             r["max_abs_err"] = max(r["max_abs_err"], asha_errs[r["name"]])
+    torch.cuda.empty_cache()
+
+    bf16, _ = precision_cells(dev, f32_inertia=blobs_inertia)
+    rows += bf16
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

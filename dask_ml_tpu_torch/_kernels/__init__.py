@@ -12,22 +12,18 @@ from __future__ import annotations
 
 import threading
 
+_F32_KERNELS = ("lloyd_iter", "fused_argmin_min", "fused_rowwise_min",
+                "fused_argmin_weight", "fused_argmin_min2",
+                "fused_argmin_min_sketched", "spmv", "spmv_l2",
+                "spmv_pullback", "spmv_pullback_l2")
+
 #: launches per kernel wrapper (K1: lloyd_iter; K2-K5: fused distance;
 #: the sketched assignment is K2 with a caller-supplied |x|²; K6: spmv and
 #: spmv_pullback with the d-vector in shared memory, spmv_l2 and
-#: spmv_pullback_l2 with it in L2)
-launches = {
-    "lloyd_iter": 0,
-    "fused_argmin_min": 0,
-    "fused_rowwise_min": 0,
-    "fused_argmin_weight": 0,
-    "fused_argmin_min2": 0,
-    "fused_argmin_min_sketched": 0,
-    "spmv": 0,
-    "spmv_l2": 0,
-    "spmv_pullback": 0,
-    "spmv_pullback_l2": 0,
-}
+#: spmv_pullback_l2 with it in L2). Each has a ``_bf16`` twin, counted
+#: where the wrapper launches the kernel's bf16 case (bf16 X or values)
+launches = {name + suffix: 0 for name in _F32_KERNELS
+            for suffix in ("", "_bf16")}
 
 
 _launches_lock = threading.Lock()

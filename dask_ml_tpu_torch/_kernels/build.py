@@ -41,27 +41,28 @@ SIGNATURES = {
     "fused_distance": {
         "dml_fused_rows_per_block": ([], _I),
         "dml_fused_distance": (
-            [_I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
-             _P, _P],
+            [_I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P,
+             _P, _P, _P],
             _I),
     },
     "lloyd": {
         "dml_lloyd_max_partials": ([], _I),
-        "dml_lloyd_supported": ([_I, _I], _I),
-        "dml_lloyd_iter": ([_P, _P, _P, _P, _I, _I, _I, _P, _P, _P], _I),
+        "dml_lloyd_supported": ([_I, _I, _I], _I),
+        "dml_lloyd_iter": ([_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P], _I),
     },
     "spmv": {
         "dml_spmv_lanes": ([_I], _I),
         "dml_spmv_tile_rows": ([_I], _I),
-        "dml_spmv": ([_P, _P, _P, _L, _I, _P, _P], _I),
+        "dml_spmv": ([_P, _I, _P, _P, _L, _I, _P, _P], _I),
         "dml_spmv_smem": (
-            [_P, _P, _P, _L, _I, _I, _I, _P, _P, _P], _I),
-        "dml_spmv_pullback_clusters": ([_L, _I, _I, _I], _I),
-        "dml_spmv_absmax": ([_P, _L, _P, _P], _I),
+            [_P, _I, _P, _P, _L, _I, _I, _I, _P, _P, _P], _I),
+        "dml_spmv_pullback_clusters": ([_L, _I, _I, _I, _I], _I),
+        "dml_spmv_absmax": ([_P, _I, _L, _P, _P], _I),
         "dml_spmv_pullback_smem": (
-            [_P, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P], _I),
+            [_P, _I, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+            _I),
         "dml_spmv_pullback_atomic": (
-            [_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P], _I),
+            [_P, _I, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P], _I),
     },
 }
 

@@ -70,6 +70,17 @@
 // What is left between it and the bound (PERF.md): X's staging adds to
 // the FMA time instead of hiding under it; the 4-byte copies and the score
 // loop's shared loads go through one load/store pipe, the likely reason.
+//
+// bf16 X (the JAX kernel's bf16 case: Y cast to X's dtype for -2 x.y, |y|^2
+// in f32 from the original Y, f32 accumulation). Only the staging of X
+// changes: a 2-byte element cannot be copied alone by cp.async, so a bf16
+// X tile is loaded with plain 2-byte loads and widened to f32 as it is
+// written to shared memory, and everything after it is the f32 kernel. The
+// caller passes Y already rounded to bf16 and widened back to f32, and
+// |y|^2 from the original Y. A product of two bf16 values is exact in f32,
+// so on any data the bf16 kernel gives the bits of the f32 kernel run on
+// X rounded to bf16 and widened back.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -139,6 +150,40 @@ __device__ __forceinline__ void stage_transposed(float* dst, int stride,
   }
 }
 
+// the same walk over a bf16 matrix with plain 2-byte loads (cp.async
+// copies 4 bytes at least), SU of them issued before any is stored, each
+// widened to f32 as it is stored (a bf16 is the high half of its f32)
+template <int R>
+__device__ __forceinline__ void stage_transposed(float* dst, int stride,
+                                                 const __nv_bfloat16* src,
+                                                 int nr, int d, int f0,
+                                                 int fc) {
+  constexpr int SU = 8;
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+  const int total = R * fc;
+  const int dq = THREADS / fc, dr = THREADS - dq * fc;
+  int rr = threadIdx.x / fc, ff = threadIdx.x - rr * fc;
+  for (int e0 = threadIdx.x; e0 < total; e0 += SU * THREADS) {
+    unsigned short v[SU];
+    int at[SU];
+#pragma unroll
+    for (int u = 0; u < SU; ++u) {
+      const bool live = e0 + u * THREADS < total;
+      at[u] = live ? ff * stride + rr : -1;
+      v[u] = live && rr < nr ? __ldg(s + (long)rr * d + f0 + ff) : 0;
+      rr += dq;
+      ff += dr;
+      if (ff >= fc) {
+        ff -= fc;
+        ++rr;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < SU; ++u)
+      if (at[u] >= 0) dst[at[u]] = __uint_as_float((unsigned)v[u] << 16);
+  }
+}
+
 // fold (ob, os, oi) into (b, s, i): the lower (value, index) pair wins and
 // the second-best is the least value of both but the winner's
 __device__ __forceinline__ void merge_pair(float& b, float& s, int& i,
@@ -170,10 +215,10 @@ struct Tile {
 };
 
 // TR rows x TC targets of scores a thread; the TG threads of a row are
-// neighbouring lanes
-template <int EPI, int TR, int TC, int TG>
+// neighbouring lanes; TX is X's element type (float or __nv_bfloat16)
+template <int EPI, int TR, int TC, int TG, typename TX>
 __global__ void __launch_bounds__(THREADS)
-fused_distance_kernel(const float* __restrict__ X, const float* __restrict__ Y,
+fused_distance_kernel(const TX* __restrict__ X, const float* __restrict__ Y,
                       const float* __restrict__ y2,
                       const float* __restrict__ maskf,
                       const unsigned char* __restrict__ gneed, int group_rows,
@@ -477,14 +522,14 @@ cw_reduce_kernel(const float* __restrict__ cw_part,
   if (tid == 0) cw[j] = maskf[j] > 0.f ? red[0] : 0.f;
 }
 
-template <int EPI, int TR, int TC, int TG>
-int launch_tile(cudaStream_t s, const float* X, const float* Y,
+template <int EPI, int TR, int TC, int TG, typename TX>
+int launch_tile(cudaStream_t s, const TX* X, const float* Y,
                 const float* y2, const float* maskf, const unsigned char* gneed,
                 int group_rows, const float* x2ext, const float* w, int n,
                 int m, int d, int* am, float* mn, float* mn2, float* cw_part,
                 int* nb) {
   using T = Tile<TR, TC, TG>;
-  auto kernel = fused_distance_kernel<EPI, TR, TC, TG>;
+  auto kernel = fused_distance_kernel<EPI, TR, TC, TG, TX>;
   // above 48 KB a block's shared memory must be granted, once per kernel
   static bool granted = T::SMEM <= 48 * 1024;
   if (!granted) {
@@ -505,20 +550,20 @@ int launch_tile(cudaStream_t s, const float* X, const float* Y,
 // block; m <= 128, 8 rows x 4 targets a thread and 16 targets a tile (a
 // k-means|| round's usual 16 valid candidates are one tile), 256 rows a
 // block; beyond, 8 rows x 8 targets a thread and 32 targets a tile
-template <int EPI>
-int launch(cudaStream_t s, const float* X, const float* Y, const float* y2,
+template <int EPI, typename TX>
+int launch(cudaStream_t s, const TX* X, const float* Y, const float* y2,
            const float* maskf, const unsigned char* gneed, int group_rows,
            const float* x2ext, const float* w, int n, int m, int d, int* am,
            float* mn, float* mn2, float* cw_part, int* nb) {
   if (m <= 8)
-    return launch_tile<EPI, 1, 8, 1>(s, X, Y, y2, maskf, gneed, group_rows,
+    return launch_tile<EPI, 1, 8, 1, TX>(s, X, Y, y2, maskf, gneed, group_rows,
                                      x2ext, w, n, m, d, am, mn, mn2, cw_part,
                                      nb);
   if (m <= 128)
-    return launch_tile<EPI, 8, 4, 4>(s, X, Y, y2, maskf, gneed, group_rows,
+    return launch_tile<EPI, 8, 4, 4, TX>(s, X, Y, y2, maskf, gneed, group_rows,
                                      x2ext, w, n, m, d, am, mn, mn2, cw_part,
                                      nb);
-  return launch_tile<EPI, 8, 8, 4>(s, X, Y, y2, maskf, gneed, group_rows,
+  return launch_tile<EPI, 8, 8, 4, TX>(s, X, Y, y2, maskf, gneed, group_rows,
                                    x2ext, w, n, m, d, am, mn, mn2, cw_part,
                                    nb);
 }
@@ -528,15 +573,31 @@ int launch(cudaStream_t s, const float* X, const float* Y, const float* y2,
 // the fewest rows a block takes: cw_part sized with it fits every tile
 extern "C" int dml_fused_rows_per_block() { return MIN_ROWS; }
 
-// All pointers are device pointers; X (n, d) and Y (m, d) row-major f32.
+// the launch of one epilogue for X's element type
+template <int EPI>
+int launch_x(int xbf16, cudaStream_t s, const void* X, const float* Y,
+             const float* y2, const float* maskf, const unsigned char* gneed,
+             int group_rows, const float* x2ext, const float* w, int n, int m,
+             int d, int* am, float* mn, float* mn2, float* cw_part, int* nb) {
+  if (xbf16)
+    return launch<EPI>(s, static_cast<const __nv_bfloat16*>(X), Y, y2, maskf,
+                       gneed, group_rows, x2ext, w, n, m, d, am, mn, mn2,
+                       cw_part, nb);
+  return launch<EPI>(s, static_cast<const float*>(X), Y, y2, maskf, gneed,
+                     group_rows, x2ext, w, n, m, d, am, mn, mn2, cw_part, nb);
+}
+
+// All pointers are device pointers; X (n, d) row-major, f32 or (xbf16 != 0)
+// bf16, and Y (m, d) row-major f32 (for bf16 X: Y rounded to bf16).
 // Outputs: am (n,) int32 for the argmin epilogues, mn (n,) f32 for all but
 // EPI_ARGMIN_WEIGHT, mn2 (n,) f32 for EPI_ARGMIN_MIN2, cw_part
 // (m, ceil(n / dml_fused_rows_per_block())) scratch and cw (m,) for
 // EPI_ARGMIN_WEIGHT. gneed (ceil(n / group_rows),) uint8 or null and x2ext
 // (n,) f32 or null, both refused by EPI_ARGMIN_WEIGHT. Returns
 // cudaGetLastError() after the launches.
-extern "C" int dml_fused_distance(int epilogue, const float* X, const float* Y,
-                                  const float* y2, const float* maskf,
+extern "C" int dml_fused_distance(int epilogue, const void* X, int xbf16,
+                                  const float* Y, const float* y2,
+                                  const float* maskf,
                                   const unsigned char* gneed, int group_rows,
                                   const float* x2ext, const float* w, int n,
                                   int m, int d, int* am, float* mn, float* mn2,
@@ -547,28 +608,26 @@ extern "C" int dml_fused_distance(int epilogue, const float* X, const float* Y,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int nb = 0, err = 0;
+#define DML_EPI(E)                                                      \
+  launch_x<E>(xbf16, s, X, Y, y2, maskf, gneed, group_rows, x2ext, w, n, m, \
+              d, am, mn, mn2, cw_part, &nb)
   switch (epilogue) {
     case EPI_MIN:
-      err = launch<EPI_MIN>(s, X, Y, y2, maskf, gneed, group_rows, x2ext, w,
-                            n, m, d, am, mn, mn2, cw_part, &nb);
+      err = DML_EPI(EPI_MIN);
       break;
     case EPI_ARGMIN_MIN:
-      err = launch<EPI_ARGMIN_MIN>(s, X, Y, y2, maskf, gneed, group_rows,
-                                   x2ext, w, n, m, d, am, mn, mn2, cw_part,
-                                   &nb);
+      err = DML_EPI(EPI_ARGMIN_MIN);
       break;
     case EPI_ARGMIN_WEIGHT:
-      err = launch<EPI_ARGMIN_WEIGHT>(s, X, Y, y2, maskf, nullptr, 1, nullptr,
-                                      w, n, m, d, am, mn, mn2, cw_part, &nb);
+      err = DML_EPI(EPI_ARGMIN_WEIGHT);
       if (err == 0) cw_reduce_kernel<<<m, RED, 0, s>>>(cw_part, maskf, nb, cw);
       break;
     case EPI_ARGMIN_MIN2:
-      err = launch<EPI_ARGMIN_MIN2>(s, X, Y, y2, maskf, gneed, group_rows,
-                                    x2ext, w, n, m, d, am, mn, mn2, cw_part,
-                                    &nb);
+      err = DML_EPI(EPI_ARGMIN_MIN2);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef DML_EPI
   return err != 0 ? err : (int)cudaGetLastError();
 }

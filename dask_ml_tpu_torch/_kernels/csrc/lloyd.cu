@@ -51,6 +51,20 @@
 // phase waits at a block barrier). With d % 8 == 0 a warp's 16-byte row
 // reads in the score loop conflict in shared memory; no timed shape has
 // such a d yet.
+//
+// bf16 X (the JAX kernel's bf16 case: C cast to X's dtype in the product,
+// |c|^2 from the f32 C, sums of X widened to f32). The ring holds the
+// tile's bf16 elements as they lie in X (half the bytes; the layout is the
+// f32 kernel's wherever that fits, and dml_lloyd_supported counts 2 bytes
+// an element beyond it), copied in 16-byte
+// pieces with a tail of plain 2-byte copies (a bf16 row of d = 50 is 100
+// bytes: only the whole tile is 16-byte aligned, never its rows); every
+// element is widened to f32 where it is read, in the score loop (one
+// element at a time) and in the M-step. The caller passes C already
+// rounded to bf16 and widened back, and c2 from the f32 C. A product of two
+// bf16 values is exact in f32, so on any data the bf16 kernel gives the
+// bits of the f32 kernel run on X rounded to bf16 and widened back.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stddef.h>
@@ -83,12 +97,19 @@ __host__ __device__ inline bool acc_in_ring(bool reg, size_t acc_f,
   return reg && acc_f <= ring_f;
 }
 
-size_t smem_bytes(bool reg, int T, int groups, int nbuf, int k, int d) {
+// bytes of the ring of nbuf tiles of T rows of X, xb bytes an element (a
+// multiple of 16: T is 128 or 256)
+__host__ __device__ inline size_t ring_bytes(int nbuf, int T, int d, int xb) {
+  return (size_t)nbuf * T * d * xb;
+}
+
+size_t smem_bytes(bool reg, int T, int groups, int nbuf, int k, int d,
+                  int xb) {
   const size_t kp = reg ? KC : padded_k(k);
-  const size_t ring = (size_t)nbuf * T * d;
+  const size_t ring = ring_bytes(nbuf, T, d, xb);
   const size_t acc = (size_t)groups * k * (d + 1);
-  return sizeof(float) * (ring + (size_t)d * kp + kp + 2 * (size_t)T +
-                          (acc_in_ring(reg, acc, ring) ? 0 : acc));
+  return ring + sizeof(float) * ((size_t)d * kp + kp + 2 * (size_t)T +
+                                 (acc_in_ring(reg, acc, ring / 4) ? 0 : acc));
 }
 
 // register sums: a thread's CPT columns are q, q + ncq, q + 2 ncq, ...
@@ -101,11 +122,18 @@ __host__ __device__ inline int column_quads(int d) {
 // 128-row tile, a shared (k, d + 1) accumulator), so every (k, d) that
 // design took still runs here. X's alignment picks only the copies, so
 // whether (k, d) runs at all does not depend on it
-bool make_plan(int k, int d, bool aligned, Plan* p) {
+bool make_plan(int k, int d, bool aligned, int xb, Plan* p) {
   if (k < 1 || d < 1) return false;
+  // bf16 X takes the f32 kernel's layout (threads, row groups, buffers)
+  // wherever that fits, so that it sums in the f32 kernel's order and
+  // gives its bits on X widened; only beyond, the 2-byte budget's own
+  if (xb != 4 && make_plan(k, d, aligned, 4, p)) {
+    p->smem = smem_bytes(p->reg, p->threads, p->groups, p->nbuf, k, d, xb);
+    return true;
+  }
   if (k <= KC && column_quads(d) <= T_REG) {
     const int g = T_REG / column_quads(d);
-    const size_t b = smem_bytes(true, T_REG, g, 2, k, d);
+    const size_t b = smem_bytes(true, T_REG, g, 2, k, d, xb);
     if (b <= MAX_DYN_SMEM) {
       *p = Plan{true, T_REG, g, 2, aligned, b};
       return true;
@@ -114,7 +142,7 @@ bool make_plan(int k, int d, bool aligned, Plan* p) {
   const int ncol = d + 1 < T_SMEM ? d + 1 : T_SMEM;
   const int tries[3][2] = {{T_SMEM / ncol, 2}, {1, 2}, {1, 1}};
   for (const auto& t : tries) {
-    const size_t b = smem_bytes(false, T_SMEM, t[0], t[1], k, d);
+    const size_t b = smem_bytes(false, T_SMEM, t[0], t[1], k, d, xb);
     if (b <= MAX_DYN_SMEM) {
       *p = Plan{false, T_SMEM, t[0], t[1], aligned, b};
       return true;
@@ -127,7 +155,7 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src)
@@ -150,6 +178,30 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// total contiguous elements of X from src into buf, asynchronously where
+// the copy engine allows: 16-byte pieces over the aligned head (vec16),
+// then 4-byte copies of f32 elements or plain copies of bf16 ones (which
+// the barrier before the tile is read makes visible, as it does the
+// asynchronous ones once waited for); one commit group
+template <typename TX>
+__device__ __forceinline__ void stage_tile(TX* buf, const TX* src, int total,
+                                           bool vec16, int tid, int T) {
+  constexpr int V = 16 / sizeof(TX);  // elements a 16-byte copy moves
+  const int head = vec16 ? total & ~(V - 1) : 0;
+  for (int e = V * tid; e < head; e += V * T) cp_async16(buf + e, src + e);
+  if constexpr (sizeof(TX) == 4) {
+    for (int e = head + tid; e < total; e += T) cp_async4(buf + e, src + e);
+  } else {
+    for (int e = head + tid; e < total; e += T) buf[e] = src[e];
+  }
+  cp_async_commit();
+}
+
 // acc[q] = fmaf(xv, ct[q], acc[q]) for the 8 centers of a chunk (two
 // 16-byte broadcast reads)
 __device__ __forceinline__ void fma8(float (&a)[KC], float xv,
@@ -167,10 +219,11 @@ __device__ __forceinline__ void fma8(float (&a)[KC], float xv,
 }
 
 // T threads, a tile of T rows; REG: k <= 8 and the M-step's sums in
-// registers, else in shared memory
-template <int T, bool REG>
+// registers, else in shared memory; TX: X's element type (float or
+// __nv_bfloat16)
+template <int T, bool REG, typename TX>
 __global__ void __launch_bounds__(T, REG ? 2 : 1)
-lloyd_partial_kernel(const float* __restrict__ X, const float* __restrict__ w,
+lloyd_partial_kernel(const TX* __restrict__ X, const float* __restrict__ w,
                      const float* __restrict__ C,
                      const float* __restrict__ c2, int n, int k, int d,
                      int groups, int nbuf, bool vec16,
@@ -179,13 +232,15 @@ lloyd_partial_kernel(const float* __restrict__ X, const float* __restrict__ w,
   const int kp = REG ? KC : padded_k(k);
   const int A = k * (d + 1);
   const size_t tile_f = (size_t)T * d;
-  const size_t ring_f = (size_t)nbuf * tile_f;
-  float* const ring = sm;                   // [nbuf][T][d]
-  float* const ct = sm + ring_f;            // [d][kp], centers feature-major
+  const size_t ring_b = ring_bytes(nbuf, T, d, sizeof(TX));
+  TX* const ring = reinterpret_cast<TX*>(sm);  // [nbuf][T][d]
+  // [d][kp], centers feature-major
+  float* const ct = reinterpret_cast<float*>(reinterpret_cast<char*>(sm) +
+                                             ring_b);
   float* const c2s = ct + (size_t)d * kp;   // [kp], +inf past k
   int* const lab = reinterpret_cast<int*>(c2s + kp);  // [T]
   float* const wsm = c2s + kp + T;                     // [T]
-  float* const acc = acc_in_ring(REG, (size_t)groups * A, ring_f)
+  float* const acc = acc_in_ring(REG, (size_t)groups * A, ring_b / 4)
                          ? sm
                          : wsm + T;  // [groups][k][d + 1]
   const int tid = threadIdx.x;
@@ -203,14 +258,10 @@ lloyd_partial_kernel(const float* __restrict__ X, const float* __restrict__ w,
   const int g = tid / ncol, q = tid - g * ncol;
   const bool owner = g < groups;
   const long ntiles = ((long)n + T - 1) / T;
-  // the tile is nrows * d contiguous floats of X, and of the buffer
-  auto stage = [&](long t, float* buf) {
-    const float* src = X + t * T * (long)d;
-    const int total = (int)min((long)T, (long)n - t * T) * d;
-    const int head = vec16 ? total & ~3 : 0;
-    for (int e = 4 * tid; e < head; e += 4 * T) cp_async16(buf + e, src + e);
-    for (int e = head + tid; e < total; e += T) cp_async4(buf + e, src + e);
-    cp_async_commit();
+  // the tile is nrows * d contiguous elements of X, and of the buffer
+  auto stage = [&](long t, TX* buf) {
+    stage_tile(buf, X + t * T * (long)d,
+               (int)min((long)T, (long)n - t * T) * d, vec16, tid, T);
   };
 
   float s[CPT][KC];  // REG: this thread's columns, summed per center
@@ -223,7 +274,7 @@ lloyd_partial_kernel(const float* __restrict__ X, const float* __restrict__ w,
   if (t < ntiles) stage(t, ring);
   for (int i = 0; t < ntiles; ++i, t += gridDim.x) {
     const int b = nbuf == 2 ? (i & 1) : 0;
-    const float* xs = ring + b * tile_f;
+    const TX* xs = ring + b * tile_f;
     const long tn = t + gridDim.x;
     if (nbuf == 2 && tn < ntiles) {
       stage(tn, ring + (b ^ 1) * tile_f);
@@ -238,39 +289,44 @@ lloyd_partial_kernel(const float* __restrict__ X, const float* __restrict__ w,
     // E-step: row tid against every center
     if (tid < nrows) {
       const float wv = w[row0 + tid];
-      const float* xr = xs + tid * d;
+      const TX* xr = xs + tid * d;
       float best = CUDART_INF_F, x2 = 0.f;
       int bi = 0;
       for (int q0 = 0; q0 < kp; q0 += KC) {
         float a[KC];
 #pragma unroll
         for (int j = 0; j < KC; ++j) a[j] = 0.f;
-        // x 16 or 8 bytes at a time as d allows, then the rest
+        // f32 x 16 or 8 bytes at a time as d allows, then the rest (bf16
+        // x one element at a time)
         int f = 0;
-        if (d % 4 == 0) {
-          for (; f + 4 <= d; f += 4) {
-            const float4 x4 = *reinterpret_cast<const float4*>(xr + f);
-            const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+        if constexpr (sizeof(TX) == 4) {
+          if (d % 4 == 0) {
+            for (; f + 4 <= d; f += 4) {
+              const float4 x4 = *reinterpret_cast<const float4*>(
+                  reinterpret_cast<const float*>(xr) + f);
+              const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
 #pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              if (q0 == 0) x2 = fmaf(xv[u], xv[u], x2);
-              fma8(a, xv[u], ct + (f + u) * kp + q0);
+              for (int u = 0; u < 4; ++u) {
+                if (q0 == 0) x2 = fmaf(xv[u], xv[u], x2);
+                fma8(a, xv[u], ct + (f + u) * kp + q0);
+              }
             }
-          }
-        } else if (d % 2 == 0) {
+          } else if (d % 2 == 0) {
 #pragma unroll 2
-          for (; f + 2 <= d; f += 2) {
-            const float2 x2v = *reinterpret_cast<const float2*>(xr + f);
-            const float xv[2] = {x2v.x, x2v.y};
+            for (; f + 2 <= d; f += 2) {
+              const float2 x2v = *reinterpret_cast<const float2*>(
+                  reinterpret_cast<const float*>(xr) + f);
+              const float xv[2] = {x2v.x, x2v.y};
 #pragma unroll
-            for (int u = 0; u < 2; ++u) {
-              if (q0 == 0) x2 = fmaf(xv[u], xv[u], x2);
-              fma8(a, xv[u], ct + (f + u) * kp + q0);
+              for (int u = 0; u < 2; ++u) {
+                if (q0 == 0) x2 = fmaf(xv[u], xv[u], x2);
+                fma8(a, xv[u], ct + (f + u) * kp + q0);
+              }
             }
           }
         }
         for (; f < d; ++f) {
-          const float xv = xr[f];
+          const float xv = widen(xr[f]);
           if (q0 == 0) x2 = fmaf(xv, xv, x2);
           fma8(a, xv, ct + f * kp + q0);
         }
@@ -303,7 +359,7 @@ lloyd_partial_kernel(const float* __restrict__ X, const float* __restrict__ w,
           in[cc] = q + cc * ncol < d;
           cv[cc] = q + cc * ncol == d ? 1.f : 0.f;
         }
-        const float* xq = xs + q;
+        const TX* xq = xs + q;
 #pragma unroll 2
         for (int r = g; r < nrows; r += groups) {
           const int l = lab[r];
@@ -311,7 +367,7 @@ lloyd_partial_kernel(const float* __restrict__ X, const float* __restrict__ w,
           float v[CPT];
 #pragma unroll
           for (int cc = 0; cc < CPT; ++cc)
-            v[cc] = in[cc] ? xq[r * d + cc * ncol] : cv[cc];
+            v[cc] = in[cc] ? widen(xq[r * d + cc * ncol]) : cv[cc];
 #pragma unroll
           for (int j = 0; j < KC; ++j) {
             const float wj = l == j ? wv : 0.f;
@@ -326,7 +382,7 @@ lloyd_partial_kernel(const float* __restrict__ X, const float* __restrict__ w,
           float* const al = ag + (size_t)lab[r] * (d + 1);
           const float wv = wsm[r];
           for (int c = q; c <= d; c += ncol) {
-            const float v = c < d ? xs[r * d + c] : 1.f;
+            const float v = c < d ? widen(xs[r * d + c]) : 1.f;
             al[c] = fmaf(wv, v, al[c]);
           }
         }
@@ -386,11 +442,11 @@ lloyd_reduce_kernel(const float* __restrict__ partial, int G, int P,
   }
 }
 
-template <int T, bool REG>
-int launch(const Plan& p, const float* X, const float* w, const float* C,
+template <int T, bool REG, typename TX>
+int launch(const Plan& p, const TX* X, const float* w, const float* C,
            const float* c2, int n, int k, int d, int G, float* partial,
            cudaStream_t s) {
-  auto kernel = lloyd_partial_kernel<T, REG>;
+  auto kernel = lloyd_partial_kernel<T, REG, TX>;
   // above 48 KB a block's shared memory must be granted; the grant holds
   // for the current device only, so it is made on every launch
   const cudaError_t e = cudaFuncSetAttribute(
@@ -405,30 +461,44 @@ int launch(const Plan& p, const float* X, const float* w, const float* C,
 
 extern "C" int dml_lloyd_max_partials() { return LGRID; }
 
-extern "C" int dml_lloyd_supported(int k, int d) {
+// does the shared-memory budget hold (k, d) for X of f32 (xbf16 = 0) or
+// bf16 elements?
+extern "C" int dml_lloyd_supported(int k, int d, int xbf16) {
   Plan p;
-  return make_plan(k, d, false, &p) ? 1 : 0;
+  return make_plan(k, d, false, xbf16 ? 2 : 4, &p) ? 1 : 0;
 }
 
-// X (n, d) row-major f32, w (n,) f32, C (k, d) f32, c2 (k,) f32 = |c|^2
-// (the caller's _row_sumsq), all device pointers. partial: scratch of at
+template <typename TX>
+int launch_x(const Plan& p, const void* X, const float* w, const float* C,
+             const float* c2, int n, int k, int d, int G, float* partial,
+             cudaStream_t s) {
+  const TX* x = static_cast<const TX*>(X);
+  return p.reg ? launch<T_REG, true>(p, x, w, C, c2, n, k, d, G, partial, s)
+               : launch<T_SMEM, false>(p, x, w, C, c2, n, k, d, G, partial,
+                                       s);
+}
+
+// X (n, d) row-major, f32 or (xbf16 != 0) bf16, w (n,) f32, C (k, d) f32
+// (for bf16 X: rounded to bf16), c2 (k,) f32 = |c|^2 (the caller's
+// _row_sumsq of the f32 C), all device pointers. partial: scratch of at
 // least dml_lloyd_max_partials() * (k (d + 1) + 1) floats. out (k (d + 1) +
 // 1,): row c holds the sums of cluster c in columns 0 .. d-1 and its count
 // in column d; the last float is the inertia. Returns cudaGetLastError()
 // after the launches.
-extern "C" int dml_lloyd_iter(const float* X, const float* w, const float* C,
-                              const float* c2, int n, int k, int d,
-                              float* partial, float* out, void* stream) {
+extern "C" int dml_lloyd_iter(const void* X, int xbf16, const float* w,
+                              const float* C, const float* c2, int n, int k,
+                              int d, float* partial, float* out,
+                              void* stream) {
   Plan p;
   const bool aligned = reinterpret_cast<uintptr_t>(X) % 16 == 0;
-  if (n <= 0 || !make_plan(k, d, aligned, &p))
+  if (n <= 0 || !make_plan(k, d, aligned, xbf16 ? 2 : 4, &p))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long ntiles = ((long)n + p.threads - 1) / p.threads;
   const int G = (int)(ntiles < LGRID ? ntiles : LGRID);
   const int err =
-      p.reg ? launch<T_REG, true>(p, X, w, C, c2, n, k, d, G, partial, s)
-            : launch<T_SMEM, false>(p, X, w, C, c2, n, k, d, G, partial, s);
+      xbf16 ? launch_x<__nv_bfloat16>(p, X, w, C, c2, n, k, d, G, partial, s)
+            : launch_x<float>(p, X, w, C, c2, n, k, d, G, partial, s);
   if (err != 0) return err;
   const int P = k * (d + 1) + 1;
   lloyd_reduce_kernel<<<(P + 31) / 32, dim3(32, RY), 0, s>>>(partial, G, P,

@@ -100,7 +100,21 @@
 // port) and pullback_atomic_kernel (the same walk, fused, the same
 // fixed-point q added with 64-bit integer atomics on device memory: the
 // bits of every other route).
+//
+// bf16 values (the JAX package's bf16 container). Every kernel is a
+// template on the values' element type TV; a bf16 value is widened to f32
+// where it is loaded (four slots are 8 bytes then, one uint2 load), and
+// nothing else about the walks changes. The caller rounds the dense vector
+// to bf16 once and passes it widened back to f32 (so v sits in shared
+// memory as f32 and the plan is the float kernel's). Forward: a product of
+// two bf16 values is exact in f32, as the Pallas kernel forms it. Pullback:
+// r stays f32 and each product a r is formed in f32, as the f32 pullback
+// forms it; the fixed point is the f32 pullback's. (The JAX package's bf16
+// pullback rounds r and each product to bf16; a logistic loss's cotangent
+// sigma(eta) - y is then +-1/2 to bf16's 8 bits and loses what eta adds,
+// and an L-BFGS fit on bf16 values lands far from the f32 fit: PERF.md.)
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -117,13 +131,24 @@ constexpr int SMEM_BLOCK_BYTES = 232448;
 // tiles a group walks between two cluster barriers
 constexpr int DRIFT_TILES = 32;
 
+// a value as f32: streamed (evict-first) or through the read-only path
+__device__ __forceinline__ float ldv(const float* p, bool stream) {
+  return stream ? __ldcs(p) : __ldg(p);
+}
+__device__ __forceinline__ float ldv(const __nv_bfloat16* p, bool stream) {
+  const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
+  return __bfloat162float(__ushort_as_bfloat16(stream ? __ldcs(u)
+                                                      : __ldg(u)));
+}
+
+
 // ---------------------------------------------------------------------------
 // the d-vector in L2
 // ---------------------------------------------------------------------------
 
-template <int L>
+template <int L, typename TV>
 __global__ void __launch_bounds__(THREADS)
-spmv_kernel(const float* __restrict__ values, const int* __restrict__ cols,
+spmv_kernel(const TV* __restrict__ values, const int* __restrict__ cols,
             const float* __restrict__ v, long long n, int k,
             float* __restrict__ out) {
   const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
@@ -131,11 +156,11 @@ spmv_kernel(const float* __restrict__ values, const int* __restrict__ cols,
   const int lane = (int)(t & (L - 1));
   float s = 0.f;
   if (row < n) {
-    const float* vr = values + row * k;
+    const TV* vr = values + row * k;
     const int* cr = cols + row * k;
 #pragma unroll 4
     for (int j = lane; j < k; j += L)
-      s = fmaf(__ldcs(vr + j), __ldg(v + __ldcs(cr + j)), s);
+      s = fmaf(ldv(vr + j, true), __ldg(v + __ldcs(cr + j)), s);
   }
 #pragma unroll
   for (int off = L / 2; off > 0; off >>= 1)
@@ -153,31 +178,44 @@ int lanes_of(int k) {
 // the pullback's fixed point
 // ---------------------------------------------------------------------------
 
-// The bits of max |x| over x: non-negative floats order as their bits
-// (NaN above inf above every finite value), so an integer max repeats.
+// The f32 bits of |x|: a bf16's bits are the high half of its f32's.
+__device__ __forceinline__ unsigned abs_bits(const float* p) {
+  return __float_as_uint(__ldcs(p)) & 0x7fffffffu;
+}
+__device__ __forceinline__ unsigned abs_bits(const __nv_bfloat16* p) {
+  return ((unsigned)__ldcs(reinterpret_cast<const unsigned short*>(p)) &
+          0x7fffu)
+         << 16;
+}
+
+// The bits of max |x| over x (as f32): non-negative floats order as their
+// bits (NaN above inf above every finite value), so an integer max
+// repeats.
+template <typename TV>
 __global__ void __launch_bounds__(THREADS)
-absmax_kernel(const float* __restrict__ x, long long len,
+absmax_kernel(const TV* __restrict__ x, long long len,
               unsigned* __restrict__ out) {
   unsigned m = 0;
   const long long stride = (long long)gridDim.x * THREADS;
 #pragma unroll 4
   for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < len;
        i += stride)
-    m = max(m, __float_as_uint(__ldcs(x + i)) & 0x7fffffffu);
+    m = max(m, abs_bits(x + i));
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
   if ((threadIdx.x & 31) == 0 && m != 0) atomicMax(out, m);
 }
 
-int launch_absmax(const float* x, long long len, unsigned* out,
+template <typename TV>
+int launch_absmax(const TV* x, long long len, unsigned* out,
                   cudaStream_t s) {
   cudaError_t e = cudaMemsetAsync(out, 0, sizeof(unsigned), s);
   if (e != cudaSuccess) return (int)e;
   long long blocks = (len + THREADS - 1) / THREADS;
   if (blocks > 8 * 132) blocks = 8 * 132;
   if (blocks < 1) blocks = 1;
-  absmax_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(x, len, out);
+  absmax_kernel<TV><<<(unsigned)blocks, THREADS, 0, s>>>(x, len, out);
   return (int)cudaGetLastError();
 }
 
@@ -257,9 +295,9 @@ int launch_from_fixed(const unsigned* lo, const unsigned* hi, int rows,
 
 // The pullback with g in L2: the walk of spmv_kernel, each q added to a
 // (d,) 64-bit accumulator with a device-memory atomic.
-template <int L>
+template <int L, typename TV>
 __global__ void __launch_bounds__(THREADS)
-pullback_atomic_kernel(const float* __restrict__ values,
+pullback_atomic_kernel(const TV* __restrict__ values,
                        const int* __restrict__ cols,
                        const float* __restrict__ r, long long n, int k,
                        const unsigned* a_bound, const unsigned* r_bound,
@@ -270,11 +308,11 @@ pullback_atomic_kernel(const float* __restrict__ values,
   if (row >= n) return;
   const Fixed f = fixed_point(a_bound, r_bound, n * k);
   const float rr = __ldg(r + row);
-  const float* vr = values + row * k;
+  const TV* vr = values + row * k;
   const int* cr = cols + row * k;
 #pragma unroll 4
   for (int j = lane; j < k; j += L) {
-    const float a = __ldcs(vr + j);
+    const float a = ldv(vr + j, true);
     const int c = __ldcs(cr + j);
     if (a != 0.f)
       atomicAdd(acc + c, (unsigned long long)to_fixed(a * rr, f));
@@ -282,23 +320,24 @@ pullback_atomic_kernel(const float* __restrict__ values,
 }
 
 // Both L2 kernels for rows of k slots: L = lanes_of(k) lanes a row.
-template <int L>
-int launch_l2_lanes(bool pull, const float* values, const int* cols,
+template <int L, typename TV>
+int launch_l2_lanes(bool pull, const TV* values, const int* cols,
                     const float* x, long long n, int k, float* out,
                     const unsigned* a_bound, const unsigned* r_bound,
                     unsigned long long* acc, cudaStream_t s) {
   const long long blocks = (n * L + THREADS - 1) / THREADS;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (pull)
-    pullback_atomic_kernel<L><<<(unsigned)blocks, THREADS, 0, s>>>(
+    pullback_atomic_kernel<L, TV><<<(unsigned)blocks, THREADS, 0, s>>>(
         values, cols, x, n, k, a_bound, r_bound, acc);
   else
-    spmv_kernel<L><<<(unsigned)blocks, THREADS, 0, s>>>(values, cols, x, n,
-                                                         k, out);
+    spmv_kernel<L, TV><<<(unsigned)blocks, THREADS, 0, s>>>(values, cols, x,
+                                                             n, k, out);
   return (int)cudaGetLastError();
 }
 
-int dispatch_l2(bool pull, const float* values, const int* cols,
+template <typename TV>
+int dispatch_l2(bool pull, const TV* values, const int* cols,
                 const float* x, long long n, int k, float* out,
                 const unsigned* a_bound, const unsigned* r_bound,
                 unsigned long long* acc, cudaStream_t s) {
@@ -333,27 +372,48 @@ struct RFrag {
 
 template <bool STREAM>
 __device__ __forceinline__ float ld1(const float* p) {
-  return STREAM ? __ldcs(p) : __ldg(p);
+  return ldv(p, STREAM);
+}
+template <bool STREAM>
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p) {
+  return ldv(p, STREAM);
 }
 template <bool STREAM>
 __device__ __forceinline__ int ld1(const int* p) {
   return STREAM ? __ldcs(p) : __ldg(p);
 }
 
-// Four consecutive slots from flat index g0 (a multiple of 4): one 16-byte
-// load each of values and cols where they are aligned and in range, else
-// slot by slot, slots >= total as (col 0, value 0). STREAM: nobody reads
-// the tile again, so it is loaded evict-first.
+// four consecutive values from an aligned address, as f32
 template <bool STREAM>
-__device__ __forceinline__ Frag load_frag(const float* __restrict__ values,
+__device__ __forceinline__ float4 ld4(const float* p) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+  return STREAM ? __ldcs(q) : __ldg(q);
+}
+template <bool STREAM>
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  // a bf16 is the high half of its f32: widen by shifts, in registers
+  const uint2* q = reinterpret_cast<const uint2*>(p);
+  const uint2 u = STREAM ? __ldcs(q) : __ldg(q);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// Four consecutive slots from flat index g0 (a multiple of 4): one load
+// each of values (16 bytes of f32, 8 of bf16) and cols (16 bytes) where
+// they are aligned and in range, else slot by slot, slots >= total as
+// (col 0, value 0); values as f32. STREAM: nobody reads the tile again, so
+// it is loaded evict-first.
+template <bool STREAM, typename TV>
+__device__ __forceinline__ Frag load_frag(const TV* __restrict__ values,
                                           const int* __restrict__ cols,
                                           long long g0, long long total,
                                           bool aligned) {
   Frag f;
   if (aligned && g0 + 4 <= total) {
-    const float4* pa = reinterpret_cast<const float4*>(values + g0);
     const int4* pc = reinterpret_cast<const int4*>(cols + g0);
-    f.a = STREAM ? __ldcs(pa) : __ldg(pa);
+    f.a = ld4<STREAM>(values + g0);
     f.c = STREAM ? __ldcs(pc) : __ldg(pc);
     return f;
   }
@@ -452,9 +512,9 @@ __device__ __forceinline__ void walk_tiles(long long tiles, Load load,
 // part of v]. R k is a multiple of 4, so every tile and the part are
 // 16-byte aligned. out: (n,), or in a cluster of C > 1 blocks (C, n):
 // block `rank` writes row `rank`, its columns' share of every row's sum.
-template <int LOG2C>
+template <int LOG2C, typename TV>
 __global__ void __launch_bounds__(TB, 1)
-spmv_smem_kernel(const float* __restrict__ values,
+spmv_smem_kernel(const TV* __restrict__ values,
                  const int* __restrict__ cols, const float* __restrict__ v,
                  long long n, int k, int d, int R, int lshift, int aligned,
                  float* __restrict__ out) {
@@ -523,9 +583,9 @@ spmv_smem_kernel(const float* __restrict__ values,
 
 // Shared memory: this block's part of the low words of the cluster's copy
 // of g. lo and hi: (clusters, d) scratch, hi zeroed by the caller.
-template <int LOG2C>
+template <int LOG2C, typename TV>
 __global__ void __launch_bounds__(TB, 1)
-pullback_smem_kernel(const float* __restrict__ values,
+pullback_smem_kernel(const TV* __restrict__ values,
                      const int* __restrict__ cols,
                      const float* __restrict__ r, long long n, int k, int d,
                      int R, int aligned, const unsigned* a_bound,
@@ -632,15 +692,21 @@ struct Plan {
 
 // The cluster sizes each direction is built for: 1 and 2 forward; 1, 2
 // and 4 pullback.
-const void* pick_kernel(bool pull, int cluster) {
+template <typename TV>
+const void* pick_kernel_of(bool pull, int cluster) {
   switch (cluster) {
-    case 1: return pull ? (const void*)pullback_smem_kernel<0>
-                        : (const void*)spmv_smem_kernel<0>;
-    case 2: return pull ? (const void*)pullback_smem_kernel<1>
-                        : (const void*)spmv_smem_kernel<1>;
-    case 4: return pull ? (const void*)pullback_smem_kernel<2> : nullptr;
+    case 1: return pull ? (const void*)pullback_smem_kernel<0, TV>
+                        : (const void*)spmv_smem_kernel<0, TV>;
+    case 2: return pull ? (const void*)pullback_smem_kernel<1, TV>
+                        : (const void*)spmv_smem_kernel<1, TV>;
+    case 4: return pull ? (const void*)pullback_smem_kernel<2, TV> : nullptr;
     default: return nullptr;
   }
+}
+
+const void* pick_kernel(bool pull, int cluster, bool bf16) {
+  return bf16 ? pick_kernel_of<__nv_bfloat16>(pull, cluster)
+              : pick_kernel_of<float>(pull, cluster);
 }
 
 void fill_config(const Plan& p, cudaStream_t s, cudaLaunchConfig_t* cfg,
@@ -658,10 +724,11 @@ void fill_config(const Plan& p, cudaStream_t s, cudaLaunchConfig_t* cfg,
   cfg->numAttrs = 1;
 }
 
-int make_plan(bool pull, long long n, int k, int d, int cluster, Plan* p) {
+int make_plan(bool pull, long long n, int k, int d, int cluster, bool bf16,
+              Plan* p) {
   if (n <= 0 || k <= 0 || k > MAX_K || d <= 0)
     return (int)cudaErrorInvalidValue;
-  p->kernel = pick_kernel(pull, cluster);
+  p->kernel = pick_kernel(pull, cluster, bf16);
   if (p->kernel == nullptr) return (int)cudaErrorInvalidValue;
   const long long bytes = smem_bytes(pull, k, d, cluster);
   if (bytes > SMEM_BLOCK_BYTES) return (int)cudaErrorInvalidValue;
@@ -720,14 +787,24 @@ extern "C" int dml_spmv_tile_rows(int k) {
   return (k >= 1 && k <= MAX_K) ? tile_rows(k) : 0;
 }
 
-// The d-vector in L2. values (n, k) f32, cols (n, k) int32 in [0, len(v)),
-// v f32, out (n,) f32, all device pointers, rows contiguous. Returns
-// cudaGetLastError() after the launch.
-extern "C" int dml_spmv(const float* values, const int* cols, const float* v,
-                        long long n, int k, float* out, void* stream) {
+// values of f32 (vbf16 = 0) or bf16 elements
+#define DML_VALUES(vbf16, values, CALL)                               \
+  ((vbf16) ? CALL(static_cast<const __nv_bfloat16*>(values))          \
+           : CALL(static_cast<const float*>(values)))
+
+// The d-vector in L2. values (n, k) f32 or (vbf16) bf16, cols (n, k) int32
+// in [0, len(v)), v f32 (for bf16 values: rounded to bf16), out (n,) f32,
+// all device pointers, rows contiguous. Returns cudaGetLastError() after
+// the launch.
+extern "C" int dml_spmv(const void* values, int vbf16, const int* cols,
+                        const float* v, long long n, int k, float* out,
+                        void* stream) {
   if (n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
-  return dispatch_l2(false, values, cols, v, n, k, out, nullptr, nullptr,
-                     nullptr, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DML_CALL(vals)                                                   \
+  dispatch_l2(false, vals, cols, v, n, k, out, nullptr, nullptr, nullptr, s)
+  return DML_VALUES(vbf16, values, DML_CALL);
+#undef DML_CALL
 }
 
 // The d-vector (d floats) in the shared memory of clusters of `cluster`
@@ -736,12 +813,12 @@ extern "C" int dml_spmv(const float* values, const int* cols, const float* v,
 // rank order). Refuses (cudaErrorInvalidValue) another cluster size and a
 // shape that does not fit: k > 512, or 4 ceil(d / cluster) + 16 R k bytes
 // beyond a block.
-extern "C" int dml_spmv_smem(const float* values, const int* cols,
+extern "C" int dml_spmv_smem(const void* values, int vbf16, const int* cols,
                              const float* v, long long n, int k, int d,
                              int cluster, float* partial, float* out,
                              void* stream) {
   Plan p;
-  int err = make_plan(false, n, k, d, cluster, &p);
+  int err = make_plan(false, n, k, d, cluster, vbf16 != 0, &p);
   if (err) return err;
   const bool split = cluster > 1;
   if (split && partial == nullptr) return (int)cudaErrorInvalidValue;
@@ -760,35 +837,40 @@ extern "C" int dml_spmv_smem(const float* values, const int* cols,
 // card (cluster: 1, 2 or 4 blocks each): the rows of its (clusters, d)
 // scratch. Negative: minus the CUDA error that refuses the shape.
 extern "C" int dml_spmv_pullback_clusters(long long n, int k, int d,
-                                          int cluster) {
+                                          int cluster, int vbf16) {
   Plan p;
-  int err = make_plan(true, n, k, d, cluster, &p);
+  int err = make_plan(true, n, k, d, cluster, vbf16 != 0, &p);
   return err ? -err : p.grid / cluster;
 }
 
-// The bits of max |x| over len floats into *out (device memory), for the
-// pullback's a_bound. Two launches (a memset, the reduction).
-extern "C" int dml_spmv_absmax(const float* x, long long len, unsigned* out,
-                               void* stream) {
+// The bits of max |x| over len values (f32 or, vbf16, bf16) into *out
+// (device memory), as f32 bits, for the pullback's a_bound. Two launches
+// (a memset, the reduction).
+extern "C" int dml_spmv_absmax(const void* x, int vbf16, long long len,
+                               unsigned* out, void* stream) {
   if (len <= 0) return (int)cudaErrorInvalidValue;
-  return launch_absmax(x, len, out, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DML_CALL(vals) launch_absmax(vals, len, out, s)
+  return DML_VALUES(vbf16, x, DML_CALL);
+#undef DML_CALL
 }
 
-// The pullback with g in shared memory: r (n,) f32; a_bound, the bits of
-// max |values| (dml_spmv_absmax); r_bound, one word of scratch that takes
-// max |r|; lo and hi, (clusters, d) 32-bit scratch with clusters =
+// The pullback with g in shared memory: values as dml_spmv's; r (n,) f32;
+// a_bound, the bits of max |values|
+// (dml_spmv_absmax); r_bound, one word of scratch that takes max |r|; lo
+// and hi, (clusters, d) 32-bit scratch with clusters =
 // dml_spmv_pullback_clusters(...); g (d,) f32 out. Returns
 // cudaGetLastError() after the last of its launches (|r|'s bound, the
 // zeroing of hi, the walk, the sum of the clusters' words).
-extern "C" int dml_spmv_pullback_smem(const float* values, const int* cols,
-                                      const float* r, long long n, int k,
-                                      int d, int cluster,
+extern "C" int dml_spmv_pullback_smem(const void* values, int vbf16,
+                                      const int* cols, const float* r,
+                                      long long n, int k, int d, int cluster,
                                       const unsigned* a_bound,
                                       unsigned* r_bound, unsigned* lo,
                                       unsigned* hi, int clusters, float* g,
                                       void* stream) {
   Plan p;
-  int err = make_plan(true, n, k, d, cluster, &p);
+  int err = make_plan(true, n, k, d, cluster, vbf16 != 0, &p);
   if (err) return err;
   if (p.grid / cluster != clusters) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -806,12 +888,13 @@ extern "C" int dml_spmv_pullback_smem(const float* values, const int* cols,
                            n * (long long)k, g, s);
 }
 
-// The pullback with g in L2: a_bound and r_bound as above, acc (d,) 64-bit
-// scratch; zeroes acc, adds every slot's q with a device-memory atomic,
-// then turns acc into g (d,) f32.
-extern "C" int dml_spmv_pullback_atomic(const float* values, const int* cols,
-                                        const float* r, long long n, int k,
-                                        int d, const unsigned* a_bound,
+// The pullback with g in L2: values, r, a_bound and r_bound as above, acc
+// (d,) 64-bit scratch; zeroes acc, adds every slot's q with a
+// device-memory atomic, then turns acc into g (d,) f32.
+extern "C" int dml_spmv_pullback_atomic(const void* values, int vbf16,
+                                        const int* cols, const float* r,
+                                        long long n, int k, int d,
+                                        const unsigned* a_bound,
                                         unsigned* r_bound,
                                         unsigned long long* acc, float* g,
                                         void* stream) {
@@ -821,8 +904,10 @@ extern "C" int dml_spmv_pullback_atomic(const float* values, const int* cols,
   if (err) return err;
   cudaError_t e = cudaMemsetAsync(acc, 0, 8 * (size_t)d, s);
   if (e != cudaSuccess) return (int)e;
-  err = dispatch_l2(true, values, cols, r, n, k, nullptr, a_bound, r_bound,
-                    acc, s);
+#define DML_CALL(vals) \
+  dispatch_l2(true, vals, cols, r, n, k, nullptr, a_bound, r_bound, acc, s)
+  err = DML_VALUES(vbf16, values, DML_CALL);
+#undef DML_CALL
   if (err) return err;
   const unsigned* words = reinterpret_cast<const unsigned*>(acc);
   return launch_from_fixed(words, words + 1, 1, 0, 2, d, a_bound, r_bound,

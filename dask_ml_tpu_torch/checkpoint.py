@@ -60,11 +60,19 @@ class CheckpointCorruptError(RuntimeError):
 # ---------------------------------------------------------------------------
 
 
+#: the tag of a bfloat16 leaf in a snapshot: numpy has no bfloat16, so
+#: such a tensor is kept as ``{BF16_TAG: its uint16 bits}``
+BF16_TAG = "__dml_bfloat16_bits__"
+
+
 def _to_host(tree):
     """Every leaf as numpy: tensors are read to the host (one transfer
     each), Python scalars become 0-d arrays, as the JAX package's
-    ``np.asarray(jax.device_get(leaf))`` makes them. Tuples, lists and
-    dicts keep their structure; ``None`` stays."""
+    ``np.asarray(jax.device_get(leaf))`` makes them; a bfloat16 tensor
+    becomes ``{BF16_TAG: uint16 bits}``, which :func:`leaf_tensor` turns
+    back into the same bits. Tuples, lists and dicts keep their
+    structure; ``None`` stays. (Solver state is at least f32 by
+    ``precision.state_dtype``; the tag is for bf16 data in a tree.)"""
     import torch
 
     if tree is None:
@@ -74,7 +82,10 @@ def _to_host(tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(_to_host(v) for v in tree)
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+        t = tree.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return {BF16_TAG: t.view(torch.int16).numpy().view(np.uint16)}
+        return t.numpy()
     return np.asarray(tree)
 
 
@@ -113,9 +124,13 @@ def save_pytree(path: str, tree: Any, meta: Optional[dict] = None) -> None:
 def leaf_tensor(leaf, device):
     """A loaded snapshot leaf as a tensor of its own on ``device``: a copy,
     since the arrays of a snapshot the JAX package wrote unpickle
-    read-only."""
+    read-only. A bfloat16 leaf (``{BF16_TAG: bits}``) comes back with its
+    bits."""
     import torch
 
+    if isinstance(leaf, dict) and set(leaf) == {BF16_TAG}:
+        bits = np.ascontiguousarray(leaf[BF16_TAG]).view(np.int16)
+        return torch.tensor(bits, device=device).view(torch.bfloat16)
     return torch.tensor(np.asarray(leaf), device=device)
 
 

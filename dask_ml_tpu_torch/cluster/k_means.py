@@ -25,6 +25,7 @@ from dask_ml_tpu_torch.models import kmeans as core
 from dask_ml_tpu_torch.ops import fast_transform as ftm
 from dask_ml_tpu_torch.ops.pairwise import euclidean_distances
 from dask_ml_tpu_torch.parallel import telemetry
+from dask_ml_tpu_torch.parallel.precision import lloyd_bounds_dtype
 from dask_ml_tpu_torch.parallel.sharding import prepare_data, unpad_rows
 from dask_ml_tpu_torch.utils.validation import check_array, check_random_state
 
@@ -182,7 +183,8 @@ class KMeans(TransformerMixin, BaseEstimator):
             if bounded:
                 centers, _, n_iter, _, _, stats = core.lloyd_loop_bounded(
                     data.X, data.weights, centers, tol,
-                    max_iter=self.max_iter)
+                    max_iter=self.max_iter,
+                    bounds_dtype=lloyd_bounds_dtype(data.X.dtype))
             else:
                 centers, _, n_iter, _ = core.lloyd_loop_fused(
                     data.X, data.weights, centers, tol,
@@ -220,7 +222,8 @@ class KMeans(TransformerMixin, BaseEstimator):
                             iters=int(self.sketch_iters)):
             # center first: a shared mean component would spend support
             # budget on a direction that cancels in every comparison
-            mu = (w @ data.X) / torch.clamp(w.sum(), min=1e-12)
+            mu = ((w @ data.X.to(torch.float32))
+                  / torch.clamp(w.sum(), min=1e-12))
             ft, support, vals0, fit_loss = ftm.palm4msa_fit(
                 centers - mu[None, :], p, n_iter=int(self.sketch_iters),
                 generator=gen)
@@ -230,7 +233,8 @@ class KMeans(TransformerMixin, BaseEstimator):
             tol = core.scaled_tolerance(Zp_, w, self.tol)
             if _SKETCHED_BOUNDED:
                 vals_, _, n_it, _, _, stats = core.lloyd_loop_bounded(
-                    Zp_, w, vals0_, tol, max_iter=self.max_iter)
+                    Zp_, w, vals0_, tol, max_iter=self.max_iter,
+                    bounds_dtype=lloyd_bounds_dtype(Zp_.dtype))
                 return vals_, n_it, stats
             vals_, _, n_it, _ = core.lloyd_loop_fused(
                 Zp_, w, vals0_, tol, max_iter=self.max_iter)
@@ -412,8 +416,11 @@ def _pruning_summary(runs, w, k: int) -> dict:
 
 def _sketch_stage(ft, X, mu, support):
     """``Z_p = (X − μ) @ Wᵀ[:, support]`` (n, p): the array the sketched
-    Lloyd rounds run on, one matmul through the materialized slice."""
-    return (X - mu[None, :]) @ ftm.support_matrix(ft, support).to(X.device)
+    Lloyd rounds run on, one f32 matmul through the materialized slice,
+    kept in X's dtype (bf16 staged data gives a bf16 ``Z_p``, as in the
+    JAX package)."""
+    Wp = ftm.support_matrix(ft, support).to(X.device)
+    return ((X - mu[None, :]) @ Wp).to(X.dtype)
 
 
 def _polish_centers(X, w, labels, fallback_centers):
@@ -423,7 +430,8 @@ def _polish_centers(X, w, labels, fallback_centers):
     oh = (torch.nn.functional.one_hot(labels.long(), k).to(torch.float32)
           * w[:, None])
     cnt = oh.sum(dim=0)
-    means = (oh.T @ X) / torch.clamp(cnt, min=1e-12)[:, None]
+    means = ((oh.T @ X.to(torch.float32))
+             / torch.clamp(cnt, min=1e-12)[:, None])
     return torch.where((cnt > 0)[:, None], means, fallback_centers)
 
 

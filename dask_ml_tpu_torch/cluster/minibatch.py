@@ -43,7 +43,7 @@ def _minibatch_update(batch, wb, centers, v, kernel: str = "auto"):
     labels, _ = fused_argmin_min(batch, centers, kernel=kernel)
     onehot = (torch.nn.functional.one_hot(labels.long(), k)
               .to(torch.float32) * wb[:, None])
-    sums = onehot.T @ batch  # (k, d)
+    sums = onehot.T @ batch.to(torch.float32)  # (k, d), f32 for bf16 X
     counts = onehot.sum(dim=0)  # (k,)
     v_new = v + counts
     caught = counts > 0

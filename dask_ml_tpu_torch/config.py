@@ -11,8 +11,16 @@ Knobs:
   no card is present rather than carrying on on the CPU. The tests pass
   ``config_context(device="cpu")``, where every kernel wrapper takes its
   plain PyTorch version because the tensors it is given lie on the CPU.
-- ``dtype`` — staging dtype for ``X``. ``None`` keeps the validated input
-  dtype (float32); this slice supports ``torch.float32`` only.
+- ``dtype`` — staging dtype for ``X``: ``None`` (the policy's storage
+  dtype, else the validated input dtype, float32), ``torch.float32`` or
+  ``torch.bfloat16``. An explicit ``dtype`` outranks the ``precision``
+  policy.
+- ``precision`` — the mixed-precision policy
+  (:mod:`dask_ml_tpu_torch.parallel.precision`): ``"auto"`` (the
+  default: f32, since the port has no TPU), ``None`` / ``"f32"`` /
+  ``"float32"``, ``"bf16"`` / ``"bfloat16"`` (X staged and streamed as
+  bf16, products of bf16 operands accumulated in f32, solver state f32),
+  or a :class:`~dask_ml_tpu_torch.parallel.precision.PrecisionPolicy`.
 - ``device_outputs`` — when True, ``predict``/``transform`` return the
   device tensor instead of host numpy (:func:`maybe_host`).
 - ``telemetry`` — when True, :func:`~dask_ml_tpu_torch.parallel.telemetry.span`
@@ -30,6 +38,7 @@ import torch
 _DEFAULTS: dict[str, Any] = {
     "device": "cuda",
     "dtype": None,
+    "precision": "auto",
     "device_outputs": False,
     "telemetry": False,
 }
@@ -58,9 +67,9 @@ def _validate_options(options: dict) -> None:
         if k not in _DEFAULTS:
             raise KeyError(
                 f"unknown config option {k!r}; valid: {sorted(_DEFAULTS)}")
-        if k == "dtype" and v not in (None, torch.float32):
+        if k == "dtype" and v not in (None, torch.float32, torch.bfloat16):
             raise ValueError(
-                f"dtype={v!r}: this release of the port stages float32 only")
+                f"dtype={v!r}: the port stages float32 or bfloat16")
         if k == "device":
             torch.device(v)  # raises on a malformed device string
 

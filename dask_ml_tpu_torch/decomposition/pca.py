@@ -23,7 +23,7 @@ import torch
 from dask_ml_tpu_torch.base import BaseEstimator, TransformerMixin
 from dask_ml_tpu_torch.config import get_config, maybe_host
 from dask_ml_tpu_torch.ops import linalg
-from dask_ml_tpu_torch.parallel import telemetry
+from dask_ml_tpu_torch.parallel import precision, telemetry
 from dask_ml_tpu_torch.parallel.sharding import prepare_data
 from dask_ml_tpu_torch.utils.validation import check_array, check_random_state
 
@@ -34,16 +34,19 @@ def _on(a, like):
                            device=like.device)
 
 
-def _fit_program(X, w, n, *, k, n_power_iter, randomized, generator):
+def _fit_program(X, w, n, *, k, n_power_iter, randomized, generator,
+                 sketch_dtype=None):
     """The device part of a fit: mean, centering and masking, the
     factorization, the sign flip, and (randomized only: the exact path's
-    total variance is Σ S² / (n − 1)) the total variance."""
+    total variance is Σ S² / (n − 1)) the total variance. A bf16 X is
+    centered into f32 (the mean is f32); ``sketch_dtype`` is the operand
+    dtype of the randomized range finder (None: Xc's)."""
     mean = (w[:, None] * X).sum(0) / torch.clamp(w.sum(), min=1.0)
-    Xc = (X - mean) * (w > 0)[:, None].to(X.dtype)
+    Xc = (X - mean) * (w > 0)[:, None].to(mean.dtype)
     if randomized:
         U, S, Vt = linalg.svd_compressed(
             Xc, k, n_power_iter=n_power_iter, generator=generator,
-            n_oversamples=10)
+            n_oversamples=10, compute_dtype=sketch_dtype)
         total_var = (Xc * Xc).sum() / (n - 1.0)
     else:
         U, S, Vt = linalg.tsvd(Xc)
@@ -116,12 +119,15 @@ class PCA(BaseEstimator, TransformerMixin):
             k_fit = min(-(-n_components // 32) * 32,
                         min(n_samples, n_features))
         gen = check_random_state(self.random_state, device=data.X.device)
+        # the precision policy's sketch dtype (bf16 under "bf16")
+        sketch_dtype = (precision.resolve().compute_for("sketch")
+                        if randomized else None)
         with telemetry.span("pca-fit-program", solver=solver,
                             k=n_components):
             mean, U, S, Vt, tv = _fit_program(
                 data.X, data.weights, float(n_samples), k=k_fit,
                 n_power_iter=int(self.iterated_power), randomized=randomized,
-                generator=gen)
+                generator=gen, sketch_dtype=sketch_dtype)
 
         S_t = S[:min(n_samples, n_features)].cpu().numpy()
         explained_variance = (S_t ** 2) / (n_samples - 1)
@@ -193,7 +199,7 @@ class PCA(BaseEstimator, TransformerMixin):
         if self.whiten:
             comps = torch.sqrt(_on(self.explained_variance_, Xs))[:, None] \
                 * comps
-        return maybe_host(Xs @ comps + _on(self.mean_, Xs))
+        return maybe_host(precision.pmatmul(Xs, comps) + _on(self.mean_, Xs))
 
     # -- Probabilistic-PCA scoring ------------------------------------------
 

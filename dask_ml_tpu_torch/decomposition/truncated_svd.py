@@ -8,6 +8,7 @@ import torch
 from dask_ml_tpu_torch.base import BaseEstimator, TransformerMixin
 from dask_ml_tpu_torch.config import maybe_host
 from dask_ml_tpu_torch.ops import linalg
+from dask_ml_tpu_torch.parallel import precision
 from dask_ml_tpu_torch.parallel.sharding import prepare_data
 from dask_ml_tpu_torch.utils.validation import check_array, check_random_state
 
@@ -53,8 +54,11 @@ class TruncatedSVD(BaseEstimator, TransformerMixin):
                 f"got {self.algorithm!r}")
         k = int(self.n_components)
         data = prepare_data(X)
+        # a bf16 X (precision="bf16"): the exact path factors it widened
+        # to f32, the randomized one sketches it on the policy's dtype
+        Xf = data.X.to(torch.float32)
         if self.algorithm == "tsqr":
-            u, s, v = linalg.tsvd(data.X, weights=data.weights)
+            u, s, v = linalg.tsvd(Xf, weights=data.weights)
         else:
             k_fit = min(-(-k // 32) * 32, min(int(X.shape[0]),
                                               int(X.shape[1])))
@@ -68,7 +72,7 @@ class TruncatedSVD(BaseEstimator, TransformerMixin):
         X_transformed = u * s
         # variance bookkeeping over the rows (ddof = 0)
         explained_var = torch.var(X_transformed, dim=0, correction=0)
-        full_var = float(torch.var(data.X, dim=0, correction=0).sum())
+        full_var = float(torch.var(Xf, dim=0, correction=0).sum())
         self.components_ = v.cpu().numpy()
         self.explained_variance_ = explained_var.cpu().numpy()
         self.explained_variance_ratio_ = self.explained_variance_ / full_var
@@ -77,7 +81,8 @@ class TruncatedSVD(BaseEstimator, TransformerMixin):
 
     def _project(self, X, comps):
         Xs = prepare_data(check_array(X)).X
-        return maybe_host(Xs @ torch.as_tensor(comps, device=Xs.device))
+        return maybe_host(precision.pmatmul(
+            Xs, torch.as_tensor(comps, device=Xs.device)))
 
     def transform(self, X, y=None):
         return self._project(X, self.components_.T)

@@ -41,7 +41,7 @@ from dask_ml_tpu_torch.metrics import accuracy_score, r2_score
 from dask_ml_tpu_torch.models import glm as core
 from dask_ml_tpu_torch.models.glm import add_intercept
 from dask_ml_tpu_torch.ops import sparse as sparse_ops
-from dask_ml_tpu_torch.parallel import telemetry
+from dask_ml_tpu_torch.parallel import precision, telemetry
 from dask_ml_tpu_torch.parallel.sharding import is_sparse_input, prepare_data
 from dask_ml_tpu_torch.utils.validation import check_array
 
@@ -73,14 +73,16 @@ def eta_program(Xs, coef, *, intercept: bool):
     """The whole linear predictor over staged rows: the intercept append,
     then ``X @ coef`` (``coef`` (width,)) or ``X @ coef.T`` (``coef``
     (n_classes, width), OVR) — the K6 SpMV (or the gather-matmat) for a
-    container, ``torch.matmul`` for a dense tensor."""
+    container, :func:`~dask_ml_tpu_torch.parallel.precision.pmatmul` for a
+    dense tensor (a bf16 X staged on the precision wire: bf16 operands,
+    f32 scores)."""
     if intercept:
         Xs = add_intercept(Xs)
     ct = coef.T if coef.ndim == 2 else coef
     if isinstance(Xs, sparse_ops.SparseRows):
         return (sparse_ops.matmat(Xs, ct) if ct.ndim == 2
                 else sparse_ops.matvec(Xs, ct))
-    return torch.matmul(Xs, ct)
+    return precision.pmatmul(Xs, ct)
 
 
 def proba_from_eta(eta: np.ndarray, multiclass: str) -> np.ndarray:
@@ -423,7 +425,7 @@ class _GLM(BaseEstimator):
             raise ValueError(
                 f"X has {X.shape[1]} features; the model was fitted with "
                 f"{self.n_features_in_}")
-        data = prepare_data(X)
+        data = prepare_data(X)  # on precision.staging_wire_dtype()
         coef = torch.as_tensor(np.asarray(self._coef, dtype=np.float32),
                                device=data.weights.device)
         eta = eta_program(data.X, coef, intercept=bool(self.fit_intercept))

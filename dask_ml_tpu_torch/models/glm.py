@@ -34,6 +34,7 @@ import math
 import torch
 
 from dask_ml_tpu_torch.ops import sparse as sparse_ops
+from dask_ml_tpu_torch.parallel import precision as px
 from dask_ml_tpu_torch.parallel import telemetry
 
 # ---------------------------------------------------------------------------
@@ -143,8 +144,10 @@ def _make_objective(family, regularizer, smooth_penalty: bool,
 
 
 def _state_dtype(X):
-    """Optimizer-state dtype for data of X's dtype: at least float32."""
-    return torch.promote_types(X.dtype, torch.float32)
+    """Optimizer-state dtype for data of X's dtype: at least float32, the
+    one rule of :func:`~dask_ml_tpu_torch.parallel.precision.state_dtype`
+    (bf16 data keeps f32 carries)."""
+    return px.state_dtype(X.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -153,21 +156,25 @@ def _state_dtype(X):
 
 
 def _data_matvec(X, v, kernel: str = "auto"):
-    """``X @ v`` (n,): ``torch.matmul`` for a dense tensor, the K6 SpMV
-    (``kernel`` as in :func:`~dask_ml_tpu_torch.ops.sparse.matvec`) for a
-    container."""
+    """``X @ v`` (n,) in the state dtype: :func:`~dask_ml_tpu_torch.
+    parallel.precision.pmatmul` for a dense tensor (v rounded to X's
+    dtype, f32 accumulation: for f32 data the plain ``torch.matmul``), the
+    K6 SpMV (``kernel`` as in :func:`~dask_ml_tpu_torch.ops.sparse.matvec`)
+    for a container."""
     if isinstance(X, sparse_ops.SparseRows):
         return sparse_ops.matvec(X, v, kernel=kernel)
-    return torch.matmul(X, v.to(X.dtype))
+    return px.pmatmul(X, v, accum=px.state_dtype(X.dtype))
 
 
 def _data_pullback(X, r, kernel: str = "auto"):
     """``X.T @ r`` (d,): the gradient pullback; for a container K6's
     backward or the plain scatter-add over the stored column indices
-    (``kernel`` as in :func:`~dask_ml_tpu_torch.ops.sparse.pullback`)."""
+    (``kernel`` as in :func:`~dask_ml_tpu_torch.ops.sparse.pullback`). The
+    cotangent ``r`` stays f32 on bf16 data, dense or sparse (the cotangent
+    rule of :mod:`~dask_ml_tpu_torch.parallel.precision`)."""
     if isinstance(X, sparse_ops.SparseRows):
         return sparse_ops.pullback(X, r, kernel=kernel)
-    return torch.matmul(X.T, r.to(X.dtype))
+    return px.pullback_matmul(X.T, r)
 
 
 def _weighted_gram(X, h):
@@ -176,8 +183,10 @@ def _weighted_gram(X, h):
     products."""
     if isinstance(X, sparse_ops.SparseRows):
         return sparse_ops.weighted_gram(X, h)
+    # h applied first, the product rounded back to X's dtype: both
+    # operands are bf16 for bf16 data, the Hessian f32 (the JAX package's)
     Xh = (h[:, None] * X).to(X.dtype)
-    return torch.matmul(X.T, Xh)
+    return px.pmatmul(X.T, Xh, accum=px.state_dtype(X.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -475,7 +484,7 @@ def _blocks_matvec(Xb, x, kernel):
     if isinstance(Xb, list):
         return torch.stack([_data_matvec(A, x[s], kernel=kernel)
                             for s, A in enumerate(Xb)])
-    return torch.bmm(Xb, x.to(Xb.dtype)[:, :, None])[:, :, 0]
+    return px.pmatmul(Xb, x[:, :, None])[:, :, 0]
 
 
 def _blocks_pullback(Xb, r, kernel):
@@ -483,7 +492,7 @@ def _blocks_pullback(Xb, r, kernel):
     if isinstance(Xb, list):
         return torch.stack([_data_pullback(A, r[s], kernel=kernel)
                             for s, A in enumerate(Xb)])
-    return torch.bmm(Xb.transpose(1, 2), r.to(Xb.dtype)[:, :, None])[:, :, 0]
+    return px.pullback_matmul(Xb.transpose(1, 2), r[:, :, None])[:, :, 0]
 
 
 def _blocks_gram(Xb, h):
@@ -678,7 +687,7 @@ def _multinomial_hessian(Xb, P, wb, sw):
         M = (Pc[..., :, None] * eye - Pc[..., :, None] * Pc[..., None, :])
         M = M * wb[:, a:a + rows, None, None]
         W = M[:, :, :, None, :] * Xc[:, :, None, :, None]  # (S, r, c, l, k)
-        H += torch.bmm(Xc.transpose(1, 2), W.reshape(S, -1, K * d * K))
+        H += px.pmatmul(Xc.transpose(1, 2), W.reshape(S, -1, K * d * K))
     return H.view(S, d * K, d * K) / sw
 
 
@@ -714,8 +723,9 @@ def admm_multinomial(X, y_idx, w, B0, mask, *, n_classes, n_shards=1,
 
     def local_solve(x, z, u):
         def grad_probs(B):
-            P = torch.softmax(torch.bmm(Xb, B.to(Xb.dtype)), dim=2)
-            g = torch.bmm(Xb.transpose(1, 2), wb[:, :, None] * (P - Yoh))
+            P = torch.softmax(px.pmatmul(Xb, B), dim=2)
+            g = px.pullback_matmul(Xb.transpose(1, 2),
+                                   wb[:, :, None] * (P - Yoh))
             return g / sw + rho * (B - z + u), P
 
         def step(g, P):
@@ -757,7 +767,7 @@ def multinomial_lbfgs(X, y_idx, w, B0, mask, *, n_classes, regularizer="l2",
         if isinstance(X, sparse_ops.SparseRows):
             logits = sparse_ops.matmat(X, B)
         else:
-            logits = torch.matmul(X, B.to(X.dtype))
+            logits = px.pmatmul(X, B)
         lse = torch.logsumexp(logits, dim=1)
         nll = torch.sum(w * (lse - torch.sum(Yoh * logits, dim=1)))
         pen = pen_value((B * mask[:, None]).reshape(-1))
@@ -830,7 +840,7 @@ def batched_eval_scores(E, y, w, betas, *, family):
     if isinstance(E, sparse_ops.SparseRows):
         eta = sparse_ops.matmat(E, betas.T)
     else:
-        eta = torch.matmul(E, betas.T.to(E.dtype))
+        eta = px.pmatmul(E, betas.T)
     sw = torch.clamp(torch.sum(w), min=1e-12)
     if family == "logistic":
         hit = ((eta > 0).to(torch.float32) == y[:, None]).to(torch.float32)
@@ -1015,7 +1025,7 @@ def admm_streamed(block_fn, n_blocks, d, sw_total, mask=None, *,
             "checkpoint.solve_checkpointed)")
     _, pen_prox = _penalty(regularizer)
     dev = block_fn.device if host else resolve_device(device)
-    sdt = torch.promote_types(dtype, torch.float32)
+    sdt = px.state_dtype(dtype)
     shape = (int(n_blocks), int(d))
     if state is None:
         z = torch.zeros(int(d), dtype=sdt, device=dev)
@@ -1121,7 +1131,7 @@ def make_sgd_step(family="logistic", regularizer="l2", lamduh=0.0,
             def block_loss(B):
                 logits = (sparse_ops.matmat(x, B)
                           if isinstance(x, sparse_ops.SparseRows)
-                          else torch.matmul(x, B))
+                          else px.pmatmul(x, B))
                 lse = torch.logsumexp(logits, dim=1)
                 return torch.sum(
                     w * (lse - torch.sum(yoh * logits, dim=1))) / wsum
@@ -1197,7 +1207,7 @@ def make_batched_sgd_epoch(family="logistic", regularizer="l2",
             wsum = torch.clamp(torch.sum(w), min=1e-12)
 
             def block_loss(B):
-                eta = torch.matmul(x, B.T)  # (bs, M): every member at once
+                eta = px.pmatmul(x, B.T)  # (bs, M): every member at once
                 return torch.sum(w[:, None] * loss_fn(eta, y[:, None])) / wsum
 
             _, g = _value_and_grad(block_loss)(betas)

@@ -68,10 +68,12 @@ def _new_centers(sums, counts, centers):
 
 def _weighted_sums(X, w, labels, k: int):
     """Per-cluster weighted (k, d) sums and (k,) counts by a one-hot
-    matmul."""
-    onehot = (torch.nn.functional.one_hot(labels.long(), k).to(X.dtype)
-              * w[:, None])
-    return onehot.T @ X, onehot.sum(dim=0)
+    matmul, in f32 whatever X's dtype (a bf16 X is widened: the sums are
+    those of the JAX fused and bounded loops, which the single-pass kernel
+    computes too)."""
+    onehot = (torch.nn.functional.one_hot(labels.long(), k)
+              .to(torch.float32) * w[:, None])
+    return onehot.T @ X.to(torch.float32), onehot.sum(dim=0)
 
 
 def _m_step(X, w, labels, centers):
@@ -110,25 +112,31 @@ def lloyd_loop(X, w, centers, tol, max_iter: int, kernel: str = "auto"):
 def _lloyd_stats_ref(X, w, centers):
     """Plain version of one single-pass Lloyd iteration: the weighted
     (k, d) sums, (k,) counts and the inertia of assigning X to
-    ``centers``."""
+    ``centers``. With bf16 X the product takes the centers cast to bf16,
+    ``|c|²`` comes from the f32 centers, and the sums and ``|x|²`` are
+    those of X widened to f32 (the JAX kernel's bf16 case)."""
     k = centers.shape[0]
+    Xf = X.to(torch.float32)
     c2 = (centers * centers).sum(dim=1)
-    scores = c2[:, None] - 2.0 * (centers @ X.T)  # (k, n)
+    Cc = centers.to(X.dtype).to(torch.float32)
+    scores = c2[:, None] - 2.0 * (Cc @ Xf.T)  # (k, n)
     best = scores.argmin(dim=0)
     oh_w = ((torch.arange(k, device=X.device)[:, None] == best[None, :])
             .to(torch.float32) * w[None, :])
-    sums = oh_w @ X
+    sums = oh_w @ Xf
     counts = oh_w.sum(dim=1)
-    x2 = (X * X).sum(dim=1)
+    x2 = (Xf * Xf).sum(dim=1)
     mind = torch.clamp(scores.min(dim=0).values + x2, min=0.0)
     return sums, counts, (mind * w).sum()
 
 
-def _lloyd_cuda_supported(k: int, d: int) -> bool:
-    """Does the single-pass kernel's shared-memory budget hold (k, d)?"""
+def _lloyd_cuda_supported(k: int, d: int, dtype=torch.float32) -> bool:
+    """Does the single-pass kernel's shared-memory budget hold (k, d) for
+    X of ``dtype`` (a bf16 tile takes half the bytes)?"""
     from dask_ml_tpu_torch._kernels import build
 
-    return bool(build.load("lloyd").dml_lloyd_supported(k, d))
+    return bool(build.load("lloyd").dml_lloyd_supported(
+        k, d, int(dtype == torch.bfloat16)))
 
 
 def _lloyd_stats_cuda(X, w, centers):
@@ -138,18 +146,23 @@ def _lloyd_stats_cuda(X, w, centers):
     reduces the per-block partials (bit-reproducible). ``|c|²`` is
     :func:`_row_sumsq` of the centers, as the fused distance kernels take
     it, so from the same centers the kernel's argmins are K2's bits. See
-    the source for what bounds it on the H100."""
+    the source for what bounds it on the H100. A bf16 X is the kernel's
+    bf16 case (counted as ``lloyd_iter_bf16``): the centers are passed
+    rounded to bf16, ``|c|²`` from the f32 centers."""
     from dask_ml_tpu_torch._kernels import build
 
     n, d = X.shape
     k = centers.shape[0]
-    if (X.dtype != torch.float32 or w.dtype != torch.float32
+    bf16 = X.dtype == torch.bfloat16
+    if (X.dtype not in (torch.float32, torch.bfloat16)
+            or w.dtype != torch.float32
             or not X.is_cuda or w.device != X.device
             or centers.device != X.device
             or not X.is_contiguous() or not w.is_contiguous()
             or w.shape != (n,) or centers.shape != (k, d)):
         raise ValueError(
-            "the Lloyd kernel takes contiguous float32 X (n, d), w (n,) "
+            "the Lloyd kernel takes contiguous float32 or bfloat16 X "
+            "(n, d), float32 w (n,) "
             f"and centers (k, d) on one CUDA device; got X {X.dtype} "
             f"{tuple(X.shape)} on {X.device}, w {w.dtype} {tuple(w.shape)} "
             f"on {w.device}, centers {tuple(centers.shape)} on "
@@ -157,22 +170,24 @@ def _lloyd_stats_cuda(X, w, centers):
     if not 0 < n < 2**31:
         raise ValueError(f"the Lloyd kernel takes 0 < n < 2**31; got {n}")
     lib = build.load("lloyd")
-    if not lib.dml_lloyd_supported(k, d):
+    if not lib.dml_lloyd_supported(k, d, int(bf16)):
         raise ValueError(
             f"kernel='cuda': k={k}, d={d} exceeds the Lloyd kernel's "
             "shared-memory budget (centers + a (k, d+1) accumulator + one "
             "128-row tile of X); use kernel='auto' for the two-pass form")
-    C = centers.to(torch.float32).contiguous()
+    C = centers.to(torch.float32)
     c2 = _row_sumsq(C).contiguous()
+    C = C.to(X.dtype).to(torch.float32).contiguous()
     P = k * (d + 1) + 1
     partial = torch.empty(lib.dml_lloyd_max_partials() * P,
                           dtype=torch.float32, device=X.device)
     out = torch.empty(P, dtype=torch.float32, device=X.device)
-    code = lib.dml_lloyd_iter(X.data_ptr(), w.data_ptr(), C.data_ptr(),
-                              c2.data_ptr(), n, k, d, partial.data_ptr(),
-                              out.data_ptr(), build.stream_of(X))
+    code = lib.dml_lloyd_iter(X.data_ptr(), int(bf16), w.data_ptr(),
+                              C.data_ptr(), c2.data_ptr(), n, k, d,
+                              partial.data_ptr(), out.data_ptr(),
+                              build.stream_of(X))
     build.check(code, "Lloyd kernel")
-    _kernels.count("lloyd_iter")
+    _kernels.count("lloyd_iter_bf16" if bf16 else "lloyd_iter")
     acc = out[:-1].view(k, d + 1)
     return acc[:, :d], acc[:, d], out[-1]
 
@@ -196,7 +211,7 @@ def _lloyd_stats_fn(X, k: int, d: int, kernel: str):
             raise ValueError(
                 f"kernel='cuda' needs CUDA tensors; X lies on {X.device}")
         return _lloyd_stats_ref
-    if kernel == "cuda" or _lloyd_cuda_supported(k, d):
+    if kernel == "cuda" or _lloyd_cuda_supported(k, d, X.dtype):
         return _lloyd_stats_cuda
     return _lloyd_stats_two_pass
 
@@ -415,8 +430,10 @@ def _bounded_assign(X_pad, x2_pad, centers, labels, ub, lb, w_pos, *,
     labels = torch.where(ev, idx, labels)
     c2max = (centers * centers).sum(dim=1).max()
     slack_sq = _BOUND_EPS_ABS * (x2_pad + c2max)
-    ub = torch.where(ev, torch.sqrt(d1 + slack_sq) * (1 + s), ub)
-    lb_seed = torch.sqrt(torch.clamp(d2 - slack_sq, min=0.0)) * (1 - s)
+    bdt = ub.dtype
+    ub = torch.where(ev, (torch.sqrt(d1 + slack_sq) * (1 + s)).to(bdt), ub)
+    lb_seed = (torch.sqrt(torch.clamp(d2 - slack_sq, min=0.0))
+               * (1 - s)).to(bdt)
     lb = torch.where(ev[:, None], lb_seed[:, None], lb)
     skipped = (w_pos & ~ev).sum()
     held = (w_pos & ~need).sum()
@@ -441,15 +458,17 @@ def _bounded_move(ub, lb, labels, centers, new_centers, gid, G: int):
 BOUNDED_CARRY_VERSION = 1
 
 
-def _bounded_init_state(centers0, n_pad: int, G: int, max_iter: int):
-    """The carry before the first iteration: zero bounds force a full
-    evaluation (``ub >= min(lb)`` holds at 0 ≥ 0), which seeds everything;
-    ``it`` is a host int and ``shift`` starts at +inf."""
+def _bounded_init_state(centers0, n_pad: int, G: int, max_iter: int,
+                        bounds_dtype=torch.float32):
+    """The carry before the first iteration: zero bounds (in
+    ``bounds_dtype``) force a full evaluation (``ub >= min(lb)`` holds at
+    0 ≥ 0), which seeds everything; ``it`` is a host int and ``shift``
+    starts at +inf."""
     dev = centers0.device
     return (centers0.to(torch.float32),
             torch.zeros(n_pad, dtype=torch.int32, device=dev),
-            torch.zeros(n_pad, dtype=torch.float32, device=dev),
-            torch.zeros((n_pad, G), dtype=torch.float32, device=dev),
+            torch.zeros(n_pad, dtype=bounds_dtype, device=dev),
+            torch.zeros((n_pad, G), dtype=bounds_dtype, device=dev),
             0,
             torch.tensor(_INF, device=dev),
             torch.zeros(max_iter, dtype=torch.int64, device=dev),
@@ -477,17 +496,20 @@ def _bounded_final_assign(X, w, centers, *, kernel: str):
 def _bounded_setup(X, w, k: int, groups, kernel: str, bounds_dtype):
     """What every chunk of the bounded loop reads and never changes: the
     rows padded to whole ``row_need`` groups (once, before the loop),
-    their weight-positive mask and ``Σx²``, and the center grouping."""
-    if bounds_dtype != torch.float32:
+    their weight-positive mask and ``Σx²`` (f32 whatever X's dtype), and
+    the center grouping. ``bounds_dtype`` follows the rule of
+    :func:`~dask_ml_tpu_torch.parallel.precision.lloyd_bounds_dtype`:
+    float32 or wider, never a low-precision bound."""
+    if bounds_dtype not in (torch.float32, torch.float64):
         raise ValueError(
-            f"bounds_dtype must be torch.float32 (the port's only bounds "
-            f"type); got {bounds_dtype}")
+            f"bounds_dtype must be torch.float32 or torch.float64 (bounds "
+            f"are solver state, never below float32); got {bounds_dtype}")
     if kernel not in ("auto", "cuda", "torch"):
         raise ValueError(f"kernel must be auto|cuda|torch, got {kernel!r}")
     G, size = _bounded_groups(k, groups)
     X_pad, w_pad = _pad_rows_to_blocks(X, w)
     return {"X_pad": X_pad, "w_pos": w_pad > 0,
-            "x2_pad": (X_pad * X_pad).sum(dim=1), "G": G,
+            "x2_pad": _row_sumsq(X_pad), "G": G, "bdt": bounds_dtype,
             "gid": torch.arange(k, device=X.device) // size}
 
 
@@ -539,11 +561,12 @@ def lloyd_loop_bounded(X, w, centers0, tol, *, max_iter: int,
     ``stats`` with ``rows_skipped`` (rows whose distance work was avoided,
     group granularity) and ``bounds_held`` (rows whose bound held), int64
     tensors of length ``max_iter``, zero past ``n_iter``. ``bounds_dtype``
-    takes float32 only."""
+    (float32 or float64, the facade's ``lloyd_bounds_dtype``) is the
+    dtype of the bounds; X may be float32 or bfloat16."""
     prep = _bounded_setup(X, w, centers0.shape[0], groups, kernel,
                           bounds_dtype)
     state = _bounded_init_state(centers0, prep["X_pad"].shape[0], prep["G"],
-                                max_iter)
+                                max_iter, prep["bdt"])
     state = _bounded_chunk(X, w, state, _tol_tensor(tol, centers0.device),
                            prep, max_iter=max_iter, chunk=max_iter,
                            kernel=kernel, prune=prune)
@@ -585,7 +608,7 @@ def lloyd_bounded_resumable(X, w, centers0, tol, *, max_iter: int,
     snap = ckpt.load()
     if snap is None:
         state = _bounded_init_state(centers0, prep["X_pad"].shape[0],
-                                    prep["G"], max_iter)
+                                    prep["G"], max_iter, prep["bdt"])
     else:
         carry = snap[0]
         state = tuple(int(leaf) if i == 4
@@ -732,7 +755,7 @@ def _init_rounds_phase(X, w, l, cand, mind0, n_rounds: int, gen, *,
     w_real = w > 0
     zero = torch.zeros_like(w)
     if prune:
-        x2 = (X * X).sum(dim=1)
+        x2 = _row_sumsq(X)
         xnorm = torch.sqrt(x2)
     # one trash row past the buffer takes the writes of unfilled slots
     buf = torch.cat([cand, cand.new_zeros((1, cand.shape[1]))])
@@ -873,7 +896,7 @@ def init_pp(X, n_valid: int, n_clusters: int, gen):
             "kmeans_plusplus on the host and needs scikit-learn, which is "
             "not installed; use init='k-means||' or 'random'") from e
 
-    Xh = X[:n_valid].cpu().numpy()
+    Xh = X[:n_valid].to(torch.float32).cpu().numpy()
     seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen,
                              device=X.device))
     centers, _ = kmeans_plusplus(Xh, n_clusters, random_state=seed)

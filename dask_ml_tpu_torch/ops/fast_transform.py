@@ -19,9 +19,11 @@ identity (sweep 0 has no permutation). :func:`palm4msa_fit` draws the
 table from a ``torch.Generator`` unless the caller passes one, which is
 how the tests hand the port the JAX package's own permutations.
 
-Everything here is plain PyTorch at float32 (the JAX package's
-``fast_transform_dtype`` is float32 for float32 data, the port's only
-staging type); no kernel runs in this module.
+Everything here is plain PyTorch; the factor fits and applications run
+at :func:`~dask_ml_tpu_torch.parallel.precision.fast_transform_dtype`
+(float32 for float32 and bf16 data alike: never below f32), and the
+applications cast back to the data's dtype so the staging wire is kept.
+No kernel runs in this module.
 """
 
 from __future__ import annotations
@@ -143,9 +145,13 @@ def _pad_cols(X, d_pad: int):
 
 def ft_apply(ft: FastTransform, X):
     """``X (n, d) → Z (n, d_pad)``: zero-pad to the butterfly width and run
-    the factor ladder in float32, then cast back to X's dtype."""
+    the factor ladder at ``fast_transform_dtype`` (f32 floor), then cast
+    back to X's dtype."""
+    from dask_ml_tpu_torch.parallel.precision import fast_transform_dtype
+
     angles, perms = _tables(ft, X.device)
-    Z = _pad_cols(X, ft.d_pad).to(torch.float32)
+    ct = fast_transform_dtype(X.dtype)
+    Z = _pad_cols(X, ft.d_pad).to(ct)
     return _apply_levels(Z, angles, perms, ft.d_pad,
                          transpose=False).to(X.dtype)
 
@@ -154,8 +160,11 @@ def ft_apply_t(ft: FastTransform, Z):
     """``Z (n, d_pad) → (n, d_pad)`` through the transpose ladder (the
     inverse: ``ft_apply_t(ft, ft_apply(ft, X))`` recovers X up to
     roundoff). Data-space rows are ``[:, :ft.d]``."""
+    from dask_ml_tpu_torch.parallel.precision import fast_transform_dtype
+
     angles, perms = _tables(ft, Z.device)
-    return _apply_levels(Z.to(torch.float32), angles, perms, ft.d_pad,
+    ct = fast_transform_dtype(Z.dtype)
+    return _apply_levels(Z.to(ct), angles, perms, ft.d_pad,
                          transpose=True).to(Z.dtype)
 
 

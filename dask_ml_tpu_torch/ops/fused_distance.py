@@ -25,8 +25,12 @@ launch error raises: nothing here gives way to the plain version.
 
 Score convention, shared by the kernel and the plain versions so ties
 break identically: the reduction runs over ``s_j = |y_j|² − 2·x·y_j`` with
-``|y|²`` in f32 from the ORIGINAL Y; ``|x|²`` is added back only to the
-returned min value, which is clamped at 0 against cancellation. Masked
+``|y|²`` in f32 from the ORIGINAL Y and ``x·y_j`` formed from Y cast to
+X's dtype, accumulated in f32; ``|x|²`` is added back only to the
+returned min value, which is clamped at 0 against cancellation. X may be
+float32 or bfloat16 (the JAX package's bf16 case): with bf16 X the
+products are those of bf16 operands, exact in f32, so on the card the
+bf16 kernel gives the bits of the f32 kernel run on ``X.float()``. Masked
 targets score +inf and never win; ties go to the lowest index; when every
 target is masked the argmin is 0 and the min is +inf. Indices are int32 at
 every public function (``torch.argmin`` gives int64).
@@ -68,9 +72,11 @@ def _row_sumsq(X):
 
 def _scores_ref(X, Y, mask):
     """(n, m) reduction scores ``|y|² − 2·x·y`` with masked targets at
-    +inf; ``|y|²`` comes from the original Y in f32."""
+    +inf. ``|y|²`` comes from the ORIGINAL Y in f32, the product from Y
+    cast to X's dtype (bf16 X: bf16 operands, exact products) accumulated
+    in f32."""
     y2 = _row_sumsq(Y)
-    prod = X.to(torch.float32) @ Y.to(torch.float32).T
+    prod = X.to(torch.float32) @ Y.to(X.dtype).to(torch.float32).T
     s = y2[None, :] - 2.0 * prod
     if mask is not None:
         s = torch.where(mask.to(torch.bool)[None, :], s,
@@ -181,13 +187,16 @@ def _fused_cuda(X, Y, mask, epilogue: str, w=None, row_need=None, x2=None,
     ``x2``). See the source for what bounds it on the H100 and how the
     design answers that. Outputs and scratch are allocated here; the
     kernel runs on PyTorch's current stream and does not synchronise.
-    ``counter`` names the launch counter (default: the epilogue's)."""
+    ``counter`` names the launch counter (default: the epilogue's); a
+    bf16 X counts under that name with ``_bf16`` appended, and the kernel
+    takes Y rounded to bf16 (held in f32) with ``|y|²`` from the original
+    Y."""
     from dask_ml_tpu_torch._kernels import build
 
-    if X.dtype != torch.float32 or X.dim() != 2:
+    if X.dtype not in (torch.float32, torch.bfloat16) or X.dim() != 2:
         raise ValueError(
-            f"the fused distance kernel takes 2-D float32 X; got "
-            f"{X.dtype} of shape {tuple(X.shape)}")
+            f"the fused distance kernel takes 2-D float32 or bfloat16 X; "
+            f"got {X.dtype} of shape {tuple(X.shape)}")
     n, d = X.shape
     m = Y.shape[0]
     if Y.dim() != 2 or Y.shape[1] != d or m < 1:
@@ -200,8 +209,9 @@ def _fused_cuda(X, Y, mask, epilogue: str, w=None, row_need=None, x2=None,
         raise ValueError("argmin_weight takes neither row_need nor x2")
     dev = X.device
     X = X.contiguous()
-    Yf = Y.to(device=dev, dtype=torch.float32).contiguous()
+    Yf = Y.to(device=dev, dtype=torch.float32)
     y2 = _row_sumsq(Yf).contiguous()
+    Yf = Yf.to(X.dtype).to(torch.float32).contiguous()
     maskf = (torch.ones(m, dtype=torch.float32, device=dev) if mask is None
              else mask.to(device=dev, dtype=torch.float32).contiguous())
     if maskf.shape != (m,):
@@ -242,12 +252,13 @@ def _fused_cuda(X, Y, mask, epilogue: str, w=None, row_need=None, x2=None,
         return None if t is None else t.data_ptr()
 
     code, default_counter = _EPILOGUES[epilogue]
+    bf16 = X.dtype == torch.bfloat16
     err = lib.dml_fused_distance(
-        code, ptr(X), ptr(Yf), ptr(y2), ptr(maskf), ptr(gneed), _FUSED_BLK,
-        ptr(x2f), ptr(wf), n, m, d, ptr(am), ptr(mn), ptr(mn2),
+        code, ptr(X), int(bf16), ptr(Yf), ptr(y2), ptr(maskf), ptr(gneed),
+        _FUSED_BLK, ptr(x2f), ptr(wf), n, m, d, ptr(am), ptr(mn), ptr(mn2),
         ptr(cw_part), ptr(cw), build.stream_of(X))
     build.check(err, f"fused distance kernel ({epilogue})")
-    _kernels.count(counter or default_counter)
+    _kernels.count((counter or default_counter) + ("_bf16" if bf16 else ""))
     return outs if len(outs) > 1 else outs[0]
 
 

@@ -17,16 +17,22 @@ one device.
 - :func:`svd_flip` — the sign convention of the outputs.
 
 Rows of weight 0 (padding) are zeroed when ``weights`` is given, so they
-drop out of every product. Float32 only: the JAX package's bf16 sketch
-(its precision policy) is not ported, and another ``compute_dtype``
-raises. On the card these are cuBLAS and cuSOLVER calls, as they are XLA
-calls outside any Pallas kernel in the JAX package.
+drop out of every product. :func:`tsqr` and :func:`tsvd` take float32.
+:func:`svd_compressed` takes float32 or bfloat16 X and a
+``compute_dtype`` for its sketch (the precision policy's ``"sketch"``
+dtype by default): every product that touches X is formed from operands
+of that dtype and accumulated in f32
+(:func:`~dask_ml_tpu_torch.parallel.precision.pmatmul`), while the
+CholeskyQR2 repair and the small SVD stay f32. On the card these are
+cuBLAS and cuSOLVER calls, as they are XLA calls outside any Pallas kernel
+in the JAX package.
 """
 
 from __future__ import annotations
 
 import torch
 
+from dask_ml_tpu_torch.parallel import precision as px
 from dask_ml_tpu_torch.utils.validation import check_random_state, svd_flip
 
 __all__ = ["tsqr", "tsvd", "svd_compressed", "svd_flip"]
@@ -134,20 +140,32 @@ def tsvd(X, weights=None):
 
 def svd_compressed(X, k: int, n_power_iter: int = 0, generator=None,
                    n_oversamples: int = 10, weights=None,
-                   compute_dtype=None, omega=None):
+                   compute_dtype="policy", omega=None):
     """Randomized truncated SVD (Halko et al. 2009): ``(U (n, k), S (k,),
     Vt (k, d))``. The test matrix Ω (d, ℓ), ℓ = min(k + n_oversamples, d),
     is ``omega`` when given (the tests hand over the JAX package's draw),
     else standard normal from ``generator`` (default: seed 0 on X's
     device). The sketch ``X @ Ω`` and each power iteration's ``X @ W`` are
     orthonormalized by CholeskyQR2 without a guard (each round repairs the
-    last), ``Xᵀ @ Q`` by Householder. ``compute_dtype`` must be None or
-    float32."""
-    if compute_dtype not in (None, torch.float32):
+    last), ``Xᵀ @ Q`` by Householder.
+
+    ``compute_dtype`` is the operand dtype of every product that touches
+    X (the sketch ``X @ Ω``, the power iterations, ``Qᵀ @ X``), each
+    accumulated in f32; Ω is drawn in f32 and rounded to it. The default
+    ``"policy"`` takes the active precision policy's ``"sketch"`` dtype
+    (then its compute dtype); ``None`` follows X's dtype. X may be
+    float32 or bfloat16; the repair, the small SVD and the outputs stay
+    f32."""
+    if isinstance(compute_dtype, str) and compute_dtype == "policy":
+        compute_dtype = px.resolve().compute_for("sketch")
+    if X.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(
-            f"compute_dtype={compute_dtype!r}: the port's randomized SVD "
-            "computes in float32 only")
-    _check_f32(X)
+            f"svd_compressed takes float32 or bfloat16 X; got {X.dtype}")
+    cd = X.dtype if compute_dtype is None else px.as_dtype(compute_dtype)
+    if cd not in (torch.float32, torch.bfloat16):
+        raise ValueError(
+            f"compute_dtype={compute_dtype!r}: the sketch computes in "
+            "float32 or bfloat16")
     if weights is not None:
         X = _mask_padding_rows(X, weights)
     d = int(X.shape[1])
@@ -156,16 +174,17 @@ def svd_compressed(X, k: int, n_power_iter: int = 0, generator=None,
         gen = (generator if generator is not None
                else check_random_state(0, device=X.device))
         omega = torch.randn((d, ell), generator=gen, device=X.device,
-                            dtype=X.dtype)
+                            dtype=torch.float32)
     else:
-        omega = torch.as_tensor(omega, device=X.device).to(X.dtype)
+        omega = torch.as_tensor(omega, device=X.device).to(torch.float32)
         if tuple(omega.shape) != (d, ell):
             raise ValueError(
                 f"omega must be ({d}, {ell}); got {tuple(omega.shape)}")
-    Q, _, _ = _cholesky_qr2(X @ omega)
+    Xc = X.to(cd)
+    Q, _, _ = _cholesky_qr2(px.pmatmul(Xc, omega))
     for _ in range(int(n_power_iter)):
-        W, _ = torch.linalg.qr(X.T @ Q, mode="reduced")
-        Q, _, _ = _cholesky_qr2(X @ W)
-    Ub, S, Vt = _svd(Q.T @ X)
+        W, _ = torch.linalg.qr(px.pmatmul(Xc.T, Q), mode="reduced")
+        Q, _, _ = _cholesky_qr2(px.pmatmul(Xc, W))
+    Ub, S, Vt = _svd(px.pmatmul(Q.T, Xc, compute=cd))
     U = Q @ Ub
     return U[:, :k], S[:k], Vt[:k]

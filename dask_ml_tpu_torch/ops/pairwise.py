@@ -62,8 +62,14 @@ def check_pairwise_arrays(X, Y, precomputed: bool = False):
 
 
 def _pair(X, Y):
+    """X and Y as float tensors of one dtype (a bf16 X against f32 centers
+    is promoted to f32, as ``jnp`` promotes the pair)."""
     X = _as_float_tensor(X)
-    return X, (X if Y is None else _as_float_tensor(Y, device=X.device))
+    if Y is None:
+        return X, X
+    Y = _as_float_tensor(Y, device=X.device)
+    dt = torch.promote_types(X.dtype, Y.dtype)
+    return X.to(dt), Y.to(dt)
 
 
 def sq_euclidean(X, Y):

@@ -28,8 +28,18 @@ contractions the GLM solvers route through.
   them outside any Pallas kernel; the last two add their products in
   fixed point, so that they repeat their bits.
 
-Products form in f32 and every reduction accumulates in f32 (the port
-stages float32 only). On integer-valued data every partial sum is an
+Values are float32 or bfloat16 (``ell_from_csr(..., dtype=torch.bfloat16)``,
+or a container staged under ``precision="bf16"``); cols are always int32.
+Every reduction accumulates in :func:`_accum_dtype` (at least f32). The
+forward contractions (K6, :func:`matmat`) round the dense operand to the
+values' dtype and form each product in f32 (exact for two bf16
+operands), as the Pallas K6 does. The pullbacks (K6-b,
+:func:`pullback_mat`) keep the cotangent in f32 and form each product in
+f32: unlike the JAX package's bf16 ``pullback``, which rounds the
+cotangent and each product to bf16 and so loses a logistic gradient
+(σ(η) − y is ±½ to bf16's 8 bits; an L-BFGS fit on bf16 values then
+lands far from the f32 fit, in the JAX package too: PERF.md §6).
+On integer-valued data every partial sum is an
 exactly representable integer, so the contractions are bit-identical to
 the dense products they replace whatever their order. On float data the
 kernels repeat their own bits from run to run: the forward sums each row in
@@ -128,7 +138,13 @@ def ell_from_csr(X, k: int = None, dtype=None) -> SparseRows:
     """Encode a scipy sparse matrix as a host :class:`SparseRows`. ``k``
     (default: :func:`~dask_ml_tpu_torch.parallel.shapes.bucket_nnz` of the
     largest row's nonzero count) is the slot budget; a row with more
-    nonzeros than an explicit ``k`` raises."""
+    nonzeros than an explicit ``k`` raises. ``dtype=torch.bfloat16``
+    builds a bf16 container, whose leaves are CPU tensors (numpy has no
+    bfloat16): the values rounded to nearest even, the cols int32."""
+    if dtype == torch.bfloat16:
+        A = ell_from_csr(X, k=k, dtype=np.float32)
+        return SparseRows(torch.from_numpy(A.values).to(torch.bfloat16),
+                          torch.from_numpy(A.cols), A.d)
     import scipy.sparse
 
     from dask_ml_tpu_torch.parallel.shapes import bucket_nnz
@@ -203,11 +219,24 @@ def add_intercept_ell(A: SparseRows) -> SparseRows:
 # ---------------------------------------------------------------------------
 
 
+def _accum_dtype(A: SparseRows):
+    """The dtype the contractions accumulate in: the state dtype of the
+    values (at least f32)."""
+    from dask_ml_tpu_torch.parallel.precision import state_dtype
+
+    return state_dtype(A.dtype)
+
+
 def _spmv_ref(values, cols, v):
-    """Plain ``A @ v``: gather ``v[cols]`` (an int32 ``index_select``, no
-    int64 copy of the index), multiply by the values, row sum in f32."""
+    """Plain ``A @ v``: gather ``v[cols]`` rounded to the values' dtype
+    (an int32 ``index_select``, no int64 copy of the index), multiply by
+    the values in f32, row sum in f32: the Pallas kernel's function."""
     g = torch.index_select(v.to(values.dtype), 0, cols.reshape(-1))
-    return g.view(values.shape).mul_(values).sum(dim=1, dtype=torch.float32)
+    g = g.view(values.shape)
+    if values.dtype != torch.float32:
+        g = g.to(torch.float32)
+        values = values.to(torch.float32)
+    return g.mul_(values).sum(dim=1, dtype=torch.float32)
 
 
 #: the card's constants the plan rests on (H100 SXM) and the tiles of the
@@ -271,10 +300,12 @@ def _check_kernel_args(what, values, cols, x, xname):
         raise ValueError(
             f"the {what} kernel takes values and cols of one (n, k) shape; "
             f"got {tuple(values.shape)} and {tuple(cols.shape)}")
-    if (values.dtype != torch.float32 or cols.dtype != torch.int32
+    if (values.dtype not in (torch.float32, torch.bfloat16)
+            or cols.dtype != torch.int32
             or x.dtype != torch.float32 or x.dim() != 1):
         raise ValueError(
-            f"the {what} kernel takes f32 values, int32 cols and a 1-D f32 "
+            f"the {what} kernel takes f32 or bf16 values, int32 cols and a "
+            f"1-D f32 "
             f"{xname}; got {values.dtype}, {cols.dtype} and {x.dtype} of "
             f"shape {tuple(x.shape)}")
     if not (values.device == cols.device == x.device and values.is_cuda):
@@ -297,13 +328,20 @@ def _spmv_cuda(values, cols, v, cluster=None):
     :func:`dvector_plan`'s answer unless the caller (a test, a timing)
     names one: 1 or 2 launch the kernel that keeps ``v`` in shared memory
     (a cluster launch needs sm_90 and is refused at launch where the shape
-    does not fit), 0 the one that gathers from L2. The output and the ``(cluster, n)`` scratch of partial outputs are
-    allocated here; the kernels run on PyTorch's current stream and do
-    not synchronise."""
+    does not fit), 0 the one that gathers from L2. The output and the
+    ``(cluster, n)`` scratch of partial outputs are allocated here; the
+    kernels run on PyTorch's current stream and do not synchronise. bf16
+    values are the kernel's bf16 case (counters ``spmv_bf16`` /
+    ``spmv_l2_bf16``): ``v`` is rounded to bf16 here, once, and handed
+    over widened to f32."""
     from dask_ml_tpu_torch._kernels import build
 
     n, k = _check_kernel_args("SpMV", values, cols, v, "v")
     d = int(v.numel())
+    bf16 = values.dtype == torch.bfloat16
+    suffix = "_bf16" if bf16 else ""
+    if bf16:
+        v = v.to(torch.bfloat16).to(torch.float32)
     out = torch.empty(n, dtype=torch.float32, device=values.device)
     if n == 0:
         return out
@@ -312,29 +350,31 @@ def _spmv_cuda(values, cols, v, cluster=None):
     lib = build.load("spmv")
     stream = build.stream_of(values)
     if cluster == 0:
-        err = lib.dml_spmv(values.data_ptr(), cols.data_ptr(), v.data_ptr(),
-                           n, k, out.data_ptr(), stream)
+        err = lib.dml_spmv(values.data_ptr(), int(bf16), cols.data_ptr(),
+                           v.data_ptr(), n, k, out.data_ptr(), stream)
         build.check(err, "SpMV kernel (v in L2)")
-        _kernels.count("spmv_l2")
+        _kernels.count("spmv_l2" + suffix)
     else:
         partial = None
         if cluster > 1:
             partial = torch.empty((cluster, n), dtype=torch.float32,
                                   device=values.device)
         err = lib.dml_spmv_smem(
-            values.data_ptr(), cols.data_ptr(), v.data_ptr(), n, k, d,
-            cluster, None if partial is None else partial.data_ptr(), out.data_ptr(),
-            stream)
+            values.data_ptr(), int(bf16), cols.data_ptr(), v.data_ptr(), n,
+            k, d, cluster, None if partial is None else partial.data_ptr(),
+            out.data_ptr(), stream)
         build.check(err, f"SpMV kernel (v in a cluster of {cluster})")
-        _kernels.count("spmv")
+        _kernels.count("spmv" + suffix)
     return out
 
 
 def _pullback_ref(values, cols, r, d):
     """Plain ``A.T @ r``: a scatter-add of the slot products over the
     flattened int32 column indices (the counterpart of XLA's
-    ``segment_sum``); padded slots add 0."""
-    prods = (values * r.to(values.dtype)[:, None]).to(torch.float32)
+    ``segment_sum``); padded slots add 0. Each product is formed in f32
+    from the values (widened) and ``r`` in f32 (see the module docstring
+    for the bf16 case)."""
+    prods = values.to(torch.float32) * r.to(torch.float32)[:, None]
     out = torch.zeros(d, dtype=torch.float32, device=prods.device)
     return out.index_add_(0, cols.reshape(-1), prods.reshape(-1))
 
@@ -349,17 +389,17 @@ def _values_bound(values):
     held = getattr(values, "_dml_absmax", None)
     if held is not None and held[0] == values._version:
         return held[1]
-    if values.is_cuda and values.dtype == torch.float32 \
+    if values.is_cuda and values.dtype in (torch.float32, torch.bfloat16) \
             and values.is_contiguous():
         from dask_ml_tpu_torch._kernels import build
 
         bound = torch.empty(1, dtype=torch.int32, device=values.device)
         err = build.load("spmv").dml_spmv_absmax(
-            values.data_ptr(), values.numel(), bound.data_ptr(),
-            build.stream_of(values))
+            values.data_ptr(), int(values.dtype == torch.bfloat16),
+            values.numel(), bound.data_ptr(), build.stream_of(values))
         build.check(err, "pullback kernel (max |values|)")
     else:
-        bound = torch.amax(torch.abs(values.to(torch.float32))).reshape(
+        bound = torch.amax(torch.abs(values)).to(torch.float32).reshape(
             1).view(torch.int32)
     values._dml_absmax = (values._version, bound)
     return bound
@@ -377,10 +417,14 @@ def _pullback_cuda(values, cols, r, d, cluster=None):
     :func:`_spmv_cuda`: 1, 2 or 4 keep the low words of ``g`` in every
     cluster's shared memory (the ``(clusters, d)`` scratch of low and high
     words is allocated here), 0 adds with 64-bit atomics on device
-    memory."""
+    memory. bf16 values are the kernel's bf16 case (counters
+    ``spmv_pullback_bf16`` / ``spmv_pullback_l2_bf16``): the values are
+    widened where loaded, ``r`` stays f32."""
     from dask_ml_tpu_torch._kernels import build
 
     n, k = _check_kernel_args("pullback", values, cols, r, "r")
+    bf16 = values.dtype == torch.bfloat16
+    suffix = "_bf16" if bf16 else ""
     d = int(d)
     if r.numel() != n:
         raise ValueError(
@@ -400,24 +444,24 @@ def _pullback_cuda(values, cols, r, d, cluster=None):
     if cluster == 0:
         acc = torch.empty(d, dtype=torch.int64, device=values.device)
         err = lib.dml_spmv_pullback_atomic(
-            values.data_ptr(), cols.data_ptr(), r.data_ptr(), n, k, d,
-            a_bound.data_ptr(), r_bound.data_ptr(), acc.data_ptr(),
+            values.data_ptr(), int(bf16), cols.data_ptr(), r.data_ptr(), n,
+            k, d, a_bound.data_ptr(), r_bound.data_ptr(), acc.data_ptr(),
             g.data_ptr(), stream)
         build.check(err, "pullback kernel (g in L2)")
-        _kernels.count("spmv_pullback_l2")
+        _kernels.count("spmv_pullback_l2" + suffix)
         return g
     what = f"pullback kernel (g in a cluster of {cluster})"
-    clusters = lib.dml_spmv_pullback_clusters(n, k, d, cluster)
+    clusters = lib.dml_spmv_pullback_clusters(n, k, d, cluster, int(bf16))
     if clusters < 1:
         build.check(-clusters, what)
     words = torch.empty((2, clusters, d), dtype=torch.int32,
                         device=values.device)
     err = lib.dml_spmv_pullback_smem(
-        values.data_ptr(), cols.data_ptr(), r.data_ptr(), n, k, d, cluster,
-        a_bound.data_ptr(), r_bound.data_ptr(), words[0].data_ptr(),
+        values.data_ptr(), int(bf16), cols.data_ptr(), r.data_ptr(), n, k, d,
+        cluster, a_bound.data_ptr(), r_bound.data_ptr(), words[0].data_ptr(),
         words[1].data_ptr(), clusters, g.data_ptr(), stream)
     build.check(err, what)
-    _kernels.count("spmv_pullback")
+    _kernels.count("spmv_pullback" + suffix)
     return g
 
 
@@ -482,9 +526,12 @@ def matvec(A: SparseRows, v, *, kernel: str = "auto"):
 
 
 def _matmat_ref(values, cols, B):
-    """``A @ B``: gather B's rows per slot, reduce over slots in f32."""
+    """``A @ B``: gather B's rows per slot (rounded to the values' dtype),
+    products in f32, reduce over slots in f32."""
     n, k = values.shape
     g = torch.index_select(B.to(values.dtype), 0, cols.reshape(-1))
+    if values.dtype != torch.float32:
+        g, values = g.to(torch.float32), values.to(torch.float32)
     g = g.view(n, k, -1) * values[:, :, None]
     return g.sum(dim=1, dtype=torch.float32)
 
@@ -617,7 +664,7 @@ def weighted_gram(A: SparseRows, h):
     n, k = A.values.shape
     d = A.d
     dev = A.values.device
-    vals = A.values.to(torch.float32)
+    vals = A.values.to(_accum_dtype(A))
     w = vals * h.to(torch.float32)[:, None]
     bound = (torch.amax(torch.abs(w)) * torch.amax(torch.abs(vals))).double()
     cap = min(39, 61 - max(n * k * k - 1, 1).bit_length())

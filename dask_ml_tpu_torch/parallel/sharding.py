@@ -8,8 +8,14 @@ keeps the reference's contract all the same — a row that carries weight 0
 contributes nothing to sums, counts or inertia.
 
 Sparse input stages as a :class:`~dask_ml_tpu_torch.ops.sparse.SparseRows`
-container: one copy of ``values`` (f32) and one of ``cols`` (int32),
+container: one copy of ``values`` and one of ``cols`` (int32),
 contiguous, with neither row nor slot padding.
+
+X (dense, or a container's values) is staged in the explicit ``dtype``
+config knob, else in the precision policy's storage dtype
+(:func:`~dask_ml_tpu_torch.parallel.precision.staging_wire_dtype`), else
+in float32: bf16 under ``precision="bf16"``. Weights and targets are
+always float32, and a container's columns int32.
 
 Inside a :func:`staging_memo` scope (the search driver's), repeated
 stagings of the same source object return the staged copy, and device
@@ -27,7 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from dask_ml_tpu_torch.config import get_config, resolve_device
+from dask_ml_tpu_torch.config import resolve_device
 from dask_ml_tpu_torch.ops.sparse import SparseRows, ell_from_csr
 
 
@@ -123,7 +129,7 @@ def _content_key(a) -> Optional[str]:
 class DeviceData:
     """A dataset staged onto the configured device."""
 
-    X: object  # (n, d) float32 tensor, contiguous, or a SparseRows
+    X: object  # (n, d) f32 or bf16 tensor, contiguous, or a SparseRows
     weights: torch.Tensor  # (n,) float32
     n: int  # true number of rows
     n_features: int
@@ -140,9 +146,9 @@ def is_sparse_input(x) -> bool:
     return scipy.sparse.issparse(x)
 
 
-def _stage_sparse(X, dev) -> SparseRows:
+def _stage_sparse(X, dev, dtype) -> SparseRows:
     A = X if isinstance(X, SparseRows) else ell_from_csr(X)
-    values = torch.as_tensor(A.values).to(device=dev, dtype=torch.float32)
+    values = torch.as_tensor(A.values).to(device=dev, dtype=dtype)
     cols = torch.as_tensor(A.cols).to(device=dev, dtype=torch.int32)
     return SparseRows(values.contiguous(), cols.contiguous(), A.d)
 
@@ -157,27 +163,33 @@ def _stage_vector(a, n: int, dev, what: str) -> torch.Tensor:
 
 def prepare_data(X, sample_weight=None, device=None, y=None) -> DeviceData:
     """Stage a validated ``X`` (numpy, tensor, scipy CSR or
-    :class:`SparseRows`, float32), its ``sample_weight`` (default 1 per
-    row) and its targets ``y`` onto ``device`` (default: the configured
-    one) as contiguous float32 tensors. Inside a :func:`staging_memo`
-    scope a repeated call on the same objects returns the staged tensors
-    (in a fresh ``DeviceData``: callers replace its fields)."""
+    :class:`SparseRows`), its ``sample_weight`` (default 1 per row) and
+    its targets ``y`` onto ``device`` (default: the configured one) as
+    contiguous tensors: X in the staging dtype (see the module
+    docstring), weights and targets in float32. Inside a
+    :func:`staging_memo` scope a repeated call on the same objects
+    returns the staged tensors (in a fresh ``DeviceData``: callers
+    replace its fields); the key holds the staging dtype and the
+    policy's ``signature()``."""
+    from dask_ml_tpu_torch.parallel import precision
+
     dev = resolve_device(device)
+    dtype = precision.staging_wire_dtype() or torch.float32
     memo = _current_memo()
     if memo is not None:
         key = ("data", id(X), str(dev), _content_key(y),
-               _content_key(sample_weight))
+               _content_key(sample_weight), str(dtype),
+               precision.resolve().signature())
         return dataclasses.replace(memo.get_or_stage(
             key, (X, y, sample_weight),
-            lambda: _prepare_data_impl(X, sample_weight, dev, y)))
-    return _prepare_data_impl(X, sample_weight, dev, y)
+            lambda: _prepare_data_impl(X, sample_weight, dev, y, dtype)))
+    return _prepare_data_impl(X, sample_weight, dev, y, dtype)
 
 
-def _prepare_data_impl(X, sample_weight, dev, y) -> DeviceData:
+def _prepare_data_impl(X, sample_weight, dev, y, dtype) -> DeviceData:
     if is_sparse_input(X):
-        Xt = _stage_sparse(X, dev)
+        Xt = _stage_sparse(X, dev, dtype)
     else:
-        dtype = get_config()["dtype"] or torch.float32
         Xt = torch.as_tensor(X).to(device=dev, dtype=dtype).contiguous()
     n, d = int(Xt.shape[0]), int(Xt.shape[1])
     if sample_weight is None:

@@ -50,7 +50,7 @@ import torch
 
 from dask_ml_tpu_torch.config import resolve_device
 from dask_ml_tpu_torch.ops.sparse import SparseRows, ell_from_csr
-from dask_ml_tpu_torch.parallel import telemetry
+from dask_ml_tpu_torch.parallel import precision, telemetry
 from dask_ml_tpu_torch.parallel.faults import BlockFetchError, Preempted
 
 __all__ = ["HostBlockSource", "prefetched_scan"]
@@ -202,9 +202,14 @@ class HostBlockSource:
 
     ``retry_policy`` (:class:`~dask_ml_tpu_torch.parallel.faults.RetryPolicy`)
     makes block reads and copies survive transient failures;
-    ``fault_injector`` injects such failures. ``storage_dtype`` takes
-    ``None`` or ``"policy"``, which means no cast: the wire cast of the
-    precision tier is not ported.
+    ``fault_injector`` injects such failures. ``storage_dtype`` is the
+    wire dtype: ``"policy"`` (the default) takes the active precision
+    policy's storage dtype (bf16 under ``precision="bf16"``, none under
+    ``"auto"``), ``None`` streams uncast, or a dtype. The cast is
+    :func:`~dask_ml_tpu_torch.parallel.precision.cast_wire` on the host,
+    at transfer (``host_block`` stays the exact host view): floating
+    leaves with ``ndim >= 2`` narrow into page-locked memory, labels,
+    weights and a container's columns never do, and nothing widens.
 
     Counters: ``bytes_streamed`` (bytes copied), ``logical_bytes_streamed``
     (what the same blocks weigh dense) and ``blocks_started``. They count
@@ -226,10 +231,9 @@ class HostBlockSource:
                 "`loader` (per-block callable)")
         if n_blocks is None or int(n_blocks) < 1:
             raise ValueError("n_blocks must be a positive integer")
-        if storage_dtype not in (None, "policy"):
-            raise NotImplementedError(
-                f"storage_dtype={storage_dtype!r}: the port streams blocks "
-                "uncast; the low-precision wire is ROADMAP Queue A item 9")
+        if isinstance(storage_dtype, str) and storage_dtype == "policy":
+            storage_dtype = precision.resolve().storage_dtype()
+        storage_dtype = precision.as_dtype(storage_dtype)
         if host_rank is not None:
             raise NotImplementedError(
                 "host_rank= belongs to the elastic multi-host tier, ROADMAP "
@@ -238,7 +242,7 @@ class HostBlockSource:
         self.prefetch = int(prefetch)
         self.transform = transform
         self.pad_tail = pad_tail if pad_tail is None else bool(pad_tail)
-        self.storage_dtype = None
+        self.storage_dtype = storage_dtype
         self.device = resolve_device(device)
         self._loader = loader
         self._arrays: Optional[tuple] = None
@@ -392,11 +396,13 @@ class HostBlockSource:
         in loader mode it reads block 0 once."""
         if self._out_struct is None:
             def meta(a):
-                return torch.empty(a.shape, dtype=_torch_dtype(a.dtype),
-                                   device="meta")
+                dt = (a.dtype if isinstance(a, torch.Tensor)
+                      else _torch_dtype(a.dtype))
+                return torch.empty(a.shape, dtype=dt, device="meta")
 
             structs = tuple(_map_element(meta, a)
-                            for a in self.host_block(0))
+                            for a in self._cast_wire(self.host_block(0),
+                                                     pin=False))
             if self.transform is not None:
                 structs = tuple(self.transform(structs))
             self._out_struct = structs
@@ -409,6 +415,12 @@ class HostBlockSource:
             self._stream = torch.cuda.Stream(self.device)
         return self._stream
 
+    def _cast_wire(self, blk: tuple, pin: bool = True) -> tuple:
+        """The block on the wire dtype (a no-op without one); on the card
+        the narrowed leaves are written into page-locked memory."""
+        return precision.cast_wire(blk, self.storage_dtype,
+                                   pin=pin and self.device.type == "cuda")
+
     def _put(self, blk: tuple):
         """Block tensors on the device, and what must outlive the copy:
         ``(tensors, event, host buffers)``. On the card the copies run on
@@ -416,15 +428,19 @@ class HostBlockSource:
         a pinned staging copy) and one event follows them; on the CPU the
         block is copied into fresh tensors."""
         if self.device.type != "cuda":
-            dev = tuple(_map_element(lambda a: torch.tensor(a), a)
-                        for a in blk)
+            dev = tuple(_map_element(
+                lambda a: (a.clone() if isinstance(a, torch.Tensor)
+                           else torch.tensor(a)), a) for a in blk)
             return dev, None, None
         keep = []
 
         def one(a):
-            h = torch.from_numpy(a)
-            if self._pinned is None or not self._pinned.covers(a):
-                h = h.pin_memory()
+            if isinstance(a, torch.Tensor):  # narrowed by the wire cast
+                h = a if a.is_pinned() else a.pin_memory()
+            else:
+                h = torch.from_numpy(a)
+                if self._pinned is None or not self._pinned.covers(a):
+                    h = h.pin_memory()
             keep.append(h)
             return h.to(self.device, non_blocking=True)
 
@@ -452,7 +468,10 @@ class HostBlockSource:
             return
         with telemetry.span("stream.transfer", block=b):
             blk = self.host_block(b)
+            # logical: what the block weighs dense and uncast, so logical /
+            # wire is the combined sparse and precision reduction
             logical = sum(_logical_nbytes(a) for a in blk)
+            blk = self._cast_wire(blk)
 
             def put():
                 if self.fault_injector is not None:

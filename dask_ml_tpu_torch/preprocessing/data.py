@@ -36,8 +36,11 @@ def _standardize(X, mean, scale):
 
 def _on(a, like):
     """A fitted statistic (host array or device tensor) as a tensor on
-    ``like``'s device and dtype."""
-    return torch.as_tensor(a).to(device=like.device, dtype=like.dtype)
+    ``like``'s device, in its dtype or f32 if that is narrower (a bf16
+    staged X is scaled in f32, as ``jnp`` promotes the pair)."""
+    return torch.as_tensor(a).to(
+        device=like.device, dtype=torch.promote_types(like.dtype,
+                                                      torch.float32))
 
 
 class StandardScaler(TransformerMixin, BaseEstimator):

@@ -32,6 +32,7 @@ from dask_ml_tpu_torch.base import BaseEstimator, clone
 from dask_ml_tpu_torch.config import (config_context, get_config,
                                       resolve_device)
 from dask_ml_tpu_torch.metrics.scorer import check_scoring, get_scorer
+from dask_ml_tpu_torch.parallel.precision import staging_wire_dtype
 from dask_ml_tpu_torch.parallel.sharding import is_sparse_input
 from dask_ml_tpu_torch.utils._utils import copy_learned_attributes
 
@@ -290,7 +291,7 @@ def incremental_scan(step_fn, init_state, X, y=None, sample_weight=None,
             else init_state)
     dev = (leaf.device if isinstance(leaf, torch.Tensor)
            else resolve_device())
-    X = _staged(X, dev, get_config()["dtype"] or torch.float32)
+    X = _staged(X, dev, staging_wire_dtype() or torch.float32)
     n = int(X.shape[0])
     if n == 0:
         raise ValueError("X has no rows")

@@ -182,9 +182,12 @@ def test_bounded_auto_rule_and_arguments():
     assert not core._bounded_auto_wins((1 << 16) - 1, 8, 41)
     assert not core._bounded_auto_wins(1 << 20, 3, 41)
     X, w, c0 = torch.zeros(10, 2), torch.ones(10), torch.zeros(2, 2)
+    # bounds are never below float32 (precision.lloyd_bounds_dtype's rule)
     with pytest.raises(ValueError, match="float32"):
         core.lloyd_loop_bounded(X, w, c0, 0.0, max_iter=1,
-                                bounds_dtype=torch.float64)
+                                bounds_dtype=torch.bfloat16)
+    assert core.lloyd_loop_bounded(X, w, c0, 0.0, max_iter=1,
+                                   bounds_dtype=torch.float64)[2] == 1
     with pytest.raises(ValueError, match="kernel"):
         core.lloyd_loop_bounded(X, w, c0, 0.0, max_iter=1, kernel="xla")
     with pytest.raises(ValueError, match="cuda"):

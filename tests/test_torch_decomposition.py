@@ -183,8 +183,10 @@ def test_svd_compressed_with_jax_omega_matches_jax(n_power_iter):
 
 def test_svd_compressed_refusals_and_seed():
     X = torch.as_tensor(_low_rank(8, n=100, d=12))
-    with pytest.raises(ValueError, match="float32 only"):
-        tlinalg.svd_compressed(X, 3, compute_dtype=torch.bfloat16)
+    # the bf16 sketch is ported (tests/test_torch_precision.py); any other
+    # low-precision sketch is refused
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tlinalg.svd_compressed(X, 3, compute_dtype=torch.float16)
     with pytest.raises(ValueError, match="omega"):
         tlinalg.svd_compressed(X, 3, omega=torch.zeros(12, 5))
     with pytest.raises(ValueError, match="float32"):

@@ -403,3 +403,97 @@ def test_new_ops_dispatch_rules():
                                       kernel="cuda")
     with pytest.raises(ValueError, match="x2"):
         tfd.fused_argmin_min_sketched(_t(X), _t(Y))
+
+
+# ---------------------------------------------------------------------------
+# bf16 X (the JAX kernel's bf16 case)
+# ---------------------------------------------------------------------------
+
+
+def _bf16_data(n, m, d, seed=0):
+    """Integer X (exact in bf16) and targets on a 1/256 grid with up to
+    ten significant bits, so that casting Y to bf16 rounds: products of
+    bf16 operands and every sum here are exact in f32, and any route that
+    skips the rounding (or takes |y|² from the rounded Y) gives other
+    bits."""
+    rng = np.random.RandomState(seed)
+    X = rng.randint(-8, 8, (n, d)).astype(np.float32)
+    Y = (rng.randint(-512, 512, (m, d)) / 256.0).astype(np.float32)
+    w = rng.randint(0, 5, n).astype(np.float32)
+    mask = rng.rand(m) > 0.3
+    assert not np.array_equal(
+        np.asarray(jnp.asarray(Y, jnp.bfloat16), np.float32), Y)
+    return X, Y, w, mask
+
+
+def _tb(a):
+    return torch.from_numpy(np.asarray(a)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,m,d", SHAPES)
+def test_bf16_bitexact_vs_jax_pallas(n, m, d):
+    """bf16 X through every epilogue, against the JAX Pallas kernel in
+    interpret mode, bit for bit (tolerance 0): Y cast to X's dtype for the
+    product, |y|² from the original f32 Y, f32 accumulation."""
+    X, Y, w, mask = _bf16_data(n, m, d)
+    jX = jnp.asarray(X, jnp.bfloat16)
+    jY, jw, jm = map(jnp.asarray, (Y, w, mask))
+    tX = _tb(X)
+    got = tfd.fused_rowwise_min(tX, _t(Y), _t(mask))
+    want = jfd.fused_rowwise_min(jX, jY, jm, kernel="pallas")
+    np.testing.assert_array_equal(got.numpy(), _np(want))
+    ga, gm = tfd.fused_argmin_min(tX, _t(Y), _t(mask))
+    wa, wm = jfd.fused_argmin_min(jX, jY, jm, kernel="pallas")
+    np.testing.assert_array_equal(ga.numpy(), _np(wa))
+    np.testing.assert_array_equal(gm.numpy(), _np(wm))
+    gi, gc = tfd.fused_argmin_weight(tX, _t(w), _t(Y), _t(mask))
+    wi, wc = jfd.fused_argmin_weight(jX, jw, jY, jm, kernel="pallas")
+    np.testing.assert_array_equal(gi.numpy(), _np(wi))
+    np.testing.assert_array_equal(gc.numpy(), _np(wc))
+    g2 = tfd.fused_argmin_min2(tX, _t(Y), _t(mask))
+    w2 = jfd.fused_argmin_min2(jX, jY, jm, kernel="pallas")
+    for a, b in zip(g2, w2):
+        np.testing.assert_array_equal(a.numpy(), _np(b))
+
+
+def test_bf16_row_need_and_sketched_vs_jax_pallas():
+    """The group skip and the external |x|² with bf16 X, bit for bit
+    against the JAX Pallas kernel (tolerance 0)."""
+    X, Y, _, mask = _bf16_data(533, 37, 13, seed=3)
+    need = (np.random.RandomState(4).rand(533) > 0.6) & (
+        np.arange(533) < 200)
+    jX = jnp.asarray(X, jnp.bfloat16)
+    got = tfd.fused_rowwise_min(_tb(X), _t(Y), _t(mask), row_need=_t(need))
+    want = jfd.fused_rowwise_min(jX, jnp.asarray(Y), jnp.asarray(mask),
+                                 kernel="pallas", row_need=jnp.asarray(need))
+    np.testing.assert_array_equal(got.numpy(), _np(want))
+    x2 = (np.random.RandomState(5).randint(0, 64, 533)).astype(np.float32)
+    ga, gm = tfd.fused_argmin_min_sketched(_tb(X), _t(Y), x2=_t(x2),
+                                           row_need=_t(need))
+    wa, wm = jfd.fused_argmin_min_sketched(jX, jnp.asarray(Y),
+                                           x2=jnp.asarray(x2),
+                                           kernel="pallas",
+                                           row_need=jnp.asarray(need))
+    np.testing.assert_array_equal(ga.numpy(), _np(wa))
+    np.testing.assert_array_equal(gm.numpy(), _np(wm))
+
+
+def test_bf16_plain_is_f32_plain_on_the_rounded_operands():
+    """The convention the card's gate rests on (the bf16 kernel equals the
+    f32 kernel on ``X.float()``): with bf16 X the plain version is the f32
+    plain version on the widened X and the bf16-rounded Y, with |y|² from
+    the original Y — on float data, bit for bit (tolerance 0)."""
+    rng = np.random.RandomState(6)
+    X = rng.randn(300, 11).astype(np.float32)
+    Y = rng.randn(9, 11).astype(np.float32)
+    tX = _tb(X)
+    Yr = torch.from_numpy(Y).to(torch.bfloat16).float()
+    y2 = tfd._row_sumsq(_t(Y))
+    s16 = tfd._scores_ref(tX, _t(Y), None)
+    s32 = y2[None, :] - 2.0 * (tX.float() @ Yr.T)
+    assert torch.equal(s16, s32)
+    ga, gm = tfd.fused_argmin_min(tX, _t(Y))
+    wa, wm = jfd.fused_argmin_min(jnp.asarray(X, jnp.bfloat16),
+                                  jnp.asarray(Y), kernel="pallas")
+    np.testing.assert_array_equal(ga.numpy(), _np(wa))
+    np.testing.assert_allclose(gm.numpy(), _np(wm), rtol=1e-5, atol=1e-5)

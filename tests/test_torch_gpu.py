@@ -1281,3 +1281,323 @@ def test_k_means_functions_launch_their_kernels(cuda):
     np.testing.assert_allclose(
         cluster.compute_inertia(X, labels, centers_), inertia, rtol=1e-5)
     assert c.shape == (4, 9)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 cases of K1-K6 (the precision tier)
+# ---------------------------------------------------------------------------
+
+
+def _grid(rng, shape, dev):
+    """Values on a 1/256 grid with up to ten significant bits: bf16 rounds
+    them, and products of bf16 operands and short sums stay exact."""
+    return torch.as_tensor(rng.integers(-512, 512, shape) / 256.0,
+                           dtype=torch.float32, device=dev)
+
+
+def _fused_f32_direct(X, Yf, y2, mask, epi, need=None, x2=None, w=None):
+    """The f32 fused kernel on X with the given (already rounded) targets
+    and |y|² (from the original targets), through the C entry: the
+    function the bf16 kernel must equal on ``X.float()``."""
+    from dask_ml_tpu_torch._kernels import build
+
+    lib = build.load("fused_distance")
+    n, d = X.shape
+    m = Yf.shape[0]
+    dev = X.device
+    maskf = (torch.ones(m, device=dev) if mask is None
+             else mask.to(torch.float32).contiguous())
+    am = torch.empty(n, dtype=torch.int32, device=dev)
+    mn = torch.empty(n, device=dev)
+    mn2 = torch.empty(n, device=dev)
+    part = torch.empty((m, -(-n // lib.dml_fused_rows_per_block())),
+                       device=dev)
+    cw = torch.empty(m, device=dev)
+    gneed = (None if need is None
+             else fd._group_need(need).to(torch.uint8).contiguous())
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    code = fd._EPILOGUES[epi][0]
+    build.check(lib.dml_fused_distance(
+        code, X.data_ptr(), 0, Yf.data_ptr(), y2.data_ptr(), maskf.data_ptr(),
+        ptr(gneed), fd._FUSED_BLK, ptr(x2), ptr(w), n, m, d, am.data_ptr(),
+        mn.data_ptr(), mn2.data_ptr(), part.data_ptr(), cw.data_ptr(),
+        build.stream_of(X)), "f32 kernel")
+    return {"min": (mn,), "argmin_min": (am, mn), "argmin_weight": (am, cw),
+            "argmin_min2": (am, mn, mn2)}[epi]
+
+
+def _bf16_fused_all(X16, Y, mask, w, need):
+    """Every epilogue of the bf16 kernel: (name, kernel outputs, plain
+    outputs, f32 kernel on the widened X)."""
+    Yr = Y.to(torch.bfloat16).float().contiguous()
+    y2 = fd._row_sumsq(Y).contiguous()
+    Xw = X16.float().contiguous()
+    out = []
+    for epi, call in (
+            ("min", lambda k: (fd.fused_rowwise_min(X16, Y, mask, kernel=k,
+                                                    row_need=need),)),
+            ("argmin_min", lambda k: fd.fused_argmin_min(X16, Y, mask,
+                                                         kernel=k)),
+            ("argmin_weight", lambda k: fd.fused_argmin_weight(
+                X16, w, Y, mask, kernel=k)),
+            ("argmin_min2", lambda k: fd.fused_argmin_min2(
+                X16, Y, mask, kernel=k, row_need=need))):
+        direct = _fused_f32_direct(
+            Xw, Yr, y2, mask, epi,
+            need=need if epi in ("min", "argmin_min2") else None,
+            w=w if epi == "argmin_weight" else None)
+        out.append((epi, call("cuda"), call("torch"), direct))
+    return out
+
+
+@pytest.mark.parametrize("n,m,d", [(1, 1, 1), (533, 37, 13), (129, 7, 3),
+                                   (2000, 329, 50), (300, 40, 130),
+                                   (4097, 8, 41), (3001, 80, 50)])
+def test_bf16_fused_kernels_bitexact_int_valued(cuda, n, m, d):
+    """bf16 X (integers) and targets that bf16 rounds: the kernel equals
+    its plain version bit for bit in every epilogue, with a mask and a
+    row_need that skips groups, and counts under the ``_bf16`` names."""
+    rng = np.random.default_rng(n + m + d)
+    X16 = _ints(rng, (n, d), cuda).to(torch.bfloat16)
+    Y = _grid(rng, (m, d), cuda)
+    w = _ints(rng, (n,), cuda, 0, 5)
+    mask = torch.as_tensor(rng.random(m) > 0.3, device=cuda)
+    mask[0] = True
+    need = torch.as_tensor(rng.random(n) > 0.7, device=cuda)
+    before = dict(_kernels.launches)
+    for epi, got, want, direct in _bf16_fused_all(X16, Y, mask, w, need):
+        for a, b, c in zip(got, want, direct):
+            assert torch.equal(a, b), epi
+            assert torch.equal(a, c), epi
+    for name in ("fused_rowwise_min", "fused_argmin_min",
+                 "fused_argmin_weight", "fused_argmin_min2"):
+        assert _kernels.launches[name + "_bf16"] == before[name + "_bf16"] + 1
+        assert _kernels.launches[name] == before[name]
+    ga, gm = fd.fused_argmin_min_sketched(X16, Y, x2=_ints(rng, (n,), cuda,
+                                                            0, 9),
+                                          kernel="cuda")
+    assert _kernels.launches["fused_argmin_min_sketched_bf16"] == \
+        before["fused_argmin_min_sketched_bf16"] + 1
+
+
+@pytest.mark.parametrize("m", [8, 80, 329])
+def test_bf16_fused_kernels_equal_f32_kernel_on_float_data(cuda, m):
+    """On float data the bf16 kernel is the f32 kernel run on X widened
+    (targets rounded, |y|² from the original targets), bit for bit, in
+    every epilogue and tile shape."""
+    rng = np.random.default_rng(m)
+    X16 = torch.randn(20_003, 50, device=cuda).to(torch.bfloat16)
+    Y = torch.randn(m, 50, device=cuda) * 2
+    w = torch.rand(20_003, device=cuda)
+    mask = torch.as_tensor(rng.random(m) > 0.2, device=cuda)
+    mask[0] = True
+    need = torch.as_tensor(rng.random(20_003) > 0.9, device=cuda)
+    for epi, got, _, direct in _bf16_fused_all(X16, Y, mask, w, need):
+        for a, c in zip(got, direct):
+            assert torch.equal(a, c), epi
+
+
+def test_bf16_near_duplicate_centers_through_k2(cuda):
+    d = 8
+    base = torch.zeros(d, device=cuda)
+    base[0] = 8.0
+    plus = base.clone()
+    plus[0] = 8.01
+    X = base.repeat(16, 1).to(torch.bfloat16)
+    idx, mind = fd.fused_argmin_min(X, torch.stack([plus, base]),
+                                    kernel="cuda")
+    assert idx.tolist() == [1] * 16 and float(mind.max()) <= 1e-2
+
+
+def _lloyd_f32_direct(Xw, w, Cr, c2):
+    """The f32 K1 on X widened, with the centers already rounded and |c|²
+    from the original centers, through the C entry."""
+    from dask_ml_tpu_torch._kernels import build
+
+    lib = build.load("lloyd")
+    n, d = Xw.shape
+    k = Cr.shape[0]
+    P = k * (d + 1) + 1
+    part = torch.empty(lib.dml_lloyd_max_partials() * P, device=Xw.device)
+    out = torch.empty(P, device=Xw.device)
+    build.check(lib.dml_lloyd_iter(
+        Xw.data_ptr(), 0, w.data_ptr(), Cr.data_ptr(), c2.data_ptr(), n, k,
+        d, part.data_ptr(), out.data_ptr(), build.stream_of(Xw)), "f32 K1")
+    acc = out[:-1].view(k, d + 1)
+    return acc[:, :d], acc[:, d], out[-1]
+
+
+@pytest.mark.parametrize("n,k,d,offset", [
+    (1, 1, 1, 0), (533, 4, 7, 0), (1_000, 8, 50, 0), (4_099, 8, 41, 0),
+    (4_099, 9, 50, 0), (2_000, 8, 110, 0), (2_000, 8, 111, 0),
+    (257, 8, 397, 0), (3_001, 8, 52, 1), (3_001, 8, 50, 3)])
+def test_bf16_lloyd_kernel_bitexact_int_valued(cuda, n, k, d, offset):
+    """K1 on bf16 X (rows of d bf16, 2-byte aligned only with an offset)
+    on integer data with centers that bf16 rounds: the sums and counts
+    equal its plain version's bit for bit (tolerance 0) and the inertia
+    within rtol 1e-6 (|c|^2 of such centers is not exact in f32 at large
+    d, so the row minima are fractional and the two sum them in other
+    orders); everything equals the f32 K1 on X widened bit for bit, and it
+    repeats its bits."""
+    rng = np.random.default_rng(n + k + d)
+    X16 = _ints(rng, (n * d + offset,), cuda, -4, 4).to(
+        torch.bfloat16)[offset:].view(n, d)
+    w = _ints(rng, (n,), cuda, 0, 3)
+    C = _grid(rng, (k, d), cuda)
+    assert core._lloyd_cuda_supported(k, d, torch.bfloat16)
+    before = _kernels.launches["lloyd_iter_bf16"]
+    got = core._lloyd_stats_cuda(X16, w, C)
+    assert _kernels.launches["lloyd_iter_bf16"] == before + 1
+    want = core._lloyd_stats_ref(X16, w, C)
+    again = core._lloyd_stats_cuda(X16, w, C)
+    direct = _lloyd_f32_direct(X16.float().contiguous(), w,
+                               C.to(torch.bfloat16).float().contiguous(),
+                               fd._row_sumsq(C).contiguous())
+    for a, c, e in zip(got, again, direct):
+        assert torch.equal(a, c) and torch.equal(a, e)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert abs(float(got[2]) - float(want[2])) <= 1e-6 * abs(float(want[2]))
+
+
+@pytest.mark.parametrize("k,d", [(8, 50), (8, 41), (9, 50), (23, 41)])
+def test_bf16_lloyd_equals_f32_kernel_on_float_data(cuda, k, d):
+    X16 = torch.randn(100_003, d, device=cuda).to(torch.bfloat16)
+    w = torch.rand(100_003, device=cuda)
+    C = torch.randn(k, d, device=cuda)
+    got = core._lloyd_stats_cuda(X16, w, C)
+    direct = _lloyd_f32_direct(X16.float().contiguous(), w,
+                               C.to(torch.bfloat16).float().contiguous(),
+                               fd._row_sumsq(C).contiguous())
+    for a, e in zip(got, direct):
+        assert torch.equal(a, e)
+
+
+def test_bf16_lloyd_budget_holds_more(cuda):
+    """The shared-memory budget counts 2-byte tiles: every (k, d) the f32
+    kernel takes the bf16 one takes, and some more."""
+    grid = [(k, d) for k in (1, 8, 9, 64, 128) for d in
+            (1, 50, 397, 600, 900, 1400, 2000)]
+    f32 = {kd for kd in grid if core._lloyd_cuda_supported(*kd)}
+    b16 = {kd for kd in grid
+           if core._lloyd_cuda_supported(*kd, torch.bfloat16)}
+    assert f32 < b16
+
+
+def _ell_bf16(rng, n, k, d, dev):
+    A = _ell_ints(rng, n, k, d, dev, -4, 4)
+    A.values[::7] = 0.0
+    A.cols[::7] = 0
+    return sps.SparseRows(A.values.to(torch.bfloat16), A.cols, d)
+
+
+@pytest.mark.parametrize("n,k,d,pullback", [
+    (1, 1, 7, False), (1, 101, 100_001, True), (5000, 1, 7, False),
+    (4097, 3, 7, True), (777, 17, 100_001, False), (80_003, 101, 100_001,
+                                                    False),
+    (80_003, 101, 100_001, True), (40_001, 32, 30_011, True),
+    (9_999, 128, 250_007, False), (301, 513, 5_003, True),
+    (2049, 3, 8 * 58_112, True)])
+def test_bf16_spmv_kernels_bitexact_on_every_route(cuda, n, k, d,
+                                                   pullback):
+    """K6 and K6-b on a bf16 container (integer values) with a vector that
+    bf16 rounds: every route equals the plain version bit for bit, and
+    counts under the ``_bf16`` names."""
+    rng = np.random.default_rng(n + k + d)
+    A = _ell_bf16(rng, n, k, d, cuda)
+    x = _grid(rng, (n if pullback else d,), cuda)
+    for c in [None] + _routes(k, d, pullback):
+        if pullback:
+            got = sps._pullback_cuda(A.values, A.cols, x, d, cluster=c)
+            want = sps._pullback_ref(A.values, A.cols, x, d)
+        else:
+            got = sps._spmv_cuda(A.values, A.cols, x, cluster=c)
+            want = sps._spmv_ref(A.values, A.cols, x)
+        assert torch.equal(got, want), c
+    names = ("spmv_pullback", "spmv_pullback_l2") if pullback else (
+        "spmv", "spmv_l2")
+    assert sum(_kernels.launches[nm + "_bf16"] for nm in names) > 0
+
+
+def test_bf16_pullback_repeats_its_bits_on_float_data(cuda):
+    """Float values and cotangent: the bf16 pullback (products rounded to
+    bf16, then fixed point) gives the same bits on every route and run,
+    and sits within 1e-5 of the plain f32 sum of the same rounded
+    products (normwise)."""
+    n, k, d = 200_003, 33, 20_011
+    rng = np.random.default_rng(3)
+    cols = torch.as_tensor(rng.integers(0, d, (n, k)), dtype=torch.int32,
+                           device=cuda)
+    vals = torch.randn(n, k, device=cuda).to(torch.bfloat16)
+    r = torch.randn(n, device=cuda)
+    outs = [sps._pullback_cuda(vals, cols, r, d, cluster=c)
+            for c in [None] + _routes(k, d, True) for _ in range(2)]
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+    plain = sps._pullback_ref(vals, cols, r, d)
+    rel = float((outs[0] - plain).norm() / plain.norm())
+    assert rel <= 1e-5, rel
+
+
+def test_bf16_sparse_glm_step_through_the_kernels(cuda):
+    """A bf16 L-BFGS fit through the facade: K6 and K6-b launch (under the
+    ``_bf16`` names, and no f32 K6) and the coefficients are f32 and
+    within 5e-2 of the f32 fit (the precision gate). The problem is the
+    JAX flagship's at its density (0.001, 10 nonzeros a row), cut to
+    200,000 × 10,000; on a 20,000 × 2,000 problem at density 0.01 the
+    three-iteration bf16 and f32 fits sit 9 % apart on the CPU too (three
+    L-BFGS steps from 0 are far from the optimum there)."""
+    X, y = make_sparse_classification(200_000, 10_000, 0.001,
+                                      random_state=42)
+    f32 = LogisticRegression(solver="lbfgs", max_iter=3).fit(X, y)
+    with config_context(device="cuda", precision="bf16"):
+        _kernels.reset_launches()
+        est = LogisticRegression(solver="lbfgs", max_iter=3).fit(X, y)
+        assert _kernels.launches["spmv_bf16"] + \
+            _kernels.launches["spmv_l2_bf16"] > 0
+        assert _kernels.launches["spmv_pullback_bf16"] + \
+            _kernels.launches["spmv_pullback_l2_bf16"] > 0
+        assert _kernels.launches["spmv"] == 0
+    assert est.coef_.dtype == np.float32
+    rel = np.linalg.norm(est.coef_ - f32.coef_) / np.linalg.norm(f32.coef_)
+    assert rel <= 5e-2, rel
+
+
+@pytest.mark.parametrize("n,d,m", [(1, 3, 1), (7, 41, 1), (1000, 41, 3),
+                                   (4097, 100, 1), (5, 7, 13)])
+def test_bf16_pmatmul_gemm_and_cotangent_split(cuda, n, d, m):
+    """``pmatmul`` on bf16 CUDA operands is one bf16-in / f32-out GEMM: on
+    integer data its bits are the widened f32 product's, on float data
+    within 1e-5 normwise of it, and a second call repeats its bits (2-D
+    and batched 3-D). ``pullback_matmul`` splits the f32 cotangent into
+    three bf16 parts: within 1e-6 normwise of the float64 ``Xᵀ r`` on
+    float data, and the gradient of ``pmatmul`` is its bits."""
+    from dask_ml_tpu_torch.parallel import precision as px
+
+    rng = np.random.default_rng(n + d + m)
+    Xi = _ints(rng, (n, d), cuda).to(torch.bfloat16)
+    Bi = _ints(rng, (d, m), cuda).to(torch.bfloat16)
+    assert torch.equal(px.pmatmul(Xi, Bi), Xi.float() @ Bi.float())
+    g = torch.Generator(device=cuda)
+    g.manual_seed(n + d)
+    X = torch.randn(n, d, generator=g, device=cuda).to(torch.bfloat16)
+    B = torch.randn(d, m, generator=g, device=cuda)
+    out = px.pmatmul(X, B)
+    want = X.float() @ B.to(torch.bfloat16).float()
+    assert out.dtype == torch.float32
+    assert float((out - want).norm() / want.norm()) <= 1e-5
+    assert torch.equal(out, px.pmatmul(X, B))
+    Xs = torch.stack([X, X.flip(0)])
+    ob = px.pmatmul(Xs, B.expand(2, d, m).contiguous())
+    assert float((ob[0] - want).norm() / want.norm()) <= 1e-5
+    r = torch.randn(n, m, generator=g, device=cuda)
+    pb = px.pullback_matmul(X.T, r)
+    exact = X.double().T @ r.double()
+    assert pb.dtype == torch.float32
+    assert float((pb.double() - exact).norm() / exact.norm()) <= 1e-6
+    v = torch.randn(d, generator=g, device=cuda).requires_grad_(True)
+    rv = r[:, 0].contiguous()
+    (grad,) = torch.autograd.grad((px.pmatmul(X, v) * rv).sum(), v)
+    assert torch.equal(grad, px.pullback_matmul(X.T, rv[:, None])[:, 0])

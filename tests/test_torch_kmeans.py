@@ -118,6 +118,75 @@ def test_lloyd_loop_float_blobs_matches_jax(jax_kernel, mesh1):
         np.asarray(jcore.predict_labels(jnp.asarray(X), jc)))
 
 
+def _tb(a):
+    return torch.from_numpy(np.asarray(a)).to(torch.bfloat16)
+
+
+def test_one_lloyd_step_bf16_vs_jax_pallas(mesh1):
+    """One Lloyd iteration on bf16 X against the JAX single-pass Pallas
+    kernel in interpret mode: integer X and weights, centers on a 1/256
+    grid that bf16 rounds. The kernel's bf16 case casts the centers to
+    bf16 in the product, takes |c|² from the f32 centers and sums X
+    widened to f32; the sums, counts and so the new centers are exact
+    (bit for bit, tolerance 0); the inertia sums fractional terms in
+    another order (rtol 1e-6)."""
+    rng = np.random.RandomState(5)
+    X = rng.randint(-6, 6, (533, 7)).astype(np.float32)
+    w = rng.randint(0, 4, 533).astype(np.float32)
+    c0 = (X[[3, 100, 200, 400]] + rng.randint(-128, 128, (4, 7)) / 256.0
+          ).astype(np.float32)
+    jc1, jin, jit, jsh = jcore.lloyd_loop_fused(
+        jnp.asarray(X, jnp.bfloat16), jnp.asarray(w), jnp.asarray(c0),
+        jnp.asarray(0.0, jnp.float32), mesh=mesh1, max_iter=1,
+        kernel="pallas")
+    c1, inert, it, sh = core.lloyd_loop_fused(_tb(X), _t(w), _t(c0), 0.0,
+                                              max_iter=1)
+    assert it == int(jit) == 1 and c1.dtype == torch.float32
+    np.testing.assert_array_equal(c1.numpy(), np.asarray(jc1))
+    assert float(inert) == pytest.approx(float(jin), rel=1e-6)
+    assert float(sh) == pytest.approx(float(jsh), rel=1e-6)
+    # the one plain version: K1's counts are K2's labels' bincount
+    sums, counts, _ = core._lloyd_stats_ref(_tb(X), _t(w), _t(c0))
+    lab = core.predict_labels(_tb(X), _t(c0))
+    np.testing.assert_array_equal(
+        counts.numpy(), np.bincount(lab.numpy(), weights=w, minlength=4))
+
+
+def test_lloyd_stats_bf16_is_f32_on_rounded_operands():
+    """bf16 X in the plain K1 is the f32 plain K1 on X widened and the
+    centers rounded to bf16, with |c|² from the f32 centers: on float
+    data, bit for bit (tolerance 0) — the identity the card's gate (bf16
+    kernel == f32 kernel on the widened X) rests on."""
+    X, _ = _blobs(n=400, d=5, k=3, seed=4, std=1.3)
+    w = np.random.RandomState(1).uniform(0.5, 2.0, 400).astype(np.float32)
+    C = X[:3] + np.float32(0.013)
+    sums, counts, inert = core._lloyd_stats_ref(_tb(X), _t(w), _t(C))
+    Xw, Cr = _tb(X).float(), _t(C).to(torch.bfloat16).float()
+    c2 = (_t(C) * _t(C)).sum(dim=1)
+    scores = c2[:, None] - 2.0 * (Cr @ Xw.T)
+    best = scores.argmin(dim=0)
+    oh = (torch.arange(3)[:, None] == best[None, :]).float() * _t(w)
+    assert torch.equal(sums, oh @ Xw) and torch.equal(counts, oh.sum(1))
+    mind = torch.clamp(scores.min(0).values + (Xw * Xw).sum(1), min=0.0)
+    assert torch.equal(inert, (mind * _t(w)).sum())
+
+
+@pytest.mark.parametrize("bounds", [torch.float32, torch.float64])
+def test_bounded_loop_bf16_equals_fused_loop(bounds):
+    """The bounded loop on bf16 X, bounds f32 (the policy's
+    lloyd_bounds_dtype) or f64, equals the two-pass loop bit for bit
+    (tolerance 0)."""
+    X, _ = _blobs(n=3000, d=6, k=5, seed=7, std=1.0)
+    w = np.ones(3000, np.float32)
+    c0 = _t(X[[0, 700, 1400, 2100, 2800]])
+    a = core.lloyd_loop_fused(_tb(X), _t(w), c0, 1e-6, max_iter=15)
+    b = core.lloyd_loop_bounded(_tb(X), _t(w), c0, 1e-6, max_iter=15,
+                                bounds_dtype=bounds)
+    assert a[2] == b[2]
+    assert torch.equal(a[0], b[0]) and torch.equal(a[3], b[3])
+    assert torch.equal(b[4], core.predict_labels(_tb(X), b[0]))
+
+
 def test_lloyd_loop_small_matches_jax():
     """lloyd_loop (the k-means|| finishing loop) against the JAX loop on
     integer data: every center is an exact integer sum over an exact
@@ -404,12 +473,13 @@ def test_default_device_without_card_raises(monkeypatch):
 
 
 def test_config_knobs():
-    assert set(get_config()) == {"device", "dtype", "device_outputs",
-                                 "telemetry"}
+    assert set(get_config()) == {"device", "dtype", "precision",
+                                 "device_outputs", "telemetry"}
     with pytest.raises(KeyError):
         set_config(bogus=1)
-    with pytest.raises(ValueError, match="float32"):
-        set_config(dtype=torch.bfloat16)
+    # float32 and (since the precision tier) bfloat16 stage; nothing else
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        set_config(dtype=torch.float16)
     try:
         set_config(device="cpu")
         assert get_config()["device"] == "cpu"

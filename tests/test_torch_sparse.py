@@ -686,3 +686,134 @@ def test_matmat_refuses_an_operand_of_another_height(rows):
     with pytest.raises(ValueError, match=r"shape \(10, m\)"):
         tsps.matmat(A, torch.ones((rows, 3)))
     assert tsps.matmat(A, torch.ones((10, 3))).shape == (20, 3)
+
+
+# ---------------------------------------------------------------------------
+# bf16 containers (the JAX package's bf16 case)
+# ---------------------------------------------------------------------------
+
+
+def _bf16_pair(rng, n, d):
+    """A bf16 container both packages build from one CSR (integer values,
+    exact in bf16), as ``ell_from_csr(..., dtype=bfloat16)`` makes it."""
+    dense, csr = _int_sparse(rng, n, d)
+    Ah = jsps.ell_from_csr(csr, dtype=jnp.bfloat16)
+    Aj = jsps.SparseRows(jnp.asarray(Ah.values), jnp.asarray(Ah.cols), Ah.d)
+    At = tsps.ell_from_csr(csr, dtype=torch.bfloat16)
+    return dense, Aj, At
+
+
+def _grid(rng, size):
+    """Values on a 1/256 grid with up to ten significant bits: bf16
+    rounds them, products of bf16 operands and short sums stay exact."""
+    return (rng.randint(-512, 512, size) / 256.0).astype(np.float32)
+
+
+def test_bf16_container_matches_jax_slot_for_slot():
+    rng = np.random.RandomState(21)
+    _, Aj, At = _bf16_pair(rng, 90, 11)
+    assert At.values.dtype == torch.bfloat16 and At.cols.dtype == torch.int32
+    assert At.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        At.values.float().numpy(), np.asarray(Aj.values, np.float32))
+    np.testing.assert_array_equal(At.cols.numpy(), np.asarray(Aj.cols))
+    assert tsps._accum_dtype(At) == torch.float32
+    with config_context(precision="bf16"):
+        staged = prepare_data(
+            scipy_sparse.csr_matrix(tsps.to_dense(At).numpy())).X
+    assert staged.values.dtype == torch.bfloat16
+    assert staged.cols.dtype == torch.int32
+
+
+@pytest.mark.parametrize("n,d", [(512, 33), (256, 9), (1, 6)])
+def test_bf16_spmv_bitexact_vs_jax_pallas(n, d):
+    """K6's plain version on a bf16 container against the JAX Pallas SpMV
+    in interpret mode, bit for bit (tolerance 0): v rounded to bf16, each
+    product formed in f32, f32 row sums. (The JAX XLA ``matvec`` rounds
+    each product to bf16 instead: not the kernel's function.)"""
+    rng = np.random.RandomState(n + d)
+    _, Aj, At = _bf16_pair(rng, n, d)
+    v = _grid(rng, d)
+    got = tsps.matvec(At, torch.as_tensor(v), kernel="torch")
+    assert got.dtype == torch.float32
+    want = jsps.matvec(Aj, jnp.asarray(v), kernel="pallas")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the function: the f32 product of the rounded operands
+    vr = torch.as_tensor(v).to(torch.bfloat16).float()
+    np.testing.assert_array_equal(
+        got.numpy(), tsps.matvec(tsps.SparseRows(At.values.float(), At.cols,
+                                                 At.d), vr).numpy())
+
+
+@pytest.mark.parametrize("n,d", [(40, 7), (300, 9)])
+def test_bf16_pullbacks_bitexact_vs_jax(n, d):
+    """K6-b's plain version, ``pullback_mat`` and ``matmat`` on a bf16
+    container, bit for bit (tolerance 0) against the JAX package on the
+    same values widened to f32: the pullbacks keep the cotangent in f32
+    and form f32 products (the JAX bf16 ``pullback`` rounds both to bf16,
+    which loses a logistic gradient: see ``ops/sparse.py``), ``matmat``
+    rounds B to bf16 and forms f32 products, as K6 does."""
+    rng = np.random.RandomState(7 * n + d)
+    _, Aj16, At = _bf16_pair(rng, n, d)
+    Aj = jsps.SparseRows(Aj16.values.astype(jnp.float32), Aj16.cols, Aj16.d)
+    r = _grid(rng, n)
+    got = tsps.pullback(At, torch.as_tensor(r))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jsps.pullback(Aj, jnp.asarray(r))))
+    R = _grid(rng, (n, 3))
+    np.testing.assert_array_equal(
+        tsps.pullback_mat(At, torch.as_tensor(R)).numpy(),
+        np.asarray(jsps.pullback_mat(Aj, jnp.asarray(R))))
+    B = _grid(rng, (d, 3))
+    Br = jnp.asarray(B, jnp.bfloat16).astype(jnp.float32)
+    np.testing.assert_array_equal(
+        tsps.matmat(At, torch.as_tensor(B)).numpy(),
+        np.asarray(jsps.matmat(Aj, Br)))
+    # autograd through the port's spmv: the same f32 pullback
+    v = torch.tensor(_grid(rng, d), requires_grad=True)
+    (gv,) = torch.autograd.grad(
+        torch.dot(tsps.spmv(At, v), torch.as_tensor(r)), v)
+    np.testing.assert_array_equal(gv.numpy(), got.numpy())
+
+
+def test_bf16_pullback_keeps_the_logistic_gradient():
+    """Why the bf16 pullback keeps its cotangent in f32. Near σ(η) = ½ a
+    logistic cotangent is ±½ plus what η adds, and bf16's 8 bits round
+    that part away: with balanced labels the intercept column's gradient
+    is exactly that part. Against the float64 gradient of the same bf16
+    values, the port's intercept gradient is within 1e-5 (relative) and
+    its other columns within 1e-5 (normwise); the JAX bf16 ``pullback``,
+    which rounds the cotangent and each product to bf16, is off by more
+    than a quarter of the intercept's gradient (0.49 here)."""
+    rng = np.random.RandomState(5)
+    n, d, k = 20_000, 50, 6
+    cols = rng.randint(0, d, (n, k)).astype(np.int32)
+    vals = rng.randn(n, k).astype(np.float32)
+    # the intercept: one more slot a row, column d, value 1
+    cols = np.concatenate([cols, np.full((n, 1), d, np.int32)], 1)
+    vals = np.concatenate([vals, np.ones((n, 1), np.float32)], 1)
+    A16 = tsps.SparseRows(torch.as_tensor(vals).to(torch.bfloat16),
+                          torch.as_tensor(cols), d + 1)
+    eta = torch.as_tensor((rng.randn(n) * 1e-3 + 4e-4).astype(np.float32))
+    y = torch.as_tensor((np.arange(n) % 2).astype(np.float32))
+    r = (torch.sigmoid(eta) - y) / n
+    exact = torch.zeros(d + 1, dtype=torch.float64).index_add_(
+        0, A16.cols.reshape(-1).long(),
+        (A16.values.double() * r.double()[:, None]).reshape(-1))
+    g16 = tsps.pullback(A16, r).double()
+    assert abs(float(g16[-1] - exact[-1])) <= 1e-5 * abs(float(exact[-1]))
+    assert float((g16[:-1] - exact[:-1]).norm() / exact[:-1].norm()) <= 1e-5
+    jax_g = np.asarray(jsps.pullback(
+        jsps.SparseRows(jnp.asarray(vals, jnp.bfloat16), jnp.asarray(cols),
+                        d + 1), jnp.asarray(r.numpy())), np.float64)
+    jax_rel = abs(jax_g[-1] - float(exact[-1])) / abs(float(exact[-1]))
+    assert jax_rel > 0.25, jax_rel
+
+
+def test_bf16_weighted_gram_accumulates_f32():
+    rng = np.random.RandomState(31)
+    dense, Aj, At = _bf16_pair(rng, 200, 8)
+    h = rng.randint(0, 3, 200).astype(np.float32)
+    got = tsps.weighted_gram(At, torch.as_tensor(h))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), dense.T @ (h[:, None] * dense))

@@ -100,8 +100,9 @@ def test_constructor_validation():
 
 def test_unported_options_name_their_queue_item():
     X, w = _arrays()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        HostBlockSource((X, w), 4, storage_dtype=np.float16)
+    # the wire cast (item 9) is ported: a storage dtype is taken as given
+    assert HostBlockSource((X, w), 4, storage_dtype=np.float16
+                           ).storage_dtype == torch.float16
     with pytest.raises(NotImplementedError, match="item 10"):
         HostBlockSource((X, w), 4, host_rank=0)
     src = HostBlockSource((X, w), 4, storage_dtype=None)
