@@ -196,13 +196,44 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    top explained variances within 2e-2 of the f32 runs, preemption and
    resume bit for bit, GB/s of wire and logical bytes); then the bf16
    rows of the kernels line.
+15. drives the Nyström estimators (``NYSTROM``): ``spectral``, the JAX
+   bench's cell (1,000,000 × 50 blobs, 8 centers, cluster_std 1, seed 0,
+   drawn and standardized on the card; ``SpectralClustering(n_clusters=8,
+   n_components=200, gamma=None, random_state=0, kmeans_params={"init":
+   "random"})`` cold and warm, the Nyström seconds apart from the inner
+   KMeans', a device profile of the warm fit; that init often starts two
+   centers in one blob, so its ARI is printed, and the gates are held on
+   the estimator's default inner init, k-means||: ARI ≥ 0.99, ``predict(X) == labels_``, K1-K4 launched; the
+   kernel and plain routes from one embedding and the fitted centers
+   label it alike; K1-K4 against their plain versions on the embedding);
+   ``kernel-kmeans-xor``, the JAX drill's XOR at 1,000,000 rows
+   (``KernelKMeans(n_clusters=2, n_components=128, affinity="polynomial",
+   degree=2, coef0=1.0, gamma=0.5, random_state=5)``: ARI ≥ 0.9, the
+   dense KMeans control < 0.5, ``predict(X) == labels_``, K1-K4 launched
+   and held against their plain versions on the feature rows).
+16. drives the preprocessing (``PREPROCESS``): ``sparse-scaler``,
+   ``StandardScaler(with_mean=False)`` on the flagship container of step
+   7 (the raw container's duplicate columns refused, then summed on the
+   card; two fits the same bits, three pullbacks through K6-b, a device
+   profile of a fit, ``var_`` within 1e-5 of float64 column variances on
+   the host, K6-b's stored counts equal to the plain pullback's, the
+   transform equal to the plain gather); ``onehot-pipeline``, OneHotEncoder → StandardScaler(with_mean=
+   False) → LogisticRegression(solver="lbfgs", max_iter=3) on 1,000,000
+   rows of 26 categorical columns of 1,000 categories (K6 and K6-b
+   launch, peak memory under 3× the container's bytes); and
+   ``dense-scalers``: MinMaxScaler, RobustScaler and QuantileTransformer
+   (uniform and normal) on the blobs against float64 references, their
+   inverse round trips, and their seconds. The ``kernels`` line gains
+   ``launches_nystrom`` and ``launches_preprocess`` on the rows these
+   paths launch.
 
 ``python3 chip_smoke.py --spmv-only`` runs steps 1, 2, 6 and 8 alone, on a
 container of the sparse cell's shape drawn on the card;
 ``--glm-pca-only`` runs steps 1, 2 and 9 alone; ``--stream-only`` steps 1,
 2 and 10, drawing its own host arrays; ``--incremental-only`` steps 1, 2
 and 11; ``--search-only`` steps 1, 2 and 12; ``--asha-only`` steps 1, 2
-and 13; ``--precision-only`` steps 1, 2 and 14.
+and 13; ``--precision-only`` steps 1, 2 and 14; ``--nystrom-only``
+steps 1, 2 and 15; ``--preprocess-only`` steps 1, 2 and 16.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
@@ -366,6 +397,21 @@ MB_PROFILED_STEPS = 2_000
 NB_RTOL, NB_MARGIN = 1e-4, 1e-3
 # the dense generators at the blobs' size
 GEN_N, GEN_D = 1_000_000, 50
+# the JAX bench's spectral cell (bench_spectral): 1e6 × 50 blobs, 8
+# centers, 200 landmarks
+SPEC_N, SPEC_D, SPEC_K, SPEC_L = 1_000_000, 50, 8, 200
+# the JAX drill's XOR kernel k-means at its documented row knob SKETCH_KN
+XOR_N = 1_000_000
+# the one-hot pipeline: rows, categorical columns (Criteo's 26), categories
+ONEHOT_N, ONEHOT_COLS, ONEHOT_CATS = 1_000_000, 26, 1_000
+# the scalers against float64: var_ (sparse) and each dense transform and
+# round trip
+SCALER_RTOL = 1e-5
+# QuantileTransformer's normal output: the grid steps of u near 1 (2^-24
+# each, normal_ppf_step / normal_round_trip_step) allowed beyond
+# SCALER_RTOL, forward and round trip. On the blobs the H100 used 0.391
+# and 1.084 (seed 0): the gates leave 5.1x and 2.8x of headroom
+NORMAL_PPF_STEPS, NORMAL_ROUND_TRIP_STEPS = 2, 3
 # H100 SXM data sheet: HBM3 bandwidth, the f32 rate outside the tensor
 # cores, and the dense bf16 tensor-core rate (products of two bf16
 # operands accumulated in f32, without sparsity)
@@ -420,6 +466,15 @@ PATH_KERNELS = {
                            "fused_rowwise_min_bf16",
                            "fused_argmin_weight_bf16"),
     "precision-sparse-glm": ("spmv_bf16", "spmv_pullback_bf16"),
+    "spectral-random": ("lloyd_iter", "fused_argmin_min"),
+    "spectral": ("lloyd_iter", "fused_argmin_min", "fused_rowwise_min",
+                 "fused_argmin_weight"),
+    "spectral-predict": ("fused_argmin_min",),
+    "kernel-kmeans-xor": ("lloyd_iter", "fused_argmin_min",
+                          "fused_rowwise_min", "fused_argmin_weight"),
+    "kernel-kmeans-predict": ("fused_argmin_min",),
+    "sparse-scaler-fit": ("spmv_pullback",),
+    "onehot-pipeline": ("spmv", "spmv_pullback"),
 }
 SOURCES = {
     "lloyd_iter": "dask_ml_tpu_torch/_kernels/csrc/lloyd.cu",
@@ -503,10 +558,12 @@ def expect_repeats(what: str, call, first) -> None:
                f"{what}: call {i + 2} does not repeat the bits of the first")
 
 
-def near_tie_ok(X, Y, mask, got, want, scale_eps=1e-5):
+def near_tie_ok(X, Y, mask, got, want, scale_eps=1e-5, slack=None):
     """Rows whose argmins differ must be near-ties: the plain scores of the
     two picks agree within 1e-5 of the operands' magnitude
-    (|x|² + max|y|²) — the f32 cancellation floor of |y|² − 2x·y."""
+    (|x|² + max|y|²) — the f32 cancellation floor of |y|² − 2x·y — plus
+    ``slack(rows)`` where given (a row's further reach, a function of the
+    mismatched rows)."""
     from dask_ml_tpu_torch.ops.fused_distance import _row_sumsq, _scores_ref
 
     bad = (got != want).nonzero().squeeze(1)
@@ -515,8 +572,10 @@ def near_tie_ok(X, Y, mask, got, want, scale_eps=1e-5):
     s = _scores_ref(X[bad], Y, mask)
     gs = s.gather(1, got[bad].long()[:, None])[:, 0]
     ws = s.gather(1, want[bad].long()[:, None])[:, 0]
-    scale = _row_sumsq(X[bad]) + _row_sumsq(Y).max()
-    expect(bool(((gs - ws).abs() <= scale_eps * scale).all()),
+    reach = scale_eps * (_row_sumsq(X[bad]) + _row_sumsq(Y).max())
+    if slack is not None:
+        reach = reach + slack(X[bad])
+    expect(bool(((gs - ws).abs() <= reach).all()),
            f"{bad.numel()} argmin mismatches that are not near-ties")
     return int(bad.numel())
 
@@ -4441,6 +4500,638 @@ def asha_cells(dev, errs):
 
 
 # ---------------------------------------------------------------------------
+# NYSTROM: SpectralClustering and KernelKMeans
+# ---------------------------------------------------------------------------
+
+
+def nystrom_blobs(dev):
+    """The JAX bench's spectral cell's data (bench_spectral): make_blobs at
+    SPEC_N × SPEC_D, SPEC_K centers, cluster_std 1, seed 0, drawn on the
+    card with the port's generator and standardized there."""
+    import torch
+
+    from dask_ml_tpu_torch import config_context, datasets
+
+    with config_context(device=dev):
+        X, y = datasets.make_blobs(n_samples=SPEC_N, n_features=SPEC_D,
+                                   centers=SPEC_K, cluster_std=1.0,
+                                   random_state=SEED)
+    X = (X - X.mean(0)) / torch.clamp(X.std(0), min=1e-6)
+    return X.contiguous(), y.cpu().numpy()
+
+
+def spectral_cell(dev, errs):
+    """``spectral``: the JAX bench's cell (``SpectralClustering(n_clusters=
+    8, n_components=200, gamma=None, random_state=0, kmeans_params={"init":
+    "random"})``) cold and warm on the card-resident blobs, its Nyström
+    seconds apart from the inner KMeans'; the same estimator with its
+    default inner init (k-means||) gated on ARI ≥ 0.99, predict(X) ==
+    labels_ and K1-K4 launched; the kernel and plain (kernel="torch")
+    Lloyd routes on one embedding give the same labels up to near-ties
+    from a shared explicit init (SPEC_K rows of the embedding drawn from
+    SEED), and the same labels from the fitted centers; K1-K4 against
+    their plain versions at the embedding's shape."""
+    import torch
+
+    from dask_ml_tpu_torch.cluster import SpectralClustering
+    from dask_ml_tpu_torch.models import kmeans as core
+
+    t0 = time.perf_counter()
+    X, y = nystrom_blobs(dev)
+    torch.cuda.synchronize()
+    out = {"n": SPEC_N, "d": SPEC_D, "k": SPEC_K, "l": SPEC_L,
+           "generate_s": time.perf_counter() - t0}
+    launches = {}
+
+    def bench_fit():
+        return SpectralClustering(
+            n_clusters=SPEC_K, n_components=SPEC_L, gamma=None,
+            random_state=SEED, kmeans_params={"init": "random"}).fit(X)
+
+    for tag in ("cold", "warm"):
+        sc, sec, l_fit = drive(bench_fit)
+        out[f"bench_{tag}_s"] = sec
+        out[f"bench_{tag}_phases"] = sc.fit_phase_seconds_
+        log(f"spectral, the bench's config, {tag}: {sec:.3f} s (spectral-"
+            f"nystrom {sc.fit_phase_seconds_['nystrom']:.3f} s, inner "
+            f"KMeans {sc.fit_phase_seconds_['kmeans']:.3f} s)")
+    launches["spectral-random"] = l_fit
+    expect_launches("spectral-random", l_fit)
+    prof = device_profile(bench_fit)
+    log("PROFILE spectral-warm " + json.dumps(prof))
+    out["profile"] = prof and {k: prof[k] for k in ("wall_ms",
+                                                    "device_busy_ms",
+                                                    "busy_share")}
+    # init="random" takes 8 random rows of the embedding, often two in one
+    # blob: a local minimum of Lloyd, so this fit's ARI is reported only
+    out["bench_ari"] = ari(y, sc.labels_)
+    path_line("spectral-random", sec, sc.assign_labels_.n_iter_, l_fit,
+              phases=sc.fit_phase_seconds_, ari=out["bench_ari"])
+
+    sc, fit_s, l_fit = drive(lambda: SpectralClustering(
+        n_clusters=SPEC_K, n_components=SPEC_L, gamma=None,
+        random_state=SEED).fit(X))
+    launches["spectral"] = l_fit
+    expect_launches("spectral", l_fit)
+    score = ari(y, sc.labels_)
+    expect(score >= 0.99, f"spectral ARI {score} < 0.99")
+    expect(sc.labels_.dtype == np.int32 and sc.eigenvalues_.shape
+           == (SPEC_K,) and np.isfinite(sc.eigenvalues_).all(),
+           "spectral: labels or eigenvalues")
+    pred, pred_s, l_pred = drive(lambda: sc.predict(X))
+    launches["spectral-predict"] = l_pred
+    expect_launches("spectral-predict", l_pred)
+    expect(np.array_equal(pred, sc.labels_), "spectral predict(X) != labels_")
+    path_line("spectral", fit_s, sc.assign_labels_.n_iter_, l_fit,
+              phases=sc.fit_phase_seconds_, ari=score,
+              predict_s=pred_s, predict_launches=l_pred)
+    out.update(fit_s=fit_s, phases=sc.fit_phase_seconds_, ari=score,
+               n_iter=sc.assign_labels_.n_iter_, predict_s=pred_s,
+               eigenvalues=sc.eigenvalues_.tolist())
+
+    # the kernel route against the plain route from one embedding: first
+    # from one shared explicit init, SPEC_K rows of the embedding drawn
+    # from SEED (labels equal up to near-ties), then from the fitted
+    # centers (labels equal)
+    U = sc._extend_rows(X)
+    del X
+    w = torch.ones(SPEC_N, device=dev)
+    tol = core.scaled_tolerance(U, w, 1e-4)
+    pick = np.random.RandomState(SEED).choice(SPEC_N, SPEC_K, replace=False)
+    out["plain_route"] = {}
+    for case, c0 in (
+            ("shared_init", U[torch.as_tensor(pick, device=dev)].clone()),
+            ("fitted_centers", torch.as_tensor(
+                sc.assign_labels_.cluster_centers_, device=dev))):
+        ck, _, it_k, _ = core.lloyd_loop_fused(U, w, c0, tol, max_iter=300)
+        cp, _, it_p, _ = core.lloyd_loop_fused(U, w, c0, tol, max_iter=300,
+                                               kernel="torch")
+        lk = core.predict_labels(U, ck)
+        lp = core.predict_labels(U, cp, kernel="torch")
+        # a row's scores under the two routes' centers differ by at most
+        # δ(x) = max_j ||ck_j|² − |cp_j|²| + 2|x|·|ck_j − cp_j|, so its pick
+        # under cp is within 2δ(x) of its best under ck
+        dc = (ck - cp).norm(dim=1)
+        dn = ((ck * ck).sum(1) - (cp * cp).sum(1)).abs()
+
+        def reach(rows):
+            x = rows.norm(dim=1)[:, None]
+            return 2.0 * (dn[None, :] + 2.0 * x * dc[None, :]).amax(1)
+
+        n_ties = near_tie_ok(U, ck, None, lk, lp, slack=reach)
+        if case == "fitted_centers":
+            expect(n_ties == 0, "spectral: kernel and plain routes label "
+                   "the embedding differently from the fitted centers")
+        out["plain_route"][case] = {
+            "n_iter": [int(it_k), int(it_p)], "near_ties": n_ties,
+            "max_center_gap": float(dc.max()),
+            "ari": ari(lk.cpu().numpy(), lp.cpu().numpy())}
+        log(f"spectral: kernel and plain routes from the {case}: n_iter "
+            f"{int(it_k)} / {int(it_p)}, {n_ties} labels differ, each a "
+            f"near-tie; centers within {float(dc.max()):.3e}")
+    C = torch.as_tensor(sc.assign_labels_.cluster_centers_, device=dev)
+    for k, v in check_fused("spectral embedding", U, C, w=w,
+                            exact=False).items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    errs["lloyd_iter"] = max(errs.get("lloyd_iter", 0.0), check_lloyd(
+        "spectral embedding", U, w, C, exact=False))
+    return launches, out
+
+
+def xor_data(n: int, seed: int = 0):
+    """The JAX drill's XOR recipe (bench.py --sketch, step 3): four
+    gaussian blobs at (±2, ±2), class = sign(x1·x2)."""
+    rng = np.random.RandomState(seed)
+    signs = rng.randint(0, 2, (n, 2)) * 2 - 1
+    X = (signs * 2.0 + rng.randn(n, 2) * 0.6).astype(np.float32)
+    return X, (signs[:, 0] * signs[:, 1] > 0).astype(np.int32)
+
+
+def kernel_kmeans_cell(dev, errs):
+    """``kernel-kmeans-xor``: the JAX drill's KernelKMeans on XOR at its
+    documented knob SKETCH_KN = XOR_N rows: ARI ≥ 0.9, the dense KMeans
+    control < 0.5, predict(X) == labels_, K1-K4 launched; K1-K4 against
+    their plain versions at the feature rows' shape."""
+    import torch
+
+    from dask_ml_tpu_torch.cluster import KernelKMeans, KMeans
+
+    X, y = xor_data(XOR_N)
+    kk, fit_s, l_fit = drive(lambda: KernelKMeans(
+        n_clusters=2, n_components=128, affinity="polynomial", degree=2,
+        coef0=1.0, gamma=0.5, random_state=5).fit(X))
+    expect_launches("kernel-kmeans-xor", l_fit)
+    score = ari(y, kk.labels_)
+    expect(score >= 0.9, f"kernel k-means XOR ARI {score} < 0.9")
+    control = ari(y, KMeans(n_clusters=2, random_state=3).fit(X).labels_)
+    expect(control < 0.5, f"dense KMeans control ARI {control} >= 0.5")
+    pred, pred_s, l_pred = drive(lambda: kk.predict(X))
+    expect_launches("kernel-kmeans-predict", l_pred)
+    expect(np.array_equal(pred, kk.labels_),
+           "kernel k-means predict(X) != labels_")
+    path_line("kernel-kmeans-xor", fit_s, kk.n_iter_, l_fit, ari=score,
+              dense_control_ari=control, predict_s=pred_s,
+              predict_launches=l_pred)
+    # the feature rows the inner KMeans clustered, and K1-K4 on them
+    Phi = kk._extend_rows(torch.as_tensor(X, device=dev))
+    w = torch.ones(XOR_N, device=dev)
+    Cc = torch.as_tensor(kk.cluster_centers_, device=dev)
+    for k, v in check_fused("XOR features", Phi, Cc, w=w,
+                            exact=False).items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    errs["lloyd_iter"] = max(errs.get("lloyd_iter", 0.0), check_lloyd(
+        "XOR features", Phi, w, Cc, exact=False))
+    return {"kernel-kmeans-xor": l_fit, "kernel-kmeans-predict": l_pred}, {
+        "n": XOR_N, "fit_s": fit_s, "ari": score, "dense_control_ari":
+        control, "n_iter": kk.n_iter_, "inertia": kk.inertia_,
+        "predict_s": pred_s}
+
+
+def nystrom_cells(dev, errs):
+    """The NYSTROM phase (step 15): ``spectral`` and
+    ``kernel-kmeans-xor``. Returns the launches of its paths and a
+    summary."""
+    import torch
+
+    t0 = time.perf_counter()
+    launches, out = {}, {}
+    launches_s, out["spectral"] = spectral_cell(dev, errs)
+    launches.update(launches_s)
+    torch.cuda.empty_cache()
+    launches_k, out["kernel_kmeans_xor"] = kernel_kmeans_cell(dev, errs)
+    launches.update(launches_k)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log("NYSTROM " + json.dumps(out))
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
+# PREPROCESS: the sparse StandardScaler on K6-b, a one-hot pipeline, the
+# dense scalers
+# ---------------------------------------------------------------------------
+
+
+def canonical_rows(A, chunk: int = 1_000_000):
+    """A device container with each row's duplicate columns summed into one
+    slot (what scipy's ``csr.sum_duplicates()`` does): sort each row's
+    stored columns, add the values of a run of equal columns into its
+    first slot, leave the rest inert ``(col 0, value 0)``. Row chunks bound
+    the sort's int64 indices."""
+    import torch
+
+    from dask_ml_tpu_torch.ops.sparse import SparseRows
+
+    n, k = A.values.shape
+    vals = torch.empty_like(A.values)
+    cols = torch.empty_like(A.cols)
+    sentinel = -1 - torch.arange(k, dtype=A.cols.dtype,
+                                 device=A.cols.device)[None, :]
+    for s in range(0, n, chunk):
+        v = A.values[s:s + chunk]
+        key = torch.where(v != 0, A.cols[s:s + chunk], sentinel)
+        key, order = torch.sort(key, dim=1)
+        v = v.gather(1, order)
+        start = torch.ones_like(key, dtype=torch.bool)
+        start[:, 1:] = key[:, 1:] != key[:, :-1]
+        run = start.to(torch.int64).cumsum(1) - 1
+        vals[s:s + chunk] = torch.zeros_like(v).scatter_add_(1, run, v)
+        cols[s:s + chunk] = torch.zeros_like(key).scatter_(
+            1, run, key.clamp(min=0))
+    return SparseRows(vals, cols, A.d)
+
+
+def host_column_var(A, chunk: int = 100_000_000):
+    """Float64 column variances of a device container of unit weights, on
+    the host: ``E[x²] − mean²`` from two bincounts of the slots, in
+    chunks."""
+    vals = A.values.cpu().numpy().ravel()
+    cols = A.cols.cpu().numpy().ravel()
+    n = A.values.shape[0]
+    s1 = np.zeros(A.d)
+    s2 = np.zeros(A.d)
+    for i in range(0, vals.size, chunk):
+        v = vals[i:i + chunk].astype(np.float64)
+        c = cols[i:i + chunk]
+        s1 += np.bincount(c, weights=v, minlength=A.d)
+        s2 += np.bincount(c, weights=v * v, minlength=A.d)
+    mean = s1 / n
+    return s2 / n - mean * mean
+
+
+def sparse_scaler_cell(dev):
+    """``sparse-scaler``: ``StandardScaler(with_mean=False)`` on the flagship
+    container. Its generator draws a duplicate column in about 5 % of the
+    rows, which the scaler refuses (as the JAX one does): the cell shows
+    the refusal, sums the duplicates on the card (``canonical_rows``, what
+    the refusal asks for) and fits the canonical container twice (three
+    pullbacks through K6-b; the same bits), holds ``var_`` within
+    SCALER_RTOL of float64 column variances on the host, K6-b's stored
+    counts to the plain pullback bit for bit, and the transform to the
+    plain gather bit for bit."""
+    import torch
+
+    from dask_ml_tpu_torch.ops import sparse as sps
+    from dask_ml_tpu_torch.parallel.sharding import prepare_data
+    from dask_ml_tpu_torch.preprocessing import StandardScaler
+    from dask_ml_tpu_torch.utils.validation import check_array
+
+    Xh, _ = drawn("sparse_glm", sparse_glm_data)
+    t0 = time.perf_counter()
+    raw = prepare_data(check_array(Xh, accept_sparse=True), device=dev).X
+    torch.cuda.synchronize()
+    out = {"n": GLM_N, "d": GLM_D, "k": raw.k,
+           "stage_s": time.perf_counter() - t0}
+    dup, dup_s, _ = drive(lambda: bool(sps.has_duplicate_slots(raw)))
+    expect(dup, "the flagship container has no duplicate slots")
+    try:
+        StandardScaler(with_mean=False).fit(raw)
+    except ValueError as e:
+        expect("twice" in str(e), f"unexpected refusal: {e}")
+    else:
+        raise Mismatch("the scaler fitted a container with duplicate slots")
+    A, canon_s, _ = drive(lambda: canonical_rows(raw))
+    del raw
+    torch.cuda.empty_cache()
+    expect(not bool(sps.has_duplicate_slots(A)), "duplicates left")
+    out.update(duplicate_check_s=dup_s, canonicalize_s=canon_s)
+
+    sc, fit_s, l_fit = drive(lambda: StandardScaler(with_mean=False).fit(A))
+    expect_launches("sparse-scaler-fit", l_fit)
+    expect(l_fit["spmv_pullback"] + l_fit["spmv_pullback_l2"] == 3,
+           f"the moments took {l_fit}, not three pullbacks")
+    again = StandardScaler(with_mean=False).fit(A)
+    expect(np.array_equal(sc.var_, again.var_)
+           and np.array_equal(sc.scale_, again.scale_),
+           "two sparse scaler fits differ")
+    prof = device_profile(lambda: StandardScaler(with_mean=False).fit(A))
+    log("PROFILE sparse-scaler-fit " + json.dumps(prof))
+    out["profile"] = prof and {k: prof[k] for k in ("wall_ms",
+                                                    "device_busy_ms",
+                                                    "busy_share")}
+    t0 = time.perf_counter()
+    ref = host_column_var(A)
+    ref_s = time.perf_counter() - t0
+    err = float(np.max(np.abs(sc.var_ - ref)
+                       / np.maximum(np.abs(ref), 1e-30)))
+    expect(err <= SCALER_RTOL, f"var_ rtol {err} > {SCALER_RTOL}")
+    # K6-b's weighted stored counts against the plain pullback: 0/1
+    # values of unit weight, so exact
+    w = torch.ones(GLM_N, device=dev)
+    stored = (A.values != 0).to(torch.float32)
+    k_nnz = sps.pullback(sps.SparseRows(stored, A.cols, A.d), w)
+    p_nnz = sps._pullback_ref(stored, A.cols, w, A.d)
+    expect(torch.equal(k_nnz, p_nnz), "K6-b stored counts != plain")
+    del stored
+    Z, tr_s, _ = drive(lambda: sc.transform(A))
+    inv = 1.0 / torch.as_tensor(sc.scale_, device=dev)
+    plain = A.values * torch.index_select(inv, 0, A.cols.view(-1)).view(
+        A.values.shape)
+    expect(isinstance(Z, sps.SparseRows) and Z.cols is A.cols
+           and torch.equal(Z.values, plain),
+           "the sparse transform is not the plain gather bit for bit")
+    del Z, plain
+    path_line("sparse-scaler", fit_s, None, l_fit, transform_s=tr_s,
+              var_rtol=err, host_reference_s=ref_s)
+    out.update(fit_s=fit_s, transform_s=tr_s, var_rtol=err,
+               host_reference_s=ref_s)
+    return l_fit, out
+
+
+def onehot_data(seed: int):
+    """ONEHOT_N rows of ONEHOT_COLS integer categorical columns of
+    ONEHOT_CATS categories each, and labels from a planted logistic model
+    of one weight a category."""
+    rng = np.random.default_rng([seed, 13])
+    X = rng.integers(0, ONEHOT_CATS, (ONEHOT_N, ONEHOT_COLS)).astype(
+        np.int32)
+    beta = rng.standard_normal((ONEHOT_COLS, ONEHOT_CATS)) * 0.5
+    logit = beta[np.arange(ONEHOT_COLS)[None, :], X].sum(1)
+    y = (rng.random(ONEHOT_N) < 1.0 / (1.0 + np.exp(-logit))).astype(
+        np.int64)
+    return X, y
+
+
+def check_onehot_kernels(dev, pipe, X, y, errs):
+    """K6 and K6-b at the one-hot pipeline's shape (n, ONEHOT_COLS + 1
+    slots with the intercept's, d = categories + 1: the GLM's operand),
+    against their plain versions on the same inputs: on the encoded 0/1
+    container with an integer vector and cotangent, bit for bit through
+    every route that fits (``check_spmv_int``); then on the operands the
+    GLM ran (the scaled container, the fitted coefficients, the loss's
+    cotangent at them), the forward within k·2^-23·Σ|a||v| of the plain
+    version (each side rounds k products and k − 1 partial sums, 2^-24
+    each), the pullback within 2^-22·Σ|a||r| of the sum in float64 (the
+    kernel rounds each f32 product and the fixed-point sum once, 2^-24
+    each; a factor 2 for the products' quantization). Folds the errors
+    into ``errs``."""
+    import torch
+
+    from dask_ml_tpu_torch.linear_model.glm import add_intercept
+    from dask_ml_tpu_torch.ops import sparse as sps
+    from dask_ml_tpu_torch.parallel.sharding import prepare_data
+    from dask_ml_tpu_torch.utils.validation import check_array
+
+    enc, scaler, lr = (s for _, s in pipe.steps)
+    oh = enc.transform(X)
+    A = add_intercept(prepare_data(check_array(oh, accept_sparse=True),
+                                   device=dev).X)
+    n, k, d = A.values.shape[0], A.k, A.d
+    expect(bool(((A.values == 0) | (A.values == 1)).all()),
+           "the encoded container is not 0/1")
+    rng = np.random.default_rng([SEED, 26])
+    v = torch.as_tensor(rng.integers(-4, 4, d), dtype=torch.float32,
+                        device=dev)
+    r = torch.as_tensor(rng.integers(-2, 2, n), dtype=torch.float32,
+                        device=dev)
+    check_spmv_int(f"one-hot n{n} k{k} d{d}", A, v, r,
+                   fitting_routes(k, d, False), fitting_routes(k, d, True))
+    del A, v, r
+    A = add_intercept(scaler.transform(oh))
+    absA = sps.SparseRows(A.values.abs(), A.cols, A.d)
+    coef = torch.as_tensor(lr._coef, dtype=torch.float32, device=dev)
+    eta = sps.matvec(A, coef, kernel="cuda")
+    want = sps._spmv_ref(A.values, A.cols, coef)
+    reach = k * 2.0 ** -23 * sps._spmv_ref(absA.values, A.cols, coef.abs())
+    f_err = float((eta - want).abs().max())
+    f_share = float(((eta - want).abs() / reach).max())
+    expect(f_share <= 1.0, f"K6 one-hot, the GLM's operands: max abs err "
+           f"{f_err}, {f_share} of its bound")
+    yd = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    res = torch.sigmoid(want) - yd
+    g = sps._pullback_cuda(A.values, A.cols, res, d)
+
+    def pullback64(values, r):
+        prods = values.double() * r.double()[:, None]
+        return torch.zeros(d, dtype=torch.float64, device=dev).index_add_(
+            0, A.cols.reshape(-1), prods.reshape(-1))
+
+    g64 = pullback64(A.values, res)
+    reach = 2.0 ** -22 * pullback64(absA.values, res.abs())
+    b_err = float((g.double() - g64).abs().max())
+    b_share = float(((g.double() - g64).abs() / reach).max())
+    expect(b_share <= 1.0, f"K6 pullback one-hot, the GLM's cotangent: max "
+           f"abs err {b_err}, {b_share} of its bound")
+    log(f"K6 / K6-b at the one-hot shape n{n} k{k} d{d}: 0/1 data bit for "
+        f"bit through every route; the GLM's operands: forward {f_err:.3e} "
+        f"({f_share:.4f} of its bound), pullback {b_err:.3e} from float64 "
+        f"({b_share:.4f} of its bound)")
+    errs["spmv"] = max(errs.get("spmv", 0.0), f_err)
+    errs["spmv_pullback"] = max(errs.get("spmv_pullback", 0.0), b_err)
+    return {"shape": {"n": n, "k": k, "d": d}, "glm_forward_err": f_err,
+            "glm_forward_share": f_share, "glm_pullback_err": b_err,
+            "glm_pullback_share": b_share}
+
+
+def onehot_pipeline_cell(dev, errs):
+    """``onehot-pipeline``: OneHotEncoder → StandardScaler(with_mean=False)
+    → LogisticRegression(solver="lbfgs", max_iter=3) on ONEHOT_N rows of
+    ONEHOT_COLS categorical columns: K6 and K6-b launch, the card's peak
+    memory over the pipeline stays under 3× the container's bytes (no
+    dense (n, d) tensor), and both kernels hold against their plain
+    versions at this path's shape (``check_onehot_kernels``)."""
+    import torch
+
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.pipeline import make_pipeline
+    from dask_ml_tpu_torch.preprocessing import OneHotEncoder, StandardScaler
+
+    X, y = onehot_data(SEED)
+    pipe = make_pipeline(OneHotEncoder(), StandardScaler(with_mean=False),
+                         LogisticRegression(solver="lbfgs", max_iter=3))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    _, fit_s, l_fit = drive(lambda: pipe.fit(X, y))
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    oh = pipe.steps[0][1].transform(X[:1])
+    cbytes = ONEHOT_N * ONEHOT_COLS * (oh.values.itemsize
+                                       + oh.cols.itemsize)
+    expect_launches("onehot-pipeline", l_fit)
+    expect(peak < 3 * cbytes, f"one-hot pipeline peak {peak} B >= 3 x the "
+           f"container's {cbytes} B")
+    acc = float(pipe.score(X[:200_000], y[:200_000]))
+    expect(acc > 0.55, f"one-hot pipeline accuracy {acc} <= 0.55")
+    path_line("onehot-pipeline", fit_s, pipe.steps[-1][1].n_iter_, l_fit,
+              peak_bytes=peak, container_bytes=cbytes, accuracy=acc)
+    kernels = check_onehot_kernels(dev, pipe, X, y, errs)
+    return l_fit, {"n": ONEHOT_N, "columns": ONEHOT_COLS,
+                   "categories": ONEHOT_CATS, "fit_s": fit_s,
+                   "peak_bytes": peak, "container_bytes": cbytes,
+                   "accuracy": acc, "kernels": kernels}
+
+
+def rel_err(got, ref) -> float:
+    """max |got − ref| / max |ref|."""
+    return float(np.max(np.abs(np.asarray(got, np.float64) - ref))
+                 / max(np.max(np.abs(ref)), 1e-30))
+
+
+def percentile_reference(X, q):
+    """Column percentiles as ``preprocessing.data.percentiles`` defines
+    them (jax's linear rule with its index ``q · ((n − 1) / 100)`` formed
+    in f32), the blend of the two order statistics in float64."""
+    Xs = np.sort(X.astype(np.float64), axis=0)
+    n = X.shape[0]
+    step = np.float32((np.float32(n) - np.float32(1)) / np.float32(100))
+    pos = (np.asarray(q, np.float32) * step).astype(np.float64)
+    lo, hi = np.floor(pos), np.ceil(pos)
+    w = (pos - lo)[:, None]
+    return (Xs[lo.astype(np.int64)] * (1.0 - w)
+            + Xs[hi.astype(np.int64)] * w)
+
+
+def quantile_reference(X64, q, refs, normal: bool):
+    """QuantileTransformer's forward map in float64: numpy's interp, the
+    two-sided mean, the extreme-quantile overrides, ``ndtri`` clipped."""
+    from scipy.special import ndtri
+
+    out = np.empty_like(X64)
+    clip = float(ndtri(1e-7 - np.spacing(1)))
+    for j in range(X64.shape[1]):
+        x, qj = X64[:, j], q[:, j]
+        u = 0.5 * (np.interp(x, qj, refs)
+                   - np.interp(-x, -qj[::-1], -refs[::-1]))
+        if normal:
+            u = np.where(x + 1e-7 > qj[-1], 1.0, u)
+            u = np.where(x - 1e-7 < qj[0], 0.0, u)
+            u = np.clip(ndtri(u), clip, -clip)
+        else:
+            u = np.where(x == qj[-1], 1.0, u)
+            u = np.where(x == qj[0], 0.0, u)
+        out[:, j] = u
+    return out
+
+
+def normal_ppf_step(R):
+    """The f32 conditioning of the normal output: ``u`` near 1 is held in
+    f32 to 2^-24 (its spacing there), and ``ppf`` multiplies an error in
+    ``u`` by ``1 / φ(ppf(u))``, so one grid step of ``u`` moves an output
+    ``R`` by ``2^-24 / φ(R)`` (≈ 1.2e-3 at R = 4.25, 1.5e-7 at R = 0)."""
+    phi = np.exp(-0.5 * R * R) / np.sqrt(2.0 * np.pi)
+    return 2.0 ** -24 / phi
+
+
+def normal_round_trip_step(X64, q):
+    """The f32 conditioning of the normal output's round trip: ``ndtr`` of
+    an upper-tail output lands on f32's grid near 1 (spacing 2^-24), and
+    the inverse interpolation multiplies an error in ``u`` by the slope of
+    its bin, ``(q[k] − q[k−1]) · (n_quantiles − 1)``: one grid step of
+    ``u`` moves an element by that slope times 2^-24."""
+    step = np.empty_like(X64)
+    m = q.shape[0]
+    for j in range(X64.shape[1]):
+        k = np.clip(np.searchsorted(q[:, j], X64[:, j]), 1, m - 1)
+        step[:, j] = (q[k, j] - q[k - 1, j]) * (m - 1) * 2.0 ** -24
+    return step
+
+
+def grid_steps_used(err, floor, step) -> float:
+    """The most grid steps of ``u`` that an error beyond ``floor`` needs:
+    max over elements of max(0, err − floor) / step."""
+    return float(np.max(np.maximum(err - floor, 0.0) / step))
+
+
+def dense_scalers_cell(dev):
+    """``dense-scalers``: MinMaxScaler, RobustScaler and QuantileTransformer
+    (uniform and normal, 1,000 quantiles) on the blobs cell's 1,000,000 ×
+    50 staged on the card, each against a float64 numpy reference of the
+    same formulas (``percentile_reference``: the quantiles' index as the
+    port and jax form it; max |error| ≤ SCALER_RTOL of the reference's
+    largest magnitude; the normal output also NORMAL_PPF_STEPS grid steps
+    of ``normal_ppf_step``, its f32 conditioning in the upper tail), the
+    inverse transform back to X within SCALER_RTOL of X's largest
+    magnitude (the normal output's also NORMAL_ROUND_TRIP_STEPS of
+    ``normal_round_trip_step``); the seconds of each fit and transform,
+    each error's largest share of its tolerance, and the grid steps the
+    normal output used."""
+    import torch
+
+    from dask_ml_tpu_torch.preprocessing import (MinMaxScaler,
+                                                 QuantileTransformer,
+                                                 RobustScaler)
+
+    X, _ = drawn("blobs", lambda: blobs_data(SEED))
+    Xd = torch.as_tensor(X, device=dev)
+    X64 = X.astype(np.float64)
+    out = {}
+    lo, hi = X64.min(0), X64.max(0)
+    qs = percentile_reference(X, [25.0, 50.0, 75.0])
+    refs = np.linspace(0, 1, 1000)
+    qq = percentile_reference(X, refs * 100.0)
+    cases = (
+        ("minmax", MinMaxScaler, lambda: (X64 - lo) / (hi - lo), False),
+        ("robust", RobustScaler, lambda: (X64 - qs[1]) / (qs[2] - qs[0]),
+         False),
+        ("quantile-uniform", lambda: QuantileTransformer(n_quantiles=1000),
+         lambda: quantile_reference(X64, qq, refs, False), False),
+        ("quantile-normal", lambda: QuantileTransformer(
+            n_quantiles=1000, output_distribution="normal"),
+         lambda: quantile_reference(X64, qq, refs, True), True))
+    for name, make, reference, normal in cases:
+        est, fit_s, _ = drive(lambda: make().fit(Xd))
+        Z, tr_s, _ = drive(lambda: est.transform(Xd))
+        back, inv_s, _ = drive(lambda: est.inverse_transform(Z))
+        R = reference()
+        err = rel_err(Z, R)
+        round_trip = rel_err(back, X64)
+        e_fwd, e_back = np.abs(Z - R), np.abs(back - X64)
+        floor_fwd = SCALER_RTOL * np.max(np.abs(R))
+        floor_back = SCALER_RTOL * np.max(np.abs(X64))
+        tol_fwd, tol_back = floor_fwd, floor_back
+        cell = {}
+        if normal:
+            s_fwd, s_back = normal_ppf_step(R), normal_round_trip_step(X64,
+                                                                      qq)
+            tol_fwd = tol_fwd + NORMAL_PPF_STEPS * s_fwd
+            tol_back = tol_back + NORMAL_ROUND_TRIP_STEPS * s_back
+            cell.update(
+                ppf_steps_used=grid_steps_used(e_fwd, floor_fwd, s_fwd),
+                round_trip_steps_used=grid_steps_used(e_back, floor_back,
+                                                      s_back))
+        share_fwd = float(np.max(e_fwd / tol_fwd))
+        share_back = float(np.max(e_back / tol_back))
+        log(f"dense scaler {name}: fit {fit_s:.4f} s, transform {tr_s:.4f}"
+            f" s, inverse {inv_s:.4f} s; error {err:.3e} (at most "
+            f"{share_fwd:.4f} of its tolerance), round trip {round_trip:.3e}"
+            f" (at most {share_back:.4f}); {cell}")
+        expect(share_fwd <= 1.0, f"{name}: error {err} against float64, "
+               f"{share_fwd} of its tolerance")
+        expect(share_back <= 1.0, f"{name}: inverse round trip "
+               f"{round_trip}, {share_back} of its tolerance")
+        out[name] = {"fit_s": fit_s, "transform_s": tr_s,
+                     "inverse_s": inv_s, "rel_err": err,
+                     "round_trip": round_trip, "error_share": share_fwd,
+                     "round_trip_share": share_back, **cell}
+    path_line("dense-scalers", sum(v["fit_s"] + v["transform_s"]
+                                   for v in out.values()), None, {},
+              cells=out)
+    return out
+
+
+def preprocess_cells(dev, errs):
+    """The PREPROCESS phase (step 16): ``sparse-scaler``,
+    ``onehot-pipeline``, ``dense-scalers``. Returns the launches of the
+    paths that run the repo's kernels and a summary; the kernels' errors
+    against their plain versions go into ``errs``."""
+    import torch
+
+    t0 = time.perf_counter()
+    launches, out = {}, {}
+    launches["sparse-scaler-fit"], out["sparse_scaler"] = \
+        sparse_scaler_cell(dev)
+    torch.cuda.empty_cache()
+    launches["onehot-pipeline"], out["onehot_pipeline"] = \
+        onehot_pipeline_cell(dev, errs)
+    torch.cuda.empty_cache()
+    out["dense_scalers"] = dense_scalers_cell(dev)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log("PREPROCESS " + json.dumps(out))
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
 # PRECISION: the bf16 cases of K1-K6 under the mixed-precision policy
 # ---------------------------------------------------------------------------
 
@@ -5498,6 +6189,24 @@ def main() -> int:
             "platform": "gpu", "kind": kind, "count": count}}), flush=True)
         return 0
 
+    if "--nystrom-only" in sys.argv[1:]:
+        nys_errs = {}
+        nystrom_cells(dev, nys_errs)
+        log("NYSTROM max_abs_err " + json.dumps(nys_errs))
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+        return 0
+
+    if "--preprocess-only" in sys.argv[1:]:
+        pre_errs = {}
+        preprocess_cells(dev, pre_errs)
+        log("PREPROCESS max_abs_err " + json.dumps(pre_errs))
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+        return 0
+
     if "--spmv-only" in sys.argv[1:]:
         rows, summary = spmv_only(dev, {})
         log_spmv_rows(rows)
@@ -5693,6 +6402,24 @@ def main() -> int:
         if r["name"] in asha_errs:
             r["max_abs_err_asha"] = asha_errs[r["name"]]
             r["max_abs_err"] = max(r["max_abs_err"], asha_errs[r["name"]])
+    torch.cuda.empty_cache()
+
+    nys_errs = {}
+    nys_launches, _ = nystrom_cells(dev, nys_errs)
+    pre_errs = {}
+    pre_launches, _ = preprocess_cells(dev, pre_errs)
+    for r in rows:
+        for key, launched in (("launches_nystrom", nys_launches),
+                              ("launches_preprocess", pre_launches)):
+            got = {path: int(l[r["name"]]) for path, l in launched.items()
+                   if l.get(r["name"])}
+            if got:
+                r[key] = got
+        for key, found in (("max_abs_err_nystrom", nys_errs),
+                           ("max_abs_err_preprocess", pre_errs)):
+            if r["name"] in found:
+                r[key] = found[r["name"]]
+                r["max_abs_err"] = max(r["max_abs_err"], found[r["name"]])
     torch.cuda.empty_cache()
 
     bf16, _ = precision_cells(dev, f32_inertia=blobs_inertia)

@@ -1,7 +1,9 @@
 """Clustering estimators of the PyTorch port: ``KMeans``,
-``MiniBatchKMeans`` and the k-means module functions. The deprecated
-``PartialMiniBatchKMeans`` subclasses scikit-learn's estimator and loads
-on first access, so the package imports without scikit-learn."""
+``MiniBatchKMeans``, the k-means module functions, and the Nyström
+estimators ``SpectralClustering`` (with ``embed``) and ``KernelKMeans``.
+The deprecated ``PartialMiniBatchKMeans`` subclasses scikit-learn's
+estimator and loads on first access, so the package imports without
+scikit-learn."""
 
 from dask_ml_tpu_torch.cluster.k_means import (
     KMeans,
@@ -13,11 +15,14 @@ from dask_ml_tpu_torch.cluster.k_means import (
     k_init,
     k_means,
 )
+from dask_ml_tpu_torch.cluster.kernel_kmeans import KernelKMeans
 from dask_ml_tpu_torch.cluster.minibatch import MiniBatchKMeans
+from dask_ml_tpu_torch.cluster.spectral import SpectralClustering, embed
 
-__all__ = ["KMeans", "MiniBatchKMeans", "PartialMiniBatchKMeans",
-           "compute_inertia", "evaluate_cost", "init_pp", "init_random",
-           "init_scalable", "k_init", "k_means"]
+__all__ = ["KMeans", "KernelKMeans", "MiniBatchKMeans",
+           "SpectralClustering", "PartialMiniBatchKMeans",
+           "compute_inertia", "embed", "evaluate_cost", "init_pp",
+           "init_random", "init_scalable", "k_init", "k_means"]
 
 
 def __getattr__(name):

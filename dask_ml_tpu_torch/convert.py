@@ -4,7 +4,11 @@ The input is the ``{name: ndarray}`` dict of learned attributes that
 ``dask_ml_tpu.interop.export_learned_attrs`` returns. This module takes
 numpy only and imports nothing of the JAX package.
 :func:`stream_state_from_numpy` carries a streamed solver's state across
-the same way.
+the same way. The Nyström estimators keep their landmark and extension
+state in private attributes, which that dict leaves out:
+:func:`spectral_from_numpy` and :func:`kernel_kmeans_from_numpy` take them
+by their attribute names. :func:`preprocessor_from_numpy` sets a scaler's
+or an encoder's fitted attributes.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dask_ml_tpu_torch.cluster import KernelKMeans, SpectralClustering
 from dask_ml_tpu_torch.cluster.k_means import KMeans
 from dask_ml_tpu_torch.config import resolve_device
 from dask_ml_tpu_torch.decomposition import PCA, TruncatedSVD
@@ -226,3 +231,104 @@ def stream_state_from_numpy(state, device=None) -> tuple:
     read-only)."""
     dev = resolve_device(device)
     return tuple(torch.tensor(np.asarray(a), device=dev) for a in state)
+
+
+#: the Nyström state both estimators' predict replays
+_NYSTROM_ATTRS = ("_landmarks_", "_extension_", "_n_fit_rows_")
+
+
+def _carry_nystrom(est, attrs: dict, n_components_of=None) -> None:
+    missing = [a for a in _NYSTROM_ATTRS + ("cluster_centers_",)
+               if a not in attrs]
+    if missing:
+        raise ValueError(f"a Nyström model needs {missing}")
+    landmarks = np.array(attrs["_landmarks_"], dtype=np.float32)
+    ext = tuple(np.array(e, dtype=np.float32)
+                for e in attrs["_extension_"])
+    if landmarks.ndim != 2 or len(ext) != 3:
+        raise ValueError(
+            f"_landmarks_ must be (l, d) and _extension_ three arrays; got "
+            f"shape {landmarks.shape} and {len(ext)} arrays")
+    l = landmarks.shape[0]
+    if ext[0].shape != (l,) or ext[1].shape != (l,) \
+            or ext[2].ndim != 2 or ext[2].shape[0] != l:
+        raise ValueError(
+            f"the extension arrays {[e.shape for e in ext]} disagree with "
+            f"{l} landmarks")
+    est.n_components = l
+    est._landmarks_ = landmarks
+    est._extension_ = ext
+    est._n_fit_rows_ = float(attrs["_n_fit_rows_"])
+    est.n_features_in_ = int(landmarks.shape[1])
+    if "labels_" in attrs:
+        est.labels_ = np.asarray(attrs["labels_"]).astype(np.int32)
+
+
+def spectral_from_numpy(attrs: dict, **params) -> SpectralClustering:
+    """A fitted port :class:`SpectralClustering` whose ``predict`` labels
+    rows as the exported model's does. ``attrs`` holds ``_landmarks_``,
+    ``_extension_`` (``(ainv_colsum, d1_si, map_k)``), ``_n_fit_rows_``,
+    the inner KMeans' ``cluster_centers_`` and optionally ``labels_`` and
+    ``eigenvalues_``; ``params`` are the exported model's constructor
+    settings of the kernel (``affinity``, ``gamma``, ``degree``,
+    ``coef0``, ``kernel_params``), which the arrays do not carry."""
+    est = SpectralClustering(**params)
+    _carry_nystrom(est, attrs)
+    centers = np.array(attrs["cluster_centers_"], dtype=np.float32)
+    if centers.ndim != 2 or centers.shape[1] != est._extension_[2].shape[1]:
+        raise ValueError(
+            f"cluster_centers_ of shape {centers.shape} does not fit an "
+            f"embedding of width {est._extension_[2].shape[1]}")
+    est.n_clusters = int(centers.shape[0])
+    est.assign_labels_ = kmeans_from_numpy(
+        {"cluster_centers_": centers})
+    if "eigenvalues_" in attrs:
+        est.eigenvalues_ = np.array(attrs["eigenvalues_"], np.float32)
+    if "labels_" in attrs:
+        est.assign_labels_.labels_ = est.labels_
+    return est
+
+
+def kernel_kmeans_from_numpy(attrs: dict, **params) -> KernelKMeans:
+    """A fitted port :class:`KernelKMeans` whose ``predict`` labels rows as
+    the exported model's does. ``attrs`` holds ``_landmarks_``,
+    ``_extension_`` (``(ainv_colsum, d1_si, map_full)``), ``_n_fit_rows_``,
+    ``cluster_centers_`` (feature space) and optionally ``labels_``,
+    ``inertia_`` and ``n_iter_``; ``params`` the kernel's constructor
+    settings."""
+    est = KernelKMeans(**params)
+    _carry_nystrom(est, attrs)
+    km = kmeans_from_numpy({k: attrs[k] for k in
+                            ("cluster_centers_", "labels_", "inertia_",
+                             "n_iter_") if k in attrs})
+    if km.cluster_centers_.shape[1] != est._extension_[2].shape[1]:
+        raise ValueError(
+            f"cluster_centers_ of shape {km.cluster_centers_.shape} does "
+            f"not fit features of width {est._extension_[2].shape[1]}")
+    est.n_clusters = km.n_clusters
+    est.assign_kmeans_ = km
+    est.cluster_centers_ = km.cluster_centers_
+    for name in ("inertia_", "n_iter_"):
+        if hasattr(km, name):
+            setattr(est, name, getattr(km, name))
+    return est
+
+
+def preprocessor_from_numpy(name, attrs: dict, **params):
+    """A fitted port scaler or encoder: the class ``name`` of
+    :mod:`dask_ml_tpu_torch.preprocessing` (or the class itself) made with
+    ``params`` (the exported model's constructor settings) and given each
+    attribute of ``attrs`` as it is (numpy arrays, lists of category
+    arrays, dicts of dtypes). A ``OneHotEncoder`` rebuilds its lookup
+    tables from ``categories_``."""
+    from dask_ml_tpu_torch import preprocessing
+
+    cls = getattr(preprocessing, name) if isinstance(name, str) else name
+    est = cls(**params)
+    for key, value in attrs.items():
+        setattr(est, key, value)
+    if isinstance(est, preprocessing.OneHotEncoder):
+        est.categories_ = [np.asarray(c) for c in est.categories_]
+        est.n_features_in_ = len(est.categories_)
+        est._index_categories()
+    return est

@@ -27,6 +27,12 @@ contractions the GLM solvers route through.
   (``A.T @ diag(h) @ A``) in plain PyTorch, as the JAX package computes
   them outside any Pallas kernel; the last two add their products in
   fixed point, so that they repeat their bits.
+- The sparse preprocessing: :func:`split_cols` / :func:`merge_cols`
+  (column ranges, host or device), :func:`column_moments` and
+  :func:`column_mean_var` (the sparse ``StandardScaler``'s reduction:
+  every column sum is a :func:`pullback` of a container with ``A``'s
+  columns, so on the card it is K6-b in fixed point and repeats its
+  bits), :func:`has_duplicate_slots` and :func:`scale_columns`.
 
 Values are float32 or bfloat16 (``ell_from_csr(..., dtype=torch.bfloat16)``,
 or a container staged under ``precision="bf16"``); cols are always int32.
@@ -70,6 +76,12 @@ __all__ = [
     "weighted_gram",
     "spmv",
     "dvector_plan",
+    "split_cols",
+    "merge_cols",
+    "column_moments",
+    "column_mean_var",
+    "has_duplicate_slots",
+    "scale_columns",
 ]
 
 
@@ -684,3 +696,165 @@ def weighted_gram(A: SparseRows, h):
                      q.reshape(-1))
     out = (H.double() * torch.exp2(-e.double())).float().view(d, d)
     return torch.where(torch.isfinite(bound), out, torch.nan)
+
+
+# ---------------------------------------------------------------------------
+# the sparse preprocessing: column ranges, column moments, scaling
+# ---------------------------------------------------------------------------
+
+
+def _xp_where(cond, a, b):
+    if isinstance(cond, np.ndarray):
+        return np.where(cond, a, b)
+    return torch.where(cond, a, b)
+
+
+def _xp_concat(parts):
+    if isinstance(parts[0], np.ndarray):
+        return np.concatenate(parts, axis=1)
+    return torch.cat(parts, dim=1)
+
+
+def split_cols(A: SparseRows, edges) -> list:
+    """Split the feature axis into contiguous column ranges. ``edges`` are
+    the interior split points (``np.split``'s convention): ``[4, 9]`` on
+    ``d = 12`` gives blocks over ``[0, 4)``, ``[4, 9)`` and ``[9, 12)``.
+    Each block keeps the slot budget ``k``: a slot whose column lies
+    outside the block's range becomes the inert ``(col=0, value=0)``, and
+    in-range columns are re-based to the block's origin, so each block is
+    a :class:`SparseRows` of width ``hi - lo``.
+
+    ``matvec(A, v) == sum_j matvec(B_j, v[lo_j:hi_j])``, the pullbacks
+    concatenate, and blanking moves only value-0 products, so the split
+    is exact. Blanked slots alias column 0 with value 0, which
+    :func:`has_duplicate_slots` ignores. Host (numpy) or device leaves."""
+    edges = [int(e) for e in edges]
+    bounds = [0, *edges, A.d]
+    if any(b1 > b2 for b1, b2 in zip(bounds, bounds[1:])) \
+            or (edges and (edges[0] < 0 or edges[-1] > A.d)):
+        raise ValueError(
+            f"split edges {edges} must be nondecreasing within [0, {A.d}]")
+    blocks = []
+    for lo, hi in zip(bounds, bounds[1:]):
+        inr = (A.cols >= lo) & (A.cols < hi) & (A.values != 0)
+        vals = _xp_where(inr, A.values, A.values * 0)
+        cols = _xp_where(inr, A.cols - lo, A.cols * 0)
+        blocks.append(SparseRows(vals, cols, hi - lo))
+    return blocks
+
+
+def merge_cols(blocks) -> SparseRows:
+    """The inverse of :func:`split_cols`: the blocks side by side over
+    their summed width. Their slots are stacked (each block's columns
+    re-based by its running offset), so the merged ``k`` is the sum of
+    theirs: ``to_dense(merge_cols(split_cols(A, e))) == to_dense(A)``,
+    with another slot layout."""
+    if not blocks:
+        raise ValueError("merge_cols needs at least one block")
+    n = blocks[0].values.shape[0]
+    if any(b.values.shape[0] != n for b in blocks):
+        raise ValueError("blocks must share the row count")
+    vals, cols, off = [], [], 0
+    for b in blocks:
+        vals.append(b.values)
+        cols.append(_xp_where(b.values != 0, b.cols + off, b.cols * 0))
+        off += b.d
+    return SparseRows(_xp_concat(vals), _xp_concat(cols), off)
+
+
+def _pullback_values(A: SparseRows, values, r):
+    """``pullback`` of the container with ``A``'s columns and ``values``
+    (a derived (n, k) tensor: the callers keep one alive at a time)."""
+    return pullback(SparseRows(values.contiguous(), A.cols, A.d), r)
+
+
+def column_moments(A: SparseRows, w):
+    """Weighted column moments over the stored entries: ``(sum_i w_i x_ij,
+    sum_i w_i x_ij^2, sum_i w_i)`` in O(nnz). Both column sums are
+    pullbacks (K6-b on the card, in fixed point). The quadratic sum takes
+    at most one stored entry per (row, column), as canonical CSR has:
+    duplicate slots would add ``v1^2 + v2^2`` for ``(v1 + v2)^2``."""
+    A = SparseRows(*_tensors(A), A.d)
+    w = torch.as_tensor(w).to(device=A.values.device, dtype=torch.float32)
+    s1 = pullback(A, w)
+    sq = A.values.to(_accum_dtype(A))
+    sq = sq * sq
+    s2 = _pullback_values(A, sq, w)
+    return s1, s2, w.sum()
+
+
+def column_mean_var(A: SparseRows, w):
+    """Weighted column ``(mean, var, sum_w)`` by the stable two-pass form,
+    the sparse ``StandardScaler``'s reduction. Pass 1 is the mean; pass 2
+    adds ``w (x - mean)^2`` over the stored entries and then the zeros'
+    share ``(sum_w - nnz_w) mean^2`` in closed form, where ``nnz_w`` is the
+    weighted count of stored entries (``value != 0``: padded slots and
+    stored zeros both fall in the zeros' share). The one-pass ``E[x^2] -
+    mean^2`` would cancel in f32 for a column whose mean dwarfs its
+    spread.
+
+    Each column sum (``s1``, ``nnz_w``, the squared deviations) is a
+    :func:`pullback` of a container with ``A``'s columns: K6-b on the card,
+    whose fixed-point sums repeat their bits, where a float ``index_add_``
+    would add with atomics in an order that changes from run to run; on
+    integer-valued data every sum is exact. Each derived values tensor is
+    as large as ``A.values``; one is alive at a time. Takes at most one
+    stored entry per (row, column) (see :func:`has_duplicate_slots`)."""
+    A = SparseRows(*_tensors(A), A.d)
+    acc = _accum_dtype(A)
+    w = torch.as_tensor(w).to(device=A.values.device, dtype=acc)
+    sw = w.sum()
+    denom = torch.clamp(sw, min=1.0)
+    mean = pullback(A, w) / denom
+    vals = A.values.to(acc)
+    stored = vals != 0
+    nnz_w = _pullback_values(A, stored.to(acc), w)
+    dev = torch.index_select(mean, 0, A.cols.reshape(-1)).view(vals.shape)
+    dev = dev.neg_().add_(vals).square_().masked_fill_(~stored, 0.0)
+    del stored
+    dev2 = _pullback_values(A, dev, w)
+    del dev
+    var = (dev2 + (sw - nnz_w) * mean * mean) / denom
+    return mean, torch.clamp(var, min=0.0), sw
+
+
+#: slots a chunk of has_duplicate_slots' row sort: its keys, the sorted
+#: keys and the sort's int64 indices take 64 MB
+_DUP_CHUNK_SLOTS = 1 << 22
+
+
+def has_duplicate_slots(A: SparseRows):
+    """True (a 0-d bool tensor, no host read) if a row stores one column in
+    two nonzero slots. The linear contractions sum duplicates, but the
+    quadratic moments cannot be taken slot-wise over them: the sparse
+    ``StandardScaler`` refuses such a container. Unstored (value-0) slots
+    get a per-slot negative sentinel and never collide. The (n, k) sort
+    runs in row chunks of ``_DUP_CHUNK_SLOTS`` slots."""
+    values, cols = _tensors(A)
+    n, k = values.shape
+    found = torch.zeros((), dtype=torch.bool, device=values.device)
+    if k < 2:
+        return found
+    sentinel = -1 - torch.arange(k, dtype=cols.dtype,
+                                 device=cols.device)[None, :]
+    c = max(1, _DUP_CHUNK_SLOTS // k)
+    for s in range(0, n, c):
+        keyed = torch.where(values[s:s + c] != 0, cols[s:s + c], sentinel)
+        keyed = torch.sort(keyed, dim=1).values
+        found |= (keyed[:, 1:] == keyed[:, :-1]).any()
+    return found
+
+
+def scale_columns(A: SparseRows, scale) -> SparseRows:
+    """Each stored value divided by its column's scale (the sparse
+    ``StandardScaler.transform``): multiplied by ``1 / scale`` gathered at
+    its column, in the accumulation dtype, then cast back to the values'
+    dtype. The layout is unchanged; nothing is densified."""
+    values, cols = _tensors(A)
+    acc = _accum_dtype(A)
+    scale = torch.as_tensor(scale).to(device=values.device,
+                                      dtype=torch.float32)
+    inv = (1.0 / scale).to(acc)
+    g = torch.index_select(inv, 0, cols.reshape(-1)).view(values.shape)
+    out = g.mul_(values.to(acc)).to(values.dtype)
+    return SparseRows(out, cols, A.d)

@@ -1,7 +1,31 @@
 """Preprocessing of the PyTorch port (counterpart of
-``dask_ml_tpu/preprocessing``): :class:`StandardScaler`. The other scalers
-and the encoders are not ported yet (ROADMAP Queue A item 8)."""
+``dask_ml_tpu/preprocessing``): the device scalers (``StandardScaler``,
+dense and sparse, ``MinMaxScaler``, ``RobustScaler``,
+``QuantileTransformer``), the host encoders (``OneHotEncoder``, which
+emits the sparse container, and the DataFrame encoders ``Categorizer``,
+``DummyEncoder`` and ``OrdinalEncoder``, which import pandas on use) and
+``LabelEncoder``."""
 
-from dask_ml_tpu_torch.preprocessing.data import StandardScaler
+from dask_ml_tpu_torch.preprocessing.data import (  # noqa: F401
+    Categorizer,
+    DummyEncoder,
+    MinMaxScaler,
+    OneHotEncoder,
+    OrdinalEncoder,
+    QuantileTransformer,
+    RobustScaler,
+    StandardScaler,
+)
+from dask_ml_tpu_torch.preprocessing.label import LabelEncoder  # noqa: F401
 
-__all__ = ["StandardScaler"]
+__all__ = [
+    "StandardScaler",
+    "MinMaxScaler",
+    "RobustScaler",
+    "QuantileTransformer",
+    "Categorizer",
+    "DummyEncoder",
+    "OneHotEncoder",
+    "OrdinalEncoder",
+    "LabelEncoder",
+]

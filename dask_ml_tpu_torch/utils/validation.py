@@ -188,3 +188,20 @@ def check_random_state(seed=None, device=None) -> torch.Generator:
     g = torch.Generator(device=dev)
     g.manual_seed(value)
     return g
+
+
+def check_random_state_np(seed=None) -> np.random.RandomState:
+    """A numpy ``RandomState`` for host-side draws (landmark rows, the seeds
+    handed to inner estimators): a ``RandomState`` passes through, anything
+    else seeds a new one, as ``np.random.RandomState(seed)`` does."""
+    if isinstance(seed, np.random.RandomState):
+        return seed
+    return np.random.RandomState(seed)
+
+
+def row_norms(X, squared: bool = False) -> torch.Tensor:
+    """Per-row L2 norms (or their squares) of a 2-D array, as a tensor where
+    ``X`` lies (numpy input stays on the CPU)."""
+    X = torch.as_tensor(X)
+    sq = (X * X).sum(dim=-1)
+    return sq if squared else torch.sqrt(sq)

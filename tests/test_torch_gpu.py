@@ -1601,3 +1601,134 @@ def test_bf16_pmatmul_gemm_and_cotangent_split(cuda, n, d, m):
     rv = r[:, 0].contiguous()
     (grad,) = torch.autograd.grad((px.pmatmul(X, v) * rv).sum(), v)
     assert torch.equal(grad, px.pullback_matmul(X.T, rv[:, None])[:, 0])
+
+
+# ---------------------------------------------------------------------------
+# the sparse moments on K6-b, the scalers and the Nyström estimators
+# ---------------------------------------------------------------------------
+
+
+def _moment_rows(rng, n, k, d, dev, integers, mirror=False):
+    """A container without duplicate slots (distinct columns a row, value-0
+    padding at column 0). ``mirror``: the second half of the rows is the
+    first half negated, so every column's mean is 0."""
+    cols = np.argsort(rng.random((n, d - 1)), axis=1)[:, :k].astype(
+        np.int32) + 1
+    vals = (rng.integers(-8, 8, (n, k)).astype(np.float32) if integers
+            else rng.standard_normal((n, k), dtype=np.float32) * 3 + 1)
+    cols[:, -1] = 0
+    vals[:, -1] = 0.0
+    if mirror:
+        cols[n // 2:], vals[n // 2:] = cols[:n // 2], -vals[:n // 2]
+    return sps.SparseRows(torch.as_tensor(vals, device=dev),
+                          torch.as_tensor(cols, device=dev), d)
+
+
+@pytest.mark.parametrize("n,k,d,mirror", [(64, 9, 40, False),
+                                          (65_536, 33, 700, True)])
+def test_sparse_moments_through_k6b_bitexact_int_valued(cuda, n, k, d,
+                                                        mirror):
+    """Integer values of unit weight where every sum is exact: 64 rows (a
+    mean is a multiple of 1/64, a squared deviation has at most 18
+    significant bits, their sum fits f32's 24) or mirrored rows (every
+    mean 0, every square an integer). The moments through the pullback
+    kernel then equal the plain ``_pullback_ref`` route (a CPU copy) bit
+    for bit; three launches for column_mean_var."""
+    rng = np.random.default_rng(n + k)
+    A = _moment_rows(rng, n, k, d, cuda, integers=True, mirror=mirror)
+    w = torch.ones(n, device=cuda)
+    _kernels.reset_launches()
+    got = sps.column_mean_var(A, w)
+    assert (_kernels.launches["spmv_pullback"]
+            + _kernels.launches["spmv_pullback_l2"]) == 3
+    want = sps.column_mean_var(A.to("cpu"), w.cpu())
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    got = sps.column_moments(A, w)
+    want = sps.column_moments(A.to("cpu"), w.cpu())
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_sparse_moments_repeat_their_bits_on_float_data(cuda):
+    rng = np.random.default_rng(31)
+    A = _moment_rows(rng, 200_003, 17, 3_001, cuda, integers=False)
+    w = torch.as_tensor(rng.uniform(0.5, 2.0, 200_003).astype(np.float32),
+                        device=cuda)
+    first = sps.column_mean_var(A, w)
+    for _ in range(3):
+        for a, b in zip(sps.column_mean_var(A, w), first):
+            assert torch.equal(a, b)
+    ref = np.asarray(sps.to_dense(A.to("cpu")), dtype=np.float64)
+    wh = w.cpu().double().numpy()
+    mean = (wh[:, None] * ref).sum(0) / wh.sum()
+    var = (wh[:, None] * (ref - mean) ** 2).sum(0) / wh.sum()
+    np.testing.assert_allclose(first[1].cpu().numpy(), var, rtol=1e-5,
+                               atol=1e-7)
+
+
+def test_sparse_standard_scaler_on_card(cuda):
+    from dask_ml_tpu_torch.preprocessing import StandardScaler
+
+    rng = np.random.default_rng(32)
+    A = _moment_rows(rng, 100_000, 21, 2_000, cuda, integers=False)
+    a = StandardScaler(with_mean=False).fit(A)
+    b = StandardScaler(with_mean=False).fit(A)
+    np.testing.assert_array_equal(a.var_, b.var_)
+    out = a.transform(A)
+    assert out.values.is_cuda and out.cols is A.cols
+    inv = (1.0 / torch.as_tensor(a.scale_, device=cuda))
+    assert torch.equal(out.values, A.values * inv[A.cols.long()])
+
+
+def test_dense_scalers_on_card_match_cpu(cuda):
+    from dask_ml_tpu_torch import preprocessing as pre
+
+    rng = np.random.default_rng(33)
+    X = rng.standard_normal((50_000, 12), dtype=np.float32) * 3 + 1
+    for est, attrs in ((pre.MinMaxScaler, ("data_min_", "data_max_")),
+                       (pre.RobustScaler, ("center_", "scale_")),
+                       (lambda: pre.QuantileTransformer(
+                           n_quantiles=100, output_distribution="normal"),
+                        ("quantiles_",))):
+        a = est().fit(X)
+        with config_context(device="cpu"):
+            b = est().fit(X)
+            tb = b.transform(X)
+        for name in attrs:
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+        np.testing.assert_allclose(a.transform(X), tb, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(a.inverse_transform(a.transform(X)), X,
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_nystrom_estimators_on_card(cuda):
+    from dask_ml_tpu_torch.cluster import KernelKMeans, SpectralClustering
+
+    rng = np.random.default_rng(34)
+    centers = rng.uniform(-6, 6, (4, 5)).astype(np.float32)
+    y = rng.integers(0, 4, 20_000)
+    X = centers[y] + 0.5 * rng.standard_normal((20_000, 5), dtype=np.float32)
+    X = (X - X.mean(0)) / X.std(0)
+    _kernels.reset_launches()
+    sc = SpectralClustering(n_clusters=4, n_components=100, gamma=None,
+                            random_state=0).fit(X)
+    assert _kernels.launches["lloyd_iter"] > 0
+    assert _kernels.launches["fused_argmin_min"] > 0
+    table = np.zeros((4, 4), np.int64)
+    np.add.at(table, (y, sc.labels_), 1)
+    assert (table > 0).sum() == 4  # each blob one label
+    np.testing.assert_array_equal(sc.predict(X), sc.labels_)
+    signs = rng.integers(0, 2, (20_000, 2)) * 2 - 1
+    Xx = (signs * 2.0 + rng.standard_normal((20_000, 2)) * 0.6).astype(
+        np.float32)
+    yx = signs[:, 0] * signs[:, 1] > 0
+    _kernels.reset_launches()
+    kk = KernelKMeans(n_clusters=2, n_components=128, affinity="polynomial",
+                      degree=2, coef0=1.0, gamma=0.5, random_state=5).fit(Xx)
+    for name in ("lloyd_iter", "fused_argmin_min", "fused_rowwise_min",
+                 "fused_argmin_weight"):
+        assert _kernels.launches[name] > 0, name
+    agree = (kk.labels_ == yx).mean()
+    assert max(agree, 1 - agree) > 0.97
+    np.testing.assert_array_equal(kk.predict(Xx), kk.labels_)

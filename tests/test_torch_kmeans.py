@@ -522,15 +522,18 @@ def test_check_array_and_random_state():
 
 def test_port_never_imports_jax():
     """Every module of the port, and chip_smoke.py, imports without
-    pulling in jax or any module of the JAX package; and again with
-    scikit-learn made unimportable (``sys.modules["sklearn"] = None``),
-    as on the card's machine, which has none: ``model_selection`` and
-    ``pipeline`` included, no module needs it at import time but the
-    scikit-learn subclasses (the ``Partial*`` estimators), which are
-    loaded only on access and must fail there with an ImportError:
-    ``naive_bayes`` (``GaussianNB``) and ``cluster.minibatch``
-    (``MiniBatchKMeans``) import, and their ``Partial*`` classes fail on
-    access."""
+    pulling in jax, any module of the JAX package, scikit-learn or pandas;
+    and again with scikit-learn and pandas made unimportable
+    (``sys.modules[name] = None``), as on the card's machine, which has
+    neither: ``model_selection`` and ``pipeline`` included, no module needs
+    them at import time but the scikit-learn subclasses (the ``Partial*``
+    estimators), which are loaded only on access and must fail there with
+    an ImportError: ``naive_bayes`` (``GaussianNB``) and
+    ``cluster.minibatch`` (``MiniBatchKMeans``) import, and their
+    ``Partial*`` classes fail on access. The DataFrame encoders
+    (``Categorizer``, ``DummyEncoder``, ``OrdinalEncoder``) import and
+    fail only on use without pandas; ``OneHotEncoder`` works without
+    it."""
     for block_sklearn in (False, True):
         _import_walk(block_sklearn)
 
@@ -546,10 +549,15 @@ _SKLEARN_SUBCLASSES = (
 def _import_walk(block_sklearn: bool):
     code = (
         "import importlib, pkgutil, sys\n"
-        + ("sys.modules['sklearn'] = None\n" if block_sklearn else "")
-        + f"skip = {_SKLEARN_SUBCLASSES if block_sklearn else ()!r}\n"
+        + ("sys.modules['sklearn'] = None\nsys.modules['pandas'] = None\n"
+           if block_sklearn else "")
+        + f"skip = {_SKLEARN_SUBCLASSES!r}\n"
+        "deferred = []\n"
         "import dask_ml_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        f"    if m.name in skip and not {block_sklearn!r}:\n"
+        "        deferred.append(m.name)\n"
+        "        continue\n"
         "    if m.name in skip:\n"
         "        try:\n"
         "            importlib.import_module(m.name)\n"
@@ -557,6 +565,26 @@ def _import_walk(block_sklearn: bool):
         "            continue\n"
         "        raise AssertionError(m.name + ' imported without sklearn')\n"
         "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "late = [m for m in sys.modules if sys.modules[m] is not None and "
+        "m.split('.')[0] in ('sklearn', 'pandas')]\n"
+        "assert not late, late\n"
+        "import numpy as np\n"
+        "from dask_ml_tpu_torch import preprocessing as pre\n"
+        "codes = np.arange(6).reshape(3, 2)\n"
+        "assert pre.OneHotEncoder().fit_transform(codes).shape == (3, 6)\n"
+        "for enc in (pre.Categorizer(), pre.DummyEncoder(), "
+        "pre.OrdinalEncoder()):\n"
+        "    try:\n"
+        "        enc.fit(codes)\n"
+        "    except ImportError:\n"
+        f"        assert {block_sklearn!r}, type(enc).__name__\n"
+        "    except (TypeError, AttributeError):\n"
+        f"        assert not {block_sklearn!r}, type(enc).__name__\n"
+        "    else:\n"
+        "        raise AssertionError(type(enc).__name__ + ' fitted an array')\n"
+        "for name in deferred:\n"
+        "    importlib.import_module(name)\n"
         "import dask_ml_tpu_torch.model_selection, dask_ml_tpu_torch.pipeline\n"
         "from dask_ml_tpu_torch import naive_bayes, cluster\n"
         "from dask_ml_tpu_torch.cluster import minibatch\n"

@@ -817,3 +817,133 @@ def test_bf16_weighted_gram_accumulates_f32():
     got = tsps.weighted_gram(At, torch.as_tensor(h))
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), dense.T @ (h[:, None] * dense))
+
+
+# ---------------------------------------------------------------------------
+# the sparse preprocessing: column ranges, moments, duplicates, scaling
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("edges", [[], [4, 9], [0, 12], [5, 5, 7]])
+@pytest.mark.parametrize("host", [True, False])
+def test_split_merge_cols_match_jax(edges, host):
+    rng = np.random.RandomState(2)
+    dense, csr = _int_sparse(rng, 40, 12)
+    A = tsps.ell_from_csr(csr)
+    if not host:
+        A = A.to("cpu")
+    jA, _ = _pair(tsps.ell_from_csr(csr))
+    blocks = tsps.split_cols(A, edges)
+    jblocks = jsps.split_cols(jA, edges)
+    assert [b.d for b in blocks] == [b.d for b in jblocks]
+    for b, jb in zip(blocks, jblocks):
+        np.testing.assert_array_equal(np.asarray(b.values),
+                                      np.asarray(jb.values))
+        np.testing.assert_array_equal(np.asarray(b.cols),
+                                      np.asarray(jb.cols))
+        assert isinstance(b.values, np.ndarray) == host
+    merged = tsps.merge_cols(blocks)
+    np.testing.assert_array_equal(tsps.to_dense(merged).numpy(), dense)
+    jm = jsps.merge_cols(jblocks)
+    np.testing.assert_array_equal(np.asarray(merged.cols),
+                                  np.asarray(jm.cols))
+    v = torch.as_tensor(rng.randint(-3, 4, 12).astype(np.float32))
+    # matvec(A, v) is the sum over the blocks (a zero-width block adds 0)
+    parts = sum(tsps.matvec(b.to("cpu"), v[lo:lo + b.d]) for b, lo in zip(
+        blocks, np.cumsum([0] + [b.d for b in blocks])[:-1]) if b.d)
+    np.testing.assert_array_equal(parts.numpy(), dense @ v.numpy())
+
+
+def test_split_merge_refusals():
+    A = tsps.ell_from_dense(np.eye(4, dtype=np.float32))
+    with pytest.raises(ValueError, match="nondecreasing"):
+        tsps.split_cols(A, [3, 1])
+    with pytest.raises(ValueError, match="nondecreasing"):
+        tsps.split_cols(A, [5])
+    with pytest.raises(ValueError, match="at least one"):
+        tsps.merge_cols([])
+    with pytest.raises(ValueError, match="row count"):
+        tsps.merge_cols([A, A[:2]])
+
+
+@pytest.mark.parametrize("n", [32, 64])
+def test_column_moments_bit_for_bit_on_integer_data(n):
+    """At most 64 rows of unit weight, integer values in [-3, 4): a mean
+    is a multiple of 1/n, a squared deviation has at most 18 significant
+    bits and a column's sum of them fits f32's 24, so every sum is exact
+    and the port's pullback sums equal the JAX segment sums bit for bit;
+    a zero-weight row drops out of both."""
+    rng = np.random.RandomState(n)
+    dense, csr = _int_sparse(rng, n, 17)
+    A = tsps.ell_from_csr(csr)
+    jA, tA = _pair(A)
+    w = np.ones(n, np.float32)
+    w[3] = 0.0
+    w[5] = 2.0
+    got = tsps.column_moments(tA, torch.as_tensor(w))
+    want = jsps.column_moments(jA, jnp.asarray(w))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    w[5] = 1.0
+    w[3] = 1.0
+    got = tsps.column_mean_var(tA, torch.as_tensor(w))
+    want = jsps.column_mean_var(jA, jnp.asarray(w))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    np.testing.assert_array_equal(got[1].numpy(),
+                                  dense.astype(np.float64).var(0))
+
+
+def test_column_mean_var_float_data_close_to_jax():
+    rng = np.random.RandomState(9)
+    dense = (rng.randn(333, 30) * (rng.uniform(size=(333, 30)) < 0.1)
+             ).astype(np.float32)
+    dense[:, 3] += (dense[:, 3] != 0) * 1e3  # mean ≫ spread
+    jA, tA = _pair(tsps.ell_from_csr(scipy_sparse.csr_matrix(dense)))
+    w = rng.uniform(0.5, 2.0, 333).astype(np.float32)
+    got = tsps.column_mean_var(tA, torch.as_tensor(w))
+    want = jsps.column_mean_var(jA, jnp.asarray(w))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_has_duplicate_slots_matches_jax(monkeypatch):
+    rng = np.random.RandomState(4)
+    dup = _dup_rows(rng, 50, 9, 5)
+    _, csr = _int_sparse(rng, 50, 9)
+    clean = tsps.ell_from_csr(csr)
+    split = tsps.split_cols(clean, [4])[0]  # blanked slots alias column 0
+    one = tsps.SparseRows(clean.values[:, :1], clean.cols[:, :1], clean.d)
+    for A, want in ((dup, True), (clean, False), (split, False),
+                    (one, False)):
+        jA, tA = _pair(A)
+        assert bool(tsps.has_duplicate_slots(tA)) is want
+        assert bool(jsps.has_duplicate_slots(jA)) is want
+    # the row chunks of the sort see a duplicate in the last chunk only
+    monkeypatch.setattr(tsps, "_DUP_CHUNK_SLOTS", 10)
+    late = tsps.SparseRows(clean.values.copy(), clean.cols.copy(), clean.d)
+    late.values[-1, :2] = 1.0
+    late.cols[-1, :2] = 3
+    assert bool(tsps.has_duplicate_slots(late))
+    assert not bool(tsps.has_duplicate_slots(clean))
+
+
+def test_scale_columns_matches_jax():
+    rng = np.random.RandomState(5)
+    dense = (rng.randn(60, 14) * (rng.uniform(size=(60, 14)) < 0.3)
+             ).astype(np.float32)
+    jA, tA = _pair(tsps.ell_from_csr(scipy_sparse.csr_matrix(dense)))
+    scale = rng.uniform(0.5, 3.0, 14).astype(np.float32)
+    got = tsps.scale_columns(tA, scale)
+    want = jsps.scale_columns(jA, jnp.asarray(scale))
+    np.testing.assert_array_equal(got.values.numpy(),
+                                  np.asarray(want.values))
+    assert got.cols is tA.cols and got.d == tA.d
+    # bf16 values scale in f32 and round back
+    b16 = tsps.SparseRows(tA.values.to(torch.bfloat16), tA.cols, tA.d)
+    out = tsps.scale_columns(b16, scale)
+    assert out.values.dtype == torch.bfloat16
+    ref = (b16.values.float() * (1.0 / torch.as_tensor(scale))[
+        b16.cols.long()]).to(torch.bfloat16)
+    assert torch.equal(out.values, ref)
