@@ -227,13 +227,39 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``launches_nystrom`` and ``launches_preprocess`` on the rows these
    paths launch.
 
+17. drives the serving tier (``SERVING``): KMeans(n_clusters=8) and
+   MiniBatchKMeans on the blobs, a sketched KMeans at the KDD width (41
+   columns, k 8) on 1,000,000 rows of its recipe, SpectralClustering at
+   the spectral cell, LogisticRegression at d = 100 on 1,000,000 rows and
+   PCA(n_components=100) at d = 1,000 on 200,000 rows, all on one
+   ``ServingLoop(max_batch_rows=2048)``, warmed; then ``serving-identity``
+   (requests on each side of every bucket boundary: the K2 families equal
+   their direct predict bit for bit, the GEMM runners within 1e-5 of the
+   request's largest value, labels equal beyond that margin; every batch
+   the K2 runners served held against K2's plain version on the same
+   padded batch, up to near-ties, K2-x likewise), ``serving-steady`` (32
+   closed-loop clients × 64 requests of the JAX drill's sizes plus 512
+   and 2048, deadlines on a quarter: no build and no library load after
+   the warmup, no error but deadline sheds; QPS, p50/p99, rows a batch,
+   K2 launches, beside the same trace as direct calls), ``serving-fleet``
+   (``ServingFleet(n_replicas=2)`` on the card, half the trace, replica
+   r1 killed after 20 batches and r0 a straggler: every request resolves
+   once, reroutes counted, nothing pending after the drain) and
+   ``serving-sparse`` (a sparse request through
+   ``ParallelPostFit(serving=loop)`` takes the direct path, K6, held bit
+   for bit against ``_spmv_ref`` on integer values). K2, K2-x and K6 are
+   timed at the serving shapes (``serving_shape`` on their rows); the
+   ``kernels`` line gains ``launches_serving``.
+
 ``python3 chip_smoke.py --spmv-only`` runs steps 1, 2, 6 and 8 alone, on a
 container of the sparse cell's shape drawn on the card;
 ``--glm-pca-only`` runs steps 1, 2 and 9 alone; ``--stream-only`` steps 1,
 2 and 10, drawing its own host arrays; ``--incremental-only`` steps 1, 2
 and 11; ``--search-only`` steps 1, 2 and 12; ``--asha-only`` steps 1, 2
 and 13; ``--precision-only`` steps 1, 2 and 14; ``--nystrom-only``
-steps 1, 2 and 15; ``--preprocess-only`` steps 1, 2 and 16.
+steps 1, 2 and 15; ``--preprocess-only`` steps 1, 2 and 16;
+``--serving-only`` steps 1, 2 and 17, with a ``kernels`` line of K2, K2-x
+and K6 at the serving shapes.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
@@ -475,6 +501,10 @@ PATH_KERNELS = {
     "kernel-kmeans-predict": ("fused_argmin_min",),
     "sparse-scaler-fit": ("spmv_pullback",),
     "onehot-pipeline": ("spmv", "spmv_pullback"),
+    "serving-identity": ("fused_argmin_min", "fused_argmin_min_sketched"),
+    "serving-steady": ("fused_argmin_min", "fused_argmin_min_sketched"),
+    "serving-fleet": ("fused_argmin_min", "fused_argmin_min_sketched"),
+    "serving-sparse": ("spmv",),
 }
 SOURCES = {
     "lloyd_iter": "dask_ml_tpu_torch/_kernels/csrc/lloyd.cu",
@@ -6115,6 +6145,565 @@ def precision_cells(dev, f32_inertia=None):
     return rows, summary
 
 
+
+# ---------------------------------------------------------------------------
+# the serving tier (SERVING)
+# ---------------------------------------------------------------------------
+
+# the serving step: the loop's batch budget, the models' row counts, the
+# request sizes of the JAX serving drill (bench.py bench_serving) and two
+# larger ones, the closed-loop clients, the identity sizes on each side of
+# every bucket boundary
+SRV_MAX_ROWS = 2048
+SRV_FIT_N, SRV_PCA_N, SRV_PCA_D, SRV_PCA_K = 1_000_000, 200_000, 1_000, 100
+SRV_GLM_D, SRV_KDD_K = 100, 8
+SRV_SIZES = (1, 2, 4, 8, 16, 24, 32, 48, 64, 96, 128, 512, 2048)
+SRV_CLIENTS, SRV_REQUESTS = 32, 64
+SRV_DEADLINE_S = 0.5
+SRV_IDENTITY = (1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255, 256, 257,
+                511, 512, 513, 1023, 1024, 1025, 2047, 2048)
+SRV_POOL = 65_536
+# the GEMM runners (GLM, PCA) against their direct calls: a served row may
+# take another cuBLAS algorithm than the direct call's (the row count
+# differs), so values are held within this share of the request's largest
+# value, and labels wherever the margin exceeds it
+SRV_GEMM_RTOL = 1e-5
+# the fleet: replicas on the one card, the kill and the straggler
+SRV_KILL_AFTER, SRV_STRAGGLE_S, SRV_STRAGGLE_EVERY = 20, 0.005, 10
+# the sparse request of the fallback: rows and density at the GLM's width
+SRV_SPARSE_N, SRV_SPARSE_DENSITY = 2048, 0.1
+
+
+def serving_models(dev):
+    """The fitted models of the serving step, each at full model width,
+    and the host rows its requests are cut from. Returns ({name: est},
+    {name: host rows})."""
+    import torch
+
+    from dask_ml_tpu_torch.cluster import (KMeans, MiniBatchKMeans,
+                                           SpectralClustering)
+    from dask_ml_tpu_torch.decomposition import PCA
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+
+    Xb, _ = drawn("blobs", lambda: blobs_data(SEED))
+    Xk = kdd_data(SRV_FIT_N, KDD_D, SEED)
+    Xg = normal_f32((SRV_FIT_N, SRV_GLM_D), [SEED, 31])
+    beta = np.random.default_rng([SEED, 32]).standard_normal(
+        SRV_GLM_D).astype(np.float32)
+    u = np.random.default_rng([SEED, 33]).random(SRV_FIT_N,
+                                                 dtype=np.float32)
+    yg = (u < 1.0 / (1.0 + np.exp(-(Xg @ beta) / np.sqrt(SRV_GLM_D)))
+          ).astype(np.int64)
+    Xs, _ = nystrom_blobs(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 34)
+    # low rank plus noise, drawn on the card: 2e5 x 1,000
+    Xp = (torch.randn(SRV_PCA_N, 64, generator=g, device=dev)
+          @ torch.randn(64, SRV_PCA_D, generator=g, device=dev)
+          + 0.1 * torch.randn(SRV_PCA_N, SRV_PCA_D, generator=g,
+                              device=dev))
+    t0 = time.perf_counter()
+    models = {
+        "kmeans": KMeans(n_clusters=K, random_state=SEED).fit(Xb),
+        "sketched": KMeans(n_clusters=SRV_KDD_K, algorithm="sketched",
+                           random_state=SEED).fit(Xk),
+        "minibatch": MiniBatchKMeans(n_clusters=K,
+                                     random_state=SEED).fit(Xb),
+        "spectral": SpectralClustering(n_clusters=SPEC_K,
+                                       n_components=SPEC_L, gamma=None,
+                                       random_state=SEED).fit(Xs),
+        "logistic": LogisticRegression(solver="lbfgs", max_iter=20).fit(
+            Xg, yg),
+        "pca": PCA(n_components=SRV_PCA_K, random_state=SEED).fit(Xp),
+    }
+    torch.cuda.synchronize()
+    log(f"serving models fitted in {time.perf_counter() - t0:.2f} s")
+    pools = {"kmeans": Xb[:SRV_POOL], "minibatch": Xb[:SRV_POOL],
+             "sketched": Xk[:SRV_POOL],
+             "spectral": Xs[:SRV_POOL].cpu().numpy(),
+             "logistic": Xg[:SRV_POOL], "pca": Xp[:SRV_POOL].cpu().numpy()}
+    del Xk, Xg, Xs, Xp
+    return models, pools
+
+
+#: (model, method) pairs the traffic draws from
+SRV_PAIRS = (("kmeans", "predict"), ("sketched", "predict"),
+             ("minibatch", "predict"), ("spectral", "predict"),
+             ("logistic", "predict"), ("logistic", "predict_proba"),
+             ("pca", "transform"))
+SRV_K2 = ("kmeans", "sketched", "minibatch", "spectral")
+
+
+def served_against_direct(name, method, est, X, got, gemm):
+    """A served result against the direct call: bit for bit for the K2
+    families; for the GEMM runners, values within SRV_GEMM_RTOL of the
+    request's largest and labels where the margin exceeds it. Adds to
+    ``gemm`` the largest error and the rows whose bits differ."""
+    want = getattr(est, method)(X)
+    expect(got.dtype == want.dtype and got.shape == want.shape,
+           f"{name}.{method}: served {got.dtype}{got.shape}, direct "
+           f"{want.dtype}{want.shape}")
+    if name in SRV_K2:
+        expect(np.array_equal(got, want),
+               f"{name}.{method} n={len(X)}: served labels differ from "
+               f"direct")
+        return
+    key = f"{name}.{method}"
+    rec = gemm.setdefault(key, {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                                "rows_not_bitwise": 0, "rows": 0,
+                                "label_rows_in_margin": 0})
+    rec["rows"] += len(X)
+    if method == "predict":
+        proba = est.predict_proba(X)
+        margin = np.abs(proba - 0.5) if proba.ndim == 1 else -np.diff(
+            np.sort(proba, axis=1)[:, -2:], axis=1)[:, 0]
+        sure = margin > SRV_GEMM_RTOL
+        rec["label_rows_in_margin"] += int((~sure).sum())
+        rec["rows_not_bitwise"] += int((got != want).sum())
+        expect(np.array_equal(got[sure], want[sure]),
+               f"{key} n={len(X)}: labels differ outside the margin")
+        return
+    err = np.abs(got.astype(np.float64) - want)
+    rows_diff = (got != want).reshape(len(X), -1).any(axis=1)
+    rec["rows_not_bitwise"] += int(rows_diff.sum())
+    rec["max_abs_err"] = max(rec["max_abs_err"], float(err.max()))
+    scale = float(np.abs(want).max())
+    rec["max_rel_err"] = max(rec["max_rel_err"],
+                             float(err.max()) / max(scale, 1.0))
+    expect(float(err.max()) <= SRV_GEMM_RTOL * max(scale, 1.0),
+           f"{key} n={len(X)}: max abs err {float(err.max())} beyond "
+           f"{SRV_GEMM_RTOL} of {scale}")
+
+
+def check_served_batches(models, captured, errs):
+    """Every batch the K2 runners served during the identity phase,
+    against K2's plain version on the same padded batch: labels equal up
+    to near-ties, min values within close_values' tolerance; K2-x the
+    same on the sketched model's restricted rows. Returns the batches
+    checked and the near-ties seen."""
+    import torch
+
+    from dask_ml_tpu_torch.ops import fused_distance as fd
+
+    n_batches = ties = 0
+    for name, batches in captured.items():
+        est = models[name]
+        for Xs, out in batches:
+            got = torch.as_tensor(out, device=Xs.device)
+            if name == "sketched":
+                Wp, off, vals, _ = est._sketch_args(Xs.device)
+                Z = (Xs @ Wp - off[None, :]).contiguous()
+                zero = torch.zeros(Z.shape[0], device=Xs.device)
+                ka, kmn = fd.fused_argmin_min_sketched(Z, vals, x2=zero,
+                                                       kernel="cuda")
+                ra, rmn = fd.fused_argmin_min_sketched(Z, vals, x2=zero,
+                                                       kernel="torch")
+                X_, Y_, kname = Z, vals, "fused_argmin_min_sketched"
+            else:
+                if name == "spectral":
+                    X_ = est._extend_rows(Xs)
+                    C = est.assign_labels_.cluster_centers_
+                else:
+                    X_, C = Xs, est.cluster_centers_
+                Y_ = torch.as_tensor(C, dtype=torch.float32,
+                                     device=Xs.device)
+                ka, kmn = fd.fused_argmin_min(X_, Y_, kernel="cuda")
+                ra, rmn = fd.fused_argmin_min(X_, Y_, kernel="torch")
+                kname = "fused_argmin_min"
+            if name in ("kmeans", "minibatch"):
+                # the batch itself was K2's input: the same launch again
+                expect(torch.equal(got, ka.to(got.dtype)),
+                       f"{name}: a served batch is not K2's labels")
+            # the sketched and landmark runners compute K2's input with a
+            # GEMM first, recomputed here: held against plain up to ties
+            ties += near_tie_ok(X_, Y_, None, got.to(ra.dtype), ra)
+            near_tie_ok(X_, Y_, None, ka, ra)
+            e = close_values(kmn, rmn, X_, Y_, False,
+                             f"{name} served batch min value")
+            errs[kname] = max(errs.get(kname, 0.0), e)
+            n_batches += 1
+    return n_batches, ties
+
+
+def _trace(pools, n_requests, seed):
+    """The traffic: each request a (model, method) pair, a size from
+    SRV_SIZES, an offset into the model's pool, and a deadline on a
+    quarter of them, all drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_requests):
+        name, method = SRV_PAIRS[int(rng.integers(len(SRV_PAIRS)))]
+        n = int(SRV_SIZES[int(rng.integers(len(SRV_SIZES)))])
+        off = int(rng.integers(0, SRV_POOL - n + 1))
+        deadline = SRV_DEADLINE_S if rng.random() < 0.25 else None
+        out.append((name, method, pools[name][off:off + n], deadline))
+    return out
+
+
+def closed_loop(trace, clients, send):
+    """``clients`` threads, each sending its share of ``trace`` one
+    request at a time through ``send(request) -> result``; returns (wall
+    seconds, client latencies in seconds, results by trace index,
+    deadline sheds)."""
+    import threading
+
+    from dask_ml_tpu_torch.parallel.serving import DeadlineExceeded
+
+    results = [None] * len(trace)
+    lat = [0.0] * len(trace)
+    shed = [0]
+    errors = []
+    lock = threading.Lock()
+    barrier = threading.Barrier(clients + 1)
+
+    def client(c):
+        try:
+            barrier.wait(120)
+            for i in range(c, len(trace), clients):
+                t0 = time.perf_counter()
+                try:
+                    results[i] = send(trace[i])
+                except DeadlineExceeded:
+                    with lock:
+                        shed[0] += 1
+                lat[i] = time.perf_counter() - t0
+        except BaseException as e:  # noqa: BLE001 — surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    barrier.wait(120)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(600)
+        expect(not t.is_alive(), "a client thread did not finish")
+    wall = time.perf_counter() - t0
+    expect(not errors, f"client errors: {errors[:3]}")
+    return wall, lat, results, shed[0]
+
+
+def latency_summary(wall, lat, n):
+    q = np.percentile(np.asarray(lat) * 1e3, [50, 99])
+    return {"requests": n, "seconds": wall, "qps": n / wall,
+            "p50_ms": float(q[0]), "p99_ms": float(q[1])}
+
+
+def serving_sparse(dev, loop, est, errs):
+    """The sparse fallback: one request on a make_sparse_classification
+    container of the GLM's width through ParallelPostFit(serving=loop)
+    takes the direct path (K6), equal to the direct predict; K6 against
+    _spmv_ref on an integer copy of that container, bit for bit, and on
+    its float values within the rounding bound."""
+    import torch
+
+    from dask_ml_tpu_torch import wrappers
+    from dask_ml_tpu_torch.datasets import make_sparse_classification
+    from dask_ml_tpu_torch.ops import sparse as sps
+
+    Xh, _ = make_sparse_classification(
+        n_samples=SRV_SPARSE_N, n_features=SRV_GLM_D,
+        density=SRV_SPARSE_DENSITY, random_state=SEED)
+    ppf = wrappers.ParallelPostFit(est, serving=loop)
+    submitted = loop.n_submitted
+    labels, sec, launches = drive(lambda: ppf.predict(Xh))
+    expect_launches("serving-sparse", launches)
+    expect(loop.n_submitted == submitted,
+           "the sparse request reached the serving loop")
+    expect(np.array_equal(labels, est.predict(Xh)),
+           "ParallelPostFit(serving=).predict on sparse rows differs from "
+           "the direct predict")
+    vals = torch.as_tensor(np.asarray(Xh.values), device=dev)
+    cols = torch.as_tensor(np.asarray(Xh.cols), device=dev)
+    A = sps.SparseRows(torch.round(vals * 4.0), cols, Xh.d)
+    n, k = vals.shape
+    rng = np.random.default_rng([SEED, 35])
+    v = torch.as_tensor(rng.integers(-8, 8, Xh.d), dtype=torch.float32,
+                        device=dev)
+    r = torch.as_tensor(rng.integers(-8, 8, n), dtype=torch.float32,
+                        device=dev)
+    check_spmv_int("serving request", A, v, r,
+                   fitting_routes(k, Xh.d, False), [])
+    vf = torch.as_tensor(rng.standard_normal(Xh.d), dtype=torch.float32,
+                         device=dev)
+    out_k = sps._spmv_cuda(vals, cols, vf,
+                           cluster=sps.dvector_plan(n, k, Xh.d))
+    out_p = sps._spmv_ref(vals, cols, vf)
+    scale = sps._spmv_ref(vals.abs(), cols, vf.abs())
+    err = (out_k - out_p).abs()
+    expect(bool((err <= k * 2.0 ** -23 * scale).all()),
+           f"K6 at the serving request: max abs err {float(err.max())}")
+    errs["spmv"] = max(errs.get("spmv", 0.0), float(err.max()))
+    out = {"n": n, "k": k, "d": Xh.d, "seconds": sec}
+    path_line("serving-sparse", sec, None, launches, **out)
+    return launches, out
+
+
+def serving_kernel_rows(dev, models, pools, sparse_shape):
+    """K2, K2-x and K6 timed at the serving shapes (a full 2048-row batch
+    of the blobs, of the sketched model's restricted rows, and the sparse
+    request), beside their plain versions and bounds."""
+    import torch
+
+    from dask_ml_tpu_torch._kernels import build
+    from dask_ml_tpu_torch.ops import fused_distance as fd
+    from dask_ml_tpu_torch.ops import sparse as sps
+
+    fdl = build.load("fused_distance")
+    X = torch.as_tensor(pools["kmeans"][:SRV_MAX_ROWS], device=dev)
+    stream = build.stream_of(X)
+    n, d = X.shape
+    Y = torch.as_tensor(models["kmeans"].cluster_centers_, device=dev)
+    b, by = bound(4 * (n * d + K * d + 2 * n), 2 * n * K * d)
+    rows = [dict(name="fused_argmin_min",
+                 ms=cuda_ms(fused_call(fdl, stream, X, Y, 1)),
+                 plain_ms=cuda_ms(lambda: fd._argmin_min_ref(X, Y, None),
+                                  iters=10, warmup=2),
+                 bound_ms=b, bound_by=by, library_ms=None,
+                 shape={"n": n, "m": K, "d": d})]
+    sk = models["sketched"]
+    Xk = torch.as_tensor(pools["sketched"][:SRV_MAX_ROWS], device=dev)
+    Wp, off, vals, _ = sk._sketch_args(dev)
+    Z = (Xk @ Wp - off[None, :]).contiguous()
+    zero = torch.zeros(Z.shape[0], device=dev)
+    n, p = Z.shape
+    m = vals.shape[0]
+    b, by = bound(4 * (n * p + m * p + 3 * n), 2 * n * m * p)
+    rows.append(dict(
+        name="fused_argmin_min_sketched",
+        ms=cuda_ms(fused_call(fdl, stream, Z, vals, 1, x2=zero)),
+        plain_ms=cuda_ms(lambda: fd._argmin_min_sk_ref(Z, vals, zero, None),
+                         iters=10, warmup=2),
+        bound_ms=b, bound_by=by, library_ms=None,
+        shape={"n": n, "m": m, "d": p}))
+    A, v = sparse_shape
+    n, k = A.values.shape
+    plan = sps.dvector_plan(n, k, A.d)
+    b, by = bound(4 * (2 * n * k + n + A.d), 2 * n * k)
+    crow = torch.arange(0, n * k + 1, k, dtype=torch.int32, device=dev)
+    csr = torch.sparse_csr_tensor(crow, A.cols.view(-1), A.values.view(-1),
+                                  size=(n, A.d), check_invariants=False)
+    rows.append(dict(
+        name="spmv",
+        ms=cuda_ms(lambda: sps._spmv_cuda(A.values, A.cols, v,
+                                          cluster=plan)),
+        plain_ms=cuda_ms(lambda: sps._spmv_ref(A.values, A.cols, v),
+                         iters=10, warmup=2),
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_ms(lambda: torch.mv(csr, v), iters=10, warmup=2),
+        shape={"n": n, "k": k, "d": A.d}, cluster=plan))
+    return rows
+
+
+def serving_cells(dev, errs):
+    """The SERVING phase (step 17): the fitted models on one
+    ServingLoop(max_batch_rows=2048), warmed; then identity, steady
+    traffic, the fleet and the sparse fallback. Returns (launches by path,
+    summary, kernel rows at the serving shapes)."""
+    import torch
+
+    from dask_ml_tpu_torch import config_context
+    from dask_ml_tpu_torch.ops import sparse as sps
+    from dask_ml_tpu_torch.parallel import telemetry
+    from dask_ml_tpu_torch.parallel.faults import FaultInjector
+    from dask_ml_tpu_torch.parallel.fleet import ServingFleet
+    from dask_ml_tpu_torch.parallel.serving import ModelRegistry, ServingLoop
+    from dask_ml_tpu_torch.parallel.shapes import track_compiles
+
+    t_all = time.perf_counter()
+    models, pools = serving_models(dev)
+    reg = ModelRegistry()
+    for name, est in models.items():
+        reg.register(name, est)
+    summary = {"models": {n: type(e).__name__ for n, e in models.items()}}
+    launches = {}
+    telemetry.reset_telemetry()
+    with config_context(telemetry=True):
+        loop = ServingLoop(reg, max_batch_rows=SRV_MAX_ROWS).start()
+    try:
+        t0 = time.perf_counter()
+        summary["warmup"] = loop.warmup()
+        summary["warmup"]["seconds"] = time.perf_counter() - t0
+        log(f"serving warmup: {summary['warmup']}")
+        with track_compiles() as after_warmup:
+            # -- 1. identity ------------------------------------------------
+            captured = {name: [] for name in SRV_K2}
+            saved = {}
+            for name in SRV_K2:
+                runner = reg.get(name).runners["predict"]
+                saved[name] = runner.run
+
+                def run(Xs, _orig=runner.run, _name=name):
+                    out = _orig(Xs)
+                    captured[_name].append((Xs.clone(), out))
+                    return out
+
+                runner.run = run
+
+            def identity():
+                futs = []
+                for name, method in SRV_PAIRS:
+                    for n in SRV_IDENTITY:
+                        futs.append((name, method, n, loop.submit(
+                            name, pools[name][:n], method=method)))
+                return [(name, method, n, f.result(120))
+                        for name, method, n, f in futs]
+
+            served, sec, l_id = drive(identity)
+            for name in SRV_K2:
+                reg.get(name).runners["predict"].run = saved[name]
+            expect_launches("serving-identity", l_id)
+            launches["serving-identity"] = l_id
+            gemm = {}
+            for name, method, n, got in served:
+                served_against_direct(name, method, models[name],
+                                      pools[name][:n], got, gemm)
+            n_checked, ties = check_served_batches(models, captured, errs)
+            del captured
+            summary["identity"] = {"requests": len(served), "seconds": sec,
+                                   "k2_batches_checked": n_checked,
+                                   "near_ties": ties, "gemm": gemm}
+            path_line("serving-identity", sec, None, l_id,
+                      **summary["identity"])
+
+            # -- 2. steady traffic ------------------------------------------
+            trace = _trace(pools, SRV_CLIENTS * SRV_REQUESTS, SEED)
+            telemetry.reset_telemetry()
+            before = dict(loop.stats())
+
+            def send_loop(req):
+                name, method, X, deadline = req
+                return loop.submit(name, X, method=method,
+                                   deadline=deadline).result(120)
+
+            (wall, lat, results, shed), sec, l_st = drive(
+                lambda: closed_loop(trace, SRV_CLIENTS, send_loop))
+            expect_launches("serving-steady", l_st)
+            launches["serving-steady"] = l_st
+            for (name, method, X, _), got in zip(trace, results):
+                if got is not None:
+                    served_against_direct(name, method, models[name], X,
+                                          got, gemm)
+            after = loop.stats()
+            batches = after["batches"] - before["batches"]
+            rows = after["rows_served"] - before["rows_served"]
+            expect(after["errors"] == before["errors"],
+                   "steady traffic: a request failed")
+            hist = telemetry.metrics().snapshot()["histograms"]
+            req_hist = {k: {q: v[q] for q in ("count", "p50", "p99")}
+                        for k, v in hist.items()
+                        if k.startswith("serving.request_seconds")}
+            steady = latency_summary(wall, lat, len(trace))
+            steady.update(shed=shed, batches=batches,
+                          rows_per_batch=rows / max(batches, 1),
+                          k2_launches=l_st["fused_argmin_min"],
+                          k2x_launches=l_st["fused_argmin_min_sketched"],
+                          loop_request_seconds=req_hist,
+                          loop_batch_seconds={
+                              q: hist["serving.batch_seconds"][q]
+                              for q in ("count", "mean", "p50", "p99")})
+            # the device's share of a steady window: a quarter of the
+            # trace, profiled
+            steady["profile"] = device_profile(lambda: closed_loop(
+                trace[:len(trace) // 4], SRV_CLIENTS, send_loop))
+            log("PROFILE serving-steady " + json.dumps(steady["profile"]))
+
+            def send_direct(req):
+                name, method, X, _ = req
+                return getattr(models[name], method)(X)
+
+            (dwall, dlat, _, _), _, _ = drive(
+                lambda: closed_loop(trace, SRV_CLIENTS, send_direct))
+            steady["direct"] = latency_summary(dwall, dlat, len(trace))
+            steady["speedup_qps"] = steady["qps"] / steady["direct"]["qps"]
+            summary["steady"] = steady
+            log(f"serving steady: {steady['qps']:.1f} QPS, p50 "
+                f"{steady['p50_ms']:.2f} ms, p99 {steady['p99_ms']:.2f} ms, "
+                f"{steady['rows_per_batch']:.1f} rows/batch, {shed} shed; "
+                f"direct {steady['direct']['qps']:.1f} QPS (x"
+                f"{steady['speedup_qps']:.2f})")
+            path_line("serving-steady", sec, None, l_st, **steady)
+
+            # -- 3. the fleet ------------------------------------------------
+            fi = (FaultInjector()
+                  .kill_replica("fleet-r1", after_batches=SRV_KILL_AFTER)
+                  .straggle_replica("fleet-r0", SRV_STRAGGLE_S,
+                                    every=SRV_STRAGGLE_EVERY))
+            fleet = ServingFleet(reg, n_replicas=2,
+                                 max_batch_rows=SRV_MAX_ROWS,
+                                 fault_injector=fi,
+                                 heartbeat_timeout_s=5.0).start()
+            try:
+                expect([r.device for r in fleet._replicas]
+                       == [torch.device("cuda", 0)] * 2,
+                       "the fleet's replicas are not both on cuda:0")
+                fleet.warmup()
+                half = trace[:len(trace) // 2]
+                futs_seen = []
+
+                def send_fleet(req):
+                    name, method, X, deadline = req
+                    f = fleet.submit(name, X, method=method,
+                                     deadline=deadline)
+                    futs_seen.append(f)
+                    return f.result(120)
+
+                (fwall, flat, fres, fshed), sec, l_fl = drive(
+                    lambda: closed_loop(half, SRV_CLIENTS, send_fleet))
+            finally:
+                fleet.stop(drain=True)
+            expect_launches("serving-fleet", l_fl)
+            launches["serving-fleet"] = l_fl
+            fst = fleet.stats()
+            expect(fi.injected["replica_kill"] == 1,
+                   "the replica kill never fired")
+            expect(fst["reroutes"] >= 1, "the kill rerouted nothing")
+            expect(fst["inflight"] == 0 and all(f.done() for f in futs_seen),
+                   "a fleet future is left pending after the drain")
+            expect(sum(r is not None for r in fres) + fshed == len(half),
+                   "a fleet request resolved other than once")
+            for (name, method, X, _), got in zip(half, fres):
+                if got is not None:
+                    served_against_direct(name, method, models[name], X,
+                                          got, gemm)
+            summary["fleet"] = dict(
+                latency_summary(fwall, flat, len(half)), shed=fshed,
+                reroutes=fst["reroutes"], replica_deaths=fst[
+                    "replica_deaths"], straggles=fi.injected["straggle"],
+                replicas={k: {q: v[q] for q in ("batches", "rows_served",
+                                                 "errors")}
+                          for k, v in fst["replicas"].items()})
+            log(f"serving fleet: {summary['fleet']}")
+            path_line("serving-fleet", sec, None, l_fl, **summary["fleet"])
+        expect(after_warmup["n_compiles"] == 0
+               and after_warmup["n_loads"] == 0,
+               f"kernels built or loaded after the warmup: {after_warmup}")
+        summary["after_warmup"] = after_warmup
+
+        # -- 4. the sparse fallback (the direct path: K6) --------------------
+        l_sp, summary["sparse"] = serving_sparse(dev, loop,
+                                                 models["logistic"], errs)
+        launches["serving-sparse"] = l_sp
+    finally:
+        loop.stop()
+        telemetry.reset_telemetry()
+    from dask_ml_tpu_torch.datasets import make_sparse_classification
+
+    Xh, _ = make_sparse_classification(
+        n_samples=SRV_SPARSE_N, n_features=SRV_GLM_D,
+        density=SRV_SPARSE_DENSITY, random_state=SEED)
+    A = sps.SparseRows(torch.as_tensor(np.asarray(Xh.values), device=dev),
+                       torch.as_tensor(np.asarray(Xh.cols), device=dev),
+                       Xh.d)
+    v = torch.as_tensor(np.random.default_rng([SEED, 36]).standard_normal(
+        Xh.d), dtype=torch.float32, device=dev)
+    rows = serving_kernel_rows(dev, models, pools, (A, v))
+    summary["seconds"] = time.perf_counter() - t_all
+    log("SERVING " + json.dumps(summary))
+    return launches, summary, rows
+
+
 def main() -> int:
     import torch
 
@@ -6202,6 +6791,23 @@ def main() -> int:
         pre_errs = {}
         preprocess_cells(dev, pre_errs)
         log("PREPROCESS max_abs_err " + json.dumps(pre_errs))
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+        return 0
+
+    if "--serving-only" in sys.argv[1:]:
+        srv_errs = {}
+        srv_launches, _, srv_rows = serving_cells(dev, srv_errs)
+        total = {k: sum(l[k] for l in srv_launches.values())
+                 for k in srv_launches["serving-steady"]}
+        rows = kernel_rows(srv_rows, total, srv_errs)
+        for r in rows:
+            r["launches_serving"] = {
+                path: int(l[r["name"]]) for path, l in srv_launches.items()
+                if l.get(r["name"])}
+        log("SERVING max_abs_err " + json.dumps(srv_errs))
+        print(json.dumps({"kernels": rows}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": count}}), flush=True)
@@ -6420,6 +7026,23 @@ def main() -> int:
             if r["name"] in found:
                 r[key] = found[r["name"]]
                 r["max_abs_err"] = max(r["max_abs_err"], found[r["name"]])
+    torch.cuda.empty_cache()
+
+    srv_errs = {}
+    srv_launches, _, srv_rows = serving_cells(dev, srv_errs)
+    srv_by_name = {r["name"]: r for r in srv_rows}
+    for r in rows:
+        got = {path: int(l[r["name"]]) for path, l in srv_launches.items()
+               if l.get(r["name"])}
+        if got:
+            r["launches_serving"] = got
+        if r["name"] in srv_errs:
+            r["max_abs_err_serving"] = srv_errs[r["name"]]
+            r["max_abs_err"] = max(r["max_abs_err"], srv_errs[r["name"]])
+        timed = srv_by_name.pop(r["name"], None)
+        if timed is not None:
+            r["serving_shape"] = {k: v for k, v in timed.items()
+                                  if k != "name"}
     torch.cuda.empty_cache()
 
     bf16, _ = precision_cells(dev, f32_inertia=blobs_inertia)

@@ -69,9 +69,11 @@ SIGNATURES = {
 _libs: dict = {}
 _lock = threading.Lock()
 
-#: nvcc compilations this process started: a search reads it around each
-#: rung to show that no kernel is built after a bracket's first rung
-builds = {"nvcc": 0}
+#: nvcc compilations this process started (and their wall seconds), and
+#: the kernel libraries it loaded (and the seconds of each first load): a
+#: search reads them around each rung, the serving loop around its
+#: warmup, to show that no kernel is built or loaded once traffic runs
+builds = {"nvcc": 0, "nvcc_seconds": 0.0, "loads": 0, "load_seconds": 0.0}
 _builds_lock = threading.Lock()
 
 
@@ -126,6 +128,8 @@ def build_all(names=None, verbose: bool = False) -> float:
             if verbose and text.strip():
                 print(f"[nvcc {name}.cu]\n{text}", flush=True)
             os.replace(tmp, out)
+        with _builds_lock:
+            builds["nvcc_seconds"] += time.perf_counter() - t0
         if failures:
             raise RuntimeError("\n".join(failures))
     return time.perf_counter() - t0
@@ -166,8 +170,12 @@ def load(name: str) -> Library:
             path = _target(name)
             if not path.exists():
                 build_all([name])
+            t0 = time.perf_counter()
             lib = Library(name, ctypes.CDLL(str(path)))
             _libs[name] = lib
+            with _builds_lock:
+                builds["loads"] += 1
+                builds["load_seconds"] += time.perf_counter() - t0
     return lib
 
 

@@ -34,6 +34,17 @@ def _on(a, like):
                            device=like.device)
 
 
+def transform_program(Xs, mean, components, ev, *, whiten: bool):
+    """The transform of staged rows: ``(Xs − mean) @ componentsᵀ``, divided
+    by ``√ev`` when whitening. ``PCA.transform`` and the serving tier's
+    runner both call it, so a served batch computes what a direct call
+    does."""
+    out = (Xs - mean) @ components.T
+    if whiten:
+        out = out / torch.sqrt(ev)
+    return out
+
+
 def _fit_program(X, w, n, *, k, n_power_iter, randomized, generator,
                  sketch_dtype=None):
     """The device part of a fit: mean, centering and masking, the
@@ -188,9 +199,9 @@ class PCA(BaseEstimator, TransformerMixin):
 
     def transform(self, X):
         Xs = self._staged(X)
-        out = (Xs - _on(self.mean_, Xs)) @ _on(self.components_, Xs).T
-        if self.whiten:
-            out = out / torch.sqrt(_on(self.explained_variance_, Xs))
+        out = transform_program(
+            Xs, _on(self.mean_, Xs), _on(self.components_, Xs),
+            _on(self.explained_variance_, Xs), whiten=bool(self.whiten))
         return maybe_host(out, trusted=not self.whiten)
 
     def inverse_transform(self, X):

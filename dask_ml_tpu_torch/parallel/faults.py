@@ -13,7 +13,12 @@
   by a ``bind`` dict, so a snapshot of another problem is an error.
 - :class:`FaultInjector` — deterministic, planned faults for the streamed
   pipeline (fail a block's read or its copy, delay a read, preempt after a
-  block), which drive the same hooks as real failures.
+  block) and for the in-process serving tier (delay a dispatch, a
+  synthetic or a real straggler replica, kill a replica's dispatch
+  thread), which drive the same hooks as real failures. The process
+  fleet's plans (``kill_process``, ``kill_machine``, ``slow_link``) belong
+  to the wire and process tier, which the port does not have yet; they
+  raise.
 
 What may be retried on the card: ``torch.cuda.OutOfMemoryError`` only. A
 ``RuntimeError`` that reports a CUDA error (an illegal address, a failed
@@ -40,7 +45,8 @@ logger = logging.getLogger(__name__)
 __all__ = [
     "RetryPolicy", "FaultInjector", "GracefulDrain", "ScanCheckpoint",
     "Preempted", "BlockFetchError", "InjectedFault", "InjectedLoaderError",
-    "InjectedTransferError", "scan_checkpoint_scope",
+    "InjectedTransferError", "SimulatedReplicaDeath",
+    "scan_checkpoint_scope",
 ]
 
 
@@ -75,6 +81,19 @@ class InjectedLoaderError(InjectedFault, OSError):
 
 class InjectedTransferError(InjectedFault, RuntimeError):
     """Simulated failure of a block's host→device copy."""
+
+
+class SimulatedReplicaDeath(RuntimeError):
+    """A :meth:`FaultInjector.kill_replica` plan fired: the serving
+    replica's dispatch thread dies at once, with no drain and no flush —
+    the in-process stand-in for killing a replica. Not an
+    :class:`InjectedFault`: a dead replica is terminal for that replica,
+    never something its own retry policy should hide; the fleet survives
+    it by re-routing and replaying (``parallel/fleet.py``)."""
+
+
+_WIRE_TIER = ("{} belongs to the wire and process fleet, ROADMAP Queue A "
+              "item 11b, which the port does not have yet")
 
 
 # ---------------------------------------------------------------------------
@@ -392,8 +411,19 @@ class FaultInjector:
     ``prefetched_scan`` calls :meth:`should_preempt` after each completed
     block. Plans are exact (fail block 3's read twice, preempt after block
     1 of epoch 2); :meth:`random_load_failures` adds seeded random
-    failures, reproducible for a fixed seed and call order. ``injected``
-    counts the delivered faults by kind."""
+    failures, reproducible for a fixed seed and call order.
+
+    A :class:`~dask_ml_tpu_torch.parallel.serving.ServingLoop` (or every
+    replica of a :class:`~dask_ml_tpu_torch.parallel.fleet.ServingFleet`)
+    calls :meth:`on_transfer` in each batch's copy to the card,
+    :meth:`should_kill_replica`, :meth:`on_dispatch` and
+    :meth:`dispatch_sleep` before each dispatch and
+    :meth:`dispatch_penalty` after it; plans name replicas as the fleet
+    does (``"{fleet}-r{i}"``).
+
+    ``injected`` counts the delivered faults by kind; with the
+    ``telemetry`` knob on, each serving fault also adds to the
+    ``faults.injected{kind=...}`` counter."""
 
     def __init__(self, seed: int = 0):
         self._rng = random.Random(seed)
@@ -402,9 +432,15 @@ class FaultInjector:
         self._transfer_fail: dict = {}   # block -> times_left
         self._load_delay: dict = {}      # block -> [times_left, seconds]
         self._preempt: set = set()       # {(epoch, block)}
+        self._dispatch_delay: dict = {}  # batch -> [times_left, seconds]
+        self._slow_replica: dict = {}    # replica -> [batches_left, seconds]
+        self._kill_replica: dict = {}    # replica -> after_batches
+        self._straggle: dict = {}        # replica -> [count, every, s, left]
         self._p_load = 0.0
         self._p_exc = InjectedLoaderError
-        self.injected = {"load": 0, "transfer": 0, "delay": 0, "preempt": 0}
+        self.injected = {"load": 0, "transfer": 0, "delay": 0, "preempt": 0,
+                         "dispatch_delay": 0, "slow_replica": 0,
+                         "replica_kill": 0, "straggle": 0}
 
     # -- planning ----------------------------------------------------------
 
@@ -432,6 +468,58 @@ class FaultInjector:
         completes: a SIGTERM landing there, without the race."""
         self._preempt.add((int(epoch), int(block)))
         return self
+
+    def delay_dispatch(self, batch: int, seconds: float, *,
+                       times: int = 1) -> "FaultInjector":
+        """Sleep ``seconds`` before the serving loop dispatches batch
+        number ``batch`` (its sequence number on that loop): a real
+        wall-clock straggler. For router tests prefer
+        :meth:`slow_replica`, which sleeps nowhere."""
+        self._dispatch_delay[int(batch)] = [int(times), float(seconds)]
+        return self
+
+    def slow_replica(self, replica: str, seconds: float, *,
+                     batches: Optional[int] = None) -> "FaultInjector":
+        """Mark serving replica ``replica`` a straggler: every batch it
+        dispatches reports ``seconds`` of synthetic extra latency (the
+        latency its router reads) without sleeping, so failover is
+        deterministic. ``batches`` bounds how many dispatches are
+        penalized (default: all)."""
+        self._slow_replica[str(replica)] = [
+            -1 if batches is None else int(batches), float(seconds)]
+        return self
+
+    def kill_replica(self, replica: str, *,
+                     after_batches: int = 0) -> "FaultInjector":
+        """Kill serving replica ``replica`` once it has dispatched
+        ``after_batches`` batches: its next dispatch raises
+        :class:`SimulatedReplicaDeath`, the loop dies, its queued and
+        collected requests fail with that error, and the fleet re-routes
+        and replays them. One-shot per replica."""
+        self._kill_replica[str(replica)] = int(after_batches)
+        return self
+
+    def straggle_replica(self, replica: str, seconds: float, *,
+                         every: int = 1,
+                         batches: Optional[int] = None) -> "FaultInjector":
+        """Make replica ``replica`` a real straggler: every ``every``-th
+        dispatched batch sleeps ``seconds`` before it runs (``batches``
+        bounds the penalized dispatches; default: all). Unlike
+        :meth:`slow_replica` it stalls the dispatch thread, which is what
+        a hedging drill needs."""
+        self._straggle[str(replica)] = [
+            0, max(int(every), 1), float(seconds),
+            -1 if batches is None else int(batches)]
+        return self
+
+    def kill_process(self, name: str, *, after_requests: int = 0):
+        raise NotImplementedError(_WIRE_TIER.format("kill_process"))
+
+    def kill_machine(self, machine: str, *, after_results: int = 0):
+        raise NotImplementedError(_WIRE_TIER.format("kill_machine"))
+
+    def slow_link(self, machine: str, seconds: float, *, chunks=None):
+        raise NotImplementedError(_WIRE_TIER.format("slow_link"))
 
     def random_load_failures(self, p: float,
                              exc_type=InjectedLoaderError) -> "FaultInjector":
@@ -483,3 +571,70 @@ class FaultInjector:
                 self.injected["preempt"] += 1
                 return True
         return False
+
+    # -- serving-loop hooks (called by ServingLoop / ServingFleet) ---------
+
+    def _mirror(self, kind: str) -> None:
+        """The registry mirror of ``injected[kind]``, at the same site."""
+        from dask_ml_tpu_torch.parallel import telemetry
+
+        if telemetry.enabled():
+            telemetry.metrics().counter("faults.injected", kind=kind).inc()
+
+    def on_dispatch(self, batch: int) -> None:
+        """Sleep per a :meth:`delay_dispatch` plan before the loop
+        dispatches batch ``batch``."""
+        with self._lock:
+            plan = self._dispatch_delay.get(int(batch))
+            delay = None
+            if plan and plan[0] > 0:
+                plan[0] -= 1
+                delay = plan[1]
+                self.injected["dispatch_delay"] += 1
+        if delay:
+            self._mirror("dispatch_delay")
+            time.sleep(delay)
+
+    def dispatch_sleep(self, replica: str) -> float:
+        """Sleep per the :meth:`straggle_replica` plan before replica
+        ``replica`` dispatches a batch; returns the seconds slept."""
+        with self._lock:
+            plan = self._straggle.get(str(replica))
+            if not plan or plan[3] == 0:
+                return 0.0
+            plan[0] += 1
+            if plan[0] % plan[1] != 0:
+                return 0.0
+            if plan[3] > 0:
+                plan[3] -= 1
+            self.injected["straggle"] += 1
+            seconds = plan[2]
+        self._mirror("straggle")
+        time.sleep(seconds)
+        return seconds
+
+    def dispatch_penalty(self, replica: str) -> float:
+        """Synthetic straggler: the extra seconds replica ``replica``
+        reports for this dispatch (nothing sleeps)."""
+        with self._lock:
+            plan = self._slow_replica.get(str(replica))
+            if not plan or plan[0] == 0:
+                return 0.0
+            if plan[0] > 0:
+                plan[0] -= 1
+            self.injected["slow_replica"] += 1
+            seconds = plan[1]
+        self._mirror("slow_replica")
+        return seconds
+
+    def should_kill_replica(self, replica: str, n_batches: int) -> bool:
+        """True once, when ``replica`` has dispatched ``after_batches``
+        batches (see :meth:`kill_replica`)."""
+        with self._lock:
+            after = self._kill_replica.get(str(replica))
+            if after is None or int(n_batches) < after:
+                return False
+            del self._kill_replica[str(replica)]
+            self.injected["replica_kill"] += 1
+        self._mirror("replica_kill")
+        return True

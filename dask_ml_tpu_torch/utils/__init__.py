@@ -1,6 +1,11 @@
 """Validation, random-number and small helpers of the PyTorch port
 (counterpart of ``dask_ml_tpu/utils``)."""
 
+from dask_ml_tpu_torch.utils._log import (  # noqa: F401
+    format_bytes,
+    log_array,
+    profile_phase,
+)
 from dask_ml_tpu_torch.utils._utils import (  # noqa: F401
     check_chunks,
     copy_learned_attributes,

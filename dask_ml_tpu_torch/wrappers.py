@@ -16,7 +16,11 @@ Two paths, as in the JAX package:
   after the other.
 
 Both copy the learned ``*_`` attributes onto themselves and take nested
-``estimator__<param>`` names. Nothing here imports scikit-learn.
+``estimator__<param>`` names. ``ParallelPostFit(serving=loop)`` makes
+the wrapper a client of a
+:class:`~dask_ml_tpu_torch.parallel.serving.ServingLoop` (or a
+:class:`~dask_ml_tpu_torch.parallel.fleet.ServingFleet`). Nothing here
+imports scikit-learn.
 """
 
 from __future__ import annotations
@@ -41,10 +45,6 @@ logger = logging.getLogger(__name__)
 #: rows per block of the host-side loops over foreign estimators and of
 #: the incremental chain
 DEFAULT_BLOCK_SIZE = 100_000
-
-_SERVING = ("serving= belongs to the serving tier, ROADMAP Queue A item 11, "
-            "which the port does not have yet")
-
 
 def _is_native(estimator) -> bool:
     """Whether the estimator is this package's (it stages its own input);
@@ -104,8 +104,19 @@ class ParallelPostFit(BaseEstimator):
 
     ``scoring`` (a name or a scorer) replaces the estimator's ``score``;
     ``block_size`` is the rows of a host block for a foreign estimator (a
-    native one gets the whole array). ``serving=`` is not ported and
-    raises."""
+    native one gets the whole array).
+
+    ``serving`` takes a started
+    :class:`~dask_ml_tpu_torch.parallel.serving.ServingLoop` or
+    :class:`~dask_ml_tpu_torch.parallel.fleet.ServingFleet`: ``predict`` /
+    ``predict_proba`` / ``transform`` then go through it. The estimator is
+    registered in its registry on first use (once, by identity; under
+    ``serving_model`` when given), a request above the loop's
+    per-request cap (or ``block_size``) is sent in chunks whose results
+    are gathered in order, and each logical request is one
+    ``serving.request`` span. Sparse input and methods the loop does not
+    serve take the direct path. :meth:`fit` drops the registration, so a
+    refitted model's old state is never served."""
 
     def __init__(self, estimator=None, scoring=None,
                  block_size: int = DEFAULT_BLOCK_SIZE,
@@ -120,14 +131,21 @@ class ParallelPostFit(BaseEstimator):
     def _postfit_estimator(self):
         return self.estimator
 
-    def _no_serving(self):
-        if self.serving is not None:
-            raise NotImplementedError(_SERVING)
-
     def fit(self, X, y=None, **kwargs):
-        self._no_serving()
         start = tic()
-        result = self.estimator.fit(X, y, **kwargs)
+        if self.serving is not None:
+            # the runners staged the previous fitted state: drop them
+            # before it changes, so a racing request never serves a
+            # half-updated model
+            self.serving.registry.invalidate(self.estimator)
+        try:
+            result = self.estimator.fit(X, y, **kwargs)
+        finally:
+            if self.serving is not None:
+                # a predict racing this fit may have registered the
+                # estimator again mid-fit; drop that too, so the next
+                # request stages the final state
+                self.serving.registry.invalidate(self.estimator)
         logger.info("Finished fit, %0.2f", tic() - start)
         copy_learned_attributes(result, self)
         return self
@@ -140,11 +158,56 @@ class ParallelPostFit(BaseEstimator):
                 f"'{method}' method.")
         return getattr(estimator, method)
 
+    def _serving_name(self):
+        est = self._postfit_estimator
+        return self.serving.registry.ensure(est, name=self.serving_model)
+
+    def _serving_call(self, method, X):
+        """One logical request through the serving loop: chunks of at most
+        the loop's per-request cap, all submitted (they coalesce with
+        concurrent traffic), gathered in order, inside one
+        ``serving.request`` span."""
+        from dask_ml_tpu_torch.parallel import telemetry
+
+        loop = self.serving
+        name = self._serving_name()
+        X = np.asarray(X)
+        n = X.shape[0]
+        with telemetry.span("serving.request", model=name, method=method,
+                            rows=n):
+            cap = min(int(self.block_size), loop.max_request_rows)
+            if n <= cap:
+                return loop.submit(name, X, method=method).result()
+            futs = [loop.submit(name, X[s], method=method)
+                    for s in _block_slices(n, cap)]
+            return np.concatenate([f.result() for f in futs], axis=0)
+
+    def _dispatch(self, method, X):
+        if self.serving is not None and not is_sparse_input(X):
+            self._check_method(method)  # the AttributeError contract first
+            entry = None
+            if not getattr(self, "_serving_unsupported", False):
+                try:
+                    name = self._serving_name()
+                    entry = self.serving.registry.get(name)
+                except ValueError as e:
+                    if self.serving_model is not None:
+                        # the user named this registration: a collision or
+                        # an unservable family is a configuration error
+                        raise
+                    self._serving_unsupported = True
+                    logger.warning(
+                        "serving registration failed for %s; falling back "
+                        "to the direct path: %s",
+                        type(self._postfit_estimator).__name__, e)
+            if entry is not None and method in entry.runners:
+                return self._serving_call(method, X)
+        return self._blockwise(self._check_method(method), X)
+
     def _blockwise(self, fn, X):
         """``fn`` over row blocks of ``X``: the whole array for a native
         estimator, else one block per host thread under the caller's
         configuration, concatenated."""
-        self._no_serving()
         if _is_native(self._postfit_estimator):
             return fn(X)
         X = _as_rowsliceable(X)
@@ -163,16 +226,16 @@ class ParallelPostFit(BaseEstimator):
         return _concat_rows(parts)
 
     def predict(self, X):
-        return self._blockwise(self._check_method("predict"), X)
+        return self._dispatch("predict", X)
 
     def predict_proba(self, X):
-        return self._blockwise(self._check_method("predict_proba"), X)
+        return self._dispatch("predict_proba", X)
 
     def predict_log_proba(self, X):
         return self._blockwise(self._check_method("predict_log_proba"), X)
 
     def transform(self, X):
-        return self._blockwise(self._check_method("transform"), X)
+        return self._dispatch("transform", X)
 
     def score(self, X, y):
         """The configured scorer, else the estimator's own ``score``."""
@@ -202,7 +265,6 @@ class Incremental(ParallelPostFit):
         return self.estimator_
 
     def _fit_for_estimator(self, estimator, X, y, **fit_kwargs):
-        self._no_serving()
         check_scoring(estimator, self.scoring)
         start = tic()
         if _is_native(estimator) and hasattr(estimator,

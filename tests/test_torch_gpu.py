@@ -1732,3 +1732,77 @@ def test_nystrom_estimators_on_card(cuda):
     agree = (kk.labels_ == yx).mean()
     assert max(agree, 1 - agree) > 0.97
     np.testing.assert_array_equal(kk.predict(Xx), kk.labels_)
+
+
+# ---------------------------------------------------------------------------
+# the serving tier on the card
+# ---------------------------------------------------------------------------
+
+
+def _served_k2_models(rng):
+    from dask_ml_tpu_torch.cluster import KernelKMeans, MiniBatchKMeans
+
+    X, _ = _blobs(20_000, 12, 8, 5)
+    return X, {
+        "kmeans": KMeans(n_clusters=8, random_state=0).fit(X),
+        "minibatch": MiniBatchKMeans(n_clusters=8, random_state=0).fit(X),
+        "sketched": KMeans(n_clusters=8, algorithm="sketched",
+                           random_state=0).fit(X),
+        "kernel_kmeans": KernelKMeans(n_clusters=4, n_components=64,
+                                      random_state=0).fit(X[:5000]),
+    }
+
+
+def test_served_equals_direct_on_card_for_k2_families(cuda):
+    """The K2 families served on the card equal their direct predict bit
+    for bit at ragged sizes; warmup loads every library the runners
+    launch, after which traffic builds and loads nothing and still
+    launches K2."""
+    from dask_ml_tpu_torch.parallel.serving import ModelRegistry, ServingLoop
+    from dask_ml_tpu_torch.parallel.shapes import track_compiles
+
+    rng = np.random.default_rng(7)
+    X, models = _served_k2_models(rng)
+    reg = ModelRegistry()
+    for name, est in models.items():
+        reg.register(name, est)
+    with ServingLoop(reg, max_batch_rows=2048) as loop:
+        assert loop.device.type == "cuda" and loop._stream is not None
+        loop.warmup()
+        _kernels.reset_launches()
+        with track_compiles() as t:
+            for name, est in models.items():
+                futs = [(n, loop.submit(name, X[:n]))
+                        for n in (1, 31, 32, 33, 1000, 2047, 2048)]
+                for n, f in futs:
+                    np.testing.assert_array_equal(f.result(60),
+                                                  est.predict(X[:n]))
+        assert t["n_compiles"] == 0 and t["n_loads"] == 0, t
+        assert _kernels.launches["fused_argmin_min"] > 0
+        assert _kernels.launches["fused_argmin_min_sketched"] > 0
+
+
+def test_two_replica_fleet_on_one_card_matches_one_loop(cuda):
+    """Two replicas on cuda:0, each on its own stream, give the labels
+    one loop gives."""
+    from dask_ml_tpu_torch.parallel.fleet import ServingFleet
+    from dask_ml_tpu_torch.parallel.serving import ModelRegistry, ServingLoop
+
+    X, _ = _blobs(20_000, 12, 8, 6)
+    km = KMeans(n_clusters=8, random_state=0).fit(X)
+    reg = ModelRegistry()
+    reg.register("km", km)
+    sizes = [int(s) for s in np.random.default_rng(8).integers(1, 2049, 60)]
+    with ServingLoop(reg) as loop:
+        one = [f.result(60) for f in
+               [loop.submit("km", X[:n]) for n in sizes]]
+    with ServingFleet(reg, n_replicas=2) as fleet:
+        reps = fleet._replicas
+        assert [r.device for r in reps] == [torch.device("cuda", 0)] * 2
+        assert reps[0].loop._stream != reps[1].loop._stream
+        futs = [fleet.submit("km", X[:n]) for n in sizes]
+        two = [f.result(60) for f in futs]
+        assert all(r["batches"] > 0
+                   for r in fleet.stats()["replicas"].values())
+    for a, b in zip(one, two):
+        np.testing.assert_array_equal(a, b)

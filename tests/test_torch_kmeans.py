@@ -525,7 +525,9 @@ def test_port_never_imports_jax():
     pulling in jax, any module of the JAX package, scikit-learn or pandas;
     and again with scikit-learn and pandas made unimportable
     (``sys.modules[name] = None``), as on the card's machine, which has
-    neither: ``model_selection`` and ``pipeline`` included, no module needs
+    neither: ``model_selection``, ``pipeline`` and the serving tier
+    (``parallel.serving``, ``.fleet``, ``.telemetry``, ``utils._log``)
+    included, no module needs
     them at import time but the scikit-learn subclasses (the ``Partial*``
     estimators), which are loaded only on access and must fail there with
     an ImportError: ``naive_bayes`` (``GaussianNB``) and
@@ -586,6 +588,10 @@ def _import_walk(block_sklearn: bool):
         "for name in deferred:\n"
         "    importlib.import_module(name)\n"
         "import dask_ml_tpu_torch.model_selection, dask_ml_tpu_torch.pipeline\n"
+        "import dask_ml_tpu_torch.parallel.serving\n"
+        "import dask_ml_tpu_torch.parallel.fleet\n"
+        "import dask_ml_tpu_torch.parallel.telemetry\n"
+        "import dask_ml_tpu_torch.utils._log\n"
         "from dask_ml_tpu_torch import naive_bayes, cluster\n"
         "from dask_ml_tpu_torch.cluster import minibatch\n"
         "for mod, name in ((minibatch, 'PartialMiniBatchKMeans'),\n"
