@@ -251,6 +251,34 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    timed at the serving shapes (``serving_shape`` on their rows); the
    ``kernels`` line gains ``launches_serving``.
 
+18. drives the wire and the process fleet (``WIRE``) on step 17's fitted
+   models: ``wire-crc`` (the CRC-32C engine is the port's C library, equal
+   to the plain table on 1 MiB of seeded bytes and on ragged tails of
+   0-17 bytes; GB/s of it, of the table and of sha256), ``wire-identity``
+   (a ``FleetServer`` in front of a ``ServingLoop(max_batch_rows=2048)``,
+   one client over the shared-memory ring and one over TCP, requests on
+   each side of every bucket boundary: the K2 families equal their direct
+   predict bit for bit over both, the GEMM runners within 1e-5; the served
+   K2 batches held against the plain version), ``wire-steady`` (step 17's
+   trace in process, over the ring, over TCP and over a ring four times
+   as large: QPS, p50/p99, ``wire.bytes{transport=}``,
+   ``wire.hash_seconds{algo=}``; no build and no library load after the
+   warmup), ``wire-links`` (the process fleet's drill traffic over the
+   ring as the router links a replica, and over TCP, in turns) and
+   ``proc-fleet``
+   (``ProcessFleet(n_replicas=2, device="cuda")``: each child's pid,
+   ``cuda:0`` on the card's name, no build, its start phases; a closed
+   loop of the K2 families with replica p1 SIGKILLed by its plan: nothing
+   dropped or resolved twice, every answer bit for bit, the respawn loads
+   nothing after its warmup; a hedging A/B on one seeded trace with p0 a
+   straggler: hedged p99 below unhedged; each child counts its launches
+   from the end of its warmup, none before the drill, K2 in p0's drill and
+   in every child's share of the A/B, the respawned p1's included;
+   SIGTERM exits 0; no segment left). The ``kernels`` line gains
+   ``launches_wire`` and ``launches_proc`` (the live children's launches
+   after their warmups, through the drill and the A/B; the killed
+   incarnation's die with it).
+
 ``python3 chip_smoke.py --spmv-only`` runs steps 1, 2, 6 and 8 alone, on a
 container of the sparse cell's shape drawn on the card;
 ``--glm-pca-only`` runs steps 1, 2 and 9 alone; ``--stream-only`` steps 1,
@@ -259,7 +287,8 @@ and 11; ``--search-only`` steps 1, 2 and 12; ``--asha-only`` steps 1, 2
 and 13; ``--precision-only`` steps 1, 2 and 14; ``--nystrom-only``
 steps 1, 2 and 15; ``--preprocess-only`` steps 1, 2 and 16;
 ``--serving-only`` steps 1, 2 and 17, with a ``kernels`` line of K2, K2-x
-and K6 at the serving shapes.
+and K6 at the serving shapes; ``--wire-only`` steps 1, 2 and 18, with a
+``kernels`` line of K2 and K2-x.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
@@ -505,6 +534,9 @@ PATH_KERNELS = {
     "serving-steady": ("fused_argmin_min", "fused_argmin_min_sketched"),
     "serving-fleet": ("fused_argmin_min", "fused_argmin_min_sketched"),
     "serving-sparse": ("spmv",),
+    "wire-identity": ("fused_argmin_min", "fused_argmin_min_sketched"),
+    "wire-steady": ("fused_argmin_min", "fused_argmin_min_sketched"),
+    "wire-links": ("fused_argmin_min", "fused_argmin_min_sketched"),
 }
 SOURCES = {
     "lloyd_iter": "dask_ml_tpu_torch/_kernels/csrc/lloyd.cu",
@@ -6175,6 +6207,13 @@ SRV_SPARSE_N, SRV_SPARSE_DENSITY = 2048, 0.1
 
 
 def serving_models(dev):
+    """The fitted models of the serving step and their request pools,
+    fitted once a run: the wire step (18) serves the models step 17
+    fitted."""
+    return drawn("serving models", lambda: fit_serving_models(dev))
+
+
+def fit_serving_models(dev):
     """The fitted models of the serving step, each at full model width,
     and the host rows its requests are cut from. Returns ({name: est},
     {name: host rows})."""
@@ -6218,10 +6257,12 @@ def serving_models(dev):
     }
     torch.cuda.synchronize()
     log(f"serving models fitted in {time.perf_counter() - t0:.2f} s")
-    pools = {"kmeans": Xb[:SRV_POOL], "minibatch": Xb[:SRV_POOL],
-             "sketched": Xk[:SRV_POOL],
+    # copies, so the pools keep none of the large arrays alive
+    pools = {"kmeans": Xb[:SRV_POOL].copy(), "sketched": Xk[:SRV_POOL].copy(),
              "spectral": Xs[:SRV_POOL].cpu().numpy(),
-             "logistic": Xg[:SRV_POOL], "pca": Xp[:SRV_POOL].cpu().numpy()}
+             "logistic": Xg[:SRV_POOL].copy(),
+             "pca": Xp[:SRV_POOL].cpu().numpy()}
+    pools["minibatch"] = pools["kmeans"]
     del Xk, Xg, Xs, Xp
     return models, pools
 
@@ -6477,6 +6518,8 @@ def serving_kernel_rows(dev, models, pools, sparse_shape):
                          iters=10, warmup=2),
         bound_ms=b, bound_by=by, library_ms=None,
         shape={"n": n, "m": m, "d": p}))
+    if sparse_shape is None:
+        return rows
     A, v = sparse_shape
     n, k = A.values.shape
     plan = sps.dvector_plan(n, k, A.d)
@@ -6704,6 +6747,478 @@ def serving_cells(dev, errs):
     return launches, summary, rows
 
 
+# ---------------------------------------------------------------------------
+# the wire and the process fleet (WIRE)
+# ---------------------------------------------------------------------------
+
+# the CRC-32C check: 1 MiB of seeded bytes and ragged tails against the
+# plain table; rates on WIRE_RATE_BYTES (the plain table on 64 KiB)
+WIRE_CRC_BYTES, WIRE_RATE_BYTES, WIRE_PURE_BYTES = 1 << 20, 256 << 20, 64 << 10
+# the wire clients' ring: a 2048 x 1000 f32 PCA request (8.2 MB) must fit
+# a record, which holds half a ring
+WIRE_RING_BYTES = 16 << 20
+# the ring-capacity arm of wire-steady: the same trace through a ring four
+# times as large (the 8.2 MB PCA records no longer fill it two at a time)
+WIRE_WIDE_RING_BYTES = 64 << 20
+# the process fleet: the kill plan's request count on replica p1, the
+# straggler on p0 (seconds, every n-th batch), the drill's closed loop
+# (K2 families only: they hold bit for bit) and the hedging A/B's
+# sequential requests on one seeded trace
+PROC_KILL_AFTER = 40
+PROC_STRAGGLE_S, PROC_STRAGGLE_EVERY = 0.2, 4
+PROC_CLIENTS, PROC_REQUESTS = 16, 32
+PROC_AB_REQUESTS = 80
+PROC_WAIT = 180.0
+
+
+def k2_trace(pools, n_requests, seed):
+    """The process fleet's traffic: the K2 families only (they hold bit
+    for bit), a size from SRV_SIZES and an offset into the model's pool,
+    drawn from ``seed``; no deadlines."""
+    k2 = [p for p in SRV_PAIRS if p[0] in SRV_K2]
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_requests):
+        name, method = k2[int(rng.integers(len(k2)))]
+        n = int(SRV_SIZES[int(rng.integers(len(SRV_SIZES)))])
+        off = int(rng.integers(0, SRV_POOL - n + 1))
+        out.append((name, method, pools[name][off:off + n], None))
+    return out
+
+
+def gbps(fn, nbytes: int, reps: int = 3) -> float:
+    """GB/s of ``fn()`` over ``nbytes``, best of ``reps``."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return nbytes / best / 1e9
+
+
+def wire_crc() -> dict:
+    """``wire-crc``: the engine is the port's C library; its digest equals
+    the plain table's on 1 MiB of seeded bytes and on ragged, unaligned
+    tails of 0-17 bytes; GB/s of the C engine, the plain table (64 KiB)
+    and hashlib.sha256."""
+    import hashlib
+
+    from dask_ml_tpu_torch.parallel import framing
+
+    engine = framing.crc32c_engine()
+    expect(engine == "port-c", f"crc32c engine is {engine!r}")
+    data = np.random.default_rng([SEED, 40]).integers(
+        0, 256, WIRE_RATE_BYTES, dtype=np.uint8)
+    mib = data[:WIRE_CRC_BYTES]
+    expect(framing.crc32c(mib) == framing.crc32c(mib, engine="pure-python"),
+           "crc32c: the C engine and the table differ on 1 MiB")
+    expect(framing.crc32c(b"123456789") == 0xE3069283,
+           "crc32c: wrong known answer")
+    for n in range(18):
+        for off in range(8):
+            tail = mib[off:off + n]
+            expect(framing.crc32c(tail)
+                   == framing.crc32c(tail, engine="pure-python"),
+                   f"crc32c: tail of {n} bytes at offset {off} differs")
+    buf = data.tobytes()
+    out = {"engine": engine,
+           "c_gbps": gbps(lambda: framing.crc32c(buf), len(buf)),
+           "pure_gbps": gbps(lambda: framing.crc32c(
+               buf[:WIRE_PURE_BYTES], engine="pure-python"),
+               WIRE_PURE_BYTES, reps=1),
+           "sha256_gbps": gbps(lambda: hashlib.sha256(buf).digest(),
+                               len(buf))}
+    log(f"wire-crc: {out}")
+    return out
+
+
+def wire_counters() -> dict:
+    """The wire's telemetry: ``wire.bytes{transport=}`` and
+    ``wire.hash_seconds{algo=}`` (count, sum, p50, p99)."""
+    from dask_ml_tpu_torch.parallel import telemetry
+
+    snap = telemetry.metrics().snapshot()
+    out = {k: v for k, v in snap["counters"].items()
+           if k.startswith("wire.bytes")}
+    for k, v in snap["histograms"].items():
+        if k.startswith("wire.hash_seconds"):
+            out[k] = {q: v[q] for q in ("count", "sum", "p50", "p99")
+                      if q in v}
+    return out
+
+
+def wire_serving(dev, models, pools, errs):
+    """``wire-identity`` and ``wire-steady``: a FleetServer in front of a
+    ServingLoop(max_batch_rows=2048) on ``dev``, one client over the shm
+    ring and one over TCP. Returns (launches by path, summary)."""
+    from dask_ml_tpu_torch import config as config_lib
+    from dask_ml_tpu_torch.parallel import telemetry
+    from dask_ml_tpu_torch.parallel.fleet import FleetClient, FleetServer
+    from dask_ml_tpu_torch.parallel.serving import ModelRegistry, ServingLoop
+    from dask_ml_tpu_torch.parallel.shapes import track_compiles
+
+    reg = ModelRegistry()
+    for name, est in models.items():
+        reg.register(name, est)
+    launches, summary = {}, {}
+    # process-wide, so the server's connection threads mirror too
+    config_lib.set_config(telemetry=True)
+    telemetry.reset_telemetry()
+    loop = ServingLoop(reg, max_batch_rows=SRV_MAX_ROWS, device=dev).start()
+    server = cs = ct = cw = cl = None
+    try:
+        t0 = time.perf_counter()
+        summary["warmup"] = loop.warmup()
+        summary["warmup"]["seconds"] = time.perf_counter() - t0
+        server = FleetServer(loop).start()
+        cs = FleetClient(server.address, shm_ring_bytes=WIRE_RING_BYTES,
+                         request_timeout=120.0)
+        ct = FleetClient(server.address, shm=False, request_timeout=120.0)
+        # the capacity arm's client, and one as the process fleet's router
+        # links its replicas (the default ring)
+        cw = FleetClient(server.address,
+                         shm_ring_bytes=WIRE_WIDE_RING_BYTES,
+                         request_timeout=120.0)
+        cl = FleetClient(server.address, request_timeout=120.0)
+        expect(all(c.shm_segment for c in (cs, cw, cl))
+               and server.n_shm_conns == 3,
+               "a shm client did not upgrade to the ring")
+        expect(ct.shm_segment is None, "the TCP client upgraded to the ring")
+        with track_compiles() as after_warmup:
+            # -- identity: each side of every bucket boundary, both wires
+            captured = {name: [] for name in SRV_K2}
+            saved = {}
+            for name in SRV_K2:
+                runner = reg.get(name).runners["predict"]
+                saved[name] = runner.run
+
+                def run(Xs, _orig=runner.run, _name=name):
+                    out = _orig(Xs)
+                    captured[_name].append((Xs.clone(), out))
+                    return out
+
+                runner.run = run
+
+            def identity():
+                futs = []
+                for name, method in SRV_PAIRS:
+                    for n in SRV_IDENTITY:
+                        X = pools[name][:n]
+                        futs.append((name, method, n,
+                                     cs.submit(name, X, method=method),
+                                     ct.submit(name, X, method=method)))
+                return [(name, method, n, fs.result(120), ft.result(120))
+                        for name, method, n, fs, ft in futs]
+
+            served, sec, l_id = drive(identity)
+            for name in SRV_K2:
+                reg.get(name).runners["predict"].run = saved[name]
+            expect_launches("wire-identity", l_id)
+            launches["wire-identity"] = l_id
+            gemm = {}
+            for name, method, n, got_s, got_t in served:
+                X = pools[name][:n]
+                served_against_direct(name, method, models[name], X, got_s,
+                                      gemm)
+                served_against_direct(name, method, models[name], X, got_t,
+                                      gemm)
+                if name in SRV_K2:
+                    expect(np.array_equal(got_s, got_t),
+                           f"{name} n={n}: shm and TCP answers differ")
+            n_checked, ties = check_served_batches(models, captured, errs)
+            del captured
+            summary["identity"] = {
+                "requests": 2 * len(served), "seconds": sec,
+                "k2_bitwise_shm_and_tcp": True,
+                "k2_batches_checked": n_checked, "near_ties": ties,
+                "gemm": gemm}
+            path_line("wire-identity", sec, None, l_id,
+                      **summary["identity"])
+
+            # -- steady: step 17's trace in process, over shm, over TCP
+            trace = _trace(pools, SRV_CLIENTS * SRV_REQUESTS, SEED)
+
+            def via(send_one):
+                def send(req):
+                    name, method, X, deadline = req
+                    return send_one(name, X, method, deadline)
+                return send
+
+            sends = {
+                "in_process": via(lambda n, X, m, dl: loop.submit(
+                    n, X, method=m, deadline=dl).result(120)),
+                "shm": via(lambda n, X, m, dl: cs.call(
+                    n, X, method=m, deadline=dl, timeout=120)),
+                "tcp": via(lambda n, X, m, dl: ct.call(
+                    n, X, method=m, deadline=dl, timeout=120)),
+                "shm_wide": via(lambda n, X, m, dl: cw.call(
+                    n, X, method=m, deadline=dl, timeout=120)),
+            }
+            steady = {}
+            for key, send in sends.items():
+                telemetry.reset_telemetry()
+                (wall, lat, results, shed), sec, l_st = drive(
+                    lambda: closed_loop(trace, SRV_CLIENTS, send))
+                expect_launches("wire-steady", l_st)
+                for (name, method, X, _), got in zip(trace, results):
+                    if got is not None:
+                        served_against_direct(name, method, models[name],
+                                              X, got, gemm)
+                rec = latency_summary(wall, lat, len(trace))
+                rec.update(shed=shed, k2_launches=l_st["fused_argmin_min"],
+                           k2x_launches=l_st["fused_argmin_min_sketched"],
+                           wire=wire_counters())
+                steady[key] = rec
+                launches[f"wire-steady-{key}"] = l_st
+                log(f"wire-steady {key}: {rec['qps']:.1f} QPS, p50 "
+                    f"{rec['p50_ms']:.2f} ms, p99 {rec['p99_ms']:.2f} ms, "
+                    f"{shed} shed; {rec['wire']}")
+            steady["shm_over_tcp_qps"] = steady["shm"]["qps"] / \
+                steady["tcp"]["qps"]
+            steady["shm_over_in_process_qps"] = steady["shm"]["qps"] / \
+                steady["in_process"]["qps"]
+            steady["shm_wide_over_tcp_qps"] = steady["shm_wide"]["qps"] / \
+                steady["tcp"]["qps"]
+            summary["steady"] = steady
+            path_line("wire-steady", sum(
+                v["seconds"] for k, v in steady.items() if isinstance(v, dict)
+            ), None, launches["wire-steady-shm"], **steady)
+
+            # -- the router's links: the process fleet's drill traffic
+            # (K2 families, 16 clients) over the default ring and over
+            # TCP, in turns
+            links = {"shm": [], "tcp": []}
+            k2 = k2_trace(pools, PROC_CLIENTS * PROC_REQUESTS, [SEED, 41])
+            for key in ("shm", "tcp", "shm", "tcp"):
+                c = cl if key == "shm" else ct
+
+                def send(req, _c=c):
+                    name, method, X, _ = req
+                    return _c.call(name, X, method=method, timeout=120)
+
+                (wall, lat, results, _), sec, l_ln = drive(
+                    lambda: closed_loop(k2, PROC_CLIENTS, send))
+                expect_launches("wire-links", l_ln)
+                for (name, method, X, _), got in zip(k2, results):
+                    expect(np.array_equal(got, getattr(models[name],
+                                                       method)(X)),
+                           f"wire-links {name}: an answer differs")
+                links[key].append(latency_summary(wall, lat, len(k2)))
+                launches[f"wire-links-{key}-{len(links[key])}"] = l_ln
+            links["shm_over_tcp_qps"] = [
+                a["qps"] / b["qps"] for a, b in zip(links["shm"],
+                                                    links["tcp"])]
+            summary["links"] = links
+            log(f"wire-links: {json.dumps(links)}")
+        expect(after_warmup["n_compiles"] == 0
+               and after_warmup["n_loads"] == 0,
+               f"kernels built or loaded after the warmup: {after_warmup}")
+        summary["after_warmup"] = after_warmup
+    finally:
+        for c in (cs, ct, cw, cl):
+            if c is not None:
+                c.close()
+        if server is not None:
+            server.stop()
+        loop.stop()
+        config_lib.set_config(telemetry=False)
+        telemetry.reset_telemetry()
+    return launches, summary
+
+
+def proc_fleet(dev, models, pools):
+    """``proc-fleet``: ProcessFleet(n_replicas=2) on the card's device
+    type; the children's stats (pid, device, builds) and start phases; a
+    closed loop of the K2 families with replica p1 SIGKILLed by its plan
+    (every request once, bit for bit, the respawn loading nothing after
+    its warmup); a hedging A/B on one seeded trace with p0 a straggler;
+    SIGTERM everywhere; no segment left. Returns (the launches the live
+    children counted from the end of their warmups, through the drill
+    and the A/B, summed; summary)."""
+    import os
+
+    from dask_ml_tpu_torch.parallel import shm as shm_lib
+    from dask_ml_tpu_torch.parallel.procfleet import ProcessFleet
+
+    K2 = "fused_argmin_min"
+    summary = {}
+    device = "cuda" if dev.type == "cuda" else "cpu"
+    kind = None
+    if dev.type == "cuda":
+        import torch
+
+        kind = torch.cuda.get_device_name(0)
+    fleet = ProcessFleet(
+        n_replicas=2, device=device, max_batch_rows=SRV_MAX_ROWS,
+        name="wire", request_timeout_s=120.0, spawn_timeout_s=PROC_WAIT,
+        heartbeat_timeout_s=5.0, hedge_min_s=0.02,
+        kill_after_requests={1: PROC_KILL_AFTER},
+        straggle={0: (PROC_STRAGGLE_S, PROC_STRAGGLE_EVERY)})
+    for name, est in models.items():
+        fleet.register(name, est)
+    t0 = time.perf_counter()
+    fleet.start()
+    summary["start_s"] = time.perf_counter() - t0
+    try:
+        st = fleet.stats()
+        summary["children"] = {
+            name: {"pid": r["pid"], "start_s": r["start_s"],
+                   "phases": r["phases"], "warmup": r["warmup"]}
+            for name, r in st["replicas"].items()}
+        log(f"proc-fleet start {summary['start_s']:.2f} s: "
+            f"{summary['children']}")
+        remote = fleet.remote_stats(timeout=60)
+        for name, r in remote.items():
+            expect(r["pid"] != os.getpid(), f"{name} runs in the parent")
+            want_dev = "cuda:0" if device == "cuda" else "cpu"
+            expect(r["device"] == want_dev,
+                   f"{name} serves on {r['device']}, not {want_dev}")
+            if kind is not None:
+                expect(r["device_name"] == kind,
+                       f"{name} is on {r['device_name']}, not {kind}")
+            expect(r["n_builds"] == 0, f"{name} built {r['n_builds']} "
+                   "libraries: a child must only load them")
+            # the children count their launches from the end of their
+            # warmup: 0 just before the drill
+            expect(not r["steady_launches"], f"{name} launched "
+                   f"{r['steady_launches']} after its warmup, before "
+                   "any traffic")
+        pids0 = {name: r["pid"] for name, r in remote.items()}
+        expect(len(set(pids0.values())) == 2, "the children share a pid")
+
+        # -- the drill: the kill plan fires on p1 under traffic
+        trace = k2_trace(pools, PROC_CLIENTS * PROC_REQUESTS, [SEED, 41])
+        fleet.hedge = True
+        before = fleet.n_results
+
+        def send(req):
+            name, method, X, _ = req
+            return fleet.submit(name, X, method=method).result(PROC_WAIT)
+
+        (wall, lat, results, _), sec, _ = drive(
+            lambda: closed_loop(trace, PROC_CLIENTS, send))
+        for (name, method, X, _), got in zip(trace, results):
+            expect(got is not None, "a fleet request was dropped")
+            expect(np.array_equal(got, getattr(models[name], method)(X)),
+                   f"proc-fleet {name}: a served answer differs from "
+                   "direct")
+        resolved = fleet.n_results - before
+        expect(resolved == len(trace),
+               f"{resolved} first resolutions for {len(trace)} requests")
+        drill = latency_summary(wall, lat, len(trace))
+        end = time.monotonic() + PROC_WAIT
+        while fleet.replicas_up() < 2 and time.monotonic() < end:
+            time.sleep(0.05)
+        expect(fleet.replicas_up() == 2, "p1 did not respawn")
+        st = fleet.stats()
+        p1 = st["replicas"]["wire-p1"]
+        expect(st["replica_deaths"] == 1 and st["respawns"] == 1,
+               f"deaths {st['replica_deaths']}, respawns {st['respawns']}")
+        expect(p1["past_exits"] == [[pids0["wire-p1"], -9]],
+               f"p1's killed incarnation: {p1['past_exits']}")
+        # K2 in the drill: the launches each live child counted since
+        # its warmup (p0: the drill's; the respawned p1: its replays'
+        # and any traffic after its warmup). The killed incarnation's
+        # count dies with it.
+        mid = fleet.remote_stats(timeout=60)
+        drill_launches = {name: r["steady_launches"]
+                          for name, r in mid.items()}
+        if device == "cuda":
+            expect(drill_launches["wire-p0"].get(K2, 0) > 0,
+                   f"p0 launched no K2 in the drill: {drill_launches}")
+        drill.update(seconds=sec, dropped=0, double_resolved=0,
+                     reroutes=st["reroutes"], hedged=st["hedged"],
+                     hedge_wins=st["hedge_wins"],
+                     respawn_start_s=p1["start_s"],
+                     respawn_phases=p1["phases"])
+        summary["drill"] = drill
+        log(f"proc-fleet drill: {drill}")
+
+        # -- hedging A/B: one seeded trace, sequential, p0 straggles
+        ab_trace = trace[:PROC_AB_REQUESTS]
+        p99 = {}
+        for hedge in (False, True):
+            fleet.hedge = hedge
+            # each arm starts from the same router state: no latency
+            # history, so p0 is not already routed around
+            fleet.reset_latency_history()
+            lat = []
+            for name, method, X, _ in ab_trace:
+                t1 = time.perf_counter()
+                got = fleet.call(name, X, method=method, timeout=PROC_WAIT)
+                lat.append(time.perf_counter() - t1)
+                expect(np.array_equal(got, getattr(models[name], method)(X)),
+                       f"hedging A/B {name}: an answer differs")
+            q = np.percentile(np.asarray(lat) * 1e3, [50, 99])
+            p99["hedged" if hedge else "unhedged"] = {
+                "p50_ms": float(q[0]), "p99_ms": float(q[1])}
+        expect(p99["hedged"]["p99_ms"] < p99["unhedged"]["p99_ms"],
+               f"hedged p99 not below unhedged: {p99}")
+        summary["hedging"] = p99
+        log(f"proc-fleet hedging A/B: {p99}")
+
+        remote = fleet.remote_stats(timeout=60)
+        launches = {K2: 0, "fused_argmin_min_sketched": 0}
+        ab_launches = {}
+        for name, r in remote.items():
+            expect(r["pid"] == mid[name]["pid"],
+                   f"{name} changed its pid in the hedging A/B")
+            expect(r["steady_compiles"] == 0,
+                   f"{name} built or loaded after its warmup: {r}")
+            expect(r["n_builds"] == 0, f"{name} built a library")
+            ab_launches[name] = {
+                k: v - drill_launches[name].get(k, 0)
+                for k, v in r["steady_launches"].items()}
+            if device == "cuda":
+                # the respawned p1 too: its traffic ran the kernel
+                expect(ab_launches[name].get(K2, 0) > 0,
+                       f"{name} launched no K2 in the hedging A/B: "
+                       f"{ab_launches[name]}")
+            # the drill's and the A/B's launches of the live children
+            for k in launches:
+                launches[k] += int(r["steady_launches"].get(k, 0))
+        expect(remote["wire-p1"]["pid"] != pids0["wire-p1"],
+               "p1 kept its pid")
+        summary["launches"] = {"drill": drill_launches,
+                               "hedging": ab_launches}
+        summary["children_after"] = {
+            name: {k: r[k] for k in ("pid", "device", "device_name",
+                                     "launches", "steady_launches",
+                                     "n_builds", "n_loads", "steady_loads")}
+            for name, r in remote.items()}
+        links = {name: r["segment"]
+                 for name, r in fleet.stats()["replicas"].items()}
+        summary["links"] = links
+        expect(all(links.values()),
+               f"a router link is not on the ring: {links}")
+    finally:
+        fleet.stop(timeout=60)
+    codes = {name: r["returncode"]
+             for name, r in fleet.stats()["replicas"].items()}
+    expect(all(c == 0 for c in codes.values()),
+           f"a replica did not drain to exit 0 on SIGTERM: {codes}")
+    left = shm_lib.list_segments()
+    expect(not left, f"shm segments left after stop(): {left}")
+    summary["exit_codes"] = codes
+    summary["killed_exit"] = -9
+    summary["segments_left"] = 0
+    return launches, summary
+
+
+def wire_cells(dev, errs):
+    """The WIRE phase (step 18) on step 17's fitted models. Returns
+    (launches by wire path, launches summed over the process fleet's
+    children, summary)."""
+    t_all = time.perf_counter()
+    models, pools = serving_models(dev)
+    summary = {"crc": wire_crc()}
+    launches, summary["serving"] = wire_serving(dev, models, pools, errs)
+    proc_launches, summary["proc"] = proc_fleet(dev, models, pools)
+    summary["seconds"] = time.perf_counter() - t_all
+    log("WIRE " + json.dumps(summary))
+    return launches, proc_launches, summary
+
+
 def main() -> int:
     import torch
 
@@ -6807,6 +7322,26 @@ def main() -> int:
                 path: int(l[r["name"]]) for path, l in srv_launches.items()
                 if l.get(r["name"])}
         log("SERVING max_abs_err " + json.dumps(srv_errs))
+        print(json.dumps({"kernels": rows}), flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+        return 0
+
+    if "--wire-only" in sys.argv[1:]:
+        wire_errs = {}
+        wire_launches, proc_launches, _ = wire_cells(dev, wire_errs)
+        models, pools = serving_models(dev)
+        total = {k: sum(l[k] for l in wire_launches.values())
+                 for k in wire_launches["wire-identity"]}
+        rows = kernel_rows(serving_kernel_rows(dev, models, pools, None),
+                           total, wire_errs)
+        for r in rows:
+            r["launches_wire"] = {
+                path: int(l[r["name"]]) for path, l in wire_launches.items()
+                if l.get(r["name"])}
+            r["launches_proc"] = int(proc_launches.get(r["name"], 0))
+        log("WIRE max_abs_err " + json.dumps(wire_errs))
         print(json.dumps({"kernels": rows}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
@@ -7043,6 +7578,20 @@ def main() -> int:
         if timed is not None:
             r["serving_shape"] = {k: v for k, v in timed.items()
                                   if k != "name"}
+    torch.cuda.empty_cache()
+
+    wire_errs = {}
+    wire_launches, proc_launches, _ = wire_cells(dev, wire_errs)
+    for r in rows:
+        got = {path: int(l[r["name"]]) for path, l in wire_launches.items()
+               if l.get(r["name"])}
+        if got:
+            r["launches_wire"] = got
+        if r["name"] in proc_launches:
+            r["launches_proc"] = int(proc_launches[r["name"]])
+        if r["name"] in wire_errs:
+            r["max_abs_err_wire"] = wire_errs[r["name"]]
+            r["max_abs_err"] = max(r["max_abs_err"], wire_errs[r["name"]])
     torch.cuda.empty_cache()
 
     bf16, _ = precision_cells(dev, f32_inertia=blobs_inertia)

@@ -1,4 +1,5 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels, and its host C
+libraries.
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
@@ -7,6 +8,12 @@ and the flags, so an edited source rebuilds) and loaded with ``ctypes``.
 No PyTorch header is compiled, which keeps a build to seconds. Nothing is
 compiled or loaded when this module is imported: the CPU tests import
 every module of the port on machines without ``nvcc``.
+
+A ``csrc/<name>.c`` (:data:`HOST_SOURCES`: the wire's CRC-32C engine) is
+host code, built the same way with the host C compiler (``cc -O3 -shared
+-fPIC``) instead of ``nvcc``, so it builds and loads on a machine without
+a card too. Its entry points run without the library lock: they touch no
+device state, and ``ctypes`` releases the GIL around them.
 
 Every pointer argument and the stream are declared ``c_void_p``, every
 C entry point returns ``cudaGetLastError()``, and :func:`check` turns a
@@ -34,10 +41,18 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+CC_FLAGS = ["-std=c99", "-O3", "-shared", "-fPIC"]
+#: libraries built from ``csrc/<name>.c`` with the host C compiler
+HOST_SOURCES = frozenset({"crc32c"})
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_U32, _SZ = ctypes.c_uint32, ctypes.c_size_t
 # C signatures: name -> {function: (argtypes, restype)}
 SIGNATURES = {
+    "crc32c": {
+        "dml_crc32c_init": ([], None),
+        "dml_crc32c_update": ([_U32, _P, _SZ], _U32),
+    },
     "fused_distance": {
         "dml_fused_rows_per_block": ([], _I),
         "dml_fused_distance": (
@@ -69,11 +84,13 @@ SIGNATURES = {
 _libs: dict = {}
 _lock = threading.Lock()
 
-#: nvcc compilations this process started (and their wall seconds), and
-#: the kernel libraries it loaded (and the seconds of each first load): a
-#: search reads them around each rung, the serving loop around its
-#: warmup, to show that no kernel is built or loaded once traffic runs
-builds = {"nvcc": 0, "nvcc_seconds": 0.0, "loads": 0, "load_seconds": 0.0}
+#: nvcc compilations this process started (and their wall seconds), the
+#: host C compilations (``cc``), and the libraries it loaded (and the
+#: seconds of each first load): a search reads them around each rung, the
+#: serving loop around its warmup, to show that no kernel is built or
+#: loaded once traffic runs
+builds = {"nvcc": 0, "nvcc_seconds": 0.0, "cc": 0, "cc_seconds": 0.0,
+          "loads": 0, "load_seconds": 0.0}
 _builds_lock = threading.Lock()
 
 
@@ -90,14 +107,30 @@ def _nvcc() -> str:
         "machine")
 
 
+def _cc() -> str:
+    for name in (os.environ.get("CC"), "cc", "gcc", "clang"):
+        found = name and shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError(
+        "no host C compiler found (searched $CC, cc, gcc, clang on PATH); "
+        "the port's host C libraries are built at first use")
+
+
+def _source(name: str) -> Path:
+    return CSRC / (f"{name}.c" if name in HOST_SOURCES else f"{name}.cu")
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = CC_FLAGS if name in HOST_SOURCES else NVCC_FLAGS
+    src = _source(name).read_bytes()
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{tag[:16]}.so"
 
 
 def build_all(names=None, verbose: bool = False) -> float:
-    """Compile every missing library, one ``nvcc`` per source, all started
+    """Compile every missing library, one compiler process per source (``cc``
+    for :data:`HOST_SOURCES`, ``nvcc`` for the rest), all started
     together. Returns the wall seconds spent. Raises with the compiler's
     output if any build fails."""
     names = list(SIGNATURES) if names is None else list(names)
@@ -105,31 +138,41 @@ def build_all(names=None, verbose: bool = False) -> float:
     t0 = time.perf_counter()
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
         procs = []
-        with _builds_lock:
-            builds["nvcc"] += len(todo)
         for name, out in todo:
+            host = name in HOST_SOURCES
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS]
-            if verbose:
-                cmd += ["-Xptxas", "-v"]
-            cmd += ["-o", str(tmp), str(CSRC / f"{name}.cu")]
-            procs.append((name, out, tmp, subprocess.Popen(
+            if host:
+                cmd = [_cc(), *CC_FLAGS]
+            else:
+                cmd = [_nvcc(), *NVCC_FLAGS]
+                if verbose:
+                    cmd += ["-Xptxas", "-v"]
+            cmd += ["-o", str(tmp), str(_source(name))]
+            with _builds_lock:
+                builds["cc" if host else "nvcc"] += 1
+            procs.append((name, host, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
         failures = []
-        for name, out, tmp, proc in procs:
+        for name, host, out, tmp, proc in procs:
             log, _ = proc.communicate()
             text = log.decode(errors="replace")
+            what = f"{'cc' if host else 'nvcc'} {_source(name).name}"
             if proc.returncode != 0:
-                failures.append(f"nvcc {name}.cu failed:\n{text}")
+                failures.append(f"{what} failed:\n{text}")
                 tmp.unlink(missing_ok=True)
                 continue
             if verbose and text.strip():
-                print(f"[nvcc {name}.cu]\n{text}", flush=True)
+                print(f"[{what}]\n{text}", flush=True)
             os.replace(tmp, out)
+        dt = time.perf_counter() - t0
         with _builds_lock:
-            builds["nvcc_seconds"] += time.perf_counter() - t0
+            # the compilers run together: a batch's wall counts once, as
+            # nvcc's when it ran any nvcc (the longer by far), else cc's
+            if any(not host for _, host, *_ in procs):
+                builds["nvcc_seconds"] += dt
+            else:
+                builds["cc_seconds"] += dt
         if failures:
             raise RuntimeError("\n".join(failures))
     return time.perf_counter() - t0
@@ -147,7 +190,8 @@ class Library:
             f = getattr(cdll, fn)
             f.argtypes = argtypes
             f.restype = restype
-            setattr(self, fn, self._serialized(f, lock))
+            setattr(self, fn, f if name in HOST_SOURCES
+                    else self._serialized(f, lock))
 
     @staticmethod
     def _serialized(f, lock):
@@ -172,6 +216,9 @@ def load(name: str) -> Library:
                 build_all([name])
             t0 = time.perf_counter()
             lib = Library(name, ctypes.CDLL(str(path)))
+            init = getattr(lib, f"dml_{name}_init", None)
+            if init is not None:
+                init()
             _libs[name] = lib
             with _builds_lock:
                 builds["loads"] += 1

@@ -1,5 +1,5 @@
-"""Staging, streaming, fault tolerance, telemetry and the in-process
-serving tier of the PyTorch port."""
+"""Staging, streaming, fault tolerance, telemetry, the serving tier and
+its single-box wire and process fleet, of the PyTorch port."""
 
 from dask_ml_tpu_torch.parallel.faults import (  # noqa: F401
     BlockFetchError,
@@ -40,3 +40,26 @@ from dask_ml_tpu_torch.parallel.fleet import (  # noqa: F401
     FleetTimeoutError,
     ServingFleet,
 )
+from dask_ml_tpu_torch.parallel.fleet import (  # noqa: F401
+    FleetClient,
+    FleetServer,
+    RetryBudget,
+)
+from dask_ml_tpu_torch.parallel.elastic import (  # noqa: F401
+    FileHeartbeat,
+    SimulatedHostDeath,
+)
+from dask_ml_tpu_torch.parallel.launcher import (  # noqa: F401
+    ExecLauncher,
+    Launcher,
+    LocalLauncher,
+    MachineSpec,
+    plan_placement,
+)
+from dask_ml_tpu_torch.parallel.shm import (  # noqa: F401
+    ShmClient,
+    ShmServer,
+    list_segments,
+)
+from dask_ml_tpu_torch.parallel.replica import ReplicaHost  # noqa: F401
+from dask_ml_tpu_torch.parallel.procfleet import ProcessFleet  # noqa: F401

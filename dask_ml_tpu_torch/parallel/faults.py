@@ -15,10 +15,11 @@
   pipeline (fail a block's read or its copy, delay a read, preempt after a
   block) and for the in-process serving tier (delay a dispatch, a
   synthetic or a real straggler replica, kill a replica's dispatch
-  thread), which drive the same hooks as real failures. The process
-  fleet's plans (``kill_process``, ``kill_machine``, ``slow_link``) belong
-  to the wire and process tier, which the port does not have yet; they
-  raise.
+  thread), which drive the same hooks as real failures, and for the
+  process fleet (``kill_process``: a real ``SIGKILL`` a replica process
+  delivers to itself at a request count). The cross-machine plans
+  (``kill_machine``, ``slow_link``) belong to ROADMAP Queue A item 11c;
+  they raise.
 
 What may be retried on the card: ``torch.cuda.OutOfMemoryError`` only. A
 ``RuntimeError`` that reports a CUDA error (an illegal address, a failed
@@ -92,8 +93,8 @@ class SimulatedReplicaDeath(RuntimeError):
     it by re-routing and replaying (``parallel/fleet.py``)."""
 
 
-_WIRE_TIER = ("{} belongs to the wire and process fleet, ROADMAP Queue A "
-              "item 11b, which the port does not have yet")
+_MACHINE_TIER = ("{} belongs to the cross-machine fleet, ROADMAP Queue A "
+                 "item 11c, which the port does not have yet")
 
 
 # ---------------------------------------------------------------------------
@@ -436,11 +437,13 @@ class FaultInjector:
         self._slow_replica: dict = {}    # replica -> [batches_left, seconds]
         self._kill_replica: dict = {}    # replica -> after_batches
         self._straggle: dict = {}        # replica -> [count, every, s, left]
+        self._kill_process: dict = {}    # process name -> after_requests
         self._p_load = 0.0
         self._p_exc = InjectedLoaderError
         self.injected = {"load": 0, "transfer": 0, "delay": 0, "preempt": 0,
                          "dispatch_delay": 0, "slow_replica": 0,
-                         "replica_kill": 0, "straggle": 0}
+                         "replica_kill": 0, "straggle": 0,
+                         "process_kill": 0}
 
     # -- planning ----------------------------------------------------------
 
@@ -512,14 +515,41 @@ class FaultInjector:
             -1 if batches is None else int(batches)]
         return self
 
-    def kill_process(self, name: str, *, after_requests: int = 0):
-        raise NotImplementedError(_WIRE_TIER.format("kill_process"))
+    def kill_process(self, name: str, *,
+                     after_requests: int = 0) -> "FaultInjector":
+        """Kill the OS process hosting ``name`` once it has served
+        ``after_requests`` wire requests: a real ``SIGKILL``, delivered by
+        :meth:`maybe_kill_process` in the victim process itself (no drain,
+        no atexit, no flush; its heartbeats stop and its socket goes dark
+        mid-stream). The process fleet's replica polls the plan, so a
+        drill places the kill at a request count rather than a wall-clock
+        race. One-shot per name."""
+        self._kill_process[str(name)] = int(after_requests)
+        return self
+
+    def should_kill_process(self, name: str, n_requests: int) -> bool:
+        """True exactly once, when ``name`` has served ``after_requests``
+        requests (see :meth:`kill_process`)."""
+        with self._lock:
+            after = self._kill_process.get(str(name))
+            if after is None or int(n_requests) < after:
+                return False
+            del self._kill_process[str(name)]
+            self.injected["process_kill"] += 1
+        self._mirror("process_kill")
+        return True
+
+    def maybe_kill_process(self, name: str, n_requests: int) -> None:
+        """Deliver the :meth:`kill_process` plan: ``SIGKILL`` to this
+        process's own pid when the plan fires. Nothing after it runs."""
+        if self.should_kill_process(name, n_requests):
+            os.kill(os.getpid(), signal.SIGKILL)
 
     def kill_machine(self, machine: str, *, after_results: int = 0):
-        raise NotImplementedError(_WIRE_TIER.format("kill_machine"))
+        raise NotImplementedError(_MACHINE_TIER.format("kill_machine"))
 
     def slow_link(self, machine: str, seconds: float, *, chunks=None):
-        raise NotImplementedError(_WIRE_TIER.format("slow_link"))
+        raise NotImplementedError(_MACHINE_TIER.format("slow_link"))
 
     def random_load_failures(self, p: float,
                              exc_type=InjectedLoaderError) -> "FaultInjector":

@@ -1,5 +1,5 @@
-"""A fault-tolerant fleet of serving loops in one process (the in-process
-part of ``dask_ml_tpu/parallel/fleet.py``).
+"""A fault-tolerant fleet of serving loops, and the wire in front of it
+(the counterpart of ``dask_ml_tpu/parallel/fleet.py``).
 
 - :class:`ServingFleet` runs N :class:`~dask_ml_tpu_torch.parallel.
   serving.ServingLoop` replicas behind a host-side router. Each replica
@@ -35,8 +35,27 @@ Telemetry, at the increment sites: the ``fleet.reroutes``,
 ``fleet.replica_deaths``, ``serving.hedged`` and ``serving.hedge_wins``
 counters, the ``fleet.replica_up`` gauge and the ``fleet.request`` span.
 
-The wire tier above this (``FleetServer``, ``FleetClient``,
-``RetryBudget``, the process fleet) is ROADMAP Queue A item 11b.
+**The wire.** :class:`FleetServer` fronts a :class:`ServingFleet` or one
+:class:`~dask_ml_tpu_torch.parallel.serving.ServingLoop` on a socket
+speaking the frames of :mod:`~dask_ml_tpu_torch.parallel.framing` (the
+JAX package's ``DMLTWIRE3`` frames, CRC-32C, the typed payload: a JSON
+control envelope and dtype/shape-tagged buffers, no object deserialized
+anywhere, so a JAX package client talks to a port server and back). One
+frame is one request; responses return out of order, tagged by id; a
+request that fails validation fails its caller's frame only. On one
+machine a connection upgrades to the shared-memory ring of
+:mod:`~dask_ml_tpu_torch.parallel.shm` (``op="shm_hello"``), the socket
+staying open as the doorbell and the liveness channel. :class:`FleetClient`
+adds per-request deadlines (:class:`FleetTimeoutError`), one reconnect
+after a clean server close, and retries spent from a :class:`RetryBudget`.
+The process fleet (``parallel/procfleet.py``) runs each replica as an OS
+process behind this wire. The wire mirrors ``wire.bytes{transport=}`` and
+``wire.hash_seconds{algo=}`` (at the framing's hash site) into the
+telemetry registry.
+
+The cross-machine part of the JAX package's fleet (the ``machines=``
+roster of the process fleet, its snapshot server, the autoscaler) is
+ROADMAP Queue A item 11c.
 """
 
 from __future__ import annotations
@@ -44,16 +63,20 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import os
+import socket
 import threading
 import time
 import uuid
 from collections import deque
 from concurrent.futures import Future
+from concurrent.futures import TimeoutError as _FutureTimeout
 from typing import Optional
 
 import numpy as np
 import torch
 
+from dask_ml_tpu_torch.parallel import framing
 from dask_ml_tpu_torch.parallel.serving import (
     DeadlineExceeded,
     ModelRegistry,
@@ -66,7 +89,13 @@ from dask_ml_tpu_torch.parallel.serving import (
     _fail_future,
 )
 
-__all__ = ["ServingFleet", "FleetTimeoutError"]
+__all__ = [
+    "ServingFleet",
+    "FleetServer",
+    "FleetClient",
+    "FleetTimeoutError",
+    "RetryBudget",
+]
 
 
 class FleetTimeoutError(ServingError):
@@ -786,3 +815,1020 @@ class ServingFleet:
             } for rep in self._replicas},
             **counters,
         }
+
+
+# ---------------------------------------------------------------------------
+# the wire: FleetServer, RetryBudget, FleetClient
+# ---------------------------------------------------------------------------
+#: errors the wire protocol maps by name so a remote caller can catch the
+#: same classes a local one would
+_WIRE_ERRORS = {
+    "DeadlineExceeded": DeadlineExceeded,
+    "ServingQueueFull": ServingQueueFull,
+    "ServingStopped": ServingStopped,
+    "ServingClosed": ServingClosed,
+    "FleetTimeoutError": FleetTimeoutError,
+    "PayloadError": framing.PayloadError,
+    "ValueError": ValueError,
+    "KeyError": KeyError,
+}
+
+
+class _ShmSwitch:
+    """Writer-queue marker: every response enqueued after it leaves over
+    the negotiated shm ring instead of the TCP frame wire (FIFO order
+    guarantees the hello ACK, enqueued just before, went out on TCP)."""
+
+    __slots__ = ("ep",)
+
+    def __init__(self, ep):
+        self.ep = ep
+
+
+#: one byte on the retained TCP socket after every shm ring write: the
+#: peer blocks in the kernel (cheap, instant wakeup) instead of polling
+#: the ring, and the byte stream doubles as the liveness/EOF channel
+_DOORBELL = b"\x01"
+
+
+class FleetServer:
+    """Socket front-end for a :class:`ServingFleet` (or a single
+    :class:`ServingLoop`): out-of-process clients submit inference
+    requests as frames of the shared codec
+    (:data:`~dask_ml_tpu_torch.parallel.framing.WIRE_MAGIC`).
+
+    One frame carries one TYPED request payload
+    (:func:`~dask_ml_tpu_torch.parallel.framing.encode_payload`: a JSON
+    control envelope — ``op="submit"``, id, model, method, priority,
+    deadline — plus the row array as one dtype/shape-tagged buffer);
+    responses are frames tagged with the request id and return OUT OF
+    ORDER as futures resolve, so one slow request never convoys a
+    connection. ``op="ping"`` answers with the serving pid;
+    ``op="stats"`` returns the routing-signal snapshot (queue depth,
+    latency EWMA, batch count — plus whatever ``extra_stats`` adds; the
+    process fleet's replicas report their device, launch counts and
+    library builds and loads through it). A request that fails validation
+    (or sheds on its deadline) gets an error response naming the
+    exception class — that caller only, never a shared batch. A
+    payload that fails its typed decode fails ITS frame only (the frame
+    boundary was intact); a frame that fails its checksum gets an error
+    response and the connection is closed (the stream's byte alignment
+    can no longer be trusted).
+
+    Nothing received on this socket is ever deserialized as an object —
+    control is JSON under a size cap, buffers are (dtype, shape, bytes)
+    against an allowlist — so the surface is safe for untrusted clients
+    (the remaining exposure is load, which ``max_payload`` and the
+    serving layer's admission control bound).
+    """
+
+    def __init__(self, fleet, host: str = "127.0.0.1", port: int = 0, *,
+                 max_payload: int = 256 * 1024 * 1024,
+                 extra_stats=None, shm: bool = True):
+        # the CRC-32C engine is built and loaded here, not at the first
+        # request: a failure surfaces at start, and no library load lands
+        # inside a serving window
+        framing.crc32c_engine()
+        self.fleet = fleet
+        self.max_payload = int(max_payload)
+        self._extra_stats = extra_stats
+        self.shm = bool(shm)
+        self.n_shm_conns = 0
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._sock.bind((host, int(port)))
+        self._sock.listen(64)
+        self.address = self._sock.getsockname()
+        self._stop = threading.Event()
+        self._accept_thread: Optional[threading.Thread] = None
+        self._conns: list = []
+        self.n_requests = 0
+        self.n_frame_errors = 0
+
+    def start(self) -> "FleetServer":
+        if self._accept_thread is not None:
+            return self
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, name="fleet-server-accept",
+            daemon=True)
+        self._accept_thread.start()
+        return self
+
+    def __enter__(self) -> "FleetServer":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    def stop(self) -> None:
+        self._stop.set()
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+        for conn in list(self._conns):
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def _accept_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _addr = self._sock.accept()
+            except OSError:
+                return  # listener closed
+            self._conns.append(conn)
+            threading.Thread(target=self._serve_conn, args=(conn,),
+                             name="fleet-server-conn", daemon=True).start()
+
+    #: response-queue depth per connection; a client that stops READING
+    #: while responses pile up is broken — the connection is closed
+    #: rather than buffering unboundedly
+    MAX_PENDING_RESPONSES = 1024
+
+    def _send(self, conn, out_q, control: dict, arrays=(),
+              release=None) -> None:
+        """Enqueue one response for the connection's writer thread. The
+        write itself happens OFF the caller's thread: responses are
+        delivered from future callbacks that run on replica dispatch
+        threads, and a blocking ``sendall`` to a stalled client there
+        would freeze the replica's dispatch loop (and read as a death to
+        the health monitor). ``release`` (the shm record hold of the
+        request this response answers) runs after the response bytes
+        left — the response may alias the request's in-ring buffers, so
+        the record cannot be recycled a moment earlier."""
+        import queue as queue_mod
+
+        try:
+            out_q.put_nowait((control, tuple(arrays), release))
+        except queue_mod.Full:
+            if release is not None:
+                release()
+            try:
+                conn.close()  # reader+writer unwind on the closed socket
+            except OSError:
+                pass
+
+    def _write_loop(self, conn, out_q) -> None:
+        from dask_ml_tpu_torch.parallel import telemetry
+
+        shm_ep = None
+        while True:
+            msg = out_q.get()
+            if msg is None:
+                return
+            if msg.__class__ is _ShmSwitch:
+                # everything enqueued after this marker leaves over the
+                # negotiated shm ring; the hello ACK sits BEFORE it in
+                # this FIFO, so the client reads the ACK on TCP and only
+                # then arms its ring reader
+                shm_ep = msg.ep
+                continue
+            control, arrays, release = msg
+            try:
+                try:
+                    if shm_ep is not None:
+                        shm_ep.send(control, arrays,
+                                    timeout=self.SEND_TIMEOUT_S)
+                        conn.sendall(_DOORBELL)
+                    else:
+                        # encode ONCE and write from the retained
+                        # buffers: a single digest pass over the parts,
+                        # no payload concatenation copy per response
+                        n = framing.write_frame_parts(
+                            conn,
+                            framing.encode_payload_parts(control, arrays),
+                            magic=framing.WIRE_MAGIC,
+                            checksum=framing.WIRE_CHECKSUM)
+                        if telemetry.enabled():
+                            telemetry.metrics().counter(
+                                "wire.bytes", transport="tcp").inc(n)
+                except framing.PayloadError as e:
+                    # an un-encodable RESPONSE (e.g. a host-fallback
+                    # model returning string labels — a dtype the typed
+                    # wire refuses) fails ITS caller with an error
+                    # frame; the writer must survive, or every later
+                    # response on this connection silently wedges
+                    err = {"id": control.get("id"), "ok": False,
+                           "error": "PayloadError",
+                           "message": f"response not wire-encodable: "
+                                      f"{str(e)[:512]}"}
+                    if shm_ep is not None:
+                        shm_ep.send(err, timeout=self.SEND_TIMEOUT_S)
+                        conn.sendall(_DOORBELL)
+                    else:
+                        framing.write_frame(
+                            conn, framing.encode_payload(err),
+                            magic=framing.WIRE_MAGIC,
+                            checksum=framing.WIRE_CHECKSUM)
+            except OSError:
+                return  # peer went away; nothing to deliver to
+            finally:
+                if release is not None:
+                    release()
+
+    #: writer-side bound on one shm ring send — a client that stopped
+    #: draining its response ring for this long is treated as gone
+    SEND_TIMEOUT_S = 30.0
+
+    def _serve_conn(self, conn) -> None:
+        import queue as queue_mod
+
+        out_q: "queue_mod.Queue" = queue_mod.Queue(
+            maxsize=self.MAX_PENDING_RESPONSES)
+        state: dict = {"shm": None}
+        writer = threading.Thread(target=self._write_loop,
+                                  args=(conn, out_q),
+                                  name="fleet-server-writer", daemon=True)
+        writer.start()
+        try:
+            while not self._stop.is_set():
+                ep = state["shm"]
+                if ep is not None:
+                    if not self._serve_shm_step(conn, out_q, ep):
+                        return
+                    continue
+                try:
+                    payload = framing.read_frame(
+                        conn, magic=framing.WIRE_MAGIC,
+                        max_payload=self.max_payload,
+                        checksum=framing.WIRE_CHECKSUM)
+                except framing.FrameError as e:
+                    # a torn/corrupt frame fails ITS caller and ends the
+                    # stream: byte alignment is gone, so nothing later on
+                    # this connection can be attributed safely
+                    self.n_frame_errors += 1
+                    self._send(conn, out_q, {
+                        "id": None, "ok": False,
+                        "error": type(e).__name__, "message": str(e)})
+                    return
+                except OSError:
+                    return  # reset by the peer, or closed by stop()
+                if payload is None:
+                    return  # clean EOF
+                self._handle(conn, out_q, payload, state)
+        finally:
+            # let queued responses flush, then stop the writer; closing
+            # the socket afterwards unblocks a writer stalled mid-send
+            try:
+                out_q.put_nowait(None)
+            except queue_mod.Full:
+                pass
+            writer.join(5.0)
+            ep = state.get("shm")
+            if ep is not None:
+                ep.close()
+            try:
+                conn.close()
+            except OSError:
+                pass
+            if conn in self._conns:
+                self._conns.remove(conn)
+
+    def _serve_shm_step(self, conn, out_q, ep) -> bool:
+        """One step of a negotiated shm connection: drain the request
+        ring, then BLOCK on the TCP socket for the client's doorbell
+        byte — a kernel wakeup instead of a poll loop, so an idle (or
+        GIL-contended) link costs nothing. Every ring record is paired
+        with one doorbell byte sent after its READY publish, so a
+        drain-to-empty after every wakeup can never strand a record;
+        stale coalesced bytes just buy a benign extra drain pass. False
+        ends the connection. A ``kill -9``'d client surfaces here
+        exactly the way it does on the framed wire: as EOF/reset on the
+        socket."""
+        import select
+
+        try:
+            rec = ep.recv(timeout=0.0)
+        except framing.PayloadError as e:
+            # typed decode failed but the record frame was intact: fails
+            # its request only (record already released), the ring and
+            # the connection survive — same contract as the TCP wire
+            self._send(conn, out_q, {
+                "id": None, "ok": False,
+                "error": type(e).__name__, "message": str(e)})
+            return True
+        except (framing.FrameError, ConnectionError) as e:
+            self.n_frame_errors += 1
+            self._send(conn, out_q, {
+                "id": None, "ok": False,
+                "error": type(e).__name__, "message": str(e)})
+            return False
+        if rec is None:
+            try:
+                ready, _, _ = select.select([conn], [], [], 0.25)
+                if not ready:
+                    return True  # idle: loop to re-check server stop
+                b = conn.recv(4096)
+                if b == b"":
+                    return False  # client closed cleanly
+            except (OSError, ValueError):
+                return False  # reset/abort/closed-fd: client died
+            return True
+        msg, arrays, token = rec
+
+        def release(t=token):
+            ep.release(t)
+
+        self._handle_msg(conn, out_q, msg, arrays, release)
+        return True
+
+    def _handle_hello(self, conn, out_q, msg: dict, state: dict) -> None:
+        """``op="shm_hello"``: the client created a shared-memory
+        segment and asks this server to attach. Attach can only succeed
+        when both ends share a kernel — that IS the same-machine test —
+        so any failure just answers ``shm: false`` and the connection
+        stays on the framed TCP wire, byte-identical semantics."""
+        rid = msg.get("id") if isinstance(msg.get("id"), str) else None
+        if not self.shm or state.get("shm") is not None:
+            self._send(conn, out_q, {
+                "id": rid, "ok": True, "shm": False,
+                "reason": ("shm disabled on this server" if not self.shm
+                           else "shm already negotiated")})
+            return
+        try:
+            from dask_ml_tpu_torch.parallel import shm as shm_lib
+
+            ep = shm_lib.ShmServer(
+                str(msg.get("segment")),
+                ring_bytes=msg.get("ring_bytes"),
+                checksum=msg.get("checksum"))
+        except Exception as e:  # noqa: BLE001 — any attach/validate
+            # failure means "this link stays on TCP", never an error
+            self._send(conn, out_q, {
+                "id": rid, "ok": True, "shm": False,
+                "reason": f"{type(e).__name__}: {str(e)[:256]}"})
+            return
+        import queue as queue_mod
+
+        self._send(conn, out_q, {"id": rid, "ok": True, "shm": True})
+        try:
+            out_q.put_nowait(_ShmSwitch(ep))
+        except queue_mod.Full:
+            ep.close()
+            try:
+                conn.close()
+            except OSError:
+                pass
+            return
+        state["shm"] = ep
+        self.n_shm_conns += 1
+
+    def _stats_snapshot(self) -> dict:
+        """The routing-signal summary ``op="stats"`` answers with —
+        loop-side queue depth + latency EWMA (the same surfaces the
+        in-process router balances on) plus the serving pid, so a
+        process-fleet router can label its telemetry per replica
+        process."""
+        target = self.fleet
+        out = {"pid": os.getpid(), "n_requests": self.n_requests}
+        qd = getattr(target, "queue_depth", None)
+        if callable(qd):
+            out["queue_depth"] = int(qd())
+        lat = getattr(target, "latency_s", None)
+        if callable(lat):
+            out["latency_ewma_s"] = float(lat())
+        out["batches"] = int(getattr(target, "n_batches", 0))
+        if self._extra_stats is not None:
+            out.update(self._extra_stats())
+        return out
+
+    def _handle(self, conn, out_q, payload, state=None) -> None:
+        """One framed TCP request: typed decode, then either the
+        shm negotiation op or the shared dispatch."""
+        try:
+            msg, arrays = framing.decode_payload(payload)
+        except Exception as e:  # noqa: BLE001 — per-frame error delivery
+            self._send(conn, out_q, {
+                "id": None, "ok": False,
+                "error": type(e).__name__, "message": str(e)})
+            return
+        if msg.get("op") == "shm_hello" and state is not None:
+            self._handle_hello(conn, out_q, msg, state)
+            return
+        self._handle_msg(conn, out_q, msg, arrays, None)
+
+    def _handle_msg(self, conn, out_q, msg: dict, arrays,
+                    release) -> None:
+        """Dispatch one decoded request, transport-agnostic. ``release``
+        (shm only) is handed to exactly one ``_send`` — the writer runs
+        it after the response leaves, which is when the request's
+        in-ring buffers (possibly aliased by the response) are last
+        read."""
+        rid = None
+        try:
+            op = msg.get("op")
+            rid = msg.get("id")
+            if rid is not None and not isinstance(rid, str):
+                raise framing.PayloadError(
+                    f"request id must be a string, got "
+                    f"{type(rid).__name__}")
+            if op == "ping":
+                self._send(conn, out_q, {"id": rid, "ok": True,
+                                         "pong": True,
+                                         "pid": os.getpid()},
+                           release=release)
+                return
+            if op == "stats":
+                self._send(conn, out_q, {"id": rid, "ok": True,
+                                         "stats": self._stats_snapshot()},
+                           release=release)
+                return
+            if op != "submit":
+                raise ValueError(f"unknown wire op {op!r}")
+            if len(arrays) != 1:
+                raise framing.PayloadError(
+                    f"submit expects exactly one array buffer, got "
+                    f"{len(arrays)}")
+            X = arrays[0]
+            deadline = msg.get("deadline")
+            if deadline is not None and not isinstance(
+                    deadline, (int, float)):
+                raise framing.PayloadError(
+                    "deadline must be a number or null")
+            self.n_requests += 1
+            kwargs = {}
+            if rid is not None and isinstance(self.fleet, ServingFleet):
+                kwargs["request_id"] = rid  # client retry = same request
+            fut = self.fleet.submit(
+                str(msg.get("model")), X,
+                method=str(msg.get("method", "predict")),
+                priority=int(msg.get("priority", 0)),
+                deadline=deadline, **kwargs)
+        except Exception as e:  # noqa: BLE001 — per-frame error delivery
+            self._send(conn, out_q, {
+                "id": rid, "ok": False,
+                "error": type(e).__name__, "message": str(e)},
+                release=release)
+            return
+
+        def deliver(f, rid=rid):
+            try:
+                out = f.result()
+            except Exception as e:  # noqa: BLE001
+                self._send(conn, out_q, {
+                    "id": rid, "ok": False,
+                    "error": type(e).__name__, "message": str(e)},
+                    release=release)
+            else:
+                self._send(conn, out_q, {"id": rid, "ok": True},
+                           arrays=(np.asarray(out),), release=release)
+
+        fut.add_done_callback(deliver)
+
+
+class RetryBudget:
+    """Client-side load-aware retry budget: a token bucket that couples
+    the RIGHT to retry to observed success. Every success deposits
+    ``ratio`` tokens (capped at ``cap``); every retry spends one whole
+    token. Healthy service → budget stays full and transient blips
+    retry freely; degraded service → successes dry up, the bucket
+    drains, and retries STOP instead of multiplying the load that is
+    causing the failures (the retry-storm amplification a fixed
+    retry count cannot prevent). Share one instance across the clients
+    of a service so the bound is per-service, not per-caller."""
+
+    def __init__(self, ratio: float = 0.1, *, initial: float = 10.0,
+                 cap: float = 100.0):
+        if float(ratio) < 0.0:
+            raise ValueError("ratio must be >= 0")
+        self.ratio = float(ratio)
+        self.cap = float(cap)
+        self._lock = threading.Lock()
+        self._tokens = min(float(initial), self.cap)
+        self.n_spent = 0
+        self.n_denied = 0
+
+    def tokens(self) -> float:
+        with self._lock:
+            return self._tokens
+
+    def on_success(self) -> None:
+        with self._lock:
+            self._tokens = min(self._tokens + self.ratio, self.cap)
+
+    def try_spend(self) -> bool:
+        """Claim one retry token; False (and counted) when the budget
+        is exhausted — the caller must surface the original failure."""
+        with self._lock:
+            if self._tokens >= 1.0:
+                self._tokens -= 1.0
+                self.n_spent += 1
+                return True
+            self.n_denied += 1
+            return False
+
+
+class FleetClient:
+    """Out-of-process client of a :class:`FleetServer`: frames typed
+    requests over one socket, demultiplexes out-of-order responses by id
+    on a reader thread. ``submit`` returns a Future; ``call`` blocks.
+    Error responses re-raise as the same exception classes a local
+    caller would see (:data:`_WIRE_ERRORS`; anything unmapped surfaces
+    as ``RuntimeError`` naming the remote class).
+
+    Retries: ``call`` re-attempts :class:`FleetTimeoutError` /
+    :class:`ServingStopped` failures up to ``retries`` times, but only
+    while the :class:`RetryBudget` has tokens — retries are earned by
+    successes (deposit ``ratio``) and spent one token each, so a
+    degraded server sees the retry load FALL with its success rate
+    instead of multiplying (mirrored as ``fleet.retries`` and
+    ``fleet.retry_budget_exhausted`` at the increment sites).
+
+    Deadlines: ``request_timeout`` (and the per-call ``timeout=`` on
+    ``submit``) arms a reaper that fails the future with the typed
+    :class:`FleetTimeoutError` when no response arrived in time — a
+    wedged or silently-dead server can never block a caller forever
+    (``ping`` has the same contract). Timeouts mirror to the
+    ``fleet.timeouts`` counter at the increment site.
+
+    Reconnect: when the server closed the previous connection CLEANLY
+    between frames (EOF, not an error), the next ``submit``/``ping``
+    transparently reconnects once. In-flight requests of the closed
+    connection were already failed with ``ServingStopped`` — reconnect
+    never resurrects them; a torn connection (reset, frame corruption)
+    stays down so the failure is visible.
+    """
+
+    def __init__(self, address, *, timeout: Optional[float] = None,
+                 request_timeout: Optional[float] = None,
+                 send_timeout: Optional[float] = 30.0,
+                 retries: int = 0,
+                 retry_budget: Optional[RetryBudget] = None,
+                 shm: bool = True,
+                 shm_ring_bytes: Optional[int] = None):
+        framing.crc32c_engine()  # built and loaded now, or raise
+        self.address = (address[0], int(address[1]))
+        self._connect_timeout = timeout
+        self.request_timeout = request_timeout
+        self.send_timeout = send_timeout
+        self.retries = int(retries)
+        self._shm_enabled = bool(shm)
+        self._shm_ring_bytes = shm_ring_bytes
+        self._shm = None  # negotiated ShmClient endpoint, else None
+        # (rid, endpoint) of an in-flight shm offer: the READ LOOP arms
+        # the ring when the matching ACK arrives, so no framed read can
+        # race the server's first doorbell byte
+        self._shm_pending = None
+        self.n_shm_connects = 0
+        # retries without a budget would be exactly the retry-storm
+        # amplifier the budget exists to prevent: default one in
+        self.retry_budget = (retry_budget if retry_budget is not None
+                             else (RetryBudget() if self.retries > 0
+                                   else None))
+        self._wlock = threading.Lock()
+        self._lock = threading.Lock()
+        self._pending: dict = {}  # id -> Future
+        self._deadlines: dict = {}  # id -> absolute monotonic instant
+        # globally-unique id prefix: rids reach the FLEET's dedup table,
+        # where two clients colliding (id() reuse across processes or
+        # after GC) would silently hand one client the other's result
+        self._rid_prefix = uuid.uuid4().hex[:16]
+        self._seq = 0
+        self._closed = False
+        self._clean_eof = False
+        self._reconnected = False
+        self._reaper: Optional[threading.Thread] = None
+        self.n_timeouts = 0
+        self.n_reconnects = 0
+        self.n_retries = 0
+        self.n_budget_exhausted = 0
+        from dask_ml_tpu_torch.parallel import telemetry
+
+        self._telemetry_inherit = telemetry.enabled()
+        self._sock = self._connect()
+        self._negotiate_shm()
+
+    def _connect(self):
+        import struct as struct_mod
+
+        sock = socket.create_connection(self.address,
+                                        timeout=self._connect_timeout)
+        # the connect timeout must not leak into the reader's blocking
+        # recv (an idle connection would look like a dead one)
+        sock.settimeout(None)
+        if self.send_timeout is not None:
+            # kernel-level SEND timeout only (SO_SNDTIMEO): a wedged
+            # server whose recv buffer filled must fail the sender's
+            # sendall instead of blocking it forever under the write
+            # lock — socket.settimeout would also arm recv and kill the
+            # reader on every idle connection
+            try:
+                t = float(self.send_timeout)
+                sock.setsockopt(
+                    socket.SOL_SOCKET, socket.SO_SNDTIMEO,
+                    struct_mod.pack("ll", int(t),
+                                    int((t - int(t)) * 1e6)))
+            except (OSError, AttributeError):
+                pass  # platform without SO_SNDTIMEO: keep blocking sends
+        threading.Thread(target=self._read_loop, args=(sock,),
+                         name="fleet-client-reader", daemon=True).start()
+        return sock
+
+    @property
+    def shm_segment(self) -> Optional[str]:
+        """The shared-memory segment this client's requests ride (its
+        name without the leading ``/``), or ``None`` on the TCP wire."""
+        ep = self._shm
+        return None if ep is None else ep.segment.lstrip("/")
+
+    def close(self) -> None:
+        self._closed = True
+        ep, self._shm = self._shm, None
+        if ep is not None:
+            ep.close()
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+
+    def __enter__(self) -> "FleetClient":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def _negotiate_shm(self) -> None:
+        """Offer the server a shared-memory ring for this connection
+        (``op="shm_hello"`` over the just-established TCP wire). Create
+        the segment, name it, wait for the attach verdict: yes → both
+        directions move to the ring and the socket stays open as the
+        doorbell + liveness/EOF channel; no (cross-machine, disabled,
+        old server) → unlink the segment and keep the framed wire.
+        Never raises — TCP is always the safe landing."""
+        if not self._shm_enabled or self._closed:
+            return
+        try:
+            from dask_ml_tpu_torch.parallel import shm as shm_lib
+
+            kwargs = ({} if self._shm_ring_bytes is None
+                      else {"ring_bytes": int(self._shm_ring_bytes)})
+            ep = shm_lib.ShmClient(**kwargs)
+        except Exception:  # noqa: BLE001 — no shm on this platform
+            return
+        with self._lock:
+            self._seq += 1
+            rid = f"{self._rid_prefix}-{self._seq}"
+            fut: Future = Future()
+            self._pending[rid] = fut
+        ok = False
+        try:
+            hello = dict(ep.hello())
+            hello["id"] = rid
+            # the READ LOOP arms the ring the moment it decodes the ACK
+            # (before delivering this future): the very next byte the
+            # server sends after a yes is a doorbell, not a frame, so
+            # the switch cannot be left to this thread — the reader
+            # would already be blocked inside read_frame misparsing it
+            self._shm_pending = (rid, ep)
+            # written directly (the caller already holds _wlock on the
+            # reconnect path; _send_msg would deadlock on it)
+            framing.write_frame_parts(
+                self._sock, framing.encode_payload_parts(hello),
+                magic=framing.WIRE_MAGIC,
+                checksum=framing.WIRE_CHECKSUM)
+            msg = fut.result(10.0)
+            ok = isinstance(msg, dict) and msg.get("shm") is True
+        except Exception:  # noqa: BLE001 — any failure → TCP fallback
+            ok = False
+        finally:
+            self._shm_pending = None
+            with self._lock:
+                self._pending.pop(rid, None)
+                self._deadlines.pop(rid, None)
+        if not ok:
+            with self._lock:
+                armed = self._shm is ep
+                if armed:  # ACK raced the 10s verdict timeout: keep it
+                    ok = True
+            if not ok:
+                ep.close(unlink=True)
+
+    def _drain_shm(self, ep) -> None:
+        """Deliver every response currently in the ring. Responses are
+        small (one result array): copy out and release the record
+        immediately — the hold-until-done discipline matters on the
+        server's request side, not here."""
+        while True:
+            try:
+                rec = ep.recv(timeout=0.0)
+            except framing.PayloadError:
+                continue  # malformed response fails its frame only
+            if rec is None:
+                return
+            msg, arrays, token = rec
+            try:
+                copies = [np.array(a) for a in arrays]
+            finally:
+                ep.release(token)
+            self._dispatch_msg(msg, copies)
+
+    def _shm_doorbell_loop(self, ep, sock) -> bool:
+        """The read loop's shm mode: block on the TCP socket for the
+        server's doorbell byte, then drain the response ring. Every ring
+        record is paired with one byte sent after its READY publish, so
+        drain-to-empty per wakeup never strands a response. Returns True
+        on clean server EOF (mirrors ``read_frame`` returning None);
+        ring corruption raises FrameError, socket death OSError — both
+        unwind through the read loop's one pending-failure path."""
+        while not self._closed and not ep.closed:
+            self._drain_shm(ep)
+            b = sock.recv(4096)
+            if b == b"":
+                return True
+        return False
+
+    def _dispatch_msg(self, msg: dict, arrays) -> None:
+        """Demultiplex one response (either transport) to its future."""
+        rid = msg.get("id")
+        with self._lock:
+            fut = self._pending.pop(rid, None)
+            self._deadlines.pop(rid, None)
+        if fut is None:
+            return  # response to a caller that went away
+        if msg.get("ok"):
+            _set_future(fut, arrays[0] if arrays else msg)
+        else:
+            cls = _WIRE_ERRORS.get(msg.get("error"), RuntimeError)
+            _fail_future(fut, cls(
+                f"[remote {msg.get('error')}] {msg.get('message')}"))
+
+    def _read_loop(self, sock) -> None:
+        exc: BaseException = ServingStopped("wire connection closed")
+        clean = False
+        try:
+            while True:
+                payload = framing.read_frame(
+                    sock, magic=framing.WIRE_MAGIC,
+                    checksum=framing.WIRE_CHECKSUM)
+                if payload is None:
+                    clean = True
+                    break
+                msg, arrays = framing.decode_payload(payload)
+                pend = self._shm_pending
+                if (pend is not None and msg.get("id") == pend[0]
+                        and msg.get("ok") and msg.get("shm") is True):
+                    # the server attached: arm the ring BEFORE waking
+                    # the negotiator, then leave framed mode for good —
+                    # everything after this frame is doorbell bytes
+                    with self._lock:
+                        self._shm = pend[1]
+                    self.n_shm_connects += 1
+                    self._dispatch_msg(msg, arrays)
+                    clean = self._shm_doorbell_loop(pend[1], sock)
+                    break
+                self._dispatch_msg(msg, arrays)
+        except (OSError, framing.FrameError) as e:
+            exc = e
+        finally:
+            with self._lock:
+                if sock is self._sock:
+                    # a cleanly-closed connection arms the one-shot
+                    # reconnect; a torn one stays down
+                    self._clean_eof = clean and not self._closed
+                    ep, self._shm = self._shm, None
+                else:
+                    ep = None
+                pending = list(self._pending.values())
+                self._pending.clear()
+                self._deadlines.clear()
+            if ep is not None:
+                ep.close()  # unlink: this connection's segment dies here
+            cause = (ServingStopped("wire connection closed by server")
+                     if clean else ServingStopped(
+                         f"wire connection lost: {exc!r}"))
+            for fut in pending:
+                _fail_future(fut, cause)
+
+    def _ensure_connected(self) -> None:
+        """Reconnect ONCE after a clean server-side close (under the
+        write lock's caller)."""
+        with self._lock:
+            if not self._clean_eof or self._closed:
+                return
+            if self._reconnected:
+                raise ServingStopped(
+                    "wire connection closed by server (already "
+                    "reconnected once)")
+            self._clean_eof = False
+            self._reconnected = True
+            self.n_reconnects += 1
+        ep, self._shm = self._shm, None
+        if ep is not None:
+            ep.close()  # a fresh connection negotiates a fresh segment
+        try:
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            self._sock = self._connect()
+        except OSError as e:
+            raise ServingStopped(f"wire reconnect failed: {e!r}")
+        self._negotiate_shm()
+
+    def _count_timeout(self) -> None:
+        from dask_ml_tpu_torch.parallel import telemetry
+
+        with self._lock:
+            self.n_timeouts += 1
+        if telemetry.enabled():
+            telemetry.metrics().counter("fleet.timeouts").inc()
+
+    def _reap_loop(self) -> None:
+        import contextlib
+
+        from dask_ml_tpu_torch import config as config_lib
+
+        ctx = (config_lib.config_context(telemetry=True)
+               if self._telemetry_inherit else contextlib.nullcontext())
+        with ctx:
+            while not self._closed:
+                now = time.monotonic()
+                expired = []
+                with self._lock:
+                    for rid, t in list(self._deadlines.items()):
+                        if t <= now:
+                            self._deadlines.pop(rid, None)
+                            fut = self._pending.pop(rid, None)
+                            if fut is not None:
+                                expired.append((rid, fut))
+                    if not self._deadlines and not expired:
+                        # nothing armed: exit instead of idle-polling;
+                        # _arm_deadline restarts the thread (same lock)
+                        self._reaper = None
+                        return
+                for rid, fut in expired:
+                    if _fail_future(fut, FleetTimeoutError(
+                            f"request {rid} got no wire response within "
+                            "its deadline")):
+                        self._count_timeout()
+                time.sleep(0.02)
+
+    def _arm_deadline(self, rid: str, timeout: Optional[float]) -> None:
+        if timeout is None:
+            return
+        with self._lock:
+            self._deadlines[rid] = time.monotonic() + float(timeout)
+            if self._reaper is None or not self._reaper.is_alive():
+                self._reaper = threading.Thread(
+                    target=self._reap_loop, name="fleet-client-reaper",
+                    daemon=True)
+                self._reaper.start()
+
+    def _send_msg(self, control: dict, arrays=()) -> None:
+        from dask_ml_tpu_torch.parallel import telemetry
+
+        with self._wlock:
+            self._ensure_connected()
+            ep = self._shm
+            if ep is not None:
+                # negotiated ring: one encode pass straight into shared
+                # memory (its own wire.bytes{transport="shm"} mirror),
+                # then the doorbell byte that wakes the server's
+                # kernel-blocked reader
+                ep.send(control, arrays, timeout=self.send_timeout)
+                self._sock.sendall(_DOORBELL)
+                return
+            parts = framing.encode_payload_parts(control, arrays)
+            try:
+                n = framing.write_frame_parts(
+                    self._sock, parts, magic=framing.WIRE_MAGIC,
+                    checksum=framing.WIRE_CHECKSUM)
+            except OSError:
+                # the close may have raced the write; one clean-EOF
+                # reconnect attempt, then give up loudly
+                self._ensure_connected()
+                ep = self._shm
+                if ep is not None:
+                    ep.send(control, arrays, timeout=self.send_timeout)
+                    self._sock.sendall(_DOORBELL)
+                    return
+                n = framing.write_frame_parts(
+                    self._sock, parts, magic=framing.WIRE_MAGIC,
+                    checksum=framing.WIRE_CHECKSUM)
+            if telemetry.enabled():
+                telemetry.metrics().counter(
+                    "wire.bytes", transport="tcp").inc(n)
+
+    def _new_request(self) -> tuple:
+        with self._lock:
+            if self._closed:
+                raise ServingStopped("client is closed")
+            self._seq += 1
+            rid = f"{self._rid_prefix}-{self._seq}"
+            fut: Future = Future()
+            self._pending[rid] = fut
+        return rid, fut
+
+    def _send_or_unregister(self, rid: str, fut: Future,
+                            control: dict, arrays=()) -> None:
+        """``_send_msg`` that never leaks: a failed send pops the
+        pending entry and fails the future before re-raising (a polling
+        caller — ping() on a downed server — must not grow
+        ``_pending`` by one dead future per attempt)."""
+        try:
+            self._send_msg(control, arrays)
+        except BaseException as e:
+            with self._lock:
+                self._pending.pop(rid, None)
+                self._deadlines.pop(rid, None)
+            _fail_future(fut, e if isinstance(e, ServingError)
+                         else ServingStopped(f"wire send failed: {e!r}"))
+            raise
+
+    def submit(self, model: str, X, method: str = "predict", *,
+               priority: int = 0,
+               deadline: Optional[float] = None,
+               timeout: Optional[float] = None) -> Future:
+        """Send one request; the Future resolves to the result array,
+        a remote error, or — when ``timeout`` (default: the client's
+        ``request_timeout``) passes with no response —
+        :class:`FleetTimeoutError`."""
+        rid, fut = self._new_request()
+        self._send_or_unregister(
+            rid, fut,
+            {"op": "submit", "id": rid, "model": str(model),
+             "method": str(method), "priority": int(priority),
+             "deadline": deadline}, arrays=(np.asarray(X),))
+        self._arm_deadline(
+            rid, timeout if timeout is not None else self.request_timeout)
+        return fut
+
+    def _call_once(self, model: str, X, method: str = "predict", *,
+                   priority: int = 0, deadline: Optional[float] = None,
+                   timeout: Optional[float] = None) -> np.ndarray:
+        fut = self.submit(model, X, method=method, priority=priority,
+                          deadline=deadline, timeout=timeout)
+        try:
+            return fut.result(timeout if timeout is not None
+                              else self.request_timeout)
+        except _FutureTimeout:
+            # the reaper holds the same deadline and is the ONE counting
+            # site (it fails the still-pending future moments after this
+            # raise) — counting here too would double fleet.timeouts
+            raise FleetTimeoutError(
+                f"no wire response for {model!r}.{method} within "
+                f"{timeout if timeout is not None else self.request_timeout}"
+                "s")
+
+    def call(self, model: str, X, method: str = "predict", *,
+             priority: int = 0, deadline: Optional[float] = None,
+             timeout: Optional[float] = None) -> np.ndarray:
+        """One blocking request, retried (transient failures only: wire
+        timeout, server gone) up to ``retries`` times UNDER the retry
+        budget — when the budget is dry, the original failure surfaces
+        immediately (class docstring has the policy)."""
+        from dask_ml_tpu_torch.parallel import telemetry
+
+        attempts = 0
+        while True:
+            try:
+                out = self._call_once(
+                    model, X, method=method, priority=priority,
+                    deadline=deadline, timeout=timeout)
+            except (FleetTimeoutError, ServingStopped):
+                if attempts >= self.retries or self._closed:
+                    raise
+                if self.retry_budget is not None \
+                        and not self.retry_budget.try_spend():
+                    with self._lock:
+                        self.n_budget_exhausted += 1
+                    if telemetry.enabled():
+                        telemetry.metrics().counter(
+                            "fleet.retry_budget_exhausted").inc()
+                    raise
+                attempts += 1
+                with self._lock:
+                    self.n_retries += 1
+                if telemetry.enabled():
+                    telemetry.metrics().counter("fleet.retries").inc()
+                continue
+            if self.retry_budget is not None:
+                self.retry_budget.on_success()
+            return out
+
+    def stats(self, timeout: float = 10.0) -> dict:
+        """The server's ``op="stats"`` snapshot (queue depth, latency
+        EWMA, pid, …) — :class:`FleetTimeoutError` past ``timeout``."""
+        rid, fut = self._new_request()
+        self._send_or_unregister(rid, fut, {"op": "stats", "id": rid})
+        self._arm_deadline(rid, timeout)
+        try:
+            return dict(fut.result(timeout).get("stats") or {})
+        except _FutureTimeout:
+            raise FleetTimeoutError(  # the reaper counts (see call())
+                f"no stats response within {timeout}s")
+
+    def ping(self, timeout: float = 10.0) -> bool:
+        """Round-trip liveness probe with a hard deadline: True on pong,
+        :class:`FleetTimeoutError` when the server never answers —
+        never an eternal block on a wedged socket."""
+        rid, fut = self._new_request()
+        self._send_or_unregister(rid, fut, {"op": "ping", "id": rid})
+        self._arm_deadline(rid, timeout)
+        try:
+            return bool(fut.result(timeout).get("pong"))
+        except _FutureTimeout:
+            raise FleetTimeoutError(  # the reaper counts (see call())
+                f"no pong within {timeout}s")

@@ -86,13 +86,18 @@ def _totals() -> dict:
     from dask_ml_tpu_torch._kernels import build
 
     with build._builds_lock:
-        return {key: build.builds[src] for key, src in _STAT_KEYS}
+        out = {key: build.builds[src] for key, src in _STAT_KEYS}
+        # the host C builds (the wire's CRC-32C engine) are compiles too
+        out["n_compiles"] += build.builds["cc"]
+        out["compile_seconds"] += build.builds["cc_seconds"]
+        return out
 
 
 def compile_stats() -> dict:
     """Counts since the last :func:`reset_compile_stats`, process-wide:
     ``n_compiles`` / ``compile_seconds`` — ``nvcc`` builds of kernel
-    sources and their wall seconds; ``n_loads`` / ``load_seconds`` —
+    sources (and ``cc`` builds of the host C libraries) and their wall
+    seconds; ``n_loads`` / ``load_seconds`` —
     kernel libraries loaded into the process and the seconds of those
     loads."""
     totals = _totals()

@@ -749,8 +749,17 @@ def test_dispatch_hooks_and_straggle(fitted):
 @pytest.mark.parametrize("plan", ["kill_process", "kill_machine",
                                   "slow_link"])
 def test_process_fleet_plans_wait_for_the_wire_tier(plan):
+    """``kill_process`` is the single-box process fleet's plan and works
+    (one-shot at its request count); the cross-machine plans raise,
+    naming ROADMAP item 11c."""
     fi = FaultInjector()
-    args = {"kill_process": ("p",), "kill_machine": ("m",),
-            "slow_link": ("m", 1.0)}[plan]
-    with pytest.raises(NotImplementedError, match="item 11b"):
+    if plan == "kill_process":
+        assert fi.kill_process("p", after_requests=3) is fi
+        assert not fi.should_kill_process("p", 2)
+        assert fi.should_kill_process("p", 3)
+        assert not fi.should_kill_process("p", 4)  # one-shot
+        assert fi.injected["process_kill"] == 1
+        return
+    args = {"kill_machine": ("m",), "slow_link": ("m", 1.0)}[plan]
+    with pytest.raises(NotImplementedError, match="item 11c"):
         getattr(fi, plan)(*args)

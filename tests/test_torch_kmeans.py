@@ -527,6 +527,8 @@ def test_port_never_imports_jax():
     (``sys.modules[name] = None``), as on the card's machine, which has
     neither: ``model_selection``, ``pipeline`` and the serving tier
     (``parallel.serving``, ``.fleet``, ``.telemetry``, ``utils._log``)
+    and the wire and process tier (``parallel.framing``, ``.shm``,
+    ``.elastic``, ``.launcher``, ``.replica``, ``.procfleet``)
     included, no module needs
     them at import time but the scikit-learn subclasses (the ``Partial*``
     estimators), which are loaded only on access and must fail there with
@@ -591,6 +593,12 @@ def _import_walk(block_sklearn: bool):
         "import dask_ml_tpu_torch.parallel.serving\n"
         "import dask_ml_tpu_torch.parallel.fleet\n"
         "import dask_ml_tpu_torch.parallel.telemetry\n"
+        "import dask_ml_tpu_torch.parallel.framing\n"
+        "import dask_ml_tpu_torch.parallel.shm\n"
+        "import dask_ml_tpu_torch.parallel.elastic\n"
+        "import dask_ml_tpu_torch.parallel.launcher\n"
+        "import dask_ml_tpu_torch.parallel.replica\n"
+        "import dask_ml_tpu_torch.parallel.procfleet\n"
         "import dask_ml_tpu_torch.utils._log\n"
         "from dask_ml_tpu_torch import naive_bayes, cluster\n"
         "from dask_ml_tpu_torch.cluster import minibatch\n"
