@@ -279,6 +279,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    after their warmups, through the drill and the A/B; the killed
    incarnation's die with it).
 
+19. drives the cross-machine fleet (``MACHINES``), the JAX drill
+   ``bench.py`` ``bench_fleet_machines`` on the one card: step 17's K2
+   families (KMeans, the sketched KMeans, MiniBatchKMeans,
+   SpectralClustering) registered once in the router; two loopback
+   "machines" ``m0`` and ``m1`` (isolated workdirs, their own processes);
+   ``ProcessFleet(machines=..., n_replicas=2, device="cuda")`` with
+   4,096-byte snapshot chunks and 8 clients × 24 requests a burst.
+   ``machines-cold`` (each machine's first replica fetches the whole
+   registry, ``bytes_fetched == bytes_total``; every child on ``cuda:0``
+   under the card's name, no build, no launch before traffic),
+   ``machines-burst`` (the ``Autoscaler`` with the JAX drill's SLO calls
+   ``scale_up(1)``; the new replica lands on a warm machine and fetches 0
+   bytes), ``machines-quiet`` (it drains the extra slot: a tombstone and
+   exit 0, no death and no respawn), ``machines-loss``
+   (``kill_machine("m1")`` at a third of fresh traffic:
+   ``machine_deaths == 1``, no request dropped or resolved twice, the lost
+   slot respawns on ``m0`` fetching 0 bytes) and ``machines-steady`` (every
+   live child: no build or load after its warmup, K2 launched since it;
+   every served answer equal to the direct call bit for bit; K2 and K2-x
+   held against their plain versions at the requests' shapes; SIGTERM
+   exits 0 everywhere, no shm segment and no temporary file left in the
+   machines' workdirs). A ``MACHINES`` line carries each phase's seconds,
+   QPS and p99, every fetch's bytes, each child's seconds to ready and the
+   autoscaler's actions; the ``kernels`` line gains ``launches_machines``.
+
 ``python3 chip_smoke.py --spmv-only`` runs steps 1, 2, 6 and 8 alone, on a
 container of the sparse cell's shape drawn on the card;
 ``--glm-pca-only`` runs steps 1, 2 and 9 alone; ``--stream-only`` steps 1,
@@ -288,7 +313,8 @@ and 13; ``--precision-only`` steps 1, 2 and 14; ``--nystrom-only``
 steps 1, 2 and 15; ``--preprocess-only`` steps 1, 2 and 16;
 ``--serving-only`` steps 1, 2 and 17, with a ``kernels`` line of K2, K2-x
 and K6 at the serving shapes; ``--wire-only`` steps 1, 2 and 18, with a
-``kernels`` line of K2 and K2-x.
+``kernels`` line of K2 and K2-x; ``--machines-only`` steps 1, 2 and 19,
+with a ``kernels`` line of K2 and K2-x.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
@@ -7219,6 +7245,323 @@ def wire_cells(dev, errs):
     return launches, proc_launches, summary
 
 
+# the cross-machine drill (bench.py bench_fleet_machines, :4210-4213 and
+# :4298): 2 replicas over 2 machines, 8 clients x 24 requests a burst,
+# 4,096-byte snapshot chunks; the SLO breaches on queue depth alone
+MACH_REPLICAS, MACH_CLIENTS, MACH_REQUESTS = 2, 8, 24
+MACH_CHUNK_BYTES = 4096
+MACH_SLO = dict(target_p99_s=float("inf"), max_queue_depth=3.0,
+                max_shed_per_s=0.0)
+MACH_SCALER = dict(min_replicas=MACH_REPLICAS,
+                   max_replicas=MACH_REPLICAS + 1, interval_s=0.1,
+                   breach_ticks=2, quiet_ticks=5, scale_up_cooldown_s=1.0,
+                   scale_down_cooldown_s=2.0)
+# a fresh child on the card takes 10-20 s to ready (PERF.md §5): the waits for
+# the scale-up and the respawn hold that several times over
+MACH_WAIT = 180.0
+
+
+def machines_check_kernels(dev, models, pools, errs):
+    """K2 and K2-x against their plain versions at the shapes the
+    machines' requests give them: one request of each size of SRV_SIZES
+    a K2 family, its direct predict taken as the served answer (the drill
+    holds served == direct bit for bit). Returns the batches checked and
+    the near-ties seen."""
+    import torch
+
+    captured = {}
+    for name in SRV_K2:
+        captured[name] = []
+        for n in SRV_SIZES:
+            X = pools[name][:n]
+            captured[name].append((torch.as_tensor(X, device=dev),
+                                   models[name].predict(X)))
+    return check_served_batches(models, captured, errs)
+
+
+def machines_closed_loop(fleet, trace, models):
+    """One closed loop of ``trace`` through ``fleet`` by MACH_CLIENTS
+    clients: every request resolves, every answer equal to the direct call
+    bit for bit. Returns (latency summary, first resolutions the router
+    counted)."""
+    before = fleet.n_results
+
+    def send(req):
+        name, method, X, _ = req
+        return fleet.submit(name, X, method=method).result(MACH_WAIT)
+
+    wall, lat, results, _ = closed_loop(trace, MACH_CLIENTS, send)
+    for (name, method, X, _), got in zip(trace, results):
+        expect(got is not None, "a machines-fleet request was dropped")
+        expect(np.array_equal(got, getattr(models[name], method)(X)),
+               f"machines {name}: a served answer differs from direct")
+    return latency_summary(wall, lat, len(trace)), fleet.n_results - before
+
+
+def machines_wait(what: str, cond) -> float:
+    """Poll ``cond()`` every 50 ms for up to MACH_WAIT seconds; fails
+    naming ``what``. Returns the seconds waited."""
+    t0 = time.monotonic()
+    while not cond():
+        expect(time.monotonic() - t0 < MACH_WAIT, f"{what} within "
+               f"{MACH_WAIT} s")
+        time.sleep(0.05)
+    return time.monotonic() - t0
+
+
+def machines_cells(dev, errs):
+    """The MACHINES phase (step 19) on step 17's K2 families. Returns
+    (the launches the live children counted since their warmups, summed,
+    summary)."""
+    import os
+    import shutil
+    import tempfile
+
+    from dask_ml_tpu_torch.parallel import shm as shm_lib
+    from dask_ml_tpu_torch.parallel.autoscaler import SLO, Autoscaler
+    from dask_ml_tpu_torch.parallel.faults import FaultInjector
+    from dask_ml_tpu_torch.parallel.launcher import MachineSpec
+    from dask_ml_tpu_torch.parallel.procfleet import ProcessFleet
+
+    K2, K2X = "fused_argmin_min", "fused_argmin_min_sketched"
+    t_all = time.perf_counter()
+    all_models, pools = serving_models(dev)
+    models = {name: all_models[name] for name in SRV_K2}
+    n_batches, ties = machines_check_kernels(dev, models, pools, errs)
+    device = "cuda" if dev.type == "cuda" else "cpu"
+    kind = None
+    if dev.type == "cuda":
+        import torch
+
+        kind = torch.cuda.get_device_name(0)
+    summary = {"smi": smi_name_power(), "models": sorted(models),
+               "kernel_checks": {"batches": n_batches, "near_ties": ties}}
+    phases = summary["phases"] = {}
+    n_trace = MACH_CLIENTS * MACH_REQUESTS
+    base = tempfile.mkdtemp(prefix="chip_smoke_machines_")
+    machines = [MachineSpec(name=m, workdir=os.path.join(base, m))
+                for m in ("m0", "m1")]
+    inj = FaultInjector()
+    fleet = ProcessFleet(
+        n_replicas=MACH_REPLICAS, device=device, name="mach",
+        workdir=os.path.join(base, "router"), machines=machines,
+        fault_injector=inj, snapshot_chunk_bytes=MACH_CHUNK_BYTES,
+        max_batch_rows=SRV_MAX_ROWS, request_timeout_s=MACH_WAIT,
+        spawn_timeout_s=MACH_WAIT, heartbeat_timeout_s=5.0)
+    for name, est in models.items():
+        fleet.register(name, est)
+    scaler = None
+    try:
+        # -- machines-cold: each machine's first replica fetches it all
+        t0 = time.perf_counter()
+        fleet.start()
+        st = fleet.stats()
+        phases["cold"] = {"seconds": time.perf_counter() - t0}
+        fetches = {name: r["snapshot_fetch"]
+                   for name, r in st["replicas"].items()}
+        full = st["snapshot_server"]
+        expect({m: len(r["replicas"]) for m, r in st["machines"].items()}
+               == {"m0": 1, "m1": 1},
+               f"placement over the machines: {st['machines']}")
+        total = None
+        for name, fs in fetches.items():
+            expect(fs is not None, f"{name} reports no snapshot fetch")
+            total = fs["bytes_total"] if total is None else total
+            expect(fs["bytes_fetched"] == fs["bytes_total"] == total
+                   and fs["chunks_total"] >= 2,
+                   f"{name}'s cold fetch is not the whole registry: {fs}")
+        expect(full["bytes_sent"] == MACH_REPLICAS * total,
+               f"the snapshot server sent {full['bytes_sent']} bytes for "
+               f"{MACH_REPLICAS} cold fetches of {total}")
+        phases["cold"].update(
+            registry_bytes=total, chunks=fetches[next(iter(fetches))][
+                "chunks_total"],
+            fetches={name: fs["bytes_fetched"]
+                     for name, fs in fetches.items()},
+            ready_s={name: r["start_s"] for name, r in st["replicas"].items()},
+            child_phases={name: r["phases"]
+                          for name, r in st["replicas"].items()})
+        remote = fleet.remote_stats(timeout=60)
+        for name, r in remote.items():
+            expect(r["pid"] != os.getpid(), f"{name} runs in the router")
+            want_dev = "cuda:0" if device == "cuda" else "cpu"
+            expect(r["device"] == want_dev,
+                   f"{name} serves on {r['device']}, not {want_dev}")
+            if kind is not None:
+                expect(r["device_name"] == kind,
+                       f"{name} is on {r['device_name']}, not {kind}")
+            expect(r["n_builds"] == 0, f"{name} built a library")
+            expect(not r["steady_launches"], f"{name} launched "
+                   f"{r['steady_launches']} after its warmup, before "
+                   "any traffic")
+        log(f"machines-cold: {phases['cold']}")
+
+        # -- machines-burst: the autoscaler scales up on a warm machine
+        deaths0, respawns0 = st["replica_deaths"], st["respawns"]
+        scaler = Autoscaler(fleet, SLO(**MACH_SLO), **MACH_SCALER)
+        t0 = time.perf_counter()
+        scaler.start()
+        bursts, burst_lat, seed = 0, [], 0
+        while scaler.n_scale_ups < 1 or fleet.replicas_up() \
+                < MACH_REPLICAS + 1:
+            expect(time.perf_counter() - t0 < MACH_WAIT,
+                   "the autoscaler did not scale up under the burst")
+            trace = k2_trace(pools, n_trace, [SEED, 50, seed])
+            seed += 1
+            lat, first = machines_closed_loop(fleet, trace, models)
+            expect(first == len(trace), f"burst: {first} first "
+                   f"resolutions for {len(trace)} requests")
+            bursts += 1
+            burst_lat.append(lat)
+        st = fleet.stats()
+        new = [name for name, r in st["replicas"].items()
+               if name not in fetches]
+        expect(len(new) == 1, f"the burst added {new}")
+        nf = st["replicas"][new[0]]["snapshot_fetch"]
+        expect(nf["bytes_fetched"] == 0
+               and nf["chunks_cached"] == nf["chunks_total"],
+               f"the scale-up fetched {nf['bytes_fetched']} bytes: {nf}")
+        phases["burst"] = {
+            "seconds": time.perf_counter() - t0, "bursts": bursts,
+            "traffic": burst_lat, "scaled_up": new[0],
+            "machine": st["replicas"][new[0]]["machine"],
+            "fetch_bytes": nf["bytes_fetched"],
+            "ready_s": st["replicas"][new[0]]["start_s"],
+            "child_phases": st["replicas"][new[0]]["phases"]}
+        log(f"machines-burst: {phases['burst']}")
+
+        # -- machines-quiet: the autoscaler drains the extra slot
+        t0 = time.perf_counter()
+        machines_wait("the autoscaler's drain",
+                      lambda: scaler.n_scale_downs >= 1
+                      and fleet.stats()["drains"] >= 1)
+        scaler.stop()
+        machines_wait("the drained child's exit",
+                      lambda: fleet.stats()["replicas"][new[0]]["returncode"]
+                      is not None)
+        st = fleet.stats()
+        expect(st["replicas"][new[0]]["retired"]
+               and st["replicas"][new[0]]["returncode"] == 0,
+               f"the drained slot: {st['replicas'][new[0]]}")
+        expect(st["replica_deaths"] == deaths0
+               and st["respawns"] == respawns0,
+               f"the drain moved the death ({st['replica_deaths']}) or "
+               f"respawn ({st['respawns']}) counter")
+        expect(fleet.replicas_up() == MACH_REPLICAS,
+               f"{fleet.replicas_up()} replicas up after the drain")
+        phases["quiet"] = {"seconds": time.perf_counter() - t0,
+                           "drained": new[0], "exit_code": 0}
+        summary["autoscaler"] = {
+            **scaler.stats(),
+            "decisions": [{k: v for k, v in d.items() if k != "signals"}
+                          for d in scaler.decisions]}
+        expect(scaler.n_scale_ups == 1 and scaler.n_scale_downs == 1,
+               f"autoscaler actions: {summary['autoscaler']}")
+        log(f"machines-quiet: {phases['quiet']}; autoscaler "
+            f"{summary['autoscaler']}")
+
+        # -- machines-loss: m1 dies at a third of fresh traffic
+        t0 = time.perf_counter()
+        on_m1 = st["machines"]["m1"]["replicas"]
+        hedged0, wins0 = st["hedged"], st["hedge_wins"]
+        reroutes0 = st["reroutes"]
+        inj.kill_machine("m1", after_results=fleet.n_results + n_trace // 3)
+        trace = k2_trace(pools, n_trace, [SEED, 51])
+        lat, first = machines_closed_loop(fleet, trace, models)
+        expect(first == len(trace), f"machine loss: {first} first "
+               f"resolutions for {len(trace)} requests")
+        machines_wait("the lost slot's respawn",
+                      lambda: fleet.replicas_up() >= MACH_REPLICAS
+                      and fleet.stats()["respawns"] > respawns0)
+        st = fleet.stats()
+        expect(st["machine_deaths"] == 1 and st["machines"]["m1"]["down"]
+               and inj.injected["machine_kill"] == 1,
+               f"machine deaths {st['machine_deaths']}, m1 "
+               f"{st['machines']['m1']}")
+        live = {name: r for name, r in st["replicas"].items()
+                if not r["dead"] and not r["retired"]}
+        expect({r["machine"] for r in live.values()} == {"m0"},
+               f"live replicas after the loss: {live}")
+        respawned = {name: r for name, r in live.items() if r["gen"] > 1}
+        expect(set(respawned) == set(on_m1),
+               f"respawned {sorted(respawned)}, lost {on_m1}")
+        for name, r in respawned.items():
+            expect(r["snapshot_fetch"]["bytes_fetched"] == 0,
+                   f"{name}'s respawn fetched "
+                   f"{r['snapshot_fetch']['bytes_fetched']} bytes")
+            expect(r["past_exits"][-1][1] == -9,
+                   f"{name}'s killed incarnation: {r['past_exits']}")
+        phases["loss"] = {
+            "seconds": time.perf_counter() - t0, "traffic": lat,
+            "machine_deaths": st["machine_deaths"],
+            "replica_deaths": st["replica_deaths"] - deaths0,
+            "reroutes": st["reroutes"] - reroutes0,
+            "hedged": st["hedged"] - hedged0,
+            "hedge_wins": st["hedge_wins"] - wins0, "dropped": 0,
+            "double_resolved": 0,
+            "respawned": {name: {"machine": r["machine"],
+                                 "fetch_bytes":
+                                     r["snapshot_fetch"]["bytes_fetched"],
+                                 "ready_s": r["start_s"],
+                                 "child_phases": r["phases"]}
+                          for name, r in respawned.items()}}
+        log(f"machines-loss: {phases['loss']}")
+
+        # -- machines-steady: the rejoined fleet
+        t0 = time.perf_counter()
+        trace = k2_trace(pools, n_trace, [SEED, 52])
+        lat, first = machines_closed_loop(fleet, trace, models)
+        expect(first == len(trace), "steady: a request resolved twice")
+        remote = fleet.remote_stats(timeout=60)
+        launches = {K2: 0, K2X: 0}
+        children = {}
+        for name, r in remote.items():
+            expect("error" not in r, f"{name}: {r}")
+            expect(r["steady_compiles"] == 0,
+                   f"{name} built or loaded after its warmup: {r}")
+            expect(r["n_builds"] == 0, f"{name} built a library")
+            if device == "cuda":
+                expect(r["device"] == "cuda:0"
+                       and r["device_name"] == kind,
+                       f"{name} on {r['device']} {r['device_name']}")
+                expect(r["steady_launches"].get(K2, 0) > 0,
+                       f"{name} launched no K2 since its warmup: "
+                       f"{r['steady_launches']}")
+            for k in launches:
+                launches[k] += int(r["steady_launches"].get(k, 0))
+            children[name] = {k: r[k] for k in (
+                "pid", "device", "device_name", "steady_launches",
+                "n_builds", "n_loads", "steady_loads", "snapshot_fetch")}
+        if device == "cuda":
+            expect(launches[K2X] > 0, "no child launched K2-x since its "
+                   f"warmup: {launches}")
+        phases["steady"] = {"seconds": time.perf_counter() - t0,
+                            "traffic": lat}
+        summary["children"] = children
+        summary["launches"] = launches
+        summary["snapshot_server"] = st["snapshot_server"]
+        log(f"machines-steady: {phases['steady']}")
+    finally:
+        if scaler is not None:
+            scaler.stop()
+        fleet.stop(timeout=60)
+    codes = {name: r["returncode"]
+             for name, r in fleet.stats()["replicas"].items()}
+    expect(all(c == 0 for c in codes.values()),
+           f"a replica did not drain to exit 0 on SIGTERM: {codes}")
+    left = shm_lib.list_segments()
+    expect(not left, f"shm segments left after stop(): {left}")
+    stray = [os.path.join(d, f) for m in machines
+             for d, _, files in os.walk(m.workdir) for f in files
+             if f.endswith((".tmp", ".lock"))]
+    expect(not stray, f"temporary files left in the workdirs: {stray}")
+    shutil.rmtree(base, ignore_errors=True)
+    summary["exit_codes"] = codes
+    summary["seconds"] = time.perf_counter() - t_all
+    log("MACHINES " + json.dumps(summary))
+    return launches, summary
+
+
 def main() -> int:
     import torch
 
@@ -7342,6 +7685,21 @@ def main() -> int:
                 if l.get(r["name"])}
             r["launches_proc"] = int(proc_launches.get(r["name"], 0))
         log("WIRE max_abs_err " + json.dumps(wire_errs))
+        print(json.dumps({"kernels": rows}), flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+        return 0
+
+    if "--machines-only" in sys.argv[1:]:
+        mach_errs = {}
+        mach_launches, _ = machines_cells(dev, mach_errs)
+        models, pools = serving_models(dev)
+        rows = kernel_rows(serving_kernel_rows(dev, models, pools, None),
+                           mach_launches, mach_errs)
+        for r in rows:
+            r["launches_machines"] = int(mach_launches[r["name"]])
+        log("MACHINES max_abs_err " + json.dumps(mach_errs))
         print(json.dumps({"kernels": rows}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
@@ -7592,6 +7950,16 @@ def main() -> int:
         if r["name"] in wire_errs:
             r["max_abs_err_wire"] = wire_errs[r["name"]]
             r["max_abs_err"] = max(r["max_abs_err"], wire_errs[r["name"]])
+    torch.cuda.empty_cache()
+
+    mach_errs = {}
+    mach_launches, _ = machines_cells(dev, mach_errs)
+    for r in rows:
+        if r["name"] in mach_launches:
+            r["launches_machines"] = int(mach_launches[r["name"]])
+        if r["name"] in mach_errs:
+            r["max_abs_err_machines"] = mach_errs[r["name"]]
+            r["max_abs_err"] = max(r["max_abs_err"], mach_errs[r["name"]])
     torch.cuda.empty_cache()
 
     bf16, _ = precision_cells(dev, f32_inertia=blobs_inertia)

@@ -25,6 +25,20 @@ Knobs:
   device tensor instead of host numpy (:func:`maybe_host`).
 - ``telemetry`` — when True, :func:`~dask_ml_tpu_torch.parallel.telemetry.span`
   wraps each phase in ``torch.profiler.record_function``.
+- ``pad_policy`` — ``"auto"`` (the default), ``None`` or a
+  :class:`~dask_ml_tpu_torch.parallel.shapes.PadPolicy`, resolved by
+  :func:`~dask_ml_tpu_torch.parallel.shapes.active_policy` and used by
+  :func:`~dask_ml_tpu_torch.parallel.shapes.bucket_rows`. The JAX package
+  buckets every staged row count under it; the port's staging pads nothing
+  (eager PyTorch compiles nothing per shape), so the knob changes no fit.
+- ``compilation_cache`` — a directory, process-wide only
+  (:func:`config_context` refuses to change it, as the JAX package does;
+  it may restate the process's value, as a worker thread does when it
+  re-enters its caller's configuration). The JAX
+  package points XLA's persistent cache there; the port has no XLA, and
+  its kernel builds persist in ``_kernels/_build`` anyway, so
+  :func:`set_config` only creates the directory
+  (:func:`~dask_ml_tpu_torch.parallel.shapes.enable_persistent_cache`).
 """
 
 from __future__ import annotations
@@ -41,6 +55,8 @@ _DEFAULTS: dict[str, Any] = {
     "precision": "auto",
     "device_outputs": False,
     "telemetry": False,
+    "pad_policy": "auto",
+    "compilation_cache": None,
 }
 
 _global_config = dict(_DEFAULTS)
@@ -72,11 +88,32 @@ def _validate_options(options: dict) -> None:
                 f"dtype={v!r}: the port stages float32 or bfloat16")
         if k == "device":
             torch.device(v)  # raises on a malformed device string
+        if k == "pad_policy" and v is not None and v != "auto":
+            from dask_ml_tpu_torch.parallel.shapes import PadPolicy
+
+            if not isinstance(v, PadPolicy):
+                raise ValueError(
+                    f"pad_policy must be 'auto', None, or a PadPolicy; "
+                    f"got {v!r}")
+
+
+def get_option(name: str):
+    """One option of the effective configuration (a ``KeyError`` for an
+    unknown name)."""
+    cfg = get_config()
+    if name not in cfg:
+        raise KeyError(
+            f"unknown config option {name!r}; valid: {sorted(_DEFAULTS)}")
+    return cfg[name]
 
 
 def set_config(**options) -> None:
     """Set process-wide defaults (``set_config(device="cpu")``)."""
     _validate_options(options)
+    if "compilation_cache" in options:
+        from dask_ml_tpu_torch.parallel.shapes import enable_persistent_cache
+
+        enable_persistent_cache(options["compilation_cache"])
     _global_config.update(options)
 
 
@@ -90,8 +127,18 @@ def reset_config() -> None:
 def config_context(**options):
     """Scoped, nestable, thread-local override."""
     _validate_options(options)
+    options = dict(options)
+    # process-wide only: a scope may restate the process's value (a
+    # worker thread re-entering its caller's whole configuration), not
+    # change it
+    if options.pop("compilation_cache",
+                   _global_config["compilation_cache"]) \
+            != _global_config["compilation_cache"]:
+        raise ValueError(
+            "compilation_cache is process-wide; use "
+            "set_config(compilation_cache=...) instead of config_context")
     stack = _stack()
-    stack.append(dict(options))
+    stack.append(options)
     try:
         yield
     finally:

@@ -11,6 +11,9 @@ cancels to 0 there. Variance smoothing is scikit-learn's
 (``var_smoothing`` times the largest pooled feature variance), with an
 absolute floor so that all-constant data keeps finite likelihoods.
 
+:func:`logsumexp` is the stable log-sum-exp reduction of the reference's
+surface.
+
 ``PartialMultinomialNB`` and ``PartialBernoulliNB`` subclass
 scikit-learn's estimators and load on first access (module
 ``__getattr__``), so this module imports without scikit-learn.
@@ -26,7 +29,19 @@ from dask_ml_tpu_torch.config import resolve_device
 from dask_ml_tpu_torch.parallel.sharding import prepare_data
 from dask_ml_tpu_torch.utils.validation import check_array
 
-__all__ = ["GaussianNB", "PartialMultinomialNB", "PartialBernoulliNB"]
+__all__ = ["GaussianNB", "PartialMultinomialNB", "PartialBernoulliNB",
+           "logsumexp"]
+
+
+def logsumexp(arr, axis=0):
+    """Stable ``log(sum(exp(arr)))`` along ``axis`` (``None``: over every
+    axis), a tensor. A tensor is reduced where it lies, in its dtype;
+    other input is staged float32 on the configured device, as the JAX
+    package's (x64 off) is."""
+    t = arr if isinstance(arr, torch.Tensor) else torch.as_tensor(
+        np.asarray(arr, dtype=np.float32), device=resolve_device())
+    dim = tuple(range(t.ndim)) if axis is None else axis
+    return torch.logsumexp(t, dim=dim)
 
 
 def _global_mean(X, w):

@@ -1,5 +1,6 @@
-"""Staging, streaming, fault tolerance, telemetry, the serving tier and
-its single-box wire and process fleet, of the PyTorch port."""
+"""Staging, streaming, fault tolerance, telemetry, the serving tier, its
+wire and process fleet on one box or across machines (chunk-addressed
+snapshots, the SLO autoscaler), of the PyTorch port."""
 
 from dask_ml_tpu_torch.parallel.faults import (  # noqa: F401
     BlockFetchError,
@@ -11,6 +12,8 @@ from dask_ml_tpu_torch.parallel.faults import (  # noqa: F401
 )
 from dask_ml_tpu_torch.parallel.shapes import (  # noqa: F401
     PadPolicy,
+    active_policy,
+    bucket_rows,
     compile_stats,
     pad_tail,
     reset_compile_stats,
@@ -63,3 +66,15 @@ from dask_ml_tpu_torch.parallel.shm import (  # noqa: F401
 )
 from dask_ml_tpu_torch.parallel.replica import ReplicaHost  # noqa: F401
 from dask_ml_tpu_torch.parallel.procfleet import ProcessFleet  # noqa: F401
+from dask_ml_tpu_torch.parallel.snapshots import (  # noqa: F401
+    ChunkCache,
+    SnapshotCorruptError,
+    SnapshotServer,
+    SnapshotTransferError,
+    fetch_snapshot,
+    manifest_of,
+)
+from dask_ml_tpu_torch.parallel.autoscaler import (  # noqa: F401
+    SLO,
+    Autoscaler,
+)

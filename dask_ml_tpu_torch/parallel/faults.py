@@ -17,9 +17,10 @@
   synthetic or a real straggler replica, kill a replica's dispatch
   thread), which drive the same hooks as real failures, and for the
   process fleet (``kill_process``: a real ``SIGKILL`` a replica process
-  delivers to itself at a request count). The cross-machine plans
-  (``kill_machine``, ``slow_link``) belong to ROADMAP Queue A item 11c;
-  they raise.
+  delivers to itself at a request count) and its cross-machine roster
+  (``kill_machine``: every replica of a machine SIGKILLed at once by the
+  router; ``slow_link``: a delay before each snapshot chunk sent to one
+  machine).
 
 What may be retried on the card: ``torch.cuda.OutOfMemoryError`` only. A
 ``RuntimeError`` that reports a CUDA error (an illegal address, a failed
@@ -91,10 +92,6 @@ class SimulatedReplicaDeath(RuntimeError):
     :class:`InjectedFault`: a dead replica is terminal for that replica,
     never something its own retry policy should hide; the fleet survives
     it by re-routing and replaying (``parallel/fleet.py``)."""
-
-
-_MACHINE_TIER = ("{} belongs to the cross-machine fleet, ROADMAP Queue A "
-                 "item 11c, which the port does not have yet")
 
 
 # ---------------------------------------------------------------------------
@@ -438,12 +435,15 @@ class FaultInjector:
         self._kill_replica: dict = {}    # replica -> after_batches
         self._straggle: dict = {}        # replica -> [count, every, s, left]
         self._kill_process: dict = {}    # process name -> after_requests
+        self._kill_machine: dict = {}    # machine -> after_results
+        self._slow_link: dict = {}       # machine -> [chunks_left, seconds]
         self._p_load = 0.0
         self._p_exc = InjectedLoaderError
         self.injected = {"load": 0, "transfer": 0, "delay": 0, "preempt": 0,
                          "dispatch_delay": 0, "slow_replica": 0,
                          "replica_kill": 0, "straggle": 0,
-                         "process_kill": 0}
+                         "process_kill": 0, "machine_kill": 0,
+                         "slow_link": 0}
 
     # -- planning ----------------------------------------------------------
 
@@ -545,11 +545,57 @@ class FaultInjector:
         if self.should_kill_process(name, n_requests):
             os.kill(os.getpid(), signal.SIGKILL)
 
-    def kill_machine(self, machine: str, *, after_results: int = 0):
-        raise NotImplementedError(_MACHINE_TIER.format("kill_machine"))
+    def kill_machine(self, machine: str, *,
+                     after_results: int = 0) -> "FaultInjector":
+        """Kill every replica process of roster machine ``machine`` at
+        once, when the fleet has resolved ``after_results`` requests: the
+        machine-loss drill (power loss, kernel panic, partition). All its
+        heartbeats stop in the same instant and all its sockets go dark
+        together, which is what the router's machine-death detection keys
+        on. The process fleet's router polls :meth:`should_kill_machine`
+        from its monitor and SIGKILLs each of the machine's replica pids.
+        One-shot per machine."""
+        self._kill_machine[str(machine)] = int(after_results)
+        return self
 
-    def slow_link(self, machine: str, seconds: float, *, chunks=None):
-        raise NotImplementedError(_MACHINE_TIER.format("slow_link"))
+    def should_kill_machine(self, machine: str, n_results: int) -> bool:
+        """True exactly once, when the fleet has resolved
+        ``after_results`` requests (see :meth:`kill_machine`)."""
+        with self._lock:
+            after = self._kill_machine.get(str(machine))
+            if after is None or int(n_results) < after:
+                return False
+            del self._kill_machine[str(machine)]
+            self.injected["machine_kill"] += 1
+        self._mirror("machine_kill")
+        return True
+
+    def slow_link(self, machine: str, seconds: float, *,
+                  chunks: Optional[int] = None) -> "FaultInjector":
+        """Slow the snapshot link to roster machine ``machine``: the
+        snapshot server sleeps ``seconds`` before each chunk it sends that
+        machine (``chunks`` bounds how many; default: all). A real wall
+        clock delay, the drill for a resumable transfer over a slow link
+        (``parallel/snapshots.py``); chunk requests carry their machine's
+        name, so only that link slows."""
+        self._slow_link[str(machine)] = [
+            -1 if chunks is None else int(chunks), float(seconds)]
+        return self
+
+    def link_delay(self, machine: str) -> float:
+        """Seconds the snapshot server must wait before it sends the next
+        chunk to ``machine`` (0.0 when no :meth:`slow_link` plan fires).
+        The caller sleeps; the injector only decides."""
+        with self._lock:
+            plan = self._slow_link.get(str(machine))
+            if not plan or plan[0] == 0:
+                return 0.0
+            if plan[0] > 0:
+                plan[0] -= 1
+            self.injected["slow_link"] += 1
+            seconds = plan[1]
+        self._mirror("slow_link")
+        return seconds
 
     def random_load_failures(self, p: float,
                              exc_type=InjectedLoaderError) -> "FaultInjector":

@@ -49,13 +49,11 @@ staying open as the doorbell and the liveness channel. :class:`FleetClient`
 adds per-request deadlines (:class:`FleetTimeoutError`), one reconnect
 after a clean server close, and retries spent from a :class:`RetryBudget`.
 The process fleet (``parallel/procfleet.py``) runs each replica as an OS
-process behind this wire. The wire mirrors ``wire.bytes{transport=}`` and
-``wire.hash_seconds{algo=}`` (at the framing's hash site) into the
+process behind this wire, on one box or across a roster of machines
+(``ProcessFleet(machines=)``, whose registry ships over the snapshot wire
+of ``parallel/snapshots.py``). The wire mirrors ``wire.bytes{transport=}``
+and ``wire.hash_seconds{algo=}`` (at the framing's hash site) into the
 telemetry registry.
-
-The cross-machine part of the JAX package's fleet (the ``machines=``
-roster of the process fleet, its snapshot server, the autoscaler) is
-ROADMAP Queue A item 11c.
 """
 
 from __future__ import annotations

@@ -17,9 +17,9 @@ counterpart of ``dask_ml_tpu/parallel/launcher.py``).
 - :func:`plan_placement` assigns replica slots to roster rows, least
   loaded first, weighted by device inventory.
 
-The process fleet of the port runs on one implicit local machine; its
-``machines=`` roster, which places replicas on other machines through
-these launchers, is ROADMAP Queue A item 11c.
+The process fleet runs on one implicit local machine unless it is given a
+``machines=`` roster, which places its replicas on those machines through
+these launchers.
 """
 
 from __future__ import annotations

@@ -33,6 +33,16 @@ domain. This module is the same router over real processes:
 - **Hedging.** A request waiting past ``hedge_factor`` times a quantile of
   its replica's recent latencies (floored at ``hedge_min_s``) is sent once
   more to the next-best replica; the first answer wins.
+- **Machines.** Given a ``machines=`` roster (``parallel/launcher.py``),
+  slots are placed across machines weighted by their device inventory,
+  each machine's workdir carries its own heartbeats, and the registry
+  ships chunk-addressed over the snapshot wire (``parallel/snapshots.py``)
+  through one chunk cache a machine, so a second replica or a respawn on a
+  warm machine fetches no snapshot byte. A machine all of whose replicas
+  die at once is marked down: its requests replay on survivors and its
+  slots respawn on the surviving machines. Without a roster the fleet runs
+  on one implicit local machine and the children read the snapshot from
+  disk.
 
 Several processes on one card time-slice it (without MPS their kernels
 never overlap), so on one H100 the fleet buys fault isolation, not
@@ -42,11 +52,8 @@ Telemetry, at the increment sites: ``serving.hedged{replica=}``,
 ``serving.hedge_wins{replica=}``, ``fleet.respawns{replica=,pid=}``,
 ``fleet.replica_deaths{replica=,pid=}``, ``fleet.reroutes{replica=}``,
 ``fleet.spillover{replica=}``, ``fleet.shed{model=}``, ``fleet.drains``,
-``fleet.scale_ups`` and the ``fleet.replica_up`` gauge.
-
-The cross-machine roster of the JAX package's process fleet
-(``machines=``, its snapshot server, machine deaths) is ROADMAP Queue A
-item 11c and raises.
+``fleet.scale_ups``, ``fleet.machine_deaths{machine=}`` and the
+``fleet.replica_up`` gauge.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import signal as signal_mod
 import subprocess
 import sys
 import tempfile
@@ -72,7 +80,11 @@ from dask_ml_tpu_torch.parallel.fleet import (
     FleetTimeoutError,
     _set_future,
 )
-from dask_ml_tpu_torch.parallel.launcher import LocalLauncher, MachineSpec
+from dask_ml_tpu_torch.parallel.launcher import (
+    LocalLauncher,
+    MachineSpec,
+    plan_placement,
+)
 from dask_ml_tpu_torch.parallel.replica import save_registry_snapshot
 from dask_ml_tpu_torch.parallel.serving import (
     DeadlineExceeded,
@@ -85,9 +97,6 @@ from dask_ml_tpu_torch.parallel.serving import (
 
 __all__ = ["ProcessFleet"]
 
-_MACHINE_TIER = ("{} belongs to the cross-machine fleet, ROADMAP Queue A "
-                 "item 11c, which the port does not have yet")
-
 
 @dataclasses.dataclass(eq=False)
 class _ProcReplica:
@@ -95,6 +104,9 @@ class _ProcReplica:
 
     slot: int
     name: str
+    #: the roster row the slot runs on (placed at start, scale-up and
+    #: respawn)
+    machine: Optional[MachineSpec] = None
     proc: Optional[subprocess.Popen] = None
     pid: Optional[int] = None
     address: Optional[tuple] = None
@@ -102,6 +114,9 @@ class _ProcReplica:
     warmup: Optional[dict] = None
     #: the incarnation's announce: its device and start phases
     announce: Optional[dict] = None
+    #: the incarnation's snapshot transfer (machines mode): bytes_fetched,
+    #: chunks_cached, ...
+    fetch: Optional[dict] = None
     #: seconds from this incarnation's spawn to its readiness
     start_s: Optional[float] = None
     t_spawn: float = 0.0
@@ -192,10 +207,22 @@ class ProcessFleet:
         requests. One-shot: only the slot's first incarnation carries it.
     launcher : Launcher, optional
         The spawn hook (default
-        :class:`~dask_ml_tpu_torch.parallel.launcher.LocalLauncher`).
-    machines : list, optional
-        The cross-machine roster: ROADMAP Queue A item 11c, so anything
-        but ``None`` raises.
+        :class:`~dask_ml_tpu_torch.parallel.launcher.LocalLauncher`; a
+        deployment over SSH passes an :class:`~dask_ml_tpu_torch.parallel.
+        launcher.ExecLauncher`).
+    machines : list of MachineSpec, optional
+        The cross-machine roster (the module docstring). On the card each
+        child still gets its ``CUDA_VISIBLE_DEVICES`` round robin over the
+        cards the router sees; a machine's ``env`` overrides it. Default:
+        one implicit local machine.
+    fault_injector : FaultInjector, optional
+        Router-side chaos: ``kill_machine`` plans, polled by the monitor
+        (SIGKILL to every replica of the machine at a count of resolved
+        requests), and ``slow_link`` plans, which delay the snapshot
+        server's chunks to one machine.
+    snapshot_chunk_bytes : int, optional
+        The snapshot wire's chunk size (default
+        :data:`~dask_ml_tpu_torch.parallel.snapshots.DEFAULT_CHUNK_BYTES`).
     """
 
     #: routing quantum: EWMA differences below it are jitter, not signal
@@ -222,10 +249,9 @@ class ProcessFleet:
                  straggle: Optional[dict] = None,
                  kill_after_requests: Optional[dict] = None,
                  launcher=None,
-                 machines: Optional[list] = None):
-        if machines is not None:
-            raise NotImplementedError(_MACHINE_TIER.format(
-                "ProcessFleet(machines=)"))
+                 machines: Optional[list] = None,
+                 fault_injector=None,
+                 snapshot_chunk_bytes: Optional[int] = None):
         if int(n_replicas) < 1:
             raise ValueError("n_replicas must be >= 1")
         self.n_replicas = int(n_replicas)
@@ -249,13 +275,19 @@ class ProcessFleet:
         self._straggle = dict(straggle or {})
         self._kill_after = dict(kill_after_requests or {})
         self._launcher = launcher if launcher is not None else LocalLauncher()
+        self._machines_spec = list(machines) if machines else None
+        self._fault_injector = fault_injector
+        self.snapshot_chunk_bytes = snapshot_chunk_bytes
 
         self._models: list = []  # (name, estimator, methods)
         self._lock = threading.Lock()
         self._procs: list = []
         self._inflight: dict = {}  # rid -> _PRequest
-        self._live = None  # FileHeartbeat, set at start
-        self._machine: Optional[MachineSpec] = None  # the implicit local one
+        self._live = None  # the first machine's FileHeartbeat, at start
+        self._machines: list = []  # the MachineSpec roster, set at start
+        self._live_by_machine: dict = {}  # machine name -> FileHeartbeat
+        self._machine_down: dict = {}  # machine name -> monotonic instant
+        self._snap_server = None  # SnapshotServer, machines mode only
         self._next_slot = self.n_replicas  # scale_up slot numbering
         self._closing = False
         self._started = False
@@ -270,6 +302,7 @@ class ProcessFleet:
         self.n_shed = 0
         self.n_replica_deaths = 0
         self.n_respawns = 0
+        self.n_machine_deaths = 0
         self.n_drains = 0
         self.n_scale_ups = 0
         self.n_hedged = 0
@@ -311,7 +344,8 @@ class ProcessFleet:
         ``PYTHONPATH`` (it runs ``-m dask_ml_tpu_torch.parallel.replica``
         whatever the parent's cwd), and on the card the slot's
         ``CUDA_VISIBLE_DEVICES``, round robin over the cards this process
-        sees (one card: every child gets it)."""
+        sees (one card: every child gets it). The launcher lays the
+        machine's own ``env`` over this."""
         env = dict(os.environ)
         pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))))
@@ -322,10 +356,17 @@ class ProcessFleet:
             env["CUDA_VISIBLE_DEVICES"] = ids[rep.slot % len(ids)]
         return env
 
+    def _hb(self, rep: _ProcReplica):
+        """The heartbeat fabric ``rep`` beats on: its machine's
+        workdir's."""
+        return self._live_by_machine[rep.machine.name]
+
     def _spawn(self, rep: _ProcReplica) -> None:
-        """Launch ``rep``'s process (does not wait for readiness)."""
-        self._live.clear(rep.name)  # a respawn inherits no death
-        addr_path = os.path.join(self.workdir, f"{rep.name}.addr.json")
+        """Launch ``rep``'s process on its machine (does not wait for
+        readiness)."""
+        wd = rep.machine.workdir
+        self._hb(rep).clear(rep.name)  # a respawn inherits no death
+        addr_path = os.path.join(wd, f"{rep.name}.addr.json")
         try:
             os.unlink(addr_path)
         except OSError:
@@ -334,12 +375,21 @@ class ProcessFleet:
                   else self.device)
         cmd = [sys.executable, "-m", "dask_ml_tpu_torch.parallel.replica",
                "--name", rep.name,
-               "--workdir", self.workdir,
-               "--snapshot", self._snapshot_path,
+               "--workdir", wd,
                "--device", device,
                "--max-batch-rows", str(self.max_batch_rows),
                "--max-queue", str(self.max_queue),
                "--heartbeat-interval-s", str(self.heartbeat_interval_s)]
+        if self._snap_server is not None:
+            # machines mode: the replica fetches the snapshot over the
+            # chunk wire through its machine's cache, then loads that copy
+            host, port = self._snap_server.address
+            cmd += ["--snapshot", os.path.join(wd, f"{rep.name}.reg"),
+                    "--snapshot-server", f"{host}:{port}",
+                    "--snapshot-cache", os.path.join(wd, "chunk-cache"),
+                    "--machine", rep.machine.name]
+        else:
+            cmd += ["--snapshot", self._snapshot_path]
         if rep.slot in self._straggle:
             seconds, every = self._straggle[rep.slot]
             cmd += ["--straggle-s", str(float(seconds)),
@@ -348,10 +398,9 @@ class ProcessFleet:
             # one-shot, like the plan it arms: a respawn comes back clean
             cmd += ["--kill-after-requests",
                     str(int(self._kill_after.pop(rep.slot)))]
-        env = self._child_env(rep)
         rep.proc = self._launcher.spawn(
-            self._machine, cmd, env=env,
-            log_path=os.path.join(self.workdir, f"{rep.name}.log"))
+            rep.machine, cmd, env=self._child_env(rep),
+            log_path=os.path.join(wd, f"{rep.name}.log"))
         rep.pid = rep.proc.pid
         rep.gen += 1
         rep.start_s = None
@@ -363,7 +412,8 @@ class ProcessFleet:
         address file), then connect. Raises, naming the exit code, when
         the process exits first, and on timeout."""
         timeout = self.spawn_timeout_s if timeout is None else timeout
-        addr_path = os.path.join(self.workdir, f"{rep.name}.addr.json")
+        wd = rep.machine.workdir
+        addr_path = os.path.join(wd, f"{rep.name}.addr.json")
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
             if self._closing:
@@ -373,8 +423,8 @@ class ProcessFleet:
             if rc is not None:
                 raise ServingStopped(
                     f"replica process {rep.name!r} exited with {rc} "
-                    "before becoming ready (see its .log in the fleet "
-                    f"workdir {self.workdir})")
+                    "before becoming ready (see its .log in the "
+                    f"workdir {wd})")
             if os.path.exists(addr_path):
                 with open(addr_path) as f:
                     info = json.load(f)
@@ -382,13 +432,15 @@ class ProcessFleet:
                     rep.address = (info["host"], int(info["port"]))
                     rep.warmup = info.get("warmup")
                     rep.announce = info
+                    rep.fetch = info.get("snapshot_fetch")
                     if rep.client is not None:
                         # the dead incarnation's timeouts stay counted
                         with self._lock:
                             self._timeouts_base += rep.client.n_timeouts
                     rep.client = FleetClient(
                         rep.address, timeout=10.0,
-                        request_timeout=self.request_timeout_s)
+                        request_timeout=self.request_timeout_s,
+                        shm=rep.machine.shm)
                     rep.client.ping(timeout=30.0)
                     rep.lat.clear()
                     rep.ewma_s = 0.0
@@ -413,14 +465,42 @@ class ProcessFleet:
             self.workdir = tempfile.mkdtemp(
                 prefix=f"dask_ml_tpu_torch_{self.name}_")
         os.makedirs(self.workdir, exist_ok=True)
-        self._machine = MachineSpec(name="local", workdir=self.workdir)
-        self._live = FileHeartbeat(self.workdir)
+        # the roster: the given machines, or one implicit local machine
+        # (the same workdir, one heartbeat fabric, the snapshot read from
+        # disk)
+        self._machines = (list(self._machines_spec) if self._machines_spec
+                          else [MachineSpec(name="local",
+                                            workdir=self.workdir)])
+        names = [m.name for m in self._machines]
+        if len(set(names)) != len(names):
+            raise ValueError(f"machine names must be unique: {names}")
+        self._live_by_machine = {}
+        for m in self._machines:
+            os.makedirs(m.workdir, exist_ok=True)
+            self._live_by_machine[m.name] = FileHeartbeat(m.workdir)
+        self._live = self._live_by_machine[self._machines[0].name]
+        self._machine_down = {}
         self._snapshot_path = os.path.join(self.workdir, "registry.reg")
         save_registry_snapshot(self._snapshot_path, self._models)
         # the wire's host C library is built here, once: the children
         # only load it (a build in a child would count as its own)
         framing.crc32c_engine()
-        self._procs = [_ProcReplica(slot=i, name=f"{self.name}-p{i}")
+        if self._machines_spec:
+            # machines mode: the registry ships chunk-addressed over the
+            # snapshot wire, not by path
+            from dask_ml_tpu_torch.parallel.snapshots import (
+                DEFAULT_CHUNK_BYTES,
+                SnapshotServer,
+            )
+
+            self._snap_server = SnapshotServer(
+                self._snapshot_path,
+                chunk_bytes=(self.snapshot_chunk_bytes
+                             or DEFAULT_CHUNK_BYTES),
+                fault_injector=self._fault_injector).start()
+        placement = plan_placement(self.n_replicas, self._machines)
+        self._procs = [_ProcReplica(slot=i, name=f"{self.name}-p{i}",
+                                    machine=placement[i])
                        for i in range(self.n_replicas)]
         self._next_slot = self.n_replicas
         try:
@@ -433,6 +513,8 @@ class ProcessFleet:
             # leave the ones that came up serving
             for rep in self._procs:
                 self._reap_slot(rep)
+            if self._snap_server is not None:
+                self._snap_server.stop()
             raise
         self._closing = False
         self._started = True
@@ -499,6 +581,8 @@ class ProcessFleet:
         for rep in self._procs:
             if rep.client is not None:
                 rep.client.close()
+        if self._snap_server is not None:
+            self._snap_server.stop()
         with self._lock:
             leftovers = list(self._inflight.values())
             self._inflight.clear()
@@ -871,9 +955,31 @@ class ProcessFleet:
                         "process fleet %r: monitor tick failed "
                         "(continuing)", self.name)
 
+    def _maybe_kill_machines(self) -> None:
+        """Deliver armed ``kill_machine`` plans: SIGKILL every live
+        replica pid on the plan's machine once the fleet has resolved the
+        plan's request count, so all of the machine's heartbeats stop at
+        once, which is what machine-death detection keys on."""
+        inj = self._fault_injector
+        if inj is None:
+            return
+        with self._lock:
+            n = self.n_results
+        for m in self._machines:
+            if not inj.should_kill_machine(m.name, n):
+                continue
+            for rep in self._procs:
+                if rep.machine is m and not rep.dead and not rep.retired \
+                        and rep.pid is not None:
+                    try:
+                        os.kill(rep.pid, signal_mod.SIGKILL)
+                    except OSError:
+                        pass
+
     def _monitor_tick(self) -> None:
         if self.hedge:
             self._hedge_scan()
+        self._maybe_kill_machines()
         # observe first: each live replica's death verdict with its current
         # generation (the guard in _declare_dead makes a stale verdict, read
         # from a process a racing respawn already replaced, a no-op)
@@ -884,18 +990,51 @@ class ProcessFleet:
             gen = rep.gen
             reason = None
             rc = rep.proc.poll() if rep.proc is not None else None
+            hb = self._hb(rep)
             if rc is not None:
                 reason = f"process exited with {rc}"
-            elif self._live.has_tombstone(rep.name):
+            elif hb.has_tombstone(rep.name):
                 reason = "tombstone (graceful leave)"
             else:
-                age = self._live.age(rep.name)
+                age = hb.age(rep.name)
                 if age is not None and age > self.heartbeat_timeout_s:
                     reason = f"heartbeat stale {age:.2f}s"
             if reason is not None and not self._closing:
                 pending.append((rep, reason, gen))
+        if not pending:
+            return
+        # mark machine deaths before any slot is declared, so that the
+        # respawns this tick starts already see the machine down and place
+        # elsewhere
+        self._mark_machine_deaths(pending)
         for rep, reason, gen in pending:
             self._declare_dead(rep, reason, gen=gen)
+
+    def _mark_machine_deaths(self, pending: list) -> None:
+        """A machine is dead when every slot on it that is not retired is
+        dying or dead at once, none of them gracefully."""
+        if len(self._machines) < 2:
+            return
+        dying = {rep.name for rep, reason, _gen in pending
+                 if "tombstone" not in reason}
+        for m in self._machines:
+            if m.name in self._machine_down:
+                continue
+            slots = [rep for rep in self._procs
+                     if rep.machine is m and not rep.retired]
+            now_dying = [rep for rep in slots if rep.name in dying]
+            if not now_dying:
+                continue
+            if all(rep.dead or rep.name in dying for rep in slots):
+                self._machine_down[m.name] = time.monotonic()
+                import logging
+
+                logging.getLogger(__name__).warning(
+                    "process fleet %r: MACHINE %s declared dead "
+                    "(%d replicas down at once)",
+                    self.name, m.name, len(now_dying))
+                self._count("n_machine_deaths", "fleet.machine_deaths",
+                            machine=m.name)
 
     def _declare_dead(self, rep: _ProcReplica, reason: str, *,
                       gen: Optional[int] = None) -> None:
@@ -978,9 +1117,27 @@ class ProcessFleet:
             self._respawners.append(t)
             t.start()
 
+    def _pick_spawn_machine(self, exclude_rep=None) -> MachineSpec:
+        """The machine a (re)spawn lands on: surviving machines only (all
+        of them when every one is marked down, so a one-machine fleet
+        still respawns), the least loaded by live slots weighted by device
+        inventory."""
+        candidates = [m for m in self._machines
+                      if m.name not in self._machine_down]
+        if not candidates:
+            candidates = list(self._machines)
+        loads: dict = {m.name: 0 for m in candidates}
+        for r in self._procs:
+            if r is exclude_rep or r.retired:
+                continue
+            if r.machine.name in loads:
+                loads[r.machine.name] += 1
+        return plan_placement(1, candidates, loads=loads)[0]
+
     def _respawn(self, rep: _ProcReplica) -> None:
-        """Bring a dead slot back: a fresh process, the snapshot, the
-        warmup, then rotation (the address file appears after the
+        """Bring a dead slot back: a fresh process placed on a surviving
+        machine, the snapshot (only the missing chunks, in machines mode),
+        the warmup, then rotation (the address file appears after the
         warmup). A stop() racing this re-checks ``_closing`` on both sides
         of the spawn: an incarnation born after the terminate loop ran is
         reaped here, never orphaned."""
@@ -997,6 +1154,13 @@ class ProcessFleet:
                 rep.past_exits.append((rep.pid, rep.proc.returncode))
             if self._closing:
                 return
+            target = self._pick_spawn_machine(exclude_rep=rep)
+            if target is not rep.machine:
+                logging.getLogger(__name__).warning(
+                    "process fleet %r: respawning %s on machine %s (was "
+                    "%s)", self.name, rep.name, target.name,
+                    rep.machine.name)
+            rep.machine = target
             self._spawn(rep)
             self._wait_ready(rep)
         except Exception as e:  # noqa: BLE001 — the slot stays dead, visibly
@@ -1013,6 +1177,9 @@ class ProcessFleet:
             self._reap_slot(rep)
             return
         rep.dead = False
+        # a machine a slot came up on is alive: clear a stale down mark so
+        # later placements may use it again
+        self._machine_down.pop(rep.machine.name, None)
         self._count("n_respawns", "fleet.respawns",
                     replica=rep.name, pid=rep.pid)
         self._set_replica_up()
@@ -1020,8 +1187,11 @@ class ProcessFleet:
     # -- scale -------------------------------------------------------------
 
     def scale_up(self, k: int = 1) -> list:
-        """Add ``k`` replica slots, each warmed before it joins rotation.
-        Returns the new replica names; blocks until they are ready."""
+        """Add ``k`` replica slots on the least loaded surviving
+        machines, each warmed before it joins rotation: the autoscaler's
+        answer to a breach. Returns the new replica names; blocks until
+        they are ready (a control loop that does not tick meanwhile has a
+        cooldown for free)."""
         if not self._started or self._closing:
             raise ServingStopped(
                 f"process fleet {self.name!r} is not running")
@@ -1031,6 +1201,7 @@ class ProcessFleet:
                 slot = self._next_slot
                 self._next_slot += 1
             rep = _ProcReplica(slot=slot, name=f"{self.name}-p{slot}",
+                               machine=self._pick_spawn_machine(),
                                dead=True)
             # in the roster while warming; dead=True keeps it out of
             # rotation until _wait_ready connects it
@@ -1085,11 +1256,11 @@ class ProcessFleet:
                 rep.ewma_s = 0.0
 
     def signals(self) -> dict:
-        """An autoscaler's input (the JAX package's ``Autoscaler``, ROADMAP
-        Queue A item 11c): pooled p99 of router-observed request
-        latencies, total in-flight depth, cumulative shed count, live
-        replica count — all signals the fleet already exports, read
-        without touching a replica."""
+        """The :class:`~dask_ml_tpu_torch.parallel.autoscaler.Autoscaler`'s
+        input: pooled p99 of router-observed request latencies, total
+        in-flight depth, cumulative shed count, live replica count — all
+        signals the fleet already exports, read without touching a
+        replica."""
         with self._lock:
             lats = [dt for rep in self._procs if not rep.retired
                     for dt in rep.lat]
@@ -1125,6 +1296,7 @@ class ProcessFleet:
                 "shed": self.n_shed,
                 "replica_deaths": self.n_replica_deaths,
                 "respawns": self.n_respawns,
+                "machine_deaths": self.n_machine_deaths,
                 "drains": self.n_drains,
                 "scale_ups": self.n_scale_ups,
                 "hedged": self.n_hedged,
@@ -1135,22 +1307,39 @@ class ProcessFleet:
         counters["timeouts"] = self._timeouts_base + sum(
             rep.client.n_timeouts for rep in self._procs
             if rep.client is not None)
+        snap = self._snap_server
         return {
             "name": self.name,
             "device": self.device,
             "replicas_up": self.replicas_up(),
+            "machines": {m.name: {
+                "workdir": m.workdir,
+                "devices": m.devices,
+                "down": m.name in self._machine_down,
+                "replicas": [rep.name for rep in self._procs
+                             if rep.machine is m and not rep.retired],
+            } for m in self._machines},
+            "snapshot_server": None if snap is None else {
+                "address": list(snap.address),
+                "manifests": snap.n_manifests,
+                "chunks": snap.n_chunks,
+                "bytes_sent": snap.n_bytes_sent,
+            },
             "replicas": {rep.name: {
                 "pid": rep.pid,
                 "gen": rep.gen,
                 "dead": rep.dead,
                 "draining": rep.draining,
                 "retired": rep.retired,
+                "machine": rep.machine.name,
                 "inflight": rep.inflight,
                 "latency_ewma_s": round(rep.ewma_s, 6),
                 "warmup": rep.warmup,
                 "start_s": rep.start_s,
                 "phases": (rep.announce or {}).get("phases"),
-                "returncode": (rep.proc.returncode
+                "snapshot_fetch": rep.fetch,
+                # poll(): a drained slot's exit lands after its tombstone
+                "returncode": (rep.proc.poll()
                                if rep.proc is not None else None),
                 "past_exits": [list(e) for e in rep.past_exits],
                 # the router's link to this incarnation: its shm segment,

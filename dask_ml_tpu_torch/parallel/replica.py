@@ -14,7 +14,12 @@ One ``ReplicaHost`` process:
   it never serves on the CPU unless asked;
 - loads its models from a registry snapshot the router wrote
   (:func:`save_registry_snapshot`: the shared frame codec under its own
-  magic, atomic rename + sha256, as checkpoints are). The snapshot holds
+  magic, atomic rename + sha256, as checkpoints are), read from a path on
+  one box, or, on a machine of a cross-machine roster, fetched first from
+  the router's :class:`~dask_ml_tpu_torch.parallel.snapshots.
+  SnapshotServer` chunk by chunk through the machine's chunk cache
+  (``--snapshot-server``), so a second replica or a respawn on a warm
+  machine ships no snapshot byte. The snapshot holds
   no torch object: each tensor of a fitted estimator is pickled as a
   numpy array and made a tensor again on the child's own device at load,
   so a snapshot written beside the card loads in a CPU child;
@@ -42,8 +47,8 @@ warmup), so a caller can see that a child really ran the kernels.
 
 Run as ``python -m dask_ml_tpu_torch.parallel.replica --name r0
 --snapshot /path/snap.reg --workdir /path/fleet --device cuda`` (the
-router does this). The snapshot server of the JAX package's cross-machine
-fleet (``--snapshot-server``) is ROADMAP Queue A item 11c and raises.
+router does this); add ``--snapshot-server host:port --snapshot-cache DIR
+--machine m0`` to fetch the snapshot into ``--snapshot`` first.
 
 The first start phase, ``import_s``, is the process's age when
 :meth:`ReplicaHost.run` begins: the interpreter's start and the imports of
@@ -76,9 +81,6 @@ __all__ = [
 #: for its own children; it never travels the socket (the wire is the
 #: typed codec)
 REGISTRY_MAGIC = b"DMLTFREG1\n"
-
-_MACHINE_TIER = ("{} belongs to the cross-machine fleet, ROADMAP Queue A "
-                 "item 11c, which the port does not have yet")
 
 _load_state = threading.local()
 
@@ -230,8 +232,17 @@ class ReplicaHost:
     straggle_s, straggle_every : float, int
         Chaos: every ``straggle_every``-th batch sleeps ``straggle_s``.
     snapshot_server : str, optional
-        The cross-machine snapshot server; ROADMAP Queue A item 11c, so
-        anything but ``None`` raises.
+        ``host:port`` of the router's :class:`~dask_ml_tpu_torch.parallel.
+        snapshots.SnapshotServer`. When set, ``snapshot_path`` is the
+        destination: the registry is fetched chunk by chunk through the
+        machine's cache (:func:`~dask_ml_tpu_torch.parallel.snapshots.
+        fetch_snapshot`) before it is loaded.
+    snapshot_cache : str, optional
+        The machine's chunk cache directory (default
+        ``workdir/chunk-cache``).
+    machine : str
+        This replica's machine name: the label of its chunk requests
+        (``slow_link`` plans, ``snapshot.bytes_fetched{machine=}``).
     """
 
     def __init__(self, name: str, snapshot_path: str, workdir: str, *,
@@ -243,10 +254,9 @@ class ReplicaHost:
                  kill_after_requests: Optional[int] = None,
                  straggle_s: float = 0.0,
                  straggle_every: int = 1,
-                 snapshot_server: Optional[str] = None):
-        if snapshot_server is not None:
-            raise NotImplementedError(
-                _MACHINE_TIER.format("the snapshot server"))
+                 snapshot_server: Optional[str] = None,
+                 snapshot_cache: Optional[str] = None,
+                 machine: str = ""):
         self.name = str(name)
         self.snapshot_path = str(snapshot_path)
         self.workdir = str(workdir)
@@ -258,8 +268,14 @@ class ReplicaHost:
         self.kill_after_requests = kill_after_requests
         self.straggle_s = float(straggle_s)
         self.straggle_every = int(straggle_every)
-        #: seconds of each start phase: import, cuda_init, snapshot,
-        #: warmup (of which load: the kernel libraries' first loads)
+        self.snapshot_server = snapshot_server
+        self.snapshot_cache = snapshot_cache
+        self.machine = str(machine)
+        #: the transfer accounting of the snapshot fetch (machines mode)
+        self._fetch_stats: Optional[dict] = None
+        #: seconds of each start phase: import, cuda_init, fetch (machines
+        #: mode), snapshot, warmup (of which load: the kernel libraries'
+        #: first loads)
         self.phases: dict = {}
         self._warm = {"builds": 0, "loads": 0}
         #: the launch counters when the warmup ended
@@ -297,6 +313,7 @@ class ReplicaHost:
             "warm_compiles": int(self._warm["builds"]
                                  + self._warm["loads"]),
             "phases": dict(self.phases),
+            "snapshot_fetch": self._fetch_stats,
         }
 
     def _addr_path(self) -> str:
@@ -310,7 +327,8 @@ class ReplicaHost:
                 "port": int(self._server.address[1]),
                 "pid": os.getpid(), "device": str(self._dev),
                 "device_name": self._device_name, "warmup": warm,
-                "phases": dict(self.phases)}
+                "phases": dict(self.phases),
+                "snapshot_fetch": self._fetch_stats}
         path = self._addr_path()
         tmp = f"{path}.{os.getpid()}.tmp"
         with open(tmp, "w") as f:
@@ -372,6 +390,21 @@ class ReplicaHost:
             # the wire's host C library before the counts, so that only
             # the kernel libraries' loads land in the warmup
             framing.crc32c_engine()
+            if self.snapshot_server is not None:
+                # machines mode: the registry comes over the snapshot wire,
+                # chunk by chunk through the machine's shared cache
+                from dask_ml_tpu_torch.parallel.snapshots import (
+                    fetch_snapshot,
+                    parse_address,
+                )
+
+                t0 = time.perf_counter()
+                self._fetch_stats = fetch_snapshot(
+                    parse_address(self.snapshot_server), self.snapshot_path,
+                    cache_dir=(self.snapshot_cache or os.path.join(
+                        self.workdir, "chunk-cache")),
+                    machine=self.machine)
+                self.phases["fetch_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             registry = ModelRegistry()
             for mname, est, methods in load_registry_snapshot(
@@ -438,8 +471,10 @@ def main(argv=None) -> int:
     parser.add_argument("--straggle-s", type=float, default=0.0)
     parser.add_argument("--straggle-every", type=int, default=1)
     parser.add_argument("--snapshot-server", default=None,
-                        help="host:port of a cross-machine snapshot "
-                             "server (ROADMAP Queue A item 11c: raises)")
+                        help="host:port: fetch the snapshot chunk by chunk "
+                             "into --snapshot instead of reading it there")
+    parser.add_argument("--snapshot-cache", default=None)
+    parser.add_argument("--machine", default="")
     args = parser.parse_args(argv)
     host = ReplicaHost(
         args.name, args.snapshot, args.workdir,
@@ -451,7 +486,9 @@ def main(argv=None) -> int:
         kill_after_requests=args.kill_after_requests,
         straggle_s=args.straggle_s,
         straggle_every=args.straggle_every,
-        snapshot_server=args.snapshot_server)
+        snapshot_server=args.snapshot_server,
+        snapshot_cache=args.snapshot_cache,
+        machine=args.machine)
     return host.run()
 
 

@@ -7,6 +7,13 @@ no rows for compiles. What stays:
 - :class:`PadPolicy` maps a row count to a small set of padded bucket
   sizes; the serving loop pads each micro-batch to one
   (``parallel/serving.py``), so its batches come in a handful of shapes.
+  :func:`active_policy` resolves the ``pad_policy`` config knob and
+  :func:`bucket_rows` rounds a row count under it, as the JAX package's
+  do; the port's staging calls neither (it pads no rows), so the knob
+  changes no fit.
+- :func:`enable_persistent_cache` is the ``compilation_cache`` knob's
+  setter. The port has no XLA cache: the kernels' nvcc builds already
+  persist in ``_kernels/_build``, so the knob only records a directory.
 - :func:`bucket_nnz` gives ``ell_from_csr`` the JAX package's default ELL
   width, so a container built from the same CSR matches it slot for slot,
   and :func:`pad_tail` pads a streamed source's short last block to the
@@ -24,8 +31,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import os
 import threading
-from typing import Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 
@@ -70,6 +78,40 @@ class PadPolicy:
 
 
 DEFAULT_POLICY = PadPolicy()
+
+
+def active_policy() -> Optional[PadPolicy]:
+    """The policy the ``pad_policy`` config knob names: ``"auto"`` (the
+    default) → :data:`DEFAULT_POLICY`, ``None`` → no bucketing, a
+    :class:`PadPolicy` → itself."""
+    from dask_ml_tpu_torch.config import get_config
+
+    knob = get_config()["pad_policy"]
+    if knob is None:
+        return None
+    if knob == "auto":
+        return DEFAULT_POLICY
+    if isinstance(knob, PadPolicy):
+        return knob
+    raise ValueError(
+        f"pad_policy must be 'auto', None, or a PadPolicy; got {knob!r}")
+
+
+def bucket_rows(n: int, align: int = 1,
+                policy: Union[PadPolicy, None, str] = "active",
+                record: bool = True) -> int:
+    """Padded row count for ``n`` under ``policy`` (default: the active
+    config policy); with no policy, ``n`` rounded up to a multiple of
+    ``align``. The JAX package's rounding, bit for bit. ``record`` is
+    accepted for its signature: the port keeps no table of staged
+    buckets, since its staging pads nothing."""
+    del record
+    if policy == "active":
+        policy = active_policy()
+    if policy is None:
+        align = max(int(align), 1)
+        return -(-int(n) // align) * align
+    return policy.bucket(n, align=align)
 
 
 # ---------------------------------------------------------------------------
@@ -166,3 +208,13 @@ def pad_tail(arrays: Sequence, rows: int) -> tuple:
     return tuple(SparseRows(pad_one(a.values), pad_one(a.cols), a.d)
                  if isinstance(a, SparseRows) else pad_one(a)
                  for a in arrays)
+
+
+def enable_persistent_cache(path: Optional[str]) -> None:
+    """The setter of the ``compilation_cache`` knob. The JAX package points
+    XLA's persistent compilation cache at ``path``; the port compiles no
+    program per shape, and its kernel builds persist in ``_kernels/_build``
+    whatever the knob says, so here the directory is only created (``~``
+    expanded). ``None`` turns the knob off."""
+    if path is not None:
+        os.makedirs(os.path.expanduser(str(path)), exist_ok=True)

@@ -80,15 +80,26 @@ def _check_array_impl(X, accept_sparse: bool, memo):
     return arr
 
 
+def staging_dtype(np_dtype):
+    """The dtype staging converts an input of ``np_dtype`` to, or ``None``
+    when it keeps it: ints, uints, bools and float64 → ``torch.float32``
+    (as in the JAX package with x64 off), float32 kept. The port stages
+    float32 only, so float16 → ``torch.float32`` too, where the JAX
+    package keeps it. One definition for every staging path."""
+    dt = np.dtype(np_dtype)
+    if dt.kind not in "fiub":
+        raise ValueError(f"Unsupported dtype {dt}")
+    return None if dt == np.float32 else torch.float32
+
+
 def _check_samples(n: int) -> None:
     if n < 1:
         raise ValueError("Found array with 0 samples; at least 1 is needed")
 
 
 def _float32_host(arr: np.ndarray) -> np.ndarray:
-    if arr.dtype.kind not in "fiub":
-        raise ValueError(f"Unsupported dtype {arr.dtype}")
-    return arr if arr.dtype == np.float32 else arr.astype(np.float32)
+    return arr if staging_dtype(arr.dtype) is None \
+        else arr.astype(np.float32)
 
 
 def _check_rows(X: SparseRows) -> SparseRows:

@@ -1,0 +1,133 @@
+"""The port's public surface against the JAX package's, name by name.
+
+- Every name of the dask-ml surface that ``tests/test_api_parity.py``
+  pins (its ``SURFACE``) resolves under ``dask_ml_tpu_torch``, at the same
+  module path.
+- Every module of ``dask_ml_tpu`` has a counterpart at the same path in
+  the port, but the four of ROADMAP Queue A item 10 (multi-device:
+  ``parallel/mesh.py``, ``hierarchy.py``, ``runtime.py``,
+  ``decisions.py``).
+- Every name in each JAX module's ``__all__`` resolves in the port's
+  counterpart, but an explicit list of item 10 names.
+- The package's ``__all__`` names the JAX package's submodules.
+"""
+
+import ast
+import importlib
+import importlib.util
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+#: ROADMAP Queue A item 10 (multi-device over torch.distributed): whole
+#: modules, and the names of ported modules that take a mesh
+ITEM_10_MODULES = ("parallel.decisions", "parallel.hierarchy",
+                   "parallel.mesh", "parallel.runtime")
+ITEM_10_NAMES = {"ops.sparse": {"metered"},
+                 "parallel.elastic": {"ElasticRun"}}
+
+
+def _modules(pkg: str) -> list:
+    """Dotted module names under ``pkg`` (relative, '' for the package),
+    from the files on disk."""
+    base = os.path.join(ROOT, pkg)
+    out = []
+    for dirpath, dirnames, filenames in os.walk(base):
+        dirnames[:] = sorted(d for d in dirnames if d != "__pycache__")
+        rel = os.path.relpath(dirpath, base)
+        parts = [] if rel == "." else rel.split(os.sep)
+        for f in sorted(filenames):
+            if not f.endswith(".py"):
+                continue
+            stem = f[:-3]
+            mod = parts if stem == "__init__" else parts + [stem]
+            out.append(".".join(mod))
+    return sorted(out)
+
+
+JAX_MODULES = _modules("dask_ml_tpu")
+
+
+def _declares_all(module: str) -> bool:
+    """Whether the JAX module's source assigns ``__all__`` (read without
+    importing it, so collection stays cheap and the same on every
+    worker)."""
+    rel = module.replace(".", os.sep)
+    path = os.path.join(ROOT, "dask_ml_tpu", rel, "__init__.py")
+    if not os.path.exists(path):
+        path = os.path.join(ROOT, "dask_ml_tpu", rel + ".py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return any(isinstance(node, ast.Assign)
+               and any(getattr(t, "id", None) == "__all__"
+                       for t in node.targets)
+               for node in tree.body)
+
+
+def _resolves(mod, name: str) -> bool:
+    """``name`` is an attribute of ``mod``, or a submodule of it that
+    imports (``from pkg import *`` imports those)."""
+    if hasattr(mod, name):
+        return True
+    try:
+        importlib.import_module(f"{mod.__name__}.{name}")
+    except ImportError:
+        return False
+    return True
+
+
+def _surface() -> dict:
+    spec = importlib.util.spec_from_file_location(
+        "_jax_api_parity", os.path.join(ROOT, "tests", "test_api_parity.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.SURFACE
+
+
+SURFACE = _surface()
+
+
+@pytest.mark.parametrize("module", sorted(SURFACE))
+def test_reference_surface_resolves_in_the_port(module):
+    port = importlib.import_module(
+        "dask_ml_tpu_torch" + module[len("dask_ml_tpu"):])
+    missing = [n for n in SURFACE[module] if not hasattr(port, n)]
+    assert not missing, f"{port.__name__} missing: {missing}"
+
+
+def test_every_module_has_a_port_counterpart():
+    port = set(_modules("dask_ml_tpu_torch"))
+    missing = sorted(set(JAX_MODULES) - port)
+    assert missing == sorted(ITEM_10_MODULES)
+
+
+@pytest.mark.parametrize(
+    "module", [m for m in JAX_MODULES
+               if m not in ITEM_10_MODULES and _declares_all(m)])
+def test_jax_all_names_resolve_in_the_port(module):
+    jax_mod = importlib.import_module(
+        "dask_ml_tpu" + (f".{module}" if module else ""))
+    port = importlib.import_module(
+        "dask_ml_tpu_torch" + (f".{module}" if module else ""))
+    missing = [n for n in jax_mod.__all__ if not _resolves(port, n)
+               and n not in ITEM_10_NAMES.get(module, ())]
+    assert not missing, f"{port.__name__} missing: {missing}"
+
+
+def test_item_10_names_are_still_missing():
+    """The exclusions above are exactly what the port lacks: a name that
+    lands must leave the list."""
+    for module, names in ITEM_10_NAMES.items():
+        port = importlib.import_module(f"dask_ml_tpu_torch.{module}")
+        assert not [n for n in names if hasattr(port, n)], module
+
+
+def test_package_all_names_the_submodules():
+    import dask_ml_tpu
+    import dask_ml_tpu_torch
+
+    assert list(dask_ml_tpu_torch.__all__) == list(dask_ml_tpu.__all__)
+    for name in dask_ml_tpu_torch.__all__:
+        assert _resolves(dask_ml_tpu_torch, name), name

@@ -749,9 +749,10 @@ def test_dispatch_hooks_and_straggle(fitted):
 @pytest.mark.parametrize("plan", ["kill_process", "kill_machine",
                                   "slow_link"])
 def test_process_fleet_plans_wait_for_the_wire_tier(plan):
-    """``kill_process`` is the single-box process fleet's plan and works
-    (one-shot at its request count); the cross-machine plans raise,
-    naming ROADMAP item 11c."""
+    """The process fleet's plans: ``kill_process`` (one-shot at its request
+    count), and the cross-machine ``kill_machine`` (one-shot at the
+    fleet's count of resolved requests) and ``slow_link`` (a delay for
+    each of its first ``chunks`` chunks to that machine only)."""
     fi = FaultInjector()
     if plan == "kill_process":
         assert fi.kill_process("p", after_requests=3) is fi
@@ -759,7 +760,15 @@ def test_process_fleet_plans_wait_for_the_wire_tier(plan):
         assert fi.should_kill_process("p", 3)
         assert not fi.should_kill_process("p", 4)  # one-shot
         assert fi.injected["process_kill"] == 1
-        return
-    args = {"kill_machine": ("m",), "slow_link": ("m", 1.0)}[plan]
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        getattr(fi, plan)(*args)
+    elif plan == "kill_machine":
+        assert fi.kill_machine("m", after_results=3) is fi
+        assert not fi.should_kill_machine("m", 2)
+        assert not fi.should_kill_machine("other", 9)
+        assert fi.should_kill_machine("m", 3)
+        assert not fi.should_kill_machine("m", 4)  # one-shot
+        assert fi.injected["machine_kill"] == 1
+    else:
+        assert fi.slow_link("m", 1.0, chunks=2) is fi
+        assert fi.link_delay("other") == 0.0
+        assert [fi.link_delay("m") for _ in range(3)] == [1.0, 1.0, 0.0]
+        assert fi.injected["slow_link"] == 2

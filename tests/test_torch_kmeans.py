@@ -474,7 +474,8 @@ def test_default_device_without_card_raises(monkeypatch):
 
 def test_config_knobs():
     assert set(get_config()) == {"device", "dtype", "precision",
-                                 "device_outputs", "telemetry"}
+                                 "device_outputs", "telemetry",
+                                 "pad_policy", "compilation_cache"}
     with pytest.raises(KeyError):
         set_config(bogus=1)
     # float32 and (since the precision tier) bfloat16 stage; nothing else
@@ -526,10 +527,12 @@ def test_port_never_imports_jax():
     and again with scikit-learn and pandas made unimportable
     (``sys.modules[name] = None``), as on the card's machine, which has
     neither: ``model_selection``, ``pipeline`` and the serving tier
-    (``parallel.serving``, ``.fleet``, ``.telemetry``, ``utils._log``)
-    and the wire and process tier (``parallel.framing``, ``.shm``,
-    ``.elastic``, ``.launcher``, ``.replica``, ``.procfleet``)
-    included, no module needs
+    (``parallel.serving``, ``.fleet``, ``.telemetry``, ``utils._log``),
+    the wire and process tier (``parallel.framing``, ``.shm``,
+    ``.elastic``, ``.launcher``, ``.replica``, ``.procfleet``), the
+    cross-machine tier (``.snapshots``, ``.autoscaler``), ``interop`` and
+    its shims, ``model_selection.utils_test``, the star import of the
+    package and a call of ``_entry.entry()`` included, no module needs
     them at import time but the scikit-learn subclasses (the ``Partial*``
     estimators), which are loaded only on access and must fail there with
     an ImportError: ``naive_bayes`` (``GaussianNB``) and
@@ -599,6 +602,15 @@ def _import_walk(block_sklearn: bool):
         "import dask_ml_tpu_torch.parallel.launcher\n"
         "import dask_ml_tpu_torch.parallel.replica\n"
         "import dask_ml_tpu_torch.parallel.procfleet\n"
+        "import dask_ml_tpu_torch.parallel.snapshots\n"
+        "import dask_ml_tpu_torch.parallel.autoscaler\n"
+        "import dask_ml_tpu_torch.interop, dask_ml_tpu_torch.joblib\n"
+        "import dask_ml_tpu_torch.xgboost, dask_ml_tpu_torch.tensorflow\n"
+        "import dask_ml_tpu_torch.model_selection.utils_test\n"
+        "from dask_ml_tpu_torch import *\n"
+        "from dask_ml_tpu_torch._entry import entry\n"
+        "fn, args = entry(device='cpu')\n"
+        "assert fn(*args).shape == (1024,)\n"
         "import dask_ml_tpu_torch.utils._log\n"
         "from dask_ml_tpu_torch import naive_bayes, cluster\n"
         "from dask_ml_tpu_torch.cluster import minibatch\n"
