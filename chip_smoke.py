@@ -304,6 +304,32 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    QPS and p99, every fetch's bytes, each child's seconds to ready and the
    autoscaler's actions; the ``kernels`` line gains ``launches_machines``.
 
+20. drives KMeans over a mesh of ranks (``MESH``): the world's rank
+   processes are spawned here (``multiprocessing``'s ``spawn``), each joins
+   with ``runtime.initialize(backend=..., init_method="file://...")`` on
+   ``cuda:0``, draws the blobs of step 4 from seed 0 and an integer-valued
+   copy (``np.rint``, weights 1), and stages its block: NCCL at world 1
+   (flat); gloo at world 2 (flat, hierarchical 1 × 2: NCCL refuses two
+   ranks on one card, which the world-2 ranks show first) and world 4
+   (flat, hierarchical 2 × 2, ``("data", "model")`` 2 × 2 with the
+   feature-sharded loop, ``"full"`` only). After one warmup fit each
+   layout fits ``algorithm="full"`` (K1) and ``"bounded"`` (K5) on both
+   copies, then ``predict`` (K2); the init runs K3 and K4. Gates, on
+   every rank: on integer data each fit equals this process's
+   single-device fit bit for bit in centers, labels, ``n_iter_`` and
+   inertia (the model layout within rtol 1e-5, labels equal); on float
+   data ARI ≥ 0.99 against it and inertia within rtol 1e-5; K1 ``n_iter_``
+   times (full), K5 ``n_iter_`` times (bounded), K3 as often as the
+   single-device init (once a round), K4 once, K2 at ``predict``; no build
+   or library load after the warmup; the traffic ledger's
+   ``kmeans.mstep`` equal to ``collective_bytes(mesh, (k·d + k + 1)·4)``
+   (``(k·d + k)·4`` bounded) per axis times ``n_iter_``, 3 (2) calls an
+   iteration, the degenerate pod stage 0 bytes. A ``MESH`` line a world
+   and layout: fit walls, init seconds, Lloyd ms an iteration at tol 0,
+   the ms of one ``hpsum`` of the M-step operands, the ledger's bytes per
+   axis and each rank's K1–K5 launches; the ``kernels`` line gains
+   ``launches_mesh``.
+
 ``python3 chip_smoke.py --spmv-only`` runs steps 1, 2, 6 and 8 alone, on a
 container of the sparse cell's shape drawn on the card;
 ``--glm-pca-only`` runs steps 1, 2 and 9 alone; ``--stream-only`` steps 1,
@@ -314,7 +340,8 @@ steps 1, 2 and 15; ``--preprocess-only`` steps 1, 2 and 16;
 ``--serving-only`` steps 1, 2 and 17, with a ``kernels`` line of K2, K2-x
 and K6 at the serving shapes; ``--wire-only`` steps 1, 2 and 18, with a
 ``kernels`` line of K2 and K2-x; ``--machines-only`` steps 1, 2 and 19,
-with a ``kernels`` line of K2 and K2-x.
+with a ``kernels`` line of K2 and K2-x; ``--mesh-only`` steps 1, 2 and
+20.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
@@ -7562,6 +7589,366 @@ def machines_cells(dev, errs):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# KMeans over a mesh of ranks (MESH, step 20)
+# ---------------------------------------------------------------------------
+
+#: (backend, world size, layouts): NCCL takes a card a rank, so on one card
+#: it runs a world of 1; the worlds of 2 and 4 share card 0 over gloo
+MESH_WORLDS = (("nccl", 1, ("flat",)), ("gloo", 2, ("flat", "hier")),
+               ("gloo", 4, ("flat", "hier", "model")))
+MESH_KERNELS = ("lloyd_iter", "fused_argmin_min", "fused_rowwise_min",
+                "fused_argmin_weight", "fused_argmin_min2")
+MESH_TIMEOUT = 300
+MESH_LOOP_ITERS = 20
+
+
+def mesh_layouts(world: int, names):
+    """The meshes of a world, built in one order on every rank."""
+    from dask_ml_tpu_torch.parallel import hierarchy as hier
+    from dask_ml_tpu_torch.parallel import mesh as mesh_lib
+
+    make = {"flat": lambda: mesh_lib.make_mesh(),
+            "hier": lambda: hier.make_hierarchical_mesh(
+                2 if world == 4 else 1),
+            "model": lambda: mesh_lib.make_2d_mesh(2, 2)}
+    return {name: make[name]() for name in names}
+
+
+def mesh_fit(m, X, algo: str, dev):
+    """One fit over ``m`` with the launch counts and the ledger set to 0
+    just before, then ``predict`` with the counts set to 0 again; the
+    model layout runs the feature-sharded loop from the k-means|| init the
+    facade draws, and its labels are the predict. Returns (centers,
+    labels, n_iter, inertia, phases, fit launches, ledger, wall, predict,
+    predict's K2 launches)."""
+    import torch
+
+    from dask_ml_tpu_torch import _kernels
+    from dask_ml_tpu_torch.cluster import KMeans
+    from dask_ml_tpu_torch.models import kmeans as core
+    from dask_ml_tpu_torch.parallel import hierarchy as hier
+    from dask_ml_tpu_torch.parallel import mesh as mesh_lib
+    from dask_ml_tpu_torch.parallel.sharding import prepare_data
+    from dask_ml_tpu_torch.utils.validation import check_random_state
+
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    hier.reset_ledger()
+    t0 = time.perf_counter()
+    with mesh_lib.use_mesh(m):
+        if not mesh_lib.has_model_axis(m):
+            km = KMeans(n_clusters=K, init="k-means||",
+                        oversampling_factor=2, random_state=SEED,
+                        algorithm=algo).fit(X)
+            out = (km.cluster_centers_, km.labels_, km.n_iter_,
+                   km.inertia_, km.fit_phase_seconds_)
+        else:
+            data = prepare_data(X, device=dev, mesh=m)
+            c0 = core.k_init(data.X, data.weights, data.n, K,
+                             check_random_state(SEED, device=dev),
+                             oversampling_factor=2, mesh=m)
+            torch.cuda.synchronize()
+            t_init = time.perf_counter()
+            tol = core.scaled_tolerance(data.X, data.weights, 1e-4, mesh=m)
+            feat = prepare_data(X, device=dev, mesh=m, shard_features=True)
+            pad = feat.X.shape[1] * mesh_lib.n_model_shards(m) - D
+            c0 = torch.cat([c0, c0.new_zeros((K, pad))], dim=1)
+            centers, _, n_iter, _ = core.lloyd_loop_fused(
+                feat.X, feat.weights, c0, tol, max_iter=300, mesh=m,
+                shard_features=True)
+            centers = centers[:, :D].contiguous()
+            inertia = core.compute_inertia(data.X, data.weights, centers,
+                                           mesh=m, n_valid=data.n)
+            labels = core.predict_labels(data.X, centers, mesh=m,
+                                         n_valid=data.n)
+            torch.cuda.synchronize()
+            out = (centers.cpu().numpy(), labels.cpu().numpy(), n_iter,
+                   float(inertia),
+                   {"init": t_init - t0,
+                    "lloyd": time.perf_counter() - t_init})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: int(_kernels.launches[k]) for k in MESH_KERNELS}
+    ledger = hier.ledger_snapshot()
+    if mesh_lib.has_model_axis(m):
+        return out + (launches, ledger, wall, out[1],
+                      launches["fused_argmin_min"])
+    _kernels.reset_launches()
+    with mesh_lib.use_mesh(m):
+        pred = km.predict(X)
+    return out + (launches, ledger, wall, pred,
+                  int(_kernels.launches["fused_argmin_min"]))
+
+
+def mesh_timings(m, X, dev) -> dict:
+    """Lloyd ms an iteration at tol 0 on this rank's block (the feature-
+    sharded loop on a model axis), and the ms of one ``hpsum`` of the
+    M-step operands (sums (k, d), counts (k,), inertia)."""
+    import torch
+
+    from dask_ml_tpu_torch.models import kmeans as core
+    from dask_ml_tpu_torch.parallel import hierarchy as hier
+    from dask_ml_tpu_torch.parallel import mesh as mesh_lib
+    from dask_ml_tpu_torch.parallel.sharding import prepare_data
+
+    model = mesh_lib.has_model_axis(m)
+    data = prepare_data(X, device=dev, mesh=m, shard_features=model)
+    c0 = torch.as_tensor(X[:K * 997:997], device=dev)
+    if model:
+        pad = data.X.shape[1] * mesh_lib.n_model_shards(m) - D
+        c0 = torch.cat([c0, c0.new_zeros((K, pad))], dim=1)
+    ops = (torch.zeros((K, D), device=dev), torch.zeros(K, device=dev),
+           torch.zeros((), device=dev))
+    for _ in range(3):
+        for t in ops:
+            hier.hpsum(t, m, op="mesh.timing")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH_LOOP_ITERS):
+        for t in ops:
+            hier.hpsum(t, m, op="mesh.timing")
+    torch.cuda.synchronize()
+    hpsum_ms = (time.perf_counter() - t0) * 1e3 / MESH_LOOP_ITERS
+    core.lloyd_loop_fused(data.X, data.weights, c0, 0.0, max_iter=2,
+                          mesh=m, shard_features=model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, it, _ = core.lloyd_loop_fused(
+        data.X, data.weights, c0, 0.0, max_iter=MESH_LOOP_ITERS, mesh=m,
+        shard_features=model)
+    torch.cuda.synchronize()
+    return {"lloyd_ms_per_iter": (time.perf_counter() - t0) * 1e3 / it,
+            "hpsum_mstep_ms": hpsum_ms, "rows_here": int(data.X.shape[0])}
+
+
+def mesh_rank(backend: str, world: int, rank: int, tmp: str, layouts):
+    """One rank of a MESH world (run in a spawned process): join the world
+    on card 0, fit every layout, hold each fit to the single-device fit of
+    the parent, write this rank's report to ``tmp``."""
+    import os
+    import traceback
+
+    report = {"rank": rank, "errors": [], "fits": {}, "timings": {}}
+    try:
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        from dask_ml_tpu_torch.parallel import hierarchy as hier
+        from dask_ml_tpu_torch.parallel import runtime, shapes
+
+        store = os.path.join(tmp, f"store-{backend}-{world}")
+        if world > 1:
+            # NCCL refuses two ranks on one card: initialize says so
+            try:
+                runtime.initialize(backend="nccl",
+                                   init_method="file://" + store + "-nccl",
+                                   num_processes=world, process_id=rank,
+                                   local_device_ids=[0])
+                report["errors"].append(
+                    "runtime.initialize accepted nccl with two ranks on "
+                    "one card")
+                runtime.shutdown()
+            except RuntimeError as e:
+                report["nccl_refused"] = str(e)
+        runtime.initialize(backend=backend, init_method="file://" + store,
+                           num_processes=world, process_id=rank,
+                           local_device_ids=[0])
+        dev = runtime.device()
+        meshes = mesh_layouts(world, layouts)
+        Xf, _ = blobs_data(SEED)
+        Xi = np.rint(Xf)
+        ref = np.load(os.path.join(tmp, "ref.npz"))
+        ref_k3 = json.loads(open(os.path.join(tmp, "ref.json")).read())
+        mesh_fit(meshes["flat"], Xf, "full", dev)  # warmup: loads kernels
+        st0 = shapes.compile_stats()
+        for name, m in meshes.items():
+            algos = ("full",) if name == "model" else ("full", "bounded")
+            for kind, X in (("int", Xi), ("float", Xf)):
+                for algo in algos:
+                    tag = f"{name}-{kind}-{algo}"
+                    (c, lab, n_it, inertia, ph, launches, led, wall,
+                     pred, pred_k2) = mesh_fit(m, X, algo, dev)
+                    rc, rl = ref[f"{kind}-{algo}-c"], ref[f"{kind}-{algo}-l"]
+                    rn = int(ref[f"{kind}-{algo}-n"])
+                    ri = float(ref[f"{kind}-{algo}-i"])
+                    err = []
+                    if kind == "int" and name != "model":
+                        if not (np.array_equal(c, rc)
+                                and np.array_equal(lab, rl)
+                                and np.array_equal(pred, rl)
+                                and n_it == rn and inertia == ri):
+                            err.append(
+                                f"{tag}: not the single-device fit bit for "
+                                f"bit (n_iter {n_it}/{rn}, inertia "
+                                f"{inertia!r}/{ri!r}, centers equal "
+                                f"{np.array_equal(c, rc)}, labels equal "
+                                f"{np.array_equal(lab, rl)})")
+                    elif kind == "int":
+                        if not (np.array_equal(lab, rl)
+                                and np.allclose(c, rc, rtol=1e-5, atol=1e-5)
+                                and abs(inertia - ri) <= 1e-5 * abs(ri)):
+                            err.append(f"{tag}: labels differ or centers/"
+                                       "inertia beyond rtol 1e-5")
+                    else:
+                        a = ari(rl, lab)
+                        if a < 0.99 or abs(inertia - ri) > 1e-5 * abs(ri):
+                            err.append(f"{tag}: ARI {a}, inertia {inertia}"
+                                       f" against {ri}")
+                    k1, k2, k3, k4, k5 = (launches[k] for k in MESH_KERNELS)
+                    want_k1 = n_it if (algo == "full" and name != "model") \
+                        else 0
+                    want_k5 = n_it if algo == "bounded" else 0
+                    if (k1, k5, k4) != (want_k1, want_k5, 1) \
+                            or k3 != ref_k3[f"{kind}-{algo}"] or k3 < 1 \
+                            or k2 < 1 or pred_k2 < 1:
+                        err.append(f"{tag}: launches {launches}, predict "
+                                   f"K2 {pred_k2} (K1 {want_k1}, K5 "
+                                   f"{want_k5}, K3 {ref_k3}, K4 1)")
+                    ops = K * D + K + (1 if algo == "full" else 0)
+                    calls = 3 if algo == "full" else 2
+                    model_m = m if name != "model" else None
+                    if model_m is not None:
+                        want = {ax: b * n_it for ax, b in
+                                hier.collective_bytes(m, ops * 4).items()}
+                        got = led["ops"].get("kmeans.mstep", {})
+                        got_calls = {ax: led["calls"].get(
+                            f"{ax}/kmeans.mstep", 0) for ax in want}
+                        if got != want or set(got_calls.values()) != {
+                                calls * n_it}:
+                            err.append(f"{tag}: ledger {got} {got_calls}, "
+                                       f"want {want}, {calls}×{n_it}")
+                        if name == "hier" and m.shape["pod"] == 1 \
+                                and got.get("pod") != 0:
+                            err.append(f"{tag}: pod stage moved bytes")
+                    report["errors"] += err
+                    report["fits"][tag] = {
+                        "n_iter": int(n_it), "inertia": float(inertia),
+                        "wall_s": wall, "init_s": ph["init"],
+                        "lloyd_s": ph["lloyd"], "launches": launches,
+                        "predict_k2": pred_k2,
+                        "ledger_bytes": led["bytes"]}
+            report["timings"][name] = mesh_timings(m, Xf, dev)
+        st1 = shapes.compile_stats()
+        for key in ("n_compiles", "n_loads"):
+            if st1[key] != st0[key]:
+                report["errors"].append(
+                    f"{key} {st0[key]} -> {st1[key]} after the warmup")
+        runtime.shutdown()
+    except BaseException:
+        report["errors"].append(traceback.format_exc())
+    with open(os.path.join(tmp, f"rank-{backend}-{world}-{rank}.json"),
+              "w") as f:
+        json.dump(report, f)
+
+
+def mesh_cells(dev):
+    """The MESH phase (step 20). Returns ({world-layout-fit: [each rank's
+    K1–K5 launches]}, summary)."""
+    import multiprocessing
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dask_ml_tpu_torch.cluster import KMeans
+
+    t_all = time.perf_counter()
+    Xf, _ = drawn("blobs", lambda: blobs_data(SEED))
+    Xi = np.rint(Xf)
+    tmp = tempfile.mkdtemp(prefix="dmlt_mesh_")
+    ref, ref_k3, single = {}, {}, {}
+    for kind, X in (("int", Xi), ("float", Xf)):
+        for algo in ("full", "bounded"):
+            km, sec, launches = drive(lambda: KMeans(
+                n_clusters=K, init="k-means||", oversampling_factor=2,
+                random_state=SEED, algorithm=algo).fit(X))
+            ref[f"{kind}-{algo}-c"] = km.cluster_centers_
+            ref[f"{kind}-{algo}-l"] = km.labels_
+            ref[f"{kind}-{algo}-n"] = np.array(km.n_iter_)
+            ref[f"{kind}-{algo}-i"] = np.array(km.inertia_)
+            ref_k3[f"{kind}-{algo}"] = int(launches["fused_rowwise_min"])
+            single[f"{kind}-{algo}"] = {
+                "wall_s": sec, "n_iter": km.n_iter_,
+                "init_s": km.fit_phase_seconds_["init"],
+                "lloyd_s": km.fit_phase_seconds_["lloyd"]}
+    np.savez(os.path.join(tmp, "ref.npz"), **ref)
+    with open(os.path.join(tmp, "ref.json"), "w") as f:
+        json.dump(ref_k3, f)
+    log("MESH single-device " + json.dumps(single))
+    del Xi
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    launches_by_fit, summary = {}, {"single": single, "worlds": []}
+    try:
+        for backend, world, layouts in MESH_WORLDS:
+            t0 = time.perf_counter()
+            procs = [ctx.Process(target=mesh_rank,
+                                 args=(backend, world, r, tmp, layouts))
+                     for r in range(world)]
+            for p in procs:
+                p.start()
+            deadline = time.monotonic() + MESH_TIMEOUT
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 1))
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(30)
+            expect(not hung, f"MESH {backend} world {world}: ranks {hung} "
+                   f"still running after {MESH_TIMEOUT} s")
+            reports = []
+            for r, p in enumerate(procs):
+                path = os.path.join(tmp, f"rank-{backend}-{world}-{r}.json")
+                expect(p.exitcode == 0 and os.path.exists(path),
+                       f"MESH {backend} world {world} rank {r} exited "
+                       f"{p.exitcode} without a report")
+                with open(path) as f:
+                    reports.append(json.load(f))
+            errors = [e for rep in reports for e in rep["errors"]]
+            expect(not errors, f"MESH {backend} world {world}: "
+                   + " | ".join(errors))
+            if world > 1:
+                expect(all("distinct card" in rep.get("nccl_refused", "")
+                           for rep in reports),
+                       "nccl was not refused for two ranks on one card")
+            sec = time.perf_counter() - t0
+            for layout in layouts:
+                fits = {tag[len(layout) + 1:]: [rep["fits"][tag]
+                                                for rep in reports]
+                        for tag in reports[0]["fits"]
+                        if tag.startswith(layout + "-")}
+                for tag, per_rank in fits.items():
+                    launches_by_fit[f"{backend}-w{world}-{layout}-{tag}"] = [
+                        f["launches"] for f in per_rank]
+                line = {
+                    "backend": backend, "world": world, "layout": layout,
+                    "world_seconds": sec,
+                    "fits": {tag: {k: per_rank[0][k] for k in (
+                        "n_iter", "wall_s", "init_s", "lloyd_s",
+                        "ledger_bytes")} for tag, per_rank in fits.items()},
+                    "lloyd_ms_per_iter": [rep["timings"][layout][
+                        "lloyd_ms_per_iter"] for rep in reports],
+                    "hpsum_mstep_ms": [rep["timings"][layout][
+                        "hpsum_mstep_ms"] for rep in reports],
+                    "rows_a_rank": reports[0]["timings"][layout][
+                        "rows_here"],
+                    "launches": {tag: [[f["launches"][k] for k in
+                                        MESH_KERNELS] + [f["predict_k2"]]
+                                       for f in per_rank]
+                                 for tag, per_rank in fits.items()}}
+                log("MESH " + json.dumps(line))
+                summary["worlds"].append(line)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary["seconds"] = time.perf_counter() - t_all
+    log(f"MESH phase: {summary['seconds']:.1f} s")
+    return launches_by_fit, summary
+
+
 def main() -> int:
     import torch
 
@@ -7701,6 +8088,13 @@ def main() -> int:
             r["launches_machines"] = int(mach_launches[r["name"]])
         log("MACHINES max_abs_err " + json.dumps(mach_errs))
         print(json.dumps({"kernels": rows}), flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+        return 0
+
+    if "--mesh-only" in sys.argv[1:]:
+        mesh_cells(dev)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": count}}), flush=True)
@@ -7960,6 +8354,15 @@ def main() -> int:
         if r["name"] in mach_errs:
             r["max_abs_err_machines"] = mach_errs[r["name"]]
             r["max_abs_err"] = max(r["max_abs_err"], mach_errs[r["name"]])
+    torch.cuda.empty_cache()
+
+    mesh_launches, _ = mesh_cells(dev)
+    for r in rows:
+        got = {fit: [per[r["name"]] for per in ranks]
+               for fit, ranks in mesh_launches.items()
+               if r["name"] in ranks[0]}
+        if got:
+            r["launches_mesh"] = got
     torch.cuda.empty_cache()
 
     bf16, _ = precision_cells(dev, f32_inertia=blobs_inertia)

@@ -9,6 +9,16 @@ and learned attributes; the compute path is the functional core in
 device (``config.device``, default ``"cuda"``) through the hand-written
 kernels: ``algorithm="full"`` (alias ``"lloyd"``), ``"bounded"`` (alias
 ``"elkan"``), ``"auto"`` and ``"sketched"``.
+
+Over a mesh of ranks (``config_context(mesh=...)``, or the world that
+``parallel.runtime.initialize`` joined) every rank calls ``fit`` with the
+same ``X``; each stages and computes on its own block of rows, and
+``cluster_centers_``, ``labels_``, ``inertia_`` and ``n_iter_`` come out
+the same on every rank, equal to a single device's on integer-valued data
+(:mod:`dask_ml_tpu_torch.models.kmeans`). ``predict``, ``transform``,
+``score`` and the module functions do the same. ``algorithm="sketched"``
+over more than one rank comes with ROADMAP Queue A item 10b; the search's
+batched groups stage the whole data on each rank, as on one device.
 """
 
 from __future__ import annotations
@@ -25,6 +35,8 @@ from dask_ml_tpu_torch.models import kmeans as core
 from dask_ml_tpu_torch.ops import fast_transform as ftm
 from dask_ml_tpu_torch.ops.pairwise import euclidean_distances
 from dask_ml_tpu_torch.parallel import telemetry
+from dask_ml_tpu_torch.parallel.hierarchy import gather_blocks, hpsum
+from dask_ml_tpu_torch.parallel.mesh import collective_mesh, is_sharded
 from dask_ml_tpu_torch.parallel.precision import lloyd_bounds_dtype
 from dask_ml_tpu_torch.parallel.sharding import prepare_data, unpad_rows
 from dask_ml_tpu_torch.utils.validation import check_array, check_random_state
@@ -150,14 +162,20 @@ class KMeans(TransformerMixin, BaseEstimator):
         dev = resolve_device(self.device)
         with telemetry.span("kmeans.fit", n=int(X.shape[0]),
                             d=int(X.shape[1]), k=int(self.n_clusters)):
-            data = prepare_data(X, sample_weight=sample_weight, device=dev)
+            data = prepare_data(X, sample_weight=sample_weight, device=dev,
+                                mesh=collective_mesh())
+            if self.algorithm == "sketched" and is_sharded(data.mesh):
+                raise NotImplementedError(
+                    "algorithm='sketched' over a mesh of more than one rank "
+                    "comes with ROADMAP Queue A item 10b; fit it on one "
+                    "device")
             gen = check_random_state(self.random_state, device=dev)
             with telemetry.span("kmeans.init"):
                 centers = core.k_init(
                     data.X, data.weights, data.n, self.n_clusters, gen,
                     init=self.init,
                     oversampling_factor=self.oversampling_factor,
-                    max_iter=self.init_max_iter)
+                    max_iter=self.init_max_iter, mesh=data.mesh)
                 _sync(dev)
             t_init = tic()
             # a refit must not keep the attributes of another algorithm:
@@ -176,7 +194,9 @@ class KMeans(TransformerMixin, BaseEstimator):
         return self
 
     def _fit_lloyd(self, data, centers):
-        tol = core.scaled_tolerance(data.X, data.weights, self.tol)
+        mesh = data.mesh
+        tol = core.scaled_tolerance(data.X, data.weights, self.tol,
+                                    mesh=mesh)
         bounded = self._use_bounded(data.n, data.n_features)
         with telemetry.span("kmeans-lloyd",
                             algorithm="bounded" if bounded else "lloyd"):
@@ -184,16 +204,19 @@ class KMeans(TransformerMixin, BaseEstimator):
                 centers, _, n_iter, _, _, stats = core.lloyd_loop_bounded(
                     data.X, data.weights, centers, tol,
                     max_iter=self.max_iter,
-                    bounds_dtype=lloyd_bounds_dtype(data.X.dtype))
+                    bounds_dtype=lloyd_bounds_dtype(data.X.dtype),
+                    mesh=mesh)
             else:
                 centers, _, n_iter, _ = core.lloyd_loop_fused(
                     data.X, data.weights, centers, tol,
-                    max_iter=self.max_iter)
+                    max_iter=self.max_iter, mesh=mesh)
         # inertia against the FINAL centers, so inertia_ agrees with
         # cluster_centers_, labels_ and score(X)
         with telemetry.span("kmeans.finalize"):
-            inertia = core.compute_inertia(data.X, data.weights, centers)
-            labels = core.predict_labels(data.X, centers)
+            inertia = core.compute_inertia(data.X, data.weights, centers,
+                                           mesh=mesh, n_valid=data.n)
+            labels = core.predict_labels(data.X, centers, mesh=mesh,
+                                         n_valid=data.n)
             self.cluster_centers_ = centers.cpu().numpy()
             self.labels_ = unpad_rows(labels, data.n).cpu().numpy()
             self.inertia_ = float(inertia)
@@ -201,7 +224,7 @@ class KMeans(TransformerMixin, BaseEstimator):
         self.n_features_in_ = data.n_features
         if bounded:
             self.lloyd_pruning_ = _pruning_summary(
-                [(stats, n_iter)], data.weights, self.n_clusters)
+                [(stats, n_iter)], data.weights, self.n_clusters, mesh)
 
     def _fit_sketched(self, data, centers, gen):
         """The QuicK-means fit: palm4MSA-fit a fast transform and shared
@@ -296,32 +319,42 @@ class KMeans(TransformerMixin, BaseEstimator):
                 f"X has {X.shape[1]} features; the model was fitted with "
                 f"{self.cluster_centers_.shape[1]}")
         dev = resolve_device(self.device)
-        data = prepare_data(X, device=dev)
+        data = prepare_data(X, device=dev, mesh=collective_mesh())
         centers = torch.as_tensor(self.cluster_centers_, dtype=torch.float32,
                                   device=dev)
         return data, centers
 
     def predict(self, X):
         """Nearest-center labels (int32); a sketched model assigns through
-        its sketch, as its fit did."""
+        its sketch, as its fit did. Over a mesh every rank returns the
+        labels of every row."""
         data, centers = self._staged(X)
         if getattr(self, "fast_transform_", None) is not None:
+            if is_sharded(data.mesh):
+                raise NotImplementedError(
+                    "a sketched model's predict over a mesh of more than "
+                    "one rank comes with ROADMAP Queue A item 10b")
             labels = core.predict_labels_sketched(
                 data.X, *self._sketch_args(data.X.device))
         else:
-            labels = core.predict_labels(data.X, centers)
+            labels = core.predict_labels(data.X, centers, mesh=data.mesh,
+                                         n_valid=data.n)
         return maybe_host(unpad_rows(labels, data.n))
 
     def transform(self, X):
-        """Distances to each center."""
+        """Distances to each center (over a mesh, of every row on every
+        rank)."""
         data, centers = self._staged(X)
-        return maybe_host(unpad_rows(euclidean_distances(data.X, centers),
-                                     data.n))
+        dist = euclidean_distances(data.X, centers)
+        if is_sharded(data.mesh):
+            dist = gather_blocks(dist, data.mesh, op="kmeans.transform")
+        return maybe_host(unpad_rows(dist, data.n))
 
     def score(self, X, y=None):
         """Negative inertia on X (higher is better), matching sklearn."""
         data, centers = self._staged(X)
-        return -float(core.compute_inertia(data.X, data.weights, centers))
+        return -float(core.compute_inertia(data.X, data.weights, centers,
+                                           mesh=data.mesh, n_valid=data.n))
 
     # -- batched-candidate protocol (the search driver's fast path) -------
     #
@@ -395,15 +428,18 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _pruning_summary(runs, w, k: int) -> dict:
+def _pruning_summary(runs, w, k: int, mesh=None) -> dict:
     """``lloyd_pruning_`` from the (stats, n_iter) of one or more bounded
     loops. The loops count positive-weight rows only, so the fractions
-    are over those."""
+    are over those (of every shard, with ``mesh``)."""
     skip = np.concatenate([st["rows_skipped"][:int(ni)].cpu().numpy()
                            for st, ni in runs])
     held = np.concatenate([st["bounds_held"][:int(ni)].cpu().numpy()
                            for st, ni in runs])
-    n_real = int((w > 0).sum())
+    real = (w > 0).sum()
+    if mesh is not None:
+        real = hpsum(real, mesh, op="kmeans.stats")
+    n_real = int(real)
     denom = max(n_real, 1)
     return {
         "rows_skipped": int(skip.sum()),
@@ -466,7 +502,7 @@ def k_means(X, n_clusters, init="k-means||", precompute_distances="auto",
 
 
 def _staged_for_init(X, random_state=None):
-    data = prepare_data(check_array(X))
+    data = prepare_data(check_array(X), mesh=collective_mesh())
     return data, check_random_state(random_state, device=data.X.device)
 
 
@@ -475,11 +511,19 @@ def compute_inertia(X, labels, centers):
     Deliberate deviation, as in the JAX package: the reference's code sums
     raw differences (no square, so it can go negative); this is the
     squared quantity, which scikit-learn and ``inertia_`` report."""
+    from dask_ml_tpu_torch.parallel.sharding import _row_block
+
     data, _ = _staged_for_init(X)
     dev = data.X.device
-    labels = torch.as_tensor(np.asarray(labels), device=dev)
+    labels = np.asarray(labels)
+    if is_sharded(data.mesh):
+        labels = _row_block(labels, data.n_padded, data.mesh)
+    labels = torch.as_tensor(labels, device=dev)
     centers = torch.as_tensor(np.asarray(centers, np.float32), device=dev)
-    return float(_assigned_inertia(data.X, data.weights, labels, centers))
+    inertia = _assigned_inertia(data.X, data.weights, labels, centers)
+    if is_sharded(data.mesh):
+        inertia = hpsum(inertia, data.mesh, op="kmeans.inertia")
+    return float(inertia)
 
 
 def evaluate_cost(X, centers):
@@ -489,7 +533,8 @@ def evaluate_cost(X, centers):
     data, _ = _staged_for_init(X)
     centers = torch.as_tensor(np.asarray(centers, np.float32),
                               device=data.X.device)
-    return float(core.compute_inertia(data.X, data.weights, centers))
+    return float(core.compute_inertia(data.X, data.weights, centers,
+                                      mesh=data.mesh, n_valid=data.n))
 
 
 def k_init(X, n_clusters, init="k-means||", random_state=None, max_iter=None,
@@ -500,7 +545,7 @@ def k_init(X, n_clusters, init="k-means||", random_state=None, max_iter=None,
     return core.k_init(
         data.X, data.weights, data.n, int(n_clusters), gen, init=init,
         oversampling_factor=oversampling_factor,
-        max_iter=max_iter).cpu().numpy()
+        max_iter=max_iter, mesh=data.mesh).cpu().numpy()
 
 
 def init_scalable(X, n_clusters, random_state=None, max_iter=None,
@@ -513,14 +558,14 @@ def init_scalable(X, n_clusters, random_state=None, max_iter=None,
     return core.init_scalable(
         data.X, data.weights, data.n, int(n_clusters), gen,
         oversampling_factor=oversampling_factor,
-        max_iter=max_iter).cpu().numpy()
+        max_iter=max_iter, mesh=data.mesh).cpu().numpy()
 
 
 def init_random(X, n_clusters, random_state=None):
     """``n_clusters`` distinct random rows."""
     data, gen = _staged_for_init(X, random_state)
     return core.init_random(data.X, data.weights, data.n, int(n_clusters),
-                            gen).cpu().numpy()
+                            gen, mesh=data.mesh).cpu().numpy()
 
 
 def init_pp(X, n_clusters, random_state=None):
@@ -528,4 +573,5 @@ def init_pp(X, n_clusters, random_state=None):
     modest n, as in the reference); raises ``ImportError`` where
     scikit-learn is not installed."""
     data, gen = _staged_for_init(X, random_state)
-    return core.init_pp(data.X, data.n, int(n_clusters), gen).cpu().numpy()
+    return core.init_pp(data.X, data.n, int(n_clusters), gen,
+                        mesh=data.mesh).cpu().numpy()

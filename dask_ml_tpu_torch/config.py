@@ -30,7 +30,9 @@ Knobs:
   :func:`~dask_ml_tpu_torch.parallel.shapes.active_policy` and used by
   :func:`~dask_ml_tpu_torch.parallel.shapes.bucket_rows`. The JAX package
   buckets every staged row count under it; the port's staging pads nothing
-  (eager PyTorch compiles nothing per shape), so the knob changes no fit.
+  on one device (eager PyTorch compiles nothing per shape), and over a
+  mesh of more than one shard pads the rows to this bucket, as the JAX
+  package does; the padding rows weigh 0, so the knob changes no fit.
 - ``compilation_cache`` — a directory, process-wide only
   (:func:`config_context` refuses to change it, as the JAX package does;
   it may restate the process's value, as a worker thread does when it
@@ -39,6 +41,16 @@ Knobs:
   its kernel builds persist in ``_kernels/_build`` anyway, so
   :func:`set_config` only creates the directory
   (:func:`~dask_ml_tpu_torch.parallel.shapes.enable_persistent_cache`).
+- ``mesh`` — the :class:`~dask_ml_tpu_torch.parallel.mesh.Mesh` fits run
+  on: ``set_config(mesh=...)`` sets the process-wide default (consulted
+  by ``default_mesh()``), and ``config_context(mesh=...)`` scopes it
+  through :func:`~dask_ml_tpu_torch.parallel.mesh.use_mesh`, a
+  process-visible stack, so the search's worker threads resolve the mesh
+  of the thread that opened the scope. ``config_context(mesh=None)`` is
+  refused where a mesh is set: the stack cannot express "no mesh" inside
+  an enclosing scope; clear the process default with
+  ``set_config(mesh=None)``. Where none is set it restates the default,
+  as a worker thread re-entering its caller's configuration does.
 """
 
 from __future__ import annotations
@@ -57,6 +69,7 @@ _DEFAULTS: dict[str, Any] = {
     "telemetry": False,
     "pad_policy": "auto",
     "compilation_cache": None,
+    "mesh": None,
 }
 
 _global_config = dict(_DEFAULTS)
@@ -88,6 +101,12 @@ def _validate_options(options: dict) -> None:
                 f"dtype={v!r}: the port stages float32 or bfloat16")
         if k == "device":
             torch.device(v)  # raises on a malformed device string
+        if k == "mesh" and v is not None:
+            from dask_ml_tpu_torch.parallel.mesh import Mesh
+
+            if not isinstance(v, Mesh):
+                raise ValueError(
+                    f"mesh must be None or a parallel.mesh.Mesh; got {v!r}")
         if k == "pad_policy" and v is not None and v != "auto":
             from dask_ml_tpu_torch.parallel.shapes import PadPolicy
 
@@ -137,10 +156,28 @@ def config_context(**options):
         raise ValueError(
             "compilation_cache is process-wide; use "
             "set_config(compilation_cache=...) instead of config_context")
+    if "mesh" in options and options["mesh"] is None:
+        from dask_ml_tpu_torch.parallel import mesh as mesh_lib
+
+        # a scope may restate "no mesh" (a worker thread re-entering its
+        # caller's whole configuration), not clear one
+        if get_config()["mesh"] is not None or mesh_lib._mesh_stack:
+            raise ValueError(
+                "config_context(mesh=None) cannot clear an enclosing mesh "
+                "scope; use set_config(mesh=None) to clear the process-wide "
+                "default, or pass an explicit Mesh")
+        del options["mesh"]
+    mesh = options.get("mesh")
     stack = _stack()
     stack.append(options)
     try:
-        yield
+        if mesh is not None:
+            from dask_ml_tpu_torch.parallel.mesh import use_mesh
+
+            with use_mesh(mesh):
+                yield
+        else:
+            yield
     finally:
         stack.pop()
 

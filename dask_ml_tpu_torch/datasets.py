@@ -8,7 +8,7 @@ device (``config.device``, "cuda" by default) from one
 the same seed gives the same bits, but not the JAX package's numbers
 (Philox is not threefry), so they are held to the JAX tests' properties.
 ``mesh=`` (a multi-device layout) raises: it comes with ROADMAP Queue A
-item 10.
+item 10b.
 
 :func:`make_sparse_classification` is the JAX package's generator, copied,
 in numpy: each row draws its content from a counter-seeded chunk
@@ -33,8 +33,8 @@ def _generator(random_state, mesh):
     if mesh is not None:
         raise NotImplementedError(
             "mesh= lays the rows out over several devices, which comes "
-            "with the multi-device port, ROADMAP Queue A item 10, which "
-            "the port does not have yet")
+            "with the rest of the multi-device port, ROADMAP Queue A item "
+            "10b, which the port does not have yet")
     dev = resolve_device()
     return check_random_state(random_state, device=dev), dev
 

@@ -116,7 +116,7 @@ def streamed_moments(*, block_fn, n_blocks, checkpoint_path=None,
     if elastic is not None:
         raise NotImplementedError(
             "elastic= belongs to the elastic multi-host tier, ROADMAP "
-            "Queue A item 10, which the port does not have yet")
+            "Queue A item 10b, which the port does not have yet")
     if isinstance(block_fn, HostBlockSource):
         if block_fn.n_blocks != int(n_blocks):
             raise ValueError(

@@ -38,7 +38,7 @@ Deviations from the JAX package:
   (``_kernels.build.builds``, 0 after a bracket's first rung on a warm
   process) and its kernel launches (``_kernels.launches``).
 - ``elastic=`` (the multi-host candidate plane) raises: it comes with the
-  multi-device port, ROADMAP Queue A item 10.
+  rest of the multi-device port, ROADMAP Queue A item 10b.
 - The report appends ``telemetry.render_counters()`` (the port's
   telemetry keeps counters and profiler ranges, no span ring).
 
@@ -309,8 +309,8 @@ class BaseIncrementalSearchCV(BaseEstimator):
         if self.elastic is not None:
             raise NotImplementedError(
                 "elastic= runs the search over a multi-host roster, which "
-                "comes with the multi-device port, ROADMAP Queue A item "
-                "10, which the port does not have yet")
+                "comes with the rest of the multi-device port, ROADMAP "
+                "Queue A item 10b, which the port does not have yet")
         from dask_ml_tpu_torch.parallel.elastic import BlockPlan
 
         t_fit0 = time.time()

@@ -1012,7 +1012,7 @@ def admm_streamed(block_fn, n_blocks, d, sw_total, mask=None, *,
     if elastic is not None:
         raise NotImplementedError(
             "elastic= belongs to the elastic multi-host tier, ROADMAP "
-            "Queue A item 10, which the port does not have yet")
+            "Queue A item 10b, which the port does not have yet")
     host = isinstance(block_fn, HostBlockSource)
     if host and block_fn.n_blocks != int(n_blocks):
         raise ValueError(

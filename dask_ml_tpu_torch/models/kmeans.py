@@ -17,6 +17,22 @@ determinism under a seed, while the Lloyd loops are held to it bit for
 bit from a shared ``init=`` array.
 
 Rows with weight 0 contribute nothing to sums, counts or inertia.
+
+**Over a mesh** (``mesh=``, :mod:`~dask_ml_tpu_torch.parallel.mesh`) X
+and w are this rank's block of the row-sharded data, and every kernel
+launches on the block as it does on the whole data. The cross-shard sums
+go through :func:`~dask_ml_tpu_torch.parallel.hierarchy.hpsum` (ledger ops
+``kmeans.mstep``, ``kmeans.inertia``, ``kmeans.stats``, ``kmeans.tol``,
+``kmeans.init.seed``, ``kmeans.init.rounds``, ``kmeans.init.stats``,
+``fused.argmin_weight``), and gathers of per-row results through
+:func:`~dask_ml_tpu_torch.parallel.hierarchy.gather_blocks`. A fit does
+not depend on the world size: the k-means|| draws are made over the whole
+data by every rank from the same generator (each takes its slice), the
+candidate rows are placed by a global prefix of the hit counts, and
+``compute_inertia`` sums the per-row costs in the one order of a single
+device. So on integer-valued data (where every cross-shard sum of the
+loops is exact) world 1, 2, 3 and 4 give the same centers, labels,
+``n_iter`` and inertia, bit for bit.
 """
 
 from __future__ import annotations
@@ -38,7 +54,15 @@ from dask_ml_tpu_torch.ops.fused_distance import (
     fused_rowwise_min,
     row_block_evaluated,
 )
+from dask_ml_tpu_torch.parallel import mesh as mesh_lib
 from dask_ml_tpu_torch.parallel import telemetry
+from dask_ml_tpu_torch.parallel.hierarchy import (
+    gather_blocks,
+    hpsum,
+    mpgather,
+    mpsum,
+)
+from dask_ml_tpu_torch.parallel.mesh import is_sharded
 
 logger = logging.getLogger(__name__)
 
@@ -217,15 +241,36 @@ def _lloyd_stats_fn(X, k: int, d: int, kernel: str):
 
 
 def lloyd_loop_fused(X, w, centers0, tol, *, max_iter: int,
-                     kernel: str = "auto"):
+                     kernel: str = "auto", mesh=None,
+                     shard_features: bool = False):
     """Lloyd over the full data, one single-pass kernel launch per
     iteration on the card (``kernel="auto"`` or ``"cuda"``; beyond the
     kernel's shared-memory bound ``"auto"`` takes the two-pass form, and
     ``"cuda"`` raises). On the CPU, or with ``kernel="torch"``, each
     iteration runs the plain version. ``shift`` is read back to the host
     once an iteration for the stopping rule — one device sync per
-    iteration. Returns (centers, inertia, n_iter, shift)."""
+    iteration. Returns (centers, inertia, n_iter, shift).
+
+    With ``mesh`` each rank runs the kernel on its block and the three
+    M-step operands (sums, counts, inertia) are summed over the sample
+    axes, ``hpsum(op="kmeans.mstep")``, before the centers update: every
+    rank then holds the same centers. ``shard_features=True`` on a mesh
+    with a ``model`` axis runs the feature-parallel route
+    (:func:`_lloyd_loop_features`), the JAX package's non-kernel route:
+    ``kernel="cuda"`` refuses it."""
     k, d = centers0.shape
+    if (shard_features and mesh is not None
+            and mesh_lib.has_model_axis(mesh)):
+        if kernel not in ("auto", "cuda", "torch"):
+            raise ValueError(
+                f"kernel must be auto|cuda|torch, got {kernel!r}")
+        if kernel == "cuda":
+            raise ValueError(
+                "kernel='cuda' does not compose with feature sharding (the "
+                "single-pass kernel accumulates d-global state); use "
+                "kernel='auto' or 'torch'")
+        return _lloyd_loop_features(X, w, centers0, tol, max_iter=max_iter,
+                                    mesh=mesh)
     stats = _lloyd_stats_fn(X, k, d, kernel)
     centers = centers0.to(torch.float32)
     tol_t = _tol_tensor(tol, centers.device)
@@ -234,6 +279,10 @@ def lloyd_loop_fused(X, w, centers0, tol, *, max_iter: int,
     it = 0
     while it < max_iter and bool(shift >= tol_t):
         sums, counts, inertia = stats(X, w, centers)
+        if mesh is not None:
+            sums = hpsum(sums, mesh, op="kmeans.mstep")
+            counts = hpsum(counts, mesh, op="kmeans.mstep")
+            inertia = hpsum(inertia, mesh, op="kmeans.mstep")
         new_centers = _new_centers(sums, counts, centers)
         shift = ((new_centers - centers) ** 2).sum()
         centers = new_centers
@@ -241,27 +290,99 @@ def lloyd_loop_fused(X, w, centers0, tol, *, max_iter: int,
     return centers, inertia, it, shift
 
 
-def compute_inertia(X, w, centers, kernel: str = "auto"):
-    """Weighted cost of assigning X to ``centers`` (a 0-d tensor)."""
-    return _assign(X, w, centers, kernel=kernel)[2]
+def _lloyd_loop_features(X, w, centers0, tol, *, max_iter: int, mesh):
+    """The feature-parallel Lloyd loop (the JAX ``shard_features`` branch):
+    X is this rank's (rows, columns) block, ``centers0`` the full
+    (k, d_padded) centers, of which each rank keeps its column slice. The
+    per-row ``|x|²`` (once) and each iteration's partial scores
+    ``|c|² − 2x·c`` are summed over the model axis (``mpsum``, ops
+    ``kmeans.x2`` / ``kmeans.scores``), so the argmin, counts and inertia
+    agree on every model shard; the M-step sums stay column-local and go
+    over the sample axes (``hpsum``, op ``kmeans.mstep``), the shift over
+    the model axis (``kmeans.shift``). ``torch.matmul`` and ``argmin``:
+    the JAX route is its XLA path, not a kernel. Returns the full centers
+    (gathered over the model axis, ``kmeans.centers``), inertia, n_iter
+    and shift."""
+    k = centers0.shape[0]
+    cols = mesh_lib.feature_sharding(mesh).cols(centers0.shape[1])
+    if centers0.shape[1] // mesh_lib.n_model_shards(mesh) != X.shape[1]:
+        raise ValueError(
+            f"centers0 has {centers0.shape[1]} columns; the feature-sharded "
+            f"X block has {X.shape[1]} of {mesh_lib.n_model_shards(mesh)} "
+            "column blocks (pad the centers' columns as prepare_data pads "
+            "X's)")
+    Xf = X.to(torch.float32)
+    x2 = mpsum(_row_sumsq(X), mesh, op="kmeans.x2")
+    kidx = torch.arange(k, device=X.device)[:, None]
+    centers = centers0.to(device=X.device, dtype=torch.float32)[:, cols]
+    tol_t = _tol_tensor(tol, X.device)
+    inertia = torch.tensor(_INF, device=X.device)
+    shift = torch.tensor(_INF, device=X.device)
+    it = 0
+    while it < max_iter and bool(shift >= tol_t):
+        cx = centers.to(X.dtype).to(torch.float32)
+        c2 = (centers * centers).sum(dim=1)
+        scores = mpsum(c2[:, None] - 2.0 * (cx @ Xf.T), mesh,
+                       op="kmeans.scores")  # (k, n_loc)
+        best = scores.argmin(dim=0)
+        oh_w = (kidx == best[None, :]).to(torch.float32) * w[None, :]
+        sums = hpsum(oh_w @ Xf, mesh, op="kmeans.mstep")
+        counts = hpsum(oh_w.sum(dim=1), mesh, op="kmeans.mstep")
+        mind = torch.clamp(scores.min(dim=0).values + x2, min=0.0)
+        inertia = hpsum((mind * w).sum(), mesh, op="kmeans.mstep")
+        new_centers = _new_centers(sums, counts, centers)
+        shift = mpsum(((new_centers - centers) ** 2).sum(), mesh,
+                      op="kmeans.shift")
+        centers = new_centers
+        it += 1
+    return (mpgather(centers, mesh, op="kmeans.centers", axis=1), inertia,
+            it, shift)
 
 
-def predict_labels(X, centers, kernel: str = "auto"):
-    """Nearest-center labels, int32."""
-    return fused_argmin_min(X, centers, kernel=kernel)[0]
+def compute_inertia(X, w, centers, kernel: str = "auto", mesh=None,
+                    n_valid=None):
+    """Weighted cost of assigning X to ``centers`` (a 0-d tensor).
+
+    Over more than one data shard each rank runs the argmin kernel on its
+    block, the per-row costs ``w·min d²`` are gathered (op
+    ``kmeans.inertia``), and every rank sums the first ``n_valid`` of them
+    (default: all rows) in the one order a single device sums them: the
+    inertia does not depend on the world size."""
+    if not is_sharded(mesh):
+        return _assign(X, w, centers, kernel=kernel)[2]
+    _, mind = fused_argmin_min(X, centers, kernel=kernel)
+    rows = gather_blocks(mind * w, mesh, op="kmeans.inertia")
+    return rows[:n_valid].sum()
 
 
-def _mean_feature_variance(X, w):
-    sw = w.sum()
-    mean = (w[:, None] * X).sum(dim=0) / sw
-    var = (w[:, None] * (X - mean) ** 2).sum(dim=0) / sw
+def predict_labels(X, centers, kernel: str = "auto", mesh=None,
+                   n_valid=None):
+    """Nearest-center labels, int32. Over more than one data shard each
+    rank labels its block and the labels of every block are gathered (op
+    ``kmeans.labels``): every rank returns the first ``n_valid`` (default:
+    all rows)."""
+    labels = fused_argmin_min(X, centers, kernel=kernel)[0]
+    if not is_sharded(mesh):
+        return labels
+    return gather_blocks(labels, mesh, op="kmeans.labels")[:n_valid]
+
+
+def _mean_feature_variance(X, w, mesh=None):
+    def total(t):
+        return t if mesh is None else hpsum(t, mesh, op="kmeans.tol")
+
+    sw = total(w.sum())
+    mean = total((w[:, None] * X).sum(dim=0)) / sw
+    var = total((w[:, None] * (X - mean) ** 2).sum(dim=0)) / sw
     return var.mean()
 
 
-def scaled_tolerance(X, w, tol):
+def scaled_tolerance(X, w, tol, mesh=None):
     """``tol`` scaled by the mean per-feature variance of the weighted
-    data, as sklearn and the reference do (a 0-d f32 tensor)."""
-    return tol * _mean_feature_variance(X, w)
+    data, as sklearn and the reference do (a 0-d f32 tensor); with
+    ``mesh`` the weighted sums run over every shard (op ``kmeans.tol``),
+    X being this rank's row block."""
+    return tol * _mean_feature_variance(X, w, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -317,6 +438,10 @@ def batched_lloyd_cells(data, members, eval_sets, *, max_iter: int,
     """
     if not members:
         raise ValueError("batched_lloyd_cells takes at least one member")
+    if is_sharded(getattr(data, "mesh", None)):
+        raise NotImplementedError(
+            "batched_lloyd_cells over a mesh of more than one rank comes "
+            "with ROADMAP Queue A item 10b; run the search on one device")
     X, w = data.X, data.weights
     dev = X.device
     d = int(X.shape[1])
@@ -513,13 +638,24 @@ def _bounded_setup(X, w, k: int, groups, kernel: str, bounds_dtype):
             "gid": torch.arange(k, device=X.device) // size}
 
 
+def _m_step_over(X, w, labels, centers, mesh):
+    """The bounded loop's M-step: :func:`_m_step`'s one-hot sums, summed
+    over the sample axes with ``mesh`` (``hpsum(op="kmeans.mstep")``)."""
+    sums, counts = _weighted_sums(X, w, labels, centers.shape[0])
+    if mesh is not None:
+        sums = hpsum(sums, mesh, op="kmeans.mstep")
+        counts = hpsum(counts, mesh, op="kmeans.mstep")
+    return _new_centers(sums, counts, centers)
+
+
 def _bounded_chunk(X, w, state, tol_t, prep, *, max_iter: int, chunk: int,
-                   kernel: str, prune: bool):
+                   kernel: str, prune: bool, mesh=None):
     """Up to ``chunk`` bounded Lloyd iterations from the carry ``state``,
     stopping as the whole loop does (``it == max_iter`` or
     ``shift < tol``): the unit :func:`lloyd_bounded_resumable` saves
     between, and the body of :func:`lloyd_loop_bounded`, so chunked runs
-    compose to the same trajectory. Returns the new carry."""
+    compose to the same trajectory. Returns the new carry; with ``mesh``
+    the carry's rows are this rank's block."""
     centers, labels, ub, lb, it, shift, skip_h, held_h = state
     n = X.shape[0]
     it0 = it
@@ -528,7 +664,7 @@ def _bounded_chunk(X, w, state, tol_t, prep, *, max_iter: int, chunk: int,
             prep["X_pad"], prep["x2_pad"], centers, labels, ub, lb,
             prep["w_pos"], kernel=kernel, prune=prune)
         skip_h[it], held_h[it] = skipped, held
-        new_centers, _ = _m_step(X, w, labels[:n], centers)
+        new_centers = _m_step_over(X, w, labels[:n], centers, mesh)
         shift = ((new_centers - centers) ** 2).sum()
         ub, lb = _bounded_move(ub, lb, labels, centers, new_centers,
                                prep["gid"], prep["G"])
@@ -539,7 +675,8 @@ def _bounded_chunk(X, w, state, tol_t, prep, *, max_iter: int, chunk: int,
 
 def lloyd_loop_bounded(X, w, centers0, tol, *, max_iter: int,
                        kernel: str = "auto", groups="auto",
-                       prune: bool = True, bounds_dtype=torch.float32):
+                       prune: bool = True, bounds_dtype=torch.float32,
+                       mesh=None):
     """Lloyd that skips distance work through Elkan/Yinyang center-movement
     bounds, bit-identical to the plain loop (:func:`lloyd_loop`) from the
     same ``centers0``.
@@ -562,16 +699,27 @@ def lloyd_loop_bounded(X, w, centers0, tol, *, max_iter: int,
     group granularity) and ``bounds_held`` (rows whose bound held), int64
     tensors of length ``max_iter``, zero past ``n_iter``. ``bounds_dtype``
     (float32 or float64, the facade's ``lloyd_bounds_dtype``) is the
-    dtype of the bounds; X may be float32 or bfloat16."""
+    dtype of the bounds; X may be float32 or bfloat16.
+
+    With ``mesh`` X and w are this rank's block: the bounds, the
+    ``row_need`` groups and K5 are per block, the M-step sums go over the
+    sample axes (``hpsum(op="kmeans.mstep")``, two operands an
+    iteration), and so do the final inertia (``kmeans.inertia``) and the
+    per-iteration counts (``kmeans.stats``). The returned labels are this
+    rank's block."""
     prep = _bounded_setup(X, w, centers0.shape[0], groups, kernel,
                           bounds_dtype)
     state = _bounded_init_state(centers0, prep["X_pad"].shape[0], prep["G"],
                                 max_iter, prep["bdt"])
     state = _bounded_chunk(X, w, state, _tol_tensor(tol, centers0.device),
                            prep, max_iter=max_iter, chunk=max_iter,
-                           kernel=kernel, prune=prune)
+                           kernel=kernel, prune=prune, mesh=mesh)
     centers, _, _, _, it, shift, skip_h, held_h = state
     labels_f, inertia = _bounded_final_assign(X, w, centers, kernel=kernel)
+    if mesh is not None:
+        inertia = hpsum(inertia, mesh, op="kmeans.inertia")
+        skip_h = hpsum(skip_h, mesh, op="kmeans.stats")
+        held_h = hpsum(held_h, mesh, op="kmeans.stats")
     return (centers, inertia, it, shift, labels_f,
             {"rows_skipped": skip_h, "bounds_held": held_h})
 
@@ -702,17 +850,59 @@ def _kmeanspp_on_candidates(cand, cw, n_clusters: int, gen, n_trials: int):
     return centers
 
 
-def _init_seed_phase(X, w, gen, *, max_rounds: int, max_cand: int):
+def _owned_rows(X, rows, mesh, op: str):
+    """The rows of the whole (row-sharded) data at global indices ``rows``
+    (a tensor), in that order, on every rank: each rank fills the rows it
+    holds into an (r, d) buffer, the buffers are gathered, and each row is
+    taken from its owner's."""
+    n_loc = X.shape[0]
+    i = mesh_lib.data_index(mesh)
+    owner = torch.clamp(rows // n_loc, max=mesh_lib.n_data_shards(mesh) - 1)
+    mine = owner == i
+    buf = torch.zeros((rows.shape[0], X.shape[1]), dtype=torch.float32,
+                      device=X.device)
+    buf[mine] = X[rows[mine] - i * n_loc].to(torch.float32)
+    every = gather_blocks(buf, mesh, op=op)  # (shards * r, d)
+    return every[owner * rows.shape[0]
+                 + torch.arange(rows.shape[0], device=X.device)]
+
+
+def _global_categorical_row(X, w, gen, n_valid: int, mesh):
+    """The row :func:`_categorical` draws ∝ ``clamp(w, 1e-30)`` over the
+    whole data, from every rank's block: the global cumulative sum is each
+    block's own plus the totals of the blocks before it (a gather of one
+    f64 a rank), every rank draws the same ``u``, the index is the count
+    of cumulative sums ≤ ``u`` (an ``hpsum``), and its owner hands the row
+    to every rank. Ops ``kmeans.init.seed``."""
+    c = torch.cumsum(torch.clamp(w, min=1e-30).to(torch.float64), dim=0)
+    totals = gather_blocks(c[-1:], mesh, op="kmeans.init.seed")
+    before = torch.cumsum(totals, dim=0) - totals
+    u = torch.rand(1, generator=gen, device=w.device,
+                   dtype=torch.float64) * totals.sum()
+    i = mesh_lib.data_index(mesh)
+    below = ((before[i] + c) <= u).sum()
+    idx = torch.clamp(hpsum(below, mesh, op="kmeans.init.seed"),
+                      max=n_valid - 1)
+    return _owned_rows(X, idx.reshape(1), mesh, "kmeans.init.seed")[0]
+
+
+def _init_seed_phase(X, w, gen, *, max_rounds: int, max_cand: int,
+                     mesh=None, n_valid=None):
     """k-means|| phase 1 — first center ∝ w, per-row min-distances, φ₀,
     and the data-dependent round count (read to the host)."""
     d = X.shape[1]
-    idx0 = _categorical(torch.clamp(w, min=1e-30), gen, 1)[0]
-    first = X[idx0].to(torch.float32)
+    if is_sharded(mesh):
+        first = _global_categorical_row(X, w, gen, n_valid, mesh)
+    else:
+        idx0 = _categorical(torch.clamp(w, min=1e-30), gen, 1)[0]
+        first = X[idx0].to(torch.float32)
     cand = torch.zeros((max_cand, d), dtype=torch.float32, device=X.device)
     cand[0] = first
     mind0 = torch.where(w > 0, ((X - first[None, :]) ** 2).sum(dim=1),
                         torch.zeros_like(w))
     phi0 = (mind0 * w).sum()
+    if mesh is not None:
+        phi0 = hpsum(phi0, mesh, op="kmeans.init.seed")
     n_rounds = int(torch.clamp(
         torch.round(torch.log(torch.clamp(phi0, min=1e-30))),
         1, max_rounds))
@@ -734,9 +924,41 @@ def _pack_hits(mask, cap: int):
     return buf[:cap]
 
 
+def _global_draw(X, gen, n_valid: int, mesh):
+    """This rank's slice of one ``torch.rand(n_valid)`` that every rank
+    draws whole from the same generator (the draw of a single device over
+    the true rows); padding rows get 1.0, which no probability beats."""
+    n_loc = X.shape[0]
+    lo = mesh_lib.data_index(mesh) * n_loc
+    u = torch.rand(n_valid, generator=gen, device=X.device)[lo:lo + n_loc]
+    if u.shape[0] < n_loc:
+        u = torch.cat([u, u.new_ones(n_loc - u.shape[0])])
+    return u
+
+
+def _pack_hits_global(X, hits, cap: int, mesh):
+    """The rows of the first ``cap`` hits of the whole data in row order,
+    (cap, d) f32 with zeros past the hits, and the global hit count: each
+    rank packs its own first ``cap`` hits, the packs and the hit counts
+    are gathered (ops ``kmeans.init.rounds``), and global slot ``s`` is
+    taken from the rank whose prefix of the hit counts holds it."""
+    counts = gather_blocks(hits.sum().reshape(1), mesh,
+                           op="kmeans.init.rounds")
+    mine = X[_pack_hits(hits, cap)].to(torch.float32)  # (cap, d)
+    packs = gather_blocks(mine, mesh, op="kmeans.init.rounds")
+    ends = torch.cumsum(counts, dim=0)
+    slot = torch.arange(cap, device=X.device)
+    q = torch.clamp(torch.searchsorted(ends, slot, right=True),
+                    max=counts.shape[0] - 1)
+    rows = packs[q * cap + slot - (ends[q] - counts[q])]
+    total = ends[-1]
+    return torch.where((slot < total)[:, None], rows,
+                       torch.zeros_like(rows)), total
+
+
 def _init_rounds_phase(X, w, l, cand, mind0, n_rounds: int, gen, *,
                        max_cand: int, cap: int, kernel: str = "auto",
-                       prune: bool = True):
+                       prune: bool = True, mesh=None, n_valid=None):
     """k-means|| phase 2 — the sampling rounds. Each round draws rows
     ∝ l·mind·w/φ, packs up to ``cap`` hits into the candidate buffer, and
     updates ``mind`` against ONLY the new rows through
@@ -748,7 +970,14 @@ def _init_rounds_phase(X, w, l, cand, mind0, n_rounds: int, gen, *,
     absolute slack that covers f32 rounding) the row's group may skip via
     ``row_need``. Skipped rows keep ``mind`` exactly, so pruned and
     unpruned rounds draw identical candidates. Returns (cand, n_cand,
-    overflow, rows_skipped, rows_considered); the counts are tensors."""
+    overflow, rows_skipped, rows_considered); the counts are tensors.
+
+    Over more than one data shard every rank draws the whole
+    ``torch.rand(n_valid)`` and takes its slice, φ is summed over the
+    shards and the hits are packed in global row order
+    (:func:`_pack_hits_global`), so the candidates are those of one
+    device; K3 runs on each block. The skip counts are this rank's."""
+    sharded = is_sharded(mesh)
     n = X.shape[0]
     dev = X.device
     cap_iota = torch.arange(cap, device=dev)
@@ -766,12 +995,17 @@ def _init_rounds_phase(X, w, l, cand, mind0, n_rounds: int, gen, *,
     mind = mind0
     for _ in range(n_rounds):
         phi = (mind * w).sum()
+        if mesh is not None:
+            phi = hpsum(phi, mesh, op="kmeans.init.rounds")
         p = torch.clamp(l * mind * w / torch.clamp(phi, min=1e-30), max=1.0)
-        hits = torch.rand(n, generator=gen, device=dev) < p
-        total = hits.sum()
-        idx = _pack_hits(hits, cap)
+        if sharded:
+            hits = _global_draw(X, gen, n_valid, mesh) < p
+            rows, total = _pack_hits_global(X, hits, cap, mesh)
+        else:
+            hits = torch.rand(n, generator=gen, device=dev) < p
+            total = hits.sum()
+            rows = X[_pack_hits(hits, cap)].to(torch.float32)  # (cap, d)
         count = torch.minimum(torch.clamp(total, max=cap), max_cand - n_cand)
-        rows = X[idx].to(torch.float32)  # (cap, d)
         ok = cap_iota < count
         slots = torch.where(ok, n_cand + cap_iota,
                             torch.full_like(cap_iota, max_cand))
@@ -796,21 +1030,48 @@ def _init_rounds_phase(X, w, l, cand, mind0, n_rounds: int, gen, *,
     return buf[:max_cand], n_cand, overflow, skipped, considered
 
 
+def _global_top_up(X, w, gen, n_clusters: int, need: int, n_valid: int,
+                   mesh):
+    """The ``need`` rows :func:`_init_weights_phase`'s top-up draws on one
+    device (the smallest of one whole-data uniform draw over rows of
+    positive weight), from every rank's block: each rank's smallest, a
+    gather of them, the global smallest, their owners' rows."""
+    u = _global_draw(X, gen, n_valid, mesh)
+    u = torch.where(w > 0, u, torch.full_like(u, _INF))
+    kk = min(n_clusters, X.shape[0])
+    vals, idx = torch.topk(-u, kk)
+    lo = mesh_lib.data_index(mesh) * X.shape[0]
+    if kk < n_clusters:
+        vals = torch.cat([vals, vals.new_full((n_clusters - kk,), -_INF)])
+        idx = torch.cat([idx, idx.new_zeros(n_clusters - kk)])
+    all_vals = gather_blocks(vals, mesh, op="kmeans.init.weights")
+    all_idx = gather_blocks(idx + lo, mesh, op="kmeans.init.weights")
+    pick = all_idx[torch.topk(all_vals, n_clusters).indices[:need]]
+    return _owned_rows(X, pick, mesh, "kmeans.init.weights")
+
+
 def _init_weights_phase(X, w, cand, n_cand: int, gen, *, n_clusters: int,
-                        max_cand: int, kernel: str = "auto"):
+                        max_cand: int, kernel: str = "auto", mesh=None,
+                        n_valid=None):
     """k-means|| phase 3 — top-up to ``n_clusters`` candidates with random
     distinct real rows when the draw came up short, then the candidate
     weights (total row weight nearest each candidate) through
-    :func:`fused_argmin_weight`."""
+    :func:`fused_argmin_weight` (with ``mesh``, each rank's partial summed
+    over the shards before anything reads it)."""
     need = min(max(n_clusters - n_cand, 0), n_clusters)
     if need > 0:
-        u = torch.rand(X.shape[0], generator=gen, device=X.device)
-        u = torch.where(w > 0, u, torch.full_like(u, _INF))
-        extra = torch.topk(-u, n_clusters).indices[:need]
-        cand[n_cand:n_cand + need] = X[extra].to(torch.float32)
+        if is_sharded(mesh):
+            cand[n_cand:n_cand + need] = _global_top_up(
+                X, w, gen, n_clusters, need, n_valid, mesh)
+        else:
+            u = torch.rand(X.shape[0], generator=gen, device=X.device)
+            u = torch.where(w > 0, u, torch.full_like(u, _INF))
+            extra = torch.topk(-u, n_clusters).indices[:need]
+            cand[n_cand:n_cand + need] = X[extra].to(torch.float32)
         n_cand += need
     valid = torch.arange(max_cand, device=X.device) < n_cand
-    _, cw = fused_argmin_weight(X, w, cand, mask=valid, kernel=kernel)
+    _, cw = fused_argmin_weight(X, w, cand, mask=valid, kernel=kernel,
+                                mesh=mesh)
     return cand, n_cand, cw
 
 
@@ -842,27 +1103,40 @@ def _init_scalable_config(n_padded: int, n_clusters: int,
     )
 
 
+def _n_padded(X, mesh) -> int:
+    """Rows over every shard (the blocks are equal)."""
+    if mesh is None:
+        return int(X.shape[0])
+    return int(X.shape[0]) * mesh_lib.n_data_shards(mesh)
+
+
 def init_scalable(X, w, n_valid: int, n_clusters: int, gen,
                   oversampling_factor: float = 2.0,
-                  max_iter: Optional[int] = None, kernel: str = "auto"):
+                  max_iter: Optional[int] = None, kernel: str = "auto",
+                  mesh=None):
     """k-means|| init: seeding, sampling rounds, candidate weighting and
-    the finishing k-means++ + Lloyd over the candidates."""
-    cfg = _init_scalable_config(X.shape[0], n_clusters, oversampling_factor,
-                                max_iter)
-    tol = scaled_tolerance(X, w, 1e-4)
+    the finishing k-means++ + Lloyd over the candidates. With ``mesh`` X
+    and w are this rank's block, and every rank returns the centers a
+    single device would draw from the same generator (module
+    docstring)."""
+    cfg = _init_scalable_config(_n_padded(X, mesh), n_clusters,
+                                oversampling_factor, max_iter)
+    tol = scaled_tolerance(X, w, 1e-4, mesh=mesh)
     with telemetry.span("kmeans-init-seed"):
         cand, mind0, phi0, n_rounds = _init_seed_phase(
             X, w, gen, max_rounds=cfg["max_rounds"],
-            max_cand=cfg["max_cand"])
+            max_cand=cfg["max_cand"], mesh=mesh, n_valid=n_valid)
     with telemetry.span("kmeans-init-rounds"):
         cand, n_cand, overflow, r_skip, r_total = _init_rounds_phase(
             X, w, cfg["l"], cand, mind0, n_rounds, gen,
-            max_cand=cfg["max_cand"], cap=cfg["cap"], kernel=kernel)
+            max_cand=cfg["max_cand"], cap=cfg["cap"], kernel=kernel,
+            mesh=mesh, n_valid=n_valid)
         n_cand = int(n_cand)
     with telemetry.span("kmeans-init-weights"):
         cand, n_cand, cw = _init_weights_phase(
             X, w, cand, n_cand, gen, n_clusters=n_clusters,
-            max_cand=cfg["max_cand"], kernel=kernel)
+            max_cand=cfg["max_cand"], kernel=kernel, mesh=mesh,
+            n_valid=n_valid)
     with telemetry.span("kmeans-init-finish"):
         centers = _init_finish_phase(
             cand, cw, tol, gen, n_clusters=n_clusters,
@@ -878,16 +1152,22 @@ def init_scalable(X, w, n_valid: int, n_clusters: int, gen,
     return centers
 
 
-def init_random(X, w, n_valid: int, n_clusters: int, gen):
-    """``n_clusters`` distinct random rows."""
+def init_random(X, w, n_valid: int, n_clusters: int, gen, mesh=None):
+    """``n_clusters`` distinct random rows (with ``mesh``, of the whole
+    data: every rank draws the same permutation and the owners hand the
+    rows over)."""
     perm = torch.randperm(n_valid, generator=gen, device=X.device)
-    return X[torch.sort(perm[:n_clusters]).values].to(torch.float32)
+    rows = torch.sort(perm[:n_clusters]).values
+    if is_sharded(mesh):
+        return _owned_rows(X, rows, mesh, "kmeans.init.random")
+    return X[rows].to(torch.float32)
 
 
-def init_pp(X, n_valid: int, n_clusters: int, gen):
+def init_pp(X, n_valid: int, n_clusters: int, gen, mesh=None):
     """k-means++ on the host with scikit-learn's ``kmeans_plusplus``, like
     the reference (only sensible for modest n; needs scikit-learn, which
-    the rest of the port does not)."""
+    the rest of the port does not). With ``mesh`` every rank gathers the
+    whole data first."""
     try:
         from sklearn.cluster import kmeans_plusplus
     except ImportError as e:
@@ -896,6 +1176,8 @@ def init_pp(X, n_valid: int, n_clusters: int, gen):
             "kmeans_plusplus on the host and needs scikit-learn, which is "
             "not installed; use init='k-means||' or 'random'") from e
 
+    if is_sharded(mesh):
+        X = gather_blocks(X, mesh, op="kmeans.init.pp")
     Xh = X[:n_valid].to(torch.float32).cpu().numpy()
     seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen,
                              device=X.device))
@@ -905,8 +1187,10 @@ def init_pp(X, n_valid: int, n_clusters: int, gen):
 
 def k_init(X, w, n_valid: int, n_clusters: int, gen,
            init="k-means||", oversampling_factor: float = 2.0,
-           max_iter: Optional[int] = None, kernel: str = "auto"):
-    """Init dispatch: an array, 'k-means||', 'k-means++' or 'random'."""
+           max_iter: Optional[int] = None, kernel: str = "auto",
+           mesh=None):
+    """Init dispatch: an array, 'k-means||', 'k-means++' or 'random'
+    (``mesh``: X and w are this rank's block)."""
     if isinstance(init, (np.ndarray, torch.Tensor)):
         centers = torch.as_tensor(init).to(device=X.device,
                                            dtype=torch.float32)
@@ -918,11 +1202,11 @@ def k_init(X, w, n_valid: int, n_clusters: int, gen,
     if init == "k-means||":
         return init_scalable(X, w, n_valid, n_clusters, gen,
                              oversampling_factor=oversampling_factor,
-                             max_iter=max_iter, kernel=kernel)
+                             max_iter=max_iter, kernel=kernel, mesh=mesh)
     if init == "k-means++":
-        return init_pp(X, n_valid, n_clusters, gen)
+        return init_pp(X, n_valid, n_clusters, gen, mesh=mesh)
     if init == "random":
-        return init_random(X, w, n_valid, n_clusters, gen)
+        return init_random(X, w, n_valid, n_clusters, gen, mesh=mesh)
     raise ValueError(
         f"init must be 'k-means||', 'k-means++', 'random', or an array; "
         f"got {init!r}")
@@ -945,9 +1229,35 @@ def _init_phase_traffic(n: int, d: int, itemsize: int, *, n_rounds: int,
         finish=(n_clusters * n_trials + 2 * finish_iters) * max_cand * d * 4)
 
 
+def _init_phase_collective_traffic(mesh, d: int, *, n_rounds: int, cap: int,
+                                   max_cand: int) -> dict:
+    """Per-mesh-axis logical collective bytes of each k-means|| phase, the
+    JAX package's model (:func:`~dask_ml_tpu_torch.parallel.hierarchy.
+    collective_bytes` of each term): ``seed`` the φ₀ scalar; ``rounds``
+    per round the φ scalar, the draw count and the ``cap``-row candidate
+    gather (cap·d·4 bytes); ``weights`` the (max_cand,) weight sum;
+    ``finish`` 0 (replicated candidate work)."""
+    from dask_ml_tpu_torch.parallel.hierarchy import collective_bytes
+
+    def cb(nbytes):
+        return collective_bytes(mesh, int(nbytes))
+
+    def add(a, b):
+        return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+    zero = {k: 0 for k in cb(0)}
+    per_round = add(add(cb(4), cb(4)), cb(cap * d * 4))
+    rounds = zero
+    for _ in range(max(int(n_rounds), 0)):
+        rounds = add(rounds, per_round)
+    return dict(seed=cb(4), rounds=rounds,
+                weights=cb(max_cand * 4), finish=zero)
+
+
 def measure_init_phases(X, w, n_clusters: int, gen,
                         oversampling_factor: float = 2.0,
-                        max_iter: Optional[int] = None) -> dict:
+                        max_iter: Optional[int] = None, mesh=None,
+                        n_valid=None) -> dict:
     """Wall seconds of each k-means|| phase (seeding, the sampling rounds,
     the candidate weighting, the finishing k-means++ and Lloyd loop), run
     one at a time with a device sync after each, where the fit runs them
@@ -964,13 +1274,17 @@ def measure_init_phases(X, w, n_clusters: int, gen,
 
     ``fused`` says whether the rounds and the weighting ran the kernels
     (K3, K4): on a CUDA tensor. A measurement harness, not a production
-    path."""
+    path. With ``mesh`` (X and w this rank's block, ``n_valid`` the true
+    rows) the phases run over the mesh, and a hierarchical mesh adds
+    ``bytes_moved_by_axis`` and ``effective_gbps_by_axis`` from
+    :func:`_init_phase_collective_traffic`."""
     import time
 
-    n, d = int(X.shape[0]), int(X.shape[1])
+    n, d = _n_padded(X, mesh), int(X.shape[1])
+    n_valid = n if n_valid is None else int(n_valid)
     cfg = _init_scalable_config(n, n_clusters, oversampling_factor,
                                 max_iter)
-    tol = scaled_tolerance(X, w, 1e-4)
+    tol = scaled_tolerance(X, w, 1e-4, mesh=mesh)
 
     def sync():
         if X.is_cuda:
@@ -991,15 +1305,20 @@ def measure_init_phases(X, w, n_clusters: int, gen,
         return out
 
     cand, mind0, _, n_rounds = timed("seed", lambda: _init_seed_phase(
-        X, w, gen, max_rounds=cfg["max_rounds"], max_cand=cfg["max_cand"]))
+        X, w, gen, max_rounds=cfg["max_rounds"], max_cand=cfg["max_cand"],
+        mesh=mesh, n_valid=n_valid))
     cand, n_cand, _, skip, total = timed(
         "rounds", lambda: _init_rounds_phase(
             X, w, cfg["l"], cand.clone(), mind0, n_rounds, gen,
-            max_cand=cfg["max_cand"], cap=cfg["cap"]))
+            max_cand=cfg["max_cand"], cap=cfg["cap"], mesh=mesh,
+            n_valid=n_valid))
     n_cand = int(n_cand)
+    if mesh is not None:
+        skip = hpsum(skip, mesh, op="kmeans.init.stats")
+        total = hpsum(total, mesh, op="kmeans.init.stats")
     cand, n_cand, cw = timed("weights", lambda: _init_weights_phase(
         X, w, cand.clone(), n_cand, gen, n_clusters=n_clusters,
-        max_cand=cfg["max_cand"]))
+        max_cand=cfg["max_cand"], mesh=mesh, n_valid=n_valid))
     timed("finish", lambda: _init_finish_phase(
         cand, cw, tol, gen, n_clusters=n_clusters,
         n_trials=cfg["n_trials"], finish_iters=100))
@@ -1008,7 +1327,7 @@ def measure_init_phases(X, w, n_clusters: int, gen,
         n, d, X.element_size(), n_rounds=n_rounds,
         max_cand=cfg["max_cand"], n_clusters=n_clusters,
         n_trials=cfg["n_trials"], finish_iters=100)
-    return {
+    report = {
         "seconds": phases,
         "bytes_moved": traffic,
         "effective_gbps": {p: traffic[p] / max(phases[p], 1e-9) / 1e9
@@ -1018,3 +1337,13 @@ def measure_init_phases(X, w, n_clusters: int, gen,
         "n_rounds": int(n_rounds),
         "n_cand": n_cand,
     }
+    if mesh is not None and mesh_lib.is_hierarchical(mesh):
+        by_axis = _init_phase_collective_traffic(
+            mesh, d, n_rounds=n_rounds, cap=cfg["cap"],
+            max_cand=cfg["max_cand"])
+        report["bytes_moved_by_axis"] = by_axis
+        report["effective_gbps_by_axis"] = {
+            p: {ax: b / max(phases[p], 1e-9) / 1e9
+                for ax, b in by_axis[p].items()}
+            for p in phases}
+    return report

@@ -35,6 +35,15 @@ targets score +inf and never win; ties go to the lowest index; when every
 target is masked the argmin is 0 and the min is +inf. Indices are int32 at
 every public function (``torch.argmin`` gives int64).
 
+Over a mesh of ranks a caller passes this rank's block of row-sharded
+arrays, as the JAX family's ``shard_map`` bodies see theirs: each kernel
+launches on the block unchanged and returns the block's per-row outputs.
+The one cross-shard reduction is :func:`fused_argmin_weight`'s ``cw``:
+with ``mesh=`` (a :class:`~dask_ml_tpu_torch.parallel.mesh.Mesh`) it is
+summed over the sample axes by
+:func:`~dask_ml_tpu_torch.parallel.hierarchy.hpsum` (ledger op
+``fused.argmin_weight``); before that sum each rank's ``cw`` is a partial.
+
 ``row_need`` skips work in groups of ``_FUSED_BLK`` rows whatever tile the
 kernel uses: a group with no needed row returns the identity of the
 caller's reduction for every row — +inf for :func:`fused_rowwise_min`,
@@ -343,11 +352,20 @@ def fused_argmin_min_sketched(Z, vals, support=None, mask=None, *,
                         Zp, row_need, (0, 0.0), x2)
 
 
-def fused_argmin_weight(X, w, Y, mask=None, *, kernel: str = "auto"):
+def fused_argmin_weight(X, w, Y, mask=None, *, kernel: str = "auto",
+                        mesh=None):
     """Per-row argmin (int32, (n,)) plus ``cw[j] = Σ_i w_i·[argmin_i == j]``
     (f32, (m,)). Masked targets always get ``cw == 0``. On the card the
     cross-block sum runs in a fixed order, so ``cw`` is bit-reproducible
-    from run to run."""
+    from run to run. With ``mesh`` X and w are this rank's block: its
+    ``cw`` partial is summed over the sample axes (``hpsum``, op
+    ``fused.argmin_weight``) and every rank returns the whole ``cw``."""
     if _kernels.use_cuda(kernel, X):
-        return _fused_cuda(X, Y, mask, "argmin_weight", w=w)
-    return _argmin_weight_ref(X, w, Y, mask)
+        idx, cw = _fused_cuda(X, Y, mask, "argmin_weight", w=w)
+    else:
+        idx, cw = _argmin_weight_ref(X, w, Y, mask)
+    if mesh is not None:
+        from dask_ml_tpu_torch.parallel.hierarchy import hpsum
+
+        cw = hpsum(cw, mesh, op="fused.argmin_weight")
+    return idx, cw

@@ -1,6 +1,45 @@
-"""Staging, streaming, fault tolerance, telemetry, the serving tier, its
-wire and process fleet on one box or across machines (chunk-addressed
-snapshots, the SLO autoscaler), of the PyTorch port."""
+"""The multi-device substrate (the mesh over ``torch.distributed``
+process groups, the hierarchical collectives and their traffic ledger,
+the runtime), staging, streaming, fault tolerance, telemetry, the serving
+tier, its wire and process fleet on one box or across machines
+(chunk-addressed snapshots, the SLO autoscaler), of the PyTorch port."""
+
+from dask_ml_tpu_torch.parallel.mesh import (  # noqa: F401
+    CHIP_AXIS,
+    DATA_AXIS,
+    MODEL_AXIS,
+    POD_AXIS,
+    data_axes,
+    data_pspec,
+    data_sharding,
+    default_mesh,
+    feature_sharding,
+    is_hierarchical,
+    make_2d_mesh,
+    make_mesh,
+    n_data_shards,
+    n_model_shards,
+    replicated_sharding,
+    use_mesh,
+)
+from dask_ml_tpu_torch.parallel.hierarchy import (  # noqa: F401
+    TrafficLedger,
+    hpmean,
+    hpsum,
+    hpsum_scatter,
+    ledger,
+    ledger_snapshot,
+    make_hierarchical_mesh,
+    reset_ledger,
+)
+from dask_ml_tpu_torch.parallel.sharding import (  # noqa: F401
+    DeviceData,
+    pad_rows,
+    prepare_data,
+    shard_2d,
+    shard_rows,
+    unpad_rows,
+)
 
 from dask_ml_tpu_torch.parallel.faults import (  # noqa: F401
     BlockFetchError,
@@ -49,6 +88,7 @@ from dask_ml_tpu_torch.parallel.fleet import (  # noqa: F401
     RetryBudget,
 )
 from dask_ml_tpu_torch.parallel.elastic import (  # noqa: F401
+    BlockPlan,
     FileHeartbeat,
     SimulatedHostDeath,
 )

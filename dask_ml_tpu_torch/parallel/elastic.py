@@ -7,8 +7,8 @@ only).
 shares: the process fleet's replicas beat on it
 (``parallel/replica.py``) and its router reads it
 (``parallel/procfleet.py``). The rest of the JAX module (``ElasticRun``,
-the multi-host roster and re-deals) comes with the multi-device port,
-ROADMAP Queue A item 10.
+the multi-host roster and re-deals) comes with the rest of the multi-device
+port, ROADMAP Queue A item 10b.
 """
 
 from __future__ import annotations
@@ -100,7 +100,7 @@ class BlockPlan:
     epoch), the JAX package's permutation for the same pair, so every
     resume derives the same order. ``shuffle=False`` keeps block-id
     order. (The JAX class's ``shard`` / ``redeal``, which deal blocks over
-    a multi-host roster, come with ROADMAP Queue A item 10.)
+    a multi-host roster, come with ROADMAP Queue A item 10b.)
     """
 
     def __init__(self, n_blocks: int, *, seed: int = 0,

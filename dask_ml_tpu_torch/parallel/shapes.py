@@ -102,9 +102,9 @@ def bucket_rows(n: int, align: int = 1,
                 record: bool = True) -> int:
     """Padded row count for ``n`` under ``policy`` (default: the active
     config policy); with no policy, ``n`` rounded up to a multiple of
-    ``align``. The JAX package's rounding, bit for bit. ``record`` is
-    accepted for its signature: the port keeps no table of staged
-    buckets, since its staging pads nothing."""
+    ``align``. The JAX package's rounding, bit for bit (the port pads to
+    it over a mesh of more than one shard only). ``record`` is accepted
+    for its signature: the port keeps no table of staged buckets."""
     del record
     if policy == "active":
         policy = active_policy()

@@ -237,7 +237,7 @@ class HostBlockSource:
         if host_rank is not None:
             raise NotImplementedError(
                 "host_rank= belongs to the elastic multi-host tier, ROADMAP "
-                "Queue A item 10, which the port does not have yet")
+                "Queue A item 10b, which the port does not have yet")
         self.n_blocks = int(n_blocks)
         self.prefetch = int(prefetch)
         self.transform = transform
@@ -614,7 +614,7 @@ def prefetched_scan(step, carry, source: HostBlockSource, *,
     if blocks is not None:
         raise NotImplementedError(
             "blocks= belongs to the elastic multi-host tier, ROADMAP Queue "
-            "A item 10, which the port does not have yet")
+            "A item 10b, which the port does not have yet")
     n = source.n_blocks
     depth = source.prefetch if prefetch is None else int(prefetch)
     outs = [] if outs is None else list(outs)

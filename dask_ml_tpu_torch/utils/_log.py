@@ -2,7 +2,8 @@
 counterpart of ``dask_ml_tpu/utils/_log.py``).
 
 :func:`log_array` writes one line per array: shape, dtype, bytes and where
-it lies (a ``torch.Tensor``'s device, else the host). :func:`profile_phase`
+it lies (a ``torch.Tensor``'s device, else the host; for a rank's block of
+a sharded array, the mesh axes, the rank and its rows). :func:`profile_phase`
 is an alias of :func:`~dask_ml_tpu_torch.parallel.telemetry.span` with a
 logger: a profiler range, a DEBUG line of the phase's wall time, and with
 ``DASK_ML_TPU_PROFILE_DIR`` set a ``torch.profiler`` capture of the
@@ -29,13 +30,21 @@ def format_bytes(n: int) -> str:
     return "%d B" % n
 
 
-def _placement(x) -> str:
-    """Where an array lies: a tensor's device, else the host."""
+def _placement(x, mesh=None, rows=None) -> str:
+    """Where an array lies: a tensor's device, else the host; on a mesh of
+    more than one rank also the mesh axes, this rank and its slice of
+    rows ``[start, stop)``."""
     dev = getattr(x, "device", None)
     if dev is None:
         values = getattr(x, "values", None)  # a SparseRows container
         dev = getattr(values, "device", None)
-    return str(dev) if dev is not None else "host"
+    where = str(dev) if dev is not None else "host"
+    if mesh is not None and mesh.size > 1:
+        axes = ", ".join(f"{a}={s}" for a, s in mesh.shape.items())
+        where += f" mesh({axes}) rank {mesh.rank}"
+        if rows is not None:
+            where += f" rows [{rows[0]}, {rows[1]})"
+    return where
 
 
 def _itemsize(dtype) -> int:
@@ -53,8 +62,9 @@ def _itemsize(dtype) -> int:
 
 
 def log_array(logger: logging.Logger, name: str, x,
-              level: int = logging.INFO) -> None:
-    """One line: name, shape, dtype, bytes, placement."""
+              level: int = logging.INFO, mesh=None, rows=None) -> None:
+    """One line: name, shape, dtype, bytes, placement (with ``mesh``, the
+    mesh axes, this rank and its ``rows``)."""
     if not logger.isEnabledFor(level):
         return
     shape = tuple(getattr(x, "shape", ()))
@@ -77,7 +87,7 @@ def log_array(logger: logging.Logger, name: str, x,
         level, "%s: shape=%s dtype=%s %s on %s",
         name, shape, dtype,
         format_bytes(int(nbytes)) if nbytes is not None else "?",
-        _placement(x),
+        _placement(x, mesh, rows),
     )
 
 

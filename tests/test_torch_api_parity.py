@@ -4,11 +4,10 @@
   pins (its ``SURFACE``) resolves under ``dask_ml_tpu_torch``, at the same
   module path.
 - Every module of ``dask_ml_tpu`` has a counterpart at the same path in
-  the port, but the four of ROADMAP Queue A item 10 (multi-device:
-  ``parallel/mesh.py``, ``hierarchy.py``, ``runtime.py``,
-  ``decisions.py``).
+  the port (``comm -23`` of the two packages' ``*.py`` lists is empty).
 - Every name in each JAX module's ``__all__`` resolves in the port's
-  counterpart, but an explicit list of item 10 names.
+  counterpart, but an explicit list of ROADMAP Queue A item 10b names
+  (the ``mesh=`` branches still to port).
 - The package's ``__all__`` names the JAX package's submodules.
 """
 
@@ -21,12 +20,16 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-#: ROADMAP Queue A item 10 (multi-device over torch.distributed): whole
-#: modules, and the names of ported modules that take a mesh
-ITEM_10_MODULES = ("parallel.decisions", "parallel.hierarchy",
-                   "parallel.mesh", "parallel.runtime")
+#: ROADMAP Queue A item 10b (the rest of multi-device): no whole module
+#: is missing, and these names of ported modules are
+ITEM_10_MODULES = ()
 ITEM_10_NAMES = {"ops.sparse": {"metered"},
-                 "parallel.elastic": {"ElasticRun"}}
+                 "parallel.elastic": {"ElasticRun"},
+                 "parallel.sharding": {"shard_sparse_rows"}}
+
+#: the modules item 10a ported (the multi-device substrate)
+SUBSTRATE = ("parallel.mesh", "parallel.hierarchy", "parallel.runtime",
+             "parallel.decisions")
 
 
 def _modules(pkg: str) -> list:
@@ -100,7 +103,35 @@ def test_reference_surface_resolves_in_the_port(module):
 def test_every_module_has_a_port_counterpart():
     port = set(_modules("dask_ml_tpu_torch"))
     missing = sorted(set(JAX_MODULES) - port)
-    assert missing == sorted(ITEM_10_MODULES)
+    assert missing == sorted(ITEM_10_MODULES) == []
+
+
+@pytest.mark.parametrize("module", SUBSTRATE)
+def test_substrate_all_names_resolve(module):
+    """Every name of the new modules' ``__all__`` resolves in them, and the
+    JAX module's ``__all__`` is a subset of the port's."""
+    port = importlib.import_module(f"dask_ml_tpu_torch.{module}")
+    jax_mod = importlib.import_module(f"dask_ml_tpu.{module}")
+    assert [n for n in port.__all__ if not hasattr(port, n)] == []
+    assert set(getattr(jax_mod, "__all__", ())) <= set(port.__all__)
+
+
+def test_parallel_package_exports_what_jax_exports():
+    """The names ``dask_ml_tpu/parallel/__init__.py`` imports from the
+    substrate and staging modules resolve in the port's package."""
+    import dask_ml_tpu_torch.parallel as port
+
+    path = os.path.join(ROOT, "dask_ml_tpu", "parallel", "__init__.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for node in tree.body
+             if isinstance(node, ast.ImportFrom)
+             and node.module.rsplit(".", 1)[-1] in (
+                 "mesh", "hierarchy", "sharding", "elastic")
+             for a in node.names]
+    missing = [n for n in names if not hasattr(port, n)
+               and n not in ITEM_10_NAMES["parallel.elastic"]]
+    assert names and not missing, missing
 
 
 @pytest.mark.parametrize(

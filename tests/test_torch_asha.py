@@ -450,7 +450,7 @@ def test_plateau_disabled_matches_default_bit_identical():
 
 def test_options_that_raise():
     X, y = _problem()
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
+    with pytest.raises(NotImplementedError, match="Queue A item 10b"):
         SuccessiveHalvingSearchCV(_est(), GRID, elastic=object(),
                                   **KW).fit(X, y)
     with pytest.raises(ValueError, match="fit_params"):

@@ -70,7 +70,7 @@ def test_generators_are_deterministic_under_a_seed(make):
 @pytest.mark.parametrize("make", ["make_blobs", "make_regression",
                                   "make_classification", "make_counts"])
 def test_mesh_raises(make):
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
+    with pytest.raises(NotImplementedError, match="Queue A item 10b"):
         getattr(datasets, make)(random_state=0, mesh=object())
 
 

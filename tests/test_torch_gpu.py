@@ -1806,3 +1806,80 @@ def test_two_replica_fleet_on_one_card_matches_one_loop(cuda):
                    for r in fleet.stats()["replicas"].values())
     for a, b in zip(one, two):
         np.testing.assert_array_equal(a, b)
+
+
+_MESH_WORKER = """
+import os, sys
+import numpy as np
+import torch
+rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+from dask_ml_tpu_torch import _kernels
+from dask_ml_tpu_torch.parallel import hierarchy as hier, runtime
+from dask_ml_tpu_torch.parallel import mesh as mesh_lib
+runtime.initialize(backend="gloo", init_method="file://" + store,
+                   num_processes=2, process_id=rank, local_device_ids=[0])
+from dask_ml_tpu_torch.cluster import KMeans
+X = np.load(os.path.join(out, "X.npy"))
+res = {}
+for name, m in (("flat", mesh_lib.make_mesh()),
+                ("hier", hier.make_hierarchical_mesh(1))):
+    for algo in ("full", "bounded"):
+        _kernels.reset_launches()
+        with mesh_lib.use_mesh(m):
+            km = KMeans(n_clusters=5, random_state=0, algorithm=algo).fit(X)
+        res[f"{name}-{algo}-c"] = km.cluster_centers_
+        res[f"{name}-{algo}-l"] = km.labels_
+        res[f"{name}-{algo}-n"] = np.array(km.n_iter_)
+        res[f"{name}-{algo}-i"] = np.array(km.inertia_)
+        res[f"{name}-{algo}-k"] = np.array(
+            [_kernels.launches[k] for k in ("lloyd_iter", "fused_argmin_min",
+             "fused_rowwise_min", "fused_argmin_weight",
+             "fused_argmin_min2")])
+np.savez(os.path.join(out, "rank%d.npz" % rank), **res)
+runtime.shutdown()
+"""
+
+
+def test_gloo_world_of_two_on_one_card_equals_one_device(cuda, tmp_path):
+    """Two ranks share card 0 over gloo (NCCL refuses two ranks on one
+    card): each runs K1–K5 on its block, and on integer-valued data the fit
+    equals the single-device fit bit for bit."""
+    import os
+    import subprocess
+    import sys
+
+    rng = np.random.default_rng(5)
+    C = rng.uniform(-10, 10, (5, 7))
+    X = np.rint(C[rng.integers(0, 5, 20_011)]
+                + rng.standard_normal((20_011, 7))).astype(np.float32)
+    np.save(tmp_path / "X.npy", X)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MESH_WORKER, str(r), str(tmp_path / "store"),
+         str(tmp_path)], cwd=root, env=env, stderr=subprocess.PIPE,
+        text=True) for r in range(2)]
+    for p in procs:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-3000:]
+    with config_context(device="cuda"):
+        ref = {algo: KMeans(n_clusters=5, random_state=0,
+                            algorithm=algo).fit(X)
+               for algo in ("full", "bounded")}
+    for r in range(2):
+        got = np.load(tmp_path / f"rank{r}.npz")
+        for name in ("flat", "hier"):
+            for algo, km in ref.items():
+                pre = f"{name}-{algo}-"
+                assert np.array_equal(got[pre + "c"], km.cluster_centers_)
+                assert np.array_equal(got[pre + "l"], km.labels_)
+                assert int(got[pre + "n"]) == km.n_iter_
+                assert float(got[pre + "i"]) == km.inertia_
+                k1, k2, k3, k4, k5 = got[pre + "k"]
+                assert k2 > 0 and k3 > 0 and k4 == 1
+                if algo == "full":
+                    assert k1 == km.n_iter_ and k5 == 0
+                else:
+                    assert k5 == km.n_iter_ and k1 == 0

@@ -206,10 +206,10 @@ def test_get_option_reads_the_effective_config():
 def test_config_keys_include_the_jax_packages():
     from dask_ml_tpu import config as jax_config
 
-    # every JAX knob is a port knob, but the mesh (ROADMAP item 10)
-    assert set(jax_config._DEFAULTS) - set(get_config()) == {"mesh"}
+    # every JAX knob is a port knob
+    assert set(jax_config._DEFAULTS) - set(get_config()) == set()
     for k in ("pad_policy", "compilation_cache", "precision", "telemetry",
-              "device_outputs", "dtype"):
+              "device_outputs", "dtype", "mesh"):
         assert get_config()[k] == jax_config._DEFAULTS[k] or k == "dtype"
 
 

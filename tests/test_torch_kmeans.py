@@ -475,7 +475,7 @@ def test_default_device_without_card_raises(monkeypatch):
 def test_config_knobs():
     assert set(get_config()) == {"device", "dtype", "precision",
                                  "device_outputs", "telemetry",
-                                 "pad_policy", "compilation_cache"}
+                                 "pad_policy", "compilation_cache", "mesh"}
     with pytest.raises(KeyError):
         set_config(bogus=1)
     # float32 and (since the precision tier) bfloat16 stage; nothing else
@@ -530,7 +530,9 @@ def test_port_never_imports_jax():
     (``parallel.serving``, ``.fleet``, ``.telemetry``, ``utils._log``),
     the wire and process tier (``parallel.framing``, ``.shm``,
     ``.elastic``, ``.launcher``, ``.replica``, ``.procfleet``), the
-    cross-machine tier (``.snapshots``, ``.autoscaler``), ``interop`` and
+    cross-machine tier (``.snapshots``, ``.autoscaler``), the multi-device
+    substrate (``.mesh``, ``.hierarchy``, ``.runtime``, ``.decisions``
+    and its cache), ``interop`` and
     its shims, ``model_selection.utils_test``, the star import of the
     package and a call of ``_entry.entry()`` included, no module needs
     them at import time but the scikit-learn subclasses (the ``Partial*``
@@ -604,6 +606,14 @@ def _import_walk(block_sklearn: bool):
         "import dask_ml_tpu_torch.parallel.procfleet\n"
         "import dask_ml_tpu_torch.parallel.snapshots\n"
         "import dask_ml_tpu_torch.parallel.autoscaler\n"
+        "import dask_ml_tpu_torch.parallel.mesh\n"
+        "import dask_ml_tpu_torch.parallel.hierarchy\n"
+        "import dask_ml_tpu_torch.parallel.runtime\n"
+        "import dask_ml_tpu_torch.parallel.decisions\n"
+        "from dask_ml_tpu_torch.parallel import hpsum, make_mesh\n"
+        "from dask_ml_tpu_torch.parallel.runtime import initialize\n"
+        "import dask_ml_tpu_torch.parallel.decisions as dec\n"
+        "assert dec.lookup('no.rule', {}, True, backend='cuda')\n"
         "import dask_ml_tpu_torch.interop, dask_ml_tpu_torch.joblib\n"
         "import dask_ml_tpu_torch.xgboost, dask_ml_tpu_torch.tensorflow\n"
         "import dask_ml_tpu_torch.model_selection.utils_test\n"

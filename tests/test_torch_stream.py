@@ -103,11 +103,11 @@ def test_unported_options_name_their_queue_item():
     # the wire cast (item 9) is ported: a storage dtype is taken as given
     assert HostBlockSource((X, w), 4, storage_dtype=np.float16
                            ).storage_dtype == torch.float16
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 10b"):
         HostBlockSource((X, w), 4, host_rank=0)
     src = HostBlockSource((X, w), 4, storage_dtype=None)
     assert src.storage_dtype is None
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 10b"):
         prefetched_scan(lambda c, b, blk: (c, None), 0, src, blocks=[0, 1])
 
 
