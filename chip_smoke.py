@@ -330,6 +330,34 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    axis and each rank's K1–K5 launches; the ``kernels`` line gains
    ``launches_mesh``.
 
+21. drives the GLMs, tsqr and PCA over a mesh of ranks (``MESHGLM``).
+   This process draws the sparse flagship (step 8's container), the ADMM
+   bench's 1e7 × 100 and the PCA bench's 500,000 × 1,000 once, saves
+   them to a temporary directory, and fits the single-device references
+   on the card (the sparse L-BFGS, the core ADMM at ``n_shards`` = each
+   world's shard count on the rows padded as the mesh pads them, Newton
+   on the first 1e6 ADMM rows, ``PCA(100)`` full and randomized,
+   ``TruncatedSVD(100)``). The worlds of step 20 follow (the model layout
+   for Newton and PCA only); each rank maps the files and stages only its
+   rows. On every rank: ``LogisticRegression(solver="lbfgs",
+   max_iter=3)`` on the mapped container (K6 / K6-b on the rank's block,
+   one K6 a value and one K6-b a gradient), then K6 and K6-b on an
+   integer-valued copy of the block against their plain versions bit for
+   bit, and 5 warm evaluations timed; the core ``admm(mesh=)`` for 10
+   outer iterations (rtol 1e-5 / atol 1e-6 of the ``n_shards=S``
+   reference, the same ``n_iter``); Newton (rtol 1e-4 / atol 1e-5; on the
+   model layout X's columns split over ``model``); PCA and TruncatedSVD
+   (singular values and variance ratios within rtol 1e-4, the 64 signal
+   directions' span within 1e-4). Gates besides: every rank the same
+   model bit for bit, the ledger equal to ``collective_bytes`` of each
+   op's operand times its calls, no build or load after the warmup, NCCL
+   refusing two ranks on one card. A ``MESHGLM`` line a world, layout and
+   cell: fit walls, ``n_iter``, ms an evaluation / outer iteration /
+   iteration, the ms of one ``hpsum`` of the cell's largest reduced
+   operand, the ledger's bytes by op, each rank's K6 / K6-b launches by
+   route, the largest gap to the single-device fit; the ``kernels`` line
+   gains ``launches_meshglm``.
+
 ``python3 chip_smoke.py --spmv-only`` runs steps 1, 2, 6 and 8 alone, on a
 container of the sparse cell's shape drawn on the card;
 ``--glm-pca-only`` runs steps 1, 2 and 9 alone; ``--stream-only`` steps 1,
@@ -341,7 +369,7 @@ steps 1, 2 and 15; ``--preprocess-only`` steps 1, 2 and 16;
 and K6 at the serving shapes; ``--wire-only`` steps 1, 2 and 18, with a
 ``kernels`` line of K2 and K2-x; ``--machines-only`` steps 1, 2 and 19,
 with a ``kernels`` line of K2 and K2-x; ``--mesh-only`` steps 1, 2 and
-20.
+20; ``--glm-mesh-only`` steps 1, 2 and 21.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
@@ -7949,6 +7977,569 @@ def mesh_cells(dev):
     return launches_by_fit, summary
 
 
+# ---------------------------------------------------------------------------
+# The GLMs, tsqr and PCA over a mesh of ranks (MESHGLM, step 21)
+# ---------------------------------------------------------------------------
+
+#: (backend, world size, layouts), as MESH_WORLDS: NCCL at world 1, gloo
+#: for the ranks that share card 0
+MESHGLM_WORLDS = (("nccl", 1, ("flat",)), ("gloo", 2, ("flat",)),
+                  ("gloo", 4, ("flat", "hier", "model")))
+#: the cells of each layout: the model layout splits dense X's columns,
+#: which Newton's and PCA's fits do (ADMM and sparse input stay
+#: data-parallel there, as in the JAX package)
+MESHGLM_CELLS = {"flat": ("sparse-lbfgs", "admm", "newton", "pca"),
+                 "hier": ("sparse-lbfgs", "admm", "newton", "pca"),
+                 "model": ("newton", "pca")}
+MESHGLM_TIMEOUT = 600
+#: Newton's rows: the first 1e6 rows of the ADMM problem
+MESHGLM_NEWTON_N = 1_000_000
+MESHGLM_HPSUM_REPS = 10
+#: warm value-and-gradient evaluations timed on the sparse cell's block
+MESHGLM_EVALS = 5
+#: the CPU tests' tolerances: the smooth solvers' coefficients, ADMM's
+MESHGLM_COEF_TOL = dict(rtol=1e-4, atol=1e-5)
+MESHGLM_ADMM_TOL = dict(rtol=1e-5, atol=1e-6)
+#: PCA: singular values and variance ratios within rtol 1e-4, the signal
+#: directions' span within 1e-4 of the single-device one (the noise
+#: directions beyond the rank crowd and turn with any rounding)
+MESHGLM_PCA_RTOL = 1e-4
+MESHGLM_PCAS = ("pca-full", "pca-rand", "tsvd")
+SPMV_NAMES = ("spmv", "spmv_l2", "spmv_pullback", "spmv_pullback_l2")
+
+
+def meshglm_pca(tag: str):
+    from dask_ml_tpu_torch.decomposition import PCA, TruncatedSVD
+
+    if tag == "pca-full":
+        return PCA(PCA_K, svd_solver="full")
+    if tag == "pca-rand":
+        return PCA(PCA_K, svd_solver="randomized", random_state=SEED)
+    return TruncatedSVD(PCA_K)
+
+
+def meshglm_refs(dev, Xs, ys, Xa, ya, Xp):
+    """The single-device fits on the card each rank is held to: the sparse
+    L-BFGS fit, the core ADMM with ``n_shards`` = each world's shard count
+    on the rows padded as the mesh pads them (the default bucket, the same
+    for every world here), Newton on the first rows, PCA and
+    TruncatedSVD."""
+    import torch
+
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.models import glm as glm_core
+    from dask_ml_tpu_torch.parallel import shapes
+
+    ref, single = {}, {}
+    est, sec, _ = drive(lambda: LogisticRegression(
+        solver="lbfgs", max_iter=GLM_ITERS).fit(Xs, ys))
+    ref["sparse-lbfgs-coef"] = np.append(est.coef_, est.intercept_)
+    ref["sparse-lbfgs-n"] = np.array(est.n_iter_)
+    single["sparse-lbfgs"] = {"wall_s": sec, "n_iter": est.n_iter_,
+                              "phases": est.fit_phase_seconds_}
+    del est
+    torch.cuda.empty_cache()
+    n_pad = shapes.bucket_rows(ADMM_N)
+    Xd = torch.zeros((n_pad, ADMM_D), device=dev)
+    Xd[:ADMM_N] = torch.from_numpy(Xa).to(dev)
+    yd = torch.zeros(n_pad, device=dev)
+    yd[:ADMM_N] = torch.from_numpy(ya).to(dev)
+    wd = torch.zeros(n_pad, device=dev)
+    wd[:ADMM_N] = 1.0
+    mask = torch.ones(ADMM_D, device=dev)
+    b0 = torch.zeros(ADMM_D, device=dev)
+    for S in sorted({w for _, w, _ in MESHGLM_WORLDS}):
+        expect(shapes.bucket_rows(ADMM_N, align=S) == n_pad,
+               f"the padded rows differ at {S} shards")
+        (z, it), sec, _ = drive(lambda: glm_core.admm(
+            Xd, yd, wd, b0, mask, n_shards=S, lamduh=1.0,
+            max_iter=ADMM_OUTER, abstol=0.0, reltol=0.0))
+        ref[f"admm-S{S}-z"], ref[f"admm-S{S}-n"] = z.cpu().numpy(), it
+        single[f"admm-S{S}"] = {"wall_s": sec, "n_iter": it,
+                                "ms_per_outer_iter": sec * 1e3 / it}
+    del Xd, yd, wd
+    torch.cuda.empty_cache()
+    est, sec, _ = drive(lambda: LogisticRegression(solver="newton").fit(
+        Xa[:MESHGLM_NEWTON_N], ya[:MESHGLM_NEWTON_N]))
+    ref["newton-coef"] = np.append(est.coef_, est.intercept_)
+    single["newton"] = {"wall_s": sec, "n_iter": est.n_iter_}
+    for tag in MESHGLM_PCAS:
+        est, sec, _ = drive(lambda: meshglm_pca(tag).fit(Xp))
+        for attr in ("components_", "singular_values_",
+                     "explained_variance_ratio_"):
+            ref[f"{tag}-{attr}"] = np.asarray(getattr(est, attr))
+        single[tag] = {"wall_s": sec}
+    torch.cuda.empty_cache()
+    return ref, single
+
+
+def meshglm_hpsum_ms(m, shape, dev) -> float:
+    """The ms of one ``hpsum`` of a ``shape`` f32 operand over ``m``."""
+    import torch
+
+    from dask_ml_tpu_torch.parallel import hierarchy as hier
+
+    t = torch.zeros(shape, device=dev)
+    for _ in range(2):
+        hier.hpsum(t, m, op="meshglm.timing")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESHGLM_HPSUM_REPS):
+        hier.hpsum(t, m, op="meshglm.timing")
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / MESHGLM_HPSUM_REPS
+
+
+def meshglm_sync(m, dev) -> None:
+    """Every rank of ``m`` leaves together: one ``hpsum`` of a word, read
+    on the host, so that a timed fit does not count the wait for the
+    slowest rank's previous cell."""
+    import torch
+
+    from dask_ml_tpu_torch.parallel import hierarchy as hier
+
+    float(hier.hpsum(torch.ones((), device=dev), m, op="meshglm.sync"))
+
+
+def meshglm_ledger_errors(tag, led, m, want) -> list:
+    """``want``: {op: (operand bytes, calls)} against the ledger's bytes
+    per axis and calls."""
+    from dask_ml_tpu_torch.parallel import hierarchy as hier
+
+    errs = []
+    for op, (nbytes, calls) in want.items():
+        per = hier.collective_bytes(m, nbytes)
+        got = led["ops"].get(op, {})
+        exp = {ax: b * calls for ax, b in per.items()} if calls else {}
+        got_calls = {led["calls"].get(f"{ax}/{op}", 0) for ax in per}
+        if got != exp or (calls and got_calls != {calls}):
+            errs.append(f"{tag}: ledger {op} {got} in {got_calls} calls, "
+                        f"want {exp} in {calls}")
+    return errs
+
+
+def meshglm_sparse(m, data, ref, dev):
+    """The flagship's L-BFGS fit over ``m``: each rank stages its rows of
+    the mapped container and launches K6 / K6-b on its block; then K6 and
+    K6-b on an integer-valued copy of the block against their plain
+    versions, bit for bit."""
+    import torch
+
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.models import glm as glm_core
+    from dask_ml_tpu_torch.models.glm import add_intercept
+    from dask_ml_tpu_torch.ops import sparse as sps
+    from dask_ml_tpu_torch.parallel import hierarchy as hier
+    from dask_ml_tpu_torch.parallel import mesh as mesh_lib
+    from dask_ml_tpu_torch.parallel.sharding import prepare_data
+
+    X = sps.SparseRows(data["sparse_values"], data["sparse_cols"], GLM_D)
+    y = data["sparse_y"]
+    meshglm_sync(m, dev)
+    glm_core.reset_host_reads()
+    hier.reset_ledger()
+    with mesh_lib.use_mesh(m):
+        est, wall, launches = drive(lambda: LogisticRegression(
+            solver="lbfgs", max_iter=GLM_ITERS).fit(X, y))
+    ev, led = dict(glm_core.mesh_evals), hier.ledger_snapshot()
+    coef = np.append(est.coef_, est.intercept_)
+    want = ref["sparse-lbfgs-coef"]
+    errs = []
+    if est.n_iter_ != int(ref["sparse-lbfgs-n"]) or not np.allclose(
+            coef, want, **MESHGLM_COEF_TOL):
+        errs.append(f"sparse-lbfgs: n_iter {est.n_iter_}, coefficients "
+                    f"{np.abs(coef - want).max()} from the single-device "
+                    "fit")
+    d = GLM_D + 1
+    errs += meshglm_ledger_errors("sparse-lbfgs", led, m, {
+        "glm.sw": (4, 1), "glm.value": (4, ev["value"]),
+        "sparse.pullback": (d * 4, ev["grad"])})
+    k6 = launches["spmv"] + launches["spmv_l2"]
+    k6b = launches["spmv_pullback"] + launches["spmv_pullback_l2"]
+    if k6 != ev["value"] or k6b != ev["grad"] or not ev["grad"]:
+        errs.append(f"sparse-lbfgs: K6 {k6} and K6-b {k6b} launches for "
+                    f"{ev['value']} values and {ev['grad']} gradients")
+    staged = prepare_data(X, y=y, mesh=m, device=dev)
+    A = add_intercept(staged.X)
+    n_loc, k = A.values.shape
+    plan = (sps.dvector_plan(n_loc, k, d),
+            sps.dvector_plan(n_loc, k, d, pullback=True))
+    # a value and a gradient as the fit evaluates them, warm: K6, K6-b and
+    # two sums over the ranks, at the fitted coefficients
+    _, vg, _ = glm_core._mesh_objective(
+        glm_core._Shards(A, m, d), staged.y, staged.weights,
+        glm_core.FAMILIES["logistic"][0], None)
+    b = torch.as_tensor(coef, device=dev)
+    vg(b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESHGLM_EVALS):
+        vg(b)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3 / MESHGLM_EVALS
+    del staged
+    rng = np.random.default_rng([SEED, 21, int(m.rank)])
+    Ai = sps.SparseRows(torch.round(A.values), A.cols, d)
+    del A
+    v = torch.as_tensor(rng.integers(-4, 4, d), dtype=torch.float32,
+                        device=dev)
+    r = torch.as_tensor(rng.integers(-1, 2, n_loc), dtype=torch.float32,
+                        device=dev)
+    try:
+        check_spmv_int(f"rank block n{n_loc} k{k} d{d}", Ai, v, r, [None],
+                       [None])
+    except Mismatch as e:
+        errs.append(str(e))
+    del Ai
+    torch.cuda.empty_cache()
+    out = {"wall_s": wall, "n_iter": est.n_iter_,
+           "solve_s": est.fit_phase_seconds_["solve"],
+           "ms_per_eval": eval_ms, "evals": ev,
+           "hpsum_ms": meshglm_hpsum_ms(m, (d,), dev), "hpsum_shape": [d],
+           "ledger_bytes": led["ops"],
+           "launches": {n: int(launches[n]) for n in SPMV_NAMES},
+           "routes": {"forward_cluster": plan[0],
+                      "pullback_cluster": plan[1]},
+           "rows_here": n_loc, "slots": k,
+           "gap": float(np.abs(coef - want).max())}
+    return out, errs, {"coef": coef}
+
+
+def meshglm_admm(m, data, ref, dev):
+    """The JAX bench's ADMM (``bench_admm``: 10 outer iterations, every
+    one run) over ``m``, one consensus block a rank, against the core
+    ``n_shards=S`` fit on one device."""
+    import torch
+
+    from dask_ml_tpu_torch.models import glm as glm_core
+    from dask_ml_tpu_torch.parallel import hierarchy as hier
+    from dask_ml_tpu_torch.parallel import mesh as mesh_lib
+    from dask_ml_tpu_torch.parallel.sharding import prepare_data
+
+    S = mesh_lib.n_data_shards(m)
+    dd = prepare_data(data["admm_X"], y=data["admm_y"], mesh=m, device=dev)
+    mask = torch.ones(ADMM_D, device=dev)
+    b0 = torch.zeros(ADMM_D, device=dev)
+    meshglm_sync(m, dev)
+    glm_core.reset_host_reads()
+    hier.reset_ledger()
+    (z, it), wall, _ = drive(lambda: glm_core.admm(
+        dd.X, dd.y, dd.weights, b0, mask, mesh=m, lamduh=1.0,
+        max_iter=ADMM_OUTER, abstol=0.0, reltol=0.0))
+    led = hier.ledger_snapshot()
+    z = z.cpu().numpy()
+    want = ref[f"admm-S{S}-z"]
+    errs = []
+    if it != int(ref[f"admm-S{S}-n"]) or not np.allclose(
+            z, want, **MESHGLM_ADMM_TOL):
+        errs.append(f"admm: n_iter {it}, z {np.abs(z - want).max()} from "
+                    f"the single-device n_shards={S} fit")
+    errs += meshglm_ledger_errors("admm", led, m, {
+        "glm.admm.sw": (4, 1), "glm.admm.consensus": (ADMM_D * 4, it),
+        "glm.admm.residuals": (3 * 4, it)})
+    out = {"wall_s": wall, "n_iter": it, "ms_per_outer_iter": wall * 1e3
+           / it, "newton_steps": glm_core.host_reads["newton_steps"],
+           "hpsum_ms": meshglm_hpsum_ms(m, (ADMM_D,), dev),
+           "hpsum_shape": [ADMM_D], "ledger_bytes": led["ops"],
+           "rows_here": int(dd.X.shape[0]),
+           "gap": float(np.abs(z - want).max())}
+    return out, errs, {"z": z}
+
+
+def meshglm_newton(m, data, ref, dev):
+    """``LogisticRegression(solver="newton")`` on the first rows of the
+    ADMM problem over ``m``: on the model layout X's columns split over
+    ``model``."""
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.models import glm as glm_core
+    from dask_ml_tpu_torch.parallel import hierarchy as hier
+    from dask_ml_tpu_torch.parallel import mesh as mesh_lib
+    from dask_ml_tpu_torch.parallel import shapes
+
+    X = data["admm_X"][:MESHGLM_NEWTON_N]
+    y = data["admm_y"][:MESHGLM_NEWTON_N]
+    meshglm_sync(m, dev)
+    glm_core.reset_host_reads()
+    hier.reset_ledger()
+    with mesh_lib.use_mesh(m):
+        est, wall, _ = drive(lambda: LogisticRegression(
+            solver="newton").fit(X, y))
+    ev, led = dict(glm_core.mesh_evals), hier.ledger_snapshot()
+    coef = np.append(est.coef_, est.intercept_)
+    want = ref["newton-coef"]
+    errs = []
+    if not np.allclose(coef, want, **MESHGLM_COEF_TOL):
+        errs.append(f"newton: coefficients {np.abs(coef - want).max()} "
+                    "from the single-device fit")
+    d = ADMM_D + 1
+    nm, nd = mesh_lib.n_model_shards(m), mesh_lib.n_data_shards(m)
+    if nm > 1:
+        width = -(-d // nm) * nm
+        n_pad = shapes.bucket_rows(MESHGLM_NEWTON_N, align=nd)
+        calls = led["calls"].get("model/glm.matvec", 0)
+        matvec = led["ops"].get("glm.matvec")
+        if calls != ev["value"] + ev["gram"] or matvec != {
+                "model": calls * (nm - 1) * n_pad * 4}:
+            errs.append(f"newton: ledger glm.matvec {matvec} in {calls} "
+                        "calls")
+        errs += meshglm_ledger_errors("newton", led, m, {
+            "glm.grad": (width // nm * 4, ev["grad"])})
+        shape = (width // nm, width)
+    else:
+        errs += meshglm_ledger_errors("newton", led, m, {
+            "glm.value": (4, ev["value"]), "glm.grad": (d * 4, ev["grad"]),
+            "glm.gram": (d * d * 4, ev["gram"])})
+        shape = (d, d)
+    out = {"wall_s": wall, "n_iter": est.n_iter_,
+           "ms_per_iter": est.fit_phase_seconds_["solve"] * 1e3
+           / max(est.n_iter_, 1), "evals": ev,
+           "hpsum_ms": meshglm_hpsum_ms(m, shape, dev),
+           "hpsum_shape": list(shape), "ledger_bytes": led["ops"],
+           "gap": float(np.abs(coef - want).max())}
+    return out, errs, {"coef": coef}
+
+
+def meshglm_pcas(m, data, ref, dev):
+    """PCA(100) full and randomized and TruncatedSVD(100) at the JAX PCA
+    bench's matrix over ``m`` (on the model layout X's columns are staged
+    split over ``model`` and gathered for the factorization)."""
+    import torch
+
+    from dask_ml_tpu_torch.parallel import hierarchy as hier
+    from dask_ml_tpu_torch.parallel import mesh as mesh_lib
+
+    X = data["pca_X"]
+    errs, out, arrays = [], {}, {}
+    for tag in MESHGLM_PCAS:
+        meshglm_sync(m, dev)
+        hier.reset_ledger()
+        with mesh_lib.use_mesh(m):
+            est, wall, _ = drive(lambda: meshglm_pca(tag).fit(X))
+        led = hier.ledger_snapshot()
+        sv, svr = est.singular_values_, ref[f"{tag}-singular_values_"]
+        evr = est.explained_variance_ratio_
+        evr_r = ref[f"{tag}-explained_variance_ratio_"]
+        C, Cr = est.components_, ref[f"{tag}-components_"]
+        span = float(np.linalg.svd(
+            C[:PCA_RANK].astype(np.float64)
+            @ Cr[:PCA_RANK].astype(np.float64).T,
+            compute_uv=False).min())
+        gap = float(np.abs(sv - svr).max() / svr[0])
+        if gap > MESHGLM_PCA_RTOL or not np.allclose(
+                evr, evr_r, rtol=MESHGLM_PCA_RTOL,
+                atol=MESHGLM_PCA_RTOL * evr_r[0]) \
+                or span < 1.0 - MESHGLM_PCA_RTOL:
+            errs.append(f"{tag}: singular values {gap} of the largest from "
+                        f"the single-device fit's, signal span cosine "
+                        f"{span}")
+        if tag != "pca-rand":
+            errs += meshglm_ledger_errors(tag, led, m, {
+                "tsqr.gram": (PCA_D * PCA_D * 4, 2),
+                "tsqr.guard": (PCA_D * PCA_D * 4, 1)})
+        out[tag] = {"wall_s": wall, "sv_gap": gap, "signal_span": span,
+                    "ledger_bytes": led["ops"]}
+        arrays[tag] = est.components_
+    out["hpsum_ms"] = meshglm_hpsum_ms(m, (PCA_D, PCA_D), dev)
+    out["hpsum_shape"] = [PCA_D, PCA_D]
+    torch.cuda.empty_cache()
+    return out, errs, arrays
+
+
+MESHGLM_RUN = {"sparse-lbfgs": meshglm_sparse, "admm": meshglm_admm,
+               "newton": meshglm_newton, "pca": meshglm_pcas}
+
+
+def meshglm_rank(backend: str, world: int, rank: int, tmp: str, layouts):
+    """One rank of a MESHGLM world (run in a spawned process): join the
+    world on card 0, map the parent's arrays, run every cell of every
+    layout on this rank's rows, hold each to the single-device fit, write
+    this rank's report and models to ``tmp``."""
+    import os
+    import traceback
+
+    report = {"rank": rank, "errors": [], "cells": {}}
+    models = {}
+    try:
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        from dask_ml_tpu_torch.ops import sparse as sps
+        from dask_ml_tpu_torch.parallel import runtime, shapes
+
+        store = os.path.join(tmp, f"store-{backend}-{world}")
+        if world > 1:
+            # NCCL refuses two ranks on one card: initialize says so
+            try:
+                runtime.initialize(backend="nccl",
+                                   init_method="file://" + store + "-nccl",
+                                   num_processes=world, process_id=rank,
+                                   local_device_ids=[0])
+                report["errors"].append(
+                    "runtime.initialize accepted nccl with two ranks on "
+                    "one card")
+                runtime.shutdown()
+            except RuntimeError as e:
+                report["nccl_refused"] = str(e)
+        runtime.initialize(backend=backend, init_method="file://" + store,
+                           num_processes=world, process_id=rank,
+                           local_device_ids=[0])
+        dev = runtime.device()
+        meshes = mesh_layouts(world, layouts)
+        data = {name: np.load(os.path.join(tmp, name + ".npy"),
+                              mmap_mode="r")
+                for name in ("sparse_values", "sparse_cols", "sparse_y",
+                             "admm_X", "admm_y", "pca_X")}
+        ref = dict(np.load(os.path.join(tmp, "ref.npz")))
+        # warmup: K6 and K6-b once, which loads their library
+        A = ell_ints(np.random.default_rng([SEED, 21]), 64, 4, 9, dev)
+        sps._spmv_cuda(A.values, A.cols, torch.ones(9, device=dev))
+        sps._pullback_cuda(A.values, A.cols, torch.ones(64, device=dev), 9)
+        torch.cuda.synchronize()
+        st0 = shapes.compile_stats()
+        for name, m in meshes.items():
+            for cell in MESHGLM_CELLS[name]:
+                out, errs, arrays = MESHGLM_RUN[cell](m, data, ref, dev)
+                report["cells"][f"{name}-{cell}"] = out
+                report["errors"] += [f"{name}: {e}" for e in errs]
+                models.update({f"{name}-{cell}-{k}": v
+                               for k, v in arrays.items()})
+                torch.cuda.empty_cache()
+        st1 = shapes.compile_stats()
+        for key in ("n_compiles", "n_loads"):
+            if st1[key] != st0[key]:
+                report["errors"].append(
+                    f"{key} {st0[key]} -> {st1[key]} after the warmup")
+        runtime.shutdown()
+    except BaseException:
+        report["errors"].append(traceback.format_exc())
+    np.savez(os.path.join(tmp, f"models-{backend}-{world}-{rank}.npz"),
+             **models)
+    with open(os.path.join(tmp, f"rank-{backend}-{world}-{rank}.json"),
+              "w") as f:
+        json.dump(report, f)
+
+
+def meshglm_line(per) -> dict:
+    """A MESHGLM line's numbers from the ranks' reports of one cell: what
+    differs between ranks as a list a rank, rank 0's ledger (every rank
+    records the mesh-wide bytes), the largest gap to the single-device
+    fit."""
+    if "pca-full" in per[0]:
+        return {"hpsum_ms": [c["hpsum_ms"] for c in per],
+                "hpsum_shape": per[0]["hpsum_shape"],
+                **{tag: {"wall_s": [c[tag]["wall_s"] for c in per],
+                         "sv_gap": max(c[tag]["sv_gap"] for c in per),
+                         "signal_span": min(c[tag]["signal_span"]
+                                            for c in per),
+                         "ledger_bytes": per[0][tag]["ledger_bytes"]}
+                   for tag in MESHGLM_PCAS}}
+    lists = ("wall_s", "ms_per_eval", "ms_per_outer_iter", "ms_per_iter",
+             "hpsum_ms", "launches", "newton_steps", "rows_here")
+    out = {k: [c[k] for c in per] for k in lists if k in per[0]}
+    out.update({k: per[0][k] for k in ("n_iter", "evals", "hpsum_shape",
+                                       "routes", "slots", "ledger_bytes")
+                if k in per[0]})
+    out["gap"] = max(c["gap"] for c in per)
+    return out
+
+
+def meshglm_cells(dev):
+    """The MESHGLM phase (step 21). Returns ({world-layout-cell: [each
+    rank's K6 / K6-b launches]}, summary)."""
+    import multiprocessing
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    Xs, ys = drawn("sparse_glm", sparse_glm_data)
+    Xa, ya = drawn("admm", lambda: admm_data(SEED))
+    Xp = drawn("pca", lambda: pca_data(SEED))
+    draw_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="dmlt_meshglm_")
+    launches_by_cell, summary = {}, {"worlds": []}
+    try:
+        t0 = time.perf_counter()
+        # drawn once: every rank maps these files and copies its rows
+        for name, a in (("sparse_values", Xs.values),
+                        ("sparse_cols", Xs.cols), ("sparse_y", ys),
+                        ("admm_X", Xa), ("admm_y", ya), ("pca_X", Xp)):
+            np.save(os.path.join(tmp, name + ".npy"), a)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref, single = meshglm_refs(dev, Xs, ys, Xa, ya, Xp)
+        np.savez(os.path.join(tmp, "ref.npz"), **ref)
+        summary.update(draw_s=draw_s, save_s=save_s,
+                       single_device_s=time.perf_counter() - t0,
+                       single=single)
+        log("MESHGLM single-device " + json.dumps(
+            {"draw_s": draw_s, "save_s": save_s, **single}))
+        torch.cuda.empty_cache()
+        ctx = multiprocessing.get_context("spawn")
+        for backend, world, layouts in MESHGLM_WORLDS:
+            t0 = time.perf_counter()
+            procs = [ctx.Process(target=meshglm_rank,
+                                 args=(backend, world, r, tmp, layouts))
+                     for r in range(world)]
+            for p in procs:
+                p.start()
+            deadline = time.monotonic() + MESHGLM_TIMEOUT
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 1))
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(30)
+            expect(not hung, f"MESHGLM {backend} world {world}: ranks "
+                   f"{hung} still running after {MESHGLM_TIMEOUT} s")
+            reports, models = [], []
+            for r, p in enumerate(procs):
+                path = os.path.join(tmp, f"rank-{backend}-{world}-{r}.json")
+                expect(p.exitcode == 0 and os.path.exists(path),
+                       f"MESHGLM {backend} world {world} rank {r} exited "
+                       f"{p.exitcode} without a report")
+                with open(path) as f:
+                    reports.append(json.load(f))
+                models.append(dict(np.load(os.path.join(
+                    tmp, f"models-{backend}-{world}-{r}.npz"))))
+            errors = [e for rep in reports for e in rep["errors"]]
+            expect(not errors, f"MESHGLM {backend} world {world}: "
+                   + " | ".join(errors))
+            for key, v in models[0].items():
+                expect(all(np.array_equal(mo[key], v) for mo in models[1:]),
+                       f"MESHGLM {backend} world {world}: {key} differs "
+                       "between ranks")
+            if world > 1:
+                expect(all("distinct card" in rep.get("nccl_refused", "")
+                           for rep in reports),
+                       "nccl was not refused for two ranks on one card")
+            sec = time.perf_counter() - t0
+            for layout in layouts:
+                for cell in MESHGLM_CELLS[layout]:
+                    per = [rep["cells"][f"{layout}-{cell}"]
+                           for rep in reports]
+                    line = {"backend": backend, "world": world,
+                            "layout": layout, "cell": f"meshglm-{cell}",
+                            "world_seconds": sec,
+                            **meshglm_line(per)}
+                    log("MESHGLM " + json.dumps(line))
+                    summary["worlds"].append(line)
+                    if cell == "sparse-lbfgs":
+                        launches_by_cell[
+                            f"{backend}-w{world}-{layout}-{cell}"] = [
+                            c["launches"] for c in per]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary["seconds"] = time.perf_counter() - t_all
+    log(f"MESHGLM phase: {summary['seconds']:.1f} s")
+    return launches_by_cell, summary
+
+
 def main() -> int:
     import torch
 
@@ -8095,6 +8686,13 @@ def main() -> int:
 
     if "--mesh-only" in sys.argv[1:]:
         mesh_cells(dev)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+        return 0
+
+    if "--glm-mesh-only" in sys.argv[1:]:
+        meshglm_cells(dev)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": count}}), flush=True)
@@ -8363,6 +8961,15 @@ def main() -> int:
                if r["name"] in ranks[0]}
         if got:
             r["launches_mesh"] = got
+    torch.cuda.empty_cache()
+
+    meshglm_launches, _ = meshglm_cells(dev)
+    for r in rows:
+        got = {cell: [per[r["name"]] for per in ranks]
+               for cell, ranks in meshglm_launches.items()
+               if r["name"] in ranks[0]}
+        if got:
+            r["launches_meshglm"] = got
     torch.cuda.empty_cache()
 
     bf16, _ = precision_cells(dev, f32_inertia=blobs_inertia)

@@ -10,10 +10,15 @@
 - :func:`solve_checkpointed` — a GLM solver run as chunks of iterations
   with its whole carry saved between chunks; a rerun at the same path
   resumes from the last chunk on the same trajectory.
-  :func:`problem_fingerprint` binds a snapshot to its problem: three
-  reductions per array on the device, read in one host transfer. Its
-  float32 sums differ from the JAX package's, so these snapshots are bound
-  to the package that wrote them (a ``ScanCheckpoint`` snapshot is not).
+  :func:`problem_fingerprint` binds a snapshot to its problem: the JAX
+  package's three reductions per array (sum, sum of squares, Σ|x| over
+  every 7th entry of the last axis) on the device, read in one host
+  transfer. Its float32 sums are the JAX package's where they are exact
+  (integer-valued data), so either package resumes the other's snapshot
+  there; on float data their last bits follow the summation order.
+  Over a mesh of ranks (``mesh=``) every rank sums its block's moments
+  and the partial moments are added over the ranks; only rank 0 writes
+  the snapshot.
 - :class:`CellJournal` — the search driver's append-only journal of
   finished cells, read back on a resume.
 
@@ -191,37 +196,98 @@ def _moment_leaves(a):
     return [a]
 
 
-def _all_moments(arrays):
-    """Three float32 reductions per array (sum, sum of squares, sum of
-    |x| over every 7th entry of the last axis), all stacked on the device
-    and read in one host transfer. No squared or upcast copy of the
-    input is made."""
+def _moments(t, row0: int = 0, col0: int = 0) -> list:
+    """The three float32 reductions of one tensor: its sum, its sum of
+    squares (a dot product: no squared copy) and Σ|x| over every 7th
+    entry of the last axis counted from the global index 0 (``row0`` /
+    ``col0``: this block's first row / column of that axis)."""
     import torch
 
-    vals = []
-    for a in arrays:
-        for t in _moment_leaves(a):
-            t = torch.as_tensor(t)
-            tf = t if t.dtype == torch.float32 else t.to(torch.float32)
-            vals += [tf.sum(), torch.linalg.vector_norm(tf) ** 2,
-                     torch.linalg.vector_norm(tf[..., ::7], 1)]
-    if not vals:
-        return []
-    return [float(v) for v in torch.stack(vals).cpu().numpy()]
+    t = torch.as_tensor(t)
+    tf = t if t.dtype == torch.float32 else t.to(torch.float32)
+    flat = tf.reshape(-1)
+    first = (-(col0 if tf.ndim > 1 else row0)) % 7
+    return [tf.sum(), torch.dot(flat, flat),
+            torch.linalg.vector_norm(tf[..., first::7], 1)]
 
 
-def problem_fingerprint(solver, X, y, w, beta0, mask, **kwargs) -> str:
+def _all_moments(arrays, mesh=None, col0=None):
+    """The moments of each argument as one tuple an argument (``(0.0,)``
+    for ``None``), all stacked on the device and read in one host
+    transfer. Over ``mesh`` the first three arguments (X, y, w) are this
+    rank's block of rows, summed over the data shards (op
+    ``checkpoint.fingerprint``); with ``col0`` X is the column slice from
+    global column ``col0`` on, summed over ``model`` too. The rest are
+    replicated."""
+    import torch
+
+    from dask_ml_tpu_torch.parallel import hierarchy as hier
+    from dask_ml_tpu_torch.parallel import mesh as mesh_lib
+
+    row0 = 0
+    if mesh is not None and arrays[0] is not None:
+        row0 = mesh_lib.data_index(mesh) * int(arrays[0].shape[0])
+    parts = []
+    for i, a in enumerate(arrays):
+        leaves = _moment_leaves(a)
+        sharded = mesh is not None and i < 3
+        vals = [v for t in leaves
+                for v in _moments(t, row0 if sharded else 0,
+                                  (col0 or 0) if i == 0 else 0)]
+        v = torch.stack(vals) if vals else None
+        if v is not None and sharded:
+            v = hier.hpsum(v, mesh, op="checkpoint.fingerprint")
+            if i == 0 and col0 is not None:
+                v = hier.mpsum(v, mesh, op="checkpoint.fingerprint")
+        parts.append(v)
+    present = [v for v in parts if v is not None]
+    host = (torch.cat(present).cpu().numpy() if present
+            else np.zeros(0, np.float32))
+    out, at = [], 0
+    for v in parts:
+        if v is None:
+            out.append((0.0,))
+        else:
+            out.append(tuple(float(x) for x in host[at:at + v.numel()]))
+            at += v.numel()
+    return out
+
+
+def problem_fingerprint(solver, X, y, w, beta0, mask, mesh=None,
+                        **kwargs) -> str:
     """A content fingerprint binding a snapshot to its fit problem: the
     moments of :func:`_all_moments` over X, y, w, beta0 and the mask, the
     shapes and dtype, and every hyperparameter. Another dataset, weights,
     warm start or solver setting changes it with overwhelming
-    probability, so a mismatched resume is refused."""
-    mom = _all_moments([X, y, w, beta0, mask])
+    probability, so a mismatched resume is refused.
+
+    Over a ``mesh`` of ranks the arguments are this rank's blocks of the
+    problem as staged (padding included): the moments are summed over the
+    ranks and the shapes are the whole problem's, so every rank gets the
+    fingerprint of the whole staged problem, which is the JAX package's
+    on the matching mesh where the sums are exact."""
+    from dask_ml_tpu_torch.ops.sparse import SparseRows
+    from dask_ml_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = None if mesh is None else mesh_lib.collective_mesh(mesh)
+    x_shape = tuple(getattr(X, "shape", ()))
+    y_shape = tuple(getattr(y, "shape", ())) if y is not None else None
+    col0 = None
+    if mesh is not None:
+        S = mesh_lib.n_data_shards(mesh)
+        x_shape = (x_shape[0] * S,) + x_shape[1:]
+        if y_shape is not None:
+            y_shape = (y_shape[0] * S,) + y_shape[1:]
+        if not isinstance(X, SparseRows) and x_shape[1] != beta0.shape[0]:
+            # a dense column slice (the tensor-parallel staging)
+            col0 = mesh_lib.model_index(mesh) * x_shape[1]
+            x_shape = (x_shape[0], int(beta0.shape[0]))
+    mom = _all_moments([X, y, w, beta0, mask], mesh, col0)
     h = hashlib.sha256()
     for part in (
         solver,
-        tuple(getattr(X, "shape", ())), str(getattr(X, "dtype", "")),
-        tuple(getattr(y, "shape", ())) if y is not None else None,
+        x_shape, str(getattr(X, "dtype", "")).replace("torch.", ""),
+        y_shape,
         *mom,
         sorted((k, repr(v)) for k, v in kwargs.items()),
     ):
@@ -229,8 +295,28 @@ def problem_fingerprint(solver, X, y, w, beta0, mask, **kwargs) -> str:
     return h.hexdigest()[:32]
 
 
-def solve_checkpointed(solver: str, X, y, w, beta0, mask, *, path: str,
-                       chunk_iters: int = 50, max_iter: int = 250,
+def _is_writer(mesh) -> bool:
+    """Whether this process writes the snapshot: always on one device,
+    global rank 0 over a mesh."""
+    return mesh is None or mesh.rank == int(mesh.devices.reshape(-1)[0])
+
+
+def _wait_for_writer(mesh, device) -> None:
+    """Every rank waits until the writer has saved: one
+    :func:`~dask_ml_tpu_torch.parallel.hierarchy.hpsum` of one word over
+    the mesh (op ``checkpoint.barrier``), read on the host."""
+    if mesh is None:
+        return
+    import torch
+
+    from dask_ml_tpu_torch.parallel import hierarchy as hier
+
+    flag = torch.ones((), dtype=torch.float32, device=device)
+    float(hier.hpsum(flag, mesh, op="checkpoint.barrier"))
+
+
+def solve_checkpointed(solver: str, X, y, w, beta0, mask, mesh=None, *,
+                       path: str, chunk_iters: int = 50, max_iter: int = 250,
                        save_every_chunks: int = 1, n_shards: int = 1,
                        fingerprint: str = None, preloaded_snapshot=None,
                        **kwargs):
@@ -240,10 +326,14 @@ def solve_checkpointed(solver: str, X, y, w, beta0, mask, *, path: str,
     at ``path`` for the same problem (solver and fingerprint) resumes the
     fit; one of another problem raises.
 
-    ``n_shards`` reaches ``admm`` and ``admm_multinomial`` (the port has
-    no mesh: the consensus blocks are row blocks on one device). The
-    multinomial pseudo-solvers take ``beta0`` of shape (d, K) and
-    ``n_classes`` in ``kwargs``.
+    ``n_shards`` reaches ``admm`` and ``admm_multinomial`` on one device
+    (the consensus blocks are row blocks there). Over a ``mesh`` of ranks
+    X, y and w are this rank's blocks, every solver runs over the mesh,
+    the ADMM carry is saved in the JAX layout (x and u stacked over every
+    data shard) and a resume hands each rank its row, so either package
+    resumes the other's snapshot; only global rank 0 writes, and every
+    rank waits at a barrier until it has. The multinomial pseudo-solvers
+    take ``beta0`` of shape (d, K) and ``n_classes`` in ``kwargs``.
 
     Returns ``(beta, total_iters)``, the iterations counted over every run
     that contributed. The stateful solvers stop on their own done flag;
@@ -253,14 +343,18 @@ def solve_checkpointed(solver: str, X, y, w, beta0, mask, *, path: str,
     ``preloaded_snapshot`` skip the device reductions and the file read
     when the caller has them."""
     from dask_ml_tpu_torch.models import glm as glm_core
+    from dask_ml_tpu_torch.parallel import mesh as mesh_lib
 
     if solver not in glm_core.SOLVERS and solver not in _MULTINOMIAL:
         raise ValueError(f"unknown solver {solver!r}")
-    if solver in ("admm", "admm_multinomial"):
+    mesh = None if mesh is None else mesh_lib.collective_mesh(mesh)
+    if solver in ("admm", "admm_multinomial") and mesh is None:
         kwargs["n_shards"] = int(n_shards)
     if fingerprint is None:
         fingerprint = problem_fingerprint(solver, X, y, w, beta0, mask,
-                                          **kwargs)
+                                          mesh=mesh, **kwargs)
+    if mesh is not None:
+        kwargs["mesh"] = mesh
     dev = beta0.device
 
     state = None
@@ -289,11 +383,13 @@ def solve_checkpointed(solver: str, X, y, w, beta0, mask, *, path: str,
     stateful = solver in STATEFUL_SOLVERS
 
     def snapshot(converged):
-        save_pytree(
-            path,
-            {"beta": beta, "state": state if stateful else None},
-            meta={"solver": solver, "fingerprint": fingerprint,
-                  "iters_done": iters_done, "converged": converged})
+        if _is_writer(mesh):
+            save_pytree(
+                path,
+                {"beta": beta, "state": state if stateful else None},
+                meta={"solver": solver, "fingerprint": fingerprint,
+                      "iters_done": iters_done, "converged": converged})
+        _wait_for_writer(mesh, dev)
 
     chunks_since_save = 0
     while iters_done < max_iter:

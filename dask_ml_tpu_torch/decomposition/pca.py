@@ -13,6 +13,20 @@ small results come to the host.
 The randomized test matrix is drawn from a ``torch.Generator`` seeded by
 ``random_state``, so it differs from the JAX package's ``jax.random``
 draw: randomized fits agree with the JAX package in quality, not in bits.
+
+Inside a ``torch.distributed`` world the fit runs over
+:func:`~dask_ml_tpu_torch.parallel.mesh.collective_mesh`: each rank
+stages only its block of the rows, the weighted mean and the variance are
+sums over the ranks (ops ``pca.mean`` and ``pca.variance``), and the
+factorization is the mesh's tsqr or range finder
+(:mod:`~dask_ml_tpu_torch.ops.linalg`). With ``random_state=None`` rank
+0's seed is handed to every rank (op ``pca.seed``), so all draw the same
+test matrix. On a mesh with a ``model`` axis that divides the features,
+the rank stages its column slice and gathers the columns of its rows
+(op ``pca.colgather``) before the factorization, as GSPMD reassembles
+them in the JAX package. ``fit_transform`` gathers the rows of U from
+every rank (op ``pca.gather``) and ``transform`` stages the whole input,
+so every rank gets the whole result, as on one device.
 """
 
 from __future__ import annotations
@@ -23,6 +37,8 @@ import torch
 from dask_ml_tpu_torch.base import BaseEstimator, TransformerMixin
 from dask_ml_tpu_torch.config import get_config, maybe_host
 from dask_ml_tpu_torch.ops import linalg
+from dask_ml_tpu_torch.parallel import hierarchy as hier
+from dask_ml_tpu_torch.parallel import mesh as mesh_lib
 from dask_ml_tpu_torch.parallel import precision, telemetry
 from dask_ml_tpu_torch.parallel.sharding import prepare_data
 from dask_ml_tpu_torch.utils.validation import check_array, check_random_state
@@ -45,22 +61,46 @@ def transform_program(Xs, mean, components, ev, *, whiten: bool):
     return out
 
 
+def shared_generator(random_state, mesh, device):
+    """``check_random_state(random_state)`` on ``device``, the same on
+    every rank of ``mesh``: without a seed, rank 0's fresh seed is summed
+    with the others' zeros over the data shards and the model axis (op
+    ``pca.seed``), so that every rank draws the same numbers."""
+    if mesh is None or random_state is not None:
+        return check_random_state(random_state, device=device)
+    seed = int(np.random.SeedSequence().entropy % (2**62))
+    mine = torch.tensor(seed if mesh.rank == int(mesh.devices.reshape(-1)[0])
+                        else 0, dtype=torch.int64, device=device)
+    seed = hier.mpsum(hier.hpsum(mine, mesh, op="pca.seed"), mesh,
+                      op="pca.seed")
+    return check_random_state(int(seed), device=device)
+
+
 def _fit_program(X, w, n, *, k, n_power_iter, randomized, generator,
-                 sketch_dtype=None):
+                 sketch_dtype=None, mesh=None):
     """The device part of a fit: mean, centering and masking, the
     factorization, the sign flip, and (randomized only: the exact path's
     total variance is Σ S² / (n − 1)) the total variance. A bf16 X is
     centered into f32 (the mean is f32); ``sketch_dtype`` is the operand
-    dtype of the randomized range finder (None: Xc's)."""
-    mean = (w[:, None] * X).sum(0) / torch.clamp(w.sum(), min=1.0)
+    dtype of the randomized range finder (None: Xc's). Over ``mesh`` X
+    and w are this rank's rows, U comes back as its block."""
+    if mesh is None:
+        mean = (w[:, None] * X).sum(0) / torch.clamp(w.sum(), min=1.0)
+    else:
+        sums = hier.hpsum(torch.cat([(w[:, None] * X).sum(0), w.sum()[None]]),
+                          mesh, op="pca.mean")
+        mean = sums[:-1] / torch.clamp(sums[-1], min=1.0)
     Xc = (X - mean) * (w > 0)[:, None].to(mean.dtype)
     if randomized:
         U, S, Vt = linalg.svd_compressed(
             Xc, k, n_power_iter=n_power_iter, generator=generator,
-            n_oversamples=10, compute_dtype=sketch_dtype)
-        total_var = (Xc * Xc).sum() / (n - 1.0)
+            n_oversamples=10, compute_dtype=sketch_dtype, mesh=mesh)
+        ss = (Xc * Xc).sum()
+        if mesh is not None:
+            ss = hier.hpsum(ss, mesh, op="pca.variance")
+        total_var = ss / (n - 1.0)
     else:
-        U, S, Vt = linalg.tsvd(Xc)
+        U, S, Vt = linalg.tsvd(Xc, mesh=mesh)
         total_var = None
     U, Vt = linalg.svd_flip(U, Vt)
     return mean, U, S, Vt, total_var
@@ -123,22 +163,29 @@ class PCA(BaseEstimator, TransformerMixin):
                 f"and min(n_samples, n_features)="
                 f"{min(n_samples, n_features)} with svd_solver='{solver}'")
 
-        data = prepare_data(X)
+        mesh = mesh_lib.collective_mesh()
+        shard_features = (mesh is not None and mesh_lib.has_model_axis(mesh)
+                          and n_features % mesh_lib.n_model_shards(mesh) == 0)
+        data = prepare_data(X, mesh=mesh, shard_features=shard_features)
+        Xs = data.X
+        if shard_features:
+            Xs = hier.mpgather(Xs, mesh, op="pca.colgather", axis=1)
         randomized = solver == "randomized"
         k_fit = n_components
         if randomized:
             k_fit = min(-(-n_components // 32) * 32,
                         min(n_samples, n_features))
-        gen = check_random_state(self.random_state, device=data.X.device)
+        gen = (shared_generator(self.random_state, mesh, Xs.device)
+               if randomized else None)
         # the precision policy's sketch dtype (bf16 under "bf16")
         sketch_dtype = (precision.resolve().compute_for("sketch")
                         if randomized else None)
         with telemetry.span("pca-fit-program", solver=solver,
                             k=n_components):
             mean, U, S, Vt, tv = _fit_program(
-                data.X, data.weights, float(n_samples), k=k_fit,
+                Xs, data.weights, float(n_samples), k=k_fit,
                 n_power_iter=int(self.iterated_power), randomized=randomized,
-                generator=gen, sketch_dtype=sketch_dtype)
+                generator=gen, sketch_dtype=sketch_dtype, mesh=mesh)
 
         S_t = S[:min(n_samples, n_features)].cpu().numpy()
         explained_variance = (S_t ** 2) / (n_samples - 1)
@@ -169,7 +216,7 @@ class PCA(BaseEstimator, TransformerMixin):
             explained_variance_ratio[:n_components]
         self.singular_values_ = S_t[:n_components]
         self.noise_variance_ = float(noise_variance)
-        return U, S
+        return U, S, mesh
 
     def fit(self, X, y=None):
         self._fit(X)
@@ -177,8 +224,12 @@ class PCA(BaseEstimator, TransformerMixin):
 
     def fit_transform(self, X, y=None):
         """U·S (U·√(n−1) when whitening), without a second data pass."""
-        U, S = self._fit(X)
+        U, S, mesh = self._fit(X)
         k = self.n_components_
+        if mesh is not None:
+            # every rank's block of rows, in order: the whole output
+            U = hier.gather_blocks(U[:, :k].contiguous(), mesh,
+                                   op="pca.gather")[:self.n_samples_]
         Uk = U[:, :k]
         if self.whiten:
             # a whitened output can be non-finite where a variance is 0:

@@ -1,5 +1,12 @@
 """Truncated SVD (LSA) without centering, in the PyTorch port (counterpart
-of ``dask_ml_tpu/decomposition/truncated_svd.py``)."""
+of ``dask_ml_tpu/decomposition/truncated_svd.py``).
+
+Inside a ``torch.distributed`` world the fit runs over
+:func:`~dask_ml_tpu_torch.parallel.mesh.collective_mesh`, as
+:class:`~dask_ml_tpu_torch.decomposition.PCA`'s does: each rank factors its
+block of the rows, the variances are sums over the ranks (op
+``tsvd.moments``), and ``fit_transform`` gathers the rows of its output
+from every rank (op ``tsvd.gather``)."""
 
 from __future__ import annotations
 
@@ -7,10 +14,28 @@ import torch
 
 from dask_ml_tpu_torch.base import BaseEstimator, TransformerMixin
 from dask_ml_tpu_torch.config import maybe_host
+from dask_ml_tpu_torch.decomposition.pca import shared_generator
 from dask_ml_tpu_torch.ops import linalg
+from dask_ml_tpu_torch.parallel import hierarchy as hier
+from dask_ml_tpu_torch.parallel import mesh as mesh_lib
 from dask_ml_tpu_torch.parallel import precision
 from dask_ml_tpu_torch.parallel.sharding import prepare_data
-from dask_ml_tpu_torch.utils.validation import check_array, check_random_state
+from dask_ml_tpu_torch.utils.validation import check_array
+
+
+def _mesh_variances(T, X, w, n: int, mesh):
+    """The column variances (ddof 0) of the valid rows of the rank blocks
+    ``T`` and ``X`` in two passes, each one ``tsvd.moments`` sum over
+    every rank: the means, then the centered squares. Returns ``(var of
+    T's columns, Σ of X's)``."""
+    keep = (w > 0).to(T.dtype)[:, None]
+    k = int(T.shape[1])
+    means = hier.hpsum(torch.cat([(T * keep).sum(0), (X * keep).sum(0)]),
+                       mesh, op="tsvd.moments") / n
+    sq = hier.hpsum(torch.cat([((T - means[:k]) ** 2 * keep).sum(0),
+                               ((X - means[k:]) ** 2 * keep).sum(0)]),
+                    mesh, op="tsvd.moments") / n
+    return sq[:k], float(sq[k:].sum())
 
 
 class TruncatedSVD(BaseEstimator, TransformerMixin):
@@ -43,41 +68,56 @@ class TruncatedSVD(BaseEstimator, TransformerMixin):
         return X
 
     def fit(self, X, y=None):
-        self.fit_transform(X)
+        self._fit(X)
         return self
 
     def fit_transform(self, X, y=None):
+        X_transformed, n, mesh = self._fit(X)
+        if mesh is not None:
+            # every rank's block of rows, in order: the whole output
+            X_transformed = hier.gather_blocks(
+                X_transformed, mesh, op="tsvd.gather")[:n]
+        return maybe_host(X_transformed)
+
+    def _fit(self, X):
+        """Fit; returns (this rank's rows of ``U·S``, the sample count,
+        the mesh or None)."""
         X = self._check_array(X)
         if self.algorithm not in {"tsqr", "randomized"}:
             raise ValueError(
                 f"algorithm must be 'tsqr' or 'randomized', "
                 f"got {self.algorithm!r}")
         k = int(self.n_components)
-        data = prepare_data(X)
+        mesh = mesh_lib.collective_mesh()
+        data = prepare_data(X, mesh=mesh)
         # a bf16 X (precision="bf16"): the exact path factors it widened
         # to f32, the randomized one sketches it on the policy's dtype
         Xf = data.X.to(torch.float32)
         if self.algorithm == "tsqr":
-            u, s, v = linalg.tsvd(Xf, weights=data.weights)
+            u, s, v = linalg.tsvd(Xf, weights=data.weights, mesh=mesh)
         else:
             k_fit = min(-(-k // 32) * 32, min(int(X.shape[0]),
                                               int(X.shape[1])))
             u, s, v = linalg.svd_compressed(
                 data.X, k_fit, n_power_iter=int(self.n_iter),
-                generator=check_random_state(self.random_state,
-                                             device=data.X.device),
-                weights=data.weights)
+                generator=shared_generator(self.random_state, mesh,
+                                           data.X.device),
+                weights=data.weights, mesh=mesh)
         u, v = linalg.svd_flip(u[:, :k], v[:k])
         s = s[:k]
         X_transformed = u * s
-        # variance bookkeeping over the rows (ddof = 0)
-        explained_var = torch.var(X_transformed, dim=0, correction=0)
-        full_var = float(torch.var(Xf, dim=0, correction=0).sum())
+        if mesh is None:
+            # variance bookkeeping over the rows (ddof = 0)
+            explained_var = torch.var(X_transformed, dim=0, correction=0)
+            full_var = float(torch.var(Xf, dim=0, correction=0).sum())
+        else:
+            explained_var, full_var = _mesh_variances(
+                X_transformed, Xf, data.weights, data.n, mesh)
         self.components_ = v.cpu().numpy()
         self.explained_variance_ = explained_var.cpu().numpy()
         self.explained_variance_ratio_ = self.explained_variance_ / full_var
         self.singular_values_ = s.cpu().numpy()
-        return maybe_host(X_transformed)
+        return X_transformed, data.n, mesh
 
     def _project(self, X, comps):
         Xs = prepare_data(check_array(X)).X

@@ -3,7 +3,8 @@
 :mod:`dask_ml_tpu_torch.models.glm`.
 
 The same constructor surface and defaults (``solver="admm"``: consensus
-ADMM, here over one row block, as on a one-device mesh), the same
+ADMM, over one row block on one device, one block a rank in a world of
+ranks), the same
 ``lamduh = 1/C`` mapping and solver-specific pruning, the same
 deviations from the reference: the intercept is not penalized, and
 ``LinearRegression.score`` is R².
@@ -41,6 +42,7 @@ from dask_ml_tpu_torch.metrics import accuracy_score, r2_score
 from dask_ml_tpu_torch.models import glm as core
 from dask_ml_tpu_torch.models.glm import add_intercept
 from dask_ml_tpu_torch.ops import sparse as sparse_ops
+from dask_ml_tpu_torch.parallel import mesh as mesh_lib
 from dask_ml_tpu_torch.parallel import precision, telemetry
 from dask_ml_tpu_torch.parallel.sharding import is_sparse_input, prepare_data
 from dask_ml_tpu_torch.utils.validation import check_array
@@ -53,19 +55,22 @@ def _intercept_block(blk):
     return add_intercept(X_b), y_b, w_b
 
 
-def _checkpointed(solver, X, y, w, beta0, mask, kwargs, prefix, every):
+def _checkpointed(solver, X, y, w, beta0, mask, kwargs, prefix, every,
+                  mesh=None):
     """``solve_checkpointed`` at ``prefix`` suffixed with the problem's
     fingerprint (max_iter left out of it, so a larger budget resumes the
     same snapshot): each distinct problem, each OVR class included, keeps
-    its own snapshot."""
+    its own snapshot. Over a ``mesh`` the fingerprint is the whole staged
+    problem's and only rank 0 writes."""
     from dask_ml_tpu_torch.checkpoint import (problem_fingerprint,
                                               solve_checkpointed)
 
     kwargs = dict(kwargs)
     max_iter = int(kwargs.pop("max_iter"))
-    fp = problem_fingerprint(solver, X, y, w, beta0, mask, **kwargs)
+    fp = problem_fingerprint(solver, X, y, w, beta0, mask, mesh=mesh,
+                             **kwargs)
     return solve_checkpointed(
-        solver, X, y, w, beta0, mask, path=f"{prefix}.{fp[:16]}",
+        solver, X, y, w, beta0, mask, mesh, path=f"{prefix}.{fp[:16]}",
         chunk_iters=int(every), max_iter=max_iter, fingerprint=fp, **kwargs)
 
 
@@ -178,47 +183,74 @@ class _GLM(BaseEstimator):
         """Hook for family-specific target validation/encoding."""
         return np.asarray(y)
 
-    def _stage(self, X, y, sample_weight):
-        """Stage the validated X, y and weights and append the intercept.
-        Returns (data, the penalty mask, the clock at the end of staging);
-        the mask leaves the intercept column unregularized."""
-        data = prepare_data(X, sample_weight=sample_weight, y=y)
-        if self.fit_intercept:
-            # the appended container replaces the staged one, which is
-            # freed here: at the sparse flagship both exist only briefly
-            data.X = add_intercept(data.X)
-        d = int(data.X.shape[1])
+    def _stage(self, X, y, sample_weight, mesh=None, tensor_parallel=False):
+        """Stage the validated X, y and weights and append the intercept:
+        over ``mesh`` this rank's block of the rows, and with
+        ``tensor_parallel`` its column slice too, the intercept a true
+        column before the feature padding. Returns (data, the penalty
+        mask over the whole (padded) width, the clock at the end of
+        staging, the true width); the mask leaves the intercept column and
+        the padding unregularized."""
+        if tensor_parallel:
+            data = prepare_data(X, sample_weight=sample_weight, y=y,
+                                mesh=mesh, shard_features=True,
+                                append_ones=self.fit_intercept)
+            d_true = data.n_features
+            d = int(data.X.shape[1]) * mesh_lib.n_model_shards(mesh)
+        else:
+            data = prepare_data(X, sample_weight=sample_weight, y=y,
+                                mesh=mesh)
+            if self.fit_intercept:
+                # the appended container replaces the staged one, which is
+                # freed here: at the sparse flagship both exist only briefly
+                data.X = add_intercept(data.X)
+            d = d_true = int(data.X.shape[1])
         dev = data.weights.device
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t_stage = time.perf_counter()
-        mask = torch.ones(d, dtype=torch.float32, device=dev)
-        if self.fit_intercept:
-            mask[-1] = 0.0
-        self.n_features_in_ = d - 1 if self.fit_intercept else d
-        return data, mask, t_stage
+        n_feat = d_true - 1 if self.fit_intercept else d_true
+        mask = torch.zeros(d, dtype=torch.float32, device=dev)
+        mask[:n_feat] = 1.0
+        self.n_features_in_ = n_feat
+        return data, mask, t_stage, d_true
 
     def fit(self, X, y=None, sample_weight=None):
+        """Fit on the configured device. Inside a ``torch.distributed``
+        world (:func:`~dask_ml_tpu_torch.parallel.runtime.initialize`)
+        the fit runs over :func:`~dask_ml_tpu_torch.parallel.mesh.
+        collective_mesh`: each rank stages only its block of the rows and
+        the solver sums over the ranks, so every rank ends with the same
+        coefficients. On a mesh with a ``model`` axis the smooth solvers
+        split dense X's columns over it too (ADMM and sparse input stay
+        data-parallel)."""
         kwargs = self._get_solver_kwargs()
         solver = core.solver_fn(self.solver)
         t0 = time.perf_counter()
         X = check_array(X, accept_sparse=True)
         y = self._encode_y(y)
-        data, mask, t_stage = self._stage(X, y, sample_weight)
+        mesh = mesh_lib.collective_mesh()
+        tensor_parallel = (mesh is not None and mesh_lib.has_model_axis(mesh)
+                           and self.solver != "admm"
+                           and not is_sparse_input(X))
+        data, mask, t_stage, d_true = self._stage(
+            X, y, sample_weight, mesh, tensor_parallel)
         beta0 = torch.zeros_like(mask)
 
         def solve_one(y_dev):
             if self.checkpoint:
                 return _checkpointed(self.solver, data.X, y_dev,
                                      data.weights, beta0, mask, kwargs,
-                                     self.checkpoint, self.checkpoint_every)
-            return solver(data.X, y_dev, data.weights, beta0, mask, **kwargs)
+                                     self.checkpoint, self.checkpoint_every,
+                                     mesh)
+            return solver(data.X, y_dev, data.weights, beta0, mask,
+                          mesh=mesh, **kwargs)
 
         with telemetry.span(f"glm-{self.solver}"):
             results = [solve_one(y_dev)
                        for y_dev in self._solve_targets(data)]
         self.n_iter_ = int(max(n for _, n in results))
-        self._finalize_coef([b.cpu().numpy() for b, _ in results])
+        self._finalize_coef([b.cpu().numpy()[:d_true] for b, _ in results])
         self.fit_phase_seconds_ = {"stage": t_stage - t0,
                                    "solve": time.perf_counter() - t_stage}
         return self
@@ -490,7 +522,12 @@ class _GLM(BaseEstimator):
         Returns ``{"n_iter": (M,), "scores": [per eval set (M,)], "coef":
         (M, width)}`` as device tensors (``coef`` with the intercept as
         its last column, as ``_coef``). Declines (``NotImplemented``) on
-        multiclass targets: those run per cell, with the same results."""
+        multiclass targets and on a mesh with a ``model`` axis, as the JAX
+        package does: those run per cell, with the same results. The data
+        is staged whole on every rank of a world."""
+        mesh = mesh_lib.collective_mesh()
+        if mesh is not None and mesh_lib.has_model_axis(mesh):
+            return NotImplemented
         y_enc = self._encode_y(y)
         if len(getattr(self, "classes_", ())) > 2:
             return NotImplemented
@@ -576,7 +613,8 @@ class LogisticRegression(_GLM):
         if use_admm and is_sparse_input(X):
             raise ValueError(core.SPARSE_MULTINOMIAL_ADMM)  # before staging
         K = len(self.classes_)
-        data, mask, t_stage = self._stage(X, idx, sample_weight)
+        mesh = mesh_lib.collective_mesh()
+        data, mask, t_stage, _ = self._stage(X, idx, sample_weight, mesh)
         B0 = torch.zeros((int(data.X.shape[1]), K), dtype=torch.float32,
                          device=mask.device)
         mn_kwargs = dict(n_classes=K, regularizer=kwargs["regularizer"],
@@ -596,10 +634,10 @@ class LogisticRegression(_GLM):
                 B, n_iter = _checkpointed(name, data.X, data.y, data.weights,
                                           B0, mask, mn_kwargs,
                                           self.checkpoint,
-                                          self.checkpoint_every)
+                                          self.checkpoint_every, mesh)
             else:
                 B, n_iter = solver(data.X, data.y, data.weights, B0, mask,
-                                   **mn_kwargs)
+                                   mesh=mesh, **mn_kwargs)
         self._coef = B.T.cpu().numpy()  # (K, width), the OVR layout
         self.n_iter_ = int(n_iter)
         self.coef_ = self._coef[:, :-1] if self.fit_intercept else self._coef

@@ -25,6 +25,23 @@ from the device per loop test (the stopping flag, the Armijo test) and
 nothing else: the L-BFGS history update stays on the device as
 ``torch.where`` over the buffers. :data:`host_reads` counts those reads.
 Solver state stays float32 and Python float literals never promote it.
+
+**Over a mesh of ranks** (``mesh=``, a :class:`~dask_ml_tpu_torch.
+parallel.mesh.Mesh` over a ``torch.distributed`` world), ``X``, ``y`` and
+``w`` are this rank's block of the rows and every rank holds the whole
+coefficient vector. The smooth solvers evaluate the rank's data loss, take
+its gradient with respect to the linear predictor by autograd, pull it
+back through the rank's rows (K6 and its backward for a container), and
+only then sum the value, the gradient and Newton's Gram over the data
+shards (:class:`_Shards`): ``torch.distributed`` has no autograd, and the
+penalty, replicated, is added once after the sum. Every flag the host
+reads is computed from summed values, so every rank takes every branch
+together and issues the same collectives in the same order. On a
+``("data", "model")`` mesh with X's columns split over ``model`` the
+matvec sums its column blocks' partials over ``model``, and the gradient
+and the Gram gather their column blocks. :func:`admm` and
+:func:`admm_multinomial` give each rank one consensus block. A world of one
+rank with no process group runs the single-device code.
 """
 
 from __future__ import annotations
@@ -34,6 +51,8 @@ import math
 import torch
 
 from dask_ml_tpu_torch.ops import sparse as sparse_ops
+from dask_ml_tpu_torch.parallel import hierarchy as hier
+from dask_ml_tpu_torch.parallel import mesh as mesh_lib
 from dask_ml_tpu_torch.parallel import precision as px
 from dask_ml_tpu_torch.parallel import telemetry
 
@@ -189,6 +208,161 @@ def _weighted_gram(X, h):
     return px.pmatmul(X.T, Xh, accum=px.state_dtype(X.dtype))
 
 
+def _mesh_or_none(mesh):
+    """``mesh`` when its collectives run (a process group, or more than one
+    rank), else None: a world of one rank with no process group runs the
+    single-device code and records nothing."""
+    return None if mesh is None else mesh_lib.collective_mesh(mesh)
+
+
+class _Shards:
+    """The data seams of a fit over a mesh of ranks. ``X`` is this rank's
+    block of the rows (a dense tensor or a container); on a mesh with a
+    ``model`` axis a dense block narrower than the coefficients is its
+    column slice (``prepare_data(shard_features=True)``). Each reduction
+    over the data shards is one :func:`~dask_ml_tpu_torch.parallel.
+    hierarchy.hpsum` under its ledger op: ``glm.value``, ``glm.grad`` and
+    ``glm.gram`` for dense rows (the JAX package's reductions there are
+    GSPMD's and have no name), ``sparse.pullback`` and ``sparse.gram`` for
+    a container (through :func:`~dask_ml_tpu_torch.ops.sparse.metered`).
+    The model axis adds ``glm.matvec`` (the partial predictors summed over
+    the column blocks), ``glm.pullback`` (the gradient's column blocks
+    gathered) and ``glm.gram.gather``. :data:`mesh_evals` counts the
+    evaluations."""
+
+    def __init__(self, X, mesh, d: int, kernel: str = "auto"):
+        self.X, self.mesh, self.kernel = X, mesh, kernel
+        self.sparse = isinstance(X, sparse_ops.SparseRows)
+        self.accum = _state_dtype(X)
+        self.cols = None
+        width = int(X.shape[1])
+        if not self.sparse and width != int(d):
+            m = mesh_lib.n_model_shards(mesh)
+            if width * m != int(d):
+                raise ValueError(
+                    f"a block of {width} columns holds neither the whole "
+                    f"{d} coefficients nor a {m}-th of them")
+            lo = mesh_lib.model_index(mesh) * width
+            self.cols = slice(lo, lo + width)
+
+    def sum(self, t, op: str):
+        """``t`` summed over the data shards."""
+        return hier.hpsum(t, self.mesh, op=op)
+
+    def matvec(self, v):
+        """The rank's rows times ``v`` (d,) or (d, K)."""
+        X = self.X
+        if self.sparse:
+            return (sparse_ops.matvec(X, v, kernel=self.kernel)
+                    if v.ndim == 1 else sparse_ops.matmat(X, v))
+        if self.cols is None:
+            return px.pmatmul(X, v, accum=self.accum)
+        return hier.mpsum(px.pmatmul(X, v[self.cols], accum=self.accum),
+                          self.mesh, op="glm.matvec")
+
+    def pullback(self, r):
+        """``Xᵀ r`` over every rank's rows, (d,) or (d, K)."""
+        X = self.X
+        if self.sparse:
+            with sparse_ops.metered(self.mesh):
+                return (sparse_ops.pullback(X, r, kernel=self.kernel)
+                        if r.ndim == 1 else sparse_ops.pullback_mat(X, r))
+        g = self.sum(px.pullback_matmul(X.T, r), "glm.grad")
+        if self.cols is not None:
+            g = hier.mpgather(g, self.mesh, op="glm.pullback")
+        return g
+
+    def gram(self, h):
+        """``Xᵀ diag(h) X`` over every rank's rows, (d, d). On a column
+        slice the cross-column blocks need the other slices: the rank's
+        weighted rows are gathered over ``model``, its rows of the Gram
+        summed over the data shards, then gathered over ``model``."""
+        mesh_evals["gram"] += 1
+        X = self.X
+        if self.sparse:
+            with sparse_ops.metered(self.mesh):
+                return sparse_ops.weighted_gram(X, h)
+        if self.cols is None:
+            return self.sum(_weighted_gram(X, h), "glm.gram")
+        Xh = hier.mpgather((h[:, None] * X).to(X.dtype), self.mesh,
+                           op="glm.gram.gather", axis=1)
+        rows = self.sum(px.pmatmul(X.T, Xh, accum=self.accum), "glm.gram")
+        return hier.mpgather(rows, self.mesh, op="glm.gram.gather", axis=0)
+
+
+#: evaluations of the fits over a mesh: the objective's value (each one
+#: sums once over the data shards), its gradient and Newton's Gram; set
+#: to 0 by :func:`reset_host_reads`
+mesh_evals = {"value": 0, "grad": 0, "gram": 0}
+
+
+def _mesh_objective(sh, y, w, loss, pen, shape=None):
+    """``(obj, value_and_grad, SW)`` of a fit over a mesh: ``loss(eta,
+    y)`` the rows' loss (summed with the weights ``w``), ``pen(b)`` the
+    replicated penalty term (None for none), ``shape`` the coefficients'
+    shape where ``b`` is flattened ((d, K) for softmax). The rank's value
+    and its cotangent with respect to the predictor come from autograd,
+    the pullback through the rank's rows follows, and the sums over the
+    data shards come after the graph, with the penalty added once."""
+    sw = torch.clamp(sh.sum(torch.sum(w), "glm.sw"), min=1.0)
+
+    def predictor(b):
+        return sh.matvec(b if shape is None else b.reshape(shape))
+
+    def obj(b):
+        mesh_evals["value"] += 1
+        f = sh.sum(torch.sum(w * loss(predictor(b), y)), "glm.value")
+        if pen is not None:
+            f = f + pen(b)
+        return f / sw
+
+    def value_and_grad(b):
+        mesh_evals["value"] += 1
+        mesh_evals["grad"] += 1
+        eta = predictor(b)
+        with torch.enable_grad():
+            e = eta.detach().requires_grad_(True)
+            f = torch.sum(w * loss(e, y))
+            (r,) = torch.autograd.grad(f, e)
+        f = sh.sum(f.detach(), "glm.value")
+        g = sh.pullback(r).reshape(b.shape)
+        if pen is not None:
+            with torch.enable_grad():
+                bb = b.detach().requires_grad_(True)
+                p = pen(bb)
+                (gp,) = torch.autograd.grad(p, bb)
+            f, g = f + p.detach(), g + gp
+        return f / sw, g / sw
+
+    return obj, value_and_grad, sw
+
+
+def _problem(X, y, w, beta0, mask, *, family, regularizer, lamduh,
+             smooth_penalty, kernel, mesh):
+    """What a smooth solver iterates on: ``(obj, value_and_grad, state
+    dtype, SW, lam_eff, beta0 in the state dtype, matvec, gram)``, over
+    the mesh when ``mesh`` reduces (:class:`_Shards`), else on the whole
+    data (the single-device seams)."""
+    mesh = _mesh_or_none(mesh)
+    if mesh is None:
+        obj, vg, sdt, sw, lam_eff, beta = _setup(
+            X, w, beta0, lamduh,
+            _make_objective(family, regularizer, smooth_penalty, kernel), y,
+            mask)
+        return (obj, vg, sdt, sw, lam_eff, beta,
+                lambda b: _data_matvec(X, b, kernel=kernel),
+                lambda h: _weighted_gram(X, h))
+    loss_fn, _ = FAMILIES[family]
+    pen_value, _ = _penalty(regularizer)
+    sdt = _state_dtype(X)
+    lam_eff = torch.tensor(lamduh, dtype=sdt, device=w.device)
+    sh = _Shards(X, mesh, int(beta0.shape[0]), kernel)
+    pen = ((lambda b: lam_eff * pen_value(b * mask)) if smooth_penalty
+           else None)
+    obj, vg, sw = _mesh_objective(sh, y, w, loss_fn, pen)
+    return obj, vg, sdt, sw, lam_eff, beta0.to(sdt), sh.matvec, sh.gram
+
+
 # ---------------------------------------------------------------------------
 # Host reads and autograd plumbing
 # ---------------------------------------------------------------------------
@@ -202,8 +376,9 @@ host_reads = {"n": 0, "newton_steps": 0}
 
 
 def reset_host_reads() -> None:
-    for k in host_reads:
-        host_reads[k] = 0
+    for counts in (host_reads, mesh_evals):
+        for k in counts:
+            counts[k] = 0
 
 
 def _read(flag) -> bool:
@@ -271,13 +446,14 @@ def _keep_going(it: int, max_iter: int, done) -> bool:
 @torch.no_grad()
 def gradient_descent(X, y, w, beta0, mask, *, family="logistic",
                      regularizer="l2", lamduh=0.0, max_iter=100, tol=1e-4,
-                     kernel="auto"):
+                     kernel="auto", mesh=None):
     """Batch gradient descent with Armijo backtracking and step growth (the
     facade passes ``lamduh=0``, as the reference strips the regularizer
-    for this solver). Returns (beta, n_iter)."""
-    obj, vg, sdt, _, _, beta = _setup(
-        X, w, beta0, lamduh,
-        _make_objective(family, regularizer, True, kernel), y, mask)
+    for this solver). ``mesh``: the rows are this rank's block (module
+    docstring). Returns (beta, n_iter)."""
+    obj, vg, sdt, _, _, beta, _, _ = _problem(
+        X, y, w, beta0, mask, family=family, regularizer=regularizer,
+        lamduh=lamduh, smooth_penalty=True, kernel=kernel, mesh=mesh)
     t_prev = torch.tensor(1.0, dtype=sdt, device=beta.device)
     it, done = 0, None
     while _keep_going(it, max_iter, done):
@@ -294,20 +470,21 @@ def gradient_descent(X, y, w, beta0, mask, *, family="logistic",
 
 @torch.no_grad()
 def newton(X, y, w, beta0, mask, *, family="logistic", regularizer="l2",
-           lamduh=0.0, max_iter=50, tol=1e-4, kernel="auto"):
+           lamduh=0.0, max_iter=50, tol=1e-4, kernel="auto", mesh=None):
     """Damped Newton: GLM Hessian ``X.T @ (w·h · X) / SW``, dense solve,
-    Armijo backtracking. Returns (beta, n_iter)."""
+    Armijo backtracking. ``mesh``: the rows are this rank's block (module
+    docstring). Returns (beta, n_iter)."""
     _, hess_fn = FAMILIES[family]
-    obj, vg, sdt, sw, lam_eff, beta = _setup(
-        X, w, beta0, lamduh,
-        _make_objective(family, regularizer, True, kernel), y, mask)
+    obj, vg, sdt, sw, lam_eff, beta, matvec, gram = _problem(
+        X, y, w, beta0, mask, family=family, regularizer=regularizer,
+        lamduh=lamduh, smooth_penalty=True, kernel=kernel, mesh=mesh)
     one = torch.tensor(1.0, dtype=sdt, device=beta.device)
     it, done = 0, None
     while _keep_going(it, max_iter, done):
-        eta = _data_matvec(X, beta, kernel=kernel)
+        eta = matvec(beta)
         f0, g = vg(beta)
         h = w * hess_fn(eta, y)
-        H = _weighted_gram(X, h) / sw
+        H = gram(h) / sw
         # smooth-l2 curvature on the penalized coords plus a tiny ridge so
         # the solve never blows up on collinear features
         H = H + torch.diag(lam_eff / sw * mask + 1e-8)
@@ -388,7 +565,7 @@ def _lbfgs_loop(obj, value_and_grad, carry0, max_iter, tol, m):
 @torch.no_grad()
 def lbfgs(X, y, w, beta0, mask, *, family="logistic", regularizer="l2",
           lamduh=0.0, max_iter=100, tol=1e-4, m=10, state=None,
-          return_state=False, kernel="auto"):
+          return_state=False, kernel="auto", mesh=None):
     """L-BFGS with an m-pair circular history kept on the device. An l1
     penalty is handled by subgradient, as in dask-glm.
 
@@ -397,10 +574,12 @@ def lbfgs(X, y, w, beta0, mask, *, family="logistic", regularizer="l2",
     the curvature history, so a chunked run takes the same trajectory as
     one call. ``n_iter`` counts this call's iterations. With
     ``return_state=True`` the return is ``(beta, n_iter, state, done)``,
-    ``done`` the loop's own convergence flag; else ``(beta, n_iter)``."""
-    obj, vg, sdt, _, _, beta0 = _setup(
-        X, w, beta0, lamduh,
-        _make_objective(family, regularizer, True, kernel), y, mask)
+    ``done`` the loop's own convergence flag; else ``(beta, n_iter)``.
+    ``mesh``: the rows are this rank's block (module docstring); the carry
+    is replicated."""
+    obj, vg, sdt, _, _, beta0, _, _ = _problem(
+        X, y, w, beta0, mask, family=family, regularizer=regularizer,
+        lamduh=lamduh, smooth_penalty=True, kernel=kernel, mesh=mesh)
     dev = beta0.device
     if state is None:
         d = int(beta0.shape[0])
@@ -422,14 +601,15 @@ def lbfgs(X, y, w, beta0, mask, *, family="logistic", regularizer="l2",
 @torch.no_grad()
 def proximal_grad(X, y, w, beta0, mask, *, family="logistic",
                   regularizer="l1", lamduh=0.0, max_iter=100, tol=1e-4,
-                  kernel="auto"):
+                  kernel="auto", mesh=None):
     """Proximal gradient (ISTA) with backtracking on the quadratic model;
-    the prox acts only on the penalized coords (``mask``). Returns (beta,
+    the prox acts only on the penalized coords (``mask``). ``mesh``: the
+    rows are this rank's block (module docstring). Returns (beta,
     n_iter)."""
     _, pen_prox = _penalty(regularizer)
-    fsmooth, vg, sdt, sw, lam_eff, beta = _setup(
-        X, w, beta0, lamduh,
-        _make_objective(family, regularizer, False, kernel), y, mask)
+    fsmooth, vg, sdt, sw, lam_eff, beta, _, _ = _problem(
+        X, y, w, beta0, mask, family=family, regularizer=regularizer,
+        lamduh=lamduh, smooth_penalty=False, kernel=kernel, mesh=mesh)
     lam_eff = lam_eff / sw
 
     def prox(v, t):
@@ -532,40 +712,78 @@ def _admm_state(state, start, shape, sdt, dev, what):
     return z0, x0, u0
 
 
-def _consensus(z, x, u, mask, pen_prox, lam_eff, rho, abstol, reltol):
-    """One consensus step after the S local solves ``x``: the z-consensus
-    under the penalty mask, the dual update and Boyd's stopping rule with
-    its S-dependent scalings. Returns (z_new, u_new, done)."""
+def _consensus(z, x, u, mask, pen_prox, lam_eff, rho, abstol, reltol,
+               mesh=None):
+    """One consensus step after the local solves ``x`` (one row a block):
+    the z-consensus under the penalty mask, the dual update and Boyd's
+    stopping rule with its S-dependent scalings. Returns (z_new, u_new,
+    done). Over a ``mesh`` each rank holds its own blocks and the sums over
+    blocks are :func:`~dask_ml_tpu_torch.parallel.hierarchy.hpsum`s under
+    the JAX package's ops: ``glm.admm.consensus`` for Σ(x + u), and
+    ``glm.admm.residuals`` for the three squared norms, summed as one
+    (3,) vector (the JAX package's three scalar sums, the same bytes)."""
     S = int(x.shape[0])
+    if mesh is not None:
+        S *= mesh_lib.n_data_shards(mesh)
     size = x[0].numel()
     maskb = mask.reshape(mask.shape + (1,) * (z.ndim - 1))
     t = lam_eff / (rho * S)
-    zbar = torch.sum(x + u, dim=0) / S
+    xu = torch.sum(x + u, dim=0)
+    if mesh is not None:
+        xu = hier.hpsum(xu, mesh, op="glm.admm.consensus")
+    zbar = xu / S
     z_new = torch.where(maskb > 0, pen_prox(zbar, t), zbar)
     u = u + x - z_new
-    pri = torch.sqrt(torch.sum((x - z_new) ** 2))
+    sums = (torch.sum((x - z_new) ** 2), torch.sum(x * x), torch.sum(u * u))
+    if mesh is not None:
+        sums = hier.hpsum(torch.stack(sums), mesh, op="glm.admm.residuals")
+    pri = torch.sqrt(sums[0])
     dual = rho * math.sqrt(S) * torch.linalg.norm((z_new - z).reshape(-1))
     eps_pri = (math.sqrt(S * size) * abstol
                + reltol * torch.maximum(
-                   torch.sqrt(torch.sum(x * x)),
+                   torch.sqrt(sums[1]),
                    math.sqrt(S) * torch.linalg.norm(z_new.reshape(-1))))
     eps_dual = (math.sqrt(S * size) * abstol
-                + reltol * rho * torch.sqrt(torch.sum(u * u)))
+                + reltol * rho * torch.sqrt(sums[2]))
     return z_new, u, (pri < eps_pri) & (dual < eps_dual)
 
 
 def _admm_loop(local_solve, z, x, u, mask, pen_prox, lam_eff, rho, abstol,
-               reltol, max_iter):
+               reltol, max_iter, mesh=None):
     """The consensus iterations shared by :func:`admm` and
-    :func:`admm_multinomial`: S local prox solves, then
+    :func:`admm_multinomial`: the local prox solves, then
     :func:`_consensus`. Returns (z, x, u, n_iter, done)."""
     it, done = 0, None
     while _keep_going(it, max_iter, done):
         x = local_solve(x, z, u)
         z, u, done = _consensus(z, x, u, mask, pen_prox, lam_eff, rho,
-                                abstol, reltol)
+                                abstol, reltol, mesh=mesh)
         it += 1
     return z, x, u, it, done
+
+
+def _admm_blocks(state, start, shape, sdt, dev, what, mesh):
+    """``(z, x, u)`` to start from, with x and u this process's blocks:
+    all ``shape[0]`` of them on one device; over a mesh the rank's own row
+    of a state stacked over every data shard (the JAX layout), which is
+    checked against the shard count."""
+    if mesh is None:
+        return _admm_state(state, start, shape, sdt, dev, what)
+    S = mesh_lib.n_data_shards(mesh)
+    z, x, u = _admm_state(state, start, (S,) + shape[1:], sdt, dev, what)
+    i = mesh_lib.data_index(mesh)
+    return z, x[i:i + 1].contiguous(), u[i:i + 1].contiguous()
+
+
+def _admm_result(z, n_iter, x, u, done, return_state, mesh):
+    """The ADMM return: over a mesh the state's x and u gathered from every
+    rank into the stacked (S, ...) JAX layout (op ``glm.admm.state``)."""
+    if not return_state:
+        return z, n_iter
+    if mesh is not None:
+        x = hier.gather_blocks(x, mesh, op="glm.admm.state")
+        u = hier.gather_blocks(u, mesh, op="glm.admm.state")
+    return z, n_iter, (z, x, u), done is not None and bool(done)
 
 
 def _batched_newton(grad_fn, step_fn, x, inner_tol, inner_max_iter):
@@ -599,7 +817,7 @@ def _batched_newton(grad_fn, step_fn, x, inner_tol, inner_max_iter):
 def admm(X, y, w, beta0, mask, *, n_shards=1, family="logistic",
          regularizer="l2", lamduh=0.0, rho=1.0, max_iter=250, abstol=1e-4,
          reltol=1e-2, inner_max_iter=20, inner_tol=1e-8, state=None,
-         return_state=False, kernel="auto"):
+         return_state=False, kernel="auto", mesh=None):
     """Consensus ADMM (Boyd et al. §7.1.1) over ``n_shards`` contiguous row
     blocks of equal size, which stand in for the JAX package's data shards:
     its trajectory depends on S (the z-prox takes t = λ/(ρS) and the
@@ -619,21 +837,33 @@ def admm(X, y, w, beta0, mask, *, n_shards=1, family="logistic",
     another S raises ``ValueError``. ``n_iter`` counts this call's
     iterations; ``return_state=True`` returns ``(z, n_iter, state,
     done)``, else ``(z, n_iter)``. ``kernel`` reaches the container's
-    matvec and pullback (K6 and its backward on the card)."""
+    matvec and pullback (K6 and its backward on the card).
+
+    Over a ``mesh`` (``n_shards`` is then the mesh's data shard count)
+    each rank is one consensus block: X, y and w are its rows, it keeps
+    its own x and u, solves its prox problem alone, and reduces only Σw
+    (op ``glm.admm.sw``), the consensus and the residuals
+    (:func:`_consensus`). ``state`` and the returned state stack x and u
+    over every shard, the JAX layout; the returned one is gathered from
+    every rank (op ``glm.admm.state``)."""
     loss_fn, hess_fn = FAMILIES[family]
     _, pen_prox = _penalty(regularizer)
+    mesh = _mesh_or_none(mesh)
     sdt = _state_dtype(X)
     dev = w.device
     d = int(X.shape[1])
-    Xb = _row_blocks(X, n_shards)
-    S = n_shards
+    S = 1 if mesh is not None else n_shards
+    Xb = _row_blocks(X, S)
     yb, wb = y.reshape(S, -1), w.reshape(S, -1)
-    sw = torch.clamp(torch.sum(w), min=1.0)
+    sw = torch.sum(w)
+    if mesh is not None:
+        sw = hier.hpsum(sw, mesh, op="glm.admm.sw")
+    sw = torch.clamp(sw, min=1.0)
     lamduh, rho, abstol, reltol, inner_tol = _admm_scalars(
         sdt, dev, lamduh, rho, abstol, reltol, inner_tol)
     lam_eff = lamduh / sw
     eye = torch.eye(d, dtype=sdt, device=dev)
-    z, x, u = _admm_state(state, beta0, (S, d), sdt, dev, "ADMM")
+    z, x, u = _admm_blocks(state, beta0, (S, d), sdt, dev, "ADMM", mesh)
 
     def local_solve(x, z, u):
         def grad_eta(xx):
@@ -653,10 +883,8 @@ def admm(X, y, w, beta0, mask, *, n_shards=1, family="logistic",
 
     z, x, u, n_iter, done = _admm_loop(local_solve, z, x, u, mask, pen_prox,
                                        lam_eff, rho, abstol, reltol,
-                                       int(max_iter))
-    if return_state:
-        return z, n_iter, (z, x, u), done is not None and bool(done)
-    return z, n_iter
+                                       int(max_iter), mesh=mesh)
+    return _admm_result(z, n_iter, x, u, done, return_state, mesh)
 
 
 #: the refusal of a sparse softmax ADMM fit, in the JAX facade's words
@@ -695,31 +923,36 @@ def _multinomial_hessian(Xb, P, wb, sw):
 def admm_multinomial(X, y_idx, w, B0, mask, *, n_classes, n_shards=1,
                      regularizer="l2", lamduh=0.0, rho=1.0, max_iter=250,
                      abstol=1e-4, reltol=1e-2, inner_max_iter=20,
-                     inner_tol=1e-8, state=None, return_state=False):
+                     inner_tol=1e-8, state=None, return_state=False,
+                     mesh=None):
     """Consensus ADMM for softmax logistic regression: :func:`admm` with
     (d, K) coefficient matrices per block (the JAX ``admm_multinomial``).
     Each local prox solve is a batch of Newton steps on the full
     ρ-regularized (dK × dK) Hessian (:func:`_multinomial_hessian`). Dense
-    input only. Same state contract as :func:`admm`, with x and u stacked
-    ``(S, d, K)``. Returns ``(B (d, K), n_iter)``."""
+    input only. Same state and ``mesh`` contract as :func:`admm`, with x
+    and u stacked ``(S, d, K)``. Returns ``(B (d, K), n_iter)``."""
     if isinstance(X, sparse_ops.SparseRows):
         raise ValueError(SPARSE_MULTINOMIAL_ADMM)
     _, pen_prox = _penalty(regularizer)
+    mesh = _mesh_or_none(mesh)
     sdt = _state_dtype(X)
     dev = w.device
     d, K = int(X.shape[1]), int(n_classes)
-    S = n_shards
+    S = 1 if mesh is not None else n_shards
     Xb = _row_blocks(X, S)
     wb = w.reshape(S, -1)
     Yoh = torch.nn.functional.one_hot(y_idx.to(torch.int64), K).to(sdt)
     Yoh = Yoh.reshape(S, -1, K)
-    sw = torch.clamp(torch.sum(w), min=1.0)
+    sw = torch.sum(w)
+    if mesh is not None:
+        sw = hier.hpsum(sw, mesh, op="glm.admm.sw")
+    sw = torch.clamp(sw, min=1.0)
     lamduh, rho, abstol, reltol, inner_tol = _admm_scalars(
         sdt, dev, lamduh, rho, abstol, reltol, inner_tol)
     lam_eff = lamduh / sw
     eye = torch.eye(d * K, dtype=sdt, device=dev)
-    z, x, u = _admm_state(state, B0, (S, d, K), sdt, dev,
-                          "multinomial ADMM")
+    z, x, u = _admm_blocks(state, B0, (S, d, K), sdt, dev,
+                           "multinomial ADMM", mesh)
 
     def local_solve(x, z, u):
         def grad_probs(B):
@@ -737,16 +970,14 @@ def admm_multinomial(X, y_idx, w, B0, mask, *, n_classes, n_shards=1,
 
     z, x, u, n_iter, done = _admm_loop(local_solve, z, x, u, mask, pen_prox,
                                        lam_eff, rho, abstol, reltol,
-                                       int(max_iter))
-    if return_state:
-        return z, n_iter, (z, x, u), done is not None and bool(done)
-    return z, n_iter
+                                       int(max_iter), mesh=mesh)
+    return _admm_result(z, n_iter, x, u, done, return_state, mesh)
 
 
 @torch.no_grad()
 def multinomial_lbfgs(X, y_idx, w, B0, mask, *, n_classes, regularizer="l2",
                       lamduh=0.0, max_iter=200, tol=1e-4, m=10, state=None,
-                      return_state=False):
+                      return_state=False, mesh=None):
     """Softmax (multinomial) logistic regression by L-BFGS on the flattened
     (d·K) coefficient vector: :func:`_lbfgs_loop` over the weighted softmax
     cross-entropy (the JAX ``multinomial_lbfgs``). ``y_idx`` holds float
@@ -754,26 +985,41 @@ def multinomial_lbfgs(X, y_idx, w, B0, mask, *, n_classes, regularizer="l2",
     broadcast over the classes. A container's logits go through
     :func:`~dask_ml_tpu_torch.ops.sparse.matmat` (its gradient through
     autograd's scatter-add). Returns ``(B (d, K), n_iter)``; ``state`` /
-    ``return_state`` as in :func:`lbfgs`, over the flattened carry."""
+    ``return_state`` as in :func:`lbfgs`, over the flattened carry.
+    ``mesh``: the rows are this rank's block, reduced as the binary
+    solvers' (module docstring)."""
     d, K = int(X.shape[1]), int(n_classes)
     sdt = _state_dtype(X)
-    sw = torch.clamp(torch.sum(w), min=1.0)
     pen_value, _ = _penalty(regularizer)
     lam_eff = torch.tensor(lamduh, dtype=sdt, device=w.device)
     Yoh = torch.nn.functional.one_hot(y_idx.to(torch.int64), K).to(sdt)
+    mesh = _mesh_or_none(mesh)
 
-    def obj(bflat):
-        B = bflat.reshape(d, K)
-        if isinstance(X, sparse_ops.SparseRows):
-            logits = sparse_ops.matmat(X, B)
-        else:
-            logits = px.pmatmul(X, B)
-        lse = torch.logsumexp(logits, dim=1)
-        nll = torch.sum(w * (lse - torch.sum(Yoh * logits, dim=1)))
-        pen = pen_value((B * mask[:, None]).reshape(-1))
-        return (nll + lam_eff * pen) / sw
+    def pen(bflat):
+        return lam_eff * pen_value(
+            (bflat.reshape(d, K) * mask[:, None]).reshape(-1))
 
-    vg = _value_and_grad(obj)
+    if mesh is None:
+        sw = torch.clamp(torch.sum(w), min=1.0)
+
+        def obj(bflat):
+            B = bflat.reshape(d, K)
+            if isinstance(X, sparse_ops.SparseRows):
+                logits = sparse_ops.matmat(X, B)
+            else:
+                logits = px.pmatmul(X, B)
+            lse = torch.logsumexp(logits, dim=1)
+            nll = torch.sum(w * (lse - torch.sum(Yoh * logits, dim=1)))
+            return (nll + pen(bflat)) / sw
+
+        vg = _value_and_grad(obj)
+    else:
+        def nll(logits, yoh):
+            lse = torch.logsumexp(logits, dim=1)
+            return lse - torch.sum(yoh * logits, dim=1)
+
+        obj, vg, _ = _mesh_objective(_Shards(X, mesh, d), Yoh, w, nll, pen,
+                                     shape=(d, K))
     dK = d * K
     dev = w.device
     if state is None:
@@ -1259,6 +1505,8 @@ def solver_fn(solver):
     return _SOLVERS[solver]
 
 
-def solve(solver, X, y, w, beta0, mask, **kwargs):
-    """Solver dispatch (the analogue of ``dask_glm.algorithms._solvers``)."""
-    return solver_fn(solver)(X, y, w, beta0, mask, **kwargs)
+def solve(solver, X, y, w, beta0, mask, mesh=None, **kwargs):
+    """Solver dispatch (the analogue of ``dask_glm.algorithms._solvers``).
+    ``mesh`` reaches every solver: over a mesh of ranks the rows are this
+    rank's block (module docstring)."""
+    return solver_fn(solver)(X, y, w, beta0, mask, mesh=mesh, **kwargs)

@@ -27,6 +27,12 @@ contractions the GLM solvers route through.
   (``A.T @ diag(h) @ A``) in plain PyTorch, as the JAX package computes
   them outside any Pallas kernel; the last two add their products in
   fixed point, so that they repeat their bits.
+- :func:`metered` — the scope in which :func:`pullback`,
+  :func:`pullback_mat` and :func:`weighted_gram` sum their outputs over
+  a mesh's data shards (one :func:`~dask_ml_tpu_torch.parallel.hierarchy.
+  hpsum` a call, under the JAX package's ledger ops ``sparse.pullback`` and
+  ``sparse.gram``): each rank contracts its own block of rows, and every
+  rank gets the whole matrix's result.
 - The sparse preprocessing: :func:`split_cols` / :func:`merge_cols`
   (column ranges, host or device), :func:`column_moments` and
   :func:`column_mean_var` (the sparse ``StandardScaler``'s reduction:
@@ -58,6 +64,9 @@ held against) adds with float atomics on CUDA and does not.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import numpy as np
 import torch
 
@@ -82,6 +91,7 @@ __all__ = [
     "column_mean_var",
     "has_duplicate_slots",
     "scale_columns",
+    "metered",
 ]
 
 
@@ -532,6 +542,45 @@ def matvec(A: SparseRows, v, *, kernel: str = "auto"):
 
 
 # ---------------------------------------------------------------------------
+# the sum over a mesh's data shards (the hierarchy ledger hook)
+# ---------------------------------------------------------------------------
+
+_METER = threading.local()
+
+
+@contextlib.contextmanager
+def metered(mesh):
+    """Scope within which the contractions whose output sums over rows
+    (:func:`pullback`, :func:`pullback_mat`, :func:`weighted_gram`) add
+    their rank's partial over ``mesh``'s data shards: one
+    :func:`~dask_ml_tpu_torch.parallel.hierarchy.hpsum` of the (d,),
+    (d, m) or (d, d) f32 output, recorded in the traffic ledger under the
+    JAX package's ops ``sparse.pullback`` / ``sparse.gram`` with its byte
+    model. The JAX package records once a trace, around a reduction that
+    GSPMD adds; here the reduction is executed and recorded at every
+    call. ``None``, or a world of one rank with no process group, sums
+    nothing and records nothing. Forward contractions are row-local and
+    never reduce."""
+    prev = getattr(_METER, "mesh", None)
+    _METER.mesh = mesh
+    try:
+        yield
+    finally:
+        _METER.mesh = prev
+
+
+def _reduced(out, op: str):
+    """``out`` summed over the data shards of the active :func:`metered`
+    scope's mesh (unchanged outside one)."""
+    mesh = getattr(_METER, "mesh", None)
+    if mesh is None:
+        return out
+    from dask_ml_tpu_torch.parallel.hierarchy import hpsum
+
+    return hpsum(out, mesh, op=op)
+
+
+# ---------------------------------------------------------------------------
 # A.T @ r through K6's backward, and the other contractions (plain PyTorch
 # on both devices)
 # ---------------------------------------------------------------------------
@@ -592,11 +641,14 @@ def pullback(A: SparseRows, r, *, kernel: str = "auto"):
     ``kernel`` as in :func:`spmv`: ``"auto"`` launches K6's backward for
     CUDA tensors and runs :func:`_pullback_ref` for CPU tensors; ``"cuda"``
     insists on the kernel; ``"torch"`` runs the plain version wherever the
-    tensors lie."""
+    tensors lie. Inside a :func:`metered` scope the rank's ``A.T @ r``
+    is summed over the mesh's data shards."""
     if _kernels.use_cuda(kernel, A.values):
-        return _pullback_cuda(A.values, A.cols,
-                              r.to(torch.float32).contiguous(), A.d)
-    return _pullback_ref(A.values, A.cols, r, A.d)
+        out = _pullback_cuda(A.values, A.cols,
+                             r.to(torch.float32).contiguous(), A.d)
+    else:
+        out = _pullback_ref(A.values, A.cols, r, A.d)
+    return _reduced(out, "sparse.pullback")
 
 
 #: bound on the (chunk, k, m) product buffer of pullback_mat
@@ -651,7 +703,8 @@ def pullback_mat(A: SparseRows, R):
         idx = A.cols[s:s + c].to(torch.int64)[:, :, None] * m + cols
         acc.index_add_(0, idx.reshape(-1), q.reshape(-1))
     out = (acc.double() * torch.exp2(-e.double())).float().view(d, m)
-    return torch.where(torch.isfinite(bound), out, torch.nan)
+    return _reduced(torch.where(torch.isfinite(bound), out, torch.nan),
+                    "sparse.pullback")
 
 
 #: bound on the (chunk, k, k) outer-product buffer of weighted_gram
@@ -695,7 +748,8 @@ def weighted_gram(A: SparseRows, h):
         H.index_add_(0, (ci[:, :, None] * d + ci[:, None, :]).reshape(-1),
                      q.reshape(-1))
     out = (H.double() * torch.exp2(-e.double())).float().view(d, d)
-    return torch.where(torch.isfinite(bound), out, torch.nan)
+    return _reduced(torch.where(torch.isfinite(bound), out, torch.nan),
+                    "sparse.gram")
 
 
 # ---------------------------------------------------------------------------

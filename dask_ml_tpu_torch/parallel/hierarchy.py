@@ -345,6 +345,18 @@ def _record_gather(op: str, mesh: Mesh, nbytes: int) -> None:
                        m * (n_data_shards(mesh) - 1) * nbytes)
 
 
+def axis_gather(x, mesh: Mesh, axis: str, *, op: str = "axis_gather"):
+    """The blocks of every rank along one mesh ``axis`` (``"data"``,
+    ``"chip"`` or ``"pod"``), concatenated on dim 0 in coordinate order:
+    one stage of a reduction tree. Recorded with the single-axis model of
+    :func:`record_axis_collective` (the JAX package's ``_gather_axis``
+    charge); the identity on a world of one rank."""
+    if _local(mesh):
+        return x
+    record_axis_collective(op, mesh, axis, _local_nbytes(x))
+    return _all_gather(x, mesh, axis)
+
+
 def gather_blocks(x, mesh: Mesh, *, op: str = "gather"):
     """Every data shard's block of a row-sharded tensor, concatenated in
     shard order on every rank (this rank passes its own block; every
@@ -438,7 +450,7 @@ def record_model_collective(op: str, shape, dtype) -> None:
     _ledger.record(op, MODEL_AXIS, (m - 1) * nbytes)
 
 
-__all__ += ["model_metered_mesh", "gather_blocks"]
+__all__ += ["model_metered_mesh", "gather_blocks", "axis_gather"]
 
 # re-exported for consumers that already import hierarchy
 __all__ += ["data_axes", "data_pspec", "is_hierarchical", "n_data_shards",

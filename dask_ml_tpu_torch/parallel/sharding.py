@@ -32,7 +32,12 @@ rank's block, ``row_offset`` its first row, ``n_padded`` the padded
 count. With ``shard_features=True`` on a ``model`` axis the columns are
 padded with zeros to a multiple of the model axis and each rank stages
 only its column slice as well (the JAX ``shard_2d``). Sparse input over
-more than one shard comes with ROADMAP Queue A item 10b.
+more than one shard stages through :func:`shard_sparse_rows`: rank ``i``
+copies only its block of the host container's rows to its device, padded
+to the same row count with empty rows and to the slot bucket of the whole
+container's width; the columns keep their global ids and ``d`` stays
+whole (the coefficient vector is replicated), so feature sharding is
+declined for sparse input, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -279,6 +284,67 @@ def _stage_sparse(X, dev, dtype) -> SparseRows:
     return SparseRows(values.contiguous(), cols.contiguous(), A.d)
 
 
+def _slot_budget(x) -> int:
+    """The padded slot budget of a whole container or scipy matrix: the
+    slot bucket of its ELL width (the widest row's nonzero count for scipy
+    input), the same on every rank."""
+    from dask_ml_tpu_torch.parallel import shapes
+
+    if isinstance(x, SparseRows):
+        return shapes.bucket_nnz(x.k)
+    indptr = x.tocsr().indptr
+    widest = int(np.diff(indptr).max()) if len(indptr) > 1 else 0
+    return shapes.bucket_nnz(widest)
+
+
+def _leaf(a) -> torch.Tensor:
+    """A container leaf as a tensor: host rows are copied out of the
+    (possibly read-only, memory-mapped) array first."""
+    if isinstance(a, torch.Tensor):
+        return a
+    return torch.from_numpy(np.array(a))
+
+
+def shard_sparse_rows(x, mesh=None, dtype=None, device=None):
+    """This rank's block of a sparse row matrix as a blocked-ELL
+    :class:`SparseRows` on the device (the JAX ``shard_sparse_rows``);
+    returns ``(block, n_valid)``.
+
+    ``x`` is a scipy sparse matrix or a :class:`SparseRows` (numpy leaves
+    on the host, which may be memory-mapped, or tensors). The rows pad to
+    :func:`_padded_rows` of ``mesh`` with empty rows (weight 0 downstream)
+    and the slots to :func:`~dask_ml_tpu_torch.parallel.shapes.bucket_nnz`
+    of the whole matrix's width, so every rank's block has the JAX shard's
+    shape, slot for slot. Only this rank's rows are sliced and copied to
+    its device: the whole container is never staged. The columns keep
+    their global ids and ``d`` stays whole. ``dtype`` casts the values
+    only; the columns are int32."""
+    import scipy.sparse
+
+    mesh = mesh or mesh_lib.default_mesh()
+    if not (isinstance(x, SparseRows) or scipy.sparse.issparse(x)):
+        raise TypeError(
+            "shard_sparse_rows expects a scipy sparse matrix or a "
+            f"SparseRows container, got {type(x).__name__}")
+    n = int(x.shape[0])
+    k = _slot_budget(x)
+    rows = mesh_lib.data_sharding(mesh).rows(_padded_rows(n, mesh))
+    lo, hi = min(rows.start, n), min(rows.stop, n)
+    if isinstance(x, SparseRows):
+        part = x[lo:hi]
+    else:
+        part = ell_from_csr(x.tocsr()[lo:hi], k=k)
+    dev = resolve_device(device)
+    values = _leaf(part.values).to(device=dev, dtype=dtype)
+    cols = _leaf(part.cols).to(device=dev, dtype=torch.int32)
+    short = (rows.stop - rows.start) - (hi - lo)
+    pad_k = k - int(values.shape[1])
+    if short or pad_k:
+        values = torch.nn.functional.pad(values, (0, pad_k, 0, short))
+        cols = torch.nn.functional.pad(cols, (0, pad_k, 0, short))
+    return SparseRows(values.contiguous(), cols.contiguous(), x.shape[1]), n
+
+
 def _stage_vector(a, n: int, dev, what: str) -> torch.Tensor:
     t = (a if isinstance(a, torch.Tensor)
          else torch.as_tensor(np.asarray(a, dtype=np.float32)))
@@ -288,7 +354,7 @@ def _stage_vector(a, n: int, dev, what: str) -> torch.Tensor:
 
 
 def prepare_data(X, sample_weight=None, device=None, y=None, mesh=None,
-                 shard_features=None) -> DeviceData:
+                 shard_features=None, append_ones=False) -> DeviceData:
     """Stage a validated ``X`` (numpy, tensor, scipy CSR or
     :class:`SparseRows`), its ``sample_weight`` (default 1 per row) and
     its targets ``y`` onto ``device`` (default: the configured one) as
@@ -296,7 +362,11 @@ def prepare_data(X, sample_weight=None, device=None, y=None, mesh=None,
     docstring), weights and targets in float32. A ``mesh`` with more
     than one data shard stages this rank's block only, and
     ``shard_features=True`` on a ``model`` axis its column slice too (a
-    no-op on a data-only mesh); see the module docstring. Without
+    no-op on a data-only mesh, and declined for sparse input); see the
+    module docstring. ``append_ones=True`` appends the intercept as a
+    true column before any feature padding (a container: one more slot a
+    row, column ``d``), as the JAX package's tensor-parallel GLM facade
+    stages it. Without
     ``mesh`` the whole data is staged, in a world of ranks too: only a
     caller that reduces across the blocks asks for them. Inside a
     :func:`staging_memo` scope a repeated call on the same objects
@@ -308,25 +378,50 @@ def prepare_data(X, sample_weight=None, device=None, y=None, mesh=None,
     dev = resolve_device(device)
     dtype = precision.staging_wire_dtype() or torch.float32
     shard_features = (bool(shard_features) and mesh is not None
-                      and mesh_lib.has_model_axis(mesh))
+                      and mesh_lib.has_model_axis(mesh)
+                      and not is_sparse_input(X))
     memo = _current_memo()
     if memo is not None:
         key = ("data", id(X), str(dev), _content_key(y),
                _content_key(sample_weight), str(dtype),
-               precision.resolve().signature(), id(mesh), shard_features)
+               precision.resolve().signature(), id(mesh), shard_features,
+               bool(append_ones))
         return dataclasses.replace(memo.get_or_stage(
             key, (X, y, sample_weight, mesh),
             lambda: _prepare_data_impl(X, sample_weight, dev, y, dtype,
-                                       mesh, shard_features)))
+                                       mesh, shard_features, append_ones)))
     return _prepare_data_impl(X, sample_weight, dev, y, dtype, mesh,
-                              shard_features)
+                              shard_features, append_ones)
+
+
+def _with_ones(X):
+    """``X`` with the intercept column appended: host arrays on the host,
+    a tensor where it lies."""
+    if isinstance(X, torch.Tensor):
+        return torch.cat([X, X.new_ones((X.shape[0], 1))], dim=1)
+    Xa = np.asarray(X)
+    return np.concatenate([Xa, np.ones((Xa.shape[0], 1), Xa.dtype)], axis=1)
 
 
 def _prepare_data_impl(X, sample_weight, dev, y, dtype, mesh,
-                       shard_features=False) -> DeviceData:
+                       shard_features=False, append_ones=False) -> DeviceData:
+    sparse_in = is_sparse_input(X)
+    if append_ones and not sparse_in:
+        X = _with_ones(X)
     if shard_features or mesh_lib.is_sharded(mesh):
-        return _prepare_sharded(X, sample_weight, dev, y, dtype, mesh,
+        data = _prepare_sharded(X, sample_weight, dev, y, dtype, mesh,
                                 shard_features)
+    else:
+        data = _prepare_local(X, sample_weight, dev, y, dtype, mesh)
+    if append_ones and sparse_in:
+        from dask_ml_tpu_torch.ops.sparse import add_intercept_ell
+
+        data.X = add_intercept_ell(data.X)
+        data.n_features += 1
+    return data
+
+
+def _prepare_local(X, sample_weight, dev, y, dtype, mesh) -> DeviceData:
     if is_sparse_input(X):
         Xt = _stage_sparse(X, dev, dtype)
     else:
@@ -342,16 +437,13 @@ def _prepare_data_impl(X, sample_weight, dev, y, dtype, mesh,
 
 def _prepare_sharded(X, sample_weight, dev, y, dtype, mesh,
                      shard_features) -> DeviceData:
-    if is_sparse_input(X):
-        raise NotImplementedError(
-            "sparse input over a mesh of more than one shard (the JAX "
-            "shard_sparse_rows) comes with ROADMAP Queue A item 10b; stage "
-            "it on one device")
     n, d = int(X.shape[0]), int(X.shape[1])
     n_pad = _padded_rows(n, mesh)
     lo = mesh_lib.data_sharding(mesh).rows(n_pad).start
     c0 = 0
-    if shard_features:
+    if is_sparse_input(X):
+        Xt, _ = shard_sparse_rows(X, mesh, dtype, device=dev)
+    elif shard_features:
         Xt, _, _ = shard_2d(X, mesh, dtype, device=dev)
         c0 = Xt.shape[1] * mesh_lib.model_index(mesh)
     else:
@@ -361,7 +453,8 @@ def _prepare_sharded(X, sample_weight, dev, y, dtype, mesh,
     w = row_weights(n_pad, n, mesh, sample_weight=sw, device=dev)
     yt = (None if y is None else shard_rows(
         _host_vector(y, n, "y"), mesh, torch.float32, device=dev)[0])
-    log_array(logger, "prepare_data: X", Xt, mesh=mesh,
+    log_array(logger, "prepare_data: X",
+              Xt.values if is_sparse_input(Xt) else Xt, mesh=mesh,
               rows=(lo, lo + int(Xt.shape[0])))
     return DeviceData(X=Xt, weights=w, n=n, n_features=d, y=yt, mesh=mesh,
                       n_padded=n_pad, row_offset=lo, col_offset=c0)

@@ -23,9 +23,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: ROADMAP Queue A item 10b (the rest of multi-device): no whole module
 #: is missing, and these names of ported modules are
 ITEM_10_MODULES = ()
-ITEM_10_NAMES = {"ops.sparse": {"metered"},
-                 "parallel.elastic": {"ElasticRun"},
-                 "parallel.sharding": {"shard_sparse_rows"}}
+ITEM_10_NAMES = {"parallel.elastic": {"ElasticRun"}}
 
 #: the modules item 10a ported (the multi-device substrate)
 SUBSTRATE = ("parallel.mesh", "parallel.hierarchy", "parallel.runtime",

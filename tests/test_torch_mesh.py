@@ -378,8 +378,9 @@ def test_mesh_knob_scopes_and_refusals():
 # a spawned world of 4: the collectives' values, the staging, the ledger
 # ---------------------------------------------------------------------------
 
-#: estimators with no mesh path yet (ROADMAP Queue A item 10b): in a world
-#: every rank stages the whole data and fits the single-device model
+#: fits in a world of 4: the scaler and MiniBatchKMeans have no mesh path
+#: (ROADMAP Queue A item 10b), so every rank stages the whole data and fits
+#: the single-device model; the GLM and PCA fit over the default mesh
 WHOLE_DATA_FITS = textwrap.dedent("""
     def whole_data_fits(X):
         import numpy as np
@@ -391,10 +392,11 @@ WHOLE_DATA_FITS = textwrap.dedent("""
         y = (X[:, 0] + X[:, 1] > 0).astype(np.int64)
         glm = LogisticRegression(solver="lbfgs", max_iter=20).fit(X, y)
         mbk = MiniBatchKMeans(n_clusters=3, random_state=0, max_iter=5)
+        pca = PCA(n_components=2, svd_solver="full").fit(X)
         return {
             "glm": np.asarray(glm.coef_),
-            "pca": np.asarray(PCA(n_components=2, svd_solver="full")
-                              .fit(X).transform(X)),
+            "pca": np.asarray(pca.transform(X)),
+            "pca-variance": np.asarray(pca.explained_variance_),
             "scaler": np.asarray(StandardScaler().fit(X).transform(X)),
             "minibatch": np.asarray(mbk.fit(X).cluster_centers_)}
 """)
@@ -454,8 +456,10 @@ WORKER = WHOLE_DATA_FITS + textwrap.dedent("""
         df = prepare_data(X, mesh=m, shard_features=True)
         res[name + "-Xf"] = df.X.numpy()
         res[name + "-fmeta"] = np.array([df.n_features, df.col_offset])
+    hier.reset_ledger()
     for est, v in whole_data_fits(X).items():
         res["whole-" + est] = v
+    led["whole"] = hier.ledger_snapshot()
     with mesh_lib.use_mesh(meshes["hier"]):
         res["whole-pca-hier"] = whole_data_fits(X)["pca"]
     np.savez(os.path.join(out, "rank%d.npz" % rank), **res)
@@ -615,19 +619,56 @@ def test_the_world_itself(world4):
         assert list(arrays["default_shape"]) == [WORLD]
 
 
+def _pca_float64(X, k=2):
+    """The 2-component PCA projection in float64 under the port's sign
+    convention (the largest |v| entry of each component positive)."""
+    Xc = X.astype(np.float64) - X.astype(np.float64).mean(0)
+    Vt = np.linalg.svd(Xc, full_matrices=False)[2][:k]
+    Vt *= np.sign(Vt[np.arange(k), np.argmax(np.abs(Vt), 1)])[:, None]
+    return Xc @ Vt.T
+
+
+#: the ledger ops of each estimator's fit in the world: the GLM and PCA
+#: reduce over the default mesh, the scaler and MiniBatchKMeans nothing
+WHOLE_DATA_OPS = {"glm": {"glm.sw", "glm.value", "glm.grad"},
+                  "pca": {"pca.mean", "tsqr.gram", "tsqr.guard"},
+                  "scaler": set(), "minibatch": set()}
+
+
 @pytest.mark.parametrize("est", ["glm", "pca", "scaler", "minibatch"])
 def test_estimators_without_a_mesh_path_fit_the_whole_data(world4, est):
-    """A GLM, PCA, a scaler and MiniBatchKMeans stage the whole data in a
-    world of 4 (under the default mesh and a configured hierarchical one)
-    and give the single-device result on every rank."""
+    """A scaler and MiniBatchKMeans stage the whole data in a world of 4
+    and give the single-device result on every rank. A GLM and PCA fit
+    over the default mesh (under a configured hierarchical one too for
+    PCA): each rank stages its block, the ledger shows their sums over
+    the ranks, and every rank holds the single-device result."""
     X, _, ranks = world4
     ns = {}
     exec(WHOLE_DATA_FITS, ns)
-    want = ns["whole_data_fits"](X)[est]
+    with config_context(device="cpu"):
+        fits = ns["whole_data_fits"](X)
+    want = fits[est]
     first = ranks[0][0]["whole-" + est]
     assert first.shape == want.shape
-    np.testing.assert_allclose(first, want, rtol=1e-5, atol=1e-6)
+    if est == "pca":
+        # the data's leading singular values lie within 1 % of each other,
+        # so f32 rounding in another summation order turns the components
+        # by ~1e-4 (one device and the mesh alike, against float64): the
+        # mesh fit is held to the one-device fit's accuracy, and its
+        # variances to the one-device ones
+        np.testing.assert_allclose(ranks[0][0]["whole-pca-variance"],
+                                   fits["pca-variance"], rtol=1e-5)
+        ref = _pca_float64(X)
+        assert np.abs(first - ref).max() <= \
+            1.25 * np.abs(want - ref).max() + 1e-6
+    else:
+        np.testing.assert_allclose(first, want, rtol=1e-5, atol=1e-6)
+    ops = set(ranks[0][1]["whole"]["ops"])
+    assert WHOLE_DATA_OPS[est] <= ops
     for arrays, _ in ranks:
         assert np.array_equal(arrays["whole-" + est], first)
         if est == "pca":
-            assert np.array_equal(arrays["whole-pca-hier"], first)
+            hier_fit = ranks[0][0]["whole-pca-hier"]
+            assert np.array_equal(arrays["whole-pca-hier"], hier_fit)
+            assert np.abs(hier_fit - ref).max() <= \
+                1.25 * np.abs(want - ref).max() + 1e-6
