@@ -358,6 +358,40 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    route, the largest gap to the single-device fit; the ``kernels`` line
    gains ``launches_meshglm``.
 
+22. drives the elastic multi-host tier (``ELASTIC``): hosts are real
+   processes (``python3 chip_smoke.py --elastic-worker DATA_DIR WORKDIR
+   MODES``, rank and world from ``DASK_ML_TPU_PROCESS_ID`` /
+   ``DASK_ML_TPU_NUM_PROCESSES``) sharing card 0 and a workdir, each
+   loading the kernel libraries this process built and mapping the arrays
+   it saved. ``elastic-admm-sparse``: ``admm_streamed`` on step 10's
+   sparse container (1e6 × 1,000, k 20, the intercept appended) in 8
+   blocks shuffled by seed 11, 3 outer iterations at abstol = reltol = 0,
+   a 4 s heartbeat timeout: non-elastic and ``ElasticRun(world=1)`` here,
+   a preemption mid-shuffled-epoch resumed here, then two processes clean,
+   two with rank 1 SIGKILLed right after its first publication of epoch 1
+   and two with rank 1 drained by SIGTERM (a checkpointed scan: it leaves
+   a tombstone and ``Preempted``). Every surviving rank's (z, x, u) equals
+   the non-elastic fit bit for bit; the SIGKILL survivor counts one lost
+   host and re-deals 1–7 blocks; the drained rank's tombstone is seen
+   before the timeout; the ledger's ``glm.admm.consensus`` equals the
+   bytes of the blocks other hosts published. ``elastic-moments``:
+   ``streamed_moments`` and ``pca_fit_blocks(elastic=)`` on the PCA cell
+   in 8 blocks, world 1 here, two processes clean and with a SIGKILL: the
+   same bits in every roster, within rtol 1e-5 normwise of the non-elastic
+   moments and of float64, variances within 1e-4 and the top 64
+   components aligned ≥ 0.999 with the in-memory PCA (no kernel of the
+   repo: a cuBLAS Gram). ``elastic-search``: successive halving over
+   ``MiniBatchKMeans(n_clusters=8)`` on the blobs, world 1 here, two
+   processes clean and with rank 1 SIGKILLed in rung 0: no candidate
+   dropped, ``cv_results_``' scores and ``best_params_`` those of the
+   world-1 run. In every process K6 / K6-b (ADMM) or K2 (search) launch,
+   are held bit for bit against their plain versions on integer-valued
+   data after the libraries load, and nothing builds or loads after that.
+   An ``ELASTIC`` line a cell and run (walls, each rank's blocks computed
+   / rebalanced / speculated, ``stream.bytes{host=}``, launches by route,
+   the detection latency and the recovery overhead against the clean
+   pair); the ``kernels`` line gains ``launches_elastic``.
+
 ``python3 chip_smoke.py --spmv-only`` runs steps 1, 2, 6 and 8 alone, on a
 container of the sparse cell's shape drawn on the card;
 ``--glm-pca-only`` runs steps 1, 2 and 9 alone; ``--stream-only`` steps 1,
@@ -369,7 +403,8 @@ steps 1, 2 and 15; ``--preprocess-only`` steps 1, 2 and 16;
 and K6 at the serving shapes; ``--wire-only`` steps 1, 2 and 18, with a
 ``kernels`` line of K2 and K2-x; ``--machines-only`` steps 1, 2 and 19,
 with a ``kernels`` line of K2 and K2-x; ``--mesh-only`` steps 1, 2 and
-20; ``--glm-mesh-only`` steps 1, 2 and 21.
+20; ``--glm-mesh-only`` steps 1, 2 and 21; ``--elastic-only`` steps 1, 2
+and 22.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
@@ -8540,6 +8575,719 @@ def meshglm_cells(dev):
     return launches_by_cell, summary
 
 
+# ---------------------------------------------------------------------------
+# ELASTIC: the elastic multi-host tier, hosts as real processes on card 0
+# ---------------------------------------------------------------------------
+
+#: the sparse ADMM cell's container (step 10's) in 8 blocks, shuffled by
+#: seed 11, 3 outer iterations at abstol = reltol = 0; the PCA cell in 8
+#: blocks; heartbeats time out after 4 s
+ELASTIC_BLOCKS, ELASTIC_SEED, ELASTIC_OUTER = 8, 11, 3
+ELASTIC_HB_TIMEOUT = 4.0
+#: the seconds a pair of host processes may take, and the trigger's poll
+ELASTIC_WAIT, ELASTIC_POLL = 300.0, 0.005
+#: the search: successive halving over MiniBatchKMeans(n_clusters=8) on
+#: the blobs of step 4, the 10 candidates of HB_MB_GRID
+ELASTIC_SH = dict(n_initial_parameters="grid", n_initial_epochs=1,
+                  aggressiveness=3, max_epochs=9, n_blocks=8,
+                  random_state=SEED)
+#: the pairs of host processes: (run, modes, trigger). A trigger (mode,
+#: epoch, signal) signals rank 1 right after its first publication of that
+#: epoch is seen in the workdir (a rung's uid for the search)
+ELASTIC_PAIRS = (("two-clean", "admm,moments,search", None),
+                 ("two-kill", "admm", ("admm", 1, "SIGKILL")),
+                 ("two-drain", "admm-drain", ("admm-drain", 1, "SIGTERM")),
+                 ("two-kill-moments", "moments", ("moments", 0, "SIGKILL")),
+                 ("two-kill-search", "search", ("search", 1000, "SIGKILL")))
+ELASTIC_K6 = ("spmv", "spmv_l2", "spmv_pullback", "spmv_pullback_l2")
+
+
+def write_json(path: str, obj) -> None:
+    """``obj`` as JSON at ``path``, written whole (temporary file and
+    rename), so a reader never sees half of it."""
+    import os
+
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def elastic_bytes(rank: int):
+    """This process's ``stream.bytes{host=<rank>}`` counter."""
+    from dask_ml_tpu_torch.parallel import telemetry
+
+    return telemetry.counters().get(f"stream.bytes{{host={rank}}}", 0)
+
+
+def elastic_counts() -> dict:
+    """This process's launches by kernel and its compile counts."""
+    from dask_ml_tpu_torch import _kernels
+    from dask_ml_tpu_torch.parallel import shapes
+
+    return {"launches": dict(_kernels.launches),
+            "compile": {k: shapes.compile_stats()[k]
+                        for k in ("n_compiles", "n_loads")}}
+
+
+def elastic_run(workdir: str, progress=None, **kw):
+    """An ``ElasticRun`` (rank and world from the process's environment)
+    that also records when this host first saw a peer lost, the lost
+    peer's heartbeat age then (under the timeout: a tombstone was seen),
+    and how many blocks it published; with ``progress``, each publication
+    first writes the counts so far there (they outlive a killed host, and
+    a watcher that sees the block sees them too)."""
+    from dask_ml_tpu_torch.parallel.elastic import ElasticRun
+
+    class TimedRun(ElasticRun):
+        t_lost = None
+        lost_age = None
+        n_published = 0
+
+        def lost_hosts(self):
+            lost = super().lost_hosts()
+            if lost and self.t_lost is None:
+                self.t_lost = time.time()
+                ages = [self._live.age(f"host{r}") for r in lost]
+                self.lost_age = max((a for a in ages if a is not None),
+                                    default=None)
+            return lost
+
+        def publish(self, epoch, block, tree):
+            self.n_published += 1
+            if progress is not None:
+                write_json(progress, {
+                    "t": time.time(), "published": self.n_published,
+                    "stream_bytes": elastic_bytes(self.rank),
+                    **elastic_counts()})
+            super().publish(epoch, block, tree)
+
+    return TimedRun(workdir, shuffle_seed=ELASTIC_SEED,
+                    heartbeat_timeout=ELASTIC_HB_TIMEOUT, **kw)
+
+
+def elastic_host_stats(run) -> dict:
+    return {"rank": run.rank, "computed": run.n_published,
+            "rebalanced": run.blocks_rebalanced,
+            "speculated": run.blocks_speculated,
+            "hosts_lost": run.hosts_lost, "t_lost": run.t_lost,
+            "lost_age": run.lost_age}
+
+
+def elastic_sparse_source(data_dir: str):
+    """The sparse ADMM cell's blocks read from the mapped files (a copy of
+    each block's rows), as a host source with the facade's intercept."""
+    import os
+
+    from dask_ml_tpu_torch.linear_model.glm import _intercept_block
+    from dask_ml_tpu_torch.ops.sparse import SparseRows
+    from dask_ml_tpu_torch.parallel.stream import HostBlockSource
+
+    vals, cols, y = (np.load(os.path.join(data_dir, f"sp_{k}.npy"),
+                             mmap_mode="r") for k in ("values", "cols", "y"))
+    rows = SPADMM_N // ELASTIC_BLOCKS
+    w = np.ones(rows, np.float32)
+
+    def load(b):
+        s = slice(b * rows, (b + 1) * rows)
+        return (SparseRows(np.array(vals[s]), np.array(cols[s]), SPADMM_D),
+                np.array(y[s]), w)
+
+    return HostBlockSource(loader=load, n_blocks=ELASTIC_BLOCKS
+                           ).with_transform(_intercept_block)
+
+
+def elastic_admm(data_dir: str, run=None, **extra):
+    """The streamed sparse ADMM of the cell (the core ``admm_streamed``
+    under the facade's intercept, mask and settings); ``run`` makes it
+    elastic. Returns ((z, x, u) as numpy, n_iter, source)."""
+    import torch
+
+    from dask_ml_tpu_torch.models import glm as glm_core
+
+    d = SPADMM_D + 1
+    src = elastic_sparse_source(data_dir)
+    mask = torch.ones(d, device=src.device)
+    mask[-1] = 0.0
+    _, n_iter, state, _ = glm_core.admm_streamed(
+        src, ELASTIC_BLOCKS, d, float(SPADMM_N), mask, lamduh=1.0,
+        max_iter=ELASTIC_OUTER, abstol=0.0, reltol=0.0, return_state=True,
+        elastic=run, **extra)
+    return tuple(t.cpu().numpy() for t in state), n_iter, src
+
+
+def elastic_pca_source(data_dir: str):
+    import os
+
+    from dask_ml_tpu_torch.parallel.stream import HostBlockSource
+
+    X = np.load(os.path.join(data_dir, "pca_X.npy"), mmap_mode="r")
+    rows = PCA_N // ELASTIC_BLOCKS
+    w = np.ones(rows, np.float32)
+    return HostBlockSource(
+        loader=lambda b: (np.array(X[b * rows:(b + 1) * rows]), w),
+        n_blocks=ELASTIC_BLOCKS)
+
+
+def elastic_moments(data_dir: str, run=None):
+    """``streamed_moments`` and ``pca_fit_blocks`` of the PCA cell (the
+    second reads the blocks the first published)."""
+    from dask_ml_tpu_torch.decomposition.streaming import (pca_fit_blocks,
+                                                           streamed_moments)
+
+    src = elastic_pca_source(data_dir)
+    m = streamed_moments(block_fn=src, n_blocks=ELASTIC_BLOCKS,
+                         elastic=run)
+    est = pca_fit_blocks(elastic_pca_source(data_dir), ELASTIC_BLOCKS,
+                         PCA_K, elastic=run)
+    return tuple(t.cpu().numpy() for t in m), est, src
+
+
+def elastic_search(run=None):
+    """Successive halving over MiniBatchKMeans on the blobs (drawn here
+    from the seed)."""
+    from dask_ml_tpu_torch.cluster import MiniBatchKMeans
+    from dask_ml_tpu_torch.model_selection import SuccessiveHalvingSearchCV
+
+    X, _ = drawn("blobs", lambda: blobs_data(SEED))
+    return SuccessiveHalvingSearchCV(MiniBatchKMeans(n_clusters=K),
+                                     HB_MB_GRID, elastic=run,
+                                     **ELASTIC_SH).fit(X)
+
+
+def elastic_consensus_bytes(run) -> int:
+    """The bytes of the blocks other hosts published in each epoch of the
+    elastic ADMM, read from the published files' ``by``: what the
+    consensus imported."""
+    import glob
+    import os
+
+    from dask_ml_tpu_torch.checkpoint import load_pytree
+
+    total = 0
+    for path in glob.glob(os.path.join(run.workdir, run._ns, "blocks",
+                                       "e*", "b*.ckpt")):
+        tree, meta = load_pytree(path)
+        if meta["by"] != run.rank:
+            total += int(np.asarray(tree).nbytes)
+    return total
+
+
+def elastic_mode(mode: str, data_dir: str, workdir: str, dev) -> dict:
+    """One mode of a host process; the counts start at 0 here."""
+    import os
+
+    import torch
+
+    from dask_ml_tpu_torch import _kernels, config_context
+    from dask_ml_tpu_torch.parallel import hierarchy, runtime
+    from dask_ml_tpu_torch.parallel.faults import Preempted
+
+    rank = runtime.process_rank()
+    run = elastic_run(os.path.join(workdir, mode), progress=os.path.join(
+        workdir, f"{mode}-r{rank}-progress.json"))
+    out = {"outcome": "done"}
+    hierarchy.reset_ledger()
+    b0 = elastic_bytes(rank)
+    with config_context(telemetry=True):
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            if mode.startswith("admm"):
+                extra = {}
+                if mode == "admm-drain":
+                    extra = dict(checkpoint_path=os.path.join(
+                        workdir, f"admm-r{rank}.ckpt"), checkpoint_every=1)
+                state, n_iter, _ = elastic_admm(data_dir, run, **extra)
+                np.savez(os.path.join(workdir, f"{mode}-r{rank}.npz"),
+                         z=state[0], x=state[1], u=state[2])
+                out.update(n_iter=n_iter, ledger=hierarchy.ledger_snapshot()
+                           ["ops"].get("glm.admm.consensus", {}),
+                           foreign_bytes=elastic_consensus_bytes(run))
+            elif mode == "moments":
+                m, est, _ = elastic_moments(data_dir, run)
+                np.savez(os.path.join(workdir, f"{mode}-r{rank}.npz"),
+                         sw=m[0], s=m[1], G=m[2],
+                         components=est.components_,
+                         variance=est.explained_variance_)
+            else:
+                sh = elastic_search(run)
+                np.savez(os.path.join(workdir, f"{mode}-r{rank}.npz"),
+                         score=sh.cv_results_["test_score"])
+                out.update(best_params=sh.best_params_,
+                           rebalanced_in_stats=sh.n_blocks_rebalanced_)
+        except Preempted as e:
+            out.update(outcome="preempted", message=str(e))
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+        out["stream_bytes"] = elastic_bytes(rank) - b0
+    out["launches"] = dict(_kernels.launches)
+    out.update(elastic_host_stats(run))
+    return out
+
+
+def elastic_warmup(dev, data_dir: str, modes) -> dict:
+    """Load every kernel library, then hold the kernels of the modes
+    against their plain versions: K6 and K6-b bit for bit on an
+    integer-valued copy of block 0 (the ADMM modes), K2 bit for bit on
+    integer-valued rows of the blobs' shape (the search)."""
+    import torch
+
+    from dask_ml_tpu_torch._kernels import build
+    from dask_ml_tpu_torch.linear_model.glm import add_intercept
+    from dask_ml_tpu_torch.ops import fused_distance as fd
+    from dask_ml_tpu_torch.ops import sparse as sps
+
+    for name in build.SIGNATURES:
+        build.load(name)
+    out = {"builds_nvcc": int(build.builds["nvcc"]), "checks": []}
+    rng = np.random.default_rng([SEED, 22])
+    if any(m.startswith("admm") for m in modes):
+        blk = elastic_sparse_source(data_dir).host_block(0)[0]
+        A = add_intercept(sps.SparseRows(
+            torch.round(torch.as_tensor(blk.values, device=dev) * 4),
+            torch.as_tensor(blk.cols, device=dev), SPADMM_D))
+        n, k = A.values.shape
+        v = torch.as_tensor(rng.integers(-4, 4, A.d), dtype=torch.float32,
+                            device=dev)
+        r = torch.as_tensor(rng.integers(-1, 2, n), dtype=torch.float32,
+                            device=dev)
+        check_spmv_int(f"elastic block 0 n{n} k{k} d{A.d}", A, v, r, [None],
+                       [None])
+        out["checks"].append(f"K6 and K6-b at ({n}, {k}, {A.d})")
+    if "search" in modes:
+        Xi = torch.as_tensor(rng.integers(-8, 8, (100_000, D)),
+                             dtype=torch.float32, device=dev)
+        Y = Xi[:K].clone()
+        ka, km = fd.fused_argmin_min(Xi, Y, None, kernel="cuda")
+        ra, rm = fd.fused_argmin_min(Xi, Y, None, kernel="torch")
+        expect(torch.equal(ka, ra) and torch.equal(km, rm),
+               "K2 in a host process: not bit-identical to the plain "
+               "version")
+        out["checks"].append(f"K2 at (100000, {K}, {D})")
+    torch.cuda.synchronize()
+    out.update(elastic_counts())
+    return out
+
+
+def elastic_worker(data_dir: str, workdir: str, modes: str) -> int:
+    """A host process of the ELASTIC phase (``python3 chip_smoke.py
+    --elastic-worker DATA_DIR WORKDIR MODES``; rank and world from
+    ``DASK_ML_TPU_PROCESS_ID`` / ``DASK_ML_TPU_NUM_PROCESSES``): warm up
+    on card 0, run each mode, write ``r<rank>-warm.json`` and
+    ``r<rank>.json`` to ``workdir``."""
+    import os
+    import traceback
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from dask_ml_tpu_torch._kernels import build
+    from dask_ml_tpu_torch.config import resolve_device
+    from dask_ml_tpu_torch.parallel import runtime, shapes
+
+    rank = runtime.process_rank()
+    report = {"rank": rank, "pid": os.getpid(), "errors": [], "modes": {}}
+    try:
+        dev = resolve_device()  # card 0: no other is visible here
+        modes = modes.split(",")
+        warm = elastic_warmup(dev, data_dir, modes)
+        write_json(os.path.join(workdir, f"r{rank}-warm.json"), warm)
+        st0 = shapes.compile_stats()
+        for mode in modes:
+            report["modes"][mode] = elastic_mode(mode, data_dir, workdir,
+                                                 dev)
+        st1 = shapes.compile_stats()
+        report["builds_nvcc"] = int(build.builds["nvcc"])
+        for key in ("n_compiles", "n_loads"):
+            if st1[key] != st0[key]:
+                report["errors"].append(
+                    f"{key} {st0[key]} -> {st1[key]} after the warmup")
+    except BaseException:
+        report["errors"].append(traceback.format_exc())
+    write_json(os.path.join(workdir, f"r{rank}.json"), report)
+    return 1 if report["errors"] else 0
+
+
+def elastic_pair(data_dir: str, tmp: str, name: str, modes: str, trigger):
+    """Two host processes on card 0 running ``modes``; with a trigger,
+    rank 1 gets its signal right after its first publication of the
+    trigger's epoch shows in the workdir. Returns (reports, warm reports,
+    rank 1's last progress, the signal's time)."""
+    import glob
+    import os
+    import signal
+
+    from dask_ml_tpu_torch.parallel.elastic import BlockPlan
+
+    wd = os.path.join(tmp, name)
+    os.makedirs(wd)
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, logs = [], []
+    for r in range(2):
+        env = dict(os.environ, DASK_ML_TPU_PROCESS_ID=str(r),
+                   DASK_ML_TPU_NUM_PROCESSES="2")
+        logf = open(os.path.join(wd, f"r{r}.log"), "w")
+        logs.append(logf)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--elastic-worker",
+             data_dir, wd, modes], cwd=here, env=env, stdout=logf,
+            stderr=subprocess.STDOUT))
+    t_signal = None
+    deadline = time.monotonic() + ELASTIC_WAIT
+    try:
+        if trigger is not None:
+            mode, epoch, sig = trigger
+            if mode == "search":
+                # the rung's candidates in identity order, all at rung 0
+                order = list(range(int(np.prod(
+                    [len(v) for v in HB_MB_GRID.values()]))))
+            else:
+                order = BlockPlan(ELASTIC_BLOCKS, seed=ELASTIC_SEED
+                                  ).epoch_order(epoch)
+            mine = set(BlockPlan.shard(order, 1, [0, 1]))
+            pattern = os.path.join(wd, mode, "*", "blocks",
+                                   f"e{epoch:04d}", "b*.ckpt")
+            while t_signal is None:
+                seen = {int(os.path.basename(p)[1:-5])
+                        for p in glob.glob(pattern)}
+                if seen & mine:
+                    os.kill(procs[1].pid, getattr(signal, sig))
+                    t_signal = time.time()
+                    break
+                expect(procs[1].poll() is None and time.monotonic()
+                       < deadline, f"ELASTIC {name}: rank 1 ended or timed "
+                       f"out before its first publication of epoch {epoch}")
+                time.sleep(ELASTIC_POLL)
+        for p in procs:
+            p.wait(max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        raise Mismatch(f"ELASTIC {name}: host processes still running "
+                       f"after {ELASTIC_WAIT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+        for f in logs:
+            f.close()
+
+    def read(path):
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return json.load(f)
+
+    def tail(r):
+        with open(os.path.join(wd, f"r{r}.log")) as f:
+            return f.read()[-3000:]
+
+    reports = [read(os.path.join(wd, f"r{r}.json")) for r in range(2)]
+    warms = [read(os.path.join(wd, f"r{r}-warm.json")) for r in range(2)]
+    for r in range(2):
+        expect(warms[r] is not None, f"ELASTIC {name}: rank {r} did not "
+               f"warm up:\n{tail(r)}")
+        expect(warms[r]["builds_nvcc"] == 0,
+               f"ELASTIC {name}: rank {r} built a kernel")
+    killed = trigger is not None and trigger[2] == "SIGKILL"
+    expect(procs[0].returncode == 0 and reports[0] is not None
+           and not reports[0]["errors"], f"ELASTIC {name}: rank 0 exited "
+           f"{procs[0].returncode}: {reports[0] and reports[0]['errors']}"
+           f"\n{tail(0)}")
+    if killed:
+        expect(procs[1].returncode == -signal.SIGKILL and reports[1] is None,
+               f"ELASTIC {name}: rank 1 exited {procs[1].returncode}, not "
+               "by the SIGKILL")
+    else:
+        expect(procs[1].returncode == 0 and reports[1] is not None
+               and not reports[1]["errors"], f"ELASTIC {name}: rank 1 "
+               f"exited {procs[1].returncode}: "
+               f"{reports[1] and reports[1]['errors']}\n{tail(1)}")
+    progress = None
+    if trigger is not None:
+        progress = read(os.path.join(wd, f"{trigger[0]}-r1-progress.json"))
+    return reports, warms, progress, t_signal
+
+
+def elastic_line(cell: str, run: str, per: list, **extra) -> dict:
+    line = {"cell": cell, "run": run,
+            "walls_s": [p and p["wall_s"] for p in per],
+            "computed": [p and p["computed"] for p in per],
+            "rebalanced": [p and p["rebalanced"] for p in per],
+            "speculated": [p and p["speculated"] for p in per],
+            "hosts_lost": [p and p["hosts_lost"] for p in per],
+            "stream_bytes_by_host": {str(i): p["stream_bytes"]
+                                     for i, p in enumerate(per) if p},
+            **extra}
+    log("ELASTIC " + json.dumps(line))
+    return line
+
+
+def elastic_cells(dev):
+    """The ELASTIC phase (step 22). Returns ({cell/run: [each rank's
+    launches]}, summary)."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dask_ml_tpu_torch import config_context
+    from dask_ml_tpu_torch.datasets import make_sparse_classification
+    from dask_ml_tpu_torch.decomposition import PCA
+    from dask_ml_tpu_torch.decomposition.streaming import streamed_moments
+    from dask_ml_tpu_torch.parallel.elastic import BlockPlan
+    from dask_ml_tpu_torch.parallel.faults import FaultInjector, Preempted
+
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    Xs, ys = drawn("sparse_admm", lambda: make_sparse_classification(
+        SPADMM_N, SPADMM_D, SPADMM_DENSITY, random_state=0))
+    Xp = drawn("pca", lambda: pca_data(SEED))
+    drawn("blobs", lambda: blobs_data(SEED))
+    draw_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="dmlt_elastic_")
+    launches, lines = {}, []
+    summary = {"draw_s": draw_s}
+    try:
+        t0 = time.perf_counter()
+        for name, a in (("sp_values", Xs.values), ("sp_cols", Xs.cols),
+                        ("sp_y", ys), ("pca_X", Xp)):
+            np.save(os.path.join(tmp, name + ".npy"), a)
+        summary["save_s"] = time.perf_counter() - t0
+
+        # -- in this process: the references, world 1, the resume --------
+        (ref, n_ref, _), wall_ref, l_ref = drive(lambda: elastic_admm(tmp))
+        expect(n_ref == ELASTIC_OUTER, f"ADMM n_iter {n_ref}")
+        w1 = elastic_run(os.path.join(tmp, "w1-admm"), rank=0, world=1)
+        b0 = elastic_bytes(0)
+        with config_context(telemetry=True):
+            (got, _, _), wall_w1, l_w1 = drive(lambda: elastic_admm(tmp, w1))
+        bytes_w1 = elastic_bytes(0) - b0
+        expect(all(np.array_equal(a, b) for a, b in zip(got, ref)),
+               "ELASTIC admm: world 1 differs from the non-elastic fit")
+        order1 = BlockPlan(ELASTIC_BLOCKS, seed=ELASTIC_SEED).epoch_order(1)
+        ck = os.path.join(tmp, "w1-admm.ckpt")
+        pre = elastic_run(os.path.join(tmp, "w1-resume"), rank=0, world=1)
+        inj = FaultInjector().preempt_at(order1[ELASTIC_BLOCKS // 2],
+                                         epoch=1)
+        src = elastic_sparse_source(tmp)
+        src.fault_injector = inj
+        try:
+            from dask_ml_tpu_torch.models import glm as glm_core
+
+            mask = torch.ones(SPADMM_D + 1, device=dev)
+            mask[-1] = 0.0
+            glm_core.admm_streamed(
+                src, ELASTIC_BLOCKS, SPADMM_D + 1, float(SPADMM_N), mask,
+                lamduh=1.0, max_iter=ELASTIC_OUTER, abstol=0.0, reltol=0.0,
+                elastic=pre, checkpoint_path=ck, checkpoint_every=1)
+            raise Mismatch("ELASTIC admm: the injected preemption did not "
+                           "stop the fit")
+        except Preempted:
+            pass
+        resumed = elastic_run(os.path.join(tmp, "w1-resume"), rank=0,
+                              world=1)
+        (res, _, _), wall_res, _ = drive(lambda: elastic_admm(
+            tmp, resumed, checkpoint_path=ck))
+        expect(all(np.array_equal(a, b) for a, b in zip(res, ref)),
+               "ELASTIC admm: the resumed fit differs from the "
+               "non-elastic fit")
+        expect(not os.path.exists(ck), "ELASTIC admm: the snapshot stayed")
+        lines.append(elastic_line(
+            "elastic-admm-sparse", "world-1", [{
+                **elastic_host_stats(w1), "wall_s": wall_w1,
+                "stream_bytes": bytes_w1}],
+            nonelastic_wall_s=wall_ref, resume_wall_s=wall_res,
+            launches=[{k: l_w1[k] for k in ELASTIC_K6}],
+            nonelastic_launches={k: l_ref[k] for k in ELASTIC_K6}))
+        launches["elastic-admm-sparse/world-1"] = [
+            {k: l_w1[k] for k in ELASTIC_K6}]
+
+        m_plain, wall_mp, _ = drive(lambda: streamed_moments(
+            block_fn=elastic_pca_source(tmp), n_blocks=ELASTIC_BLOCKS))
+        m_plain = tuple(t.cpu().numpy() for t in m_plain)
+        wm = elastic_run(os.path.join(tmp, "w1-moments"), rank=0, world=1)
+        b0 = elastic_bytes(0)
+        with config_context(telemetry=True):
+            (m_w1, est_w1, _), wall_m1, _ = drive(lambda: elastic_moments(
+                tmp, wm))
+        bytes_m1 = elastic_bytes(0) - b0
+        Xd = torch.from_numpy(Xp).to(dev).double()
+        want = (float(PCA_N), Xd.sum(0).cpu().numpy(),
+                (Xd.T @ Xd).cpu().numpy())
+        del Xd
+        torch.cuda.empty_cache()
+        mem = PCA(PCA_K, svd_solver="full").fit(Xp)
+
+        def rel_np(a, b):
+            a = np.ravel(np.asarray(a, np.float64))
+            b = np.ravel(np.asarray(b, np.float64))
+            return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+        m_gap = {"vs_plain": [rel_np(a, b) for a, b in zip(m_w1, m_plain)],
+                 "vs_f64": [rel_np(a, b) for a, b in zip(m_w1, want)]}
+        align = float(np.abs(np.sum(est_w1.components_[:PCA_RANK]
+                                    * mem.components_[:PCA_RANK],
+                                    axis=1)).min())
+        ev = float((np.abs(est_w1.explained_variance_[:PCA_RANK]
+                           - mem.explained_variance_[:PCA_RANK])
+                    / mem.explained_variance_[:PCA_RANK]).max())
+        expect(max(m_gap["vs_plain"] + m_gap["vs_f64"]) <= MOMENT_RTOL
+               and align >= ALIGN and ev <= EV_RTOL,
+               f"ELASTIC moments: {m_gap}, alignment {align}, variances "
+               f"{ev}")
+        lines.append(elastic_line(
+            "elastic-moments", "world-1", [{
+                **elastic_host_stats(wm), "wall_s": wall_m1,
+                "stream_bytes": bytes_m1}],
+            nonelastic_wall_s=wall_mp, moments_rel=m_gap,
+            top64_min_alignment=align, top64_variance_rel=ev,
+            kernels="none of the repo's: the block Gram is cuBLAS"))
+
+        ws = elastic_run(os.path.join(tmp, "w1-search"), rank=0, world=1)
+        sh_w1, wall_s1, l_s1 = drive(lambda: elastic_search(ws))
+        expect(np.isfinite(sh_w1.cv_results_["test_score"]).all()
+               and l_s1["fused_argmin_min"] > 0,
+               "ELASTIC search: world 1 dropped a candidate or ran no K2")
+        lines.append(elastic_line(
+            "elastic-search", "world-1", [{
+                **elastic_host_stats(ws), "wall_s": wall_s1,
+                "stream_bytes": 0}],
+            launches=[{"fused_argmin_min": l_s1["fused_argmin_min"]}],
+            best_params=sh_w1.best_params_))
+        launches["elastic-search/world-1"] = [
+            {"fused_argmin_min": l_s1["fused_argmin_min"]}]
+        summary["in_process_s"] = time.perf_counter() - t0
+
+        # -- the pairs of host processes ------------------------------------
+        clean_wall = {}
+        for run_name, modes, trigger in ELASTIC_PAIRS:
+            t0 = time.perf_counter()
+            reports, warms, progress, t_sig = elastic_pair(
+                tmp, tmp, run_name, modes, trigger)
+            pair_s = time.perf_counter() - t0
+            wd = os.path.join(tmp, run_name)
+            for mode in modes.split(","):
+                per = [rep and rep["modes"][mode] for rep in reports]
+                dead = trigger is not None and trigger[2] == "SIGKILL"
+                survivors = [p for p in per if p]
+                if mode == "admm-drain":
+                    survivors = [per[0]]
+                    expect(per[1]["outcome"] == "preempted",
+                           f"ELASTIC drain: rank 1 {per[1]['outcome']}")
+                    expect(glob.glob(os.path.join(wd, mode, "*", "dead",
+                                                  "host1")),
+                           "ELASTIC drain: rank 1 left no tombstone")
+                for p in survivors:
+                    r = p["rank"]
+                    got = np.load(os.path.join(wd, f"{mode}-r{r}.npz"))
+                    if mode.startswith("admm"):
+                        expect(all(np.array_equal(got[k], v) for k, v in
+                                   zip("zxu", ref)), f"ELASTIC {run_name} "
+                               f"rank {r}: (z, x, u) differs from the "
+                               "single-host fit")
+                        expect(p["ledger"] == {"pod": p["foreign_bytes"]},
+                               f"ELASTIC {run_name} rank {r}: ledger "
+                               f"{p['ledger']}, foreign blocks "
+                               f"{p['foreign_bytes']} B")
+                        k6 = p["launches"]["spmv"] + p["launches"]["spmv_l2"]
+                        k6b = (p["launches"]["spmv_pullback"]
+                               + p["launches"]["spmv_pullback_l2"])
+                        expect(k6 > 0 and k6b > 0, f"ELASTIC {run_name} "
+                               f"rank {r}: K6 {k6}, K6-b {k6b} launches")
+                    elif mode == "moments":
+                        expect(all(np.array_equal(got[k], v) for k, v in
+                                   zip(("sw", "s", "G"), m_w1)),
+                               f"ELASTIC {run_name} rank {r}: moments "
+                               "differ from the world-1 run")
+                        expect(np.array_equal(got["components"],
+                                              est_w1.components_),
+                               f"ELASTIC {run_name} rank {r}: components "
+                               "differ from the world-1 run")
+                    else:
+                        expect(np.array_equal(
+                            got["score"], sh_w1.cv_results_["test_score"])
+                               and p["best_params"] == sh_w1.best_params_,
+                               f"ELASTIC {run_name} rank {r}: scores or "
+                               "best_params_ differ from the world-1 run")
+                        expect(p["launches"]["fused_argmin_min"] > 0,
+                               f"ELASTIC {run_name} rank {r}: no K2")
+                extra = {"pair_s": pair_s}
+                rank_launches = [p and p["launches"] for p in per]
+                if dead:
+                    expect(progress is not None, f"ELASTIC {run_name}: "
+                           "rank 1 left no progress")
+                    rank_launches[1] = progress["launches"]
+                    expect(progress["compile"] == warms[1]["compile"],
+                           f"ELASTIC {run_name}: rank 1 built or loaded "
+                           f"after its warmup: {warms[1]['compile']} -> "
+                           f"{progress['compile']}")
+                    per[1] = {"rank": 1, "wall_s": None,
+                              "computed": progress["published"],
+                              "rebalanced": None, "speculated": None,
+                              "hosts_lost": None,
+                              "stream_bytes": progress["stream_bytes"]}
+                    s0 = per[0]
+                    expect(s0["hosts_lost"] == 1 and 1 <= s0["rebalanced"]
+                           < (len(sh_w1.cv_results_["test_score"])
+                              if mode == "search" else ELASTIC_BLOCKS),
+                           f"ELASTIC {run_name}: survivor {s0}")
+                    extra.update(detection_latency_s=s0["t_lost"] - t_sig,
+                                 recovery_overhead=(
+                                     s0["wall_s"] / clean_wall[mode]
+                                     if mode in clean_wall else None))
+                elif trigger is not None:
+                    s0 = per[0]
+                    expect(s0["hosts_lost"] == 1 and s0["lost_age"]
+                           is not None and s0["lost_age"]
+                           < ELASTIC_HB_TIMEOUT, f"ELASTIC {run_name}: "
+                           f"the survivor waited out the timeout: {s0}")
+                    extra.update(detection_latency_s=s0["t_lost"] - t_sig,
+                                 heartbeat_age_at_detection_s=s0[
+                                     "lost_age"],
+                                 recovery_overhead=s0["wall_s"]
+                                 / clean_wall["admm"])
+                else:
+                    clean_wall[mode] = max(p["wall_s"] for p in per)
+                for r, l in enumerate(rank_launches):
+                    expect(l is not None, f"ELASTIC {run_name}: no launch "
+                           f"counts from rank {r}")
+                    if mode.startswith("admm"):
+                        expect(l["spmv"] + l["spmv_l2"] > 0
+                               and l["spmv_pullback"]
+                               + l["spmv_pullback_l2"] > 0,
+                               f"ELASTIC {run_name} rank {r}: K6 / K6-b "
+                               "not launched")
+                    if mode == "search":
+                        expect(l["fused_argmin_min"] > 0,
+                               f"ELASTIC {run_name} rank {r}: K2 not "
+                               "launched")
+                cell = {"admm": "elastic-admm-sparse",
+                        "admm-drain": "elastic-admm-sparse",
+                        "moments": "elastic-moments",
+                        "search": "elastic-search"}[mode]
+                names = ELASTIC_K6 if mode.startswith("admm") else (
+                    ("fused_argmin_min",) if mode == "search" else ())
+                if names:
+                    extra["launches"] = [{k: l[k] for k in names}
+                                         for l in rank_launches]
+                    launches[f"{cell}/{run_name}"] = extra["launches"]
+                else:
+                    extra["kernels"] = ("none of the repo's: the block Gram "
+                                        "is cuBLAS")
+                extra["warmup_checks"] = [w["checks"] for w in warms]
+                lines.append(elastic_line(cell, run_name, per, **extra))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary["lines"] = lines
+    summary["seconds"] = time.perf_counter() - t_all
+    log(f"ELASTIC phase: {summary['seconds']:.1f} s")
+    return launches, summary
+
+
 def main() -> int:
     import torch
 
@@ -8693,6 +9441,13 @@ def main() -> int:
 
     if "--glm-mesh-only" in sys.argv[1:]:
         meshglm_cells(dev)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+        return 0
+
+    if "--elastic-only" in sys.argv[1:]:
+        elastic_cells(dev)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": count}}), flush=True)
@@ -8972,6 +9727,15 @@ def main() -> int:
             r["launches_meshglm"] = got
     torch.cuda.empty_cache()
 
+    elastic_launches, _ = elastic_cells(dev)
+    for r in rows:
+        got = {cell: [per[r["name"]] for per in ranks]
+               for cell, ranks in elastic_launches.items()
+               if r["name"] in ranks[0]}
+        if got:
+            r["launches_elastic"] = got
+    torch.cuda.empty_cache()
+
     bf16, _ = precision_cells(dev, f32_inertia=blobs_inertia)
     rows += bf16
     print(json.dumps({"kernels": rows}), flush=True)
@@ -8982,4 +9746,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--elastic-worker"]:
+        sys.exit(elastic_worker(*sys.argv[2:5]))
     sys.exit(main())

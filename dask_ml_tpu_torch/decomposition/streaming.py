@@ -58,11 +58,13 @@ def _moments_finalize(carry):
 
 
 def _streamed_moments_host(source, checkpoint_path=None,
-                           checkpoint_every=None):
+                           checkpoint_every=None, elastic=None):
     """The pass over a ``HostBlockSource`` (depth ``source.prefetch``).
     With ``checkpoint_path`` it is preemption-safe: the carry is the
     accumulators, so a snapshot after block b resumes at block b+1 with
-    bit-identical sums."""
+    bit-identical sums. With ``elastic`` the pass is sharded over the
+    run's hosts (:func:`~dask_ml_tpu_torch.parallel.elastic.
+    elastic_moments_host`)."""
     from dask_ml_tpu_torch.checkpoint import leaf_tensor
     from dask_ml_tpu_torch.parallel.faults import scan_checkpoint_scope
     from dask_ml_tpu_torch.parallel.stream import prefetched_scan
@@ -85,7 +87,17 @@ def _streamed_moments_host(source, checkpoint_path=None,
                        else int(checkpoint_every)),
                 bind={"what": "streamed_moments",
                       "n_blocks": source.n_blocks, "d": d,
-                      "elastic": False, "carry_v": _CARRY_V}) as scan_ckpt:
+                      # an elastic snapshot has no moments carry (the
+                      # published blocks are the progress): resuming it
+                      # through the carry must be refused
+                      "elastic": elastic is not None,
+                      "carry_v": _CARRY_V}) as scan_ckpt:
+            if elastic is not None:
+                from dask_ml_tpu_torch.parallel.elastic import \
+                    elastic_moments_host
+
+                return elastic_moments_host(elastic, source,
+                                            scan_checkpoint=scan_ckpt)
             if scan_ckpt is not None:
                 snap = scan_ckpt.load()
                 if snap is not None:
@@ -110,24 +122,31 @@ def streamed_moments(*, block_fn, n_blocks, checkpoint_path=None,
     ``checkpoint_path`` / ``checkpoint_every`` (source mode only) make the
     pass preemption-safe: a snapshot every k blocks (default: at the end),
     a SIGTERM drains, a rerun resumes from the last complete block.
-    ``elastic=`` (the multi-host tier) is not ported and raises."""
+
+    ``elastic`` (an :class:`~dask_ml_tpu_torch.parallel.elastic.ElasticRun`,
+    source mode only) shards the pass over a fleet of processes: each host
+    publishes its blocks' moments, survivors re-deal a lost host's blocks,
+    and every host folds the published moments in block-id order. Those
+    moments are the same bits for every roster, death and resume, and
+    equal this single-host pass to Neumaier accuracy."""
     from dask_ml_tpu_torch.parallel.stream import HostBlockSource
 
-    if elastic is not None:
-        raise NotImplementedError(
-            "elastic= belongs to the elastic multi-host tier, ROADMAP "
-            "Queue A item 10b, which the port does not have yet")
     if isinstance(block_fn, HostBlockSource):
         if block_fn.n_blocks != int(n_blocks):
             raise ValueError(
                 f"n_blocks={n_blocks} does not match the HostBlockSource's "
                 f"{block_fn.n_blocks} blocks")
         return _streamed_moments_host(block_fn, checkpoint_path,
-                                      checkpoint_every)
+                                      checkpoint_every, elastic=elastic)
     if checkpoint_path is not None:
         raise ValueError(
             "checkpoint_path= requires a HostBlockSource: a callable "
             "block_fn has no resumable scan here, as in the JAX package")
+    if elastic is not None:
+        raise ValueError(
+            "elastic= requires a HostBlockSource: the elastic data plane "
+            "shards the ingestion of host blocks across processes, and a "
+            "callable block_fn has no host blocks to shard")
     carry = None
     with telemetry.span("pca.streamed-moments", n_blocks=int(n_blocks)):
         for b in range(int(n_blocks)):
@@ -162,8 +181,8 @@ def pca_fit_blocks(block_fn, n_blocks, n_components, pca=None,
     """A :class:`~dask_ml_tpu_torch.decomposition.PCA` fitted from
     streamed blocks (``pca``, when given, is the estimator to fill):
     ``components_``, ``explained_variance_`` and the rest from the
-    streamed covariance, usable like an in-memory fit. Checkpointing as
-    in :func:`streamed_moments`."""
+    streamed covariance, usable like an in-memory fit. Checkpointing and
+    ``elastic`` as in :func:`streamed_moments`."""
     from dask_ml_tpu_torch.decomposition import PCA
 
     sw, s, G = streamed_moments(block_fn=block_fn, n_blocks=int(n_blocks),

@@ -291,7 +291,15 @@ class _GLM(BaseEstimator):
         (:class:`~dask_ml_tpu_torch.parallel.faults.Preempted` after the
         save), and a rerun resumes from the last complete block on a
         bit-identical trajectory. The source's counters include the
-        copies the fit made. ``elastic=`` is not ported and raises."""
+        copies the fit made.
+
+        ``elastic`` (an
+        :class:`~dask_ml_tpu_torch.parallel.elastic.ElasticRun`, source
+        mode only) spreads the fit over a fleet of processes, each calling
+        ``fit_blocks`` with its own source over the same blocks and the
+        shared run: seeded epoch shuffles, a lost host's blocks re-dealt to
+        the survivors, the coefficients of the single-host fit bit for
+        bit."""
         from dask_ml_tpu_torch.parallel.stream import HostBlockSource
 
         if self.solver != "admm":

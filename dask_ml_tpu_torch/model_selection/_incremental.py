@@ -29,6 +29,15 @@ the end. This module spends the budget on survivors:
   the rung reads the host (:func:`batched_rung`), and the rung's scores
   and states come back in one copy. Other estimators (``MiniBatchKMeans``)
   run one ``partial_fit`` a block a candidate.
+- **multi-host**: with ``elastic=`` an
+  :class:`~dask_ml_tpu_torch.parallel.elastic.ElasticRun`, a rung's
+  candidates become the blocks of an elastic epoch: each host computes its
+  contiguous share, publishes each record atomically, and
+  ``collect_epoch`` re-deals the candidates of dead hosts (and, with
+  ``speculate_after``, of slow ones). A candidate's rung is a pure
+  function of its previous record and the seeds, so whichever host
+  computes it publishes the same bytes: a host killed mid-bracket drops no
+  candidate and changes no bit.
 
 Deviations from the JAX package:
 
@@ -37,8 +46,6 @@ Deviations from the JAX package:
   ``rung_compile_stats_`` records each rung's ``nvcc`` builds
   (``_kernels.build.builds``, 0 after a bracket's first rung on a warm
   process) and its kernel launches (``_kernels.launches``).
-- ``elastic=`` (the multi-host candidate plane) raises: it comes with the
-  rest of the multi-device port, ROADMAP Queue A item 10b.
 - The report appends ``telemetry.render_counters()`` (the port's
   telemetry keeps counters and profiler ranges, no span ring).
 
@@ -140,6 +147,35 @@ class _RungTimeout(Exception):
     def __init__(self, cid: int):
         super().__init__(f"candidate {cid} rung timed out")
         self.cid = cid
+
+
+def _record_to_tree(rec: Optional[dict]) -> dict:
+    """A rung record as a numpy tree for elastic publication. ``None`` (a
+    timed-out candidate) publishes a sentinel, so no host's rung waits on
+    a candidate already degraded."""
+    if rec is None:
+        return {"timeout": np.int64(1)}
+    return {
+        "score": np.float64(rec["score"]),
+        "blob": np.frombuffer(rec["blob"], dtype=np.uint8).copy(),
+        "n_epochs": np.int64(rec["n_epochs"]),
+        "pf_calls": np.int64(rec["pf_calls"]),
+        "fit_seconds": np.float64(rec["fit_seconds"]),
+        "score_seconds": np.float64(rec["score_seconds"]),
+    }
+
+
+def _tree_to_record(tree: dict) -> Optional[dict]:
+    if "timeout" in tree:
+        return None
+    return {
+        "score": float(tree["score"]),
+        "blob": np.asarray(tree["blob"], dtype=np.uint8).tobytes(),
+        "n_epochs": int(tree["n_epochs"]),
+        "pf_calls": int(tree["pf_calls"]),
+        "fit_seconds": float(tree["fit_seconds"]),
+        "score_seconds": float(tree["score_seconds"]),
+    }
 
 
 class _HostPickler(pickle.Pickler):
@@ -306,11 +342,6 @@ class BaseIncrementalSearchCV(BaseEstimator):
                 "incremental search streams raw blocks through "
                 f"partial_fit; fit_params {sorted(fit_params)} are not "
                 "supported")
-        if self.elastic is not None:
-            raise NotImplementedError(
-                "elastic= runs the search over a multi-host roster, which "
-                "comes with the rest of the multi-device port, ROADMAP "
-                "Queue A item 10b, which the port does not have yet")
         from dask_ml_tpu_torch.parallel.elastic import BlockPlan
 
         t_fit0 = time.time()
@@ -320,6 +351,7 @@ class BaseIncrementalSearchCV(BaseEstimator):
             raise ValueError(
                 f"aggressiveness must be >= 2, got {self.aggressiveness}")
         caller_cfg = dict(config_lib.get_config())
+        run = self.elastic
 
         # -- seeded holdout split and block partition ---------------------
         n = _n_rows(X)
@@ -373,7 +405,12 @@ class BaseIncrementalSearchCV(BaseEstimator):
         if self.checkpoint:
             from dask_ml_tpu_torch.checkpoint import CellJournal
 
-            journal = CellJournal(self.checkpoint)
+            # one journal a rank under a roster: processes must not
+            # interleave appends in one file, and a host's own journal is
+            # enough to resume it (the published blocks cover the rest)
+            path = (f"{self.checkpoint}.r{run.rank}" if run is not None
+                    else self.checkpoint)
+            journal = CellJournal(path)
             done = journal.load()
         est_token = tokenize(
             type(est), est.get_params(deep=True), _content_array(X),
@@ -385,6 +422,14 @@ class BaseIncrementalSearchCV(BaseEstimator):
                 "rung", est_token, cand_params[cid], cand_bracket[cid],
                 rung, cum, n_blocks, int(self.shuffle_seed), scoring_id,
                 _content_array(test_idx))
+
+        if run is not None:
+            run.bind_problem(
+                "asha", token=est_token, grid=tokenize(cand_params),
+                eta=eta, n_blocks=n_blocks, seed=int(self.shuffle_seed),
+                scoring=scoring_id)
+        elastic_before = ((run.blocks_rebalanced, run.blocks_speculated)
+                          if run is not None else (0, 0))
 
         # -- fit-wide state -----------------------------------------------
         records: dict = {}      # cid -> latest completed-rung record
@@ -530,7 +575,7 @@ class BaseIncrementalSearchCV(BaseEstimator):
                 }
             return out
 
-        def run_rung(s, rung, alive, prev_cum, cum):
+        def run_rung(s, rung, uid, alive, prev_cum, cum):
             """Compute or restore every alive candidate's rung record:
             ``{cid: record}``, a timed-out candidate mapping to None."""
             keys = {cid: rung_key(cid, rung, cum) for cid in alive}
@@ -539,20 +584,33 @@ class BaseIncrementalSearchCV(BaseEstimator):
             self.n_resumed_rungs_ += len(restored)
             need = [cid for cid in alive if cid not in restored]
             bplan = bplans.get(s)
-            results = dict(restored)
-            if bplan is not None and need:
-                results.update(train_batched_all(s, bplan, set(need),
-                                                 prev_cum, cum))
-            elif need:
-                for cid in need:
+            bmemo: dict = {}
+
+            def make_record(cid):
+                """One candidate's record: the unit the elastic plane
+                deals, and the local path's too. A batched bracket trains
+                every needed candidate at its first call."""
+                if cid in restored:
+                    return restored[cid]
+                if bplan is not None:
+                    if not bmemo:
+                        bmemo.update(train_batched_all(
+                            s, bplan, set(need), prev_cum, cum))
+                    return bmemo[cid]
+                return self._generic_with_retries(
+                    lambda: train_generic_one(cid, prev_cum, cum),
+                    caller_cfg, f"asha-rung-{s}-{rung}-{cid}", cid, rung)
+
+            if run is None:
+                results = {}
+                for cid in alive:
                     try:
-                        results[cid] = self._generic_with_retries(
-                            lambda cid=cid: train_generic_one(
-                                cid, prev_cum, cum),
-                            caller_cfg, f"asha-rung-{s}-{rung}-{cid}",
-                            cid, rung)
+                        results[cid] = make_record(cid)
                     except _RungTimeout:
                         results[cid] = None
+            else:
+                results = self._rung_elastic(run, uid, list(alive),
+                                             make_record)
             if journal is not None:
                 for cid in alive:
                     rec = results.get(cid)
@@ -578,10 +636,12 @@ class BaseIncrementalSearchCV(BaseEstimator):
             with telemetry.span("search.bracket", bracket=s,
                                 candidates=n0, r0=r0):
                 while True:
+                    uid = 1000 * (s + 1) + rung
                     builds0, launches0 = _kernel_counts()
                     with telemetry.span("search.rung", bracket=s,
                                         rung=rung, candidates=len(alive)):
-                        results = run_rung(s, rung, alive, prev_cum, cum)
+                        results = run_rung(s, rung, uid, alive, prev_cum,
+                                           cum)
                     builds1, launches1 = _kernel_counts()
                     self.rung_compile_stats_.append({
                         "bracket": s, "rung": rung,
@@ -696,6 +756,11 @@ class BaseIncrementalSearchCV(BaseEstimator):
             cand_params, cand_bracket, cand_model_id, cand_rung,
             cand_status, records, history, rung_table, brackets,
             budget_spent, deepest)
+        if run is not None:
+            self.n_blocks_rebalanced_ = (run.blocks_rebalanced
+                                         - elastic_before[0])
+            self.n_blocks_speculated_ = (run.blocks_speculated
+                                         - elastic_before[1])
         return self
 
     def _generic_with_retries(self, train, caller_cfg, name, cid, rung):
@@ -720,6 +785,38 @@ class BaseIncrementalSearchCV(BaseEstimator):
                 raise _RungTimeout(cid)
             return value
         raise last_err
+
+    # -- elastic rung -----------------------------------------------------
+
+    def _rung_elastic(self, run, uid, cids, make_record) -> dict:
+        """One rung over the elastic plane: the rung's candidates are the
+        epoch's blocks, in identity order (the data epochs inside each
+        candidate are the shuffled ones), dealt contiguously over the live
+        roster; ``collect_epoch`` re-deals the candidates of dead (and,
+        with ``speculate_after``, slow) hosts. The first publication
+        wins: any host computes the same bytes."""
+        from dask_ml_tpu_torch.parallel.elastic import (BlockPlan,
+                                                        _epoch_assignment)
+
+        order = list(range(len(cids)))
+        plan = BlockPlan(len(order), seed=0, shuffle=False)
+        owner = _epoch_assignment(run, order)
+
+        def compute_publish(grab):
+            for b in grab:
+                try:
+                    rec = make_record(cids[b])
+                except _RungTimeout:
+                    rec = None
+                run.publish(uid, b, _record_to_tree(rec))
+                run.beat()
+                run.maybe_die(b, uid)
+
+        have = run.published(uid)
+        compute_publish([b for b in order
+                         if owner.get(b) == run.rank and b not in have])
+        out = run.collect_epoch(plan, uid, order, owner, compute_publish)
+        return {cids[b]: _tree_to_record(out[b]) for b in order}
 
     # -- cv_results_ ------------------------------------------------------
 
@@ -827,6 +924,11 @@ class BaseIncrementalSearchCV(BaseEstimator):
                 f"{row['promoted']:>8} {row['stopped']:>7} "
                 f"{row['timeouts']:>8} {row.get('plateau', 0):>7}")
         extras = []
+        if self.n_blocks_rebalanced_ or self.n_blocks_speculated_:
+            extras.append(
+                f"{self.n_blocks_rebalanced_} candidate-rung(s) re-dealt "
+                f"from lost hosts, {self.n_blocks_speculated_} "
+                "speculatively re-dealt from stragglers")
         if self.n_resumed_rungs_:
             extras.append(
                 f"{self.n_resumed_rungs_} candidate-rung(s) restored "
@@ -897,9 +999,12 @@ class SuccessiveHalvingSearchCV(BaseIncrementalSearchCV):
     ``patience`` (optional) adds a plateau stop: a candidate whose rung
     score improves by less than ``tol`` for ``patience`` rungs in a row
     is stopped even where it would be promoted (``n_plateau_stops_``,
-    the ``plateau`` column of ``rung_table_``). ``elastic=`` raises (see
-    the module docstring); see :class:`HyperbandSearchCV` for the
-    multi-bracket sweep.
+    the ``plateau`` column of ``rung_table_``). ``elastic`` (an
+    :class:`~dask_ml_tpu_torch.parallel.elastic.ElasticRun`) spreads each
+    rung's candidates over a fleet of processes (see the module
+    docstring; ``n_blocks_rebalanced_`` / ``n_blocks_speculated_`` count
+    the re-deals); see :class:`HyperbandSearchCV` for the multi-bracket
+    sweep.
     """
 
     def __init__(self, estimator, parameters, *,

@@ -1249,16 +1249,22 @@ def admm_streamed(block_fn, n_blocks, d, sw_total, mask=None, *,
     bit-identical trajectory; the snapshot is deleted on completion. Its
     binding is the JAX package's, so either package resumes the other's
     snapshot. A callable refuses ``checkpoint_path`` (chunk it through
-    ``state=`` instead). ``elastic=`` (the multi-host tier) is not ported
-    and raises."""
+    ``state=`` instead).
+
+    ``elastic`` (an :class:`~dask_ml_tpu_torch.parallel.elastic.ElasticRun`,
+    source mode only) spreads each epoch over a fleet of processes: this
+    host consumes its shard of the run's seeded block permutation,
+    publishes each block's result to the shared directory, and survivors
+    re-deal a lost host's missing blocks. The trajectory equals the
+    single-host run bit for bit whatever the roster did
+    (:func:`~dask_ml_tpu_torch.parallel.elastic.elastic_admm_host`). With
+    ``checkpoint_path`` a resume replays the snapshot's own shuffled
+    sequence; an elastic snapshot is refused by a resume without
+    ``elastic=`` and the other way round."""
     from dask_ml_tpu_torch.config import resolve_device
     from dask_ml_tpu_torch.parallel.faults import scan_checkpoint_scope
     from dask_ml_tpu_torch.parallel.stream import HostBlockSource
 
-    if elastic is not None:
-        raise NotImplementedError(
-            "elastic= belongs to the elastic multi-host tier, ROADMAP "
-            "Queue A item 10b, which the port does not have yet")
     host = isinstance(block_fn, HostBlockSource)
     if host and block_fn.n_blocks != int(n_blocks):
         raise ValueError(
@@ -1269,6 +1275,11 @@ def admm_streamed(block_fn, n_blocks, d, sw_total, mask=None, *,
             "checkpoint_path= requires a HostBlockSource: a callable "
             "block_fn is chunked through state=/return_state instead (see "
             "checkpoint.solve_checkpointed)")
+    if not host and elastic is not None:
+        raise ValueError(
+            "elastic= requires a HostBlockSource: the elastic data plane "
+            "shards the ingestion of host blocks across processes, and a "
+            "callable block_fn has no host blocks to shard")
     _, pen_prox = _penalty(regularizer)
     dev = block_fn.device if host else resolve_device(device)
     sdt = px.state_dtype(dtype)
@@ -1301,16 +1312,29 @@ def admm_streamed(block_fn, n_blocks, d, sw_total, mask=None, *,
                            else int(checkpoint_every)),
                     bind={"what": "admm_streamed", "n_blocks": int(n_blocks),
                           "d": int(d), "family": family,
-                          "regularizer": regularizer, "elastic": False,
+                          "regularizer": regularizer,
+                          # an elastic snapshot holds positions in a
+                          # shuffled sequence: resuming it as a plain scan
+                          # (or the other way round) must be refused
+                          "elastic": elastic is not None,
                           "params": repr((float(lamduh), float(rho),
                                           float(abstol), float(reltol),
                                           float(inner_tol), float(sw_total),
                                           int(inner_max_iter)))}
             ) as scan_ckpt:
-                z, n_iter, x, u, done = _admm_streamed_host(
-                    block_fn, z, x, u, mask, pen_prox, scal,
+                host_kw = dict(
                     check_done=float(abstol) != 0.0 or float(reltol) != 0.0,
                     max_iter=int(max_iter), scan_checkpoint=scan_ckpt, **kw)
+                if elastic is not None:
+                    from dask_ml_tpu_torch.parallel.elastic import \
+                        elastic_admm_host
+
+                    z, n_iter, x, u, done = elastic_admm_host(
+                        elastic, block_fn, z, x, u, mask, pen_prox, scal,
+                        regularizer=regularizer, **host_kw)
+                else:
+                    z, n_iter, x, u, done = _admm_streamed_host(
+                        block_fn, z, x, u, mask, pen_prox, scal, **host_kw)
         else:
             n_iter, done = 0, None
             while _keep_going(n_iter, int(max_iter), done):

@@ -2,7 +2,8 @@
 process groups, the hierarchical collectives and their traffic ledger,
 the runtime), staging, streaming, fault tolerance, telemetry, the serving
 tier, its wire and process fleet on one box or across machines
-(chunk-addressed snapshots, the SLO autoscaler), of the PyTorch port."""
+(chunk-addressed snapshots, the SLO autoscaler) and the elastic
+multi-host data plane, of the PyTorch port."""
 
 from dask_ml_tpu_torch.parallel.mesh import (  # noqa: F401
     CHIP_AXIS,
@@ -89,6 +90,7 @@ from dask_ml_tpu_torch.parallel.fleet import (  # noqa: F401
 )
 from dask_ml_tpu_torch.parallel.elastic import (  # noqa: F401
     BlockPlan,
+    ElasticRun,
     FileHeartbeat,
     SimulatedHostDeath,
 )

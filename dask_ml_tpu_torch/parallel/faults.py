@@ -325,11 +325,17 @@ class ScanCheckpoint:
         self.bind = dict(bind or {})
         self._since = 0
         self.saves = 0
+        #: the whole metadata of the last loaded snapshot: an elastic
+        #: resume reads the epoch's block sequence (``"blocks"``) here
+        self.last_meta: Optional[dict] = None
 
     def load(self):
         """``(carry, outs, next_block, epoch)`` with numpy leaves, or
-        ``None`` when there is no snapshot. Raises on a snapshot of
-        another kind or problem."""
+        ``None`` when there is no snapshot. ``next_block`` is a position
+        in the scanned sequence: the block id for the default
+        ``range(n_blocks)`` scan; an explicit sequence is in
+        ``last_meta["blocks"]``. Raises on a snapshot of another kind or
+        problem."""
         from dask_ml_tpu_torch.checkpoint import load_pytree
 
         snap = load_pytree(self.path)
@@ -347,26 +353,35 @@ class ScanCheckpoint:
                     f"checkpoint {self.path} was written for a different "
                     f"problem ({k}={stored.get(k)!r}, this run has {v!r}); "
                     "delete it or use a distinct path per fit")
+        self.last_meta = dict(meta)
         return (tree["carry"], list(tree["outs"]),
                 int(meta["next_block"]), int(meta["epoch"]))
 
     def save(self, carry, outs, next_block: int, epoch: int,
-             reason: str = "interval") -> None:
+             reason: str = "interval", blocks=None) -> None:
+        """``blocks`` is an explicit block sequence the scan consumes (the
+        elastic tier's shard of a shuffled epoch): it is saved under
+        ``meta["blocks"]``, so a resume replays that sequence whatever
+        the roster has become."""
         from dask_ml_tpu_torch.checkpoint import save_pytree
 
         meta = {"kind": self.KIND, "next_block": int(next_block),
                 "epoch": int(epoch), "bind": self.bind, "reason": reason}
+        if blocks is not None:
+            meta["blocks"] = [int(b) for b in blocks]
         save_pytree(self.path, {"carry": carry, "outs": list(outs)},
                     meta=meta)
         self._since = 0
         self.saves += 1
 
-    def tick(self, carry, outs, next_block: int, epoch: int) -> bool:
+    def tick(self, carry, outs, next_block: int, epoch: int,
+             blocks=None) -> bool:
         """Called once per completed block: saves when ``every`` blocks
         have completed since the last save."""
         self._since += 1
         if self._since >= self.every:
-            self.save(carry, outs, next_block, epoch, reason="interval")
+            self.save(carry, outs, next_block, epoch, reason="interval",
+                      blocks=blocks)
             return True
         return False
 
@@ -407,7 +422,8 @@ class FaultInjector:
     (``fault_injector=``): the source calls :meth:`on_load` before reading
     a block and :meth:`on_transfer` in each copy attempt, and
     ``prefetched_scan`` calls :meth:`should_preempt` after each completed
-    block. Plans are exact (fail block 3's read twice, preempt after block
+    block (and the elastic tier :meth:`should_die` after each published
+    one). Plans are exact (fail block 3's read twice, preempt after block
     1 of epoch 2); :meth:`random_load_failures` adds seeded random
     failures, reproducible for a fixed seed and call order.
 
@@ -430,6 +446,7 @@ class FaultInjector:
         self._transfer_fail: dict = {}   # block -> times_left
         self._load_delay: dict = {}      # block -> [times_left, seconds]
         self._preempt: set = set()       # {(epoch, block)}
+        self._die: set = set()           # {(epoch, block)}
         self._dispatch_delay: dict = {}  # batch -> [times_left, seconds]
         self._slow_replica: dict = {}    # replica -> [batches_left, seconds]
         self._kill_replica: dict = {}    # replica -> after_batches
@@ -440,7 +457,7 @@ class FaultInjector:
         self._p_load = 0.0
         self._p_exc = InjectedLoaderError
         self.injected = {"load": 0, "transfer": 0, "delay": 0, "preempt": 0,
-                         "dispatch_delay": 0, "slow_replica": 0,
+                         "die": 0, "dispatch_delay": 0, "slow_replica": 0,
                          "replica_kill": 0, "straggle": 0,
                          "process_kill": 0, "machine_kill": 0,
                          "slow_link": 0}
@@ -470,6 +487,17 @@ class FaultInjector:
         """Deliver a preemption after block ``block`` of epoch ``epoch``
         completes: a SIGTERM landing there, without the race."""
         self._preempt.add((int(epoch), int(block)))
+        return self
+
+    def die_at(self, block: int, *, epoch: int = 0) -> "FaultInjector":
+        """Kill the host after block ``block`` of epoch ``epoch`` completes:
+        a SIGKILL or a lost machine, with no drain, no snapshot and no
+        tombstone (its heartbeats just stop). The elastic tier
+        (``parallel/elastic.py``) polls :meth:`should_die` after each
+        published block and raises
+        :class:`~dask_ml_tpu_torch.parallel.elastic.SimulatedHostDeath`;
+        a real host process turns that into ``os._exit``. One-shot."""
+        self._die.add((int(epoch), int(block)))
         return self
 
     def delay_dispatch(self, batch: int, seconds: float, *,
@@ -645,6 +673,17 @@ class FaultInjector:
             if key in self._preempt:
                 self._preempt.discard(key)  # one-shot: the resume runs clean
                 self.injected["preempt"] += 1
+                return True
+        return False
+
+    def should_die(self, block: int, epoch: int) -> bool:
+        """True once, after block ``block`` of epoch ``epoch`` (see
+        :meth:`die_at`)."""
+        with self._lock:
+            key = (int(epoch), int(block))
+            if key in self._die:
+                self._die.discard(key)
+                self.injected["die"] += 1
                 return True
         return False
 

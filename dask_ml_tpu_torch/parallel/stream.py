@@ -183,8 +183,10 @@ class HostBlockSource:
       :class:`~dask_ml_tpu_torch.ops.sparse.SparseRows` container.
     - ``HostBlockSource(loader=f, n_blocks=40)`` — ``f(b)`` returns block
       ``b`` as a tuple of host arrays (the out-of-core path). A scipy
-      sparse element is encoded at the slot bucket of the first block seen
-      for its position, fixed from then on.
+      sparse element is encoded at the slot bucket of block 0's element
+      at its position (block 0 is read to learn it when another block
+      comes first), fixed from then on: a later block with a wider row
+      raises.
 
     ``transform`` is applied to the block tuple by the consumer, on the
     device (the facade's intercept append). ``prefetch`` is the depth the
@@ -215,7 +217,11 @@ class HostBlockSource:
     (what the same blocks weigh dense) and ``blocks_started``. They count
     a copy once it is issued, a retried copy once, and
     :meth:`discard_inflight` takes back copies that were issued but never
-    consumed, so they equal what compute consumed."""
+    consumed, so they equal what compute consumed. With the ``telemetry``
+    knob on, the same sites add to ``stream.bytes_streamed``,
+    ``stream.logical_bytes_streamed`` and ``stream.blocks_started``, and,
+    with ``host_rank`` set (the elastic tier sets it), to
+    ``stream.bytes{host=<rank>}``."""
 
     def __init__(self, arrays: Optional[Sequence] = None,
                  n_blocks: Optional[int] = None, *,
@@ -234,10 +240,6 @@ class HostBlockSource:
         if isinstance(storage_dtype, str) and storage_dtype == "policy":
             storage_dtype = precision.resolve().storage_dtype()
         storage_dtype = precision.as_dtype(storage_dtype)
-        if host_rank is not None:
-            raise NotImplementedError(
-                "host_rank= belongs to the elastic multi-host tier, ROADMAP "
-                "Queue A item 10b, which the port does not have yet")
         self.n_blocks = int(n_blocks)
         self.prefetch = int(prefetch)
         self.transform = transform
@@ -267,6 +269,10 @@ class HostBlockSource:
                      for leaf in _leaves(a)])
         self.retry_policy = retry_policy
         self.fault_injector = fault_injector
+        #: the elastic process rank this source streams for: with it set,
+        #: copied bytes also go to the ``stream.bytes{host=<rank>}``
+        #: counter, so a multi-host fit's bytes break down by host
+        self.host_rank = None if host_rank is None else int(host_rank)
         self._stream = None
         self._inflight: dict = {}
         self._inflight_bytes: dict = {}
@@ -324,15 +330,7 @@ class HostBlockSource:
                 return SparseRows(np.asarray(a.values), np.asarray(a.cols),
                                   a.d)
             if _is_scipy_sparse(a):
-                from dask_ml_tpu_torch.parallel.shapes import bucket_nnz
-
-                a = a.tocsr()
-                k = self._ell_k.get(("loader", i))
-                if k is None:
-                    row_nnz = np.diff(a.indptr)
-                    k = bucket_nnz(int(row_nnz.max()) if a.shape[0] else 0)
-                    self._ell_k[("loader", i)] = k
-                return ell_from_csr(a, k=k)
+                return ell_from_csr(a.tocsr(), k=self._loader_bucket(i, b, a))
             return np.asarray(a)
 
         def read():
@@ -356,6 +354,26 @@ class HostBlockSource:
             return read()
         return self.retry_policy.run(read, kind="block-load",
                                      detail=f"block {b}")
+
+    def _loader_bucket(self, i: int, b: int, a) -> int:
+        """The slot bucket of the sparse element at position ``i`` of a
+        loader's blocks: learned from block 0 (read now if block ``b`` is
+        another), so it does not depend on which block a host reads first
+        (an elastic host's shard, a resume) and every roster encodes each
+        block at one width."""
+        from dask_ml_tpu_torch.parallel.shapes import bucket_nnz
+
+        k = self._ell_k.get(("loader", i))
+        if k is None:
+            if b != 0:
+                if self.fault_injector is not None:
+                    self.fault_injector.on_load(0)
+                a = self._loader(0)[i]
+            a = a.tocsr()
+            row_nnz = np.diff(a.indptr)
+            k = bucket_nnz(int(row_nnz.max()) if a.shape[0] else 0)
+            self._ell_k[("loader", i)] = k
+        return k
 
     def _pad_block(self, b: int, blk: tuple) -> tuple:
         """Zero-pad a short tail block to the common row count (see the
@@ -490,6 +508,19 @@ class HostBlockSource:
         self.bytes_streamed += nbytes
         self.logical_bytes_streamed += logical
         self.blocks_started += 1
+        self._mirror(nbytes, logical, 1)
+
+    def _mirror(self, wire: int, logical: int, blocks: int) -> None:
+        """The registry mirrors of the three counters (and the per-host
+        one), moved at the counters' own sites."""
+        if not telemetry.enabled():
+            return
+        reg = telemetry.metrics()
+        reg.counter("stream.bytes_streamed").inc(wire)
+        reg.counter("stream.logical_bytes_streamed").inc(logical)
+        reg.counter("stream.blocks_started").inc(blocks)
+        if self.host_rank is not None:
+            reg.counter("stream.bytes", host=str(self.host_rank)).inc(wire)
 
     def take(self, b: int) -> tuple:
         """Device tensors of block ``b``: in flight already when the
@@ -533,6 +564,7 @@ class HostBlockSource:
                 self.bytes_streamed -= wire
                 self.logical_bytes_streamed -= logical
                 self.blocks_started -= 1
+                self._mirror(-wire, -logical, -1)
             _, event, _ = self._inflight.pop(b)
             if event is not None:
                 event.synchronize()
@@ -609,19 +641,33 @@ def prefetched_scan(step, carry, source: HostBlockSource, *,
     snapshot's resume coordinates: the scan replays from the first
     incomplete block on a bit-identical trajectory.
 
-    ``blocks=`` (an explicit block sequence, the elastic tier's) is not
-    ported and raises."""
-    if blocks is not None:
-        raise NotImplementedError(
-            "blocks= belongs to the elastic multi-host tier, ROADMAP Queue "
-            "A item 10b, which the port does not have yet")
-    n = source.n_blocks
+    ``blocks`` (the elastic tier, ``parallel/elastic.py``) is an explicit
+    sequence of block ids to consume, this host's shard of a shuffled
+    epoch, in place of ``range(n_blocks)``. ``start_block`` is then a
+    position in that sequence, ``step`` still receives the global block
+    id, and snapshots save the sequence under ``meta["blocks"]``, so a
+    resume replays it whatever the roster has become. ``wrap=True`` is
+    refused with a sequence: the next epoch's order is the elastic
+    loop's to know."""
+    if blocks is None:
+        seq, saved_seq = range(source.n_blocks), None
+    else:
+        if wrap:
+            raise ValueError(
+                "wrap=True cannot combine with an explicit blocks= "
+                "sequence: the lookahead would need the next epoch's "
+                "permutation, which only the elastic loop knows")
+        seq = saved_seq = [int(b) for b in blocks]
+    n = len(seq)
     depth = source.prefetch if prefetch is None else int(prefetch)
     outs = [] if outs is None else list(outs)
     start_block = int(start_block)
     injector = source.fault_injector
 
-    def after_block(b, carry):
+    def after_block(pos, carry):
+        """Snapshot or drain after the block at position ``pos`` (the
+        resume coordinate); the injector's plans key on the block id."""
+        b = seq[pos]
         preempt = injector is not None and injector.should_preempt(b, epoch)
         if checkpoint is None:
             if preempt:
@@ -633,34 +679,37 @@ def prefetched_scan(step, carry, source: HostBlockSource, *,
         drain = checkpoint.drain
         if preempt or (drain is not None and drain.requested):
             source.discard_inflight()
-            checkpoint.save(carry, outs, b + 1, epoch, reason="preempt")
+            checkpoint.save(carry, outs, pos + 1, epoch, reason="preempt",
+                            blocks=saved_seq)
             raise Preempted(
-                f"graceful drain: snapshot at block {b + 1}/{n} of epoch "
+                f"graceful drain: snapshot at block {pos + 1}/{n} of epoch "
                 f"{epoch} saved to {checkpoint.path}; re-run with the same "
                 "checkpoint path to resume", path=checkpoint.path)
-        checkpoint.tick(carry, outs, b + 1, epoch)
+        checkpoint.tick(carry, outs, pos + 1, epoch, blocks=saved_seq)
 
     if depth <= 0:
-        for b in range(start_block, n):
+        for pos in range(start_block, n):
+            b = seq[pos]
             with telemetry.span("stream.block", block=b, epoch=epoch):
                 blk = source.take(b)
                 _sync(source.device)
                 carry, out = step(carry, b, blk)
                 _sync(source.device)
             outs.append(out)
-            after_block(b, carry)
+            after_block(pos, carry)
         return carry, outs
     for j in range(min(depth, n - start_block)):
-        source.start(start_block + j)
-    for b in range(start_block, n):
+        source.start(seq[start_block + j])
+    for pos in range(start_block, n):
+        b = seq[pos]
         with telemetry.span("stream.block", block=b, epoch=epoch):
             blk = source.take(b)
-            nxt = b + depth
+            nxt = pos + depth
             if nxt < n:
-                source.start(nxt)
+                source.start(seq[nxt])
             elif wrap and nxt - n < n:
-                source.start(nxt - n)
+                source.start(seq[nxt - n])
             carry, out = step(carry, b, blk)
         outs.append(out)
-        after_block(b, carry)
+        after_block(pos, carry)
     return carry, outs

@@ -7,7 +7,8 @@
   the port (``comm -23`` of the two packages' ``*.py`` lists is empty).
 - Every name in each JAX module's ``__all__`` resolves in the port's
   counterpart, but an explicit list of ROADMAP Queue A item 10b names
-  (the ``mesh=`` branches still to port).
+  (empty since ``ElasticRun`` landed: what is left of item 10b are
+  ``mesh=`` branches of names the port has).
 - The package's ``__all__`` names the JAX package's submodules.
 """
 
@@ -21,9 +22,9 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: ROADMAP Queue A item 10b (the rest of multi-device): no whole module
-#: is missing, and these names of ported modules are
+#: is missing, and no name of a ported module is
 ITEM_10_MODULES = ()
-ITEM_10_NAMES = {"parallel.elastic": {"ElasticRun"}}
+ITEM_10_NAMES: dict = {}
 
 #: the modules item 10a ported (the multi-device substrate)
 SUBSTRATE = ("parallel.mesh", "parallel.hierarchy", "parallel.runtime",
@@ -128,7 +129,7 @@ def test_parallel_package_exports_what_jax_exports():
                  "mesh", "hierarchy", "sharding", "elastic")
              for a in node.names]
     missing = [n for n in names if not hasattr(port, n)
-               and n not in ITEM_10_NAMES["parallel.elastic"]]
+               and n not in ITEM_10_NAMES.get("parallel.elastic", ())]
     assert names and not missing, missing
 
 

@@ -15,11 +15,18 @@ pinned, and with what tolerance:
   (scores atol 1e-6, coefficients rtol 1e-5), a journal resume repeats
   every score and state bit for bit, a failed rung is never journaled, a
   rung timeout keeps the last completed rung's score, plateau stops,
-  ``elastic=`` raising, and MiniBatchKMeans on the generic path.
+  and MiniBatchKMeans on the generic path;
+- the elastic candidate plane (``elastic=``, the JAX ``tests/test_asha.py``
+  cases on threads sharing a workdir): a world of one and two hosts give
+  the non-elastic search's scores and states bit for bit, a host killed
+  mid-bracket drops no candidate and changes no bit, a stalled peer's
+  candidate is speculatively recomputed, and rosters of one and two give
+  the same ``cv_results_``.
 """
 
 import os
 import pickle
+import threading
 import time
 
 import numpy as np
@@ -38,7 +45,12 @@ from dask_ml_tpu_torch.model_selection import (
     SuccessiveHalvingSearchCV,
 )
 from dask_ml_tpu_torch.model_selection import _incremental as tinc
-from dask_ml_tpu_torch.parallel.elastic import BlockPlan
+from dask_ml_tpu_torch.parallel.elastic import (
+    BlockPlan,
+    ElasticRun,
+    SimulatedHostDeath,
+)
+from dask_ml_tpu_torch.parallel.faults import FaultInjector
 
 SEED = 0
 SCORE_RTOL = 1e-4
@@ -450,9 +462,6 @@ def test_plateau_disabled_matches_default_bit_identical():
 
 def test_options_that_raise():
     X, y = _problem()
-    with pytest.raises(NotImplementedError, match="Queue A item 10b"):
-        SuccessiveHalvingSearchCV(_est(), GRID, elastic=object(),
-                                  **KW).fit(X, y)
     with pytest.raises(ValueError, match="fit_params"):
         SuccessiveHalvingSearchCV(_est(), GRID, **KW).fit(
             X, y, sample_weight=np.ones(len(y)))
@@ -469,6 +478,166 @@ def test_options_that_raise():
         SuccessiveHalvingSearchCV(_est(), GRID, **KW).shared_fit_report()
     with pytest.raises(AttributeError, match="fit"):
         SuccessiveHalvingSearchCV(_est(), GRID, **KW).predict(X)
+
+
+# ---------------------------------------------------------------------------
+# elastic: the kill drill, determinism across rosters, speculation
+# ---------------------------------------------------------------------------
+
+
+def _host(out, rank, wd, X, y, injector=None, speculate_after=None,
+          heartbeat_timeout=2.0, batched=True):
+    def go():
+        with config_context(device="cpu"):
+            run = ElasticRun(wd, rank=rank, world=2, poll_interval=0.05,
+                             heartbeat_timeout=heartbeat_timeout,
+                             fault_injector=injector,
+                             speculate_after=speculate_after)
+            sh = SuccessiveHalvingSearchCV(_est(), GRID, elastic=run,
+                                           batched_rungs=batched, **KW)
+            try:
+                sh.fit(X, y)
+                out[rank] = sh
+            except SimulatedHostDeath:
+                out[rank] = "died"
+
+    t = threading.Thread(target=go, daemon=True)
+    t.start()
+    return t
+
+
+def _join(*threads):
+    for t in threads:
+        t.join(120)
+        assert not t.is_alive(), "elastic search deadlocked"
+
+
+def _same_search(a, b):
+    np.testing.assert_array_equal(a.cv_results_["test_score"],
+                                  b.cv_results_["test_score"])
+    assert a.best_params_ == b.best_params_
+    assert (pickle.dumps(a.best_estimator_._pf_state)
+            == pickle.dumps(b.best_estimator_._pf_state))
+
+
+@pytest.mark.parametrize("batched", [True, False],
+                         ids=["batched", "generic"])
+def test_elastic_world1_matches_nonelastic_bit_identical(tmp_path, batched):
+    X, y = _problem()
+    ref = SuccessiveHalvingSearchCV(_est(), GRID, batched_rungs=batched,
+                                    **KW).fit(X, y)
+    run = ElasticRun(tmp_path, rank=0, world=1)
+    sh = SuccessiveHalvingSearchCV(_est(), GRID, elastic=run,
+                                   batched_rungs=batched, **KW).fit(X, y)
+    _same_search(sh, ref)
+    assert sh.n_blocks_rebalanced_ == sh.n_blocks_speculated_ == 0
+
+
+def test_two_hosts_match_single_host_and_each_other(tmp_path):
+    X, y = _problem()
+    ref = SuccessiveHalvingSearchCV(_est(), GRID, **KW).fit(X, y)
+    out = {}
+    _join(*[_host(out, r, tmp_path, X, y) for r in (0, 1)])
+    for r in (0, 1):
+        assert out[r] != "died"
+        _same_search(out[r], ref)
+
+
+def test_kill_one_host_mid_bracket_drops_zero_candidates(tmp_path):
+    X, y = _problem()
+    ref = SuccessiveHalvingSearchCV(_est(), GRID, **KW).fit(X, y)
+    out = {}
+    # rung 1 of bracket 0 publishes under uid 1001; rank 1 owns the upper
+    # candidate shard {2, 3} of its 4 alive: it dies after block 2
+    inj = FaultInjector().die_at(2, epoch=1001)
+    t0 = _host(out, 0, tmp_path, X, y)
+    t1 = _host(out, 1, tmp_path, X, y, injector=inj)
+    _join(t0, t1)
+    assert out[1] == "died"
+    sh = out[0]
+    assert sh.n_blocks_rebalanced_ >= 1
+    assert np.isfinite(sh.cv_results_["test_score"]).all()
+    _same_search(sh, ref)
+    assert "re-dealt from lost hosts" in sh.shared_fit_report()
+
+
+def test_speculative_redeal_of_straggler_blocks(tmp_path):
+    """A healthy but stalled peer's block is recomputed by an idle host;
+    the owner's later publication changes nothing (the first one wins)."""
+    run = ElasticRun(tmp_path, rank=0, world=2, poll_interval=0.05,
+                     heartbeat_timeout=30.0, speculate_after=0.3)
+    peer = ElasticRun(tmp_path, rank=1, world=2, poll_interval=0.05,
+                      heartbeat_timeout=30.0)
+    run.bind_problem("spec", x=1)
+    peer.bind_problem("spec", x=1)
+    order = [0, 1, 2, 3]
+    plan = BlockPlan(4, seed=0, shuffle=False)
+    owner = {0: 0, 1: 0, 2: 1, 3: 1}
+
+    def make(b):
+        return {"v": np.full(3, 10.0 * b)}
+
+    stop = threading.Event()
+
+    def slow_peer():
+        peer.publish(7, 2, make(2))
+        peer.beat()
+        while not stop.is_set():  # a healthy heartbeat, block 3 stalled
+            peer.beat()
+            time.sleep(0.05)
+
+    t = threading.Thread(target=slow_peer, daemon=True)
+    t.start()
+    try:
+        def compute_publish(blocks):
+            for b in blocks:
+                run.publish(7, b, make(b))
+                run.beat()
+
+        compute_publish([0, 1])
+        got = run.collect_epoch(plan, 7, order, owner, compute_publish)
+    finally:
+        stop.set()
+        t.join(5)
+    assert not t.is_alive()
+    assert run.blocks_speculated == 1
+    assert run.blocks_rebalanced == 0  # nobody died
+    for b in order:
+        np.testing.assert_array_equal(got[b]["v"], np.full(3, 10.0 * b))
+
+
+def test_seeded_determinism_across_rosters(tmp_path):
+    """Rosters of one and two give the same cv_results_: the candidate deal
+    changes who computes, never what."""
+    X, y = _problem()
+    run1 = ElasticRun(tmp_path / "w1", rank=0, world=1)
+    a = SuccessiveHalvingSearchCV(_est(), GRID, elastic=run1,
+                                  **KW).fit(X, y)
+    out = {}
+    _join(*[_host(out, r, tmp_path / "w2", X, y) for r in (0, 1)])
+    b = out[0]
+    np.testing.assert_array_equal(a.cv_results_["test_score"],
+                                  b.cv_results_["test_score"])
+    for k in ("rung_", "n_epochs_", "partial_fit_calls",
+              "rank_test_score"):
+        np.testing.assert_array_equal(a.cv_results_[k], b.cv_results_[k])
+    assert [h["score"] for h in a.history_] == [h["score"]
+                                                for h in b.history_]
+
+
+def test_elastic_journal_is_one_file_a_rank(tmp_path):
+    X, y = _problem()
+    run = ElasticRun(tmp_path / "wd", rank=0, world=1)
+    ck = str(tmp_path / "journal")
+    sh = SuccessiveHalvingSearchCV(_est(), GRID, elastic=run, checkpoint=ck,
+                                   **KW).fit(X, y)
+    assert os.path.exists(ck + ".r0") and not os.path.exists(ck)
+    again = SuccessiveHalvingSearchCV(
+        _est(), GRID, elastic=ElasticRun(tmp_path / "wd2", rank=0, world=1),
+        checkpoint=ck, **KW).fit(X, y)
+    # every candidate-rung of the rerun comes from rank 0's journal
+    assert again.n_resumed_rungs_ == len(again.history_) > 0
+    _same_search(sh, again)
 
 
 def test_params_match_jax():

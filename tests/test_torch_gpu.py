@@ -1883,3 +1883,70 @@ def test_gloo_world_of_two_on_one_card_equals_one_device(cuda, tmp_path):
                     assert k1 == km.n_iter_ and k5 == 0
                 else:
                     assert k5 == km.n_iter_ and k1 == 0
+
+
+@pytest.mark.parametrize("kind", ["sparse", "dense"])
+def test_elastic_admm_two_hosts_on_one_card_with_a_kill(cuda, tmp_path,
+                                                        kind):
+    """Two thread-hosts share the card and a workdir; host 1 dies after
+    its first block of epoch 0. The survivor re-deals the orphans and ends
+    with the single-host (z, x, u) bit for bit; on sparse blocks K6 and
+    K6-b launched in the run."""
+    import threading
+
+    import scipy.sparse as scipy_sparse
+
+    from dask_ml_tpu_torch.parallel.elastic import (BlockPlan, ElasticRun,
+                                                    SimulatedHostDeath)
+    from dask_ml_tpu_torch.parallel.faults import FaultInjector
+    from dask_ml_tpu_torch.parallel.stream import HostBlockSource
+
+    rng = np.random.default_rng(19)
+    n, d, nb = 40_000, 2_000, 4
+    if kind == "sparse":
+        X = scipy_sparse.random(n, d, density=0.01, format="csr",
+                                random_state=19, dtype=np.float32)
+        y = (np.asarray(X.sum(axis=1)).ravel() > 0).astype(np.float32)
+    else:
+        d = 50
+        X = rng.standard_normal((n, d), dtype=np.float32)
+        y = (X @ rng.standard_normal(d) > 0).astype(np.float32)
+    w = np.ones(n, np.float32)
+    kw = dict(lamduh=1.0, abstol=0.0, reltol=0.0, max_iter=3,
+              return_state=True)
+
+    def fit(elastic=None):
+        return glm_core.admm_streamed(HostBlockSource((X, y, w), nb), nb, d,
+                                      float(n), elastic=elastic, **kw)[2]
+
+    base = fit()
+    order = BlockPlan(nb, seed=5).epoch_order(0)
+    inj = FaultInjector().die_at(BlockPlan.shard(order, 1, [0, 1])[0])
+    out = {}
+
+    def host(rank):
+        with config_context(device="cuda"):
+            run = ElasticRun(tmp_path, rank=rank, world=2, shuffle_seed=5,
+                             heartbeat_timeout=3.0, poll_interval=0.02,
+                             fault_injector=inj if rank else None)
+            try:
+                out[rank] = (fit(run), run)
+            except SimulatedHostDeath as e:
+                out[rank] = (e, run)
+
+    _kernels.reset_launches()
+    ts = [threading.Thread(target=host, args=(r,)) for r in (0, 1)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(300)
+        assert not t.is_alive()
+    assert isinstance(out[1][0], SimulatedHostDeath)
+    state, run0 = out[0]
+    for a, b in zip(base, state):
+        assert torch.equal(a, b)
+    assert run0.hosts_lost == 1 and 1 <= run0.blocks_rebalanced < nb
+    if kind == "sparse":
+        assert _kernels.launches["spmv"] + _kernels.launches["spmv_l2"] > 0
+        assert (_kernels.launches["spmv_pullback"]
+                + _kernels.launches["spmv_pullback_l2"]) > 0

@@ -98,17 +98,33 @@ def test_constructor_validation():
         HostBlockSource((w, X), 5)
 
 
-def test_unported_options_name_their_queue_item():
+def test_unported_options_name_their_queue_item(tmp_path):
+    """The options that once raised naming their ROADMAP item are ported:
+    a storage dtype is taken as given (item 9); ``host_rank`` names the
+    host a source streams for, and ``blocks=`` scans an explicit sequence,
+    saved with the snapshot (item 10b)."""
     X, w = _arrays()
-    # the wire cast (item 9) is ported: a storage dtype is taken as given
     assert HostBlockSource((X, w), 4, storage_dtype=np.float16
                            ).storage_dtype == torch.float16
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        HostBlockSource((X, w), 4, host_rank=0)
-    src = HostBlockSource((X, w), 4, storage_dtype=None)
-    assert src.storage_dtype is None
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        prefetched_scan(lambda c, b, blk: (c, None), 0, src, blocks=[0, 1])
+    assert HostBlockSource((X, w), 4).host_rank is None
+    src = HostBlockSource((X, w), 4, host_rank=1, storage_dtype=None)
+    assert src.storage_dtype is None and src.host_rank == 1
+    assert src.with_transform(lambda blk: blk).host_rank == 1
+    seen = []
+
+    def step(carry, b, blk):
+        seen.append(b)
+        return carry + 1, b
+
+    ck = ScanCheckpoint(str(tmp_path / "scan.ckpt"), every=1)
+    carry, outs = prefetched_scan(step, 0, src, blocks=[3, 1],
+                                  checkpoint=ck, epoch=2)
+    assert seen == outs == [3, 1] and carry == 2
+    assert ck.load()[2:] == (2, 2)           # a position, and the epoch
+    assert ck.last_meta["blocks"] == [3, 1]
+    # the resume coordinate is a position in the sequence
+    _, rest = prefetched_scan(step, 0, src, blocks=[3, 1], start_block=1)
+    assert rest == [1]
 
 
 def test_host_block_slicing_and_range():
@@ -212,14 +228,23 @@ def test_sparse_elements_arrays_and_loader_modes():
     np.testing.assert_array_equal(B1.values.numpy(), cont.values[16:32])
     np.testing.assert_array_equal(B1.cols.numpy(), cont.cols[16:32])
 
-    # loader mode fixes the bucket from the first block seen
+    # loader mode fixes the bucket from block 0, whichever block is read
+    # first (an elastic host's shard, a resume): every roster encodes a
+    # block at one width
     src3 = HostBlockSource(
         loader=lambda b: (csr[b * 16:(b + 1) * 16], w[b * 16:(b + 1) * 16]),
         n_blocks=4)
     A1, _ = src3.take(1)
-    assert A1.values.shape[1] == src3._ell_k[("loader", 0)]
+    assert A1.values.shape[1] == src3._ell_k[("loader", 0)] == 16
+    assert src3.take(0)[0].values.shape[1] == 16
+    # a later block wider than block 0's bucket raises
+    src4 = HostBlockSource(
+        loader=lambda b: (csr[(b + 1) % 4 * 16:((b + 1) % 4 + 1) * 16],
+                          w[:16]),
+        n_blocks=4)
+    assert src4.take(1)[0].values.shape[1] < 16
     with pytest.raises(BlockFetchError, match="widen k"):
-        src3.take(0)  # block 0's row of 9 nonzeros exceeds the bucket
+        src4.take(3)  # block 3 holds the row of 9 nonzeros
 
 
 def test_inflight_bookkeeping_and_stats():

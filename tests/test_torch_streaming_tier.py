@@ -43,6 +43,7 @@ from dask_ml_tpu_torch.convert import stream_state_from_numpy
 from dask_ml_tpu_torch.decomposition import PCA, streaming
 from dask_ml_tpu_torch.models import glm as tcore
 from dask_ml_tpu_torch.ops import sparse as tsps
+from dask_ml_tpu_torch.parallel.elastic import ElasticRun
 from dask_ml_tpu_torch.parallel.faults import (FaultInjector, Preempted,
                                                RetryPolicy)
 from dask_ml_tpu_torch.parallel.stream import HostBlockSource
@@ -134,7 +135,7 @@ def test_admm_streamed_modes_agree_bit_for_bit_and_follow_admm():
     _assert_state(s1, s3, dict(rtol=1e-5, atol=1e-6))
 
 
-def test_admm_streamed_state_resume_and_validation():
+def test_admm_streamed_state_resume_and_validation(tmp_path):
     X, y, w = _problem(n=320, seed=2)
     n, d = X.shape
     kw = dict(lamduh=0.3, abstol=0.0, reltol=0.0, return_state=True)
@@ -157,8 +158,18 @@ def test_admm_streamed_state_resume_and_validation():
     with pytest.raises(ValueError, match="HostBlockSource"):
         tcore.admm_streamed(lambda b: None, 4, d, float(n),
                             checkpoint_path="unused")
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        tcore.admm_streamed(src, 4, d, float(n), elastic=object())
+    # the elastic tier (item 10b): a world of one gives the same bits,
+    # and a callable has no host blocks to shard
+    run = ElasticRun(tmp_path, rank=0, world=1, shuffle_seed=3)
+    _, n_el, el, _ = tcore.admm_streamed(HostBlockSource((X, y, w), 4), 4,
+                                         d, float(n), max_iter=6,
+                                         elastic=run, **kw)
+    assert n_el == 6
+    for a, b in zip(full, el):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="elastic= requires a Host"):
+        tcore.admm_streamed(lambda b: None, 4, d, float(n),
+                            elastic=object())
 
 
 @pytest.mark.parametrize("preempt_at", [(0, 0), (2, 1), (4, 3)],
@@ -270,7 +281,7 @@ def _pca_data(n=2000, d=8, seed=0):
     return X, w
 
 
-def test_streamed_moments_match_jax_in_both_modes():
+def test_streamed_moments_match_jax_in_both_modes(tmp_path):
     X, w = _pca_data()
     jm = jstreaming.streamed_moments(
         block_fn=jstream.HostBlockSource((X, w), 8), n_blocks=8)
@@ -293,7 +304,15 @@ def test_streamed_moments_match_jax_in_both_modes():
     with pytest.raises(ValueError, match="HostBlockSource"):
         streaming.streamed_moments(block_fn=block_fn, n_blocks=8,
                                    checkpoint_path="unused")
-    with pytest.raises(NotImplementedError, match="item 10b"):
+    # the elastic tier (item 10b): per-block moments folded in block-id
+    # order, Neumaier-close to the running chain; a callable is refused
+    run = ElasticRun(tmp_path, rank=0, world=1)
+    el = streaming.streamed_moments(block_fn=HostBlockSource((X, w), 8),
+                                    n_blocks=8, elastic=run)
+    for a, b in zip(host, el):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), **MOMENT_TOL)
+    np.testing.assert_allclose(el[2].numpy(), G64, rtol=1e-5)
+    with pytest.raises(ValueError, match="elastic= requires a Host"):
         streaming.streamed_moments(block_fn=block_fn, n_blocks=8,
                                    elastic=object())
 

@@ -3,7 +3,12 @@ counts (``parallel/shapes.py``) and ``utils/_log.py`` on the CPU: the
 JAX package's telemetry scenarios, plus parity with the JAX package —
 ``Histogram.percentiles`` equal on the same samples (the window cap,
 empty and single cases included) and ``telemetry_report()`` of the same
-key structure for the same sequence of spans and metrics.
+key structure for the same sequence of spans and metrics. The mirrors of
+the streaming and elastic tiers (the JAX ``tests/test_telemetry.py``
+cases): ``stream.*`` and the per-host ``stream.bytes{host=}`` equal the
+source's own counters through a discard rollback, and the
+``elastic.*`` counters equal the ``ElasticRun`` counters, silent with the
+knob off.
 """
 
 import json
@@ -302,6 +307,102 @@ def test_histogram_percentiles_empty_single_and_buckets(samples):
     assert h.buckets == jh.buckets
     if not samples:
         assert got == {"p50": None, "p99": None}
+
+
+# ---------------------------------------------------------------------------
+# the streaming and elastic mirrors
+# ---------------------------------------------------------------------------
+
+
+def _streamed_blocks(n=512, d=4, n_blocks=4, seed=0):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d).astype(np.float32)
+    return X, np.ones(n, np.float32), n_blocks
+
+
+def _consume(source):
+    from dask_ml_tpu_torch.parallel.stream import prefetched_scan
+
+    return prefetched_scan(
+        lambda carry, b, blk: (carry + float(blk[0].sum()), None), 0.0,
+        source)
+
+
+def test_discard_inflight_rolls_mirrors_back():
+    from dask_ml_tpu_torch.parallel.stream import HostBlockSource
+
+    with config.config_context(device="cpu", telemetry=True):
+        X, w, nb = _streamed_blocks()
+        src = HostBlockSource((X, w), nb)
+        src.start(0)
+        src.start(1)
+        src.take(0)
+        src.discard_inflight()  # block 1 was issued, never consumed
+        c = telemetry.metrics().snapshot()["counters"]
+    assert c["stream.bytes_streamed"] == src.bytes_streamed
+    assert c["stream.logical_bytes_streamed"] == src.logical_bytes_streamed
+    assert c["stream.blocks_started"] == src.blocks_started == 1
+
+
+def test_per_host_stream_bytes_mirror_and_rollback():
+    """A source with ``host_rank`` adds its bytes to
+    ``stream.bytes{host=}`` at the unlabelled counter's site, the discard
+    rollback included."""
+    from dask_ml_tpu_torch.parallel.stream import HostBlockSource
+
+    with config.config_context(device="cpu", telemetry=True):
+        X, w, nb = _streamed_blocks()
+        src = HostBlockSource((X, w), nb, host_rank=3)
+        _consume(src)
+        c = telemetry.metrics().snapshot()["counters"]
+        assert c["stream.bytes{host=3}"] == src.bytes_streamed
+        src.start(0)
+        src.discard_inflight()
+        c = telemetry.metrics().snapshot()["counters"]
+    assert c["stream.bytes{host=3}"] == src.bytes_streamed
+    assert c["stream.bytes{host=3}"] == c["stream.bytes_streamed"]
+
+
+def test_elastic_host_lost_and_rebalance_mirrors(tmp_path):
+    import time
+
+    from dask_ml_tpu_torch.parallel.elastic import BlockPlan, ElasticRun
+
+    with config.config_context(device="cpu", telemetry=True):
+        run = ElasticRun(tmp_path, rank=0, world=2, heartbeat_timeout=0.05,
+                         poll_interval=0.01)
+        plan = BlockPlan(4, seed=0)
+        order = plan.epoch_order(0)
+        owner = {b: r for r in (0, 1)
+                 for b in BlockPlan.shard(order, r, [0, 1])}
+
+        def compute_publish(blocks):
+            for b in blocks:
+                run.publish(0, b, np.arange(float(b), float(b) + 3))
+
+        compute_publish([b for b in order if owner[b] == 0])
+        time.sleep(0.1)  # host 1 never beat: its silence crosses the line
+        results = run.collect_epoch(plan, 0, order, owner, compute_publish)
+        c = telemetry.metrics().snapshot()["counters"]
+        spans = {r["name"] for r in telemetry.spans()}
+    assert set(results) == set(order)
+    assert run.hosts_lost == 1 and run.blocks_rebalanced == 2
+    assert c["elastic.host_lost"] == run.hosts_lost
+    assert c["elastic.blocks_rebalanced"] == run.blocks_rebalanced
+    assert "elastic.rebalance" in spans
+
+
+def test_elastic_mirrors_silent_when_disabled(tmp_path):
+    import time
+
+    from dask_ml_tpu_torch.parallel.elastic import ElasticRun
+
+    run = ElasticRun(tmp_path, rank=0, world=2, heartbeat_timeout=0.01,
+                     poll_interval=0.01)
+    time.sleep(0.05)
+    assert run.lost_hosts() == {1}
+    assert run.hosts_lost == 1
+    assert telemetry.metrics().snapshot()["counters"] == {}
 
 
 # ---------------------------------------------------------------------------
