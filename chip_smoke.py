@@ -215,8 +215,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``StandardScaler(with_mean=False)`` on the flagship container of step
    7 (the raw container's duplicate columns refused, then summed on the
    card; two fits the same bits, three pullbacks through K6-b, a device
-   profile of a fit, ``var_`` within 1e-5 of float64 column variances on
-   the host, K6-b's stored counts equal to the plain pullback's, the
+   profile of a fit, ``var_`` within 1e-5 of float64 column variances
+   (float64 sums on the card), K6-b's stored counts equal to the plain
+   pullback's, the
    transform equal to the plain gather); ``onehot-pipeline``, OneHotEncoder → StandardScaler(with_mean=
    False) → LogisticRegression(solver="lbfgs", max_iter=3) on 1,000,000
    rows of 26 categorical columns of 1,000 categories (K6 and K6-b
@@ -391,6 +392,33 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    / rebalanced / speculated, ``stream.bytes{host=}``, launches by route,
    the detection latency and the recovery overhead against the clean
    pair); the ``kernels`` line gains ``launches_elastic``.
+23. **The last ``mesh=`` paths over a world of ranks** (``MESHREST``):
+   NCCL 1, gloo 2 (flat) and gloo 4 (flat and 2 × 2), each world spawned
+   once on card 0, run every cell on the flat layout and the datasets,
+   kernel k-means and mini-batch cells on the 2 × 2 one:
+   ``meshrest-datasets`` (``make_blobs(1e6, 50, 8,
+   seed 0, mesh=)``: every rank the world-1 bits, by sha256),
+   ``meshrest-spectral`` (the NYSTROM cell: ARI 1.0 against the
+   single-device fit, ``predict(X) == labels_``),
+   ``meshrest-kernel-kmeans-xor`` (the XOR cell: ARI ≥ 0.9, the ledger's
+   ``kernel.gram.colsum`` equal to the formula), ``meshrest-search``
+   (config 5's pipeline search at 150 of its 500 members: scores within
+   rtol 2e-3 of the single-device sweep, which its PCA stage's spectrum
+   sets, and the same ``best_params_``; its KMeans grid on the integer
+   copy: test scores bit for bit; every cell in a group),
+   ``meshrest-sketched`` (the KDD-shaped sketched fit: inertia ratio to
+   the exact bounded fit ≤ 1.05, labels those of the world-1 sketched fit
+   but on near ties, ``predict == labels_``), ``meshrest-minibatch``
+   (``MiniBatchKMeans(8)`` on the integer copy of the blobs, one epoch:
+   the single-device centers, counts and labels bit for bit) and
+   ``meshrest-serving`` (``ServingLoop(mesh=)``, the minibatch (K2) and
+   sketched (K2-x) models, 8 clients: every answer the direct
+   ``predict``'s bit for bit; then a hot swap of the minibatch model,
+   every later answer the new version's). On every rank each kernel a
+   cell launched, on either layout, is held bit for bit against its plain
+   version on an integer copy of that rank's block, and nothing builds or
+   loads after the warmup. A ``MESHREST`` line a world, layout and cell; the ``kernels``
+   line gains ``launches_meshrest``.
 
 ``python3 chip_smoke.py --spmv-only`` runs steps 1, 2, 6 and 8 alone, on a
 container of the sparse cell's shape drawn on the card;
@@ -404,7 +432,7 @@ and K6 at the serving shapes; ``--wire-only`` steps 1, 2 and 18, with a
 ``kernels`` line of K2 and K2-x; ``--machines-only`` steps 1, 2 and 19,
 with a ``kernels`` line of K2 and K2-x; ``--mesh-only`` steps 1, 2 and
 20; ``--glm-mesh-only`` steps 1, 2 and 21; ``--elastic-only`` steps 1, 2
-and 22.
+and 22; ``--mesh-rest-only`` steps 1, 2 and 23.
 
 Any failed phase raises, so the script exits non-zero and prints no
 result. Without a CUDA card it exits non-zero at once. The last line is
@@ -1735,6 +1763,9 @@ def kdd_cell(dev, errs):
     # -- sketched fit, then predict ----------------------------------------
     sk, sec_s, l_s = drive(fit("sketched"))
     expect_launches("sketched", l_s)
+    # the MESHREST phase holds its worlds to these two fits
+    drawn("kdd_fits", lambda: {"bounded_inertia": float(kmb.inertia_),
+                               "sketched": sk})
     pred_s, sec_sp, l_sp = drive(lambda: sk.predict(X))
     expect(l_sp["fused_argmin_min_sketched"] == 1
            and sum(l_sp.values()) == 1,
@@ -4919,22 +4950,25 @@ def canonical_rows(A, chunk: int = 1_000_000):
     return SparseRows(vals, cols, A.d)
 
 
-def host_column_var(A, chunk: int = 100_000_000):
-    """Float64 column variances of a device container of unit weights, on
-    the host: ``E[x²] − mean²`` from two bincounts of the slots, in
-    chunks."""
-    vals = A.values.cpu().numpy().ravel()
-    cols = A.cols.cpu().numpy().ravel()
+def float64_column_var(A, chunk: int = 100_000_000):
+    """Float64 column variances of a device container of unit weights:
+    ``E[x²] − mean²`` from two float64 scatter-adds of the slots on the
+    card, in chunks (``index_add_``, not the port's fixed-point pullback:
+    its order varies, its rounding is float64's)."""
+    import torch
+
+    vals = A.values.reshape(-1)
+    cols = A.cols.reshape(-1)
+    s1 = torch.zeros(A.d, dtype=torch.float64, device=vals.device)
+    s2 = torch.zeros_like(s1)
+    for i in range(0, vals.numel(), chunk):
+        v = vals[i:i + chunk].to(torch.float64)
+        c = cols[i:i + chunk].long()
+        s1.index_add_(0, c, v)
+        s2.index_add_(0, c, v * v)
     n = A.values.shape[0]
-    s1 = np.zeros(A.d)
-    s2 = np.zeros(A.d)
-    for i in range(0, vals.size, chunk):
-        v = vals[i:i + chunk].astype(np.float64)
-        c = cols[i:i + chunk]
-        s1 += np.bincount(c, weights=v, minlength=A.d)
-        s2 += np.bincount(c, weights=v * v, minlength=A.d)
     mean = s1 / n
-    return s2 / n - mean * mean
+    return (s2 / n - mean * mean).cpu().numpy()
 
 
 def sparse_scaler_cell(dev):
@@ -4944,9 +4978,9 @@ def sparse_scaler_cell(dev):
     the refusal, sums the duplicates on the card (``canonical_rows``, what
     the refusal asks for) and fits the canonical container twice (three
     pullbacks through K6-b; the same bits), holds ``var_`` within
-    SCALER_RTOL of float64 column variances on the host, K6-b's stored
-    counts to the plain pullback bit for bit, and the transform to the
-    plain gather bit for bit."""
+    SCALER_RTOL of float64 column variances (summed on the card), K6-b's
+    stored counts to the plain pullback bit for bit, and the transform to
+    the plain gather bit for bit."""
     import torch
 
     from dask_ml_tpu_torch.ops import sparse as sps
@@ -4988,7 +5022,7 @@ def sparse_scaler_cell(dev):
                                                     "device_busy_ms",
                                                     "busy_share")}
     t0 = time.perf_counter()
-    ref = host_column_var(A)
+    ref = float64_column_var(A)
     ref_s = time.perf_counter() - t0
     err = float(np.max(np.abs(sc.var_ - ref)
                        / np.maximum(np.abs(ref), 1e-30)))
@@ -5010,9 +5044,9 @@ def sparse_scaler_cell(dev):
            "the sparse transform is not the plain gather bit for bit")
     del Z, plain
     path_line("sparse-scaler", fit_s, None, l_fit, transform_s=tr_s,
-              var_rtol=err, host_reference_s=ref_s)
+              var_rtol=err, reference_s=ref_s)
     out.update(fit_s=fit_s, transform_s=tr_s, var_rtol=err,
-               host_reference_s=ref_s)
+               reference_s=ref_s)
     return l_fit, out
 
 
@@ -9288,6 +9322,588 @@ def elastic_cells(dev):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# The last mesh= paths over a world of ranks (MESHREST, step 23)
+# ---------------------------------------------------------------------------
+
+#: (backend, world size, layouts), as MESH_WORLDS: NCCL at world 1, gloo
+#: for two and four ranks sharing card 0; "hier" is 2 × 2 (world 2's
+#: 1 × 2, whose pod stage is empty, left to MESH: a depth cut)
+MESHREST_WORLDS = (("nccl", 1, ("flat",)), ("gloo", 2, ("flat",)),
+                   ("gloo", 4, ("flat", "hier")))
+#: every cell runs on the flat layout; the hierarchical layouts run the
+#: cells whose collectives change with the layout's two stages (a depth
+#: cut for the phase's time, PERF.md §4)
+MESHREST_CELLS = ("datasets", "spectral", "kernel-kmeans-xor", "search",
+                  "sketched", "minibatch", "serving")
+MESHREST_HIER_CELLS = ("datasets", "kernel-kmeans-xor", "minibatch")
+#: MiniBatchKMeans cut to one epoch (977 steps at batch 1,024); the
+#: serving cell's clients and requests a client
+MESHREST_MB_EPOCHS = 1
+MESHREST_CLIENTS, MESHREST_REQUESTS = 8, 16
+MESHREST_POOL = 65_536
+MESHREST_TIMEOUT = 600
+#: the sketched labels against the world-1 sketched fit: a mismatched row
+#: must score its two labels within this share of the operands'
+#: magnitude under the rank's own sketch (a near tie)
+MESHREST_TIE_EPS = 1e-4
+#: config 5's pipeline search over the ranks against the single-device
+#: sweep: its PCA stage sums its Gram over the ranks, and the data's
+#: spectrum (singular values about 1 % apart) turns the components by
+#: ≈ 2e-4 of the data's scale between two summation orders, which moves a
+#: member's inertia by up to ≈ 1e-3: rtol 2e-3 (the line records each
+#: score's largest relative error). The KMeans grid on the integer copy
+#: has no such stage: its test scores bit for bit.
+MESHREST_SEARCH_RTOL = 2e-3
+MESHREST_KERNELS = ("lloyd_iter", "fused_argmin_min", "fused_rowwise_min",
+                    "fused_argmin_weight", "fused_argmin_min2",
+                    "fused_argmin_min_sketched")
+
+
+def meshrest_sha(*arrays) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+#: config 5's grid with fewer members (a depth cut: three of its five PCA
+#: widths, every k, five of its ten tolerances; 150 candidates)
+MESHREST_SEARCH_GRID = {
+    "pca__n_components": SEARCH_GRID["pca__n_components"][::2],
+    "km__n_clusters": SEARCH_GRID["km__n_clusters"],
+    "km__tol": SEARCH_GRID["km__tol"][::2]}
+
+
+def meshrest_searches(X):
+    """Config 5's pipeline search on ``X``, and its KMeans grid alone on
+    the integer copy of ``X``; returns the two fitted searches."""
+    from dask_ml_tpu_torch.cluster import KMeans
+    from dask_ml_tpu_torch.model_selection import GridSearchCV
+
+    pipe = GridSearchCV(make_search_pipe(), MESHREST_SEARCH_GRID,
+                        cv=SEARCH_CV, n_jobs=SEARCH_JOBS).fit(X)
+    km = GridSearchCV(KMeans(init="random", max_iter=SEARCH_MAX_ITER,
+                             random_state=SEED),
+                      {"n_clusters": MESHREST_SEARCH_GRID["km__n_clusters"],
+                       "tol": MESHREST_SEARCH_GRID["km__tol"]},
+                      cv=SEARCH_CV, n_jobs=SEARCH_JOBS).fit(np.rint(X))
+    return pipe, km
+
+
+def meshrest_sketched_fit(X):
+    from dask_ml_tpu_torch.cluster import KMeans
+
+    return KMeans(n_clusters=K, init="k-means||", oversampling_factor=2,
+                  algorithm="sketched", random_state=SEED).fit(X)
+
+
+def meshrest_xor_fit(X):
+    from dask_ml_tpu_torch.cluster import KernelKMeans
+
+    return KernelKMeans(n_clusters=2, n_components=128, affinity="polynomial",
+                        degree=2, coef0=1.0, gamma=0.5,
+                        random_state=5).fit(X)
+
+
+def meshrest_spectral_fit(X):
+    from dask_ml_tpu_torch.cluster import SpectralClustering
+
+    return SpectralClustering(n_clusters=SPEC_K, n_components=SPEC_L,
+                              gamma=None, random_state=SEED).fit(X)
+
+
+def meshrest_refs(dev, tmp: str) -> dict:
+    """The single-device fits the worlds are held to, on the card (every
+    X drawn on the card from a seed, or with numpy; the KDD rows saved to
+    ``tmp`` for the ranks to map). Returns the summary's numbers."""
+    import os
+
+    import torch
+
+    from dask_ml_tpu_torch import datasets
+    from dask_ml_tpu_torch.cluster import KMeans, MiniBatchKMeans
+
+    ref, info, secs = {}, {}, {}
+    t0 = time.perf_counter()
+    X, y = datasets.make_blobs(N, D, centers=K, random_state=SEED)
+    info["blobs_sha"] = meshrest_sha(X.cpu().numpy(), y.cpu().numpy())
+    Xi = torch.round(X)
+    mb = MiniBatchKMeans(n_clusters=K, random_state=SEED,
+                         max_iter=MESHREST_MB_EPOCHS).fit(Xi)
+    ref["mb_centers"], ref["mb_labels"] = mb.cluster_centers_, mb.labels_
+    ref["mb_counts"] = mb.counts_
+    secs["minibatch"] = time.perf_counter() - t0
+    del X, Xi
+    t0 = time.perf_counter()
+    Xs, _ = nystrom_blobs(dev)
+    ref["spectral_labels"] = meshrest_spectral_fit(Xs).labels_
+    del Xs
+    secs["spectral"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Xx, yx = xor_data(XOR_N)
+    ref["xor_labels"] = meshrest_xor_fit(Xx).labels_
+    secs["kernel-kmeans-xor"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipe, km = meshrest_searches(search_data(SEED))
+    for tag, gs in (("pipe", pipe), ("int", km)):
+        for key in ("mean_test_score", "mean_train_score",
+                    "split0_test_score", "split1_test_score"):
+            ref[f"search_{tag}_{key}"] = np.asarray(gs.cv_results_[key])
+        info[f"search_{tag}_best"] = {k: (v.item() if hasattr(v, "item")
+                                          else v)
+                                      for k, v in gs.best_params_.items()}
+    secs["search"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Xk = drawn("kdd", lambda: kdd_data(KDD_N, KDD_D, SEED))
+    np.save(os.path.join(tmp, "kdd.npy"), Xk)
+
+    def kdd_fits():  # the KDD cell's bounded and sketched fits, if it ran
+        exact = KMeans(n_clusters=K, init="k-means||", oversampling_factor=2,
+                       algorithm="bounded", random_state=SEED).fit(Xk)
+        return {"bounded_inertia": float(exact.inertia_),
+                "sketched": meshrest_sketched_fit(Xk)}
+
+    fits = drawn("kdd_fits", kdd_fits)
+    ref["sk_labels"] = fits["sketched"].labels_
+    info["exact_inertia"] = fits["bounded_inertia"]
+    info["sk_inertia"] = float(fits["sketched"].inertia_)
+    secs["sketched"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    np.savez(os.path.join(tmp, "ref.npz"), **ref)
+    with open(os.path.join(tmp, "ref.json"), "w") as f:
+        json.dump(info, f)
+    return {"seconds": secs, "sk_inertia_ratio_single":
+            info["sk_inertia"] / info["exact_inertia"]}
+
+
+def meshrest_int_copy(X):
+    """An integer-valued copy of a block: rounded after scaling its
+    largest magnitude to 2, so the values are -2..2 and every per-row
+    score, every count and every column sum of a block below 2**22 rows
+    is exact in f32."""
+    import torch
+
+    Xf = X.to(torch.float32)
+    top = float(Xf.abs().max()) if Xf.numel() else 1.0
+    return torch.round(Xf * (2.0 / max(top, 1e-12))).contiguous()
+
+
+def meshrest_kernel_checks(tag, X, launched: dict) -> list:
+    """The kernels ``launched`` held bit for bit against their plain
+    versions on an integer copy of this rank's block ``X``: K1 from K
+    rows of it (on the whole block its sums and counts bit for bit and
+    its inertia, a sum of the block's integer costs in another order
+    than the plain version's, within rtol 1e-6; bit for bit, inertia
+    included, on the first rows whose costs sum below 2**24), K2 / K3 /
+    K4 against 80 rows of it with the rounds' mask (the first 16 valid),
+    K5 and K2-x against K rows of it. Returns the kernels checked."""
+    import torch
+
+    from dask_ml_tpu_torch.models import kmeans as core
+
+    Xi = meshrest_int_copy(X)
+    n, d = Xi.shape
+    checked = []
+    if launched.get("lloyd_iter", 0):
+        C = Xi[:K].clone()
+        w = torch.ones(n, device=Xi.device)
+        # a row's cost is at most d·4² with values in -2..2
+        head = min(n, max(K, (1 << 24) // (16 * d)))
+        check_lloyd(f"{tag} K1 on {head} rows", Xi[:head].contiguous(),
+                    w[:head], C, exact=True)
+        ks, kc, ki = core._lloyd_stats_cuda(Xi, w, C)
+        rs, rc, ri = core._lloyd_stats_ref(Xi, w, C)
+        expect(torch.equal(ks, rs) and torch.equal(kc, rc)
+               and abs(float(ki) - float(ri)) <= 1e-6 * abs(float(ri)),
+               f"{tag} K1 on the block: sums or counts not bit-identical, "
+               f"or inertia {float(ki)} vs {float(ri)}")
+        checked.append("lloyd_iter")
+    if any(launched.get(k, 0) for k in ("fused_argmin_min",
+                                        "fused_rowwise_min",
+                                        "fused_argmin_weight")):
+        m = min(ROUND_CAP, n)
+        mask = torch.arange(m, device=Xi.device) < min(ROUND_COUNT, m)
+        check_fused(f"{tag} K2-K4", Xi, Xi[:m].clone(), mask, exact=True)
+        checked += [k for k in ("fused_argmin_min", "fused_rowwise_min",
+                                "fused_argmin_weight") if launched.get(k)]
+    if launched.get("fused_argmin_min2", 0) or launched.get(
+            "fused_argmin_min_sketched", 0):
+        check_min2_sketched(f"{tag} K5/K2-x", Xi, Xi[:K].clone(),
+                            exact=True)
+        checked += [k for k in ("fused_argmin_min2",
+                                "fused_argmin_min_sketched")
+                    if launched.get(k)]
+    torch.cuda.synchronize()
+    return checked
+
+
+def meshrest_run(cell, m, dev, tmp, ref, info, state):
+    """Run ``cell`` over ``m`` on this rank with the launch counts set to
+    0 just before and read just after; gate it. Returns (the cell's
+    block of data for the kernel checks, its launches, its wall, its
+    numbers, errors)."""
+    import os
+
+    import torch
+
+    from dask_ml_tpu_torch import _kernels, datasets
+    from dask_ml_tpu_torch.cluster import MiniBatchKMeans
+    from dask_ml_tpu_torch.parallel import hierarchy as hier
+    from dask_ml_tpu_torch.parallel import mesh as mesh_lib
+    from dask_ml_tpu_torch.parallel.sharding import prepare_data
+
+    block, out, err = None, {}, []
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    hier.reset_ledger()
+    t0 = time.perf_counter()
+    with mesh_lib.use_mesh(m):
+        if cell == "datasets":
+            X, y = datasets.make_blobs(N, D, centers=K, random_state=SEED,
+                                       mesh=m)
+            sha = meshrest_sha(X.cpu().numpy(), y.cpu().numpy())
+            if sha != info["blobs_sha"]:
+                err.append("meshrest-datasets: the rank's blobs are not "
+                           "the world-1 bits")
+            state["blobs"] = X
+            block = prepare_data(X, mesh=m).X
+        elif cell == "spectral":
+            Xs, ys = nystrom_blobs(dev)
+            sc = meshrest_spectral_fit(Xs)
+            a = ari(ref["spectral_labels"], sc.labels_)
+            pred = sc.predict(Xs)
+            if a != 1.0 or not np.array_equal(pred, sc.labels_):
+                err.append(f"meshrest-spectral: ARI {a} against the "
+                           "single-device fit, or predict(X) != labels_")
+            out = {"ari_vs_single": a, "ari_vs_truth": ari(ys,
+                                                               sc.labels_)}
+            block = sc._extend_rows(prepare_data(Xs, mesh=m).X)
+        elif cell == "kernel-kmeans-xor":
+            Xx, yx = xor_data(XOR_N)
+            kk = meshrest_xor_fit(Xx)
+            led = hier.ledger_snapshot()["ops"].get("kernel.gram.colsum",
+                                                    {})
+            want = (hier.collective_bytes(m, 128 * 4)
+                    if mesh_lib.is_sharded(m) else {})
+            if mesh_lib.is_sharded(m) and led != want:
+                err.append(f"meshrest-kernel-kmeans-xor: ledger {led}, "
+                           f"formula {want}")
+            a = ari(yx, kk.labels_)
+            if a < 0.9 or not np.array_equal(kk.predict(Xx), kk.labels_):
+                err.append(f"meshrest-kernel-kmeans-xor: ARI {a} < 0.9 or "
+                           "predict(X) != labels_")
+            out = {"ari": a, "ari_vs_single": ari(ref["xor_labels"],
+                                                      kk.labels_),
+                       "ledger_colsum": led}
+            block = kk._extend_rows(prepare_data(Xx, mesh=m).X)
+        elif cell == "search":
+            X = search_data(SEED)
+            pipe, km = meshrest_searches(X)
+            for tag, gs in (("pipe", pipe), ("int", km)):
+                for key in ("mean_test_score", "mean_train_score",
+                            "split0_test_score", "split1_test_score"):
+                    got = np.asarray(gs.cv_results_[key])
+                    want = ref[f"search_{tag}_{key}"]
+                    if tag == "int" and "test" in key:
+                        ok = np.array_equal(got, want)
+                    else:
+                        ok = np.allclose(got, want, atol=0, rtol=(
+                            1e-5 if tag == "int" else MESHREST_SEARCH_RTOL))
+                    out[f"{tag}_{key}_max_rel_err"] = float(np.max(
+                        np.abs(got - want) / np.abs(want)))
+                    if not ok:
+                        err.append(f"meshrest-search {tag} {key}: max rel "
+                                   f"err {np.max(np.abs(got - want) / np.abs(want))}")
+                best = {k: (v.item() if hasattr(v, "item") else v)
+                        for k, v in gs.best_params_.items()}
+                if best != info[f"search_{tag}_best"]:
+                    err.append(f"meshrest-search {tag}: best_params_ {best}")
+                out[f"{tag}_batched_cells"] = int(gs.n_batched_cells_)
+                if gs.n_batched_cells_ != len(gs.cv_results_["params"]) \
+                        * SEARCH_CV:
+                    err.append(f"meshrest-search {tag}: a cell ran outside "
+                               "its group")
+            block = prepare_data(np.rint(X[:X.shape[0] // SEARCH_CV]),
+                                     mesh=m).X
+        elif cell == "sketched":
+            Xk = np.load(os.path.join(tmp, "kdd.npy"), mmap_mode="r")
+            sk = meshrest_sketched_fit(Xk)
+            ratio = sk.inertia_ / info["exact_inertia"]
+            data = prepare_data(Xk, mesh=m)
+            Wp, off, vals, _ = sk._sketch_args(dev)
+            Zp = data.X @ Wp - off[None, :]
+            bad = np.flatnonzero(sk.labels_ != ref["sk_labels"])
+            ties_ok = True
+            if bad.size:
+                Zb = torch.as_tensor(np.asarray(Xk[bad]), device=dev) @ Wp \
+                    - off[None, :]
+                s = (vals * vals).sum(1)[None, :] - 2.0 * Zb @ vals.T
+                lab = torch.as_tensor(sk.labels_[bad], device=dev).long()
+                lab1 = torch.as_tensor(ref["sk_labels"][bad],
+                                       device=dev).long()
+                gap = (s.gather(1, lab[:, None]) - s.gather(
+                    1, lab1[:, None]))[:, 0].abs()
+                reach = MESHREST_TIE_EPS * ((Zb * Zb).sum(1)
+                                            + (vals * vals).sum(1).max())
+                ties_ok = bool((gap <= reach).all())
+            pred = sk.predict(Xk)
+            if ratio > 1.05 or not ties_ok \
+                    or not np.array_equal(pred, sk.labels_):
+                err.append(f"meshrest-sketched: inertia ratio {ratio}, "
+                           f"{bad.size} labels off the world-1 fit (near "
+                           f"ties: {ties_ok}), or predict != labels_")
+            out = {"inertia_ratio": ratio, "n_iter": int(sk.n_iter_),
+                       "labels_off_world1": int(bad.size)}
+            state["sketched"] = sk
+            state["kdd"] = Xk
+            block = Zp
+        elif cell == "minibatch":
+            Xi = torch.round(state["blobs"])
+            mb = MiniBatchKMeans(n_clusters=K, random_state=SEED,
+                                 max_iter=MESHREST_MB_EPOCHS).fit(Xi)
+            if not (np.array_equal(mb.cluster_centers_, ref["mb_centers"])
+                    and np.array_equal(mb.labels_, ref["mb_labels"])
+                    and np.array_equal(mb.counts_, ref["mb_counts"])):
+                err.append("meshrest-minibatch: not the single-device "
+                           "centers, counts and labels bit for bit")
+            out = {"n_steps": int(mb.n_iter_)}
+            state["minibatch"] = mb
+            state["blobs_int"] = Xi
+            block = prepare_data(Xi, mesh=m).X
+        elif cell == "serving":
+            out, e = meshrest_serving(m, state)
+            err += e
+            block = state["serving_block"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: int(_kernels.launches[k]) for k in MESHREST_KERNELS}
+    out["ledger_bytes"] = hier.ledger_snapshot()["bytes"]
+    return block, launches, wall, out, err
+
+
+def meshrest_serving(m, state):
+    """``ServingLoop(mesh=)`` over the minibatch model (K2) and the
+    sketched model (K2-x) with MESHREST_CLIENTS clients on the leader:
+    every answer is the direct ``predict``'s bit for bit. Then the leader
+    hot-swaps "mb" for a copy with its centers in reverse order: every
+    answer after the swap is that version's direct ``predict``. Returns
+    (its numbers, errors)."""
+    import copy
+    import threading
+
+    import torch
+
+    from dask_ml_tpu_torch.parallel.mesh import data_sharding
+    from dask_ml_tpu_torch.parallel.serving import ModelRegistry, ServingLoop
+
+    mb, sk = state["minibatch"], state["sketched"]
+    pools = {"mb": state["blobs_int"][:MESHREST_POOL].cpu().numpy(),
+             "sk": np.asarray(state["kdd"][:MESHREST_POOL])}
+    direct = {"mb": mb.predict(pools["mb"]), "sk": sk.predict(pools["sk"])}
+    mb2 = copy.deepcopy(mb)
+    mb2.cluster_centers_ = np.ascontiguousarray(mb.cluster_centers_[::-1])
+    direct["mb2"] = mb2.predict(pools["mb"])
+    reg = ModelRegistry()
+    reg.register("mb", mb)
+    reg.register("sk", sk)
+    err = []
+    loop = ServingLoop(reg, mesh=m).start()
+    warm = loop.warmup()
+    rng = np.random.default_rng([SEED, 23])
+    plan = [[(("mb", "sk")[(c + j) % 2],
+              int(rng.integers(0, MESHREST_POOL - 2048)),
+              int(SRV_SIZES[int(rng.integers(0, len(SRV_SIZES)))]))
+             for j in range(MESHREST_REQUESTS)]
+            for c in range(MESHREST_CLIENTS)]
+    out = {"warmup": warm, "role": loop.role}
+    if loop.role == "leader":
+        bad, lat = [], []
+
+        def client(reqs):
+            for name, lo, size in reqs:
+                t = time.perf_counter()
+                got = loop.submit(name, pools[name][lo:lo + size]).result(
+                    120)
+                lat.append(time.perf_counter() - t)
+                if not np.array_equal(got, direct[name][lo:lo + size]):
+                    bad.append((name, lo, size))
+
+        threads = [threading.Thread(target=client, args=(reqs,))
+                   for reqs in plan]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        n = MESHREST_CLIENTS * MESHREST_REQUESTS
+        if bad or len(lat) != n:
+            err.append(f"meshrest-serving: {len(bad)} answers not the "
+                       f"direct predict's, {n - len(lat)} unanswered")
+        out.update(requests=n, requests_per_s=n / wall,
+                   p50_ms=float(np.percentile(lat, 50)) * 1e3,
+                   p99_ms=float(np.percentile(lat, 99)) * 1e3)
+        reg.publish("mb", mb2)
+        swapped = [(lo, size, loop.submit("mb", pools["mb"][lo:lo + size]))
+                   for _, lo, size in plan[0]]
+        stale = sum(not np.array_equal(f.result(120),
+                                       direct["mb2"][lo:lo + size])
+                    for lo, size, f in swapped)
+        if stale:
+            err.append(f"meshrest-serving: {stale} of {len(swapped)} "
+                       "answers after the hot swap not the new version's")
+        out["swap_requests"] = len(swapped)
+    loop.stop(timeout=120)
+    out["batches"] = int(loop.n_batches)
+    if not loop.stopped:
+        err.append("meshrest-serving: the loop did not stop")
+    rows = data_sharding(m).rows(2048)
+    state["serving_block"] = torch.as_tensor(
+        pools["mb"][:2048][rows], device=state["blobs_int"].device)
+    return out, err
+
+
+def meshrest_rank(backend: str, world: int, rank: int, tmp: str, layouts):
+    """One rank of a MESHREST world (a spawned process): join the world on
+    card 0, run every cell of every layout, hold each cell's kernels to
+    their plain versions on an integer copy of this rank's block, write
+    this rank's report to ``tmp``."""
+    import os
+    import traceback
+
+    report = {"rank": rank, "errors": [], "cells": {}}
+    try:
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        from dask_ml_tpu_torch._kernels import build
+        from dask_ml_tpu_torch.parallel import runtime, shapes
+
+        runtime.initialize(backend=backend,
+                           init_method="file://" + os.path.join(
+                               tmp, f"store-{backend}-{world}"),
+                           num_processes=world, process_id=rank,
+                           local_device_ids=[0])
+        dev = runtime.device()
+        for name in build.SIGNATURES:
+            build.load(name)
+        ref = dict(np.load(os.path.join(tmp, "ref.npz")))
+        with open(os.path.join(tmp, "ref.json")) as f:
+            info = json.load(f)
+        meshes = mesh_layouts(world, layouts)
+        st0 = shapes.compile_stats()
+        state = {}
+        for name, m in meshes.items():
+            cells = (MESHREST_CELLS if name == "flat"
+                     else MESHREST_HIER_CELLS)
+            for cell in cells:
+                block, launches, wall, out, err = meshrest_run(
+                    cell, m, dev, tmp, ref, info, state)
+                report["errors"] += err
+                checked = meshrest_kernel_checks(
+                    f"meshrest-{name}-{cell} rank {rank}", block, launches)
+                report["cells"][f"{name}-{cell}"] = {
+                    "wall_s": wall, "launches": launches,
+                    "checked": checked, "block_shape": list(block.shape),
+                    **out}
+                del block
+                torch.cuda.empty_cache()
+        st1 = shapes.compile_stats()
+        for key in ("n_compiles", "n_loads"):
+            if st1[key] != st0[key]:
+                report["errors"].append(
+                    f"{key} {st0[key]} -> {st1[key]} after the warmup")
+        runtime.shutdown()
+    except BaseException:
+        report["errors"].append(traceback.format_exc())
+    with open(os.path.join(tmp, f"rank-{backend}-{world}-{rank}.json"),
+              "w") as f:
+        json.dump(report, f)
+
+
+def meshrest_cells(dev):
+    """The MESHREST phase (step 23). Returns ({world-layout-cell: [each
+    rank's launches of K1–K5 and K2-x]}, summary)."""
+    import multiprocessing
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_all = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dmlt_meshrest_")
+    launches_by_cell, summary = {}, {"worlds": []}
+    try:
+        summary["single"] = meshrest_refs(dev, tmp)
+        log("MESHREST single-device " + json.dumps(summary["single"]))
+        torch.cuda.empty_cache()
+        ctx = multiprocessing.get_context("spawn")
+        for backend, world, layouts in MESHREST_WORLDS:
+            t0 = time.perf_counter()
+            procs = [ctx.Process(target=meshrest_rank,
+                                 args=(backend, world, r, tmp, layouts))
+                     for r in range(world)]
+            for p in procs:
+                p.start()
+            deadline = time.monotonic() + MESHREST_TIMEOUT
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 1))
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(30)
+            expect(not hung, f"MESHREST {backend} world {world}: ranks "
+                   f"{hung} still running after {MESHREST_TIMEOUT} s")
+            reports = []
+            for r, p in enumerate(procs):
+                path = os.path.join(tmp, f"rank-{backend}-{world}-{r}.json")
+                expect(p.exitcode == 0 and os.path.exists(path),
+                       f"MESHREST {backend} world {world} rank {r} exited "
+                       f"{p.exitcode} without a report")
+                with open(path) as f:
+                    reports.append(json.load(f))
+            errors = [e for rep in reports for e in rep["errors"]]
+            expect(not errors, f"MESHREST {backend} world {world}: "
+                   + " | ".join(errors))
+            sec = time.perf_counter() - t0
+            for key in reports[0]["cells"]:
+                layout, cell = key.split("-", 1)
+                per = [rep["cells"][key] for rep in reports]
+                for c in per:
+                    missing = [k for k, v in c["launches"].items()
+                               if v and k not in c["checked"]]
+                    expect(not missing, f"MESHREST {key}: launched "
+                           f"{missing} unchecked")
+                launched = [c["launches"] for c in per]
+                expect(any(sum(l.values()) for l in launched)
+                       or cell == "datasets",
+                       f"MESHREST {backend} world {world} {key}: no kernel "
+                       "launched")
+                launches_by_cell[f"{backend}-w{world}-{key}"] = launched
+                line = {"backend": backend, "world": world,
+                        "layout": layout, "cell": f"meshrest-{cell}",
+                        "world_seconds": sec,
+                        "wall_s": [c["wall_s"] for c in per],
+                        "launches": launched,
+                        "block_shape": per[0]["block_shape"],
+                        **{k: v for k, v in per[0].items()
+                           if k not in ("wall_s", "launches", "checked",
+                                        "block_shape")}}
+                log("MESHREST " + json.dumps(line))
+                summary["worlds"].append(line)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary["seconds"] = time.perf_counter() - t_all
+    log(f"MESHREST phase: {summary['seconds']:.1f} s")
+    return launches_by_cell, summary
+
+
 def main() -> int:
     import torch
 
@@ -9448,6 +10064,13 @@ def main() -> int:
 
     if "--elastic-only" in sys.argv[1:]:
         elastic_cells(dev)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+        return 0
+
+    if "--mesh-rest-only" in sys.argv[1:]:
+        meshrest_cells(dev)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": count}}), flush=True)
@@ -9734,6 +10357,15 @@ def main() -> int:
                if r["name"] in ranks[0]}
         if got:
             r["launches_elastic"] = got
+    torch.cuda.empty_cache()
+
+    meshrest_launches, _ = meshrest_cells(dev)
+    for r in rows:
+        got = {cell: [per[r["name"]] for per in ranks]
+               for cell, ranks in meshrest_launches.items()
+               if r["name"] in ranks[0]}
+        if got:
+            r["launches_meshrest"] = got
     torch.cuda.empty_cache()
 
     bf16, _ = precision_cells(dev, f32_inertia=blobs_inertia)

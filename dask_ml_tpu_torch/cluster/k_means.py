@@ -16,9 +16,10 @@ same ``X``; each stages and computes on its own block of rows, and
 ``cluster_centers_``, ``labels_``, ``inertia_`` and ``n_iter_`` come out
 the same on every rank, equal to a single device's on integer-valued data
 (:mod:`dask_ml_tpu_torch.models.kmeans`). ``predict``, ``transform``,
-``score`` and the module functions do the same. ``algorithm="sketched"``
-over more than one rank comes with ROADMAP Queue A item 10b; the search's
-batched groups stage the whole data on each rank, as on one device.
+``score`` and the module functions do the same, ``algorithm="sketched"``
+included (its mean, restricted loops, polish and inertia sum over the
+ranks; its labels are K2-x on each block, gathered), and so do the
+search's batched groups (``_batched_fit_score``).
 """
 
 from __future__ import annotations
@@ -164,34 +165,43 @@ class KMeans(TransformerMixin, BaseEstimator):
                             d=int(X.shape[1]), k=int(self.n_clusters)):
             data = prepare_data(X, sample_weight=sample_weight, device=dev,
                                 mesh=collective_mesh())
-            if self.algorithm == "sketched" and is_sharded(data.mesh):
-                raise NotImplementedError(
-                    "algorithm='sketched' over a mesh of more than one rank "
-                    "comes with ROADMAP Queue A item 10b; fit it on one "
-                    "device")
-            gen = check_random_state(self.random_state, device=dev)
-            with telemetry.span("kmeans.init"):
-                centers = core.k_init(
-                    data.X, data.weights, data.n, self.n_clusters, gen,
-                    init=self.init,
-                    oversampling_factor=self.oversampling_factor,
-                    max_iter=self.init_max_iter, mesh=data.mesh)
-                _sync(dev)
-            t_init = tic()
-            # a refit must not keep the attributes of another algorithm:
-            # predict goes through the sketch when fast_transform_ exists
-            for name in ("fast_transform_", "lloyd_pruning_",
-                         "sketch_pruning_"):
-                self.__dict__.pop(name, None)
-            if self.algorithm == "sketched":
-                self._fit_sketched(data, centers, gen)
-            else:
-                self._fit_lloyd(data, centers)
+            self._fit_data(data, dev, t0)
+        return self
+
+    def _fit_staged(self, data):
+        """Fit on an already staged :class:`~dask_ml_tpu_torch.parallel.
+        sharding.DeviceData` (over a mesh, this rank's block of it): the
+        Nyström estimators hand their embedding block to the inner KMeans
+        this way, with no host copy and no re-staging."""
+        t0 = tic()
+        self._check_params(n_samples=data.n)
+        with telemetry.span("kmeans.fit", n=data.n, d=data.n_features,
+                            k=int(self.n_clusters)):
+            self._fit_data(data, data.weights.device, t0)
+        return self
+
+    def _fit_data(self, data, dev, t0):
+        """Init, then Lloyd (or the sketched fit), on staged ``data``."""
+        gen = check_random_state(self.random_state, device=dev)
+        with telemetry.span("kmeans.init"):
+            centers = core.k_init(
+                data.X, data.weights, data.n, self.n_clusters, gen,
+                init=self.init, oversampling_factor=self.oversampling_factor,
+                max_iter=self.init_max_iter, mesh=data.mesh)
+            _sync(dev)
+        t_init = tic()
+        # a refit must not keep the attributes of another algorithm:
+        # predict goes through the sketch when fast_transform_ exists
+        for name in ("fast_transform_", "lloyd_pruning_", "sketch_pruning_"):
+            self.__dict__.pop(name, None)
+        if self.algorithm == "sketched":
+            self._fit_sketched(data, centers, gen)
+        else:
+            self._fit_lloyd(data, centers)
         logger.info("Lloyd finished in %.2fs: %d iterations, inertia %.4g",
                     tic() - t_init, self.n_iter_, self.inertia_)
         self.fit_phase_seconds_ = {"init": t_init - t0,
                                    "lloyd": tic() - t_init}
-        return self
 
     def _fit_lloyd(self, data, centers):
         mesh = data.mesh
@@ -236,7 +246,17 @@ class KMeans(TransformerMixin, BaseEstimator):
         the converged centers and runs again. ``labels_`` come from the
         sketched assignment that ``predict`` runs; ``cluster_centers_``
         and ``inertia_`` are the exact weighted means of that partition
-        and its exact cost."""
+        and its exact cost.
+
+        Over a mesh ``data`` is this rank's block: the mean ``mu`` is an
+        ``hpsum`` of the weighted sums and the weight (op
+        ``kmeans.sketch.mean``), palm4MSA fits the replicated centers the
+        same on every rank, each rank stages its block into the support,
+        the restricted loops run with ``mesh=`` (K5, and K2 at d = p), and
+        the polish sums and the assigned inertia are ``hpsum``s (ops
+        ``kmeans.sketch.polish``, ``kmeans.inertia``); ``labels_`` are
+        every block's sketched labels (K2-x), gathered."""
+        mesh = data.mesh
         d = data.n_features
         p = (int(self.sketch_cols) if self.sketch_cols is not None
              else max(4, d // 4))
@@ -245,22 +265,28 @@ class KMeans(TransformerMixin, BaseEstimator):
                             iters=int(self.sketch_iters)):
             # center first: a shared mean component would spend support
             # budget on a direction that cancels in every comparison
-            mu = ((w @ data.X.to(torch.float32))
-                  / torch.clamp(w.sum(), min=1e-12))
+            if mesh is None:
+                mu = ((w @ data.X.to(torch.float32))
+                      / torch.clamp(w.sum(), min=1e-12))
+            else:
+                sums = hpsum(torch.cat([w @ data.X.to(torch.float32),
+                                        w.sum()[None]]), mesh,
+                             op="kmeans.sketch.mean")
+                mu = sums[:-1] / torch.clamp(sums[-1], min=1e-12)
             ft, support, vals0, fit_loss = ftm.palm4msa_fit(
                 centers - mu[None, :], p, n_iter=int(self.sketch_iters),
                 generator=gen)
             Zp = _sketch_stage(ft, data.X, mu, support)
 
         def restricted_lloyd(Zp_, vals0_):
-            tol = core.scaled_tolerance(Zp_, w, self.tol)
+            tol = core.scaled_tolerance(Zp_, w, self.tol, mesh=mesh)
             if _SKETCHED_BOUNDED:
                 vals_, _, n_it, _, _, stats = core.lloyd_loop_bounded(
                     Zp_, w, vals0_, tol, max_iter=self.max_iter,
-                    bounds_dtype=lloyd_bounds_dtype(Zp_.dtype))
+                    bounds_dtype=lloyd_bounds_dtype(Zp_.dtype), mesh=mesh)
                 return vals_, n_it, stats
             vals_, _, n_it, _ = core.lloyd_loop_fused(
-                Zp_, w, vals0_, tol, max_iter=self.max_iter)
+                Zp_, w, vals0_, tol, max_iter=self.max_iter, mesh=mesh)
             return vals_, n_it, None
 
         with telemetry.span("kmeans-lloyd", algorithm="sketched"):
@@ -277,8 +303,12 @@ class KMeans(TransformerMixin, BaseEstimator):
             off = mu @ Wp
             labels = core.predict_labels_sketched(data.X, Wp, off, vals,
                                                   centers_sk)
-            centers_dense = _polish_centers(data.X, w, labels, centers_sk)
-            inertia = _assigned_inertia(data.X, w, labels, centers_dense)
+            centers_dense = _polish_centers(data.X, w, labels, centers_sk,
+                                            mesh)
+            inertia = _assigned_inertia(data.X, w, labels, centers_dense,
+                                        mesh)
+            if is_sharded(mesh):
+                labels = gather_blocks(labels, mesh, op="kmeans.labels")
         self.cluster_centers_ = centers_dense.cpu().numpy()
         self.fast_transform_ = ftm.FastTransform(
             ft.angles.cpu().numpy(), ft.d, ft.d_pad, ft.perms.cpu().numpy())
@@ -291,7 +321,8 @@ class KMeans(TransformerMixin, BaseEstimator):
         self.sketch_loss_ = float(fit_loss)
         if stats1 is not None:
             self.sketch_pruning_ = _pruning_summary(
-                [(stats1, n_iter1), (stats2, n_iter2)], w, self.n_clusters)
+                [(stats1, n_iter1), (stats2, n_iter2)], w, self.n_clusters,
+                mesh)
         self.labels_ = unpad_rows(labels, data.n).cpu().numpy()
         self.inertia_ = float(inertia)
         self.n_iter_ = int(n_iter1) + int(n_iter2)
@@ -330,12 +361,9 @@ class KMeans(TransformerMixin, BaseEstimator):
         labels of every row."""
         data, centers = self._staged(X)
         if getattr(self, "fast_transform_", None) is not None:
-            if is_sharded(data.mesh):
-                raise NotImplementedError(
-                    "a sketched model's predict over a mesh of more than "
-                    "one rank comes with ROADMAP Queue A item 10b")
             labels = core.predict_labels_sketched(
-                data.X, *self._sketch_args(data.X.device))
+                data.X, *self._sketch_args(data.X.device), mesh=data.mesh,
+                n_valid=data.n)
         else:
             labels = core.predict_labels(data.X, centers, mesh=data.mesh,
                                          n_valid=data.n)
@@ -399,7 +427,9 @@ class KMeans(TransformerMixin, BaseEstimator):
         cell, where each fit stops at convergence — when the history the
         group keeps on the card (Σ over unique k of max_iter × k × d f32
         centers; the port keeps each k at its own width) exceeds 512 MB,
-        or when ``max_iter`` exceeds 4096 steps."""
+        or when ``max_iter`` exceeds 4096 steps. Over a mesh of ranks the
+        training and eval sets stage each rank's block and the group runs
+        over the ranks (``models.kmeans.batched_lloyd_cells``)."""
         ks = {int(m.get("n_clusters", self.n_clusters)) for m in members}
         T = int(self.max_iter)
         hist_bytes = sum(T * k * int(X.shape[1]) * 4 for k in ks)
@@ -407,8 +437,9 @@ class KMeans(TransformerMixin, BaseEstimator):
                 T > self._BATCH_MAX_ITER:
             return NotImplemented
         dev = resolve_device(self.device)
-        data = prepare_data(check_array(X), device=dev)
-        evals = [prepare_data(check_array(E), device=dev)
+        mesh = collective_mesh()
+        data = prepare_data(check_array(X), device=dev, mesh=mesh)
+        evals = [prepare_data(check_array(E), device=dev, mesh=mesh)
                  for E, _y in eval_sets]
         pairs = [(int(m.get("n_clusters", self.n_clusters)),
                   float(m.get("tol", self.tol))) for m in members]
@@ -459,21 +490,30 @@ def _sketch_stage(ft, X, mu, support):
     return ((X - mu[None, :]) @ Wp).to(X.dtype)
 
 
-def _polish_centers(X, w, labels, fallback_centers):
+def _polish_centers(X, w, labels, fallback_centers, mesh=None):
     """Exact weighted means of a fixed partition (one-hot matmul); empty
-    clusters keep their fallback center."""
+    clusters keep their fallback center. With ``mesh`` the sums and
+    counts of every block are summed by one ``hpsum`` (op
+    ``kmeans.sketch.polish``)."""
     k = fallback_centers.shape[0]
     oh = (torch.nn.functional.one_hot(labels.long(), k).to(torch.float32)
           * w[:, None])
     cnt = oh.sum(dim=0)
-    means = ((oh.T @ X.to(torch.float32))
-             / torch.clamp(cnt, min=1e-12)[:, None])
+    sums = oh.T @ X.to(torch.float32)
+    if mesh is not None:
+        both = hpsum(torch.cat([sums, cnt[:, None]], dim=1), mesh,
+                     op="kmeans.sketch.polish")
+        sums, cnt = both[:, :-1], both[:, -1]
+    means = sums / torch.clamp(cnt, min=1e-12)[:, None]
     return torch.where((cnt > 0)[:, None], means, fallback_centers)
 
 
-def _assigned_inertia(X, w, labels, centers):
-    """Weighted squared distance of each row to its ASSIGNED center."""
-    return (w * ((X - centers[labels.long()]) ** 2).sum(dim=1)).sum()
+def _assigned_inertia(X, w, labels, centers, mesh=None):
+    """Weighted squared distance of each row to its ASSIGNED center (with
+    ``mesh``, summed over the blocks: op ``kmeans.inertia``)."""
+    inertia = (w * ((X - centers[labels.long()]) ** 2).sum(dim=1)).sum()
+    return inertia if mesh is None else hpsum(inertia, mesh,
+                                              op="kmeans.inertia")
 
 
 # ---------------------------------------------------------------------------

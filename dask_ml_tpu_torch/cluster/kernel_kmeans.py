@@ -14,6 +14,14 @@ normalization and with the full l-column whitening, whose small
 eigenvalues are thresholded (``1/√S`` only where ``S > S₀·1e-6``) rather
 than inverted. ``predict`` replays the map on new rows and assigns them
 through K2.
+
+Over a mesh of ranks the fit runs as spectral clustering's does
+(:mod:`~dask_ml_tpu_torch.cluster.spectral`): replicated landmarks, each
+rank's strip of its own rows, the strip's column sum through ``hpsum``
+under the ledger op ``kernel.gram.colsum`` (the same logical bytes on a
+flat and on a hierarchical mesh, as the JAX package records them), the
+inner KMeans on each rank's block of Φ, and ``predict`` through K2 on each
+block, gathered.
 """
 
 from __future__ import annotations
@@ -25,25 +33,30 @@ from dask_ml_tpu_torch.base import BaseEstimator
 from dask_ml_tpu_torch.cluster.k_means import KMeans
 from dask_ml_tpu_torch.cluster.spectral import (_check_affinity, _degrees,
                                                 _extension, _fit_scale,
-                                                _kernel, _kernel_blocks,
-                                                _nystrom_map, _stage_f32)
+                                                _gathered, _kernel, _Rows,
+                                                _nystrom_map,
+                                                _staged_over_ranks)
 from dask_ml_tpu_torch.parallel import telemetry
-from dask_ml_tpu_torch.parallel.sharding import prepare_data
 from dask_ml_tpu_torch.utils.validation import (check_array,
                                                 check_random_state_np)
 
 
-def _gram_colsum(C):
-    """The strip's column degrees ``Σ_rows C`` (the JAX package's one
-    collective of the fit; one device here)."""
-    return C.sum(dim=0)
+def _gram_colsum(C, rows=None):
+    """The strip's column degrees ``Σ_rows C``: the fit's one sample-axis
+    collective, over a mesh an ``hpsum`` under ``kernel.gram.colsum``
+    (``rows``: the :class:`~dask_ml_tpu_torch.cluster.spectral._Rows` of
+    the fit)."""
+    if rows is None:
+        return C.sum(dim=0)
+    return rows.colsum(C, "kernel.gram.colsum")
 
 
-def _feature_core(A, C, colsum, keep_idx, n_true: float):
-    """Φ (n, l) and the extension factors ``(ainv_colsum, d1_si,
-    map_full)`` that :func:`predict` replays: the unified degree
-    normalization, the small SVD, the thresholded full-width whitening."""
-    ainv_colsum, d1_si, A2 = _degrees(A, C, colsum, keep_idx)
+def _feature_core(A, C, colsum, keep_idx, n_true: float, rows=None):
+    """Φ (n, l) (over a mesh, this rank's rows) and the extension factors
+    ``(ainv_colsum, d1_si, map_full)`` that :func:`predict` replays: the
+    unified degree normalization, the small SVD, the thresholded
+    full-width whitening."""
+    ainv_colsum, d1_si, A2 = _degrees(A, C, colsum, keep_idx, rows)
     U_A, S_A, _ = torch.linalg.svd(A2)
     inv_sqrt = torch.where(S_A > S_A[0] * 1e-6, 1.0 / torch.sqrt(S_A),
                            torch.zeros_like(S_A))
@@ -102,24 +115,29 @@ class KernelKMeans(BaseEstimator):
                 "'n_components' must be smaller than the number of "
                 f"samples. Got {l} components and {n} samples")
         rng = check_random_state_np(self.random_state)
-        Xs = _stage_f32(X)
+        rows = _Rows(X)
+        over = None if rows.mesh is None else rows
         keep = rng.choice(np.arange(n), l, replace=False)
         keep.sort()
-        keep_t = torch.as_tensor(keep, device=Xs.device)
+        keep_t = torch.as_tensor(keep, device=rows.X.device)
         with telemetry.span("kernel-kmeans-nystrom", landmarks=l,
                             k=int(self.n_clusters)):
-            Xk, A, C = _kernel_blocks(Xs, keep_t, self.affinity,
-                                      self._kernel_params())
-            Phi, ext = _feature_core(A, C, _gram_colsum(C), keep_t,
-                                     float(n))
+            Xk, A, C = rows.blocks(X, keep, self.affinity,
+                                   self._kernel_params(), keep_t)
+            Phi, ext = _feature_core(A, C, _gram_colsum(C, over), keep_t,
+                                     float(n), over)
             del A, C
+        staged = None if over is None else rows.staged(Phi)
         km = None
         for _ in range(max(1, int(self.n_init))):
             cand = KMeans(n_clusters=self.n_clusters,
                           random_state=rng.randint(2**31 - 1))
             if self.kmeans_params:
                 cand.set_params(**self.kmeans_params)
-            cand.fit(Phi)
+            if staged is None:
+                cand.fit(Phi)
+            else:
+                cand._fit_staged(staged)
             if km is None or cand.inertia_ < km.inertia_:
                 km = cand
         self._landmarks_ = Xk.cpu().numpy()
@@ -165,8 +183,9 @@ class KernelKMeans(BaseEstimator):
         storage dtype."""
         if not hasattr(self, "cluster_centers_"):
             raise AttributeError("Model not fitted; call fit first")
-        Xs = prepare_data(check_array(X)).X
-        return self._assign_staged(Xs).cpu().numpy().astype(np.int32)
+        data = _staged_over_ranks(X)
+        labels = _gathered(self._assign_staged(data.X), data)
+        return labels.cpu().numpy().astype(np.int32)
 
 
 __all__ = ["KernelKMeans"]

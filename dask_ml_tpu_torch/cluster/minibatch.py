@@ -13,6 +13,18 @@ a rerun repeats its bits. ``fit`` draws every step's row indices with
 one ``torch.randint`` on the device up front and then runs its steps
 with no host read between them.
 
+Over a mesh of ranks (:func:`~dask_ml_tpu_torch.parallel.mesh.
+collective_mesh`; every rank is handed the same X) each rank stages its
+block of rows, the init runs over the mesh as KMeans' does, and the
+batch indices are global row ids drawn as on one device. At each step
+each rank runs K2 on the batch positions with its own rows weighted (the
+other positions weigh 0, so the batch keeps one shape and no host read),
+and the partial sums and counts of every rank go through one ``hpsum``
+a step (op ``minibatch.step``); every rank then applies the same update.
+On integer data every partial sum is exact, so a world of ranks fits the
+single-device centers bit for bit. ``partial_fit``, ``predict``,
+``transform`` and ``score`` stage over the mesh too.
+
 ``PartialMiniBatchKMeans`` subclasses scikit-learn's estimator and loads
 on first access (module ``__getattr__``), so this module imports where
 scikit-learn is not installed.
@@ -27,24 +39,32 @@ from dask_ml_tpu_torch.base import BaseEstimator, TransformerMixin
 from dask_ml_tpu_torch.config import maybe_host, resolve_device
 from dask_ml_tpu_torch.models import kmeans as core
 from dask_ml_tpu_torch.ops.fused_distance import fused_argmin_min
+from dask_ml_tpu_torch.parallel.hierarchy import gather_blocks, hpsum
+from dask_ml_tpu_torch.parallel.mesh import collective_mesh, is_sharded
 from dask_ml_tpu_torch.parallel.sharding import prepare_data, unpad_rows
 from dask_ml_tpu_torch.utils.validation import check_array, check_random_state
 
 __all__ = ["MiniBatchKMeans", "PartialMiniBatchKMeans"]
 
 
-def _minibatch_update(batch, wb, centers, v, kernel: str = "auto"):
+def _minibatch_update(batch, wb, centers, v, kernel: str = "auto",
+                      mesh=None):
     """One Sculley update from a batch: the fused argmin (K2 on the
-    card), per-center weighted sums and counts by the one-hot product,
-    then ``c_j <- (1 - eta_j) c_j + eta_j mean_j`` with
-    ``eta_j = n_j / v_j``; a center that caught nothing stays put.
-    Returns (centers, v, labels)."""
+    card), per-center weighted sums and counts by the one-hot product
+    (with ``mesh``, every rank's partials summed by one ``hpsum``), then
+    ``c_j <- (1 - eta_j) c_j + eta_j mean_j`` with ``eta_j = n_j / v_j``;
+    a center that caught nothing stays put. Returns (centers, v,
+    labels)."""
     k = centers.shape[0]
     labels, _ = fused_argmin_min(batch, centers, kernel=kernel)
     onehot = (torch.nn.functional.one_hot(labels.long(), k)
               .to(torch.float32) * wb[:, None])
     sums = onehot.T @ batch.to(torch.float32)  # (k, d), f32 for bf16 X
     counts = onehot.sum(dim=0)  # (k,)
+    if mesh is not None:
+        both = hpsum(torch.cat([sums, counts[:, None]], dim=1), mesh,
+                     op="minibatch.step")
+        sums, counts = both[:, :-1], both[:, -1]
     v_new = v + counts
     caught = counts > 0
     eta = torch.where(caught, counts / torch.clamp(v_new, min=1.0),
@@ -56,12 +76,23 @@ def _minibatch_update(batch, wb, centers, v, kernel: str = "auto"):
     return centers, v_new, labels
 
 
-def _minibatch_steps(X, w, centers, v, idx):
+def _minibatch_steps(X, w, centers, v, idx, mesh=None, row_offset: int = 0):
     """Every step of a fit: step t updates from the rows ``idx[t]`` (the
-    JAX package's ``lax.scan``, here a loop with no host read)."""
+    JAX package's ``lax.scan``, here a loop with no host read). With
+    ``mesh`` X and w are this rank's block from global row
+    ``row_offset``: the rows of ``idx[t]`` it holds carry their weight,
+    the others weigh 0."""
     for t in range(idx.shape[0]):
         rows = idx[t]
-        centers, v, _ = _minibatch_update(X[rows], w[rows], centers, v)
+        if mesh is None:
+            centers, v, _ = _minibatch_update(X[rows], w[rows], centers, v)
+            continue
+        local = rows - int(row_offset)
+        mine = (local >= 0) & (local < X.shape[0])
+        local = torch.where(mine, local, torch.zeros_like(local))
+        wb = torch.where(mine, w[local], torch.zeros((), device=w.device))
+        centers, v, _ = _minibatch_update(X[local], wb, centers, v,
+                                          mesh=mesh)
     return centers, v
 
 
@@ -114,7 +145,7 @@ class MiniBatchKMeans(TransformerMixin, BaseEstimator):
         return core.k_init(
             data.X, data.weights, data.n, self.n_clusters, gen,
             init=self.init, oversampling_factor=self.oversampling_factor,
-            max_iter=self.init_max_iter)
+            max_iter=self.init_max_iter, mesh=data.mesh)
 
     def fit(self, X, y=None, sample_weight=None):
         if self.n_clusters < 1:
@@ -123,7 +154,8 @@ class MiniBatchKMeans(TransformerMixin, BaseEstimator):
             raise ValueError("batch_size must be >= 1")
         X = check_array(X)
         dev = resolve_device(self.device)
-        data = prepare_data(X, sample_weight=sample_weight, device=dev)
+        data = prepare_data(X, sample_weight=sample_weight, device=dev,
+                            mesh=collective_mesh())
         if self.n_clusters > data.n:
             raise ValueError(
                 f"n_clusters={self.n_clusters} must be <= "
@@ -137,16 +169,18 @@ class MiniBatchKMeans(TransformerMixin, BaseEstimator):
         centers, v = _minibatch_steps(
             data.X, data.weights, centers,
             torch.zeros(self.n_clusters, dtype=torch.float32, device=dev),
-            idx)
+            idx, mesh=data.mesh, row_offset=data.row_offset)
         self.cluster_centers_ = centers.cpu().numpy()
         self.counts_ = v.cpu().numpy()
         self.n_iter_ = n_steps
         self.n_features_in_ = data.n_features
         if self.compute_labels:
-            labels = core.predict_labels(data.X, centers)
+            labels = core.predict_labels(data.X, centers, mesh=data.mesh,
+                                         n_valid=data.n)
             self.labels_ = unpad_rows(labels, data.n).cpu().numpy()
-            self.inertia_ = float(
-                core.compute_inertia(data.X, data.weights, centers))
+            self.inertia_ = float(core.compute_inertia(
+                data.X, data.weights, centers, mesh=data.mesh,
+                n_valid=data.n))
         return self
 
     def partial_fit(self, X, y=None, sample_weight=None):
@@ -154,7 +188,8 @@ class MiniBatchKMeans(TransformerMixin, BaseEstimator):
         the batch). The first call initializes the centers from it."""
         X = check_array(X)
         dev = resolve_device(self.device)
-        data = prepare_data(X, sample_weight=sample_weight, device=dev)
+        data = prepare_data(X, sample_weight=sample_weight, device=dev,
+                            mesh=collective_mesh())
         if not hasattr(self, "cluster_centers_"):
             if self.n_clusters > data.n:
                 raise ValueError(
@@ -169,7 +204,7 @@ class MiniBatchKMeans(TransformerMixin, BaseEstimator):
         centers, v, _ = _minibatch_update(
             data.X, data.weights,
             torch.as_tensor(self.cluster_centers_, device=dev),
-            torch.as_tensor(self.counts_, device=dev))
+            torch.as_tensor(self.counts_, device=dev), mesh=data.mesh)
         self.cluster_centers_ = centers.cpu().numpy()
         self.counts_ = v.cpu().numpy()
         self.n_iter_ += 1
@@ -180,24 +215,29 @@ class MiniBatchKMeans(TransformerMixin, BaseEstimator):
             raise AttributeError("Model not fitted; call fit first")
         X = check_array(X)
         dev = resolve_device(self.device)
-        data = prepare_data(X, device=dev)
+        data = prepare_data(X, device=dev, mesh=collective_mesh())
         return data, torch.as_tensor(self.cluster_centers_, device=dev)
 
     def predict(self, X):
+        """Nearest-center labels (over a mesh, of every row on every
+        rank)."""
         data, centers = self._staged(X)
-        return maybe_host(unpad_rows(core.predict_labels(data.X, centers),
-                                     data.n))
+        return maybe_host(unpad_rows(core.predict_labels(
+            data.X, centers, mesh=data.mesh, n_valid=data.n), data.n))
 
     def transform(self, X):
         from dask_ml_tpu_torch.ops.pairwise import euclidean_distances
 
         data, centers = self._staged(X)
-        return maybe_host(unpad_rows(euclidean_distances(data.X, centers),
-                                     data.n))
+        dist = euclidean_distances(data.X, centers)
+        if is_sharded(data.mesh):
+            dist = gather_blocks(dist, data.mesh, op="kmeans.transform")
+        return maybe_host(unpad_rows(dist, data.n))
 
     def score(self, X, y=None):
         data, centers = self._staged(X)
-        return -float(core.compute_inertia(data.X, data.weights, centers))
+        return -float(core.compute_inertia(data.X, data.weights, centers,
+                                           mesh=data.mesh, n_valid=data.n))
 
 
 def __getattr__(name):

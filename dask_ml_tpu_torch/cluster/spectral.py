@@ -16,6 +16,21 @@ the repo runs there.
 (:func:`_nystrom_map`, so training rows re-extend to their fit
 embedding) and assigns them with the fused argmin kernel (K2).
 
+**Over a mesh of ranks** (:func:`~dask_ml_tpu_torch.parallel.mesh.
+collective_mesh` of more than one data shard; every rank is handed the
+same X) the landmarks are replicated (every rank takes the same rows of
+its X), each rank computes the (m, l) strip of its own block of rows
+(padding rows zeroed), the strip's column sum is an ``hpsum`` (op
+``spectral.colsum``; kernel k-means ``kernel.gram.colsum``), and the
+landmarks' degrees come from the ranks that hold them (the others add
+zeros: op ``nystrom.landmarks``, exact). The small eigensolve is the same
+on every rank. The inner :class:`KMeans` fits the rank's block of the
+embedding over the mesh (K1–K4 on each block), and ``predict`` labels
+each block through K2 and gathers the labels. :func:`embed` returns the
+rank's block of ``Bt``. The column sums add in another order than on one
+device, so the embedding agrees with the single-device one to f32
+rounding, not bit for bit.
+
 Two numerical choices follow the JAX package rather than PyTorch's
 defaults: the pseudo-inverse of ``A`` cuts singular values at
 ``10·max(m, n)·eps·s_max`` (jax's ``pinv``; ``torch.linalg.pinv``'s default
@@ -39,8 +54,11 @@ from dask_ml_tpu_torch.cluster.k_means import KMeans
 from dask_ml_tpu_torch.config import resolve_device
 from dask_ml_tpu_torch.ops.pairwise import (PAIRWISE_KERNEL_FUNCTIONS,
                                             pairwise_kernels)
+from dask_ml_tpu_torch.parallel import mesh as mesh_lib
 from dask_ml_tpu_torch.parallel import telemetry
-from dask_ml_tpu_torch.parallel.sharding import prepare_data
+from dask_ml_tpu_torch.parallel.hierarchy import gather_blocks, hpsum
+from dask_ml_tpu_torch.parallel.sharding import (DeviceData, prepare_data,
+                                                 shard_rows)
 from dask_ml_tpu_torch.utils.validation import (check_array,
                                                 check_random_state_np)
 
@@ -78,6 +96,72 @@ def _kernel_blocks(Xs, keep_idx, metric, params: dict):
                                                           params)
 
 
+class _Rows:
+    """Where a Nyström fit's rows live: ``X`` the staged f32 rows (over
+    a sharded mesh this rank's padded block), ``mesh`` that mesh (None on
+    one device or a world of one rank), ``lo`` the block's first row,
+    ``n`` the true row count."""
+
+    def __init__(self, X):
+        self.n = int(X.shape[0])
+        mesh = mesh_lib.collective_mesh()
+        if not mesh_lib.is_sharded(mesh):
+            self.X, self.mesh, self.lo = _stage_f32(X), None, 0
+            return
+        self.X, _ = shard_rows(X, mesh, torch.float32)
+        self.mesh = mesh
+        self.lo = mesh_lib.data_sharding(mesh).rows(
+            int(self.X.shape[0]) * mesh_lib.n_data_shards(mesh)).start
+        self.valid = (torch.arange(self.X.shape[0], device=self.X.device)
+                      + self.lo) < self.n
+
+    def blocks(self, X, keep, metric, params: dict, keep_t):
+        """``(X_l, A, C)``: the landmarks (every rank the same rows of
+        its X), their block and this rank's strip, padding rows 0."""
+        if self.mesh is None:
+            return _kernel_blocks(self.X, keep_t, metric, params)
+        sel = (X[torch.as_tensor(keep, device=X.device)]
+               if isinstance(X, torch.Tensor) else X[keep])
+        Xk = _stage_f32(sel)
+        C = _kernel(self.X, Xk, metric, params)
+        C = torch.where(self.valid[:, None], C, torch.zeros_like(C))
+        return Xk, _kernel(Xk, Xk, metric, params), C
+
+    def colsum(self, C, op: str):
+        """``Σ_rows C`` over every rank's rows (``hpsum`` under ``op``)."""
+        total = C.sum(dim=0)
+        return total if self.mesh is None else hpsum(total, self.mesh, op=op)
+
+    def landmarks(self, v, keep_idx):
+        """``v[keep_idx]`` of a per-row vector: the rank that holds a
+        landmark fills it in, the others add zeros (op
+        ``nystrom.landmarks``)."""
+        if self.mesh is None:
+            return v[keep_idx]
+        from dask_ml_tpu_torch.models.kmeans import _rows_by_owner
+
+        return _rows_by_owner(v[:, None], keep_idx, self.lo, self.mesh,
+                              "nystrom.landmarks")[:, 0]
+
+    def staged(self, V):
+        """The rank's block of an embedding as the ``DeviceData`` the
+        inner KMeans fits over the mesh, in the staging dtype."""
+        from dask_ml_tpu_torch.parallel import precision
+
+        dtype = precision.staging_wire_dtype() or torch.float32
+        shards = mesh_lib.n_data_shards(self.mesh)
+        return DeviceData(
+            X=V.to(dtype).contiguous(), weights=self.valid.to(torch.float32),
+            n=self.n, n_features=int(V.shape[1]), mesh=self.mesh,
+            n_padded=int(V.shape[0]) * shards, row_offset=self.lo)
+
+    def whole(self, V):
+        """Every rank's rows of a per-row result, in row order."""
+        if self.mesh is None:
+            return V
+        return gather_blocks(V, self.mesh, op="nystrom.gather")[:self.n]
+
+
 def _pinv(A):
     """The pseudo-inverse with jax's cutoff: singular values at or below
     ``10·max(m, n)·eps·s_max`` are dropped."""
@@ -102,16 +186,18 @@ def _nystrom_map(C, ainv_colsum, d1_si, map_k, scale, *,
                            min=1e-12)
 
 
-def _degrees(A, C, colsum, keep_idx):
+def _degrees(A, C, colsum, keep_idx, rows=None):
     """The unified degree normalization from the strip's column sums
     ``colsum = Σ_rows C`` (the keep rows are A's rows, so one formula
     covers every row): the degree functional ``A⁺ colsum`` and the
-    landmarks' ``d^-½``. Returns ``(ainv_colsum, d1_si, A2 = D_l^-½ A
-    D_l^-½)``."""
+    landmarks' ``d^-½`` (``rows``: a :class:`_Rows` over a mesh, whose
+    ranks hold the landmark rows). Returns ``(ainv_colsum, d1_si, A2 =
+    D_l^-½ A D_l^-½)``."""
     ainv_colsum = _pinv(A) @ colsum
     d_all = C @ ainv_colsum
     d_si = 1.0 / torch.sqrt(torch.clamp(d_all, min=1e-12))
-    d1_si = d_si[keep_idx]
+    d1_si = d_si[keep_idx] if rows is None else rows.landmarks(d_si,
+                                                               keep_idx)
     return ainv_colsum, d1_si, d1_si[:, None] * A * d1_si[None, :]
 
 
@@ -125,12 +211,15 @@ def _fit_scale(l_count: int, n_true: float, device):
                                      device=device))
 
 
-def _nystrom_core(A, C, keep_idx, n_true: float, k: int):
+def _nystrom_core(A, C, keep_idx, n_true: float, k: int, rows=None):
     """The Nyström math after the kernel blocks: degree normalization, the
-    small SVD, Eq. 16 and row normalization. Returns the (n, k) embedding,
-    the singular values and the extension factors ``(ainv_colsum, d1_si,
-    map_k)`` that :func:`_nystrom_map` replays on new rows."""
-    ainv_colsum, d1_si, A2 = _degrees(A, C, C.sum(dim=0), keep_idx)
+    small SVD, Eq. 16 and row normalization. Returns the (n, k) embedding
+    (over a mesh, of this rank's rows), the singular values and the
+    extension factors ``(ainv_colsum, d1_si, map_k)`` that
+    :func:`_nystrom_map` replays on new rows."""
+    colsum = (C.sum(dim=0) if rows is None
+              else rows.colsum(C, "spectral.colsum"))
+    ainv_colsum, d1_si, A2 = _degrees(A, C, colsum, keep_idx, rows)
     U_A, S_A, _ = torch.linalg.svd(A2)
     map_k = U_A[:, :k] * (1.0 / torch.sqrt(S_A[:k]))[None, :]
     scale = _fit_scale(int(keep_idx.shape[0]), n_true, C.device)
@@ -228,23 +317,27 @@ class SpectralClustering(BaseEstimator):
         rng = check_random_state_np(self.random_state)
         km = self._make_km(rng)
         params = self._kernel_params()
-        Xs = _stage_f32(X)
+        rows = _Rows(X)
         keep = rng.choice(np.arange(n), l, replace=False)
         keep.sort()
-        keep_t = torch.as_tensor(keep, device=Xs.device)
+        keep_t = torch.as_tensor(keep, device=rows.X.device)
         with telemetry.span("spectral-nystrom", landmarks=l, k=k):
-            Xk, A, C = _kernel_blocks(Xs, keep_t, self.affinity, params)
-            U2, S_A, ext = _nystrom_core(A, C, keep_t, float(n), k)
+            Xk, A, C = rows.blocks(X, keep, self.affinity, params, keep_t)
+            U2, S_A, ext = _nystrom_core(
+                A, C, keep_t, float(n), k,
+                None if rows.mesh is None else rows)
             del A, C
             self._landmarks_ = Xk.cpu().numpy()
             self._extension_ = tuple(e.cpu().numpy() for e in ext)
             self._n_fit_rows_ = float(n)
         t_nys = tic()
         logger.info("k-means for assign_labels [starting]")
-        if isinstance(km, KMeans):
+        if isinstance(km, KMeans) and rows.mesh is not None:
+            km._fit_staged(rows.staged(U2))  # each rank its block
+        elif isinstance(km, KMeans):
             km.fit(U2)  # the embedding stays on the device
         else:
-            km.fit(U2.cpu().numpy())
+            km.fit(rows.whole(U2).cpu().numpy())
         logger.info("k-means for assign_labels [finished]")
         self.assign_labels_ = km
         self.labels_ = np.asarray(km.labels_)
@@ -296,17 +389,22 @@ class SpectralClustering(BaseEstimator):
         dtype."""
         if not hasattr(self, "assign_labels_"):
             raise AttributeError("Model not fitted; call fit first")
-        V = self._extend_rows(prepare_data(check_array(X)).X)
+        data = _staged_over_ranks(X)
+        V = self._extend_rows(data.X)
         if isinstance(self.assign_labels_, KMeans):
-            return self._assign(V).cpu().numpy().astype(np.int32)
-        return np.asarray(self.assign_labels_.predict(V.cpu().numpy()))
+            labels = _gathered(self._assign(V), data)
+            return labels.cpu().numpy().astype(np.int32)
+        return np.asarray(self.assign_labels_.predict(
+            _gathered(V, data).cpu().numpy()))
 
 
 def embed(X_keep, X_rest, n_components, metric, kernel_params):
     """The kernel blocks of the Nyström embedding: ``A = K(X_keep,
     X_keep)`` (l, l) and ``Bt = K(X_rest, X_keep)`` (m, l), the transpose of
     the reference's ``B``, both on the configured device. Callable metrics
-    receive ``(X, Y, **kernel_params)``."""
+    receive ``(X, Y, **kernel_params)``. Over a mesh of more than one data
+    shard ``Bt`` is this rank's block of ``X_rest``'s padded rows, the
+    padding rows zeroed (the JAX package's sharded ``Bt``)."""
     _check_affinity(metric)
     if n_components != len(X_keep):
         raise ValueError(
@@ -314,8 +412,25 @@ def embed(X_keep, X_rest, n_components, metric, kernel_params):
             f"rows len(X_keep)={len(X_keep)}")
     params = dict(kernel_params or {})
     Xk = _stage_f32(check_array(X_keep))
-    Xr = _stage_f32(check_array(X_rest))
-    return _kernel(Xk, Xk, metric, params), _kernel(Xr, Xk, metric, params)
+    rows = _Rows(check_array(X_rest))
+    Bt = _kernel(rows.X, Xk, metric, params)
+    if rows.mesh is not None:
+        Bt = torch.where(rows.valid[:, None], Bt, torch.zeros_like(Bt))
+    return _kernel(Xk, Xk, metric, params), Bt
+
+
+def _staged_over_ranks(X):
+    """``X`` validated and staged for prediction: over the collective
+    mesh this rank's block (in the policy's storage dtype)."""
+    return prepare_data(check_array(X), mesh=mesh_lib.collective_mesh())
+
+
+def _gathered(out, data):
+    """A per-row result of staged rows, every block's gathered in row
+    order over a sharded mesh (op ``nystrom.gather``)."""
+    if not mesh_lib.is_sharded(data.mesh):
+        return out
+    return gather_blocks(out, data.mesh, op="nystrom.gather")[:data.n]
 
 
 __all__ = ["SpectralClustering", "embed"]

@@ -116,6 +116,18 @@ def _validate_options(options: dict) -> None:
                     f"got {v!r}")
 
 
+def thread_config() -> dict:
+    """The calling thread's configuration for a worker thread to re-enter
+    with ``config_context(**thread_config())``: ``get_config()`` without
+    an unset ``mesh``, whose restatement inside a ``use_mesh`` scope
+    would be refused (the scope itself is process-wide, the worker sees
+    it)."""
+    cfg = dict(get_config())
+    if cfg.get("mesh") is None:
+        cfg.pop("mesh", None)
+    return cfg
+
+
 def get_option(name: str):
     """One option of the effective configuration (a ``KeyError`` for an
     unknown name)."""

@@ -7,8 +7,18 @@ device (``config.device``, "cuda" by default) from one
 ``torch.Generator`` seeded by ``random_state`` and return tensors there:
 the same seed gives the same bits, but not the JAX package's numbers
 (Philox is not threefry), so they are held to the JAX tests' properties.
-``mesh=`` (a multi-device layout) raises: it comes with ROADMAP Queue A
-item 10b.
+
+``mesh=`` takes a port :class:`~dask_ml_tpu_torch.parallel.mesh.Mesh`
+(anything else is refused, as the JAX generators refuse what is not a
+JAX mesh). The port's convention over a world of ranks is that every rank
+holds the same whole input and staging takes its block of rows
+(``prepare_data(mesh=)``), so every rank draws the same whole arrays on
+its own device from the same seed: the bits do not depend on the world
+size. ``random_state=None`` takes rank 0's fresh seed on every rank.
+``make_regression(effective_rank=)`` orthonormalizes its Gaussian basis
+with :func:`~dask_ml_tpu_torch.ops.linalg.tsqr` over the ranks (each
+rank its block of rows, then the blocks gathered), as the JAX generator
+runs its distributed tsqr.
 
 :func:`make_sparse_classification` is the JAX package's generator, copied,
 in numpy: each row draws its content from a counter-seeded chunk
@@ -26,17 +36,49 @@ import torch
 
 from dask_ml_tpu_torch.config import resolve_device
 from dask_ml_tpu_torch.ops.sparse import SparseRows
+from dask_ml_tpu_torch.parallel.mesh import Mesh, is_sharded
 from dask_ml_tpu_torch.utils.validation import check_random_state
 
 
+def _check_mesh(mesh):
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(
+            f"mesh must be a dask_ml_tpu_torch.parallel.mesh.Mesh, got "
+            f"{type(mesh).__name__}")
+
+
 def _generator(random_state, mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= lays the rows out over several devices, which comes "
-            "with the rest of the multi-device port, ROADMAP Queue A item "
-            "10b, which the port does not have yet")
-    dev = resolve_device()
+    """(generator, device): the configured device, or over ``mesh`` this
+    rank's, and a generator seeded the same on every rank."""
+    _check_mesh(mesh)
+    if mesh is None:
+        dev = resolve_device()
+        return check_random_state(random_state, device=dev), dev
+    dev = resolve_device(mesh.device)
+    if mesh.distributed:
+        from dask_ml_tpu_torch.decomposition.pca import shared_generator
+
+        return shared_generator(random_state, mesh, dev), dev
     return check_random_state(random_state, device=dev), dev
+
+
+def _orthonormal_rows(G, mesh):
+    """Q of the thin QR of the Gaussian draw ``G`` (n, r), whole on every
+    rank: over a sharded ``mesh`` each rank orthonormalizes its block with
+    the ranks' :func:`~dask_ml_tpu_torch.ops.linalg.tsqr` and the blocks
+    are gathered (op ``datasets.tsqr``)."""
+    from dask_ml_tpu_torch.ops.linalg import tsqr
+
+    if mesh is None or not mesh.distributed:
+        return tsqr(G)[0]
+    if not is_sharded(mesh):
+        return tsqr(G, mesh=mesh)[0]
+    from dask_ml_tpu_torch.parallel.hierarchy import gather_blocks
+    from dask_ml_tpu_torch.parallel.sharding import shard_rows
+
+    block, n = shard_rows(G, mesh, torch.float32, device=G.device)
+    Q, _ = tsqr(block, mesh=mesh)
+    return gather_blocks(Q, mesh, op="datasets.tsqr")[:n]
 
 
 def _informative_beta(gen, dev, n_features: int, n_informative: int,
@@ -106,8 +148,9 @@ def make_regression(
     ``make_low_rank_matrix``: ``X = (Q · s) @ Vᵀ``, Q an orthonormal
     (n, r) basis from the port's :func:`~dask_ml_tpu_torch.ops.linalg.
     tsqr` of a Gaussian draw, V another from a QR of a (d, r) one, and s
-    the bell-curve and tail singular profile. Returns ``(X, y[, coef])``
-    on the device."""
+    the bell-curve and tail singular profile (over ``mesh``, tsqr over the
+    ranks' blocks of the draw). Returns ``(X, y[, coef])`` on the
+    device."""
     gen, dev = _generator(random_state, mesh)
     tshape = (n_features,) if n_targets == 1 else (n_features, n_targets)
     informative = torch.randperm(n_features, generator=gen,
@@ -119,10 +162,9 @@ def make_regression(
     if effective_rank is None:
         X = torch.randn((n_samples, n_features), generator=gen, device=dev)
     else:
-        from dask_ml_tpu_torch.ops.linalg import tsqr
-
         r = min(n_samples, n_features)
-        Q, _ = tsqr(torch.randn((n_samples, r), generator=gen, device=dev))
+        Q = _orthonormal_rows(
+            torch.randn((n_samples, r), generator=gen, device=dev), mesh)
         V, _ = torch.linalg.qr(torch.randn((n_features, r), generator=gen,
                                            device=dev))
         sind = torch.arange(r, dtype=torch.float32,
@@ -255,6 +297,7 @@ def make_sparse_classification(
     random_state: int = 0,
     n_blocks: Optional[int] = None,
     return_coef: bool = False,
+    mesh=None,
 ):
     """Binary classification with a sparse design: each row holds exactly
     ``k = round(density * n_features)`` nonzeros (uniform column draws,
@@ -264,7 +307,11 @@ def make_sparse_classification(
 
     Returns ``(X, y)`` with ``X`` a host :class:`SparseRows`, or with
     ``n_blocks=`` a :class:`SparseClassificationBlocks` loader that makes
-    blocks on demand. ``random_state`` must be an integer seed."""
+    blocks on demand. ``random_state`` must be an integer seed. ``mesh``
+    (a port :class:`~dask_ml_tpu_torch.parallel.mesh.Mesh`) changes
+    nothing: every rank makes the same host rows, and staging over the
+    mesh (``prepare_data`` / ``shard_sparse_rows``) takes its block."""
+    _check_mesh(mesh)
     if not isinstance(random_state, (int, np.integer)):
         raise TypeError(
             "make_sparse_classification requires an INTEGER random_state: "

@@ -531,8 +531,10 @@ class _GLM(BaseEstimator):
         (M, width)}`` as device tensors (``coef`` with the intercept as
         its last column, as ``_coef``). Declines (``NotImplemented``) on
         multiclass targets and on a mesh with a ``model`` axis, as the JAX
-        package does: those run per cell, with the same results. The data
-        is staged whole on every rank of a world."""
+        package does: those run per cell, with the same results. In a
+        world of ranks each rank stages its block of the rows over
+        :func:`~dask_ml_tpu_torch.parallel.mesh.collective_mesh` and every
+        solve and score sums over the ranks."""
         mesh = mesh_lib.collective_mesh()
         if mesh is not None and mesh_lib.has_model_axis(mesh):
             return NotImplemented
@@ -543,7 +545,7 @@ class _GLM(BaseEstimator):
         def prep(Xa, ya):
             Xin = Xa if isinstance(Xa, torch.Tensor) else check_array(
                 Xa, accept_sparse=True)
-            data = prepare_data(Xin, y=ya)
+            data = prepare_data(Xin, y=ya, mesh=mesh)
             if self.fit_intercept:
                 data.X = add_intercept(data.X)
             return data
@@ -558,13 +560,14 @@ class _GLM(BaseEstimator):
             data.X, data.y, data.weights, torch.zeros_like(mask), mask,
             [self._member_lamduh(m) for m in members], solver=self.solver,
             family=kwargs["family"], regularizer=kwargs["regularizer"],
-            max_iter=int(kwargs["max_iter"]), tol=kwargs["tol"])
+            max_iter=int(kwargs["max_iter"]), tol=kwargs["tol"], mesh=mesh)
         self.n_features_in_ = d - 1 if self.fit_intercept else d
         scores = []
         for E, y_e in eval_sets:
             ed = prep(E, self._encode_eval_y(y_e))
             scores.append(core.batched_eval_scores(
-                ed.X, ed.y, ed.weights, betas, family=self.family))
+                ed.X, ed.y, ed.weights, betas, family=self.family,
+                mesh=mesh))
         return {"n_iter": n_iters, "scores": scores, "coef": betas}
 
 

@@ -350,7 +350,7 @@ class BaseIncrementalSearchCV(BaseEstimator):
         if eta < 2:
             raise ValueError(
                 f"aggressiveness must be >= 2, got {self.aggressiveness}")
-        caller_cfg = dict(config_lib.get_config())
+        caller_cfg = config_lib.thread_config()
         run = self.elastic
 
         # -- seeded holdout split and block partition ---------------------

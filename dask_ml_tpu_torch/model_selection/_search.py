@@ -44,6 +44,7 @@ from dask_ml_tpu_torch.model_selection._params import (ParameterGrid,
 from dask_ml_tpu_torch.model_selection._split import check_cv
 from dask_ml_tpu_torch.model_selection._tokenize import tokenize
 from dask_ml_tpu_torch.model_selection.methods import FIT_FAILURE
+from dask_ml_tpu_torch.parallel import mesh as mesh_lib
 from dask_ml_tpu_torch.parallel import telemetry
 from dask_ml_tpu_torch.pipeline import FeatureUnion, Pipeline, union_concat
 
@@ -258,12 +259,20 @@ class CVCache:
         return len(self.splits[split_idx][1])
 
     def planned_buckets(self) -> list:
-        """Sorted sample counts of the fold slices. The JAX package pads
-        each slice to a shape bucket so that folds share compiled
-        programs; the port compiles nothing per shape and pads nothing,
-        so these are the exact train and test sizes."""
-        return sorted({len(idx) for tr, te in self.splits
-                       for idx in (tr, te)})
+        """Sorted sample counts the fold slices stage to. On one device
+        (or a world of one rank) the port pads nothing: the exact train
+        and test sizes. Over a mesh of more than one data shard staging
+        pads each slice to the active policy's bucket aligned to the
+        shard count, as the JAX package plans it."""
+        from dask_ml_tpu_torch.parallel import shapes
+
+        mesh = mesh_lib.collective_mesh()
+        sizes = {len(idx) for tr, te in self.splits for idx in (tr, te)}
+        if not mesh_lib.is_sharded(mesh):
+            return sorted(sizes)
+        align = mesh_lib.n_data_shards(mesh)
+        return sorted({shapes.bucket_rows(n, align=align, record=False)
+                       for n in sizes})
 
     def extract(self, split_idx: int, train: bool, is_x: bool = True,
                 pairwise: bool = False):
@@ -1250,10 +1259,14 @@ class BaseSearchCV(BaseEstimator):
             for ci in range(n_candidates)
             for si in range(n_splits)
         ]
-        # the pool keeps the size asked for: the JAX package caps it at one
-        # worker on XLA:CPU, whose collectives deadlock when two mesh-wide
-        # programs run at once; the port has no mesh and no collectives
-        n_workers = _normalize_n_jobs(self.n_jobs)
+        # the pool keeps the size asked for on one device. In a world of
+        # ranks every fit and group reduces over the ranks, and two
+        # threads' collectives would interleave in another order on each
+        # rank: the cells and the groups then run one at a time, in one
+        # order (the JAX package caps its pool at one worker for the same
+        # reason on XLA:CPU)
+        serial = mesh_lib.collective_mesh() is not None
+        n_workers = 1 if serial else _normalize_n_jobs(self.n_jobs)
 
         # Batched-candidate fast path: bucket homogeneous candidates and let
         # the terminal estimator fit+score each bucket as one group (see
@@ -1323,7 +1336,7 @@ class BaseSearchCV(BaseEstimator):
         # must reach the pool's worker threads, or
         # `config_context(device="cpu"): search.fit(...)` would run its
         # cells on the default device under n_jobs > 1.
-        caller_cfg = dict(config_lib.get_config())
+        caller_cfg = config_lib.thread_config()
         if device_native:
             # all-native candidate pipelines: stage outputs flow
             # device→device between pipeline steps for the whole search
@@ -1453,7 +1466,7 @@ class BaseSearchCV(BaseEstimator):
                              if jobs else [])
                     rests += jobs[1:]
                     rests = [j for j in rests if j[2]]
-                    if len(rests) <= 1:
+                    if len(rests) <= 1 or serial:
                         tails = [_dispatch_group(j) for j in rests]
                     else:
                         with ThreadPoolExecutor(

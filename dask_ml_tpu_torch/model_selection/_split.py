@@ -5,9 +5,11 @@ Index generation is host numpy work, done once a search. The splitters
 keep the JAX package's algorithms index for index: :class:`ShuffleSplit`
 permutes each block of rows locally with per-block seeds and offsets the
 result into global row ids (``blockwise=True``), or the whole row range
-(``blockwise=False``); :class:`KFold` takes contiguous folds. The JAX
-package's blocks are the mesh's data shards; the port runs on one device,
-which has no shards, so ``n_blocks=None`` means one block.
+(``blockwise=False``); :class:`KFold` takes contiguous folds. The
+blocks are the mesh's data shards, as in the JAX package:
+``n_blocks=None`` means ``n_data_shards`` of
+:func:`~dask_ml_tpu_torch.parallel.mesh.collective_mesh` (one block on one
+device, or in a world of one rank).
 
 :func:`check_cv` resolves an int for a classifier with categorical ``y``
 to :class:`StratifiedKFold`, the port's copy of scikit-learn's (the same
@@ -103,8 +105,8 @@ class ShuffleSplit(BaseCrossValidator):
     test_size, train_size : float fractions (the blockwise restriction)
     blockwise : bool, default True — permute within blocks; False permutes
         the whole row range.
-    n_blocks : int or None — number of blocks; None means 1 (the port runs
-        on one device, which has no data shards).
+    n_blocks : int or None — number of blocks; None means the data-shard
+        count of the collective mesh (1 on one device).
     random_state : int or None
     """
 
@@ -133,7 +135,11 @@ class ShuffleSplit(BaseCrossValidator):
                 yield self._split_global(n, test_size, train_size, rng)
 
     def _split_blockwise(self, n, test_size, train_size, rng):
-        sizes = _block_sizes(n, self.n_blocks or 1)
+        from dask_ml_tpu_torch.parallel import mesh as mesh_lib
+
+        n_blocks = self.n_blocks or mesh_lib.n_data_shards(
+            mesh_lib.collective_mesh())
+        sizes = _block_sizes(n, n_blocks)
         seeds = rng.randint(0, 2**31 - 1, size=len(sizes))
         trains, tests = [], []
         offset = 0

@@ -1048,7 +1048,7 @@ _PATH_SOLVERS = ("gradient_descent", "newton", "lbfgs", "proximal_grad")
 
 
 def batched_glm_path(X, y, w, beta0, mask, lamduh_arr, *, solver, family,
-                     regularizer, max_iter, tol):
+                     regularizer, max_iter, tol, mesh=None):
     """Solve the same GLM problem for a vector of regularization strengths
     (the JAX ``batched_glm_path``): the members are solved one after
     another through the same solver function with ``lamduh`` the
@@ -1058,8 +1058,10 @@ def batched_glm_path(X, y, w, beta0, mask, lamduh_arr, *, solver, family,
     port's solvers are Python loops with a host read a loop test, so they
     cannot share one batched loop yet (a batched ``(M, d)`` solve is a
     ROADMAP speed item). The data is staged once for all members. ADMM is
-    excluded, as in the JAX package. Returns ``(betas (M, d), n_iters
-    (M,) int32)`` on the device."""
+    excluded, as in the JAX package. Over ``mesh`` X, y and w are this
+    rank's block and each member's solve sums over the ranks, as the
+    single fit over the mesh does. Returns ``(betas (M, d), n_iters (M,)
+    int32)`` on the device."""
     if solver not in _PATH_SOLVERS:
         raise ValueError(
             f"batched_glm_path takes a solver of {_PATH_SOLVERS}; got "
@@ -1069,32 +1071,42 @@ def batched_glm_path(X, y, w, beta0, mask, lamduh_arr, *, solver, family,
     for lam in lamduh_arr:
         beta, n_iter = fn(X, y, w, beta0, mask, family=family,
                           regularizer=regularizer, lamduh=float(lam),
-                          max_iter=max_iter, tol=tol)
+                          max_iter=max_iter, tol=tol, mesh=mesh)
         betas.append(beta)
         n_iters.append(int(n_iter))
     return (torch.stack(betas),
             torch.tensor(n_iters, dtype=torch.int32, device=beta0.device))
 
 
-def batched_eval_scores(E, y, w, betas, *, family):
+def batched_eval_scores(E, y, w, betas, *, family, mesh=None):
     """Default scores of a coefficient batch on one eval set, weighted:
     accuracy for logistic (``eta > 0`` against the {0, 1} targets; a
     target of −1, a label the training fold never saw, never matches),
     R² for normal. One ``(nE, M)`` product: the gather-matmat for a
     container, ``torch.matmul`` for dense data. ``betas`` is (M, d);
-    returns (M,) on the device, with no host read."""
+    returns (M,) on the device, with no host read. Over ``mesh`` E, y and
+    w are this rank's block: the weighted sums go through ``hpsum`` (op
+    ``glm.batched.eval``; R² sums the mean first, then the squares)."""
+    def total(t):
+        return t if mesh is None else hier.hpsum(t, mesh,
+                                                 op="glm.batched.eval")
+
     if isinstance(E, sparse_ops.SparseRows):
         eta = sparse_ops.matmat(E, betas.T)
     else:
         eta = px.pmatmul(E, betas.T)
-    sw = torch.clamp(torch.sum(w), min=1e-12)
     if family == "logistic":
         hit = ((eta > 0).to(torch.float32) == y[:, None]).to(torch.float32)
-        return torch.sum(hit * w[:, None], dim=0) / sw
+        sums = total(torch.cat([torch.sum(hit * w[:, None], dim=0),
+                                torch.sum(w)[None]]))
+        return sums[:-1] / torch.clamp(sums[-1], min=1e-12)
     resid = y[:, None] - eta
-    ss_res = torch.sum(resid * resid * w[:, None], dim=0)
-    ybar = torch.sum(y * w) / sw
-    ss_tot = torch.clamp(torch.sum((y - ybar) ** 2 * w), min=1e-30)
+    sums = total(torch.cat([torch.sum(resid * resid * w[:, None], dim=0),
+                            torch.sum(y * w)[None], torch.sum(w)[None]]))
+    ss_res = sums[:-2]
+    sw = torch.clamp(sums[-1], min=1e-12)
+    ybar = sums[-2] / sw
+    ss_tot = torch.clamp(total(torch.sum((y - ybar) ** 2 * w)), min=1e-30)
     return 1.0 - ss_res / ss_tot
 
 

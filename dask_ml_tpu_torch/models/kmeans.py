@@ -435,13 +435,25 @@ def batched_lloyd_cells(data, members, eval_sets, *, max_iter: int,
     Returns ``(n_iters (M,), train_inertia (M,), [eval inertias (M,)])``
     as device tensors; the train inertia is that of the centers before
     the last update, as the single-pass kernel reports it.
+
+    **Over a mesh** (``data.mesh`` of more than one data shard, and each
+    eval set staged over the same mesh) every rank runs every
+    trajectory's K1 on its own block. Each step's sums, counts and
+    inertias of all trajectories go through one ``hpsum`` (op
+    ``kmeans.batched``: one collective a step, not one a trajectory), so
+    every rank holds the same centers. The init rows are global row ids:
+    their owner fills them in and every other rank adds zeros (op
+    ``kmeans.batched.init``, exact). Each eval set's per-row costs of
+    every member are gathered once (op ``kmeans.batched.eval``) and
+    summed in the one order :func:`compute_inertia` sums them. So on
+    integer data a world of ranks gives the single device's results bit
+    for bit.
     """
     if not members:
         raise ValueError("batched_lloyd_cells takes at least one member")
-    if is_sharded(getattr(data, "mesh", None)):
-        raise NotImplementedError(
-            "batched_lloyd_cells over a mesh of more than one rank comes "
-            "with ROADMAP Queue A item 10b; run the search on one device")
+    mesh = getattr(data, "mesh", None)
+    if not is_sharded(mesh):
+        mesh = None
     X, w = data.X, data.weights
     dev = X.device
     d = int(X.shape[1])
@@ -455,28 +467,36 @@ def batched_lloyd_cells(data, members, eval_sets, *, max_iter: int,
         idx0 = _device_vector(np.asarray(idx0).tolist(), torch.int64, dev)
     idx0 = idx0[:max_k].to(device=dev, dtype=torch.int64)
     tol_arr = (_device_vector([float(t) for _, t in members], torch.float32,
-                              dev) * _mean_feature_variance(X, w))
+                              dev) * _mean_feature_variance(X, w, mesh))
     member_u = _device_vector([uks.index(k) for k in ks], torch.int64, dev)
 
-    hists, shifts, inertias = [], [], []
+    stats_fns, centers, hists, shifts, inertias = [], [], [], [], []
     for k in uks:
-        stats = _lloyd_stats_fn(X, k, d, kernel)
+        stats_fns.append(_lloyd_stats_fn(X, k, d, kernel))
         rows = torch.sort(idx0[:k]).values
-        centers = torch.index_select(X, 0, rows).to(torch.float32)
-        hist, sh, inert = [], [], []
-        with telemetry.span("kmeans-batched-trajectory", k=k, steps=T):
-            for _ in range(T):
-                sums, counts, inertia = stats(X, w, centers)
-                new_centers = _new_centers(sums, counts, centers)
-                sh.append(((new_centers - centers) ** 2).sum())
-                inert.append(inertia)
-                hist.append(new_centers)
-                centers = new_centers
-        hists.append(torch.stack(hist))  # (T, k, d)
-        shifts.append(torch.stack(sh))
-        inertias.append(torch.stack(inert))
-    shifts = torch.stack(shifts)  # (U, T)
-    inertias = torch.stack(inertias)  # (U, T)
+        if mesh is None:
+            centers.append(torch.index_select(X, 0, rows).to(torch.float32))
+        else:
+            centers.append(_rows_by_owner(X, rows, data.row_offset, mesh,
+                                          "kmeans.batched.init"))
+        hists.append([])
+        shifts.append([])
+        inertias.append([])
+    with telemetry.span("kmeans-batched-trajectories", ks=len(uks),
+                        steps=T):
+        for _ in range(T):
+            parts = [stats(X, w, c) for stats, c in zip(stats_fns, centers)]
+            if mesh is not None:
+                parts = _sum_stats_once(parts, mesh)
+            for u, (sums, counts, inertia) in enumerate(parts):
+                new_centers = _new_centers(sums, counts, centers[u])
+                shifts[u].append(((new_centers - centers[u]) ** 2).sum())
+                inertias[u].append(inertia)
+                hists[u].append(new_centers)
+                centers[u] = new_centers
+    hists = [torch.stack(h) for h in hists]  # each (T, k, d)
+    shifts = torch.stack([torch.stack(s) for s in shifts])  # (U, T)
+    inertias = torch.stack([torch.stack(i) for i in inertias])  # (U, T)
 
     below = shifts[member_u] < tol_arr[:, None]  # (M, T)
     first = torch.argmax(below.to(torch.int32), dim=1)
@@ -488,10 +508,46 @@ def batched_lloyd_cells(data, members, eval_sets, *, max_iter: int,
                  for m, k in enumerate(ks)]
     evals = []
     for e in eval_sets:
-        evals.append(torch.stack([compute_inertia(e.X, e.weights, c,
-                                                  kernel=kernel)
-                                  for c in centers_m]))
+        if mesh is None:
+            evals.append(torch.stack([compute_inertia(e.X, e.weights, c,
+                                                      kernel=kernel)
+                                      for c in centers_m]))
+            continue
+        costs = torch.stack([fused_argmin_min(e.X, c, kernel=kernel)[1]
+                             * e.weights for c in centers_m], dim=1)
+        every = gather_blocks(costs, mesh, op="kmeans.batched.eval")[:e.n]
+        evals.append(torch.stack([every[:, m].contiguous().sum()
+                                  for m in range(len(centers_m))]))
     return n_iters, train_inertia, evals
+
+
+def _rows_by_owner(X, rows, row_offset: int, mesh, op: str):
+    """The rows at global ids ``rows`` (a tensor) of the row-sharded data,
+    as f32, on every rank: the rank that holds a row fills it in, every
+    other rank adds zeros, and one ``hpsum`` adds them up (exact)."""
+    local = rows - int(row_offset)
+    mine = (local >= 0) & (local < X.shape[0])
+    picked = torch.index_select(X, 0, torch.where(mine, local,
+                                                  torch.zeros_like(local)))
+    buf = torch.where(mine[:, None], picked.to(torch.float32),
+                      torch.zeros((), dtype=torch.float32, device=X.device))
+    return hpsum(buf, mesh, op=op)
+
+
+def _sum_stats_once(parts, mesh):
+    """Every trajectory's (sums, counts, inertia) partials summed over the
+    sample axes by one ``hpsum`` of their concatenation (op
+    ``kmeans.batched``), split back into the same shapes."""
+    flat = torch.cat([t.reshape(-1) for part in parts for t in part])
+    total = hpsum(flat, mesh, op="kmeans.batched")
+    out, at = [], 0
+    for part in parts:
+        got = []
+        for t in part:
+            got.append(total[at:at + t.numel()].reshape(t.shape))
+            at += t.numel()
+        out.append(tuple(got))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -797,17 +853,26 @@ def _predict_sketched_fast(X, Wp, off, vals, kernel: str = "auto"):
     return fused_argmin_min_sketched(Zp, vals, x2=zero, kernel=kernel)[0]
 
 
-def predict_labels_sketched(X, Wp, off, vals, centers, kernel: str = "auto"):
+def predict_labels_sketched(X, Wp, off, vals, centers, kernel: str = "auto",
+                            mesh=None, n_valid=None):
     """Labels for X under a sketched model — the one assignment of the
     sketched family, shared by ``KMeans.fit`` and ``KMeans.predict``.
     ``Wp`` is the (d, p) staging slice, ``off = μ @ Wp`` its centering
     offset, ``centers`` the dense reconstruction (with the mean added
-    back); :func:`sketched_assign_wins` picks the contraction."""
+    back); :func:`sketched_assign_wins` picks the contraction. Over more
+    than one data shard X is this rank's block: it is labelled on its own
+    (K2-x, or K2 on the dense route) and every block's labels are
+    gathered (op ``kmeans.labels``), the first ``n_valid`` on every
+    rank."""
     n, d = X.shape
     k, p = vals.shape
-    if sketched_assign_wins(n, k, d, p):
-        return _predict_sketched_fast(X, Wp, off, vals, kernel=kernel)
-    return predict_labels(X, centers, kernel=kernel)
+    if not sketched_assign_wins(n, k, d, p):
+        return predict_labels(X, centers, kernel=kernel, mesh=mesh,
+                              n_valid=n_valid)
+    labels = _predict_sketched_fast(X, Wp, off, vals, kernel=kernel)
+    if not is_sharded(mesh):
+        return labels
+    return gather_blocks(labels, mesh, op="kmeans.labels")[:n_valid]
 
 
 # ---------------------------------------------------------------------------

@@ -38,7 +38,10 @@ every public function (``torch.argmin`` gives int64).
 Over a mesh of ranks a caller passes this rank's block of row-sharded
 arrays, as the JAX family's ``shard_map`` bodies see theirs: each kernel
 launches on the block unchanged and returns the block's per-row outputs.
-The one cross-shard reduction is :func:`fused_argmin_weight`'s ``cw``:
+The per-row functions take ``mesh=`` as the JAX family does and need no
+collective: their rows are the block (``mesh`` only names the layout the
+block belongs to). The one cross-shard reduction is
+:func:`fused_argmin_weight`'s ``cw``:
 with ``mesh=`` (a :class:`~dask_ml_tpu_torch.parallel.mesh.Mesh`) it is
 summed over the sample axes by
 :func:`~dask_ml_tpu_torch.parallel.hierarchy.hpsum` (ledger op
@@ -277,7 +280,7 @@ def _fused_cuda(X, Y, mask, epilogue: str, w=None, row_need=None, x2=None,
 
 
 def fused_rowwise_min(X, Y, mask=None, *, kernel: str = "auto",
-                      row_need=None):
+                      row_need=None, mesh=None):
     """Per-row ``min_j d²(x_i, y_j)`` over valid Y rows, shape (n,) f32.
     All-masked returns +inf per row. ``row_need`` (optional (n,) bool)
     skips ``_FUSED_BLK``-row groups with no needed row; their rows return
@@ -290,7 +293,7 @@ def fused_rowwise_min(X, Y, mask=None, *, kernel: str = "auto",
                         (float("inf"),))
 
 
-def fused_argmin_min(X, Y, mask=None, *, kernel: str = "auto"):
+def fused_argmin_min(X, Y, mask=None, *, kernel: str = "auto", mesh=None):
     """Per-row (argmin index int32, min squared distance f32) over valid Y
     rows. Ties break to the lowest index."""
     if _kernels.use_cuda(kernel, X):
@@ -299,7 +302,7 @@ def fused_argmin_min(X, Y, mask=None, *, kernel: str = "auto"):
 
 
 def fused_argmin_min2(X, Y, mask=None, *, kernel: str = "auto",
-                      row_need=None):
+                      row_need=None, mesh=None):
     """Per-row (argmin int32, min d² f32, second-best d² f32) over valid Y
     rows — the bound-seeding primitive of bounded Lloyd. Same contracts
     as :func:`fused_argmin_min`; the second-best is the min over every
@@ -317,7 +320,8 @@ def fused_argmin_min2(X, Y, mask=None, *, kernel: str = "auto",
 
 
 def fused_argmin_min_sketched(Z, vals, support=None, mask=None, *,
-                              x2=None, kernel: str = "auto", row_need=None):
+                              x2=None, kernel: str = "auto", row_need=None,
+                              mesh=None):
     """Per-row (argmin int32, min FULL-SPACE d² f32) against sketched
     targets ``vals`` (k, p) on one shared transform-column support (see
     :mod:`dask_ml_tpu_torch.ops.fast_transform`). The contraction runs

@@ -175,6 +175,17 @@ class ServingFleet:
         The replicas' devices, one each (overrides ``n_replicas``);
         default: the configured device's type, replica ``i`` on device
         ``i`` while there are enough, else round robin.
+    meshes : sequence of Mesh, optional
+        One :class:`~dask_ml_tpu_torch.parallel.mesh.Mesh` of ranks a
+        replica (overrides ``n_replicas`` and ``devices``), in a
+        ``torch.distributed`` world: every rank of the world builds the
+        fleet and calls :meth:`start` in the same order. The router, the
+        monitor and every replica's queue stay in the leader's process
+        (the lowest rank of all the meshes); replica ``i``'s batches run
+        on the ranks of ``meshes[i]``, each its row block
+        (``ServingLoop(mesh=)``), over a process group of that mesh's
+        ranks plus the leader. Only the leader accepts ``submit``; the
+        other ranks' ``stop()`` waits for the leader's.
     policy, max_batch_rows, max_queue, coalesce_window_s, retry_policy
         Handed to every :class:`ServingLoop`.
     heartbeat_interval_s, heartbeat_timeout_s
@@ -199,6 +210,7 @@ class ServingFleet:
     def __init__(self, registry: Optional[ModelRegistry] = None, *,
                  n_replicas: int = 2,
                  devices=None,
+                 meshes=None,
                  policy=None,
                  max_batch_rows: int = 2048,
                  max_queue: int = 4096,
@@ -220,6 +232,11 @@ class ServingFleet:
         self.registry = registry if registry is not None else ModelRegistry()
         self.n_replicas = int(n_replicas)
         self._devices = list(devices) if devices is not None else None
+        self._meshes = list(meshes) if meshes is not None else None
+        #: over ``meshes``: whether this process routes (the leader)
+        self.leads = True
+        #: the loops this rank runs blocks for under another's router
+        self._follower_loops: list = []
         self.policy = policy
         self.max_batch_rows = int(max_batch_rows)
         self.max_queue = int(max_queue)
@@ -282,9 +299,10 @@ class ServingFleet:
         return [torch.device("cuda", i % count) for i in range(n)]
 
     def start(self) -> "ServingFleet":
-        from dask_ml_tpu_torch.parallel import telemetry
-
         if self._started:
+            return self
+        if self._meshes is not None:
+            self._start_meshes()
             return self
         devices = self._build_devices()
         self._replicas = []
@@ -304,6 +322,55 @@ class ServingFleet:
                                            device=loop.device))
         self._closing = False
         self._started = True
+        self._start_monitor()
+        return self
+
+    def _start_meshes(self) -> None:
+        """``start()`` over ``meshes``: make every replica's group and
+        loop on every rank, in replica order; only the leader routes and
+        monitors."""
+        import torch.distributed as dist
+
+        from dask_ml_tpu_torch.parallel.serving import _FOLLOW_TIMEOUT
+
+        if len(self._meshes) < 1:
+            raise ValueError("meshes must name at least one mesh")
+        if not (dist.is_available() and dist.is_initialized()):
+            raise ServingError(
+                "ServingFleet(meshes=) runs in a torch.distributed world: "
+                "runtime.initialize on every rank first")
+        leader = min(int(r) for m in self._meshes
+                     for r in m.devices.reshape(-1))
+        self.leads = dist.get_rank() == leader
+        self._replicas, self._follower_loops = [], []
+        for i, m in enumerate(self._meshes):
+            members = sorted({int(r) for r in m.devices.reshape(-1)}
+                             | {leader})
+            group = dist.new_group(members, timeout=_FOLLOW_TIMEOUT)
+            rname = f"{self.name}-r{i}"
+            loop = ServingLoop(
+                self.registry, policy=self.policy,
+                max_batch_rows=self.max_batch_rows,
+                max_queue=self.max_queue,
+                coalesce_window_s=self.coalesce_window_s,
+                mesh=m, drain=self._drain,
+                retry_policy=self._retry_policy,
+                fault_injector=self._fault_injector,
+                name=rname, _group=group, _leader=leader)
+            loop.start()
+            if self.leads:
+                self._replicas.append(_Replica(name=rname, loop=loop,
+                                               device=loop.device))
+            elif loop.role == "follower":
+                self._follower_loops.append(loop)
+        self._closing = False
+        self._started = True
+        if self.leads:
+            self._start_monitor()
+
+    def _start_monitor(self) -> None:
+        from dask_ml_tpu_torch.parallel import telemetry
+
         # as in ServingLoop.start: the monitor thread inherits an enabled
         # telemetry scope, so its increment sites mirror under
         # config_context(telemetry=True) around start()
@@ -314,7 +381,6 @@ class ServingFleet:
             daemon=True)
         self._monitor.start()
         self._set_replica_up()
-        return self
 
     def __enter__(self) -> "ServingFleet":
         return self.start()
@@ -326,7 +392,10 @@ class ServingFleet:
              timeout: Optional[float] = 30.0) -> None:
         """Stop admitting, stop every replica (``drain=True`` flushes their
         queues and resolves their futures), then fail whatever replay
-        bookkeeping remains, so nothing is left pending."""
+        bookkeeping remains, so nothing is left pending. A rank that does
+        not lead a ``meshes=`` fleet waits for the leader's stop."""
+        for loop in self._follower_loops:
+            loop.stop(timeout=timeout)
         with self._lock:
             self._closing = True
         self._monitor_stop.set()
@@ -452,6 +521,10 @@ class ServingFleet:
         replay, once by ``request_id``). A validation error, an expired
         ``deadline`` and backpressure from every live replica raise here.
         Submitting an id already in flight returns its future."""
+        if not self.leads:
+            raise ServingError(
+                f"fleet {self.name!r}: submit on the leader rank, which "
+                "routes every replica's requests")
         if self._drain is not None and self._drain.requested:
             self._closing = True
         if self._closing or not self._started:

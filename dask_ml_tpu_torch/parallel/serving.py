@@ -68,6 +68,28 @@ one device (the counterpart of ``dask_ml_tpu/parallel/serving.py``).
   ``publish()`` and ``build()`` + ``install()`` are the hot-swap seams of
   :class:`~dask_ml_tpu_torch.parallel.fleet.ServingFleet`.
 
+- **Over a mesh of ranks** (``ServingLoop(mesh=)``, in a
+  ``torch.distributed`` world) every rank of the mesh starts the loop. The
+  lowest rank leads: it alone holds the queue, the coalescer, the futures
+  and the registry that serves, and only it accepts ``submit``. Each
+  padded batch's bucket is a multiple of the mesh's data-shard count; for
+  each batch the leader broadcasts a header (kind, model version, method,
+  padded rows, width) and then the batch over the loop's process group,
+  every rank runs the runner on its own row block (K2 / K2-x for the K2
+  families), and the blocks come back to the leader by ``all_gather``, in
+  data-shard order. Before a model version's first batch the leader
+  broadcasts the version itself (the estimator, its tensors pickled from
+  the host) and the followers build their runners from it: a
+  ``publish``, ``install`` or fleet ``swap`` on the leader reaches every
+  rank with its next batch, and a follower never runs another version
+  than the leader's. A runner that raises on any rank gives an error
+  marker in place of its block, so every rank still reaches the gather
+  and the leader fails that batch alone. The followers serve until the
+  leader broadcasts a stop (its ``stop()``); a follower's ``stop()``
+  waits for it. The loop's group (the mesh's ranks plus the leader) is
+  made with ``new_group`` at ``start()``, which every rank of the world
+  must reach in the same order.
+
 ``ParallelPostFit(serving=loop)`` makes the wrapper a client of a loop (a
 ``ServingFleet`` drops in the same way).
 """
@@ -76,6 +98,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import logging
 import threading
 import time
@@ -128,6 +151,24 @@ class DeadlineExceeded(ServingError):
     was shed. Raised by ``submit()`` when the deadline is already past,
     set on the future when it expires in the queue."""
 
+
+#: the header kinds a mesh loop's leader broadcasts: stop, run a batch,
+#: take a model version
+_HDR_STOP, _HDR_RUN, _HDR_MODEL = 0, 1, 2
+
+#: the loop's process group timeout. A follower waits in a broadcast for
+#: the leader's next header as long as the server is idle, which has no
+#: bound; every rank reaches every gather (a runner's error travels as a
+#: marker), so the timeout only ends a collective whose peer died
+_FOLLOW_TIMEOUT = datetime.timedelta(days=7)
+
+
+@dataclasses.dataclass
+class _BlockFailed:
+    """A rank's block in place of its output when its runner raised."""
+
+    rank: int
+    error: str
 
 #: the serving bucket policy: powers of two from 32 rows. ``waste_cap=1``
 #: keeps one bucket an octave (a handful of warmed shapes for any mix of
@@ -568,6 +609,11 @@ class ServingLoop:
     device : torch.device or str, optional
         Where the batches run; default the configured device, resolved by
         :meth:`start` in the calling thread.
+    mesh : Mesh, optional
+        A :class:`~dask_ml_tpu_torch.parallel.mesh.Mesh` of ranks: every
+        rank of it starts the loop and runs its row block of each batch
+        (module docstring). Without a world, a mesh of one rank is one
+        device.
     drain, retry_policy, fault_injector
         A :class:`~dask_ml_tpu_torch.parallel.faults.GracefulDrain`; a
         :class:`~dask_ml_tpu_torch.parallel.faults.RetryPolicy` for
@@ -583,10 +629,13 @@ class ServingLoop:
                  coalesce_window_s="adaptive",
                  coalesce_window_max_s: float = 0.010,
                  device=None,
+                 mesh=None,
                  drain=None,
                  retry_policy=None,
                  fault_injector=None,
-                 name: str = "serving"):
+                 name: str = "serving",
+                 _group=None,
+                 _leader: Optional[int] = None):
         self.registry = registry if registry is not None else ModelRegistry()
         self.policy = policy if policy is not None else DEFAULT_SERVING_POLICY
         self.max_batch_rows = int(max_batch_rows)
@@ -602,6 +651,19 @@ class ServingLoop:
         self.coalesce_window_max_s = float(coalesce_window_max_s)
         self.name = str(name)
         self._device_arg = device
+        self._mesh = mesh
+        # a ServingFleet over meshes names its router's rank and the group
+        self._leader_arg = _leader
+        self._group = _group
+        #: over a mesh: the model versions the leader has sent, and a
+        #: follower's ServedModels (or build errors) by version
+        self._sent: set = set()
+        self._mirror: dict = {}
+        #: "leader", "follower" (a rank of the mesh that runs blocks),
+        #: "idle" (a world rank outside the loop's group), or None: one
+        #: device, no collective
+        self.role = None
+        self._follower: Optional[threading.Thread] = None
         self._drain = drain
         self._retry_policy = retry_policy
         self._fault_injector = fault_injector
@@ -666,20 +728,24 @@ class ServingLoop:
         """Resolve the device, the wire dtype and the configuration in the
         calling thread (so its scoped configuration holds), then start the
         dispatch thread."""
-        from dask_ml_tpu_torch.config import get_config, resolve_device
+        from dask_ml_tpu_torch.config import resolve_device, thread_config
         from dask_ml_tpu_torch.parallel import precision as precision_lib
         from dask_ml_tpu_torch.parallel import telemetry
 
         if self._thread is not None and self._thread.is_alive():
             return self
+        if self._follower is not None and self._follower.is_alive():
+            return self
         dev = resolve_device(self._device_arg)
+        if self._mesh is not None:
+            dev = self._join_mesh(dev)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         self._device = dev
         if dev.type == "cuda" and self._stream is None:
             self._stream = torch.cuda.Stream(dev)
         self._wire = precision_lib.staging_wire_dtype()
-        cfg = get_config()
+        cfg = thread_config()
         self._telemetry_inherit = telemetry.enabled()
         # the dispatch thread runs under the caller's configuration, but
         # with the telemetry knob off it installs no override of it: the
@@ -694,10 +760,63 @@ class ServingLoop:
         self._stopped_requested = False
         self.fatal = None
         self._last_beat = time.monotonic()
+        self._sent, self._mirror = set(), {}
+        if self.role == "idle":
+            return self
+        if self.role == "follower":
+            self._follower = threading.Thread(
+                target=self._follow, name=f"{self.name}-follow",
+                daemon=True)
+            self._follower.start()
+            return self
         self._thread = threading.Thread(
             target=self._run, name=f"{self.name}-dispatch", daemon=True)
         self._thread.start()
         return self
+
+    def _join_mesh(self, dev: torch.device) -> torch.device:
+        """Take this rank's role on the loop's mesh and make (or take) the
+        loop's process group; returns the device the rank serves on."""
+        from dask_ml_tpu_torch.config import resolve_device
+        from dask_ml_tpu_torch.parallel import mesh as mesh_lib
+
+        m = self._mesh
+        if not isinstance(m, mesh_lib.Mesh):
+            raise TypeError(
+                "ServingLoop mesh must be a dask_ml_tpu_torch.parallel.mesh."
+                f"Mesh, got {type(m).__name__}")
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()):
+            if m.size != 1:
+                raise ServingError(
+                    f"ServingLoop over the {m.shape} mesh needs its ranks' "
+                    "world: runtime.initialize on every rank, then build the "
+                    "mesh")
+            self.role = None  # one device, no collective
+            return dev
+
+        ranks = sorted(int(r) for r in m.devices.reshape(-1))
+        self._leader = (ranks[0] if self._leader_arg is None
+                        else int(self._leader_arg))
+        self._members = sorted(set(ranks) | {self._leader})
+        if self._group is None:
+            self._group = dist.new_group(self._members,
+                                         timeout=_FOLLOW_TIMEOUT)
+        me = dist.get_rank()
+        self.role = ("leader" if me == self._leader else
+                     "follower" if me in ranks else "idle")
+        self._align = mesh_lib.n_data_shards(m)
+        # each rank's data shard, from its coordinates on the grid
+        self._shard_of = {}
+        axes = mesh_lib.data_axes(m)
+        for coords in np.ndindex(*m.devices.shape):
+            at = dict(zip(m.axis_names, coords))
+            i = 0
+            for a in axes:
+                i = i * m.shape[a] + at[a]
+            self._shard_of[int(m.devices[coords])] = i
+        return resolve_device(m.device) if m.device is not None else dev
 
     def __enter__(self) -> "ServingLoop":
         return self.start()
@@ -709,7 +828,16 @@ class ServingLoop:
         """Stop the loop. ``drain=True`` (default) stops accepting, lets
         the dispatch thread flush every queued batch and resolves every
         future before returning; ``drain=False`` fails the queued requests
-        with :class:`ServingStopped` at once."""
+        with :class:`ServingStopped` at once. Over a mesh the leader's
+        stop ends the followers; a follower's ``stop()`` waits (up to
+        ``timeout``) for the leader's."""
+        if self.role in ("follower", "idle"):
+            f = self._follower
+            if f is not None and f.is_alive():
+                f.join(timeout)
+            self._closed = True
+            self._stopped = f is None or not f.is_alive()
+            return
         dropped: list = []
         with self._cond:
             self._closed = True
@@ -826,6 +954,8 @@ class ServingLoop:
         """Queue one request; returns a Future of the method's host numpy
         result for exactly these rows.
 
+        Over a mesh only the leader rank accepts requests.
+
         Validation runs here, on the host, so a malformed request fails
         its caller and never a batch it would have shared. Device families
         get ``check_array``'s checks (a float32 cast, finiteness); a host
@@ -840,6 +970,10 @@ class ServingLoop:
         non-positive."""
         from dask_ml_tpu_torch.parallel import telemetry
 
+        if self.role in ("follower", "idle"):
+            raise ServingError(
+                f"serving loop {self.name!r} is a {self.role} rank of its "
+                f"mesh: submit on the leader, rank {self._leader}")
         model = str(model)
         entry = self.registry.get(model)  # KeyError for unknown names
         runner = entry.runners.get(method)
@@ -1162,7 +1296,11 @@ class ServingLoop:
                             buf[off:off + r.n].copy_(torch.from_numpy(r.X))
                             off += r.n
                         buf[off:].zero_()
-                    out = np.asarray(runner.run(self._stage(buf)))
+                    if self.role == "leader":
+                        out = self._run_over_mesh(model, method,
+                                                  self._stage(buf))
+                    else:
+                        out = np.asarray(runner.run(self._stage(buf)))
                 sp.set(bucket=bucket)
         except Exception as e:  # noqa: BLE001 — delivered per request
             self.n_errors += len(batch)
@@ -1253,6 +1391,151 @@ class ServingLoop:
             self.fatal = e
         finally:
             self._finalize(pending)
+            if self.role == "leader":
+                self._broadcast_header(_HDR_STOP, 0, 0, 0, 0)
+
+    # -- over a mesh: the leader's side of a batch, and the followers -----
+
+    def _broadcast_header(self, kind: int, model: int, method: int,
+                          rows: int, d: int) -> list:
+        import torch.distributed as dist
+
+        hdr = torch.tensor([kind, model, method, rows, d],
+                           dtype=torch.int64, device=self._device)
+        dist.broadcast(hdr, src=self._leader, group=self._group)
+        return hdr.tolist()
+
+    def _block(self, model, method: str, batch: torch.Tensor):
+        """This rank's share of a batch: the runner's host output on its
+        data shard's rows, None off the mesh (a leader that only routes),
+        or a :class:`_BlockFailed` when the model could not be built here
+        or its runner raised."""
+        from dask_ml_tpu_torch.parallel import mesh as mesh_lib
+
+        import torch.distributed as dist
+
+        me = dist.get_rank()
+        shard = self._shard_of.get(me)
+        if shard is None:
+            return None
+        try:
+            if isinstance(model, BaseException):
+                raise model
+            rows = mesh_lib.ShardLayout((), shard, self._align).rows(
+                int(batch.shape[0]))
+            return np.asarray(model.runners[method].run(batch[rows]))
+        except Exception as e:  # noqa: BLE001 — gathered, the batch fails
+            return _BlockFailed(me, f"{type(e).__name__}: {e}")
+
+    def _gather_blocks(self, mine) -> np.ndarray:
+        """Every rank's block (``all_gather`` over the loop's group, in
+        rank order) stitched in data-shard order; a model axis's ranks
+        of one shard hold the same rows, the first is taken. Raises
+        :class:`ServingError` when a rank's block failed."""
+        import torch.distributed as dist
+
+        outs = [None] * len(self._members)
+        dist.all_gather_object(outs, mine, group=self._group)
+        failed = [o for o in outs if isinstance(o, _BlockFailed)]
+        if failed:
+            raise ServingError("; ".join(
+                f"rank {f.rank}: {f.error}" for f in failed))
+        blocks = {}
+        for r, out in zip(self._members, outs):
+            shard = self._shard_of.get(r)
+            if shard is not None and shard not in blocks:
+                blocks[shard] = out
+        return np.concatenate([blocks[i] for i in range(self._align)])
+
+    def _send_model(self, model: ServedModel) -> None:
+        """The leader hands a model version to the followers: a header,
+        then the estimator, pickled from the host, as bytes."""
+        import torch.distributed as dist
+
+        from dask_ml_tpu_torch.model_selection._incremental import (
+            _host_pickle)
+
+        body = _host_pickle((model.name, model.estimator, model.methods))
+        self._broadcast_header(_HDR_MODEL, model.version, 0, len(body), 0)
+        wire = torch.frombuffer(bytearray(body), dtype=torch.uint8)
+        dist.broadcast(wire.to(self._device), src=self._leader,
+                       group=self._group)
+        self._sent.add(model.version)
+
+    def _take_model(self, version: int, n_bytes: int) -> None:
+        """A follower's side of :meth:`_send_model`: the ServedModel built
+        from the leader's bytes (or the error building it) under its
+        version, in place of the older versions of its name."""
+        import pickle
+
+        import torch.distributed as dist
+
+        wire = torch.empty(n_bytes, dtype=torch.uint8, device=self._device)
+        dist.broadcast(wire, src=self._leader, group=self._group)
+        try:
+            name, est, methods = pickle.loads(wire.cpu().numpy().tobytes())
+            model = self.registry.build(name, est, methods=methods)
+            model.version = version
+            self._mirror = {v: m for v, m in self._mirror.items()
+                            if getattr(m, "name", None) != name}
+        except Exception as e:  # noqa: BLE001 — every block of it fails
+            model = e
+        self._mirror[version] = model
+
+    def _run_over_mesh(self, model: ServedModel, method: str,
+                       batch: torch.Tensor) -> np.ndarray:
+        """The leader's batch: the model version if the followers lack it,
+        the header, then the padded batch, over the loop's group; its own
+        block; every block gathered."""
+        import torch.distributed as dist
+
+        if model.version not in self._sent:
+            self._send_model(model)
+        self._broadcast_header(_HDR_RUN, model.version,
+                               _SERVABLE_METHODS.index(method),
+                               int(batch.shape[0]), int(batch.shape[1]))
+        batch = batch.contiguous()
+        dist.broadcast(batch, src=self._leader, group=self._group)
+        return self._gather_blocks(self._block(model, method, batch))
+
+    def _follow(self) -> None:
+        """A follower's thread: take each model version and each batch the
+        leader broadcasts, run this rank's block, hand it back, until the
+        leader's stop."""
+        import torch.distributed as dist
+
+        from dask_ml_tpu_torch.config import config_context
+
+        try:
+            with config_context(**self._config), self._stream_ctx():
+                while True:
+                    self._last_beat = time.monotonic()
+                    kind, version, method, rows, d = self._broadcast_header(
+                        0, 0, 0, 0, 0)
+                    if kind == _HDR_MODEL:
+                        self._take_model(version, rows)
+                        continue
+                    if kind != _HDR_RUN:
+                        break
+                    batch = torch.empty((rows, d),
+                                        dtype=self._wire or torch.float32,
+                                        device=self._device)
+                    dist.broadcast(batch, src=self._leader,
+                                   group=self._group)
+                    model = self._mirror.get(version) or KeyError(
+                        f"model version {version} was never sent")
+                    mine = self._block(model, _SERVABLE_METHODS[method],
+                                       batch)
+                    with contextlib.suppress(ServingError):
+                        self._gather_blocks(mine)
+                    self.n_batches += 1
+                    if isinstance(mine, np.ndarray):
+                        self.rows_served += len(mine)
+        except BaseException as e:  # noqa: BLE001 — recorded for stats
+            self.fatal = e
+        finally:
+            self._closed = True
+            self._stopped = True
 
     def _finalize(self, pending: list) -> None:
         """The dispatch thread's exit, clean or not: close the loop and

@@ -10,12 +10,17 @@
   (empty since ``ElasticRun`` landed: what is left of item 10b are
   ``mesh=`` branches of names the port has).
 - The package's ``__all__`` names the JAX package's submodules.
+- Every public JAX function, constructor or method that takes ``mesh`` or
+  ``meshes`` takes it in the port, and no raise or docstring of the port
+  still names ROADMAP Queue A item 10b (the multi-device port is whole).
 """
 
 import ast
 import importlib
 import importlib.util
+import inspect
 import os
+import re
 
 import pytest
 
@@ -161,3 +166,82 @@ def test_package_all_names_the_submodules():
     assert list(dask_ml_tpu_torch.__all__) == list(dask_ml_tpu.__all__)
     for name in dask_ml_tpu_torch.__all__:
         assert _resolves(dask_ml_tpu_torch, name), name
+
+
+#: public JAX callables taking ``mesh`` that the port has no counterpart of
+#: by design: ``shard_map`` runs a body once per device in the JAX package,
+#: where a port rank runs its own block's code
+MESH_EXEMPT = {("parallel.mesh", "shard_map")}
+
+
+def _mesh_takers(jax_mod) -> list:
+    """(name, method) of every public function, class constructor or
+    public method defined in ``jax_mod`` whose signature has ``mesh`` or
+    ``meshes`` (method ``""`` for a function, ``"__init__"`` for a
+    constructor), with those parameter names."""
+    out = []
+    for name, obj in vars(jax_mod).items():
+        if name.startswith("_") or \
+                getattr(obj, "__module__", None) != jax_mod.__name__:
+            continue
+        if inspect.isclass(obj):
+            targets = [("__init__", obj.__init__)] + [
+                (n, f) for n, f in vars(obj).items()
+                if inspect.isfunction(f) and not n.startswith("_")]
+        elif inspect.isfunction(obj):
+            targets = [("", obj)]
+        else:
+            continue
+        for method, fn in targets:
+            try:
+                params = inspect.signature(fn).parameters
+            except (TypeError, ValueError):
+                continue
+            names = [p for p in ("mesh", "meshes") if p in params]
+            if names:
+                out.append((name, method, names))
+    return out
+
+
+def test_every_mesh_argument_is_taken_in_the_port():
+    checked, missing = 0, []
+    for module in JAX_MODULES:
+        jax_mod = importlib.import_module(
+            "dask_ml_tpu" + (f".{module}" if module else ""))
+        port = importlib.import_module(
+            "dask_ml_tpu_torch" + (f".{module}" if module else ""))
+        for name, method, params in _mesh_takers(jax_mod):
+            if (module, name) in MESH_EXEMPT:
+                continue
+            target = getattr(port, name, None)
+            if target is not None and method:
+                target = getattr(target, method, None)
+            if target is None:
+                missing.append(f"{module}.{name}.{method}: no counterpart")
+                continue
+            have = inspect.signature(target).parameters
+            lacking = [p for p in params if p not in have]
+            if lacking:
+                missing.append(f"{module}.{name}.{method}: {lacking}")
+            checked += 1
+    assert not missing, missing
+    assert checked >= 40  # the generators, the estimators, the ops, ...
+
+
+def test_no_item_10b_raise_or_docstring_is_left():
+    """``grep -rn "item 10b" dask_ml_tpu_torch`` finds nothing: no
+    ``mesh=`` path raises for the multi-device port, and no docstring
+    defers to it."""
+    hits = []
+    for dirpath, dirnames, filenames in os.walk(
+            os.path.join(ROOT, "dask_ml_tpu_torch")):
+        dirnames[:] = [d for d in dirnames if d != "__pycache__"]
+        for f in filenames:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, f)
+            with open(path) as fh:
+                for i, line in enumerate(fh, 1):
+                    if re.search(r"item\s+10b|Queue A item", line):
+                        hits.append(f"{os.path.relpath(path, ROOT)}:{i}")
+    assert hits == []

@@ -70,7 +70,8 @@ def test_generators_are_deterministic_under_a_seed(make):
 @pytest.mark.parametrize("make", ["make_blobs", "make_regression",
                                   "make_classification", "make_counts"])
 def test_mesh_raises(make):
-    with pytest.raises(NotImplementedError, match="Queue A item 10b"):
+    """``mesh=`` takes a port Mesh and refuses anything else."""
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         getattr(datasets, make)(random_state=0, mesh=object())
 
 

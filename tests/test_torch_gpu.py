@@ -1885,6 +1885,100 @@ def test_gloo_world_of_two_on_one_card_equals_one_device(cuda, tmp_path):
                     assert k5 == km.n_iter_ and k1 == 0
 
 
+_MESH_REST_WORKER = """
+import os, sys
+import numpy as np
+import torch
+rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+from dask_ml_tpu_torch import _kernels
+from dask_ml_tpu_torch.parallel import runtime
+from dask_ml_tpu_torch.parallel import mesh as mesh_lib
+runtime.initialize(backend="gloo", init_method="file://" + store,
+                   num_processes=2, process_id=rank, local_device_ids=[0])
+from dask_ml_tpu_torch.cluster import KMeans, MiniBatchKMeans
+from dask_ml_tpu_torch.models import kmeans as core
+from dask_ml_tpu_torch.parallel.serving import ModelRegistry, ServingLoop
+from dask_ml_tpu_torch.parallel.sharding import prepare_data
+X = np.load(os.path.join(out, "X.npy"))
+m = mesh_lib.make_mesh()
+res = {}
+_kernels.reset_launches()
+mb = MiniBatchKMeans(n_clusters=5, random_state=0, max_iter=1).fit(X)
+res["mb-c"], res["mb-l"] = mb.cluster_centers_, mb.labels_
+res["mb-k2"] = np.array(_kernels.launches["fused_argmin_min"])
+_kernels.reset_launches()
+n_it, _, ev = core.batched_lloyd_cells(
+    prepare_data(X[:15_000], mesh=m), [(3, 1e-4), (5, 1e-4)],
+    [prepare_data(X[15_000:], mesh=m)], max_iter=6, idx0=np.arange(5) * 997)
+res["b-n"], res["b-e"] = n_it.cpu().numpy(), ev[0].cpu().numpy()
+res["b-k1"] = np.array(_kernels.launches["lloyd_iter"])
+sk = KMeans(n_clusters=8, algorithm="sketched", sketch_cols=2,
+            random_state=0, max_iter=30).fit(X)
+res["sk-l"] = sk.labels_
+reg = ModelRegistry()
+reg.register("km", mb)
+loop = ServingLoop(reg, mesh=m).start()
+if loop.role == "leader":
+    res["served"] = np.concatenate([loop.submit("km", X[a:a + 300]).result(60)
+                                    for a in (0, 300, 7_001)])
+loop.stop(timeout=120)
+np.savez(os.path.join(out, "rank%d.npz" % rank), **res)
+runtime.shutdown()
+"""
+
+
+def test_gloo_world_of_two_runs_the_last_mesh_paths(cuda, tmp_path):
+    """Two gloo ranks share card 0 and run MiniBatchKMeans, the batched
+    KMeans group, the sketched fit and ``ServingLoop(mesh=)``: on integer
+    data the mini-batch centers and the group's eval inertias equal one
+    device's bit for bit, the sketched labels equal the one-device fit's,
+    the served labels the direct predict; K2 and K1 launched on each
+    rank's block."""
+    import os
+    import subprocess
+    import sys
+
+    rng = np.random.default_rng(6)
+    C = rng.uniform(-10, 10, (8, 20))
+    X = np.rint(C[rng.integers(0, 8, 20_003)]
+                + rng.standard_normal((20_003, 20))).astype(np.float32)
+    np.save(tmp_path / "X.npy", X)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MESH_REST_WORKER, str(r),
+         str(tmp_path / "store"), str(tmp_path)], cwd=root, env=env,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    for p in procs:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-3000:]
+    from dask_ml_tpu_torch.cluster import MiniBatchKMeans
+    from dask_ml_tpu_torch.parallel.sharding import prepare_data
+
+    with config_context(device="cuda"):
+        mb = MiniBatchKMeans(n_clusters=5, random_state=0, max_iter=1).fit(X)
+        n_it, _, ev = core.batched_lloyd_cells(
+            prepare_data(X[:15_000]), [(3, 1e-4), (5, 1e-4)],
+            [prepare_data(X[15_000:])], max_iter=6,
+            idx0=np.arange(5) * 997)
+        sk = KMeans(n_clusters=8, algorithm="sketched", sketch_cols=2,
+                    random_state=0, max_iter=30).fit(X)
+    for r in range(2):
+        got = np.load(tmp_path / f"rank{r}.npz")
+        assert np.array_equal(got["mb-c"], mb.cluster_centers_)
+        assert np.array_equal(got["mb-l"], mb.labels_)
+        assert int(got["mb-k2"]) >= 20
+        assert np.array_equal(got["b-n"], n_it.cpu().numpy())
+        assert np.array_equal(got["b-e"], ev[0].cpu().numpy())
+        assert int(got["b-k1"]) == 2 * 6
+        assert np.array_equal(got["sk-l"], sk.labels_)
+    served = np.load(tmp_path / "rank0.npz")["served"]
+    want = mb.predict(np.concatenate([X[a:a + 300] for a in (0, 300, 7_001)]))
+    assert np.array_equal(served, want)
+
+
 @pytest.mark.parametrize("kind", ["sparse", "dense"])
 def test_elastic_admm_two_hosts_on_one_card_with_a_kill(cuda, tmp_path,
                                                         kind):

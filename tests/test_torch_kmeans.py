@@ -542,7 +542,9 @@ def test_port_never_imports_jax():
     ``Partial*`` classes fail on access. The DataFrame encoders
     (``Categorizer``, ``DummyEncoder``, ``OrdinalEncoder``) import and
     fail only on use without pandas; ``OneHotEncoder`` works without
-    it."""
+    it. The ``mesh=`` paths run there too, on a mesh of one rank: the
+    generators (``effective_rank`` included), the sketched, mini-batch and
+    spectral fits, and ``ServingLoop(mesh=)``."""
     for block_sklearn in (False, True):
         _import_walk(block_sklearn)
 
@@ -634,6 +636,24 @@ def _import_walk(block_sklearn: bool):
         f"        assert {block_sklearn!r}, name + ' failed with sklearn'\n"
         "    else:\n"
         f"        assert not {block_sklearn!r}, name + ' without sklearn'\n"
+        "from dask_ml_tpu_torch.config import set_config\n"
+        "set_config(device='cpu')\n"
+        "from dask_ml_tpu_torch import datasets\n"
+        "from dask_ml_tpu_torch.parallel.mesh import make_mesh as mk, "
+        "use_mesh\n"
+        "m1 = mk()\n"
+        "datasets.make_regression(64, 12, effective_rank=2, random_state=0, "
+        "mesh=m1)\n"
+        "Xb = datasets.make_blobs(64, 3, random_state=0, mesh=m1)[0].numpy()\n"
+        "from dask_ml_tpu_torch.cluster import (KMeans, MiniBatchKMeans, "
+        "SpectralClustering)\n"
+        "with use_mesh(m1):\n"
+        "    KMeans(3, algorithm='sketched', random_state=0, "
+        "max_iter=3).fit(Xb)\n"
+        "    MiniBatchKMeans(3, random_state=0, max_iter=1).fit(Xb)\n"
+        "    SpectralClustering(2, n_components=8, random_state=0).fit(Xb)\n"
+        "from dask_ml_tpu_torch.parallel.serving import ServingLoop\n"
+        "ServingLoop(mesh=m1).start().stop()\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dask_ml_tpu' or m.startswith('dask_ml_tpu.')]\n"

@@ -181,7 +181,8 @@ WORKER = textwrap.dedent("""
         refused = []
         with mesh_lib.use_mesh(m):
             res[lay + "-minibatch_c"] = MiniBatchKMeans(
-                n_clusters=k, random_state=0).fit(X).cluster_centers_
+                n_clusters=k, random_state=0).fit(
+                    data["X_int"]).cluster_centers_
             for name, call in (
                     ("sketched", lambda: KMeans(
                         n_clusters=k, algorithm="sketched").fit(X)),
@@ -554,17 +555,19 @@ def test_measure_init_phases_by_axis_against_jax(worlds):
 
 
 def test_refusals_name_item_10b(worlds):
-    for world in (3, 4):
-        for layout in ("flat", "hier"):
-            assert worlds[world][0][1][f"{layout}-refused"] == \
-                ["sketched", "batched"]
-    assert worlds[1][0][1]["flat-refused"] == []
+    """Nothing refuses any more: the sketched fit and the batched groups,
+    which raised naming Queue A item 10b over more than one rank, run over
+    the mesh."""
+    for world in (1, 3, 4):
+        for layout in ("flat", "hier") if world > 1 else ("flat",):
+            assert worlds[world][0][1][f"{layout}-refused"] == []
 
 
 @pytest.mark.parametrize("world,layout", ROW_LAYOUTS)
 def test_minibatch_fits_the_whole_data_on_every_rank(worlds, world, layout):
-    """MiniBatchKMeans has no mesh path: on every rank of a world it
-    stages the whole data and fits the world-1 model."""
+    """MiniBatchKMeans runs over the mesh (each rank its block, one sum a
+    step); on integer-valued data every rank fits the world-1 model bit
+    for bit, as it did when it staged the whole data on every rank."""
     want = worlds[1][0][0]["flat-minibatch_c"]
     for arrays, _ in worlds[world]:
         assert np.array_equal(arrays[layout + "-minibatch_c"], want)
