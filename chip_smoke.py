@@ -306,7 +306,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    autoscaler's actions; the ``kernels`` line gains ``launches_machines``.
 
 20. drives KMeans over a mesh of ranks (``MESH``): the world's rank
-   processes are spawned here (``multiprocessing``'s ``spawn``), each joins
+   processes start here from a fork server that imported torch and the
+   port once (:func:`rank_context`), each joins
    with ``runtime.initialize(backend=..., init_method="file://...")`` on
    ``cuda:0``, draws the blobs of step 4 from seed 0 and an integer-valued
    copy (``np.rint``, weights 1), and stages its block: NCCL at world 1
@@ -338,8 +339,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    on the card (the sparse L-BFGS, the core ADMM at ``n_shards`` = each
    world's shard count on the rows padded as the mesh pads them, Newton
    on the first 1e6 ADMM rows, ``PCA(100)`` full and randomized,
-   ``TruncatedSVD(100)``). The worlds of step 20 follow (the model layout
-   for Newton and PCA only); each rank maps the files and stages only its
+   ``TruncatedSVD(100)``). Step 20's worlds of 1 and 4 follow (the model
+   layout for Newton and PCA only; world 2's flat layout is world 4's
+   too, and was cut for the run's time); each rank maps the files and
+   stages only its
    rows. On every rank: ``LogisticRegression(solver="lbfgs",
    max_iter=3)`` on the mapped container (K6 / K6-b on the rank's block,
    one K6 a value and one K6-b a gradient), then K6 and K6-b on an
@@ -360,8 +363,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    gains ``launches_meshglm``.
 
 22. drives the elastic multi-host tier (``ELASTIC``): hosts are real
-   processes (``python3 chip_smoke.py --elastic-worker DATA_DIR WORKDIR
-   MODES``, rank and world from ``DASK_ML_TPU_PROCESS_ID`` /
+   processes (:func:`elastic_host`, from the fork server of step 20, rank
+   and world from ``DASK_ML_TPU_PROCESS_ID`` /
    ``DASK_ML_TPU_NUM_PROCESSES``) sharing card 0 and a workdir, each
    loading the kernel libraries this process built and mapping the arrays
    it saved. ``elastic-admm-sparse``: ``admm_streamed`` on step 10's
@@ -393,7 +396,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    the detection latency and the recovery overhead against the clean
    pair); the ``kernels`` line gains ``launches_elastic``.
 23. **The last ``mesh=`` paths over a world of ranks** (``MESHREST``):
-   NCCL 1, gloo 2 (flat) and gloo 4 (flat and 2 × 2), each world spawned
+   NCCL 1 and gloo 4 (flat and 2 × 2; a gloo world of 2 ran flat only,
+   as world 4 does, and was cut for the run's time), each world started
    once on card 0, run every cell on the flat layout and the datasets,
    kernel k-means and mini-batch cells on the 2 × 2 one:
    ``meshrest-datasets`` (``make_blobs(1e6, 50, 8,
@@ -709,9 +713,11 @@ _DRAWN: dict = {}
 
 def drawn(name: str, make):
     """``make()``'s result, drawn once per run and kept under ``name``
-    (callers read it and never write to it)."""
+    (callers read it and never write to it); the draw's seconds logged."""
     if name not in _DRAWN:
+        t0 = time.perf_counter()
         _DRAWN[name] = make()
+        log(f"DRAWN {name} in {time.perf_counter() - t0:.1f} s")
     return _DRAWN[name]
 
 
@@ -5968,7 +5974,7 @@ def precision_sparse_glm(dev, errs):
                  plain_ms=cuda_ms(lambda: sps._spmv_ref(Xd.values, Xd.cols,
                                                         v), iters=3, warmup=1),
                  bound_ms=b, bound_by=by,
-                 cluster=sps.dvector_plan(n, k, d),
+                 cluster=sps.dvector_plan(n, k, d, dtype=Xd.values.dtype),
                  shape={"n": n, "k": k, "d": d}),
             dict(name="K6-b-bf16",
                  ms=cuda_ms(lambda: sps._pullback_cuda(Xd.values, Xd.cols, r,
@@ -5978,6 +5984,9 @@ def precision_sparse_glm(dev, errs):
                      Xd.values, Xd.cols, r, d), iters=3, warmup=1),
                  bound_ms=b, bound_by=by,
                  cluster=sps.dvector_plan(n, k, d, pullback=True),
+                 walk=sps._pullback_walk(
+                     Xd.values, Xd.cols, r, d,
+                     sps.dvector_plan(n, k, d, pullback=True)),
                  shape={"n": n, "k": k, "d": d})]
     log("    K6 bf16 library: none (cuSPARSE's bf16 SpMV through torch.mv "
         "returns bf16, not the f32 sums of the kernel)")
@@ -7690,6 +7699,36 @@ def machines_cells(dev, errs):
 # KMeans over a mesh of ranks (MESH, step 20)
 # ---------------------------------------------------------------------------
 
+#: what a MESH phase's rank and an ELASTIC host process import, loaded
+#: once by the fork server they start from
+RANK_PRELOAD = ("__main__", "torch", "dask_ml_tpu_torch.cluster",
+                "dask_ml_tpu_torch.decomposition",
+                "dask_ml_tpu_torch.linear_model",
+                "dask_ml_tpu_torch.model_selection",
+                "dask_ml_tpu_torch.parallel.elastic",
+                "dask_ml_tpu_torch.parallel.hierarchy",
+                "dask_ml_tpu_torch.parallel.runtime")
+
+
+def rank_context(start: bool = False):
+    """The ``multiprocessing`` context that the MESH phases' ranks and the
+    ELASTIC host processes start from: a fork server that imported
+    :data:`RANK_PRELOAD` once, so that a rank starts in a fraction of a
+    second (a spawned one spent 10–13 s importing torch and the port on
+    the card's host, each world and pair again). The server never touches
+    the card: every rank initializes CUDA itself, as a spawned one did.
+    With ``start`` the server starts now, in the background; it ends when
+    this process does."""
+    import multiprocessing
+    from multiprocessing import forkserver
+
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(list(RANK_PRELOAD))
+    if start:
+        forkserver.ensure_running()
+    return ctx
+
+
 #: (backend, world size, layouts): NCCL takes a card a rank, so on one card
 #: it runs a world of 1; the worlds of 2 and 4 share card 0 over gloo
 MESH_WORLDS = (("nccl", 1, ("flat",)), ("gloo", 2, ("flat", "hier")),
@@ -7943,7 +7982,6 @@ def mesh_rank(backend: str, world: int, rank: int, tmp: str, layouts):
 def mesh_cells(dev):
     """The MESH phase (step 20). Returns ({world-layout-fit: [each rank's
     K1–K5 launches]}, summary)."""
-    import multiprocessing
     import os
     import shutil
     import tempfile
@@ -7977,7 +8015,7 @@ def mesh_cells(dev):
     log("MESH single-device " + json.dumps(single))
     del Xi
     torch.cuda.empty_cache()
-    ctx = multiprocessing.get_context("spawn")
+    ctx = rank_context()
     launches_by_fit, summary = {}, {"single": single, "worlds": []}
     try:
         for backend, world, layouts in MESH_WORLDS:
@@ -8051,8 +8089,9 @@ def mesh_cells(dev):
 # ---------------------------------------------------------------------------
 
 #: (backend, world size, layouts), as MESH_WORLDS: NCCL at world 1, gloo
-#: for the ranks that share card 0
-MESHGLM_WORLDS = (("nccl", 1, ("flat",)), ("gloo", 2, ("flat",)),
+#: for the ranks that share card 0 (a world of 2 ran the flat layout only,
+#: which world 4 runs too: cut for the run's time, PERF.md §4)
+MESHGLM_WORLDS = (("nccl", 1, ("flat",)),
                   ("gloo", 4, ("flat", "hier", "model")))
 #: the cells of each layout: the model layout splits dense X's columns,
 #: which Newton's and PCA's fits do (ADMM and sparse input stay
@@ -8516,7 +8555,6 @@ def meshglm_line(per) -> dict:
 def meshglm_cells(dev):
     """The MESHGLM phase (step 21). Returns ({world-layout-cell: [each
     rank's K6 / K6-b launches]}, summary)."""
-    import multiprocessing
     import os
     import shutil
     import tempfile
@@ -8548,7 +8586,7 @@ def meshglm_cells(dev):
         log("MESHGLM single-device " + json.dumps(
             {"draw_s": draw_s, "save_s": save_s, **single}))
         torch.cuda.empty_cache()
-        ctx = multiprocessing.get_context("spawn")
+        ctx = rank_context()
         for backend, world, layouts in MESHGLM_WORLDS:
             t0 = time.perf_counter()
             procs = [ctx.Process(target=meshglm_rank,
@@ -8904,9 +8942,25 @@ def elastic_warmup(dev, data_dir: str, modes) -> dict:
     return out
 
 
+def elastic_host(rank: int, data_dir: str, workdir: str, modes: str,
+                 log_path: str) -> None:
+    """An ELASTIC host process (started from :func:`rank_context`): rank
+    ``rank`` of 2, its output to ``log_path``; exits with
+    :func:`elastic_worker`'s code."""
+    import os
+
+    fd = os.open(log_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    os.close(fd)
+    os.environ.update(DASK_ML_TPU_PROCESS_ID=str(rank),
+                      DASK_ML_TPU_NUM_PROCESSES="2")
+    os.chdir(os.path.dirname(os.path.abspath(__file__)))
+    sys.exit(elastic_worker(data_dir, workdir, modes))
+
+
 def elastic_worker(data_dir: str, workdir: str, modes: str) -> int:
-    """A host process of the ELASTIC phase (``python3 chip_smoke.py
-    --elastic-worker DATA_DIR WORKDIR MODES``; rank and world from
+    """A host process of the ELASTIC phase (rank and world from
     ``DASK_ML_TPU_PROCESS_ID`` / ``DASK_ML_TPU_NUM_PROCESSES``): warm up
     on card 0, run each mode, write ``r<rank>-warm.json`` and
     ``r<rank>.json`` to ``workdir``."""
@@ -8957,17 +9011,12 @@ def elastic_pair(data_dir: str, tmp: str, name: str, modes: str, trigger):
 
     wd = os.path.join(tmp, name)
     os.makedirs(wd)
-    here = os.path.dirname(os.path.abspath(__file__))
-    procs, logs = [], []
-    for r in range(2):
-        env = dict(os.environ, DASK_ML_TPU_PROCESS_ID=str(r),
-                   DASK_ML_TPU_NUM_PROCESSES="2")
-        logf = open(os.path.join(wd, f"r{r}.log"), "w")
-        logs.append(logf)
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--elastic-worker",
-             data_dir, wd, modes], cwd=here, env=env, stdout=logf,
-            stderr=subprocess.STDOUT))
+    ctx = rank_context()
+    procs = [ctx.Process(target=elastic_host, args=(
+        r, data_dir, wd, modes, os.path.join(wd, f"r{r}.log")))
+        for r in range(2)]
+    for p in procs:
+        p.start()
     t_signal = None
     deadline = time.monotonic() + ELASTIC_WAIT
     try:
@@ -8990,22 +9039,20 @@ def elastic_pair(data_dir: str, tmp: str, name: str, modes: str, trigger):
                     os.kill(procs[1].pid, getattr(signal, sig))
                     t_signal = time.time()
                     break
-                expect(procs[1].poll() is None and time.monotonic()
+                expect(procs[1].is_alive() and time.monotonic()
                        < deadline, f"ELASTIC {name}: rank 1 ended or timed "
                        f"out before its first publication of epoch {epoch}")
                 time.sleep(ELASTIC_POLL)
         for p in procs:
-            p.wait(max(deadline - time.monotonic(), 1))
-    except subprocess.TimeoutExpired:
-        raise Mismatch(f"ELASTIC {name}: host processes still running "
-                       f"after {ELASTIC_WAIT} s")
+            p.join(max(deadline - time.monotonic(), 1))
+        expect(not any(p.is_alive() for p in procs),
+               f"ELASTIC {name}: host processes still running after "
+               f"{ELASTIC_WAIT} s")
     finally:
         for p in procs:
-            if p.poll() is None:
+            if p.is_alive():
                 p.kill()
-                p.wait(30)
-        for f in logs:
-            f.close()
+                p.join(30)
 
     def read(path):
         if not os.path.exists(path):
@@ -9014,7 +9061,10 @@ def elastic_pair(data_dir: str, tmp: str, name: str, modes: str, trigger):
             return json.load(f)
 
     def tail(r):
-        with open(os.path.join(wd, f"r{r}.log")) as f:
+        path = os.path.join(wd, f"r{r}.log")
+        if not os.path.exists(path):
+            return "(no log)"
+        with open(path) as f:
             return f.read()[-3000:]
 
     reports = [read(os.path.join(wd, f"r{r}.json")) for r in range(2)]
@@ -9025,18 +9075,18 @@ def elastic_pair(data_dir: str, tmp: str, name: str, modes: str, trigger):
         expect(warms[r]["builds_nvcc"] == 0,
                f"ELASTIC {name}: rank {r} built a kernel")
     killed = trigger is not None and trigger[2] == "SIGKILL"
-    expect(procs[0].returncode == 0 and reports[0] is not None
+    expect(procs[0].exitcode == 0 and reports[0] is not None
            and not reports[0]["errors"], f"ELASTIC {name}: rank 0 exited "
-           f"{procs[0].returncode}: {reports[0] and reports[0]['errors']}"
+           f"{procs[0].exitcode}: {reports[0] and reports[0]['errors']}"
            f"\n{tail(0)}")
     if killed:
-        expect(procs[1].returncode == -signal.SIGKILL and reports[1] is None,
-               f"ELASTIC {name}: rank 1 exited {procs[1].returncode}, not "
+        expect(procs[1].exitcode == -signal.SIGKILL and reports[1] is None,
+               f"ELASTIC {name}: rank 1 exited {procs[1].exitcode}, not "
                "by the SIGKILL")
     else:
-        expect(procs[1].returncode == 0 and reports[1] is not None
+        expect(procs[1].exitcode == 0 and reports[1] is not None
                and not reports[1]["errors"], f"ELASTIC {name}: rank 1 "
-               f"exited {procs[1].returncode}: "
+               f"exited {procs[1].exitcode}: "
                f"{reports[1] and reports[1]['errors']}\n{tail(1)}")
     progress = None
     if trigger is not None:
@@ -9327,10 +9377,10 @@ def elastic_cells(dev):
 # ---------------------------------------------------------------------------
 
 #: (backend, world size, layouts), as MESH_WORLDS: NCCL at world 1, gloo
-#: for two and four ranks sharing card 0; "hier" is 2 × 2 (world 2's
-#: 1 × 2, whose pod stage is empty, left to MESH: a depth cut)
-MESHREST_WORLDS = (("nccl", 1, ("flat",)), ("gloo", 2, ("flat",)),
-                   ("gloo", 4, ("flat", "hier")))
+#: for four ranks sharing card 0; "hier" is 2 × 2 (world 2's 1 × 2, whose
+#: pod stage is empty, left to MESH: a depth cut; a world of 2 on the flat
+#: layout, which world 4 runs too, cut for the run's time, PERF.md §4)
+MESHREST_WORLDS = (("nccl", 1, ("flat",)), ("gloo", 4, ("flat", "hier")))
 #: every cell runs on the flat layout; the hierarchical layouts run the
 #: cells whose collectives change with the layout's two stages (a depth
 #: cut for the phase's time, PERF.md §4)
@@ -9828,7 +9878,6 @@ def meshrest_rank(backend: str, world: int, rank: int, tmp: str, layouts):
 def meshrest_cells(dev):
     """The MESHREST phase (step 23). Returns ({world-layout-cell: [each
     rank's launches of K1–K5 and K2-x]}, summary)."""
-    import multiprocessing
     import os
     import shutil
     import tempfile
@@ -9842,7 +9891,7 @@ def meshrest_cells(dev):
         summary["single"] = meshrest_refs(dev, tmp)
         log("MESHREST single-device " + json.dumps(summary["single"]))
         torch.cuda.empty_cache()
-        ctx = multiprocessing.get_context("spawn")
+        ctx = rank_context()
         for backend, world, layouts in MESHREST_WORLDS:
             t0 = time.perf_counter()
             procs = [ctx.Process(target=meshrest_rank,
@@ -10086,6 +10135,19 @@ def main() -> int:
             "platform": "gpu", "kind": kind, "count": count}}), flush=True)
         return 0
 
+    # the MESH and ELASTIC phases' ranks fork from this server; it imports
+    # torch and the port while the phases before them run
+    rank_context(start=True)
+    #: wall seconds of each phase of the full run, logged as each ends
+    laps = {}
+    lap_t0 = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        laps[name] = round(now - lap_t0[0], 1)
+        lap_t0[0] = now
+        log("PHASE_SECONDS " + json.dumps(laps))
+
     t0 = time.perf_counter()
     errs = edge_cases(dev)
     errs["spmv"] = spmv_edge_cases(dev)
@@ -10196,6 +10258,7 @@ def main() -> int:
     blobs_inertia = km.inertia_
     del data, Xd, wd, X
     torch.cuda.empty_cache()
+    lap("edge_blobs")
 
     kdd_rows, kdd_launches, kdd = kdd_cell(dev, errs)
     # K3 and K4 at the KDD cell's shape ride on their blobs rows
@@ -10222,17 +10285,20 @@ def main() -> int:
             f"{opt['plain_ms']:.4f} ms")
     log("KDD " + json.dumps(kdd))
     torch.cuda.empty_cache()
+    lap("kdd")
 
     glm_rows, glm_launches, glm = glm_cell(dev, errs)
     rows += kernel_rows(glm_rows, glm_launches, errs)
     log_spmv_rows(rows[-4:])
     log("GLM " + json.dumps(glm))
     torch.cuda.empty_cache()
+    lap("glm")
 
     admm_launches, _ = glm_pca_cells(dev)
     for r in rows[-4:]:
         r["launches_sparse_admm"] = int(admm_launches[r["name"]])
     torch.cuda.empty_cache()
+    lap("glm_pca")
 
     stream_launches, _ = stream_cells(dev)
     for r in rows:
@@ -10240,6 +10306,7 @@ def main() -> int:
             path: int(l[r["name"]]) for path, l in stream_launches.items()
             if l.get(r["name"])}
     torch.cuda.empty_cache()
+    lap("stream")
 
     inc_launches, _ = incremental_cells(dev)
     for r in rows:
@@ -10248,6 +10315,7 @@ def main() -> int:
                 path: int(l[r["name"]]) for path, l in inc_launches.items()
                 if l.get(r["name"])}
     torch.cuda.empty_cache()
+    lap("incremental")
 
     search_errs = {}
     search_launches, _ = search_cells(dev, search_errs)
@@ -10260,6 +10328,7 @@ def main() -> int:
             r["max_abs_err_search"] = search_errs[r["name"]]
             r["max_abs_err"] = max(r["max_abs_err"], search_errs[r["name"]])
     torch.cuda.empty_cache()
+    lap("search")
 
     asha_errs = {}
     asha_launches, _ = asha_cells(dev, asha_errs)
@@ -10272,6 +10341,7 @@ def main() -> int:
             r["max_abs_err_asha"] = asha_errs[r["name"]]
             r["max_abs_err"] = max(r["max_abs_err"], asha_errs[r["name"]])
     torch.cuda.empty_cache()
+    lap("asha")
 
     nys_errs = {}
     nys_launches, _ = nystrom_cells(dev, nys_errs)
@@ -10290,6 +10360,7 @@ def main() -> int:
                 r[key] = found[r["name"]]
                 r["max_abs_err"] = max(r["max_abs_err"], found[r["name"]])
     torch.cuda.empty_cache()
+    lap("nystrom_preprocess")
 
     srv_errs = {}
     srv_launches, _, srv_rows = serving_cells(dev, srv_errs)
@@ -10307,6 +10378,7 @@ def main() -> int:
             r["serving_shape"] = {k: v for k, v in timed.items()
                                   if k != "name"}
     torch.cuda.empty_cache()
+    lap("serving")
 
     wire_errs = {}
     wire_launches, proc_launches, _ = wire_cells(dev, wire_errs)
@@ -10321,6 +10393,7 @@ def main() -> int:
             r["max_abs_err_wire"] = wire_errs[r["name"]]
             r["max_abs_err"] = max(r["max_abs_err"], wire_errs[r["name"]])
     torch.cuda.empty_cache()
+    lap("wire")
 
     mach_errs = {}
     mach_launches, _ = machines_cells(dev, mach_errs)
@@ -10331,6 +10404,7 @@ def main() -> int:
             r["max_abs_err_machines"] = mach_errs[r["name"]]
             r["max_abs_err"] = max(r["max_abs_err"], mach_errs[r["name"]])
     torch.cuda.empty_cache()
+    lap("machines")
 
     mesh_launches, _ = mesh_cells(dev)
     for r in rows:
@@ -10340,6 +10414,7 @@ def main() -> int:
         if got:
             r["launches_mesh"] = got
     torch.cuda.empty_cache()
+    lap("mesh")
 
     meshglm_launches, _ = meshglm_cells(dev)
     for r in rows:
@@ -10349,6 +10424,7 @@ def main() -> int:
         if got:
             r["launches_meshglm"] = got
     torch.cuda.empty_cache()
+    lap("meshglm")
 
     elastic_launches, _ = elastic_cells(dev)
     for r in rows:
@@ -10358,6 +10434,7 @@ def main() -> int:
         if got:
             r["launches_elastic"] = got
     torch.cuda.empty_cache()
+    lap("elastic")
 
     meshrest_launches, _ = meshrest_cells(dev)
     for r in rows:
@@ -10367,9 +10444,11 @@ def main() -> int:
         if got:
             r["launches_meshrest"] = got
     torch.cuda.empty_cache()
+    lap("meshrest")
 
     bf16, _ = precision_cells(dev, f32_inertia=blobs_inertia)
     rows += bf16
+    lap("precision")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -10378,6 +10457,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--elastic-worker"]:
-        sys.exit(elastic_worker(*sys.argv[2:5]))
     sys.exit(main())

@@ -74,8 +74,9 @@ SIGNATURES = {
         "dml_spmv_pullback_clusters": ([_L, _I, _I, _I, _I], _I),
         "dml_spmv_absmax": ([_P, _I, _L, _P, _P], _I),
         "dml_spmv_pullback_smem": (
-            [_P, _I, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+            [_P, _I, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P],
             _I),
+        "dml_spmv_pullback_rings": ([_P, _I, _P, _P, _I, _I, _I], _I),
         "dml_spmv_pullback_atomic": (
             [_P, _I, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P], _I),
     },

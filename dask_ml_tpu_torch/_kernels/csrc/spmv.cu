@@ -103,16 +103,39 @@
 //
 // bf16 values (the JAX package's bf16 container). Every kernel is a
 // template on the values' element type TV; a bf16 value is widened to f32
-// where it is loaded (four slots are 8 bytes then, one uint2 load), and
-// nothing else about the walks changes. The caller rounds the dense vector
-// to bf16 once and passes it widened back to f32 (so v sits in shared
-// memory as f32 and the plan is the float kernel's). Forward: a product of
-// two bf16 values is exact in f32, as the Pallas kernel forms it. Pullback:
-// r stays f32 and each product a r is formed in f32, as the f32 pullback
-// forms it; the fixed point is the f32 pullback's. (The JAX package's bf16
-// pullback rounds r and each product to bf16; a logistic loss's cotangent
-// sigma(eta) - y is then +-1/2 to bf16's 8 bits and loses what eta adds,
-// and an L-BFGS fit on bf16 values lands far from the f32 fit: PERF.md.)
+// where it is loaded (four slots are 8 bytes then, one uint2 load). The
+// caller rounds the dense vector to bf16 once and passes it widened back
+// to f32. Forward: a product of two bf16 values is exact in f32, as the
+// Pallas kernel forms it. Pullback: r stays f32 and each product a r is
+// formed in f32, as the f32 pullback forms it; the fixed point is the f32
+// pullback's. (The JAX package's bf16 pullback rounds r and each product
+// to bf16; a logistic loss's cotangent sigma(eta) - y is then +-1/2 to
+// bf16's 8 bits and loses what eta adds, and an L-BFGS fit on bf16 values
+// lands far from the f32 fit: PERF.md.) Two things differ from the f32
+// kernels, where the bf16 case was slower than the f32 one on the float
+// kernels' plans (the bound is 25 % lower: 2-byte values):
+//   * the forward keeps v in shared memory as bf16, 2 bytes a column (the
+//     high half of each rounded f32, widened where it is read: exact), so
+//     at the GLM cell (d = 100,001) v and the staging tiles fit one block
+//     (232,322 of 232,448 bytes): every slot is inspected once, and no
+//     partial outputs nor second launch are needed;
+//   * the pullback in a cluster (2 or 4 blocks) is fed by a ring
+//     (pullback_ring_kernel): one thread of the cluster copies each tile
+//     of R rows (values, cols, r) once, as TMA bulk copies multicast to
+//     every block of the cluster, into a ring of stages behind a full and
+//     an empty mbarrier a stage; 31 consumer warps a block take the slots
+//     whose column is their block's. The container crosses L2 -> SM once
+//     a cluster, no register holds a load in flight, and the blocks need
+//     no drift barrier. Where the container is not 16-byte aligned, or the
+//     ring does not fit beside the part, pullback_smem_kernel's tiles
+//     stay. At the GLM cell on an H100 the forward takes 2.72-2.81 ms
+//     (5.63-5.79 on the float plan) and the ring 5.12-5.39 (the tiles
+//     5.98-6.24 in the same calls); in a cluster of 4 (d = 150,001,
+//     uniform columns) the ring 10.48-10.64, the tiles 11.84-11.86. What
+//     still bounds the ring at the cell is the 29 KB a cluster has in
+//     flight (3 stages of 16 rows beside a 200 KB part). Warming the
+//     tiles into L2 ahead of the ring and an f32 fixed point were
+//     measured and did not pay (PERF.md).
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -426,13 +449,33 @@ __device__ __forceinline__ Frag load_frag(const TV* __restrict__ values,
   return f;
 }
 
+// The forward's part of v: f32, or for bf16 values the bf16 bits of each
+// entry (v was rounded to bf16 by the caller, so they are its f32's high
+// half, and widening them back is exact).
+template <typename TV>
+struct PartOf {
+  using T = float;
+};
+template <>
+struct PartOf<__nv_bfloat16> {
+  using T = unsigned short;
+};
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(unsigned short* p, float x) {
+  *p = (unsigned short)(__float_as_uint(x) >> 16);
+}
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(unsigned short x) {
+  return __uint_as_float((unsigned)x << 16);
+}
+
 // a * v[col], or 0 where the column is another block's.
-template <int LOG2C>
-__device__ __forceinline__ float term(const float* part, unsigned rank,
-                                      float a, int col) {
-  if (LOG2C == 0) return a * part[col];
+template <int LOG2C, typename PT>
+__device__ __forceinline__ float term(const PT* part, unsigned rank, float a,
+                                      int col) {
+  if (LOG2C == 0) return a * widen(part[col]);
   if (((unsigned)col & ((1u << LOG2C) - 1u)) != rank) return 0.f;
-  return a * part[(unsigned)col >> LOG2C];
+  return a * widen(part[(unsigned)col >> LOG2C]);
 }
 
 // q into this block's part of g (the low words in shared memory, the high
@@ -509,15 +552,17 @@ __device__ __forceinline__ void walk_tiles(long long tiles, Load load,
 }
 
 // Shared memory: [GROUPS x 2 staging tiles of R k floats | this block's
-// part of v]. R k is a multiple of 4, so every tile and the part are
-// 16-byte aligned. out: (n,), or in a cluster of C > 1 blocks (C, n):
-// block `rank` writes row `rank`, its columns' share of every row's sum.
+// part of v (f32, or bf16 bits for bf16 values)]. R k is a multiple of 4,
+// so every tile and the part are 16-byte aligned. out: (n,), or in a
+// cluster of C > 1 blocks (C, n): block `rank` writes row `rank`, its
+// columns' share of every row's sum.
 template <int LOG2C, typename TV>
 __global__ void __launch_bounds__(TB, 1)
 spmv_smem_kernel(const TV* __restrict__ values,
                  const int* __restrict__ cols, const float* __restrict__ v,
                  long long n, int k, int d, int R, int lshift, int aligned,
                  float* __restrict__ out) {
+  using PT = typename PartOf<TV>::T;
   extern __shared__ float4 smem4[];
   constexpr int C = 1 << LOG2C;
   constexpr bool SPLIT = LOG2C > 0;
@@ -525,11 +570,12 @@ spmv_smem_kernel(const TV* __restrict__ values,
   const int group = threadIdx.x / GT;
   const int gt = threadIdx.x % GT;
   float* stage = reinterpret_cast<float*>(smem4) + 2 * S * group;
-  float* part = reinterpret_cast<float*>(smem4) + 2 * S * GROUPS;
+  PT* part = reinterpret_cast<PT*>(reinterpret_cast<float*>(smem4) +
+                                   2 * S * GROUPS);
   const unsigned rank = block_rank<LOG2C>();
   for (long long c = rank + (long long)C * threadIdx.x; c < d;
        c += (long long)C * TB)
-    part[c >> LOG2C] = __ldg(v + c);
+    put(part + (c >> LOG2C), __ldg(v + c));
   sync_all<LOG2C>();
 
   const long long total = n * k;
@@ -552,10 +598,10 @@ spmv_smem_kernel(const TV* __restrict__ values,
     float* st = stage + buf * S;
     if (active) {
       float4 p;
-      p.x = term<LOG2C>(part, rank, f.a.x, f.c.x);
-      p.y = term<LOG2C>(part, rank, f.a.y, f.c.y);
-      p.z = term<LOG2C>(part, rank, f.a.z, f.c.z);
-      p.w = term<LOG2C>(part, rank, f.a.w, f.c.w);
+      p.x = term<LOG2C, PT>(part, rank, f.a.x, f.c.x);
+      p.y = term<LOG2C, PT>(part, rank, f.a.y, f.c.y);
+      p.z = term<LOG2C, PT>(part, rank, f.a.z, f.c.z);
+      p.w = term<LOG2C, PT>(part, rank, f.a.w, f.c.w);
       *reinterpret_cast<float4*>(st + f0) = p;
     }
     sync_group(group);
@@ -652,6 +698,206 @@ pullback_smem_kernel(const TV* __restrict__ values,
     lo_mine[rank + ((long long)j << LOG2C)] = part[j];
 }
 
+// ---------------------------------------------------------------------------
+// the bf16 pullback in a cluster, fed by TMA multicast
+// ---------------------------------------------------------------------------
+
+constexpr int CONSUMERS = TB - 32;  // a ring block: 1 producer warp, 31 others
+constexpr int RING_SLOTS = 2 * CONSUMERS;  // a stage: 2 slots a consumer
+constexpr int MAX_STAGES = 8;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* b,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(b)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* b,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(b)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete.
+__device__ __forceinline__ void mbar_wait(unsigned long long* b,
+                                          unsigned parity) {
+  const unsigned a = smem_u32(b);
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+}
+
+// Arrive on the barrier at b's offset in block `rank` of the cluster, with
+// the arrive's default semantics (release at the block's scope, as
+// CUTLASS's pipelines release a stage). Released at the cluster's scope,
+// the ring took 19.2 ms at the GLM cell on an H100, 5.85 ms so (PERF.md):
+// that release appears to wait for the thread's earlier device-memory
+// atomics (the carries to hi).
+__device__ __forceinline__ void mbar_arrive_at(unsigned long long* b,
+                                               unsigned rank) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(smem_u32(b)),
+      "r"(rank)
+      : "memory");
+}
+
+// bytes from device memory to dst, at dst's offset in every block of a
+// cluster of C, each block's barrier at bar's offset told of their
+// arrival. Sizes and addresses are multiples of 16.
+template <int C>
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)),
+      "h"((unsigned short)((1u << C) - 1u))
+      : "memory");
+}
+
+// The pullback of bf16 values in a cluster of C = 2^LOG2C blocks, the
+// container's full tiles of R rows (R a multiple of 8: every copy 16-byte
+// sized and aligned) fed through a ring of `stages` stages. Shared memory:
+// [this block's part of the low words, part_bytes | stages x (R k values,
+// R k cols, R r) | full barriers | empty barriers]. Warp 0's first thread
+// is the producer: it waits for a stage to be empty in every block of the
+// cluster (each block's empty barrier counts every consumer warp of the
+// cluster), re-arms its block's full barrier for the stage's bytes, and in
+// block 0 issues the stage's three copies, multicast to every block.
+// Warps 1.. are consumers: slots t and t + CONSUMERS of each tile, read
+// into registers, the stage released (so that its next copy is in flight
+// while they add: 5.85 -> 5.12 ms at the GLM cell, PERF.md), each then
+// added to this block's part where its column is this block's. The rows
+// beyond the last full tile are the first cluster's, read straight from
+// device memory. lo, hi, a_bound and r_bound as pullback_smem_kernel's.
+template <int LOG2C>
+__global__ void __launch_bounds__(TB, 1)
+pullback_ring_kernel(const __nv_bfloat16* __restrict__ values,
+                     const int* __restrict__ cols,
+                     const float* __restrict__ r, long long n, int k, int d,
+                     int R, int stages, int part_bytes,
+                     const unsigned* a_bound, const unsigned* r_bound,
+                     unsigned* __restrict__ lo, unsigned* __restrict__ hi) {
+  static_assert(LOG2C > 0, "the ring feeds a cluster");
+  extern __shared__ float4 smem4[];
+  constexpr int C = 1 << LOG2C;
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem4);
+  unsigned* part = reinterpret_cast<unsigned*>(base);
+  const int S = R * k;
+  const unsigned vbytes = 2u * S, cbytes = 4u * S, rbytes = 4u * R;
+  const unsigned stage_bytes = vbytes + cbytes + rbytes;
+  unsigned char* ring = base + part_bytes;
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(
+      ring + (size_t)stages * stage_bytes);
+  unsigned long long* empty = full + stages;
+  const unsigned rank = block_rank<LOG2C>();
+  const int mine = (d - (int)rank + C - 1) >> LOG2C;
+  for (int j = threadIdx.x; j < mine; j += TB) part[j] = 0u;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, C * (CONSUMERS / 32));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  sync_all<LOG2C>();
+
+  const long long total = n * k;
+  const long long full_tiles = n / R;
+  const long long cluster = blockIdx.x >> LOG2C;
+  const long long clusters = gridDim.x >> LOG2C;
+  const Fixed fx = fixed_point(a_bound, r_bound, total);
+  unsigned* hi_mine = hi + cluster * d;
+  auto add = [&](float a, int c, float rr) {
+    if (a != 0.f && ((unsigned)c & (C - 1u)) == rank)
+      add_fixed(part + ((unsigned)c >> LOG2C), hi_mine + c,
+                to_fixed(a * rr, fx));
+  };
+
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0) {
+      int s = 0;
+      unsigned ph = 0;
+      for (long long t = cluster; t < full_tiles; t += clusters) {
+        mbar_wait(empty + s, ph ^ 1u);
+        mbar_expect_tx(full + s, stage_bytes);
+        if (rank == 0) {
+          unsigned char* st = ring + (size_t)s * stage_bytes;
+          bulk_copy<C>(st, values + t * S, vbytes, full + s);
+          bulk_copy<C>(st + vbytes, cols + t * S, cbytes, full + s);
+          bulk_copy<C>(st + vbytes + cbytes, r + t * R, rbytes, full + s);
+        }
+        if (++s == stages) {
+          s = 0;
+          ph ^= 1u;
+        }
+      }
+    }
+  } else {
+    const int ct = threadIdx.x - 32;
+    const int j0 = ct, j1 = ct + CONSUMERS;
+    const int q0 = j0 / k, q1 = j1 / k;
+    int s = 0;
+    unsigned ph = 0;
+    for (long long t = cluster; t < full_tiles; t += clusters) {
+      mbar_wait(full + s, ph);
+      const unsigned char* st = ring + (size_t)s * stage_bytes;
+      const unsigned short* sv = reinterpret_cast<const unsigned short*>(st);
+      const int* sc = reinterpret_cast<const int*>(st + vbytes);
+      const float* sr = reinterpret_cast<const float*>(st + vbytes + cbytes);
+      // the slots into registers, the stage released, then the adds
+      float a0 = 0.f, a1 = 0.f, r0 = 0.f, r1 = 0.f;
+      int c0 = 0, c1 = 0;
+      if (j0 < S) {
+        a0 = widen(sv[j0]);
+        c0 = sc[j0];
+        r0 = sr[q0];
+      }
+      if (j1 < S) {
+        a1 = widen(sv[j1]);
+        c1 = sc[j1];
+        r1 = sr[q1];
+      }
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0)
+        for (int q = 0; q < C; ++q) mbar_arrive_at(empty + s, (unsigned)q);
+      add(a0, c0, r0);
+      add(a1, c1, r1);
+      if (++s == stages) {
+        s = 0;
+        ph ^= 1u;
+      }
+    }
+    if (cluster == 0)
+      for (long long g = full_tiles * S + ct; g < total; g += CONSUMERS)
+        add(ldv(values + g, true), __ldcs(cols + g), __ldg(r + g / k));
+  }
+  // every add to this part has landed before it is read
+  __syncthreads();
+  unsigned* lo_mine = lo + cluster * d;
+  for (int j = threadIdx.x; j < mine; j += TB)
+    lo_mine[rank + ((long long)j << LOG2C)] = part[j];
+  // no block leaves while another may still arrive on its barriers
+  cg::this_cluster().sync();
+}
+
 // out[i] = partial[0][i] + partial[1][i] + ... in row order (the forward's
 // cluster of 2).
 __global__ void __launch_bounds__(THREADS)
@@ -675,8 +921,11 @@ int launch_sum(const float* partial, int rows, long long len, float* out,
 
 int tile_rows(int k) { return (TILE_SLOTS / k) & ~3; }
 
-long long smem_bytes(bool pull, int k, int d, int cluster) {
-  const long long part = 4LL * ((d + cluster - 1) / cluster);
+// A block's bytes of v (forward: 2 a column for bf16 values, else 4) or
+// of g's low words (pullback: 4), plus the forward's staging tiles.
+long long smem_bytes(bool pull, int k, int d, int cluster, bool bf16) {
+  const long long width = (!pull && bf16) ? 2 : 4;
+  const long long part = width * ((d + cluster - 1) / cluster);
   return pull ? part : part + 8LL * GROUPS * tile_rows(k) * k;
 }
 
@@ -709,6 +958,15 @@ const void* pick_kernel(bool pull, int cluster, bool bf16) {
               : pick_kernel_of<float>(pull, cluster);
 }
 
+// The bf16 pullback's ring in a cluster of `cluster` blocks.
+const void* ring_kernel(int cluster) {
+  switch (cluster) {
+    case 2: return (const void*)pullback_ring_kernel<1>;
+    case 4: return (const void*)pullback_ring_kernel<2>;
+    default: return nullptr;
+  }
+}
+
 void fill_config(const Plan& p, cudaStream_t s, cudaLaunchConfig_t* cfg,
                  cudaLaunchAttribute* attr) {
   *cfg = cudaLaunchConfig_t{};
@@ -730,7 +988,7 @@ int make_plan(bool pull, long long n, int k, int d, int cluster, bool bf16,
     return (int)cudaErrorInvalidValue;
   p->kernel = pick_kernel(pull, cluster, bf16);
   if (p->kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const long long bytes = smem_bytes(pull, k, d, cluster);
+  const long long bytes = smem_bytes(pull, k, d, cluster, bf16);
   if (bytes > SMEM_BLOCK_BYTES) return (int)cudaErrorInvalidValue;
   p->cluster = cluster;
   p->smem = (int)bytes;
@@ -766,6 +1024,27 @@ int lshift_of(int k) {
 
 bool aligned16(const void* a, const void* b) {
   return (((unsigned long long)a | (unsigned long long)b) & 15ULL) == 0;
+}
+
+// The ring's shape for rows of k slots in a cluster of `cluster` blocks:
+// R rows a stage (as many as give every consumer
+// thread two slots; a multiple of 8), and as many stages (2 to
+// MAX_STAGES) as fit beside the part. False where none fits.
+struct Ring {
+  int R, stages, part_bytes, smem;
+};
+
+bool ring_shape(int k, int d, int cluster, Ring* g) {
+  g->R = (RING_SLOTS / k) & ~7;
+  if (g->R < 8) return false;
+  g->part_bytes = (int)(((4LL * ((d + cluster - 1) / cluster)) + 15) & ~15LL);
+  const long long stage = 6LL * g->R * k + 4LL * g->R;
+  long long left = SMEM_BLOCK_BYTES - g->part_bytes - 16LL * MAX_STAGES;
+  g->stages = (int)(left > 0 ? left / stage : 0);
+  if (g->stages > MAX_STAGES) g->stages = MAX_STAGES;
+  if (g->stages < 2) return false;
+  g->smem = (int)(g->part_bytes + g->stages * stage + 16LL * g->stages);
+  return true;
 }
 
 int launch_plan(const Plan& p, void** args, cudaStream_t s) {
@@ -811,8 +1090,8 @@ extern "C" int dml_spmv(const void* values, int vbf16, const int* cols,
 // blocks (1 or 2). A cluster of 2 needs partial, a (cluster, n) f32
 // scratch (two launches: the walk, then the sum of the partial outputs in
 // rank order). Refuses (cudaErrorInvalidValue) another cluster size and a
-// shape that does not fit: k > 512, or 4 ceil(d / cluster) + 16 R k bytes
-// beyond a block.
+// shape that does not fit: k > 512, or w ceil(d / cluster) + 16 R k bytes
+// beyond a block (w = 4, or 2 for bf16 values).
 extern "C" int dml_spmv_smem(const void* values, int vbf16, const int* cols,
                              const float* v, long long n, int k, int d,
                              int cluster, float* partial, float* out,
@@ -855,37 +1134,78 @@ extern "C" int dml_spmv_absmax(const void* x, int vbf16, long long len,
 #undef DML_CALL
 }
 
+// The walks the bf16 pullback in shared memory can take (dml_spmv_pullback
+// _smem's `walk`): the plan's (the ring in a cluster, where it runs), the
+// tiles of pullback_smem_kernel, and the ring. f32 values take the tiles
+// whatever `walk` says.
+enum Walk { WALK_AUTO = 0, WALK_TILES, WALK_RING };
+
+// Whether the ring runs for this container (bf16 values in a cluster,
+// every pointer 16-byte aligned, the ring beside the part), its shape in g.
+bool ring_runs(const void* values, int vbf16, const int* cols,
+               const float* r, int k, int d, int cluster, Ring* g) {
+  return vbf16 && cluster > 1 && aligned16(values, cols) && aligned16(r, r) &&
+         ring_shape(k, d, cluster, g);
+}
+
 // The pullback with g in shared memory: values as dml_spmv's; r (n,) f32;
 // a_bound, the bits of max |values|
 // (dml_spmv_absmax); r_bound, one word of scratch that takes max |r|; lo
 // and hi, (clusters, d) 32-bit scratch with clusters =
-// dml_spmv_pullback_clusters(...); g (d,) f32 out. Returns
+// dml_spmv_pullback_clusters(...); g (d,) f32 out; walk (enum Walk) for
+// bf16 values. Returns
 // cudaGetLastError() after the last of its launches (|r|'s bound, the
-// zeroing of hi, the walk, the sum of the clusters' words).
+// zeroing of hi, the walk, the sum of the clusters' words); refuses a ring
+// that was asked for where it cannot run.
 extern "C" int dml_spmv_pullback_smem(const void* values, int vbf16,
                                       const int* cols, const float* r,
                                       long long n, int k, int d, int cluster,
                                       const unsigned* a_bound,
                                       unsigned* r_bound, unsigned* lo,
                                       unsigned* hi, int clusters, float* g,
-                                      void* stream) {
+                                      int walk, void* stream) {
   Plan p;
   int err = make_plan(true, n, k, d, cluster, vbf16 != 0, &p);
   if (err) return err;
   if (p.grid / cluster != clusters) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Ring ring;
+  const bool ring_ok = ring_runs(values, vbf16, cols, r, k, d, cluster, &ring);
+  if (walk == WALK_RING && !ring_ok) return (int)cudaErrorInvalidValue;
+  const bool use_ring = ring_ok && (walk == WALK_RING || walk == WALK_AUTO);
   err = launch_absmax(r, n, r_bound, s);
   if (err) return err;
   cudaError_t e = cudaMemsetAsync(hi, 0, 4 * (size_t)clusters * d, s);
   if (e != cudaSuccess) return (int)e;
-  int R = tile_rows(k);
-  int aligned = aligned16(values, cols) ? 1 : 0;
-  void* args[] = {&values, &cols, &r,       &n,       &k,  &d, &R,
-                  &aligned, &a_bound, &r_bound, &lo, &hi};
-  err = launch_plan(p, args, s);
+  if (use_ring) {
+    p.kernel = ring_kernel(cluster);
+    p.smem = ring.smem;
+    e = cudaFuncSetAttribute(
+        p.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (e != cudaSuccess) return (int)e;
+    void* args[] = {&values, &cols,    &r,      &n,
+                    &k,      &d,       &ring.R, &ring.stages,
+                    &ring.part_bytes, &a_bound, &r_bound, &lo, &hi};
+    err = launch_plan(p, args, s);
+  } else {
+    int R = tile_rows(k);
+    int aligned = aligned16(values, cols) ? 1 : 0;
+    void* args[] = {&values, &cols, &r,       &n,       &k,  &d, &R,
+                    &aligned, &a_bound, &r_bound, &lo, &hi};
+    err = launch_plan(p, args, s);
+  }
   if (err) return err;
   return launch_from_fixed(lo, hi, clusters, d, 1, d, a_bound, r_bound,
                            n * (long long)k, g, s);
+}
+
+// The walk the bf16 pullback in shared memory takes for this container:
+// 1 the ring, 0 the tiles (for f32 values, always 0).
+extern "C" int dml_spmv_pullback_rings(const void* values, int vbf16,
+                                       const int* cols, const float* r, int k,
+                                       int d, int cluster) {
+  Ring ring;
+  return ring_runs(values, vbf16, cols, r, k, d, cluster, &ring);
 }
 
 // The pullback with g in L2: values, r, a_bound and r_bound as above, acc

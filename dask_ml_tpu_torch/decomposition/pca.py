@@ -50,14 +50,15 @@ def _on(a, like):
                            device=like.device)
 
 
-def transform_program(Xs, mean, components, ev, *, whiten: bool):
+def transform_program(Xs, mean, components, explained_variance, *,
+                      whiten: bool):
     """The transform of staged rows: ``(Xs − mean) @ componentsᵀ``, divided
-    by ``√ev`` when whitening. ``PCA.transform`` and the serving tier's
-    runner both call it, so a served batch computes what a direct call
-    does."""
+    by ``√explained_variance`` when whitening. ``PCA.transform`` and the
+    serving tier's runner both call it, so a served batch computes what a
+    direct call does."""
     out = (Xs - mean) @ components.T
     if whiten:
-        out = out / torch.sqrt(ev)
+        out = out / torch.sqrt(explained_variance)
     return out
 
 

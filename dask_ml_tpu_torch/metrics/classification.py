@@ -1,16 +1,22 @@
 """Classification metrics (counterpart of
 ``dask_ml_tpu/metrics/classification.py``), in numpy. All-zero
-``sample_weight`` gives NaN, as the JAX expressions do under IEEE rules."""
+``sample_weight`` gives NaN, as the JAX expressions do under IEEE rules.
+``compute=False`` returns the value as a 0-d tensor on the configured
+device (``metrics.regression``'s rule)."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from dask_ml_tpu_torch.metrics.regression import _average, _divide
+from dask_ml_tpu_torch.metrics.regression import (
+    _average,
+    _divide,
+    _result,
+)
 
 
 def accuracy_score(y_true, y_pred, normalize: bool = True,
-                   sample_weight=None) -> float:
+                   sample_weight=None, compute: bool = True):
     """Weighted share (``normalize=True``) or weighted count of rows whose
     label matches; a 2-D (multilabel) row counts only if every label
     matches. Labels of any dtype compare as values; one side strings and
@@ -29,10 +35,12 @@ def accuracy_score(y_true, y_pred, normalize: bool = True,
     w = (np.ones(match.shape[0]) if sample_weight is None
          else np.asarray(sample_weight, dtype=np.float64))
     total = np.dot(match.astype(np.float64), w)
-    return float(_divide(total, w.sum()) if normalize else total)
+    return _result(_divide(total, w.sum()) if normalize else total,
+                   compute)
 
 
-def log_loss(y_true, y_pred, sample_weight=None, labels=None) -> float:
+def log_loss(y_true, y_pred, sample_weight=None, labels=None,
+             compute: bool = True):
     """Cross-entropy of probability predictions, the JAX package's rules:
     labels are encoded positionally against the sorted class set (of
     ``labels`` where given), so any label values score; ``y_pred`` is the
@@ -68,4 +76,4 @@ def log_loss(y_true, y_pred, sample_weight=None, labels=None) -> float:
         ll = -np.log(p[np.arange(len(codes)), codes])
     w = (np.ones(len(codes), np.float32) if sample_weight is None
          else np.asarray(sample_weight, dtype=np.float32))
-    return float(_average(ll, w))
+    return _result(_average(ll, w), compute)

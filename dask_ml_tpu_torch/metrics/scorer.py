@@ -61,10 +61,12 @@ SCORERS = {
 }
 
 
-def get_scorer(scoring):
+def get_scorer(scoring, compute: bool = True):
     """Resolve a scoring name or callable to a scorer. A name outside
     :data:`SCORERS` goes to scikit-learn's registry where scikit-learn
-    imports; an unknown name raises ``ValueError``."""
+    imports; an unknown name raises ``ValueError``. ``compute`` is taken
+    and, as in the JAX package, changes nothing: a scorer returns a
+    float."""
     if isinstance(scoring, str):
         if scoring in SCORERS:
             return SCORERS[scoring]

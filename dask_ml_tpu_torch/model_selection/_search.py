@@ -214,8 +214,9 @@ class CVCache:
     """
 
     def __init__(self, splits, X, y, cache: bool = True,
-                 device_slices: bool = False):
+                 device_slices: bool = False, pad_policy=None):
         self.splits = list(splits)
+        self.pad_policy = pad_policy
         self.X = X
         self.y = y
         self.cache = {} if cache else None
@@ -262,8 +263,9 @@ class CVCache:
         """Sorted sample counts the fold slices stage to. On one device
         (or a world of one rank) the port pads nothing: the exact train
         and test sizes. Over a mesh of more than one data shard staging
-        pads each slice to the active policy's bucket aligned to the
-        shard count, as the JAX package plans it."""
+        pads each slice to ``pad_policy``'s bucket (the search passes the
+        active policy) aligned to the shard count, as the JAX package
+        plans it."""
         from dask_ml_tpu_torch.parallel import shapes
 
         mesh = mesh_lib.collective_mesh()
@@ -271,7 +273,9 @@ class CVCache:
         if not mesh_lib.is_sharded(mesh):
             return sorted(sizes)
         align = mesh_lib.n_data_shards(mesh)
-        return sorted({shapes.bucket_rows(n, align=align, record=False)
+        return sorted({shapes.bucket_rows(n, align=align,
+                                          policy=self.pad_policy,
+                                          record=False)
                        for n in sizes})
 
     def extract(self, split_idx: int, train: bool, is_x: bool = True,
@@ -1236,8 +1240,11 @@ class BaseSearchCV(BaseEstimator):
         splits = list(cv.split(X, y, groups))
         n_splits = len(splits)
         device_native = _all_stages_device_native(estimator)
+        from dask_ml_tpu_torch.parallel import shapes as shapes_lib
+
         cv_cache = CVCache(splits, X, y, cache=self.cache_cv,
-                           device_slices=device_native)
+                           device_slices=device_native,
+                           pad_policy=shapes_lib.active_policy())
 
         candidate_params = list(self._get_param_iterator())
         n_candidates = len(candidate_params)

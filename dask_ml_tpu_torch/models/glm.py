@@ -814,10 +814,10 @@ def _batched_newton(grad_fn, step_fn, x, inner_tol, inner_max_iter):
 
 
 @torch.no_grad()
-def admm(X, y, w, beta0, mask, *, n_shards=1, family="logistic",
-         regularizer="l2", lamduh=0.0, rho=1.0, max_iter=250, abstol=1e-4,
-         reltol=1e-2, inner_max_iter=20, inner_tol=1e-8, state=None,
-         return_state=False, kernel="auto", mesh=None):
+def admm(X, y, w, beta0, mask, mesh=None, *, n_shards=1,
+         family="logistic", regularizer="l2", lamduh=0.0, rho=1.0,
+         max_iter=250, abstol=1e-4, reltol=1e-2, inner_max_iter=20,
+         inner_tol=1e-8, state=None, return_state=False, kernel="auto"):
     """Consensus ADMM (Boyd et al. §7.1.1) over ``n_shards`` contiguous row
     blocks of equal size, which stand in for the JAX package's data shards:
     its trajectory depends on S (the z-prox takes t = λ/(ρS) and the
@@ -920,11 +920,11 @@ def _multinomial_hessian(Xb, P, wb, sw):
 
 
 @torch.no_grad()
-def admm_multinomial(X, y_idx, w, B0, mask, *, n_classes, n_shards=1,
-                     regularizer="l2", lamduh=0.0, rho=1.0, max_iter=250,
-                     abstol=1e-4, reltol=1e-2, inner_max_iter=20,
-                     inner_tol=1e-8, state=None, return_state=False,
-                     mesh=None):
+def admm_multinomial(X, y_idx, w, B0, mask, mesh=None, *, n_classes,
+                     n_shards=1, regularizer="l2", lamduh=0.0, rho=1.0,
+                     max_iter=250, abstol=1e-4, reltol=1e-2,
+                     inner_max_iter=20, inner_tol=1e-8, state=None,
+                     return_state=False):
     """Consensus ADMM for softmax logistic regression: :func:`admm` with
     (d, K) coefficient matrices per block (the JAX ``admm_multinomial``).
     Each local prox solve is a batch of Newton steps on the full

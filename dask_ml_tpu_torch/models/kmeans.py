@@ -1177,8 +1177,8 @@ def _n_padded(X, mesh) -> int:
 
 def init_scalable(X, w, n_valid: int, n_clusters: int, gen,
                   oversampling_factor: float = 2.0,
-                  max_iter: Optional[int] = None, kernel: str = "auto",
-                  mesh=None):
+                  max_iter: Optional[int] = None, mesh=None,
+                  kernel: str = "auto"):
     """k-means|| init: seeding, sampling rounds, candidate weighting and
     the finishing k-means++ + Lloyd over the candidates. With ``mesh`` X
     and w are this rank's block, and every rank returns the centers a
@@ -1252,8 +1252,8 @@ def init_pp(X, n_valid: int, n_clusters: int, gen, mesh=None):
 
 def k_init(X, w, n_valid: int, n_clusters: int, gen,
            init="k-means||", oversampling_factor: float = 2.0,
-           max_iter: Optional[int] = None, kernel: str = "auto",
-           mesh=None):
+           max_iter: Optional[int] = None, mesh=None,
+           kernel: str = "auto"):
     """Init dispatch: an array, 'k-means||', 'k-means++' or 'random'
     (``mesh``: X and w are this rank's block)."""
     if isinstance(init, (np.ndarray, torch.Tensor)):
@@ -1322,7 +1322,7 @@ def _init_phase_collective_traffic(mesh, d: int, *, n_rounds: int, cap: int,
 def measure_init_phases(X, w, n_clusters: int, gen,
                         oversampling_factor: float = 2.0,
                         max_iter: Optional[int] = None, mesh=None,
-                        n_valid=None) -> dict:
+                        kernel: str = "auto", n_valid=None) -> dict:
     """Wall seconds of each k-means|| phase (seeding, the sampling rounds,
     the candidate weighting, the finishing k-means++ and Lloyd loop), run
     one at a time with a device sync after each, where the fit runs them
@@ -1338,7 +1338,8 @@ def measure_init_phases(X, w, n_clusters: int, gen,
          "n_rounds": int, "n_cand": int}
 
     ``fused`` says whether the rounds and the weighting ran the kernels
-    (K3, K4): on a CUDA tensor. A measurement harness, not a production
+    (K3, K4): on a CUDA tensor unless ``kernel="torch"`` (``kernel`` as in
+    :func:`init_scalable`). A measurement harness, not a production
     path. With ``mesh`` (X and w this rank's block, ``n_valid`` the true
     rows) the phases run over the mesh, and a hierarchical mesh adds
     ``bytes_moved_by_axis`` and ``effective_gbps_by_axis`` from
@@ -1375,19 +1376,20 @@ def measure_init_phases(X, w, n_clusters: int, gen,
     cand, n_cand, _, skip, total = timed(
         "rounds", lambda: _init_rounds_phase(
             X, w, cfg["l"], cand.clone(), mind0, n_rounds, gen,
-            max_cand=cfg["max_cand"], cap=cfg["cap"], mesh=mesh,
-            n_valid=n_valid))
+            max_cand=cfg["max_cand"], cap=cfg["cap"], kernel=kernel,
+            mesh=mesh, n_valid=n_valid))
     n_cand = int(n_cand)
     if mesh is not None:
         skip = hpsum(skip, mesh, op="kmeans.init.stats")
         total = hpsum(total, mesh, op="kmeans.init.stats")
     cand, n_cand, cw = timed("weights", lambda: _init_weights_phase(
         X, w, cand.clone(), n_cand, gen, n_clusters=n_clusters,
-        max_cand=cfg["max_cand"], mesh=mesh, n_valid=n_valid))
+        max_cand=cfg["max_cand"], kernel=kernel, mesh=mesh,
+        n_valid=n_valid))
     timed("finish", lambda: _init_finish_phase(
         cand, cw, tol, gen, n_clusters=n_clusters,
-        n_trials=cfg["n_trials"], finish_iters=100))
-    fused = X.is_cuda
+        n_trials=cfg["n_trials"], finish_iters=100, kernel=kernel))
+    fused = _kernels.use_cuda(kernel, X)
     traffic = _init_phase_traffic(
         n, d, X.element_size(), n_rounds=n_rounds,
         max_cand=cfg["max_cand"], n_clusters=n_clusters,

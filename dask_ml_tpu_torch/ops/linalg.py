@@ -157,7 +157,7 @@ def _check_f32(X):
             f"the port's linear algebra takes float32; got {X.dtype}")
 
 
-def tsqr(X, weights=None, mesh=None):
+def tsqr(X, mesh=None, weights=None):
     """Thin QR of a tall-skinny (n, d) float32 tensor: ``(Q (n, min(n, d)),
     R (min(n, d), d))``. CholeskyQR2 when its ``‖QᵀQ − I‖_max`` is below
     :data:`_CHOLQR_ORTHO_TOL`, else Householder; Householder at once when
@@ -187,7 +187,7 @@ def tsqr(X, weights=None, mesh=None):
     return _householder(X, mesh)
 
 
-def tsvd(X, weights=None, mesh=None):
+def tsvd(X, mesh=None, weights=None):
     """Thin SVD through :func:`tsqr`: ``(U, S, Vt)`` with the SVD of the
     small R and ``U = Q @ U_r`` (over ``mesh``, the rank's block of U)."""
     Q, R = tsqr(X, weights=weights, mesh=mesh)
@@ -196,8 +196,8 @@ def tsvd(X, weights=None, mesh=None):
 
 
 def svd_compressed(X, k: int, n_power_iter: int = 0, generator=None,
-                   n_oversamples: int = 10, weights=None,
-                   compute_dtype="policy", omega=None, mesh=None):
+                   n_oversamples: int = 10, mesh=None, weights=None,
+                   compute_dtype="policy", omega=None):
     """Randomized truncated SVD (Halko et al. 2009): ``(U (n, k), S (k,),
     Vt (k, d))``. The test matrix Ω (d, ℓ), ℓ = min(k + n_oversamples, d),
     is ``omega`` when given (the tests hand over the JAX package's draw),

@@ -92,18 +92,19 @@ def euclidean_distances(X, Y=None):
     return torch.sqrt(sq_euclidean(X, Y))
 
 
-def pairwise_distances_argmin_min(X, Y, *, kernel: str = "auto"):
+def pairwise_distances_argmin_min(X, Y, *, kernel: str = "auto",
+                                  mesh=None):
     """For each row of X, the index (int32) of and the distance to the
     nearest row of Y; ties go to the lowest index. Through
     :func:`~dask_ml_tpu_torch.ops.fused_distance.fused_argmin_min`, the
-    fused argmin/min kernel on the card (``kernel`` as there), then a
-    ``sqrt`` of the min squared distance."""
+    fused argmin/min kernel on the card (``kernel`` and ``mesh`` as
+    there), then a ``sqrt`` of the min squared distance."""
     from dask_ml_tpu_torch.ops.fused_distance import fused_argmin_min
 
     X, Y = _pair(X, Y)
     argmin, mind = fused_argmin_min(X.to(torch.float32).contiguous(),
                                     Y.to(torch.float32).contiguous(),
-                                    kernel=kernel)
+                                    kernel=kernel, mesh=mesh)
     return argmin, torch.sqrt(mind)
 
 

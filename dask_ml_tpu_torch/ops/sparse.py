@@ -20,8 +20,9 @@ contractions the GLM solvers route through.
 - :func:`dvector_plan` — where the kernels keep the ``(d,)`` vector that
   the forward gathers from and the pullback scatters into: the shared
   memory of one block, of a thread block cluster of 2 (the pullback: also
-  of 4), or L2. A
-  pure function of ``(n, k, d)`` and the card's constants.
+  of 4), or L2. A pure function of ``(n, k, d)``, the values' dtype (the
+  bf16 forward keeps ``v`` as bf16, 2 bytes a column) and the card's
+  constants.
 - :func:`matmat` (an autograd function whose backward for ``B`` is
   :func:`pullback_mat`), :func:`pullback_mat` and :func:`weighted_gram`
   (``A.T @ diag(h) @ A``) in plain PyTorch, as the JAX package computes
@@ -137,6 +138,17 @@ class SparseRows:
         return SparseRows(torch.as_tensor(self.values).to(device),
                           torch.as_tensor(self.cols).to(device), self.d)
 
+    def astype(self, dtype) -> "SparseRows":
+        """The container with its values in ``dtype`` (a numpy dtype for
+        host leaves, a torch or numpy dtype for tensor leaves), the cols
+        shared."""
+        if isinstance(self.values, np.ndarray):
+            return SparseRows(self.values.astype(dtype), self.cols, self.d)
+        from dask_ml_tpu_torch.utils.validation import _torch_dtype
+
+        return SparseRows(self.values.to(_torch_dtype(dtype)), self.cols,
+                          self.d)
+
     def __getitem__(self, idx):
         """Rows by slice or index array. Scalar indices are rejected: they
         would drop the row axis and leave a container whose shape lies."""
@@ -149,6 +161,10 @@ class SparseRows:
     def __repr__(self):
         return (f"SparseRows(shape={self.shape}, k={self.k}, "
                 f"dtype={self.dtype})")
+
+
+def is_sparse_rows(x) -> bool:
+    return isinstance(x, SparseRows)
 
 
 # ---------------------------------------------------------------------------
@@ -284,23 +300,31 @@ def _tile_rows(k: int) -> int:
     return (_TILE_SLOTS // k) & ~3
 
 
-def _fits(k: int, d: int, cluster: int, pullback: bool) -> bool:
+def _fits(k: int, d: int, cluster: int, pullback: bool,
+          dtype=torch.float32) -> bool:
     """Whether a cluster of ``cluster`` blocks holds a ``(d,)`` vector for
-    rows of ``k`` slots: each block ``ceil(d / cluster)`` floats beside
-    what the kernel needs besides (two staging tiles of
-    ``_tile_rows(k) * k`` floats for each of the forward's 2 groups; the
-    pullback needs nothing) in its 232,448 bytes."""
+    rows of ``k`` slots of ``dtype`` values: each block ``ceil(d /
+    cluster)`` entries (the forward's ``v`` 2 bytes each for bf16 values,
+    else 4; the pullback's low words 4) beside what the kernel needs
+    besides (two staging tiles of ``_tile_rows(k) * k`` floats for each of
+    the forward's 2 groups; the pullback needs nothing) in its 232,448
+    bytes: ``smem_bytes`` of ``csrc/spmv.cu``."""
     if k > _MAX_TILE_K:
         return False
+    width = 2 if not pullback and dtype == torch.bfloat16 else 4
     besides = 0 if pullback else 8 * _GROUPS * _tile_rows(k) * k
-    return 4 * -(-d // cluster) + besides <= _SMEM_BLOCK_BYTES
+    return width * -(-d // cluster) + besides <= _SMEM_BLOCK_BYTES
 
 
-def dvector_plan(n: int, k: int, d: int, *, pullback: bool = False) -> int:
+def dvector_plan(n: int, k: int, d: int, *, pullback: bool = False,
+                 dtype=torch.float32) -> int:
     """Where K6 (or, with ``pullback=True``, its backward) keeps the
-    ``(d,)`` vector for an ``(n, k)`` container: the number of blocks (1
-    or 2 for the forward; 1, 2 or 4 for the pullback) of the cluster whose
-    shared memory holds it, or 0 for L2.
+    ``(d,)`` vector for an ``(n, k)`` container of ``dtype`` values (f32
+    or bf16): the number of blocks (1 or 2 for the forward; 1, 2 or 4 for
+    the pullback) of the cluster whose shared memory holds it, or 0 for
+    L2. At k = 101 the f32 forward takes one block up to d = 50,032, the
+    bf16 forward up to 100,064 (the sparse GLM cell's 100,001 with its
+    intercept); the pullback one block up to 58,112 for either.
 
     The smallest cluster that fits (:func:`_fits`) is taken. The vector
     stays in L2 where ``d`` is beyond the largest cluster that still beats
@@ -311,7 +335,7 @@ def dvector_plan(n: int, k: int, d: int, *, pullback: bool = False) -> int:
     if n < 1 or k < 1:
         return 0
     for cluster in _PLAN_CLUSTERS[bool(pullback)]:
-        if _fits(k, d, cluster, pullback):
+        if _fits(k, d, cluster, pullback, dtype):
             return cluster if n * k >= (_SMS // cluster) * d else 0
     return 0
 
@@ -355,7 +379,7 @@ def _spmv_cuda(values, cols, v, cluster=None):
     kernels run on PyTorch's current stream and do not synchronise. bf16
     values are the kernel's bf16 case (counters ``spmv_bf16`` /
     ``spmv_l2_bf16``): ``v`` is rounded to bf16 here, once, and handed
-    over widened to f32."""
+    over widened to f32; the shared-memory kernel keeps it as bf16."""
     from dask_ml_tpu_torch._kernels import build
 
     n, k = _check_kernel_args("SpMV", values, cols, v, "v")
@@ -368,7 +392,7 @@ def _spmv_cuda(values, cols, v, cluster=None):
     if n == 0:
         return out
     if cluster is None:
-        cluster = dvector_plan(n, k, d)
+        cluster = dvector_plan(n, k, d, dtype=values.dtype)
     lib = build.load("spmv")
     stream = build.stream_of(values)
     if cluster == 0:
@@ -427,7 +451,25 @@ def _values_bound(values):
     return bound
 
 
-def _pullback_cuda(values, cols, r, d, cluster=None):
+#: the walks the bf16 pullback in shared memory can be told to take (the C
+#: entry's ``enum Walk``): the plan's, the tiles, the ring
+_WALKS = {"auto": 0, "tiles": 1, "ring": 2}
+
+
+def _pullback_walk(values, cols, r, d: int, cluster: int) -> str:
+    """The walk K6-b takes in a cluster of ``cluster`` blocks for these
+    CUDA tensors: ``"ring"`` (bf16 values in a cluster of 2 or 4, every
+    tensor 16-byte aligned, the ring beside the part) or ``"tiles"``."""
+    from dask_ml_tpu_torch._kernels import build
+
+    ok = build.load("spmv").dml_spmv_pullback_rings(
+        values.data_ptr(), int(values.dtype == torch.bfloat16),
+        cols.data_ptr(), r.data_ptr(), int(values.shape[1]), int(d),
+        int(cluster))
+    return "ring" if ok else "tiles"
+
+
+def _pullback_cuda(values, cols, r, d, cluster=None, walk="auto"):
     """Launch K6's backward (``csrc/spmv.cu``) — the kernel that takes the
     place of the ``segment_sum`` the JAX package's custom VJP
     (``dask_ml_tpu/ops/sparse.py::_spmv_bwd``) leaves to XLA. One pass
@@ -441,7 +483,10 @@ def _pullback_cuda(values, cols, r, d, cluster=None):
     words is allocated here), 0 adds with 64-bit atomics on device
     memory. bf16 values are the kernel's bf16 case (counters
     ``spmv_pullback_bf16`` / ``spmv_pullback_l2_bf16``): the values are
-    widened where loaded, ``r`` stays f32."""
+    widened where loaded, ``r`` stays f32; in a cluster their tiles reach
+    every block of it through one TMA multicast copy
+    (:func:`_pullback_walk`). ``walk`` (a test's or a timing's) names
+    another walk of the bf16 case (:data:`_WALKS`)."""
     from dask_ml_tpu_torch._kernels import build
 
     n, k = _check_kernel_args("pullback", values, cols, r, "r")
@@ -481,7 +526,7 @@ def _pullback_cuda(values, cols, r, d, cluster=None):
     err = lib.dml_spmv_pullback_smem(
         values.data_ptr(), int(bf16), cols.data_ptr(), r.data_ptr(), n, k, d,
         cluster, a_bound.data_ptr(), r_bound.data_ptr(), words[0].data_ptr(),
-        words[1].data_ptr(), clusters, g.data_ptr(), stream)
+        words[1].data_ptr(), clusters, g.data_ptr(), _WALKS[walk], stream)
     build.check(err, what)
     _kernels.count("spmv_pullback" + suffix)
     return g

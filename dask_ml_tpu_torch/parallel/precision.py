@@ -248,13 +248,31 @@ def _operand(t, cd):
     return t
 
 
-def pdot(a, b, dims, *, compute=None, accum=torch.float32):
-    """``torch.tensordot(a, b, dims)`` with both operands rounded to the
-    COMPUTE dtype and the result in ``accum`` (at least f32).
-    ``compute=None`` follows the first operand (by convention the data
-    array). On f32 data it is the plain f32 product."""
+def pdot(a, b, dimension_numbers, *, compute=None, accum=torch.float32):
+    """``lax.dot_general(a, b, dimension_numbers)`` (``((lhs contracting,
+    rhs contracting), (lhs batch, rhs batch))``; the output's axes are the
+    batch axes, then ``a``'s free axes, then ``b``'s) with both operands
+    rounded to the COMPUTE dtype and the result in ``accum`` (at least
+    f32). ``compute=None`` follows the first operand (by convention the
+    data array). On f32 data it is the plain f32 product: a
+    ``torch.tensordot`` without batch axes, an ``einsum`` with them."""
+    (lc, rc), (lb, rb) = dimension_numbers
     cd = as_dtype(compute) if compute is not None else a.dtype
-    out = torch.tensordot(_operand(a, cd), _operand(b, cd), dims)
+    A, B = _operand(a, cd), _operand(b, cd)
+    if not len(lb) and not len(rb):
+        out = torch.tensordot(A, B, (list(lc), list(rc)))
+    else:
+        letters = "abcdefghijklmnopqrstuvwxyz"
+        sa = list(letters[:A.dim()])
+        sb = list(letters[A.dim():A.dim() + B.dim()])
+        for i, j in list(zip(lc, rc)) + list(zip(lb, rb)):
+            sb[j] = sa[i]
+        bound_a, bound_b = set(lc) | set(lb), set(rc) | set(rb)
+        spec = ([sa[i] for i in lb]
+                + [x for i, x in enumerate(sa) if i not in bound_a]
+                + [x for j, x in enumerate(sb) if j not in bound_b])
+        out = torch.einsum(
+            f"{''.join(sa)},{''.join(sb)}->{''.join(spec)}", A, B)
     acc = state_dtype(out.dtype, accum=accum)
     return out if out.dtype == acc else out.to(acc)
 

@@ -232,7 +232,7 @@ class ProcessFleet:
                  name: str = "pfleet",
                  device: str = "cuda",
                  workdir: Optional[str] = None,
-                 max_batch_rows: int = 2048,
+                 max_batch_rows: int = 1024,
                  max_queue: int = 4096,
                  heartbeat_interval_s: float = 0.05,
                  heartbeat_timeout_s: float = 2.0,

@@ -247,7 +247,7 @@ class ReplicaHost:
 
     def __init__(self, name: str, snapshot_path: str, workdir: str, *,
                  device: str = "cuda",
-                 max_batch_rows: int = 2048,
+                 max_batch_rows: int = 1024,
                  max_queue: int = 4096,
                  heartbeat_interval_s: float = 0.05,
                  wedge_timeout_s: float = 10.0,
@@ -463,7 +463,7 @@ def main(argv=None) -> int:
     parser.add_argument("--snapshot", required=True)
     parser.add_argument("--workdir", required=True)
     parser.add_argument("--device", default="cuda")
-    parser.add_argument("--max-batch-rows", type=int, default=2048)
+    parser.add_argument("--max-batch-rows", type=int, default=1024)
     parser.add_argument("--max-queue", type=int, default=4096)
     parser.add_argument("--heartbeat-interval-s", type=float, default=0.05)
     parser.add_argument("--wedge-timeout-s", type=float, default=10.0)

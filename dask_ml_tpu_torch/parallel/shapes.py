@@ -172,16 +172,28 @@ def track_compiles():
             delta[k] = after[k] - before[k]
 
 
-def bucket_nnz(k: int, min_slots: int = 1) -> int:
+def bucket_nnz(k: int, min_slots: int = 1, record: bool = True) -> int:
     """Padded per-row nonzero budget for an ELL width of ``k`` true slots:
     the next power of two (at most 2x slot waste), floored at
     ``min_slots``. A padded slot carries ``value=0`` at ``col=0`` and adds
-    exactly 0.0 to every contraction."""
+    exactly 0.0 to every contraction. ``record`` as in
+    :func:`bucket_rows`."""
+    del record
     k = int(k)
     if k < 0:
         raise ValueError(f"k must be >= 0, got {k}")
     target = max(k, 1)
     return max(1 << (target - 1).bit_length(), max(int(min_slots), 1))
+
+
+def bucket_cols(d: int, align: int = 1, record: bool = True) -> int:
+    """Padded feature count for ``d`` true columns on a mesh whose model
+    axis has ``align`` shards: ``d`` rounded up to a multiple of
+    ``align``, without the row policy's bucketing (fitted state follows
+    the padded width). ``record`` as in :func:`bucket_rows`."""
+    del record
+    align = max(int(align), 1)
+    return -(-int(d) // align) * align
 
 
 def pad_tail(arrays: Sequence, rows: int) -> tuple:

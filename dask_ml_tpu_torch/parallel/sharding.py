@@ -85,14 +85,14 @@ class StagingMemo:
         self._trusted: dict = {}  # id -> strong ref
         self.hits = 0
 
-    def trust(self, t):
+    def trust(self, arr):
         with self._lock:
-            self._trusted[id(t)] = t
-        return t
+            self._trusted[id(arr)] = arr
+        return arr
 
-    def is_trusted(self, t) -> bool:
+    def is_trusted(self, arr) -> bool:
         with self._lock:
-            return id(t) in self._trusted
+            return id(arr) in self._trusted
 
     def get_or_stage(self, key, refs, compute):
         with self._lock:
@@ -353,13 +353,16 @@ def _stage_vector(a, n: int, dev, what: str) -> torch.Tensor:
     return t.to(device=dev, dtype=torch.float32).contiguous()
 
 
-def prepare_data(X, sample_weight=None, device=None, y=None, mesh=None,
-                 shard_features=None, append_ones=False) -> DeviceData:
+def prepare_data(X, y=None, sample_weight=None, mesh=None, dtype=None,
+                 y_dtype=None, shard_features=None, append_ones=False,
+                 device=None) -> DeviceData:
     """Stage a validated ``X`` (numpy, tensor, scipy CSR or
     :class:`SparseRows`), its ``sample_weight`` (default 1 per row) and
     its targets ``y`` onto ``device`` (default: the configured one) as
-    contiguous tensors: X in the staging dtype (see the module
-    docstring), weights and targets in float32. A ``mesh`` with more
+    contiguous tensors: X in ``dtype`` (a torch or numpy dtype; by default
+    the staging dtype, see the module docstring), weights in float32 and
+    targets in ``y_dtype`` (by default float32). The JAX package's
+    signature, and ``device`` after it. A ``mesh`` with more
     than one data shard stages this rank's block only, and
     ``shard_features=True`` on a ``model`` axis its column slice too (a
     no-op on a data-only mesh, and declined for sparse input); see the
@@ -374,24 +377,28 @@ def prepare_data(X, sample_weight=None, device=None, y=None, mesh=None,
     replace its fields); the key holds the staging dtype and the
     policy's ``signature()``."""
     from dask_ml_tpu_torch.parallel import precision
+    from dask_ml_tpu_torch.utils.validation import _torch_dtype
 
     dev = resolve_device(device)
-    dtype = precision.staging_wire_dtype() or torch.float32
+    dtype = (precision.staging_wire_dtype() or torch.float32
+             if dtype is None else _torch_dtype(dtype))
+    y_dtype = None if y_dtype is None else _torch_dtype(y_dtype)
     shard_features = (bool(shard_features) and mesh is not None
                       and mesh_lib.has_model_axis(mesh)
                       and not is_sparse_input(X))
     memo = _current_memo()
     if memo is not None:
         key = ("data", id(X), str(dev), _content_key(y),
-               _content_key(sample_weight), str(dtype),
+               _content_key(sample_weight), str(dtype), str(y_dtype),
                precision.resolve().signature(), id(mesh), shard_features,
                bool(append_ones))
         return dataclasses.replace(memo.get_or_stage(
             key, (X, y, sample_weight, mesh),
             lambda: _prepare_data_impl(X, sample_weight, dev, y, dtype,
-                                       mesh, shard_features, append_ones)))
+                                       mesh, shard_features, append_ones,
+                                       y_dtype)))
     return _prepare_data_impl(X, sample_weight, dev, y, dtype, mesh,
-                              shard_features, append_ones)
+                              shard_features, append_ones, y_dtype)
 
 
 def _with_ones(X):
@@ -404,7 +411,8 @@ def _with_ones(X):
 
 
 def _prepare_data_impl(X, sample_weight, dev, y, dtype, mesh,
-                       shard_features=False, append_ones=False) -> DeviceData:
+                       shard_features=False, append_ones=False,
+                       y_dtype=None) -> DeviceData:
     sparse_in = is_sparse_input(X)
     if append_ones and not sparse_in:
         X = _with_ones(X)
@@ -418,6 +426,8 @@ def _prepare_data_impl(X, sample_weight, dev, y, dtype, mesh,
 
         data.X = add_intercept_ell(data.X)
         data.n_features += 1
+    if y_dtype is not None and data.y is not None:
+        data.y = data.y.to(y_dtype)
     return data
 
 

@@ -13,6 +13,14 @@
 - Every public JAX function, constructor or method that takes ``mesh`` or
   ``meshes`` takes it in the port, and no raise or docstring of the port
   still names ROADMAP Queue A item 10b (the multi-device port is whole).
+- Every public JAX callable (``jax.jit``-wrapped functions included) has a
+  port counterpart that takes the JAX call: the same parameter names, in
+  the same order, with the same defaults. The allowances: ``device`` /
+  ``devices``, ``kernel``, ``mesh`` / ``meshes`` and ``n_shards`` where
+  the JAX callable has none; a ``torch.Generator`` (``gen``,
+  ``generator``) where JAX takes a ``key``; a default where JAX requires
+  the argument; and the deviations ``README.md`` records
+  (:data:`SIGNATURE_DEVIATIONS`).
 """
 
 import ast
@@ -188,7 +196,7 @@ def _mesh_takers(jax_mod) -> list:
             targets = [("__init__", obj.__init__)] + [
                 (n, f) for n, f in vars(obj).items()
                 if inspect.isfunction(f) and not n.startswith("_")]
-        elif inspect.isfunction(obj):
+        elif callable(obj):  # functions, and jax.jit-wrapped ones
             targets = [("", obj)]
         else:
             continue
@@ -245,3 +253,256 @@ def test_no_item_10b_raise_or_docstring_is_left():
                     if re.search(r"item\s+10b|Queue A item", line):
                         hits.append(f"{os.path.relpath(path, ROOT)}:{i}")
     assert hits == []
+
+
+# ---------------------------------------------------------------------------
+# signatures: the JAX call works in the port
+# ---------------------------------------------------------------------------
+
+#: parameters the port may add where the JAX callable has none
+EXTRA_ALLOWED = {"device", "devices", "kernel", "mesh", "meshes", "n_shards"}
+#: the names a port parameter takes where the JAX one is a ``key``
+KEY_NAMES = {"key", "gen", "generator"}
+
+#: the deviations ``README.md`` records ("Signature deviations"): per
+#: (module, name, method), the port's extra parameters and, each as
+#: ``"-name"``, the JAX parameters the port lacks (the rest of the
+#: signature is still checked), or None where the port has no counterpart
+SIGNATURE_DEVIATIONS = {
+    ("models.kmeans", "compute_inertia", ""): {"n_valid"},
+    ("models.kmeans", "predict_labels", ""): {"n_valid"},
+    ("models.kmeans", "predict_labels_sketched", ""): {"n_valid"},
+    ("models.kmeans", "measure_init_phases", ""): {"n_valid"},
+    ("models.kmeans", "batched_lloyd_cells", ""): {"idx0"},
+    ("ops.fast_transform", "FastTransform", "__init__"): {"perms"},
+    ("ops.fast_transform", "FastTransform", "tree_flatten"): None,
+    ("ops.fast_transform", "FastTransform", "tree_unflatten"): None,
+    ("ops.fast_transform", "palm4msa_fit", ""): {"perms", "generator"},
+    ("ops.linalg", "svd_compressed", ""): {"omega"},
+    ("ops.sparse", "SparseRows", "tree_flatten"): None,
+    ("ops.sparse", "SparseRows", "tree_unflatten"): None,
+    ("parallel.decisions", "lookup", ""): {"backend"},
+    ("parallel.elastic", "elastic_admm_host", ""): {
+        "-z0", "-x0", "-u0", "-lamduh", "-rho", "-abstol", "-reltol",
+        "-inner_tol", "-sw_total", "z", "x", "u", "pen_prox", "scal"},
+    ("parallel.framing", "crc32c", ""): {"engine"},
+    ("parallel.mesh", "shard_map", ""): None,
+    ("parallel.precision", "pmatmul", ""): {"compute", "accum",
+                                            "**kwargs"},
+    ("parallel.precision", "cast_wire", ""): {"pin"},
+    ("parallel.procfleet", "ProcessFleet", "__init__"): {
+        "-devices_per_replica"},
+    ("parallel.runtime", "initialize", ""): {"backend", "init_method",
+                                             "timeout_s"},
+    ("parallel.serving", "ServingLoop", "__init__"): {"_group", "_leader"},
+    ("parallel.shapes", "note_bucket", ""): None,
+    ("parallel.sharding", "DeviceData", "__init__"): {
+        "-d", "n_features", "n_padded", "row_offset", "col_offset"},
+    ("utils._log", "log_array", ""): {"rows"},
+}
+
+_P = inspect.Parameter
+_POSITIONAL = (_P.POSITIONAL_ONLY, _P.POSITIONAL_OR_KEYWORD)
+
+
+def _public_callables(jax_mod) -> list:
+    """(name, method, callable) of every public function (``jax.jit``
+    wrappers included), class constructor and public method, static
+    method or class method defined in ``jax_mod``."""
+    out = []
+    for name, obj in vars(jax_mod).items():
+        if name.startswith("_") or \
+                getattr(obj, "__module__", None) != jax_mod.__name__:
+            continue
+        if inspect.isclass(obj):
+            out.append((name, "__init__", obj.__init__))
+            for n, f in vars(obj).items():
+                if n.startswith("_") or inspect.isclass(f):
+                    continue
+                if isinstance(f, (staticmethod, classmethod)) \
+                        or inspect.isfunction(f):
+                    out.append((name, n, getattr(obj, n)))
+        elif callable(obj):
+            out.append((name, "", obj))
+    return out
+
+
+def _default(v) -> str:
+    """A default as text, the JAX package's dtypes and classes named as
+    the port's."""
+    if v is _P.empty:
+        return "<required>"
+    text = repr(v)
+    for jax_text, port_text in (("<class 'jax.numpy.", "torch."),
+                                ("jax.numpy.", "torch."),
+                                ("dask_ml_tpu_torch.", "dask_ml_tpu.")):
+        text = text.replace(jax_text, port_text)
+    return text.replace("torch.float32'>", "torch.float32")
+
+
+def _signature_gaps(jax_fn, port_fn, recorded) -> list:
+    """How ``port_fn``'s signature fails to take ``jax_fn``'s calls, after
+    the allowances and the ``recorded`` deviations (extra port parameters,
+    and ``"-name"`` for a JAX parameter the port lacks)."""
+    lacks = {r[1:] for r in recorded if r.startswith("-")}
+    jp = {n: q for n, q in inspect.signature(jax_fn).parameters.items()
+          if n not in lacks}
+    pp = dict(inspect.signature(port_fn).parameters)
+    gaps = []
+    for name in list(pp):
+        if name not in jp and (name in EXTRA_ALLOWED or name in recorded):
+            del pp[name]
+    if "key" in jp and "key" not in pp:
+        for alias in KEY_NAMES & set(pp):
+            pp = {("key" if n == alias else n): q.replace(name="key")
+                  if n == alias else q for n, q in pp.items()}
+            break
+    jpos = [n if q.kind == _P.POSITIONAL_OR_KEYWORD else "/"
+            for n, q in jp.items() if q.kind in _POSITIONAL]
+    ppos = [n if q.kind == _P.POSITIONAL_OR_KEYWORD else "/"
+            for n, q in pp.items() if q.kind in _POSITIONAL]
+    if ppos[:len(jpos)] != jpos:
+        gaps.append(f"positional {jpos} against {ppos}")
+    for name, q in jp.items():
+        if q.kind == _P.VAR_POSITIONAL:
+            continue
+        if q.kind == _P.VAR_KEYWORD:
+            if f"**{name}" not in recorded and not any(
+                    r.kind == _P.VAR_KEYWORD for r in pp.values()):
+                gaps.append(f"**{name}")
+            continue
+        if q.kind == _P.POSITIONAL_ONLY:
+            continue  # bound by position: the order check above holds it
+        r = pp.get(name)
+        if r is None or r.kind in (_P.POSITIONAL_ONLY, _P.VAR_POSITIONAL,
+                                   _P.VAR_KEYWORD):
+            gaps.append(f"takes no {name}=")
+        elif q.default is not _P.empty and name != "key" \
+                and _default(q.default) != _default(r.default):
+            gaps.append(f"{name}={_default(q.default)} is "
+                        f"{_default(r.default)}")
+    for name, r in pp.items():
+        if name not in jp and r.kind not in (_P.VAR_POSITIONAL,
+                                              _P.VAR_KEYWORD):
+            gaps.append(f"adds {name}")
+    return gaps
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_every_jax_signature_takes_its_call_in_the_port(module):
+    jax_mod = importlib.import_module(
+        "dask_ml_tpu" + (f".{module}" if module else ""))
+    port = importlib.import_module(
+        "dask_ml_tpu_torch" + (f".{module}" if module else ""))
+    gaps = []
+    for name, method, fn in _public_callables(jax_mod):
+        where = (module, name, method)
+        recorded = SIGNATURE_DEVIATIONS.get(where, set())
+        if recorded is None:
+            continue
+        target = getattr(port, name, None)
+        if target is not None and method:
+            target = getattr(target, method, None)
+        if target is None:
+            gaps.append(f"{name}.{method}: no counterpart")
+            continue
+        try:
+            inspect.signature(fn)
+        except (TypeError, ValueError):
+            continue
+        gaps += [f"{name}.{method}: {g}"
+                 for g in _signature_gaps(fn, target, recorded)]
+    assert not gaps, gaps
+
+
+def test_signature_deviations_are_recorded_and_still_deviate():
+    """Every entry of :data:`SIGNATURE_DEVIATIONS` is named in README.md's
+    "Signature deviations" and still differs: an entry the port has
+    brought to the JAX signature must leave the table."""
+    with open(os.path.join(ROOT, "README.md")) as f:
+        readme = f.read()
+    section = readme[readme.index("Signature deviations"):]
+    for (module, name, method), extra in SIGNATURE_DEVIATIONS.items():
+        qual = f"{module}.{name}" + (f".{method}" if method else "")
+        assert f"`{qual}`" in section, qual
+        jax_mod = importlib.import_module(f"dask_ml_tpu.{module}")
+        port = importlib.import_module(f"dask_ml_tpu_torch.{module}")
+        fn = getattr(jax_mod, name)
+        target = getattr(port, name, None)
+        if method:
+            fn = getattr(fn, method)
+            target = getattr(target, method, None)
+        if target is None:
+            assert extra is None, qual
+            continue
+        gaps = _signature_gaps(fn, target, set())
+        assert gaps, f"{qual} takes the JAX call: drop it from the table"
+        if extra is not None:
+            assert _signature_gaps(fn, target, extra) == [], qual
+
+
+def test_repaired_entries_take_the_jax_call():
+    """The calls the JAX package's own tests make, in the port."""
+    import numpy as np
+    import torch
+
+    from dask_ml_tpu_torch import config_context
+    from dask_ml_tpu_torch.decomposition.pca import transform_program
+    from dask_ml_tpu_torch.metrics import (accuracy_score, get_scorer,
+                                           log_loss, mean_absolute_error,
+                                           mean_squared_error, r2_score)
+    from dask_ml_tpu_torch.ops.pairwise import pairwise_distances_argmin_min
+    from dask_ml_tpu_torch.ops.sparse import (SparseRows, ell_from_dense,
+                                              is_sparse_rows)
+    from dask_ml_tpu_torch.parallel.precision import pdot
+    from dask_ml_tpu_torch.parallel.procfleet import ProcessFleet
+    from dask_ml_tpu_torch.parallel.replica import ReplicaHost
+    from dask_ml_tpu_torch.parallel.shapes import bucket_cols, bucket_nnz
+    from dask_ml_tpu_torch.parallel.sharding import StagingMemo
+    from dask_ml_tpu_torch.utils.validation import check_array
+
+    with config_context(device="cpu"):
+        for metric, args in (
+                (accuracy_score, ([1, 0, 1], [1, 1, 1])),
+                (log_loss, ([0, 1, 1], [0.2, 0.7, 0.9])),
+                (mean_squared_error, ([1.0, 2.0], [1.5, 2.0])),
+                (mean_absolute_error, ([1.0, 2.0], [1.5, 2.0])),
+                (r2_score, ([1.0, 2.0, 3.0], [1.0, 2.5, 3.0]))):
+            lazy = metric(*args, compute=False)
+            assert isinstance(lazy, torch.Tensor) and lazy.dim() == 0
+            assert float(lazy) == metric(*args)
+        assert get_scorer("accuracy", compute=False) is get_scorer(
+            "accuracy")
+    assert ProcessFleet().max_batch_rows == 1024
+    host = ReplicaHost("r0", "snapshot", "workdir")
+    assert (host.max_batch_rows, host.max_queue) == (1024, 4096)
+    assert check_array(np.arange(4.0), ensure_2d=False).shape == (4,)
+    assert check_array(np.ones((2, 3, 4)), ensure_2d=False,
+                       allow_nd=True).shape == (2, 3, 4)
+    assert np.isnan(check_array(np.array([[np.nan]]),
+                                force_all_finite=False)).all()
+    assert check_array(np.ones((2, 2)), dtype=np.float64).dtype == np.float64
+    with pytest.raises(ValueError, match="minimum of 3"):
+        check_array(np.ones((2, 2)), min_samples=3)
+    X = torch.tensor([[0.0, 0.0], [3.0, 4.0]])
+    idx, dist = pairwise_distances_argmin_min(X, X[1:], mesh=None)
+    assert idx.tolist() == [0, 0] and dist.tolist() == [5.0, 0.0]
+    A = ell_from_dense(np.array([[1.5, 0.0], [0.0, 2.0]], np.float32))
+    assert is_sparse_rows(A) and not is_sparse_rows(A.values)
+    B = A.astype(np.float64)
+    assert isinstance(B, SparseRows) and B.values.dtype == np.float64
+    assert B.cols is A.cols and B.d == A.d
+    T = A.to("cpu").astype(torch.bfloat16)
+    assert T.values.dtype == torch.bfloat16
+    assert bucket_nnz(5, record=False) == bucket_nnz(5) == 8
+    assert bucket_cols(10, align=4, record=False) == 12
+    memo = StagingMemo()
+    t = torch.ones(2)
+    assert memo.trust(arr=t) is t and memo.is_trusted(arr=t)
+    out = transform_program(torch.ones(2, 2), torch.zeros(2),
+                            torch.eye(2), explained_variance=torch.full(
+                                (2,), 4.0), whiten=True)
+    assert torch.equal(out, torch.full((2, 2), 0.5))
+    g = pdot(torch.ones(3, 2), torch.ones(2),
+             dimension_numbers=(((1,), (0,)), ((), ())))
+    assert g.tolist() == [2.0, 2.0, 2.0]

@@ -430,12 +430,12 @@ def _ell_ints(rng, n, k, d, dev, lo=-8, hi=8):
                           torch.as_tensor(cols, device=dev), d)
 
 
-def _routes(k, d, pullback):
+def _routes(k, d, pullback, dtype=torch.float32):
     """Every route the wrappers can be told to take: L2 (cluster 0) and
     each cluster the direction is built for whose shared memory holds the
-    d-vector."""
+    d-vector for ``dtype`` values."""
     return [0] + [c for c in sps._PLAN_CLUSTERS[pullback]
-                  if sps._fits(k, d, c, pullback)]
+                  if sps._fits(k, d, c, pullback, dtype)]
 
 
 def _forward_launches():
@@ -1499,26 +1499,118 @@ def _ell_bf16(rng, n, k, d, dev):
                                                     False),
     (80_003, 101, 100_001, True), (40_001, 32, 30_011, True),
     (9_999, 128, 250_007, False), (301, 513, 5_003, True),
-    (2049, 3, 8 * 58_112, True)])
+    (2049, 3, 8 * 58_112, True),
+    # the bf16 forward keeps v as bf16: one block up to d = 100,064 at
+    # k = 101 (the cell's 100,001 included), a cluster of 2 beyond
+    (140_003, 101, 100_001, False), (140_003, 101, 100_064, False),
+    (140_003, 101, 100_065, False),
+    # the ring pullback in clusters of 2 and 4, odd and even k
+    (100_003, 100, 100_001, True), (30_001, 16, 150_001, True)])
 def test_bf16_spmv_kernels_bitexact_on_every_route(cuda, n, k, d,
                                                    pullback):
     """K6 and K6-b on a bf16 container (integer values) with a vector that
-    bf16 rounds: every route equals the plain version bit for bit, and
+    bf16 rounds: every route equals the plain version bit for bit (the
+    bf16 forward at one block and in a cluster; the pullback in a cluster
+    by the ring and by the tiles), and
     counts under the ``_bf16`` names."""
     rng = np.random.default_rng(n + k + d)
     A = _ell_bf16(rng, n, k, d, cuda)
     x = _grid(rng, (n if pullback else d,), cuda)
-    for c in [None] + _routes(k, d, pullback):
+    for c in [None] + _routes(k, d, pullback, torch.bfloat16):
         if pullback:
-            got = sps._pullback_cuda(A.values, A.cols, x, d, cluster=c)
             want = sps._pullback_ref(A.values, A.cols, x, d)
+            walks = ["auto"]
+            if c and sps._pullback_walk(A.values, A.cols, x, d, c) == "ring":
+                walks += ["tiles", "ring"]
+            for walk in walks:
+                got = sps._pullback_cuda(A.values, A.cols, x, d, cluster=c,
+                                         walk=walk)
+                assert torch.equal(got, want), (c, walk)
         else:
             got = sps._spmv_cuda(A.values, A.cols, x, cluster=c)
             want = sps._spmv_ref(A.values, A.cols, x)
-        assert torch.equal(got, want), c
+            assert torch.equal(got, want), c
     names = ("spmv_pullback", "spmv_pullback_l2") if pullback else (
         "spmv", "spmv_l2")
     assert sum(_kernels.launches[nm + "_bf16"] for nm in names) > 0
+
+
+def test_bf16_forward_plan_is_one_block_at_the_cell(cuda):
+    """At the sparse GLM cell's width the bf16 forward keeps v in one
+    block, and that launch counts once under ``spmv_bf16`` with no second
+    (partial-sum) launch behind it: on integer data its bits are the plain
+    version's; on float data it sits within the rounding bound of the
+    plain version (k f32 roundings of the row's sum of |products|)."""
+    n, k, d = 140_003, 101, 100_001
+    assert sps.dvector_plan(n, k, d, dtype=torch.bfloat16) == 1
+    assert sps.dvector_plan(n, k, d) == 2
+    rng = np.random.default_rng(21)
+    A = _ell_bf16(rng, n, k, d, cuda)
+    v = _grid(rng, (d,), cuda)
+    before = _kernels.launches["spmv_bf16"]
+    assert torch.equal(sps._spmv_cuda(A.values, A.cols, v),
+                       sps._spmv_ref(A.values, A.cols, v))
+    assert _kernels.launches["spmv_bf16"] == before + 1
+    vals = torch.randn(n, k, device=cuda).to(torch.bfloat16)
+    vf = torch.randn(d, device=cuda)
+    got = sps._spmv_cuda(vals, A.cols, vf)
+    want = sps._spmv_ref(vals, A.cols, vf)
+    scale = sps._spmv_ref(vals.abs(), A.cols,
+                          vf.to(torch.bfloat16).float().abs())
+    assert bool(((got - want).abs() <= k * 2.0 ** -23 * scale).all())
+
+
+def _bf16_view(vals, cols, offset):
+    """``(vals, cols)`` as contiguous (n, k) views ``offset`` elements into
+    buffers of their own: offset 1 moves both off their 16-byte
+    alignment."""
+    n, k = vals.shape
+    vb = torch.empty(n * k + offset, dtype=vals.dtype, device=vals.device)
+    cb = torch.empty(n * k + offset, dtype=cols.dtype, device=cols.device)
+    vb[offset:] = vals.reshape(-1)
+    cb[offset:] = cols.reshape(-1)
+    return vb[offset:].view(n, k), cb[offset:].view(n, k)
+
+
+@pytest.mark.parametrize("n,k,d,offset", [
+    # n not a multiple of the ring's rows (16 at k = 100 and 101), odd
+    # and even k
+    (100_003, 101, 100_001, 0), (100_005, 100, 100_001, 0),
+    (77_777, 7, 60_001, 0),
+    # a view one element off its 16-byte alignment keeps the tiles
+    (100_003, 101, 100_001, 1),
+    # d at each boundary of the pullback's plan: one block (no ring), a
+    # cluster of 2 from its first column to its last (no room beside a
+    # full part: the tiles), a cluster of 4 likewise, then L2
+    (50_001, 33, 58_112, 0), (50_001, 33, 58_113, 0),
+    (50_001, 33, 116_224, 0), (50_001, 33, 116_225, 0),
+    (50_001, 33, 232_448, 0), (50_001, 33, 232_449, 0)])
+def test_bf16_ring_pullback_bits_are_the_l2_routes(cuda, n, k, d, offset):
+    """Float bf16 values and an f32 cotangent: the pullback in a cluster
+    (the ring where it runs: bf16 values, 16-byte aligned, room beside the
+    part) gives the L2 route's bits, by every walk, and the tiles where
+    the ring does not run."""
+    rng = np.random.default_rng(n + k + d + offset)
+    cols = torch.as_tensor(rng.integers(0, d, (n, k)), dtype=torch.int32,
+                           device=cuda)
+    cols[:, 0] = d - 1  # a hot column
+    vals = torch.randn(n, k, device=cuda).to(torch.bfloat16)
+    vals[::5, -1] = 0.0
+    vals, cols = _bf16_view(vals, cols, offset)
+    r = torch.randn(n, device=cuda)
+    l2 = sps._pullback_cuda(vals, cols, r, d, cluster=0)
+    rings = 0
+    for c in _routes(k, d, True)[1:]:
+        walk = sps._pullback_walk(vals, cols, r, d, c)
+        assert walk == "tiles" or (c > 1 and offset == 0)
+        for w in ["auto", "tiles"] + (["ring"] if walk == "ring" else []):
+            got = sps._pullback_cuda(vals, cols, r, d, cluster=c, walk=w)
+            assert torch.equal(got, l2), (c, w)
+        rings += walk == "ring"
+    if offset == 0 and 58_112 < d < 4 * 58_112:
+        assert rings >= 1
+    plain = sps._pullback_ref(vals, cols, r, d)
+    assert float((l2 - plain).norm() / plain.norm()) <= 1e-5
 
 
 def test_bf16_pullback_repeats_its_bits_on_float_data(cuda):

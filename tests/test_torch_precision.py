@@ -124,8 +124,16 @@ def test_pdot_bf16_operands_f32_accumulation():
     out = px.pmatmul(X, v)
     assert out.dtype == torch.float32 and out.tolist() == [1.0]
     assert torch.matmul(X, v.to(torch.bfloat16)).dtype == torch.bfloat16
-    g = px.pdot(X, torch.ones(1), ([0], [0]))
+    g = px.pdot(X, torch.ones(1), (([0], [0]), ([], [])))
     assert g.dtype == torch.float32 and tuple(g.shape) == (3,)
+    # lax.dot_general's dimension numbers, batch axes included
+    rng = np.random.RandomState(1)
+    a = rng.randint(-8, 8, (4, 2, 3)).astype(np.float32)
+    b = rng.randint(-8, 8, (2, 5, 4)).astype(np.float32)
+    dn = (((0,), (2,)), ((1,), (0,)))
+    np.testing.assert_array_equal(
+        px.pdot(torch.from_numpy(a), torch.from_numpy(b), dn).numpy(),
+        np.asarray(jpx.pdot(jnp.asarray(a), jnp.asarray(b), dn)))
     rng = np.random.RandomState(0)
     A = rng.randint(-8, 8, (33, 7)).astype(np.float32)
     b = (rng.randint(-512, 512, 7) / 256.0).astype(np.float32)

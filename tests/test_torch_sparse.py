@@ -272,25 +272,51 @@ def test_dvector_plan(n, k, d, pullback, want):
     assert tsps.dvector_plan(n, k, d, pullback=pullback) == want
 
 
+@pytest.mark.parametrize("n,k,d,want", [
+    # the bf16 forward keeps v as bf16 (2 bytes a column): at k = 101 one
+    # block up to (232,448 - the staging) / 2 = 100,064 columns, the sparse
+    # GLM cell's 100,001 among them; a cluster of 2 up to twice that; L2
+    (10_000_000, 101, 100_001, 1),
+    (10_000_000, 101, (_BLOCK * 4 - 4 * _STAGE_101) // 2, 1),
+    (10_000_000, 101, (_BLOCK * 4 - 4 * _STAGE_101) // 2 + 1, 2),
+    (10_000_000, 101, _BLOCK * 4 - 4 * _STAGE_101, 2),
+    (10_000_000, 101, _BLOCK * 4 - 4 * _STAGE_101 + 1, 0),
+    # the score rows of the cell: still enough slots to fill one block
+    (262_144, 101, 100_001, 1),
+    (130_693, 101, 100_001, 0),
+])
+def test_dvector_plan_bf16_forward(n, k, d, want):
+    assert (_BLOCK * 4 - 4 * _STAGE_101) // 2 == 100_064
+    assert tsps.dvector_plan(n, k, d, dtype=torch.bfloat16) == want
+    # the pullback keeps g's low words, 4 bytes a column, for either dtype
+    assert (tsps.dvector_plan(n, k, d, pullback=True, dtype=torch.bfloat16)
+            == tsps.dvector_plan(n, k, d, pullback=True))
+
+
 def test_dvector_plan_fits_the_block():
-    """Whatever the plan picks fits a block's shared memory, tile rows are
-    a multiple of 4 within a tile, and the plan is a pure function."""
+    """Whatever the plan picks fits a block's shared memory (2 bytes a
+    column of v for the bf16 forward, else 4), tile rows are a multiple of
+    4 within a tile, and the plan is a pure function."""
     rng = np.random.RandomState(12)
     for _ in range(300):
         n = int(rng.randint(1, 10 ** 7))
         k = int(rng.randint(1, 600))
         d = int(rng.randint(1, 600_000))
         for pull in (False, True):
-            c = tsps.dvector_plan(n, k, d, pullback=pull)
-            assert c == tsps.dvector_plan(n, k, d, pullback=pull)
-            assert c in (0,) + tsps._PLAN_CLUSTERS[pull]
-            if c:
+            for dt in (torch.float32, torch.bfloat16):
+                c = tsps.dvector_plan(n, k, d, pullback=pull, dtype=dt)
+                assert c == tsps.dvector_plan(n, k, d, pullback=pull,
+                                              dtype=dt)
+                assert c in (0,) + tsps._PLAN_CLUSTERS[pull]
+                if not c:
+                    continue
                 R = tsps._tile_rows(k)
                 assert R >= 4 and R % 4 == 0 and R * k <= tsps._TILE_SLOTS
                 besides = 0 if pull else 8 * tsps._GROUPS * R * k
-                assert 4 * -(-d // c) + besides <= tsps._SMEM_BLOCK_BYTES
+                width = 2 if dt == torch.bfloat16 and not pull else 4
+                assert width * -(-d // c) + besides <= tsps._SMEM_BLOCK_BYTES
                 assert n * k >= (tsps._SMS // c) * d
-                assert not any(tsps._fits(k, d, s, pull)
+                assert not any(tsps._fits(k, d, s, pull, dt)
                                for s in tsps._PLAN_CLUSTERS[pull] if s < c)
 
 
