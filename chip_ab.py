@@ -44,6 +44,36 @@ drawn into a directory under the temporary directory (``TMPDIR``), about
 
     python3 chip_ab.py PARENT_DIR --spmv-bf16
 
+With ``--fused-bf16`` it measures, in place of the softmax runs, the
+fused distance kernels on bf16 X: K3-bf16 (m 80, every slot valid),
+K3-p-bf16 (the k-means|| rounds' mask, the first 16 of 80 valid) and
+K4-bf16 (m 329) on 1e6 × 50 blobs, and K3-kdd-bf16, K3-p-kdd-bf16 and
+K4-kdd-bf16 on 4,898,431 × 41 (8 blobs each, drawn on the card from a
+seed, targets picked among the rows), each through the C entry on buffers
+allocated once, with CUDA events (the median of 20 after 3 warm-ups);
+as controls bf16 K2 and K5 (m 8), f32 K3 and K4 on the blobs widened,
+the cuBLAS bf16 GEMM of the score matrix alone at m 80 and 329, and one
+copy of the blobs' X (its bytes read and written once: the card's rate). Each run
+records two launches' outputs of the bf16 K3 and K4 (sha256, ``cw``
+included), to show the bits repeat. The summary puts each side's fastest
+run beside the other's, says whether the change's bf16 K3, K3-p and K4
+beat the parent in every run, and names the kernels whose SASS
+(``cuobjdump -sass`` of each side's ``fused_distance`` library) is the same
+on both sides and those whose SASS differs.
+
+    python3 chip_ab.py PARENT_DIR --fused-bf16
+
+With ``--fused-ablations`` (no parent) it times, in this checkout only,
+K3-bf16, K3-p-bf16 and K4-bf16 at the blobs' shape through variants of
+``csrc/fused_distance.cu`` built side by side into a directory under
+``TMPDIR`` (removed at the end): the source as it is, and with the fold of
+the scores, the products, or the repack, |x|², products and fold all left
+out (the bare ring), each variant's registers and spills from
+``-Xptxas -v``. The variants compute wrong answers: they show where the
+time goes, and the port never loads them.
+
+    python3 chip_ab.py --fused-ablations
+
 ``--tree DIR`` (used by the runs above) measures one checkout in this
 process. Exits non-zero without a CUDA card.
 """
@@ -63,6 +93,13 @@ N, D, DENSITY, SEED, CLASSES = 500_000, 100_000, 0.001, 42, 4
 CELL_N = 10_000_000
 #: H100 SXM device memory rate (the kernels' bytes bound)
 PEAK_BYTES_PER_S = 3.35e12
+#: the fused distance cells: blobs and KDD-shaped (n, d), 8 blobs each;
+#: the k-means|| buffers (round slots, valid slots of a round, weighted
+#: candidates) and k
+FUSED_CELLS = (("", 1_000_000, 50), ("-kdd", 4_898_431, 41))
+ROUND_CAP, ROUND_COUNT, WEIGHT_CAND, K8 = 80, 16, 329, 8
+#: H100 SXM dense bf16 and f32 (outside the tensor cores) rates
+PEAK_BF16, PEAK_F32 = 989e12, 67e12
 #: the width at which the bf16 pullback runs in a cluster of 4 (k = 101)
 D_CLUSTER4 = 150_001
 FITS, ITERS, WARMUP = 3, 20, 3
@@ -244,6 +281,221 @@ def spmv_tree(tree: str, datadir: str) -> dict:
     return out
 
 
+def fused_call(lib, X, Y, epi, mask=None, w=None):
+    """(a closure that launches ``dml_fused_distance`` once on buffers
+    allocated here, its output buffers): Y rounded to X's dtype and held
+    in f32, |y|² from Y, as the wrapper hands them over."""
+    import torch
+
+    from dask_ml_tpu_torch._kernels import build
+    from dask_ml_tpu_torch.ops import fused_distance as fd
+
+    dev = X.device
+    n, d = X.shape
+    m = Y.shape[0]
+    y2 = fd._row_sumsq(Y).contiguous()
+    Yk = Y.to(X.dtype).to(torch.float32).contiguous()
+    maskf = (torch.ones(m, device=dev) if mask is None
+             else mask.to(torch.float32).contiguous())
+    am = torch.zeros(n, dtype=torch.int32, device=dev)
+    mn = torch.zeros(n, device=dev)
+    mn2 = torch.zeros(n, device=dev)
+    part = torch.empty((m, -(-n // lib.dml_fused_rows_per_block())),
+                       device=dev)
+    cw = torch.zeros(m, device=dev)
+    wp = None if w is None else w.data_ptr()
+    stream = build.stream_of(X)
+
+    def call():
+        build.check(lib.dml_fused_distance(
+            epi, X.data_ptr(), int(X.dtype == torch.bfloat16), Yk.data_ptr(),
+            y2.data_ptr(), maskf.data_ptr(), None, fd._FUSED_BLK, None, wp,
+            n, m, d, am.data_ptr(), mn.data_ptr(), mn2.data_ptr(),
+            part.data_ptr(), cw.data_ptr(), stream), "fused timing")
+
+    return call, {"am": am, "min": mn, "cw": cw}
+
+
+def fused_tree(tree: str) -> dict:
+    """The fused distance kernels on bf16 X (and the controls) at the
+    blobs and KDD-shaped cells in the checkout at ``tree``."""
+    import hashlib
+
+    import torch
+
+    _import_tree(tree)
+    from dask_ml_tpu_torch._kernels import build
+
+    lib = build.load("fused_distance")
+    dev = torch.device("cuda", 0)
+    out = {"tree": tree, "ms": {}, "bound_ms": {}, "sha": {}}
+
+    def sha(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    def bound(X, m_valid, m, epi):
+        n, d = X.shape
+        nbytes = X.element_size() * n * d + 4 * (m * d + n)
+        if epi == 2:
+            nbytes += 4 * (n + m)
+        peak = PEAK_BF16 if X.dtype == torch.bfloat16 else PEAK_F32
+        return max(nbytes / PEAK_BYTES_PER_S,
+                   2.0 * n * m_valid * d / peak) * 1e3
+
+    for tag, n, d in FUSED_CELLS:
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + n)
+        centers = 4.0 * torch.randn(K8, d, generator=g, device=dev)
+        lab = torch.randint(0, K8, (n,), generator=g, device=dev)
+        X16 = (centers[lab] + torch.randn(n, d, generator=g, device=dev)
+               ).to(torch.bfloat16)
+        del lab
+        w = torch.ones(n, device=dev)
+        pick = torch.randperm(n, generator=g, device=dev)
+        cases = [(f"K3{tag}-bf16", X16, 0, ROUND_CAP, ROUND_CAP),
+                 (f"K3-p{tag}-bf16", X16, 0, ROUND_CAP, ROUND_COUNT),
+                 (f"K4{tag}-bf16", X16, 2, WEIGHT_CAND, WEIGHT_CAND)]
+        if not tag:
+            Xw = X16.float()
+            cases += [("K2-bf16", X16, 1, K8, K8), ("K5-bf16", X16, 3, K8, K8),
+                      ("K3", Xw, 0, ROUND_CAP, ROUND_CAP),
+                      ("K4", Xw, 2, WEIGHT_CAND, WEIGHT_CAND)]
+        for name, X, epi, m, valid in cases:
+            Y = X16[pick[:m]].float()
+            mask = torch.arange(m, device=dev) < valid
+            call, bufs = fused_call(lib, X, Y, epi, mask,
+                                    w if epi == 2 else None)
+            out["ms"][name] = cuda_ms(call)
+            out["bound_ms"][name] = bound(X, valid, m, epi)
+            if X.dtype == torch.bfloat16 and epi in (0, 2):
+                keys = ("min",) if epi == 0 else ("am", "cw")
+                shas = []
+                for _ in range(2):
+                    call()
+                    torch.cuda.synchronize()
+                    shas.append(sha(*(bufs[k] for k in keys)))
+                out["sha"][name] = shas
+            del call, bufs
+        if not tag:
+            for m in (ROUND_CAP, WEIGHT_CAND):
+                Yb = X16[pick[:m]]
+                out["ms"][f"gemm m={m}"] = cuda_ms(
+                    lambda: torch.mm(X16, Yb.T))
+            # the card's rate for X's bytes: one copy reads and writes them
+            dst = torch.empty_like(X16)
+            out["ms"]["copy X"] = cuda_ms(lambda: dst.copy_(X16))
+            del Xw, dst
+        del X16, w, pick
+        torch.cuda.empty_cache()
+    return out
+
+
+#: source edits of the ablations (each must match the source once)
+_NO_FOLD = [('  asm("mma.sync', '  asm volatile("mma.sync'),
+            ("    if (merge)\n      merge_ns<IDX>(ns, acc, y2s + tc * NC * 8,",
+             "    if (false)\n      merge_ns<IDX>(ns, acc, y2s + tc * NC * 8,")]
+_NO_PRODUCTS = [('  static_assert(NS % 2 == 0 && NS <= NC, "pairs of target tiles");',
+                 '  static_assert(NS % 2 == 0 && NS <= NC, "pairs of target tiles");'
+                 '\n  return;')]
+_NO_REPACK = [("  const int c8 = lane & 7;\n  if (c8 >= 2 * ksc) return;\n"
+               "#pragma unroll\n  for (int q = 0; q < 8; ++q) {",
+               "  return;\n  const int c8 = lane & 7;\n#pragma unroll\n"
+               "  for (int q = 0; q < 8; ++q) {"),
+              ("own_x2 ? x2_chain(As, warp * 32 + lane, d, 0.f) : 0.f", "0.f")]
+ABLATIONS = {"source": [], "no fold": _NO_FOLD, "no products": _NO_PRODUCTS,
+             "bare ring": _NO_FOLD + _NO_PRODUCTS + _NO_REPACK}
+
+
+def fused_ablations() -> dict:
+    """K3-bf16, K3-p-bf16 and K4-bf16 at the blobs through each variant of
+    ``ABLATIONS``, two rounds, with each variant's ptxas report."""
+    import ctypes
+    import re
+    import tempfile
+
+    import torch
+
+    _import_tree(HERE)
+    from dask_ml_tpu_torch._kernels import build
+
+    src = open(os.path.join(HERE, "dask_ml_tpu_torch", "_kernels", "csrc",
+                            "fused_distance.cu")).read()
+    tmp = tempfile.mkdtemp(prefix="chip_ab_ablations_")
+    out = {"ptxas": {}, "ms": {}}
+    try:
+        procs = {}
+        for name, edits in ABLATIONS.items():
+            text = src
+            for a, b in edits:
+                if text.count(a) != 1:
+                    raise RuntimeError(f"ablation {name!r}: edit not found")
+                text = text.replace(a, b)
+            stem = os.path.join(tmp, name.replace(" ", "_"))
+            open(stem + ".cu", "w").write(text)
+            procs[name] = subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                 stem + ".so", stem + ".cu"], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+        for name, proc in procs.items():
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"ablation {name!r} failed to build")
+            out["ptxas"][name] = re.findall(
+                r"fused_mma_kernelILi(\d)E.*?\n.*?(\d+ bytes spill stores)"
+                r".*?\n.*?Used (\d+) registers", log)
+        dev = torch.device("cuda", 0)
+        n, d = FUSED_CELLS[0][1:]
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + n)
+        centers = 4.0 * torch.randn(K8, d, generator=g, device=dev)
+        X16 = (centers[torch.randint(0, K8, (n,), generator=g, device=dev)]
+               + torch.randn(n, d, generator=g, device=dev)
+               ).to(torch.bfloat16)
+        w = torch.ones(n, device=dev)
+        argt, rest = build.SIGNATURES["fused_distance"]["dml_fused_distance"]
+        for _ in range(2):
+            for name in ABLATIONS:
+                lib = ctypes.CDLL(os.path.join(
+                    tmp, name.replace(" ", "_") + ".so"))
+                lib.dml_fused_distance.argtypes = argt
+                lib.dml_fused_distance.restype = rest
+                lib.dml_fused_rows_per_block.restype = ctypes.c_int
+                row = out["ms"].setdefault(name, {})
+                for key, epi, m, valid in (
+                        ("K3-bf16", 0, ROUND_CAP, ROUND_CAP),
+                        ("K3-p-bf16", 0, ROUND_CAP, ROUND_COUNT),
+                        ("K4-bf16", 2, WEIGHT_CAND, WEIGHT_CAND)):
+                    mask = torch.arange(m, device=dev) < valid
+                    call, _ = fused_call(lib, X16, X16[:m].float(), epi, mask,
+                                         w if epi == 2 else None)
+                    row.setdefault(key, []).append(cuda_ms(call))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def fused_summary(side: dict) -> dict:
+    """Each side's fastest run a kernel, whether the change's bf16 K3, K3-p
+    and K4 (both cells) beat the parent in every run, and whether each
+    side's two launches gave the same bits."""
+    summary = {name: {key: min(r["ms"][key] for r in rs)
+                      for key in rs[0]["ms"]}
+               for name, rs in side.items()}
+    claimed = [k for k in side["change"][0]["ms"]
+               if k.startswith(("K3", "K4")) and k.endswith("-bf16")]
+    summary["faster_every_run"] = {
+        k: max(r["ms"][k] for r in side["change"])
+        < min(r["ms"][k] for r in side["parent"]) for k in claimed}
+    summary["bits_repeat"] = {
+        name: all(all(len(set(v)) == 1 for v in r["sha"].values())
+                  for r in rs) for name, rs in side.items()}
+    summary["bound_ms"] = side["change"][0]["bound_ms"]
+    return summary
+
+
 def _import_tree(tree: str):
     """The port of the checkout at ``tree`` (and not another's)."""
     sys.path.insert(0, os.path.abspath(tree))
@@ -260,15 +512,15 @@ def _import_tree(tree: str):
     return dask_ml_tpu_torch
 
 
-def sass_functions(tree: str) -> dict:
-    """The SASS of every kernel of the newest ``spmv`` library built in the
+def sass_functions(tree: str, lib: str = "spmv") -> dict:
+    """The SASS of every kernel of the newest ``lib`` library built in the
     checkout at ``tree``, by mangled name (the anonymous namespace's hash,
     which nvcc draws from the source, taken out of names and text)."""
     import glob
     import re
 
     libs = glob.glob(os.path.join(tree, "dask_ml_tpu_torch", "_kernels",
-                                  "_build", "spmv-*.so"))
+                                  "_build", f"{lib}-*.so"))
     if not libs:
         return {}
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -286,10 +538,10 @@ def sass_functions(tree: str) -> dict:
     return {f: "\n".join(body) for f, body in funcs.items()}
 
 
-def sass_compare(parent: str, change: str) -> dict:
-    """The kernels of both sides' ``spmv`` libraries whose SASS is the same,
+def sass_compare(parent: str, change: str, lib: str = "spmv") -> dict:
+    """The kernels of both sides' ``lib`` libraries whose SASS is the same,
     those whose SASS differs, and those of one side only."""
-    a, b = sass_functions(parent), sass_functions(change)
+    a, b = sass_functions(parent, lib), sass_functions(change, lib)
     common = sorted(set(a) & set(b))
     return {"same": [f for f in common if a[f] == b[f]],
             "differs": [f for f in common if a[f] != b[f]],
@@ -403,9 +655,17 @@ def main() -> int:
         return 2
     args = sys.argv[1:]
     if args[:1] == ["--tree"]:
-        res = (spmv_tree(args[1], args[3]) if args[2:3] == ["--spmv-bf16"]
-               else one_tree(args[1]))
+        if args[2:3] == ["--spmv-bf16"]:
+            res = spmv_tree(args[1], args[3])
+        elif args[2:3] == ["--fused-bf16"]:
+            res = fused_tree(args[1])
+        else:
+            res = one_tree(args[1])
         print("AB " + json.dumps(res), flush=True)
+        return 0
+    if args[:1] == ["--fused-ablations"]:
+        print("ABLATIONS " + json.dumps(fused_ablations()), flush=True)
+        print(smi(), flush=True)
         return 0
     if not args or args[0].startswith("-"):
         print(__doc__, file=sys.stderr)
@@ -427,6 +687,17 @@ def main() -> int:
                 "change": [r for r in runs if r["tree"] == HERE]}
         summary = spmv_summary(side)
         summary["sass"] = sass_compare(parent, HERE)
+        print("SUMMARY " + json.dumps(summary), flush=True)
+        print(smi(), flush=True)
+        return 0
+    if "--fused-bf16" in args:
+        runs = run_trees(parent, ["--fused-bf16"])
+        if runs is None:
+            return 1
+        side = {"parent": [r for r in runs if r["tree"] == parent],
+                "change": [r for r in runs if r["tree"] == HERE]}
+        summary = fused_summary(side)
+        summary["sass"] = sass_compare(parent, HERE, "fused_distance")
         print("SUMMARY " + json.dumps(summary), flush=True)
         print(smi(), flush=True)
         return 0

@@ -5376,6 +5376,9 @@ DG_ITERS = 10
 # every tile of K2-K5 (m <= 8, <= 128, beyond) and the cells' d
 FUSED_BF16_SHAPES = [(1, 1, 1), (533, 37, 13), (129, 7, 3), (2000, 329, 50),
                      (300, 40, 130), (4097, 8, 41), (3001, 80, 50)]
+# K3 and K4 on a view at an odd element offset: the cells' d, the rounds'
+# and the weights' m
+FUSED_BF16_VIEWS = [(3001, 80, 50), (4097, 329, 41)]
 # K1: (n, k, d, offset in elements): the register and shared-memory
 # variants, rows of 100 and 82 bytes, X only 2-byte aligned
 LLOYD_BF16_SHAPES = [(1, 1, 1, 0), (533, 4, 7, 0), (4099, 8, 41, 0),
@@ -5448,11 +5451,61 @@ def f32_lloyd_direct(Xw, w, C):
     return acc[:, :d], acc[:, d], out[-1]
 
 
+def score_bound_gates(tag, X16, Y, mask, w, need, got_min, got_idx, got_cw,
+                      plain_idx):
+    """The float-data gates of the tensor-core kernels (bf16 ``min`` and
+    ``argmin_weight``), in row chunks: each evaluated min within
+    ``_score_bound`` of the float64 min of the same rounded operands (a
+    skipped group's rows +inf); each argmin the plain version's but on
+    near-ties (``_near_ties``); ``cw`` within rtol 1e-6 of the float64 sum
+    of w over the kernel's own labels. Returns (the largest error as a
+    share of its row's bound, near-tie rows)."""
+    import torch
+
+    from dask_ml_tpu_torch.ops import fused_distance as fd
+
+    n = X16.shape[0]
+    ev = (torch.ones(n, dtype=torch.bool, device=X16.device) if need is None
+          else fd.row_block_evaluated(need))
+    share, ties = 0.0, 0
+    for s in range(0, n, 1 << 18):
+        rows = slice(s, s + (1 << 18))
+        Xc, evc = X16[rows], ev[rows]
+        b = fd._score_bound(Xc, Y)
+        want = torch.clamp(fd._scores_f64(Xc, Y, mask).min(dim=1).values
+                           + (Xc.double() ** 2).sum(1), min=0.0)
+        err = (got_min[rows].double() - want).abs()
+        if bool(evc.any()):
+            share = max(share, float((err[evc] / b[evc]).max()))
+        expect(share <= 1.0, f"bf16 min {tag}: beyond the score bound (the "
+               f"largest error {share} of its row's bound)")
+        expect(bool(torch.isinf(got_min[rows][~evc]).all()),
+               f"bf16 min {tag}: a skipped group's row is not +inf")
+        near = fd._near_ties(Xc, Y, mask)
+        ties += int(near.sum())
+        expect(torch.equal(got_idx[rows][~near], plain_idx[rows][~near]),
+               f"bf16 argmin_weight {tag}: argmins differ from the plain "
+               f"version's off the near-ties")
+    ref = torch.zeros(Y.shape[0], dtype=torch.float64, device=X16.device)
+    ref.index_add_(0, got_idx.long(), w.double())
+    if mask is not None:
+        ref[~mask.to(torch.bool)] = 0.0
+    expect(bool(((got_cw.double() - ref).abs() <= 1e-6 * ref.abs()).all()),
+           f"bf16 argmin_weight {tag}: cw beyond rtol 1e-6 of float64")
+    return share, ties
+
+
 def bf16_fused_against(tag, X16, Y, mask, w, need, x2, exact):
     """Every epilogue of the bf16 fused kernel (the sketched K2 with an
-    external |x|² too) against the f32 kernel on X widened, bit for bit;
-    with ``exact`` (integer X) also against the plain version, bit for
-    bit."""
+    external |x|² too) against the f32 kernel on X widened: bit for bit on
+    integer X (``exact``, then also against the plain version, bit for
+    bit), and on float data bit for bit for ``argmin_min``,
+    ``argmin_min2`` and the sketched K2, whose score loop is the f32
+    kernel's. On float data the tensor-core ``min`` and
+    ``argmin_weight`` sum in their own order and are held to the rounding
+    bound instead (:func:`score_bound_gates`). ``cw`` and the minima
+    repeat their bits from launch to launch. Returns the bound gates'
+    (share, near-ties) on float data, else None."""
     import torch
 
     from dask_ml_tpu_torch.ops import fused_distance as fd
@@ -5470,21 +5523,32 @@ def bf16_fused_against(tag, X16, Y, mask, w, need, x2, exact):
                                                       row_need=need),
         "sketched": lambda k: fd.fused_argmin_min_sketched(
             X16, Y, mask=mask, x2=x2, kernel=k, row_need=need)}
+    got = {epi: call("cuda") for epi, call in calls.items()}
+    for epi in ("min", "argmin_weight"):
+        for i, a in enumerate(got[epi]):
+            expect_repeats(f"bf16 {epi} {tag} output {i}",
+                           lambda epi=epi, i=i: calls[epi]("cuda")[i], a)
     for epi, call in calls.items():
-        got = call("cuda")
+        if not exact and epi in ("min", "argmin_weight"):
+            continue
         direct = f32_fused_direct(
             Xw, Yr, y2, mask, "argmin_min" if epi == "sketched" else epi,
             need=need if epi in ("min", "argmin_min2", "sketched") else None,
             x2=x2 if epi == "sketched" else None,
             w=w if epi == "argmin_weight" else None)
-        for a, c in zip(got, direct):
+        for a, c in zip(got[epi], direct):
             expect(torch.equal(a, c), f"bf16 {epi} {tag}: not the f32 "
                    f"kernel's bits on X widened")
         if exact:
-            for a, b in zip(got, call("torch")):
+            for a, b in zip(got[epi], call("torch")):
                 expect(torch.equal(a, b),
                        f"bf16 {epi} {tag}: not bit-identical to the plain "
                        f"version")
+    if exact:
+        return None
+    idx, cw = got["argmin_weight"]
+    return score_bound_gates(tag, X16, Y, mask, w, need, got["min"][0], idx,
+                             cw, calls["argmin_weight"]("torch")[0])
 
 
 def precision_kernel_checks(dev):
@@ -5519,12 +5583,31 @@ def precision_kernel_checks(dev):
         bf16_fused_against(f"{(n, m, d)}", X16, grid((m, d)), mask,
                            ints((n,), 0, 5), need, ints((n,), 0, 9),
                            exact=True)
-        # float data: the f32 kernel's bits on X widened
+        # float data: the f32 kernel's bits on X widened (K2, K5), the
+        # rounding bound (K3, K4)
         Xf = torch.randn((n, d), generator=g, device=dev)
         bf16_fused_against(f"{(n, m, d)} float", Xf.to(torch.bfloat16),
                            torch.randn((m, d), generator=g, device=dev),
                            mask, torch.rand(n, generator=g, device=dev),
                            need, (Xf * Xf).sum(1), exact=False)
+    # X as a view at an odd element offset: no row 16-byte aligned, the
+    # first not even 4-byte aligned (the tensor-core kernels' plain head)
+    for n, m, d in FUSED_BF16_VIEWS:
+        mask = torch.rand(m, generator=g, device=dev) > 0.3
+        mask[0] = True
+        need = torch.rand(n, generator=g, device=dev) > 0.7
+        X16 = ints((n * d + 3,)).to(torch.bfloat16)[3:].view(n, d)
+        expect(X16.data_ptr() % 4 == 2, "the offset view is 4-byte aligned")
+        bf16_fused_against(f"{(n, m, d)} view", X16, grid((m, d)), mask,
+                           ints((n,), 0, 5), need, ints((n,), 0, 9),
+                           exact=True)
+        Xf = torch.randn((n * d + 1,), generator=g, device=dev)
+        bf16_fused_against(f"{(n, m, d)} float view",
+                           Xf.to(torch.bfloat16)[1:].view(n, d),
+                           torch.randn((m, d), generator=g, device=dev),
+                           mask, torch.rand(n, generator=g, device=dev),
+                           need, torch.rand(n, generator=g, device=dev),
+                           exact=False)
     # ties: every target twice, every row on a duplicate; all masked
     Yb = grid((9, 5))
     Y = torch.cat([Yb, Yb])
@@ -5646,7 +5729,7 @@ def rename_rows(rows, names):
             out.append(dict(name="K3-p-bf16", ms=pm["ms"],
                             plain_ms=pm["plain_ms"], bound_ms=pm["bound_ms"],
                             bound_by=pm["bound_by"], valid=pm["valid"],
-                            shape=r["shape"]))
+                            gemm_ms=r.get("gemm_ms"), shape=r["shape"]))
     return out
 
 
@@ -5751,9 +5834,11 @@ def precision_blobs(dev, errs, f32_inertia=None):
                    "fused_argmin_weight": "K4-bf16"}[k]
             errs[row] = max(errs.get(row, 0.0), v)
         need = torch.rand(N, generator=g, device=dev) > 0.5
-        bf16_fused_against("blobs " + name, X16, Y, mask, w, need,
-                           torch.rand(N, generator=g, device=dev),
-                           exact=False)
+        share, ties = bf16_fused_against(
+            "blobs " + name, X16, Y, mask, w, need,
+            torch.rand(N, generator=g, device=dev), exact=False)
+        out.setdefault("score_bound", {})[name] = {
+            "max_share_of_bound": share, "near_tie_rows": ties}
     errs["K1-bf16"] = check_lloyd("bf16 K1 blobs", X16, w, C, exact=False)
     expect(all(torch.equal(a, b) for a, b in zip(
         core._lloyd_stats_cuda(X16, w, C),
@@ -6303,8 +6388,9 @@ def precision_cells(dev, f32_inertia=None):
     t0 = time.perf_counter()
     precision_kernel_checks(dev)
     log(f"PRECISION kernel checks: bf16 K1-K6 match their plain versions "
-        f"and K1-K5 the f32 kernels on X widened "
-        f"({time.perf_counter() - t0:.2f} s)")
+        f"on integer data, K1, K2 and K5 the f32 kernels on X widened on "
+        f"any data, the tensor-core K3 and K4 within the score bound on "
+        f"float data ({time.perf_counter() - t0:.2f} s)")
     errs = {}
     summary = {}
     rows = []

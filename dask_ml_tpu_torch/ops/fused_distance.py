@@ -29,8 +29,12 @@ break identically: the reduction runs over ``s_j = |y_j|² − 2·x·y_j`` with
 X's dtype, accumulated in f32; ``|x|²`` is added back only to the
 returned min value, which is clamped at 0 against cancellation. X may be
 float32 or bfloat16 (the JAX package's bf16 case): with bf16 X the
-products are those of bf16 operands, exact in f32, so on the card the
-bf16 kernel gives the bits of the f32 kernel run on ``X.float()``. Masked
+products are those of bf16 operands, exact in f32. On the card the bf16
+``argmin_min`` and ``argmin_min2`` kernels give the bits of the f32 kernel
+run on ``X.float()``; the bf16 ``min`` and ``argmin_weight`` kernels score
+on the tensor cores, which add the exact products in their own order (as
+the JAX kernel's MXU product does): on integer-valued data those bits too,
+on float data within :func:`_score_bound` of the exact scores. Masked
 targets score +inf and never win; ties go to the lowest index; when every
 target is masked the argmin is 0 and the min is +inf. Indices are int32 at
 every public function (``torch.argmin`` gives int64).
@@ -142,6 +146,60 @@ def _argmin_weight_ref(X, w, Y, mask):
     return idx.to(torch.int32), cw
 
 
+def _scores_f64(X, Y, mask):
+    """:func:`_scores_ref`'s scores in float64 on the same operands: X and
+    Y cast to X's dtype widened exactly, ``|y|²`` the f32 value of the
+    original Y. The products are exact and their sum errs by at most
+    d·2⁻⁵³·Σ|x·y|: the reference the tensor cores' sums are held to."""
+    y2 = _row_sumsq(Y).to(torch.float64)
+    s = y2[None, :] - 2.0 * (X.to(torch.float64)
+                             @ Y.to(X.dtype).to(torch.float64).T)
+    if mask is not None:
+        s = torch.where(mask.to(torch.bool)[None, :], s,
+                        torch.full_like(s, float("inf")))
+    return s
+
+
+def _score_bound(X, Y):
+    """(n,) float64: for each row, a bound on ``|s − S|`` over its targets
+    and on ``|v − V|`` for its min value, where ``s`` is a score
+    ``|y|² − 2·x·y`` of bf16 X and Y cast to bf16 accumulated in f32 from the
+    exact products in ANY order, ``v = max(min s + |x|², 0)`` with ``|x|²``
+    summed in f32, and ``S``, ``V`` the same in exact arithmetic
+    (:func:`_scores_f64`). A tensor core adds a k-step's 16 products and
+    its running sum aligned to the largest and truncated: each of those 17
+    terms and the normalised result err by at most 2⁻²³ of the largest
+    magnitude, ≤ A = Σ_f |x_f·y_f|, so the sum errs by at most
+    18·⌈d/16⌉·2⁻²³·A ≤ (d + 16)·2⁻²²·A; an f32 sum in any order with
+    rounding to nearest errs less. The score doubles that and rounds once
+    (2⁻²⁴ of |y|² + 2A), ``|x|²`` errs by d·2⁻²⁴·|x|² and the last add
+    by 2⁻²⁴ of its operands. All of it lies below
+
+        2⁻²¹ · ((d + 17)·max_j A_j + max_j |y_j|² + (d + 1)·|x|²).
+
+    Used by the tests and ``chip_smoke.py`` to gate the tensor-core
+    kernels on float data, never on the main path."""
+    d = X.shape[1]
+    A = (X.to(torch.float64).abs()
+         @ Y.to(X.dtype).to(torch.float64).abs().T).amax(dim=1)
+    y2 = _row_sumsq(Y).to(torch.float64).abs().max()
+    x2 = _row_sumsq(X).to(torch.float64)
+    return 2.0 ** -21 * ((d + 17) * A + y2 + (d + 1) * x2)
+
+
+def _near_ties(X, Y, mask=None):
+    """(n,) bool: rows whose two best valid exact scores
+    (:func:`_scores_f64`) lie within twice :func:`_score_bound`, where two
+    summation orders may pick different argmins. A row with fewer than two
+    valid targets has no tie."""
+    s = _scores_f64(X, Y, mask)
+    if s.shape[1] < 2:
+        return torch.zeros(X.shape[0], dtype=torch.bool, device=X.device)
+    two = torch.topk(s, 2, dim=1, largest=False).values
+    gap = two[:, 1] - two[:, 0]
+    return torch.isfinite(two[:, 1]) & (gap <= 2.0 * _score_bound(X, Y))
+
+
 def _row_blocks(n: int):
     """(n_blocks, padded_n) of the ``row_need`` grouping — the one
     definition shared by the plain path, the kernel's group flags and
@@ -202,7 +260,10 @@ def _fused_cuda(X, Y, mask, epilogue: str, w=None, row_need=None, x2=None,
     ``counter`` names the launch counter (default: the epilogue's); a
     bf16 X counts under that name with ``_bf16`` appended, and the kernel
     takes Y rounded to bf16 (held in f32) with ``|y|²`` from the original
-    Y."""
+    Y. With bf16 X, ``min`` and ``argmin_weight`` run the source's
+    tensor-core kernel (persistent tiles of ``dml_fused_rows_per_block()``
+    rows, so ``cw_part`` keeps its sizing); X may be a view at any element
+    offset."""
     from dask_ml_tpu_torch._kernels import build
 
     if X.dtype not in (torch.float32, torch.bfloat16) or X.dim() != 2:

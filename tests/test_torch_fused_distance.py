@@ -497,3 +497,110 @@ def test_bf16_plain_is_f32_plain_on_the_rounded_operands():
                                   jnp.asarray(Y), kernel="pallas")
     np.testing.assert_array_equal(ga.numpy(), _np(wa))
     np.testing.assert_allclose(gm.numpy(), _np(wm), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the rounding bound of bf16 scores summed in any order (the card's
+# tensor-core kernels are held to it on float data)
+# ---------------------------------------------------------------------------
+
+BOUND_SHAPES = [(300, 37, 13), (257, 80, 50), (129, 9, 41), (64, 20, 130)]
+
+
+def _bf16_float_data(n, m, d, seed=0):
+    """Float X rounded to bf16 and float targets (rounded inside the
+    functions, |y|² from the original): sums of their products are not
+    exact in f32."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d).astype(np.float32)
+    Y = (2.0 * rng.randn(m, d)).astype(np.float32)
+    w = rng.rand(n).astype(np.float32)
+    mask = rng.rand(m) > 0.2
+    mask[0] = True
+    return X, Y, w, mask
+
+
+def _exact_min(tX, tY, mask):
+    """The float64 min value of the same rounded operands."""
+    s = tfd._scores_f64(tX, tY, mask)
+    x2 = (tX.double() ** 2).sum(1)
+    return torch.clamp(s.min(dim=1).values + x2, min=0.0), s.argmin(dim=1)
+
+
+@pytest.mark.parametrize("n,m,d", BOUND_SHAPES)
+def test_plain_bf16_scores_within_score_bound(n, m, d):
+    """The port's plain bf16 scores and min values lie within
+    ``_score_bound`` of the float64 evaluation (tolerance: the bound)."""
+    X, Y, _, mask = _bf16_float_data(n, m, d, seed=n + m + d)
+    tX, tY, tm = _tb(X), _t(Y), _t(mask)
+    b = tfd._score_bound(tX, tY)
+    assert (b > 0).all()
+    s = tfd._scores_ref(tX, tY, tm).double()
+    e = tfd._scores_f64(tX, tY, tm)
+    fin = torch.isfinite(e)
+    assert torch.equal(fin, torch.isfinite(s))
+    assert ((s - e).abs()[fin] <= b[:, None].expand_as(e)[fin]).all()
+    want, _ = _exact_min(tX, tY, tm)
+    got = tfd.fused_rowwise_min(tX, tY, tm).double()
+    assert ((got - want).abs() <= b).all()
+
+
+@pytest.mark.parametrize("n,m,d", BOUND_SHAPES)
+def test_jax_scores_ref_within_score_bound(n, m, d):
+    """The JAX package's bf16 scores (``_scores_ref``, f32 accumulation of
+    bf16 products) lie within the same bound of the float64 scores."""
+    X, Y, _, mask = _bf16_float_data(n, m, d, seed=2 * n + m)
+    tX, tY = _tb(X), _t(Y)
+    s = np.asarray(jfd._scores_ref(jnp.asarray(X, jnp.bfloat16),
+                                   jnp.asarray(Y), None), np.float64)
+    e = tfd._scores_f64(tX, tY, None).numpy()
+    b = tfd._score_bound(tX, tY).numpy()
+    assert (np.abs(s - e) <= b[:, None]).all()
+
+
+@pytest.mark.parametrize("n,m,d", BOUND_SHAPES[:3])
+def test_jax_pallas_bf16_within_score_bound(n, m, d):
+    """The JAX Pallas kernel (interpret mode) on bf16 float data: its min
+    values lie within the bound of the float64 min, and its argmins are
+    the float64 argmins but on near-ties; ``cw`` sums the weights over its
+    own labels (rtol 1e-6)."""
+    X, Y, w, mask = _bf16_float_data(n, m, d, seed=3 * n + d)
+    jX = jnp.asarray(X, jnp.bfloat16)
+    jY, jm, jw = jnp.asarray(Y), jnp.asarray(mask), jnp.asarray(w)
+    tX, tY, tm = _tb(X), _t(Y), _t(mask)
+    want, wa = _exact_min(tX, tY, tm)
+    b = tfd._score_bound(tX, tY)
+    got = torch.from_numpy(np.asarray(
+        jfd.fused_rowwise_min(jX, jY, jm, kernel="pallas"), np.float64))
+    assert ((got - want).abs() <= b).all()
+    ties = tfd._near_ties(tX, tY, tm)
+    ga, _ = jfd.fused_argmin_min(jX, jY, jm, kernel="pallas")
+    gi, gc = jfd.fused_argmin_weight(jX, jw, jY, jm, kernel="pallas")
+    for a in (ga, gi):
+        a = torch.from_numpy(np.array(a)).long()
+        assert torch.equal(a[~ties], wa[~ties])
+    lab = np.asarray(gi)
+    ref = np.bincount(lab, weights=w.astype(np.float64), minlength=m)
+    ref[~mask] = 0.0
+    np.testing.assert_allclose(np.asarray(gc, np.float64), ref, rtol=1e-6)
+
+
+def test_near_ties_flags_duplicates_and_not_separated_blobs():
+    """Rows sitting on a target that is duplicated are near-ties; rows of
+    well-separated blobs are not; a lone valid target is no tie."""
+    rng = np.random.RandomState(9)
+    Y = (4.0 * rng.randn(6, 24)).astype(np.float32)
+    Y = np.concatenate([Y, Y[2:3]])  # target 6 duplicates target 2
+    X = np.concatenate([np.repeat(Y[2:3], 40, 0),
+                        Y[[0, 1, 3, 4, 5]] + 0.01 * rng.randn(5, 24)])
+    ties = tfd._near_ties(_tb(X.astype(np.float32)), _t(Y))
+    assert ties[:40].all() and not ties[40:].any()
+    centers = 100.0 * rng.randn(8, 30)
+    blobs = (centers[rng.randint(0, 8, 2000)]
+             + rng.randn(2000, 30)).astype(np.float32)
+    assert not tfd._near_ties(_tb(blobs), _t(centers.astype(np.float32))
+                              ).any()
+    lone = np.zeros(7, bool)
+    lone[6] = True
+    assert not tfd._near_ties(_tb(X.astype(np.float32)), _t(Y),
+                              _t(lone)).any()

@@ -1383,21 +1383,153 @@ def test_bf16_fused_kernels_bitexact_int_valued(cuda, n, m, d):
         before["fused_argmin_min_sketched_bf16"] + 1
 
 
+def _float_case(m, d=50, n=20_003, seed=None):
+    """bf16 float X, float targets, weights, a mask and a row need."""
+    rng = np.random.default_rng(m if seed is None else seed)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(m if seed is None else seed)
+    X16 = torch.randn(n, d, generator=g, device="cuda").to(torch.bfloat16)
+    Y = torch.randn(m, d, generator=g, device="cuda") * 2
+    w = torch.rand(n, generator=g, device="cuda")
+    mask = torch.as_tensor(rng.random(m) > 0.2, device="cuda")
+    mask[0] = True
+    need = torch.as_tensor(rng.random(n) > 0.9, device="cuda")
+    return X16, Y, w, mask, need
+
+
+def _score_bound_gates(X16, Y, mask, w, need, got_min, got_idx, got_cw,
+                       plain_idx):
+    """The tensor-core kernels' float-data gates: each evaluated min within
+    ``_score_bound`` of the float64 min of the same rounded operands (a
+    skipped group's rows +inf); each argmin the plain version's but on
+    near-ties (the two best float64 scores within twice the bound); cw
+    within rtol 1e-6 of the float64 sum of w over the kernel's own
+    labels."""
+    b = fd._score_bound(X16, Y)
+    s = fd._scores_f64(X16, Y, mask)
+    want = torch.clamp(s.min(dim=1).values + (X16.double() ** 2).sum(1),
+                       min=0.0)
+    ev = fd.row_block_evaluated(need)
+    assert ((got_min.double() - want).abs()[ev] <= b[ev]).all()
+    assert torch.isinf(got_min[~ev]).all()
+    ties = fd._near_ties(X16, Y, mask)
+    assert torch.equal(got_idx[~ties], plain_idx[~ties])
+    ref = torch.zeros(Y.shape[0], dtype=torch.float64, device=X16.device)
+    ref.index_add_(0, got_idx.long(), w.double())
+    ref[~mask] = 0.0
+    torch.testing.assert_close(got_cw.double(), ref, rtol=1e-6, atol=0.0)
+
+
 @pytest.mark.parametrize("m", [8, 80, 329])
 def test_bf16_fused_kernels_equal_f32_kernel_on_float_data(cuda, m):
-    """On float data the bf16 kernel is the f32 kernel run on X widened
-    (targets rounded, |y|² from the original targets), bit for bit, in
-    every epilogue and tile shape."""
-    rng = np.random.default_rng(m)
-    X16 = torch.randn(20_003, 50, device=cuda).to(torch.bfloat16)
-    Y = torch.randn(m, 50, device=cuda) * 2
-    w = torch.rand(20_003, device=cuda)
-    mask = torch.as_tensor(rng.random(m) > 0.2, device=cuda)
-    mask[0] = True
-    need = torch.as_tensor(rng.random(20_003) > 0.9, device=cuda)
+    """On float data the bf16 argmin_min and argmin_min2 kernels are the
+    f32 kernel run on X widened (targets rounded, |y|² from the original
+    targets), bit for bit, at every tile shape. (The bf16 min and
+    argmin_weight kernels sum on the tensor cores in their own order: the
+    next test holds them to the rounding bound.)"""
+    X16, Y, w, mask, need = _float_case(m)
     for epi, got, _, direct in _bf16_fused_all(X16, Y, mask, w, need):
-        for a, c in zip(got, direct):
-            assert torch.equal(a, c), epi
+        if epi in ("argmin_min", "argmin_min2"):
+            for a, c in zip(got, direct):
+                assert torch.equal(a, c), epi
+
+
+@pytest.mark.parametrize("m", [8, 80, 329])
+def test_bf16_tensor_core_kernels_within_score_bound_on_float_data(cuda, m):
+    """bf16 min (with a row need) and argmin_weight on float data: within
+    ``_score_bound`` of float64, the plain argmins but on near-ties."""
+    X16, Y, w, mask, need = _float_case(m)
+    got = fd.fused_rowwise_min(X16, Y, mask, kernel="cuda", row_need=need)
+    idx, cw = fd.fused_argmin_weight(X16, w, Y, mask, kernel="cuda")
+    pidx, _ = fd.fused_argmin_weight(X16, w, Y, mask, kernel="torch")
+    _score_bound_gates(X16, Y, mask, w, need, got, idx, cw, pidx)
+
+
+def test_bf16_tensor_core_kernels_repeat_their_bits(cuda):
+    """Two launches of the bf16 min and argmin_weight kernels on float
+    data give the same bits, cw included (fixed-order partial columns)."""
+    X16, Y, w, mask, need = _float_case(329, n=200_003, seed=11)
+    for call in (lambda: (fd.fused_rowwise_min(X16, Y, mask, kernel="cuda",
+                                               row_need=need),),
+                 lambda: fd.fused_argmin_weight(X16, w, Y, mask,
+                                                kernel="cuda")):
+        first = call()
+        again = call()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("d", [41, 50])
+def test_bf16_tensor_core_kernels_on_an_offset_view(cuda, d):
+    """X as a view at an odd element offset (no row 16-byte aligned, the
+    first not even 4-byte aligned): bit for bit with the plain version and
+    the f32 kernel on integer data, the bound gates on float data."""
+    rng = np.random.default_rng(d)
+    n, m = 3001, 329
+    base = _ints(rng, (n * d + 3,), cuda).to(torch.bfloat16)
+    X16 = base[3:].view(n, d)
+    assert X16.data_ptr() % 4 == 2
+    Y = _grid(rng, (m, d), cuda)
+    w = _ints(rng, (n,), cuda, 0, 5)
+    mask = torch.as_tensor(rng.random(m) > 0.3, device=cuda)
+    mask[0] = True
+    need = torch.as_tensor(rng.random(n) > 0.7, device=cuda)
+    for epi, got, want, direct in _bf16_fused_all(X16, Y, mask, w, need):
+        for a, b, c in zip(got, want, direct):
+            assert torch.equal(a, b) and torch.equal(a, c), epi
+    g = torch.Generator(device=cuda)
+    g.manual_seed(d)
+    base = torch.randn(n * d + 1, generator=g,
+                       device=cuda).to(torch.bfloat16)
+    X16 = base[1:].view(n, d)
+    Yf = torch.randn(m, d, generator=g, device=cuda) * 2
+    wf = torch.rand(n, generator=g, device=cuda)
+    got = fd.fused_rowwise_min(X16, Yf, mask, kernel="cuda", row_need=need)
+    idx, cw = fd.fused_argmin_weight(X16, wf, Yf, mask, kernel="cuda")
+    pidx, _ = fd.fused_argmin_weight(X16, wf, Yf, mask, kernel="torch")
+    _score_bound_gates(X16, Yf, mask, wf, need, got, idx, cw, pidx)
+
+
+@pytest.mark.parametrize("m,d", [(700, 50), (2500, 50), (1500, 130)])
+def test_bf16_tensor_core_kernels_beyond_the_resident_budget(cuda, m, d):
+    """Targets too many to stay in shared memory (they stream through a
+    chunk a pass), cw beyond the per-warp running sums (a partial column a
+    tile) and d beyond one feature chunk, on integer data: the plain
+    version's bits and the f32 kernel's, with a mask and a row need."""
+    rng = np.random.default_rng(m + d)
+    n = 1500
+    X16 = _ints(rng, (n, d), cuda).to(torch.bfloat16)
+    Y = _grid(rng, (m, d), cuda)
+    w = _ints(rng, (n,), cuda, 0, 5)
+    mask = torch.as_tensor(rng.random(m) > 0.3, device=cuda)
+    mask[0] = True
+    need = torch.as_tensor(rng.random(n) > 0.7, device=cuda)
+    for epi, got, want, direct in _bf16_fused_all(X16, Y, mask, w, need):
+        if epi in ("min", "argmin_weight"):
+            for a, b, c in zip(got, want, direct):
+                assert torch.equal(a, b) and torch.equal(a, c), epi
+
+
+def test_bf16_rounds_mask_with_row_need_bitexact(cuda):
+    """A k-means|| round: the first 16 of 80 slots valid (the masked 64
+    never scored) and a row need that skips groups, on integer data: the
+    bf16 min kernel gives the plain version's bits and the f32 kernel's."""
+    rng = np.random.default_rng(80)
+    n, d = 5 * fd._FUSED_BLK + 77, 50
+    X16 = _ints(rng, (n, d), cuda).to(torch.bfloat16)
+    Y = _grid(rng, (80, d), cuda)
+    mask = torch.arange(80, device=cuda) < 16
+    need = torch.zeros(n, dtype=torch.bool, device=cuda)
+    need[torch.as_tensor(rng.integers(0, n, 3), device=cuda)] = True
+    got = fd.fused_rowwise_min(X16, Y, mask, kernel="cuda", row_need=need)
+    want = fd.fused_rowwise_min(X16, Y, mask, kernel="torch", row_need=need)
+    assert torch.equal(got, want)
+    direct, = _fused_f32_direct(X16.float().contiguous(),
+                                Y.to(torch.bfloat16).float().contiguous(),
+                                fd._row_sumsq(Y).contiguous(), mask, "min",
+                                need=need)
+    assert torch.equal(got, direct)
+    ev = fd.row_block_evaluated(need)
+    assert torch.isinf(got[~ev]).all() and torch.isfinite(got[ev]).all()
 
 
 def test_bf16_near_duplicate_centers_through_k2(cuda):
