@@ -74,6 +74,41 @@ time goes, and the port never loads them.
 
     python3 chip_ab.py --fused-ablations
 
+With ``--kmeans-bf16`` it measures, in place of the softmax runs, the
+bf16 kernels of the Lloyd loops: K5-bf16 (``argmin_min2``, m 8) at the
+KDD-shaped cell padded to whole 1,024-row groups (4,898,816 × 41) with
+every group evaluated and with 0.1 % of the groups evaluated (the row need
+of a late bounded iteration), K5-bf16 and K2-bf16 at the blobs (1e6 × 50,
+m 8, and K2-bf16 at m 80, the next tile shape), K1-bf16 (one Lloyd
+iteration, k 8) at the blobs and at the KDD-shaped cell (4,898,431 × 41);
+as controls the f32 K1, K2 and K5 on the blobs widened, and one copy of
+the blobs' X. X is 8 blobs drawn on the card from a seed, the targets and
+centers picked among its rows; each kernel runs through its C entry on
+buffers allocated once, timed with CUDA events (the median of 20 after 3
+warm-ups), and each run records two launches' outputs (sha256) of every
+kernel, to show the bits repeat and that both sides give the same bits.
+The summary puts each side's fastest run beside the other's, gives the
+change's fastest over the parent's, says whether the change beat the
+parent in every run for K5-bf16 at the KDD cell (all groups and 0.1 %),
+K2-bf16 and K1-bf16 at both shapes, and names the kernels whose SASS
+(``cuobjdump -sass`` of each side's ``fused_distance`` and ``lloyd``
+libraries) is the same on both sides and those whose SASS differs.
+
+    python3 chip_ab.py PARENT_DIR --kmeans-bf16
+
+With ``--lloyd-ablations`` (no parent) it times, in this checkout only,
+K1-bf16 at the blobs and at the KDD-shaped cell through variants of
+``csrc/lloyd.cu`` built side by side into a directory under ``TMPDIR``
+(removed at the end): the source as it is, without the E-step's scores
+(the products with the centers left out), without the M-step, the bare
+ring (no E-step reads or scores, no M-step: the copies, the waits and
+the block barrier), and without the copies (the compute alone, on
+whatever the stages hold), with and without the M-step; two rounds, each
+variant's registers and spills of ``lloyd_ring_kernel`` from ``-Xptxas
+-v``. The variants compute wrong answers; the port never loads them.
+
+    python3 chip_ab.py --lloyd-ablations
+
 ``--tree DIR`` (used by the runs above) measures one checkout in this
 process. Exits non-zero without a CUDA card.
 """
@@ -100,6 +135,9 @@ FUSED_CELLS = (("", 1_000_000, 50), ("-kdd", 4_898_431, 41))
 ROUND_CAP, ROUND_COUNT, WEIGHT_CAND, K8 = 80, 16, 329, 8
 #: H100 SXM dense bf16 and f32 (outside the tensor cores) rates
 PEAK_BF16, PEAK_F32 = 989e12, 67e12
+#: the KDD-shaped cell's rows, and the share of 1,024-row groups a late
+#: bounded iteration evaluates
+KDD_N, LATE_SHARE = 4_898_431, 0.001
 #: the width at which the bf16 pullback runs in a cluster of 4 (k = 101)
 D_CLUSTER4 = 150_001
 FITS, ITERS, WARMUP = 3, 20, 3
@@ -281,10 +319,11 @@ def spmv_tree(tree: str, datadir: str) -> dict:
     return out
 
 
-def fused_call(lib, X, Y, epi, mask=None, w=None):
+def fused_call(lib, X, Y, epi, mask=None, w=None, gneed=None):
     """(a closure that launches ``dml_fused_distance`` once on buffers
     allocated here, its output buffers): Y rounded to X's dtype and held
-    in f32, |y|² from Y, as the wrapper hands them over."""
+    in f32, |y|² from Y, as the wrapper hands them over; ``gneed`` the
+    uint8 flags of the row need's groups, or None."""
     import torch
 
     from dask_ml_tpu_torch._kernels import build
@@ -304,16 +343,163 @@ def fused_call(lib, X, Y, epi, mask=None, w=None):
                        device=dev)
     cw = torch.zeros(m, device=dev)
     wp = None if w is None else w.data_ptr()
+    gp = None if gneed is None else gneed.data_ptr()
     stream = build.stream_of(X)
 
     def call():
         build.check(lib.dml_fused_distance(
             epi, X.data_ptr(), int(X.dtype == torch.bfloat16), Yk.data_ptr(),
-            y2.data_ptr(), maskf.data_ptr(), None, fd._FUSED_BLK, None, wp,
+            y2.data_ptr(), maskf.data_ptr(), gp, fd._FUSED_BLK, None, wp,
             n, m, d, am.data_ptr(), mn.data_ptr(), mn2.data_ptr(),
             part.data_ptr(), cw.data_ptr(), stream), "fused timing")
 
-    return call, {"am": am, "min": mn, "cw": cw}
+    return call, {"am": am, "min": mn, "min2": mn2, "cw": cw}
+
+
+def lloyd_call(lib, X, w, C):
+    """(a closure that launches ``dml_lloyd_iter`` once on buffers allocated
+    here, its output): the centers rounded to X's dtype and held in f32,
+    |c|² from C, as the wrapper hands them over."""
+    import torch
+
+    from dask_ml_tpu_torch._kernels import build
+    from dask_ml_tpu_torch.ops import fused_distance as fd
+
+    n, d = X.shape
+    k = C.shape[0]
+    c2 = fd._row_sumsq(C).contiguous()
+    Ck = C.to(X.dtype).to(torch.float32).contiguous()
+    P = k * (d + 1) + 1
+    part = torch.empty(lib.dml_lloyd_max_partials() * P, device=X.device)
+    out = torch.empty(P, device=X.device)
+    stream = build.stream_of(X)
+
+    def call():
+        build.check(lib.dml_lloyd_iter(
+            X.data_ptr(), int(X.dtype == torch.bfloat16), w.data_ptr(),
+            Ck.data_ptr(), c2.data_ptr(), n, k, d, part.data_ptr(),
+            out.data_ptr(), stream), "lloyd timing")
+
+    return call, out
+
+
+def blob_rows(n, d, seed, dev):
+    """n rows of 8 blobs in d features, drawn on the card, in bf16."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    centers = 4.0 * torch.randn(K8, d, generator=g, device=dev)
+    lab = torch.randint(0, K8, (n,), generator=g, device=dev)
+    return (centers[lab] + torch.randn(n, d, generator=g, device=dev)
+            ).to(torch.bfloat16)
+
+
+def kmeans_tree(tree: str) -> dict:
+    """The bf16 kernels of the Lloyd loops (and the f32 controls) at the
+    blobs and KDD-shaped cells in the checkout at ``tree``."""
+    import hashlib
+
+    import torch
+
+    _import_tree(tree)
+    from dask_ml_tpu_torch._kernels import build
+    from dask_ml_tpu_torch.ops import fused_distance as fd
+
+    fdl, ll = build.load("fused_distance"), build.load("lloyd")
+    dev = torch.device("cuda", 0)
+    out = {"tree": tree, "ms": {}, "bound_ms": {}, "sha": {}}
+
+    def run(name, call, bufs, nbytes):
+        out["ms"][name] = cuda_ms(call)
+        out["bound_ms"][name] = nbytes / PEAK_BYTES_PER_S * 1e3
+        shas = []
+        for _ in range(2):
+            call()
+            torch.cuda.synchronize()
+            h = hashlib.sha256()
+            for t in bufs:
+                h.update(t.cpu().numpy().tobytes())
+            shas.append(h.hexdigest()[:16])
+        out["sha"][name] = shas
+
+    def fused(name, X, m, epi, gneed=None, share=1.0):
+        n, d = X.shape
+        pick = torch.randperm(n, generator=g, device=dev)[:m]
+        Y = X[pick].float()
+        call, bufs = fused_call(fdl, X, Y, epi, gneed=gneed)
+        keys = ("am", "min", "min2") if epi == 3 else ("am", "min")
+        nout = len(keys)
+        run(name, call, [bufs[k] for k in keys],
+            X.element_size() * share * n * d + 4 * (m * d + nout * n))
+
+    def lloyd(name, X):
+        n, d = X.shape
+        pick = torch.randperm(n, generator=g, device=dev)[:K8]
+        w = torch.ones(n, device=dev)
+        call, res = lloyd_call(ll, X, w, X[pick].float())
+        run(name, call, [res],
+            X.element_size() * n * d + 4 * (n + K8 * d + K8 * (d + 1) + 1))
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    # the KDD-shaped cell: K1 on its rows, K5 on them padded to whole
+    # groups (the bounded loop's padding), every group or 0.1 % of them
+    Xk = blob_rows(KDD_N, 41, SEED + KDD_N, dev)
+    lloyd("K1-kdd-bf16", Xk)
+    ng = -(-KDD_N // fd._FUSED_BLK)
+    Xp = torch.cat([Xk, Xk.new_zeros((ng * fd._FUSED_BLK - KDD_N, 41))])
+    del Xk
+    fused("K5-kdd-bf16", Xp, K8, 3,
+          gneed=torch.ones(ng, dtype=torch.uint8, device=dev))
+    late = torch.zeros(ng, dtype=torch.uint8, device=dev)
+    nl = max(1, round(LATE_SHARE * ng))
+    late[torch.randperm(ng, generator=g, device=dev)[:nl]] = 1
+    fused("K5-kdd-bf16 0.1%", Xp, K8, 3, gneed=late, share=nl / ng)
+    del Xp
+    torch.cuda.empty_cache()
+    # the blobs, and the f32 controls on them widened
+    Xb = blob_rows(1_000_000, 50, SEED + 1_000_000, dev)
+    lloyd("K1-bf16", Xb)
+    fused("K2-bf16", Xb, K8, 1)
+    fused("K5-bf16", Xb, K8, 3)
+    fused("K2-bf16 m=80", Xb, ROUND_CAP, 1)
+    Xw = Xb.float()
+    lloyd("K1", Xw)
+    fused("K2", Xw, K8, 1)
+    fused("K5", Xw, K8, 3)
+    dst = torch.empty_like(Xb)
+    out["ms"]["copy X"] = cuda_ms(lambda: dst.copy_(Xb))
+    out["bound_ms"]["copy X"] = 2 * 2 * Xb.numel() / PEAK_BYTES_PER_S * 1e3
+    return out
+
+
+#: the timings the change must win in every run
+KMEANS_CLAIMED = ("K5-kdd-bf16", "K5-kdd-bf16 0.1%", "K2-bf16", "K1-bf16",
+                  "K1-kdd-bf16")
+
+
+def kmeans_summary(side: dict) -> dict:
+    """Each side's fastest run a kernel, the change's fastest over the
+    parent's, whether the change beat the parent in every run, whether
+    each side's two launches gave the same bits and both sides the same."""
+    summary = {name: {key: min(r["ms"][key] for r in rs)
+                      for key in rs[0]["ms"]}
+               for name, rs in side.items()}
+    summary["change_over_parent"] = {
+        k: summary["change"][k] / summary["parent"][k]
+        for k in summary["change"] if k in summary["parent"]}
+    summary["faster_every_run"] = {
+        k: max(r["ms"][k] for r in side["change"])
+        < min(r["ms"][k] for r in side["parent"]) for k in KMEANS_CLAIMED}
+    summary["bits_repeat"] = {
+        name: all(all(len(set(v)) == 1 for v in r["sha"].values())
+                  for r in rs) for name, rs in side.items()}
+    summary["same_bits_both_sides"] = {
+        k: len({r["sha"][k][0] for rs in side.values() for r in rs}) == 1
+        for k in side["change"][0]["sha"]}
+    summary["bound_ms"] = side["change"][0]["bound_ms"]
+    return summary
 
 
 def fused_tree(tree: str) -> dict:
@@ -477,6 +663,85 @@ def fused_ablations() -> dict:
     return out
 
 
+#: source edits of the K1-bf16 ablations (each must match the source once)
+_NO_SCORES = [("        fma8(a, xv, ct + f * KC);\n", "")]
+_NO_MSTEP = [("        for (unsigned m = wd[g * KC + j]; m != 0u;",
+              "        for (unsigned m = 0u; m != 0u;")]
+_NO_EREADS = [("      for (int f = 0; f < d; ++f) {\n"
+               "        const float xv = __uint_as_float(",
+               "      for (int f = 0; f < 0; ++f) {\n"
+               "        const float xv = __uint_as_float(")]
+_NO_COPIES = [("      mbar_expect_tx(full + s, (unsigned)(hi - lo));\n"
+                "      if (hi > lo)\n",
+                "      mbar_expect_tx(full + s, 0u);\n"
+                "      if (false)\n")]
+LLOYD_ABLATIONS = {"source": [], "no E-step scores": _NO_SCORES,
+                   "no M-step": _NO_MSTEP,
+                   "bare ring": _NO_SCORES + _NO_MSTEP + _NO_EREADS,
+                   "no copies": _NO_COPIES,
+                   "no copies or M-step": _NO_COPIES + _NO_MSTEP}
+
+
+def lloyd_ablations() -> dict:
+    """K1-bf16 at the blobs and the KDD-shaped cell through each variant
+    of ``LLOYD_ABLATIONS``, two rounds, with each variant's ptxas report
+    of ``lloyd_ring_kernel``."""
+    import ctypes
+    import re
+    import tempfile
+
+    import torch
+
+    _import_tree(HERE)
+    from dask_ml_tpu_torch._kernels import build
+
+    src = open(os.path.join(HERE, "dask_ml_tpu_torch", "_kernels", "csrc",
+                            "lloyd.cu")).read()
+    tmp = tempfile.mkdtemp(prefix="chip_ab_lloyd_")
+    out = {"ptxas": {}, "ms": {}}
+    try:
+        procs = {}
+        for name, edits in LLOYD_ABLATIONS.items():
+            text = src
+            for a, b in edits:
+                if text.count(a) != 1:
+                    raise RuntimeError(f"ablation {name!r}: edit not found")
+                text = text.replace(a, b)
+            stem = os.path.join(tmp, name.replace(" ", "_"))
+            open(stem + ".cu", "w").write(text)
+            procs[name] = subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                 stem + ".so", stem + ".cu"], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+        for name, proc in procs.items():
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"ablation {name!r} failed to build: "
+                                   f"{log[-2000:]}")
+            out["ptxas"][name] = re.findall(
+                r"lloyd_ring_kernel.*?\n.*?(\d+ bytes spill stores)"
+                r".*?\n.*?Used (\d+) registers", log)
+        dev = torch.device("cuda", 0)
+        cells = {"K1-bf16": blob_rows(1_000_000, 50, SEED + 1_000_000, dev),
+                 "K1-kdd-bf16": blob_rows(KDD_N, 41, SEED + KDD_N, dev)}
+        argt, rest = build.SIGNATURES["lloyd"]["dml_lloyd_iter"]
+        for _ in range(2):
+            for name in LLOYD_ABLATIONS:
+                lib = ctypes.CDLL(os.path.join(
+                    tmp, name.replace(" ", "_") + ".so"))
+                lib.dml_lloyd_iter.argtypes = argt
+                lib.dml_lloyd_iter.restype = rest
+                lib.dml_lloyd_max_partials.restype = ctypes.c_int
+                row = out["ms"].setdefault(name, {})
+                for key, X in cells.items():
+                    w = torch.ones(X.shape[0], device=dev)
+                    call, _ = lloyd_call(lib, X, w, X[:K8].float())
+                    row.setdefault(key, []).append(cuda_ms(call))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def fused_summary(side: dict) -> dict:
     """Each side's fastest run a kernel, whether the change's bf16 K3, K3-p
     and K4 (both cells) beat the parent in every run, and whether each
@@ -515,7 +780,9 @@ def _import_tree(tree: str):
 def sass_functions(tree: str, lib: str = "spmv") -> dict:
     """The SASS of every kernel of the newest ``lib`` library built in the
     checkout at ``tree``, by mangled name (the anonymous namespace's hash,
-    which nvcc draws from the source, taken out of names and text)."""
+    which nvcc draws from the source, taken out of names and text, and
+    each line's runs of blanks made one: ``cuobjdump`` pads the columns to
+    the library's longest instruction)."""
     import glob
     import re
 
@@ -534,7 +801,7 @@ def sass_functions(tree: str, lib: str = "spmv") -> dict:
             name = line.split("Function : ", 1)[1].strip()
             funcs[name] = []
         elif name is not None:
-            funcs[name].append(line)
+            funcs[name].append(" ".join(line.split()))
     return {f: "\n".join(body) for f, body in funcs.items()}
 
 
@@ -659,12 +926,18 @@ def main() -> int:
             res = spmv_tree(args[1], args[3])
         elif args[2:3] == ["--fused-bf16"]:
             res = fused_tree(args[1])
+        elif args[2:3] == ["--kmeans-bf16"]:
+            res = kmeans_tree(args[1])
         else:
             res = one_tree(args[1])
         print("AB " + json.dumps(res), flush=True)
         return 0
     if args[:1] == ["--fused-ablations"]:
         print("ABLATIONS " + json.dumps(fused_ablations()), flush=True)
+        print(smi(), flush=True)
+        return 0
+    if args[:1] == ["--lloyd-ablations"]:
+        print("ABLATIONS " + json.dumps(lloyd_ablations()), flush=True)
         print(smi(), flush=True)
         return 0
     if not args or args[0].startswith("-"):
@@ -687,6 +960,18 @@ def main() -> int:
                 "change": [r for r in runs if r["tree"] == HERE]}
         summary = spmv_summary(side)
         summary["sass"] = sass_compare(parent, HERE)
+        print("SUMMARY " + json.dumps(summary), flush=True)
+        print(smi(), flush=True)
+        return 0
+    if "--kmeans-bf16" in args:
+        runs = run_trees(parent, ["--kmeans-bf16"])
+        if runs is None:
+            return 1
+        side = {"parent": [r for r in runs if r["tree"] == parent],
+                "change": [r for r in runs if r["tree"] == HERE]}
+        summary = kmeans_summary(side)
+        summary["sass"] = {lib: sass_compare(parent, HERE, lib)
+                           for lib in ("fused_distance", "lloyd")}
         print("SUMMARY " + json.dumps(summary), flush=True)
         print(smi(), flush=True)
         return 0

@@ -5372,6 +5372,9 @@ BF16_ROWS = {
 P_COEF_RTOL, P_VAR_RTOL, P_INERTIA_RTOL, P_WIRE = 5e-2, 2e-2, 1e-2, 1.8
 # precision-dense-glm: L-BFGS iterations of each fit
 DG_ITERS = 10
+# the share of the 1,024-row groups a late bounded iteration evaluates
+# (K5-bf16's row-need timing at the KDD cell)
+LATE_SHARE = 0.001
 # bf16 kernel shapes (n, m, d) of the edge checks: n = 1, m = 1, ragged n,
 # every tile of K2-K5 (m <= 8, <= 128, beyond) and the cells' d
 FUSED_BF16_SHAPES = [(1, 1, 1), (533, 37, 13), (129, 7, 3), (2000, 329, 50),
@@ -5937,12 +5940,40 @@ def precision_kdd(dev, errs):
     all_need = torch.ones(npad, dtype=torch.bool, device=dev)
     b, by = bound(2 * npad * d + 4 * (K * d + 3 * npad), 2 * npad * K * d,
                   X_pad.dtype)
+    # a late bounded iteration's row need: 0.1 % of the groups (drawn from
+    # a seed), the kernel against the f32 kernel on X widened, bit for bit
+    ng = gall.numel()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 23)
+    nl = max(1, round(LATE_SHARE * ng))
+    late = torch.zeros(ng, dtype=torch.uint8, device=dev)
+    late[torch.randperm(ng, generator=gen, device=dev)[:nl]] = 1
+    late_rows = late.bool().repeat_interleave(fd._FUSED_BLK)[:npad]
+    got = fd.fused_argmin_min2(X_pad, C, kernel="cuda", row_need=late_rows)
+    want = f32_fused_direct(X_pad.float().contiguous(),
+                            C.to(torch.bfloat16).float().contiguous(),
+                            fd._row_sumsq(C).contiguous(), None,
+                            "argmin_min2", need=late_rows)
+    expect(all(torch.equal(g_, w_) for g_, w_ in zip(got, want)),
+           "bf16 K5 with 0.1 % of the groups: not the f32 kernel's bits")
+    del got, want
+    ne = nl * fd._FUSED_BLK
+    b_l, by_l = bound(2 * ne * d + 4 * (K * d + 3 * npad), 2 * ne * K * d,
+                      X_pad.dtype)
     rows = [dict(name="K5-bf16",
                  ms=cuda_ms(fused_call(fdl, stream, X_pad, C, 3, gneed=gall)),
                  plain_ms=cuda_ms(lambda: fd.fused_argmin_min2(
                      X_pad, C, kernel="torch", row_need=all_need), iters=5,
                      warmup=1),
-                 bound_ms=b, bound_by=by, shape={"n": npad, "m": K, "d": d})]
+                 bound_ms=b, bound_by=by, shape={"n": npad, "m": K, "d": d},
+                 late_need={
+                     "evaluated_fraction": nl / ng,
+                     "ms": cuda_ms(fused_call(fdl, stream, X_pad, C, 3,
+                                              gneed=late)),
+                     "plain_ms": cuda_ms(lambda: fd.fused_argmin_min2(
+                         X_pad, C, kernel="torch", row_need=late_rows),
+                         iters=5, warmup=1),
+                     "bound_ms": b_l, "bound_by": by_l})]
     r1 = lloyd_row(Xd, wd, C)
     r1["name"] = "K1-kdd-bf16"
     return with_launches([r1], l_f) + with_launches(rows, l_b), out

@@ -76,12 +76,20 @@
 // already rounded to bf16 and widened back to f32, and |y|^2 from the
 // original Y. Two kernels take it:
 //   * EPI_ARGMIN_MIN and EPI_ARGMIN_MIN2 (K2-bf16, the sketched K2, K5-bf16)
-//     run the f32 kernel above with only X's staging changed: a bf16 X tile
-//     is loaded with plain 2-byte loads and widened to f32 as it is written
-//     to shared memory. A product of two bf16 values is exact in f32, so on
-//     any data they give the bits of the f32 kernel run on X rounded to
-//     bf16 and widened back (the bounded Lloyd loop's exactness rests on
-//     K2 and K5 sharing one score loop);
+//     run the f32 kernel's tiles, score loop, folds and epilogue with only
+//     X's staging changed. With one feature chunk (d <= FC) they run
+//     fused_span_kernel below: a block's rows are one span, its
+//     16-byte-aligned middle brought by 16-byte cp.async, all in flight at
+//     once (plain loads of the head and tail: rows of 82 or 100 bytes are
+//     never aligned); one row a thread reads its row in place (20.8 KB a
+//     block, so many blocks and their copies in flight an SM), more rows a
+//     thread repack the span into the transposed X tile. Beyond one chunk
+//     fused_distance_kernel's bf16 case loads X with plain 2-byte loads
+//     into the transposed tile, chunk by chunk. Bound on the H100 at m
+//     <= 8: the bytes of X (2 a value). A product of two bf16 values is exact in
+//     f32, so on any data they give the bits of the f32 kernel run on X
+//     rounded to bf16 and widened back (the bounded Lloyd loop's exactness
+//     rests on K2 and K5 sharing one score loop);
 //   * EPI_MIN and EPI_ARGMIN_WEIGHT (K3-bf16, K4-bf16) run
 //     fused_mma_kernel below, which scores on the tensor cores. On
 //     integer-valued data every sum is exact and they give the bits of the
@@ -243,6 +251,105 @@ __device__ __forceinline__ void stage_transposed(float* dst, int stride,
   }
 }
 
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// one bf16 element of X loaded for a later store to shared memory (p null:
+// none)
+struct Plain {
+  unsigned short* p;
+  unsigned short v;
+};
+
+// the head and tail of a span of count bf16 elements at gs whose
+// 16-byte-aligned middle [lo, hi) is copied otherwise: element e is plain
+// when it lies outside it (head e < 8, tail e >= count - 8); lane j < 16
+// loads one into pl, for raw's byte (gs & 15) + 2e
+__device__ __forceinline__ void plain_load(unsigned char* raw, uintptr_t gs,
+                                           long count, uintptr_t lo,
+                                           uintptr_t hi, int j, Plain& pl) {
+  pl.p = nullptr;
+  if (j >= 16) return;
+  const long e = j < 8 ? j : count - 16 + j;
+  if (!(j < 8 ? e < count : e >= 8)) return;
+  const uintptr_t a = gs + 2 * e;
+  if (a < lo || a >= hi) {
+    pl.v = __ldg(reinterpret_cast<const unsigned short*>(a));
+    pl.p = reinterpret_cast<unsigned short*>(raw + (a - (gs & ~(uintptr_t)15)));
+  }
+}
+
+// the same, stored at once
+__device__ __forceinline__ void plain_ends(unsigned char* raw, uintptr_t gs,
+                                           long count, uintptr_t lo,
+                                           uintptr_t hi, int j) {
+  Plain pl;
+  plain_load(raw, gs, count, lo, hi, j, pl);
+  if (pl.p != nullptr) *pl.p = pl.v;
+}
+
+// a block's rows of bf16 X when they are one span (d <= FC): count
+// contiguous elements from src into raw, element e at byte (src & 15) + 2e.
+// The 16-byte-aligned middle comes by 16-byte cp.async, all of a block's
+// copies in flight at once; the head and tail (rows of 82 or 100 bytes are
+// never aligned, and a view may start at any element) by plain loads of
+// threads 0..15
+__device__ __forceinline__ void stage_span(unsigned char* raw,
+                                           const __nv_bfloat16* src,
+                                           long count) {
+  const uintptr_t gs = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t base = gs & ~(uintptr_t)15;
+  const uintptr_t lo = (gs + 15) & ~(uintptr_t)15;
+  uintptr_t hi = (gs + 2 * count) & ~(uintptr_t)15;
+  if (hi < lo) hi = lo;
+  for (uintptr_t a = lo + 16 * threadIdx.x; a < hi; a += 16 * THREADS)
+    cp_async16(raw + (a - base), reinterpret_cast<const void*>(a));
+  plain_ends(raw, gs, count, lo, hi, threadIdx.x);
+}
+
+// element f of a bf16 row in shared memory, widened (a bf16 is the high
+// half of its f32)
+__device__ __forceinline__ float bf16_at(const unsigned short* row, int f) {
+  return __uint_as_float((unsigned)row[f] << 16);
+}
+
+// a span's rows [0, nr) (row r at element r * d of src, d <= THREADS) into
+// dst[f * stride + r] for r < R, widened, zero from row nr on: the
+// transposed tile of stage_transposed, from shared memory
+template <int R>
+__device__ __forceinline__ void repack_transposed(float* dst, int stride,
+                                                  const unsigned short* src,
+                                                  int nr, int d) {
+  const int dq = THREADS / d, dr = THREADS - dq * d;
+  int rr = threadIdx.x / d, ff = threadIdx.x - rr * d;
+  for (int e = threadIdx.x; e < R * d; e += THREADS) {
+    dst[ff * stride + rr] = rr < nr ? bf16_at(src, e) : 0.f;
+    rr += dq;
+    ff += dr;
+    if (ff >= d) {
+      ff -= d;
+      ++rr;
+    }
+  }
+}
+
 // fold (ob, os, oi) into (b, s, i): the lower (value, index) pair wins and
 // the second-best is the least value of both but the winner's
 __device__ __forceinline__ void merge_pair(float& b, float& s, int& i,
@@ -271,6 +378,14 @@ struct Tile {
   // labels and weights of EPI_ARGMIN_WEIGHT's partial sums
   static constexpr int SMEM =
       4 * (FC * XS + 2 * FC * YS + 2 * TT + 2 * BR);
+  // fused_span_kernel (bf16 X, d <= FC): the block's rows arrive as one
+  // span of RAWB bytes at most (BR rows of FC elements and the span's
+  // misalignment). One row a thread reads it in place, in front of the
+  // target tiles (no X tile); more rows a thread repack it into the X
+  // tile, the span past the target tiles
+  static constexpr int RAWB = BR * FC * 2 + 32;
+  static constexpr int SMEM_SPAN =
+      (TR == 1 ? 0 : 4 * FC * XS) + 4 * (2 * FC * YS + 2 * TT) + RAWB;
 };
 
 // TR rows x TC targets of scores a thread; the TG threads of a row are
@@ -561,6 +676,241 @@ fused_distance_kernel(const TX* __restrict__ X, const float* __restrict__ Y,
   }
 }
 
+// K2-bf16 and K5-bf16 (EPI_ARGMIN_MIN, EPI_ARGMIN_MIN2) when a row is one
+// feature chunk (d <= FC): fused_distance_kernel's tiles, score loop, folds
+// and epilogue on bf16 X, with X's staging redesigned. A block's rows are
+// one span of nrows d elements: its 16-byte-aligned middle comes by
+// 16-byte cp.async, all of a block's copies in flight at once (plain loads
+// of its head and tail), at the first target tile that holds a valid
+// target. With one row a thread the score loop reads its row of the span
+// in place, widening each element (no X tile, 20.8 KB a block); with more
+// rows a thread the span is repacked into the transposed X tile the f32
+// loop reads. Every (row, target) score is the f32 kernel's fmaf chain
+// over the widened features in order, so the outputs are the f32 kernel's
+// bits on X widened, K2's and K5's alike. A block whose row groups are all
+// skipped (row need) returns before it reads X.
+template <int EPI, int TR, int TC, int TG>
+__global__ void __launch_bounds__(THREADS)
+fused_span_kernel(const __nv_bfloat16* __restrict__ X,
+                  const float* __restrict__ Y, const float* __restrict__ y2,
+                  const float* __restrict__ maskf,
+                  const unsigned char* __restrict__ gneed, int group_rows,
+                  const float* __restrict__ x2ext, int n, int m, int d,
+                  int* __restrict__ am_out, float* __restrict__ min_out,
+                  float* __restrict__ min2_out) {
+  using T = Tile<TR, TC, TG>;
+  constexpr int BR = T::BR, TT = T::TT, XS = T::XS, YS = T::YS;
+  constexpr int G = 32 / TG;  // row groups per warp
+  constexpr int UNROLL = TC == 8 ? 4 : 8;
+  static_assert(EPI == EPI_ARGMIN_MIN || EPI == EPI_ARGMIN_MIN2, "epilogue");
+  extern __shared__ __align__(16) float smem[];
+  // one row a thread: [span][target tiles][|y|^2]; more: [X tile][target
+  // tiles][|y|^2][span]
+  float* const xs = smem;
+  float* const ys = xs + (TR == 1 ? T::RAWB / 4 : FC * XS);
+  float* const y2s = ys + 2 * FC * YS;
+  unsigned char* const raw =
+      reinterpret_cast<unsigned char*>(TR == 1 ? smem : y2s + 2 * TT);
+
+  const int tid = threadIdx.x;
+  const int tg = tid % TG, rg = tid / TG;
+  const long row0 = (long)blockIdx.x * BR;
+  const int nrows = (int)min((long)BR, (long)n - row0);
+  auto row_of = [&](int i) {
+    return TR == 1 ? rg
+                   : (rg / G) * (G * TR) + (i / 4) * (4 * G) + (rg % G) * 4 +
+                         i % 4;
+  };
+  int r[TR];
+  bool ev[TR];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    r[i] = row_of(i);
+    ev[i] = r[i] < nrows;
+  }
+  if (gneed != nullptr) {
+    // the block's groups, read alike by every thread (n < 2^31: 32-bit
+    // divisions): a block whose groups are all skipped returns at once
+    const int g0 = (int)row0 / group_rows;
+    const int g1 = ((int)row0 + nrows - 1) / group_rows;
+    bool some = false;
+    for (int gi = g0; gi <= g1 && !some; ++gi) some = gneed[gi] != 0;
+    if (!some) {
+      if (tg == 0) {
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+          if (r[i] < nrows)
+            write_identity<EPI>(row0 + r[i], am_out, min_out, min2_out);
+      }
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+      ev[i] = ev[i] && gneed[(int)(row0 + r[i]) / group_rows] != 0;
+  }
+  // the span's element 0; this thread's row in it (one row a thread; a row
+  // past the block's reads row 0 and is never written)
+  const unsigned short* const xsp = reinterpret_cast<const unsigned short*>(
+      raw + (reinterpret_cast<uintptr_t>(X + row0 * d) & 15));
+  const unsigned short* const xr = xsp + (r[0] < nrows ? r[0] : 0) * d;
+
+  constexpr int XR = TR / TG;
+  int xrow[XR];
+#pragma unroll
+  for (int k = 0; k < XR; ++k) xrow[k] = row_of(tg * XR + k);
+  float x2[XR];
+  float best[TR], second[TR];  // second: EPI_ARGMIN_MIN2 only
+  int bi[TR];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    best[i] = second[i] = CUDART_INF_F;
+    bi[i] = 0;
+  }
+#pragma unroll
+  for (int k = 0; k < XR; ++k) x2[k] = 0.f;
+  bool first = true;  // no tile evaluated yet (uniform over the block)
+  auto stage_y = [&](int b, int t0) {
+    stage_transposed<TT>(ys + b * FC * YS, YS, Y + (long)t0 * d,
+                         min(TT, m - t0), d, 0, d);
+  };
+  bool ok = tid < TT && tid < m && maskf[tid] > 0.f;
+  float y2t = tid < TT && tid < m ? y2[tid] : 0.f;
+  int b = 0;            // the buffer of the tile at t0
+  bool staged = false;  // the tile at t0 is loaded (or loading) into b
+  for (int t0 = 0; t0 < m; t0 += TT) {
+    const int tt = t0 + tid;
+    const bool ok_here = ok;
+    const float y2_here = y2t;
+    const bool in_next = tid < TT && tt + TT < m;
+    ok = in_next && maskf[tt + TT] > 0.f;
+    y2t = in_next ? y2[tt + TT] : 0.f;
+    // every thread is past the previous tile here, so its buffers are free
+    if (!staged && !__syncthreads_or(ok_here)) continue;
+    if (tid < TT) y2s[b * TT + tid] = ok_here ? y2_here : CUDART_INF_F;
+    float acc[TR][TC];
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TC; ++j) acc[i][j] = 0.f;
+    if (first) stage_span(raw, X + row0 * d, (long)nrows * d);
+    if (!staged) stage_y(b, t0);
+    cp_async_wait_all();
+    // the next valid tile starts loading into the other buffer, which the
+    // tile before this one last read
+    const bool next = __syncthreads_or(ok);
+    staged = next;
+    if (next) stage_y(b ^ 1, t0 + TT);
+    if (TR != 1 && first) {
+      repack_transposed<BR>(xs, XS, xsp, nrows, d);
+      __syncthreads();
+    }
+    if (first && x2ext == nullptr) {
+      if (TR == 1) {
+        for (int f = 0; f < d; ++f) {
+          const float xv = bf16_at(xr, f);
+          x2[0] = fmaf(xv, xv, x2[0]);
+        }
+      } else {
+        for (int f = 0; f < d; ++f)
+#pragma unroll
+          for (int k = 0; k < XR; ++k) {
+            const float xv = xs[f * XS + xrow[k]];
+            x2[k] = fmaf(xv, xv, x2[k]);
+          }
+      }
+    }
+    first = false;
+    const float* xp = xs + r[0];
+    const float* yp = ys + b * FC * YS + tg * TC;
+#pragma unroll UNROLL
+    for (int f = 0; f < d; ++f, xp += XS, yp += YS) {
+      float xv[TR];
+      if constexpr (TR == 1) {
+        xv[0] = bf16_at(xr, f);
+      } else {
+#pragma unroll
+        for (int k = 0; k < TR / 4; ++k) {
+          const float4 x4 = *reinterpret_cast<const float4*>(xp + 4 * G * k);
+          xv[4 * k + 0] = x4.x;
+          xv[4 * k + 1] = x4.y;
+          xv[4 * k + 2] = x4.z;
+          xv[4 * k + 3] = x4.w;
+        }
+      }
+      const float4* y4 = reinterpret_cast<const float4*>(yp);
+#pragma unroll
+      for (int q = 0; q < TC / 4; ++q) {
+        const float4 yv = y4[q];
+#pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          acc[i][4 * q + 0] = fmaf(xv[i], yv.x, acc[i][4 * q + 0]);
+          acc[i][4 * q + 1] = fmaf(xv[i], yv.y, acc[i][4 * q + 1]);
+          acc[i][4 * q + 2] = fmaf(xv[i], yv.z, acc[i][4 * q + 2]);
+          acc[i][4 * q + 3] = fmaf(xv[i], yv.w, acc[i][4 * q + 3]);
+        }
+      }
+    }
+    // this thread's targets of the tile, in increasing index; a masked
+    // target scores +inf and never passes the strict <
+#pragma unroll
+    for (int q = 0; q < TC / 4; ++q) {
+      const float4 y4 =
+          reinterpret_cast<const float4*>(y2s + b * TT + tg * TC)[q];
+      const float yy[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * q + jj;
+#pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const float s = yy[jj] - 2.0f * acc[i][j];
+          if (s < best[i]) {
+            if (EPI == EPI_ARGMIN_MIN2) second[i] = best[i];
+            best[i] = s;
+            bi[i] = t0 + tg * TC + j;
+          } else if (EPI == EPI_ARGMIN_MIN2 && s < second[i]) {
+            // a later target that ties the best lands here too
+            second[i] = s;
+          }
+        }
+      }
+    }
+    if (staged) b ^= 1;
+  }
+  // the TG threads of a row are neighbouring lanes: merge their minima
+#pragma unroll
+  for (int o = 1; o < TG; o <<= 1) {
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const float ob = __shfl_xor_sync(0xffffffffu, best[i], o);
+      const float os = __shfl_xor_sync(0xffffffffu, second[i], o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi[i], o);
+      merge_pair(best[i], second[i], bi[i], ob, os, oi);
+    }
+  }
+  // row i's |x|^2 is held by the thread tg = i / XR of its group
+  float x2r[TR];
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+    x2r[i] = TG == 1 ? x2[0]
+                     : __shfl_sync(0xffffffffu, x2[i % XR],
+                                   (tid & 31) - tg + i / XR);
+  if (tg == 0) {
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      if (r[i] >= nrows) continue;
+      const long row = row0 + r[i];
+      if (!ev[i]) {
+        write_identity<EPI>(row, am_out, min_out, min2_out);
+      } else {
+        const float xx = x2ext != nullptr ? x2ext[row] : x2r[i];
+        min_out[row] = fmaxf(best[i] + xx, 0.f);
+        am_out[row] = bi[i];
+        if (EPI == EPI_ARGMIN_MIN2) min2_out[row] = fmaxf(second[i] + xx, 0.f);
+      }
+    }
+  }
+}
+
 // cw[j] = sum over blocks b, in a fixed order, of cw_part[j, b]; masked
 // targets get 0 (in the all-masked case every row's argmin is 0 and its
 // weight lands on masked slot 0, which is zeroed here, as in the reference)
@@ -658,26 +1008,6 @@ MmaPlan mma_plan(int epi, int m, int d) {
   return p;
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ void mbar_init(unsigned long long* b,
                                           unsigned count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(b)),
@@ -745,40 +1075,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// one bf16 element of X loaded for a later store to shared memory (p null:
-// none)
-struct Plain {
-  unsigned short* p;
-  unsigned short v;
-};
-
-// the head and tail of a span of count bf16 elements at gs whose
-// 16-byte-aligned middle [lo, hi) is copied otherwise: element e is plain
-// when it lies outside it (head e < 8, tail e >= count - 8); lane j < 16
-// loads one into pl, for raw's byte (gs & 15) + 2e
-__device__ __forceinline__ void plain_load(unsigned char* raw, uintptr_t gs,
-                                           long count, uintptr_t lo,
-                                           uintptr_t hi, int j, Plain& pl) {
-  pl.p = nullptr;
-  if (j >= 16) return;
-  const long e = j < 8 ? j : count - 16 + j;
-  if (!(j < 8 ? e < count : e >= 8)) return;
-  const uintptr_t a = gs + 2 * e;
-  if (a < lo || a >= hi) {
-    pl.v = __ldg(reinterpret_cast<const unsigned short*>(a));
-    pl.p = reinterpret_cast<unsigned short*>(raw + (a - (gs & ~(uintptr_t)15)));
-  }
-}
-
-// the same, stored at once
-__device__ __forceinline__ void plain_ends(unsigned char* raw, uintptr_t gs,
-                                           long count, uintptr_t lo,
-                                           uintptr_t hi, int j) {
-  Plain pl;
-  plain_load(raw, gs, count, lo, hi, j, pl);
-  if (pl.p != nullptr) *pl.p = pl.v;
 }
 
 // features [f0, f0 + fcw) of rows [0, nrows) of the tile at row0, row r
@@ -1496,6 +1792,24 @@ int launch_tile(cudaStream_t s, const TX* X, const float* Y,
                 int m, int d, int* am, float* mn, float* mn2, float* cw_part,
                 int* nb) {
   using T = Tile<TR, TC, TG>;
+  if constexpr (sizeof(TX) == 2 &&
+                (EPI == EPI_ARGMIN_MIN || EPI == EPI_ARGMIN_MIN2)) {
+    if (d <= FC) {
+      auto span = fused_span_kernel<EPI, TR, TC, TG>;
+      static bool span_granted = T::SMEM_SPAN <= 48 * 1024;
+      if (!span_granted) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            span, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_SPAN);
+        if (e != cudaSuccess) return (int)e;
+        span_granted = true;
+      }
+      *nb = (n + T::BR - 1) / T::BR;
+      span<<<*nb, THREADS, T::SMEM_SPAN, s>>>(X, Y, y2, maskf, gneed,
+                                              group_rows, x2ext, n, m, d, am,
+                                              mn, mn2);
+      return 0;
+    }
+  }
   auto kernel = fused_distance_kernel<EPI, TR, TC, TG, TX>;
   // above 48 KB a block's shared memory must be granted, once per kernel
   static bool granted = T::SMEM <= 48 * 1024;

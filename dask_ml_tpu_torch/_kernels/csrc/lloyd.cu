@@ -53,17 +53,27 @@
 // such a d yet.
 //
 // bf16 X (the JAX kernel's bf16 case: C cast to X's dtype in the product,
-// |c|^2 from the f32 C, sums of X widened to f32). The ring holds the
-// tile's bf16 elements as they lie in X (half the bytes; the layout is the
-// f32 kernel's wherever that fits, and dml_lloyd_supported counts 2 bytes
-// an element beyond it), copied in 16-byte
-// pieces with a tail of plain 2-byte copies (a bf16 row of d = 50 is 100
-// bytes: only the whole tile is 16-byte aligned, never its rows); every
-// element is widened to f32 where it is read, in the score loop (one
-// element at a time) and in the M-step. The caller passes C already
-// rounded to bf16 and widened back, and c2 from the f32 C. A product of two
-// bf16 values is exact in f32, so on any data the bf16 kernel gives the
-// bits of the f32 kernel run on X rounded to bf16 and widened back.
+// |c|^2 from the f32 C, sums of X widened to f32). The caller passes C
+// already rounded to bf16 and widened back, and c2 from the f32 C. A
+// product of two bf16 values is exact in f32, so the bf16 kernel gives the
+// bits of the f32 kernel run on X rounded to bf16 and widened back. With
+// the register plan (k <= 8, a row group's rows of a tile at most 32) it
+// runs lloyd_ring_kernel below: the f32 kernel's tiles, rows, row groups
+// and orders, each tile brought by one 1-D cp.async.bulk into a ring of
+// 3-6 stages on mbarriers (a bf16 row of d = 50 is 100 bytes: only a tile,
+// 512 d bytes, keeps X's alignment, so a tile's plain head and tail are
+// loaded a production ahead), one block barrier a tile, and an M-step that
+// adds each row once into its label's sums, finding a group's rows of a
+// label from bit words the E-step sets (the same bits for finite X; with a
+// non-finite X the f32 kernel's fmaf(0, inf, s) poisons every center's
+// sums). Its bound is the bytes (0.0310 ms at the blobs shape, 0.1258 at
+// KDD); what holds it back is the compute: without its copies it takes
+// nearly its whole time, the E-step's dozen-odd instructions a feature a
+// row most of it (PERF.md). Other plans keep lloyd_partial_kernel's bf16
+// case: the ring holds the tile's bf16 elements as they lie in X
+// (dml_lloyd_supported counts 2 bytes an element), copied in 16-byte
+// pieces with a tail of plain 2-byte copies, every element widened where
+// it is read.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -78,6 +88,10 @@ constexpr int CPT = 4;       // columns a thread sums with register sums
 constexpr int T_REG = 256;   // threads (= rows a tile) with register sums
 constexpr int T_SMEM = 128;  // threads (= rows a tile) with shared sums
 constexpr size_t MAX_DYN_SMEM = 232448 - 1024;  // 227 KB less headroom
+constexpr size_t SMEM_TWO_BLOCKS = 233472 / 2 - 1024;  // two blocks an SM
+// K1-bf16's ring: at most RING_MAX stages; at least RING_MIN, since a
+// tile's plain ends are published one production after its copy
+constexpr int RING_MAX = 6, RING_MIN = 3;
 
 __host__ __device__ inline int padded_k(int k) { return (k + KC - 1) / KC * KC; }
 
@@ -151,6 +165,38 @@ bool make_plan(int k, int d, bool aligned, int xb, Plan* p) {
   return false;
 }
 
+// K1-bf16's ring (lloyd_ring_kernel) for the register plan p: S stages of
+// stageb bytes (a tile's T_REG d elements and its misalignment), as deep as
+// leaves two blocks an SM, else as one block's budget allows
+struct Ring {
+  int nstage, stageb;
+  size_t smem;
+};
+
+size_t ring_smem(int S, int stageb, int d, int groups) {
+  return (size_t)S * stageb + 8 * (size_t)((S + 1) / 2 * 2) +
+         sizeof(float) * ((size_t)d * KC + KC + 3 * (size_t)groups * KC +
+                          2 * (size_t)T_REG);
+}
+
+bool ring_plan(const Plan& p, int k, int d, Ring* r) {
+  // a row group's rows of a tile are the bits of one word
+  if (!p.reg || (T_REG + p.groups - 1) / p.groups > 32) return false;
+  const int stageb = 2 * T_REG * d + 16;
+  // the owners' sums are merged in the ring at the end
+  if (sizeof(float) * (size_t)p.groups * k * (d + 1) >
+      (size_t)RING_MIN * stageb)
+    return false;
+  for (int S = RING_MAX; S >= RING_MIN; --S) {
+    const size_t b = ring_smem(S, stageb, d, p.groups);
+    if (b <= SMEM_TWO_BLOCKS || (S == RING_MIN && b <= MAX_DYN_SMEM)) {
+      *r = Ring{S, stageb, b};
+      return true;
+    }
+  }
+  return false;
+}
+
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -176,6 +222,83 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* b,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(b)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* b,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(b)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(b))
+               : "memory");
+}
+
+// wait for the phase of parity `parity` to complete
+__device__ __forceinline__ void mbar_wait(unsigned long long* b,
+                                          unsigned parity) {
+  const unsigned a = smem_addr(b);
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+}
+
+// bytes (a multiple of 16, both addresses 16-byte aligned) from device
+// memory to dst, the barrier told of their arrival
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// one bf16 element of X loaded for a later store to shared memory (p null:
+// none)
+struct Plain {
+  unsigned short* p;
+  unsigned short v;
+};
+
+// the head and tail of a span of count bf16 elements at gs whose
+// 16-byte-aligned middle [lo, hi) is copied otherwise: element e is plain
+// when it lies outside it (head e < 8, tail e >= count - 8); lane j < 16
+// loads one into pl, for raw's byte (gs & 15) + 2e
+__device__ __forceinline__ void plain_load(unsigned char* raw, uintptr_t gs,
+                                           long count, uintptr_t lo,
+                                           uintptr_t hi, int j, Plain& pl) {
+  pl.p = nullptr;
+  if (j >= 16) return;
+  const long e = j < 8 ? j : count - 16 + j;
+  if (!(j < 8 ? e < count : e >= 8)) return;
+  const uintptr_t a = gs + 2 * e;
+  if (a < lo || a >= hi) {
+    pl.v = __ldg(reinterpret_cast<const unsigned short*>(a));
+    pl.p = reinterpret_cast<unsigned short*>(raw + (a - (gs & ~(uintptr_t)15)));
+  }
 }
 
 __device__ __forceinline__ float widen(float x) { return x; }
@@ -421,6 +544,234 @@ lloyd_partial_kernel(const TX* __restrict__ X, const float* __restrict__ w,
   if (tid == 0) partial[blockIdx.x * P + A] = red[0];
 }
 
+// K1-bf16 with the register plan's rows and row groups (k <= 8): T = T_REG
+// threads and tiles of T rows, the f32 kernel's grid, tile walk, rows, row
+// groups, orders and register sums (lloyd_partial_kernel<T_REG, true>), so
+// its bits on X widened. What differs is how the bytes arrive, how the
+// M-step finds its rows, and what waits for what:
+//   * a tile is one span of T d bf16 elements (512 d bytes, so every tile
+//     starts at X's own misalignment h0 < 16): one 1-D cp.async.bulk
+//     brings its 16-byte-aligned middle into a ring of S >= 3 stages,
+//     completed on the stage's full mbarrier (count 2: the copy's arrival
+//     and the plain head and tail's, which warp 0 loads at one production
+//     and stores at its next, so it never waits on a load; an aligned tile
+//     has none, and both arrivals come at once);
+//   * each thread waits for its tile's barrier (no block barrier), scores
+//     its row in place (the E-step: the f32 kernel's fmaf chains over the
+//     widened elements), writes its weight to one of two buffers and sets
+//     its bit in its row group's word of its label (one of three buffers;
+//     a group's rows of a tile are at most 32); one block barrier a tile;
+//     then warp 0 refills the stage the previous tile used (every thread
+//     is past its M-step) and the M-step runs, the next tile's E-step
+//     starting on warps that are done with it;
+//   * the M-step visits a group's rows label by label, each label's rows
+//     in order, and adds each row once into that label's register sums:
+//     per (group, center, column) the rows and their order are the f32
+//     kernel's, whose other rows add fmaf(0, x, sum) == sum, so for finite
+//     X the sums are the same bits (with a non-finite X the f32 kernel's
+//     0 * inf poisons every center's sums);
+//   * the row groups' sums are merged in order once, through the ring,
+//     when the last tile is done.
+template <int T>
+__global__ void __launch_bounds__(T, 2)
+lloyd_ring_kernel(const __nv_bfloat16* __restrict__ X,
+                  const float* __restrict__ w, const float* __restrict__ C,
+                  const float* __restrict__ c2, int n, int k, int d,
+                  int groups, int S, int stageb,
+                  float* __restrict__ partial) {
+  extern __shared__ __align__(16) unsigned char smr[];
+  // [S][stageb] tiles (at the end the row groups' sums [groups][k][d + 1])
+  // | S full mbarriers | ct [d][KC] | c2s [KC] | words [3][groups][KC]
+  // (bit m of [b][g][j]: row g + m groups has label j) | weights [2][T]
+  float* const acc = reinterpret_cast<float*>(smr);
+  unsigned long long* const full =
+      reinterpret_cast<unsigned long long*>(smr + (size_t)S * stageb);
+  float* const ct = reinterpret_cast<float*>(full + (S + 1) / 2 * 2);
+  float* const c2s = ct + (size_t)d * KC;
+  unsigned* const words = reinterpret_cast<unsigned*>(c2s + KC);
+  float* const wts = reinterpret_cast<float*>(words + 3 * groups * KC);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int A = k * (d + 1);
+  const int nw = groups * KC;  // words a buffer
+
+  for (int e = tid; e < d * KC; e += T) {
+    const int f = e / KC, c = e - f * KC;
+    ct[e] = c < k ? C[(size_t)c * d + f] : 0.f;
+  }
+  for (int c = tid; c < KC; c += T) c2s[c] = c < k ? c2[c] : CUDART_INF_F;
+  for (int e = tid; e < 3 * nw; e += T) words[e] = 0u;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(full + s, 2);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // the M-step's owner: row group g, columns q, q + ncol, ... (CPT), summed
+  // per center in registers; column d is the count's 1.0, columns past it
+  // are never stored
+  const int ncol = column_quads(d);
+  const int g = tid / ncol, q = tid - g * ncol;
+  const bool mowner = g < groups;
+  bool in[CPT];
+  float cv[CPT];
+#pragma unroll
+  for (int cc = 0; cc < CPT; ++cc) {
+    in[cc] = q + cc * ncol < d;
+    cv[cc] = q + cc * ncol == d ? 1.f : 0.f;
+  }
+  float sm[CPT][KC];
+#pragma unroll
+  for (int cc = 0; cc < CPT; ++cc)
+#pragma unroll
+    for (int j = 0; j < KC; ++j) sm[cc][j] = 0.f;
+  // the E-step's row tid: its group's word, its bit
+  const int gw = (tid % groups) * KC;
+  const unsigned bit = 1u << (tid / groups);
+  const long ntiles = ((long)n + T - 1) / T;
+  // this block's tiles: blockIdx.x + i gridDim.x for i < my
+  const int my =
+      ntiles > blockIdx.x ? (int)((ntiles - 1 - blockIdx.x) / gridDim.x) + 1
+                          : 0;
+  const int h0 = (int)(reinterpret_cast<uintptr_t>(X) & 15);
+  auto tile_rows = [&](int i, long& row0) {
+    row0 = (blockIdx.x + (long)i * gridDim.x) * T;
+    return (int)min((long)T, (long)n - row0);
+  };
+
+  // warp 0: publish the previous production's plain ends (the second
+  // arrival), then bring this block's tile i into stage i % S
+  Plain pend;
+  pend.p = nullptr;
+  int pstage = -1;
+  auto produce = [&](int i) {
+    if (pstage >= 0) {
+      if (pend.p != nullptr) *pend.p = pend.v;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(full + pstage);
+      pstage = -1;
+    }
+    if (i >= my) return;
+    const int s = i % S;
+    long row0;
+    const long count = (long)tile_rows(i, row0) * d;
+    unsigned char* const raw = smr + (size_t)s * stageb;
+    const uintptr_t gs = reinterpret_cast<uintptr_t>(X + row0 * d);
+    const uintptr_t lo = (gs + 15) & ~(uintptr_t)15;
+    uintptr_t hi = (gs + 2 * count) & ~(uintptr_t)15;
+    if (hi < lo) hi = lo;
+    if (lane == 0) {
+      mbar_expect_tx(full + s, (unsigned)(hi - lo));
+      if (hi > lo)
+        bulk_copy(raw + (lo - (gs & ~(uintptr_t)15)),
+                  reinterpret_cast<const void*>(lo), (unsigned)(hi - lo),
+                  full + s);
+    }
+    plain_load(raw, gs, count, lo, hi, lane, pend);
+    // without plain ends (an aligned tile) the second arrival is now
+    if (__any_sync(0xffffffffu, pend.p != nullptr))
+      pstage = s;
+    else if (lane == 0)
+      mbar_arrive(full + s);
+  };
+  if (warp == 0)
+    for (int i = 0; i < S - 1; ++i) produce(i);
+
+  float inert = 0.f;
+  for (int i = 0; i < my; ++i) {
+    const int s = i % S;
+    long row0;
+    const int nrows = tile_rows(i, row0);
+    const unsigned short* const xs =
+        reinterpret_cast<const unsigned short*>(smr + (size_t)s * stageb +
+                                                h0);
+    unsigned* const wd = words + (i % 3) * nw;
+    float* const wt = wts + (i & 1) * T;
+    // the next tile's words: the M-step two tiles back read them, and
+    // every thread has passed the barrier after it
+    for (int e = tid; e < nw; e += T) words[((i + 1) % 3) * nw + e] = 0u;
+    mbar_wait(full + s, (unsigned)((i / S) & 1));
+
+    // E-step: row tid against every center (its weight's load in flight
+    // meanwhile)
+    if (tid < nrows) {
+      const float wv = w[row0 + tid];
+      const unsigned short* const xr = xs + tid * d;
+      float a[KC];
+#pragma unroll
+      for (int j = 0; j < KC; ++j) a[j] = 0.f;
+      float x2 = 0.f;
+#pragma unroll 4
+      for (int f = 0; f < d; ++f) {
+        const float xv = __uint_as_float((unsigned)xr[f] << 16);
+        x2 = fmaf(xv, xv, x2);
+        fma8(a, xv, ct + f * KC);
+      }
+      float best = CUDART_INF_F;
+      int bi = 0;
+#pragma unroll
+      for (int j = 0; j < KC; ++j) {
+        const float sc = c2s[j] - 2.0f * a[j];
+        if (sc < best) {
+          best = sc;
+          bi = j;
+        }
+      }
+      inert = fmaf(wv, fmaxf(best + x2, 0.f), inert);
+      wt[tid] = wv;
+      atomicOr(wd + gw + bi, bit);
+    }
+    __syncthreads();  // labels and weights are in shared memory
+    // every thread is past the previous tile's M-step: its stage is free
+    if (warp == 0) produce(i + S - 1);
+
+    // M-step: the group's rows label by label, each label's rows in order,
+    // added to that label's sums
+    if (mowner) {
+      const unsigned short* const xq = xs + q;
+#pragma unroll
+      for (int j = 0; j < KC; ++j) {
+        for (unsigned m = wd[g * KC + j]; m != 0u; m &= m - 1u) {
+          const int r = g + (__ffs(m) - 1) * groups;
+          const float wv = wt[r];
+#pragma unroll
+          for (int cc = 0; cc < CPT; ++cc)
+            sm[cc][j] = fmaf(
+                wv,
+                in[cc] ? __uint_as_float((unsigned)xq[r * d + cc * ncol] << 16)
+                       : cv[cc],
+                sm[cc][j]);
+        }
+      }
+    }
+  }
+
+  // merge the row groups in order, once, through the ring
+  __syncthreads();
+  if (mowner)
+#pragma unroll
+    for (int cc = 0; cc < CPT; ++cc) {
+      const int c = q + cc * ncol;
+#pragma unroll
+      for (int j = 0; j < KC; ++j)
+        if (j < k && c <= d)
+          acc[((size_t)g * k + j) * (d + 1) + c] = sm[cc][j];
+    }
+  __syncthreads();
+  const size_t P = (size_t)A + 1;
+  for (int e = tid; e < A; e += T) {
+    float v = 0.f;
+    for (int gg = 0; gg < groups; ++gg) v += acc[(size_t)gg * A + e];
+    partial[blockIdx.x * P + e] = v;
+  }
+  float* const red = wts;
+  red[tid] = inert;
+  __syncthreads();
+  for (int h = T / 2; h > 0; h >>= 1) {
+    if (tid < h) red[tid] += red[tid + h];
+    __syncthreads();
+  }
+  if (tid == 0) partial[blockIdx.x * P + A] = red[0];
+}
+
 // out[e] = sum over blocks b = 0 .. G-1 of partial[b, e] in a fixed order:
 // RY slices of the blocks (b = y, y + RY, ...) each summed in order, then
 // the slices in order; a block takes 32 neighbouring e (coalesced reads)
@@ -496,9 +847,21 @@ extern "C" int dml_lloyd_iter(const void* X, int xbf16, const float* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long ntiles = ((long)n + p.threads - 1) / p.threads;
   const int G = (int)(ntiles < LGRID ? ntiles : LGRID);
-  const int err =
-      xbf16 ? launch_x<__nv_bfloat16>(p, X, w, C, c2, n, k, d, G, partial, s)
-            : launch_x<float>(p, X, w, C, c2, n, k, d, G, partial, s);
+  Ring r;
+  int err = 0;
+  if (xbf16 && ring_plan(p, k, d, &r)) {
+    auto kernel = lloyd_ring_kernel<T_REG>;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)r.smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<G, T_REG, r.smem, s>>>(
+        static_cast<const __nv_bfloat16*>(X), w, C, c2, n, k, d, p.groups,
+        r.nstage, r.stageb, partial);
+  } else {
+    err = xbf16
+              ? launch_x<__nv_bfloat16>(p, X, w, C, c2, n, k, d, G, partial, s)
+              : launch_x<float>(p, X, w, C, c2, n, k, d, G, partial, s);
+  }
   if (err != 0) return err;
   const int P = k * (d + 1) + 1;
   lloyd_reduce_kernel<<<(P + 31) / 32, dim3(32, RY), 0, s>>>(partial, G, P,

@@ -72,6 +72,16 @@ def _pair(X, Y):
     return X.to(dt), Y.to(dt)
 
 
+def _sqrt(d2):
+    """``sqrt`` rounded correctly, as IEEE and the JAX package round it: on
+    the card ``torch.sqrt`` is; on some CPU builds of PyTorch it is off by
+    an ulp for about a sixth of f32 inputs, so a CPU tensor takes it in
+    float64 (whose rounding to f32 is the correctly rounded f32 root)."""
+    if d2.device.type == "cuda":
+        return torch.sqrt(d2)
+    return torch.sqrt(d2.to(torch.float64)).to(d2.dtype)
+
+
 def sq_euclidean(X, Y):
     """Squared Euclidean distance matrix, clamped at 0."""
     X, Y = _pair(X, Y)
@@ -88,8 +98,8 @@ def euclidean_distances(X, Y=None):
     if Y is None:
         d2 = sq_euclidean(X, X)
         d2.fill_diagonal_(0.0)
-        return torch.sqrt(d2)
-    return torch.sqrt(sq_euclidean(X, Y))
+        return _sqrt(d2)
+    return _sqrt(sq_euclidean(X, Y))
 
 
 def pairwise_distances_argmin_min(X, Y, *, kernel: str = "auto",
@@ -105,7 +115,7 @@ def pairwise_distances_argmin_min(X, Y, *, kernel: str = "auto",
     argmin, mind = fused_argmin_min(X.to(torch.float32).contiguous(),
                                     Y.to(torch.float32).contiguous(),
                                     kernel=kernel, mesh=mesh)
-    return argmin, torch.sqrt(mind)
+    return argmin, _sqrt(mind)
 
 
 def _gamma(X, gamma):

@@ -478,6 +478,30 @@ def test_bf16_row_need_and_sketched_vs_jax_pallas():
     np.testing.assert_array_equal(gm.numpy(), _np(wm))
 
 
+def test_bf16_min2_on_an_offset_view_vs_jax_pallas():
+    """K5 on bf16 integer X held as a view at an odd element offset (d = 41,
+    n ragged, the layout the CUDA kernel stages as one unaligned span),
+    with a row need whose 64-row groups end inside the kernel's 128-row
+    blocks, against the JAX Pallas kernel in interpret mode, bit for bit
+    (tolerance 0)."""
+    n, m, d = 3001, 8, 41
+    X, Y, _, mask = _bf16_data(n, m, d, seed=9)
+    need = np.random.RandomState(10).rand(n) > 0.97
+    flat = np.concatenate([np.zeros(3, np.float32), X.ravel()])
+    tX = _tb(flat)[3:].view(n, d)
+    assert tX.storage_offset() == 3 and torch.equal(tX, _tb(X))
+    ev = tfd.row_block_evaluated(_t(need)).numpy()
+    assert 0 < ev.sum() < n
+    got = tfd.fused_argmin_min2(tX, _t(Y), _t(mask), row_need=_t(need))
+    want = jfd.fused_argmin_min2(jnp.asarray(X, jnp.bfloat16),
+                                 jnp.asarray(Y), jnp.asarray(mask),
+                                 kernel="pallas",
+                                 row_need=jnp.asarray(need))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), _np(b))
+        assert (a.numpy()[~ev] == 0).all()
+
+
 def test_bf16_plain_is_f32_plain_on_the_rounded_operands():
     """The convention the card's gate rests on (the bf16 kernel equals the
     f32 kernel on ``X.float()``): with bf16 X the plain version is the f32

@@ -1618,6 +1618,128 @@ def test_bf16_lloyd_budget_holds_more(cuda):
     assert f32 < b16
 
 
+def _offset_view(base, n, d, offset):
+    """An (n, d) view of ``base`` starting ``offset`` elements in."""
+    return base[offset:offset + n * d].view(n, d)
+
+
+def _min2_and_argmin_min(X16, Y, mask, need, kernel):
+    """K5 (with the row need) and K2 on bf16 X."""
+    return (*fd.fused_argmin_min2(X16, Y, mask, kernel=kernel,
+                                  row_need=need),
+            *fd.fused_argmin_min(X16, Y, mask, kernel=kernel))
+
+
+def _min2_and_argmin_min_f32(X16, Y, mask, need):
+    """The f32 kernel on X widened, for the same two calls."""
+    Xw = X16.float().contiguous()
+    Yr = Y.to(torch.bfloat16).float().contiguous()
+    y2 = fd._row_sumsq(Y).contiguous()
+    return (*_fused_f32_direct(Xw, Yr, y2, mask, "argmin_min2", need=need),
+            *_fused_f32_direct(Xw, Yr, y2, mask, "argmin_min"))
+
+
+@pytest.mark.parametrize("n,m,d", [
+    (3001, 8, 41), (3001, 8, 50), (100, 8, 56), (3001, 8, 57),
+    (129, 3, 1), (3001, 80, 41), (1000, 80, 56), (1000, 80, 57),
+    (2000, 200, 50)])
+def test_bf16_span_staging_on_an_offset_view(cuda, n, m, d):
+    """K5-bf16 and K2-bf16 through the span staging (d <= 56: one span a
+    block, read in place at m <= 8, repacked beyond) and through the
+    per-chunk staging (d > 56), on a view at an odd element offset (no row
+    aligned, the first 2 bytes past a 4-byte boundary), with a ragged last
+    block and a row need: on integer data the plain version's bits and the
+    f32 kernel's on X widened, on float data the f32 kernel's; two
+    launches repeat their bits."""
+    rng = np.random.default_rng(n + m + d)
+    base = _ints(rng, (n * d + 3,), cuda).to(torch.bfloat16)
+    X16 = _offset_view(base, n, d, 3)
+    assert X16.data_ptr() % 4 == 2
+    Y = _grid(rng, (m, d), cuda)
+    mask = torch.as_tensor(rng.random(m) > 0.3, device=cuda)
+    mask[0] = True
+    need = torch.as_tensor(rng.random(n) > 0.7, device=cuda)
+    got = _min2_and_argmin_min(X16, Y, mask, need, "cuda")
+    want = _min2_and_argmin_min(X16, Y, mask, need, "torch")
+    direct = _min2_and_argmin_min_f32(X16, Y, mask, need)
+    again = _min2_and_argmin_min(X16, Y, mask, need, "cuda")
+    for a, b, c, e in zip(got, want, direct, again):
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, e)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(n + d)
+    base = torch.randn(n * d + 1, generator=g, device=cuda).to(torch.bfloat16)
+    X16 = _offset_view(base, n, d, 1)
+    Yf = torch.randn(m, d, generator=g, device=cuda) * 2
+    got = _min2_and_argmin_min(X16, Yf, mask, need, "cuda")
+    for a, c in zip(got, _min2_and_argmin_min_f32(X16, Yf, mask, need)):
+        assert torch.equal(a, c)
+
+
+def test_bf16_min2_row_need_of_a_late_iteration(cuda):
+    """K5-bf16 with 0.1 % of the 1,024-row groups needed (a late bounded
+    iteration: one group among 1,001, the last ragged), integer data on an
+    offset view: evaluated groups the plain version's bits and the f32
+    kernel's, every skipped row zeros."""
+    rng = np.random.default_rng(1001)
+    n, d, m = 1000 * fd._FUSED_BLK + 77, 41, 8
+    base = _ints(rng, (n * d + 1,), cuda).to(torch.bfloat16)
+    X16 = _offset_view(base, n, d, 1)
+    Y = _grid(rng, (m, d), cuda)
+    need = torch.zeros(n, dtype=torch.bool, device=cuda)
+    need[500 * fd._FUSED_BLK + 3] = True
+    got = fd.fused_argmin_min2(X16, Y, kernel="cuda", row_need=need)
+    want = fd.fused_argmin_min2(X16, Y, kernel="torch", row_need=need)
+    direct = _min2_and_argmin_min_f32(X16, Y, None, need)[:3]
+    ev = fd.row_block_evaluated(need)
+    assert int(ev.sum()) == fd._FUSED_BLK
+    for a, b, c in zip(got, want, direct):
+        assert torch.equal(a, b) and torch.equal(a, c)
+        assert (a[~ev] == 0).all()
+
+
+@pytest.mark.parametrize("n,k,d,offset", [
+    (3001, 8, 1, 1), (3001, 8, 2, 3), (3001, 8, 3, 1), (3001, 8, 41, 1),
+    (3001, 8, 50, 3), (100, 8, 41, 1), (300, 8, 50, 1),
+    (10 * 256 + 7, 3, 41, 3), (70_001, 8, 41, 0)])
+def test_bf16_lloyd_ring_on_an_offset_view(cuda, n, k, d, offset):
+    """K1-bf16's ring (k <= 8) on views at an odd element offset and on an
+    aligned X: n below one tile, below the ring's depth in tiles, fewer
+    tiles than the grid's blocks and more; on integer data the sums and
+    counts are the plain version's bits, and everything the f32 kernel's
+    on X widened; on float data the f32 kernel's; two launches repeat
+    their bits."""
+    rng = np.random.default_rng(n + k + d)
+    base = _ints(rng, (n * d + offset,), cuda, -4, 4).to(torch.bfloat16)
+    X16 = _offset_view(base, n, d, offset)
+    assert offset == 0 or X16.data_ptr() % 4 == 2
+    w = _ints(rng, (n,), cuda, 0, 3)
+    C = _grid(rng, (k, d), cuda)
+    c2 = fd._row_sumsq(C).contiguous()
+    Cr = C.to(torch.bfloat16).float().contiguous()
+    got = core._lloyd_stats_cuda(X16, w, C)
+    want = core._lloyd_stats_ref(X16, w, C)
+    again = core._lloyd_stats_cuda(X16, w, C)
+    direct = _lloyd_f32_direct(X16.float().contiguous(), w, Cr, c2)
+    for a, c, e in zip(got, again, direct):
+        assert torch.equal(a, c) and torch.equal(a, e)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    g = torch.Generator(device=cuda)
+    g.manual_seed(n + d)
+    base = torch.randn(n * d + offset, generator=g,
+                       device=cuda).to(torch.bfloat16)
+    X16 = _offset_view(base, n, d, offset)
+    wf = torch.rand(n, generator=g, device=cuda)
+    Cf = torch.randn(k, d, generator=g, device=cuda)
+    got = core._lloyd_stats_cuda(X16, wf, Cf)
+    again = core._lloyd_stats_cuda(X16, wf, Cf)
+    direct = _lloyd_f32_direct(
+        X16.float().contiguous(), wf,
+        Cf.to(torch.bfloat16).float().contiguous(),
+        fd._row_sumsq(Cf).contiguous())
+    for a, c, e in zip(got, again, direct):
+        assert torch.equal(a, c) and torch.equal(a, e)
+
+
 def _ell_bf16(rng, n, k, d, dev):
     A = _ell_ints(rng, n, k, d, dev, -4, 4)
     A.values[::7] = 0.0

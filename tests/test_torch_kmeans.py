@@ -152,6 +152,34 @@ def test_one_lloyd_step_bf16_vs_jax_pallas(mesh1):
         counts.numpy(), np.bincount(lab.numpy(), weights=w, minlength=4))
 
 
+def test_one_lloyd_step_bf16_offset_view_vs_jax_pallas(mesh1):
+    """One bf16 Lloyd iteration with X held as a view at an odd element
+    offset (d = 41, n ragged: the layout K1-bf16's ring copies as unaligned
+    tile spans) against the JAX single-pass Pallas kernel in interpret
+    mode: integer X and weights, centers on a 1/256 grid that bf16 rounds.
+    The sums and counts, so the new centers, are exact (bit for bit,
+    tolerance 0); the inertia sums fractional terms in another order (rtol
+    1e-6)."""
+    rng = np.random.RandomState(41)
+    n, d, k = 2999, 41, 8
+    X = rng.randint(-6, 6, (n, d)).astype(np.float32)
+    w = rng.randint(0, 4, n).astype(np.float32)
+    c0 = (X[rng.choice(n, k, replace=False)]
+          + rng.randint(-128, 128, (k, d)) / 256.0).astype(np.float32)
+    flat = np.concatenate([np.zeros(1, np.float32), X.ravel()])
+    tX = _tb(flat)[1:].view(n, d)
+    assert tX.storage_offset() == 1 and torch.equal(tX, _tb(X))
+    jc1, jin, jit, _ = jcore.lloyd_loop_fused(
+        jnp.asarray(X, jnp.bfloat16), jnp.asarray(w), jnp.asarray(c0),
+        jnp.asarray(0.0, jnp.float32), mesh=mesh1, max_iter=1,
+        kernel="pallas")
+    c1, inert, it, _ = core.lloyd_loop_fused(tX, _t(w), _t(c0), 0.0,
+                                             max_iter=1)
+    assert it == int(jit) == 1
+    np.testing.assert_array_equal(c1.numpy(), np.asarray(jc1))
+    assert float(inert) == pytest.approx(float(jin), rel=1e-6)
+
+
 def test_lloyd_stats_bf16_is_f32_on_rounded_operands():
     """bf16 X in the plain K1 is the f32 plain K1 on X widened and the
     centers rounded to bf16, with |c|² from the f32 centers: on float
