@@ -109,6 +109,42 @@ variant's registers and spills of ``lloyd_ring_kernel`` from ``-Xptxas
 
     python3 chip_ab.py --lloyd-ablations
 
+With ``--spmv-small`` it measures, in place of the softmax runs, K6 and
+K6-b at the shapes the paths launch them at (``SPMV_SHAPES``: the served
+sparse request, an elastic block, the one-hot pipeline's container, a
+search fold, an incremental block), at the largest container of the
+served width that the plan sends to L2 (262 tiles) and at the sparse GLM
+cell (n 1e7, k 101, d 100,001), with f32 and with bf16 values, each
+container drawn on the card from a seed (integer values, uniform columns,
+the intercept's slot on column d - 1), the same in every run. Each run
+times each kernel on its plan back to back (CUDA events around 200 calls,
+after 20: the rate a caller that launches one call after another sees;
+three rounds over all the calls, the fastest a call), its device time
+(``torch.profiler``, every kernel of a call summed), and as the yardstick
+cuSPARSE's SpMV through ``torch.mv`` on the f32 CSR view (transposed for
+K6-b), the same two ways, and at the shapes of up to 125,000 rows the
+forward on L2 and on one block, each named; it checks each output against
+the plain version bit for bit and records its sha256. The summary puts
+each side's fastest run beside the other's, says at which shapes the
+change's K6 was faster than cuSPARSE in every one of its runs, whether
+both sides' outputs have the same bits, and compares the SASS of both
+sides' ``spmv`` libraries.
+
+    python3 chip_ab.py PARENT_DIR --spmv-small
+
+With ``--sketched`` it measures, in place of the softmax runs, f32 K2-x
+(the sketched assignment: ``argmin_min`` with the caller's |x|², m 8, p
+10) at the KDD sketched shape (4,898,431 rows) and at the served batch
+(2,048 rows) through the C entry, back to back and by device time as
+above, with the sha256 of its outputs on float data. The summary puts
+each side's fastest run beside the other's, says whether the change was
+faster in every run and whether both sides gave the same bits (the
+parent's route is the f32 tile kernel, so this holds the span route to
+its bits), and compares the SASS of both sides' ``fused_distance``
+libraries.
+
+    python3 chip_ab.py PARENT_DIR --sketched
+
 ``--tree DIR`` (used by the runs above) measures one checkout in this
 process. Exits non-zero without a CUDA card.
 """
@@ -141,6 +177,19 @@ KDD_N, LATE_SHARE = 4_898_431, 0.001
 #: the width at which the bf16 pullback runs in a cluster of 4 (k = 101)
 D_CLUSTER4 = 150_001
 FITS, ITERS, WARMUP = 3, 20, 3
+#: K6's shapes on the paths (name, n, k, d), the last container at the
+#: served width whose one-block grid has fewer blocks than the card has
+#: SMs (262 tiles of 204 rows), and the sparse GLM cell's
+SPMV_SHAPES = (("served", 2_048, 10, 100), ("edge", 53_448, 10, 100),
+               ("elastic", 125_000, 21, 1_001),
+               ("onehot", 1_000_000, 26, 26_001),
+               ("search-fold", 250_000, 101, 100_001),
+               ("incremental", 1_000_000, 101, 100_001),
+               ("flagship", 10_000_000, 101, 100_001))
+#: the shapes (n at most this) at which both forward routes are timed
+SPMV_ROUTES_MAX_N = 125_000
+#: K2-x's shapes (name, n, m, p): the KDD sketched cell and a served batch
+SKETCHED_SHAPES = (("kdd", 4_898_431, 8, 10), ("served", 2_048, 8, 10))
 SEARCH_CS = [0.1, 1.0, 10.0]
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -176,6 +225,209 @@ def cuda_ms(fn) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _calls_for(fn, most: int, seconds: float = 0.25) -> int:
+    """How many calls of ``fn`` fill about ``seconds`` (at most ``most``,
+    at least 3): a slow yardstick (cuSPARSE's transposed SpMV at the cell,
+    ~0.3 s) is timed over fewer calls."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return max(3, min(most, int(seconds / max(time.perf_counter() - t0,
+                                              1e-6))))
+
+
+def stream_ms(fn, iters: int = 200, warmup: int = 20) -> float:
+    """``fn``'s time a call over up to ``iters`` calls back to back (CUDA
+    events around the loop, after up to ``warmup`` calls)."""
+    import torch
+
+    iters = _calls_for(fn, iters)
+    for _ in range(min(warmup, iters)):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """The device time of one call of ``fn``: every kernel it launches,
+    summed over ``calls`` calls under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = _calls_for(fn, calls)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        total += t if t is not None else e.cuda_time_total
+    return total / calls / 1e3
+
+
+def spmv_small_tree(tree: str) -> dict:
+    """K6 and K6-b at every shape of ``SPMV_SHAPES``, f32 and bf16, in the
+    checkout at ``tree``."""
+    import hashlib
+
+    import torch
+
+    sps = _import_tree(tree).ops.sparse
+    dev = torch.device("cuda", 0)
+
+    def sha(t):
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+    out = {"tree": tree, "ms": {}, "device_ms": {}, "sha": {}, "plain": {},
+           "plan": {}}
+    for name, n, k, d in SPMV_SHAPES:
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED)
+        cols = torch.randint(0, d, (n, k), dtype=torch.int32, generator=g,
+                             device=dev)
+        cols[:, -1] = d - 1
+        v32 = torch.randint(-4, 4, (n, k), generator=g, device=dev).float()
+        v = torch.randint(-4, 4, (d,), generator=g, device=dev).float()
+        r = torch.randint(-4, 4, (n,), generator=g, device=dev).float()
+        crow = torch.arange(0, n * k + 1, k, dtype=torch.int32, device=dev)
+        csr = torch.sparse_csr_tensor(crow, cols.view(-1), v32.view(-1),
+                                      size=(n, d), check_invariants=False)
+        calls = {"cusparse": lambda: torch.mv(csr, v),
+                 "cusparse-t": lambda: torch.mv(csr.t(), r)}
+        for tag, vals in (("f32", v32), ("bf16", v32.to(torch.bfloat16))):
+            calls[f"K6-{tag}"] = (lambda vals=vals:
+                                  sps._spmv_cuda(vals, cols, v))
+            calls[f"K6-b-{tag}"] = (lambda vals=vals:
+                                    sps._pullback_cuda(vals, cols, r, d))
+            out["plan"][f"{name}/K6-{tag}"] = sps.dvector_plan(
+                n, k, d, dtype=vals.dtype)
+            out["plain"][f"{name}/K6-{tag}"] = bool(torch.equal(
+                calls[f"K6-{tag}"](), sps._spmv_ref(vals, cols, v)))
+            out["plain"][f"{name}/K6-b-{tag}"] = bool(torch.equal(
+                calls[f"K6-b-{tag}"](), sps._pullback_ref(vals, cols, r, d)))
+            if n <= SPMV_ROUTES_MAX_N:
+                # both forward routes, named, in the same run
+                for route, c in (("l2", 0), ("c1", 1)):
+                    calls[f"K6-{tag}-{route}"] = (
+                        lambda vals=vals, c=c: sps._spmv_cuda(vals, cols, v,
+                                                              cluster=c))
+        # three rounds over every call, the fastest a call: at the small
+        # shapes the host sets the pace, and its speed drifts within a run
+        for _ in range(3):
+            for key, fn in calls.items():
+                t = stream_ms(fn)
+                out["ms"][f"{name}/{key}"] = min(
+                    t, out["ms"].get(f"{name}/{key}", t))
+        for key, fn in calls.items():
+            out["device_ms"][f"{name}/{key}"] = device_ms(fn)
+            if key.startswith("K6"):
+                out["sha"][f"{name}/{key}"] = sha(fn())
+        del cols, v32, v, r, crow, csr, calls
+        torch.cuda.empty_cache()
+    return out
+
+
+def spmv_small_summary(side: dict) -> dict:
+    """Each side's fastest run of every timing; where the change's K6
+    beat cuSPARSE in every run (time and device time); whether both
+    sides' outputs have the same bits and equal the plain versions."""
+    summary = {}
+    for name, rs in side.items():
+        summary[name] = {key: {"ms": min(r["ms"][key] for r in rs),
+                               "device_ms": min(r["device_ms"][key]
+                                                for r in rs)}
+                         for key in rs[0]["ms"]}
+    ch = side["change"]
+    beats = {}
+    for shape in {key.split("/")[0] for key in ch[0]["ms"]}:
+        for kern, lib in (("K6-f32", "cusparse"), ("K6-bf16", "cusparse"),
+                          ("K6-b-f32", "cusparse-t"),
+                          ("K6-b-bf16", "cusparse-t")):
+            a, b = f"{shape}/{kern}", f"{shape}/{lib}"
+            beats[a] = {m: all(r[m][a] < r[m][b] for r in ch)
+                        for m in ("ms", "device_ms")}
+    summary["change_beats_library_every_run"] = beats
+    # the plan's choice at the short containers: L2 against one block,
+    # within each of the change's runs
+    summary["change_l2_beats_one_block_every_run"] = {
+        key[:-3]: {m: all(r[m][key] < r[m][key[:-3] + "-c1"] for r in ch)
+                   for m in ("ms", "device_ms")}
+        for key in ch[0]["ms"] if key.endswith("-l2")}
+    runs = side["change"] + side["parent"]
+    summary["same_bits_both_sides"] = {
+        key: len({r["sha"][key] for r in runs}) == 1
+        for key in ch[0]["sha"]}
+    summary["change_equals_plain"] = all(all(r["plain"].values())
+                                         for r in ch)
+    summary["change_plan"] = ch[0]["plan"]
+    summary["parent_plan"] = side["parent"][0]["plan"]
+    return summary
+
+
+def sketched_tree(tree: str) -> dict:
+    """f32 K2-x at ``SKETCHED_SHAPES`` in the checkout at ``tree``."""
+    import hashlib
+
+    import torch
+
+    _import_tree(tree)
+    from dask_ml_tpu_torch._kernels import build
+
+    lib = build.load("fused_distance")
+    dev = torch.device("cuda", 0)
+    out = {"tree": tree, "ms": {}, "device_ms": {}, "sha": {}}
+    for name, n, m, p in SKETCHED_SHAPES:
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED)
+        Z = torch.randn((n, p), generator=g, device=dev)
+        Y = torch.randn((m, p), generator=g, device=dev)
+        x2 = torch.rand(n, generator=g, device=dev) * 4 * p
+        key = f"{name}/K2-x"
+        call, outs = fused_call(lib, Z, Y, 1, x2=x2)
+        out["ms"][key] = stream_ms(call, 100, 10)
+        out["device_ms"][key] = device_ms(call)
+        call()
+        torch.cuda.synchronize()
+        out["sha"][key] = hashlib.sha256(
+            outs["am"].cpu().numpy().tobytes()
+            + outs["min"].cpu().numpy().tobytes()).hexdigest()[:16]
+        out["bound_ms"] = out.get("bound_ms", {})
+        out["bound_ms"][name] = 4 * (n * p + 3 * n) / PEAK_BYTES_PER_S * 1e3
+        del Z, Y, x2
+        torch.cuda.empty_cache()
+    return out
+
+
+def sketched_summary(side: dict) -> dict:
+    summary = {}
+    for name, rs in side.items():
+        summary[name] = {key: {"ms": min(r["ms"][key] for r in rs),
+                               "device_ms": min(r["device_ms"][key]
+                                                for r in rs)}
+                         for key in rs[0]["ms"]}
+    pa, ch = side["parent"], side["change"]
+    summary["change_faster_every_run"] = {
+        shape: all(c["ms"][f"{shape}/K2-x"] < p["ms"][f"{shape}/K2-x"]
+                   for c in ch for p in pa)
+        for shape, *_ in SKETCHED_SHAPES}
+    summary["same_bits_both_sides"] = {
+        shape: len({r["sha"][f"{shape}/K2-x"] for r in pa + ch}) == 1
+        for shape, *_ in SKETCHED_SHAPES}
+    summary["bound_ms"] = ch[0]["bound_ms"]
+    return summary
 
 
 def one_tree(tree: str) -> dict:
@@ -319,11 +571,12 @@ def spmv_tree(tree: str, datadir: str) -> dict:
     return out
 
 
-def fused_call(lib, X, Y, epi, mask=None, w=None, gneed=None):
+def fused_call(lib, X, Y, epi, mask=None, w=None, gneed=None, x2=None):
     """(a closure that launches ``dml_fused_distance`` once on buffers
     allocated here, its output buffers): Y rounded to X's dtype and held
     in f32, |y|² from Y, as the wrapper hands them over; ``gneed`` the
-    uint8 flags of the row need's groups, or None."""
+    uint8 flags of the row need's groups, or None; ``x2`` the caller's
+    |x|² (K2-x), or None."""
     import torch
 
     from dask_ml_tpu_torch._kernels import build
@@ -344,12 +597,13 @@ def fused_call(lib, X, Y, epi, mask=None, w=None, gneed=None):
     cw = torch.zeros(m, device=dev)
     wp = None if w is None else w.data_ptr()
     gp = None if gneed is None else gneed.data_ptr()
+    xp = None if x2 is None else x2.data_ptr()
     stream = build.stream_of(X)
 
     def call():
         build.check(lib.dml_fused_distance(
             epi, X.data_ptr(), int(X.dtype == torch.bfloat16), Yk.data_ptr(),
-            y2.data_ptr(), maskf.data_ptr(), gp, fd._FUSED_BLK, None, wp,
+            y2.data_ptr(), maskf.data_ptr(), gp, fd._FUSED_BLK, xp, wp,
             n, m, d, am.data_ptr(), mn.data_ptr(), mn2.data_ptr(),
             part.data_ptr(), cw.data_ptr(), stream), "fused timing")
 
@@ -928,6 +1182,10 @@ def main() -> int:
             res = fused_tree(args[1])
         elif args[2:3] == ["--kmeans-bf16"]:
             res = kmeans_tree(args[1])
+        elif args[2:3] == ["--spmv-small"]:
+            res = spmv_small_tree(args[1])
+        elif args[2:3] == ["--sketched"]:
+            res = sketched_tree(args[1])
         else:
             res = one_tree(args[1])
         print("AB " + json.dumps(res), flush=True)
@@ -960,6 +1218,21 @@ def main() -> int:
                 "change": [r for r in runs if r["tree"] == HERE]}
         summary = spmv_summary(side)
         summary["sass"] = sass_compare(parent, HERE)
+        print("SUMMARY " + json.dumps(summary), flush=True)
+        print(smi(), flush=True)
+        return 0
+    for flag, summarize, lib in (("--spmv-small", spmv_small_summary, "spmv"),
+                                 ("--sketched", sketched_summary,
+                                  "fused_distance")):
+        if flag not in args:
+            continue
+        runs = run_trees(parent, [flag])
+        if runs is None:
+            return 1
+        side = {"parent": [r for r in runs if r["tree"] == parent],
+                "change": [r for r in runs if r["tree"] == HERE]}
+        summary = summarize(side)
+        summary["sass"] = sass_compare(parent, HERE, lib)
         print("SUMMARY " + json.dumps(summary), flush=True)
         print(smi(), flush=True)
         return 0

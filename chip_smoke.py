@@ -68,7 +68,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    onto 1,024 columns, and on 40,000 columns through one block and
    clusters of 2, 4 and 8; one L-BFGS iteration, with a device profile of
    it), and prints the k-means|| phase times of both KMeans cells
-   (``models.kmeans.measure_init_phases``).
+   (``models.kmeans.measure_init_phases``); then K6 and K6-b at every
+   path's shape (``SPMV_PATH_SHAPES``: the served request, an elastic
+   block, the one-hot pipeline, a search fold, an incremental block) on
+   integer values, bit for bit with their plain versions and repeating,
+   each with its time, its device time (``torch.profiler``), its bound,
+   its plain version's time and cuSPARSE's (``torch.mv`` on the CSR
+   view, transposed for K6-b), under the ``spmv`` and ``spmv_pullback``
+   rows as ``path_shapes`` (the served request's forward gathers from
+   L2: ``spmv_l2``, which the serving phase's sparse request launches).
 
 9. drives the solvers of the GLM facades beyond L-BFGS and the
    decompositions, each data set drawn with numpy from the seed:
@@ -425,7 +433,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    line gains ``launches_meshrest``.
 
 ``python3 chip_smoke.py --spmv-only`` runs steps 1, 2, 6 and 8 alone, on a
-container of the sparse cell's shape drawn on the card;
+container of the sparse cell's shape drawn on the card, and K6 / K6-b at
+each path's shape (``SPMV_PATH_SHAPES``);
 ``--glm-pca-only`` runs steps 1, 2 and 9 alone; ``--stream-only`` steps 1,
 2 and 10, drawing its own host arrays; ``--incremental-only`` steps 1, 2
 and 11; ``--search-only`` steps 1, 2 and 12; ``--asha-only`` steps 1, 2
@@ -681,7 +690,7 @@ PATH_KERNELS = {
     "serving-identity": ("fused_argmin_min", "fused_argmin_min_sketched"),
     "serving-steady": ("fused_argmin_min", "fused_argmin_min_sketched"),
     "serving-fleet": ("fused_argmin_min", "fused_argmin_min_sketched"),
-    "serving-sparse": ("spmv",),
+    "serving-sparse": ("spmv_l2",),
     "wire-identity": ("fused_argmin_min", "fused_argmin_min_sketched"),
     "wire-steady": ("fused_argmin_min", "fused_argmin_min_sketched"),
     "wire-links": ("fused_argmin_min", "fused_argmin_min_sketched"),
@@ -1849,6 +1858,15 @@ def kdd_cell(dev, errs):
     Zc = Zp.contiguous()
     zero = torch.zeros(n, device=dev)
     k2x = cuda_ms(fused_call(fdl, stream, Zc, vals, 1, x2=zero))
+    k2x_device = device_ms(fused_call(fdl, stream, Zc, vals, 1, x2=zero))
+    # the span kernel's argmins against f32 K2's (the tile kernel, which
+    # takes the argmin on the same scores before adding its own |x|^2)
+    span = fd._fused_cuda(Zc, vals, None, "argmin_min",
+                          x2=fd._row_sumsq(Zc))
+    tile = fd._fused_cuda(Zc, vals, None, "argmin_min")
+    expect(torch.equal(span[0], tile[0]),
+           "K2-x: the span kernel's argmins are not the tile kernel's")
+    del span, tile
     plain_k2x = cuda_ms(lambda: fd._argmin_min_sk_ref(Zc, vals, zero, None),
                         iters=5, warmup=1)
     b, by = bound(4 * (n * pk + 3 * n), 2 * n * K * pk)
@@ -1862,6 +1880,7 @@ def kdd_cell(dev, errs):
     ev_n = float(fd.row_block_evaluated(need_n).float().mean())
     b_n, by_n = bound(4 * (ev_n * n * pk + 3 * n), 2 * ev_n * n * K * pk)
     rows.append(dict(name="fused_argmin_min_sketched", ms=k2x,
+                     device_ms=k2x_device,
                      plain_ms=plain_k2x, bound_ms=b, bound_by=by,
                      shape={"n": n, "m": K, "d": pk},
                      row_need={"evaluated_fraction": ev_n, "ms": k2n,
@@ -2294,12 +2313,128 @@ def log_spmv_rows(rows):
          "pullback_values_bound_ms": rows[2]["values_bound_ms"]}))
 
 
+#: K6 and K6-b at the shape each path launches them at (n, k, d): the
+#: served sparse request (SRV_SPARSE_N rows at SRV_GLM_D, density 0.1),
+#: an elastic block, the one-hot pipeline's container (ONEHOT_COLS
+#: categorical columns of ONEHOT_CATS, with the intercept), a search fold
+#: of the sparse GLM data and an incremental block of it
+SPMV_PATH_SHAPES = (("served", 2_048, 10, 100),
+                    ("elastic", 125_000, 21, 1_001),
+                    ("onehot", 1_000_000, 26, 26_001),
+                    ("search-fold", 250_000, 101, 100_001),
+                    ("incremental", 1_000_000, 101, 100_001))
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """The device time of one call of ``fn``: every kernel it launches
+    (memsets included), summed over ``calls`` calls under
+    ``torch.profiler`` and divided by them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        total_us += t if t is not None else e.cuda_time_total
+    expect(total_us > 0, "torch.profiler saw no device time")
+    return total_us / calls / 1e3
+
+
+def spmv_path_rows(dev, errs):
+    """K6 and K6-b at every path's shape (SPMV_PATH_SHAPES), on integer
+    values drawn on the card: each through the plan's route bit for bit
+    against its plain version and repeating its bits, then its time
+    (back-to-back calls, CUDA events), its device time (torch.profiler),
+    its bound, its plain version's time and cuSPARSE's through
+    ``torch.mv`` on the CSR view (transposed for K6-b). Returns a row a
+    shape and direction."""
+    import torch
+
+    from dask_ml_tpu_torch.ops import sparse as sps
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    out = []
+    for path, n, k, d in SPMV_PATH_SHAPES:
+        cols = torch.randint(0, d, (n, k), dtype=torch.int32, generator=g,
+                             device=dev)
+        cols[:, -1] = d - 1  # the intercept's column
+        vals = torch.randint(-4, 4, (n, k), generator=g,
+                             device=dev).float()
+        v = torch.randint(-4, 4, (d,), generator=g, device=dev).float()
+        r = torch.randint(-4, 4, (n,), generator=g, device=dev).float()
+        crow = torch.arange(0, n * k + 1, k, dtype=torch.int32, device=dev)
+        csr = torch.sparse_csr_tensor(crow, cols.view(-1), vals.view(-1),
+                                      size=(n, d), check_invariants=False)
+        b, by = bound(4 * (2 * n * k + n + d), 2 * n * k)
+        for pull in (False, True):
+            plan = sps.dvector_plan(n, k, d, pullback=pull)
+            if pull:
+                name = ("spmv_pullback", "spmv_pullback_l2")[plan == 0]
+
+                def kern():
+                    return sps._pullback_cuda(vals, cols, r, d, cluster=plan)
+
+                def plain():
+                    return sps._pullback_ref(vals, cols, r, d)
+
+                def library():
+                    return torch.mv(csr.t(), r)
+            else:
+                name = "spmv" if plan else "spmv_l2"
+
+                def kern():
+                    return sps._spmv_cuda(vals, cols, v, cluster=plan)
+
+                def plain():
+                    return sps._spmv_ref(vals, cols, v)
+
+                def library():
+                    return torch.mv(csr, v)
+            got = kern()
+            expect(torch.equal(got, plain()),
+                   f"{name} at the {path} shape: not the plain version's "
+                   f"bits on integer data")
+            expect_repeats(f"{name} at the {path} shape", kern, got)
+            errs[name] = max(errs.get(name, 0.0),
+                             float((got - plain()).abs().max()))
+            row = dict(path=path, name=name, route=plan,
+                       shape={"n": n, "k": k, "d": d},
+                       ms=cuda_ms(kern, iters=200, warmup=20),
+                       device_ms=device_ms(kern), bound_ms=b, bound_by=by,
+                       plain_ms=cuda_ms(plain, iters=10, warmup=2),
+                       # cuSPARSE's transposed SpMV takes ms at the larger
+                       # shapes: fewer calls
+                       library_ms=cuda_ms(library, iters=10 if pull else 200,
+                                          warmup=2 if pull else 20),
+                       library_device_ms=device_ms(library,
+                                                   calls=5 if pull else 20))
+            log(f"  {name:18s} {path:12s} {row['ms']:.4f} ms  device "
+                f"{row['device_ms']:.4f} ms  bound {b:.4f} ms  plain "
+                f"{row['plain_ms']:.4f} ms  library {row['library_ms']:.4f} "
+                f"ms (device {row['library_device_ms']:.4f})")
+            out.append(row)
+        del cols, vals, v, r, crow, csr
+        torch.cuda.empty_cache()
+    return out
+
+
 def sparse_glm_data():
     """The JAX bench's flagship sparse problem, drawn on the host."""
     from dask_ml_tpu_torch.datasets import make_sparse_classification
 
     return make_sparse_classification(GLM_N, GLM_D, GLM_DENSITY,
                                       random_state=42)
+
+
+#: the kernel rows glm_cell times: K6 and K6-b on each route
+GLM_CELL_K6 = ("spmv", "spmv_l2", "spmv_pullback", "spmv_pullback_l2")
 
 
 def glm_cell(dev, errs):
@@ -6744,14 +6879,15 @@ def serving_sparse(dev, loop, est, errs):
                    fitting_routes(k, Xh.d, False), [])
     vf = torch.as_tensor(rng.standard_normal(Xh.d), dtype=torch.float32,
                          device=dev)
-    out_k = sps._spmv_cuda(vals, cols, vf,
-                           cluster=sps.dvector_plan(n, k, Xh.d))
+    plan = sps.dvector_plan(n, k, Xh.d)
+    out_k = sps._spmv_cuda(vals, cols, vf, cluster=plan)
     out_p = sps._spmv_ref(vals, cols, vf)
     scale = sps._spmv_ref(vals.abs(), cols, vf.abs())
     err = (out_k - out_p).abs()
     expect(bool((err <= k * 2.0 ** -23 * scale).all()),
            f"K6 at the serving request: max abs err {float(err.max())}")
-    errs["spmv"] = max(errs.get("spmv", 0.0), float(err.max()))
+    name = "spmv" if plan else "spmv_l2"
+    errs[name] = max(errs.get(name, 0.0), float(err.max()))
     out = {"n": n, "k": k, "d": Xh.d, "seconds": sec}
     path_line("serving-sparse", sec, None, launches, **out)
     return launches, out
@@ -6803,14 +6939,18 @@ def serving_kernel_rows(dev, models, pools, sparse_shape):
     crow = torch.arange(0, n * k + 1, k, dtype=torch.int32, device=dev)
     csr = torch.sparse_csr_tensor(crow, A.cols.view(-1), A.values.view(-1),
                                   size=(n, A.d), check_invariants=False)
+
+    # (the device times at this shape are spmv_path_rows' "served" row:
+    # here, after the serving cells, torch.profiler recorded no kernel)
     rows.append(dict(
-        name="spmv",
+        name="spmv" if plan else "spmv_l2",
         ms=cuda_ms(lambda: sps._spmv_cuda(A.values, A.cols, v,
-                                          cluster=plan)),
+                                          cluster=plan), iters=200,
+                   warmup=20),
         plain_ms=cuda_ms(lambda: sps._spmv_ref(A.values, A.cols, v),
                          iters=10, warmup=2),
         bound_ms=b, bound_by=by,
-        library_ms=cuda_ms(lambda: torch.mv(csr, v), iters=10, warmup=2),
+        library_ms=cuda_ms(lambda: torch.mv(csr, v), iters=200, warmup=20),
         shape={"n": n, "k": k, "d": A.d}, cluster=plan))
     return rows
 
@@ -10243,9 +10383,17 @@ def main() -> int:
         return 0
 
     if "--spmv-only" in sys.argv[1:]:
-        rows, summary = spmv_only(dev, {})
+        errs = {}
+        rows, summary = spmv_only(dev, errs)
         log_spmv_rows(rows)
         log("SPMV " + json.dumps(summary))
+        log("K6 and K6-b at each path's shape:")
+        path_rows = spmv_path_rows(dev, errs)
+        for r in rows:
+            if r["name"] in ("spmv", "spmv_pullback"):
+                r["path_shapes"] = [
+                    p for p in path_rows if p["name"].startswith(
+                        "spmv_pullback") == (r["name"] == "spmv_pullback")]
         print(json.dumps({"kernels": rows}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
@@ -10411,9 +10559,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("glm")
 
+    log("K6 and K6-b at each path's shape:")
+    path_rows = spmv_path_rows(dev, errs)
+    for r in rows:
+        if r["name"] in ("spmv", "spmv_pullback"):
+            r["path_shapes"] = [
+                p for p in path_rows if p["name"].startswith("spmv_pullback")
+                == (r["name"] == "spmv_pullback")]
+    torch.cuda.empty_cache()
+    lap("spmv_paths")
+
     admm_launches, _ = glm_pca_cells(dev)
-    for r in rows[-4:]:
-        r["launches_sparse_admm"] = int(admm_launches[r["name"]])
+    for r in rows:
+        if r["name"] in GLM_CELL_K6:
+            r["launches_sparse_admm"] = int(admm_launches[r["name"]])
     torch.cuda.empty_cache()
     lap("glm_pca")
 

@@ -22,7 +22,9 @@ time (a lock per library): a launch first sets its kernel's
 dynamic-shared-memory attribute to what this launch needs, and that
 attribute belongs to the kernel, not to the calling thread, so another
 thread's launch of the same kernel between the two would fail with an
-invalid-value error (the search driver launches from several threads).
+invalid-value error (the search driver launches from several threads;
+``spmv``'s plans only ever raise a kernel's attribute, once, and keep
+what they asked the driver).
 """
 
 from __future__ import annotations
@@ -44,6 +46,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 CC_FLAGS = ["-std=c99", "-O3", "-shared", "-fPIC"]
 #: libraries built from ``csrc/<name>.c`` with the host C compiler
 HOST_SOURCES = frozenset({"crc32c"})
+#: entry points that set no kernel attribute, called without the
+#: library's lock (the L2 forward: at the served shapes a launch's host
+#: work is most of a call)
+UNLOCKED = frozenset({"dml_spmv"})
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _U32, _SZ = ctypes.c_uint32, ctypes.c_size_t
@@ -181,8 +187,8 @@ def build_all(names=None, verbose: bool = False) -> float:
 
 class Library:
     """A loaded library: each entry point of ``SIGNATURES[name]`` as an
-    attribute, called under the library's lock; ``cdll`` is the
-    ``ctypes`` handle."""
+    attribute, called under the library's lock (but those of
+    :data:`UNLOCKED`); ``cdll`` is the ``ctypes`` handle."""
 
     def __init__(self, name: str, cdll: ctypes.CDLL):
         self.cdll = cdll
@@ -191,7 +197,7 @@ class Library:
             f = getattr(cdll, fn)
             f.argtypes = argtypes
             f.restype = restype
-            setattr(self, fn, f if name in HOST_SOURCES
+            setattr(self, fn, f if name in HOST_SOURCES or fn in UNLOCKED
                     else self._serialized(f, lock))
 
     @staticmethod
@@ -235,7 +241,9 @@ def check(code: int, what: str) -> None:
 
 
 def stream_of(t) -> int:
-    """The raw handle of PyTorch's current stream on ``t``'s device."""
+    """The raw handle of PyTorch's current stream on ``t``'s device (a
+    CUDA tensor), without making a ``torch.cuda.Stream`` object: at the
+    served shapes a launch's host work is most of a call."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -70,6 +70,12 @@
 // What is left between it and the bound (PERF.md): X's staging adds to
 // the FMA time instead of hiding under it; the 4-byte copies and the score
 // loop's shared loads go through one load/store pipe, the likely reason.
+// K2-x (the sketched assignment: EPI_ARGMIN_MIN with the caller's |x|^2)
+// at m <= 8 and d <= FC, the served and KDD sketched shapes (m 8, d 10),
+// runs fused_span_kernel's f32 case instead: a block's 128 rows are one
+// contiguous span of 128 d floats, brought by 16-byte cp.async, and each
+// thread reads its row in place; the score loop, its order and the
+// epilogue are the f32 kernel's, so are the bits.
 //
 // bf16 X (the JAX kernel's bf16 case: Y cast to X's dtype for -2 x.y, |y|^2
 // in f32 from the original Y, f32 accumulation). The caller passes Y
@@ -330,6 +336,49 @@ __device__ __forceinline__ float bf16_at(const unsigned short* row, int f) {
   return __uint_as_float((unsigned)row[f] << 16);
 }
 
+// a block's rows of f32 X when they are one span (d <= FC): count
+// contiguous elements from src into raw, element e at byte (src & 15) +
+// 4e. The 16-byte-aligned middle comes by 16-byte cp.async, all of a
+// block's copies in flight at once; the head and tail (at most 3 elements
+// each: an f32 view starts on a 4-byte boundary) by plain loads of
+// threads 0..7
+__device__ __forceinline__ void stage_span(unsigned char* raw,
+                                           const float* src, long count) {
+  const uintptr_t gs = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t base = gs & ~(uintptr_t)15;
+  const uintptr_t lo = (gs + 15) & ~(uintptr_t)15;
+  uintptr_t hi = (gs + 4 * count) & ~(uintptr_t)15;
+  if (hi < lo) hi = lo;
+  for (uintptr_t a = lo + 16 * threadIdx.x; a < hi; a += 16 * THREADS)
+    cp_async16(raw + (a - base), reinterpret_cast<const void*>(a));
+  const int j = threadIdx.x;
+  if (j >= 8) return;
+  const long e = j < 4 ? j : count - 8 + j;
+  if (!(j < 4 ? e < count : e >= 4)) return;
+  const uintptr_t a = gs + 4 * e;
+  if (a < lo || a >= hi)
+    *reinterpret_cast<float*>(raw + (a - base)) =
+        __ldg(reinterpret_cast<const float*>(a));
+}
+
+// element f of a row of the span in shared memory, as f32
+__device__ __forceinline__ float span_at(const unsigned short* row, int f) {
+  return bf16_at(row, f);
+}
+__device__ __forceinline__ float span_at(const float* row, int f) {
+  return row[f];
+}
+
+// the span's element type in shared memory: bf16 bits, or f32
+template <typename TX>
+struct SpanOf {
+  using T = float;
+};
+template <>
+struct SpanOf<__nv_bfloat16> {
+  using T = unsigned short;
+};
+
 // a span's rows [0, nr) (row r at element r * d of src, d <= THREADS) into
 // dst[f * stride + r] for r < R, widened, zero from row nr on: the
 // transposed tile of stage_transposed, from shared memory
@@ -378,14 +427,21 @@ struct Tile {
   // labels and weights of EPI_ARGMIN_WEIGHT's partial sums
   static constexpr int SMEM =
       4 * (FC * XS + 2 * FC * YS + 2 * TT + 2 * BR);
-  // fused_span_kernel (bf16 X, d <= FC): the block's rows arrive as one
-  // span of RAWB bytes at most (BR rows of FC elements and the span's
-  // misalignment). One row a thread reads it in place, in front of the
-  // target tiles (no X tile); more rows a thread repack it into the X
-  // tile, the span past the target tiles
-  static constexpr int RAWB = BR * FC * 2 + 32;
-  static constexpr int SMEM_SPAN =
-      (TR == 1 ? 0 : 4 * FC * XS) + 4 * (2 * FC * YS + 2 * TT) + RAWB;
+  // fused_span_kernel (X of w-byte elements, d <= FC): the block's rows
+  // arrive as one span of rawb(w, d) bytes at most (BR rows of d elements
+  // and the span's misalignment, rounded to 16). One row a thread reads it
+  // in place, in front of the target tiles (no X tile); more rows a thread
+  // repack it into the X tile, the span past the target tiles. bf16 X
+  // sizes the span for d = FC; f32 X (K2-x) for its own d, which leaves
+  // the SM more of its shared memory for L1 (on an H100 at the KDD
+  // sketched shape: 0.1053 ms, against 0.1298 sized for FC)
+  __host__ __device__ static constexpr int rawb(int w, int d = FC) {
+    return (BR * d * w + 32 + 15) & ~15;
+  }
+  __host__ __device__ static constexpr int smem_span(int w, int d = FC) {
+    return (TR == 1 ? 0 : 4 * FC * XS) + 4 * (2 * FC * YS + 2 * TT) +
+           rawb(w, d);
+  }
 };
 
 // TR rows x TC targets of scores a thread; the TG threads of a row are
@@ -678,7 +734,12 @@ fused_distance_kernel(const TX* __restrict__ X, const float* __restrict__ Y,
 
 // K2-bf16 and K5-bf16 (EPI_ARGMIN_MIN, EPI_ARGMIN_MIN2) when a row is one
 // feature chunk (d <= FC): fused_distance_kernel's tiles, score loop, folds
-// and epilogue on bf16 X, with X's staging redesigned. A block's rows are
+// and epilogue on bf16 X, with X's staging redesigned; and on f32 X with
+// one row a thread for K2-x (the sketched assignment, its |x|^2 the
+// caller's), whose bits are then the f32 kernel's on every input: each
+// score is the same in-order fmaf chain over the same f32 features, each
+// row's X one contiguous read instead of fused_distance_kernel's
+// transposed staging. A block's rows are
 // one span of nrows d elements: its 16-byte-aligned middle comes by
 // 16-byte cp.async, all of a block's copies in flight at once (plain loads
 // of its head and tail), at the first target tile that holds a valid
@@ -689,9 +750,9 @@ fused_distance_kernel(const TX* __restrict__ X, const float* __restrict__ Y,
 // over the widened features in order, so the outputs are the f32 kernel's
 // bits on X widened, K2's and K5's alike. A block whose row groups are all
 // skipped (row need) returns before it reads X.
-template <int EPI, int TR, int TC, int TG>
+template <int EPI, int TR, int TC, int TG, typename TX>
 __global__ void __launch_bounds__(THREADS)
-fused_span_kernel(const __nv_bfloat16* __restrict__ X,
+fused_span_kernel(const TX* __restrict__ X,
                   const float* __restrict__ Y, const float* __restrict__ y2,
                   const float* __restrict__ maskf,
                   const unsigned char* __restrict__ gneed, int group_rows,
@@ -703,11 +764,15 @@ fused_span_kernel(const __nv_bfloat16* __restrict__ X,
   constexpr int G = 32 / TG;  // row groups per warp
   constexpr int UNROLL = TC == 8 ? 4 : 8;
   static_assert(EPI == EPI_ARGMIN_MIN || EPI == EPI_ARGMIN_MIN2, "epilogue");
+  static_assert(sizeof(TX) == 2 || TR == 1, "f32 X: one row a thread");
+  using XE = typename SpanOf<TX>::T;
   extern __shared__ __align__(16) float smem[];
   // one row a thread: [span][target tiles][|y|^2]; more: [X tile][target
   // tiles][|y|^2][span]
   float* const xs = smem;
-  float* const ys = xs + (TR == 1 ? T::RAWB / 4 : FC * XS);
+  float* const ys =
+      xs + (TR == 1 ? T::rawb(sizeof(TX), sizeof(TX) == 2 ? FC : d) / 4
+                    : FC * XS);
   float* const y2s = ys + 2 * FC * YS;
   unsigned char* const raw =
       reinterpret_cast<unsigned char*>(TR == 1 ? smem : y2s + 2 * TT);
@@ -750,9 +815,9 @@ fused_span_kernel(const __nv_bfloat16* __restrict__ X,
   }
   // the span's element 0; this thread's row in it (one row a thread; a row
   // past the block's reads row 0 and is never written)
-  const unsigned short* const xsp = reinterpret_cast<const unsigned short*>(
+  const XE* const xsp = reinterpret_cast<const XE*>(
       raw + (reinterpret_cast<uintptr_t>(X + row0 * d) & 15));
-  const unsigned short* const xr = xsp + (r[0] < nrows ? r[0] : 0) * d;
+  const XE* const xr = xsp + (r[0] < nrows ? r[0] : 0) * d;
 
   constexpr int XR = TR / TG;
   int xrow[XR];
@@ -800,14 +865,16 @@ fused_span_kernel(const __nv_bfloat16* __restrict__ X,
     const bool next = __syncthreads_or(ok);
     staged = next;
     if (next) stage_y(b ^ 1, t0 + TT);
-    if (TR != 1 && first) {
-      repack_transposed<BR>(xs, XS, xsp, nrows, d);
-      __syncthreads();
+    if constexpr (TR != 1) {
+      if (first) {
+        repack_transposed<BR>(xs, XS, xsp, nrows, d);
+        __syncthreads();
+      }
     }
     if (first && x2ext == nullptr) {
       if (TR == 1) {
         for (int f = 0; f < d; ++f) {
-          const float xv = bf16_at(xr, f);
+          const float xv = span_at(xr, f);
           x2[0] = fmaf(xv, xv, x2[0]);
         }
       } else {
@@ -826,7 +893,7 @@ fused_span_kernel(const __nv_bfloat16* __restrict__ X,
     for (int f = 0; f < d; ++f, xp += XS, yp += YS) {
       float xv[TR];
       if constexpr (TR == 1) {
-        xv[0] = bf16_at(xr, f);
+        xv[0] = span_at(xr, f);
       } else {
 #pragma unroll
         for (int k = 0; k < TR / 4; ++k) {
@@ -1792,21 +1859,28 @@ int launch_tile(cudaStream_t s, const TX* X, const float* Y,
                 int m, int d, int* am, float* mn, float* mn2, float* cw_part,
                 int* nb) {
   using T = Tile<TR, TC, TG>;
-  if constexpr (sizeof(TX) == 2 &&
-                (EPI == EPI_ARGMIN_MIN || EPI == EPI_ARGMIN_MIN2)) {
-    if (d <= FC) {
-      auto span = fused_span_kernel<EPI, TR, TC, TG>;
-      static bool span_granted = T::SMEM_SPAN <= 48 * 1024;
+  // the span route: bf16 X for K2 and K5, and f32 X for K2-x with one row
+  // a thread (every f32 K2 and K5 keeps fused_distance_kernel)
+  constexpr bool SPAN_F32 =
+      sizeof(TX) == 4 && EPI == EPI_ARGMIN_MIN && TR == 1;
+  if constexpr ((sizeof(TX) == 2 &&
+                 (EPI == EPI_ARGMIN_MIN || EPI == EPI_ARGMIN_MIN2)) ||
+                SPAN_F32) {
+    if (d <= FC && (!SPAN_F32 || x2ext != nullptr)) {
+      auto span = fused_span_kernel<EPI, TR, TC, TG, TX>;
+      // the grant covers the largest d (FC)
+      constexpr int SMEM_SPAN = T::smem_span(sizeof(TX));
+      static bool span_granted = SMEM_SPAN <= 48 * 1024;
       if (!span_granted) {
         const cudaError_t e = cudaFuncSetAttribute(
-            span, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_SPAN);
+            span, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_SPAN);
         if (e != cudaSuccess) return (int)e;
         span_granted = true;
       }
+      const int smem = sizeof(TX) == 2 ? SMEM_SPAN : T::smem_span(4, d);
       *nb = (n + T::BR - 1) / T::BR;
-      span<<<*nb, THREADS, T::SMEM_SPAN, s>>>(X, Y, y2, maskf, gneed,
-                                              group_rows, x2ext, n, m, d, am,
-                                              mn, mn2);
+      span<<<*nb, THREADS, smem, s>>>(X, Y, y2, maskf, gneed, group_rows,
+                                      x2ext, n, m, d, am, mn, mn2);
       return 0;
     }
   }

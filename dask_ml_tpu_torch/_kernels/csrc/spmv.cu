@@ -94,26 +94,37 @@
 //     turns each column's sum into f32;
 //   * rows >= n are masked inside the kernels: no padding copy.
 //
+// Where a container has too few rows for the persistent grid, it leaves
+// most SMs idle: the served request (n = 2,048, k = 10, d = 100) is 11
+// tiles of 204 rows, 6 blocks of 1,024 threads on 132 SMs. There the plan
+// takes the L2 kernel (below), whose grid gives every L lanes a row. At
+// such a shape the host's work is a large share of a call, so the plans'
+// attribute sets and occupancy queries are made once a process for each
+// (device, kernel, cluster, shared memory) and kept (held_clusters), for
+// the pullback too, and the L2 forward sets no attribute at all.
+//
 // Where d is beyond the cluster's reach, k beyond a tile (512), or n k too
 // small against d to pay for filling shared memory, the d-vector stays in
 // L2: spmv_kernel (a set of L lanes a row, the first version of this
-// port) and pullback_atomic_kernel (the same walk, fused, the same
-// fixed-point q added with 64-bit integer atomics on device memory: the
-// bits of every other route).
+// port; for bf16 values it rounds each v[col] it reads to bf16) and
+// pullback_atomic_kernel (the same walk, fused, the same fixed-point q
+// added with 64-bit integer atomics on device memory: the bits of every
+// other route).
 //
-// bf16 values (the JAX package's bf16 container). Every kernel is a
-// template on the values' element type TV; a bf16 value is widened to f32
-// where it is loaded (four slots are 8 bytes then, one uint2 load). The
-// caller rounds the dense vector to bf16 once and passes it widened back
-// to f32. Forward: a product of two bf16 values is exact in f32, as the
-// Pallas kernel forms it. Pullback: r stays f32 and each product a r is
+// bf16 values (the JAX package's bf16 container). Every kernel is a template
+// on the values' element type TV; a bf16 value is widened to f32 where it is
+// loaded (four slots are 8 bytes then, one uint2 load). The forward multiplies
+// by the dense vector rounded to bf16: the caller of the shared-memory kernels
+// rounds it once and passes it widened back to f32, the L2 kernel rounds each
+// entry it reads. Forward: a product of two bf16 values is exact in f32, as
+// the Pallas kernel forms it. Pullback: r stays f32 and each product a r is
 // formed in f32, as the f32 pullback forms it; the fixed point is the f32
-// pullback's. (The JAX package's bf16 pullback rounds r and each product
-// to bf16; a logistic loss's cotangent sigma(eta) - y is then +-1/2 to
-// bf16's 8 bits and loses what eta adds, and an L-BFGS fit on bf16 values
-// lands far from the f32 fit: PERF.md.) Two things differ from the f32
-// kernels, where the bf16 case was slower than the f32 one on the float
-// kernels' plans (the bound is 25 % lower: 2-byte values):
+// pullback's. (The JAX package's bf16 pullback rounds r and each product to
+// bf16; a logistic loss's cotangent sigma(eta) - y is then +-1/2 to bf16's 8
+// bits and loses what eta adds, and an L-BFGS fit on bf16 values lands far
+// from the f32 fit: PERF.md.) Two things differ from the f32 kernels, where
+// the bf16 case was slower than the f32 one on the float kernels' plans (the
+// bound is 25 % lower: 2-byte values):
 //   * the forward keeps v in shared memory as bf16, 2 bytes a column (the
 //     high half of each rounded f32, widened where it is read: exact), so
 //     at the GLM cell (d = 100,001) v and the staging tiles fit one block
@@ -139,6 +150,8 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <mutex>
 
 namespace cg = cooperative_groups;
 
@@ -169,6 +182,17 @@ __device__ __forceinline__ float ldv(const __nv_bfloat16* p, bool stream) {
 // the d-vector in L2
 // ---------------------------------------------------------------------------
 
+// v[c] as the forward multiplies it: f32, or for bf16 values rounded to
+// bf16 (round-to-nearest-even, as the plain version rounds v to the
+// values' dtype) and widened back, exact
+__device__ __forceinline__ float gather(const float* v, int c, const float*) {
+  return __ldg(v + c);
+}
+__device__ __forceinline__ float gather(const float* v, int c,
+                                        const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(__ldg(v + c)));
+}
+
 template <int L, typename TV>
 __global__ void __launch_bounds__(THREADS)
 spmv_kernel(const TV* __restrict__ values, const int* __restrict__ cols,
@@ -183,7 +207,7 @@ spmv_kernel(const TV* __restrict__ values, const int* __restrict__ cols,
     const int* cr = cols + row * k;
 #pragma unroll 4
     for (int j = lane; j < k; j += L)
-      s = fmaf(ldv(vr + j, true), __ldg(v + __ldcs(cr + j)), s);
+      s = fmaf(ldv(vr + j, true), gather(v, __ldcs(cr + j), vr), s);
   }
 #pragma unroll
   for (int off = L / 2; off > 0; off >>= 1)
@@ -982,6 +1006,85 @@ void fill_config(const Plan& p, cudaStream_t s, cudaLaunchConfig_t* cfg,
   cfg->numAttrs = 1;
 }
 
+// What the host asks the driver once for each (device, kernel, cluster,
+// shared memory) and keeps: the kernel's grant of dynamic shared memory
+// (only ever raised: a kernel's grant is the largest any of its plans
+// asked for) and the clusters the card holds at once (-1 for a grant
+// alone). A process's plans are few; beyond HELD_SLOTS the answers are
+// asked for again at each call. The search launches from threads, so the
+// table is locked.
+struct Held {
+  int device;
+  const void* kernel;
+  int cluster, smem, held;
+};
+constexpr int HELD_SLOTS = 128;
+Held held_table[HELD_SLOTS];
+int held_count = 0;
+std::mutex held_lock;
+
+// kernel's grant raised to at least smem on this device (the lock held)
+cudaError_t grant_locked(int device, const void* kernel, int smem) {
+  int granted = 0;
+  for (int i = 0; i < held_count; ++i)
+    if (held_table[i].device == device && held_table[i].kernel == kernel &&
+        held_table[i].smem > granted)
+      granted = held_table[i].smem;
+  if (smem <= granted) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+void keep_locked(int device, const void* kernel, int cluster, int smem,
+                 int held) {
+  if (held_count < HELD_SLOTS)
+    held_table[held_count++] = Held{device, kernel, cluster, smem, held};
+}
+
+// The grant alone (the bf16 pullback's ring)
+int grant(const void* kernel, int smem) {
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return (int)e;
+  std::lock_guard<std::mutex> guard(held_lock);
+  for (int i = 0; i < held_count; ++i) {
+    const Held& h = held_table[i];
+    if (h.device == device && h.kernel == kernel && h.cluster == -1 &&
+        h.smem == smem)
+      return 0;
+  }
+  e = grant_locked(device, kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  keep_locked(device, kernel, -1, smem, 0);
+  return 0;
+}
+
+// p's kernel granted p->smem, and the clusters of p->cluster blocks the
+// card holds at once in *held
+int held_clusters(const Plan& p, int* held) {
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return (int)e;
+  std::lock_guard<std::mutex> guard(held_lock);
+  for (int i = 0; i < held_count; ++i) {
+    const Held& h = held_table[i];
+    if (h.device == device && h.kernel == p.kernel &&
+        h.cluster == p.cluster && h.smem == p.smem) {
+      *held = h.held;
+      return 0;
+    }
+  }
+  e = grant_locked(device, p.kernel, p.smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  fill_config(p, nullptr, &cfg, &attr);
+  e = cudaOccupancyMaxActiveClusters(held, p.kernel, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  keep_locked(device, p.kernel, p.cluster, p.smem, *held);
+  return 0;
+}
+
 int make_plan(bool pull, long long n, int k, int d, int cluster, bool bf16,
               Plan* p) {
   if (n <= 0 || k <= 0 || k > MAX_K || d <= 0)
@@ -992,16 +1095,10 @@ int make_plan(bool pull, long long n, int k, int d, int cluster, bool bf16,
   if (bytes > SMEM_BLOCK_BYTES) return (int)cudaErrorInvalidValue;
   p->cluster = cluster;
   p->smem = (int)bytes;
-  cudaError_t e = cudaFuncSetAttribute(
-      p->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p->smem);
-  if (e != cudaSuccess) return (int)e;
   p->grid = cluster;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  fill_config(*p, nullptr, &cfg, &attr);
   int held = 0;
-  e = cudaOccupancyMaxActiveClusters(&held, p->kernel, &cfg);
-  if (e != cudaSuccess) return (int)e;
+  const int err = held_clusters(*p, &held);
+  if (err) return err;
   if (held < 1) return (int)cudaErrorLaunchOutOfResources;
   const int R = tile_rows(k);
   const long long tiles = (n + R - 1) / R;
@@ -1072,7 +1169,8 @@ extern "C" int dml_spmv_tile_rows(int k) {
            : CALL(static_cast<const float*>(values)))
 
 // The d-vector in L2. values (n, k) f32 or (vbf16) bf16, cols (n, k) int32
-// in [0, len(v)), v f32 (for bf16 values: rounded to bf16), out (n,) f32,
+// in [0, len(v)), v f32 (for bf16 values the kernel rounds each entry it
+// reads to bf16), out (n,) f32,
 // all device pointers, rows contiguous. Returns cudaGetLastError() after
 // the launch.
 extern "C" int dml_spmv(const void* values, int vbf16, const int* cols,
@@ -1180,9 +1278,8 @@ extern "C" int dml_spmv_pullback_smem(const void* values, int vbf16,
   if (use_ring) {
     p.kernel = ring_kernel(cluster);
     p.smem = ring.smem;
-    e = cudaFuncSetAttribute(
-        p.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
-    if (e != cudaSuccess) return (int)e;
+    err = grant(p.kernel, p.smem);
+    if (err) return err;
     void* args[] = {&values, &cols,    &r,      &n,
                     &k,      &d,       &ring.R, &ring.stages,
                     &ring.part_bytes, &a_bound, &r_bound, &lo, &hi};

@@ -34,6 +34,7 @@ from dask_ml_tpu_torch.base import BaseEstimator, TransformerMixin
 from dask_ml_tpu_torch.config import maybe_host, resolve_device
 from dask_ml_tpu_torch.models import kmeans as core
 from dask_ml_tpu_torch.ops import fast_transform as ftm
+from dask_ml_tpu_torch.ops.fused_distance import _dot_t
 from dask_ml_tpu_torch.ops.pairwise import euclidean_distances
 from dask_ml_tpu_torch.parallel import telemetry
 from dask_ml_tpu_torch.parallel.hierarchy import gather_blocks, hpsum
@@ -499,7 +500,7 @@ def _polish_centers(X, w, labels, fallback_centers, mesh=None):
     oh = (torch.nn.functional.one_hot(labels.long(), k).to(torch.float32)
           * w[:, None])
     cnt = oh.sum(dim=0)
-    sums = oh.T @ X.to(torch.float32)
+    sums = _dot_t(oh.T, X.T)
     if mesh is not None:
         both = hpsum(torch.cat([sums, cnt[:, None]], dim=1), mesh,
                      op="kmeans.sketch.polish")

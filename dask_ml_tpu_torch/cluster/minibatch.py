@@ -38,7 +38,7 @@ import torch
 from dask_ml_tpu_torch.base import BaseEstimator, TransformerMixin
 from dask_ml_tpu_torch.config import maybe_host, resolve_device
 from dask_ml_tpu_torch.models import kmeans as core
-from dask_ml_tpu_torch.ops.fused_distance import fused_argmin_min
+from dask_ml_tpu_torch.ops.fused_distance import _dot_t, fused_argmin_min
 from dask_ml_tpu_torch.parallel.hierarchy import gather_blocks, hpsum
 from dask_ml_tpu_torch.parallel.mesh import collective_mesh, is_sharded
 from dask_ml_tpu_torch.parallel.sharding import prepare_data, unpad_rows
@@ -59,7 +59,7 @@ def _minibatch_update(batch, wb, centers, v, kernel: str = "auto",
     labels, _ = fused_argmin_min(batch, centers, kernel=kernel)
     onehot = (torch.nn.functional.one_hot(labels.long(), k)
               .to(torch.float32) * wb[:, None])
-    sums = onehot.T @ batch.to(torch.float32)  # (k, d), f32 for bf16 X
+    sums = _dot_t(onehot.T, batch.T)  # (k, d), f32 for bf16 X
     counts = onehot.sum(dim=0)  # (k,)
     if mesh is not None:
         both = hpsum(torch.cat([sums, counts[:, None]], dim=1), mesh,

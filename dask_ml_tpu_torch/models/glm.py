@@ -599,6 +599,16 @@ def lbfgs(X, y, w, beta0, mask, *, family="logistic", regularizer="l2",
 
 
 @torch.no_grad()
+def _model_check(fsmooth, prox, beta, f0, g, tt):
+    """ISTA's backtracking operands at ``z = prox(beta − tt·g, tt)``: the
+    smooth objective ``f(z)`` and its quadratic model ``f0 + g·dz +
+    |dz|²/(2·tt)``. :func:`proximal_grad` halves ``tt`` while ``f(z)``
+    exceeds the model by more than 1e-12."""
+    z = prox(beta - tt * g, tt)
+    dz = z - beta
+    return fsmooth(z), f0 + torch.dot(g, dz) + torch.sum(dz * dz) / (2.0 * tt)
+
+
 def proximal_grad(X, y, w, beta0, mask, *, family="logistic",
                   regularizer="l1", lamduh=0.0, max_iter=100, tol=1e-4,
                   kernel="auto", mesh=None):
@@ -616,10 +626,8 @@ def proximal_grad(X, y, w, beta0, mask, *, family="logistic",
         return torch.where(mask > 0, pen_prox(v, t * lam_eff), v)
 
     def model_fails(beta, f0, g, tt):
-        z = prox(beta - tt * g, tt)
-        dz = z - beta
-        quad = f0 + torch.dot(g, dz) + torch.sum(dz * dz) / (2.0 * tt)
-        return fsmooth(z) > quad + 1e-12
+        fz, quad = _model_check(fsmooth, prox, beta, f0, g, tt)
+        return fz > quad + 1e-12
 
     t = torch.tensor(1.0, dtype=sdt, device=beta.device)
     it, done = 0, None

@@ -45,6 +45,7 @@ import torch
 
 from dask_ml_tpu_torch import _kernels
 from dask_ml_tpu_torch.ops.fused_distance import (
+    _dot_t,
     _row_blocks,
     _row_sumsq,
     fused_argmin_min,
@@ -94,10 +95,11 @@ def _weighted_sums(X, w, labels, k: int):
     """Per-cluster weighted (k, d) sums and (k,) counts by a one-hot
     matmul, in f32 whatever X's dtype (a bf16 X is widened: the sums are
     those of the JAX fused and bounded loops, which the single-pass kernel
-    computes too)."""
+    computes too). The sums are :func:`_dot_t`'s: on the CPU a cluster's
+    sum does not depend on the rows around it."""
     onehot = (torch.nn.functional.one_hot(labels.long(), k)
               .to(torch.float32) * w[:, None])
-    return onehot.T @ X.to(torch.float32), onehot.sum(dim=0)
+    return _dot_t(onehot.T, X.T), onehot.sum(dim=0)
 
 
 def _m_step(X, w, labels, centers):
@@ -138,18 +140,19 @@ def _lloyd_stats_ref(X, w, centers):
     (k, d) sums, (k,) counts and the inertia of assigning X to
     ``centers``. With bf16 X the product takes the centers cast to bf16,
     ``|c|²`` comes from the f32 centers, and the sums and ``|x|²`` are
-    those of X widened to f32 (the JAX kernel's bf16 case)."""
+    those of X widened to f32 (the JAX kernel's bf16 case). Products and
+    sums are :func:`_dot_t`'s and :func:`_row_sumsq`'s."""
     k = centers.shape[0]
     Xf = X.to(torch.float32)
-    c2 = (centers * centers).sum(dim=1)
+    c2 = _row_sumsq(centers)
     Cc = centers.to(X.dtype).to(torch.float32)
-    scores = c2[:, None] - 2.0 * (Cc @ Xf.T)  # (k, n)
+    scores = c2[:, None] - 2.0 * _dot_t(Cc, Xf)  # (k, n)
     best = scores.argmin(dim=0)
     oh_w = ((torch.arange(k, device=X.device)[:, None] == best[None, :])
             .to(torch.float32) * w[None, :])
-    sums = oh_w @ Xf
+    sums = _dot_t(oh_w, Xf.T)
     counts = oh_w.sum(dim=1)
-    x2 = (Xf * Xf).sum(dim=1)
+    x2 = _row_sumsq(Xf)
     mind = torch.clamp(scores.min(dim=0).values + x2, min=0.0)
     return sums, counts, (mind * w).sum()
 
@@ -322,11 +325,11 @@ def _lloyd_loop_features(X, w, centers0, tol, *, max_iter: int, mesh):
     while it < max_iter and bool(shift >= tol_t):
         cx = centers.to(X.dtype).to(torch.float32)
         c2 = (centers * centers).sum(dim=1)
-        scores = mpsum(c2[:, None] - 2.0 * (cx @ Xf.T), mesh,
+        scores = mpsum(c2[:, None] - 2.0 * _dot_t(cx, Xf), mesh,
                        op="kmeans.scores")  # (k, n_loc)
         best = scores.argmin(dim=0)
         oh_w = (kidx == best[None, :]).to(torch.float32) * w[None, :]
-        sums = hpsum(oh_w @ Xf, mesh, op="kmeans.mstep")
+        sums = hpsum(_dot_t(oh_w, Xf.T), mesh, op="kmeans.mstep")
         counts = hpsum(oh_w.sum(dim=1), mesh, op="kmeans.mstep")
         mind = torch.clamp(scores.min(dim=0).values + x2, min=0.0)
         inertia = hpsum((mind * w).sum(), mesh, op="kmeans.mstep")

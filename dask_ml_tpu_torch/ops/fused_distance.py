@@ -80,8 +80,41 @@ _EPILOGUES = {"min": (0, "fused_rowwise_min"),
 # ---------------------------------------------------------------------------
 
 
+def _exact_sums(t) -> bool:
+    """Are ``t``'s f32 sums of products taken in float64 and rounded once
+    (:func:`_dot_t`, :func:`_row_sumsq`)? On a CPU tensor: the CPU's BLAS
+    and vector reductions pick their blocking, so the order in which a
+    row's terms are added, from the row count and the host's instruction
+    set, and f32 sums in that order give a row other bits in a block of
+    another size (a ragged rank of a mesh) or on another host. On the
+    card the f32 product and sum stay: they are the plain versions the
+    kernels are held against there, and the kernels take ``|y|²`` from
+    :func:`_row_sumsq`."""
+    return t.device.type != "cuda"
+
+
+def _dot_t(A, B):
+    """``A @ B.T`` in f32 (A, B float32 or bfloat16, already cast as the
+    caller wants them multiplied). On the CPU (:func:`_exact_sums`) the
+    product is taken in float64 and rounded to f32 once: the f32 products
+    are exact there, and the sum of d of them errs by at most
+    d·2⁻⁵³·Σ|a·b|, so every row gets the correctly rounded sum (and on
+    integer-valued data or any data whose sums fit 53 bits, exactly that
+    sum) whatever order the BLAS takes, unless the sum lies within that
+    error of an f32 rounding boundary."""
+    if _exact_sums(A):
+        return (A.to(torch.float64) @ B.to(torch.float64).T).to(
+            torch.float32)
+    return A.to(torch.float32) @ B.to(torch.float32).T
+
+
 def _row_sumsq(X):
-    """Per-row Σx² in f32."""
+    """Per-row Σx² in f32; on the CPU summed in float64 and rounded once,
+    as :func:`_dot_t` sums (so a row's ``|x|²`` equals its product with
+    itself)."""
+    if _exact_sums(X):
+        X64 = X.to(torch.float64)
+        return (X64 * X64).sum(dim=1).to(torch.float32)
     Xf = X.to(torch.float32)
     return (Xf * Xf).sum(dim=1)
 
@@ -90,9 +123,9 @@ def _scores_ref(X, Y, mask):
     """(n, m) reduction scores ``|y|² − 2·x·y`` with masked targets at
     +inf. ``|y|²`` comes from the ORIGINAL Y in f32, the product from Y
     cast to X's dtype (bf16 X: bf16 operands, exact products) accumulated
-    in f32."""
+    in f32 (:func:`_dot_t`)."""
     y2 = _row_sumsq(Y)
-    prod = X.to(torch.float32) @ Y.to(X.dtype).to(torch.float32).T
+    prod = _dot_t(X, Y.to(X.dtype))
     s = y2[None, :] - 2.0 * prod
     if mask is not None:
         s = torch.where(mask.to(torch.bool)[None, :], s,
@@ -263,7 +296,8 @@ def _fused_cuda(X, Y, mask, epilogue: str, w=None, row_need=None, x2=None,
     Y. With bf16 X, ``min`` and ``argmin_weight`` run the source's
     tensor-core kernel (persistent tiles of ``dml_fused_rows_per_block()``
     rows, so ``cw_part`` keeps its sizing); X may be a view at any element
-    offset."""
+    offset. f32 ``argmin_min`` with ``x2`` (K2-x) at ``m ≤ 8`` and ``d ≤
+    56`` runs the source's span kernel, the f32 tile kernel's bits."""
     from dask_ml_tpu_torch._kernels import build
 
     if X.dtype not in (torch.float32, torch.bfloat16) or X.dim() != 2:

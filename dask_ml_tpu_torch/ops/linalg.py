@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import torch
 
+from dask_ml_tpu_torch.ops.fused_distance import _dot_t
 from dask_ml_tpu_torch.parallel import hierarchy as hier
 from dask_ml_tpu_torch.parallel import mesh as mesh_lib
 from dask_ml_tpu_torch.parallel import precision as px
@@ -88,7 +89,7 @@ def _cholesky_qr2(Y, mesh=None):
     come out exactly 0. Over ``mesh`` Y is the rank's block of rows and
     each Gram is summed over the ranks (op ``tsqr.gram``)."""
     def one(Yc):
-        G = Yc.T @ Yc
+        G = _dot_t(Yc.T, Yc.T)
         if mesh is not None:
             G = hier.hpsum(G, mesh, op="tsqr.gram")
         ell = G.shape[0]

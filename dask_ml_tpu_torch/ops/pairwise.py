@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from dask_ml_tpu_torch.config import resolve_device
+from dask_ml_tpu_torch.ops.fused_distance import _dot_t, _row_sumsq
 
 
 def _as_float_tensor(A, device=None):
@@ -82,12 +83,28 @@ def _sqrt(d2):
     return torch.sqrt(d2.to(torch.float64)).to(d2.dtype)
 
 
+def _dot(X, Y):
+    """``X @ Y.T``; an f32 pair through the fused family's
+    :func:`~dask_ml_tpu_torch.ops.fused_distance._dot_t`, so on the CPU a
+    row's products do not depend on the rows around it."""
+    if X.dtype == torch.float32:
+        return _dot_t(X, Y)
+    return X @ Y.T
+
+
+def _sumsq(X):
+    """Per-row Σx², an f32 X summed as :func:`_dot` sums."""
+    if X.dtype == torch.float32:
+        return _row_sumsq(X)
+    return (X * X).sum(dim=1)
+
+
 def sq_euclidean(X, Y):
     """Squared Euclidean distance matrix, clamped at 0."""
     X, Y = _pair(X, Y)
-    x2 = (X * X).sum(dim=1)[:, None]
-    y2 = (Y * Y).sum(dim=1)[None, :]
-    return torch.clamp(x2 + y2 - 2.0 * (X @ Y.T), min=0.0)
+    x2 = _sumsq(X)[:, None]
+    y2 = _sumsq(Y)[None, :]
+    return torch.clamp(x2 + y2 - 2.0 * _dot(X, Y), min=0.0)
 
 
 def euclidean_distances(X, Y=None):
@@ -124,7 +141,7 @@ def _gamma(X, gamma):
 
 def linear_kernel(X, Y=None):
     X, Y = _pair(X, Y)
-    return X @ Y.T
+    return _dot(X, Y)
 
 
 def rbf_kernel(X, Y=None, gamma=None):
@@ -134,12 +151,12 @@ def rbf_kernel(X, Y=None, gamma=None):
 
 def polynomial_kernel(X, Y=None, degree=3, gamma=None, coef0=1.0):
     X, Y = _pair(X, Y)
-    return (_gamma(X, gamma) * (X @ Y.T) + coef0) ** degree
+    return (_gamma(X, gamma) * _dot(X, Y) + coef0) ** degree
 
 
 def sigmoid_kernel(X, Y=None, gamma=None, coef0=1.0):
     X, Y = _pair(X, Y)
-    return torch.tanh(_gamma(X, gamma) * (X @ Y.T) + coef0)
+    return torch.tanh(_gamma(X, gamma) * _dot(X, Y) + coef0)
 
 
 PAIRWISE_KERNEL_FUNCTIONS = {

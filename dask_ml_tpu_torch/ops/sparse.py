@@ -66,12 +66,14 @@ held against) adds with float atomics on CUDA and does not.
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 
 import numpy as np
 import torch
 
 from dask_ml_tpu_torch import _kernels
+from dask_ml_tpu_torch._kernels import build
 
 __all__ = [
     "SparseRows",
@@ -292,6 +294,7 @@ _MAX_TILE_K = _TILE_SLOTS // 4
 #: the pullback in a cluster of 8 slower than device atomics (PERF.md has
 #: the numbers).
 _PLAN_CLUSTERS = {False: (1, 2), True: (1, 2, 4)}
+_VALUE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _tile_rows(k: int) -> int:
@@ -330,38 +333,57 @@ def dvector_plan(n: int, k: int, d: int, *, pullback: bool = False,
     stays in L2 where ``d`` is beyond the largest cluster that still beats
     the L2 kernel, where a row is wider than a tile, and where the
     container's ``n * k`` slots are fewer than the floats a full grid
-    copies into shared memory (every cluster its own ``d``)."""
-    n, k, d = int(n), int(k), int(d)
+    copies into shared memory (every cluster its own ``d``), and for a
+    forward on one block whose tiles (``_tile_rows(k)`` rows each, one a
+    group) would give the persistent grid fewer blocks than the card has
+    SMs: the served request (2,048, 10, 100) is 11 tiles, 6 blocks, where
+    the L2 kernel's grid spreads the rows over every SM (PERF.md has the
+    timings of both)."""
+    return _plan(int(n), int(k), int(d), bool(pullback), dtype)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(n: int, k: int, d: int, pullback: bool, dtype) -> int:
+    """:func:`dvector_plan`, kept for the shapes a process has asked for
+    (a pure function of its arguments and the card's constants)."""
     if n < 1 or k < 1:
         return 0
-    for cluster in _PLAN_CLUSTERS[bool(pullback)]:
+    for cluster in _PLAN_CLUSTERS[pullback]:
         if _fits(k, d, cluster, pullback, dtype):
-            return cluster if n * k >= (_SMS // cluster) * d else 0
+            if n * k < (_SMS // cluster) * d:
+                return 0
+            tiles = -(-n // _tile_rows(k))
+            if not pullback and cluster == 1 and -(-tiles // _GROUPS) < _SMS:
+                return 0
+            return cluster
     return 0
 
 
 def _check_kernel_args(what, values, cols, x, xname):
-    """What both K6 wrappers hold their arguments to; returns (n, k)."""
-    if values.dim() != 2 or cols.shape != values.shape:
+    """What both K6 wrappers hold their arguments to; returns (n, k). The
+    cheapest tests first: at the served shapes a call's host work is most
+    of its time."""
+    shape = values.shape
+    if len(shape) != 2 or cols.shape != shape:
         raise ValueError(
             f"the {what} kernel takes values and cols of one (n, k) shape; "
             f"got {tuple(values.shape)} and {tuple(cols.shape)}")
-    if (values.dtype not in (torch.float32, torch.bfloat16)
-            or cols.dtype != torch.int32
+    if (values.dtype not in _VALUE_DTYPES or cols.dtype != torch.int32
             or x.dtype != torch.float32 or x.dim() != 1):
         raise ValueError(
             f"the {what} kernel takes f32 or bf16 values, int32 cols and a "
             f"1-D f32 "
             f"{xname}; got {values.dtype}, {cols.dtype} and {x.dtype} of "
             f"shape {tuple(x.shape)}")
-    if not (values.device == cols.device == x.device and values.is_cuda):
+    if not (values.is_cuda
+            and values.get_device() == cols.get_device() == x.get_device()):
         raise ValueError(
             f"the {what} kernel takes CUDA tensors on one device; got "
             f"{values.device}, {cols.device}, {x.device}")
     if not (values.is_contiguous() and cols.is_contiguous()
             and x.is_contiguous()):
         raise ValueError(f"the {what} kernel takes contiguous tensors")
-    n, k = values.shape
+    n, k = shape
     if k < 1:
         raise ValueError(f"the {what} kernel takes k >= 1 slots per row")
     return n, k
@@ -378,21 +400,21 @@ def _spmv_cuda(values, cols, v, cluster=None):
     ``(cluster, n)`` scratch of partial outputs are allocated here; the
     kernels run on PyTorch's current stream and do not synchronise. bf16
     values are the kernel's bf16 case (counters ``spmv_bf16`` /
-    ``spmv_l2_bf16``): ``v`` is rounded to bf16 here, once, and handed
-    over widened to f32; the shared-memory kernel keeps it as bf16."""
-    from dask_ml_tpu_torch._kernels import build
-
+    ``spmv_l2_bf16``), which multiplies by ``v`` rounded to bf16: the L2
+    kernel rounds each entry as it reads it; for the shared-memory kernels
+    ``v`` is rounded here, once, and handed over widened to f32, and they
+    keep it as bf16."""
     n, k = _check_kernel_args("SpMV", values, cols, v, "v")
-    d = int(v.numel())
+    d = v.shape[0]
     bf16 = values.dtype == torch.bfloat16
     suffix = "_bf16" if bf16 else ""
-    if bf16:
-        v = v.to(torch.bfloat16).to(torch.float32)
-    out = torch.empty(n, dtype=torch.float32, device=values.device)
-    if n == 0:
-        return out
     if cluster is None:
         cluster = dvector_plan(n, k, d, dtype=values.dtype)
+    if bf16 and cluster != 0:  # the L2 kernel rounds v as it reads it
+        v = v.to(torch.bfloat16).to(torch.float32)
+    out = values.new_empty(n, dtype=torch.float32)
+    if n == 0:
+        return out
     lib = build.load("spmv")
     stream = build.stream_of(values)
     if cluster == 0:
@@ -437,8 +459,6 @@ def _values_bound(values):
         return held[1]
     if values.is_cuda and values.dtype in (torch.float32, torch.bfloat16) \
             and values.is_contiguous():
-        from dask_ml_tpu_torch._kernels import build
-
         bound = torch.empty(1, dtype=torch.int32, device=values.device)
         err = build.load("spmv").dml_spmv_absmax(
             values.data_ptr(), int(values.dtype == torch.bfloat16),
@@ -460,8 +480,6 @@ def _pullback_walk(values, cols, r, d: int, cluster: int) -> str:
     """The walk K6-b takes in a cluster of ``cluster`` blocks for these
     CUDA tensors: ``"ring"`` (bf16 values in a cluster of 2 or 4, every
     tensor 16-byte aligned, the ring beside the part) or ``"tiles"``."""
-    from dask_ml_tpu_torch._kernels import build
-
     ok = build.load("spmv").dml_spmv_pullback_rings(
         values.data_ptr(), int(values.dtype == torch.bfloat16),
         cols.data_ptr(), r.data_ptr(), int(values.shape[1]), int(d),
@@ -487,8 +505,6 @@ def _pullback_cuda(values, cols, r, d, cluster=None, walk="auto"):
     every block of it through one TMA multicast copy
     (:func:`_pullback_walk`). ``walk`` (a test's or a timing's) names
     another walk of the bf16 case (:data:`_WALKS`)."""
-    from dask_ml_tpu_torch._kernels import build
-
     n, k = _check_kernel_args("pullback", values, cols, r, "r")
     bf16 = values.dtype == torch.bfloat16
     suffix = "_bf16" if bf16 else ""

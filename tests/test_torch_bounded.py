@@ -104,23 +104,113 @@ def test_bounded_prune_off_is_identical(small_blocks):
     assert int(a[5]["rows_skipped"].sum()) > 0
 
 
+def _fragile_groups(X, w, c0, tol, trace, its):
+    """(its,) int: at each iteration, the ``_FUSED_BLK``-row groups whose
+    skip decision the other package's rounding may flip. A group is
+    skipped when every weighted row has ``ub < min lb``. The two packages
+    hold the same labels, so their ``ub`` and ``min lb`` differ only
+    through the values they were built from, each of which is measured
+    here in float64 along the port's trajectory:
+
+    - the centers: the JAX loop's after each iteration (``max_iter = t``)
+      against the port's (``trace["centers"]``), ``Δc_t`` the largest
+      distance between the two;
+    - the seeds: at its last evaluation a row's bounds were ``(1 ± s)·
+      sqrt(d ± slack)`` of each package's own ``argmin_min2`` against its
+      own centers (the JAX package's XLA function on the JAX centers);
+      the slack terms differ by at most 2⁻²³ of themselves;
+    - every movement ``|c_new − c_old|`` differs by at most ``Δc_new +
+      Δc_old`` (triangle inequality) plus each package's rounding of it,
+      2⁻²³·(D + 2) of the movement; ``ub`` takes one movement an
+      iteration, ``min lb`` one.
+
+    A row's ``ub − min lb`` then differs by at most its seeds' difference
+    plus twice the movement terms since that evaluation, times ``1 + s``.
+    A group is fragile when some weighted row lies within that of its
+    threshold; elsewhere the decisions must agree."""
+    D = X.shape[1]
+    blk = tfd._FUSED_BLK
+    pad = -X.shape[0] % blk
+    X64 = np.pad(X.astype(np.float64), ((0, pad), (0, 0)))
+    x2 = (X64 * X64).sum(1)
+    u, s = 2.0 ** -23, core._BOUND_SLACK
+    cp = [np.asarray(c0)] + list(trace["centers"])
+    cj = [np.asarray(c0)]
+    for t in range(1, its + 1):
+        cj.append(np.asarray(jcore.lloyd_loop_bounded(
+            *map(jnp.asarray, (X, w, c0)), jnp.asarray(tol), max_iter=t,
+            kernel="xla")[0]))
+    dc = [np.linalg.norm(a.astype(np.float64) - b, axis=1).max()
+          for a, b in zip(cp, cj)]
+    Xp = np.pad(X, ((0, pad), (0, 0)))
+
+    def seeds(c, own):
+        _, d1, d2 = own(c)
+        c2 = float((c.astype(np.float64) ** 2).sum(1).max())
+        sl = core._BOUND_EPS_ABS * (x2 + c2)
+        d1, d2 = np.asarray(d1, np.float64), np.asarray(d2, np.float64)
+        return (np.sqrt(d1 + sl), np.sqrt(np.clip(d2 - sl, 0, None)),
+                np.sqrt(u * sl))
+
+    seed_gap = np.zeros(len(x2))
+    moved = np.zeros(len(x2))
+    fragile = []
+    for t in range(its):
+        ub, lbmin, w_pos = trace["need"][t]
+        if t:
+            step = np.linalg.norm(cp[t].astype(np.float64) - cp[t - 1],
+                                  axis=1).max()
+            moved += 2 * (dc[t] + dc[t - 1] + u * (D + 2) * step)
+        eps = (seed_gap + moved) * (1 + s)
+        near = (np.abs(ub - lbmin) <= eps) & (eps > 0) & w_pos
+        fragile.append(int(near.reshape(-1, blk).any(1).sum()))
+        ev = np.repeat((w_pos & (ub >= lbmin)).reshape(-1, blk).any(1), blk)
+        pu, pl, ps = seeds(cp[t], lambda c: tfd.fused_argmin_min2(
+            torch.from_numpy(Xp), torch.from_numpy(np.asarray(c))))
+        ju, jl, js = seeds(cj[t], lambda c: jfd.fused_argmin_min2(
+            jnp.asarray(Xp), jnp.asarray(c), kernel="xla"))
+        gap = np.maximum(np.abs(pu - ju), np.abs(pl - jl)) + ps + js
+        seed_gap = np.where(ev, gap, seed_gap)
+        moved = np.where(ev, 0.0, moved)
+    return np.array(fragile)
+
+
 @pytest.mark.parametrize("k,seed,iseed,weighted", [(6, 3, 1, False),
                                                    (6, 3, 1, True),
                                                    (5, 1, 0, False),
                                                    (8, 4, 1, False)])
-def test_bounded_matches_jax_xla(k, seed, iseed, weighted, small_blocks):
+def test_bounded_matches_jax_xla(k, seed, iseed, weighted, small_blocks,
+                                 monkeypatch):
     """Held against the JAX package's XLA bounded loop from the same init
     (not its interpret-mode Pallas loop, a known failing reference). The
     two packages round the scores and the M-step in different orders, so
-    a row within a few ulps of a tie or of its bound may go another way;
-    on these seeds (k true clusters, k fitted) none does, and every skip
-    decision agrees."""
+    a row within a few ulps of a tie or of its bound may go another way.
+    On these seeds (k true clusters, k fitted) no label does: ``n_iter``
+    and the labels are equal, the centers within rtol 1e-5. The skip
+    decisions are equal at every iteration but those where a group lies
+    within the float64 bound of :func:`_fragile_groups` of its threshold;
+    there the counts differ by at most that many groups."""
     n = 4000
     X = _kdd_shaped(n, 7, seed=seed, kt=k)
     w = (np.random.RandomState(5).uniform(0.5, 2.0, n).astype(np.float32)
          if weighted else np.ones(n, np.float32))
     c0 = _init(X, k, iseed)
     tol = np.float32(1e-6)
+    trace = {"need": [], "centers": []}
+    need, move = core._bounded_need, core._bounded_move
+
+    def traced_need(ub, lb, w_pos, *, prune):
+        lbmin = lb.min(dim=1).values
+        trace["need"].append((ub.double().numpy(), lbmin.double().numpy(),
+                              w_pos.numpy()))
+        return need(ub, lb, w_pos, prune=prune)
+
+    def traced_move(ub, lb, labels, centers, new_centers, gid, G):
+        trace["centers"].append(new_centers.numpy().copy())
+        return move(ub, lb, labels, centers, new_centers, gid, G)
+
+    monkeypatch.setattr(core, "_bounded_need", traced_need)
+    monkeypatch.setattr(core, "_bounded_move", traced_move)
     jc, jin, jn, _, jl, jst = jcore.lloyd_loop_bounded(
         *map(jnp.asarray, (X, w, c0)), jnp.asarray(tol), max_iter=60,
         kernel="xla")
@@ -131,8 +221,13 @@ def test_bounded_matches_jax_xla(k, seed, iseed, weighted, small_blocks):
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-5,
                                atol=1e-5)
     np.testing.assert_allclose(float(tin), float(jin), rtol=1e-5)
-    np.testing.assert_array_equal(tst["rows_skipped"][:tn].numpy(),
-                                  np.asarray(jst["rows_skipped"])[:tn])
+    got = tst["rows_skipped"][:tn].numpy()
+    want = np.asarray(jst["rows_skipped"])[:tn]
+    if not np.array_equal(got, want):
+        its = int(np.nonzero(got != want)[0].max()) + 1
+        fragile = _fragile_groups(X, w, c0, tol, trace, its)
+        gap = np.abs(got[:its] - want[:its])
+        assert (gap <= fragile * tfd._FUSED_BLK).all(), (gap, fragile)
     assert int(tst["rows_skipped"][:tn].sum()) > 0
 
 

@@ -514,7 +514,7 @@ def test_bf16_plain_is_f32_plain_on_the_rounded_operands():
     Yr = torch.from_numpy(Y).to(torch.bfloat16).float()
     y2 = tfd._row_sumsq(_t(Y))
     s16 = tfd._scores_ref(tX, _t(Y), None)
-    s32 = y2[None, :] - 2.0 * (tX.float() @ Yr.T)
+    s32 = y2[None, :] - 2.0 * tfd._dot_t(tX.float(), Yr)
     assert torch.equal(s16, s32)
     ga, gm = tfd.fused_argmin_min(tX, _t(Y))
     wa, wm = jfd.fused_argmin_min(jnp.asarray(X, jnp.bfloat16),
@@ -628,3 +628,27 @@ def test_near_ties_flags_duplicates_and_not_separated_blobs():
     lone[6] = True
     assert not tfd._near_ties(_tb(X.astype(np.float32)), _t(Y),
                               _t(lone)).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows", [1, 3, 7, 129, 1000])
+def test_plain_rows_do_not_depend_on_the_rows_around(rows, dtype):
+    """Each row's plain scores, |x|², minima and argmins are the same bits
+    whether the row is scored with all of X or within a block of
+    ``rows`` rows (a ragged rank's block of a mesh): the CPU's sums are
+    taken in float64 and rounded once, whatever blocking the host's BLAS
+    picks for the row count."""
+    rng = np.random.RandomState(rows)
+    X = (rng.randn(1003, 13) * np.exp(rng.randn(1, 13))).astype(np.float32)
+    Y = X[rng.choice(1003, 9, replace=False)] + np.float32(0.031)
+    tX = _t(X).to(dtype)
+    full = tfd._scores_ref(tX, _t(Y), None)
+    fa, fm = tfd.fused_argmin_min(tX, _t(Y))
+    x2 = tfd._row_sumsq(tX)
+    for lo, hi in ((0, rows), (rows, 1003)):
+        assert torch.equal(tfd._scores_ref(tX[lo:hi], _t(Y), None),
+                           full[lo:hi])
+        assert torch.equal(tfd._row_sumsq(tX[lo:hi]), x2[lo:hi])
+        pa, pm = tfd.fused_argmin_min(tX[lo:hi], _t(Y))
+        assert torch.equal(pa, fa[lo:hi]) and torch.equal(pm, fm[lo:hi])

@@ -76,10 +76,59 @@ SOLVER_KW = {
 }
 
 
+def _f64_margin(X, y, w, beta, z, family, tt):
+    """``f(z) − model`` in float64 (numpy) for the dense design ``X``:
+    the smooth mean loss of the three families, the gradient at ``beta``
+    and ISTA's quadratic model ``f(beta) + g·dz + |dz|²/(2·tt)``."""
+    X, y, w = (np.asarray(a, np.float64) for a in (X, y, w))
+    beta, z = np.asarray(beta, np.float64), np.asarray(z, np.float64)
+
+    def loss_grad(b):
+        eta = X @ b
+        if family == "logistic":
+            ell, dl = np.logaddexp(eta, 0) - y * eta, 1 / (1 + np.exp(-eta))
+            dl = dl - y
+        elif family == "normal":
+            ell, dl = 0.5 * (eta - y) ** 2, eta - y
+        else:
+            ell, dl = np.exp(eta) - y * eta, np.exp(eta) - y
+        sw = max(w.sum(), 1.0)
+        return (w * ell).sum() / sw, X.T @ (w * dl) / sw
+
+    f0, g = loss_grad(beta)
+    dz = z - beta
+    return loss_grad(z)[0] - (f0 + g @ dz + dz @ dz / (2.0 * tt))
+
+
 @pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
 @pytest.mark.parametrize("family", ["logistic", "normal", "poisson"])
 @pytest.mark.parametrize("solver", list(SOLVER_KW))
-def test_solver_matches_jax(solver, family, sparse):
+def test_solver_matches_jax(solver, family, sparse, monkeypatch):
+    """The port against the JAX package from the same start: the same
+    ``n_iter`` and coefficients within ``COEF_TOL``.
+
+    ISTA (``proximal_grad``) halves its step ``t`` while ``f(z)`` exceeds
+    the quadratic model, a test that can land within f32 rounding of its
+    threshold; it stops after the first step with ``max|Δβ| ≤
+    tol·max|β|`` (``β`` the iterate the step starts from). Where the two
+    ``n_iter`` differ, the runs must part at one iteration and for that
+    reason. The iterates of both runs (the JAX package's through its
+    jitted loop cut at ``max_iter = i``) agree within ``COEF_TOL`` up to
+    iteration ``p − 1`` and part at ``p``, the last iteration of the run
+    that stops first (``F``); the other (``O``) stops one later. At ``p``
+    the two steps differ by a factor of 2 (one run took ``t``, the other
+    ``2t``: one test decided the other way), and the port's test at the
+    larger ``t`` is decided by rounding: its float64 margin ``f(z) −
+    model`` lies closer to the threshold than the port's f32 value of it
+    lies to the float64 one. The coefficient bound then follows from this
+    one-step offset and the stopping rule: from the same iterate, ``O``'s
+    doubled step puts it one ``F``-step ahead, ``β_O(p) = β_F(p) +
+    Δ_F(p)`` (checked within ``COEF_TOL``), with ``max|Δ_F(p)| ≤
+    tol·max|β_F(p−1)|`` since ``F`` stopped there; ``O``'s last step
+    obeys ``max|Δ_O(p+1)| ≤ tol·max|β_O(p)|``. Hence ``max|β_O(p+1) −
+    β_F(p)| ≤ tol·(max|β_F(p−1)| + max|β_O(p)|)`` beyond the rounding
+    that ``COEF_TOL`` allows: the coefficients are held to ``COEF_TOL``
+    with that sum added to its ``atol``."""
     dense, ys = _problem()
     n, d = dense.shape
     Xi = np.concatenate([dense, np.ones((n, 1), np.float32)], axis=1)
@@ -96,11 +145,66 @@ def test_solver_matches_jax(solver, family, sparse):
     kw = dict(family=family, max_iter=25, tol=1e-4, **SOLVER_KW[solver])
     bj, nj = getattr(jcore, solver)(Xj, jnp.asarray(y), jnp.asarray(w),
                                     jnp.zeros(d + 1), jnp.asarray(mask), **kw)
+    checks, check = [], tcore._model_check
+
+    def traced_check(fsmooth, prox, beta, f0, g, tt):
+        fz, quad = check(fsmooth, prox, beta, f0, g, tt)
+        z = prox(beta - tt * g, tt)
+        b = beta.numpy().copy()
+        # a new iterate starts a new iteration (each iteration tests once
+        # at least, from the iterate its step starts from)
+        it = (0 if not checks else checks[-1][0]
+              + (not np.array_equal(checks[-1][1], b)))
+        checks.append((it, b, float(tt), float(fz - quad),
+                       _f64_margin(Xi, y, w, b, z.numpy(), family,
+                                   float(tt))))
+        return fz, quad
+
+    monkeypatch.setattr(tcore, "_model_check", traced_check)
     bt, nt = tcore.solve(solver, Xt, torch.as_tensor(y), torch.as_tensor(w),
                          torch.zeros(d + 1), torch.as_tensor(mask), **kw)
     assert bt.dtype == torch.float32 and isinstance(nt, int)
-    assert nt == int(nj)
-    np.testing.assert_allclose(bt.numpy(), np.asarray(bj), **COEF_TOL)
+    if nt == int(nj):
+        np.testing.assert_allclose(bt.numpy(), np.asarray(bj), **COEF_TOL)
+        return
+    assert solver == "proximal_grad" and abs(nt - int(nj)) == 1
+    # each run's iterate after i iterations
+    port = {c[0]: c[1] for c in checks}
+    port[nt] = bt.numpy()
+    p = min(nt, int(nj))
+
+    def jax_after(i):
+        return np.asarray(getattr(jcore, solver)(
+            Xj, jnp.asarray(y), jnp.asarray(w), jnp.zeros(d + 1),
+            jnp.asarray(mask), **dict(kw, max_iter=i))[0])
+
+    jax_it = {i: jax_after(i) for i in range(1, p + 1)}
+    parts = [i for i in range(1, p + 1)
+             if not np.allclose(port[i], jax_it[i], **COEF_TOL)]
+    assert parts and parts[0] == p, (parts, p)
+    start = port[p - 1]
+    # the steps at p: t and 2t from the same iterate
+    ratio = (np.abs(jax_it[p] - jax_it.get(p - 1, start)).max()
+             / np.abs(port[p] - start).max())
+    assert abs(abs(np.log2(ratio)) - 1) < 0.05, ratio
+    t_port = [c[2] for c in checks if c[0] == p - 1][-1]
+    # the test decided by rounding: the port's at the larger step
+    t_big = t_port * (2.0 if ratio > 1 else 1.0)
+    decided = [c for c in checks if c[0] == p - 1 and c[2] == t_big]
+    assert decided, (t_port, ratio)
+    _, _, _, margin32, margin64 = decided[0]
+    assert abs(margin64 - 1e-12) <= abs(margin32 - margin64), decided[0]
+    if nt == p:  # the port stops first
+        first, step, ahead = start, port[p] - start, jax_it[p]
+        assert np.allclose(ahead, port[p] + step, **COEF_TOL)
+    else:
+        first = jax_it.get(p - 1, start)
+        step, ahead = jax_it[p] - first, port[p]
+        assert np.allclose(ahead, jax_it[p] + step, **COEF_TOL)
+    offset = kw["tol"] * (np.abs(first).max() + np.abs(ahead).max())
+    np.testing.assert_allclose(bt.numpy(), np.asarray(bj),
+                               rtol=COEF_TOL["rtol"],
+                               atol=COEF_TOL["atol"] + offset)
 
 
 def test_seams_match_jax():

@@ -10,11 +10,14 @@ On integer-valued inputs every product and sum is exact, so kernel and
 plain version must agree bit for bit.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
 
 from dask_ml_tpu_torch import _kernels, config_context
+from dask_ml_tpu_torch._kernels import build
 from dask_ml_tpu_torch.cluster import KMeans
 from dask_ml_tpu_torch.datasets import make_sparse_classification
 from dask_ml_tpu_torch.linear_model import LogisticRegression
@@ -438,8 +441,11 @@ def _routes(k, d, pullback, dtype=torch.float32):
                   if sps._fits(k, d, c, pullback, dtype)]
 
 
-def _forward_launches():
-    return _kernels.launches["spmv"] + _kernels.launches["spmv_l2"]
+def _forward_launches(suffix=""):
+    """Launches of K6's forward on either route (``suffix``: ``_bf16`` for
+    the bf16 case)."""
+    return (_kernels.launches["spmv" + suffix]
+            + _kernels.launches["spmv_l2" + suffix])
 
 
 @pytest.mark.parametrize("n,k,d", [(1, 1, 7), (1, 101, 100_001),
@@ -698,7 +704,9 @@ def test_sparse_lbfgs_fit_on_card(cuda):
     X, y = make_sparse_classification(20_000, 2_000, 0.01, random_state=1)
     _kernels.reset_launches()
     est = LogisticRegression(solver="lbfgs", max_iter=10).fit(X, y)
-    assert _kernels.launches["spmv"] > 0  # 21 slots a row: one block
+    # 20,000 rows of 21 slots: 209 tiles, too few for the one-block grid,
+    # so the plan gathers from L2
+    assert _forward_launches() > 0
     assert _kernels.launches["spmv_pullback"] > 0
     assert est.score(X, y) > 0.6
     with config_context(device="cpu"):
@@ -737,7 +745,7 @@ def test_sparse_admm_outer_step_kernel_against_plain(cuda):
     _kernels.reset_launches()
     zc, _ = glm_core.admm(*args, n_shards=2, lamduh=1.0, max_iter=1,
                           state=state, kernel="cuda")
-    assert _kernels.launches["spmv"] > 0
+    assert _forward_launches() > 0
     assert _kernels.launches["spmv_pullback"] > 0
     zt, _ = glm_core.admm(*args, n_shards=2, lamduh=1.0, max_iter=1,
                           state=state, kernel="torch")
@@ -961,7 +969,7 @@ def test_sparse_partial_fit_step_through_the_kernels(cuda):
         _kernels.reset_launches()
         with torch.no_grad():
             got.append(step(state, (A, yd, w))[0])
-        assert _kernels.launches["spmv"] == (kernel == "cuda")
+        assert _forward_launches() == (kernel == "cuda")
         assert _kernels.launches["spmv_pullback"] == (kernel == "cuda")
     assert torch.equal(got[0], got[1])
     assert float(torch.linalg.norm(got[0] - got[2])
@@ -1901,11 +1909,10 @@ def test_bf16_sparse_glm_step_through_the_kernels(cuda):
     with config_context(device="cuda", precision="bf16"):
         _kernels.reset_launches()
         est = LogisticRegression(solver="lbfgs", max_iter=3).fit(X, y)
-        assert _kernels.launches["spmv_bf16"] + \
-            _kernels.launches["spmv_l2_bf16"] > 0
+        assert _forward_launches("_bf16") > 0
         assert _kernels.launches["spmv_pullback_bf16"] + \
             _kernels.launches["spmv_pullback_l2_bf16"] > 0
-        assert _kernels.launches["spmv"] == 0
+        assert _forward_launches() == 0
     assert est.coef_.dtype == np.float32
     rel = np.linalg.norm(est.coef_ - f32.coef_) / np.linalg.norm(f32.coef_)
     assert rel <= 5e-2, rel
@@ -2387,6 +2394,139 @@ def test_elastic_admm_two_hosts_on_one_card_with_a_kill(cuda, tmp_path,
         assert torch.equal(a, b)
     assert run0.hosts_lost == 1 and 1 <= run0.blocks_rebalanced < nb
     if kind == "sparse":
-        assert _kernels.launches["spmv"] + _kernels.launches["spmv_l2"] > 0
+        assert _forward_launches() > 0
         assert (_kernels.launches["spmv_pullback"]
                 + _kernels.launches["spmv_pullback_l2"]) > 0
+
+
+# ---------------------------------------------------------------------------
+# K6 on short containers (the L2 kernel) and the f32 span route of K2-x
+# ---------------------------------------------------------------------------
+
+
+def _offset_copy(t, dev):
+    """``t`` as a view one element into a larger buffer (an odd offset)."""
+    return torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(
+        t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [1, 100, 1_001])
+@pytest.mark.parametrize("k", [1, 10, 21, 101, 512])
+@pytest.mark.parametrize("n", [1, 7, 2048, 2049, 125_000])
+def test_spmv_l2_and_plan_bitexact_int_valued(cuda, n, k, d, dtype):
+    """The L2 forward (the plan's answer for short containers) and the
+    plan's own route: on integer values the plain version's bits, f32 and
+    bf16 values alike, and the same bits from a container at an odd
+    element offset; on float values their own bits again and again (each
+    row summed in one fixed order). For bf16 values the L2 kernel rounds
+    ``v`` to bf16 as it reads it: integers up to 600 in ``v`` (257 and
+    beyond not all bf16) give the plain version's bits."""
+    rng = np.random.default_rng(7 * n + 3 * k + d)
+    A = _ell_ints(rng, n, k, d, cuda, -4, 4)
+    vals = A.values.to(dtype)
+    v = _ints(rng, (d,), cuda, -600, 600)
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    plan = sps.dvector_plan(n, k, d, dtype=dtype)
+    off = [_offset_copy(t, cuda) for t in (vals, A.cols)]
+    assert off[0].storage_offset() == 1
+    vf = (vals.float() * 0.37 + 0.011 * (vals != 0)).to(dtype)
+    x = v * 0.00713 + 0.05
+    for c in sorted({0, plan}):
+        name = ("spmv" if c else "spmv_l2") + suffix
+        before = _kernels.launches[name]
+        got = sps._spmv_cuda(vals, A.cols, v, cluster=c)
+        assert _kernels.launches[name] == before + 1
+        assert torch.equal(got, sps._spmv_ref(vals, A.cols, v)), c
+        assert torch.equal(sps._spmv_cuda(off[0], off[1], v, cluster=c),
+                           got), c
+        first = sps._spmv_cuda(vf, A.cols, x, cluster=c)
+        for _ in range(3):
+            assert torch.equal(sps._spmv_cuda(vf, A.cols, x, cluster=c),
+                               first), c
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_spmv_served_request_gathers_from_l2(cuda, dtype):
+    """The served sparse request (2,048 rows of 10 slots over 100 columns)
+    goes through the L2 forward from the public product, once, with the
+    plain version's bits; the L2 forward takes no library lock, and calls
+    from four threads at once give the same bits."""
+    rng = np.random.default_rng(11)
+    A = _ell_ints(rng, 2048, 10, 100, cuda, -4, 4)
+    A = sps.SparseRows(A.values.to(dtype), A.cols, 100)
+    assert sps.dvector_plan(2048, 10, 100, dtype=dtype) == 0
+    v = _ints(rng, (100,), cuda, -4, 4)
+    _kernels.reset_launches()
+    got = sps.spmv(A, v)
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    assert _kernels.launches["spmv_l2" + suffix] == 1
+    assert _forward_launches() + _forward_launches("_bf16") == 1
+    assert torch.equal(got, sps._spmv_ref(A.values, A.cols, v))
+    assert "dml_spmv" in build.UNLOCKED
+    out = [None] * 4
+
+    def run(i):
+        out[i] = [sps.spmv(A, v) for _ in range(50)]
+        torch.cuda.current_stream().synchronize()
+
+    ts = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(120)
+        assert not t.is_alive()
+    for per in out:
+        for r in per:
+            assert torch.equal(r, got)
+
+
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("n", [1, 127, 129, 4097])
+@pytest.mark.parametrize("d", [1, 10, 41, 56, 57])
+def test_k2x_span_route_bits(cuda, n, m, d):
+    """f32 K2-x (``argmin_min`` with the caller's |x|²) at d ≤ 56 takes the
+    span kernel, at d = 57 (beyond one feature chunk) the tile kernel. On
+    integer data both give the plain version's bits, at ragged n, at
+    element offsets 0, 1 and 3 of X, with a mask and with ``row_need``.
+    On float data the span kernel's argmins are those of the tile kernel
+    without ``x2`` (the f32 K2 route: the argmin is taken on the same
+    scores, before |x|² is added), and its outputs repeat their bits
+    at every offset. (Its minima against the parent's tile route, float
+    data: ``chip_ab.py --sketched``.)"""
+    rng = np.random.default_rng(n + 13 * m + d)
+    mask = torch.as_tensor(rng.random(m) > 0.3, device=cuda)
+    need = torch.as_tensor(rng.random(n) > 0.5, device=cuda)
+    Vi = _ints(rng, (m, d), cuda)
+    xi = _ints(rng, (n,), cuda, 0, 64)
+    Xi = _ints(rng, (n, d), cuda)
+    Xf = torch.as_tensor(rng.standard_normal((n, d)), dtype=torch.float32,
+                         device=cuda)
+    vals = torch.as_tensor(rng.standard_normal((m, d)), dtype=torch.float32,
+                           device=cuda)
+    x2 = torch.as_tensor(rng.random(n) * 4 * d, dtype=torch.float32,
+                         device=cuda)
+    floats = {}
+    for off in (0, 1, 3):
+        # the same rows at element offset off of a larger buffer
+        Zi, Z = (torch.empty(n * d + 3, device=cuda)[off:off + n * d].view(
+            n, d).copy_(t) for t in (Xi, Xf))
+        assert Z.storage_offset() == off
+        for msk, rn in ((None, None), (mask, None), (None, need)):
+            key = (msk is None, rn is None)
+            got = fd.fused_argmin_min_sketched(Zi, Vi, None, msk, x2=xi,
+                                               kernel="cuda", row_need=rn)
+            want = fd.fused_argmin_min_sketched(Zi, Vi, None, msk, x2=xi,
+                                                kernel="torch", row_need=rn)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (off, key)
+            span = fd._fused_cuda(Z, vals, msk, "argmin_min", x2=x2,
+                                  row_need=rn)
+            floats.setdefault(key, span)
+            for a, b in zip(span, floats[key]):
+                assert torch.equal(a, b), (off, key)
+            if rn is None:
+                tile = fd._fused_cuda(Z, vals, msk, "argmin_min")
+                assert torch.equal(span[0], tile[0]), (off, key)

@@ -190,12 +190,15 @@ def test_lloyd_stats_bf16_is_f32_on_rounded_operands():
     C = X[:3] + np.float32(0.013)
     sums, counts, inert = core._lloyd_stats_ref(_tb(X), _t(w), _t(C))
     Xw, Cr = _tb(X).float(), _t(C).to(torch.bfloat16).float()
-    c2 = (_t(C) * _t(C)).sum(dim=1)
-    scores = c2[:, None] - 2.0 * (Cr @ Xw.T)
+    # the f32 plain version's products and sums (float64 rounded once on
+    # the CPU: ops.fused_distance._dot_t, _row_sumsq)
+    c2 = core._row_sumsq(_t(C))
+    scores = c2[:, None] - 2.0 * core._dot_t(Cr, Xw)
     best = scores.argmin(dim=0)
     oh = (torch.arange(3)[:, None] == best[None, :]).float() * _t(w)
-    assert torch.equal(sums, oh @ Xw) and torch.equal(counts, oh.sum(1))
-    mind = torch.clamp(scores.min(0).values + (Xw * Xw).sum(1), min=0.0)
+    assert torch.equal(sums, core._dot_t(oh, Xw.T))
+    assert torch.equal(counts, oh.sum(1))
+    mind = torch.clamp(scores.min(0).values + core._row_sumsq(Xw), min=0.0)
     assert torch.equal(inert, (mind * _t(w)).sum())
 
 

@@ -208,3 +208,18 @@ def test_kmeans_transform_still_uses_the_xy_call():
         ((X[:, None, :].astype(np.float64)
           - km.cluster_centers_[None]) ** 2).sum(-1), 0))
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("rows", [1, 5, 257])
+def test_distance_rows_do_not_depend_on_the_rows_around(rows):
+    """A row's f32 distances and kernel values are the same bits whether
+    it is computed with all of X or within a block of ``rows`` rows: on
+    the CPU the products are summed in float64 and rounded once."""
+    rng = np.random.RandomState(rows + 7)
+    X = (rng.randn(700, 11) * 3.0).astype(np.float32)
+    Y = rng.randn(17, 11).astype(np.float32)
+    for name in ("euclidean_distances", "rbf_kernel", "linear_kernel"):
+        full = getattr(tpw, name)(torch.as_tensor(X), torch.as_tensor(Y))
+        part = getattr(tpw, name)(torch.as_tensor(X[:rows]),
+                                  torch.as_tensor(Y))
+        assert torch.equal(part, full[:rows]), name

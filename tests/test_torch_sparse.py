@@ -262,7 +262,8 @@ _STAGE_101 = 2 * 2 * 20 * 101
     # too few slots to pay for filling shared memory: a full grid copies
     # 132 / cluster times d floats
     (1, 1, 7, False, 0),
-    (924, 1, 7, False, 1),
+    (924, 1, 7, False, 0),
+    (924, 1, 7, True, 1),
     (923, 1, 7, False, 0),
     (65_347, 101, 100_001, False, 0),
     (65_348, 101, 100_001, False, 2),
@@ -270,6 +271,41 @@ _STAGE_101 = 2 * 2 * 20 * 101
 ])
 def test_dvector_plan(n, k, d, pullback, want):
     assert tsps.dvector_plan(n, k, d, pullback=pullback) == want
+
+
+#: rows of the one-block grid's tiles at the served request's k = 10
+_R10 = 204
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k,d,forward,back", [
+    # the served sparse request: 11 tiles, 6 blocks of the one-block grid,
+    # so the forward gathers from L2; the pullback keeps one block
+    (2048, 10, 100, 0, 1),
+    # the elastic block: 1,303 tiles fill the grid
+    (125_000, 21, 1_001, 1, 1),
+    # the forward's one block starts where the grid gets a block an SM:
+    # 262 tiles (131 blocks) and 263 (132)
+    (262 * _R10, 10, 100, 0, 1),
+    (262 * _R10 + 1, 10, 100, 1, 1),
+    # below, too few slots to fill shared memory: L2 for both
+    (1_320, 10, 100, 0, 1),
+    (1_319, 10, 100, 0, 0),
+    (1, 1, 1, 0, 0),
+    (132, 1, 1, 0, 1),
+    # a row of 512 slots: 4 rows a tile
+    (262 * 4, 512, 2_000, 0, 1),
+    (262 * 4 + 1, 512, 2_000, 1, 1),
+])
+def test_dvector_plan_short_containers_gather_from_l2(n, k, d, forward,
+                                                      back, dtype):
+    """A forward whose one-block grid would have fewer blocks than the
+    card has SMs gathers from L2 (whose grid gives every SM rows), where
+    one block fits and the slots would fill shared memory. The pullback
+    keeps its plan."""
+    assert tsps._tile_rows(10) == _R10
+    assert tsps.dvector_plan(n, k, d, dtype=dtype) == forward
+    assert tsps.dvector_plan(n, k, d, pullback=True, dtype=dtype) == back
 
 
 @pytest.mark.parametrize("n,k,d,want", [
@@ -296,7 +332,8 @@ def test_dvector_plan_bf16_forward(n, k, d, want):
 def test_dvector_plan_fits_the_block():
     """Whatever the plan picks fits a block's shared memory (2 bytes a
     column of v for the bf16 forward, else 4), tile rows are a multiple of
-    4 within a tile, and the plan is a pure function."""
+    4 within a tile, a forward's one-block grid has a block an SM, and the
+    plan is a pure function."""
     rng = np.random.RandomState(12)
     for _ in range(300):
         n = int(rng.randint(1, 10 ** 7))
@@ -311,6 +348,8 @@ def test_dvector_plan_fits_the_block():
                 if not c:
                     continue
                 R = tsps._tile_rows(k)
+                if c == 1 and not pull:
+                    assert -(-n // R) > tsps._GROUPS * (tsps._SMS - 1)
                 assert R >= 4 and R % 4 == 0 and R * k <= tsps._TILE_SLOTS
                 besides = 0 if pull else 8 * tsps._GROUPS * R * k
                 width = 2 if dt == torch.bfloat16 and not pull else 4
