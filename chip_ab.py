@@ -145,9 +145,52 @@ libraries.
 
     python3 chip_ab.py PARENT_DIR --sketched
 
+With ``--spmv-wide`` it measures, in place of the softmax runs, K6 and
+K6-b where the d-vector fits no cluster (``SPMV_WIDE_SHAPES``: the sparse
+GLM cell's rows over the hashed width d = 2^20 + 1, and over d = 150,001,
+beyond the f32 forward's cluster of 2), f32 and bf16 values, each
+container drawn on the card from a seed (N(0, 1) values, uniform
+columns, the intercept's slot of ones on column d - 1), the same in every
+run. Each run times each direction on the route its checkout's plan takes
+(the parent's: L2) back to back (CUDA events around up to 200 calls,
+after up to 20) and by device time (``torch.profiler``), its first call on
+a fresh copy of the values (host clock around the call and a
+synchronize: the change's panel-major layout is built there, and the
+pullback's values bound), records the sha256 of both pullbacks (the
+fixed point gives every route the same bits) and the forward's largest
+gap to the plain version; cuSPARSE's f32 SpMV through ``torch.mv`` on
+the CSR view (transposed for K6-b), and where the checkout has the panel
+route, both routes named in the same run and, at ``SPMV_WIDE_SWEEP_N``
+rows of each container, both routes' steady and first calls (where the
+route starts to pay). The summary puts each side's runs beside the
+other's, the bound (8 bytes a slot), says whether the change's plan beat
+the parent's in every run and whether both sides' pullbacks have the same
+bits, and compares the SASS of both sides' ``spmv`` libraries.
+
+    python3 chip_ab.py PARENT_DIR --spmv-wide
+
+Each run names its plan's route (the change's: ``dvector_route``, the
+route a call takes once the container's panel-major layout is held) and
+times the layout's build alone (``ops.sparse._panel_layout`` between two
+synchronizes, twice: the first of a process grows the allocator's pool)
+at every shape of the sweep and at the wide shapes.
+
+With ``--glm-wide`` it measures, in place of the softmax runs, the
+``glm-wide`` path end to end: ``LogisticRegression(solver="lbfgs",
+max_iter=m, tol=0)`` fit on ``make_sparse_classification(1e6, 2^20,
+100 / 2^20, 42)`` (k = 100 + the intercept, d = 2^20 + 1) and its score
+on the first 262,144 rows, for m in ``GLM_WIDE_ITERS``, host seconds
+around fit and score between two synchronizes, three rounds after a
+warm-up fit. Where the checkout has the panel route each round also runs
+the same fit with L2 forced (no route past a cluster but L2) and with
+the layout built at the first call (its build counted as free), beside
+the route the solvers take; each fit's launches by counter, ``n_iter_``,
+the coefficients' sha256 and the device memory still allocated after it.
+
+    python3 chip_ab.py PARENT_DIR --glm-wide
+
 ``--tree DIR`` (used by the runs above) measures one checkout in this
-process. Exits non-zero without a CUDA card.
-"""
+process. Exits non-zero without a CUDA card."""
 
 from __future__ import annotations
 
@@ -188,6 +231,15 @@ SPMV_SHAPES = (("served", 2_048, 10, 100), ("edge", 53_448, 10, 100),
                ("flagship", 10_000_000, 101, 100_001))
 #: the shapes (n at most this) at which both forward routes are timed
 SPMV_ROUTES_MAX_N = 125_000
+#: the wide shapes (name, n, k, d): the cell's rows over the hashed width
+#: (2^20 + 1 with the intercept) and over a width beyond the f32 forward's
+#: cluster of 2; the rows of the panel route's sweep
+SPMV_WIDE_SHAPES = (("hashed", 10_000_000, 101, 1_048_577),
+                    ("beyond-c2", 10_000_000, 101, 150_001))
+SPMV_WIDE_SWEEP_N = (20_000, 60_000, 125_000, 160_000, 500_000, 1_000_000)
+#: the glm-wide path's data (n, n_features, density) and its fits' lengths
+GLM_WIDE = (1_000_000, 2 ** 20, 100 / 2 ** 20)
+GLM_WIDE_ITERS = (3, 30, 100)
 #: K2-x's shapes (name, n, m, p): the KDD sketched cell and a served batch
 SKETCHED_SHAPES = (("kdd", 4_898_431, 8, 10), ("served", 2_048, 8, 10))
 SEARCH_CS = [0.1, 1.0, 10.0]
@@ -374,6 +426,244 @@ def spmv_small_summary(side: dict) -> dict:
                                          for r in ch)
     summary["change_plan"] = ch[0]["plan"]
     summary["parent_plan"] = side["parent"][0]["plan"]
+    return summary
+
+
+def first_call_s(fn, values) -> float:
+    """Host seconds of ``fn(fresh)`` and a synchronize, ``fresh`` a new
+    copy of ``values``: nothing is kept on it yet (the values bound, the
+    panel-major layout)."""
+    import torch
+
+    fresh = values.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(fresh)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def spmv_wide_tree(tree: str) -> dict:
+    """K6 and K6-b at ``SPMV_WIDE_SHAPES``, f32 and bf16, in the checkout
+    at ``tree``."""
+    import hashlib
+
+    import torch
+
+    sps = _import_tree(tree).ops.sparse
+    panel = getattr(sps, "PANEL", None)
+    dev = torch.device("cuda", 0)
+
+    def sha(t):
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+    out = {"tree": tree, "ms": {}, "device_ms": {}, "first_s": {},
+           "sha": {}, "plain_gap": {}, "plan": {}, "bound_ms": {},
+           "build_s": {}}
+    plan_of = sps.dvector_route if panel is not None else sps.dvector_plan
+
+    def build_s(vals, cols, d):
+        """Host seconds of the layout's build, twice."""
+        if panel is None:
+            return None
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lay = sps._panel_layout(vals, cols, d)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del lay
+        return times
+    for name, n, k, d in SPMV_WIDE_SHAPES:
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED)
+        cols = torch.randint(0, d - 1, (n, k), dtype=torch.int32,
+                             generator=g, device=dev)
+        cols[:, -1] = d - 1
+        v32 = torch.randn((n, k), generator=g, device=dev)
+        v32[:, -1] = 1.0
+        v = torch.randn(d, generator=g, device=dev) * 0.05
+        r = torch.randn(n, generator=g, device=dev) / n
+        out["bound_ms"][name] = (4 * (2 * n * k + n + d)
+                                 / PEAK_BYTES_PER_S * 1e3)
+        crow = torch.arange(0, n * k + 1, k, dtype=torch.int32, device=dev)
+        csr = torch.sparse_csr_tensor(crow, cols.view(-1), v32.view(-1),
+                                      size=(n, d), check_invariants=False)
+        calls = {"cusparse": lambda: torch.mv(csr, v),
+                 "cusparse-t": lambda: torch.mv(csr.t(), r)}
+        for tag in ("f32", "bf16"):
+            vals = v32 if tag == "f32" else v32.to(torch.bfloat16)
+            cf = plan_of(n, k, d, dtype=vals.dtype)
+            cb = plan_of(n, k, d, pullback=True, dtype=vals.dtype)
+            out["plan"][f"{name}/K6-{tag}"] = cf
+            out["plan"][f"{name}/K6-b-{tag}"] = cb
+            out["build_s"][f"{name}/{tag}"] = build_s(vals, cols, d)
+            out["first_s"][f"{name}/K6-{tag}"] = first_call_s(
+                lambda x, cf=cf: sps._spmv_cuda(x, cols, v, cluster=cf),
+                vals)
+            out["first_s"][f"{name}/K6-b-{tag}"] = first_call_s(
+                lambda x, cb=cb: sps._pullback_cuda(x, cols, r, d,
+                                                    cluster=cb), vals)
+            f = sps._spmv_cuda(vals, cols, v, cluster=cf)
+            out["plain_gap"][f"{name}/K6-{tag}"] = float(
+                (f - sps._spmv_ref(vals, cols, v)).abs().max())
+            out["sha"][f"{name}/K6-b-{tag}"] = sha(
+                sps._pullback_cuda(vals, cols, r, d, cluster=cb))
+            del f
+            calls[f"K6-{tag}"] = (lambda vals=vals, cf=cf:
+                                  sps._spmv_cuda(vals, cols, v, cluster=cf))
+            calls[f"K6-b-{tag}"] = (lambda vals=vals, cb=cb:
+                                    sps._pullback_cuda(vals, cols, r, d,
+                                                       cluster=cb))
+            if panel is not None:  # both routes named, in this run
+                for route, c in (("l2", 0), ("panel", panel)):
+                    calls[f"K6-{tag}-{route}"] = (
+                        lambda vals=vals, c=c: sps._spmv_cuda(
+                            vals, cols, v, cluster=c))
+                    calls[f"K6-b-{tag}-{route}"] = (
+                        lambda vals=vals, c=c: sps._pullback_cuda(
+                            vals, cols, r, d, cluster=c))
+        for key, fn in calls.items():
+            out["ms"][f"{name}/{key}"] = stream_ms(fn)
+            out["device_ms"][f"{name}/{key}"] = device_ms(fn)
+        del calls, csr, crow
+        torch.cuda.empty_cache()
+        if panel is not None:
+            # where the panel route starts to pay: fewer rows of the same
+            # container, each slice a container of its own
+            for m in SPMV_WIDE_SWEEP_N:
+                vs, cs, rs = v32[:m], cols[:m], r[:m].contiguous()
+                out["build_s"][f"{name}@{m}/f32"] = build_s(vs, cs, d)
+                for route, c in (("l2", 0), ("panel", panel)):
+                    key = f"{name}@{m}/K6-f32-{route}"
+                    out["first_s"][key] = first_call_s(
+                        lambda x, c=c: sps._spmv_cuda(x, cs, v, cluster=c),
+                        vs)
+                    out["ms"][key] = stream_ms(
+                        lambda c=c: sps._spmv_cuda(vs, cs, v, cluster=c))
+                    key = f"{name}@{m}/K6-b-f32-{route}"
+                    out["first_s"][key] = first_call_s(
+                        lambda x, c=c: sps._pullback_cuda(x, cs, rs, d,
+                                                          cluster=c), vs)
+                    out["ms"][key] = stream_ms(
+                        lambda c=c: sps._pullback_cuda(vs, cs, rs, d,
+                                                       cluster=c))
+                del vs, cs, rs
+                torch.cuda.empty_cache()
+        del cols, v32, v, r
+        torch.cuda.empty_cache()
+    return out
+
+
+def spmv_wide_summary(side: dict) -> dict:
+    """Each side's runs of every timing beside the other's, the fastest a
+    side; whether the change's plan beat the parent's in every run;
+    whether both sides' pullbacks have the same bits."""
+    summary = {"bound_ms": side["change"][0]["bound_ms"]}
+    for name, rs in side.items():
+        summary[name] = {
+            key: {"ms": [r["ms"][key] for r in rs],
+                  "device_ms": [r["device_ms"][key] for r in rs],
+                  "min_ms": min(r["ms"][key] for r in rs)}
+            for key in rs[0]["ms"] if key in rs[0]["device_ms"]}
+        summary[name + "_first_s"] = {
+            key: [r["first_s"][key] for r in rs] for key in rs[0]["first_s"]}
+        summary[name + "_sweep_ms"] = {
+            key: [r["ms"][key] for r in rs] for key in rs[0]["ms"]
+            if "@" in key}
+        summary[name + "_plan"] = rs[0]["plan"]
+        summary[name + "_build_s"] = {
+            key: [r["build_s"][key] for r in rs] for key in rs[0]["build_s"]}
+        summary[name + "_plain_gap"] = rs[0]["plain_gap"]
+    pa, ch = side["parent"], side["change"]
+    summary["change_plan_faster_every_run"] = {
+        key: all(c["ms"][key] < p["ms"][key] for c in ch for p in pa)
+        for key in pa[0]["ms"] if key.split("/")[1].startswith("K6")}
+    summary["same_pullback_bits_both_sides"] = {
+        key: len({r["sha"][key] for r in pa + ch}) == 1
+        for key in ch[0]["sha"]}
+    return summary
+
+
+def glm_wide_tree(tree: str) -> dict:
+    """The glm-wide path end to end (``GLM_WIDE``, ``GLM_WIDE_ITERS``) in
+    the checkout at ``tree``: fit and score walls on the route the solvers
+    take and, where the checkout has the panel route, with L2 forced and
+    with the layout built at the first call."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    pkg = _import_tree(tree)
+    import dask_ml_tpu_torch.datasets  # noqa: F401
+    import dask_ml_tpu_torch.linear_model  # noqa: F401
+
+    sps = pkg.ops.sparse
+    policies = {"route": {}}
+    if hasattr(sps, "PANEL"):
+        policies["l2"] = {"_PANEL_MIN_SLOTS": {False: 1 << 62, True: 1 << 62}}
+        policies["eager"] = {"_PANEL_BUILD_S": (0.0, 0.0)}
+    n, width, density = GLM_WIDE
+    t0 = time.perf_counter()
+    X, y = pkg.datasets.make_sparse_classification(n, width, density,
+                                                   random_state=42)
+    out = {"tree": tree, "generation_s": time.perf_counter() - t0,
+           "policies": list(policies), "runs": []}
+    Xs, ys = X[:262_144], y[:262_144]
+
+    def fit(m, patch):
+        saved = {key: getattr(sps, key) for key in patch}
+        for key, val in patch.items():
+            setattr(sps, key, val)
+        try:
+            torch.cuda.synchronize()
+            pkg._kernels.reset_launches()
+            t0 = time.perf_counter()
+            est = pkg.linear_model.LogisticRegression(
+                solver="lbfgs", max_iter=m, tol=0.0).fit(X, y)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            acc = est.score(Xs, ys)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        finally:
+            for key, val in saved.items():
+                setattr(sps, key, val)
+        return {"fit_s": t1 - t0, "score_s": t2 - t1, "wall_s": t2 - t0,
+                "n_iter": int(est.n_iter_), "accuracy": float(acc),
+                "launches": {key: c for key, c in
+                             pkg._kernels.launches.items() if c},
+                "coef_sha": hashlib.sha256(
+                    np.ascontiguousarray(est.coef_).tobytes()).hexdigest()[
+                        :16],
+                "allocated_after": torch.cuda.memory_allocated()}
+
+    for patch in policies.values():
+        fit(1, patch)  # builds the libraries and warms the allocator
+    for rnd in range(3):
+        for m in GLM_WIDE_ITERS:
+            for name, patch in policies.items():
+                out["runs"].append({"round": rnd, "max_iter": m,
+                                    "policy": name, **fit(m, patch)})
+    return out
+
+
+def glm_wide_summary(side: dict) -> dict:
+    """Each side's walls (fit + score) by policy and fit length, every
+    round of every run, and the launches of each."""
+    summary = {}
+    for name, rs in side.items():
+        walls, launches = {}, {}
+        for r in rs:
+            for run in r["runs"]:
+                key = f"{run['policy']}/max_iter={run['max_iter']}"
+                walls.setdefault(key, []).append(run["wall_s"])
+                launches[key] = run["launches"]
+        summary[name] = {key: {"wall_s": w, "min_s": min(w),
+                               "launches": launches[key]}
+                         for key, w in walls.items()}
     return summary
 
 
@@ -1186,6 +1476,10 @@ def main() -> int:
             res = spmv_small_tree(args[1])
         elif args[2:3] == ["--sketched"]:
             res = sketched_tree(args[1])
+        elif args[2:3] == ["--spmv-wide"]:
+            res = spmv_wide_tree(args[1])
+        elif args[2:3] == ["--glm-wide"]:
+            res = glm_wide_tree(args[1])
         else:
             res = one_tree(args[1])
         print("AB " + json.dumps(res), flush=True)
@@ -1222,6 +1516,8 @@ def main() -> int:
         print(smi(), flush=True)
         return 0
     for flag, summarize, lib in (("--spmv-small", spmv_small_summary, "spmv"),
+                                 ("--spmv-wide", spmv_wide_summary, "spmv"),
+                                 ("--glm-wide", glm_wide_summary, "spmv"),
                                  ("--sketched", sketched_summary,
                                   "fused_distance")):
         if flag not in args:

@@ -36,9 +36,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    value-0 padded slots, empty rows, one hot column, every row on one
    column) through every cluster size that fits, and at a d on each side
    of every boundary of ``ops.sparse.dvector_plan`` (one block, clusters
-   of 2, 4 and 8, and beyond) through the route the plan picks; on float
-   data each pullback route repeats its bits over 5 calls and gives the
-   bits of every other route;
+   of 2, 4 and 8, and beyond) through the route a call takes outside a
+   solver's reuse scope (``dvector_route``'s, L2 where it names the
+   panels);
+   every edge shape also through the panel route (the d-vector a panel
+   at a time, from the container's panel-major copy); on float data each
+   pullback route repeats its bits over 5 calls and gives the bits of
+   every other route;
 7. drives the sparse GLM path at the JAX package's flagship sparse
    problem: ``LogisticRegression(solver="lbfgs", max_iter=3).fit(X, y)``
    on ``make_sparse_classification(10_000_000, 100_000, 0.001,
@@ -70,13 +74,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    it), and prints the k-means|| phase times of both KMeans cells
    (``models.kmeans.measure_init_phases``); then K6 and K6-b at every
    path's shape (``SPMV_PATH_SHAPES``: the served request, an elastic
-   block, the one-hot pipeline, a search fold, an incremental block) on
+   block, the one-hot pipeline, a search fold, an incremental block, and
+   the flagship's 1e7 rows over the hashed width d = 2^20 + 1) on
    integer values, bit for bit with their plain versions and repeating,
    each with its time, its device time (``torch.profiler``), its bound,
    its plain version's time and cuSPARSE's (``torch.mv`` on the CSR
    view, transposed for K6-b), under the ``spmv`` and ``spmv_pullback``
    rows as ``path_shapes`` (the served request's forward gathers from
-   L2: ``spmv_l2``, which the serving phase's sparse request launches).
+   L2: ``spmv_l2``, which the serving phase's sparse request launches);
+   at the wide shape the panel kernels run by name whatever the plan
+   says, f32 and bf16 (the kernels line's ``spmv_panel*`` and
+   ``spmv_pullback_panel*`` rows), and on float data the forward within
+   k·2^-23·Σ|a·v| of the plain version, the pullback the L2 route's bits;
+   then the ``glm-wide`` path: ``LogisticRegression(solver="lbfgs",
+   max_iter=3, tol=0)`` on ``make_sparse_classification(1_000_000, 2**20,
+   100 / 2**20, random_state=42)`` and ``score``: K6 7 + 1 launches and
+   K6-b 4 on the routes the solver's reuse scope takes (L2: eleven calls
+   do not pay for the panel layout), with the flagship's
+   kernel-against-plain gates (``glm_plain_check``); and the same fit at
+   ``GLM_WIDE_LONG_ITERS`` iterations, whose calls pay for the layout
+   mid-fit: L2 launches, then panel launches, split where the scope's
+   rule says, the fit repeating its bits and its objective within
+   ``GLM_LONG_FTOL`` of the plain path's fit.
 
 9. drives the solvers of the GLM facades beyond L-BFGS and the
    decompositions, each data set drawn with numpy from the seed:
@@ -170,7 +189,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    update through it against their plain versions, steps a second and
    the busy share of the step loop);
    ``HyperbandSearchCV(LogisticRegression())`` over BASELINE config 4's
-   data through the GLM's batched ``partial_fit`` rungs, max_epochs 27 (no
+   data through the GLM's batched ``partial_fit`` rungs, max_epochs 9 (no
    kernel of the repo runs there: cuBLAS and PyTorch's own kernels; no
    host read inside a rung, host syncs a search); ``cluster.k_means(X,
    8)`` equal to the ``KMeans`` fit bit for bit, ``compute_inertia`` and
@@ -434,7 +453,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 ``python3 chip_smoke.py --spmv-only`` runs steps 1, 2, 6 and 8 alone, on a
 container of the sparse cell's shape drawn on the card, and K6 / K6-b at
-each path's shape (``SPMV_PATH_SHAPES``);
+each path's shape (``SPMV_PATH_SHAPES``); ``--wide-only`` runs steps 1 and
+2, K6 and K6-b at the wide path shape (the panel kernels, f32 and bf16)
+and the ``glm-wide`` path, with a ``kernels`` line of the panel kernels;
 ``--glm-pca-only`` runs steps 1, 2 and 9 alone; ``--stream-only`` steps 1,
 2 and 10, drawing its own host arrays; ``--incremental-only`` steps 1, 2
 and 11; ``--search-only`` steps 1, 2 and 12; ``--asha-only`` steps 1, 2
@@ -591,7 +612,7 @@ ASHA_SCORE_ATOL, ASHA_COEF_RTOL, ASHA_RESUME_AT = 1e-6, 1e-5, 18
 # batch_size is not one, since a partial_fit takes its whole block as the
 # batch; 8 blocks of 100,000 rows, max_epochs 9, aggressiveness 3);
 # Hyperband over BASELINE config 4's data (the INCREMENTAL cell's 2e6 x 100)
-# through the GLM's batched partial_fit rungs, max_epochs 27, 16 blocks of
+# through the GLM's batched partial_fit rungs, max_epochs 9, 16 blocks of
 # 100,000 rows (config 4's block size)
 HB_MB_GRID = {"init": ["k-means||", "random"],
               "random_state": [SEED + i for i in range(5)]}
@@ -599,7 +620,9 @@ HB_MB_EPOCHS, HB_MB_ETA, HB_MB_BLOCKS = 9, 3, 8
 HB_GLM_GRID = {"C": [1e-3, 1e-2, 0.1, 1.0, 10.0, 100.0],
                "solver_kwargs": [{"eta0": e}
                                  for e in (0.05, 0.1, 0.2, 0.5, 1.0)]}
-HB_GLM_EPOCHS, HB_GLM_ETA, HB_GLM_BLOCKS = 27, 3, 16
+# (cut by 3x, 27 -> 9, to pay for the wide phases: the full run's
+# PHASE_SECONDS, PERF.md §7)
+HB_GLM_EPOCHS, HB_GLM_ETA, HB_GLM_BLOCKS = 9, 3, 16
 # MiniBatchKMeans' own fit: the steps profiled for the busy share
 MB_PROFILED_STEPS = 2_000
 # GaussianNB on config 4's data against a float64 fit: moments within
@@ -643,6 +666,11 @@ REPLACES = {
     # the custom VJP's backward, left to XLA's segment_sum there
     "spmv_pullback": "dask_ml_tpu/ops/sparse.py:560",
     "spmv_pullback_l2": "dask_ml_tpu/ops/sparse.py:560",
+    "spmv_panel": "dask_ml_tpu/ops/sparse.py:512",
+    "spmv_pullback_panel": "dask_ml_tpu/ops/sparse.py:560",
+    # their bf16 cases (no path launches them: rows of the wide shape)
+    "spmv_panel_bf16": "dask_ml_tpu/ops/sparse.py:512",
+    "spmv_pullback_panel_bf16": "dask_ml_tpu/ops/sparse.py:560",
 }
 #: the kernels each path must launch
 PATH_KERNELS = {
@@ -655,6 +683,10 @@ PATH_KERNELS = {
                  "fused_argmin_weight"),
     "glm-sparse-fit": ("spmv", "spmv_pullback"),
     "glm-sparse-score": ("spmv",),
+    "glm-wide-fit": ("spmv_l2", "spmv_pullback_l2"),
+    "glm-wide-score": ("spmv_l2",),
+    "glm-wide-long": ("spmv_l2", "spmv_pullback_l2", "spmv_panel",
+                      "spmv_pullback_panel"),
     "glm-sparse-admm": ("spmv", "spmv_pullback"),
     "admm-streamed-sparse": ("spmv", "spmv_pullback"),
     "lloyd-bounded-resumable": ("fused_argmin_min2", "fused_argmin_min"),
@@ -708,6 +740,10 @@ SOURCES = {
     "spmv_l2": "dask_ml_tpu_torch/_kernels/csrc/spmv.cu",
     "spmv_pullback": "dask_ml_tpu_torch/_kernels/csrc/spmv.cu",
     "spmv_pullback_l2": "dask_ml_tpu_torch/_kernels/csrc/spmv.cu",
+    "spmv_panel": "dask_ml_tpu_torch/_kernels/csrc/spmv.cu",
+    "spmv_pullback_panel": "dask_ml_tpu_torch/_kernels/csrc/spmv.cu",
+    "spmv_panel_bf16": "dask_ml_tpu_torch/_kernels/csrc/spmv.cu",
+    "spmv_pullback_panel_bf16": "dask_ml_tpu_torch/_kernels/csrc/spmv.cu",
 }
 
 
@@ -1154,12 +1190,21 @@ def ell_ints(rng, n, k, d, dev, lo=-8, hi=8):
 
 def fitting_routes(k, d, pullback):
     """Every route the wrappers can be told to take for this shape: L2
-    (cluster 0) and each cluster size the direction is built for whose
-    shared memory holds the d-vector."""
+    (cluster 0), each cluster size the direction is built for whose
+    shared memory holds the d-vector, and the panel route (any shape)."""
     from dask_ml_tpu_torch.ops import sparse as sps
 
     return [0] + [c for c in sps._PLAN_CLUSTERS[pullback]
-                  if sps._fits(k, d, c, pullback)]
+                  if sps._fits(k, d, c, pullback)] + [sps.PANEL]
+
+
+def route_name(route: int, pullback: bool) -> str:
+    """The launch counter of K6's (or K6-b's) route: a cluster, L2 (0) or
+    the panels."""
+    from dask_ml_tpu_torch.ops import sparse as sps
+
+    return ("spmv_pullback" if pullback else "spmv") + (
+        "_panel" if route == sps.PANEL else "_l2" if route == 0 else "")
 
 
 def check_spmv_int(tag, A, v, r, routes_f, routes_b):
@@ -1263,6 +1308,11 @@ def spmv_edge_cases(dev):
                     expect(sps.dvector_plan(n, k, d, pullback=pull) == route,
                            f"plan(n{n}, k{k}, d{d}, pullback={pull}) is "
                            f"not {route}")
+                    # outside a solver's reuse scope a call takes L2
+                    # where the route function names the panels
+                    route = sps.dvector_route(n, k, d, pullback=pull)
+                    if route == sps.PANEL:
+                        route = 0
                     cols = torch.randint(0, d, (n, k), dtype=torch.int32,
                                          generator=g, device=dev)
                     if k > 1:  # a hot column, as the intercept is
@@ -1279,8 +1329,7 @@ def spmv_edge_cases(dev):
                                    None if pull else x, x if pull else None,
                                    [] if pull else [None],
                                    [None] if pull else [])
-                    name = ("spmv_pullback" if pull else "spmv") + (
-                        "" if route else "_l2")
+                    name = route_name(route, pull)
                     expect(_kernels.launches[name] >= 1,
                            f"boundary n{n} k{k} d{d}: {name} did not run: "
                            f"{_kernels.launches}")
@@ -1628,33 +1677,40 @@ def bounded_late_need(X, w, c0, iters: int):
     return X_pad, need, skipped
 
 
-def device_profile(fn):
+def device_profile(fn, tries: int = 1):
     """Device time by kernel over one call of ``fn`` (torch.profiler with
     CUDA activity), the host wall time of the call and the device's busy
-    share of it; None when the trace holds no device time."""
+    share of it; None when the trace holds no device time. A session
+    that saw none (CUPTI has at times handed back no device events) is
+    made again, up to ``tries`` sessions, each calling ``fn`` once."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
-    for e in prof.key_averages():
-        # device-side events only (kernels, copies): the operator events
-        # on the host carry their kernels' time again
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = (getattr(e, "self_device_time_total", 0)
-              or getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
-            rows.append({"kernel": e.key[:90], "device_ms": us / 1e3,
-                         "calls": e.count})
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        for e in prof.key_averages():
+            # device-side events only (kernels, copies): the operator
+            # events on the host carry their kernels' time again
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = (getattr(e, "self_device_time_total", 0)
+                  or getattr(e, "self_cuda_time_total", 0))
+            if us > 0:
+                rows.append({"kernel": e.key[:90], "device_ms": us / 1e3,
+                             "calls": e.count})
+        if rows:
+            break
+        log(f"  torch.profiler saw no device time (session {attempt + 1} "
+            f"of {tries})")
     if not rows:
         return None
     rows.sort(key=lambda r: -r["device_ms"])
@@ -1858,7 +1914,8 @@ def kdd_cell(dev, errs):
     Zc = Zp.contiguous()
     zero = torch.zeros(n, device=dev)
     k2x = cuda_ms(fused_call(fdl, stream, Zc, vals, 1, x2=zero))
-    k2x_device = device_ms(fused_call(fdl, stream, Zc, vals, 1, x2=zero))
+    k2x_device = device_ms(fused_call(fdl, stream, Zc, vals, 1, x2=zero),
+                           what="K2-x")
     # the span kernel's argmins against f32 K2's (the tile kernel, which
     # takes the argmin on the same scores before adding its own |x|^2)
     span = fd._fused_cuda(Zc, vals, None, "argmin_min",
@@ -2317,51 +2374,76 @@ def log_spmv_rows(rows):
 #: served sparse request (SRV_SPARSE_N rows at SRV_GLM_D, density 0.1),
 #: an elastic block, the one-hot pipeline's container (ONEHOT_COLS
 #: categorical columns of ONEHOT_CATS, with the intercept), a search fold
-#: of the sparse GLM data and an incremental block of it
+#: of the sparse GLM data, an incremental block of it, and the flagship's
+#: rows over the hashed feature space (d = 2^20 + 1 with the intercept:
+#: the panel route's shape, K6 and K6-b also launched on the panel route
+#: by name, f32 and bf16)
 SPMV_PATH_SHAPES = (("served", 2_048, 10, 100),
                     ("elastic", 125_000, 21, 1_001),
                     ("onehot", 1_000_000, 26, 26_001),
                     ("search-fold", 250_000, 101, 100_001),
-                    ("incremental", 1_000_000, 101, 100_001))
+                    ("incremental", 1_000_000, 101, 100_001),
+                    ("wide", 10_000_000, 101, 1_048_577))
+#: the path shape at which the panel kernels are checked and timed
+SPMV_WIDE_PATH = "wide"
 
 
-def device_ms(fn, calls: int = 20) -> float:
+#: the calls whose every torch.profiler session saw no device time,
+#: timed by CUDA events instead (logged as a PROFILER_MISSES line)
+PROFILER_MISSES: list = []
+
+
+def device_ms(fn, calls: int = 20, what: str = "", tries: int = 3) -> float:
     """The device time of one call of ``fn``: every kernel it launches
     (memsets included), summed over ``calls`` calls under
-    ``torch.profiler`` and divided by them."""
+    ``torch.profiler`` and divided by them.
+
+    CUPTI has at times handed back a session with no device events at
+    all (one full run of several on the H100): such a session is made
+    again, up to ``tries`` times. Where none sees device time, the call is
+    timed by CUDA events over back-to-back calls (host gaps included) and
+    ``what`` is added to PROFILER_MISSES."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", None)
-        total_us += t if t is not None else e.cuda_time_total
-    expect(total_us > 0, "torch.profiler saw no device time")
-    return total_us / calls / 1e3
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", None)
+            total_us += t if t is not None else e.cuda_time_total
+        if total_us > 0:
+            return total_us / calls / 1e3
+        log(f"  torch.profiler saw no device time for {what or 'a call'} "
+            f"(session {attempt + 1} of {tries})")
+    PROFILER_MISSES.append(what or "a call")
+    return cuda_ms(fn, iters=calls, warmup=1)
 
 
-def spmv_path_rows(dev, errs):
+def spmv_path_rows(dev, errs, shapes=SPMV_PATH_SHAPES):
     """K6 and K6-b at every path's shape (SPMV_PATH_SHAPES), on integer
-    values drawn on the card: each through the plan's route bit for bit
-    against its plain version and repeating its bits, then its time
-    (back-to-back calls, CUDA events), its device time (torch.profiler),
-    its bound, its plain version's time and cuSPARSE's through
-    ``torch.mv`` on the CSR view (transposed for K6-b). Returns a row a
-    shape and direction."""
+    values drawn on the card: each through the route ``dvector_route``
+    names (and at the wide shape through the panel route too, whatever
+    the plan says) bit for bit against its plain version and repeating
+    its bits, then its time (back-to-back calls, CUDA events), its device
+    time (torch.profiler), its bound, its plain version's time and
+    cuSPARSE's through ``torch.mv`` on the CSR view (transposed for
+    K6-b). Returns (a row a shape, direction and route; the panel
+    kernels' rows for the kernels line, f32 and bf16, from the wide
+    shape)."""
     import torch
 
     from dask_ml_tpu_torch.ops import sparse as sps
 
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
-    out = []
-    for path, n, k, d in SPMV_PATH_SHAPES:
+    out, panel_rows = [], []
+    for path, n, k, d in shapes:
         cols = torch.randint(0, d, (n, k), dtype=torch.int32, generator=g,
                              device=dev)
         cols[:, -1] = d - 1  # the intercept's column
@@ -2372,57 +2454,150 @@ def spmv_path_rows(dev, errs):
         crow = torch.arange(0, n * k + 1, k, dtype=torch.int32, device=dev)
         csr = torch.sparse_csr_tensor(crow, cols.view(-1), vals.view(-1),
                                       size=(n, d), check_invariants=False)
-        b, by = bound(4 * (2 * n * k + n + d), 2 * n * k)
+        wide = path == SPMV_WIDE_PATH
         for pull in (False, True):
-            plan = sps.dvector_plan(n, k, d, pullback=pull)
-            if pull:
-                name = ("spmv_pullback", "spmv_pullback_l2")[plan == 0]
-
-                def kern():
-                    return sps._pullback_cuda(vals, cols, r, d, cluster=plan)
-
-                def plain():
-                    return sps._pullback_ref(vals, cols, r, d)
-
-                def library():
-                    return torch.mv(csr.t(), r)
-            else:
-                name = "spmv" if plan else "spmv_l2"
-
-                def kern():
-                    return sps._spmv_cuda(vals, cols, v, cluster=plan)
-
-                def plain():
-                    return sps._spmv_ref(vals, cols, v)
-
-                def library():
-                    return torch.mv(csr, v)
-            got = kern()
-            expect(torch.equal(got, plain()),
-                   f"{name} at the {path} shape: not the plain version's "
-                   f"bits on integer data")
-            expect_repeats(f"{name} at the {path} shape", kern, got)
-            errs[name] = max(errs.get(name, 0.0),
-                             float((got - plain()).abs().max()))
-            row = dict(path=path, name=name, route=plan,
-                       shape={"n": n, "k": k, "d": d},
-                       ms=cuda_ms(kern, iters=200, warmup=20),
-                       device_ms=device_ms(kern), bound_ms=b, bound_by=by,
-                       plain_ms=cuda_ms(plain, iters=10, warmup=2),
-                       # cuSPARSE's transposed SpMV takes ms at the larger
-                       # shapes: fewer calls
-                       library_ms=cuda_ms(library, iters=10 if pull else 200,
-                                          warmup=2 if pull else 20),
-                       library_device_ms=device_ms(library,
-                                                   calls=5 if pull else 20))
-            log(f"  {name:18s} {path:12s} {row['ms']:.4f} ms  device "
-                f"{row['device_ms']:.4f} ms  bound {b:.4f} ms  plain "
-                f"{row['plain_ms']:.4f} ms  library {row['library_ms']:.4f} "
-                f"ms (device {row['library_device_ms']:.4f})")
-            out.append(row)
+            plan = sps.dvector_route(n, k, d, pullback=pull)
+            routes = [plan] + ([sps.PANEL] if wide and plan != sps.PANEL
+                               else [])
+            for route in routes:
+                row = spmv_path_row(path, vals, cols, v, r, d, csr, pull,
+                                    route, errs)
+                row["plan"] = plan
+                out.append(row)
+                if route == sps.PANEL and wide:
+                    panel_rows.append(row)
+        if wide:
+            panel_rows += spmv_wide_checks(vals, cols, v, r, d, errs)
         del cols, vals, v, r, crow, csr
         torch.cuda.empty_cache()
-    return out
+    return out, panel_rows
+
+
+def spmv_path_row(path, vals, cols, v, r, d, csr, pull, route, errs,
+                  library=True):
+    """One direction of K6 on one route at one path's shape, on integer
+    data: its bits against the plain version and its own, its time, device
+    time, bound, plain time and (``library``) cuSPARSE's."""
+    import torch
+
+    from dask_ml_tpu_torch.ops import sparse as sps
+
+    n, k = vals.shape
+    name = route_name(route, pull)
+    bf16 = vals.dtype == torch.bfloat16
+    if bf16:
+        name += "_bf16"
+    if pull:
+        def kern():
+            return sps._pullback_cuda(vals, cols, r, d, cluster=route)
+
+        def plain():
+            return sps._pullback_ref(vals, cols, r, d)
+
+        def lib():
+            return torch.mv(csr.t(), r)
+    else:
+        def kern():
+            return sps._spmv_cuda(vals, cols, v, cluster=route)
+
+        def plain():
+            return sps._spmv_ref(vals, cols, v)
+
+        def lib():
+            return torch.mv(csr, v)
+    t0 = time.perf_counter()
+    got = kern()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    expect(torch.equal(got, plain()),
+           f"{name} at the {path} shape: not the plain version's bits on "
+           f"integer data")
+    expect_repeats(f"{name} at the {path} shape", kern, got)
+    errs[name] = max(errs.get(name, 0.0), float((got - plain()).abs().max()))
+    del got
+    b, by = bound((6 if bf16 else 8) * n * k + 4 * (n + d), 2 * n * k)
+    big = n * k > 5 * 10 ** 8  # the wide shape: fewer calls
+    row = dict(path=path, name=name, dvector_route=route,
+               shape={"n": n, "k": k, "d": d},
+               ms=cuda_ms(kern, iters=20 if big else 200,
+                          warmup=3 if big else 20),
+               device_ms=device_ms(kern, what=f"{name} {path}"),
+               bound_ms=b, bound_by=by,
+               plain_ms=cuda_ms(plain, iters=3 if big else 10,
+                                warmup=1 if big else 2),
+               library_ms=None, library_device_ms=None,
+               first_call_s=first_s)
+    if library:
+        # cuSPARSE's transposed SpMV takes ms at the larger shapes (0.3 s
+        # at the wide one): fewer calls
+        iters, warmup, calls = ((3, 1, 3) if big else (10, 2, 5) if pull
+                                else (200, 20, 20))
+        row.update(library_ms=cuda_ms(lib, iters=iters, warmup=warmup),
+                   library_device_ms=device_ms(
+                       lib, calls=calls, what=f"cuSPARSE {name} {path}"))
+    lib_s = ("none" if row["library_ms"] is None else
+             f"{row['library_ms']:.4f} ms (device "
+             f"{row['library_device_ms']:.4f})")
+    log(f"  {name:26s} {path:12s} {row['ms']:.4f} ms  device "
+        f"{row['device_ms']:.4f} ms  bound {b:.4f} ms  plain "
+        f"{row['plain_ms']:.4f} ms  library {lib_s}  first call "
+        f"{first_s:.3f} s")
+    return row
+
+
+def spmv_wide_checks(vals, cols, v, r, d, errs):
+    """The panel kernels at the wide path's container beyond its f32
+    integer rows: bf16 values on integer data (bit for bit with the plain
+    versions, repeating, timed: the bf16 rows of the kernels line), then
+    float data (N(0,1) values, v and r) for both value types: the forward
+    within k·2^-23·Σ|a·v| of the plain version and repeating its bits, the
+    pullback repeating its bits and giving the L2 atomic route's bits
+    exactly. Returns the bf16 rows."""
+    import torch
+
+    from dask_ml_tpu_torch.ops import sparse as sps
+
+    n, k = vals.shape
+    rows = []
+    vb = vals.to(torch.bfloat16)
+    for pull in (False, True):
+        rows.append(spmv_path_row(SPMV_WIDE_PATH, vb, cols, v, r, d, None,
+                                  pull, sps.PANEL, errs, library=False))
+    del vb
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=vals.device)
+    g.manual_seed(SEED + 25)
+    vf = torch.randn(d, generator=g, device=vals.device)
+    rf = torch.randn(n, generator=g, device=vals.device) / n
+    for dtype in (torch.float32, torch.bfloat16):
+        af = (vals.float() + torch.randn(
+            vals.shape, generator=g, device=vals.device)).to(dtype)
+        suffix = "_bf16" if dtype == torch.bfloat16 else ""
+        want = sps._spmv_ref(af, cols, vf)
+        scale = sps._spmv_ref(af.abs(), cols, vf.abs())
+        got = sps._spmv_cuda(af, cols, vf, cluster=sps.PANEL)
+        err = (got - want).abs()
+        expect(bool((err <= k * 2.0 ** -23 * scale).all()),
+               f"spmv_panel{suffix} on float data: max abs err "
+               f"{float(err.max())} beyond k·2^-23·Σ|a·v|")
+        expect(torch.equal(got, sps._spmv_cuda(af, cols, vf,
+                                               cluster=sps.PANEL)),
+               f"spmv_panel{suffix} on float data does not repeat its bits")
+        del want, scale, got, err
+        got = sps._pullback_cuda(af, cols, rf, d, cluster=sps.PANEL)
+        expect_repeats(f"spmv_pullback_panel{suffix} on float data",
+                       lambda: sps._pullback_cuda(af, cols, rf, d,
+                                                  cluster=sps.PANEL), got)
+        expect(torch.equal(got, sps._pullback_cuda(af, cols, rf, d,
+                                                   cluster=0)),
+               f"spmv_pullback_panel{suffix} on float data: not the L2 "
+               f"atomic route's bits")
+        del af, got
+        torch.cuda.empty_cache()
+    log("  the panel kernels at the wide shape: bf16 bit for bit on "
+        "integer data; on float data the forward within k·2^-23·Σ|a·v| "
+        "and the pullback the L2 route's bits, f32 and bf16")
+    return rows
 
 
 def sparse_glm_data():
@@ -2533,7 +2708,7 @@ def glm_cell(dev, errs):
     iter_ms = (time.perf_counter() - t0) * 1e3
     summary.update(lbfgs_iter_ms=iter_ms,
                    lbfgs_iter_host_reads=glm_core.host_reads["n"])
-    prof = device_profile(one_iter)
+    prof = device_profile(one_iter, tries=3)
     summary["profile_lbfgs_iter"] = prof
     log("PROFILE glm-lbfgs-iter " + json.dumps(prof))
     expect(prof is not None and not any("indexFunc" in t["kernel"]
@@ -2546,6 +2721,196 @@ def glm_cell(dev, errs):
                 for name in ("spmv", "spmv_l2", "spmv_pullback",
                              "spmv_pullback_l2")}
     return rows, launches, summary
+
+
+#: the flagship's rows over a hashed feature space: scikit-learn's
+#: HashingVectorizer's default n_features = 2^20, 100 nonzeros a row (the
+#: flagship's), 1e6 rows (the flagship's 1e7 cut tenfold: the kernel rows
+#: of SPMV_PATH_SHAPES' wide shape run at the full 1e7)
+GLM_WIDE_N, GLM_WIDE_D = 1_000_000, 2 ** 20
+GLM_WIDE_DENSITY = 100 / 2 ** 20
+#: the longer fit at that shape (the facade's default max_iter is 100),
+#: long enough for its calls to pay for the panel layout mid-fit; its
+#: objective, evaluated by the plain path in float64, within
+#: GLM_LONG_FTOL (relative) of the plain path's fit's (pullback in
+#: float64). The rows are separable (the fit reaches accuracy 1.0), so
+#: the objective keeps falling and each path's rounding moves where 30
+#: iterations end: the plain path's own f32 fit ends 3.8e-3 to 1.4e-2
+#: from that reference on an H100 (its float atomics add in another
+#: order each run), the kernel fit 1.3e-3 (PERF.md §6)
+GLM_WIDE_LONG_ITERS, GLM_LONG_FTOL = 30, 1e-2
+
+
+def rule_split(slots: int, launches: dict) -> bool:
+    """Whether a solver run's K6 and K6-b launches on L2 and on the panels
+    are the reuse scope's rule (``ops.sparse.reuse_scope``) on a container
+    of ``slots`` slots: L2 calls that lost less than the layout's build,
+    and, where panel calls follow, the call that switched would have
+    brought the loss to it."""
+    from dask_ml_tpu_torch.ops import sparse as sps
+
+    loss_f, loss_b = sps._l2_loss_s(slots, False), sps._l2_loss_s(slots, True)
+    lost = (launches["spmv_l2"] * loss_f
+            + launches["spmv_pullback_l2"] * loss_b)
+    price = sps._panel_build_s(slots)
+    if not launches["spmv_panel"] + launches["spmv_pullback_panel"]:
+        return lost < price
+    return lost < price <= lost + max(loss_f, loss_b)
+
+
+def wide_split(launches: dict) -> dict:
+    """K6's and K6-b's launches by route."""
+    return {name: launches[name] for name in (
+        "spmv", "spmv_l2", "spmv_panel", "spmv_pullback", "spmv_pullback_l2",
+        "spmv_pullback_panel") if launches[name]}
+
+
+def glm_wide_cell(dev, errs):
+    """``glm-wide``: ``LogisticRegression(solver="lbfgs", max_iter=3,
+    tol=0)`` fit and score at ``make_sparse_classification(GLM_WIDE_N, 2^20,
+    100 / 2^20, 42)`` (k = 100 + the intercept, d = 1,048,577): K6 8
+    launches (fit 7, score 1) and K6-b 4, on the routes the solver's reuse
+    scope takes (``rule_split``; the score, outside a solver, on L2); then
+    ``glm_plain_check``, the flagship phase's gates (each step bit for
+    bit, the whole fit within ``GLM_FIT_RTOL`` of the plain path with an
+    f64-accumulated pullback, the kernel fit repeating its bits). Then the
+    same fit at ``GLM_WIDE_LONG_ITERS`` iterations: L2 launches and panel
+    launches both ways, split as ``rule_split`` says, and
+    ``glm_long_check``. Returns (the three runs' launches, summary)."""
+    from dask_ml_tpu_torch.datasets import make_sparse_classification
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.models import glm as glm_core
+    from dask_ml_tpu_torch.ops import sparse as sps
+
+    t0 = time.perf_counter()
+    X, y = make_sparse_classification(GLM_WIDE_N, GLM_WIDE_D,
+                                      GLM_WIDE_DENSITY, random_state=42)
+    gen_s = time.perf_counter() - t0
+    n, k, d = X.shape[0], X.k + 1, X.d + 1
+    score_n = min(GLM_SCORE_N, n)
+    glm_core.reset_host_reads()
+    # tol 0: a column holds ~95 of the 1e6 rows, so the mean loss's
+    # gradient is ~1e-4 a coefficient and the default tol (1e-4) stops
+    # the fit after one iteration (n_iter_ 1 on an H100); the flagship's
+    # three iterations run
+    est, fit_s, l_fit = drive(lambda: LogisticRegression(
+        solver="lbfgs", max_iter=GLM_ITERS, tol=0.0).fit(X, y))
+    reads = glm_core.host_reads["n"]
+    expect(est.n_iter_ == GLM_ITERS, f"glm-wide n_iter_ {est.n_iter_}")
+    expect(np.isfinite(est.coef_).all() and est.coef_.shape == (X.d,),
+           "glm-wide: bad coefficients")
+    expect_launches("glm-wide-fit", l_fit)
+    Xs, ys = X[:score_n], y[:score_n]
+    acc, score_s, l_score = drive(lambda: est.score(Xs, ys))
+    expect_launches("glm-wide-score", l_score)
+    expect(acc > 0.55, f"glm-wide accuracy {acc} <= 0.55")
+    fit_split = wide_split(l_fit)
+    expect(sum(fit_split.get(c, 0) for c in ("spmv", "spmv_l2",
+                                             "spmv_panel"))
+           == 2 * GLM_ITERS + 1
+           and sum(fit_split.get(c, 0) for c in (
+               "spmv_pullback", "spmv_pullback_l2", "spmv_pullback_panel"))
+           == GLM_ITERS + 1 and rule_split(n * k, l_fit)
+           and wide_split(l_score) == {"spmv_l2": 1}
+           and sum(l_score.values()) == 1,
+           f"glm-wide launches: fit {fit_split}, score {l_score}; not the "
+           f"reuse scope's rule at {n * k} slots")
+    path_line("glm-wide", fit_s, est.n_iter_, l_fit,
+              phases={**est.fit_phase_seconds_, "score": score_s},
+              score_launches=l_score, host_reads=reads, accuracy=acc,
+              routes=fit_split)
+    Xd, _, _, _, agree = glm_plain_check(est, X, y, Xs, dev)
+    del Xd
+    # -- the longer fit: the layout pays mid-fit ------------------------
+    est_l, long_s, l_long = drive(lambda: LogisticRegression(
+        solver="lbfgs", max_iter=GLM_WIDE_LONG_ITERS, tol=0.0).fit(X, y))
+    long_split = wide_split(l_long)
+    expect(np.isfinite(est_l.coef_).all(), "glm-wide-long: bad coefficients")
+    expect_launches("glm-wide-long", l_long)
+    expect(rule_split(n * k, l_long),
+           f"glm-wide-long launches {long_split}: not the reuse scope's "
+           f"rule at {n * k} slots")
+    long_stats = glm_long_check(est_l, X, y, dev)
+    path_line("glm-wide-long", long_s, est_l.n_iter_, l_long,
+              phases=est_l.fit_phase_seconds_, routes=long_split,
+              **long_stats)
+    launches = {key: l_fit[key] + l_score[key] + l_long[key] for key in l_fit}
+    summary = {"n": n, "k": k, "d": d, "host_generation_s": gen_s,
+               "fit_s": fit_s, "phases": est.fit_phase_seconds_,
+               "score_s": score_s, "accuracy": acc, "launches_fit": fit_split,
+               "launches_score": wide_split(l_score),
+               "kernel_vs_plain": agree, "long_fit_s": long_s,
+               "long_n_iter": est_l.n_iter_, "launches_long": long_split,
+               "long_vs_plain": long_stats,
+               "panel_build_s_estimate": sps._panel_build_s(n * k),
+               "panel_bytes_estimate": sps._panel_bytes(n, k, d, 4)}
+    log("GLM_WIDE " + json.dumps(summary))
+    del X, Xs
+    return launches, summary
+
+
+def glm_long_check(est, X, y, dev):
+    """The longer wide fit against the plain path, through the facade's
+    staging and arguments (``models.glm.lbfgs``): made again through the
+    kernel path it repeats its bits (the pullback gives every route's
+    bits and each run's reuse scope takes the same routes at the same
+    calls); its objective, evaluated by the plain path in float64, lies
+    within ``GLM_LONG_FTOL`` of the plain path's fit's (pullback
+    accumulated in float64), the f32 plain fit's gap printed beside it.
+    The coefficients' normwise gap is printed, not gated: with more
+    columns than rows the objective is flat along many directions, so
+    near objectives need not mean near coefficients."""
+    import torch
+
+    from dask_ml_tpu_torch.linear_model.glm import add_intercept
+    from dask_ml_tpu_torch.models import glm as glm_core
+    from dask_ml_tpu_torch.ops import sparse as sps
+    from dask_ml_tpu_torch.parallel.sharding import prepare_data
+
+    data = prepare_data(X, y=y, device=dev)
+    Xd = add_intercept(data.X)
+    data.X = None
+    d = Xd.d
+    mask = torch.ones(d, device=dev)
+    mask[-1] = 0.0
+    b0 = torch.zeros(d, device=dev)
+    lam = 1.0 / est.C
+    sw = float(torch.clamp(data.weights.sum(), min=1.0))
+
+    def lbfgs(kernel):
+        return glm_core.lbfgs(Xd, data.y, data.weights, b0, mask,
+                              lamduh=lam, tol=est.tol, kernel=kernel,
+                              max_iter=est.max_iter)
+
+    def objective(beta):
+        eta = sps.matvec(Xd, beta, kernel="torch").double()
+        loss = (torch.logaddexp(eta, torch.zeros_like(eta))
+                - data.y.double() * eta)
+        pen = 0.5 * float((beta.double() * mask.double()).pow(2).sum())
+        return (float((data.weights.double() * loss).sum()) + lam * pen) / sw
+
+    again, n_again = lbfgs("cuda")
+    expect(np.array_equal(again.cpu().numpy(), est._coef),
+           "two long kernel-path fits differ")
+    with plain_pullback_in_f64():
+        plain, n_plain = lbfgs("torch")
+    plain32, n_plain32 = lbfgs("torch")
+    f_k = objective(torch.as_tensor(est._coef, device=dev))
+    f_p, f_32 = objective(plain), objective(plain32)
+    gap = abs(f_k - f_p) / abs(f_p)
+    expect(gap <= GLM_LONG_FTOL,
+           f"long fit: kernel objective {f_k} against the plain path's "
+           f"{f_p}: {gap} relative (the f32 plain fit: "
+           f"{abs(f_32 - f_p) / abs(f_p)})")
+    stats = {"objective_kernel": f_k, "objective_plain": f_p,
+             "objective_gap_rel": gap,
+             "plain_f32_objective_gap_rel": abs(f_32 - f_p) / abs(f_p),
+             "n_iter_plain": n_plain, "n_iter_plain_f32": n_plain32,
+             "coef_gap_normwise": float(
+                 np.linalg.norm(est._coef - plain.cpu().numpy())
+                 / np.linalg.norm(plain.cpu().numpy()))}
+    del Xd, again, plain, plain32
+    return stats
 
 
 def spmv_only(dev, errs):
@@ -4659,7 +5024,7 @@ def minibatch_fit_predict(dev, errs):
 def hyperband_config4(dev):
     """``hyperband-config4``: ``HyperbandSearchCV(LogisticRegression())``
     over BASELINE config 4's data through the GLM's batched partial_fit
-    rungs, max_epochs 27. Gates: every rung batched with no host read
+    rungs, max_epochs 9. Gates: every rung batched with no host read
     inside it; no kernel of the repo launched (the path is cuBLAS and
     PyTorch's own kernels). Prints brackets, rungs, seconds and the host
     syncs of a whole search (sync debug mode "warn")."""
@@ -10382,18 +10747,33 @@ def main() -> int:
             "platform": "gpu", "kind": kind, "count": count}}), flush=True)
         return 0
 
+    if "--wide-only" in sys.argv[1:]:
+        errs = {}
+        log("K6 and K6-b at the wide path's shape:")
+        _, panel_rows = spmv_path_rows(dev, errs, [
+            s for s in SPMV_PATH_SHAPES if s[0] == SPMV_WIDE_PATH])
+        wide_launches, _ = glm_wide_cell(dev, errs)
+        print(json.dumps({"kernels": kernel_rows(panel_rows, wide_launches,
+                                                 errs)}), flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+        return 0
+
     if "--spmv-only" in sys.argv[1:]:
         errs = {}
         rows, summary = spmv_only(dev, errs)
         log_spmv_rows(rows)
         log("SPMV " + json.dumps(summary))
         log("K6 and K6-b at each path's shape:")
-        path_rows = spmv_path_rows(dev, errs)
+        path_rows, panel_rows = spmv_path_rows(dev, errs)
         for r in rows:
             if r["name"] in ("spmv", "spmv_pullback"):
                 r["path_shapes"] = [
                     p for p in path_rows if p["name"].startswith(
                         "spmv_pullback") == (r["name"] == "spmv_pullback")]
+        rows += kernel_rows(panel_rows, {r["name"]: 0 for r in panel_rows},
+                            errs)
         print(json.dumps({"kernels": rows}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
@@ -10560,7 +10940,7 @@ def main() -> int:
     lap("glm")
 
     log("K6 and K6-b at each path's shape:")
-    path_rows = spmv_path_rows(dev, errs)
+    path_rows, panel_rows = spmv_path_rows(dev, errs)
     for r in rows:
         if r["name"] in ("spmv", "spmv_pullback"):
             r["path_shapes"] = [
@@ -10568,6 +10948,11 @@ def main() -> int:
                 == (r["name"] == "spmv_pullback")]
     torch.cuda.empty_cache()
     lap("spmv_paths")
+
+    wide_launches, _ = glm_wide_cell(dev, errs)
+    rows += kernel_rows(panel_rows, wide_launches, errs)
+    torch.cuda.empty_cache()
+    lap("glm_wide")
 
     admm_launches, _ = glm_pca_cells(dev)
     for r in rows:
@@ -10725,6 +11110,7 @@ def main() -> int:
     bf16, _ = precision_cells(dev, f32_inertia=blobs_inertia)
     rows += bf16
     lap("precision")
+    log("PROFILER_MISSES " + json.dumps(PROFILER_MISSES))
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -85,6 +85,13 @@ SIGNATURES = {
         "dml_spmv_pullback_rings": ([_P, _I, _P, _P, _I, _I, _I], _I),
         "dml_spmv_pullback_atomic": (
             [_P, _I, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P], _I),
+        "dml_spmv_panel": (
+            [_P, _I, _P, _L, _P, _P, _I, _P, _L, _I, _I, _I, _I, _P, _P, _P],
+            _I),
+        "dml_spmv_pullback_panel": (
+            [_P, _I, _P, _L, _P, _P, _P, _P, _P, _I, _I, _P, _L, _I, _I, _I,
+             _I, _I, _P, _P, _P, _P, _P, _P],
+            _I),
     },
 }
 

@@ -147,6 +147,43 @@
 //     flight (3 stages of 16 rows beside a 200 KB part). Warming the
 //     tiles into L2 ahead of the ring and an f32 fixed point were
 //     measured and did not pay (PERF.md).
+//
+// A d-vector that no cluster holds (a hashed feature space: d = 2^20 + 1
+// with the intercept, v 4 MB) is brought on chip a panel at a time, as
+// the TPU kernel keeps the whole of v in VMEM (cache or propagation
+// blocking: Williams et al., SC 2007; Beamer et al., IPDPS 2017). The
+// caller builds once per container a panel-major copy of it (ops/sparse.py
+// ::_panel_layout): the columns cut into panels of P (55,992) columns, the
+// rows into blocks of RB (at most 16,384) rows, a unit being one panel x
+// one row block; the nonzero slots ordered by unit (panel-major), and
+// within a unit by row, a row's slots in their own order; each slot its
+// value and one 32-bit word, (row - the unit's first row) << 16 | (column
+// - the panel's first column). 8 bytes a slot (6 for bf16 values), the
+// container's own 8. Blocks of 1,024 threads, one an SM, each a
+// contiguous range of units (balanced by slots), walk their units in tiles
+// of 4,096 slots, 16-byte loads, the next tile's loads in flight while one
+// is worked on:
+//   * forward (spmv_panel_kernel): a block copies each panel of v it meets
+//     into its shared memory (16-byte cp.async; bf16 values keep v as
+//     bf16); a tile's rows are sorted, so each thread sums its 4 slots'
+//     runs of rows and a segmented scan over the warp's lanes, then over
+//     the block's warps (seeded by the run carried from the unit's last
+//     tile) joins them, in a fixed order (one thread a row summing its
+//     slots one after another was tried first: the lanes of a warp wait
+//     for its longest row, and it lost to L2 at d = 150,001, where a row
+//     has ~34 slots a panel); it writes one partial a row
+//     a panel, a (panels, n) scratch, zeros where a row has no slot in
+//     the panel, and sum_partials_kernel adds the panels' partials in
+//     panel order: the result repeats its bits;
+//   * pullback (pullback_panel_kernel): a block keeps one panel's low
+//     words in shared memory and adds each slot's fixed-point q there, the
+//     high words to a row of its own in device memory; each (block, panel)
+//     pair writes its copy of the low words, and from_panels_kernel adds a
+//     panel's copies with their high words: the bits of every other route.
+//     A panel's hottest column (the intercept's, in its panel nearly every
+//     slot) is summed in each thread's registers as an int64 and added
+//     once a warp per panel: shared-memory atomics of a warp to one
+//     address serialise.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1153,6 +1190,381 @@ int launch_plan(const Plan& p, void** args, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the d-vector a panel at a time (the panel-major copy of the container)
+// ---------------------------------------------------------------------------
+
+constexpr int PANEL_T = 4 * TB;        // slots a tile: 4 a thread
+constexpr int PANEL_WARPS = TB / 32;
+constexpr int PANEL_MAX_ROWS = 32768;  // a row offset keeps the word's sign
+// the forward's staging: each thread's first and last row, each warp's
+// run (sum, whether it holds a row's start), two carries (row, sum)
+constexpr int PANEL_STAGE_BYTES = 8 * TB + 8 * PANEL_WARPS + 16;
+// the row of a slot past the tile's valid range (below it: -1)
+constexpr int PANEL_PAST = 0x7fffffff;
+
+// four slots of the layout: values as f32, packed words
+struct PanelFrag {
+  float4 a;
+  uint4 w;
+};
+
+// The four slots from flat index g0 (a multiple of 4), zeros past len (the
+// layout's length, a multiple of 4): every load is 16 bytes (8 for bf16
+// values), aligned, streamed.
+template <typename TV>
+__device__ __forceinline__ PanelFrag load_panel_frag(
+    const TV* __restrict__ vals, const unsigned* __restrict__ words,
+    long long g0, long long len) {
+  PanelFrag f;
+  if (g0 + 4 <= len) {
+    f.a = ld4<true>(vals + g0);
+    f.w = __ldcs(reinterpret_cast<const uint4*>(words + g0));
+  } else {
+    f.a = make_float4(0.f, 0.f, 0.f, 0.f);
+    f.w = make_uint4(0u, 0u, 0u, 0u);
+  }
+  return f;
+}
+
+// Where a block is in its units: unit u (slots [u0, u1) of the layout) and
+// the tile that starts at t0 (a multiple of 4, at most 3 slots before u0).
+struct PanelCursor {
+  int u;
+  long long u0, u1, t0;
+};
+
+// The tiles of units [ub, ue), every unit at least one (an empty unit's
+// tile holds no slot of it), work(frag, cursor) on each, the next tile's
+// loads issued before the work on this one. Block-uniform: work may
+// synchronise the block.
+template <typename TV, typename Work>
+__device__ __forceinline__ void walk_panel_tiles(
+    const TV* __restrict__ vals, const unsigned* __restrict__ words,
+    long long len, const long long* __restrict__ unit_ptr, int ub, int ue,
+    Work work) {
+  auto begin = [&](int u) {
+    PanelCursor c;
+    c.u = u;
+    c.u0 = c.u1 = c.t0 = 0;
+    if (u < ue) {
+      c.u0 = __ldg(unit_ptr + u);
+      c.u1 = __ldg(unit_ptr + u + 1);
+      c.t0 = c.u0 & ~3LL;
+    }
+    return c;
+  };
+  const long long mine = 4LL * threadIdx.x;
+  PanelCursor c = begin(ub);
+  PanelFrag f = load_panel_frag(vals, words, c.t0 + mine, c.u < ue ? len : 0);
+  while (c.u < ue) {
+    PanelCursor nx = c;
+    if (c.t0 + PANEL_T < c.u1)
+      nx.t0 += PANEL_T;
+    else
+      nx = begin(c.u + 1);
+    const PanelFrag fn =
+        load_panel_frag(vals, words, nx.t0 + mine, nx.u < ue ? len : 0);
+    work(f, c);
+    f = fn;
+    c = nx;
+  }
+}
+
+// Columns [c0, c0 + width) of v into part: 16-byte cp.async where v is
+// 16-byte aligned (a panel's first column then is too), else element by
+// element. The caller synchronises the block after.
+template <typename PT>
+__device__ __forceinline__ void copy_panel(PT* part, const PT* __restrict__ v,
+                                           long long c0, int width,
+                                           bool aligned) {
+  constexpr int PER = 16 / (int)sizeof(PT);
+  const PT* src = v + c0;
+  int done = 0;
+  if (aligned) {
+    const int chunks = width / PER;
+    for (int j = threadIdx.x; j < chunks; j += TB)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                       smem_u32(part + (long long)j * PER)),
+                   "l"(src + (long long)j * PER)
+                   : "memory");
+    done = chunks * PER;
+  }
+  for (int j = done + threadIdx.x; j < width; j += TB) part[j] = src[j];
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// An inclusive segmented scan over the warp's lanes of (v, f): v the sum
+// of a run of slots, f whether a row starts in it; the sums added earlier
+// lanes first, in a fixed tree: deterministic.
+__device__ __forceinline__ void segmented_scan(float& v, int& f, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float vu = __shfl_up_sync(0xffffffffu, v, off);
+    const int fu = __shfl_up_sync(0xffffffffu, f, off);
+    if (lane >= off) {
+      if (!f) v = vu + v;
+      f |= fu;
+    }
+  }
+}
+
+// The forward. v: f32, or for bf16 values the bf16 bits of v rounded by the
+// caller. Shared memory: [the panel's v, P entries, 16-byte rounded |
+// each thread's first and last row | each warp's run | carries].
+// partial: (panels, n), row r of panel p at p n + r. A tile's rows are
+// sorted: each thread sums its 4 slots' run of rows, the runs are joined
+// by a segmented scan over the warp's lanes and then over the block's
+// warps (seeded by the run carried in from the unit's last tile), and the
+// thread holding a row's last slot writes the row's sum; the run that
+// reaches the end of a tile that is not its unit's last is carried.
+template <typename TV>
+__global__ void __launch_bounds__(TB, 1)
+spmv_panel_kernel(const TV* __restrict__ vals,
+                  const unsigned* __restrict__ words, long long len,
+                  const long long* __restrict__ unit_ptr,
+                  const int* __restrict__ block_units,
+                  const typename PartOf<TV>::T* __restrict__ v, int valigned,
+                  long long n, int d, int P, int RB, int nb,
+                  float* __restrict__ partial) {
+  using PT = typename PartOf<TV>::T;
+  extern __shared__ float4 smem4[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem4);
+  PT* part = reinterpret_cast<PT*>(base);
+  const int part_bytes = (int)((sizeof(PT) * (size_t)P + 15) & ~(size_t)15);
+  int* first_row = reinterpret_cast<int*>(base + part_bytes);
+  int* last_row = first_row + TB;
+  float* wsum = reinterpret_cast<float*>(last_row + TB);
+  int* whead = reinterpret_cast<int*>(wsum + PANEL_WARPS);
+  int* crow = whead + PANEL_WARPS;
+  float* csum = reinterpret_cast<float*>(crow + 2);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int t4 = 4 * t;
+  int cur = -1, par = 0;
+
+  auto work = [&](const PanelFrag& f, const PanelCursor& c) {
+    const int p = c.u / nb;
+    const int b = c.u - p * nb;
+    if (p != cur) {
+      // every read of the last panel ended before the last tile's barrier
+      const long long c0 = (long long)p * P;
+      copy_panel(part, v, c0, (int)min((long long)P, d - c0), valigned != 0);
+      __syncthreads();
+      cur = p;
+    }
+    const int lo = (int)max(c.u0 - c.t0, 0LL);
+    const int hi = (int)min(c.u1 - c.t0, (long long)PANEL_T);
+    const bool first = c.t0 == (c.u0 & ~3LL);
+    const bool last = c.t0 + PANEL_T >= c.u1;
+    const float a[4] = {f.a.x, f.a.y, f.a.z, f.a.w};
+    const unsigned w[4] = {f.w.x, f.w.y, f.w.z, f.w.w};
+    float prod[4];
+    int R[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = t4 + e;
+      const bool in = i >= lo && i < hi;
+      prod[e] = in ? a[e] * widen(part[w[e] & 0xffffu]) : 0.f;
+      R[e] = i < lo ? -1 : (i < hi ? (int)(w[e] >> 16) : PANEL_PAST);
+    }
+    first_row[t] = R[0];
+    last_row[t] = R[3];
+    __syncthreads();
+    // the row before this thread's first slot: the last thread's, or for
+    // thread 0 the carried row (-3 at a unit's start: no row)
+    const int crow_in = first ? -3 : crow[par];
+    const float csum_in = first ? 0.f : csum[par];
+    const int prev = t ? last_row[t - 1] : crow_in;
+    const int next = t + 1 < TB ? first_row[t + 1] : PANEL_PAST;
+    // this thread's run into the next thread: its sum from its last row
+    // start, and whether a row starts here
+    float run = 0.f;
+    int starts = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (R[e] != (e ? R[e - 1] : prev)) {
+        run = 0.f;
+        starts = 1;
+      }
+      run += prod[e];
+    }
+    float sv = run;
+    int sf = starts;
+    segmented_scan(sv, sf, lane);
+    float ev = __shfl_up_sync(0xffffffffu, sv, 1);
+    int ef = __shfl_up_sync(0xffffffffu, sf, 1);
+    if (lane == 0) {
+      ev = 0.f;
+      ef = 0;
+    }
+    if (lane == 31) {
+      wsum[warp] = sv;
+      whead[warp] = sf;
+    }
+    __syncthreads();
+    // the runs of the warps before this one, seeded by the carry
+    float xv = lane ? wsum[lane - 1] : csum_in;
+    int xf = lane ? whead[lane - 1] : 1;
+    segmented_scan(xv, xf, lane);
+    const float win = __shfl_sync(0xffffffffu, xv, warp);
+    float s = ef ? ev : win + ev;  // the open row's sum before slot 0
+    const long long row0 = (long long)b * RB;
+    const int rows = (int)min((long long)RB, n - row0);
+    float* dst = partial + (long long)p * n + row0;
+    auto zeros = [&](int from, int to) {
+      for (int q = max(from, 0); q < to; ++q) dst[q] = 0.f;
+    };
+    if (lo == hi) {
+      if (t == 0) zeros(0, rows);  // a unit without slots
+      par ^= 1;
+      return;
+    }
+    if (t == 0 && crow_in >= 0 && R[0] != crow_in) dst[crow_in] = csum_in;
+    int rp = prev;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = t4 + e;
+      const int r = R[e];
+      const bool row = r >= 0 && r != PANEL_PAST;
+      if (r != rp) {
+        s = 0.f;
+        if (row) zeros(rp + 1, r);  // rows of the unit without a slot here
+      }
+      s += prod[e];
+      if (row && r != (e < 3 ? R[e + 1] : next)) {
+        if (i == hi - 1 && !last) {
+          crow[par ^ 1] = r;
+          csum[par ^ 1] = s;
+        } else {
+          dst[r] = s;
+          if (i == hi - 1) zeros(r + 1, rows);
+        }
+      }
+      rp = r;
+    }
+    // the next tile's staging is rewritten behind its first barrier, the
+    // warps' runs behind its second; the carry alternates
+    par ^= 1;
+  };
+  walk_panel_tiles(vals, words, len, unit_ptr, block_units[blockIdx.x],
+                   block_units[blockIdx.x + 1], work);
+}
+
+// The pullback. Shared memory: one panel's low words, P of them. lo and hi:
+// (pairs, P) 32-bit scratch, hi zeroed by the caller; pair q's copy of its
+// panel's words at q P. block_pair[j]: block j's first pair; hot[p]: the
+// column (offset in panel p) whose q a thread sums in a register.
+template <typename TV>
+__global__ void __launch_bounds__(TB, 1)
+pullback_panel_kernel(const TV* __restrict__ vals,
+                      const unsigned* __restrict__ words, long long len,
+                      const long long* __restrict__ unit_ptr,
+                      const int* __restrict__ block_units,
+                      const int* __restrict__ block_pair,
+                      const int* __restrict__ hot,
+                      const float* __restrict__ r, long long n, long long nk,
+                      int d, int P, int RB, int nb, const unsigned* a_bound,
+                      const unsigned* r_bound, unsigned* __restrict__ lo,
+                      unsigned* __restrict__ hi) {
+  extern __shared__ float4 smem4[];
+  unsigned* part = reinterpret_cast<unsigned*>(smem4);
+  const int ub = block_units[blockIdx.x], ue = block_units[blockIdx.x + 1];
+  if (ub >= ue) return;
+  const Fixed fx = fixed_point(a_bound, r_bound, nk);
+  const int t4 = 4 * threadIdx.x;
+  int cur = -1, pair = block_pair[blockIdx.x] - 1, hot_col = 0;
+  long long hot_sum = 0;
+
+  // this block's copy of panel `cur`: the warps' hot sums, then the low
+  // words out
+  auto flush = [&]() {
+    long long h = hot_sum;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      h += __shfl_xor_sync(0xffffffffu, h, off);
+    if ((threadIdx.x & 31) == 0 && h != 0)
+      add_fixed(part + hot_col, hi + (long long)pair * P + hot_col, h);
+    hot_sum = 0;
+    __syncthreads();
+    const int width = (int)min((long long)P, d - (long long)cur * P);
+    unsigned* out = lo + (long long)pair * P;
+    for (int j = threadIdx.x; j < width; j += TB) out[j] = part[j];
+    __syncthreads();
+  };
+  auto work = [&](const PanelFrag& f, const PanelCursor& c) {
+    const int p = c.u / nb;
+    if (p != cur) {
+      if (cur >= 0) flush();
+      for (int j = threadIdx.x; j < P; j += TB) part[j] = 0u;
+      hot_col = __ldg(hot + p);
+      __syncthreads();
+      cur = p;
+      ++pair;
+    }
+    const long long row0 = (long long)(c.u - p * nb) * RB;
+    const int lo_i = (int)max(c.u0 - c.t0, 0LL);
+    const int hi_i = (int)min(c.u1 - c.t0, (long long)PANEL_T);
+    unsigned* hrow = hi + (long long)pair * P;
+    const float a[4] = {f.a.x, f.a.y, f.a.z, f.a.w};
+    const unsigned w[4] = {f.w.x, f.w.y, f.w.z, f.w.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = t4 + e;
+      if (i < lo_i || i >= hi_i || a[e] == 0.f) continue;
+      const int col = (int)(w[e] & 0xffffu);
+      const long long q =
+          to_fixed(a[e] * __ldg(r + row0 + (w[e] >> 16)), fx);
+      if (col == hot_col)
+        hot_sum += q;
+      else
+        add_fixed(part + col, hrow + col, q);
+    }
+  };
+  walk_panel_tiles(vals, words, len, unit_ptr, ub, ue, work);
+  flush();
+}
+
+// g[c] = the sum of panel p's copies (pairs panel_pairs[p] ..
+// panel_pairs[p + 1] - 1) of column c's (low, high) words as a 64-bit
+// integer, in f32 (as from_fixed_kernel); NaN where a bound was not finite.
+__global__ void __launch_bounds__(THREADS)
+from_panels_kernel(const unsigned* __restrict__ lo,
+                   const unsigned* __restrict__ hi,
+                   const int* __restrict__ panel_pairs, int P, int d,
+                   const unsigned* a_bound, const unsigned* r_bound,
+                   long long nk, float* __restrict__ g) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= d) return;
+  const int p = i / P;
+  const int off = i - p * P;
+  unsigned long long t = 0;
+  for (int q = panel_pairs[p]; q < panel_pairs[p + 1]; ++q) {
+    const long long at = (long long)q * P + off;
+    t += (unsigned long long)lo[at] + ((unsigned long long)hi[at] << 32);
+  }
+  const Fixed f = fixed_point(a_bound, r_bound, nk);
+  g[i] = f.finite ? (float)((double)(long long)t * f.unscale)
+                  : __int_as_float(0x7fffffff);
+}
+
+// Dynamic shared memory of the panel kernels for P columns: the forward's
+// v (2 bytes a column for bf16 values, else 4) and staging, the
+// pullback's low words.
+long long panel_smem(bool pull, bool bf16, int P) {
+  if (pull) return 4LL * P;
+  return (((bf16 ? 2LL : 4LL) * P + 15) & ~15LL) + PANEL_STAGE_BYTES;
+}
+
+// What both panel entries hold their shape to.
+bool panel_shape_ok(bool pull, bool bf16, long long len, long long n, int d,
+                    int P, int RB, int nb, int blocks) {
+  return len >= 0 && len % 4 == 0 && n > 0 && d > 0 && P >= 8 &&
+         P % 8 == 0 && P <= 65536 && RB >= 1 && RB <= PANEL_MAX_ROWS &&
+         (long long)nb * RB >= n && (long long)(nb - 1) * RB < n &&
+         blocks >= 1 && panel_smem(pull, bf16, P) <= SMEM_BLOCK_BYTES &&
+         (long long)((d + P - 1) / P) * nb < 0x7fffffffLL;
+}
+
 }  // namespace
 
 // Lanes that share one row for a row of k slots.
@@ -1329,4 +1741,93 @@ extern "C" int dml_spmv_pullback_atomic(const void* values, int vbf16,
   const unsigned* words = reinterpret_cast<const unsigned*>(acc);
   return launch_from_fixed(words, words + 1, 1, 0, 2, d, a_bound, r_bound,
                            n * (long long)k, g, s);
+}
+
+// The forward a panel at a time. The layout (ops/sparse.py::_panel_layout):
+// vals (len,) f32 or (vbf16) bf16 and words (len,) 32-bit, len a multiple
+// of 4; unit_ptr (units + 1,) int64, units = panels nb with panels = ceil(d
+// / P); block_units (blocks + 1,) int32, block j's units. v: (d,) f32, or
+// for bf16 values the bf16 v rounded by the caller; partial (panels, n) f32
+// scratch; out (n,) f32. Two launches: the walk, then the panels' partials
+// added in panel order. Refuses (cudaErrorInvalidValue) a shape
+// panel_shape_ok does not take.
+extern "C" int dml_spmv_panel(const void* vals, int vbf16, const int* words,
+                              long long len, const long long* unit_ptr,
+                              const int* block_units, int blocks,
+                              const void* v, long long n, int d, int P,
+                              int RB, int nb, float* partial, float* out,
+                              void* stream) {
+  const bool bf16 = vbf16 != 0;
+  if (!panel_shape_ok(false, bf16, len, n, d, P, RB, nb, blocks))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int smem = (int)panel_smem(false, bf16, P);
+  const void* kernel = bf16 ? (const void*)spmv_panel_kernel<__nv_bfloat16>
+                            : (const void*)spmv_panel_kernel<float>;
+  int err = grant(kernel, smem);
+  if (err) return err;
+  const unsigned* w = reinterpret_cast<const unsigned*>(words);
+  const int valigned = aligned16(v, v) ? 1 : 0;
+  if (bf16)
+    spmv_panel_kernel<__nv_bfloat16><<<blocks, TB, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(vals), w, len, unit_ptr,
+        block_units, static_cast<const unsigned short*>(v), valigned, n, d,
+        P, RB, nb, partial);
+  else
+    spmv_panel_kernel<float><<<blocks, TB, smem, s>>>(
+        static_cast<const float*>(vals), w, len, unit_ptr, block_units,
+        static_cast<const float*>(v), valigned, n, d, P, RB, nb, partial);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return launch_sum(partial, (d + P - 1) / P, n, out, s);
+}
+
+// The pullback a panel at a time: the layout as dml_spmv_panel's, plus
+// block_pair (blocks,) int32, block j's first (block, panel) pair;
+// panel_hot (panels,) int32, each panel's hottest column (an offset in
+// it); panel_pairs (panels + 1,) int32, panel p's pairs. r (n,) f32 of a
+// container of n rows of k slots (n k sets the fixed point's scale, as on
+// every route); a_bound, r_bound as dml_spmv_pullback_smem's; lo and hi,
+// (pairs, P) 32-bit scratch; g (d,) f32 out. Returns cudaGetLastError()
+// after the last of its launches (|r|'s bound, the zeroing of hi, the
+// walk, the sum of the pairs' words).
+extern "C" int dml_spmv_pullback_panel(
+    const void* vals, int vbf16, const int* words, long long len,
+    const long long* unit_ptr, const int* block_units, const int* block_pair,
+    const int* panel_hot, const int* panel_pairs, int blocks, int pairs,
+    const float* r, long long n, int k, int d, int P, int RB, int nb,
+    const unsigned* a_bound, unsigned* r_bound, unsigned* lo, unsigned* hi,
+    float* g, void* stream) {
+  const bool bf16 = vbf16 != 0;
+  if (!panel_shape_ok(true, bf16, len, n, d, P, RB, nb, blocks) || k <= 0 ||
+      pairs < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int smem = (int)panel_smem(true, bf16, P);
+  const void* kernel = bf16
+                           ? (const void*)pullback_panel_kernel<__nv_bfloat16>
+                           : (const void*)pullback_panel_kernel<float>;
+  int err = grant(kernel, smem);
+  if (err) return err;
+  err = launch_absmax(r, n, r_bound, s);
+  if (err) return err;
+  cudaError_t e = cudaMemsetAsync(hi, 0, 4 * (size_t)pairs * P, s);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned* w = reinterpret_cast<const unsigned*>(words);
+  const long long nk = n * (long long)k;
+  if (bf16)
+    pullback_panel_kernel<__nv_bfloat16><<<blocks, TB, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(vals), w, len, unit_ptr,
+        block_units, block_pair, panel_hot, r, n, nk, d, P, RB, nb, a_bound,
+        r_bound, lo, hi);
+  else
+    pullback_panel_kernel<float><<<blocks, TB, smem, s>>>(
+        static_cast<const float*>(vals), w, len, unit_ptr, block_units,
+        block_pair, panel_hot, r, n, nk, d, P, RB, nb, a_bound, r_bound, lo,
+        hi);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  from_panels_kernel<<<(d + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+      lo, hi, panel_pairs, P, d, a_bound, r_bound, nk, g);
+  return (int)cudaGetLastError();
 }

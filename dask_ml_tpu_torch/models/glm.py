@@ -17,7 +17,10 @@ as they come from ``jax.value_and_grad`` there. The data enters through
 three seams that dispatch by input type: a dense tensor goes to
 ``torch.matmul``; a :class:`~dask_ml_tpu_torch.ops.sparse.SparseRows`
 container to ``ops/sparse`` — its matvec is the K6 kernel on the card,
-and its backward K6's pullback kernel.
+and its backward K6's pullback kernel. Each solver's run is one
+:func:`~dask_ml_tpu_torch.ops.sparse.reuse_scope`: where no cluster
+holds the d-vector, a container takes the panel route once its calls
+have paid for its panel-major copy, and the copy goes when the run ends.
 
 The JAX package runs each solver, and each Armijo backtracking, as an
 on-device ``while_loop``. Here they are Python loops that read one scalar
@@ -443,6 +446,7 @@ def _keep_going(it: int, max_iter: int, done) -> bool:
 # ---------------------------------------------------------------------------
 
 
+@sparse_ops.reuse_scope()
 @torch.no_grad()
 def gradient_descent(X, y, w, beta0, mask, *, family="logistic",
                      regularizer="l2", lamduh=0.0, max_iter=100, tol=1e-4,
@@ -468,6 +472,7 @@ def gradient_descent(X, y, w, beta0, mask, *, family="logistic",
     return beta, it
 
 
+@sparse_ops.reuse_scope()
 @torch.no_grad()
 def newton(X, y, w, beta0, mask, *, family="logistic", regularizer="l2",
            lamduh=0.0, max_iter=50, tol=1e-4, kernel="auto", mesh=None):
@@ -562,6 +567,7 @@ def _lbfgs_loop(obj, value_and_grad, carry0, max_iter, tol, m):
     return (b, g, f, S, Y, rho, count, head), it, done
 
 
+@sparse_ops.reuse_scope()
 @torch.no_grad()
 def lbfgs(X, y, w, beta0, mask, *, family="logistic", regularizer="l2",
           lamduh=0.0, max_iter=100, tol=1e-4, m=10, state=None,
@@ -609,6 +615,7 @@ def _model_check(fsmooth, prox, beta, f0, g, tt):
     return fsmooth(z), f0 + torch.dot(g, dz) + torch.sum(dz * dz) / (2.0 * tt)
 
 
+@sparse_ops.reuse_scope()
 def proximal_grad(X, y, w, beta0, mask, *, family="logistic",
                   regularizer="l1", lamduh=0.0, max_iter=100, tol=1e-4,
                   kernel="auto", mesh=None):
@@ -821,6 +828,7 @@ def _batched_newton(grad_fn, step_fn, x, inner_tol, inner_max_iter):
     return x
 
 
+@sparse_ops.reuse_scope()
 @torch.no_grad()
 def admm(X, y, w, beta0, mask, mesh=None, *, n_shards=1,
          family="logistic", regularizer="l2", lamduh=0.0, rho=1.0,
@@ -1225,6 +1233,7 @@ def _admm_streamed_host(source, z, x, u, mask, pen_prox, scal, *, check_done,
     return z, n_iter, x, u, done
 
 
+@sparse_ops.reuse_scope()
 @torch.no_grad()
 def admm_streamed(block_fn, n_blocks, d, sw_total, mask=None, *,
                   family="logistic", regularizer="l2", lamduh=0.0, rho=1.0,

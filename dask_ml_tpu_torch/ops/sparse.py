@@ -22,7 +22,14 @@ contractions the GLM solvers route through.
   memory of one block, of a thread block cluster of 2 (the pullback: also
   of 4), or L2. A pure function of ``(n, k, d)``, the values' dtype (the
   bf16 forward keeps ``v`` as bf16, 2 bytes a column) and the card's
-  constants.
+  constants. :func:`dvector_route` adds, where no cluster holds ``d``,
+  the panel route (:data:`PANEL`): the vector on chip a panel at a time,
+  from a panel-major copy of the container (:func:`_panel_layout`,
+  :func:`_panels_of`). That copy costs more than a call saves, so the
+  wrappers take the route only inside a :func:`reuse_scope` (a solver's
+  run), once the container's calls on L2 there have lost what building
+  the copy costs and the copy fits in the card's free memory; the scope
+  drops the copies it built when it ends.
 - :func:`matmat` (an autograd function whose backward for ``B`` is
   :func:`pullback_mat`), :func:`pullback_mat` and :func:`weighted_gram`
   (``A.T @ diag(h) @ A``) in plain PyTorch, as the JAX package computes
@@ -68,6 +75,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import threading
+import weakref
 
 import numpy as np
 import torch
@@ -88,6 +96,8 @@ __all__ = [
     "weighted_gram",
     "spmv",
     "dvector_plan",
+    "dvector_route",
+    "reuse_scope",
     "split_cols",
     "merge_cols",
     "column_moments",
@@ -359,6 +369,342 @@ def _plan(n: int, k: int, d: int, pullback: bool, dtype) -> int:
     return 0
 
 
+#: the route that keeps the d-vector on chip a panel at a time (the answer
+#: of :func:`dvector_route` and a ``cluster=`` the wrappers take)
+PANEL = -1
+#: columns a panel of the panel-major layout (the forward's f32 v beside
+#: its staging in one block's shared memory, as ``csrc/spmv.cu``'s
+#: ``panel_smem`` counts it; the pullback's low words take the same
+#: panels, so one layout serves both directions), the rows of a unit at
+#: most, the slots a chunk of the layout's build
+_PANEL_COLS = 55_992
+_PANEL_MAX_ROWS = 16_384
+_PANEL_CHUNK_SLOTS = 1 << 24
+#: the fewest slots at which a panel call beats an L2 call, by direction
+#: (forward, pullback): ``chip_ab.py --spmv-wide``'s sweep on an H100 at k
+#: = 101, d 150,001 and 2^20 + 1, found L2 ahead both ways at 2.0e6 slots,
+#: the panel forward ahead at both widths from 6.06e6, the panel pullback
+#: from 1.26e7 (PERF.md §6)
+_PANEL_MIN_SLOTS = {False: 6_000_000, True: 12_000_000}
+#: what an L2 call loses against a panel call, seconds a slot beyond
+#: ``_PANEL_MIN_SLOTS``, by direction (the least of the sweep's slopes
+#: from 1.26e7 to 1.01e9 slots at both widths); what the layout's build
+#: costs, seconds (fixed, a slot: 0.002–0.013 s at 2e6–1.6e7 slots,
+#: 0.023–0.024 at 1.01e8, 0.19–0.28 at 1.01e9, a process's first build
+#: up to 0.58): the same script's sweep and builds (PERF.md §6)
+_PANEL_GAIN_S = {False: 3.7e-12, True: 1.49e-11}
+_PANEL_BUILD_S = (0.004, 2.4e-10)
+
+
+def dvector_route(n: int, k: int, d: int, *, pullback: bool = False,
+                  dtype=torch.float32) -> int:
+    """The route on which a call of K6 (or, with ``pullback=True``, of its
+    backward) is fastest for an ``(n, k)`` container of ``dtype`` values
+    once the container's panel-major copy is held: :func:`dvector_plan`'s
+    cluster where it names one; where it answers 0, :data:`PANEL` (the
+    d-vector a panel at a time) where ``d`` is beyond every cluster the
+    direction is built for (at ``k``, or at a tile's widest row for a
+    wider one) and the container holds at least ``_PANEL_MIN_SLOTS``
+    slots, else 0 (L2). Short containers, those with too few slots for
+    their ``d`` and the shapes a cluster holds keep their plan. A pure
+    function of its arguments and the card's constants; whether a call
+    takes :data:`PANEL` or L2 also counts the copy's build
+    (:func:`reuse_scope`)."""
+    n, k, d, pullback = int(n), int(k), int(d), bool(pullback)
+    c = _plan(n, k, d, pullback, dtype)
+    if (c or n * k < _PANEL_MIN_SLOTS[pullback]
+            or any(_fits(min(k, _MAX_TILE_K), d, s, pullback, dtype)
+                   for s in _PLAN_CLUSTERS[pullback])):
+        return c
+    return PANEL
+
+
+class _Panels:
+    """The panel-major copy of a container (:func:`_panel_layout`): its
+    nonzero slots ordered by unit (one panel of ``P`` columns x one block
+    of ``RB`` rows; unit ``u`` is panel ``u // nb``, row block ``u % nb``),
+    within a unit by row, a row's slots in their order; each slot its
+    value (``vals``, the container's dtype) and a word ``(row - u's first
+    row) << 16 | (column - the panel's first column)`` (``words``, int32).
+    ``unit_ptr`` (units + 1,) int64 bounds each unit's slots;
+    ``block_units`` (blocks + 1,) int32 deals the units to the kernels'
+    blocks, balanced by slots; a block's (block, panel) pairs are the
+    pullback's copies of its panels' words: ``block_pair`` (blocks,) the
+    first of block j's, ``panel_pairs`` (panels + 1,) each panel's;
+    ``hot`` (panels,) each panel's most frequent column (an offset in
+    it), from the first chunk of rows. ``vals`` and ``words`` are padded
+    with zeros to a multiple of 4 slots."""
+
+    __slots__ = ("P", "RB", "panels", "nb", "blocks", "total", "pairs",
+                 "vals", "words", "unit_ptr", "block_units", "block_pair",
+                 "panel_pairs", "hot")
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (
+            self.vals, self.words, self.unit_ptr, self.block_units,
+            self.block_pair, self.panel_pairs, self.hot))
+
+
+def _panel_rows(n: int, panels: int) -> int:
+    """Rows of a unit: the largest power of two up to ``_PANEL_MAX_ROWS``
+    that still gives the blocks 8 units each (at least 256 rows)."""
+    rb = _PANEL_MAX_ROWS
+    while rb > 256 and panels * -(-n // rb) < 8 * _SMS:
+        rb //= 2
+    return rb
+
+
+def _panel_layout(values, cols, d: int) -> _Panels:
+    """Build the panel-major copy of the ``(n, k)`` container (plain
+    PyTorch, where the leaves lie): a counting sort by unit in chunks of
+    whole row blocks (a unit's slots all come from one chunk, whose
+    stable sort of chunk-local keys, one byte where they fit, keeps row
+    order), value-0 slots dropped. 8 bytes a slot for f32 values (6 for
+    bf16): about one more container."""
+    n, k = (int(s) for s in values.shape)
+    dev = values.device
+    lay = _Panels()
+    P = lay.P = _PANEL_COLS
+    NP = lay.panels = max(1, -(-d // P))
+    RB = lay.RB = _panel_rows(n, NP)
+    NB = lay.nb = max(1, -(-n // RB))
+    U = NP * NB
+    blocks = lay.blocks = _SMS
+    # row blocks a chunk: its slots at most _PANEL_CHUNK_SLOTS, its keys
+    # (panel, row block in the chunk, and one for dropped slots) in a byte
+    # where they can be
+    nbc = max(1, _PANEL_CHUNK_SLOTS // (RB * k))
+    if NP < 255:
+        nbc = min(nbc, 255 // NP)
+    K = NP * nbc  # the key of a dropped slot
+    kdt = (torch.uint8 if K < 256 else torch.int16 if K < 32768
+           else torch.int32)
+
+    def keys(b0):
+        """The chunk of row blocks from b0: its rows, its slots' keys."""
+        s, e = b0 * RB, min(n, (b0 + nbc) * RB)
+        j = torch.arange(s, e, device=dev, dtype=torch.int32)[:, None]
+        j = torch.div(j, RB, rounding_mode="floor") - b0
+        key = torch.div(cols[s:e], P, rounding_mode="floor") * nbc + j
+        key = key.masked_fill_(values[s:e] == 0, K).reshape(-1)
+        return s, e, key.to(kdt)
+
+    def units(b0):
+        """The unit of each chunk key (key K and row blocks past the last:
+        unit 0, no slot has them)."""
+        p = torch.arange(K, device=dev) // nbc
+        b = b0 + torch.arange(K, device=dev) % nbc
+        return torch.where(b < NB, p * NB + b, 0)
+
+    counts = torch.zeros(U, dtype=torch.int64, device=dev)
+    for b0 in range(0, NB, nbc):
+        _, _, key = keys(b0)
+        counts.index_add_(0, units(b0),
+                          torch.bincount(key, minlength=K + 1)[:K])
+    unit_ptr = torch.zeros(U + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(counts, 0, out=unit_ptr[1:])
+    total = lay.total = int(unit_ptr[-1])
+    length = max(4, -(-total // 4) * 4)
+    lay.vals = torch.zeros(length, dtype=values.dtype, device=dev)
+    lay.words = torch.zeros(length, dtype=torch.int32, device=dev)
+    hot = torch.zeros(NP, dtype=torch.int32, device=dev)
+    for b0 in range(0, NB, nbc):
+        s, e, key = keys(b0)
+        here = torch.bincount(key, minlength=K + 1)
+        start = torch.cumsum(here, 0) - here  # the chunk's first of a key
+        m = int(start[K])
+        if not m:
+            continue
+        skey, order = torch.sort(key, stable=True)
+        skey, order = skey[:m].long(), order[:m]
+        base = unit_ptr[units(b0)] - start[:K]
+        dest = base[skey] + torch.arange(m, device=dev)
+        c = cols[s:e].reshape(-1)[order]
+        row = torch.div(order, k, rounding_mode="floor") % RB  # s % RB = 0
+        lay.vals[dest] = values[s:e].reshape(-1)[order]
+        lay.words[dest] = (row * 65536 + c % P).int()
+        if b0 == 0:
+            hot = torch.bincount(c, minlength=NP * P).view(NP, P).argmax(
+                1).int()
+    lay.unit_ptr = unit_ptr
+    lay.hot = hot
+    # the blocks' units, balanced by slots, and their (block, panel) pairs
+    ptr = unit_ptr.cpu().numpy()
+    bu = np.searchsorted(ptr[:U], (np.arange(blocks + 1) * total) // blocks)
+    bu[0], bu[-1] = 0, U
+    bu = np.maximum.accumulate(bu)
+    first, pair_panel = np.zeros(blocks, np.int32), []
+    for j in range(blocks):
+        first[j] = len(pair_panel)
+        if bu[j] < bu[j + 1]:
+            pair_panel += range(bu[j] // NB, (bu[j + 1] - 1) // NB + 1)
+    lay.pairs = len(pair_panel)
+    lay.block_units = torch.as_tensor(bu.astype(np.int32), device=dev)
+    lay.block_pair = torch.as_tensor(first, device=dev)
+    lay.panel_pairs = torch.as_tensor(np.searchsorted(
+        np.asarray(pair_panel, np.int64), np.arange(NP + 1)).astype(np.int32),
+        device=dev)
+    return lay
+
+
+def _panels_of(values, cols, d: int) -> _Panels:
+    """The container's panel-major copy, built once and kept on the values
+    tensor as ``_dml_panels`` (as :func:`_values_bound` keeps its bound)
+    until ``values._version`` or ``cols._version`` changes, or another
+    ``cols`` tensor or ``d`` comes with the values."""
+    held = getattr(values, "_dml_panels", None)
+    if (held is not None and held[0] == values._version
+            and held[1]() is cols and held[2] == cols._version
+            and held[3] == d):
+        return held[4]
+    lay = _panel_layout(values, cols, d)
+    values._dml_panels = (values._version, weakref.ref(cols), cols._version,
+                          d, lay)
+    return lay
+
+
+def _panel_build_s(slots: int) -> float:
+    """Seconds the panel-major copy of a container of ``slots`` slots
+    takes to build (``_PANEL_BUILD_S``)."""
+    return _PANEL_BUILD_S[0] + _PANEL_BUILD_S[1] * slots
+
+
+def _l2_loss_s(slots: int, pullback: bool) -> float:
+    """Seconds an L2 call on ``slots`` slots loses against a panel call
+    (``_PANEL_GAIN_S``)."""
+    return _PANEL_GAIN_S[pullback] * max(
+        0, slots - _PANEL_MIN_SLOTS[pullback])
+
+
+def _panel_bytes(n: int, k: int, d: int, itemsize: int) -> int:
+    """Device bytes the panel route takes beside the container: its copy
+    (4 bytes a slot and the value's), a chunk's build (48 bytes a slot of
+    the chunk at most) and the forward's partials (one f32 a panel and
+    row)."""
+    return (n * k * (4 + itemsize) + 48 * _PANEL_CHUNK_SLOTS
+            + 4 * n * -(-d // _PANEL_COLS))
+
+
+class _Reuse:
+    """A :func:`reuse_scope`'s state: for each container K6 was called on
+    at a panel shape (by ``id`` of its values, beside a weak reference),
+    the seconds its L2 calls have lost, or ``None`` once it takes the
+    panels; the values whose copies the scope built."""
+
+    def __init__(self):
+        self.lost = {}
+        self.built = []
+
+    def route(self, values, d: int, pullback: bool, free_bytes) -> int:
+        """0 or :data:`PANEL` for a call where :func:`dvector_route` names
+        the panels: L2 until this call's loss would bring the container's
+        to the copy's build (a ski-rental rule: with its estimates, never
+        more than twice the time of the better choice made knowing the
+        calls to come), and then only where the copy fits in
+        ``free_bytes()``."""
+        n, k = (int(s) for s in values.shape)
+        ref, lost = self.lost.get(id(values), (None, 0.0))
+        if ref is None or ref() is not values:
+            ref, lost = weakref.ref(values), 0.0
+        if lost is None:
+            return PANEL
+        loss = _l2_loss_s(n * k, pullback)
+        if (lost + loss >= _panel_build_s(n * k)
+                and _panel_bytes(n, k, d, values.element_size())
+                <= free_bytes()):
+            self.lost[id(values)] = (ref, None)
+            if not hasattr(values, "_dml_panels"):
+                self.built.append(ref)
+            return PANEL
+        self.lost[id(values)] = (ref, lost + loss)
+        return 0
+
+    def close(self):
+        """Drop the copies this scope built."""
+        for ref in self.built:
+            values = ref()
+            if values is not None and hasattr(values, "_dml_panels"):
+                del values._dml_panels
+        self.lost.clear()
+        self.built.clear()
+
+
+_REUSE = threading.local()
+
+
+@contextlib.contextmanager
+def reuse_scope():
+    """The scope of a run that calls K6 again and again on the same
+    containers (the GLM solvers enter one for each run). Within it, where
+    :func:`dvector_route` names the panels, a container's calls take L2
+    until their loss against the panel route reaches what its
+    panel-major copy costs to build, and the panels from then on, where
+    the copy fits in the card's free memory; when the outermost scope
+    ends, the copies it built are dropped. Outside a scope the wrappers
+    take L2 there. Yields the scope's state."""
+    scope = getattr(_REUSE, "scope", None)
+    if scope is not None:
+        yield scope
+        return
+    scope = _REUSE.scope = _Reuse()
+    try:
+        yield scope
+    finally:
+        _REUSE.scope = None
+        scope.close()
+
+
+def _free_bytes(device) -> int:
+    """Device bytes free for a new allocation: the card's and the caching
+    allocator's held but unused."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
+def _auto_route(values, d: int, pullback: bool, scope) -> int:
+    """The route a wrapper takes where its caller names none:
+    :func:`dvector_route`'s, where that is :data:`PANEL` decided by
+    ``scope`` (a :class:`_Reuse`; ``None``: L2)."""
+    n, k = (int(s) for s in values.shape)
+    route = dvector_route(n, k, d, pullback=pullback, dtype=values.dtype)
+    if route != PANEL:
+        return route
+    if scope is None:
+        return 0
+    return scope.route(values, d, pullback,
+                       lambda: _free_bytes(values.device))
+
+
+def _panel_slots(lay: _Panels):
+    """Each slot of the layout, in its order: (rows int64, cols int64,
+    values)."""
+    t = lay.total
+    units = torch.arange(lay.unit_ptr.numel() - 1, device=lay.vals.device)
+    unit = torch.repeat_interleave(units, lay.unit_ptr.diff())
+    w = lay.words[:t].long()
+    rows = (unit % lay.nb) * lay.RB + w // 65536
+    cols = torch.div(unit, lay.nb, rounding_mode="floor") * lay.P + w % 65536
+    return rows, cols, lay.vals[:t]
+
+
+def _spmv_panel_ref(lay: _Panels, v, n: int):
+    """The panel route's forward in plain PyTorch, in its order: each
+    panel's row sums, then the panels added in panel order (on the CPU
+    ``index_add_`` adds a panel's slots in their order, as the kernel
+    does). ``v`` is rounded to the values' dtype, products in f32."""
+    rows, cols, vals = _panel_slots(lay)
+    prods = torch.index_select(v.to(vals.dtype), 0, cols).float() * (
+        vals.float())
+    per = lay.unit_ptr[::lay.nb]  # each panel's first slot, and the end
+    out = torch.zeros(n, dtype=torch.float32, device=vals.device)
+    for p in range(lay.panels):
+        a, b = int(per[p]), int(per[p + 1])
+        out += torch.zeros_like(out).index_add_(0, rows[a:b], prods[a:b])
+    return out
+
+
 def _check_kernel_args(what, values, cols, x, xname):
     """What both K6 wrappers hold their arguments to; returns (n, k). The
     cheapest tests first: at the served shapes a call's host work is most
@@ -393,13 +739,16 @@ def _spmv_cuda(values, cols, v, cluster=None):
     """Launch K6 (``csrc/spmv.cu``) — replaces the TPU kernel
     ``dask_ml_tpu/ops/sparse.py::_spmv_impl``. See the source for what
     bounds it on the H100 and how the design answers that. ``cluster`` is
-    :func:`dvector_plan`'s answer unless the caller (a test, a timing)
+    :func:`dvector_route`'s answer unless the caller (a test, a timing)
     names one: 1 or 2 launch the kernel that keeps ``v`` in shared memory
     (a cluster launch needs sm_90 and is refused at launch where the shape
-    does not fit), 0 the one that gathers from L2. The output and the
-    ``(cluster, n)`` scratch of partial outputs are allocated here; the
-    kernels run on PyTorch's current stream and do not synchronise. bf16
-    values are the kernel's bf16 case (counters ``spmv_bf16`` /
+    does not fit), 0 the one that gathers from L2, :data:`PANEL` the one
+    that keeps ``v`` a panel at a time (:func:`_spmv_panel_cuda`; named by
+    :func:`dvector_route`, it is taken as :func:`reuse_scope` decides).
+    The output and the ``(cluster, n)`` scratch of partial outputs are
+    allocated here; the kernels run on PyTorch's current stream and do
+    not synchronise. bf16 values are the kernel's bf16 case (counters
+    ``spmv_bf16`` /
     ``spmv_l2_bf16``), which multiplies by ``v`` rounded to bf16: the L2
     kernel rounds each entry as it reads it; for the shared-memory kernels
     ``v`` is rounded here, once, and handed over widened to f32, and they
@@ -409,7 +758,10 @@ def _spmv_cuda(values, cols, v, cluster=None):
     bf16 = values.dtype == torch.bfloat16
     suffix = "_bf16" if bf16 else ""
     if cluster is None:
-        cluster = dvector_plan(n, k, d, dtype=values.dtype)
+        cluster = _auto_route(values, d, False,
+                              getattr(_REUSE, "scope", None))
+    if n and cluster == PANEL:
+        return _spmv_panel_cuda(values, cols, v, d, bf16)
     if bf16 and cluster != 0:  # the L2 kernel rounds v as it reads it
         v = v.to(torch.bfloat16).to(torch.float32)
     out = values.new_empty(n, dtype=torch.float32)
@@ -433,6 +785,29 @@ def _spmv_cuda(values, cols, v, cluster=None):
             out.data_ptr(), stream)
         build.check(err, f"SpMV kernel (v in a cluster of {cluster})")
         _kernels.count("spmv" + suffix)
+    return out
+
+
+def _spmv_panel_cuda(values, cols, v, d, bf16):
+    """K6 a panel at a time (``csrc/spmv.cu::spmv_panel_kernel``, counter
+    ``spmv_panel``): the container's panel-major copy (built at the first
+    call, kept on the values), ``v`` rounded to bf16 for bf16 values and
+    handed over as bf16, a ``(panels, n)`` scratch of partial row sums
+    added in panel order by the same call."""
+    n = int(values.shape[0])
+    lay = _panels_of(values, cols, d)
+    if bf16:
+        v = v.to(torch.bfloat16)
+    partial = torch.empty((lay.panels, n), dtype=torch.float32,
+                          device=values.device)
+    out = torch.empty(n, dtype=torch.float32, device=values.device)
+    err = build.load("spmv").dml_spmv_panel(
+        lay.vals.data_ptr(), int(bf16), lay.words.data_ptr(),
+        lay.vals.numel(), lay.unit_ptr.data_ptr(), lay.block_units.data_ptr(),
+        lay.blocks, v.data_ptr(), n, d, lay.P, lay.RB, lay.nb,
+        partial.data_ptr(), out.data_ptr(), build.stream_of(values))
+    build.check(err, "SpMV kernel (v a panel at a time)")
+    _kernels.count("spmv_panel" + ("_bf16" if bf16 else ""))
     return out
 
 
@@ -487,7 +862,8 @@ def _pullback_walk(values, cols, r, d: int, cluster: int) -> str:
     return "ring" if ok else "tiles"
 
 
-def _pullback_cuda(values, cols, r, d, cluster=None, walk="auto"):
+def _pullback_cuda(values, cols, r, d, cluster=None, walk="auto",
+                   scope=None):
     """Launch K6's backward (``csrc/spmv.cu``) — the kernel that takes the
     place of the ``segment_sum`` the JAX package's custom VJP
     (``dask_ml_tpu/ops/sparse.py::_spmv_bwd``) leaves to XLA. One pass
@@ -499,12 +875,18 @@ def _pullback_cuda(values, cols, r, d, cluster=None, walk="auto"):
     :func:`_spmv_cuda`: 1, 2 or 4 keep the low words of ``g`` in every
     cluster's shared memory (the ``(clusters, d)`` scratch of low and high
     words is allocated here), 0 adds with 64-bit atomics on device
-    memory. bf16 values are the kernel's bf16 case (counters
-    ``spmv_pullback_bf16`` / ``spmv_pullback_l2_bf16``): the values are
+    memory, :data:`PANEL` keeps a panel's low words in each block's shared
+    memory (counter ``spmv_pullback_panel``; a ``(pairs, P)`` scratch of
+    low and high words, one row a block and panel it walks). bf16 values
+    are the kernel's bf16 case (counters ``spmv_pullback_bf16`` /
+    ``spmv_pullback_l2_bf16``): the values are
     widened where loaded, ``r`` stays f32; in a cluster their tiles reach
     every block of it through one TMA multicast copy
     (:func:`_pullback_walk`). ``walk`` (a test's or a timing's) names
-    another walk of the bf16 case (:data:`_WALKS`)."""
+    another walk of the bf16 case (:data:`_WALKS`). ``scope`` is the
+    :func:`reuse_scope` that decides the panel route where ``cluster`` is
+    ``None`` (``None``: the thread's; autograd runs a backward on a thread
+    of its own, so the forward hands over its thread's)."""
     n, k = _check_kernel_args("pullback", values, cols, r, "r")
     bf16 = values.dtype == torch.bfloat16
     suffix = "_bf16" if bf16 else ""
@@ -518,12 +900,28 @@ def _pullback_cuda(values, cols, r, d, cluster=None, walk="auto"):
     if n == 0:
         return torch.zeros(d, dtype=torch.float32, device=values.device)
     if cluster is None:
-        cluster = dvector_plan(n, k, d, pullback=True)
+        cluster = _auto_route(values, d, True,
+                              scope or getattr(_REUSE, "scope", None))
     g = torch.empty(d, dtype=torch.float32, device=values.device)
     lib = build.load("spmv")
     stream = build.stream_of(values)
     a_bound = _values_bound(values)
     r_bound = torch.empty(1, dtype=torch.int32, device=values.device)
+    if cluster == PANEL:
+        lay = _panels_of(values, cols, d)
+        words = torch.empty((2, lay.pairs, lay.P), dtype=torch.int32,
+                            device=values.device)
+        err = lib.dml_spmv_pullback_panel(
+            lay.vals.data_ptr(), int(bf16), lay.words.data_ptr(),
+            lay.vals.numel(), lay.unit_ptr.data_ptr(),
+            lay.block_units.data_ptr(), lay.block_pair.data_ptr(),
+            lay.hot.data_ptr(), lay.panel_pairs.data_ptr(), lay.blocks,
+            lay.pairs, r.data_ptr(), n, k, d, lay.P, lay.RB, lay.nb,
+            a_bound.data_ptr(), r_bound.data_ptr(), words[0].data_ptr(),
+            words[1].data_ptr(), g.data_ptr(), stream)
+        build.check(err, "pullback kernel (g a panel at a time)")
+        _kernels.count("spmv_pullback_panel" + suffix)
+        return g
     if cluster == 0:
         acc = torch.empty(d, dtype=torch.int64, device=values.device)
         err = lib.dml_spmv_pullback_atomic(
@@ -558,6 +956,7 @@ class _SpMV(torch.autograd.Function):
         ctx.save_for_backward(values, cols, v)
         ctx.d = d
         ctx.use_kernel = use_kernel
+        ctx.scope = getattr(_REUSE, "scope", None)
         if use_kernel:
             return _spmv_cuda(values, cols, v)
         return _spmv_ref(values, cols, v)
@@ -573,7 +972,8 @@ class _SpMV(torch.autograd.Function):
         if ctx.needs_input_grad[2]:
             if ctx.use_kernel:
                 # autograd may hand over an expanded (stride 0) cotangent
-                dv = _pullback_cuda(values, cols, g.contiguous(), ctx.d)
+                dv = _pullback_cuda(values, cols, g.contiguous(), ctx.d,
+                                    scope=ctx.scope)
             else:
                 dv = _pullback_ref(values, cols, g, ctx.d)
             dv = dv.to(v.dtype)

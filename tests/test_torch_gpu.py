@@ -434,18 +434,19 @@ def _ell_ints(rng, n, k, d, dev, lo=-8, hi=8):
 
 
 def _routes(k, d, pullback, dtype=torch.float32):
-    """Every route the wrappers can be told to take: L2 (cluster 0) and
-    each cluster the direction is built for whose shared memory holds the
-    d-vector for ``dtype`` values."""
+    """Every route the wrappers can be told to take: L2 (cluster 0), each
+    cluster the direction is built for whose shared memory holds the
+    d-vector for ``dtype`` values, and the panel route (any shape)."""
     return [0] + [c for c in sps._PLAN_CLUSTERS[pullback]
-                  if sps._fits(k, d, c, pullback, dtype)]
+                  if sps._fits(k, d, c, pullback, dtype)] + [sps.PANEL]
 
 
 def _forward_launches(suffix=""):
-    """Launches of K6's forward on either route (``suffix``: ``_bf16`` for
+    """Launches of K6's forward on any route (``suffix``: ``_bf16`` for
     the bf16 case)."""
     return (_kernels.launches["spmv" + suffix]
-            + _kernels.launches["spmv_l2" + suffix])
+            + _kernels.launches["spmv_l2" + suffix]
+            + _kernels.launches["spmv_panel" + suffix])
 
 
 @pytest.mark.parametrize("n,k,d", [(1, 1, 7), (1, 101, 100_001),
@@ -2530,3 +2531,157 @@ def test_k2x_span_route_bits(cuda, n, m, d):
             if rn is None:
                 tile = fd._fused_cuda(Z, vals, msk, "argmin_min")
                 assert torch.equal(span[0], tile[0]), (off, key)
+
+
+# ---------------------------------------------------------------------------
+# K6 and K6-b a panel at a time
+# ---------------------------------------------------------------------------
+
+#: d = 2^20 + 1: scikit-learn's hashed width with the intercept's column
+_HASHED_D = 2 ** 20 + 1
+
+
+@pytest.mark.parametrize("pullback", [False, True])
+def test_panel_kernels_refuse_a_panel_beyond_shared_memory(cuda, monkeypatch,
+                                                           pullback):
+    """A layout whose panels hold more columns than one block's shared
+    memory (65,536 f32: 256 KB against 227) is refused at launch, in both
+    directions, and nothing is counted."""
+    monkeypatch.setattr(sps, "_PANEL_COLS", 65_536)
+    rng = np.random.default_rng(7)
+    d = 200_003
+    A = _ell_ints(rng, 100, 3, d, cuda, -2, 2)
+    before = dict(_kernels.launches)
+    with pytest.raises(RuntimeError):
+        if pullback:
+            sps._pullback_cuda(A.values, A.cols, _ints(rng, (100,), cuda), d,
+                               cluster=sps.PANEL)
+        else:
+            sps._spmv_cuda(A.values, A.cols, _ints(rng, (d,), cuda),
+                           cluster=sps.PANEL)
+    assert dict(_kernels.launches) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k,d", [(1, 1, 7), (5_001, 101, _HASHED_D),
+                                   (40_001, 32, 30_011), (3, 1, 60_000),
+                                   (70_001, 101, 500_009),
+                                   (100_000, 2, _HASHED_D),
+                                   (33_333, 7, 2 * 55_992 + 1),
+                                   (1_001, 513, 9_001)])
+def test_panel_kernels_bitexact_int_valued(cuda, n, k, d, dtype):
+    """Both panel kernels against their plain versions, bit for bit on
+    integer data (rows of zeros, duplicate columns, the hot last column,
+    n not a multiple of a unit's rows, a ragged last panel), f32 and bf16;
+    the forward twice for its own bits; one launch each on its counter."""
+    rng = np.random.default_rng(n + k + d)
+    A = _ell_ints(rng, n, k, d, cuda, -4, 4)
+    A.values[::7] = 0.0
+    A.cols[::7] = 0
+    vals = A.values.to(dtype)
+    v = _ints(rng, (d,), cuda, -40, 40)
+    r = _ints(rng, (n,), cuda, -2, 2)
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    before = dict(_kernels.launches)
+    got = sps._spmv_cuda(vals, A.cols, v, cluster=sps.PANEL)
+    assert torch.equal(got, sps._spmv_ref(vals, A.cols, v))
+    assert torch.equal(got, sps._spmv_cuda(vals, A.cols, v,
+                                           cluster=sps.PANEL))
+    got = sps._pullback_cuda(vals, A.cols, r, d, cluster=sps.PANEL)
+    assert torch.equal(got, sps._pullback_ref(vals, A.cols, r, d))
+    assert (_kernels.launches["spmv_panel" + suffix]
+            == before["spmv_panel" + suffix] + 2)
+    assert (_kernels.launches["spmv_pullback_panel" + suffix]
+            == before["spmv_pullback_panel" + suffix] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k,d", [(300_007, 101, _HASHED_D),
+                                   (200_003, 33, 150_001),
+                                   (50_001, 3, 55_992 + 17)])
+def test_panel_pullback_bits_are_the_l2_routes(cuda, n, k, d, dtype):
+    """Float values and cotangent: the panel pullback gives the L2 atomic
+    route's bits (the fixed point), repeats them, with the intercept's hot
+    column in every row (in a panel of its own at d = 55,992 + 17, nearly
+    all its slots); the panel forward repeats its bits and lies within
+    k·2^-23·Σ|a·v| of the plain version."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(n + k)
+    vals = torch.randn((n, k), generator=g, device=cuda).to(dtype)
+    cols = torch.randint(0, d, (n, k), dtype=torch.int32, generator=g,
+                         device=cuda)
+    cols[:, -1] = d - 1
+    vals[:, -1] = 1.0
+    r = torch.randn(n, generator=g, device=cuda) / n
+    l2 = sps._pullback_cuda(vals, cols, r, d, cluster=0)
+    for _ in range(3):
+        assert torch.equal(sps._pullback_cuda(vals, cols, r, d,
+                                              cluster=sps.PANEL), l2)
+    v = torch.randn(d, generator=g, device=cuda)
+    got = sps._spmv_cuda(vals, cols, v, cluster=sps.PANEL)
+    assert torch.equal(got, sps._spmv_cuda(vals, cols, v,
+                                           cluster=sps.PANEL))
+    want = sps._spmv_ref(vals, cols, v)
+    scale = sps._spmv_ref(vals.abs(), cols, v.abs())
+    assert bool(((got - want).abs() <= k * 2.0 ** -23 * scale).all())
+
+
+def test_panel_route_is_the_plan_at_the_hashed_width(cuda):
+    """Where the route function names the panels, ``spmv``'s autograd
+    takes L2 outside a reuse scope; inside one, L2 until the container's
+    calls have lost what its layout costs to build, then the panels both
+    ways (the backward too, on autograd's thread), one layout built and
+    reused, dropped when the scope ends; the gradient equals the plain
+    version's on integer data on either route."""
+    n, k, d = 200_000, 101, _HASHED_D
+    slots = n * k
+    assert slots >= max(sps._PANEL_MIN_SLOTS.values())
+    assert sps.dvector_route(n, k, d) == sps.PANEL
+    assert sps.dvector_route(n, k, d, pullback=True) == sps.PANEL
+    rng = np.random.default_rng(25)
+    A = _ell_ints(rng, n, k, d, cuda, -2, 2)
+    v = _ints(rng, (d,), cuda, -2, 2)
+    v2 = v.clone().requires_grad_(True)
+    (sps.spmv(A, v2, kernel="torch") ** 2).sum().backward()
+
+    def step():
+        before = dict(_kernels.launches)
+        v1 = v.clone().requires_grad_(True)
+        (sps.spmv(A, v1) ** 2).sum().backward()
+        assert torch.equal(v1.grad, v2.grad)
+        return {key: _kernels.launches[key] - before[key]
+                for key in ("spmv_l2", "spmv_panel", "spmv_pullback_l2",
+                            "spmv_pullback_panel")}
+
+    assert step() == {"spmv_l2": 1, "spmv_panel": 0, "spmv_pullback_l2": 1,
+                      "spmv_pullback_panel": 0}
+    assert not hasattr(A.values, "_dml_panels")
+    price, lost = sps._panel_build_s(slots), [0.0]
+
+    def rule(pullback):
+        """The route the scope's rule takes for the next call."""
+        if lost[0] is None:
+            return "panel"
+        loss = sps._l2_loss_s(slots, pullback)
+        if lost[0] + loss >= price:
+            lost[0] = None
+            return "panel"
+        lost[0] += loss
+        return "l2"
+
+    steps = 0
+    with sps.reuse_scope():
+        while lost[0] is not None:
+            want = dict.fromkeys(("spmv_l2", "spmv_panel",
+                                  "spmv_pullback_l2", "spmv_pullback_panel"),
+                                 0)
+            want["spmv_" + rule(False)] = 1
+            want["spmv_pullback_" + rule(True)] = 1
+            assert step() == want
+            steps += 1
+        lay = A.values._dml_panels[4]
+        assert step() == {"spmv_l2": 0, "spmv_panel": 1,
+                          "spmv_pullback_l2": 0, "spmv_pullback_panel": 1}
+        assert A.values._dml_panels[4] is lay
+    assert not hasattr(A.values, "_dml_panels")
+    assert steps > 1

@@ -1012,3 +1012,408 @@ def test_scale_columns_matches_jax():
     ref = (b16.values.float() * (1.0 / torch.as_tensor(scale))[
         b16.cols.long()]).to(torch.bfloat16)
     assert torch.equal(out.values, ref)
+
+
+# ---------------------------------------------------------------------------
+# the d-vector a panel at a time: the route, the layout, its plain forward
+# ---------------------------------------------------------------------------
+
+#: the hashed feature space of scikit-learn's HashingVectorizer (n_features
+#: = 2**20) with the intercept's column
+_HASHED_D = 2 ** 20 + 1
+#: the largest d each direction and dtype holds in a cluster at k = 101
+_LAST_IN_CLUSTER = {(False, torch.float32): 2 * (_BLOCK - _STAGE_101),
+                    (False, torch.bfloat16): 2 * (2 * _BLOCK - 2 * _STAGE_101),
+                    (True, torch.float32): 4 * _BLOCK,
+                    (True, torch.bfloat16): 4 * _BLOCK}
+
+
+@pytest.mark.parametrize("pullback,dtype", list(_LAST_IN_CLUSTER))
+def test_dvector_route_leaves_the_largest_cluster_for_panels(pullback, dtype):
+    """Where each direction and dtype leaves its largest cluster (the f32
+    forward past 100,064 columns at k = 101, the bf16 forward past
+    200,128, the pullback past 232,448), the plan answers 0 and the route
+    is the panel route, given slots enough; below them the route is the
+    plan's cluster, and with too few slots L2."""
+    last = _LAST_IN_CLUSTER[(pullback, dtype)]
+    assert last == {(False, torch.float32): 100_064,
+                    (False, torch.bfloat16): 200_128}.get(
+                        (pullback, dtype), 232_448)
+    n, k = 10_000_000, 101
+    kw = dict(pullback=pullback, dtype=dtype)
+    assert tsps.dvector_plan(n, k, last, **kw) in (2, 4)
+    assert tsps.dvector_route(n, k, last, **kw) == tsps.dvector_plan(
+        n, k, last, **kw)
+    for d in (last + 1, _HASHED_D, 10 * _HASHED_D):
+        assert tsps.dvector_plan(n, k, d, **kw) == 0
+        assert tsps.dvector_route(n, k, d, **kw) == tsps.PANEL
+    least = tsps._PANEL_MIN_SLOTS[pullback]
+    fewest = -(-least // k)
+    assert tsps.dvector_route(fewest, k, last + 1, **kw) == tsps.PANEL
+    assert tsps.dvector_route(fewest - 1, k, last + 1, **kw) == 0
+    # a row wider than a tile: the panel route where d is beyond a
+    # cluster at a tile's widest row, L2 where it is not
+    assert tsps.dvector_route(n, 600, _HASHED_D, **kw) == tsps.PANEL
+    assert tsps.dvector_route(n, 600, 1_000, **kw) == 0
+    assert tsps.dvector_route(0, k, _HASHED_D, **kw) == 0
+
+
+#: chip_smoke.py's SPMV_PATH_SHAPES, the 262-tile edge and the flagship
+_PATH_SHAPES = [(2_048, 10, 100), (53_448, 10, 100), (125_000, 21, 1_001),
+                (1_000_000, 26, 26_001), (250_000, 101, 100_001),
+                (1_000_000, 101, 100_001), (10_000_000, 101, 100_001)]
+
+
+@pytest.mark.parametrize("n,k,d", _PATH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dvector_route_keeps_every_path_shapes_plan(n, k, d, dtype):
+    """Every shape a path launches K6 at keeps its plan: the route is the
+    plan's answer, L2 included (the served request and the edge)."""
+    for pull in (False, True):
+        kw = dict(pullback=pull, dtype=dtype)
+        assert tsps.dvector_route(n, k, d, **kw) == tsps.dvector_plan(
+            n, k, d, **kw)
+
+
+def test_dvector_route_is_the_plan_or_panels():
+    """Random shapes: the route is the plan's cluster where it names one;
+    the panel route only where no cluster holds d at the row's width and
+    the slots reach the threshold."""
+    rng = np.random.RandomState(25)
+    for _ in range(400):
+        n = int(rng.randint(1, 2 * 10 ** 7))
+        k = int(rng.randint(1, 700))
+        d = int(rng.randint(1, 3 * 10 ** 6))
+        for pull in (False, True):
+            for dt in (torch.float32, torch.bfloat16):
+                c = tsps.dvector_plan(n, k, d, pullback=pull, dtype=dt)
+                route = tsps.dvector_route(n, k, d, pullback=pull, dtype=dt)
+                if c:
+                    assert route == c
+                    continue
+                fits = any(tsps._fits(min(k, tsps._MAX_TILE_K), d, s, pull,
+                                      dt)
+                           for s in tsps._PLAN_CLUSTERS[pull])
+                want = (not fits and n * k >= tsps._PANEL_MIN_SLOTS[pull])
+                assert route == (tsps.PANEL if want else 0)
+
+
+def _wide(n, k, dtype=torch.float32):
+    """A values tensor of shape (n, k) that holds one element (the route
+    reads only its shape and dtype)."""
+    return torch.zeros((1, 1), dtype=dtype).expand(n, k)
+
+
+def _rule_routes(slots, pullbacks, price):
+    """The routes the ski-rental rule takes for the calls ``pullbacks``
+    (one bool a call): L2 until a call's loss would bring the sum to
+    ``price``, the panels from that call on."""
+    lost, out = 0.0, []
+    for pull in pullbacks:
+        if lost is not None and lost + tsps._l2_loss_s(slots, pull) < price:
+            lost += tsps._l2_loss_s(slots, pull)
+            out.append(0)
+        else:
+            lost = None
+            out.append(tsps.PANEL)
+    return out
+
+
+@pytest.mark.parametrize("n,k,pattern", [
+    (1_000_000, 101, (False, True, False)),  # the L-BFGS fit's order
+    (10_000_000, 101, (False, True)),
+    (200_000, 101, (True,)),
+    (100_000, 600, (False, False, True)),
+])
+def test_reuse_scope_takes_the_panels_once_the_build_is_paid(n, k, pattern):
+    """Within a reuse scope a container's calls at a panel shape take L2
+    until the next call's loss would bring their sum to the layout's
+    build, then the panels for good, both directions; the decision is
+    the rule's, call for call, and the first panel call comes before the
+    L2 calls have lost twice the build."""
+    d = _HASHED_D
+    slots = n * k
+    values = _wide(n, k)
+    price = tsps._panel_build_s(slots)
+    calls = list(pattern) * 2_000
+    want = _rule_routes(slots, calls, price)
+    assert tsps.PANEL in want
+    with tsps.reuse_scope() as scope:
+        got = [scope.route(values, d, pull, lambda: 1 << 62)
+               for pull in calls]
+    assert got == want
+    first = got.index(tsps.PANEL)
+    assert 0 < first
+    assert got[first:] == [tsps.PANEL] * (len(got) - first)
+    lost = sum(tsps._l2_loss_s(slots, pull) for pull in calls[:first])
+    assert lost < price <= lost + tsps._l2_loss_s(slots, calls[first])
+
+
+def test_reuse_scope_counts_each_container_and_the_free_memory():
+    """Each container pays for its own layout (a second one starts from
+    nothing); one whose route needs more than the free memory stays on
+    L2 (memory read only once the build is paid); the panel bytes count
+    the layout, a chunk's build and the forward's partials."""
+    n, k, d = 1_000_000, 101, _HASHED_D
+    a, b = _wide(n, k), _wide(n, k)
+    need = tsps._panel_bytes(n, k, d, 4)
+    assert need == (n * k * 8 + 48 * tsps._PANEL_CHUNK_SLOTS
+                    + 4 * n * 19)
+    assert tsps._panel_bytes(n, k, d, 2) == need - 2 * n * k
+    asked = []
+
+    def free(bytes_):
+        def read():
+            asked.append(bytes_)
+            return bytes_
+        return read
+
+    with tsps.reuse_scope() as scope:
+        routes = []
+        while tsps.PANEL not in routes:
+            routes.append(scope.route(a, d, False, free(need)))
+        assert len(asked) == 1 and routes[-1] == tsps.PANEL
+        assert scope.route(b, d, False, free(need)) == 0
+        for _ in range(len(routes) * 3):
+            assert scope.route(b, d, True, free(need - 1)) == 0
+        assert asked[1:] and set(asked[1:]) == {need - 1}
+        assert scope.route(a, d, True, free(0)) == tsps.PANEL
+
+
+def test_reuse_scope_nests_and_drops_the_layouts_it_built(monkeypatch):
+    """An inner scope is the outer one; outside every scope the wrappers'
+    route is L2 where the route function names the panels, and their
+    plan elsewhere; when the outer scope ends the layouts it built are
+    gone, one built before it is kept."""
+    monkeypatch.setattr(tsps, "_PANEL_BUILD_S", (0.0, 0.0))
+    rng = np.random.RandomState(4)
+    V, C = _panel_container(rng, 200, 6, 70_000)
+    V0, C0 = _panel_container(rng, 100, 6, 70_000)
+    held = tsps._panels_of(V0, C0, 70_000)
+    assert tsps._auto_route(_wide(10 ** 7, 101), _HASHED_D, False,
+                            None) == 0
+    assert tsps._auto_route(_wide(10 ** 7, 101), 100_001, True,
+                            None) == tsps.dvector_plan(10 ** 7, 101, 100_001,
+                                                       pullback=True)
+    assert tsps._REUSE.__dict__.get("scope") is None
+    with tsps.reuse_scope() as outer:
+        with tsps.reuse_scope() as inner:
+            assert inner is outer
+            assert inner.route(V, 70_000, False, lambda: 1 << 40) == (
+                tsps.PANEL)
+            assert inner.route(V0, 70_000, True, lambda: 1 << 40) == (
+                tsps.PANEL)
+            tsps._panels_of(V, C, 70_000)
+        assert tsps._REUSE.scope is outer
+        assert hasattr(V, "_dml_panels")
+    assert tsps._REUSE.scope is None
+    assert not hasattr(V, "_dml_panels")
+    assert tsps._panels_of(V0, C0, 70_000) is held
+
+
+def test_glm_solvers_each_run_in_a_reuse_scope(monkeypatch):
+    """Every GLM solver's run is one reuse scope of its own (entered and
+    left by the solver), and each member of ``batched_glm_path`` gets its
+    own, as a single fit would."""
+    from dask_ml_tpu_torch.models import glm as glm_core
+
+    seen = []
+    matvec = glm_core._data_matvec
+
+    def spy(X, v, kernel="auto"):
+        seen.append(tsps._REUSE.__dict__.get("scope"))
+        return matvec(X, v, kernel=kernel)
+
+    monkeypatch.setattr(glm_core, "_data_matvec", spy)
+    rng = np.random.RandomState(0)
+    n, k, d = 64, 4, 9
+    A = tsps.SparseRows(
+        torch.as_tensor(rng.standard_normal((n, k)).astype(np.float32)),
+        torch.as_tensor(rng.randint(0, d, (n, k)).astype(np.int32)), d)
+    y = torch.as_tensor((rng.uniform(size=n) > 0.5).astype(np.float32))
+    w = torch.ones(n)
+    b0, mask = torch.zeros(d), torch.ones(d)
+    for solver in ("gradient_descent", "newton", "lbfgs", "proximal_grad",
+                   "admm"):
+        seen.clear()
+        glm_core.solve(solver, A, y, w, b0, mask, max_iter=2)
+        assert seen and None not in seen, solver
+        assert len({id(s) for s in seen}) == 1, solver
+        assert tsps._REUSE.scope is None
+    seen.clear()
+    glm_core.batched_glm_path(A, y, w, b0, mask, [0.1, 1.0], solver="lbfgs",
+                              family="logistic", regularizer="l2",
+                              max_iter=2, tol=0.0)
+    assert None not in seen and len({id(s) for s in seen}) == 2
+
+
+def _panel_container(rng, n, k, d, lo=-4, hi=4, zeros=0.2):
+    """An integer-valued (n, k) container: duplicate columns, the last
+    column hot (the intercept's), value-0 slots, rows of zeros."""
+    cols = rng.randint(0, d, (n, k)).astype(np.int32)
+    vals = rng.randint(lo, hi, (n, k)).astype(np.float32)
+    if k >= 2:
+        cols[:, 1] = cols[:, 0]
+    if k >= 3:
+        cols[:, -1] = d - 1
+    vals[rng.uniform(size=(n, k)) < zeros] = 0.0
+    vals[::7] = 0.0
+    return torch.as_tensor(vals), torch.as_tensor(cols)
+
+
+@pytest.mark.parametrize("n,k,d,rows", [
+    (1_000, 5, _HASHED_D, None),            # d = 2^20 + 1: 21 panels
+    (777, 17, 3 * tsps._PANEL_COLS + 5, None),  # a ragged last panel
+    (300, 1, 2 * tsps._PANEL_COLS, None),  # k = 1, whole panels
+    (1_001, 9, 150_001, 64),        # n not a multiple of a unit's rows
+    (3, 4, 7, None),                # one panel, fewer rows than a unit
+])
+def test_panel_layout_round_trips_to_the_container(n, k, d, rows,
+                                                   monkeypatch):
+    """The panel-major copy holds every nonzero slot of the container
+    once, with its row, column and value; ordered by unit (panel-major),
+    by row within a unit, a row's slots in their order; the units dealt
+    to the blocks whole and in order, each (block, panel) pair once."""
+    if rows is not None:
+        monkeypatch.setattr(tsps, "_panel_rows", lambda n_, p_: rows)
+    rng = np.random.RandomState(n + k)
+    V, C = _panel_container(rng, n, k, d)
+    lay = tsps._panel_layout(V, C, d)
+    P, RB, nb = lay.P, lay.RB, lay.nb
+    assert lay.panels == -(-d // P) and nb == -(-n // RB)
+    assert lay.vals.numel() % 4 == 0 and lay.words.numel() == lay.vals.numel()
+    keep = V.numpy() != 0
+    assert lay.total == int(keep.sum())
+    rows_, cols_, vals_ = (t.numpy() for t in tsps._panel_slots(lay))
+    # every nonzero slot once: (row, slot) order within each unit
+    r_i, s_i = np.nonzero(keep)
+    c_i = C.numpy()[r_i, s_i]
+    unit = (c_i // P) * nb + r_i // RB
+    order = np.lexsort((s_i, r_i, unit))
+    np.testing.assert_array_equal(rows_, r_i[order])
+    np.testing.assert_array_equal(cols_, c_i[order])
+    np.testing.assert_array_equal(vals_, V.numpy()[r_i, s_i][order])
+    ptr = lay.unit_ptr.numpy()
+    np.testing.assert_array_equal(
+        np.diff(ptr), np.bincount(unit, minlength=lay.panels * nb))
+    assert lay.vals[lay.total:].eq(0).all()
+    # the blocks' units and pairs
+    bu = lay.block_units.numpy()
+    assert bu[0] == 0 and bu[-1] == lay.panels * nb
+    assert (np.diff(bu) >= 0).all() and bu.size == lay.blocks + 1
+    pairs = []
+    for j in range(lay.blocks):
+        if bu[j] < bu[j + 1]:
+            assert lay.block_pair[j] == len(pairs)
+            pairs += range(bu[j] // nb, (bu[j + 1] - 1) // nb + 1)
+    assert lay.pairs == len(pairs)
+    pp = lay.panel_pairs.numpy()
+    for p in range(lay.panels):
+        assert list(range(pp[p], pp[p + 1])) == [
+            q for q, x in enumerate(pairs) if x == p]
+    hot = lay.hot.numpy()
+    assert ((0 <= hot) & (hot < P)).all()
+    if k >= 3:  # the hot column's panel names it
+        assert hot[(d - 1) // P] == (d - 1) % P
+
+
+def test_panel_layout_is_kept_until_the_container_changes():
+    """Built once a container and kept on its values tensor: a new
+    ``_version`` of the values or of the cols, other cols or another d
+    build it again."""
+    rng = np.random.RandomState(3)
+    V, C = _panel_container(rng, 200, 6, 70_000)
+    lay = tsps._panels_of(V, C, 70_000)
+    assert tsps._panels_of(V, C, 70_000) is lay
+    assert tsps._panels_of(V, C.clone(), 70_000) is not lay
+    lay = tsps._panels_of(V, C, 70_000)
+    assert tsps._panels_of(V, C, 70_001) is not lay
+    lay = tsps._panels_of(V, C, 70_000)
+    C[0, 0] = 5
+    lay2 = tsps._panels_of(V, C, 70_000)
+    assert lay2 is not lay
+    V[1, 1] = 3.0
+    assert tsps._panels_of(V, C, 70_000) is not lay2
+
+
+@pytest.mark.parametrize("n,k,d", [(2_000, 11, _HASHED_D),
+                                   (500, 101, 150_001),
+                                   (1_000, 1, 2 * tsps._PANEL_COLS + 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_panel_forward_sum_is_the_function(n, k, d, dtype):
+    """The panel route's forward in its own order (each panel's row sums,
+    the panels added in panel order) equals ``_spmv_ref`` bit for bit on
+    integer data, and on float data lies within k·2^-23·Σ|a·v| of it (two
+    orders of the same f32 products: each within (k − 1)·2^-24·Σ|a·v| of
+    the exact sum)."""
+    rng = np.random.RandomState(k)
+    V, C = _panel_container(rng, n, k, d)
+    V = V.to(dtype)
+    v = torch.as_tensor(rng.randint(-40, 40, d).astype(np.float32))
+    lay = tsps._panel_layout(V, C, d)
+    assert torch.equal(tsps._spmv_panel_ref(lay, v, n),
+                       tsps._spmv_ref(V, C, v))
+    Vf = (V.float() * torch.as_tensor(rng.standard_normal((n, k)),
+                                      dtype=torch.float32)).to(dtype)
+    vf = torch.as_tensor(rng.standard_normal(d).astype(np.float32))
+    lay = tsps._panel_layout(Vf, C, d)
+    got = tsps._spmv_panel_ref(lay, vf, n)
+    want = tsps._spmv_ref(Vf, C, vf)
+    scale = tsps._spmv_ref(Vf.abs(), C, vf.abs())
+    assert bool(((got - want).abs() <= k * 2.0 ** -23 * scale).all())
+
+
+@pytest.mark.parametrize("n", [64, 300])
+def test_spmv_at_the_hashed_width_matches_jax(n):
+    """The JAX ``spmv`` at d = 2^20 + 1 (its Pallas kernel in interpret
+    mode where the rows tile, and the XLA reference) against the port's
+    CPU path and its panel-order forward, bit for bit on integer data;
+    the pullbacks too."""
+    rng = np.random.RandomState(n)
+    d = _HASHED_D
+    V, C = _panel_container(rng, n, 8, d, zeros=0.0)
+    A = tsps.SparseRows(V.numpy(), C.numpy(), d)
+    Aj, At = _pair(A)
+    v = rng.randint(-3, 4, d).astype(np.float32)
+    r = rng.randint(-3, 4, n).astype(np.float32)
+    got = tsps.matvec(At, torch.as_tensor(v)).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jsps.matvec(Aj, jnp.asarray(v), kernel="xla")))
+    if n % 64 == 0:
+        np.testing.assert_array_equal(
+            got, np.asarray(jsps.matvec(Aj, jnp.asarray(v),
+                                        kernel="pallas")))
+    lay = tsps._panel_layout(At.values, At.cols, d)
+    np.testing.assert_array_equal(
+        tsps._spmv_panel_ref(lay, torch.as_tensor(v), n).numpy(), got)
+    np.testing.assert_array_equal(
+        tsps.pullback(At, torch.as_tensor(r)).numpy(),
+        np.asarray(jsps.pullback(Aj, jnp.asarray(r))))
+
+
+def test_lbfgs_fit_at_the_hashed_width_matches_jax():
+    """``LogisticRegression(solver="lbfgs")`` on a small sparse problem
+    over d = 2^20 columns (the hashed feature space) against the JAX
+    package: the same ``n_iter_``, coefficients and intercept within
+    ``test_solver_matches_jax``'s tolerance (rtol 1e-4, atol 1e-5)."""
+    from dask_ml_tpu import linear_model as jlm
+    from dask_ml_tpu_torch import linear_model as tlm
+
+    rng = np.random.RandomState(20)
+    n, d, k = 400, 2 ** 20, 12
+    rows = np.repeat(np.arange(n), k)
+    cols = rng.randint(0, d, n * k)
+    cols[::k] = rng.randint(0, 64, n)  # a few columns every row shares
+    data = rng.standard_normal(n * k).astype(np.float32)
+    X = scipy_sparse.csr_matrix((data, (rows, cols)), shape=(n, d))
+    X.sum_duplicates()
+    beta = np.zeros(d, np.float32)
+    beta[:64] = rng.standard_normal(64)
+    y = (X @ beta + 0.3 * rng.standard_normal(n) > 0).astype(np.int64)
+    je = jlm.LogisticRegression(solver="lbfgs", max_iter=20).fit(X, y)
+    te = tlm.LogisticRegression(solver="lbfgs", max_iter=20).fit(X, y)
+    assert te.n_iter_ == je.n_iter_
+    np.testing.assert_allclose(te.coef_, np.asarray(je.coef_), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(te.intercept_, np.asarray(je.intercept_),
+                               rtol=1e-4, atol=1e-5)
